@@ -1,0 +1,382 @@
+"""Closest-hit and any-hit BVH traversal over the wide tables: the wrappers
+of the hand-written CUDA persistent-walker kernels and their plain PyTorch
+versions.
+
+``persist_traverse_closest`` / ``persist_traverse_anyhit`` replace
+rtjax/kernels/pallas_lane_persist.py's functions of the same names (the
+Pallas kernels ``_make_persist_closest_kernel`` and
+``_make_persist_anyhit_kernel``).  A CUDA tensor goes to the kernel in
+``csrc/persist_traverse.cu`` (built at first use, bound with ctypes); a CPU
+tensor goes to the plain version.  There is no fallback between them.
+
+Contract (rtjax's): rays are component triples (or ``[N, 3]``) of float32
+origin and direction, ``tmax [N] f32``, ``active [N] bool`` and, for any-hit,
+``exclude [N] i32`` (a leaf-order prim id that never occludes).  Closest hit
+returns ``hit [N] bool``, ``t [N] f32`` (BIG on a miss or an inactive lane),
+leaf-order ``prim [N] i32`` (-1 on a miss or an inactive lane) and the
+unnormalised normal ``cross(e1, e2)`` (zero on a miss or an inactive lane)
+in the input's layout; any-hit returns ``occluded [N] bool``.
+
+Both versions walk each ray with the same visit order: at a node, slab-test
+every non-empty child against the current tmax; Moeller-Trumbore-test the
+hit leaf children in ascending slot order (all 8 slots of a leaf row
+against the row's entry tmax, the closest strictly-smaller hit wins, then
+tmax shrinks to it); descend into the first hit internal child in the
+node's build-time axis order (reversed when the ray points down that axis)
+and push the rest as one (node, remaining-mask) stack entry; pop when
+nothing was hit.  Any order is exact, because tmax prunes; one shared order
+makes kernel and plain version agree bit for bit, ties included.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import threading
+
+import torch
+
+from ..accel.wide import MAX_LEAF, PID_BASE, WideTables
+from . import _build
+
+STACK = 64                 # the kernels' per-ray stack depth (entries)
+BIG = 3.4e38               # t of a miss / an inactive lane
+_EPS = 2.0 ** -23          # float32 machine epsilon (slab direction clamp)
+
+# kernel launches (wrapper, CUDA path) and plain-version calls, by kernel
+LAUNCHES = {"closest": 0, "anyhit": 0}
+REF_CALLS = {"closest": 0, "anyhit": 0}
+
+_lock = threading.Lock()
+_lib = None
+
+
+def _columns(v):
+    """Component triple or ``[N, 3]`` tensor -> three ``[N]`` columns."""
+    if isinstance(v, (tuple, list)):
+        return tuple(v)
+    return tuple(c.contiguous() for c in v.unbind(-1))
+
+
+def _check(tables: WideTables, o, d, tmax, active, exclude=None):
+    if tables.depth + 1 > STACK:
+        raise ValueError(
+            f"BVH depth {tables.depth} needs {tables.depth + 1} stack "
+            f"entries; the persistent walkers hold {STACK} (deeper trees "
+            "go to the packet kernel, ROADMAP Queue B 3)")
+    dev = tables.node_bounds.device
+    n = tmax.shape[0] if tmax.dim() == 1 else -1
+    cols = [("origin", c, torch.float32) for c in o] + \
+        [("direction", c, torch.float32) for c in d] + \
+        [("tmax", tmax, torch.float32), ("active", active, torch.bool)]
+    if exclude is not None:
+        cols.append(("exclude", exclude, torch.int32))
+    for name, c, dt in cols:
+        if c.device != dev:
+            raise ValueError(f"{name} is on {c.device}, the tables on {dev}")
+        if c.dtype != dt:
+            raise TypeError(f"{name} must be {dt}, got {c.dtype}")
+        if c.dim() != 1 or c.shape[0] != n:
+            raise ValueError(f"{name} must have shape [{n}], got "
+                             f"{tuple(c.shape)}")
+        if not c.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if tables.width not in (8, 16):
+        raise ValueError(f"table width must be 8 or 16, got {tables.width}")
+
+
+def _out_normal(nrm, as_v3):
+    return nrm if as_v3 else torch.stack(nrm, dim=-1)
+
+
+# ------------------------------------------------------------- CUDA path
+
+def _kernels():
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(_build.persist_library()))
+            P, I = ctypes.c_void_p, ctypes.c_int
+            lib.rtjax_persist_closest.argtypes = \
+                [I, P, P, P, P] + [P] * 8 + [I] + [P] * 6 + [P]
+            lib.rtjax_persist_closest.restype = I
+            lib.rtjax_persist_anyhit.argtypes = \
+                [I, P, P, P, P] + [P] * 9 + [I] + [P] + [P]
+            lib.rtjax_persist_anyhit.restype = I
+            _lib = lib
+        return _lib
+
+
+def _table_ptrs(tables: WideTables):
+    return (tables.node_bounds.data_ptr(), tables.child_meta.data_ptr(),
+            tables.node_info.data_ptr(), tables.leaf_tris.data_ptr())
+
+
+def _raise_on(rc: int, name: str):
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+
+
+def _closest_cuda(tables, o, d, tmax, active):
+    n = tmax.shape[0]
+    dev = tmax.device
+    hit = torch.empty(n, dtype=torch.bool, device=dev)
+    t = torch.empty(n, dtype=torch.float32, device=dev)
+    prim = torch.empty(n, dtype=torch.int32, device=dev)
+    nrm = tuple(torch.empty(n, dtype=torch.float32, device=dev)
+                for _ in range(3))
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = _kernels().rtjax_persist_closest(
+        tables.width, *_table_ptrs(tables),
+        *(c.data_ptr() for c in o), *(c.data_ptr() for c in d),
+        tmax.data_ptr(), active.data_ptr(), n,
+        hit.data_ptr(), t.data_ptr(), prim.data_ptr(),
+        *(c.data_ptr() for c in nrm), stream)
+    _raise_on(rc, "persist closest-hit")
+    LAUNCHES["closest"] += 1
+    return hit, t, prim, nrm
+
+
+def _anyhit_cuda(tables, o, d, tmax, exclude, active):
+    n = tmax.shape[0]
+    occ = torch.empty(n, dtype=torch.bool, device=tmax.device)
+    stream = torch.cuda.current_stream(tmax.device).cuda_stream
+    rc = _kernels().rtjax_persist_anyhit(
+        tables.width, *_table_ptrs(tables),
+        *(c.data_ptr() for c in o), *(c.data_ptr() for c in d),
+        tmax.data_ptr(), active.data_ptr(), exclude.data_ptr(), n,
+        occ.data_ptr(), stream)
+    _raise_on(rc, "persist any-hit")
+    LAUNCHES["anyhit"] += 1
+    return occ
+
+
+def persist_traverse_closest(tables: WideTables, origin, direction, tmax,
+                             active):
+    """Closest hit of every active ray: ``(hit, t, prim, normal)``."""
+    as_v3 = isinstance(origin, (tuple, list))
+    o, d = _columns(origin), _columns(direction)
+    _check(tables, o, d, tmax, active)
+    if tmax.device.type == "cuda":
+        hit, t, prim, nrm = _closest_cuda(tables, o, d, tmax, active)
+    elif tmax.device.type == "cpu":
+        hit, t, prim, nrm = persist_traverse_closest_ref(tables, o, d, tmax,
+                                                         active)
+    else:
+        raise ValueError(f"unsupported device {tmax.device}")
+    return hit, t, prim, _out_normal(nrm, as_v3)
+
+
+def persist_traverse_anyhit(tables: WideTables, origin, direction, tmax,
+                            exclude, active):
+    """Occlusion of every active ray, ignoring its ``exclude`` prim."""
+    o, d = _columns(origin), _columns(direction)
+    _check(tables, o, d, tmax, active, exclude)
+    if tmax.device.type == "cuda":
+        return _anyhit_cuda(tables, o, d, tmax, exclude, active)
+    if tmax.device.type == "cpu":
+        return persist_traverse_anyhit_ref(tables, o, d, tmax, exclude,
+                                           active)
+    raise ValueError(f"unsupported device {tmax.device}")
+
+
+# ------------------------------------------------------ plain versions
+
+def _pick(mask, rev, lane):
+    """Next child slot: the lowest set bit of ``mask``, or the highest when
+    ``rev`` (``lane`` = arange(width); 0 for an empty mask)."""
+    bits = ((mask[:, None] >> lane) & 1).to(torch.int32)
+    low = torch.argmax(bits, dim=1)                      # first set bit
+    high = lane.shape[0] - 1 - torch.argmax(bits.flip(1), dim=1)
+    return torch.where(rev != 0, high, low)
+
+
+def _mt8(rows, o, d):
+    """All 8 slots of each ray's leaf row: ``(u, v, t, tri)`` as [R, 8]
+    tensors (tri is the [R, 8, 12] slot view), in the kernels' operation
+    order."""
+    r = rows.shape[0]
+    tri = rows[:, :12 * MAX_LEAF].reshape(r, MAX_LEAF, 12)
+    p0x, p0y, p0z = tri[..., 0], tri[..., 1], tri[..., 2]
+    e1x, e1y, e1z = tri[..., 3], tri[..., 4], tri[..., 5]
+    e2x, e2y, e2z = tri[..., 6], tri[..., 7], tri[..., 8]
+    nx, ny, nz = tri[..., 9], tri[..., 10], tri[..., 11]
+    ox, oy, oz = (c[:, None] for c in o)
+    dx, dy, dz = (c[:, None] for c in d)
+    cx = p0x - ox
+    cy = p0y - oy
+    cz = p0z - oz
+    rx = dy * cz - dz * cy
+    ry = dz * cx - dx * cz
+    rz = dx * cy - dy * cx
+    inv_det = 1.0 / (dx * nx + dy * ny + dz * nz)
+    u = inv_det * (e2x * rx + e2y * ry + e2z * rz)
+    v = inv_det * (e1x * rx + e1y * ry + e1z * rz)
+    t = inv_det * (cx * nx + cy * ny + cz * nz)
+    return u, v, t, tri
+
+
+class _Walk:
+    """Per-ray walk state of the live rays (compacted as rays finish)."""
+
+    def __init__(self, tables, o, d, tmax, active, exclude):
+        ids = torch.nonzero(active).squeeze(1)
+        self.ids = ids
+        self.o = [c[ids] for c in o]
+        self.d = [c[ids] for c in d]
+        safe = [torch.where(torch.abs(c) < _EPS,
+                            torch.copysign(torch.full_like(c, _EPS), c), c)
+                for c in self.d]
+        self.inv = [1.0 / c for c in safe]
+        self.sc = [-oc * ic for oc, ic in zip(self.o, self.inv)]
+        self.octv = ((self.d[0] < 0).long() | ((self.d[1] < 0).long() << 1)
+                     | ((self.d[2] < 0).long() << 2))
+        self.tm = tmax[ids].clone()
+        self.ex = None if exclude is None else exclude[ids]
+        k = ids.shape[0]
+        depth = tables.depth + 1
+        self.cur = torch.zeros(k, dtype=torch.long, device=ids.device)
+        self.sp = torch.zeros(k, dtype=torch.long, device=ids.device)
+        self.stn = torch.zeros(k, depth, dtype=torch.long, device=ids.device)
+        self.stm = torch.zeros(k, depth, dtype=torch.long, device=ids.device)
+
+    _FIELDS = ("ids", "octv", "tm", "ex", "cur", "sp", "stn", "stm")
+
+    def keep(self, m):
+        for f in self._FIELDS:
+            v = getattr(self, f)
+            if v is not None:
+                setattr(self, f, v[m])
+        for f in ("o", "d", "inv", "sc"):
+            setattr(self, f, [c[m] for c in getattr(self, f)])
+
+
+def _walk(tables: WideTables, o, d, tmax, active, on_leaf, exclude=None):
+    """The batched masked walk shared by both plain versions.  Each step
+    pops the rays whose cursor is empty, drops the finished rays, and
+    visits one node per remaining ray.  ``on_leaf(w, rr, rows)`` tests leaf
+    rows for the live rays ``rr`` and returns a [R] bool of rays that are
+    finished (any-hit occlusion)."""
+    width = tables.width
+    nb, lt, ni = tables.node_bounds, tables.leaf_tris, tables.node_info
+    cm = tables.child_meta.view(-1, width)
+    lane = torch.arange(width, device=tmax.device)
+    w = _Walk(tables, o, d, tmax, active, exclude)
+    while True:
+        r = torch.nonzero((w.cur < 0) & (w.sp > 0)).squeeze(1)
+        if r.numel():
+            top = w.sp[r] - 1
+            pnode, pm = w.stn[r, top], w.stm[r, top]
+            m, rev = pm >> 1, pm & 1
+            first = _pick(m, rev, lane)
+            rest = m & ~(1 << first)
+            w.stm[r, top] = (rest << 1) | rev
+            w.sp[r] = torch.where(rest == 0, top, w.sp[r])
+            w.cur[r] = (cm[pnode, first] >> 4).long()
+        live = w.cur >= 0
+        if not bool(live.all()):
+            w.keep(live)
+        k = w.cur.shape[0]
+        if k == 0:
+            return
+
+        rows = nb[w.cur]
+        meta = cm[w.cur].long()
+        info = ni[w.cur].long()
+        lm = info & ((1 << width) - 1)
+        axis = (info >> width) & 3
+        lbit = ((lm[:, None] >> lane) & 1) == 1
+        b = rows[:, :6 * width].reshape(k, width, 6)
+        e = [b[..., j] * w.inv[j][:, None] + w.sc[j][:, None]
+             for j in range(3)]
+        x = [b[..., 3 + j] * w.inv[j][:, None] + w.sc[j][:, None]
+             for j in range(3)]
+        entry = torch.maximum(torch.maximum(torch.minimum(e[0], x[0]),
+                                            torch.minimum(e[1], x[1])),
+                              torch.minimum(e[2], x[2]))
+        exit_ = torch.minimum(torch.minimum(torch.maximum(e[0], x[0]),
+                                            torch.maximum(e[1], x[1])),
+                              torch.maximum(e[2], x[2]))
+        # the fused accept rule of rtjax's _slab: max(entry, 0) <=
+        # min(exit, tmax); empty slots (leaf bit, count 0) never hit
+        hitc = (torch.clamp(entry, min=0.0)
+                <= torch.minimum(exit_, w.tm[:, None])) \
+            & ~(lbit & ((meta & 15) == 0))
+
+        leafhit = hitc & lbit
+        done = torch.zeros(k, dtype=torch.bool, device=tmax.device)
+        for c in range(width):
+            rr = torch.nonzero(leafhit[:, c] & ~done).squeeze(1)
+            if rr.numel() == 0:
+                continue
+            done[rr] = on_leaf(w, rr, lt[meta[rr, c] >> 4])
+
+        inner = ((hitc & ~lbit).long() << lane).sum(1)
+        has = (inner != 0) & ~done
+        rev = (w.octv >> axis) & 1
+        first = _pick(inner, rev, lane)
+        rest = inner & ~(1 << first)
+        rp = torch.nonzero(has & (rest != 0)).squeeze(1)
+        if rp.numel():
+            spp = w.sp[rp]
+            w.stn[rp, spp] = w.cur[rp]
+            w.stm[rp, spp] = (rest[rp] << 1) | rev[rp]
+            w.sp[rp] = spp + 1
+        nxt = (meta.gather(1, first[:, None]).squeeze(1) >> 4)
+        w.cur = torch.where(has, nxt, -1)
+        w.sp = torch.where(done, 0, w.sp)
+
+
+def persist_traverse_closest_ref(tables: WideTables, origin, direction, tmax,
+                                 active):
+    """Plain PyTorch version of :func:`persist_traverse_closest` (same
+    contract, same visit order, any device)."""
+    REF_CALLS["closest"] += 1
+    as_v3 = isinstance(origin, (tuple, list))
+    o, d = _columns(origin), _columns(direction)
+    n = tmax.shape[0]
+    dev = tmax.device
+    best_t = torch.full((n,), BIG, dtype=torch.float32, device=dev)
+    best_p = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    best_n = torch.zeros(n, 3, dtype=torch.float32, device=dev)
+
+    def on_leaf(w, rr, rows):
+        u, v, t, tri = _mt8(rows, [c[rr] for c in w.o], [c[rr] for c in w.d])
+        h = (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) & (t > 0.0) & \
+            (t <= w.tm[rr][:, None]) & (t < BIG)
+        tt = torch.where(h, t, float("inf"))
+        j = torch.argmin(tt, dim=1)          # first of the smallest
+        ok = h.any(dim=1)
+        sel, j = rr[ok], j[ok]
+        row_t = tt[ok].gather(1, j[:, None]).squeeze(1)
+        w.tm[sel] = row_t
+        gid = w.ids[sel]
+        best_t[gid] = row_t
+        best_p[gid] = rows[ok].gather(1, (PID_BASE + j)[:, None]).squeeze(1) \
+            .to(torch.int32)
+        best_n[gid] = tri[ok][torch.arange(sel.shape[0], device=dev), j, 9:12]
+        return torch.zeros(rr.shape[0], dtype=torch.bool, device=dev)
+
+    _walk(tables, o, d, tmax, active, on_leaf)
+    hit = best_p >= 0
+    nrm = (best_n[:, 0], best_n[:, 1], best_n[:, 2])
+    return hit, best_t, best_p, _out_normal(nrm, as_v3)
+
+
+def persist_traverse_anyhit_ref(tables: WideTables, origin, direction, tmax,
+                                exclude, active):
+    """Plain PyTorch version of :func:`persist_traverse_anyhit`."""
+    REF_CALLS["anyhit"] += 1
+    o, d = _columns(origin), _columns(direction)
+    occ = torch.zeros(tmax.shape[0], dtype=torch.bool, device=tmax.device)
+
+    def on_leaf(w, rr, rows):
+        u, v, t, _ = _mt8(rows, [c[rr] for c in w.o], [c[rr] for c in w.d])
+        pid = rows[:, PID_BASE:PID_BASE + MAX_LEAF].to(torch.int32)
+        h = (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) & (t > 0.0) & \
+            (t <= w.tm[rr][:, None]) & (pid != w.ex[rr][:, None])
+        hit = h.any(dim=1)
+        occ[w.ids[rr[hit]]] = True
+        return hit
+
+    _walk(tables, o, d, tmax, active, on_leaf, exclude)
+    return occ

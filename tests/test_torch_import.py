@@ -1,0 +1,73 @@
+"""rtjax_torch imports torch and never JAX, and its build module imports
+(and fails cleanly at build time) where there is no CUDA toolkit."""
+
+import os
+import subprocess
+import sys
+
+import pytest
+
+REPO = os.path.abspath(os.path.join(os.path.dirname(__file__), os.pardir))
+
+MODULES = [
+    "rtjax_torch", "rtjax_torch.constants", "rtjax_torch.config",
+    "rtjax_torch.scenes", "rtjax_torch.core.vec", "rtjax_torch.core.rng",
+    "rtjax_torch.core.sampling", "rtjax_torch.core.geometry",
+    "rtjax_torch.scene.transform", "rtjax_torch.scene.mesh",
+    "rtjax_torch.scene.camera", "rtjax_torch.scene.material",
+    "rtjax_torch.scene.light", "rtjax_torch.scene.scene",
+    "rtjax_torch.accel.bvh", "rtjax_torch.accel.builder_cpp",
+    "rtjax_torch.accel.wide", "rtjax_torch.kernels._build",
+    "rtjax_torch.kernels.persist", "rtjax_torch.render.trace",
+    "rtjax_torch.render.sorting", "rtjax_torch.render.wavefront",
+    "rtjax_torch.render.film",
+]
+
+
+def _run(code, env=None):
+    return subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120,
+                          env=env)
+
+
+def test_port_never_imports_jax():
+    code = ("import importlib, sys\n"
+            f"for m in {MODULES!r}:\n"
+            "    importlib.import_module(m)\n"
+            "assert 'jax' not in sys.modules, sorted(k for k in sys.modules "
+            "if k.startswith('jax'))\n"
+            "assert not any(k == 'rtjax' or k.startswith('rtjax.') "
+            "for k in sys.modules)\n"
+            "print('ok')\n")
+    res = _run(code)
+    assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr
+
+
+def test_kernel_build_without_nvcc_raises(tmp_path):
+    """Without a CUDA toolkit the module imports; asking for the kernel
+    library raises instead of falling back."""
+    env = dict(os.environ, CUDA_HOME=str(tmp_path),
+               PATH=os.pathsep.join(["/usr/bin", "/bin"]))
+    code = ("from rtjax_torch.kernels import _build\n"
+            "try:\n"
+            "    _build.persist_library()\n"
+            "except RuntimeError as e:\n"
+            "    print('raised:', e)\n")
+    res = _run(code, env)
+    assert res.returncode == 0 and "raised: nvcc not found" in res.stdout, \
+        res.stdout + res.stderr
+
+
+@pytest.mark.parametrize("name", ["cuda_home", "path"])
+def test_nvcc_lookup_prefers_cuda_home(tmp_path, monkeypatch, name):
+    from rtjax_torch.kernels import _build
+    fake = tmp_path / "bin" / "nvcc"
+    fake.parent.mkdir()
+    fake.write_text("#!/bin/sh\n")
+    fake.chmod(0o755)
+    if name == "cuda_home":
+        monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    else:
+        monkeypatch.setenv("CUDA_HOME", str(tmp_path / "absent"))
+        monkeypatch.setenv("PATH", str(fake.parent))
+    assert _build.nvcc_path() == str(fake)
