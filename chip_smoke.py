@@ -11,19 +11,41 @@ the script exits non-zero):
 
 0. device: require CUDA; print the card's name and power limit, and the
    torch and CUDA versions;
-1. build: the BVH builder and the traversal kernels from this checkout's
-   sources, into build/rtjax_torch/;
+1. build: the BVH builder and the two kernel libraries from this
+   checkout's sources, into build/rtjax_torch/, all three compilers
+   started together;
 2. scene: the bunny Cornell box (69,463 triangles) on the card;
-3. kernels: each CUDA kernel against its plain PyTorch version on the card
-   at the main path's shapes (2^18 closest-hit rays, 2^19 any-hit rays):
-   zero hit/occlusion mismatches and equal t/prim/normal, plus median
-   times over 5 runs;
+3. kernels: each persistent-walker kernel against its plain PyTorch version
+   on the card at the main path's shapes (2^18 closest-hit rays, 2^19
+   any-hit rays): zero hit/occlusion mismatches and equal t/prim/normal,
+   plus median times over 5 runs;
 4. main path: render_frame of the headline frame (256x256 at 64 spp, 10
    bounces, default RenderConfig): one warm-up and two timed runs; both
    kernels must have launched and no plain version may have run; the image
    must be finite and non-negative and agree with the rtjax render in
    artifacts/ at the noise floor (MSE <= 2x the port's own seed-to-seed MSE
-   plus the 8-bit quantisation term).
+   plus the 8-bit quantisation term);
+5. two-level kernels: eval config 4 (16 instanced bunnies, 1.11M effective
+   triangles) built on the card; each two-level kernel against its plain
+   version at the config's shapes (2^17 closest-hit rays: half camera
+   rays, half random rays over the instance field, 10% inactive; 2^18
+   any-hit rays with random exclusions): zero hit, t, prim, inst, normal
+   and occlusion mismatches, correct dead lanes, median times over 5 runs;
+   then the persist kernels against their plain versions, as in phase 3,
+   at the two other shapes config 4 gives them: the baked scene's tables
+   (the same placements in one single-level scene, 1.11M triangles; 2^17 /
+   2^18 rays) and the shared BLAS with the rays of repass's first pass
+   (each ray in the frame of the nearest instance box it meets, active
+   only where it meets one, no exclusion);
+6. config 4 end to end (256x256 at 8 spp, 5 bounces, default
+   RenderConfig): (a) two_level="auto" (repass over the persist kernels)
+   with seeds 1 (warm-up), 2 and 3; (b) two_level="kernel" (the two-level
+   kernels) with seed 2; (c) the same bunnies baked into one single-level
+   scene, seed 2.  Each run's launch counts are read from zero: (a) and (c)
+   launch only the persist kernels, (b) only the two-level ones, and no
+   plain version runs.  Frames are finite and non-negative; MSE((a),
+   (b)) <= 0.1x and MSE((a), (c)) <= 2x the seed-to-seed MSE of (a) (plus
+   the quantisation term for (c)).  Images go to build/rtjax_torch/.
 
 The last two lines of standard output are a JSON object with per-kernel
 numbers and then ``{"ok": true, "device": {...}}``.
@@ -37,6 +59,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 WIDTH = HEIGHT = 256
@@ -45,13 +68,24 @@ BOUNCES = 10
 ARTIFACT = os.path.join(ROOT, "artifacts", "cornell_bunny_256_64spp.ppm")
 REPS = 5
 
+# config 4 (benchmarks/run_configs.py:198-226)
+C4_SPP = 8
+C4_BOUNCES = 5
+
 KERNELS = {
     "closest": dict(name="persist_traverse_closest",
                     replaces="rtjax/kernels/pallas_lane_persist.py:526"),
     "anyhit": dict(name="persist_traverse_anyhit",
                    replaces="rtjax/kernels/pallas_lane_persist.py:600"),
 }
+INST_KERNELS = {
+    "closest": dict(name="wide_traverse_closest_inst",
+                    replaces="rtjax/kernels/pallas_wide.py:1598"),
+    "anyhit": dict(name="wide_traverse_anyhit_inst",
+                   replaces="rtjax/kernels/pallas_wide.py:1666"),
+}
 SOURCE = "rtjax_torch/csrc/persist_traverse.cu"
+INST_SOURCE = "rtjax_torch/csrc/wide_inst_traverse.cu"
 
 
 def phase0_device():
@@ -72,13 +106,21 @@ def phase0_device():
 
 def phase1_build():
     from rtjax_torch.kernels import _build
+    builds = {"bvh builder": _build.bvh_library,
+              "persist kernels": _build.persist_library,
+              "two-level kernels": _build.wide_inst_library}
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        fn()
+        return time.perf_counter() - t0
+
     t0 = time.perf_counter()
-    _build.bvh_library()
-    t1 = time.perf_counter()
-    _build.persist_library()
-    t2 = time.perf_counter()
-    print(f"[build] bvh builder {t1 - t0:.1f} s, traversal kernels "
-          f"{t2 - t1:.1f} s, into {_build.BUILD_DIR}")
+    with ThreadPoolExecutor(len(builds)) as pool:
+        secs = dict(zip(builds, pool.map(timed, builds.values())))
+    print(f"[build] " + ", ".join(f"{k} {v:.1f} s" for k, v in secs.items())
+          + f" (in parallel, {time.perf_counter() - t0:.1f} s wall), into "
+          f"{_build.BUILD_DIR}")
 
 
 def phase2_scene():
@@ -148,14 +190,15 @@ def _test_rays(scene, camera, gen):
     return closest, anyhit
 
 
-def phase3_kernels(scene, camera, card):
+def _check_persist(label, tab, cl, ah, card):
+    """Hold both persist kernels against their plain versions on ``tab``
+    with the closest-hit rays ``cl`` and the any-hit rays ``ah``: zero
+    hit/occlusion mismatches, equal t/prim/normal and correct dead lanes,
+    or raise.  Returns ``{"closest": (max |t diff|, ms, plain ms),
+    "anyhit": (...)}`` with median times over REPS runs."""
     import torch
     from rtjax_torch.kernels import persist as P
-    gen = torch.Generator(device="cuda").manual_seed(1234)
-    cl, ah = _test_rays(scene, camera, gen)
-    tab = scene.tables
-    results = []
-
+    out = {}
     args = (tab, cl["o"], cl["d"], cl["tmax"], cl["active"])
     hk, tk, pk, nk = P.persist_traverse_closest(*args)
     hp, tp, pp, np_ = P.persist_traverse_closest_ref(*args)
@@ -177,16 +220,18 @@ def phase3_kernels(scene, camera, card):
         if bool(both.any()) else 0.0
     ms = _median_ms(lambda: P.persist_traverse_closest(*args))
     plain_ms = _median_ms(lambda: P.persist_traverse_closest_ref(*args))
-    print(f"[kernel closest] {card}: {cl['tmax'].numel()} rays, "
-          f"{int(hk.sum())} hits, hit mismatches {hit_mis}, t mismatches "
-          f"{t_mis} (max rel diff {rel:.3g}), prim mismatches {prim_mis}, "
-          f"normal mismatches {nrm_mis}, dead lanes ok {dead_ok}; kernel "
-          f"{ms:.3f} ms, plain {plain_ms:.3f} ms (median of {REPS})")
-    if hit_mis or t_mis or prim_mis or nrm_mis or not dead_ok:
-        raise RuntimeError("closest-hit kernel disagrees with its plain "
-                           "version")
-    results.append(dict(KERNELS["closest"], route="cuda", source=SOURCE,
-                        max_abs_err=err, ms=ms, plain_ms=plain_ms))
+    print(f"[{label} closest] {card}: {cl['tmax'].numel()} rays "
+          f"({int(cl['active'].sum())} active) over {tab.width}-wide "
+          f"tables, {int(hk.sum())} hits, hit mismatches {hit_mis}, t "
+          f"mismatches {t_mis} (max rel diff {rel:.3g}), prim mismatches "
+          f"{prim_mis}, normal mismatches {nrm_mis}, dead lanes ok "
+          f"{dead_ok}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms (median "
+          f"of {REPS})")
+    if hit_mis or t_mis or prim_mis or nrm_mis or not dead_ok \
+            or int(hk.sum()) == 0:
+        raise RuntimeError(f"{label}: closest-hit kernel disagrees with its "
+                           "plain version")
+    out["closest"] = (err, ms, plain_ms)
 
     args = (tab, ah["o"], ah["d"], ah["tmax"], ah["exclude"], ah["active"])
     ok_ = P.persist_traverse_anyhit(*args)
@@ -196,16 +241,26 @@ def phase3_kernels(scene, camera, card):
     dead_ok = bool((~ok_[~ah["active"]]).all())
     ms = _median_ms(lambda: P.persist_traverse_anyhit(*args))
     plain_ms = _median_ms(lambda: P.persist_traverse_anyhit_ref(*args))
-    print(f"[kernel anyhit] {card}: {ah['tmax'].numel()} rays, "
-          f"{int(ok_.sum())} occluded, occlusion mismatches {occ_mis}, dead "
-          f"lanes ok {dead_ok}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms "
-          f"(median of {REPS})")
-    if occ_mis or not dead_ok:
-        raise RuntimeError("any-hit kernel disagrees with its plain version")
-    results.append(dict(KERNELS["anyhit"], route="cuda", source=SOURCE,
-                        max_abs_err=float(occ_mis), ms=ms,
-                        plain_ms=plain_ms))
-    return results
+    print(f"[{label} anyhit] {card}: {ah['tmax'].numel()} rays "
+          f"({int(ah['active'].sum())} active) over {tab.width}-wide "
+          f"tables, {int(ok_.sum())} occluded, occlusion mismatches "
+          f"{occ_mis}, dead lanes ok {dead_ok}; kernel {ms:.3f} ms, plain "
+          f"{plain_ms:.3f} ms (median of {REPS})")
+    if occ_mis or not dead_ok or int(ok_.sum()) == 0:
+        raise RuntimeError(f"{label}: any-hit kernel disagrees with its "
+                           "plain version")
+    out["anyhit"] = (float(occ_mis), ms, plain_ms)
+    return out
+
+
+def phase3_kernels(scene, camera, card):
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(1234)
+    cl, ah = _test_rays(scene, camera, gen)
+    out = _check_persist("kernel", scene.tables, cl, ah, card)
+    return [dict(KERNELS[k], route="cuda", source=SOURCE, max_abs_err=err,
+                 ms=ms, plain_ms=plain_ms)
+            for k, (err, ms, plain_ms) in out.items()]
 
 
 def _u8_image(fb):
@@ -272,6 +327,271 @@ def phase4_main_path(scene, camera, card):
     return launches
 
 
+def phase5_scene():
+    from rtjax_torch.scenes import instanced_bunnies, instanced_bunnies_baked
+    t0 = time.perf_counter()
+    scene, camera = instanced_bunnies(device="cuda")
+    secs = time.perf_counter() - t0
+    blas, it = scene.blas[0], scene.inst_tables
+    print(f"[config4 scene] {scene.instances.num} instances of "
+          f"{blas.tris.num} triangles ({scene.instances.num * blas.tris.num}"
+          f" effective) over {scene.tris.num} base triangles; BLAS "
+          f"{blas.tables.num_wide_nodes} {blas.tables.width}-wide nodes, "
+          f"{blas.tables.num_leaf_rows} leaf rows, "
+          f"{blas.tables.nbytes / 2**20:.2f} MiB, depth {blas.tables.depth};"
+          f" concatenated {it.wide.num_wide_nodes} nodes, "
+          f"{it.wide.num_leaf_rows} leaf rows, "
+          f"{it.wide.nbytes / 2**20:.2f} MiB, {it.num_instances} instance "
+          f"records; built in {secs:.1f} s")
+    t0 = time.perf_counter()
+    baked, _ = instanced_bunnies_baked(device="cuda")
+    tab = baked.tables
+    print(f"[config4 baked scene] {baked.tris.num} triangles, "
+          f"{tab.num_wide_nodes} {tab.width}-wide nodes, "
+          f"{tab.num_leaf_rows} leaf rows, {tab.nbytes / 2**20:.2f} MiB, "
+          f"depth {tab.depth}, built in {time.perf_counter() - t0:.1f} s")
+    return scene, baked, camera
+
+
+def _field_rays(scene, camera, gen):
+    """2^17 closest-hit rays (half config-4 camera rays, half random rays
+    over the instance field) and 2^18 shadow-like rays with random base
+    exclusions, half of them toward the area light."""
+    import torch
+    from rtjax_torch.core import vec
+    dev = torch.device("cuda")
+    n = 1 << 17
+    half = n // 2
+    rnd = lambda *s: torch.rand(*s, generator=gen, device=dev)
+    pix = torch.arange(half, device=dev) % (WIDTH * HEIGHT)
+    x = ((pix % WIDTH).float() + rnd(half)) / WIDTH
+    y = ((pix // WIDTH).float() + rnd(half)) / HEIGHT
+    cam_o, cam_d = camera.get_rays_v3(x, y)
+
+    def in_field(m):
+        return (rnd(m) * 6.4 - 3.2, rnd(m) * 1.45 + 0.05, rnd(m) * 6.4 - 3.2)
+
+    def random_dir(m):
+        g = torch.randn(3, m, generator=gen, device=dev)
+        return vec.normalize((g[0], g[1], g[2]))
+
+    o2, d2 = in_field(half), random_dir(half)
+    o = tuple(torch.cat([a, b]).contiguous() for a, b in zip(cam_o, o2))
+    d = tuple(torch.cat([a, b]).contiguous() for a, b in zip(cam_d, d2))
+    closest = dict(o=o, d=d, tmax=torch.full((n,), float("inf"), device=dev),
+                   active=rnd(n) > 0.1)
+
+    m = 2 * n
+    so = in_field(m)
+    light = (rnd(m // 2) * 2 - 1, torch.full((m // 2,), 3.0, device=dev),
+             rnd(m // 2) * 2 - 1)
+    target = tuple(torch.cat([a, b]) for a, b in zip(light, in_field(m // 2)))
+    to = vec.sub(target, so)
+    dist = vec.length(to)
+    sd = tuple(c.contiguous() for c in vec.scale(1.0 / dist, to))
+    ex = torch.randint(-1, scene.tris.num, (m,), generator=gen, device=dev,
+                       dtype=torch.int32)
+    anyhit = dict(o=tuple(c.contiguous() for c in so), d=sd, tmax=dist,
+                  exclude=ex, active=rnd(m) > 0.1)
+    return closest, anyhit
+
+
+def phase5_inst_kernels(scene, camera, card):
+    import torch
+    from rtjax_torch.kernels import wide_inst as WI
+    gen = torch.Generator(device="cuda").manual_seed(4321)
+    cl, ah = _field_rays(scene, camera, gen)
+    it = scene.inst_tables
+    results = []
+
+    args = (it, cl["o"], cl["d"], cl["tmax"], cl["active"])
+    hk, tk, pk, ik, nk = WI.wide_traverse_closest_inst(*args)
+    hp, tp, pp, ip, np_ = WI.wide_traverse_closest_inst_ref(*args)
+    torch.cuda.synchronize()
+    mis = {"hit": int((hk != hp).sum()), "t": int((tk != tp).sum()),
+           "prim": int((pk != pp).sum()), "inst": int((ik != ip).sum()),
+           "normal": int(sum((a != b).sum() for a, b in zip(nk, np_)))}
+    dead = ~cl["active"]
+    dead_ok = bool((~hk[dead]).all() and (tk[dead] == WI.BIG).all()
+                   and (pk[dead] == -1).all() and (ik[dead] == 0).all()
+                   and all((c[dead] == 0).all() for c in nk))
+    both = hk & hp
+    err = float((tk[both] - tp[both]).abs().max()) if bool(both.any()) \
+        else 0.0
+    ms = _median_ms(lambda: WI.wide_traverse_closest_inst(*args))
+    plain_ms = _median_ms(lambda: WI.wide_traverse_closest_inst_ref(*args))
+    print(f"[kernel closest_inst] {card}: {cl['tmax'].numel()} rays, "
+          f"{int(hk.sum())} hits ({int((ik > 0).sum())} on instances, "
+          f"{int(ik.max())} the highest instance), mismatches {mis}, dead "
+          f"lanes ok {dead_ok}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms "
+          f"(median of {REPS})")
+    if any(mis.values()) or not dead_ok or int((ik > 0).sum()) == 0:
+        raise RuntimeError("two-level closest-hit kernel disagrees with its "
+                           "plain version")
+    results.append(dict(INST_KERNELS["closest"], route="cuda",
+                        source=INST_SOURCE, max_abs_err=err, ms=ms,
+                        plain_ms=plain_ms))
+
+    args = (it, ah["o"], ah["d"], ah["tmax"], ah["exclude"], ah["active"])
+    ok_ = WI.wide_traverse_anyhit_inst(*args)
+    op = WI.wide_traverse_anyhit_inst_ref(*args)
+    torch.cuda.synchronize()
+    occ_mis = int((ok_ != op).sum())
+    dead_ok = bool((~ok_[~ah["active"]]).all())
+    ms = _median_ms(lambda: WI.wide_traverse_anyhit_inst(*args))
+    plain_ms = _median_ms(lambda: WI.wide_traverse_anyhit_inst_ref(*args))
+    print(f"[kernel anyhit_inst] {card}: {ah['tmax'].numel()} rays, "
+          f"{int(ok_.sum())} occluded, occlusion mismatches {occ_mis}, dead "
+          f"lanes ok {dead_ok}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms "
+          f"(median of {REPS})")
+    if occ_mis or not dead_ok or int(ok_.sum()) == 0:
+        raise RuntimeError("two-level any-hit kernel disagrees with its "
+                           "plain version")
+    results.append(dict(INST_KERNELS["anyhit"], route="cuda",
+                        source=INST_SOURCE, max_abs_err=float(occ_mis),
+                        ms=ms, plain_ms=plain_ms))
+    return results
+
+
+def _instance_frame(inst, rays):
+    """``rays`` as the first repass pass hands them to the persist kernels:
+    each ray moved into the frame of the nearest instance whose world box
+    it meets, by that instance's world->local rows (the direction not
+    renormalised), active only where it was active and meets a box, with
+    no exclusion."""
+    import torch
+    from rtjax_torch.accel.instancing import (apply_affine_point,
+                                              apply_affine_vector)
+    from rtjax_torch.render.trace import _repass_setup
+    ent, meets = _repass_setup(inst, list(range(inst.num)), rays["o"],
+                               rays["d"])
+    pick = torch.argmin(torch.where(meets, ent, 3.0e38), dim=0)
+    rows = inst.inv[pick]
+    out = dict(rays, o=tuple(c.contiguous()
+                             for c in apply_affine_point(rows, rays["o"])),
+               d=tuple(c.contiguous()
+                       for c in apply_affine_vector(rows, rays["d"])),
+               active=rays["active"] & meets.any(0))
+    if "exclude" in rays:
+        out["exclude"] = torch.full_like(rays["exclude"], -1)
+    return out
+
+
+def phase5_persist(scene, baked, camera, card):
+    """The persist kernels at the two other shapes config 4 gives them:
+    the baked scene's tables, and the shared BLAS under repass."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(5678)
+    cl, ah = _field_rays(baked, camera, gen)
+    _check_persist("config4 baked persist", baked.tables, cl, ah, card)
+    if set(scene.instances.mesh_id) != {0}:
+        raise RuntimeError("config 4 should place one BLAS")
+    cl, ah = _field_rays(scene, camera, gen)
+    _check_persist("config4 blas persist", scene.blas[0].tables,
+                   _instance_frame(scene.instances, cl),
+                   _instance_frame(scene.instances, ah), card)
+
+
+def _drive(scene, camera, cfg, seeds):
+    """Render one frame per seed with every launch count read from zero:
+    ``([(seconds, framebuffer, stats), ...], counts)``."""
+    import torch
+    from rtjax_torch.kernels import persist as P
+    from rtjax_torch.kernels import wide_inst as WI
+    from rtjax_torch.render.wavefront import render_frame
+    counters = (P.LAUNCHES, P.REF_CALLS, WI.LAUNCHES, WI.REF_CALLS)
+    for c in counters:
+        for k in c:
+            c[k] = 0
+    runs = []
+    for seed in seeds:
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fb, stats = render_frame(scene, camera, cfg, gen)
+        torch.cuda.synchronize()
+        runs.append((time.perf_counter() - t0, fb, stats))
+        if not bool(torch.isfinite(fb).all()) or bool((fb < 0).any()):
+            raise RuntimeError("framebuffer has non-finite or negative "
+                               "values")
+    counts = dict(persist=dict(P.LAUNCHES), two_level=dict(WI.LAUNCHES),
+                  plain=sum(P.REF_CALLS.values()) + sum(WI.REF_CALLS.values()))
+    return runs, counts
+
+
+def phase6_config4(scene, baked, camera, card):
+    import dataclasses
+
+    import numpy as np
+    from rtjax_torch import RenderConfig
+    from rtjax_torch.kernels import _build
+    from rtjax_torch.render.film import write_ppm
+
+    cfg = RenderConfig(width=WIDTH, height=HEIGHT, num_samples=C4_SPP,
+                       max_bounces=C4_BOUNCES)
+
+    def report(label, runs, counts):
+        for secs, _, st in runs:
+            print(f"[config4 {label}] {card}: {WIDTH}x{HEIGHT} @ {C4_SPP} "
+                  f"spp, {C4_BOUNCES} bounces, pool {cfg.pool_size}: "
+                  f"{st['iterations']} iterations, {st['rays_traced']:.0f} "
+                  f"rays traced, {secs:.3f} s, "
+                  f"{st['rays_traced'] / secs / 1e6:.3f} Mrays/s")
+        print(f"[config4 {label}] launches {counts}")
+
+    def require(ok, what):
+        if not ok:
+            raise RuntimeError(what)
+
+    a_runs, a = _drive(scene, camera, cfg, (1, 2, 3))
+    report("a: two_level=auto (repass), seeds 1 (warm-up), 2, 3", a_runs, a)
+    its = sum(r[2]["iterations"] for r in a_runs)
+    print(f"[config4 a] repass passes per iteration: closest "
+          f"{a['persist']['closest'] / its - 1:.2f}, any-hit "
+          f"{a['persist']['anyhit'] / its - 1:.2f} (beyond the base launch)")
+    require(min(a["persist"].values()) > 0 and a["plain"] == 0
+            and not any(a["two_level"].values()),
+            "repass did not run through the persist kernels alone")
+
+    b_runs, b = _drive(scene, camera,
+                       dataclasses.replace(cfg, two_level="kernel"), (2,))
+    report("b: two_level=kernel, seed 2", b_runs, b)
+    require(min(b["two_level"].values()) > 0 and b["plain"] == 0
+            and not any(b["persist"].values()),
+            "two_level='kernel' did not run through the two-level kernels "
+            "alone")
+
+    c_runs, c = _drive(baked, camera, cfg, (2,))
+    report("c: baked single-level, seed 2", c_runs, c)
+    require(min(c["persist"].values()) > 0 and c["plain"] == 0,
+            "the baked scene did not run through the persist kernels")
+
+    img_a2, img_a3 = _u8_image(a_runs[1][1]), _u8_image(a_runs[2][1])
+    img_b, img_c = _u8_image(b_runs[0][1]), _u8_image(c_runs[0][1])
+    seed_mse = float(np.mean((img_a2 - img_a3) ** 2))
+    kb_mse = float(np.mean((img_a2 - img_b) ** 2))
+    baked_mse = float(np.mean((img_a2 - img_c) ** 2))
+    quant = 2.0 * (1.0 / 255.0) ** 2 / 12.0
+    names = {"a_seed2": a_runs[1][1], "a_seed3": a_runs[2][1],
+             "b_kernel": b_runs[0][1], "c_baked": c_runs[0][1]}
+    for name, fb in names.items():
+        write_ppm(_build.BUILD_DIR / f"config4_{name}.ppm", fb.cpu().numpy(),
+                  WIDTH, HEIGHT, binary=True)
+    print(f"[config4 image] seed-to-seed MSE {seed_mse:.3e}; kernel vs "
+          f"repass MSE {kb_mse:.3e} (gate {0.1 * seed_mse:.3e}); baked vs "
+          f"instanced MSE {baked_mse:.3e} (gate "
+          f"{2.0 * seed_mse + quant:.3e}); means {img_a2.mean():.4f} "
+          f"{img_b.mean():.4f} {img_c.mean():.4f}; written to "
+          f"{_build.BUILD_DIR}/config4_*.ppm")
+    require(seed_mse > 0.0, "two seeds rendered the same image")
+    require(kb_mse <= 0.1 * seed_mse,
+            "two_level='kernel' and repass images differ beyond ties")
+    require(baked_mse <= 2.0 * seed_mse + quant,
+            "the instanced image differs from the baked one beyond the "
+            "noise floor")
+    return b["two_level"]
+
+
 def main():
     card = phase0_device()
     import torch
@@ -282,7 +602,14 @@ def main():
     for k in kernels:
         k["launches"] = launches["closest" if "closest" in k["name"]
                                  else "anyhit"]
-    print(json.dumps({"kernels": kernels}))
+    c4_scene, baked, c4_camera = phase5_scene()
+    inst_kernels = phase5_inst_kernels(c4_scene, c4_camera, card)
+    phase5_persist(c4_scene, baked, c4_camera, card)
+    inst_launches = phase6_config4(c4_scene, baked, c4_camera, card)
+    for k in inst_kernels:
+        k["launches"] = inst_launches["closest" if "closest" in k["name"]
+                                      else "anyhit"]
+    print(json.dumps({"kernels": kernels + inst_kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

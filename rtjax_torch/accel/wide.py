@@ -305,3 +305,109 @@ def build_wide_tables(res: BuildResult, p0, e1, e2, n_vec, device,
         dict(node_bounds=node_bounds, child_meta=child_meta,
              node_info=node_info, leaf_tris=leaf_tris),
         width=width, depth=res.max_depth, device=device)
+
+
+# ---------------------------------------------- two-level (instanced) tables
+
+@dataclasses.dataclass(frozen=True)
+class InstancedTables:
+    """Concatenated wide tables + per-instance records for the two-level
+    kernels (port of rtjax.kernels.pallas_wide.InstancedTables).
+
+    ``wide``: the base scene's tables and every unique mesh's tables,
+    concatenated with child refs re-offset.  ``root [I] i32``: each
+    instance's BLAS root node.  ``affine [I * 18] f32``: per instance 12
+    world->local affine floats then 6 world-AABB floats (lo, hi).  Instance
+    0 is the base scene: identity transform, root 0."""
+
+    wide: WideTables
+    root: torch.Tensor
+    affine: torch.Tensor
+
+    @property
+    def num_instances(self) -> int:
+        return self.root.shape[0]
+
+
+def _host(a) -> np.ndarray:
+    return a.cpu().numpy() if torch.is_tensor(a) else np.asarray(a)
+
+
+def concat_wide_tables(parts, device):
+    """Concatenate WideTables, re-offsetting child refs: leaf entries
+    (count > 0) get the leaf-row offset, internal entries (count 0, value >
+    0) the node offset, empty slots (0) stay 0.  The bounds-row meta mirror
+    lanes follow the re-offset meta.  Returns ``(tables, node_offsets,
+    leaf_offsets)``."""
+    width = parts[0].width
+    if any(t.width != width for t in parts):
+        raise ValueError("concat_wide_tables needs a uniform node width")
+    total_nodes = sum(t.num_wide_nodes for t in parts)
+    total_leaves = sum(t.num_leaf_rows for t in parts)
+    if total_nodes >= 1 << 20 or total_leaves >= 1 << 20:
+        raise ValueError("concatenated meta refs must stay exact as f32 "
+                         "(< 2^24 after << 4)")
+    node_off, leaf_off = [], []
+    nb, cm, ni, lt = [], [], [], []
+    n_nodes = n_leaves = 0
+    for t in parts:
+        node_off.append(n_nodes)
+        leaf_off.append(n_leaves)
+        cmk = _host(t.child_meta)
+        count = cmk & 15
+        value = cmk >> 4
+        value = np.where(count > 0, value + n_leaves,
+                         np.where(value > 0, value + n_nodes, 0))
+        cmk2 = ((value << 4) | count).astype(np.int32)
+        cm.append(cmk2)
+        nbk = np.array(_host(t.node_bounds))
+        nbk[:, 6 * width:7 * width] = \
+            cmk2.reshape(-1, width).astype(np.float32)
+        nb.append(nbk)
+        ni.append(_host(t.node_info))
+        lt.append(_host(t.leaf_tris))
+        n_nodes += t.num_wide_nodes
+        n_leaves += t.num_leaf_rows
+    tables = WideTables.from_arrays(
+        dict(node_bounds=np.concatenate(nb), child_meta=np.concatenate(cm),
+             node_info=np.concatenate(ni), leaf_tris=np.concatenate(lt)),
+        width=width, depth=max(t.depth for t in parts), device=device)
+    return tables, node_off, leaf_off
+
+
+def build_instanced_tables(base: WideTables, base_lo, base_hi, blas_tables,
+                           instances, device) -> InstancedTables | None:
+    """Assemble the two-level kernel tables; None when a table is missing,
+    the widths differ, or a 16-wide concatenation reaches MAX_NODES16 (the
+    scene builder rebuilds 8-wide first, so both packages build the same
+    tables)."""
+    if base is None or any(t is None for t in blas_tables):
+        return None
+    parts = [base] + list(blas_tables)
+    if len({t.width for t in parts}) != 1:
+        return None
+    if parts[0].width != WIDTH and \
+            sum(t.num_wide_nodes for t in parts) >= MAX_NODES16:
+        return None
+    wide, node_off, _ = concat_wide_tables(parts, device)
+
+    inv = _host(instances.inv).astype(np.float32).reshape(instances.num, 12)
+    lo = _host(instances.aabb_lo).astype(np.float32)
+    hi = _host(instances.aabb_hi).astype(np.float32)
+    ident = np.array([1, 0, 0, 0, 0, 1, 0, 0, 0, 0, 1, 0], np.float32)
+
+    n_inst = 1 + instances.num
+    aff = np.zeros((n_inst, 18), np.float32)
+    root = np.zeros(n_inst, np.int32)
+    aff[0, :12] = ident
+    aff[0, 12:15] = np.asarray(base_lo, np.float32)
+    aff[0, 15:18] = np.asarray(base_hi, np.float32)
+    for i in range(instances.num):
+        aff[1 + i, :12] = inv[i]
+        aff[1 + i, 12:15] = lo[i]
+        aff[1 + i, 15:18] = hi[i]
+        root[1 + i] = node_off[1 + instances.mesh_id[i]]
+    return InstancedTables(wide=wide,
+                           root=torch.tensor(root, device=device),
+                           affine=torch.tensor(aff.reshape(-1),
+                                               device=device))

@@ -4,14 +4,17 @@ under the repository root (a directory that .gitignore lists).
 - the sweep-SAH BVH builder: rtjax's C++ source
   (``rtjax/accel/cpp/bvh_builder.cpp``, a plain C ABI), compiled by g++ with
   rtjax's own flags;
-- the persistent-walker traversal kernels (``rtjax_torch/csrc/*.cu``),
-  compiled by nvcc for ``sm_90a`` into a shared library with a plain C
-  interface, bound with ctypes.
+- the traversal kernels, one shared library with a plain C interface per
+  ``rtjax_torch/csrc/*.cu`` source (the persistent walkers, the two-level
+  kernels; both include ``wide_walk.cuh``), compiled by nvcc for
+  ``sm_90a`` and bound with ctypes.
 
-Each library is rebuilt when a source is newer than it.  A build writes a
-private temporary file and renames it into place, so concurrent processes
-never load a half-written library.  A failed build raises; there is no
-fallback.  Delete ``build/rtjax_torch/`` to force a rebuild.
+Each library is rebuilt when a source or a header it includes is newer
+than it.  A build writes a private temporary file and renames it into
+place, so concurrent processes never load a half-written library; builds
+of different libraries may run at once (one lock per library).  A failed
+build raises; there is no fallback.  Delete ``build/rtjax_torch/`` to force
+a rebuild.
 """
 
 from __future__ import annotations
@@ -27,6 +30,8 @@ BUILD_DIR = REPO_ROOT / "build" / "rtjax_torch"
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BVH_SOURCE = REPO_ROOT / "rtjax" / "accel" / "cpp" / "bvh_builder.cpp"
 PERSIST_SOURCE = CSRC_DIR / "persist_traverse.cu"
+WIDE_INST_SOURCE = CSRC_DIR / "wide_inst_traverse.cu"
+WALK_HEADER = CSRC_DIR / "wide_walk.cuh"
 
 # the BVH builder keeps rtjax's flags: -ffp-contract=off keeps SAH costs
 # free of FMA contraction, so both packages build bit-identical trees
@@ -37,7 +42,8 @@ GXX_FLAGS = ["-O3", "-march=native", "-ffp-contract=off", "-std=c++17",
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "--fmad=false", "-shared", "-Xcompiler", "-fPIC"]
 
-_lock = threading.Lock()
+_locks: dict[str, threading.Lock] = {}
+_locks_lock = threading.Lock()
 
 
 def nvcc_path() -> str:
@@ -52,10 +58,13 @@ def nvcc_path() -> str:
     return found
 
 
-def _build(out: Path, sources: list[Path], cmd_prefix: list[str]) -> Path:
-    with _lock:
+def _build(out: Path, sources: list[Path], cmd_prefix: list[str],
+           headers: tuple[Path, ...] = ()) -> Path:
+    with _locks_lock:
+        lock = _locks.setdefault(out.name, threading.Lock())
+    with lock:
         if out.exists() and all(out.stat().st_mtime >= s.stat().st_mtime
-                                for s in sources):
+                                for s in (*sources, *headers)):
             return out
         out.parent.mkdir(parents=True, exist_ok=True)
         tmp = out.with_name(f".{out.name}.{os.getpid()}.tmp")
@@ -75,6 +84,14 @@ def bvh_library() -> Path:
 
 
 def persist_library() -> Path:
-    """Path of the compiled traversal kernels (built if missing or stale)."""
+    """Path of the compiled persistent-walker kernels (built if missing or
+    stale)."""
     return _build(BUILD_DIR / "libpersist_traverse.so", [PERSIST_SOURCE],
-                  [nvcc_path()] + NVCC_FLAGS)
+                  [nvcc_path()] + NVCC_FLAGS, (WALK_HEADER,))
+
+
+def wide_inst_library() -> Path:
+    """Path of the compiled two-level kernels (built if missing or
+    stale)."""
+    return _build(BUILD_DIR / "libwide_inst_traverse.so", [WIDE_INST_SOURCE],
+                  [nvcc_path()] + NVCC_FLAGS, (WALK_HEADER,))

@@ -190,6 +190,31 @@ def _pick(mask, rev, lane):
     return torch.where(rev != 0, high, low)
 
 
+def slab_pre(o, d):
+    """Per-ray slab precompute: the epsilon-clamped ``1 / d`` and
+    ``-o / d`` (as ``-o * (1 / d)``), component lists."""
+    safe = [torch.where(torch.abs(c) < _EPS,
+                        torch.copysign(torch.full_like(c, _EPS), c), c)
+            for c in d]
+    inv = [1.0 / c for c in safe]
+    return inv, [-oc * ic for oc, ic in zip(o, inv)]
+
+
+def slab(b, inv, sc):
+    """Slab entry and exit of rays against boxes ``b [..., 6]`` (lo, hi),
+    broadcast against the ray columns ``inv`` / ``sc``, in the kernels'
+    operation order."""
+    e = [b[..., j] * inv[j] + sc[j] for j in range(3)]
+    x = [b[..., 3 + j] * inv[j] + sc[j] for j in range(3)]
+    entry = torch.maximum(torch.maximum(torch.minimum(e[0], x[0]),
+                                        torch.minimum(e[1], x[1])),
+                          torch.minimum(e[2], x[2]))
+    exit_ = torch.minimum(torch.minimum(torch.maximum(e[0], x[0]),
+                                        torch.maximum(e[1], x[1])),
+                          torch.maximum(e[2], x[2]))
+    return entry, exit_
+
+
 def _mt8(rows, o, d):
     """All 8 slots of each ray's leaf row: ``(u, v, t, tri)`` as [R, 8]
     tensors (tri is the [R, 8, 12] slot view), in the kernels' operation
@@ -218,23 +243,20 @@ def _mt8(rows, o, d):
 class _Walk:
     """Per-ray walk state of the live rays (compacted as rays finish)."""
 
-    def __init__(self, tables, o, d, tmax, active, exclude):
+    def __init__(self, tables, o, d, tmax, active, exclude, root):
         ids = torch.nonzero(active).squeeze(1)
         self.ids = ids
         self.o = [c[ids] for c in o]
         self.d = [c[ids] for c in d]
-        safe = [torch.where(torch.abs(c) < _EPS,
-                            torch.copysign(torch.full_like(c, _EPS), c), c)
-                for c in self.d]
-        self.inv = [1.0 / c for c in safe]
-        self.sc = [-oc * ic for oc, ic in zip(self.o, self.inv)]
+        self.inv, self.sc = slab_pre(self.o, self.d)
         self.octv = ((self.d[0] < 0).long() | ((self.d[1] < 0).long() << 1)
                      | ((self.d[2] < 0).long() << 2))
         self.tm = tmax[ids].clone()
         self.ex = None if exclude is None else exclude[ids]
         k = ids.shape[0]
         depth = tables.depth + 1
-        self.cur = torch.zeros(k, dtype=torch.long, device=ids.device)
+        self.cur = torch.zeros(k, dtype=torch.long, device=ids.device) \
+            if root is None else root[ids].long()
         self.sp = torch.zeros(k, dtype=torch.long, device=ids.device)
         self.stn = torch.zeros(k, depth, dtype=torch.long, device=ids.device)
         self.stm = torch.zeros(k, depth, dtype=torch.long, device=ids.device)
@@ -250,17 +272,19 @@ class _Walk:
             setattr(self, f, [c[m] for c in getattr(self, f)])
 
 
-def _walk(tables: WideTables, o, d, tmax, active, on_leaf, exclude=None):
-    """The batched masked walk shared by both plain versions.  Each step
+def _walk(tables: WideTables, o, d, tmax, active, on_leaf, exclude=None,
+          root=None):
+    """The batched masked walk shared by the plain versions.  Each step
     pops the rays whose cursor is empty, drops the finished rays, and
     visits one node per remaining ray.  ``on_leaf(w, rr, rows)`` tests leaf
     rows for the live rays ``rr`` and returns a [R] bool of rays that are
-    finished (any-hit occlusion)."""
+    finished (any-hit occlusion).  Each ray starts at node 0, or at its
+    ``root [N]`` entry (a BLAS root in concatenated two-level tables)."""
     width = tables.width
     nb, lt, ni = tables.node_bounds, tables.leaf_tris, tables.node_info
     cm = tables.child_meta.view(-1, width)
     lane = torch.arange(width, device=tmax.device)
-    w = _Walk(tables, o, d, tmax, active, exclude)
+    w = _Walk(tables, o, d, tmax, active, exclude, root)
     while True:
         r = torch.nonzero((w.cur < 0) & (w.sp > 0)).squeeze(1)
         if r.numel():
@@ -286,16 +310,8 @@ def _walk(tables: WideTables, o, d, tmax, active, on_leaf, exclude=None):
         axis = (info >> width) & 3
         lbit = ((lm[:, None] >> lane) & 1) == 1
         b = rows[:, :6 * width].reshape(k, width, 6)
-        e = [b[..., j] * w.inv[j][:, None] + w.sc[j][:, None]
-             for j in range(3)]
-        x = [b[..., 3 + j] * w.inv[j][:, None] + w.sc[j][:, None]
-             for j in range(3)]
-        entry = torch.maximum(torch.maximum(torch.minimum(e[0], x[0]),
-                                            torch.minimum(e[1], x[1])),
-                              torch.minimum(e[2], x[2]))
-        exit_ = torch.minimum(torch.minimum(torch.maximum(e[0], x[0]),
-                                            torch.maximum(e[1], x[1])),
-                              torch.maximum(e[2], x[2]))
+        entry, exit_ = slab(b, [c[:, None] for c in w.inv],
+                            [c[:, None] for c in w.sc])
         # the fused accept rule of rtjax's _slab: max(entry, 0) <=
         # min(exit, tmax); empty slots (leaf bit, count 0) never hit
         hitc = (torch.clamp(entry, min=0.0)
@@ -326,20 +342,14 @@ def _walk(tables: WideTables, o, d, tmax, active, on_leaf, exclude=None):
         w.sp = torch.where(done, 0, w.sp)
 
 
-def persist_traverse_closest_ref(tables: WideTables, origin, direction, tmax,
-                                 active):
-    """Plain PyTorch version of :func:`persist_traverse_closest` (same
-    contract, same visit order, any device)."""
-    REF_CALLS["closest"] += 1
-    as_v3 = isinstance(origin, (tuple, list))
-    o, d = _columns(origin), _columns(direction)
-    n = tmax.shape[0]
-    dev = tmax.device
-    best_t = torch.full((n,), BIG, dtype=torch.float32, device=dev)
-    best_p = torch.full((n,), -1, dtype=torch.int32, device=dev)
-    best_n = torch.zeros(n, 3, dtype=torch.float32, device=dev)
+def closest_leaf(best_t, best_p, best_n, found=None):
+    """``on_leaf`` of the closest-hit walks: the closest accepted slot of
+    each ray's leaf row (the first of equal t) shrinks the ray's tmax and
+    becomes its best ``(t, prim, normal [N, 3])``; ``found [N]``, when
+    given, marks the rays that got a hit."""
 
     def on_leaf(w, rr, rows):
+        dev = rows.device
         u, v, t, tri = _mt8(rows, [c[rr] for c in w.o], [c[rr] for c in w.d])
         h = (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) & (t > 0.0) & \
             (t <= w.tm[rr][:, None]) & (t < BIG)
@@ -354,9 +364,42 @@ def persist_traverse_closest_ref(tables: WideTables, origin, direction, tmax,
         best_p[gid] = rows[ok].gather(1, (PID_BASE + j)[:, None]).squeeze(1) \
             .to(torch.int32)
         best_n[gid] = tri[ok][torch.arange(sel.shape[0], device=dev), j, 9:12]
+        if found is not None:
+            found[gid] = True
         return torch.zeros(rr.shape[0], dtype=torch.bool, device=dev)
 
-    _walk(tables, o, d, tmax, active, on_leaf)
+    return on_leaf
+
+
+def anyhit_leaf(occ):
+    """``on_leaf`` of the any-hit walks: a ray is occluded (and finished)
+    by any accepted slot whose prim is not its excluded one."""
+
+    def on_leaf(w, rr, rows):
+        u, v, t, _ = _mt8(rows, [c[rr] for c in w.o], [c[rr] for c in w.d])
+        pid = rows[:, PID_BASE:PID_BASE + MAX_LEAF].to(torch.int32)
+        h = (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) & (t > 0.0) & \
+            (t <= w.tm[rr][:, None]) & (pid != w.ex[rr][:, None])
+        hit = h.any(dim=1)
+        occ[w.ids[rr[hit]]] = True
+        return hit
+
+    return on_leaf
+
+
+def persist_traverse_closest_ref(tables: WideTables, origin, direction, tmax,
+                                 active):
+    """Plain PyTorch version of :func:`persist_traverse_closest` (same
+    contract, same visit order, any device)."""
+    REF_CALLS["closest"] += 1
+    as_v3 = isinstance(origin, (tuple, list))
+    o, d = _columns(origin), _columns(direction)
+    n = tmax.shape[0]
+    dev = tmax.device
+    best_t = torch.full((n,), BIG, dtype=torch.float32, device=dev)
+    best_p = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    best_n = torch.zeros(n, 3, dtype=torch.float32, device=dev)
+    _walk(tables, o, d, tmax, active, closest_leaf(best_t, best_p, best_n))
     hit = best_p >= 0
     nrm = (best_n[:, 0], best_n[:, 1], best_n[:, 2])
     return hit, best_t, best_p, _out_normal(nrm, as_v3)
@@ -368,15 +411,5 @@ def persist_traverse_anyhit_ref(tables: WideTables, origin, direction, tmax,
     REF_CALLS["anyhit"] += 1
     o, d = _columns(origin), _columns(direction)
     occ = torch.zeros(tmax.shape[0], dtype=torch.bool, device=tmax.device)
-
-    def on_leaf(w, rr, rows):
-        u, v, t, _ = _mt8(rows, [c[rr] for c in w.o], [c[rr] for c in w.d])
-        pid = rows[:, PID_BASE:PID_BASE + MAX_LEAF].to(torch.int32)
-        h = (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) & (t > 0.0) & \
-            (t <= w.tm[rr][:, None]) & (pid != w.ex[rr][:, None])
-        hit = h.any(dim=1)
-        occ[w.ids[rr[hit]]] = True
-        return hit
-
-    _walk(tables, o, d, tmax, active, on_leaf, exclude)
+    _walk(tables, o, d, tmax, active, anyhit_leaf(occ), exclude)
     return occ

@@ -101,10 +101,26 @@ def _blocked_pixel_order(width: int, height: int, block: int = 16):
 
 
 def _compact_bundle_ok(scene, cfg) -> bool:
-    """Ranges of the packed sort bundle: pixel 21 bits, prim+1 23 bits,
-    bounces 7 bits with 127 as the dead sentinel."""
-    return (cfg.num_pixels <= 1 << 21 and scene.tris.num < (1 << 23) - 1
-            and cfg.max_bounces + 1 < 127)
+    """Ranges of the packed sort bundle: pixel 21 bits, prim+1 23 bits (base
+    scene and every BLAS), src 8 bits, bounces 7 bits with 127 as the dead
+    sentinel."""
+    max_prim = max([scene.tris.num] + [b.tris.num for b in scene.blas])
+    num_src = 1 + (scene.instances.num if scene.instances is not None else 0)
+    return (cfg.num_pixels <= 1 << 21 and max_prim < (1 << 23) - 1
+            and num_src <= 1 << 8 and cfg.max_bounces + 1 < 127)
+
+
+def resolve_sort_every(scene, cfg) -> int:
+    """The sort/gen/flush cadence k: ``cfg.sort_every``, or on 0 (auto) 2
+    for scenes of at most 1024 effective triangles (base + every instance's
+    BLAS) and 1 above."""
+    if cfg.sort_every > 0:
+        return cfg.sort_every
+    eff_tris = scene.tris.num
+    if scene.instances is not None:
+        eff_tris += sum(scene.blas[m].tris.num
+                        for m in scene.instances.mesh_id)
+    return 2 if eff_tris <= 1024 else 1
 
 
 def check_slice(scene: Scene, cfg: RenderConfig) -> None:
@@ -235,8 +251,7 @@ def wavefront_step(scene: Scene, camera: Camera, cfg: RenderConfig, words,
     # ---- the sort: the iteration's one compaction step -------------------
     hp_t = torch.where(mat_mask, state.t, 0.0)
     hp = vec.add(state.ray_o, vec.scale(hp_t, state.ray_d))
-    k_req = cfg.sort_every if cfg.sort_every > 0 else (
-        2 if scene.tris.num <= 1024 else 1)
+    k_req = resolve_sort_every(scene, cfg)
     if k_req > 1:
         # sort, gen and flush only every k-th iteration, or when the live
         # part drops below 3/4 of the pool (one device read)
@@ -332,14 +347,14 @@ def wavefront_step(scene: Scene, camera: Camera, cfg: RenderConfig, words,
     ray_o = tuple(c.contiguous() for c in ray_o)
     ray_d = tuple(c.contiguous() for c in ray_d)
     inf = torch.full((n,), float("inf"), dtype=torch.float32, device=dev)
-    hit, ht, hprim, hsrc, hnrm = trace_closest(scene, ray_o, ray_d, inf,
+    hit, ht, hprim, hsrc, hnrm = trace_closest(scene, cfg, ray_o, ray_d, inf,
                                                trace_mask)
     traced = trace_mask.sum(dtype=torch.float64)
     if num_lights > 0:
         # both shadow channels ride one 2N any-hit launch
         cat = lambda a, b: torch.cat([a, b])
         cat3 = lambda a, b: tuple(cat(x, y) for x, y in zip(a, b))
-        occ2 = trace_anyhit(scene, cat3(sh["ah_o"], sh["chs_o"]),
+        occ2 = trace_anyhit(scene, cfg, cat3(sh["ah_o"], sh["chs_o"]),
                             cat3(sh["ah_d"], sh["chs_d"]),
                             cat(sh["ah_tmax"], sh["chs_t"]),
                             cat(sh["ltri"], sh["chs_tgt"]),

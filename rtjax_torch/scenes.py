@@ -4,16 +4,22 @@
 scale 2x -> translate chain) inside a Cornell box of 10 wall triangles with
 a 2-triangle area light of radiance (15, 15, 15), seen by the reference
 camera.  ``cornell_planes`` is the box and light without the bunny.
+``instanced_bunnies`` is BASELINE.md's eval config 4 (16 instances of the
+bunny on a floor under an area light, a two-level BVH), and
+``instanced_bunnies_baked`` the same placements baked into one
+single-level mesh.
 """
 
 from __future__ import annotations
 
 import os
 
+import numpy as np
+
 from .scene import mesh as mesh_mod
 from .scene.camera import Camera
 from .scene.scene import Scene, SceneBuilder
-from .scene.transform import Transform, scale, translate
+from .scene.transform import Transform, rotate, scale, translate
 
 ASSET_DIR = os.path.join(os.path.dirname(__file__), os.pardir, "assets")
 BUNNY_PLY = os.path.abspath(os.path.join(ASSET_DIR, "bun_zipper.ply"))
@@ -95,3 +101,53 @@ def cornell_planes(device) -> tuple[Scene, Camera]:
         b.add_triangles(p0, p1, p2, mats[mat])
     _add_light(b, mats["white"])
     return b.build(device, max_leaf_size=8), _camera(device)
+
+
+def _bunny_field(b: SceneBuilder, place, n_inst: int) -> None:
+    """Config 4's floor, light and bunny placements: ``place(transform,
+    material)`` adds one bunny."""
+    white = b.make_matte((0.73, 0.73, 0.73))
+    brown = b.make_matte((0.62, 0.57, 0.54))
+    red = b.make_matte((0.65, 0.05, 0.05))
+    b.add_triangles([-4, 0, 4], [4, 0, 4], [4, 0, -4], white)
+    b.add_triangles([-4, 0, 4], [-4, 0, -4], [4, 0, -4], white)
+    b.add_area_light((-1, 3.0, -1), (1, 3.0, -1), (1, 3.0, 1),
+                     (40, 40, 40), white)
+    rng = np.random.default_rng(3)
+    for i in range(n_inst):
+        t = Transform(translate(0.0946899, -0.0329874, -0.0587997))
+        t.composite(scale(4.0, 4.0, 4.0))
+        t.composite(rotate([0, 1, 0], rng.uniform(0, 6.28)))
+        t.composite(translate((i % 4) * 1.6 - 2.4, 0.0,
+                              (i // 4) * 1.6 - 2.4))
+        place(t, brown if i % 2 else red)
+
+
+def _field_camera(device) -> Camera:
+    return Camera.make((0, 4.5, 7.5), (0, 0.6, 0), (0, 1, 0), 40, 1.0,
+                       device=device)
+
+
+def instanced_bunnies(device, n_inst: int = 16) -> tuple[Scene, Camera]:
+    """Eval config 4 and its camera: ``n_inst`` instances of one bunny BLAS
+    (16 x 69,451 = 1.11M effective triangles) over a 3-triangle base (floor
+    quad + a one-triangle area light).  Counterpart of
+    benchmarks/run_configs.py's config 4 (lines 198-226); render it at
+    256x256 @ 8 spp, 5 bounces."""
+    mesh = mesh_mod.load_ply(BUNNY_PLY)
+    b = SceneBuilder()
+    mid = b.register_mesh(mesh.vertices, mesh.faces)
+    _bunny_field(b, lambda t, mat: b.add_instance(mid, mat, t), n_inst)
+    return b.build(device), _field_camera(device)
+
+
+def instanced_bunnies_baked(device) -> tuple[Scene, Camera]:
+    """The scene of :func:`instanced_bunnies` with every placement baked
+    into world-space triangles (``add_mesh(..., transform=t)``): one
+    single-level BVH over 1.11M triangles, the control for the two-level
+    path."""
+    mesh = mesh_mod.load_ply(BUNNY_PLY)
+    b = SceneBuilder()
+    _bunny_field(b, lambda t, mat: b.add_mesh(mesh.vertices, mesh.faces, mat,
+                                              transform=t), 16)
+    return b.build(device), _field_camera(device)

@@ -1,5 +1,6 @@
-"""rtjax_torch on a CUDA device: the hand-written kernels against their
-plain PyTorch versions, and the engine's main path through the kernels.
+"""rtjax_torch on a CUDA device: the hand-written kernels (persistent
+walkers and two-level) against their plain PyTorch versions, and the
+engine's main path through the kernels, single-level and instanced.
 
 Every test here is marked ``cuda`` and skips where
 ``torch.cuda.is_available()`` is False.  The file imports no JAX, so on a
@@ -12,6 +13,8 @@ operations (the kernels build with --fmad=false), so they must agree bit
 for bit, ties included.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -20,7 +23,11 @@ from rtjax_torch import RenderConfig
 from rtjax_torch.accel.builder_cpp import build_bvh
 from rtjax_torch.accel.wide import build_wide_tables
 from rtjax_torch.kernels import persist as P
+from rtjax_torch.kernels import wide_inst as WI
 from rtjax_torch.render.wavefront import render_frame
+from rtjax_torch.scene.camera import Camera
+from rtjax_torch.scene.scene import SceneBuilder
+from rtjax_torch.scene.transform import Transform, rotate, scale, translate
 from rtjax_torch.scenes import cornell_planes
 
 pytestmark = pytest.mark.cuda
@@ -98,5 +105,95 @@ def test_main_path_runs_through_the_kernels(cuda):
     assert P.REF_CALLS == refs
     for k in ("closest", "anyhit"):
         assert P.LAUNCHES[k] - launches[k] == stats["iterations"]
+    assert bool(torch.isfinite(fb).all()) and bool((fb >= 0).all())
+    assert stats["rays_traced"] >= 32 * 32 * 8
+
+
+def _instanced(device, n_inst=24):
+    """A floor and light under ``n_inst`` placements (rotated, scaled) of
+    one 300-triangle soup."""
+    rng = np.random.default_rng(5)
+    b = SceneBuilder()
+    white = b.make_matte((0.7, 0.7, 0.7))
+    mats = [b.make_matte((0.6, 0.1, 0.1)), b.make_matte((0.1, 0.5, 0.2))]
+    b.add_triangles([-3, 0, 3], [3, 0, 3], [3, 0, -3], white)
+    b.add_triangles([-3, 0, 3], [-3, 0, -3], [3, 0, -3], white)
+    b.add_area_light((-0.5, 2.0, -0.5), (0.5, 2.0, -0.5), (0.5, 2.0, 0.5),
+                     (20, 20, 20), white)
+    v = rng.uniform(-0.3, 0.3, (900, 3)) + [0.0, 0.35, 0.0]
+    mid = b.register_mesh(v, np.arange(900).reshape(300, 3))
+    for i in range(n_inst):
+        t = Transform(scale(1.0, 0.5 + 0.1 * (i % 5), 1.0))
+        t.composite(rotate([0, 1, 0], 0.61 * i))
+        t.composite(translate((i % 6) * 0.9 - 2.25, 0.0,
+                              (i // 6) * 0.9 - 1.35))
+        b.add_instance(mid, mats[i % 2], t)
+    return b.build(device)
+
+
+@pytest.mark.parametrize("width", [8, 16], ids=["w8", "w16"])
+def test_two_level_kernels_equal_plain_versions(cuda, monkeypatch, width):
+    if width == 8:
+        # a 16-wide node cap below the concatenated node count: base and
+        # BLAS rebuild 8-wide
+        monkeypatch.setattr("rtjax_torch.accel.wide.MAX_NODES16", 2)
+        monkeypatch.setattr("rtjax_torch.scene.scene.MAX_NODES16", 2)
+    it = _instanced(cuda).inst_tables
+    assert it.wide.width == width and it.num_instances == 25
+    n = 3 * 2048 + 300
+    o, d, active, _ = _rays(n, cuda)
+    o = (o[0] * 1.5, o[1].abs() * 0.4 + 0.02, o[2] * 1.5)
+    g = torch.Generator(device=cuda).manual_seed(9)
+    exclude = torch.randint(-1, 3, (n,), generator=g, device=cuda,
+                            dtype=torch.int32)
+    for tmax_v in (float("inf"), 0.7):
+        tmax = torch.full((n,), tmax_v, device=cuda)
+        args = (it, o, d, tmax, active)
+        k_out = WI.wide_traverse_closest_inst(*args)
+        p_out = WI.wide_traverse_closest_inst_ref(*args)
+        torch.cuda.synchronize()
+        for a, b in zip(k_out[:4] + k_out[4], p_out[:4] + p_out[4]):
+            assert torch.equal(a, b)
+        assert int((k_out[3] > 0).sum()) > 300
+        assert not bool(k_out[0][~active].any())
+        args = (it, o, d, tmax, exclude, active)
+        occ = WI.wide_traverse_anyhit_inst(*args)
+        assert torch.equal(occ, WI.wide_traverse_anyhit_inst_ref(*args))
+        assert int(occ.sum()) > 300 and not bool(occ[~active].any())
+
+
+def test_two_level_kernels_refuse_mixed_devices(cuda):
+    it = _instanced(cuda, n_inst=2).inst_tables
+    o, d, active, _ = _rays(64, torch.device("cpu"))
+    with pytest.raises(ValueError, match="tables on cuda"):
+        WI.wide_traverse_closest_inst(it, o, d, torch.ones(64), active)
+    cpu_root = dataclasses.replace(it, root=it.root.cpu())
+    o, d, active, _ = _rays(64, cuda)
+    with pytest.raises(ValueError, match="root is on cpu"):
+        WI.wide_traverse_closest_inst(cpu_root, o, d,
+                                      torch.ones(64, device=cuda), active)
+
+
+@pytest.mark.parametrize("strategy", ["auto", "repass", "kernel"])
+def test_instanced_render_runs_through_the_kernels(cuda, strategy):
+    scene = _instanced(cuda)
+    cam = Camera.make((0, 2.5, 3.5), (0, 0.1, 0), (0, 1, 0), 45, 1.0,
+                      device=cuda)
+    cfg = RenderConfig(width=32, height=32, num_samples=8, max_bounces=4,
+                       num_working_paths=4096, two_level=strategy)
+    counts = lambda: (dict(P.LAUNCHES), dict(WI.LAUNCHES),
+                      dict(P.REF_CALLS), dict(WI.REF_CALLS))
+    p0, w0, pr0, wr0 = counts()
+    fb, stats = render_frame(scene, cam, cfg,
+                             torch.Generator(device=cuda).manual_seed(1))
+    p1, w1, pr1, wr1 = counts()
+    assert (pr1, wr1) == (pr0, wr0)  # no plain version ran
+    its = stats["iterations"]
+    for k in ("closest", "anyhit"):
+        if strategy == "kernel":
+            assert w1[k] - w0[k] == its and p1[k] == p0[k]
+        else:
+            # one base launch per iteration, then the BLAS passes
+            assert p1[k] - p0[k] > its and w1[k] == w0[k]
     assert bool(torch.isfinite(fb).all()) and bool((fb >= 0).all())
     assert stats["rays_traced"] >= 32 * 32 * 8
