@@ -6,7 +6,8 @@ under the repository root (a directory that .gitignore lists).
   rtjax's own flags;
 - the traversal kernels, one shared library with a plain C interface per
   ``rtjax_torch/csrc/*.cu`` source (the persistent walkers, the two-level
-  kernels; both include ``wide_walk.cuh``), compiled by nvcc for
+  kernels, the packet and lane group walks; all include ``wide_walk.cuh``,
+  the group walks also ``group_walk.cuh``), compiled by nvcc for
   ``sm_90a`` and bound with ctypes.
 
 Each library is rebuilt when a source or a header it includes is newer
@@ -31,7 +32,9 @@ CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BVH_SOURCE = REPO_ROOT / "rtjax" / "accel" / "cpp" / "bvh_builder.cpp"
 PERSIST_SOURCE = CSRC_DIR / "persist_traverse.cu"
 WIDE_INST_SOURCE = CSRC_DIR / "wide_inst_traverse.cu"
+PACKET_SOURCE = CSRC_DIR / "packet_traverse.cu"
 WALK_HEADER = CSRC_DIR / "wide_walk.cuh"
+GROUP_HEADER = CSRC_DIR / "group_walk.cuh"
 
 # the BVH builder keeps rtjax's flags: -ffp-contract=off keeps SAH costs
 # free of FMA contraction, so both packages build bit-identical trees
@@ -95,3 +98,10 @@ def wide_inst_library() -> Path:
     stale)."""
     return _build(BUILD_DIR / "libwide_inst_traverse.so", [WIDE_INST_SOURCE],
                   [nvcc_path()] + NVCC_FLAGS, (WALK_HEADER,))
+
+
+def packet_library() -> Path:
+    """Path of the compiled packet and lane kernels (built if missing or
+    stale)."""
+    return _build(BUILD_DIR / "libpacket_traverse.so", [PACKET_SOURCE],
+                  [nvcc_path()] + NVCC_FLAGS, (WALK_HEADER, GROUP_HEADER))

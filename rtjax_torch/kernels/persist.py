@@ -61,8 +61,14 @@ def _check(tables: WideTables, o, d, tmax, active, exclude=None):
     if tables.depth + 1 > STACK:
         raise ValueError(
             f"BVH depth {tables.depth} needs {tables.depth + 1} stack "
-            f"entries; the persistent walkers hold {STACK} (deeper trees "
-            "go to the packet kernel, ROADMAP Queue B 3)")
+            f"entries; the persistent walkers hold {STACK} (the engine sends "
+            "deeper trees to the packet kernel, kernels/wide.py)")
+    check_rays(tables, o, d, tmax, active, exclude)
+
+
+def check_rays(tables: WideTables, o, d, tmax, active, exclude=None):
+    """Raise on rays the kernels do not take: device, dtype, shape and
+    contiguity of every column, and the table width."""
     dev = tables.node_bounds.device
     n = tmax.shape[0] if tmax.dim() == 1 else -1
     cols = [("origin", c, torch.float32) for c in o] + \

@@ -2,59 +2,98 @@
 two-level (instanced) merge (port of rtjax.render.trace).
 
 A hit is identified by ``(src, prim)``: src 0 is the base scene, src k
-instance k - 1, and prim the leaf-order triangle within that mesh.  A
-single-level scene goes through the persistent-walker traversal
-(kernels/persist.py).  An instanced scene takes one of rtjax's two
-strategies, chosen by ``RenderConfig.two_level`` (``two_level_anyhit``
-follows it on "auto"):
+instance k - 1, and prim the leaf-order triangle within that mesh.  Every
+single-level launch (a single-level scene, and each launch of repass)
+picks its kernels by walker with :func:`_backend`, as rtjax's ``_backend``
+does: the persistent walkers (kernels/persist.py), the packet kernels
+(kernels/wide.py) or the lane kernels (kernels/lane.py).  An instanced
+scene takes one of rtjax's two strategies, chosen by
+``RenderConfig.two_level`` (``two_level_anyhit`` follows it on "auto"):
 
-- "repass" (what "auto" resolves to): one persist launch over the base
-  scene, then, per mesh, passes in which every ray walks its nearest
+- "repass" (what "auto" resolves to): one launch over the base scene,
+  then, per mesh, passes in which every ray walks its nearest
   not-yet-walked candidate instance (world-box entry closer than its
-  current t) in its local frame, all rays of a pass in one persist launch
-  over the shared BLAS.  rtjax's ``lax.while_loop`` over passes is a
-  Python loop reading one device value per pass;
+  current t) in its local frame, all rays of a pass in one launch over the
+  shared BLAS.  rtjax's ``lax.while_loop`` over passes is a Python loop
+  reading one device value per pass;
 - "kernel": one launch of the two-level kernels (kernels/wide_inst.py).
 
 Every kernel wrapper launches its CUDA kernel for CUDA tensors and runs
 its plain version for CPU tensors.  rtjax's direct all-triangles loop for
 tiny scenes (``direct_max_tris``) computes the same hits and is not ported
-yet (ROADMAP Queue S 1); nor are the packet and lane kernels (Queue B 3,
-4, 7, 8).
+yet (ROADMAP Queue S 1); nor is rtjax's binary-BVH traversal
+(``traversal="xla"`` and scenes without wide tables, Queue A 18).
 """
 
 from __future__ import annotations
+
+import warnings
+from functools import partial
 
 import torch
 
 from ..accel.instancing import apply_affine_point, apply_affine_vector
 from ..core import vec
+from ..kernels import persist
+from ..kernels.lane import lane_traverse_closest
 from ..kernels.persist import (persist_traverse_anyhit,
                                persist_traverse_closest, slab, slab_pre)
+from ..kernels.wide import wide_traverse_anyhit, wide_traverse_closest
 from ..kernels.wide_inst import (wide_traverse_anyhit_inst,
                                  wide_traverse_closest_inst)
 
 _REPASS_BIG = 3.0e38   # rtjax's "no candidate" entry distance
 
 
+WALKERS = ("auto", "persist", "packet", "lane")
+ANYHIT_WALKERS = ("auto", "persist", "packet")
+_BINARY = ("rtjax's binary-BVH traversal (kernels/traversal.py) is not "
+           "ported yet (ROADMAP Queue A 18)")
+
+
 def check_config(scene, cfg) -> None:
-    """Raise NotImplementedError for configurations outside the port."""
+    """Raise ValueError for walker values rtjax does not name and
+    NotImplementedError for configurations outside the port."""
+    if cfg.walker not in WALKERS:
+        raise ValueError(f"walker must be one of {WALKERS}, got "
+                         f"{cfg.walker!r}")
+    if cfg.anyhit_walker not in ANYHIT_WALKERS:
+        raise ValueError(f"anyhit_walker must be one of {ANYHIT_WALKERS}, "
+                         f"got {cfg.anyhit_walker!r}")
     if cfg.traversal != "auto":
         raise NotImplementedError(
-            f"traversal={cfg.traversal!r}: the port has one traversal "
-            "backend (the persistent walkers); see ROADMAP Queue B")
-    if cfg.walker not in ("auto", "persist"):
-        raise NotImplementedError(
-            f"walker={cfg.walker!r}: the packet and lane kernels are not "
-            "ported yet (ROADMAP Queue B 3, 7)")
-    if cfg.anyhit_walker not in ("auto", "persist"):
-        raise NotImplementedError(
-            f"anyhit_walker={cfg.anyhit_walker!r}: the packet any-hit "
-            "kernel is not ported yet (ROADMAP Queue B 4)")
+            f"traversal={cfg.traversal!r}: the port traverses with its "
+            f"kernels on \"auto\"; {_BINARY}")
     if scene.tables is None:
         raise NotImplementedError(
-            "scenes built with max_leaf_size > 8 have no wide tables; their "
-            "traversal is not ported yet (ROADMAP Queue B 3)")
+            f"scenes built with max_leaf_size > 8 have no wide tables; "
+            f"{_BINARY}")
+
+
+def _backend(tables, cfg):
+    """The ``(closest, anyhit)`` traversal functions for one set of wide
+    tables, by walker, as rtjax's ``_backend`` (trace.py:172-234) picks
+    them.  The persistent walkers take trees whose stack fits
+    ``persist.STACK``: "auto" takes them there and the packet kernels
+    beyond, and "persist" on a deeper tree warns once and takes the packet
+    kernels.  "packet" and "lane" take their kernels at any depth.  The
+    any-hit kernel follows ``anyhit_walker`` alone ("auto" as "persist")."""
+    fits = tables.depth + 1 <= persist.STACK
+    walker = cfg.walker
+    if walker == "auto":
+        walker = "persist" if fits else "packet"
+    elif walker == "persist" and not fits:
+        warnings.warn(f"walker='persist' requested but the tree (depth "
+                      f"{tables.depth}) exceeds the persistent walkers' "
+                      f"{persist.STACK}-entry stack; using the packet walker",
+                      stacklevel=3)
+        walker = "packet"
+    closest = {"persist": persist_traverse_closest,
+               "packet": wide_traverse_closest,
+               "lane": lane_traverse_closest}[walker]
+    anyhit = persist_traverse_anyhit \
+        if cfg.anyhit_walker != "packet" and fits else wide_traverse_anyhit
+    return partial(closest, tables), partial(anyhit, tables)
 
 
 def _resolve_two_level(cfg) -> str:
@@ -72,8 +111,7 @@ def _strategy(scene, tl: str) -> str:
     if scene.inst_tables is None:
         raise NotImplementedError(
             "instanced scenes whose meshes have no wide tables (max_leaf_size"
-            " > 8) need the per-instance loop over the packet kernel, which "
-            "is not ported yet (ROADMAP Queue B 3)")
+            f" > 8) traverse their BLAS one instance at a time; {_BINARY}")
     return tl
 
 
@@ -122,16 +160,16 @@ def _repass_passes(scene, o, d, active, blocked):
                    tuple(c.contiguous() for c in d_l))
 
 
-def _repass_closest(scene, o, d, tmax, active):
+def _repass_closest(scene, cfg, o, d, tmax, active):
     """Two-level closest hit by multi-pass re-dispatch; the normal is
-    LOCAL."""
-    hit, t, prim, n_l = persist_traverse_closest(scene.tables, o, d, tmax,
-                                                 active)
+    LOCAL.  Every launch takes the kernel ``cfg.walker`` picks for its
+    tables."""
+    hit, t, prim, n_l = _backend(scene.tables, cfg)[0](o, d, tmax, active)
     t = torch.where(hit, t, tmax)
     src = torch.zeros_like(prim)
     for tables, pend, src_k, o_l, d_l in _repass_passes(
             scene, o, d, active, lambda ent: ~(ent < t[None])):
-        h2, t2, p2, nl2 = persist_traverse_closest(tables, o_l, d_l, t, pend)
+        h2, t2, p2, nl2 = _backend(tables, cfg)[0](o_l, d_l, t, pend)
         closer = h2 & (t2 < t)
         t = torch.where(closer, t2, t)
         prim = torch.where(closer, p2, prim)
@@ -141,16 +179,16 @@ def _repass_closest(scene, o, d, tmax, active):
     return hit, t, prim, src, n_l
 
 
-def _repass_anyhit(scene, o, d, tmax, exclude, active):
+def _repass_anyhit(scene, cfg, o, d, tmax, exclude, active):
     """Two-level occlusion by multi-pass re-dispatch; the exclusion applies
-    in the base scene only, and occluded rays drop out of later passes."""
-    occ = persist_traverse_anyhit(scene.tables, o, d, tmax, exclude, active)
+    in the base scene only, and occluded rays drop out of later passes.
+    Every launch takes the kernel ``cfg.anyhit_walker`` picks."""
+    occ = _backend(scene.tables, cfg)[1](o, d, tmax, exclude, active)
     no_excl = torch.full_like(exclude, -1)
     for tables, pend, _, o_l, d_l in _repass_passes(
             scene, o, d, active,
             lambda ent: ~(ent < tmax[None]) | occ[None]):
-        occ = occ | persist_traverse_anyhit(tables, o_l, d_l, tmax, no_excl,
-                                            pend)
+        occ = occ | _backend(tables, cfg)[1](o_l, d_l, tmax, no_excl, pend)
     return occ
 
 
@@ -168,12 +206,13 @@ def trace_closest(scene, cfg, o, d, tmax, active):
     unnormalised ``cross(e1, e2)`` of the hit triangle.  ``o`` / ``d`` are
     component triples."""
     if scene.instances is None:
-        hit, t, prim, normal = persist_traverse_closest(scene.tables, o, d,
-                                                        tmax, active)
+        hit, t, prim, normal = _backend(scene.tables, cfg)[0](o, d, tmax,
+                                                              active)
         t = torch.where(hit, t, tmax)
         return hit, t, prim, torch.zeros_like(prim), normal
     if _strategy(scene, _resolve_two_level(cfg)) == "repass":
-        hit, t, prim, src, n_l = _repass_closest(scene, o, d, tmax, active)
+        hit, t, prim, src, n_l = _repass_closest(scene, cfg, o, d, tmax,
+                                                 active)
     else:
         hit, t, prim, src, n_l = wide_traverse_closest_inst(
             scene.inst_tables, o, d, tmax, active)
@@ -184,13 +223,12 @@ def trace_closest(scene, cfg, o, d, tmax, active):
 def trace_anyhit(scene, cfg, o, d, tmax, exclude, active):
     """Occlusion with a per-lane excluded base-scene (leaf-order) prim."""
     if scene.instances is None:
-        return persist_traverse_anyhit(scene.tables, o, d, tmax, exclude,
-                                       active)
+        return _backend(scene.tables, cfg)[1](o, d, tmax, exclude, active)
     tl = cfg.two_level_anyhit
     if tl == "auto":
         tl = _resolve_two_level(cfg)
     if _strategy(scene, tl) == "repass":
-        return _repass_anyhit(scene, o, d, tmax, exclude, active)
+        return _repass_anyhit(scene, cfg, o, d, tmax, exclude, active)
     return wide_traverse_anyhit_inst(scene.inst_tables, o, d, tmax, exclude,
                                      active)
 

@@ -1,6 +1,7 @@
 """rtjax_torch on a CUDA device: the hand-written kernels (persistent
-walkers and two-level) against their plain PyTorch versions, and the
-engine's main path through the kernels, single-level and instanced.
+walkers, two-level, packet and lane group walks) against their plain
+PyTorch versions, and the engine's main path through the kernels,
+single-level and instanced, under every walker.
 
 Every test here is marked ``cuda`` and skips where
 ``torch.cuda.is_available()`` is False.  The file imports no JAX, so on a
@@ -22,7 +23,9 @@ import torch
 from rtjax_torch import RenderConfig
 from rtjax_torch.accel.builder_cpp import build_bvh
 from rtjax_torch.accel.wide import build_wide_tables
+from rtjax_torch.kernels import lane as L
 from rtjax_torch.kernels import persist as P
+from rtjax_torch.kernels import wide as WD
 from rtjax_torch.kernels import wide_inst as WI
 from rtjax_torch.render.wavefront import render_frame
 from rtjax_torch.scene.camera import Camera
@@ -86,6 +89,93 @@ def test_kernels_equal_plain_versions(cuda, width, tmax_v):
     occ = P.persist_traverse_anyhit(*args)
     assert torch.equal(occ, P.persist_traverse_anyhit_ref(*args))
     assert not bool(occ[~active].any())
+
+
+GROUP_WALKS = {
+    "packet": (WD.PACKET, WD.wide_traverse_closest, WD.wide_traverse_anyhit),
+    "lane": (L.LANE, L.lane_traverse_closest, L.lane_traverse_anyhit),
+}
+
+
+@pytest.mark.parametrize("walk", ["packet", "lane"])
+@pytest.mark.parametrize("width", [8, 16], ids=["w8", "w16"])
+@pytest.mark.parametrize("tmax_v", [float("inf"), 0.7], ids=["inf", "0.7"])
+def test_group_kernels_equal_plain_version(cuda, walk, width, tmax_v):
+    """The packet and lane kernels against the plain group walk at their
+    group size: 6,444 rays end in a partial group of either size, 10% of
+    them dead, and a whole dead packet."""
+    group, closest, anyhit = GROUP_WALKS[walk]
+    tables = _soup_tables(width, cuda)
+    n = 3 * 2048 + 300
+    o, d, active, exclude = _rays(n, cuda)
+    active[256:512] = False
+    tmax = torch.full((n,), tmax_v, device=cuda)
+    launches = dict(WD.LAUNCHES), dict(L.LAUNCHES)
+    k_out = closest(tables, o, d, tmax, active)
+    p_out = WD.group_traverse_closest_ref(tables, o, d, tmax, active, group)
+    torch.cuda.synchronize()
+    for a, b in zip(k_out[:3] + k_out[3], p_out[:3] + p_out[3]):
+        assert torch.equal(a, b)
+    assert int(k_out[0].sum()) > 300
+    dead = ~active
+    assert not bool(k_out[0][dead].any())
+    assert bool((k_out[1][dead] == P.BIG).all())
+    assert bool((k_out[2][dead] == -1).all())
+    # hits and t are the persistent walkers' (the prim of a tie may differ)
+    want = P.persist_traverse_closest(tables, o, d, tmax, active)
+    assert torch.equal(k_out[0], want[0]) and torch.equal(k_out[1], want[1])
+    args = (tables, o, d, tmax, exclude, active)
+    occ = anyhit(*args)
+    assert torch.equal(occ, WD.group_traverse_anyhit_ref(*args, group))
+    assert torch.equal(occ, P.persist_traverse_anyhit(*args))
+    assert not bool(occ[dead].any())
+    count = WD.LAUNCHES if walk == "packet" else L.LAUNCHES
+    before = launches[0] if walk == "packet" else launches[1]
+    assert count == {k: v + 1 for k, v in before.items()}
+
+
+def test_group_kernels_take_any_depth(cuda):
+    """A stack sized beyond the persist walkers' (the group's stack lives
+    in shared memory, sized from the tree depth)."""
+    tables = dataclasses.replace(_soup_tables(8, cuda), depth=4 * P.STACK)
+    n = 2048
+    o, d, active, exclude = _rays(n, cuda)
+    tmax = torch.full((n,), float("inf"), device=cuda)
+    for group, closest, anyhit in GROUP_WALKS.values():
+        k_out = closest(tables, o, d, tmax, active)
+        p_out = WD.group_traverse_closest_ref(tables, o, d, tmax, active,
+                                              group)
+        torch.cuda.synchronize()
+        assert torch.equal(k_out[1], p_out[1])
+        args = (tables, o, d, tmax, exclude, active)
+        assert torch.equal(anyhit(*args),
+                           WD.group_traverse_anyhit_ref(*args, group))
+
+
+@pytest.mark.parametrize("walker, anyhit_walker", [
+    ("packet", "packet"), ("lane", "auto")])
+def test_walkers_run_through_their_kernels(cuda, walker, anyhit_walker):
+    scene, cam = cornell_planes(cuda)
+    cfg = RenderConfig(width=32, height=32, num_samples=8, max_bounces=4,
+                       num_working_paths=4096, walker=walker,
+                       anyhit_walker=anyhit_walker)
+    counters = (P.LAUNCHES, WD.LAUNCHES, L.LAUNCHES)
+    before = [dict(c) for c in counters]
+    refs = dict(P.REF_CALLS), dict(WD.REF_CALLS)
+    fb, stats = render_frame(scene, cam, cfg,
+                             torch.Generator(device=cuda).manual_seed(1))
+    assert (P.REF_CALLS, WD.REF_CALLS) == refs
+    its = stats["iterations"]
+    ran = [{k: c[k] - b[k] for k in c} for c, b in zip(counters, before)]
+    if walker == "packet":
+        assert ran == [{"closest": 0, "anyhit": 0},
+                       {"closest": its, "anyhit": its},
+                       {"closest": 0, "anyhit": 0}]
+    else:
+        assert ran == [{"closest": 0, "anyhit": its},
+                       {"closest": 0, "anyhit": 0},
+                       {"closest": its, "anyhit": 0}]
+    assert bool(torch.isfinite(fb).all()) and bool((fb >= 0).all())
 
 
 def test_kernels_refuse_mixed_devices(cuda):

@@ -19,7 +19,8 @@ MODULES = [
     "rtjax_torch.accel.bvh", "rtjax_torch.accel.builder_cpp",
     "rtjax_torch.accel.wide", "rtjax_torch.accel.instancing",
     "rtjax_torch.kernels._build", "rtjax_torch.kernels.persist",
-    "rtjax_torch.kernels.wide_inst", "rtjax_torch.render.trace",
+    "rtjax_torch.kernels.wide_inst", "rtjax_torch.kernels.wide",
+    "rtjax_torch.kernels.lane", "rtjax_torch.render.trace",
     "rtjax_torch.render.sorting", "rtjax_torch.render.wavefront",
     "rtjax_torch.render.film",
 ]
@@ -87,10 +88,24 @@ def test_two_level_build_without_nvcc_raises(tmp_path):
         res.stdout + res.stderr
 
 
+def test_packet_build_without_nvcc_raises(tmp_path):
+    env = dict(os.environ, CUDA_HOME=str(tmp_path),
+               PATH=os.pathsep.join(["/usr/bin", "/bin"]))
+    code = ("from rtjax_torch.kernels import _build\n"
+            "try:\n"
+            "    _build.packet_library()\n"
+            "except RuntimeError as e:\n"
+            "    print('raised:', e)\n")
+    res = _run(code, env)
+    assert res.returncode == 0 and "raised: nvcc not found" in res.stdout, \
+        res.stdout + res.stderr
+
+
 def test_kernel_libraries_rebuild_when_the_shared_header_changes(
         tmp_path, monkeypatch):
-    """Both kernel libraries include wide_walk.cuh: a newer header makes
-    them stale.  (A stand-in nvcc writes the -o file.)"""
+    """Every kernel library includes wide_walk.cuh, the packet library also
+    group_walk.cuh: a newer header makes them stale.  (A stand-in nvcc
+    writes the -o file.)"""
     from rtjax_torch.kernels import _build
     fake = tmp_path / "bin" / "nvcc"
     fake.parent.mkdir()
@@ -101,13 +116,20 @@ def test_kernel_libraries_rebuild_when_the_shared_header_changes(
     header.write_text("// header\n")
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "out")
+    group = tmp_path / "group_walk.cuh"
+    group.write_text("// header\n")
     monkeypatch.setattr(_build, "WALK_HEADER", header)
-    for build in (_build.persist_library, _build.wide_inst_library):
+    monkeypatch.setattr(_build, "GROUP_HEADER", group)
+    for build, h in ((_build.persist_library, header),
+                     (_build.wide_inst_library, header),
+                     (_build.packet_library, header),
+                     (_build.packet_library, group)):
         os.utime(header, (0, 0))
+        os.utime(group, (0, 0))
         lib = build()
         assert lib.read_text() == "built\n"
         future = lib.stat().st_mtime + 100
         os.utime(lib, (future, future))
         assert build().stat().st_mtime == future   # fresh: not rebuilt
-        os.utime(header, (future + 100, future + 100))
+        os.utime(h, (future + 100, future + 100))
         assert build().stat().st_mtime != future   # header newer: rebuilt

@@ -636,5 +636,5 @@ def test_instanced_scene_without_wide_tables_raises():
     cfg = RenderConfig(width=8, height=8, num_samples=1, max_bounces=1,
                        num_working_paths=256)
     cam = Camera.make(*_RENDER_CAM, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue B 3"):
+    with pytest.raises(NotImplementedError, match="Queue A 18"):
         wf.render_frame(scene, cam, cfg, torch.Generator())

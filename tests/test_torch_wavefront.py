@@ -205,8 +205,8 @@ def test_config_matches_rtjax_sizes_and_validates():
     (dict(reference_parity=True), "Queue A 13"),
     (dict(one_sample_mis=True), "Queue A 13"),
     (dict(detailed_stats=True), "Queue S 3"),
-    (dict(walker="packet"), "Queue B 3"),
-    (dict(traversal="xla"), "Queue B"),
+    (dict(sort_key="prim"), "Queue S 4"),
+    (dict(traversal="xla"), "Queue A 18"),
     (dict(sort_key="adaptive"), "Queue S 4"),
     (dict(sort_rays=False), "Queue S 4"),
 ], ids=lambda v: str(v) if isinstance(v, dict) else v)
