@@ -13,37 +13,49 @@ the script exits non-zero):
    torch and CUDA versions;
 1. build: the BVH builder and the three kernel libraries from this
    checkout's sources, into build/rtjax_torch/, all four compilers
-   started together;
+   started together; ptxas's registers, stack frame and spills of the
+   persist kernels (both designs, widths 8 and 16);
 2. scene: the bunny Cornell box (69,463 triangles) on the card;
-3. kernels: each persistent-walker kernel against its plain PyTorch version
-   on the card at the main path's shapes (2^18 closest-hit rays, 2^19
-   any-hit rays): zero hit/occlusion mismatches and equal t/prim/normal,
-   plus median times over 5 runs; then the packet and lane kernels against
-   the plain group walk on the same rays: zero hit, t, prim, normal and
-   occlusion mismatches, correct dead lanes, hits and occlusion equal to
-   the persist kernels' (the equal-t ties, where the two walks may keep
-   another prim, are counted), kernel medians over 5 runs and one timed
-   plain call;
+3. kernels: each persistent-walker kernel, in the fetch design that the
+   engine runs and in the first (stride) design, against its plain PyTorch
+   version on the card at the main path's shapes (2^18 closest-hit rays,
+   2^19 any-hit rays): zero hit/occlusion mismatches, equal
+   t/prim/normal, correct dead lanes; the two designs' device times in
+   turns (stride, fetch, fetch, stride; 5 launches each, queued behind a
+   spin kernel and timed by CUDA events between them),
+   one call's time in CUDA events, the plain version's; the plain walk's
+   work count and the kernel's bound; then the packet and lane kernels
+   against the plain group walk on the same rays: zero hit, t, prim,
+   normal and occlusion mismatches, correct dead lanes, hits and occlusion
+   equal to the persist kernels' (the equal-t ties, where the two walks
+   may keep another prim, are counted), device and call times, one timed
+   plain call, and the persist walk's bound on the same rays;
 4. main path: render_frame of the headline frame (256x256 at 64 spp, 10
    bounces, default RenderConfig): one warm-up and two timed runs; both
-   kernels must have launched and no plain version may have run; the image
-   must be finite and non-negative and agree with the rtjax render in
-   artifacts/ at the noise floor (MSE <= 2x the port's own seed-to-seed MSE
-   plus the 8-bit quantisation term); then the same frame under each
-   walker, alternated (persist, packet, lane, lane, packet, persist; seeds
-   2, 2, 2, 3, 3, 3; walker="packet" with anyhit_walker="packet"), launch
-   counts read from zero per frame: exactly one launch per iteration of
-   the walker's own closest-hit and any-hit kernels and no other, no plain
-   version, each image at the noise-floor gate and within 0.1x the
-   seed-to-seed MSE of the persist image of its seed;
+   kernels must have launched, and no plain version and no stride-design
+   kernel may have run; the image must be finite and non-negative and
+   agree with the rtjax render in artifacts/ at the noise floor (MSE <= 2x
+   the port's own seed-to-seed MSE plus the 8-bit quantisation term).  The
+   warm-up frame keeps the rays of launch 38 of each persist kernel
+   (render/trace.py's names rebound for that frame), and phase 3's check,
+   A/B and bound run again on them.  Then the same frame under each walker,
+   alternated
+   (persist, packet, lane, lane, packet, persist; seeds 2, 2, 2, 3, 3, 3;
+   walker="packet" with anyhit_walker="packet"), launch counts read from
+   zero per frame: exactly one launch per iteration of the walker's own
+   closest-hit and any-hit kernels and no other, no plain version, each
+   image at the noise-floor gate and within 0.1x the seed-to-seed MSE of
+   the persist image of its seed;
 5. two-level kernels: eval config 4 (16 instanced bunnies, 1.11M effective
    triangles) built on the card; each two-level kernel against its plain
    version at the config's shapes (2^17 closest-hit rays: half camera
    rays, half random rays over the instance field, 10% inactive; 2^18
    any-hit rays with random exclusions): zero hit, t, prim, inst, normal
-   and occlusion mismatches, correct dead lanes, median times over 5 runs;
-   then the persist, packet and lane kernels against their plain versions,
-   as in phase 3, at the two other shapes config 4 gives them: the baked
+   and occlusion mismatches, correct dead lanes, device and call times,
+   the two-level plain walk's work count and the bound;
+   then the persist (both designs), packet and lane kernels against their
+   plain versions, as in phase 3, at the two other shapes config 4 gives
+   them: the baked
    scene's tables (the same placements in one single-level scene, 1.11M
    triangles; 2^17 / 2^18 rays) and the shared BLAS with the rays of
    repass's first pass (each ray in the frame of the nearest instance box
@@ -58,14 +70,34 @@ the script exits non-zero):
    two-level ones, (d) only the packet ones, and no plain version runs.
    Frames are finite and non-negative; MSE((a), (b)) and MSE((a), (d)) <=
    0.1x and MSE((a), (c)) <= 2x the seed-to-seed MSE of (a) (plus the
-   quantisation term for (c)).  Images go to build/rtjax_torch/.
+   quantisation term for (c)).  Images go to build/rtjax_torch/;
+7. the two persist kernels' device time over one whole headline frame
+   (torch.profiler; every launch of the frame must be recorded, or the
+   frame is profiled again, once) under each design, stride, fetch, fetch,
+   stride (render/trace.py's names rebound to the stride design for its
+   frames).
+
+A kernel's bound is the least time the card could take for its work:
+the larger of the bytes it must move (every ray's active flag and results,
+the other inputs of the active rays, and of the tables what the plain
+walk needs: the child boxes, metas and info word of every node it visited
+and the real triangles and prim ids of every leaf row it tested, each
+once; ``persist.work_table_bytes``) over 3.35 TB/s and its float operations (the plain walk's counted slab and
+triangle tests, OPS_* each) over 67 TFLOP/s.  Rows 1-4 and 7-8 take the
+persist walk's count on their rays, rows 5-6 the two-level walk's.
 
 The last two lines of standard output are a JSON object with per-kernel
-numbers and then ``{"ok": true, "device": {...}}``.  ``launches`` is each
-kernel's count in its main-path frame: phase 4's for the persist kernels,
-its packet and lane frames (seed 2) for those kernels, 6(b) for the
-two-level ones.  lane_traverse_anyhit is on no engine path (rtjax's
-``anyhit_walker`` takes "persist" or "packet" only), so its count is 0.
+numbers and then ``{"ok": true, "device": {...}}``.  ``ms`` is a kernel's
+device time per launch, the mean of ``timed_launches`` launches queued
+back to back (:func:`_launch_ms`), ``call_ms`` one call in CUDA events,
+host launch included, as earlier runs reported it.  ``launches`` is each
+kernel's count in its main-path run: phase 4's three frames for the
+persist kernels, its packet and lane frames (seed 2) for those kernels,
+6(b) for the two-level ones.  lane_traverse_anyhit is on no engine path
+(rtjax's ``anyhit_walker`` takes "persist" or "packet" only), so its count
+is 0.  The persist rows also carry ``ab``: both designs on each ray set
+(phase 3, the in-frame launch, config 4's baked tables and BLAS), and
+``frame_ms``: the two kernels' device time over a whole frame under each.
 """
 
 from __future__ import annotations
@@ -84,6 +116,29 @@ SPP = 64
 BOUNCES = 10
 ARTIFACT = os.path.join(ROOT, "artifacts", "cornell_bunny_256_64spp.ppm")
 REPS = 5
+# phase 4 keeps the rays of this launch of each persist kernel (of the
+# warm-up frame's 77)
+CAPTURE_AT = 38
+
+# A launch's bound (the least time the card could take for its work): the
+# larger of the bytes it must move over the memory rate and its float
+# operations over the float32 rate outside the tensor cores (NVIDIA H100 SXM
+# data sheet).  Bytes: every ray's active flag and results, the other
+# inputs of the active rays, and the table bytes the plain walk needs,
+# once each (persist.work_table_bytes).  Operations: the plain walk's counted tests (persist.new_work)
+# times the float operations of one test, counted from csrc/wide_walk.cuh
+# and csrc/wide_inst_traverse.cu.
+PEAK_BYTES = 3.35e12
+PEAK_FLOPS = 67e12
+OPS_SLAB = 25   # a box slab test: 6 mul, 6 add, 10 min/max, 3 to accept
+OPS_TRI = 42    # a Moeller-Trumbore test: 3 sub, 9 cross, 6 det, 3 x 6
+                # (u, v, t), 6 to accept
+OPS_INST = 51   # a ray into an instance's frame: 33 affine, 18 slab setup
+RAY_IN = 28     # bytes of an active ray: origin, direction, tmax
+EXCLUDE = 4     # any hit: the excluded prim
+CLOSEST_OUT = 21  # hit, t, prim, normal
+INST_OUT = 25     # the two-level closest hit adds inst
+AFF_RECORD = 76   # per instance: the root and 18 affine floats
 
 # config 4 (benchmarks/run_configs.py:198-226)
 C4_SPP = 8
@@ -154,6 +209,20 @@ def phase1_build():
     print(f"[build] " + ", ".join(f"{k} {v:.1f} s" for k, v in secs.items())
           + f" (in parallel, {time.perf_counter() - t0:.1f} s wall), into "
           f"{_build.BUILD_DIR}")
+    for name, res in _build.ptxas_report(_build.persist_library()):
+        print(f"[ptxas] {_kernel_label(name)}: {res}")
+
+
+def _kernel_label(mangled):
+    """"fetch closest, width 16" for a persist kernel's mangled name."""
+    import re
+    m = re.search(r"(fetch_kernel|stride_closest_kernel|stride_anyhit_kernel)"
+                  r"ILi(\d+)E(?:Lb([01])E)?", mangled)
+    if m is None:
+        return mangled
+    design = "fetch" if m[1] == "fetch_kernel" else "stride"
+    anyhit = m[3] == "1" if design == "fetch" else "anyhit" in m[1]
+    return f"{design} {'any-hit' if anyhit else 'closest'}, width {m[2]}"
 
 
 def phase2_scene():
@@ -185,6 +254,49 @@ def _median_ms(fn):
     return statistics.median(times)
 
 
+# the spin that holds the stream while the host queues the timed calls
+# (torch.cuda._sleep cycles: ~34 ms at the H100's 1.98 GHz)
+SPIN_CYCLES = 1 << 26
+
+
+def _launch_ms(fn, reps=REPS):
+    """``(mean, least, most)`` device time (ms) of one call of ``fn``, over
+    ``reps`` calls after one warm-up.  The calls are queued behind a spin
+    kernel (``torch.cuda._sleep``) with a CUDA event before and after each,
+    so the events time the card's work back to back, each call's own
+    launch, and not the host's launch, which is most of a short kernel's
+    time in CUDA events around one synchronised call (:func:`_median_ms`).
+    The stream must still be busy with the spin when the last event is
+    queued; if it is not, the spin is lengthened and the timing made again,
+    and after three tries the check fails.  Every call of ``fn`` must
+    launch one kernel and nothing else."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    cycles = SPIN_CYCLES
+    for _ in range(3):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(reps + 1)]
+        torch.cuda._sleep(cycles)
+        ev[0].record()
+        for e in ev[1:]:
+            fn()
+            e.record()
+        held = not torch.cuda.current_stream().query()
+        torch.cuda.synchronize()
+        if held:
+            ms = [a.elapsed_time(b) for a, b in zip(ev, ev[1:])]
+            return statistics.mean(ms), min(ms), max(ms)
+        cycles *= 4
+    raise RuntimeError("the host queued the timed calls for longer than "
+                       "the spin held the stream, three times")
+
+
+def _device_ms(fn, reps=REPS):
+    """Mean device time (ms) of one launch of ``fn``'s kernel, over
+    ``reps`` launches (:func:`_launch_ms`)."""
+    return _launch_ms(fn, reps)[0]
+
+
 def _timed_ms(fn):
     """``(fn(), device ms of that one call)`` (CUDA events)."""
     import torch
@@ -195,6 +307,50 @@ def _timed_ms(fn):
     end.record()
     torch.cuda.synchronize()
     return out, start.elapsed_time(end)
+
+
+def _ab_ms(new, old):
+    """The fetch design (``new``) against the stride design (``old``) in
+    turns, old, new, new, old, each the device time of REPS calls
+    (:func:`_device_ms`): ``([new, new], [old, old])``."""
+    o1 = _device_ms(old)
+    n1 = _device_ms(new)
+    n2 = _device_ms(new)
+    o2 = _device_ms(old)
+    return [n1, n2], [o1, o2]
+
+
+def _bound(work, n, n_active, in_bytes, out_bytes, tables, extra_bytes=0):
+    """``{bound_ms, bound_us, bound_by, ops, bytes, table_bytes}`` of a launch of ``n`` rays
+    (``n_active`` active) over ``tables`` from the plain walk's ``work``
+    on them."""
+    from rtjax_torch.kernels import persist as P
+    ops = (OPS_SLAB * (work["slab_tests"] + work.get("inst_tests", 0))
+           + OPS_TRI * work["tri_slots"]
+           + OPS_INST * work.get("inst_visits", 0))
+    table_bytes = P.work_table_bytes(work, tables)
+    nbytes = n * (1 + out_bytes) + n_active * in_bytes + table_bytes \
+        + extra_bytes
+    t_ops, t_bytes = ops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return dict(bound_ms=max(t_ops, t_bytes), bound_us=max(t_ops, t_bytes)
+                * 1e3, bound_by="bytes" if t_bytes >= t_ops else "operations",
+                ops=ops, bytes=nbytes, table_bytes=table_bytes)
+
+
+def _work_text(work, b):
+    """One line's account of a counted walk and its bound."""
+    return (f"work: {work['node_visits']} node visits, {work['slab_tests']} "
+            f"slab tests, {work['leaf_rows']} leaf rows, {work['tri_slots']} "
+            f"triangle slots"
+            + (f", {work['inst_tests']} instance box tests, "
+               f"{work['inst_visits']} instance visits"
+               if "inst_tests" in work else "")
+            + f", {int(work['node_seen'].sum())} node and "
+            f"{int(work['leaf_seen'].sum())} leaf rows read "
+            f"({b['table_bytes']} B of them needed); bound "
+            f"{b['bound_us']:.3f} us by {b['bound_by']} ({b['bytes']} B at "
+            f"{PEAK_BYTES / 1e12} TB/s, {b['ops']} float ops at "
+            f"{PEAK_FLOPS / 1e12} TFLOP/s)")
 
 
 def _test_rays(scene, camera, gen):
@@ -236,66 +392,109 @@ def _test_rays(scene, camera, gen):
 
 
 def _check_persist(label, tab, cl, ah, card):
-    """Hold both persist kernels against their plain versions on ``tab``
-    with the closest-hit rays ``cl`` and the any-hit rays ``ah``: zero
-    hit/occlusion mismatches, equal t/prim/normal and correct dead lanes,
-    or raise.  Returns ``{"closest": (max |t diff|, ms, plain ms),
-    "anyhit": (...)}`` with median times over REPS runs."""
+    """Hold both persist kernels, in the fetch design and in the first
+    (stride) design, against their plain versions on ``tab`` with the
+    closest-hit rays ``cl`` and the any-hit rays ``ah``: zero hit/occlusion
+    mismatches, equal t/prim/normal and correct dead lanes, or raise.  Time
+    the two designs in turns (:func:`_ab_ms`) and the plain version
+    (median of REPS), count the plain walk's work and give each kernel its
+    bound.  Returns ``{"closest": {...}, "anyhit": {...}}``: max |t diff|,
+    the fetch design's ms (mean of its two medians), the stride design's,
+    the plain ms, both designs' medians and the bound."""
     import torch
     from rtjax_torch.kernels import persist as P
     out = {}
     args = (tab, cl["o"], cl["d"], cl["tmax"], cl["active"])
-    hk, tk, pk, nk = P.persist_traverse_closest(*args)
-    hp, tp, pp, np_ = P.persist_traverse_closest_ref(*args)
-    torch.cuda.synchronize()
-    hit_mis = int((hk != hp).sum())
-    both = hk & hp
-    t_mis = int((tk[both] != tp[both]).sum())
-    # equal-t ties may pick another prim; the two walk one order, so none
-    # are expected
-    prim_mis = int((pk[both] != pp[both]).sum())
-    nrm_mis = int(sum((a[both] != b[both]).sum() for a, b in zip(nk, np_)))
+    work = P.new_work()
+    hp, tp, pp, np_ = P.persist_traverse_closest_ref(*args, work=work)
     dead = ~cl["active"]
-    dead_ok = bool((~hk[dead]).all() and (tk[dead] == P.BIG).all()
-                   and (pk[dead] == -1).all()
-                   and all((c[dead] == 0).all() for c in nk))
-    err = float((tk[both] - tp[both]).abs().max()) if bool(both.any()) \
-        else 0.0
-    rel = float(((tk[both] - tp[both]).abs() / tp[both].abs()).max()) \
-        if bool(both.any()) else 0.0
-    ms = _median_ms(lambda: P.persist_traverse_closest(*args))
+    mis = {}
+    for design, fn in (("fetch", P.persist_traverse_closest),
+                       ("stride", P.persist_traverse_closest_stride)):
+        hk, tk, pk, nk = fn(*args)
+        torch.cuda.synchronize()
+        both = hk & hp
+        # equal-t ties may pick another prim; the two walk one order, so
+        # none are expected
+        mis[design] = {
+            "hit": int((hk != hp).sum()), "t": int((tk[both] != tp[both])
+                                                   .sum()),
+            "prim": int((pk[both] != pp[both]).sum()),
+            "normal": int(sum((a[both] != b[both]).sum()
+                              for a, b in zip(nk, np_))),
+            "dead": int(not ((~hk[dead]).all() and (tk[dead] == P.BIG).all()
+                             and (pk[dead] == -1).all()
+                             and all((c[dead] == 0).all() for c in nk)))}
+        if design == "fetch":
+            err = float((tk[both] - tp[both]).abs().max()) \
+                if bool(both.any()) else 0.0
+            hits = int(hk.sum())
+    new, old = _ab_ms(lambda: P.persist_traverse_closest(*args),
+                      lambda: P.persist_traverse_closest_stride(*args))
+    call_ms = _median_ms(lambda: P.persist_traverse_closest(*args))
     plain_ms = _median_ms(lambda: P.persist_traverse_closest_ref(*args))
-    print(f"[{label} closest] {card}: {cl['tmax'].numel()} rays "
-          f"({int(cl['active'].sum())} active) over {tab.width}-wide "
-          f"tables, {int(hk.sum())} hits, hit mismatches {hit_mis}, t "
-          f"mismatches {t_mis} (max rel diff {rel:.3g}), prim mismatches "
-          f"{prim_mis}, normal mismatches {nrm_mis}, dead lanes ok "
-          f"{dead_ok}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms (median "
-          f"of {REPS})")
-    if hit_mis or t_mis or prim_mis or nrm_mis or not dead_ok \
-            or int(hk.sum()) == 0:
+    n, n_act = cl["tmax"].numel(), int(cl["active"].sum())
+    b = _bound(work, n, n_act, RAY_IN, CLOSEST_OUT, tab)
+    out["closest"] = _ab_result(err, new, old, call_ms, plain_ms, b)
+    print(f"[{label} closest] {card}: {n} rays ({n_act} active) over "
+          f"{tab.width}-wide tables, {hits} hits; mismatches vs plain "
+          f"(hit, t, prim, normal, dead lanes): fetch {mis['fetch']}, "
+          f"stride {mis['stride']}; " + _ab_text(out["closest"])
+          + f"; {_work_text(work, b)}")
+    if any(v for m in mis.values() for v in m.values()) or hits == 0:
         raise RuntimeError(f"{label}: closest-hit kernel disagrees with its "
                            "plain version")
-    out["closest"] = (err, ms, plain_ms)
 
     args = (tab, ah["o"], ah["d"], ah["tmax"], ah["exclude"], ah["active"])
-    ok_ = P.persist_traverse_anyhit(*args)
-    op = P.persist_traverse_anyhit_ref(*args)
-    torch.cuda.synchronize()
-    occ_mis = int((ok_ != op).sum())
-    dead_ok = bool((~ok_[~ah["active"]]).all())
-    ms = _median_ms(lambda: P.persist_traverse_anyhit(*args))
+    work = P.new_work()
+    op = P.persist_traverse_anyhit_ref(*args, work=work)
+    mis = {}
+    for design, fn in (("fetch", P.persist_traverse_anyhit),
+                       ("stride", P.persist_traverse_anyhit_stride)):
+        ok_ = fn(*args)
+        torch.cuda.synchronize()
+        mis[design] = {"occlusion": int((ok_ != op).sum()),
+                       "dead": int(bool(ok_[~ah["active"]].any()))}
+        if design == "fetch":
+            occluded = int(ok_.sum())
+    new, old = _ab_ms(lambda: P.persist_traverse_anyhit(*args),
+                      lambda: P.persist_traverse_anyhit_stride(*args))
+    call_ms = _median_ms(lambda: P.persist_traverse_anyhit(*args))
     plain_ms = _median_ms(lambda: P.persist_traverse_anyhit_ref(*args))
-    print(f"[{label} anyhit] {card}: {ah['tmax'].numel()} rays "
-          f"({int(ah['active'].sum())} active) over {tab.width}-wide "
-          f"tables, {int(ok_.sum())} occluded, occlusion mismatches "
-          f"{occ_mis}, dead lanes ok {dead_ok}; kernel {ms:.3f} ms, plain "
-          f"{plain_ms:.3f} ms (median of {REPS})")
-    if occ_mis or not dead_ok or int(ok_.sum()) == 0:
+    n, n_act = ah["tmax"].numel(), int(ah["active"].sum())
+    b = _bound(work, n, n_act, RAY_IN + EXCLUDE, 1, tab)
+    out["anyhit"] = _ab_result(float(mis["fetch"]["occlusion"]), new, old,
+                               call_ms, plain_ms, b)
+    print(f"[{label} anyhit] {card}: {n} rays ({n_act} active) over "
+          f"{tab.width}-wide tables, {occluded} occluded; mismatches vs "
+          f"plain (occlusion, dead lanes): fetch {mis['fetch']}, stride "
+          f"{mis['stride']}; " + _ab_text(out["anyhit"])
+          + f"; {_work_text(work, b)}")
+    if any(v for m in mis.values() for v in m.values()) or occluded == 0:
         raise RuntimeError(f"{label}: any-hit kernel disagrees with its "
                            "plain version")
-    out["anyhit"] = (float(occ_mis), ms, plain_ms)
     return out
+
+
+def _ab_result(err, new, old, call_ms, plain_ms, b):
+    ms, stride_ms = statistics.mean(new), statistics.mean(old)
+    return dict(max_abs_err=err, ms=ms, stride_ms=stride_ms,
+                call_ms=call_ms, plain_ms=plain_ms, fetch_device_ms=new,
+                stride_device_ms=old, speedup=stride_ms / ms,
+                share=b["bound_ms"] / ms,
+                stride_share=b["bound_ms"] / stride_ms, **b)
+
+
+def _ab_text(r):
+    return (f"device time (mean of {REPS} queued launches, in "
+            f"turns stride, fetch, fetch, stride): fetch "
+            f"{r['fetch_device_ms'][0]:.4f} / {r['fetch_device_ms'][1]:.4f}"
+            f" ms, stride {r['stride_device_ms'][0]:.4f} / "
+            f"{r['stride_device_ms'][1]:.4f} ms, fetch {r['speedup']:.2f}x "
+            f"faster; one fetch call {r['call_ms']:.4f} ms (CUDA events, "
+            f"median of {REPS}); plain {r['plain_ms']:.3f} ms; share of the "
+            f"bound: fetch {100 * r['share']:.2f}%, stride "
+            f"{100 * r['stride_share']:.2f}%")
 
 
 def _check_group(label, tab, cl, ah, card):
@@ -304,8 +503,9 @@ def _check_group(label, tab, cl, ah, card):
     zero hit, t, prim, normal and occlusion mismatches and correct dead
     lanes, or raise; hits and occlusion must also equal the persist
     kernels' (t and prim may differ at equal-t ties, which are counted).
-    Returns ``{(walk, kind): (max |t diff|, ms, plain ms)}``: kernel
-    medians over REPS runs, one timed plain call."""
+    Returns ``{(walk, kind): (max |t diff|, {"device": ms, "call": ms},
+    plain ms)}``: the kernel's device time (:func:`_device_ms`) and the
+    median of REPS calls in CUDA events, one timed plain call."""
     import torch
     from rtjax_torch.kernels import lane as L
     from rtjax_torch.kernels import persist as P
@@ -336,15 +536,18 @@ def _check_group(label, tab, cl, ah, card):
                       "ties": int(((tk == pt) & (pk != pp))[both].sum())}
         err = float((tk[hk] - tp[hk]).abs().max()) if bool(hk.any()) \
             else 0.0
-        ms = _median_ms(lambda: closest(*cargs))
+        ms = {"device": _device_ms(lambda: closest(*cargs)),
+              "call": _median_ms(lambda: closest(*cargs))}
         print(f"[{label} {walk} closest] {card}: group {group}, "
               f"{cl['tmax'].numel()} rays ({int(cl['active'].sum())} active) "
               f"over {tab.width}-wide tables, {int(hk.sum())} hits, "
               f"mismatches vs plain {mis}, dead lanes ok {dead_ok}; vs the "
               f"persist kernel: hit mismatches {vs_persist['hit']}, t "
               f"mismatches {vs_persist['t']}, equal-t ties with another "
-              f"prim {vs_persist['ties']}; kernel {ms:.3f} ms (median of "
-              f"{REPS}), plain {plain_ms:.3f} ms (one call)")
+              f"prim {vs_persist['ties']}; kernel {ms['device']:.4f} ms "
+              f"device time (mean of {REPS} queued launches), one call "
+              f"{ms['call']:.4f} ms (CUDA events, median of {REPS}), plain "
+              f"{plain_ms:.3f} ms (one call)")
         if any(mis.values()) or not dead_ok or vs_persist["hit"] \
                 or int(hk.sum()) == 0:
             raise RuntimeError(f"{label}: {walk} closest-hit kernel "
@@ -358,13 +561,16 @@ def _check_group(label, tab, cl, ah, card):
         occ_mis = int((ok_ != op).sum())
         persist_mis = int((ok_ != pocc).sum())
         dead_ok = bool((~ok_[~ah["active"]]).all())
-        ms = _median_ms(lambda: anyhit(*aargs))
+        ms = {"device": _device_ms(lambda: anyhit(*aargs)),
+              "call": _median_ms(lambda: anyhit(*aargs))}
         print(f"[{label} {walk} anyhit] {card}: group {group}, "
               f"{ah['tmax'].numel()} rays ({int(ah['active'].sum())} active),"
               f" {int(ok_.sum())} occluded, occlusion mismatches {occ_mis} "
               f"vs plain and {persist_mis} vs the persist kernel, dead "
-              f"lanes ok {dead_ok}; kernel {ms:.3f} ms (median of {REPS}), "
-              f"plain {plain_ms:.3f} ms (one call)")
+              f"lanes ok {dead_ok}; kernel {ms['device']:.4f} ms device time"
+              f" (mean of {REPS} queued launches), one call "
+              f"{ms['call']:.4f} ms (CUDA events, median of {REPS}), plain "
+              f"{plain_ms:.3f} ms (one call)")
         if occ_mis or persist_mis or not dead_ok or int(ok_.sum()) == 0:
             raise RuntimeError(f"{label}: {walk} any-hit kernel disagrees "
                                "with its plain version or the persist "
@@ -373,19 +579,45 @@ def _check_group(label, tab, cl, ah, card):
     return out
 
 
+_BOUND_KEYS = ("bound_ms", "bound_us", "bound_by")
+
+
 def phase3_kernels(scene, camera, card):
+    """Rows 1-4 and 7-8 at the headline's shapes; each row's bound is the
+    persist walk's work on its rays (a packet or lane walk does more work
+    for the same result, and the bound counts the work, not how a kernel
+    does it)."""
     import torch
     gen = torch.Generator(device="cuda").manual_seed(1234)
     cl, ah = _test_rays(scene, camera, gen)
     out = _check_persist("kernel", scene.tables, cl, ah, card)
-    persist = [dict(KERNELS[k], route="cuda", source=SOURCE,
-                    max_abs_err=err, ms=ms, plain_ms=plain_ms)
-               for k, (err, ms, plain_ms) in out.items()]
-    group = {k: dict(GROUP_KERNELS[k], route="cuda", source=GROUP_SOURCE,
-                     max_abs_err=err, ms=ms, plain_ms=plain_ms)
-             for k, (err, ms, plain_ms) in
-             _check_group("kernel", scene.tables, cl, ah, card).items()}
+    persist = {}
+    for k, r in out.items():
+        persist[k] = dict(KERNELS[k], route="cuda", source=SOURCE,
+                          max_abs_err=r["max_abs_err"], ms=r["ms"],
+                          call_ms=r["call_ms"], plain_ms=r["plain_ms"],
+                          library_ms=None, **{b: r[b] for b in _BOUND_KEYS},
+                          share=r["share"], stride_ms=r["stride_ms"],
+                          timed_launches=2 * REPS,
+                          ab={"phase3": _ab_record(r)})
+    group = {}
+    for (walk, kind), (err, ms, plain_ms) in \
+            _check_group("kernel", scene.tables, cl, ah, card).items():
+        b = out[kind]
+        group[walk, kind] = dict(
+            GROUP_KERNELS[walk, kind], route="cuda", source=GROUP_SOURCE,
+            max_abs_err=err, ms=ms["device"], call_ms=ms["call"],
+            plain_ms=plain_ms, library_ms=None,
+            **{k: b[k] for k in _BOUND_KEYS},
+            share=b["bound_ms"] / ms["device"], timed_launches=REPS)
     return persist, group
+
+
+def _ab_record(r):
+    """The A/B and bound of one ray set, for the kernels line."""
+    return {k: r[k] for k in ("fetch_device_ms", "stride_device_ms",
+                              "speedup", "call_ms", "bound_us", "bound_by",
+                              "share", "stride_share")}
 
 
 def _u8_image(fb):
@@ -408,16 +640,21 @@ def phase4_main_path(scene, camera, card):
     for k in P.LAUNCHES:
         P.LAUNCHES[k] = 0
         P.REF_CALLS[k] = 0
+        P.STRIDE_LAUNCHES[k] = 0
     runs = []
     for seed in (1, 2, 3):  # warm-up, then two timed runs
         gen = torch.Generator(device="cuda").manual_seed(seed)
+        if seed == 1:
+            captured, restore = _capture_launch(CAPTURE_AT)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         fb, stats = render_frame(scene, camera, cfg, gen)
         torch.cuda.synchronize()
         runs.append((time.perf_counter() - t0, fb, stats))
+        if seed == 1:
+            restore()
     launches = dict(P.LAUNCHES)
-    ref_calls = sum(P.REF_CALLS.values())
+    ref_calls = sum(P.REF_CALLS.values()) + sum(P.STRIDE_LAUNCHES.values())
 
     secs = [r[0] for r in runs[1:]]
     stats = runs[1][2]
@@ -426,10 +663,13 @@ def phase4_main_path(scene, camera, card):
           f"bounces, pool {cfg.pool_size}: {stats['iterations']} iterations,"
           f" {stats['rays_traced']:.0f} rays traced, {secs[0]:.3f} s and "
           f"{secs[1]:.3f} s (warm-up {runs[0][0]:.3f} s), "
-          f"{mrays:.3f} Mrays/s; launches {launches}, plain-version calls "
-          f"{ref_calls}")
+          f"{mrays:.3f} Mrays/s; launches {launches}, plain-version and "
+          f"stride-design calls {ref_calls}")
     if min(launches.values()) == 0 or ref_calls != 0:
         raise RuntimeError("the main path did not run through both kernels")
+    if set(captured) != {"closest", "anyhit"}:
+        raise RuntimeError(f"launch {CAPTURE_AT} of each persist kernel was "
+                           "not captured")
 
     fb = runs[1][1]
     if not bool(torch.isfinite(fb).all()) or bool((fb < 0).any()):
@@ -449,7 +689,130 @@ def phase4_main_path(scene, camera, card):
     if ref_mse > gate:
         raise RuntimeError("image differs from the rtjax render beyond the "
                            "noise floor")
-    return launches, dict(ref=ref, seed_mse=seed_mse, gate=gate)
+    return launches, dict(ref=ref, seed_mse=seed_mse, gate=gate), captured
+
+
+def _capture_launch(at):
+    """Rebind the persist kernels' names in render/trace.py (the names its
+    ``_backend`` looks up) so that the ``at``-th call of each keeps a copy
+    of its rays and then runs as before: ``(captured, restore)``, where
+    ``captured`` fills with ``{"closest": (tables, rays), "anyhit": ...}``
+    and ``restore()`` puts the names back."""
+    from rtjax_torch.render import trace
+    captured, saved = {}, {}
+
+    def copy(a):
+        return tuple(c.clone() for c in a) if isinstance(a, (tuple, list)) \
+            else a.clone()
+
+    for kind in ("closest", "anyhit"):
+        name = f"persist_traverse_{kind}"
+        fn = saved[name] = getattr(trace, name)
+        calls = [0]
+
+        def wrapper(tables, *args, _fn=fn, _kind=kind, _calls=calls):
+            _calls[0] += 1
+            if _calls[0] == at:
+                keys = ("o", "d", "tmax", "active") if _kind == "closest" \
+                    else ("o", "d", "tmax", "exclude", "active")
+                captured[_kind] = (tables, dict(zip(keys, map(copy, args))))
+            return _fn(tables, *args)
+
+        setattr(trace, name, wrapper)
+
+    def restore():
+        for name, fn in saved.items():
+            setattr(trace, name, fn)
+
+    return captured, restore
+
+
+def _frame_kernel_ms(scene, camera, cfg, seed, stride):
+    """Device time and launches of the persist kernels over one headline
+    frame (torch.profiler, CUDA activity): ``{"closest": [ms, launches],
+    "anyhit": [...], "iterations": n}``.  With ``stride`` the engine's calls go to the
+    stride design: render/trace.py's names are rebound for this frame and
+    put back after it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from rtjax_torch.kernels import persist as P
+    from rtjax_torch.render import trace
+    from rtjax_torch.render.wavefront import render_frame
+    names = {"persist_traverse_closest": P.persist_traverse_closest_stride,
+             "persist_traverse_anyhit": P.persist_traverse_anyhit_stride}
+    saved = {k: getattr(trace, k) for k in names}
+    if stride:
+        for k, fn in names.items():
+            setattr(trace, k, fn)
+    try:
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            _, stats = render_frame(scene, camera, cfg, gen)
+            torch.cuda.synchronize()
+    finally:
+        for k, fn in saved.items():
+            setattr(trace, k, fn)
+    out = {"closest": [0.0, 0], "anyhit": [0.0, 0],
+           "iterations": stats["iterations"]}
+    for e in prof.key_averages():
+        key = e.key
+        if "fetch_kernel" in key:
+            kind = "anyhit" if (", true>" in key or "Lb1E" in key) \
+                else "closest"
+        elif "stride_closest_kernel" in key:
+            kind = "closest"
+        elif "stride_anyhit_kernel" in key:
+            kind = "anyhit"
+        else:
+            continue
+        out[kind][0] += e.self_device_time_total / 1e3
+        out[kind][1] += e.count
+    return out
+
+
+def phase4_in_frame(scene, card, captured):
+    """Both designs on the captured mid-frame launch of each kernel."""
+    tab, cl = captured["closest"]
+    tab_a, ah = captured["anyhit"]
+    if tab is not tab_a or tab is not scene.tables:
+        raise RuntimeError("the captured launches used other tables")
+    return _check_persist(f"in-frame launch {CAPTURE_AT}", tab, cl, ah, card)
+
+
+def phase7_frames(scene, camera, card):
+    """The two persist kernels' device time over one whole headline frame
+    under each design (stride, fetch, fetch, stride; seeds 4 and 5):
+    ``{kind: {design: [ms, ms]}}``.  A frame whose profile holds fewer
+    launches of either kernel than the frame's iterations is profiled
+    again, once; then the phase fails.  Last, because torch.profiler
+    recorded no kernel rows in later profiles once it had traced whole
+    frames."""
+    from rtjax_torch import RenderConfig
+    cfg = RenderConfig(width=WIDTH, height=HEIGHT, num_samples=SPP,
+                       max_bounces=BOUNCES)
+    frames = {"fetch": [], "stride": []}
+    for design, seed in (("stride", 4), ("fetch", 4), ("fetch", 5),
+                         ("stride", 5)):
+        for attempt in (1, 2):
+            k = _frame_kernel_ms(scene, camera, cfg, seed,
+                                 design == "stride")
+            print(f"[frame kernels {design} seed {seed}] {card}: one "
+                  f"headline frame under torch.profiler: closest "
+                  f"{k['closest'][0]:.3f} ms in {k['closest'][1]} launches, "
+                  f"any-hit {k['anyhit'][0]:.3f} ms in {k['anyhit'][1]} "
+                  f"launches, together "
+                  f"{k['closest'][0] + k['anyhit'][0]:.3f} ms; "
+                  f"{k['iterations']} iterations")
+            if k["closest"][1] == k["anyhit"][1] == k["iterations"]:
+                break
+            if attempt == 2:
+                raise RuntimeError("the profiler recorded fewer persist "
+                                   "launches than the frame made, twice")
+        frames[design].append(k)
+    return {kind: {d: [f[kind][0] for f in fs] for d, fs in frames.items()}
+            for kind in ("closest", "anyhit")}
 
 
 def phase4_walkers(scene, camera, card, floor):
@@ -587,9 +950,12 @@ def phase5_inst_kernels(scene, camera, card):
     it = scene.inst_tables
     results = []
 
+    from rtjax_torch.kernels import persist as P
+    records = it.num_instances * AFF_RECORD
     args = (it, cl["o"], cl["d"], cl["tmax"], cl["active"])
     hk, tk, pk, ik, nk = WI.wide_traverse_closest_inst(*args)
-    hp, tp, pp, ip, np_ = WI.wide_traverse_closest_inst_ref(*args)
+    work = P.new_work()
+    hp, tp, pp, ip, np_ = WI.wide_traverse_closest_inst_ref(*args, work=work)
     torch.cuda.synchronize()
     mis = {"hit": int((hk != hp).sum()), "t": int((tk != tp).sum()),
            "prim": int((pk != pp).sum()), "inst": int((ik != ip).sum()),
@@ -601,38 +967,55 @@ def phase5_inst_kernels(scene, camera, card):
     both = hk & hp
     err = float((tk[both] - tp[both]).abs().max()) if bool(both.any()) \
         else 0.0
-    ms = _median_ms(lambda: WI.wide_traverse_closest_inst(*args))
+    ms = _device_ms(lambda: WI.wide_traverse_closest_inst(*args))
+    call_ms = _median_ms(lambda: WI.wide_traverse_closest_inst(*args))
     plain_ms = _median_ms(lambda: WI.wide_traverse_closest_inst_ref(*args))
+    b = _bound(work, cl["tmax"].numel(), int(cl["active"].sum()), RAY_IN,
+               INST_OUT, it.wide, records)
     print(f"[kernel closest_inst] {card}: {cl['tmax'].numel()} rays, "
           f"{int(hk.sum())} hits ({int((ik > 0).sum())} on instances, "
           f"{int(ik.max())} the highest instance), mismatches {mis}, dead "
-          f"lanes ok {dead_ok}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms "
-          f"(median of {REPS})")
+          f"lanes ok {dead_ok}; kernel {ms:.4f} ms device time "
+          f"(mean of {REPS} queued launches), one call {call_ms:.4f} ms "
+          f"(CUDA events, median of {REPS}), plain {plain_ms:.3f} ms "
+          f"(median of {REPS}); share of the bound {100 * b['bound_ms'] / ms:.2f}%;"
+          f" {_work_text(work, b)}")
     if any(mis.values()) or not dead_ok or int((ik > 0).sum()) == 0:
         raise RuntimeError("two-level closest-hit kernel disagrees with its "
                            "plain version")
     results.append(dict(INST_KERNELS["closest"], route="cuda",
                         source=INST_SOURCE, max_abs_err=err, ms=ms,
-                        plain_ms=plain_ms))
+                        call_ms=call_ms, plain_ms=plain_ms, library_ms=None,
+                        **{k: b[k] for k in _BOUND_KEYS},
+                        share=b["bound_ms"] / ms, timed_launches=REPS))
 
     args = (it, ah["o"], ah["d"], ah["tmax"], ah["exclude"], ah["active"])
     ok_ = WI.wide_traverse_anyhit_inst(*args)
-    op = WI.wide_traverse_anyhit_inst_ref(*args)
+    work = P.new_work()
+    op = WI.wide_traverse_anyhit_inst_ref(*args, work=work)
     torch.cuda.synchronize()
     occ_mis = int((ok_ != op).sum())
     dead_ok = bool((~ok_[~ah["active"]]).all())
-    ms = _median_ms(lambda: WI.wide_traverse_anyhit_inst(*args))
+    ms = _device_ms(lambda: WI.wide_traverse_anyhit_inst(*args))
+    call_ms = _median_ms(lambda: WI.wide_traverse_anyhit_inst(*args))
     plain_ms = _median_ms(lambda: WI.wide_traverse_anyhit_inst_ref(*args))
+    b = _bound(work, ah["tmax"].numel(), int(ah["active"].sum()),
+               RAY_IN + EXCLUDE, 1, it.wide, records)
     print(f"[kernel anyhit_inst] {card}: {ah['tmax'].numel()} rays, "
           f"{int(ok_.sum())} occluded, occlusion mismatches {occ_mis}, dead "
-          f"lanes ok {dead_ok}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms "
-          f"(median of {REPS})")
+          f"lanes ok {dead_ok}; kernel {ms:.4f} ms device time "
+          f"(mean of {REPS} queued launches), one call {call_ms:.4f} ms "
+          f"(CUDA events, median of {REPS}), plain {plain_ms:.3f} ms "
+          f"(median of {REPS}); share of the bound {100 * b['bound_ms'] / ms:.2f}%;"
+          f" {_work_text(work, b)}")
     if occ_mis or not dead_ok or int(ok_.sum()) == 0:
         raise RuntimeError("two-level any-hit kernel disagrees with its "
                            "plain version")
     results.append(dict(INST_KERNELS["anyhit"], route="cuda",
                         source=INST_SOURCE, max_abs_err=float(occ_mis),
-                        ms=ms, plain_ms=plain_ms))
+                        ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+                        library_ms=None, **{k: b[k] for k in _BOUND_KEYS},
+                        share=b["bound_ms"] / ms, timed_launches=REPS))
     return results
 
 
@@ -664,25 +1047,26 @@ def phase5_persist(scene, baked, camera, card):
     """The persist, packet and lane kernels at the two other shapes config
     4 gives them: the baked scene's tables, and the shared BLAS under
     repass.  Returns the group checks' results, as :func:`_check_group`
-    does, per shape."""
+    does, per shape, and the persist checks' results by shape."""
     import torch
     gen = torch.Generator(device="cuda").manual_seed(5678)
     cl, ah = _field_rays(baked, camera, gen)
-    _check_persist("config4 baked persist", baked.tables, cl, ah, card)
+    persist = {"config4_baked": _check_persist(
+        "config4 baked persist", baked.tables, cl, ah, card)}
     group = [_check_group("config4 baked", baked.tables, cl, ah, card)]
     if set(scene.instances.mesh_id) != {0}:
         raise RuntimeError("config 4 should place one BLAS")
     cl, ah = _field_rays(scene, camera, gen)
     cl = _instance_frame(scene.instances, cl)
     ah = _instance_frame(scene.instances, ah)
-    _check_persist("config4 blas persist", scene.blas[0].tables, cl, ah,
-                   card)
+    persist["config4_blas"] = _check_persist(
+        "config4 blas persist", scene.blas[0].tables, cl, ah, card)
     group.append(_check_group("config4 blas", scene.blas[0].tables, cl, ah,
                               card))
-    return group
+    return persist, group
 
 
-_KERNEL_SETS = ("persist", "two_level", "packet", "lane")
+_KERNEL_SETS = ("persist", "two_level", "packet", "lane", "stride")
 
 
 def _counters():
@@ -694,7 +1078,8 @@ def _counters():
     return {"persist": (P.LAUNCHES, P.REF_CALLS),
             "two_level": (WI.LAUNCHES, WI.REF_CALLS),
             "packet": (WD.LAUNCHES, WD.REF_CALLS),
-            "lane": (L.LAUNCHES, None)}
+            "lane": (L.LAUNCHES, None),
+            "stride": (P.STRIDE_LAUNCHES, None)}
 
 
 def _drive(scene, camera, cfg, seeds):
@@ -825,11 +1210,12 @@ def main():
     import torch
     phase1_build()
     scene, camera = phase2_scene()
-    kernels, group = phase3_kernels(scene, camera, card)
-    launches, floor = phase4_main_path(scene, camera, card)
-    for k in kernels:
-        k["launches"] = launches["closest" if "closest" in k["name"]
-                                 else "anyhit"]
+    persist, group = phase3_kernels(scene, camera, card)
+    launches, floor, captured = phase4_main_path(scene, camera, card)
+    for kind, k in persist.items():
+        k["launches"] = launches[kind]
+    for kind, r in phase4_in_frame(scene, card, captured).items():
+        persist[kind]["ab"]["in_frame"] = _ab_record(r)
     walker_counts = phase4_walkers(scene, camera, card, floor)
     for (walk, kind), k in group.items():
         k["launches"] = walker_counts[walk][walk][kind]
@@ -837,15 +1223,27 @@ def main():
                                        "takes persist or packet, as in rtjax")
     c4_scene, baked, c4_camera = phase5_scene()
     inst_kernels = phase5_inst_kernels(c4_scene, c4_camera, card)
-    for shape in phase5_persist(c4_scene, baked, c4_camera, card):
+    by_shape, group_shapes = phase5_persist(c4_scene, baked, c4_camera, card)
+    for shape, out in by_shape.items():
+        for kind, r in out.items():
+            persist[kind]["ab"][shape] = _ab_record(r)
+            persist[kind]["max_abs_err"] = max(persist[kind]["max_abs_err"],
+                                               r["max_abs_err"])
+    for shape in group_shapes:
         for key, (err, _, _) in shape.items():
             group[key]["max_abs_err"] = max(group[key]["max_abs_err"], err)
     inst_launches = phase6_config4(c4_scene, baked, c4_camera, card)
     for k in inst_kernels:
         k["launches"] = inst_launches["closest" if "closest" in k["name"]
                                       else "anyhit"]
-    print(json.dumps({"kernels": kernels + list(group.values())
-                      + inst_kernels}))
+    for kind, ms in phase7_frames(scene, camera, card).items():
+        persist[kind]["frame_ms"] = ms
+    rows = list(persist.values()) + list(group.values()) + inst_kernels
+    for k in rows:
+        print(f"[bound] {k['name']}: {k['bound_us']:.3f} us by "
+              f"{k['bound_by']}, kernel {k['ms']:.4f} ms device time, "
+              f"{100 * k['share']:.2f}% of the bound; launches {k['launches']}")
+    print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,6 +1,8 @@
 // One ray's walk over the wide-node tables of rtjax_torch/accel/wide.py,
-// shared by the persistent-walker kernels (persist_traverse.cu) and the
-// two-level kernels (wide_inst_traverse.cu).
+// and the tests it is made of, shared by the persistent walkers
+// (persist_traverse.cu: the 16-byte loaders below in the fetch design,
+// walk<> in the stride design), the two-level kernels
+// (wide_inst_traverse.cu) and the group walks (group_walk.cuh).
 //
 // Visit order (the plain PyTorch versions in kernels/persist.py walk the
 // same one): at a node, slab-test every non-empty child against the
@@ -70,18 +72,36 @@ __device__ __forceinline__ int pick(unsigned mask, unsigned rev) {
   return rev ? 31 - __clz(mask) : __ffs(mask) - 1;
 }
 
+// Slab entry and exit of one box (lo, hi), in the plain versions'
+// operation order.
+__device__ __forceinline__ void slab6(float lx, float ly, float lz, float hx,
+                                      float hy, float hz, const Ray& r,
+                                      float* entry, float* exit_) {
+  float e0 = lx * r.ix + r.sx;
+  float e1 = ly * r.iy + r.sy;
+  float e2 = lz * r.iz + r.sz;
+  float x0 = hx * r.ix + r.sx;
+  float x1 = hy * r.iy + r.sy;
+  float x2 = hz * r.iz + r.sz;
+  *entry = fmaxf(fmaxf(fminf(e0, x0), fminf(e1, x1)), fminf(e2, x2));
+  *exit_ = fminf(fminf(fmaxf(e0, x0), fmaxf(e1, x1)), fmaxf(e2, x2));
+}
+
+// rtjax's _slab accept rule: max(entry, 0) <= min(exit, tmax).
+__device__ __forceinline__ bool slab_accept(float lx, float ly, float lz,
+                                            float hx, float hy, float hz,
+                                            const Ray& r, float tmax) {
+  float entry, exit_;
+  slab6(lx, ly, lz, hx, hy, hz, r, &entry, &exit_);
+  return fmaxf(entry, 0.0f) <= fminf(exit_, tmax);
+}
+
 // Slab entry and exit of one box (lo at b[0..2], hi at b[3..5]).
 __device__ __forceinline__ void slab(const float* __restrict__ b,
                                      const Ray& r, float* entry,
                                      float* exit_) {
-  float e0 = __ldg(b + 0) * r.ix + r.sx;
-  float e1 = __ldg(b + 1) * r.iy + r.sy;
-  float e2 = __ldg(b + 2) * r.iz + r.sz;
-  float x0 = __ldg(b + 3) * r.ix + r.sx;
-  float x1 = __ldg(b + 4) * r.iy + r.sy;
-  float x2 = __ldg(b + 5) * r.iz + r.sz;
-  *entry = fmaxf(fmaxf(fminf(e0, x0), fminf(e1, x1)), fminf(e2, x2));
-  *exit_ = fminf(fminf(fmaxf(e0, x0), fmaxf(e1, x1)), fmaxf(e2, x2));
+  slab6(__ldg(b + 0), __ldg(b + 1), __ldg(b + 2), __ldg(b + 3), __ldg(b + 4),
+        __ldg(b + 5), r, entry, exit_);
 }
 
 // Slab test of every non-empty child; bit c set when child c is hit:
@@ -95,37 +115,48 @@ __device__ __forceinline__ unsigned slab_hits(const float* __restrict__ row,
 #pragma unroll
   for (int c = 0; c < W; ++c) {
     if (((leaf_mask >> c) & 1u) && (__ldg(meta + c) & 15) == 0) continue;
-    float entry, exit_;
-    slab(row + 6 * c, r, &entry, &exit_);
-    if (fmaxf(entry, 0.0f) <= fminf(exit_, tmax)) hits |= 1u << c;
+    const float* b = row + 6 * c;
+    if (slab_accept(__ldg(b + 0), __ldg(b + 1), __ldg(b + 2), __ldg(b + 3),
+                    __ldg(b + 4), __ldg(b + 5), r, tmax))
+      hits |= 1u << c;
   }
   return hits;
 }
 
 // Moeller-Trumbore with the reference's exact accept rule, in the plain
-// versions' operation order.  Returns t and whether the slot is accepted.
-__device__ __forceinline__ bool mt_slot(const float* __restrict__ q,
-                                        const Ray& r, float tmax, float* t_out,
-                                        float* nx, float* ny, float* nz) {
-  float p0x = __ldg(q + 0), p0y = __ldg(q + 1), p0z = __ldg(q + 2);
-  float e1x = __ldg(q + 3), e1y = __ldg(q + 4), e1z = __ldg(q + 5);
-  float e2x = __ldg(q + 6), e2y = __ldg(q + 7), e2z = __ldg(q + 8);
-  *nx = __ldg(q + 9);
-  *ny = __ldg(q + 10);
-  *nz = __ldg(q + 11);
+// versions' operation order, on one triangle (p0, e1, e2, n = e1 x e2).
+// Returns whether the triangle is accepted; t goes to ``t_out``.
+__device__ __forceinline__ bool mt_test(float p0x, float p0y, float p0z,
+                                        float e1x, float e1y, float e1z,
+                                        float e2x, float e2y, float e2z,
+                                        float nx, float ny, float nz,
+                                        const Ray& r, float tmax,
+                                        float* t_out) {
   float cx = p0x - r.ox;
   float cy = p0y - r.oy;
   float cz = p0z - r.oz;
   float rx = r.dy * cz - r.dz * cy;
   float ry = r.dz * cx - r.dx * cz;
   float rz = r.dx * cy - r.dy * cx;
-  float inv_det = 1.0f / (r.dx * *nx + r.dy * *ny + r.dz * *nz);
+  float inv_det = 1.0f / (r.dx * nx + r.dy * ny + r.dz * nz);
   float u = inv_det * (e2x * rx + e2y * ry + e2z * rz);
   float v = inv_det * (e1x * rx + e1y * ry + e1z * rz);
-  float t = inv_det * (cx * *nx + cy * *ny + cz * *nz);
+  float t = inv_det * (cx * nx + cy * ny + cz * nz);
   *t_out = t;
   return (u >= 0.0f) & (v >= 0.0f) & (u + v <= 1.0f) & (t > 0.0f) &
          (t <= tmax);
+}
+
+// One leaf slot (12 floats at q), read with scalar loads.
+__device__ __forceinline__ bool mt_slot(const float* __restrict__ q,
+                                        const Ray& r, float tmax, float* t_out,
+                                        float* nx, float* ny, float* nz) {
+  *nx = __ldg(q + 9);
+  *ny = __ldg(q + 10);
+  *nz = __ldg(q + 11);
+  return mt_test(__ldg(q + 0), __ldg(q + 1), __ldg(q + 2), __ldg(q + 3),
+                 __ldg(q + 4), __ldg(q + 5), __ldg(q + 6), __ldg(q + 7),
+                 __ldg(q + 8), *nx, *ny, *nz, r, tmax, t_out);
 }
 
 struct Closest {
@@ -165,6 +196,107 @@ __device__ __forceinline__ bool leaf_any(const float* __restrict__ row,
     if (mt_slot(row + 12 * s, r, tmax, &t, &nx, &ny, &nz) &&
         __float2int_rn(__ldg(row + kPidBase + s)) != exclude)
       return true;
+  }
+  return false;
+}
+
+// The same tests read with 16-byte loads (the persistent walkers' fetch
+// kernels, persist_traverse.cu).  A node row holds child c's box at floats
+// 6c..6c+5, so children 2p and 2p+1 are the 16-byte-aligned floats
+// 12p..12p+11: three float4.  A leaf slot is 12 floats at 48-byte offsets:
+// three float4.  Rows are 512 bytes and the wrappers check that the tables
+// are 16-byte aligned.
+
+// Bit c set when non-empty child c of the node whose row is ``row`` and
+// whose metas are ``meta`` (W ints, 16-byte aligned) passes the slab test.
+template <int W>
+__device__ __forceinline__ unsigned slab_hits_v(const float* __restrict__ row,
+                                                const int* __restrict__ meta,
+                                                unsigned leaf_mask,
+                                                const Ray& r, float tmax) {
+  const int4* m = reinterpret_cast<const int4*>(meta);
+  unsigned empty = 0u;  // leaf children with count 0 (NaN boxes)
+#pragma unroll
+  for (int k = 0; k < W / 4; ++k) {
+    const int4 v = __ldg(m + k);
+    empty |= ((v.x & 15) == 0 ? 1u : 0u) << (4 * k);
+    empty |= ((v.y & 15) == 0 ? 1u : 0u) << (4 * k + 1);
+    empty |= ((v.z & 15) == 0 ? 1u : 0u) << (4 * k + 2);
+    empty |= ((v.w & 15) == 0 ? 1u : 0u) << (4 * k + 3);
+  }
+  const float4* q = reinterpret_cast<const float4*>(row);
+  unsigned hits = 0u;
+#pragma unroll
+  for (int p = 0; p < W / 2; ++p) {
+    const float4 a = __ldg(q + 3 * p);
+    const float4 b = __ldg(q + 3 * p + 1);
+    const float4 c = __ldg(q + 3 * p + 2);
+    if (slab_accept(a.x, a.y, a.z, a.w, b.x, b.y, r, tmax))
+      hits |= 1u << (2 * p);
+    if (slab_accept(b.z, b.w, c.x, c.y, c.z, c.w, r, tmax))
+      hits |= 2u << (2 * p);
+  }
+  return hits & ~(empty & leaf_mask);
+}
+
+// leaf_closest / leaf_any over 16-byte loads, K slots at a time: the
+// loads of K slots are issued together (K divides 8, so a chunk never
+// leaves the row's 96 triangle floats), then the slots are tested in
+// ascending order.
+template <int K>
+__device__ __forceinline__ void load_slots(const float* __restrict__ row,
+                                           int s0, float4* v) {
+  const float4* q = reinterpret_cast<const float4*>(row) + 3 * s0;
+#pragma unroll
+  for (int j = 0; j < 3 * K; ++j) v[j] = __ldg(q + j);
+}
+
+__device__ __forceinline__ bool mt_slot4(const float4* v, const Ray& r,
+                                         float tmax, float* t_out) {
+  return mt_test(v[0].x, v[0].y, v[0].z, v[0].w, v[1].x, v[1].y, v[1].z,
+                 v[1].w, v[2].x, v[2].y, v[2].z, v[2].w, r, tmax, t_out);
+}
+
+template <int K>
+__device__ __forceinline__ void leaf_closest_v(const float* __restrict__ row,
+                                               int count, const Ray& r,
+                                               float* tmax, Closest* best) {
+  float rb_t = kBig, rnx = 0.0f, rny = 0.0f, rnz = 0.0f;
+  int rb_s = -1;
+  for (int s0 = 0; s0 < count; s0 += K) {
+    float4 v[3 * K];
+    load_slots<K>(row, s0, v);
+#pragma unroll
+    for (int j = 0; j < K; ++j) {
+      float t;
+      if (s0 + j < count && mt_slot4(v + 3 * j, r, *tmax, &t) && t < rb_t) {
+        rb_t = t; rb_s = s0 + j;
+        rnx = v[3 * j + 2].y; rny = v[3 * j + 2].z; rnz = v[3 * j + 2].w;
+      }
+    }
+  }
+  if (rb_s >= 0) {
+    *tmax = rb_t;
+    best->t = rb_t;
+    best->prim = __float2int_rn(__ldg(row + kPidBase + rb_s));
+    best->nx = rnx; best->ny = rny; best->nz = rnz;
+  }
+}
+
+template <int K>
+__device__ __forceinline__ bool leaf_any_v(const float* __restrict__ row,
+                                           int count, const Ray& r,
+                                           float tmax, int exclude) {
+  for (int s0 = 0; s0 < count; s0 += K) {
+    float4 v[3 * K];
+    load_slots<K>(row, s0, v);
+#pragma unroll
+    for (int j = 0; j < K; ++j) {
+      float t;
+      if (s0 + j < count && mt_slot4(v + 3 * j, r, tmax, &t) &&
+          __float2int_rn(__ldg(row + kPidBase + s0 + j)) != exclude)
+        return true;
+    }
   }
   return false;
 }

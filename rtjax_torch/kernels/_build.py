@@ -11,7 +11,9 @@ under the repository root (a directory that .gitignore lists).
   ``sm_90a`` and bound with ctypes.
 
 Each library is rebuilt when a source or a header it includes is newer
-than it.  A build writes a private temporary file and renames it into
+than it.  nvcc runs with ``-Xptxas -v``: each kernel's registers, stack
+frame, spills and shared memory go to ``<library>.log`` beside it
+(:func:`ptxas_report`).  A build writes a private temporary file and renames it into
 place, so concurrent processes never load a half-written library; builds
 of different libraries may run at once (one lock per library).  A failed
 build raises; there is no fallback.  Delete ``build/rtjax_torch/`` to force
@@ -43,7 +45,8 @@ GXX_FLAGS = ["-O3", "-march=native", "-ffp-contract=off", "-std=c++17",
 # --fmad=false: no multiply-add contraction, so the kernels round every
 # product and sum like the separate torch ops of their plain versions
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-              "-std=c++17", "--fmad=false", "-shared", "-Xcompiler", "-fPIC"]
+              "-std=c++17", "--fmad=false", "-Xptxas", "-v", "-shared",
+              "-Xcompiler", "-fPIC"]
 
 _locks: dict[str, threading.Lock] = {}
 _locks_lock = threading.Lock()
@@ -77,8 +80,29 @@ def _build(out: Path, sources: list[Path], cmd_prefix: list[str],
             tmp.unlink(missing_ok=True)
             raise RuntimeError(f"build of {out.name} failed:\n"
                                f"{' '.join(cmd)}\n{res.stdout}{res.stderr}")
+        out.with_suffix(".log").write_text(res.stdout + res.stderr)
         os.replace(tmp, out)
         return out
+
+
+def ptxas_report(lib: Path) -> list[tuple[str, str]]:
+    """``(kernel, resources)`` per kernel from a library's build log:
+    ptxas's register, stack-frame, spill and shared-memory lines joined,
+    the kernel named by its mangled name."""
+    log = lib.with_suffix(".log")
+    if not log.exists():
+        return []
+    report, name, parts = [], None, []
+    for line in log.read_text().splitlines():
+        if "Compiling entry function" in line:
+            if name:
+                report.append((name, "; ".join(parts)))
+            name, parts = line.split("'")[1], []
+        elif name and ("stack frame" in line or "Used" in line):
+            parts.append(line.split(":", 1)[-1].strip())
+    if name:
+        report.append((name, "; ".join(parts)))
+    return report
 
 
 def bvh_library() -> Path:

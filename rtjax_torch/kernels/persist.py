@@ -9,6 +9,19 @@ Pallas kernels ``_make_persist_closest_kernel`` and
 ``csrc/persist_traverse.cu`` (built at first use, bound with ctypes); a CPU
 tensor goes to the plain version.  There is no fallback between them.
 
+The kernels draw rays from a work counter: two words per device and
+stream (:func:`work_buffer`), zeroed once and left zeroed by every launch.
+Their stack holds ``tables.depth + 1`` entries per ray in shared memory
+(:func:`stack_len`).  ``persist_traverse_*_stride`` launch the first
+design of the same kernels (a fixed share of the rays per thread, a
+64-entry local-memory stack); they exist only to time both designs in one
+run (``chip_smoke.py``, the card tests), and no engine path calls them.
+
+The plain walk counts its work when given a ``work`` dict
+(:func:`new_work`): node visits, non-empty child slab tests, leaf rows and
+triangle slots tested, and which node and leaf rows it read.  The count is
+what a kernel's bound is computed from; it leaves the results as they are.
+
 Contract (rtjax's): rays are component triples (or ``[N, 3]``) of float32
 origin and direction, ``tmax [N] f32``, ``active [N] bool`` and, for any-hit,
 ``exclude [N] i32`` (a leaf-order prim id that never occludes).  Closest hit
@@ -45,6 +58,10 @@ _EPS = 2.0 ** -23          # float32 machine epsilon (slab direction clamp)
 # kernel launches (wrapper, CUDA path) and plain-version calls, by kernel
 LAUNCHES = {"closest": 0, "anyhit": 0}
 REF_CALLS = {"closest": 0, "anyhit": 0}
+# launches of the first design (the ``_stride`` wrappers), by kernel
+STRIDE_LAUNCHES = {"closest": 0, "anyhit": 0}
+WORK_WORDS = 2             # the work counter: next ray, blocks finished
+_work: dict = {}           # (device, stream) -> the counter
 
 _lock = threading.Lock()
 _lib = None
@@ -96,20 +113,57 @@ def _out_normal(nrm, as_v3):
 
 # ------------------------------------------------------------- CUDA path
 
+def bind(lib):
+    """Set the argument types of the four entry points of a persist
+    kernel library (``ctypes.CDLL``) and return it."""
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.rtjax_persist_closest.argtypes = \
+        [I, P, P, P, P] + [P] * 8 + [I] + [P] * 6 + [P, I, P]
+    lib.rtjax_persist_anyhit.argtypes = \
+        [I, P, P, P, P] + [P] * 9 + [I] + [P] + [P, I, P]
+    lib.rtjax_persist_closest_stride.argtypes = \
+        [I, P, P, P, P] + [P] * 8 + [I] + [P] * 6 + [P]
+    lib.rtjax_persist_anyhit_stride.argtypes = \
+        [I, P, P, P, P] + [P] * 9 + [I] + [P] + [P]
+    for name in ("closest", "anyhit", "closest_stride", "anyhit_stride"):
+        getattr(lib, f"rtjax_persist_{name}").restype = I
+    return lib
+
+
 def _kernels():
     global _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(_build.persist_library()))
-            P, I = ctypes.c_void_p, ctypes.c_int
-            lib.rtjax_persist_closest.argtypes = \
-                [I, P, P, P, P] + [P] * 8 + [I] + [P] * 6 + [P]
-            lib.rtjax_persist_closest.restype = I
-            lib.rtjax_persist_anyhit.argtypes = \
-                [I, P, P, P, P] + [P] * 9 + [I] + [P] + [P]
-            lib.rtjax_persist_anyhit.restype = I
-            _lib = lib
+            _lib = bind(ctypes.CDLL(str(_build.persist_library())))
         return _lib
+
+
+def stack_len(tables: WideTables) -> int:
+    """Stack entries per ray of the kernels: one per level of the binary
+    build plus the root's, as the plain walk holds."""
+    return tables.depth + 1
+
+
+def work_buffer(device, stream: int) -> torch.Tensor:
+    """The kernels' work counter on ``device`` for launches on ``stream``:
+    ``WORK_WORDS`` int32 zeros, made once and reused, so two streams never
+    share one.
+
+    Invariant: the counter is zero between launches.  A launch that runs
+    to its end leaves it so (its last block resets it); a launch that the
+    wrapper sees fail is followed by a reset (:func:`_launch`).  A launch
+    that fails later, on the card, leaves the context in a sticky error,
+    so no later launch on it returns results."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    key = (str(device), stream)
+    with _lock:
+        buf = _work.get(key)
+        if buf is None:
+            buf = _work[key] = torch.zeros(WORK_WORDS, dtype=torch.int32,
+                                           device=device)
+    return buf
 
 
 def _table_ptrs(tables: WideTables):
@@ -117,12 +171,40 @@ def _table_ptrs(tables: WideTables):
             tables.node_info.data_ptr(), tables.leaf_tris.data_ptr())
 
 
+def _check_aligned(tables: WideTables):
+    """The kernels read node rows, metas and leaf rows in 16-byte words."""
+    for name in ("node_bounds", "child_meta", "leaf_tris"):
+        if getattr(tables, name).data_ptr() % 16:
+            raise ValueError(f"tables.{name} must be 16-byte aligned")
+
+
 def _raise_on(rc: int, name: str):
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
 
 
-def _closest_cuda(tables, o, d, tmax, active):
+def _launch(entry, args, name: str, work=None):
+    """Call the entry point ``entry`` with ``args``; raise on a CUDA error
+    code, first zeroing the work counter ``work`` (a launch that was
+    refused, or stopped before its last block, may have left it drawn)."""
+    rc = entry(*args)
+    if rc != 0 and work is not None:
+        work.zero_()
+    _raise_on(rc, name)
+
+
+def _launch_args(tables, stream, stride):
+    """``(trailing arguments of an entry point, work counter or None)``:
+    the work counter and the stack length, then the stream (the stride
+    design takes the stream alone)."""
+    if stride:
+        return (stream,), None
+    _check_aligned(tables)
+    work = work_buffer(tables.node_bounds.device, stream)
+    return (work.data_ptr(), stack_len(tables), stream), work
+
+
+def _closest_cuda(tables, o, d, tmax, active, stride):
     n = tmax.shape[0]
     dev = tmax.device
     hit = torch.empty(n, dtype=torch.bool, device=dev)
@@ -131,39 +213,39 @@ def _closest_cuda(tables, o, d, tmax, active):
     nrm = tuple(torch.empty(n, dtype=torch.float32, device=dev)
                 for _ in range(3))
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = _kernels().rtjax_persist_closest(
+    entry = "rtjax_persist_closest" + ("_stride" if stride else "")
+    tail, work = _launch_args(tables, stream, stride)
+    _launch(getattr(_kernels(), entry), (
         tables.width, *_table_ptrs(tables),
         *(c.data_ptr() for c in o), *(c.data_ptr() for c in d),
         tmax.data_ptr(), active.data_ptr(), n,
         hit.data_ptr(), t.data_ptr(), prim.data_ptr(),
-        *(c.data_ptr() for c in nrm), stream)
-    _raise_on(rc, "persist closest-hit")
-    LAUNCHES["closest"] += 1
+        *(c.data_ptr() for c in nrm), *tail), "persist closest-hit", work)
+    (STRIDE_LAUNCHES if stride else LAUNCHES)["closest"] += 1
     return hit, t, prim, nrm
 
 
-def _anyhit_cuda(tables, o, d, tmax, exclude, active):
+def _anyhit_cuda(tables, o, d, tmax, exclude, active, stride):
     n = tmax.shape[0]
     occ = torch.empty(n, dtype=torch.bool, device=tmax.device)
     stream = torch.cuda.current_stream(tmax.device).cuda_stream
-    rc = _kernels().rtjax_persist_anyhit(
+    entry = "rtjax_persist_anyhit" + ("_stride" if stride else "")
+    tail, work = _launch_args(tables, stream, stride)
+    _launch(getattr(_kernels(), entry), (
         tables.width, *_table_ptrs(tables),
         *(c.data_ptr() for c in o), *(c.data_ptr() for c in d),
         tmax.data_ptr(), active.data_ptr(), exclude.data_ptr(), n,
-        occ.data_ptr(), stream)
-    _raise_on(rc, "persist any-hit")
-    LAUNCHES["anyhit"] += 1
+        occ.data_ptr(), *tail), "persist any-hit", work)
+    (STRIDE_LAUNCHES if stride else LAUNCHES)["anyhit"] += 1
     return occ
 
 
-def persist_traverse_closest(tables: WideTables, origin, direction, tmax,
-                             active):
-    """Closest hit of every active ray: ``(hit, t, prim, normal)``."""
+def _closest(tables: WideTables, origin, direction, tmax, active, stride):
     as_v3 = isinstance(origin, (tuple, list))
     o, d = _columns(origin), _columns(direction)
     _check(tables, o, d, tmax, active)
     if tmax.device.type == "cuda":
-        hit, t, prim, nrm = _closest_cuda(tables, o, d, tmax, active)
+        hit, t, prim, nrm = _closest_cuda(tables, o, d, tmax, active, stride)
     elif tmax.device.type == "cpu":
         hit, t, prim, nrm = persist_traverse_closest_ref(tables, o, d, tmax,
                                                          active)
@@ -172,17 +254,41 @@ def persist_traverse_closest(tables: WideTables, origin, direction, tmax,
     return hit, t, prim, _out_normal(nrm, as_v3)
 
 
-def persist_traverse_anyhit(tables: WideTables, origin, direction, tmax,
-                            exclude, active):
-    """Occlusion of every active ray, ignoring its ``exclude`` prim."""
+def _anyhit(tables: WideTables, origin, direction, tmax, exclude, active,
+            stride):
     o, d = _columns(origin), _columns(direction)
     _check(tables, o, d, tmax, active, exclude)
     if tmax.device.type == "cuda":
-        return _anyhit_cuda(tables, o, d, tmax, exclude, active)
+        return _anyhit_cuda(tables, o, d, tmax, exclude, active, stride)
     if tmax.device.type == "cpu":
         return persist_traverse_anyhit_ref(tables, o, d, tmax, exclude,
                                            active)
     raise ValueError(f"unsupported device {tmax.device}")
+
+
+def persist_traverse_closest(tables: WideTables, origin, direction, tmax,
+                             active):
+    """Closest hit of every active ray: ``(hit, t, prim, normal)``."""
+    return _closest(tables, origin, direction, tmax, active, False)
+
+
+def persist_traverse_anyhit(tables: WideTables, origin, direction, tmax,
+                            exclude, active):
+    """Occlusion of every active ray, ignoring its ``exclude`` prim."""
+    return _anyhit(tables, origin, direction, tmax, exclude, active, False)
+
+
+def persist_traverse_closest_stride(tables: WideTables, origin, direction,
+                                    tmax, active):
+    """:func:`persist_traverse_closest` by the first design (for timing
+    both designs in one run; counted in ``STRIDE_LAUNCHES``)."""
+    return _closest(tables, origin, direction, tmax, active, True)
+
+
+def persist_traverse_anyhit_stride(tables: WideTables, origin, direction,
+                                   tmax, exclude, active):
+    """:func:`persist_traverse_anyhit` by the first design."""
+    return _anyhit(tables, origin, direction, tmax, exclude, active, True)
 
 
 # ------------------------------------------------------ plain versions
@@ -246,11 +352,57 @@ def _mt8(rows, o, d):
     return u, v, t, tri
 
 
+def new_work() -> dict:
+    """An empty work count for the plain walks' ``work`` argument: node
+    visits (one per live ray and node), non-empty child slab tests, leaf
+    rows tested, triangle slots tested (a leaf row's real slots; an any-hit
+    row up to its first occluding slot, where the kernels stop), and the
+    ``node_seen`` / ``leaf_seen`` masks of the table rows read (made at
+    the first walk).  The two-level walks add ``inst_tests`` (instance box
+    slab tests) and ``inst_visits`` (rays moved into an instance)."""
+    return {"node_visits": 0, "slab_tests": 0, "leaf_rows": 0,
+            "tri_slots": 0, "node_seen": None, "leaf_seen": None}
+
+
+def count_visits(work, tables: WideTables, cur, nonempty):
+    """Add one step of node visits to ``work``: ``cur [K]`` the visited
+    nodes, ``nonempty [K, width]`` the slots each visit slab-tests."""
+    if work["node_seen"] is None:
+        work["node_seen"] = torch.zeros(tables.num_wide_nodes,
+                                        dtype=torch.bool, device=cur.device)
+        work["leaf_seen"] = torch.zeros(tables.num_leaf_rows,
+                                        dtype=torch.bool, device=cur.device)
+    work["node_visits"] += int(nonempty.shape[0])
+    work["slab_tests"] += int(nonempty.sum())
+    work["node_seen"][cur] = True
+
+
+def count_leaves(work, leaf_rows):
+    """Add leaf-row tests (``leaf_rows [R]`` row indices) to ``work``."""
+    work["leaf_rows"] += int(leaf_rows.shape[0])
+    work["leaf_seen"][leaf_rows] = True
+
+
+def work_table_bytes(work, tables: WideTables) -> int:
+    """Bytes of the tables that the counted walks need, each read once: of
+    every node visited, its ``width`` child boxes (6 floats each), its
+    ``width`` metas and its info word; of every leaf row tested, its real
+    triangles (12 floats and the prim id each).  The rows' padding is not
+    counted."""
+    if work["node_seen"] is None:
+        return 0
+    nodes = int(work["node_seen"].sum())
+    tris = int(_real_slots(tables.leaf_tris[work["leaf_seen"]]).sum())
+    return nodes * 4 * (7 * tables.width + 1) + tris * 4 * 13
+
+
 class _Walk:
     """Per-ray walk state of the live rays (compacted as rays finish)."""
 
-    def __init__(self, tables, o, d, tmax, active, exclude, root):
+    def __init__(self, tables, o, d, tmax, active, exclude, root,
+                 work=None):
         ids = torch.nonzero(active).squeeze(1)
+        self.work = work
         self.ids = ids
         self.o = [c[ids] for c in o]
         self.d = [c[ids] for c in d]
@@ -279,18 +431,19 @@ class _Walk:
 
 
 def _walk(tables: WideTables, o, d, tmax, active, on_leaf, exclude=None,
-          root=None):
+          root=None, work=None):
     """The batched masked walk shared by the plain versions.  Each step
     pops the rays whose cursor is empty, drops the finished rays, and
     visits one node per remaining ray.  ``on_leaf(w, rr, rows)`` tests leaf
     rows for the live rays ``rr`` and returns a [R] bool of rays that are
     finished (any-hit occlusion).  Each ray starts at node 0, or at its
-    ``root [N]`` entry (a BLAS root in concatenated two-level tables)."""
+    ``root [N]`` entry (a BLAS root in concatenated two-level tables).
+    ``work`` (:func:`new_work`), when given, counts the walk's work."""
     width = tables.width
     nb, lt, ni = tables.node_bounds, tables.leaf_tris, tables.node_info
     cm = tables.child_meta.view(-1, width)
     lane = torch.arange(width, device=tmax.device)
-    w = _Walk(tables, o, d, tmax, active, exclude, root)
+    w = _Walk(tables, o, d, tmax, active, exclude, root, work)
     while True:
         r = torch.nonzero((w.cur < 0) & (w.sp > 0)).squeeze(1)
         if r.numel():
@@ -320,9 +473,11 @@ def _walk(tables: WideTables, o, d, tmax, active, on_leaf, exclude=None,
                             [c[:, None] for c in w.sc])
         # the fused accept rule of rtjax's _slab: max(entry, 0) <=
         # min(exit, tmax); empty slots (leaf bit, count 0) never hit
+        nonempty = ~(lbit & ((meta & 15) == 0))
         hitc = (torch.clamp(entry, min=0.0)
-                <= torch.minimum(exit_, w.tm[:, None])) \
-            & ~(lbit & ((meta & 15) == 0))
+                <= torch.minimum(exit_, w.tm[:, None])) & nonempty
+        if work is not None:
+            count_visits(work, tables, w.cur, nonempty)
 
         leafhit = hitc & lbit
         done = torch.zeros(k, dtype=torch.bool, device=tmax.device)
@@ -330,6 +485,8 @@ def _walk(tables: WideTables, o, d, tmax, active, on_leaf, exclude=None,
             rr = torch.nonzero(leafhit[:, c] & ~done).squeeze(1)
             if rr.numel() == 0:
                 continue
+            if work is not None:
+                count_leaves(work, meta[rr, c] >> 4)
             done[rr] = on_leaf(w, rr, lt[meta[rr, c] >> 4])
 
         inner = ((hitc & ~lbit).long() << lane).sum(1)
@@ -348,6 +505,12 @@ def _walk(tables: WideTables, o, d, tmax, active, on_leaf, exclude=None,
         w.sp = torch.where(done, 0, w.sp)
 
 
+def _real_slots(rows):
+    """Per leaf row, its triangles: the slots with a prim id (padding slots
+    hold -1, ``accel/wide.pack_leaf_rows``)."""
+    return (rows[:, PID_BASE:PID_BASE + MAX_LEAF] >= 0).sum(1)
+
+
 def closest_leaf(best_t, best_p, best_n, found=None):
     """``on_leaf`` of the closest-hit walks: the closest accepted slot of
     each ray's leaf row (the first of equal t) shrinks the ray's tmax and
@@ -356,6 +519,8 @@ def closest_leaf(best_t, best_p, best_n, found=None):
 
     def on_leaf(w, rr, rows):
         dev = rows.device
+        if w.work is not None:
+            w.work["tri_slots"] += int(_real_slots(rows).sum())
         u, v, t, tri = _mt8(rows, [c[rr] for c in w.o], [c[rr] for c in w.d])
         h = (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) & (t > 0.0) & \
             (t <= w.tm[rr][:, None]) & (t < BIG)
@@ -387,6 +552,11 @@ def anyhit_leaf(occ):
         h = (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) & (t > 0.0) & \
             (t <= w.tm[rr][:, None]) & (pid != w.ex[rr][:, None])
         hit = h.any(dim=1)
+        if w.work is not None:
+            # the kernels stop at the first occluding slot
+            first = torch.argmax(h.to(torch.int32), dim=1) + 1
+            w.work["tri_slots"] += int(
+                torch.where(hit, first, _real_slots(rows)).sum())
         occ[w.ids[rr[hit]]] = True
         return hit
 
@@ -394,9 +564,9 @@ def anyhit_leaf(occ):
 
 
 def persist_traverse_closest_ref(tables: WideTables, origin, direction, tmax,
-                                 active):
+                                 active, work=None):
     """Plain PyTorch version of :func:`persist_traverse_closest` (same
-    contract, same visit order, any device)."""
+    contract, same visit order, any device); ``work`` as in :func:`_walk`."""
     REF_CALLS["closest"] += 1
     as_v3 = isinstance(origin, (tuple, list))
     o, d = _columns(origin), _columns(direction)
@@ -405,17 +575,18 @@ def persist_traverse_closest_ref(tables: WideTables, origin, direction, tmax,
     best_t = torch.full((n,), BIG, dtype=torch.float32, device=dev)
     best_p = torch.full((n,), -1, dtype=torch.int32, device=dev)
     best_n = torch.zeros(n, 3, dtype=torch.float32, device=dev)
-    _walk(tables, o, d, tmax, active, closest_leaf(best_t, best_p, best_n))
+    _walk(tables, o, d, tmax, active, closest_leaf(best_t, best_p, best_n),
+          work=work)
     hit = best_p >= 0
     nrm = (best_n[:, 0], best_n[:, 1], best_n[:, 2])
     return hit, best_t, best_p, _out_normal(nrm, as_v3)
 
 
 def persist_traverse_anyhit_ref(tables: WideTables, origin, direction, tmax,
-                                exclude, active):
+                                exclude, active, work=None):
     """Plain PyTorch version of :func:`persist_traverse_anyhit`."""
     REF_CALLS["anyhit"] += 1
     o, d = _columns(origin), _columns(direction)
     occ = torch.zeros(tmax.shape[0], dtype=torch.bool, device=tmax.device)
-    _walk(tables, o, d, tmax, active, anyhit_leaf(occ), exclude)
+    _walk(tables, o, d, tmax, active, anyhit_leaf(occ), exclude, work=work)
     return occ

@@ -46,7 +46,7 @@ from ..accel.wide import WideTables
 from . import _build
 from .persist import (BIG, _columns, _out_normal, _pick, _raise_on,
                       _table_ptrs, anyhit_leaf, check_rays, closest_leaf,
-                      slab, slab_pre)
+                      count_leaves, count_visits, slab, slab_pre)
 
 PACKET = 256  # rays per packet: one CTA (csrc/packet_traverse.cu kPacket)
 
@@ -172,7 +172,8 @@ class _Groups:
     _RAY3 = ("o", "d", "inv", "sc")
     _GROUP = ("cur", "sp", "stn", "stm", "octv")
 
-    def __init__(self, tables, o, d, tmax, active, exclude, group):
+    def __init__(self, tables, o, d, tmax, active, exclude, group,
+                 work=None):
         n = tmax.shape[0]
         dev = tmax.device
         ng = -(-n // group)
@@ -182,6 +183,7 @@ class _Groups:
             return torch.cat([x, x.new_full((pad,), fill)]) if pad else x
 
         self.group = group
+        self.work = work
         self.ids = grid(torch.arange(n, device=dev), 0)
         self.live = grid(active, False)
         self.o = [grid(c, 0.0) for c in o]
@@ -213,18 +215,19 @@ class _Groups:
 
 
 def _group_walk(tables: WideTables, o, d, tmax, active, group, on_leaf,
-                exclude=None):
+                exclude=None, work=None):
     """The batched group walk of the plain version.  Each step pops the
     groups whose cursor is empty, drops the finished groups, and visits one
     node per remaining group with all of its rays.  ``on_leaf(w, rr,
     rows)`` is persist.py's: it tests leaf rows for the rays ``rr`` (flat
     indices) and returns a [R] bool of rays that are finished (any-hit
-    occlusion)."""
+    occlusion).  ``work`` (``persist.new_work``), when given, counts the
+    work as persist's walk does, a node visit per live ray of the group."""
     width = tables.width
     nb, lt, ni = tables.node_bounds, tables.leaf_tris, tables.node_info
     cm = tables.child_meta.view(-1, width)
     lane = torch.arange(width, device=tmax.device)
-    w = _Groups(tables, o, d, tmax, active, exclude, group)
+    w = _Groups(tables, o, d, tmax, active, exclude, group, work)
     while True:
         r = torch.nonzero((w.cur < 0) & (w.sp > 0)).squeeze(1)
         if r.numel():
@@ -253,10 +256,13 @@ def _group_walk(tables: WideTables, o, d, tmax, active, group, on_leaf,
         entry, exit_ = slab(b, [c.view(k, group, 1) for c in w.inv],
                             [c.view(k, group, 1) for c in w.sc])
         # persist.py's accept rule, for the live rays only
-        hitc = (torch.clamp(entry, min=0.0)
-                <= torch.minimum(exit_, w.tm.view(k, group, 1))) \
-            & ~(lbit & ((meta & 15) == 0))[:, None] \
+        tested = ~(lbit & ((meta & 15) == 0))[:, None] \
             & w.live.view(k, group, 1)
+        hitc = (torch.clamp(entry, min=0.0)
+                <= torch.minimum(exit_, w.tm.view(k, group, 1))) & tested
+        if work is not None:
+            live = w.live.view(k, group)
+            count_visits(work, tables, w.cur, tested[live])
         hitc = hitc.view(k * group, width)
         lbit_r = lbit.repeat_interleave(group, 0)
 
@@ -266,6 +272,8 @@ def _group_walk(tables: WideTables, o, d, tmax, active, group, on_leaf,
             rr = torch.nonzero(leafhit[:, c] & ~done).squeeze(1)
             if rr.numel() == 0:
                 continue
+            if work is not None:
+                count_leaves(work, meta[rr // group, c] >> 4)
             done[rr] = on_leaf(w, rr, lt[meta[rr // group, c] >> 4])
         w.live &= ~done
 
@@ -288,10 +296,11 @@ def _group_walk(tables: WideTables, o, d, tmax, active, group, on_leaf,
 
 
 def group_traverse_closest_ref(tables: WideTables, origin, direction, tmax,
-                               active, group):
+                               active, group, work=None):
     """Plain PyTorch version of the group-walk closest hit (the packet
     kernel at ``group`` = PACKET, the lane kernel at lane.LANE): same
-    contract, same visit order, any device."""
+    contract, same visit order, any device; ``work`` as in
+    :func:`_group_walk`."""
     REF_CALLS["closest"] += 1
     as_v3 = isinstance(origin, (tuple, list))
     o, d = _columns(origin), _columns(direction)
@@ -301,18 +310,18 @@ def group_traverse_closest_ref(tables: WideTables, origin, direction, tmax,
     best_p = torch.full((n,), -1, dtype=torch.int32, device=dev)
     best_n = torch.zeros(n, 3, dtype=torch.float32, device=dev)
     _group_walk(tables, o, d, tmax, active, group,
-                closest_leaf(best_t, best_p, best_n))
+                closest_leaf(best_t, best_p, best_n), work=work)
     hit = best_p >= 0
     nrm = (best_n[:, 0], best_n[:, 1], best_n[:, 2])
     return hit, best_t, best_p, _out_normal(nrm, as_v3)
 
 
 def group_traverse_anyhit_ref(tables: WideTables, origin, direction, tmax,
-                              exclude, active, group):
+                              exclude, active, group, work=None):
     """Plain PyTorch version of the group-walk any hit."""
     REF_CALLS["anyhit"] += 1
     o, d = _columns(origin), _columns(direction)
     occ = torch.zeros(tmax.shape[0], dtype=torch.bool, device=tmax.device)
     _group_walk(tables, o, d, tmax, active, group, anyhit_leaf(occ),
-                exclude)
+                exclude, work)
     return occ

@@ -173,11 +173,17 @@ def _visit_order(tabs, o, d, tmax):
     return order, dist, aff, inv, sc
 
 
-def _visits(tabs, o, d, tmax, active, live):
+def _visits(tabs, o, d, tmax, active, live, work=None):
     """Yield, for each visit round j, ``(pending [N], k [N], o_l, d_l)``:
     the rays whose j-th instance is not culled (against the running
-    ``live()`` tmax) and their rays in that instance's frame."""
+    ``live()`` tmax) and their rays in that instance's frame.  ``work``,
+    when given, counts the instance box tests: one per active ray and
+    instance, then a re-cull per candidate visit."""
     order, dist, aff, inv, sc = _visit_order(tabs, o, d, tmax)
+    if work is not None:
+        work.setdefault("inst_tests", 0)
+        work.setdefault("inst_visits", 0)
+        work["inst_tests"] += int(active.sum()) * order.shape[1]
     for j in range(order.shape[1]):
         dj = dist[:, j]
         more = active & (dj < BIG)
@@ -188,15 +194,18 @@ def _visits(tabs, o, d, tmax, active, live):
         entry, exit_ = slab(a[:, 12:18], inv, sc)
         pending = more & (torch.clamp(entry, min=0.0)
                           <= torch.minimum(exit_, live()))
+        if work is not None:
+            work["inst_tests"] += int(more.sum())
         rows = a[:, :12].view(-1, 3, 4)
         yield (pending, k, apply_affine_point(rows, o),
                apply_affine_vector(rows, d))
 
 
 def wide_traverse_closest_inst_ref(tabs: InstancedTables, origin, direction,
-                                   tmax, active):
+                                   tmax, active, work=None):
     """Plain PyTorch version of :func:`wide_traverse_closest_inst` (same
-    contract, same visit order, any device)."""
+    contract, same visit order, any device); ``work``
+    (``persist.new_work``), when given, counts its work."""
     REF_CALLS["closest"] += 1
     as_v3 = isinstance(origin, (tuple, list))
     o, d = _columns(origin), _columns(direction)
@@ -208,11 +217,13 @@ def wide_traverse_closest_inst_ref(tabs: InstancedTables, origin, direction,
     best_n = torch.zeros(n, 3, dtype=torch.float32, device=dev)
     cur_t = tmax.clone()
     for pending, k, o_l, d_l in _visits(tabs, o, d, tmax, active,
-                                        lambda: cur_t):
+                                        lambda: cur_t, work):
         found = torch.zeros(n, dtype=torch.bool, device=dev)
+        if work is not None:
+            work["inst_visits"] += int(pending.sum())
         _walk(tabs.wide, o_l, d_l, cur_t, pending,
               closest_leaf(best_t, best_p, best_n, found),
-              root=tabs.root[k])
+              root=tabs.root[k], work=work)
         best_i = torch.where(found, k.to(torch.int32), best_i)
         cur_t = torch.where(found, best_t, cur_t)
     hit = best_p >= 0
@@ -221,14 +232,16 @@ def wide_traverse_closest_inst_ref(tabs: InstancedTables, origin, direction,
 
 
 def wide_traverse_anyhit_inst_ref(tabs: InstancedTables, origin, direction,
-                                  tmax, exclude, active):
+                                  tmax, exclude, active, work=None):
     """Plain PyTorch version of :func:`wide_traverse_anyhit_inst`."""
     REF_CALLS["anyhit"] += 1
     o, d = _columns(origin), _columns(direction)
     occ = torch.zeros(tmax.shape[0], dtype=torch.bool, device=tmax.device)
     for pending, k, o_l, d_l in _visits(tabs, o, d, tmax, active,
-                                        lambda: tmax):
+                                        lambda: tmax, work):
         ex = torch.where(k == 0, exclude, -1)
+        if work is not None:
+            work["inst_visits"] += int((pending & ~occ).sum())
         _walk(tabs.wide, o_l, d_l, tmax, pending & ~occ, anyhit_leaf(occ),
-              ex, root=tabs.root[k])
+              ex, root=tabs.root[k], work=work)
     return occ

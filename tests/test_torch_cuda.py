@@ -1,7 +1,7 @@
 """rtjax_torch on a CUDA device: the hand-written kernels (persistent
-walkers, two-level, packet and lane group walks) against their plain
-PyTorch versions, and the engine's main path through the kernels,
-single-level and instanced, under every walker.
+walkers in both designs, two-level, packet and lane group walks) against
+their plain PyTorch versions, and the engine's main path through the
+kernels, single-level and instanced, under every walker.
 
 Every test here is marked ``cuda`` and skips where
 ``torch.cuda.is_available()`` is False.  The file imports no JAX, so on a
@@ -89,6 +89,104 @@ def test_kernels_equal_plain_versions(cuda, width, tmax_v):
     occ = P.persist_traverse_anyhit(*args)
     assert torch.equal(occ, P.persist_traverse_anyhit_ref(*args))
     assert not bool(occ[~active].any())
+    # the first design still computes the same
+    k_out = P.persist_traverse_closest_stride(tables, o, d, tmax, active)
+    for a, b in zip(k_out[:3] + k_out[3], p_out[:3] + p_out[3]):
+        assert torch.equal(a, b)
+    assert torch.equal(P.persist_traverse_anyhit_stride(*args), occ)
+
+
+def _counter_zeroed(device):
+    stream = torch.cuda.current_stream(device).cuda_stream
+    torch.cuda.synchronize()
+    return not bool(P.work_buffer(device, stream).any())
+
+
+def _check_persist(tables, o, d, tmax, active, exclude):
+    """Both fetch kernels and both stride kernels against the plain
+    versions, bit for bit, dead lanes included; the work counter zero
+    after every launch."""
+    args = (tables, o, d, tmax, active)
+    want = P.persist_traverse_closest_ref(*args)
+    for fn in (P.persist_traverse_closest, P.persist_traverse_closest_stride):
+        got = fn(*args)
+        assert _counter_zeroed(tmax.device)
+        for a, b in zip(got[:3] + got[3], want[:3] + want[3]):
+            assert torch.equal(a, b)
+    dead = ~active
+    assert not bool(want[0][dead].any())
+    assert bool((want[1][dead] == P.BIG).all())
+    assert bool((want[2][dead] == -1).all())
+    assert not any(bool(c[dead].any()) for c in want[3])
+    args = (tables, o, d, tmax, exclude, active)
+    want = P.persist_traverse_anyhit_ref(*args)
+    for fn in (P.persist_traverse_anyhit, P.persist_traverse_anyhit_stride):
+        assert torch.equal(fn(*args), want)
+        assert _counter_zeroed(tmax.device)
+    assert not bool(want[dead].any())
+
+
+def _resident_threads():
+    props = torch.cuda.get_device_properties(0)
+    return props.multi_processor_count * getattr(
+        props, "max_threads_per_multi_processor", 2048)
+
+
+@pytest.mark.parametrize("width", [8, 16], ids=["w8", "w16"])
+@pytest.mark.parametrize("size", ["one", "ragged", "refill"])
+def test_fetch_kernels_equal_plain_versions(cuda, width, size):
+    """One ray; a count that is not a multiple of 32; more rays than four
+    times the resident threads, so lanes draw again and again.  Inactive
+    rays scattered (10%) and in long runs (the first 4,097 and a run in
+    the middle)."""
+    tables = _soup_tables(width, cuda)
+    n = {"one": 1, "ragged": 5 * 2048 + 17,
+         "refill": 4 * _resident_threads() + 4099}[size]
+    o, d, active, exclude = _rays(n, cuda)
+    if n > 1:
+        active[:4097] = False
+        active[n // 2:n // 2 + 3001] = False
+    else:
+        active[:] = True
+    for tmax_v in (float("inf"), 0.7):
+        tmax = torch.full((n,), tmax_v, device=cuda)
+        _check_persist(tables, o, d, tmax, active, exclude)
+
+
+def test_fetch_counter_resets_itself(cuda):
+    """Back-to-back launches on one stream with no synchronisation between
+    them: each finds the work counter zeroed by the one before."""
+    tables = _soup_tables(16, cuda)
+    n = 3 * 2048 + 300
+    o, d, active, exclude = _rays(n, cuda)
+    tmax = torch.full((n,), float("inf"), device=cuda)
+    want_c = P.persist_traverse_closest_ref(tables, o, d, tmax, active)
+    want_a = P.persist_traverse_anyhit_ref(tables, o, d, tmax, exclude,
+                                           active)
+    outs = []
+    for _ in range(3):
+        outs.append(P.persist_traverse_closest(tables, o, d, tmax, active))
+        outs.append(P.persist_traverse_anyhit(tables, o, d, tmax, exclude,
+                                              active))
+    torch.cuda.synchronize()
+    for c, a in zip(outs[::2], outs[1::2]):
+        assert torch.equal(c[1], want_c[1]) and torch.equal(c[2], want_c[2])
+        assert torch.equal(a, want_a)
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    assert not bool(P.work_buffer(cuda, stream).any())
+
+
+def test_fetch_kernels_take_every_stack_length(cuda):
+    """Stacks of 1-64 entries: the shared-memory stack grows with
+    tables.depth, past the default 48 KB of shared memory at 64."""
+    base = _soup_tables(8, cuda)
+    n = 4096
+    o, d, active, exclude = _rays(n, cuda)
+    tmax = torch.full((n,), float("inf"), device=cuda)
+    for depth in (base.depth, 40, P.STACK - 1):
+        tables = dataclasses.replace(base, depth=depth)
+        assert P.stack_len(tables) == depth + 1
+        _check_persist(tables, o, d, tmax, active, exclude)
 
 
 GROUP_WALKS = {
@@ -190,9 +288,10 @@ def test_main_path_runs_through_the_kernels(cuda):
     cfg = RenderConfig(width=32, height=32, num_samples=8, max_bounces=4,
                        num_working_paths=4096)
     launches, refs = dict(P.LAUNCHES), dict(P.REF_CALLS)
+    stride = dict(P.STRIDE_LAUNCHES)
     fb, stats = render_frame(scene, cam, cfg,
                              torch.Generator(device=cuda).manual_seed(1))
-    assert P.REF_CALLS == refs
+    assert P.REF_CALLS == refs and P.STRIDE_LAUNCHES == stride
     for k in ("closest", "anyhit"):
         assert P.LAUNCHES[k] - launches[k] == stats["iterations"]
     assert bool(torch.isfinite(fb).all()) and bool((fb >= 0).all())
