@@ -14,7 +14,8 @@ the script exits non-zero):
 1. build: the BVH builder and the three kernel libraries from this
    checkout's sources, into build/rtjax_torch/, all four compilers
    started together; ptxas's registers, stack frame and spills of the
-   persist kernels (both designs, widths 8 and 16);
+   persist and two-level kernels (both designs, widths 8 and 16, the
+   two-level fetch kernels with the instance records staged or global);
 2. scene: the bunny Cornell box (69,463 triangles) on the card;
 3. kernels: each persistent-walker kernel, in the fetch design that the
    engine runs and in the first (stride) design, against its plain PyTorch
@@ -47,12 +48,16 @@ the script exits non-zero):
    image at the noise-floor gate and within 0.1x the seed-to-seed MSE of
    the persist image of its seed;
 5. two-level kernels: eval config 4 (16 instanced bunnies, 1.11M effective
-   triangles) built on the card; each two-level kernel against its plain
-   version at the config's shapes (2^17 closest-hit rays: half camera
-   rays, half random rays over the instance field, 10% inactive; 2^18
-   any-hit rays with random exclusions): zero hit, t, prim, inst, normal
-   and occlusion mismatches, correct dead lanes, device and call times,
-   the two-level plain walk's work count and the bound;
+   triangles) built on the card; each two-level kernel, in the fetch
+   design that the engine runs and in the first (stride) design, against
+   its plain version at the config's shapes (2^17 closest-hit rays: half
+   camera rays, half random rays over the instance field, 10% inactive;
+   2^18 any-hit rays with random exclusions): zero hit, t, prim, inst,
+   normal and occlusion mismatches, correct dead lanes, both designs'
+   device times in turns as in phase 3, one call's time, the plain
+   version's, the two-level plain walk's work count and the bound; the
+   same on the same kind of rays over MANY_INST instances of the bunny
+   (the share of the instance rescan);
    then the persist (both designs), packet and lane kernels against their
    plain versions, as in phase 3, at the two other shapes config 4 gives
    them: the baked
@@ -63,19 +68,23 @@ the script exits non-zero):
 6. config 4 end to end (256x256 at 8 spp, 5 bounces, default
    RenderConfig): (a) two_level="auto" (repass over the persist kernels)
    with seeds 1 (warm-up), 2 and 3; (b) two_level="kernel" (the two-level
-   kernels) with seed 2; (c) the same bunnies baked into one single-level
+   kernels) with seed 2, keeping the rays of launch C4_CAPTURE_AT of each
+   two-level kernel, on which phase 5's check, A/B and bound run again
+   after this phase; (c) the same bunnies baked into one single-level
    scene, seed 2; (d) repass under walker="packet" and
    anyhit_walker="packet", seed 2.  Each run's launch counts are read from
    zero: (a) and (c) launch only the persist kernels, (b) only the
-   two-level ones, (d) only the packet ones, and no plain version runs.
+   two-level ones in the fetch design, (d) only the packet ones, and no
+   plain version or stride-design kernel runs.
    Frames are finite and non-negative; MSE((a), (b)) and MSE((a), (d)) <=
    0.1x and MSE((a), (c)) <= 2x the seed-to-seed MSE of (a) (plus the
    quantisation term for (c)).  Images go to build/rtjax_torch/;
-7. the two persist kernels' device time over one whole headline frame
-   (torch.profiler; every launch of the frame must be recorded, or the
-   frame is profiled again, once) under each design, stride, fetch, fetch,
-   stride (render/trace.py's names rebound to the stride design for its
-   frames).
+7. the two persist kernels' device time over one whole headline frame,
+   then the two two-level kernels' over one config-4 two_level="kernel"
+   frame (torch.profiler; every launch of the frame must be recorded, or
+   the frame is profiled again, once) under each design, stride, fetch,
+   fetch, stride (render/trace.py's names rebound to the stride design
+   for its frames).
 
 A kernel's bound is the least time the card could take for its work:
 the larger of the bytes it must move (every ray's active flag and results,
@@ -95,9 +104,11 @@ kernel's count in its main-path run: phase 4's three frames for the
 persist kernels, its packet and lane frames (seed 2) for those kernels,
 6(b) for the two-level ones.  lane_traverse_anyhit is on no engine path
 (rtjax's ``anyhit_walker`` takes "persist" or "packet" only), so its count
-is 0.  The persist rows also carry ``ab``: both designs on each ray set
-(phase 3, the in-frame launch, config 4's baked tables and BLAS), and
-``frame_ms``: the two kernels' device time over a whole frame under each.
+is 0.  The persist and two-level rows also carry ``ab``: both designs on
+each ray set (persist: phase 3, the in-frame launch, config 4's baked
+tables and BLAS; two-level: config 4's field rays, MANY_INST instances,
+6(b)'s in-frame launch), and ``frame_ms``: the two kernels' device time
+over a whole frame under each.
 """
 
 from __future__ import annotations
@@ -143,6 +154,11 @@ AFF_RECORD = 76   # per instance: the root and 18 affine floats
 # config 4 (benchmarks/run_configs.py:198-226)
 C4_SPP = 8
 C4_BOUNCES = 5
+# phase 6(b) keeps the rays of this launch of each two-level kernel (of the
+# frame's 13)
+C4_CAPTURE_AT = 7
+# instances of the many-instance set of phase 5 (config 4's bunny, field)
+MANY_INST = 64
 
 KERNELS = {
     "closest": dict(name="persist_traverse_closest",
@@ -209,20 +225,28 @@ def phase1_build():
     print(f"[build] " + ", ".join(f"{k} {v:.1f} s" for k, v in secs.items())
           + f" (in parallel, {time.perf_counter() - t0:.1f} s wall), into "
           f"{_build.BUILD_DIR}")
-    for name, res in _build.ptxas_report(_build.persist_library()):
-        print(f"[ptxas] {_kernel_label(name)}: {res}")
+    for lib in (_build.persist_library(), _build.wide_inst_library()):
+        for name, res in _build.ptxas_report(lib):
+            print(f"[ptxas] {_kernel_label(name)}: {res}")
 
 
 def _kernel_label(mangled):
-    """"fetch closest, width 16" for a persist kernel's mangled name."""
+    """"persist fetch closest, width 16" for a persist or two-level
+    kernel's mangled name."""
     import re
-    m = re.search(r"(fetch_kernel|stride_closest_kernel|stride_anyhit_kernel)"
-                  r"ILi(\d+)E(?:Lb([01])E)?", mangled)
+    m = re.search(r"(fetch_kernel|stride_closest_kernel|stride_anyhit_kernel"
+                  r"|inst_fetch|stride_closest|stride_anyhit)"
+                  r"ILi(\d+)E(?:Lb([01])E)?(?:Lb([01])E)?", mangled)
     if m is None:
         return mangled
-    design = "fetch" if m[1] == "fetch_kernel" else "stride"
+    kernels = "two-level" if "Insts" in mangled else "persist"
+    design = "fetch" if "fetch" in m[1] else "stride"
     anyhit = m[3] == "1" if design == "fetch" else "anyhit" in m[1]
-    return f"{design} {'any-hit' if anyhit else 'closest'}, width {m[2]}"
+    label = (f"{kernels} {design} {'any-hit' if anyhit else 'closest'}, "
+             f"width {m[2]}")
+    if m[4] is not None:
+        label += ", records " + ("staged" if m[4] == "1" else "global")
+    return label
 
 
 def phase2_scene():
@@ -692,12 +716,19 @@ def phase4_main_path(scene, camera, card):
     return launches, dict(ref=ref, seed_mse=seed_mse, gate=gate), captured
 
 
-def _capture_launch(at):
-    """Rebind the persist kernels' names in render/trace.py (the names its
-    ``_backend`` looks up) so that the ``at``-th call of each keeps a copy
-    of its rays and then runs as before: ``(captured, restore)``, where
-    ``captured`` fills with ``{"closest": (tables, rays), "anyhit": ...}``
-    and ``restore()`` puts the names back."""
+PERSIST_NAMES = {"closest": "persist_traverse_closest",
+                 "anyhit": "persist_traverse_anyhit"}
+INST_NAMES = {"closest": "wide_traverse_closest_inst",
+              "anyhit": "wide_traverse_anyhit_inst"}
+
+
+def _capture_launch(at, names=PERSIST_NAMES):
+    """Rebind kernel names in render/trace.py (``names``: by kind, the
+    names it looks up; the persist kernels' by default) so that the
+    ``at``-th call of each keeps a copy of its rays and then runs as
+    before: ``(captured, restore)``, where ``captured`` fills with
+    ``{"closest": (tables, rays), "anyhit": ...}`` and ``restore()`` puts
+    the names back."""
     from rtjax_torch.render import trace
     captured, saved = {}, {}
 
@@ -705,8 +736,7 @@ def _capture_launch(at):
         return tuple(c.clone() for c in a) if isinstance(a, (tuple, list)) \
             else a.clone()
 
-    for kind in ("closest", "anyhit"):
-        name = f"persist_traverse_{kind}"
+    for kind, name in names.items():
         fn = saved[name] = getattr(trace, name)
         calls = [0]
 
@@ -727,23 +757,45 @@ def _capture_launch(at):
     return captured, restore
 
 
-def _frame_kernel_ms(scene, camera, cfg, seed, stride):
-    """Device time and launches of the persist kernels over one headline
-    frame (torch.profiler, CUDA activity): ``{"closest": [ms, launches],
-    "anyhit": [...], "iterations": n}``.  With ``stride`` the engine's calls go to the
-    stride design: render/trace.py's names are rebound for this frame and
-    put back after it."""
+def _persist_kind(key):
+    """"closest" / "anyhit" for a profiler key of a persist kernel (either
+    design), else None."""
+    if "fetch_kernel" in key:
+        return "anyhit" if (", true>" in key or "Lb1E" in key) else "closest"
+    if "stride_closest_kernel" in key:
+        return "closest"
+    if "stride_anyhit_kernel" in key:
+        return "anyhit"
+    return None
+
+
+def _inst_kind(key):
+    """"closest" / "anyhit" for a profiler key of a two-level kernel
+    (either design: only they take ``Insts``), else None."""
+    import re
+    if "Insts" not in key:
+        return None
+    m = re.search(r"inst_fetch(?:<\d+, (true|false)|ILi\d+ELb([01]))", key)
+    if m:
+        return "anyhit" if "true" in m.groups() or "1" in m.groups() \
+            else "closest"
+    return "anyhit" if "stride_anyhit" in key else "closest"
+
+
+def _frame_kernel_ms(scene, camera, cfg, seed, rebind, kind_of):
+    """Device time and launches of one frame's traversal kernels
+    (torch.profiler, CUDA activity): ``{"closest": [ms, launches],
+    "anyhit": [...], "iterations": n}``, the kernels picked by ``kind_of``
+    (a profiler key -> "closest", "anyhit" or None).  ``rebind`` maps
+    render/trace.py names to the functions the engine calls for this frame
+    (the stride design's); they are put back after it."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from rtjax_torch.kernels import persist as P
     from rtjax_torch.render import trace
     from rtjax_torch.render.wavefront import render_frame
-    names = {"persist_traverse_closest": P.persist_traverse_closest_stride,
-             "persist_traverse_anyhit": P.persist_traverse_anyhit_stride}
-    saved = {k: getattr(trace, k) for k in names}
-    if stride:
-        for k, fn in names.items():
-            setattr(trace, k, fn)
+    saved = {k: getattr(trace, k) for k in rebind}
+    for k, fn in rebind.items():
+        setattr(trace, k, fn)
     try:
         gen = torch.Generator(device="cuda").manual_seed(seed)
         torch.cuda.synchronize()
@@ -757,18 +809,10 @@ def _frame_kernel_ms(scene, camera, cfg, seed, stride):
     out = {"closest": [0.0, 0], "anyhit": [0.0, 0],
            "iterations": stats["iterations"]}
     for e in prof.key_averages():
-        key = e.key
-        if "fetch_kernel" in key:
-            kind = "anyhit" if (", true>" in key or "Lb1E" in key) \
-                else "closest"
-        elif "stride_closest_kernel" in key:
-            kind = "closest"
-        elif "stride_anyhit_kernel" in key:
-            kind = "anyhit"
-        else:
-            continue
-        out[kind][0] += e.self_device_time_total / 1e3
-        out[kind][1] += e.count
+        kind = kind_of(e.key)
+        if kind is not None:
+            out[kind][0] += e.self_device_time_total / 1e3
+            out[kind][1] += e.count
     return out
 
 
@@ -781,38 +825,61 @@ def phase4_in_frame(scene, card, captured):
     return _check_persist(f"in-frame launch {CAPTURE_AT}", tab, cl, ah, card)
 
 
-def phase7_frames(scene, camera, card):
-    """The two persist kernels' device time over one whole headline frame
-    under each design (stride, fetch, fetch, stride; seeds 4 and 5):
-    ``{kind: {design: [ms, ms]}}``.  A frame whose profile holds fewer
-    launches of either kernel than the frame's iterations is profiled
+def phase7_frames(scene, camera, card, c4_scene, c4_camera):
+    """The traversal kernels' device time over whole frames under each
+    design (stride, fetch, fetch, stride; seeds 4 and 5): the two persist
+    kernels over a headline frame, then the two two-level kernels over a
+    config-4 ``two_level="kernel"`` frame.  Returns ``{"persist": {kind:
+    {design: [ms, ms]}}, "two_level": ...}``.  A frame whose profile holds
+    fewer launches of either kernel than the frame's iterations is profiled
     again, once; then the phase fails.  Last, because torch.profiler
     recorded no kernel rows in later profiles once it had traced whole
     frames."""
+    import dataclasses
+
     from rtjax_torch import RenderConfig
-    cfg = RenderConfig(width=WIDTH, height=HEIGHT, num_samples=SPP,
-                       max_bounces=BOUNCES)
-    frames = {"fetch": [], "stride": []}
-    for design, seed in (("stride", 4), ("fetch", 4), ("fetch", 5),
-                         ("stride", 5)):
-        for attempt in (1, 2):
-            k = _frame_kernel_ms(scene, camera, cfg, seed,
-                                 design == "stride")
-            print(f"[frame kernels {design} seed {seed}] {card}: one "
-                  f"headline frame under torch.profiler: closest "
-                  f"{k['closest'][0]:.3f} ms in {k['closest'][1]} launches, "
-                  f"any-hit {k['anyhit'][0]:.3f} ms in {k['anyhit'][1]} "
-                  f"launches, together "
-                  f"{k['closest'][0] + k['anyhit'][0]:.3f} ms; "
-                  f"{k['iterations']} iterations")
-            if k["closest"][1] == k["anyhit"][1] == k["iterations"]:
-                break
-            if attempt == 2:
-                raise RuntimeError("the profiler recorded fewer persist "
-                                   "launches than the frame made, twice")
-        frames[design].append(k)
-    return {kind: {d: [f[kind][0] for f in fs] for d, fs in frames.items()}
-            for kind in ("closest", "anyhit")}
+    from rtjax_torch.kernels import persist as P
+    from rtjax_torch.kernels import wide_inst as WI
+    stride = {"persist": {
+        "persist_traverse_closest": P.persist_traverse_closest_stride,
+        "persist_traverse_anyhit": P.persist_traverse_anyhit_stride},
+        "two_level": {
+        "wide_traverse_closest_inst": WI.wide_traverse_closest_inst_stride,
+        "wide_traverse_anyhit_inst": WI.wide_traverse_anyhit_inst_stride}}
+    runs = {"persist": (scene, camera, RenderConfig(
+                width=WIDTH, height=HEIGHT, num_samples=SPP,
+                max_bounces=BOUNCES), _persist_kind, "headline"),
+            "two_level": (c4_scene, c4_camera, dataclasses.replace(
+                RenderConfig(width=WIDTH, height=HEIGHT,
+                             num_samples=C4_SPP, max_bounces=C4_BOUNCES),
+                two_level="kernel"), _inst_kind, "config-4 kernel")}
+    out = {}
+    for kernels, (sc, cam, cfg, kind_of, what) in runs.items():
+        frames = {"fetch": [], "stride": []}
+        for design, seed in (("stride", 4), ("fetch", 4), ("fetch", 5),
+                             ("stride", 5)):
+            rebind = stride[kernels] if design == "stride" else {}
+            for attempt in (1, 2):
+                k = _frame_kernel_ms(sc, cam, cfg, seed, rebind, kind_of)
+                print(f"[frame kernels {kernels} {design} seed {seed}] "
+                      f"{card}: one {what} frame under torch.profiler: "
+                      f"closest {k['closest'][0]:.3f} ms in "
+                      f"{k['closest'][1]} launches, any-hit "
+                      f"{k['anyhit'][0]:.3f} ms in {k['anyhit'][1]} "
+                      f"launches, together "
+                      f"{k['closest'][0] + k['anyhit'][0]:.3f} ms; "
+                      f"{k['iterations']} iterations")
+                if k["closest"][1] == k["anyhit"][1] == k["iterations"]:
+                    break
+                if attempt == 2:
+                    raise RuntimeError(f"the profiler recorded fewer "
+                                       f"{kernels} launches than the frame "
+                                       "made, twice")
+            frames[design].append(k)
+        out[kernels] = {kind: {d: [f[kind][0] for f in fs]
+                               for d, fs in frames.items()}
+                        for kind in ("closest", "anyhit")}
+    return out
 
 
 def phase4_walkers(scene, camera, card, floor):
@@ -942,81 +1009,127 @@ def _field_rays(scene, camera, gen):
     return closest, anyhit
 
 
-def phase5_inst_kernels(scene, camera, card):
+def _check_inst(label, it, cl, ah, card):
+    """Hold both two-level kernels, in the fetch design that the engine
+    runs and in the first (stride) design, against their plain versions on
+    the instanced tables ``it`` with the closest-hit rays ``cl`` and the
+    any-hit rays ``ah``: zero hit, t, prim, inst, normal and occlusion
+    mismatches and correct dead lanes, or raise.  Time both designs and the
+    plain version, count the plain walk's work and give each kernel its
+    bound, as :func:`_check_persist` does; returns the same dict."""
     import torch
-    from rtjax_torch.kernels import wide_inst as WI
-    gen = torch.Generator(device="cuda").manual_seed(4321)
-    cl, ah = _field_rays(scene, camera, gen)
-    it = scene.inst_tables
-    results = []
-
     from rtjax_torch.kernels import persist as P
+    from rtjax_torch.kernels import wide_inst as WI
     records = it.num_instances * AFF_RECORD
+    out = {}
     args = (it, cl["o"], cl["d"], cl["tmax"], cl["active"])
-    hk, tk, pk, ik, nk = WI.wide_traverse_closest_inst(*args)
     work = P.new_work()
     hp, tp, pp, ip, np_ = WI.wide_traverse_closest_inst_ref(*args, work=work)
-    torch.cuda.synchronize()
-    mis = {"hit": int((hk != hp).sum()), "t": int((tk != tp).sum()),
-           "prim": int((pk != pp).sum()), "inst": int((ik != ip).sum()),
-           "normal": int(sum((a != b).sum() for a, b in zip(nk, np_)))}
     dead = ~cl["active"]
-    dead_ok = bool((~hk[dead]).all() and (tk[dead] == WI.BIG).all()
-                   and (pk[dead] == -1).all() and (ik[dead] == 0).all()
-                   and all((c[dead] == 0).all() for c in nk))
-    both = hk & hp
-    err = float((tk[both] - tp[both]).abs().max()) if bool(both.any()) \
-        else 0.0
-    ms = _device_ms(lambda: WI.wide_traverse_closest_inst(*args))
+    mis = {}
+    for design, fn in (("fetch", WI.wide_traverse_closest_inst),
+                       ("stride", WI.wide_traverse_closest_inst_stride)):
+        hk, tk, pk, ik, nk = fn(*args)
+        torch.cuda.synchronize()
+        mis[design] = {
+            "hit": int((hk != hp).sum()), "t": int((tk != tp).sum()),
+            "prim": int((pk != pp).sum()), "inst": int((ik != ip).sum()),
+            "normal": int(sum((a != b).sum() for a, b in zip(nk, np_))),
+            "dead": int(not ((~hk[dead]).all() and (tk[dead] == P.BIG).all()
+                             and (pk[dead] == -1).all()
+                             and (ik[dead] == 0).all()
+                             and all((c[dead] == 0).all() for c in nk)))}
+        if design == "fetch":
+            both = hk & hp
+            err = float((tk[both] - tp[both]).abs().max()) \
+                if bool(both.any()) else 0.0
+            hits, on_inst = int(hk.sum()), int((ik > 0).sum())
+            top = int(ik.max())
+    new, old = _ab_ms(lambda: WI.wide_traverse_closest_inst(*args),
+                      lambda: WI.wide_traverse_closest_inst_stride(*args))
     call_ms = _median_ms(lambda: WI.wide_traverse_closest_inst(*args))
     plain_ms = _median_ms(lambda: WI.wide_traverse_closest_inst_ref(*args))
-    b = _bound(work, cl["tmax"].numel(), int(cl["active"].sum()), RAY_IN,
-               INST_OUT, it.wide, records)
-    print(f"[kernel closest_inst] {card}: {cl['tmax'].numel()} rays, "
-          f"{int(hk.sum())} hits ({int((ik > 0).sum())} on instances, "
-          f"{int(ik.max())} the highest instance), mismatches {mis}, dead "
-          f"lanes ok {dead_ok}; kernel {ms:.4f} ms device time "
-          f"(mean of {REPS} queued launches), one call {call_ms:.4f} ms "
-          f"(CUDA events, median of {REPS}), plain {plain_ms:.3f} ms "
-          f"(median of {REPS}); share of the bound {100 * b['bound_ms'] / ms:.2f}%;"
-          f" {_work_text(work, b)}")
-    if any(mis.values()) or not dead_ok or int((ik > 0).sum()) == 0:
-        raise RuntimeError("two-level closest-hit kernel disagrees with its "
-                           "plain version")
-    results.append(dict(INST_KERNELS["closest"], route="cuda",
-                        source=INST_SOURCE, max_abs_err=err, ms=ms,
-                        call_ms=call_ms, plain_ms=plain_ms, library_ms=None,
-                        **{k: b[k] for k in _BOUND_KEYS},
-                        share=b["bound_ms"] / ms, timed_launches=REPS))
+    n, n_act = cl["tmax"].numel(), int(cl["active"].sum())
+    b = _bound(work, n, n_act, RAY_IN, INST_OUT, it.wide, records)
+    out["closest"] = _ab_result(err, new, old, call_ms, plain_ms, b)
+    stack, staged = WI.launch_shape(it)
+    print(f"[{label} closest_inst] {card}: {n} rays ({n_act} active) over "
+          f"{it.num_instances} instances, {it.wide.width}-wide tables, "
+          f"stack {stack}, records {'staged' if staged else 'global'}; "
+          f"{hits} hits ({on_inst} on instances, {top} the highest "
+          f"instance); mismatches vs plain (hit, t, prim, inst, normal, "
+          f"dead lanes): fetch {mis['fetch']}, stride {mis['stride']}; "
+          + _ab_text(out["closest"]) + f"; {_work_text(work, b)}")
+    if any(v for m in mis.values() for v in m.values()) or on_inst == 0:
+        raise RuntimeError(f"{label}: two-level closest-hit kernel "
+                           "disagrees with its plain version")
 
     args = (it, ah["o"], ah["d"], ah["tmax"], ah["exclude"], ah["active"])
-    ok_ = WI.wide_traverse_anyhit_inst(*args)
     work = P.new_work()
     op = WI.wide_traverse_anyhit_inst_ref(*args, work=work)
-    torch.cuda.synchronize()
-    occ_mis = int((ok_ != op).sum())
-    dead_ok = bool((~ok_[~ah["active"]]).all())
-    ms = _device_ms(lambda: WI.wide_traverse_anyhit_inst(*args))
+    mis = {}
+    for design, fn in (("fetch", WI.wide_traverse_anyhit_inst),
+                       ("stride", WI.wide_traverse_anyhit_inst_stride)):
+        ok_ = fn(*args)
+        torch.cuda.synchronize()
+        mis[design] = {"occlusion": int((ok_ != op).sum()),
+                       "dead": int(bool(ok_[~ah["active"]].any()))}
+        if design == "fetch":
+            occluded = int(ok_.sum())
+    new, old = _ab_ms(lambda: WI.wide_traverse_anyhit_inst(*args),
+                      lambda: WI.wide_traverse_anyhit_inst_stride(*args))
     call_ms = _median_ms(lambda: WI.wide_traverse_anyhit_inst(*args))
     plain_ms = _median_ms(lambda: WI.wide_traverse_anyhit_inst_ref(*args))
-    b = _bound(work, ah["tmax"].numel(), int(ah["active"].sum()),
-               RAY_IN + EXCLUDE, 1, it.wide, records)
-    print(f"[kernel anyhit_inst] {card}: {ah['tmax'].numel()} rays, "
-          f"{int(ok_.sum())} occluded, occlusion mismatches {occ_mis}, dead "
-          f"lanes ok {dead_ok}; kernel {ms:.4f} ms device time "
-          f"(mean of {REPS} queued launches), one call {call_ms:.4f} ms "
-          f"(CUDA events, median of {REPS}), plain {plain_ms:.3f} ms "
-          f"(median of {REPS}); share of the bound {100 * b['bound_ms'] / ms:.2f}%;"
-          f" {_work_text(work, b)}")
-    if occ_mis or not dead_ok or int(ok_.sum()) == 0:
-        raise RuntimeError("two-level any-hit kernel disagrees with its "
-                           "plain version")
-    results.append(dict(INST_KERNELS["anyhit"], route="cuda",
-                        source=INST_SOURCE, max_abs_err=float(occ_mis),
-                        ms=ms, call_ms=call_ms, plain_ms=plain_ms,
-                        library_ms=None, **{k: b[k] for k in _BOUND_KEYS},
-                        share=b["bound_ms"] / ms, timed_launches=REPS))
-    return results
+    n, n_act = ah["tmax"].numel(), int(ah["active"].sum())
+    b = _bound(work, n, n_act, RAY_IN + EXCLUDE, 1, it.wide, records)
+    out["anyhit"] = _ab_result(float(mis["fetch"]["occlusion"]), new, old,
+                               call_ms, plain_ms, b)
+    print(f"[{label} anyhit_inst] {card}: {n} rays ({n_act} active) over "
+          f"{it.num_instances} instances, {occluded} occluded; mismatches "
+          f"vs plain (occlusion, dead lanes): fetch {mis['fetch']}, stride "
+          f"{mis['stride']}; " + _ab_text(out["anyhit"])
+          + f"; {_work_text(work, b)}")
+    if any(v for m in mis.values() for v in m.values()) or occluded == 0:
+        raise RuntimeError(f"{label}: two-level any-hit kernel disagrees "
+                           "with its plain version")
+    return out
+
+
+def phase5_inst_kernels(scene, camera, card):
+    """Rows 5-6: both designs on config 4's field rays, then on the field
+    rays over MANY_INST instances of the same bunny (the rescan's share).
+    Returns the rows, by kind, with an ``ab`` record per ray set."""
+    import torch
+    from rtjax_torch.scenes import instanced_bunnies
+    gen = torch.Generator(device="cuda").manual_seed(4321)
+    cl, ah = _field_rays(scene, camera, gen)
+    out = _check_inst("kernel", scene.inst_tables, cl, ah, card)
+    rows = {}
+    for kind, r in out.items():
+        rows[kind] = dict(INST_KERNELS[kind], route="cuda",
+                          source=INST_SOURCE, max_abs_err=r["max_abs_err"],
+                          ms=r["ms"], call_ms=r["call_ms"],
+                          plain_ms=r["plain_ms"], library_ms=None,
+                          **{b: r[b] for b in _BOUND_KEYS}, share=r["share"],
+                          stride_ms=r["stride_ms"], timed_launches=2 * REPS,
+                          ab={"field": _ab_record(r)})
+    t0 = time.perf_counter()
+    many, many_camera = instanced_bunnies("cuda", n_inst=MANY_INST)
+    print(f"[config4 x{MANY_INST} scene] {many.instances.num} instances, "
+          f"built in {time.perf_counter() - t0:.1f} s")
+    cl, ah = _field_rays(many, many_camera, gen)
+    _record_ab(rows, _check_inst(f"{MANY_INST} instances", many.inst_tables,
+                                 cl, ah, card), "many_instances")
+    return rows
+
+
+def _record_ab(rows, out, key):
+    """Add one ray set's A/B to the kernels' rows; keep their largest
+    error."""
+    for kind, r in out.items():
+        rows[kind]["ab"][key] = _ab_record(r)
+        rows[kind]["max_abs_err"] = max(rows[kind]["max_abs_err"],
+                                        r["max_abs_err"])
 
 
 def _instance_frame(inst, rays):
@@ -1066,7 +1179,8 @@ def phase5_persist(scene, baked, camera, card):
     return persist, group
 
 
-_KERNEL_SETS = ("persist", "two_level", "packet", "lane", "stride")
+_KERNEL_SETS = ("persist", "two_level", "packet", "lane", "stride",
+                "inst_stride")
 
 
 def _counters():
@@ -1079,7 +1193,8 @@ def _counters():
             "two_level": (WI.LAUNCHES, WI.REF_CALLS),
             "packet": (WD.LAUNCHES, WD.REF_CALLS),
             "lane": (L.LAUNCHES, None),
-            "stride": (P.STRIDE_LAUNCHES, None)}
+            "stride": (P.STRIDE_LAUNCHES, None),
+            "inst_stride": (WI.STRIDE_LAUNCHES, None)}
 
 
 def _drive(scene, camera, cfg, seeds):
@@ -1152,9 +1267,16 @@ def phase6_config4(scene, baked, camera, card):
     require(_only(a, "persist") and a["plain"] == 0,
             "repass did not run through the persist kernels alone")
 
-    b_runs, b = _drive(scene, camera,
-                       dataclasses.replace(cfg, two_level="kernel"), (2,))
+    captured, restore = _capture_launch(C4_CAPTURE_AT, INST_NAMES)
+    try:
+        b_runs, b = _drive(scene, camera,
+                           dataclasses.replace(cfg, two_level="kernel"), (2,))
+    finally:
+        restore()
     report("b: two_level=kernel, seed 2", b_runs, b)
+    require(set(captured) == {"closest", "anyhit"},
+            f"launch {C4_CAPTURE_AT} of each two-level kernel was not "
+            "captured")
     require(_only(b, "two_level") and b["plain"] == 0,
             "two_level='kernel' did not run through the two-level kernels "
             "alone")
@@ -1202,7 +1324,18 @@ def phase6_config4(scene, baked, camera, card):
     require(baked_mse <= 2.0 * seed_mse + quant,
             "the instanced image differs from the baked one beyond the "
             "noise floor")
-    return b["two_level"]
+    return b["two_level"], captured
+
+
+def phase6_in_frame(scene, card, captured):
+    """Both two-level designs on the captured launch of 6(b)'s frame."""
+    tab, cl = captured["closest"]
+    tab_a, ah = captured["anyhit"]
+    if tab is not tab_a or tab is not scene.inst_tables:
+        raise RuntimeError("the captured two-level launches used other "
+                           "tables")
+    return _check_inst(f"config4 in-frame launch {C4_CAPTURE_AT}", tab, cl,
+                       ah, card)
 
 
 def main():
@@ -1222,7 +1355,7 @@ def main():
     group["lane", "anyhit"]["note"] = ("on no engine path: anyhit_walker "
                                        "takes persist or packet, as in rtjax")
     c4_scene, baked, c4_camera = phase5_scene()
-    inst_kernels = phase5_inst_kernels(c4_scene, c4_camera, card)
+    inst = phase5_inst_kernels(c4_scene, c4_camera, card)
     by_shape, group_shapes = phase5_persist(c4_scene, baked, c4_camera, card)
     for shape, out in by_shape.items():
         for kind, r in out.items():
@@ -1232,13 +1365,17 @@ def main():
     for shape in group_shapes:
         for key, (err, _, _) in shape.items():
             group[key]["max_abs_err"] = max(group[key]["max_abs_err"], err)
-    inst_launches = phase6_config4(c4_scene, baked, c4_camera, card)
-    for k in inst_kernels:
-        k["launches"] = inst_launches["closest" if "closest" in k["name"]
-                                      else "anyhit"]
-    for kind, ms in phase7_frames(scene, camera, card).items():
-        persist[kind]["frame_ms"] = ms
-    rows = list(persist.values()) + list(group.values()) + inst_kernels
+    inst_launches, inst_captured = phase6_config4(c4_scene, baked, c4_camera,
+                                                  card)
+    for kind, k in inst.items():
+        k["launches"] = inst_launches[kind]
+    _record_ab(inst, phase6_in_frame(c4_scene, card, inst_captured),
+               "in_frame")
+    frames = phase7_frames(scene, camera, card, c4_scene, c4_camera)
+    for rows_, kernels in ((persist, "persist"), (inst, "two_level")):
+        for kind, ms in frames[kernels].items():
+            rows_[kind]["frame_ms"] = ms
+    rows = [*persist.values(), *group.values(), *inst.values()]
     for k in rows:
         print(f"[bound] {k['name']}: {k['bound_us']:.3f} us by "
               f"{k['bound_by']}, kernel {k['ms']:.4f} ms device time, "

@@ -30,20 +30,14 @@
 // - leaf slots four at a time: the loads of four triangles are issued
 //   together, then the four are tested in slot order, so a leaf row costs
 //   two round trips, not eight (96 registers, no spills);
-// - dynamic fetch (Aila & Laine, "Understanding the Efficiency of Ray
-//   Traversal on GPUs", HPG 2009, persistent while-while): a grid of the
-//   card's resident blocks, each warp drawing rays from one work counter.
-//   A lane whose walk ends writes its results and, at the warp's next
-//   step, draws a new ray (one atomicAdd per warp for all its empty lanes),
-//   so a long walk holds one lane, not 31.  Inactive rays are written out
-//   while drawing and never take a step.  The counter is a two-word
-//   buffer per device and stream that the kernel resets itself: the last
-//   block to finish zeroes it, so a launch costs no memset;
+// - dynamic fetch (fetch_walk.cuh, shared with the two-level kernels):
+//   each warp draws rays from a self-resetting work counter, a lane whose
+//   walk ends writes its results and draws a new ray at the warp's next
+//   step (kRefill 1), so a long walk holds one lane, not 31; inactive rays
+//   are written out while drawing and never take a step;
 // - the stack in shared memory: tables.depth + 1 entries per thread (the
-//   wrapper passes the length), laid out entry-major so that a warp's
-//   lanes touch 32 banks, instead of a 64-entry array in local memory;
-// - one step is the pending leaf rows of the current node, then the next
-//   node's visit: every lane of a warp visits a node in the same step.
+//   wrapper passes the length), entry-major, instead of a 64-entry array
+//   in local memory.
 //
 // The first design (each thread walks a fixed share of the rays, grid
 // stride, with wide_walk.cuh's walk<>: scalar loads, one slot at a time,
@@ -57,59 +51,30 @@
 
 #include <cuda_runtime.h>
 
-#include "wide_walk.cuh"
+#include "fetch_walk.cuh"
 
 namespace {
 
 using rtjax::Closest;
+using rtjax::Lane;
 using rtjax::Ray;
+using rtjax::Rays;
+using rtjax::Tables;
+using rtjax::enter;
+using rtjax::fetch_grid;
+using rtjax::fetch_rays;
 using rtjax::grid_for;
 using rtjax::kBlock;
+using rtjax::kFetchBlock;
 using rtjax::kStack;
-using rtjax::leaf_any_v;
-using rtjax::leaf_closest_v;
 using rtjax::load_ray;
-using rtjax::pick;
-using rtjax::slab_hits_v;
 using rtjax::walk;
-
-constexpr int kFetchBlock = 128;
-constexpr unsigned kWarp = 0xffffffffu;
-// leaf slots whose loads are issued together
-constexpr int kLeafChunk = 4;
-static_assert(8 % kLeafChunk == 0, "a leaf chunk must divide the 8 slots");
-
-struct Tables {
-  const float* nb;
-  const int* cm;
-  const int* ni;
-  const float* lt;
-};
-
-struct Rays {
-  const float *ox, *oy, *oz, *dx, *dy, *dz, *tmax;
-  const unsigned char* active;
-  const int* exclude;  // any hit only
-};
 
 struct Outs {
   unsigned char* hit;  // any hit: occluded
   float* t;
   int* prim;
   float *nx, *ny, *nz;
-};
-
-// One lane's walk: its ray and where it stands.
-struct Lane {
-  Ray r;
-  float tmax;
-  int exclude;
-  Closest best;
-  int cur;          // the node last visited; -1 before the root
-  unsigned leaves;  // its hit leaf children not tested yet
-  unsigned inner;   // its hit internal children
-  unsigned rev;     // descend order at cur
-  int sp;           // stack depth
 };
 
 __device__ __forceinline__ void store_closest(const Outs& o, int i,
@@ -122,67 +87,42 @@ __device__ __forceinline__ void store_closest(const Outs& o, int i,
   o.nz[i] = b.nz;
 }
 
-// One step of a lane's walk: the leaf rows pending at its node in
-// ascending slot order, then the next node (the first hit internal child,
-// the rest pushed as one entry; else the top of the stack) and its slab
-// tests.  Returns true when the walk is over: the stack is empty, or (any
-// hit) a leaf occludes, which sets ``*occ``.
-// The stack is entry-major in shared memory: a thread's entries lie
-// kFetchBlock words apart.
-template <int W, bool ANY>
-__device__ __forceinline__ bool step(const Tables& tb, Lane& s,
-                                     int* st_node, unsigned* st_mask,
-                                     bool* occ) {
-  constexpr unsigned kAll = (1u << W) - 1u;
-  while (s.leaves) {
-    const int c = __ffs(s.leaves) - 1;
-    s.leaves &= s.leaves - 1u;
-    const int mc = __ldg(tb.cm + (size_t)s.cur * W + c);
-    const float* row = tb.lt + (size_t)(mc >> 4) * 128;
-    if constexpr (ANY) {
-      if (leaf_any_v<kLeafChunk>(row, mc & 15, s.r, s.tmax, s.exclude)) {
-        *occ = true;
-        return true;
+// fetch_rays' job: one walk from the root per ray.  Inactive rays are
+// written out while drawing and never take a step.
+template <bool ANY>
+struct Walk {
+  static constexpr int kRefill = 1;
+  const Rays& rays;
+  const Outs& out;
+
+  __device__ __forceinline__ bool start(Lane& s, int i) const {
+    if (!rays.active[i]) {
+      if constexpr (ANY) {
+        out.hit[i] = 0;
+      } else {
+        store_closest(out, i, Closest());
       }
-    } else {
-      leaf_closest_v<kLeafChunk>(row, mc & 15, s.r, &s.tmax, &s.best);
+      return false;
     }
-  }
-  int next;
-  if (s.cur < 0) {
-    next = 0;
-  } else if (s.inner) {
-    const int first = pick(s.inner, s.rev);
-    const unsigned rest = s.inner & ~(1u << first);
-    if (rest) {
-      st_node[s.sp * kFetchBlock] = s.cur;
-      st_mask[s.sp * kFetchBlock] = (rest << 1) | s.rev;
-      ++s.sp;
-    }
-    next = __ldg(tb.cm + (size_t)s.cur * W + first) >> 4;
-  } else if (s.sp > 0) {
-    const int top = (s.sp - 1) * kFetchBlock;
-    const int pnode = st_node[top];
-    const unsigned pm = st_mask[top];
-    const unsigned m = pm >> 1, rev = pm & 1u;
-    const int first = pick(m, rev);
-    const unsigned rest = m & ~(1u << first);
-    if (rest == 0u) --s.sp; else st_mask[top] = (rest << 1) | rev;
-    next = __ldg(tb.cm + (size_t)pnode * W + first) >> 4;
-  } else {
+    s.r = load_ray(rays.ox, rays.oy, rays.oz, rays.dx, rays.dy, rays.dz, i);
+    s.tmax = rays.tmax[i];
+    if constexpr (ANY) s.exclude = rays.exclude[i];
+    s.best = Closest();
+    enter(s, 0);
     return true;
   }
-  const int info = __ldg(tb.ni + next);
-  const unsigned lm = (unsigned)info & kAll;
-  const float* row = tb.nb + (size_t)next * 128;
-  const int* meta = tb.cm + (size_t)next * W;
-  const unsigned hits = slab_hits_v<W>(row, meta, lm, s.r, s.tmax);
-  s.cur = next;
-  s.leaves = hits & lm;
-  s.inner = hits & ~lm & kAll;
-  s.rev = (s.r.oct >> ((info >> W) & 3)) & 1u;
-  return false;
-}
+
+  __device__ __forceinline__ bool after(Lane& s, int i, bool done,
+                                        bool hit) const {
+    if (!done) return false;
+    if constexpr (ANY) {
+      out.hit[i] = hit ? 1 : 0;
+    } else {
+      store_closest(out, i, s.best);
+    }
+    return true;
+  }
+};
 
 template <int W, bool ANY>
 __global__ void __launch_bounds__(kFetchBlock)
@@ -193,93 +133,8 @@ fetch_kernel(const Tables tb, const Rays rays, const int n, const Outs out,
   unsigned* st_mask =
       reinterpret_cast<unsigned*>(stack + stack_len * kFetchBlock) +
       threadIdx.x;
-  const unsigned lane = threadIdx.x & 31u;
-  const unsigned below = (1u << lane) - 1u;
-  bool more = true;  // warp-uniform: the counter may still hold rays
-  int ray = -1;      // this lane's ray; -1 when it has none
-  Lane s;
-  while (true) {
-    // refill: the empty lanes draw consecutive rays with one atomicAdd;
-    // an inactive ray is written out at once and its lane draws again
-    while (more) {
-      const unsigned want = __ballot_sync(kWarp, ray < 0);
-      if (want == 0u) break;
-      const int leader = __ffs(want) - 1;
-      const unsigned k = __popc(want);
-      unsigned base = 0u;
-      if ((int)lane == leader) base = atomicAdd(work, k);
-      base = __shfl_sync(kWarp, base, leader);
-      more = base + k < (unsigned)n;
-      if (ray < 0) {
-        const unsigned i = base + __popc(want & below);
-        if (i < (unsigned)n) {
-          if (rays.active[i]) {
-            ray = (int)i;
-            s.r = load_ray(rays.ox, rays.oy, rays.oz, rays.dx, rays.dy,
-                           rays.dz, ray);
-            s.tmax = rays.tmax[i];
-            if constexpr (ANY) s.exclude = rays.exclude[i];
-            s.best = Closest();
-            s.cur = -1;
-            s.leaves = 0u;
-            s.inner = 0u;
-            s.sp = 0;
-          } else if constexpr (ANY) {
-            out.hit[i] = 0;
-          } else {
-            store_closest(out, (int)i, Closest());
-          }
-        }
-      }
-    }
-    if (__ballot_sync(kWarp, ray >= 0) == 0u) break;
-    if (ray >= 0) {
-      bool occ = false;
-      if (step<W, ANY>(tb, s, st_node, st_mask, &occ)) {
-        if constexpr (ANY) {
-          out.hit[ray] = occ ? 1 : 0;
-        } else {
-          store_closest(out, ray, s.best);
-        }
-        ray = -1;
-      }
-    }
-  }
-  // the last block to finish resets the counter for the next launch
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    __threadfence();
-    if (atomicAdd(work + 1, 1u) == gridDim.x - 1) {
-      atomicExch(work, 0u);
-      atomicExch(work + 1, 0u);
-    }
-  }
-}
-
-// Resident blocks of fetch_kernel<W, ANY> at ``smem`` bytes of stack,
-// cached per device and stack length; raises the kernel's dynamic shared
-// memory cap above the default 48 KB where the stack needs it.
-template <int W, bool ANY>
-int fetch_grid(int n, int smem) {
-  constexpr int kDevices = 16;
-  static int cache[kDevices][kStack + 1];
-  int dev = 0;
-  cudaGetDevice(&dev);
-  const int len = smem / (2 * 4 * kFetchBlock);
-  int resident = dev < kDevices ? cache[dev][len] : 0;
-  if (resident == 0) {
-    if (smem > 48 * 1024)
-      cudaFuncSetAttribute(fetch_kernel<W, ANY>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    int sms = 0, per_sm = 0;
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fetch_kernel<W, ANY>,
-                                                  kFetchBlock, smem);
-    resident = sms * (per_sm > 0 ? per_sm : 1);
-    if (dev < kDevices) cache[dev][len] = resident;
-  }
-  const int needed = (n + kFetchBlock - 1) / kFetchBlock;
-  return needed < resident ? needed : resident;
+  Walk<ANY> job{rays, out};
+  fetch_rays<W, ANY>(tb, job, n, work, st_node, st_mask);
 }
 
 template <int W, bool ANY>
@@ -288,7 +143,8 @@ int launch_fetch(const Tables& tb, const Rays& rays, int n, const Outs& out,
   if (stack_len < 1 || stack_len > kStack)
     return static_cast<int>(cudaErrorInvalidValue);
   const int smem = 2 * 4 * stack_len * kFetchBlock;
-  const int grid = fetch_grid<W, ANY>(n, smem);
+  const int grid = fetch_grid<fetch_kernel<W, ANY>>(n, smem);
+  if (grid < 0) return static_cast<int>(cudaErrorInvalidDevice);
   fetch_kernel<W, ANY><<<grid, kFetchBlock, smem, s>>>(tb, rays, n, out, work,
                                                         stack_len);
   return static_cast<int>(cudaGetLastError());

@@ -1,8 +1,8 @@
 // One ray's walk over the wide-node tables of rtjax_torch/accel/wide.py,
 // and the tests it is made of, shared by the persistent walkers
-// (persist_traverse.cu: the 16-byte loaders below in the fetch design,
-// walk<> in the stride design), the two-level kernels
-// (wide_inst_traverse.cu) and the group walks (group_walk.cuh).
+// (persist_traverse.cu) and the two-level kernels (wide_inst_traverse.cu)
+// -- the 16-byte loaders below in their fetch design (fetch_walk.cuh),
+// walk<> in their stride design -- and the group walks (group_walk.cuh).
 //
 // Visit order (the plain PyTorch versions in kernels/persist.py walk the
 // same one): at a node, slab-test every non-empty child against the
@@ -168,8 +168,8 @@ struct Closest {
 // Closest hit in one leaf row: every slot against the row's entry tmax,
 // the first strictly closest wins; tmax then shrinks to it.  Slots past
 // the leaf's count are all-zero triangles, which reject every ray, so
-// they are skipped.
-__device__ __forceinline__ void leaf_closest(const float* __restrict__ row,
+// they are skipped.  Returns whether it recorded a hit in ``best``.
+__device__ __forceinline__ bool leaf_closest(const float* __restrict__ row,
                                              int count, const Ray& r,
                                              float* tmax, Closest* best) {
   float rb_t = kBig, rnx = 0.0f, rny = 0.0f, rnz = 0.0f;
@@ -180,12 +180,12 @@ __device__ __forceinline__ void leaf_closest(const float* __restrict__ row,
       rb_t = t; rb_s = s; rnx = nx; rny = ny; rnz = nz;
     }
   }
-  if (rb_s >= 0) {
-    *tmax = rb_t;
-    best->t = rb_t;
-    best->prim = __float2int_rn(__ldg(row + kPidBase + rb_s));
-    best->nx = rnx; best->ny = rny; best->nz = rnz;
-  }
+  if (rb_s < 0) return false;
+  *tmax = rb_t;
+  best->t = rb_t;
+  best->prim = __float2int_rn(__ldg(row + kPidBase + rb_s));
+  best->nx = rnx; best->ny = rny; best->nz = rnz;
+  return true;
 }
 
 __device__ __forceinline__ bool leaf_any(const float* __restrict__ row,
@@ -200,12 +200,12 @@ __device__ __forceinline__ bool leaf_any(const float* __restrict__ row,
   return false;
 }
 
-// The same tests read with 16-byte loads (the persistent walkers' fetch
-// kernels, persist_traverse.cu).  A node row holds child c's box at floats
-// 6c..6c+5, so children 2p and 2p+1 are the 16-byte-aligned floats
-// 12p..12p+11: three float4.  A leaf slot is 12 floats at 48-byte offsets:
-// three float4.  Rows are 512 bytes and the wrappers check that the tables
-// are 16-byte aligned.
+// The same tests read with 16-byte loads (the fetch kernels of
+// persist_traverse.cu and wide_inst_traverse.cu, through fetch_walk.cuh).
+// A node row holds child c's box at floats 6c..6c+5, so children 2p and
+// 2p+1 are the 16-byte-aligned floats 12p..12p+11: three float4.  A leaf
+// slot is 12 floats at 48-byte offsets: three float4.  Rows are 512 bytes
+// and the wrappers check that the tables are 16-byte aligned.
 
 // Bit c set when non-empty child c of the node whose row is ``row`` and
 // whose metas are ``meta`` (W ints, 16-byte aligned) passes the slab test.
@@ -258,7 +258,7 @@ __device__ __forceinline__ bool mt_slot4(const float4* v, const Ray& r,
 }
 
 template <int K>
-__device__ __forceinline__ void leaf_closest_v(const float* __restrict__ row,
+__device__ __forceinline__ bool leaf_closest_v(const float* __restrict__ row,
                                                int count, const Ray& r,
                                                float* tmax, Closest* best) {
   float rb_t = kBig, rnx = 0.0f, rny = 0.0f, rnz = 0.0f;
@@ -275,12 +275,12 @@ __device__ __forceinline__ void leaf_closest_v(const float* __restrict__ row,
       }
     }
   }
-  if (rb_s >= 0) {
-    *tmax = rb_t;
-    best->t = rb_t;
-    best->prim = __float2int_rn(__ldg(row + kPidBase + rb_s));
-    best->nx = rnx; best->ny = rny; best->nz = rnz;
-  }
+  if (rb_s < 0) return false;
+  *tmax = rb_t;
+  best->t = rb_t;
+  best->prim = __float2int_rn(__ldg(row + kPidBase + rb_s));
+  best->nx = rnx; best->ny = rny; best->nz = rnz;
+  return true;
 }
 
 template <int K>

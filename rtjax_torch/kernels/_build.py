@@ -7,7 +7,8 @@ under the repository root (a directory that .gitignore lists).
 - the traversal kernels, one shared library with a plain C interface per
   ``rtjax_torch/csrc/*.cu`` source (the persistent walkers, the two-level
   kernels, the packet and lane group walks; all include ``wide_walk.cuh``,
-  the group walks also ``group_walk.cuh``), compiled by nvcc for
+  the first two also ``fetch_walk.cuh``, the group walks
+  ``group_walk.cuh``), compiled by nvcc for
   ``sm_90a`` and bound with ctypes.
 
 Each library is rebuilt when a source or a header it includes is newer
@@ -36,6 +37,7 @@ PERSIST_SOURCE = CSRC_DIR / "persist_traverse.cu"
 WIDE_INST_SOURCE = CSRC_DIR / "wide_inst_traverse.cu"
 PACKET_SOURCE = CSRC_DIR / "packet_traverse.cu"
 WALK_HEADER = CSRC_DIR / "wide_walk.cuh"
+FETCH_HEADER = CSRC_DIR / "fetch_walk.cuh"
 GROUP_HEADER = CSRC_DIR / "group_walk.cuh"
 
 # the BVH builder keeps rtjax's flags: -ffp-contract=off keeps SAH costs
@@ -114,14 +116,14 @@ def persist_library() -> Path:
     """Path of the compiled persistent-walker kernels (built if missing or
     stale)."""
     return _build(BUILD_DIR / "libpersist_traverse.so", [PERSIST_SOURCE],
-                  [nvcc_path()] + NVCC_FLAGS, (WALK_HEADER,))
+                  [nvcc_path()] + NVCC_FLAGS, (WALK_HEADER, FETCH_HEADER))
 
 
 def wide_inst_library() -> Path:
     """Path of the compiled two-level kernels (built if missing or
     stale)."""
     return _build(BUILD_DIR / "libwide_inst_traverse.so", [WIDE_INST_SOURCE],
-                  [nvcc_path()] + NVCC_FLAGS, (WALK_HEADER,))
+                  [nvcc_path()] + NVCC_FLAGS, (WALK_HEADER, FETCH_HEADER))
 
 
 def packet_library() -> Path:

@@ -9,6 +9,19 @@ CUDA tensor goes to the kernel in ``csrc/wide_inst_traverse.cu`` (built at
 first use, bound with ctypes); a CPU tensor goes to the plain version.
 There is no fallback between them.
 
+The kernels are the persistent walkers' fetch design with an instance loop
+around each lane's walk: they draw rays from the persist kernels' work
+counter (``persist.work_buffer``, one per device and stream, shared with
+them), keep the stack in shared memory (:func:`launch_shape`: the
+concatenated tables' depth, the deepest of the base tree and every BLAS,
+plus 1), and copy the instance records into shared memory where they fit
+beside the stack (:func:`staged`), else read them from global memory.
+``wide_traverse_*_inst_stride`` launch the first design of the same
+kernels (a fixed share of the rays per thread, the records and a 64-entry
+stack in global and local memory); they exist only to time both designs in
+one run (``chip_smoke.py``, the card tests), are counted in
+``STRIDE_LAUNCHES``, and no engine path calls them.
+
 Contract (rtjax's): rays as component triples (or ``[N, 3]``) of float32
 world origin and direction, ``tmax [N] f32``, ``active [N] bool`` and, for
 any-hit, ``exclude [N] i32``: a base-scene (instance 0) leaf-order prim
@@ -40,15 +53,21 @@ import torch
 from ..accel.instancing import apply_affine_point, apply_affine_vector
 from ..accel.wide import InstancedTables
 from . import _build
-from .persist import (BIG, _check, _columns, _out_normal, _raise_on,
-                      _table_ptrs, _walk, anyhit_leaf, closest_leaf, slab,
-                      slab_pre)
+from .persist import (BIG, _check, _check_aligned, _columns, _launch,
+                      _out_normal, _table_ptrs, _walk, anyhit_leaf,
+                      closest_leaf, slab, slab_pre, stack_len, work_buffer)
 
 AFF = 18  # per instance: 12 world->local affine floats, 6 world-AABB floats
+RECORD_BYTES = 4 * (AFF + 1)  # an instance's record staged: floats and root
+FETCH_BLOCK = 128  # threads per block of the fetch kernels (kFetchBlock)
+# the card's shared memory per block, opted in (H100: 227 KB)
+SMEM_OPTIN = 232_448
 
 # kernel launches (wrapper, CUDA path) and plain-version calls, by kernel
 LAUNCHES = {"closest": 0, "anyhit": 0}
 REF_CALLS = {"closest": 0, "anyhit": 0}
+# launches of the first design (the ``_stride`` wrappers), by kernel
+STRIDE_LAUNCHES = {"closest": 0, "anyhit": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -72,28 +91,68 @@ def _check_inst(tabs: InstancedTables, o, d, tmax, active, exclude=None):
 
 # ------------------------------------------------------------- CUDA path
 
+def smem_bytes(tabs: InstancedTables, records: bool) -> int:
+    """Dynamic shared memory per block of a fetch launch: the stack
+    (``persist.stack_len`` entries of node and mask per thread) and, with
+    ``records``, every instance's record."""
+    stack = 2 * 4 * stack_len(tabs.wide) * FETCH_BLOCK
+    return stack + (RECORD_BYTES * tabs.num_instances if records else 0)
+
+
+def staged(tabs: InstancedTables) -> bool:
+    """Whether the fetch kernels copy the instance records into shared
+    memory: where they fit beside the stack in the card's shared memory per
+    block; else they read them from global memory."""
+    return smem_bytes(tabs, True) <= SMEM_OPTIN
+
+
+def launch_shape(tabs: InstancedTables) -> tuple[int, bool]:
+    """``(stack length, records staged)`` of a fetch launch over ``tabs``;
+    raises on tables that are not 16-byte aligned.  (A stack beyond
+    ``persist.STACK`` is refused before, by every wrapper.)"""
+    _check_aligned(tabs.wide)
+    return stack_len(tabs.wide), staged(tabs)
+
+
+def bind(lib):
+    """Set the argument types of the four entry points of a two-level
+    kernel library (``ctypes.CDLL``) and return it."""
+    P, I = ctypes.c_void_p, ctypes.c_int
+    head = [I, P, P, P, P, P, P, I] + [P] * 8
+    lib.rtjax_inst_closest.argtypes = head + [I] + [P] * 7 + [P, I, I, P]
+    lib.rtjax_inst_anyhit.argtypes = head + [P, I, P] + [P, I, I, P]
+    lib.rtjax_inst_closest_stride.argtypes = head + [I] + [P] * 7 + [P]
+    lib.rtjax_inst_anyhit_stride.argtypes = head + [P, I, P] + [P]
+    for name in ("closest", "anyhit", "closest_stride", "anyhit_stride"):
+        getattr(lib, f"rtjax_inst_{name}").restype = I
+    return lib
+
+
 def _kernels():
     global _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(_build.wide_inst_library()))
-            P, I = ctypes.c_void_p, ctypes.c_int
-            lib.rtjax_inst_closest.argtypes = \
-                [I, P, P, P, P, P, P, I] + [P] * 8 + [I] + [P] * 7 + [P]
-            lib.rtjax_inst_closest.restype = I
-            lib.rtjax_inst_anyhit.argtypes = \
-                [I, P, P, P, P, P, P, I] + [P] * 9 + [I] + [P] + [P]
-            lib.rtjax_inst_anyhit.restype = I
-            _lib = lib
+            _lib = bind(ctypes.CDLL(str(_build.wide_inst_library())))
         return _lib
 
 
 def _inst_ptrs(tabs: InstancedTables):
-    return (tabs.wide.width, *_table_ptrs(tabs.wide), tabs.root.data_ptr(),
-            tabs.affine.data_ptr(), tabs.root.shape[0])
+    return (tabs.wide.width, *_table_ptrs(tabs.wide),
+            tabs.root.data_ptr(), tabs.affine.data_ptr(), tabs.num_instances)
 
 
-def _closest_cuda(tabs, o, d, tmax, active):
+def _launch_args(tabs, stream, stride):
+    """``(trailing arguments of an entry point, work counter or None)``:
+    the work counter, the stack length and the staging flag, then the
+    stream (the stride design takes the stream alone)."""
+    if stride:
+        return (stream,), None
+    stack, stage = launch_shape(tabs)
+    work = work_buffer(tabs.wide.node_bounds.device, stream)
+    return (work.data_ptr(), stack, int(stage), stream), work
+
+
+def _closest_cuda(tabs, o, d, tmax, active, stride):
     n = tmax.shape[0]
     dev = tmax.device
     hit = torch.empty(n, dtype=torch.bool, device=dev)
@@ -103,37 +162,39 @@ def _closest_cuda(tabs, o, d, tmax, active):
     nrm = tuple(torch.empty(n, dtype=torch.float32, device=dev)
                 for _ in range(3))
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = _kernels().rtjax_inst_closest(
+    entry = "rtjax_inst_closest" + ("_stride" if stride else "")
+    tail, work = _launch_args(tabs, stream, stride)
+    _launch(getattr(_kernels(), entry), (
         *_inst_ptrs(tabs), *(c.data_ptr() for c in o),
         *(c.data_ptr() for c in d), tmax.data_ptr(), active.data_ptr(), n,
         hit.data_ptr(), t.data_ptr(), prim.data_ptr(), inst.data_ptr(),
-        *(c.data_ptr() for c in nrm), stream)
-    _raise_on(rc, "two-level closest-hit")
-    LAUNCHES["closest"] += 1
+        *(c.data_ptr() for c in nrm), *tail), "two-level closest-hit", work)
+    (STRIDE_LAUNCHES if stride else LAUNCHES)["closest"] += 1
     return hit, t, prim, inst, nrm
 
 
-def _anyhit_cuda(tabs, o, d, tmax, exclude, active):
+def _anyhit_cuda(tabs, o, d, tmax, exclude, active, stride):
     n = tmax.shape[0]
     occ = torch.empty(n, dtype=torch.bool, device=tmax.device)
     stream = torch.cuda.current_stream(tmax.device).cuda_stream
-    rc = _kernels().rtjax_inst_anyhit(
+    entry = "rtjax_inst_anyhit" + ("_stride" if stride else "")
+    tail, work = _launch_args(tabs, stream, stride)
+    _launch(getattr(_kernels(), entry), (
         *_inst_ptrs(tabs), *(c.data_ptr() for c in o),
         *(c.data_ptr() for c in d), tmax.data_ptr(), active.data_ptr(),
-        exclude.data_ptr(), n, occ.data_ptr(), stream)
-    _raise_on(rc, "two-level any-hit")
-    LAUNCHES["anyhit"] += 1
+        exclude.data_ptr(), n, occ.data_ptr(), *tail), "two-level any-hit",
+        work)
+    (STRIDE_LAUNCHES if stride else LAUNCHES)["anyhit"] += 1
     return occ
 
 
-def wide_traverse_closest_inst(tabs: InstancedTables, origin, direction,
-                               tmax, active):
-    """Two-level closest hit: ``(hit, t, prim, inst, normal_local)``."""
+def _closest(tabs, origin, direction, tmax, active, stride):
     as_v3 = isinstance(origin, (tuple, list))
     o, d = _columns(origin), _columns(direction)
     _check_inst(tabs, o, d, tmax, active)
     if tmax.device.type == "cuda":
-        hit, t, prim, inst, nrm = _closest_cuda(tabs, o, d, tmax, active)
+        hit, t, prim, inst, nrm = _closest_cuda(tabs, o, d, tmax, active,
+                                                stride)
     elif tmax.device.type == "cpu":
         hit, t, prim, inst, nrm = wide_traverse_closest_inst_ref(
             tabs, o, d, tmax, active)
@@ -142,17 +203,40 @@ def wide_traverse_closest_inst(tabs: InstancedTables, origin, direction,
     return hit, t, prim, inst, _out_normal(nrm, as_v3)
 
 
-def wide_traverse_anyhit_inst(tabs: InstancedTables, origin, direction,
-                              tmax, exclude, active):
-    """Two-level occlusion; ``exclude`` applies within instance 0 only."""
+def _anyhit(tabs, origin, direction, tmax, exclude, active, stride):
     o, d = _columns(origin), _columns(direction)
     _check_inst(tabs, o, d, tmax, active, exclude)
     if tmax.device.type == "cuda":
-        return _anyhit_cuda(tabs, o, d, tmax, exclude, active)
+        return _anyhit_cuda(tabs, o, d, tmax, exclude, active, stride)
     if tmax.device.type == "cpu":
         return wide_traverse_anyhit_inst_ref(tabs, o, d, tmax, exclude,
                                              active)
     raise ValueError(f"unsupported device {tmax.device}")
+
+
+def wide_traverse_closest_inst(tabs: InstancedTables, origin, direction,
+                               tmax, active):
+    """Two-level closest hit: ``(hit, t, prim, inst, normal_local)``."""
+    return _closest(tabs, origin, direction, tmax, active, False)
+
+
+def wide_traverse_anyhit_inst(tabs: InstancedTables, origin, direction,
+                              tmax, exclude, active):
+    """Two-level occlusion; ``exclude`` applies within instance 0 only."""
+    return _anyhit(tabs, origin, direction, tmax, exclude, active, False)
+
+
+def wide_traverse_closest_inst_stride(tabs: InstancedTables, origin,
+                                      direction, tmax, active):
+    """:func:`wide_traverse_closest_inst` by the first design (for timing
+    both designs in one run; counted in ``STRIDE_LAUNCHES``)."""
+    return _closest(tabs, origin, direction, tmax, active, True)
+
+
+def wide_traverse_anyhit_inst_stride(tabs: InstancedTables, origin,
+                                     direction, tmax, exclude, active):
+    """:func:`wide_traverse_anyhit_inst` by the first design."""
+    return _anyhit(tabs, origin, direction, tmax, exclude, active, True)
 
 
 # ------------------------------------------------------ plain versions

@@ -178,12 +178,14 @@ def test_fetch_counter_resets_itself(cuda):
 
 def test_fetch_kernels_take_every_stack_length(cuda):
     """Stacks of 1-64 entries: the shared-memory stack grows with
-    tables.depth, past the default 48 KB of shared memory at 64."""
+    tables.depth, past the default 48 KB of shared memory at 64; then back
+    down and up again, so that a launch must find its shared-memory cap
+    raised for its own size, not lowered by a smaller one before it."""
     base = _soup_tables(8, cuda)
     n = 4096
     o, d, active, exclude = _rays(n, cuda)
     tmax = torch.full((n,), float("inf"), device=cuda)
-    for depth in (base.depth, 40, P.STACK - 1):
+    for depth in (base.depth, 40, P.STACK - 1, 49, P.STACK - 1):
         tables = dataclasses.replace(base, depth=depth)
         assert P.stack_len(tables) == depth + 1
         _check_persist(tables, o, d, tmax, active, exclude)
@@ -320,35 +322,160 @@ def _instanced(device, n_inst=24):
     return b.build(device)
 
 
+def _check_two_level(it, o, d, tmax, active, exclude):
+    """Both two-level kernels in the fetch design and in the first (stride)
+    design against the plain versions, bit for bit in hit, t, prim, inst,
+    normal and occlusion, dead lanes included; the work counter zero after
+    every launch.  Returns the plain closest-hit results and occlusion."""
+    args = (it, o, d, tmax, active)
+    want = WI.wide_traverse_closest_inst_ref(*args)
+    for fn in (WI.wide_traverse_closest_inst,
+               WI.wide_traverse_closest_inst_stride):
+        got = fn(*args)
+        assert _counter_zeroed(tmax.device)
+        for a, b in zip(got[:4] + got[4], want[:4] + want[4]):
+            assert torch.equal(a, b)
+    dead = ~active
+    assert not bool(want[0][dead].any())
+    assert bool((want[1][dead] == P.BIG).all())
+    assert bool((want[2][dead] == -1).all())
+    assert not bool(want[3][dead].any())
+    assert not any(bool(c[dead].any()) for c in want[4])
+    args = (it, o, d, tmax, exclude, active)
+    occ = WI.wide_traverse_anyhit_inst_ref(*args)
+    for fn in (WI.wide_traverse_anyhit_inst,
+               WI.wide_traverse_anyhit_inst_stride):
+        assert torch.equal(fn(*args), occ)
+        assert _counter_zeroed(tmax.device)
+    assert not bool(occ[dead].any())
+    return want, occ
+
+
+def _inst_rays(n, device, seed=3, spread=1.5):
+    o, d, active, _ = _rays(n, device, seed)
+    o = (o[0] * spread, o[1].abs() * 0.4 + 0.02, o[2] * spread)
+    g = torch.Generator(device=device).manual_seed(seed + 6)
+    exclude = torch.randint(-1, 3, (n,), generator=g, device=device,
+                            dtype=torch.int32)
+    return o, d, active, exclude
+
+
 @pytest.mark.parametrize("width", [8, 16], ids=["w8", "w16"])
 def test_two_level_kernels_equal_plain_versions(cuda, monkeypatch, width):
+    """Both designs at both widths on a base and a BLAS of other depths,
+    10% of the rays dead and a run of 500 dead in the middle."""
     if width == 8:
         # a 16-wide node cap below the concatenated node count: base and
         # BLAS rebuild 8-wide
         monkeypatch.setattr("rtjax_torch.accel.wide.MAX_NODES16", 2)
         monkeypatch.setattr("rtjax_torch.scene.scene.MAX_NODES16", 2)
-    it = _instanced(cuda).inst_tables
+    scene = _instanced(cuda)
+    it = scene.inst_tables
     assert it.wide.width == width and it.num_instances == 25
+    assert scene.tables.depth != scene.blas[0].tables.depth
+    assert WI.launch_shape(it)[1]
     n = 3 * 2048 + 300
-    o, d, active, _ = _rays(n, cuda)
-    o = (o[0] * 1.5, o[1].abs() * 0.4 + 0.02, o[2] * 1.5)
-    g = torch.Generator(device=cuda).manual_seed(9)
-    exclude = torch.randint(-1, 3, (n,), generator=g, device=cuda,
-                            dtype=torch.int32)
+    o, d, active, exclude = _inst_rays(n, cuda)
+    active[3000:3500] = False
     for tmax_v in (float("inf"), 0.7):
         tmax = torch.full((n,), tmax_v, device=cuda)
-        args = (it, o, d, tmax, active)
-        k_out = WI.wide_traverse_closest_inst(*args)
-        p_out = WI.wide_traverse_closest_inst_ref(*args)
-        torch.cuda.synchronize()
-        for a, b in zip(k_out[:4] + k_out[4], p_out[:4] + p_out[4]):
-            assert torch.equal(a, b)
-        assert int((k_out[3] > 0).sum()) > 300
-        assert not bool(k_out[0][~active].any())
-        args = (it, o, d, tmax, exclude, active)
-        occ = WI.wide_traverse_anyhit_inst(*args)
-        assert torch.equal(occ, WI.wide_traverse_anyhit_inst_ref(*args))
-        assert int(occ.sum()) > 300 and not bool(occ[~active].any())
+        want, occ = _check_two_level(it, o, d, tmax, active, exclude)
+        assert int((want[3] > 0).sum()) > 300
+        assert int(occ.sum()) > 300
+
+
+def test_two_level_kernels_take_every_stack_length(cuda):
+    """Stacks from the smallest that fits to 64 entries (past the default
+    48 KB of shared memory), then back down and up again: a launch must
+    find its shared-memory cap raised for its own size."""
+    it = _instanced(cuda, n_inst=6).inst_tables
+    n = 4096
+    o, d, active, exclude = _inst_rays(n, cuda)
+    tmax = torch.full((n,), float("inf"), device=cuda)
+    for depth in (it.wide.depth, 40, P.STACK - 1, 49, P.STACK - 1):
+        deeper = dataclasses.replace(
+            it, wide=dataclasses.replace(it.wide, depth=depth))
+        assert WI.launch_shape(deeper)[0] == depth + 1
+        _check_two_level(deeper, o, d, tmax, active, exclude)
+
+
+def test_two_level_kernels_resolve_ties(cuda):
+    """Coincident instances: equal entry distances (visited in index
+    order) and equal t in several instances (the last visited keeps the
+    hit), as the plain versions resolve them."""
+    b = SceneBuilder()
+    white = b.make_matte((0.7, 0.7, 0.7))
+    b.add_triangles([-3, 0, 3], [3, 0, 3], [3, 0, -3], white)
+    b.add_area_light((-0.5, 2.0, -0.5), (0.5, 2.0, -0.5), (0.5, 2.0, 0.5),
+                     (20, 20, 20), white)
+    v = np.random.default_rng(5).uniform(-0.3, 0.3, (900, 3)) + [0, 0.35, 0]
+    mid = b.register_mesh(v, np.arange(900).reshape(300, 3))
+    for i in range(6):
+        b.add_instance(mid, white, Transform(translate(0.0, 0.0, 0.0)))
+    it = b.build(cuda).inst_tables
+    n = 4096
+    o, d, active, exclude = _inst_rays(n, cuda, spread=0.2)
+    tmax = torch.full((n,), float("inf"), device=cuda)
+    want, _ = _check_two_level(it, o, d, tmax, active, exclude)
+    assert int((want[3] == it.num_instances - 1).sum()) > 100
+
+
+@pytest.mark.parametrize("n_inst, staged", [(2400, True), (3100, False)],
+                         ids=["staged", "global"])
+def test_two_level_kernels_take_any_instance_count(cuda, n_inst, staged):
+    """Records staged in shared memory up to the card's opt-in limit per
+    block (2,400 need 182 KB), read from global memory past it (3,100
+    need 236 KB)."""
+    b = SceneBuilder()
+    white = b.make_matte((0.7, 0.7, 0.7))
+    b.add_triangles([-3, 0, 3], [3, 0, 3], [3, 0, -3], white)
+    b.add_area_light((-0.5, 2.0, -0.5), (0.5, 2.0, -0.5), (0.5, 2.0, 0.5),
+                     (20, 20, 20), white)
+    v = np.random.default_rng(5).uniform(-0.05, 0.05, (60, 3))
+    mid = b.register_mesh(v, np.arange(60).reshape(20, 3))
+    for i in range(n_inst):
+        b.add_instance(mid, white, Transform(translate(
+            (i % 50) * 0.12 - 3.0, 0.1 + 0.05 * (i // 50 % 4),
+            (i // 50) * 0.09 - 3.0)))
+    it = b.build(cuda).inst_tables
+    assert WI.launch_shape(it)[1] == staged
+    assert (WI.smem_bytes(it, True) > 48 * 1024) and \
+        (WI.smem_bytes(it, True) > WI.SMEM_OPTIN) == (not staged)
+    n = 4096
+    o, d, active, exclude = _inst_rays(n, cuda, spread=3.0)
+    tmax = torch.full((n,), float("inf"), device=cuda)
+    want, _ = _check_two_level(it, o, d, tmax, active, exclude)
+    assert int((want[3] > 0).sum()) > 200
+
+
+def test_persist_and_two_level_share_the_counter(cuda):
+    """Persist and two-level launches interleaved on one stream with no
+    synchronisation between them: each finds the shared work counter
+    zeroed by the one before."""
+    scene = _instanced(cuda)
+    it, base = scene.inst_tables, scene.tables
+    n = 3 * 2048 + 300
+    o, d, active, exclude = _inst_rays(n, cuda)
+    tmax = torch.full((n,), float("inf"), device=cuda)
+    pc = P.persist_traverse_closest_ref(base, o, d, tmax, active)
+    pa = P.persist_traverse_anyhit_ref(base, o, d, tmax, exclude, active)
+    ic = WI.wide_traverse_closest_inst_ref(it, o, d, tmax, active)
+    ia = WI.wide_traverse_anyhit_inst_ref(it, o, d, tmax, exclude, active)
+    outs = []
+    for _ in range(3):
+        outs.append(P.persist_traverse_closest(base, o, d, tmax, active))
+        outs.append(WI.wide_traverse_closest_inst(it, o, d, tmax, active))
+        outs.append(P.persist_traverse_anyhit(base, o, d, tmax, exclude,
+                                              active))
+        outs.append(WI.wide_traverse_anyhit_inst(it, o, d, tmax, exclude,
+                                                 active))
+    torch.cuda.synchronize()
+    for k in range(3):
+        c, i, a, ia_ = outs[4 * k:4 * k + 4]
+        assert torch.equal(c[1], pc[1]) and torch.equal(c[2], pc[2])
+        assert torch.equal(i[1], ic[1]) and torch.equal(i[3], ic[3])
+        assert torch.equal(a, pa) and torch.equal(ia_, ia)
+    assert _counter_zeroed(cuda)
 
 
 def test_two_level_kernels_refuse_mixed_devices(cuda):

@@ -103,7 +103,8 @@ def test_packet_build_without_nvcc_raises(tmp_path):
 
 def test_kernel_libraries_rebuild_when_the_shared_header_changes(
         tmp_path, monkeypatch):
-    """Every kernel library includes wide_walk.cuh, the packet library also
+    """Every kernel library includes wide_walk.cuh, the persist and
+    two-level libraries also fetch_walk.cuh, the packet library
     group_walk.cuh: a newer header makes them stale.  (A stand-in nvcc
     writes the -o file.)"""
     from rtjax_torch.kernels import _build
@@ -118,14 +119,19 @@ def test_kernel_libraries_rebuild_when_the_shared_header_changes(
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "out")
     group = tmp_path / "group_walk.cuh"
     group.write_text("// header\n")
+    fetch = tmp_path / "fetch_walk.cuh"
+    fetch.write_text("// header\n")
     monkeypatch.setattr(_build, "WALK_HEADER", header)
     monkeypatch.setattr(_build, "GROUP_HEADER", group)
+    monkeypatch.setattr(_build, "FETCH_HEADER", fetch)
     for build, h in ((_build.persist_library, header),
+                     (_build.persist_library, fetch),
                      (_build.wide_inst_library, header),
+                     (_build.wide_inst_library, fetch),
                      (_build.packet_library, header),
                      (_build.packet_library, group)):
-        os.utime(header, (0, 0))
-        os.utime(group, (0, 0))
+        for f in (header, group, fetch):
+            os.utime(f, (0, 0))
         lib = build()
         assert lib.read_text() == "built\n"
         future = lib.stat().st_mtime + 100

@@ -10,7 +10,7 @@ the Python side of the fetch kernels' launch.
 - the launch's rules: stack length from the depth, one zeroed work counter
   per device and stream, zeroed again after a failed launch,
   16-byte-aligned tables; the ptxas report read from a build log; and the
-  source patches of tools/persist_variants.py.
+  source patches of tools/persist_variants.py (persist and two-level).
 
 The kernels themselves run only on the card (``tests/test_torch_cuda.py``).
 """
@@ -287,17 +287,23 @@ def _variants_tool():
     return mod
 
 
-def test_variant_patches_match_the_kernel_source():
+@pytest.mark.parametrize("kernels", ["persist", "two-level"])
+def test_variant_patches_match_the_kernel_source(kernels):
     """Every variant of tools/persist_variants.py replaces text that occurs
-    once in the kernel source, so a change of the source cannot leave a
-    variant building the design unchanged."""
+    once in the kernel source and the fetch header together, so a change
+    of either cannot leave a variant building the design unchanged."""
     tool = _variants_tool()
-    src = _build.PERSIST_SOURCE.read_text()
-    for name, edits in tool.VARIANTS.items():
+    src = tool.sources(kernels)
+    assert set(src) == {"fetch_walk.cuh", "persist_traverse.cu"
+                        if kernels == "persist" else "wide_inst_traverse.cu"}
+    table = tool.VARIANTS if kernels == "persist" else tool.INST_VARIANTS
+    for name, edits in table.items():
         out = tool.patched(src, edits)
         assert (out == src) == (not edits), name
     with pytest.raises(ValueError, match="not once"):
         tool.patched(src, [("no such text", "")])
+    with pytest.raises(ValueError, match="2 times"):
+        tool.patched(src, [("#include <cuda_runtime.h>", "")])
 
 
 def test_kernels_refuse_unaligned_tables():

@@ -1,23 +1,30 @@
 #!/usr/bin/env python3
-"""The persistent-walker fetch kernels against each part of their design
-undone, on one CUDA card.
+"""The fetch kernels (persistent walkers, or the two-level kernels) against
+each part of their design undone, on one CUDA card.
 
-    python3 tools/persist_variants.py [--only NAME,NAME] [--config4]
+    python3 tools/persist_variants.py [--kernels persist|two-level]
+                                      [--only NAME,NAME] [--config4]
                                       [--rounds R]
 
-Each variant is a copy of ``csrc/persist_traverse.cu`` with a few lines
-replaced (``VARIANTS``: each replaced text must occur exactly once in the
-source, or the tool stops), built into ``build/rtjax_torch/variants/``,
-all builds started together; ptxas's registers, stack frame and spills of
-its fetch kernels are printed.  Then it renders one headline frame with
-the shipped kernels and keeps the rays of launch ``chip_smoke.CAPTURE_AT``
-of each, and on those and on ``chip_smoke.py``'s phase-3 rays (2^18
-closest-hit, 2^19 any-hit rays over the headline scene) -- with
-``--config4`` also on its phase-5 rays over config 4's baked tables and
-its BLAS -- holds every variant bit for bit against the plain versions
-and times it: device time per launch (``chip_smoke._launch_ms``: mean,
-least and most of ``chip_smoke.REPS`` launches), every variant and the
-stride design in turns, ``--rounds`` rounds.
+Each variant is a copy of the kernel source (``csrc/persist_traverse.cu``
+or ``csrc/wide_inst_traverse.cu``) and of ``csrc/fetch_walk.cuh`` with a
+few lines replaced (``VARIANTS`` / ``INST_VARIANTS``: each replaced text
+must occur exactly once in the two files, or the tool stops), built into
+``build/rtjax_torch/variants/<kernels>_<variant>/``, all builds started
+together; ptxas's registers, stack frame and spills of its fetch kernels
+are printed.  Then, for the persist kernels, it renders one headline frame
+with the shipped kernels and keeps the rays of launch
+``chip_smoke.CAPTURE_AT`` of each, and on those and on ``chip_smoke.py``'s
+phase-3 rays (2^18 closest-hit, 2^19 any-hit rays over the headline scene)
+-- with ``--config4`` also on its phase-5 rays over config 4's baked
+tables and its BLAS -- holds every variant bit for bit against the plain
+versions and times it; for the two-level kernels the same on
+``chip_smoke.py``'s phase-5 field rays over config 4, over
+``chip_smoke.MANY_INST`` instances, and on the rays of launch
+``chip_smoke.C4_CAPTURE_AT`` of a config-4 ``two_level="kernel"`` frame.
+Times are device time per launch (``chip_smoke._launch_ms``: mean, least
+and most of ``chip_smoke.REPS`` launches), every variant and the stride
+design in turns, ``--rounds`` rounds.
 """
 
 from __future__ import annotations
@@ -33,11 +40,19 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 _FETCH_BOUNDS = "__launch_bounds__(kFetchBlock)\nfetch_kernel"
+_INST_BOUNDS = "__launch_bounds__(kFetchBlock)\ninst_fetch"
 _SHARED_STACK = """  extern __shared__ int stack[];
   int* st_node = stack + threadIdx.x;
   unsigned* st_mask =
       reinterpret_cast<unsigned*>(stack + stack_len * kFetchBlock) +
       threadIdx.x;"""
+_SCALAR_LOADS = [
+    ("leaf_any_v<kLeafChunk>(", "leaf_any("),
+    ("leaf_closest_v<kLeafChunk>(", "leaf_closest("),
+    ("slab_hits_v<W>(", "slab_hits<W>(")]
+_REFILL = "if (__popc(want) < Job::kRefill) break;"
+_REFILL_8 = [(_REFILL, "if (__popc(want) < 8) break;")]
+_REFILL_32 = [(_REFILL, "if (__popc(want) < 32) break;")]
 
 
 def _cap(min_blocks):
@@ -45,7 +60,7 @@ def _cap(min_blocks):
                             "\nfetch_kernel")]
 
 
-# name -> [(text of the source, its replacement)]
+# name -> [(text of the source or header, its replacement)]
 VARIANTS = {
     "design": [],
     "leaf chunk 1": [("kLeafChunk = 4;", "kLeafChunk = 1;")],
@@ -56,14 +71,9 @@ VARIANTS = {
     "<= 80 registers": _cap(6),
     "<= 64 registers": _cap(8),
     "<= 40 registers": _cap(12),
-    "refill at 8 empty lanes": [("if (want == 0u) break;",
-                                 "if (__popc(want) < 8) break;")],
-    "no dynamic fetch (refill at 32)": [("if (want == 0u) break;",
-                                         "if (__popc(want) < 32) break;")],
-    "scalar loads": [
-        ("leaf_any_v<kLeafChunk>(", "rtjax::leaf_any("),
-        ("leaf_closest_v<kLeafChunk>(", "rtjax::leaf_closest("),
-        ("slab_hits_v<W>(", "rtjax::slab_hits<W>(")],
+    "refill at 8 empty lanes": _REFILL_8,
+    "no dynamic fetch (refill at 32)": _REFILL_32,
+    "scalar loads": _SCALAR_LOADS,
     "local-memory stack": [
         (_SHARED_STACK, "  int st_node[kStack];\n  unsigned st_mask[kStack];"),
         ("st_node[s.sp * kFetchBlock]", "st_node[s.sp]"),
@@ -72,25 +82,66 @@ VARIANTS = {
         ("smem = 2 * 4 * stack_len * kFetchBlock;", "smem = 0;")],
 }
 
+# the two-level kernels: each part of their design undone
+INST_VARIANTS = {
+    "design": [],
+    "records from global memory": [(
+        "  if (stride) return launch_stride<W, ANY>(tb, in, rays, n, out, s);",
+        "  if (stride) return launch_stride<W, ANY>(tb, in, rays, n, out, s);"
+        "\n  staged = false;")],
+    "rescan every instance": [(
+        ": *near;", ": (low == 64 ? ~0ull : (1ull << low) - 1ull);")],
+    "scalar loads": _SCALAR_LOADS,
+    "leaf chunk 1": [("kLeafChunk = 4;", "kLeafChunk = 1;")],
+    "refill at every empty lane": [("kRefill = 8;", "kRefill = 1;")],
+    "no dynamic fetch (refill at 32)": _REFILL_32,
+    "world ray read again at each entry": [
+        ("  Ray world;                // the ray in world space\n", ""),
+        ("    const Ray& w = world;\n",
+         "    const Ray w = load_ray(rays.ox, rays.oy, rays.oz, rays.dx, "
+         "rays.dy, rays.dz, i);\n"),
+        ("      world = load_ray(rays.ox, rays.oy, rays.oz, rays.dx, rays.dy, "
+         "rays.dz,\n                       i);\n", "")],
+    "<= 102 registers": [(_INST_BOUNDS, _INST_BOUNDS.replace(
+        "(kFetchBlock)", "(kFetchBlock, 5)"))],
+    "<= 85 registers": [(_INST_BOUNDS, _INST_BOUNDS.replace(
+        "(kFetchBlock)", "(kFetchBlock, 6)"))],
+}
 
-def patched(source: str, edits) -> str:
-    """``source`` with each ``(old, new)`` of ``edits`` replaced; raises
-    unless each ``old`` occurs exactly once."""
-    for old, new in edits:
-        if source.count(old) != 1:
-            raise ValueError(f"{old!r} occurs {source.count(old)} times in "
-                             "the persist kernel source, not once")
-        source = source.replace(old, new)
-    return source
 
-
-def build(name, edits):
+def sources(kernels: str) -> dict:
+    """``{file name: text}`` of the kernel source and the fetch header a
+    variant of ``kernels`` ("persist" or "two-level") patches."""
     from rtjax_torch.kernels import _build
-    tag = "".join(c if c.isalnum() else "_" for c in name)
-    out = _build.BUILD_DIR / "variants" / f"libpersist_{tag}.so"
-    out.parent.mkdir(parents=True, exist_ok=True)
-    src = out.with_suffix(".cu")
-    src.write_text(patched(_build.PERSIST_SOURCE.read_text(), edits))
+    src = _build.PERSIST_SOURCE if kernels == "persist" \
+        else _build.WIDE_INST_SOURCE
+    return {p.name: p.read_text() for p in (src, _build.FETCH_HEADER)}
+
+
+def patched(files: dict, edits) -> dict:
+    """``files`` (``{name: text}``) with each ``(old, new)`` of ``edits``
+    replaced; raises unless each ``old`` occurs exactly once in them."""
+    files = dict(files)
+    for old, new in edits:
+        count = sum(text.count(old) for text in files.values())
+        if count != 1:
+            raise ValueError(f"{old!r} occurs {count} times in the kernel "
+                             "source and header, not once")
+        where = next(n for n, text in files.items() if old in text)
+        files[where] = files[where].replace(old, new)
+    return files
+
+
+def build(kernels, name, edits):
+    from rtjax_torch.kernels import _build
+    tag = "".join(c if c.isalnum() else "_" for c in f"{kernels}_{name}")
+    out_dir = _build.BUILD_DIR / "variants" / tag
+    out_dir.mkdir(parents=True, exist_ok=True)
+    files = patched(sources(kernels), edits)
+    for fname, text in files.items():
+        (out_dir / fname).write_text(text)
+    src = next(out_dir / f for f in files if f.endswith(".cu"))
+    out = out_dir / "lib.so"
     cmd = [_build.nvcc_path()] + _build.NVCC_FLAGS + [
         "-I", str(_build.CSRC_DIR), "-o", str(out), str(src)]
     res = subprocess.run(cmd, capture_output=True, text=True)
@@ -101,33 +152,12 @@ def build(name, edits):
     return out
 
 
-def main():
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--only", default="",
-                    help="comma-separated variant names (default: all)")
-    ap.add_argument("--config4", action="store_true",
-                    help="also time config 4's baked tables and BLAS")
-    ap.add_argument("--rounds", type=int, default=2)
-    args = ap.parse_args()
-    names = [v for v in args.only.split(",") if v] or list(VARIANTS)
-
-    import torch
-
-    import chip_smoke as cs
+def _persist_calls(cs, torch, args):
+    """``({label: (closest args, any-hit args)}, wrappers)`` of the
+    persist kernels' ray sets."""
     from rtjax_torch import RenderConfig
-    from rtjax_torch.kernels import _build
     from rtjax_torch.kernels import persist as P
     from rtjax_torch.render.wavefront import render_frame
-
-    card = cs.phase0_device()
-    with ThreadPoolExecutor(len(names)) as pool:
-        libs = dict(zip(names, pool.map(
-            lambda n: build(n, VARIANTS[n]), names)))
-    for name, lib in libs.items():
-        for kernel, res in _build.ptxas_report(lib):
-            if "fetch_kernel" in kernel:
-                print(f"[ptxas {name}] {cs._kernel_label(kernel)}: {res}")
-
     scene, camera = cs.phase2_scene()
     gen = torch.Generator(device="cuda").manual_seed(1234)
     sets = {"phase 3": cs._test_rays(scene, camera, gen)}
@@ -148,30 +178,110 @@ def main():
         sets["config4 blas"] = (cs._instance_frame(c4.instances, cl),
                                 cs._instance_frame(c4.instances, ah))
         tables["config4 blas"] = c4.blas[0].tables
-
     calls = {}
     for label, (cl, ah) in sets.items():
         tab = tables[label]
-        cargs = (tab, cl["o"], cl["d"], cl["tmax"], cl["active"])
-        aargs = (tab, ah["o"], ah["d"], ah["tmax"], ah["exclude"],
-                 ah["active"])
-        calls[label] = (cargs, aargs, P.persist_traverse_closest_ref(*cargs),
-                        P.persist_traverse_anyhit_ref(*aargs))
+        calls[label] = ((tab, cl["o"], cl["d"], cl["tmax"], cl["active"]),
+                        (tab, ah["o"], ah["d"], ah["tmax"], ah["exclude"],
+                         ah["active"]))
+    return calls, dict(
+        module=P, closest=P.persist_traverse_closest,
+        anyhit=P.persist_traverse_anyhit,
+        closest_ref=P.persist_traverse_closest_ref,
+        anyhit_ref=P.persist_traverse_anyhit_ref,
+        closest_stride=P.persist_traverse_closest_stride,
+        anyhit_stride=P.persist_traverse_anyhit_stride)
 
-    bound = {n: P.bind(ctypes.CDLL(str(lib))) for n, lib in libs.items()}
+
+def _inst_calls(cs, torch, args):
+    """The same for the two-level kernels."""
+    import dataclasses
+
+    from rtjax_torch import RenderConfig
+    from rtjax_torch.kernels import wide_inst as WI
+    from rtjax_torch.render.wavefront import render_frame
+    from rtjax_torch.scenes import instanced_bunnies
+    c4, camera = instanced_bunnies("cuda")
+    many, many_camera = instanced_bunnies("cuda", n_inst=cs.MANY_INST)
+    gen = torch.Generator(device="cuda").manual_seed(4321)
+    sets = {"field": (c4.inst_tables, cs._field_rays(c4, camera, gen)),
+            f"{cs.MANY_INST} instances": (
+                many.inst_tables, cs._field_rays(many, many_camera, gen))}
+    captured, restore = cs._capture_launch(cs.C4_CAPTURE_AT, cs.INST_NAMES)
+    cfg = RenderConfig(width=cs.WIDTH, height=cs.HEIGHT,
+                       num_samples=cs.C4_SPP, max_bounces=cs.C4_BOUNCES)
+    render_frame(c4, camera, dataclasses.replace(cfg, two_level="kernel"),
+                 torch.Generator(device="cuda").manual_seed(2))
+    restore()
+    sets["in-frame"] = (c4.inst_tables, (captured["closest"][1],
+                                         captured["anyhit"][1]))
+    calls = {}
+    for label, (it, (cl, ah)) in sets.items():
+        calls[label] = ((it, cl["o"], cl["d"], cl["tmax"], cl["active"]),
+                        (it, ah["o"], ah["d"], ah["tmax"], ah["exclude"],
+                         ah["active"]))
+    return calls, dict(
+        module=WI, closest=WI.wide_traverse_closest_inst,
+        anyhit=WI.wide_traverse_anyhit_inst,
+        closest_ref=WI.wide_traverse_closest_inst_ref,
+        anyhit_ref=WI.wide_traverse_anyhit_inst_ref,
+        closest_stride=WI.wide_traverse_closest_inst_stride,
+        anyhit_stride=WI.wide_traverse_anyhit_inst_stride)
+
+
+def _flat(out):
+    """A closest-hit result as a flat tuple of tensors."""
+    return tuple(c for o in out for c in (o if isinstance(o, tuple)
+                                          else (o,)))
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--kernels", choices=("persist", "two-level"),
+                    default="persist")
+    ap.add_argument("--only", default="",
+                    help="comma-separated variant names (default: all)")
+    ap.add_argument("--config4", action="store_true",
+                    help="persist: also time config 4's baked tables and "
+                         "BLAS")
+    ap.add_argument("--rounds", type=int, default=2)
+    args = ap.parse_args()
+    table = VARIANTS if args.kernels == "persist" else INST_VARIANTS
+    names = [v for v in args.only.split(",") if v] or list(table)
+
+    import torch
+
+    import chip_smoke as cs
+    from rtjax_torch.kernels import _build
+
+    card = cs.phase0_device()
+    with ThreadPoolExecutor(len(names)) as pool:
+        libs = dict(zip(names, pool.map(
+            lambda n: build(args.kernels, n, table[n]), names)))
+    for name, lib in libs.items():
+        for kernel, res in _build.ptxas_report(lib):
+            if "fetch" in kernel:
+                print(f"[ptxas {name}] {cs._kernel_label(kernel)}: {res}")
+
+    calls, k = (_persist_calls if args.kernels == "persist"
+                else _inst_calls)(cs, torch, args)
+    wants = {label: (_flat(k["closest_ref"](*c)), k["anyhit_ref"](*a))
+             for label, (c, a) in calls.items()}
+    mod = k["module"]
+    bound = {n: mod.bind(ctypes.CDLL(str(lib))) for n, lib in libs.items()}
     for name, lib in bound.items():
-        P._lib = lib
-        for label, (cargs, aargs, want_c, want_a) in calls.items():
-            got = P.persist_traverse_closest(*cargs)
-            occ = P.persist_traverse_anyhit(*aargs)
+        mod._lib = lib
+        for label, (cargs, aargs) in calls.items():
+            got = _flat(k["closest"](*cargs))
+            occ = k["anyhit"](*aargs)
             torch.cuda.synchronize()
-            same = all(torch.equal(a, b) for a, b in
-                       zip(got[:3] + got[3], want_c[:3] + want_c[3]))
-            if not same or not torch.equal(occ, want_a):
+            want_c, want_a = wants[label]
+            if not all(torch.equal(a, b) for a, b in zip(got, want_c)) \
+                    or not torch.equal(occ, want_a):
                 raise RuntimeError(f"{name} disagrees with the plain "
                                    f"versions on the {label} rays")
-    print(f"[variants] every variant bit-identical to the plain versions "
-          f"on {', '.join(calls)}")
+    print(f"[variants {args.kernels}] every variant bit-identical to the "
+          f"plain versions on {', '.join(calls)}")
 
     rows = [*bound, "stride design"]
     times = {(n, label, kind): [] for n in rows for label in calls
@@ -180,18 +290,16 @@ def main():
         for name in rows:
             stride = name == "stride design"
             if not stride:
-                P._lib = bound[name]
-            closest = P.persist_traverse_closest_stride if stride \
-                else P.persist_traverse_closest
-            anyhit = P.persist_traverse_anyhit_stride if stride \
-                else P.persist_traverse_anyhit
-            for label, (cargs, aargs, _, _) in calls.items():
+                mod._lib = bound[name]
+            closest = k["closest_stride" if stride else "closest"]
+            anyhit = k["anyhit_stride" if stride else "anyhit"]
+            for label, (cargs, aargs) in calls.items():
                 times[name, label, "closest"].append(
                     cs._launch_ms(lambda: closest(*cargs)))
                 times[name, label, "anyhit"].append(
                     cs._launch_ms(lambda: anyhit(*aargs)))
     for name in rows:
-        print(f"[variants] {card}: {name}: " + "; ".join(
+        print(f"[variants {args.kernels}] {card}: {name}: " + "; ".join(
             f"{label} {kind} " + " / ".join(
                 f"{m:.4f} ({lo:.4f}-{hi:.4f})"
                 for m, lo, hi in times[name, label, kind]) + " ms"
