@@ -14,8 +14,9 @@ the script exits non-zero):
 1. build: the BVH builder and the three kernel libraries from this
    checkout's sources, into build/rtjax_torch/, all four compilers
    started together; ptxas's registers, stack frame and spills of the
-   persist and two-level kernels (both designs, widths 8 and 16, the
-   two-level fetch kernels with the instance records staged or global);
+   persist, two-level and packet kernels (both designs, widths 8 and 16,
+   the two-level fetch kernels with the instance records staged or
+   global) and of the lane kernels;
 2. scene: the bunny Cornell box (69,463 triangles) on the card;
 3. kernels: each persistent-walker kernel, in the fetch design that the
    engine runs and in the first (stride) design, against its plain PyTorch
@@ -27,10 +28,14 @@ the script exits non-zero):
    one call's time in CUDA events, the plain version's; the plain walk's
    work count and the kernel's bound; then the packet and lane kernels
    against the plain group walk on the same rays: zero hit, t, prim,
-   normal and occlusion mismatches, correct dead lanes, hits and occlusion
-   equal to the persist kernels' (the equal-t ties, where the two walks
-   may keep another prim, are counted), device and call times, one timed
-   plain call, and the persist walk's bound on the same rays;
+   normal and occlusion mismatches, correct dead lanes, hits, t and
+   occlusion equal to the persist kernels' (the equal-t ties, where the
+   two walks may keep another prim, are counted), device and call times,
+   one timed plain call, and the persist walk's bound on the same rays;
+   the packet kernels' first (leader) design held to the persist
+   kernels' hits and occlusion and timed in turns with the packet design
+   (leader, packet, packet, leader), and the plain group walk's own work
+   count and bound beside the persist walk's;
 4. main path: render_frame of the headline frame (256x256 at 64 spp, 10
    bounces, default RenderConfig): one warm-up and two timed runs; both
    kernels must have launched, and no plain version and no stride-design
@@ -46,7 +51,9 @@ the script exits non-zero):
    zero per frame: exactly one launch per iteration of the walker's own
    closest-hit and any-hit kernels and no other, no plain version, each
    image at the noise-floor gate and within 0.1x the seed-to-seed MSE of
-   the persist image of its seed;
+   the persist image of its seed.  The seed-2 packet frame keeps the rays
+   of launch 38 of each packet kernel, and phase 3's packet check, A/B and
+   bounds run again on them;
 5. two-level kernels: eval config 4 (16 instanced bunnies, 1.11M effective
    triangles) built on the card; each two-level kernel, in the fetch
    design that the engine runs and in the first (stride) design, against
@@ -80,11 +87,12 @@ the script exits non-zero):
    0.1x and MSE((a), (c)) <= 2x the seed-to-seed MSE of (a) (plus the
    quantisation term for (c)).  Images go to build/rtjax_torch/;
 7. the two persist kernels' device time over one whole headline frame,
-   then the two two-level kernels' over one config-4 two_level="kernel"
-   frame (torch.profiler; every launch of the frame must be recorded, or
-   the frame is profiled again, once) under each design, stride, fetch,
-   fetch, stride (render/trace.py's names rebound to the stride design
-   for its frames).
+   the two packet kernels' over one walker="packet" headline frame, then
+   the two two-level kernels' over one config-4 two_level="kernel" frame
+   (torch.profiler; every launch of the frame must be recorded, or the
+   frame is profiled again, once) under each design, first design, new,
+   new, first (render/trace.py's names rebound to the first design for its
+   frames).
 
 A kernel's bound is the least time the card could take for its work:
 the larger of the bytes it must move (every ray's active flag and results,
@@ -93,7 +101,9 @@ walk needs: the child boxes, metas and info word of every node it visited
 and the real triangles and prim ids of every leaf row it tested, each
 once; ``persist.work_table_bytes``) over 3.35 TB/s and its float operations (the plain walk's counted slab and
 triangle tests, OPS_* each) over 67 TFLOP/s.  Rows 1-4 and 7-8 take the
-persist walk's count on their rays, rows 5-6 the two-level walk's.
+persist walk's count on their rays, rows 5-6 the two-level walk's; rows
+3-4 also carry the share of the group walk's own bound (``group_share``),
+which counts the nodes and leaves every ray of a packet pays for.
 
 The last two lines of standard output are a JSON object with per-kernel
 numbers and then ``{"ok": true, "device": {...}}``.  ``ms`` is a kernel's
@@ -104,11 +114,11 @@ kernel's count in its main-path run: phase 4's three frames for the
 persist kernels, its packet and lane frames (seed 2) for those kernels,
 6(b) for the two-level ones.  lane_traverse_anyhit is on no engine path
 (rtjax's ``anyhit_walker`` takes "persist" or "packet" only), so its count
-is 0.  The persist and two-level rows also carry ``ab``: both designs on
-each ray set (persist: phase 3, the in-frame launch, config 4's baked
-tables and BLAS; two-level: config 4's field rays, MANY_INST instances,
-6(b)'s in-frame launch), and ``frame_ms``: the two kernels' device time
-over a whole frame under each.
+is 0.  The persist, packet and two-level rows also carry ``ab``: both
+designs on each ray set (persist and packet: phase 3, the in-frame launch,
+config 4's baked tables and BLAS; two-level: config 4's field rays,
+MANY_INST instances, 6(b)'s in-frame launch), and ``frame_ms``: the two
+kernels' device time over a whole frame under each.
 """
 
 from __future__ import annotations
@@ -228,6 +238,8 @@ def phase1_build():
     for lib in (_build.persist_library(), _build.wide_inst_library()):
         for name, res in _build.ptxas_report(lib):
             print(f"[ptxas] {_kernel_label(name)}: {res}")
+    for name, res in _build.ptxas_report(_build.packet_library()):
+        print(f"[ptxas] {_group_label(name)}: {res}")
 
 
 def _kernel_label(mangled):
@@ -521,33 +533,46 @@ def _ab_text(r):
             f"{100 * r['stride_share']:.2f}%")
 
 
-def _check_group(label, tab, cl, ah, card):
-    """Hold the packet and lane kernels against the plain group walk at
-    their group sizes on ``tab`` with the rays of :func:`_check_persist`:
-    zero hit, t, prim, normal and occlusion mismatches and correct dead
-    lanes, or raise; hits and occlusion must also equal the persist
-    kernels' (t and prim may differ at equal-t ties, which are counted).
-    Returns ``{(walk, kind): (max |t diff|, {"device": ms, "call": ms},
-    plain ms)}``: the kernel's device time (:func:`_device_ms`) and the
-    median of REPS calls in CUDA events, one timed plain call."""
+def _check_group(label, tab, cl, ah, card, bounds, walks=("packet", "lane")):
+    """Hold the packet kernels (both designs) and the lane kernels against
+    the plain group walk at their group sizes on ``tab`` with the
+    closest-hit rays ``cl`` and the any-hit rays ``ah``: zero hit, t, prim,
+    normal and occlusion mismatches and correct dead lanes, or raise; hits,
+    t and occlusion must also equal the persist kernels' (the prim may
+    differ at equal-t ties, which are counted).  The packet design is held
+    bit for bit against the plain walk at PACKET (its work counted), the
+    leader design against the persist kernels; the two are timed in turns
+    (leader, packet, packet, leader) and each gets its share of the persist
+    walk's bound (``bounds``, by kind, from :func:`_bound`) and of the group
+    walk's own.  ``walks`` picks "packet" and / or "lane".  Returns
+    ``{(walk, kind): {...}}``: max |t diff| or the occlusion mismatches,
+    device ms (:func:`_device_ms`), one call in CUDA events (median of
+    REPS), one timed plain call, and for the packet kernels the A/B record
+    (:func:`_group_ab`)."""
     import torch
     from rtjax_torch.kernels import lane as L
     from rtjax_torch.kernels import persist as P
     from rtjax_torch.kernels import wide as WD
-    walks = {"packet": (WD.PACKET, WD.wide_traverse_closest,
-                        WD.wide_traverse_anyhit),
-             "lane": (L.LANE, L.lane_traverse_closest,
-                      L.lane_traverse_anyhit)}
+    kernels = {"packet": (WD.PACKET, True, WD.wide_traverse_closest,
+                          WD.wide_traverse_anyhit),
+               "lane": (L.LANE, False, L.lane_traverse_closest,
+                        L.lane_traverse_anyhit)}
+    leader = {"closest": WD.wide_traverse_closest_leader,
+              "anyhit": WD.wide_traverse_anyhit_leader}
     cargs = (tab, cl["o"], cl["d"], cl["tmax"], cl["active"])
     aargs = (tab, ah["o"], ah["d"], ah["tmax"], ah["exclude"], ah["active"])
     ph, pt, pp, _ = P.persist_traverse_closest(*cargs)
     pocc = P.persist_traverse_anyhit(*aargs)
     dead = ~cl["active"]
     out = {}
-    for walk, (group, closest, anyhit) in walks.items():
+    for walk in walks:
+        group, first, closest, anyhit = kernels[walk]
+        work = {"closest": P.new_work(), "anyhit": P.new_work()} \
+            if walk == "packet" else {"closest": None, "anyhit": None}
         hk, tk, pk, nk = closest(*cargs)
         (hp, tp, pp_, np_), plain_ms = _timed_ms(
-            lambda: WD.group_traverse_closest_ref(*cargs, group))
+            lambda: WD.group_traverse_closest_ref(*cargs, group,
+                                                  work=work["closest"]))
         mis = {"hit": int((hk != hp).sum()), "t": int((tk != tp).sum()),
                "prim": int((pk != pp_).sum()),
                "normal": int(sum((a != b).sum() for a, b in zip(nk, np_)))}
@@ -560,47 +585,115 @@ def _check_group(label, tab, cl, ah, card):
                       "ties": int(((tk == pt) & (pk != pp))[both].sum())}
         err = float((tk[hk] - tp[hk]).abs().max()) if bool(hk.any()) \
             else 0.0
-        ms = {"device": _device_ms(lambda: closest(*cargs)),
-              "call": _median_ms(lambda: closest(*cargs))}
+        r = {"err": err, "plain_ms": plain_ms,
+             "ms": _device_ms(lambda: closest(*cargs)),
+             "call_ms": _median_ms(lambda: closest(*cargs))}
+        text, old_bad = "", False
+        if walk == "packet":
+            lh, lt_, lp, _ = leader["closest"](*cargs)
+            lead = {"hit": int((lh != ph).sum()),
+                    "t": int((lt_[both] != pt[both]).sum()),
+                    "ties": int(((lt_ == pt) & (lp != pp))[both].sum())}
+            old_bad = bool(lead["hit"] or lead["t"])
+            r.update(_group_ab(lambda: closest(*cargs),
+                               lambda: leader["closest"](*cargs),
+                               bounds["closest"], work["closest"], cl, tab,
+                               CLOSEST_OUT, RAY_IN))
+            text = (f"; leader design vs the persist kernel {lead}; "
+                    + _group_ab_text(r) + "; group walk "
+                    + _work_text(work["closest"], r["group_bound"]))
         print(f"[{label} {walk} closest] {card}: group {group}, "
               f"{cl['tmax'].numel()} rays ({int(cl['active'].sum())} active) "
               f"over {tab.width}-wide tables, {int(hk.sum())} hits, "
               f"mismatches vs plain {mis}, dead lanes ok {dead_ok}; vs the "
               f"persist kernel: hit mismatches {vs_persist['hit']}, t "
               f"mismatches {vs_persist['t']}, equal-t ties with another "
-              f"prim {vs_persist['ties']}; kernel {ms['device']:.4f} ms "
+              f"prim {vs_persist['ties']}; kernel {r['ms']:.4f} ms "
               f"device time (mean of {REPS} queued launches), one call "
-              f"{ms['call']:.4f} ms (CUDA events, median of {REPS}), plain "
-              f"{plain_ms:.3f} ms (one call)")
+              f"{r['call_ms']:.4f} ms (CUDA events, median of {REPS}), plain "
+              f"{plain_ms:.3f} ms (one call)" + text)
         if any(mis.values()) or not dead_ok or vs_persist["hit"] \
-                or int(hk.sum()) == 0:
+                or vs_persist["t"] or old_bad or int(hk.sum()) == 0:
             raise RuntimeError(f"{label}: {walk} closest-hit kernel "
                                "disagrees with its plain version or the "
                                "persist kernel's hits")
-        out[(walk, "closest")] = (err, ms, plain_ms)
+        out[(walk, "closest")] = r
 
         ok_ = anyhit(*aargs)
-        op, plain_ms = _timed_ms(
-            lambda: WD.group_traverse_anyhit_ref(*aargs, group))
+        op, plain_ms = _timed_ms(lambda: WD.group_traverse_anyhit_ref(
+            *aargs, group, work=work["anyhit"], decide_first=first))
         occ_mis = int((ok_ != op).sum())
         persist_mis = int((ok_ != pocc).sum())
         dead_ok = bool((~ok_[~ah["active"]]).all())
-        ms = {"device": _device_ms(lambda: anyhit(*aargs)),
-              "call": _median_ms(lambda: anyhit(*aargs))}
+        r = {"err": float(occ_mis), "plain_ms": plain_ms,
+             "ms": _device_ms(lambda: anyhit(*aargs)),
+             "call_ms": _median_ms(lambda: anyhit(*aargs))}
+        text, old_bad = "", False
+        if walk == "packet":
+            lead = int((leader["anyhit"](*aargs) != pocc).sum())
+            old_bad = lead != 0
+            r.update(_group_ab(lambda: anyhit(*aargs),
+                               lambda: leader["anyhit"](*aargs),
+                               bounds["anyhit"], work["anyhit"], ah, tab, 1,
+                               RAY_IN + EXCLUDE))
+            text = (f"; leader design occlusion mismatches vs the persist "
+                    f"kernel {lead}; " + _group_ab_text(r) + "; group walk "
+                    + _work_text(work["anyhit"], r["group_bound"]))
         print(f"[{label} {walk} anyhit] {card}: group {group}, "
               f"{ah['tmax'].numel()} rays ({int(ah['active'].sum())} active),"
               f" {int(ok_.sum())} occluded, occlusion mismatches {occ_mis} "
               f"vs plain and {persist_mis} vs the persist kernel, dead "
-              f"lanes ok {dead_ok}; kernel {ms['device']:.4f} ms device time"
+              f"lanes ok {dead_ok}; kernel {r['ms']:.4f} ms device time"
               f" (mean of {REPS} queued launches), one call "
-              f"{ms['call']:.4f} ms (CUDA events, median of {REPS}), plain "
-              f"{plain_ms:.3f} ms (one call)")
-        if occ_mis or persist_mis or not dead_ok or int(ok_.sum()) == 0:
+              f"{r['call_ms']:.4f} ms (CUDA events, median of {REPS}), plain "
+              f"{plain_ms:.3f} ms (one call)" + text)
+        if occ_mis or persist_mis or not dead_ok or old_bad \
+                or int(ok_.sum()) == 0:
             raise RuntimeError(f"{label}: {walk} any-hit kernel disagrees "
                                "with its plain version or the persist "
                                "kernel")
-        out[(walk, "anyhit")] = (float(occ_mis), ms, plain_ms)
+        out[(walk, "anyhit")] = r
     return out
+
+
+def _group_ab(new, old, b, work, rays, tab, out_bytes, in_bytes):
+    """The packet design (``new``) against the leader design (``old``) in
+    turns (:func:`_ab_ms`), with the share of the persist walk's bound
+    ``b`` and of the group walk's own (from its ``work`` on ``rays``)."""
+    n_new, n_old = _ab_ms(new, old)
+    n, n_act = rays["tmax"].numel(), int(rays["active"].sum())
+    g = _bound(work, n, n_act, in_bytes, out_bytes, tab)
+    ms, leader_ms = statistics.mean(n_new), statistics.mean(n_old)
+    return dict(packet_device_ms=n_new, leader_device_ms=n_old, ms=ms,
+                leader_ms=leader_ms, speedup=leader_ms / ms,
+                bound_us=b["bound_us"], bound_by=b["bound_by"],
+                share=b["bound_ms"] / ms, leader_share=b["bound_ms"]
+                / leader_ms, group_bound_us=g["bound_us"],
+                group_share=g["bound_ms"] / ms, group_bound=g,
+                group_work={k: work[k] for k in ("node_visits", "slab_tests",
+                                                 "leaf_rows", "tri_slots")})
+
+
+def _group_ab_text(r):
+    return (f"device time (mean of {REPS} queued launches, in turns leader, "
+            f"packet, packet, leader): packet "
+            f"{r['packet_device_ms'][0]:.4f} / {r['packet_device_ms'][1]:.4f}"
+            f" ms, leader {r['leader_device_ms'][0]:.4f} / "
+            f"{r['leader_device_ms'][1]:.4f} ms, packet {r['speedup']:.2f}x "
+            f"faster; share of the persist walk's bound ({r['bound_us']:.3f}"
+            f" us): packet {100 * r['share']:.2f}%, leader "
+            f"{100 * r['leader_share']:.2f}%; of the group walk's "
+            f"({r['group_bound_us']:.3f} us): packet "
+            f"{100 * r['group_share']:.2f}%")
+
+
+def _group_ab_record(r):
+    """The packet kernels' A/B and bounds of one ray set, for the kernels
+    line."""
+    return {k: r[k] for k in ("packet_device_ms", "leader_device_ms",
+                              "speedup", "call_ms", "bound_us", "bound_by",
+                              "share", "leader_share", "group_bound_us",
+                              "group_share", "group_work")}
 
 
 _BOUND_KEYS = ("bound_ms", "bound_us", "bound_by")
@@ -625,15 +718,20 @@ def phase3_kernels(scene, camera, card):
                           timed_launches=2 * REPS,
                           ab={"phase3": _ab_record(r)})
     group = {}
-    for (walk, kind), (err, ms, plain_ms) in \
-            _check_group("kernel", scene.tables, cl, ah, card).items():
+    for (walk, kind), r in _check_group("kernel", scene.tables, cl, ah, card,
+                                        out).items():
         b = out[kind]
-        group[walk, kind] = dict(
-            GROUP_KERNELS[walk, kind], route="cuda", source=GROUP_SOURCE,
-            max_abs_err=err, ms=ms["device"], call_ms=ms["call"],
-            plain_ms=plain_ms, library_ms=None,
-            **{k: b[k] for k in _BOUND_KEYS},
-            share=b["bound_ms"] / ms["device"], timed_launches=REPS)
+        row = dict(GROUP_KERNELS[walk, kind], route="cuda",
+                   source=GROUP_SOURCE, max_abs_err=r["err"], ms=r["ms"],
+                   call_ms=r["call_ms"], plain_ms=r["plain_ms"],
+                   library_ms=None, **{k: b[k] for k in _BOUND_KEYS},
+                   share=b["bound_ms"] / r["ms"], timed_launches=REPS)
+        if walk == "packet":
+            row.update(leader_ms=r["leader_ms"], timed_launches=2 * REPS,
+                       group_bound_us=r["group_bound_us"],
+                       group_share=r["group_share"],
+                       ab={"phase3": _group_ab_record(r)})
+        group[walk, kind] = row
     return persist, group
 
 
@@ -718,6 +816,8 @@ def phase4_main_path(scene, camera, card):
 
 PERSIST_NAMES = {"closest": "persist_traverse_closest",
                  "anyhit": "persist_traverse_anyhit"}
+PACKET_NAMES = {"closest": "wide_traverse_closest",
+                "anyhit": "wide_traverse_anyhit"}
 INST_NAMES = {"closest": "wide_traverse_closest_inst",
               "anyhit": "wide_traverse_anyhit_inst"}
 
@@ -767,6 +867,33 @@ def _persist_kind(key):
     if "stride_anyhit_kernel" in key:
         return "anyhit"
     return None
+
+
+def _packet_kind(key):
+    """"closest" / "anyhit" for a profiler key of a packet kernel (either
+    design; the lane kernels run the leader design at 32 rays), else
+    None."""
+    import re
+    m = re.search(r"(packet|group)_(closest|anyhit)_kernel"
+                  r"(?:<\d+(?:, (\d+))?>|ILi\d+E(?:Li(\d+)E)?)", key)
+    if m is None or (m[1] == "group" and "256" not in (m[3], m[4])):
+        return None
+    return m[2]
+
+
+def _group_label(mangled):
+    """"packet closest, width 16" for a mangled name of the packet library
+    ("packet leader ..." for the leader design, "lane ..." for the lane
+    kernels)."""
+    import re
+    m = re.search(r"(packet|group)_(closest|anyhit)_kernelILi(\d+)E"
+                  r"(?:Li(\d+)E)?", mangled)
+    if m is None:
+        return mangled
+    kind = "closest" if m[2] == "closest" else "any-hit"
+    design = "packet" if m[1] == "packet" else \
+        "packet leader" if m[4] == "256" else "lane"
+    return f"{design} {kind}, width {m[3]}"
 
 
 def _inst_kind(key):
@@ -827,38 +954,47 @@ def phase4_in_frame(scene, card, captured):
 
 def phase7_frames(scene, camera, card, c4_scene, c4_camera):
     """The traversal kernels' device time over whole frames under each
-    design (stride, fetch, fetch, stride; seeds 4 and 5): the two persist
-    kernels over a headline frame, then the two two-level kernels over a
-    config-4 ``two_level="kernel"`` frame.  Returns ``{"persist": {kind:
-    {design: [ms, ms]}}, "two_level": ...}``.  A frame whose profile holds
-    fewer launches of either kernel than the frame's iterations is profiled
-    again, once; then the phase fails.  Last, because torch.profiler
-    recorded no kernel rows in later profiles once it had traced whole
-    frames."""
+    design (first design, new, new, first; seeds 4 and 5): the two persist
+    kernels over a headline frame (stride, fetch), the two packet kernels
+    over a ``walker="packet"`` headline frame (leader, packet), then the two
+    two-level kernels over a config-4 ``two_level="kernel"`` frame (stride,
+    fetch).  Returns ``{"persist": {kind: {design: [ms, ms]}}, "packet":
+    ..., "two_level": ...}``.  A frame whose profile holds fewer launches
+    of either kernel than the frame's iterations is profiled again, once;
+    then the phase fails.  Last, because torch.profiler recorded no kernel
+    rows in later profiles once it had traced whole frames."""
     import dataclasses
 
     from rtjax_torch import RenderConfig
     from rtjax_torch.kernels import persist as P
+    from rtjax_torch.kernels import wide as WD
     from rtjax_torch.kernels import wide_inst as WI
-    stride = {"persist": {
+    headline = RenderConfig(width=WIDTH, height=HEIGHT, num_samples=SPP,
+                            max_bounces=BOUNCES)
+    # kernels -> (first design, new design, the first design's rebinding)
+    designs = {"persist": ("stride", "fetch", {
         "persist_traverse_closest": P.persist_traverse_closest_stride,
-        "persist_traverse_anyhit": P.persist_traverse_anyhit_stride},
-        "two_level": {
-        "wide_traverse_closest_inst": WI.wide_traverse_closest_inst_stride,
-        "wide_traverse_anyhit_inst": WI.wide_traverse_anyhit_inst_stride}}
-    runs = {"persist": (scene, camera, RenderConfig(
-                width=WIDTH, height=HEIGHT, num_samples=SPP,
-                max_bounces=BOUNCES), _persist_kind, "headline"),
+        "persist_traverse_anyhit": P.persist_traverse_anyhit_stride}),
+        "packet": ("leader", "packet", {
+            "wide_traverse_closest": WD.wide_traverse_closest_leader,
+            "wide_traverse_anyhit": WD.wide_traverse_anyhit_leader}),
+        "two_level": ("stride", "fetch", {
+            "wide_traverse_closest_inst": WI.wide_traverse_closest_inst_stride,
+            "wide_traverse_anyhit_inst": WI.wide_traverse_anyhit_inst_stride})}
+    runs = {"persist": (scene, camera, headline, _persist_kind, "headline"),
+            "packet": (scene, camera, dataclasses.replace(
+                headline, **WALKERS["packet"]), _packet_kind,
+                "walker=packet headline"),
             "two_level": (c4_scene, c4_camera, dataclasses.replace(
                 RenderConfig(width=WIDTH, height=HEIGHT,
                              num_samples=C4_SPP, max_bounces=C4_BOUNCES),
                 two_level="kernel"), _inst_kind, "config-4 kernel")}
     out = {}
     for kernels, (sc, cam, cfg, kind_of, what) in runs.items():
-        frames = {"fetch": [], "stride": []}
-        for design, seed in (("stride", 4), ("fetch", 4), ("fetch", 5),
-                             ("stride", 5)):
-            rebind = stride[kernels] if design == "stride" else {}
+        old, new, rebind_old = designs[kernels]
+        frames = {new: [], old: []}
+        for design, seed in ((old, 4), (new, 4), (new, 5), (old, 5)):
+            rebind = rebind_old if design == old else {}
             for attempt in (1, 2):
                 k = _frame_kernel_ms(sc, cam, cfg, seed, rebind, kind_of)
                 print(f"[frame kernels {kernels} {design} seed {seed}] "
@@ -884,7 +1020,8 @@ def phase7_frames(scene, camera, card, c4_scene, c4_camera):
 
 def phase4_walkers(scene, camera, card, floor):
     """The headline frame under each walker, alternated; returns the
-    launch counts of the seed-2 packet and lane frames."""
+    launch counts of the seed-2 packet and lane frames and the rays of
+    launch CAPTURE_AT of each packet kernel in the seed-2 packet frame."""
     import dataclasses
 
     import numpy as np
@@ -901,8 +1038,16 @@ def phase4_walkers(scene, camera, card, floor):
     imgs, counts = {}, {}
     for walker, seed in (("persist", 2), ("packet", 2), ("lane", 2),
                          ("lane", 3), ("packet", 3), ("persist", 3)):
-        runs, c = _drive(scene, camera,
-                         dataclasses.replace(cfg, **WALKERS[walker]), (seed,))
+        capture = walker == "packet" and seed == 2
+        if capture:
+            captured, restore = _capture_launch(CAPTURE_AT, PACKET_NAMES)
+        try:
+            runs, c = _drive(scene, camera,
+                             dataclasses.replace(cfg, **WALKERS[walker]),
+                             (seed,))
+        finally:
+            if capture:
+                restore()
         secs, fb, st = runs[0]
         its = st["iterations"]
         expect = {(kernel, kind): 0 for kernel in _KERNEL_SETS
@@ -937,7 +1082,42 @@ def phase4_walkers(scene, camera, card, floor):
             if ref_mse > floor["gate"] or tie_mse > 0.1 * floor["seed_mse"]:
                 raise RuntimeError(f"walker={walker!r} image differs beyond "
                                    "its gate")
-    return counts
+    if set(captured) != {"closest", "anyhit"}:
+        raise RuntimeError(f"launch {CAPTURE_AT} of each packet kernel was "
+                           "not captured")
+    return counts, captured
+
+
+def _persist_bounds(label, tab, cl, ah):
+    """The persist walk's bound of each kind on the rays ``cl`` / ``ah``
+    (:func:`_bound` of the plain persist walks' work), each printed with
+    its work count."""
+    from rtjax_torch.kernels import persist as P
+    wc, wa = P.new_work(), P.new_work()
+    P.persist_traverse_closest_ref(tab, cl["o"], cl["d"], cl["tmax"],
+                                   cl["active"], work=wc)
+    P.persist_traverse_anyhit_ref(tab, ah["o"], ah["d"], ah["tmax"],
+                                  ah["exclude"], ah["active"], work=wa)
+    out = {"closest": _bound(wc, cl["tmax"].numel(), int(cl["active"].sum()),
+                             RAY_IN, CLOSEST_OUT, tab),
+           "anyhit": _bound(wa, ah["tmax"].numel(), int(ah["active"].sum()),
+                            RAY_IN + EXCLUDE, 1, tab)}
+    for kind, work in (("closest", wc), ("anyhit", wa)):
+        print(f"[{label} persist walk {kind}] "
+              + _work_text(work, out[kind]))
+    return out
+
+
+def phase4_packet_in_frame(scene, card, captured):
+    """Both packet designs on launch CAPTURE_AT of the seed-2
+    ``walker="packet"`` frame's packet kernels."""
+    tab, cl = captured["closest"]
+    tab_a, ah = captured["anyhit"]
+    if tab is not tab_a or tab is not scene.tables:
+        raise RuntimeError("the captured packet launches used other tables")
+    label = f"packet in-frame launch {CAPTURE_AT}"
+    return _check_group(label, tab, cl, ah, card,
+                        _persist_bounds(label, tab, cl, ah), ("packet",))
 
 
 def phase5_scene():
@@ -1123,6 +1303,16 @@ def phase5_inst_kernels(scene, camera, card):
     return rows
 
 
+def _record_group(group, out, key):
+    """Add one ray set's group checks to the packet and lane rows: the
+    packet kernels' A/B, every row's largest error."""
+    for (walk, kind), r in out.items():
+        row = group[walk, kind]
+        row["max_abs_err"] = max(row["max_abs_err"], r["err"])
+        if walk == "packet":
+            row["ab"][key] = _group_ab_record(r)
+
+
 def _record_ab(rows, out, key):
     """Add one ray set's A/B to the kernels' rows; keep their largest
     error."""
@@ -1159,14 +1349,16 @@ def _instance_frame(inst, rays):
 def phase5_persist(scene, baked, camera, card):
     """The persist, packet and lane kernels at the two other shapes config
     4 gives them: the baked scene's tables, and the shared BLAS under
-    repass.  Returns the group checks' results, as :func:`_check_group`
-    does, per shape, and the persist checks' results by shape."""
+    repass.  Returns the persist checks' results and the group checks'
+    results (as :func:`_check_group` returns them), each by shape."""
     import torch
     gen = torch.Generator(device="cuda").manual_seed(5678)
     cl, ah = _field_rays(baked, camera, gen)
     persist = {"config4_baked": _check_persist(
         "config4 baked persist", baked.tables, cl, ah, card)}
-    group = [_check_group("config4 baked", baked.tables, cl, ah, card)]
+    group = {"config4_baked": _check_group(
+        "config4 baked", baked.tables, cl, ah, card,
+        persist["config4_baked"])}
     if set(scene.instances.mesh_id) != {0}:
         raise RuntimeError("config 4 should place one BLAS")
     cl, ah = _field_rays(scene, camera, gen)
@@ -1174,13 +1366,14 @@ def phase5_persist(scene, baked, camera, card):
     ah = _instance_frame(scene.instances, ah)
     persist["config4_blas"] = _check_persist(
         "config4 blas persist", scene.blas[0].tables, cl, ah, card)
-    group.append(_check_group("config4 blas", scene.blas[0].tables, cl, ah,
-                              card))
+    group["config4_blas"] = _check_group(
+        "config4 blas", scene.blas[0].tables, cl, ah, card,
+        persist["config4_blas"])
     return persist, group
 
 
 _KERNEL_SETS = ("persist", "two_level", "packet", "lane", "stride",
-                "inst_stride")
+                "inst_stride", "packet_leader")
 
 
 def _counters():
@@ -1194,7 +1387,8 @@ def _counters():
             "packet": (WD.LAUNCHES, WD.REF_CALLS),
             "lane": (L.LAUNCHES, None),
             "stride": (P.STRIDE_LAUNCHES, None),
-            "inst_stride": (WI.STRIDE_LAUNCHES, None)}
+            "inst_stride": (WI.STRIDE_LAUNCHES, None),
+            "packet_leader": (WD.LEADER_LAUNCHES, None)}
 
 
 def _drive(scene, camera, cfg, seeds):
@@ -1349,9 +1543,12 @@ def main():
         k["launches"] = launches[kind]
     for kind, r in phase4_in_frame(scene, card, captured).items():
         persist[kind]["ab"]["in_frame"] = _ab_record(r)
-    walker_counts = phase4_walkers(scene, camera, card, floor)
+    walker_counts, packet_captured = phase4_walkers(scene, camera, card,
+                                                    floor)
     for (walk, kind), k in group.items():
         k["launches"] = walker_counts[walk][walk][kind]
+    _record_group(group, phase4_packet_in_frame(scene, card,
+                                                packet_captured), "in_frame")
     group["lane", "anyhit"]["note"] = ("on no engine path: anyhit_walker "
                                        "takes persist or packet, as in rtjax")
     c4_scene, baked, c4_camera = phase5_scene()
@@ -1362,9 +1559,8 @@ def main():
             persist[kind]["ab"][shape] = _ab_record(r)
             persist[kind]["max_abs_err"] = max(persist[kind]["max_abs_err"],
                                                r["max_abs_err"])
-    for shape in group_shapes:
-        for key, (err, _, _) in shape.items():
-            group[key]["max_abs_err"] = max(group[key]["max_abs_err"], err)
+    for shape, out in group_shapes.items():
+        _record_group(group, out, shape)
     inst_launches, inst_captured = phase6_config4(c4_scene, baked, c4_camera,
                                                   card)
     for kind, k in inst.items():
@@ -1375,6 +1571,8 @@ def main():
     for rows_, kernels in ((persist, "persist"), (inst, "two_level")):
         for kind, ms in frames[kernels].items():
             rows_[kind]["frame_ms"] = ms
+    for kind, ms in frames["packet"].items():
+        group["packet", kind]["frame_ms"] = ms
     rows = [*persist.values(), *group.values(), *inst.values()]
     for k in rows:
         print(f"[bound] {k['name']}: {k['bound_us']:.3f} us by "

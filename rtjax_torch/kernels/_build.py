@@ -7,8 +7,8 @@ under the repository root (a directory that .gitignore lists).
 - the traversal kernels, one shared library with a plain C interface per
   ``rtjax_torch/csrc/*.cu`` source (the persistent walkers, the two-level
   kernels, the packet and lane group walks; all include ``wide_walk.cuh``,
-  the first two also ``fetch_walk.cuh``, the group walks
-  ``group_walk.cuh``), compiled by nvcc for
+  the first two also ``fetch_walk.cuh``, the packet and lane kernels
+  ``group_walk.cuh`` and ``packet_walk.cuh``), compiled by nvcc for
   ``sm_90a`` and bound with ctypes.
 
 Each library is rebuilt when a source or a header it includes is newer
@@ -39,6 +39,7 @@ PACKET_SOURCE = CSRC_DIR / "packet_traverse.cu"
 WALK_HEADER = CSRC_DIR / "wide_walk.cuh"
 FETCH_HEADER = CSRC_DIR / "fetch_walk.cuh"
 GROUP_HEADER = CSRC_DIR / "group_walk.cuh"
+PACKET_HEADER = CSRC_DIR / "packet_walk.cuh"
 
 # the BVH builder keeps rtjax's flags: -ffp-contract=off keeps SAH costs
 # free of FMA contraction, so both packages build bit-identical trees
@@ -130,4 +131,5 @@ def packet_library() -> Path:
     """Path of the compiled packet and lane kernels (built if missing or
     stale)."""
     return _build(BUILD_DIR / "libpacket_traverse.so", [PACKET_SOURCE],
-                  [nvcc_path()] + NVCC_FLAGS, (WALK_HEADER, GROUP_HEADER))
+                  [nvcc_path()] + NVCC_FLAGS,
+                  (WALK_HEADER, GROUP_HEADER, PACKET_HEADER))

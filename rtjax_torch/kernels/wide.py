@@ -1,19 +1,22 @@
 """Packet closest-hit and any-hit BVH traversal over the wide tables: the
-wrappers of the hand-written CUDA group-walk kernels and their plain
-PyTorch version.
+wrappers of the hand-written CUDA packet kernels and their plain PyTorch
+version.
 
 ``wide_traverse_closest`` / ``wide_traverse_anyhit`` replace
 rtjax/kernels/pallas_wide.py's functions of the same names (the Pallas
 kernels ``_make_closest_kernel`` and ``_make_anyhit_kernel``); the lane
-wrappers (kernels/lane.py) run the same walk with smaller groups.  A CUDA
-tensor goes to the kernel in ``csrc/packet_traverse.cu`` (built at first
-use, bound with ctypes); a CPU tensor goes to the plain version.  There is
-no fallback between them.
+wrappers (kernels/lane.py) run the leader design's walk with one-warp groups.
+A CUDA tensor goes to the kernel in ``csrc/packet_traverse.cu`` (built at
+first use, bound with ctypes); a CPU tensor goes to the plain version.
+There is no fallback between them.
 
-Contract: persist.py's (rtjax's), at any tree depth: the group's stack is
-sized from ``tables.depth``.
+Contract: persist.py's (rtjax's), at any tree depth whose packet block fits
+the card's shared memory (:func:`packet_smem_bytes`; depth 840 at width 16,
+1,937 at width 8): the packet's stack is sized from ``tables.depth``
+(:func:`packet_stack_len`).
 
-The group walk (``csrc/group_walk.cuh`` walks the same order): rays go in
+The group walk (``csrc/packet_walk.cuh`` and, for the leader design and the
+lane kernels, ``csrc/group_walk.cuh`` walk the same order): rays go in
 groups of ``group`` consecutive rays, the last one partial, and one cursor
 walks the tree for the whole group.  At a node every live ray slab-tests
 every non-empty child against its own tmax and Moeller-Trumbore-tests the
@@ -22,11 +25,24 @@ per-ray rule, so the hits are the persistent walkers' hits; only the prim
 at an equal-t tie may differ).  The internal children that any live ray
 accepted form the group's mask; the cursor descends into the mask's first
 child in the node's build-time axis order, reversed when the group's octant
-points down that axis, and pushes the rest as one (node, remaining-mask)
-entry; it pops when the mask is empty.  The octant is an integer vote: bit
-k is set when more than half of the group's active rays point down axis k.
-Any hit: an occluded ray stops, and the group stops when none of its rays is
-live.  A group without an active ray walks nothing.
+points down that axis, and pushes the rest; it pops when the mask is empty.
+The octant is an integer vote: bit k is set when more than half of the
+group's active rays point down axis k.  A group without an active ray walks
+nothing.
+
+Any hit, by ``decide_first``: the packet kernels decide the next node
+before the leaf tests (True), so a ray occluded at a node's leaves still
+adds that node's internal children, and a group stops at the first step
+that finds none of its rays live; the leader design and the lane kernels
+decide after them (False), so an occluded ray adds nothing and a group stops
+as soon as its last live ray is occluded.  Occlusion is the same under both;
+the first visits at least as many nodes.  Closest hit walks one order under
+both.
+
+``wide_traverse_*_leader`` launch the packet kernels' first design (the
+leader design, LEADER_PACKET rays a packet, counted in ``LEADER_LAUNCHES``);
+they exist only to time both designs in one run (``chip_smoke.py``, the
+card tests), and no engine path calls them.
 
 rtjax's packet kernel decides its tile's octant by the sign of a float sum
 of directions, which two implementations round differently, and its leaf
@@ -44,14 +60,20 @@ import torch
 
 from ..accel.wide import WideTables
 from . import _build
-from .persist import (BIG, _columns, _out_normal, _pick, _raise_on,
-                      _table_ptrs, anyhit_leaf, check_rays, closest_leaf,
-                      count_leaves, count_visits, slab, slab_pre)
+from .persist import (BIG, _check_aligned, _columns, _out_normal, _pick,
+                      _raise_on, _table_ptrs, anyhit_leaf, check_rays,
+                      closest_leaf, count_leaves, count_visits, slab,
+                      slab_pre)
+from .wide_inst import SMEM_OPTIN
 
-PACKET = 256  # rays per packet: one CTA (csrc/packet_traverse.cu kPacket)
+PACKET = 32  # rays per packet (csrc/packet_walk.cuh kPacket)
+PACKETS = 4  # packets per block (kPackets)
+LEADER_PACKET = 256  # rays per packet of the leader design (kLeaderPacket)
 
 # kernel launches (wrapper, CUDA path), by kernel
 LAUNCHES = {"closest": 0, "anyhit": 0}
+# launches of the leader design (the ``_leader`` wrappers), by kernel
+LEADER_LAUNCHES = {"closest": 0, "anyhit": 0}
 # plain group-walk calls by kind, at any group size (the lane wrappers' too)
 REF_CALLS = {"closest": 0, "anyhit": 0}
 
@@ -61,21 +83,58 @@ _lib = None
 
 # ------------------------------------------------------------- CUDA path
 
+def bind(lib):
+    """Set the argument types of the six entry points of a packet kernel
+    library (``ctypes.CDLL``) and return it."""
+    P, I = ctypes.c_void_p, ctypes.c_int
+    for name in ("packet", "packet_leader", "lane"):
+        closest = getattr(lib, f"rtjax_{name}_closest")
+        closest.argtypes = [I, I, I] + [P] * 12 + [I] + [P] * 7
+        closest.restype = I
+        anyhit = getattr(lib, f"rtjax_{name}_anyhit")
+        anyhit.argtypes = [I, I, I] + [P] * 13 + [I] + [P] * 2
+        anyhit.restype = I
+    return lib
+
+
 def _kernels():
     global _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(_build.packet_library()))
-            P, I = ctypes.c_void_p, ctypes.c_int
-            for name in ("packet", "lane"):
-                closest = getattr(lib, f"rtjax_{name}_closest")
-                closest.argtypes = [I, I, I] + [P] * 12 + [I] + [P] * 7
-                closest.restype = I
-                anyhit = getattr(lib, f"rtjax_{name}_anyhit")
-                anyhit.argtypes = [I, I, I] + [P] * 13 + [I] + [P] * 2
-                anyhit.restype = I
-            _lib = lib
+            _lib = bind(ctypes.CDLL(str(_build.packet_library())))
         return _lib
+
+
+def packet_stack_len(tables: WideTables) -> int:
+    """Child-id stack entries per packet of the packet kernels: at most
+    ``width - 1`` ids pushed at each of the ``depth + 1`` levels the
+    (node, mask) stack of the plain walk holds."""
+    return (tables.depth + 1) * (tables.width - 1)
+
+
+def packet_smem_bytes(tables: WideTables) -> int:
+    """Shared memory of a packet-kernel block: per packet, its
+    ``PacketShared`` (``csrc/packet_walk.cuh``: two node buffers, the leaf
+    rows, three mbarriers and the vote and mask slots, 472 B per child slot
+    and 56 B, 16-byte aligned) and its child-id stack."""
+    shared = -(-(472 * tables.width + 56) // 16) * 16
+    return PACKETS * (shared + 4 * packet_stack_len(tables))
+
+
+def _stack_len(name, tables):
+    """The stack length an entry point ``name`` takes: child ids per packet
+    for the packet design (whose bulk copies also need 16-byte-aligned
+    tables, and whose block must fit the card's shared memory), (node,
+    mask) entries for the group walk."""
+    if name == "packet":
+        _check_aligned(tables)
+        if packet_smem_bytes(tables) > SMEM_OPTIN:
+            raise ValueError(
+                f"BVH depth {tables.depth} needs {packet_smem_bytes(tables)} "
+                f"B of shared memory per packet-kernel block; a block holds "
+                f"at most {SMEM_OPTIN}")
+        return packet_stack_len(tables)
+    return tables.depth + 1
 
 
 def _closest_cuda(name, group, tables, o, d, tmax, active):
@@ -88,7 +147,7 @@ def _closest_cuda(name, group, tables, o, d, tmax, active):
                 for _ in range(3))
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = getattr(_kernels(), f"rtjax_{name}_closest")(
-        tables.width, group, tables.depth + 1, *_table_ptrs(tables),
+        tables.width, group, _stack_len(name, tables), *_table_ptrs(tables),
         *(c.data_ptr() for c in o), *(c.data_ptr() for c in d),
         tmax.data_ptr(), active.data_ptr(), n,
         hit.data_ptr(), t.data_ptr(), prim.data_ptr(),
@@ -102,7 +161,7 @@ def _anyhit_cuda(name, group, tables, o, d, tmax, exclude, active):
     occ = torch.empty(n, dtype=torch.bool, device=tmax.device)
     stream = torch.cuda.current_stream(tmax.device).cuda_stream
     rc = getattr(_kernels(), f"rtjax_{name}_anyhit")(
-        tables.width, group, tables.depth + 1, *_table_ptrs(tables),
+        tables.width, group, _stack_len(name, tables), *_table_ptrs(tables),
         *(c.data_ptr() for c in o), *(c.data_ptr() for c in d),
         tmax.data_ptr(), active.data_ptr(), exclude.data_ptr(), n,
         occ.data_ptr(), stream)
@@ -113,8 +172,8 @@ def _anyhit_cuda(name, group, tables, o, d, tmax, exclude, active):
 def group_closest(name, group, launches, tables: WideTables, origin,
                   direction, tmax, active):
     """Closest hit by ``group``-ray group walks: the kernels ``name``
-    ("packet" or "lane") for CUDA tensors, counted in ``launches``, the
-    plain version for CPU tensors."""
+    ("packet", "packet_leader" or "lane") for CUDA tensors, counted in
+    ``launches``, the plain version for CPU tensors."""
     as_v3 = isinstance(origin, (tuple, list))
     o, d = _columns(origin), _columns(direction)
     check_rays(tables, o, d, tmax, active)
@@ -132,7 +191,8 @@ def group_closest(name, group, launches, tables: WideTables, origin,
 
 def group_anyhit(name, group, launches, tables: WideTables, origin,
                  direction, tmax, exclude, active):
-    """Occlusion by ``group``-ray group walks (see :func:`group_closest`)."""
+    """Occlusion by ``group``-ray group walks (see :func:`group_closest`);
+    the plain version decides first for the packet design alone."""
     o, d = _columns(origin), _columns(direction)
     check_rays(tables, o, d, tmax, active, exclude)
     if tmax.device.type == "cuda":
@@ -141,7 +201,7 @@ def group_anyhit(name, group, launches, tables: WideTables, origin,
         return occ
     if tmax.device.type == "cpu":
         return group_traverse_anyhit_ref(tables, o, d, tmax, exclude, active,
-                                         group)
+                                         group, decide_first=name == "packet")
     raise ValueError(f"unsupported device {tmax.device}")
 
 
@@ -159,6 +219,21 @@ def wide_traverse_anyhit(tables: WideTables, origin, direction, tmax,
     prim."""
     return group_anyhit("packet", PACKET, LAUNCHES, tables, origin,
                         direction, tmax, exclude, active)
+
+
+def wide_traverse_closest_leader(tables: WideTables, origin, direction, tmax,
+                                 active):
+    """:func:`wide_traverse_closest` by the leader design (for timing both
+    designs in one run; counted in ``LEADER_LAUNCHES``)."""
+    return group_closest("packet_leader", LEADER_PACKET, LEADER_LAUNCHES,
+                         tables, origin, direction, tmax, active)
+
+
+def wide_traverse_anyhit_leader(tables: WideTables, origin, direction, tmax,
+                                exclude, active):
+    """:func:`wide_traverse_anyhit` by the leader design."""
+    return group_anyhit("packet_leader", LEADER_PACKET, LEADER_LAUNCHES,
+                        tables, origin, direction, tmax, exclude, active)
 
 
 # ------------------------------------------------------- plain version
@@ -215,14 +290,17 @@ class _Groups:
 
 
 def _group_walk(tables: WideTables, o, d, tmax, active, group, on_leaf,
-                exclude=None, work=None):
+                exclude=None, work=None, decide_first=True):
     """The batched group walk of the plain version.  Each step pops the
     groups whose cursor is empty, drops the finished groups, and visits one
     node per remaining group with all of its rays.  ``on_leaf(w, rr,
     rows)`` is persist.py's: it tests leaf rows for the rays ``rr`` (flat
     indices) and returns a [R] bool of rays that are finished (any-hit
-    occlusion).  ``work`` (``persist.new_work``), when given, counts the
-    work as persist's walk does, a node visit per live ray of the group."""
+    occlusion); ``decide_first`` as in the module's notes.  ``work``
+    (``persist.new_work``), when given, counts the work as persist's walk
+    does, a node visit per live ray of the group (a group's step with no
+    live ray reads nothing), and ``stack_peak``: the most child ids a
+    group's stack held, the entries of the packet kernels' stack."""
     width = tables.width
     nb, lt, ni = tables.node_bounds, tables.leaf_tris, tables.node_info
     cm = tables.child_meta.view(-1, width)
@@ -260,9 +338,10 @@ def _group_walk(tables: WideTables, o, d, tmax, active, group, on_leaf,
             & w.live.view(k, group, 1)
         hitc = (torch.clamp(entry, min=0.0)
                 <= torch.minimum(exit_, w.tm.view(k, group, 1))) & tested
+        live = w.live.view(k, group).any(1)   # at the step's start
         if work is not None:
-            live = w.live.view(k, group)
-            count_visits(work, tables, w.cur, tested[live])
+            count_visits(work, tables, w.cur[live],
+                         tested[w.live.view(k, group)])
         hitc = hitc.view(k * group, width)
         lbit_r = lbit.repeat_interleave(group, 0)
 
@@ -277,8 +356,10 @@ def _group_walk(tables: WideTables, o, d, tmax, active, group, on_leaf,
             done[rr] = on_leaf(w, rr, lt[meta[rr // group, c] >> 4])
         w.live &= ~done
 
-        inner = (((hitc & ~lbit_r & ~done[:, None]).view(k, group, width)
-                  .any(1).long()) << lane).sum(1)
+        adds = hitc & ~lbit_r
+        if not decide_first:
+            adds &= ~done[:, None]
+        inner = ((adds.view(k, group, width).any(1).long()) << lane).sum(1)
         has = inner != 0
         rev = (w.octv >> axis) & 1
         first = _pick(inner, rev, lane)
@@ -289,18 +370,32 @@ def _group_walk(tables: WideTables, o, d, tmax, active, group, on_leaf,
             w.stn[rp, spp] = w.cur[rp]
             w.stm[rp, spp] = (rest[rp] << 1) | rev[rp]
             w.sp[rp] = spp + 1
+        if work is not None:
+            _count_stack(work, w, lane)
         nxt = meta.gather(1, first[:, None]).squeeze(1) >> 4
         w.cur = torch.where(has, nxt, -1)
-        # a group none of whose rays is live stops (any-hit occlusion)
-        w.sp = torch.where(w.live.view(k, group).any(1), w.sp, 0)
+        # a group none of whose rays is live stops (any-hit occlusion): at
+        # this step's start, or after its leaf tests
+        if not decide_first:
+            live = w.live.view(k, group).any(1)
+        w.sp = torch.where(live, w.sp, 0)
+
+
+def _count_stack(work, w, lane):
+    """Raise ``work["stack_peak"]`` to the most child ids on a group's
+    stack now: the remaining masks' bits of its (node, mask) entries."""
+    held = torch.arange(w.stm.shape[1], device=w.stm.device) < w.sp[:, None]
+    ids = ((((w.stm >> 1)[:, :, None] >> lane) & 1).sum(2) * held).sum(1)
+    peak = int(ids.max()) if ids.numel() else 0
+    work["stack_peak"] = max(work.get("stack_peak", 0), peak)
 
 
 def group_traverse_closest_ref(tables: WideTables, origin, direction, tmax,
                                active, group, work=None):
     """Plain PyTorch version of the group-walk closest hit (the packet
-    kernel at ``group`` = PACKET, the lane kernel at lane.LANE): same
-    contract, same visit order, any device; ``work`` as in
-    :func:`_group_walk`."""
+    kernel at ``group`` = PACKET, the leader design at LEADER_PACKET, the
+    lane kernel at lane.LANE): same contract, same visit order, any device;
+    ``work`` as in :func:`_group_walk`."""
     REF_CALLS["closest"] += 1
     as_v3 = isinstance(origin, (tuple, list))
     o, d = _columns(origin), _columns(direction)
@@ -317,11 +412,14 @@ def group_traverse_closest_ref(tables: WideTables, origin, direction, tmax,
 
 
 def group_traverse_anyhit_ref(tables: WideTables, origin, direction, tmax,
-                              exclude, active, group, work=None):
-    """Plain PyTorch version of the group-walk any hit."""
+                              exclude, active, group, work=None,
+                              decide_first=True):
+    """Plain PyTorch version of the group-walk any hit: the packet kernel's
+    at ``decide_first`` True, the leader design's and the lane kernel's at
+    False."""
     REF_CALLS["anyhit"] += 1
     o, d = _columns(origin), _columns(direction)
     occ = torch.zeros(tmax.shape[0], dtype=torch.bool, device=tmax.device)
     _group_walk(tables, o, d, tmax, active, group, anyhit_leaf(occ),
-                exclude, work)
+                exclude, work, decide_first)
     return occ

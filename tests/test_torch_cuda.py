@@ -1,6 +1,6 @@
 """rtjax_torch on a CUDA device: the hand-written kernels (persistent
-walkers in both designs, two-level, packet and lane group walks) against
-their plain PyTorch versions, and the engine's main path through the
+walkers, two-level and packet kernels in both designs, lane group walks)
+against their plain PyTorch versions, and the engine's main path through the
 kernels, single-level and instanced, under every walker.
 
 Every test here is marked ``cuda`` and skips where
@@ -32,6 +32,8 @@ from rtjax_torch.scene.camera import Camera
 from rtjax_torch.scene.scene import SceneBuilder
 from rtjax_torch.scene.transform import Transform, rotate, scale, translate
 from rtjax_torch.scenes import cornell_planes
+
+from test_torch_persist_work import chain_rays, chain_tables
 
 pytestmark = pytest.mark.cuda
 
@@ -191,65 +193,117 @@ def test_fetch_kernels_take_every_stack_length(cuda):
         _check_persist(tables, o, d, tmax, active, exclude)
 
 
+# name -> (group, closest, any hit, any-hit rule of the plain walk, launches)
 GROUP_WALKS = {
-    "packet": (WD.PACKET, WD.wide_traverse_closest, WD.wide_traverse_anyhit),
-    "lane": (L.LANE, L.lane_traverse_closest, L.lane_traverse_anyhit),
+    "packet": (WD.PACKET, WD.wide_traverse_closest, WD.wide_traverse_anyhit,
+               True, WD.LAUNCHES),
+    "leader": (WD.LEADER_PACKET, WD.wide_traverse_closest_leader,
+               WD.wide_traverse_anyhit_leader, False, WD.LEADER_LAUNCHES),
+    "lane": (L.LANE, L.lane_traverse_closest, L.lane_traverse_anyhit, False,
+             L.LAUNCHES),
 }
 
 
-@pytest.mark.parametrize("walk", ["packet", "lane"])
-@pytest.mark.parametrize("width", [8, 16], ids=["w8", "w16"])
-@pytest.mark.parametrize("tmax_v", [float("inf"), 0.7], ids=["inf", "0.7"])
-def test_group_kernels_equal_plain_version(cuda, walk, width, tmax_v):
-    """The packet and lane kernels against the plain group walk at their
-    group size: 6,444 rays end in a partial group of either size, 10% of
-    them dead, and a whole dead packet."""
-    group, closest, anyhit = GROUP_WALKS[walk]
-    tables = _soup_tables(width, cuda)
-    n = 3 * 2048 + 300
-    o, d, active, exclude = _rays(n, cuda)
-    active[256:512] = False
-    tmax = torch.full((n,), tmax_v, device=cuda)
-    launches = dict(WD.LAUNCHES), dict(L.LAUNCHES)
+def _check_group(walk, tables, o, d, tmax, active, exclude):
+    """One group-walk kernel pair against the plain group walk, bit for
+    bit, dead lanes included, and against the persist plain versions' hits,
+    t and occlusion; each kernel launched once."""
+    group, closest, anyhit, first, launches = GROUP_WALKS[walk]
+    before = dict(launches)
     k_out = closest(tables, o, d, tmax, active)
     p_out = WD.group_traverse_closest_ref(tables, o, d, tmax, active, group)
     torch.cuda.synchronize()
     for a, b in zip(k_out[:3] + k_out[3], p_out[:3] + p_out[3]):
         assert torch.equal(a, b)
-    assert int(k_out[0].sum()) > 300
     dead = ~active
     assert not bool(k_out[0][dead].any())
     assert bool((k_out[1][dead] == P.BIG).all())
     assert bool((k_out[2][dead] == -1).all())
-    # hits and t are the persistent walkers' (the prim of a tie may differ)
-    want = P.persist_traverse_closest(tables, o, d, tmax, active)
+    assert not any(bool(c[dead].any()) for c in k_out[3])
+    # hits and t are the persistent walk's (the prim of a tie may differ)
+    want = P.persist_traverse_closest_ref(tables, o, d, tmax, active)
     assert torch.equal(k_out[0], want[0]) and torch.equal(k_out[1], want[1])
     args = (tables, o, d, tmax, exclude, active)
     occ = anyhit(*args)
-    assert torch.equal(occ, WD.group_traverse_anyhit_ref(*args, group))
-    assert torch.equal(occ, P.persist_traverse_anyhit(*args))
+    assert torch.equal(occ, WD.group_traverse_anyhit_ref(
+        *args, group, decide_first=first))
+    assert torch.equal(occ, P.persist_traverse_anyhit_ref(*args))
     assert not bool(occ[dead].any())
-    count = WD.LAUNCHES if walk == "packet" else L.LAUNCHES
-    before = launches[0] if walk == "packet" else launches[1]
-    assert count == {k: v + 1 for k, v in before.items()}
+    assert launches == {k: v + 1 for k, v in before.items()}
+    return k_out, occ
+
+
+@pytest.mark.parametrize("walk", ["packet", "leader", "lane"])
+@pytest.mark.parametrize("width", [8, 16], ids=["w8", "w16"])
+@pytest.mark.parametrize("tmax_v", [float("inf"), 0.7], ids=["inf", "0.7"])
+def test_group_kernels_equal_plain_version(cuda, walk, width, tmax_v):
+    """The packet kernels (both designs) and the lane kernels against the
+    plain group walk at their group size: 6,444 rays end in a partial group
+    of either size, 10% of them dead, and a whole dead packet."""
+    tables = _soup_tables(width, cuda)
+    n = 3 * 2048 + 300
+    o, d, active, exclude = _rays(n, cuda)
+    active[256:512] = False
+    tmax = torch.full((n,), tmax_v, device=cuda)
+    k_out, _ = _check_group(walk, tables, o, d, tmax, active, exclude)
+    assert int(k_out[0].sum()) > 300
+
+
+@pytest.mark.parametrize("width", [8, 16], ids=["w8", "w16"])
+@pytest.mark.parametrize("n", [1, 127, 129, 700, 5 * 256 + 3])
+def test_packet_kernels_take_ragged_batches(cuda, width, n):
+    """Partial last packets, and dead packets: rays 256-511 inactive (whole
+    packets at 64, 128 and 256 rays), and at 700 rays every ray past 600."""
+    tables = _soup_tables(width, cuda)
+    o, d, active, exclude = _rays(n, cuda, seed=7)
+    active[256:512] = False
+    if n == 700:
+        active[600:] = False
+    tmax = torch.full((n,), float("inf"), device=cuda)
+    _check_group("packet", tables, o, d, tmax, active, exclude)
+
+
+@pytest.mark.parametrize("width", [8, 16], ids=["w8", "w16"])
+def test_packet_kernels_fill_the_stack(cuda, width):
+    """A chain of 80 wide nodes (past the persist stack's 64 levels) that
+    fills the packet's child-id stack to its (depth + 1) * (width - 1)
+    entries before the first pop."""
+    tables = chain_tables(width, 80, cuda)
+    assert tables.depth + 1 > P.STACK
+    n = 3 * WD.PACKET + 5
+    o, d, act, ex = chain_rays(n, cuda)
+    work = P.new_work()
+    WD.group_traverse_closest_ref(tables, o, d, torch.full(
+        (n,), float("inf"), device=cuda), act, WD.PACKET, work=work)
+    assert work["stack_peak"] == WD.packet_stack_len(tables)
+    for tmax_v in (float("inf"), 0.7):
+        tmax = torch.full((n,), tmax_v, device=cuda)
+        k_out, occ = _check_group("packet", tables, o, d, tmax, act, ex)
+        # the triangle lies at t = 1.5
+        assert bool(k_out[0].all()) == bool(occ.all()) == (tmax_v > 1.5)
+        assert bool(k_out[0].any()) == (tmax_v > 1.5)
 
 
 def test_group_kernels_take_any_depth(cuda):
-    """A stack sized beyond the persist walkers' (the group's stack lives
-    in shared memory, sized from the tree depth)."""
-    tables = dataclasses.replace(_soup_tables(8, cuda), depth=4 * P.STACK)
+    """Stacks sized beyond the persist walkers' (each group's stack lives
+    in shared memory, sized from the tree depth): large, small, larger (the
+    packet stacks past 48 KB at depth 700), small and larger again, so that
+    a launch must find its shared-memory cap raised for its own size; a
+    depth whose packet block passes the card's shared memory is refused
+    before launch, and the next launch runs."""
+    base = _soup_tables(16, cuda)
     n = 2048
     o, d, active, exclude = _rays(n, cuda)
     tmax = torch.full((n,), float("inf"), device=cuda)
-    for group, closest, anyhit in GROUP_WALKS.values():
-        k_out = closest(tables, o, d, tmax, active)
-        p_out = WD.group_traverse_closest_ref(tables, o, d, tmax, active,
-                                              group)
-        torch.cuda.synchronize()
-        assert torch.equal(k_out[1], p_out[1])
-        args = (tables, o, d, tmax, exclude, active)
-        assert torch.equal(anyhit(*args),
-                           WD.group_traverse_anyhit_ref(*args, group))
+    for depth in (4 * P.STACK, base.depth, 700, base.depth, 700):
+        tables = dataclasses.replace(base, depth=depth)
+        for walk in GROUP_WALKS:
+            _check_group(walk, tables, o, d, tmax, active, exclude)
+    assert 48 * 1024 < WD.packet_smem_bytes(tables) <= WD.SMEM_OPTIN
+    deep = dataclasses.replace(base, depth=1000)
+    with pytest.raises(ValueError, match="shared memory"):
+        WD.wide_traverse_closest(deep, o, d, tmax, active)
+    _check_group("packet", base, o, d, tmax, active, exclude)
 
 
 @pytest.mark.parametrize("walker, anyhit_walker", [
@@ -259,7 +313,7 @@ def test_walkers_run_through_their_kernels(cuda, walker, anyhit_walker):
     cfg = RenderConfig(width=32, height=32, num_samples=8, max_bounces=4,
                        num_working_paths=4096, walker=walker,
                        anyhit_walker=anyhit_walker)
-    counters = (P.LAUNCHES, WD.LAUNCHES, L.LAUNCHES)
+    counters = (P.LAUNCHES, WD.LAUNCHES, L.LAUNCHES, WD.LEADER_LAUNCHES)
     before = [dict(c) for c in counters]
     refs = dict(P.REF_CALLS), dict(WD.REF_CALLS)
     fb, stats = render_frame(scene, cam, cfg,
@@ -267,14 +321,12 @@ def test_walkers_run_through_their_kernels(cuda, walker, anyhit_walker):
     assert (P.REF_CALLS, WD.REF_CALLS) == refs
     its = stats["iterations"]
     ran = [{k: c[k] - b[k] for k in c} for c, b in zip(counters, before)]
+    none = {"closest": 0, "anyhit": 0}
     if walker == "packet":
-        assert ran == [{"closest": 0, "anyhit": 0},
-                       {"closest": its, "anyhit": its},
-                       {"closest": 0, "anyhit": 0}]
+        assert ran == [none, {"closest": its, "anyhit": its}, none, none]
     else:
-        assert ran == [{"closest": 0, "anyhit": its},
-                       {"closest": 0, "anyhit": 0},
-                       {"closest": its, "anyhit": 0}]
+        assert ran == [{"closest": 0, "anyhit": its}, none,
+                       {"closest": its, "anyhit": 0}, none]
     assert bool(torch.isfinite(fb).all()) and bool((fb >= 0).all())
 
 

@@ -105,7 +105,7 @@ def test_kernel_libraries_rebuild_when_the_shared_header_changes(
         tmp_path, monkeypatch):
     """Every kernel library includes wide_walk.cuh, the persist and
     two-level libraries also fetch_walk.cuh, the packet library
-    group_walk.cuh: a newer header makes them stale.  (A stand-in nvcc
+    group_walk.cuh and packet_walk.cuh: a newer header makes them stale.  (A stand-in nvcc
     writes the -o file.)"""
     from rtjax_torch.kernels import _build
     fake = tmp_path / "bin" / "nvcc"
@@ -121,16 +121,20 @@ def test_kernel_libraries_rebuild_when_the_shared_header_changes(
     group.write_text("// header\n")
     fetch = tmp_path / "fetch_walk.cuh"
     fetch.write_text("// header\n")
+    packet = tmp_path / "packet_walk.cuh"
+    packet.write_text("// header\n")
     monkeypatch.setattr(_build, "WALK_HEADER", header)
     monkeypatch.setattr(_build, "GROUP_HEADER", group)
     monkeypatch.setattr(_build, "FETCH_HEADER", fetch)
+    monkeypatch.setattr(_build, "PACKET_HEADER", packet)
     for build, h in ((_build.persist_library, header),
                      (_build.persist_library, fetch),
                      (_build.wide_inst_library, header),
                      (_build.wide_inst_library, fetch),
                      (_build.packet_library, header),
-                     (_build.packet_library, group)):
-        for f in (header, group, fetch):
+                     (_build.packet_library, group),
+                     (_build.packet_library, packet)):
+        for f in (header, group, fetch, packet):
             os.utime(f, (0, 0))
         lib = build()
         assert lib.read_text() == "built\n"

@@ -84,6 +84,48 @@ HAND_RAYS = [
 ]
 
 
+def chain_tables(width, levels, device="cpu"):
+    """A chain of ``levels`` wide nodes whose children are all internal:
+    child 0 of node i is node i + 1, the others (all children of the last)
+    a terminal node with one leaf of one triangle (z = 0.5, x and y in the
+    unit triangle).  Every box holds the scene, so a packet of rays down +z
+    that meet the triangle pushes ``width - 1`` child ids at every level:
+    ``levels * (width - 1)`` before its first pop, the full child-id stack
+    of tables of depth ``levels - 1``."""
+    end = levels
+    nb = np.full((levels + 1, 128), NAN, np.float32)
+    cm = np.zeros((levels + 1, width), np.int32)
+    info = np.zeros(levels + 1, np.int64)     # axis 0, no leaf children
+    box = [-1, -1, -1, 2, 2, 2]
+    for i in range(levels):
+        for c in range(width):
+            nb[i, 6 * c:6 * c + 6] = box
+            cm[i, c] = (i + 1 if c == 0 and i + 1 < levels else end) << 4
+    nb[end, :6] = box
+    cm[end, 0] = (0 << 4) | 1                 # leaf row 0, one triangle
+    info[end] = (1 << width) - 1              # empty slots are leaf-marked
+    lt = np.zeros((2, 128), np.float32)
+    lt[0, PID_BASE:PID_BASE + 8] = -1
+    lt[0, :12] = _tri((0, 0, 0.5), (1, 0, 0.5), (0, 1, 0.5))
+    lt[0, PID_BASE] = 7
+    return WideTables.from_arrays(
+        dict(node_bounds=nb, child_meta=cm, node_info=info.astype(np.int32),
+             leaf_tris=lt), width=width, depth=levels - 1, device=device)
+
+
+def chain_rays(n, device="cpu"):
+    """``(origin, direction, active, exclude)`` of ``n`` rays down +z from
+    z = -1 that meet :func:`chain_tables`' triangle, all active, no
+    exclusion."""
+    g = torch.Generator().manual_seed(4)
+    xy = torch.rand(2, n, generator=g) * 0.45 + 0.02
+    o = (xy[0].contiguous(), xy[1].contiguous(), torch.full((n,), -1.0))
+    d = (torch.zeros(n), torch.zeros(n), torch.ones(n))
+    return (tuple(c.to(device) for c in o), tuple(c.to(device) for c in d),
+            torch.ones(n, dtype=torch.bool, device=device),
+            torch.full((n,), -1, dtype=torch.int32, device=device))
+
+
 def _hand_rays(sel):
     xy = torch.tensor([HAND_RAYS[i][0] for i in sel], dtype=torch.float32)
     n = len(sel)
@@ -192,9 +234,13 @@ def test_counting_leaves_results_unchanged(width):
 
 
 @pytest.mark.parametrize("kind", ["closest", "anyhit"])
-def test_group_walk_of_one_ray_counts_the_persist_walk(kind):
+@pytest.mark.parametrize("decide_first", [True, False],
+                         ids=["packet", "leader"])
+def test_group_walk_of_one_ray_counts_the_persist_walk(kind, decide_first):
     """A group of one ray walks exactly the persist walk's order, so both
-    count the same work."""
+    count the same work, under either any-hit rule: a ray occluded at a
+    node may lead its group on (the packet rule), but a step with no live
+    ray counts nothing and reads no row."""
     tables = _soup(8)
     o, d, tmax, act, ex = _soup_rays(700, seed=5)
     wp, wg = P.new_work(), P.new_work()
@@ -203,11 +249,77 @@ def test_group_walk_of_one_ray_counts_the_persist_walk(kind):
         WD.group_traverse_closest_ref(tables, o, d, tmax, act, 1, work=wg)
     else:
         P.persist_traverse_anyhit_ref(tables, o, d, tmax, ex, act, work=wp)
-        WD.group_traverse_anyhit_ref(tables, o, d, tmax, ex, act, 1, work=wg)
+        WD.group_traverse_anyhit_ref(tables, o, d, tmax, ex, act, 1, work=wg,
+                                     decide_first=decide_first)
     for k in ("node_visits", "slab_tests", "leaf_rows", "tri_slots"):
         assert wp[k] == wg[k], k
     for k in ("node_seen", "leaf_seen"):
         assert torch.equal(wp[k], wg[k]), k
+
+
+@pytest.mark.parametrize("width", [8, 16], ids=["w8", "w16"])
+def test_any_hit_rules_agree_and_deciding_first_does_more(width):
+    """Deciding a packet's next node before its leaf tests changes no
+    occlusion, and visits at least the nodes the leader design visits."""
+    tables = _soup(width)
+    o, d, tmax, act, ex = _soup_rays(1500, seed=9)
+    counts = {}
+    occ = {}
+    for first in (True, False):
+        work = P.new_work()
+        occ[first] = WD.group_traverse_anyhit_ref(
+            tables, o, d, tmax, ex, act, 128, work=work, decide_first=first)
+        counts[first] = work
+    assert torch.equal(occ[True], occ[False]) and bool(occ[True].any())
+    assert torch.equal(occ[True], P.persist_traverse_anyhit_ref(
+        tables, o, d, tmax, ex, act))
+    for k in ("node_visits", "slab_tests"):
+        assert counts[True][k] >= counts[False][k] > 0, k
+
+
+def test_packet_stack_holds_a_full_chain(monkeypatch):
+    """A tree deeper than the persist stack (patched down to 8 entries): a
+    chain that fills the packet's child-id stack to its (depth + 1) *
+    (width - 1) entries; the packet wrapper on CPU tensors walks it with the
+    plain version and finds the persist walk's hits."""
+    monkeypatch.setattr(P, "STACK", 8)
+    tables = chain_tables(8, 12)
+    assert tables.depth + 1 > P.STACK
+    assert WD.packet_stack_len(tables) == 12 * 7
+    n = 2 * WD.PACKET + 9
+    o, d, act, ex = chain_rays(n)
+    tmax = torch.full((n,), float("inf"))
+    work = P.new_work()
+    hit, t, prim, _ = WD.group_traverse_closest_ref(tables, o, d, tmax, act,
+                                                    WD.PACKET, work=work)
+    assert work["stack_peak"] == WD.packet_stack_len(tables)
+    assert bool(hit.all()) and bool((prim == 7).all())
+    ph, pt, _, _ = P.persist_traverse_closest_ref(tables, o, d, tmax, act)
+    got = WD.wide_traverse_closest(tables, o, d, tmax, act)
+    assert torch.equal(got[0], ph) and torch.equal(got[1], pt)
+    assert torch.equal(got[1], t)
+    assert bool(WD.wide_traverse_anyhit(tables, o, d, tmax, ex, act).all())
+
+
+@pytest.mark.parametrize("width, depth, ok", [
+    (16, 18, True), (16, 840, True), (16, 841, False), (8, 1937, True),
+    (8, 1938, False)])
+def test_packet_block_fits_shared_memory(width, depth, ok):
+    """A packet-kernel block holds each packet's shared state (7,616 B at
+    width 16, 3,840 B at width 8, as ptxas counts it) and its child-id
+    stack; a depth whose block passes the card's opt-in limit is refused
+    before launch."""
+    tables = WideTables(*(torch.zeros(1) for _ in range(4)), width=width,
+                        depth=depth)
+    shared = {16: 7616, 8: 3840}[width]
+    assert WD.packet_smem_bytes(tables) == WD.PACKETS * (
+        shared + 4 * (depth + 1) * (width - 1))
+    if ok:
+        assert WD._stack_len("packet", tables) == WD.packet_stack_len(tables)
+    else:
+        with pytest.raises(ValueError, match="shared memory"):
+            WD._stack_len("packet", tables)
+    assert WD._stack_len("lane", tables) == depth + 1
 
 
 def test_two_level_counting_leaves_results_unchanged():
@@ -287,16 +399,27 @@ def _variants_tool():
     return mod
 
 
-@pytest.mark.parametrize("kernels", ["persist", "two-level"])
+@pytest.mark.parametrize("kernels", ["persist", "two-level", "packet"])
 def test_variant_patches_match_the_kernel_source(kernels):
     """Every variant of tools/persist_variants.py replaces text that occurs
-    once in the kernel source and the fetch header together, so a change
-    of either cannot leave a variant building the design unchanged."""
+    once in the kernel source and its walk header together, so a change of
+    either cannot leave a variant building the design unchanged; a packet
+    variant that changes the packet size names it."""
     tool = _variants_tool()
     src = tool.sources(kernels)
-    assert set(src) == {"fetch_walk.cuh", "persist_traverse.cu"
-                        if kernels == "persist" else "wide_inst_traverse.cu"}
-    table = tool.VARIANTS if kernels == "persist" else tool.INST_VARIANTS
+    assert set(src) == {
+        "persist": {"fetch_walk.cuh", "persist_traverse.cu"},
+        "two-level": {"fetch_walk.cuh", "wide_inst_traverse.cu"},
+        "packet": {"packet_walk.cuh", "packet_traverse.cu"}}[kernels]
+    table = {"persist": tool.VARIANTS, "two-level": tool.INST_VARIANTS,
+             "packet": tool.PACKET_VARIANTS}[kernels]
+    for name, edits in tool.PACKET_VARIANTS.items():
+        sizes = [new for old, new in edits
+                 if old == f"kPacket = {WD.PACKET};"]
+        assert [f"kPacket = {tool.PACKET_GROUPS[name]};"] == sizes \
+            if name in tool.PACKET_GROUPS else not sizes, name
+    assert f"kPacket = {WD.PACKET};" in src.get("packet_walk.cuh", "") \
+        or kernels != "packet"
     for name, edits in table.items():
         out = tool.patched(src, edits)
         assert (out == src) == (not edits), name

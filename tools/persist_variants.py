@@ -1,30 +1,35 @@
 #!/usr/bin/env python3
-"""The fetch kernels (persistent walkers, or the two-level kernels) against
-each part of their design undone, on one CUDA card.
+"""The redesigned kernels (persistent walkers, two-level or packet kernels)
+against each part of their design undone, on one CUDA card.
 
-    python3 tools/persist_variants.py [--kernels persist|two-level]
+    python3 tools/persist_variants.py [--kernels persist|two-level|packet]
                                       [--only NAME,NAME] [--config4]
                                       [--rounds R]
 
-Each variant is a copy of the kernel source (``csrc/persist_traverse.cu``
-or ``csrc/wide_inst_traverse.cu``) and of ``csrc/fetch_walk.cuh`` with a
-few lines replaced (``VARIANTS`` / ``INST_VARIANTS``: each replaced text
-must occur exactly once in the two files, or the tool stops), built into
+Each variant is a copy of the kernel source (``csrc/persist_traverse.cu``,
+``csrc/wide_inst_traverse.cu`` or ``csrc/packet_traverse.cu``) and of its
+walk header (``csrc/fetch_walk.cuh``, or ``csrc/packet_walk.cuh`` for the
+packet kernels) with a few lines replaced (``VARIANTS``, ``INST_VARIANTS``,
+``PACKET_VARIANTS``: each replaced text must occur exactly once in the two
+files, or the tool stops), built into
 ``build/rtjax_torch/variants/<kernels>_<variant>/``, all builds started
-together; ptxas's registers, stack frame and spills of its fetch kernels
-are printed.  Then, for the persist kernels, it renders one headline frame
+together; ptxas's registers, stack frame and spills of its kernels are
+printed.  Then, for the persist kernels, it renders one headline frame
 with the shipped kernels and keeps the rays of launch
 ``chip_smoke.CAPTURE_AT`` of each, and on those and on ``chip_smoke.py``'s
 phase-3 rays (2^18 closest-hit, 2^19 any-hit rays over the headline scene)
 -- with ``--config4`` also on its phase-5 rays over config 4's baked
 tables and its BLAS -- holds every variant bit for bit against the plain
-versions and times it; for the two-level kernels the same on
-``chip_smoke.py``'s phase-5 field rays over config 4, over
+versions and times it; the packet kernels the same, the frame rendered under
+``walker="packet"`` and each variant held against the plain group walk at
+its own packet size (``PACKET_GROUPS``); for the two-level kernels the same
+on ``chip_smoke.py``'s phase-5 field rays over config 4, over
 ``chip_smoke.MANY_INST`` instances, and on the rays of launch
 ``chip_smoke.C4_CAPTURE_AT`` of a config-4 ``two_level="kernel"`` frame.
 Times are device time per launch (``chip_smoke._launch_ms``: mean, least
-and most of ``chip_smoke.REPS`` launches), every variant and the stride
-design in turns, ``--rounds`` rounds.
+and most of ``chip_smoke.REPS`` launches), every variant and the first
+design (stride, or for the packet kernels the leader design) in turns,
+``--rounds`` rounds.
 """
 
 from __future__ import annotations
@@ -109,13 +114,74 @@ INST_VARIANTS = {
 }
 
 
+# the packet kernels: each part of their design undone
+_LEAF_ROW = "lt + (size_t)(sh.meta[buf][c] >> 4) * 128"
+PACKET_VARIANTS = {
+    "design": [],
+    "scalar loads from global memory": [(
+        "slab_hits_s<W>(sh.row[buf], sh.meta[buf], lm, r, tmax)",
+        "slab_hits<W>(nb + (size_t)cur * 128, cm + (size_t)cur * W, lm, r, "
+        "tmax)")],
+    "no next-node overlap": [(
+        "      if (leader) stage_node<W>(sh, buf ^ 1, nb, cm, next);\n",
+        "      if (leader) stage_node<W>(sh, buf ^ 1, nb, cm, next);\n"
+        "      mbar_wait(&sh.node_bar[buf ^ 1], (phase >> (buf ^ 1)) & 1u);\n")],
+    "unstaged leaves": [
+        ("      if (leader) stage_leaves<W>(sh, slots, sh.meta[buf], lt);\n"
+         "      mbar_wait(&sh.leaf_bar, (phase >> 2) & 1u);\n"
+         "      phase ^= 4u;\n", ""),
+        ("leaf_any_s(sh.leaf[c], count_c,",
+         f"leaf_any_v<4>({_LEAF_ROW}, count_c,"),
+        ("leaf_closest_s(sh.leaf[c], count_c,",
+         f"leaf_closest_v<4>({_LEAF_ROW}, count_c,")],
+    "two barriers": [("    int next_info = 0;\n",
+                      "    packet_sync(bar);\n    int next_info = 0;\n")],
+    # one-warp packets only: the warp's votes need no slots or barrier
+    "warp-synchronous step": [(
+        """    if (lane == 0) {
+      sh.inner[par][warp] = wi;
+      sh.leaves[par][warp] = wl;
+    }
+    packet_sync(bar);
+    unsigned u = 0u, slots = 0u;
+#pragma unroll
+    for (int j = 0; j < kPacketWarps; ++j) {
+      u |= sh.inner[par][j];
+      slots |= sh.leaves[par][j];
+    }
+""", """    __syncwarp();
+    unsigned u = wi, slots = wl;
+""")],
+    "pop through the parent's meta": [
+        ("        stack[k] = sh.meta[buf][c] >> 4;",
+         "        stack[k] = (cur << 4) | c;"),
+        ("      next = stack[--sp];",
+         "      const int e = stack[--sp];\n"
+         "      next = __ldg(cm + (size_t)(e >> 4) * W + (e & 15)) >> 4;")],
+    "packet 32 x1 a block": [("kPackets = 4;", "kPackets = 1;")],
+    "packet 32 x2 a block": [("kPackets = 4;", "kPackets = 2;")],
+    "packet 64 x2 a block": [("kPacket = 32;", "kPacket = 64;"),
+                             ("kPackets = 4;", "kPackets = 2;")],
+    "packet 64 x4 a block": [("kPacket = 32;", "kPacket = 64;")],
+    "packet 128": [("kPacket = 32;", "kPacket = 128;"),
+                   ("kPackets = 4;", "kPackets = 1;")],
+    "packet 256": [("kPacket = 32;", "kPacket = 256;"),
+                   ("kPackets = 4;", "kPackets = 1;")],
+}
+# rays per packet of each packet variant that changes it
+PACKET_GROUPS = {"packet 64 x2 a block": 64, "packet 64 x4 a block": 64,
+                 "packet 128": 128, "packet 256": 256}
+
+
 def sources(kernels: str) -> dict:
-    """``{file name: text}`` of the kernel source and the fetch header a
-    variant of ``kernels`` ("persist" or "two-level") patches."""
+    """``{file name: text}`` of the kernel source and the walk header a
+    variant of ``kernels`` ("persist", "two-level" or "packet") patches."""
     from rtjax_torch.kernels import _build
-    src = _build.PERSIST_SOURCE if kernels == "persist" \
-        else _build.WIDE_INST_SOURCE
-    return {p.name: p.read_text() for p in (src, _build.FETCH_HEADER)}
+    src, header = {
+        "persist": (_build.PERSIST_SOURCE, _build.FETCH_HEADER),
+        "two-level": (_build.WIDE_INST_SOURCE, _build.FETCH_HEADER),
+        "packet": (_build.PACKET_SOURCE, _build.PACKET_HEADER)}[kernels]
+    return {p.name: p.read_text() for p in (src, header)}
 
 
 def patched(files: dict, edits) -> dict:
@@ -229,6 +295,56 @@ def _inst_calls(cs, torch, args):
         anyhit_stride=WI.wide_traverse_anyhit_inst_stride)
 
 
+def _packet_calls(cs, torch, args):
+    """The same for the packet kernels: phase 3's rays, the rays of launch
+    ``chip_smoke.CAPTURE_AT`` of a ``walker="packet"`` headline frame, and
+    with ``--config4`` config 4's baked tables and BLAS."""
+    import dataclasses
+
+    from rtjax_torch import RenderConfig
+    from rtjax_torch.kernels import wide as WD
+    from rtjax_torch.render.wavefront import render_frame
+    scene, camera = cs.phase2_scene()
+    gen = torch.Generator(device="cuda").manual_seed(1234)
+    sets = {"phase 3": cs._test_rays(scene, camera, gen)}
+    captured, restore = cs._capture_launch(cs.CAPTURE_AT, cs.PACKET_NAMES)
+    cfg = RenderConfig(width=cs.WIDTH, height=cs.HEIGHT,
+                       num_samples=cs.SPP, max_bounces=cs.BOUNCES)
+    render_frame(scene, camera, dataclasses.replace(cfg, **cs.WALKERS[
+        "packet"]), torch.Generator(device="cuda").manual_seed(2))
+    restore()
+    sets["in-frame"] = (captured["closest"][1], captured["anyhit"][1])
+    tables = dict.fromkeys(sets, scene.tables)
+    if args.config4:
+        c4, baked, c4_camera = cs.phase5_scene()
+        gen = torch.Generator(device="cuda").manual_seed(5678)
+        sets["config4 baked"] = cs._field_rays(baked, c4_camera, gen)
+        tables["config4 baked"] = baked.tables
+        cl, ah = cs._field_rays(c4, c4_camera, gen)
+        sets["config4 blas"] = (cs._instance_frame(c4.instances, cl),
+                                cs._instance_frame(c4.instances, ah))
+        tables["config4 blas"] = c4.blas[0].tables
+    calls = {}
+    for label, (cl, ah) in sets.items():
+        tab = tables[label]
+        calls[label] = ((tab, cl["o"], cl["d"], cl["tmax"], cl["active"]),
+                        (tab, ah["o"], ah["d"], ah["tmax"], ah["exclude"],
+                         ah["active"]))
+
+    def closest_ref(*a):
+        return WD.group_traverse_closest_ref(*a, WD.PACKET)
+
+    def anyhit_ref(*a):
+        return WD.group_traverse_anyhit_ref(*a, WD.PACKET)
+
+    return calls, dict(
+        module=WD, closest=WD.wide_traverse_closest,
+        anyhit=WD.wide_traverse_anyhit, closest_ref=closest_ref,
+        anyhit_ref=anyhit_ref,
+        closest_stride=WD.wide_traverse_closest_leader,
+        anyhit_stride=WD.wide_traverse_anyhit_leader)
+
+
 def _flat(out):
     """A closest-hit result as a flat tuple of tensors."""
     return tuple(c for o in out for c in (o if isinstance(o, tuple)
@@ -237,22 +353,24 @@ def _flat(out):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--kernels", choices=("persist", "two-level"),
+    ap.add_argument("--kernels", choices=("persist", "two-level", "packet"),
                     default="persist")
     ap.add_argument("--only", default="",
                     help="comma-separated variant names (default: all)")
     ap.add_argument("--config4", action="store_true",
-                    help="persist: also time config 4's baked tables and "
-                         "BLAS")
+                    help="persist and packet: also time config 4's baked "
+                         "tables and BLAS")
     ap.add_argument("--rounds", type=int, default=2)
     args = ap.parse_args()
-    table = VARIANTS if args.kernels == "persist" else INST_VARIANTS
+    table = {"persist": VARIANTS, "two-level": INST_VARIANTS,
+             "packet": PACKET_VARIANTS}[args.kernels]
     names = [v for v in args.only.split(",") if v] or list(table)
 
     import torch
 
     import chip_smoke as cs
     from rtjax_torch.kernels import _build
+    from rtjax_torch.kernels import wide as WD
 
     card = cs.phase0_device()
     with ThreadPoolExecutor(len(names)) as pool:
@@ -260,22 +378,36 @@ def main():
             lambda n: build(args.kernels, n, table[n]), names)))
     for name, lib in libs.items():
         for kernel, res in _build.ptxas_report(lib):
-            if "fetch" in kernel:
-                print(f"[ptxas {name}] {cs._kernel_label(kernel)}: {res}")
+            label = cs._group_label(kernel) if args.kernels == "packet" \
+                else cs._kernel_label(kernel)
+            if "fetch" in kernel or label.startswith("packet "):
+                print(f"[ptxas {name}] {label}: {res}")
 
-    calls, k = (_persist_calls if args.kernels == "persist"
-                else _inst_calls)(cs, torch, args)
-    wants = {label: (_flat(k["closest_ref"](*c)), k["anyhit_ref"](*a))
-             for label, (c, a) in calls.items()}
+    calls, k = {"persist": _persist_calls, "two-level": _inst_calls,
+                "packet": _packet_calls}[args.kernels](cs, torch, args)
     mod = k["module"]
+    shipped = WD.PACKET
+
+    def use(name):
+        """Load variant ``name``'s library (and, for the packet kernels,
+        its packet size): the wrappers then launch it."""
+        mod._lib = bound[name]
+        if args.kernels == "packet":
+            WD.PACKET = PACKET_GROUPS.get(name, shipped)
+
+    wants = {}
     bound = {n: mod.bind(ctypes.CDLL(str(lib))) for n, lib in libs.items()}
-    for name, lib in bound.items():
-        mod._lib = lib
+    for name in bound:
+        use(name)
         for label, (cargs, aargs) in calls.items():
+            key = label, WD.PACKET
+            if key not in wants:
+                wants[key] = (_flat(k["closest_ref"](*cargs)),
+                              k["anyhit_ref"](*aargs))
             got = _flat(k["closest"](*cargs))
             occ = k["anyhit"](*aargs)
             torch.cuda.synchronize()
-            want_c, want_a = wants[label]
+            want_c, want_a = wants[key]
             if not all(torch.equal(a, b) for a, b in zip(got, want_c)) \
                     or not torch.equal(occ, want_a):
                 raise RuntimeError(f"{name} disagrees with the plain "
@@ -283,21 +415,23 @@ def main():
     print(f"[variants {args.kernels}] every variant bit-identical to the "
           f"plain versions on {', '.join(calls)}")
 
-    rows = [*bound, "stride design"]
+    first = "leader design" if args.kernels == "packet" else "stride design"
+    rows = [*bound, first]
     times = {(n, label, kind): [] for n in rows for label in calls
              for kind in ("closest", "anyhit")}
     for _ in range(args.rounds):
         for name in rows:
-            stride = name == "stride design"
-            if not stride:
-                mod._lib = bound[name]
-            closest = k["closest_stride" if stride else "closest"]
-            anyhit = k["anyhit_stride" if stride else "anyhit"]
+            old = name == first
+            if not old:
+                use(name)
+            closest = k["closest_stride" if old else "closest"]
+            anyhit = k["anyhit_stride" if old else "anyhit"]
             for label, (cargs, aargs) in calls.items():
                 times[name, label, "closest"].append(
                     cs._launch_ms(lambda: closest(*cargs)))
                 times[name, label, "anyhit"].append(
                     cs._launch_ms(lambda: anyhit(*aargs)))
+    WD.PACKET = shipped
     for name in rows:
         print(f"[variants {args.kernels}] {card}: {name}: " + "; ".join(
             f"{label} {kind} " + " / ".join(
