@@ -14,9 +14,9 @@ the script exits non-zero):
 1. build: the BVH builder and the three kernel libraries from this
    checkout's sources, into build/rtjax_torch/, all four compilers
    started together; ptxas's registers, stack frame and spills of the
-   persist, two-level and packet kernels (both designs, widths 8 and 16,
-   the two-level fetch kernels with the instance records staged or
-   global) and of the lane kernels;
+   persist, two-level, packet and lane kernels (both designs, widths 8
+   and 16, the two-level fetch kernels with the instance records staged
+   or global);
 2. scene: the bunny Cornell box (69,463 triangles) on the card;
 3. kernels: each persistent-walker kernel, in the fetch design that the
    engine runs and in the first (stride) design, against its plain PyTorch
@@ -32,10 +32,11 @@ the script exits non-zero):
    occlusion equal to the persist kernels' (the equal-t ties, where the
    two walks may keep another prim, are counted), device and call times,
    one timed plain call, and the persist walk's bound on the same rays;
-   the packet kernels' first (leader) design held to the persist
-   kernels' hits and occlusion and timed in turns with the packet design
-   (leader, packet, packet, leader), and the plain group walk's own work
-   count and bound beside the persist walk's;
+   each one's first design (the packet kernels' leader design, the lane
+   kernels' group design) held to the persist kernels' hits and
+   occlusion and timed in turns with the new design (first, new, new,
+   first), and the plain group walk's own work count and bound beside the
+   persist walk's;
 4. main path: render_frame of the headline frame (256x256 at 64 spp, 10
    bounces, default RenderConfig): one warm-up and two timed runs; both
    kernels must have launched, and no plain version and no stride-design
@@ -52,8 +53,9 @@ the script exits non-zero):
    closest-hit and any-hit kernels and no other, no plain version, each
    image at the noise-floor gate and within 0.1x the seed-to-seed MSE of
    the persist image of its seed.  The seed-2 packet frame keeps the rays
-   of launch 38 of each packet kernel, and phase 3's packet check, A/B and
-   bounds run again on them;
+   of launch 38 of each packet kernel, the seed-2 lane frame those of
+   launch 38 of its lane closest-hit and persist any-hit kernels, and
+   phase 3's packet and lane checks, A/Bs and bounds run again on them;
 5. two-level kernels: eval config 4 (16 instanced bunnies, 1.11M effective
    triangles) built on the card; each two-level kernel, in the fetch
    design that the engine runs and in the first (stride) design, against
@@ -87,12 +89,16 @@ the script exits non-zero):
    0.1x and MSE((a), (c)) <= 2x the seed-to-seed MSE of (a) (plus the
    quantisation term for (c)).  Images go to build/rtjax_torch/;
 7. the two persist kernels' device time over one whole headline frame,
-   the two packet kernels' over one walker="packet" headline frame, then
-   the two two-level kernels' over one config-4 two_level="kernel" frame
+   the two packet kernels' over one walker="packet" headline frame, the
+   lane closest-hit kernel's over one walker="lane" headline frame (its
+   any hit the persist kernel's), then the two two-level kernels' over
+   one config-4 two_level="kernel" frame
    (torch.profiler; every launch of the frame must be recorded, or the
    frame is profiled again, once) under each design, first design, new,
    new, first (render/trace.py's names rebound to the first design for its
    frames).
+
+A ``[time]`` line after each phase gives the seconds since the start.
 
 A kernel's bound is the least time the card could take for its work:
 the larger of the bytes it must move (every ray's active flag and results,
@@ -102,8 +108,9 @@ and the real triangles and prim ids of every leaf row it tested, each
 once; ``persist.work_table_bytes``) over 3.35 TB/s and its float operations (the plain walk's counted slab and
 triangle tests, OPS_* each) over 67 TFLOP/s.  Rows 1-4 and 7-8 take the
 persist walk's count on their rays, rows 5-6 the two-level walk's; rows
-3-4 also carry the share of the group walk's own bound (``group_share``),
-which counts the nodes and leaves every ray of a packet pays for.
+3-4 and 7-8 also carry the share of the group walk's own bound
+(``group_share``), which counts the nodes and leaves every ray of a group
+pays for.
 
 The last two lines of standard output are a JSON object with per-kernel
 numbers and then ``{"ok": true, "device": {...}}``.  ``ms`` is a kernel's
@@ -114,11 +121,11 @@ kernel's count in its main-path run: phase 4's three frames for the
 persist kernels, its packet and lane frames (seed 2) for those kernels,
 6(b) for the two-level ones.  lane_traverse_anyhit is on no engine path
 (rtjax's ``anyhit_walker`` takes "persist" or "packet" only), so its count
-is 0.  The persist, packet and two-level rows also carry ``ab``: both
-designs on each ray set (persist and packet: phase 3, the in-frame launch,
-config 4's baked tables and BLAS; two-level: config 4's field rays,
-MANY_INST instances, 6(b)'s in-frame launch), and ``frame_ms``: the two
-kernels' device time over a whole frame under each.
+is 0.  Every row also carries ``ab``: both designs on each ray set
+(persist, packet and lane: phase 3, the in-frame launch, config 4's baked
+tables and BLAS; two-level: config 4's field rays, MANY_INST instances,
+6(b)'s in-frame launch), and all but lane any hit ``frame_ms``: the
+kernel's device time over a whole frame under each design.
 """
 
 from __future__ import annotations
@@ -194,7 +201,8 @@ GROUP_KERNELS = {
 }
 SOURCE = "rtjax_torch/csrc/persist_traverse.cu"
 INST_SOURCE = "rtjax_torch/csrc/wide_inst_traverse.cu"
-GROUP_SOURCE = "rtjax_torch/csrc/packet_traverse.cu"
+GROUP_SOURCES = {"packet": "rtjax_torch/csrc/packet_traverse.cu",
+                 "lane": "rtjax_torch/csrc/lane_walk.cuh"}
 # walker settings of the headline frames of phase 4
 WALKERS = {"persist": dict(walker="persist", anyhit_walker="persist"),
            "packet": dict(walker="packet", anyhit_walker="packet"),
@@ -389,13 +397,13 @@ def _work_text(work, b):
             f"{PEAK_FLOPS / 1e12} TFLOP/s)")
 
 
-def _test_rays(scene, camera, gen):
-    """2^18 closest-hit rays (half headline camera rays, half random rays
-    inside the box) and 2^19 shadow-like rays with random ``exclude``."""
+def _test_rays(scene, camera, gen, n=1 << 18):
+    """``n`` closest-hit rays (half headline camera rays, half random rays
+    inside the box) and ``2 n`` shadow-like rays with random ``exclude``,
+    on ``gen``'s device."""
     import torch
     from rtjax_torch.core import vec
-    dev = torch.device("cuda")
-    n = 1 << 18
+    dev = gen.device
     half = n // 2
     rnd = lambda *s: torch.rand(*s, generator=gen, device=dev)
     pix = torch.arange(half, device=dev) % (WIDTH * HEIGHT)
@@ -533,32 +541,40 @@ def _ab_text(r):
             f"{100 * r['stride_share']:.2f}%")
 
 
+# each group walk's (group size, new design's wrappers, first design's
+# wrappers, the two designs' names); both new designs decide first
+def _group_walks():
+    from rtjax_torch.kernels import lane as L
+    from rtjax_torch.kernels import wide as WD
+    return {"packet": (WD.PACKET, WD.wide_traverse_closest,
+                       WD.wide_traverse_anyhit,
+                       WD.wide_traverse_closest_leader,
+                       WD.wide_traverse_anyhit_leader, ("packet", "leader")),
+            "lane": (L.LANE, L.lane_traverse_closest,
+                     L.lane_traverse_anyhit, L.lane_traverse_closest_group,
+                     L.lane_traverse_anyhit_group, ("lane", "lane_group"))}
+
+
 def _check_group(label, tab, cl, ah, card, bounds, walks=("packet", "lane")):
-    """Hold the packet kernels (both designs) and the lane kernels against
-    the plain group walk at their group sizes on ``tab`` with the
-    closest-hit rays ``cl`` and the any-hit rays ``ah``: zero hit, t, prim,
-    normal and occlusion mismatches and correct dead lanes, or raise; hits,
-    t and occlusion must also equal the persist kernels' (the prim may
-    differ at equal-t ties, which are counted).  The packet design is held
-    bit for bit against the plain walk at PACKET (its work counted), the
-    leader design against the persist kernels; the two are timed in turns
-    (leader, packet, packet, leader) and each gets its share of the persist
-    walk's bound (``bounds``, by kind, from :func:`_bound`) and of the group
-    walk's own.  ``walks`` picks "packet" and / or "lane".  Returns
+    """Hold the packet and lane kernels, each in its new design and its
+    first design, against the plain group walk at their group sizes on
+    ``tab`` with the closest-hit rays ``cl`` and the any-hit rays ``ah``:
+    the new design bit for bit (zero hit, t, prim, normal and occlusion
+    mismatches, correct dead lanes) and with hits, t and occlusion equal to
+    the persist kernels' (the prim may differ at equal-t ties, which are
+    counted); the first design (the packet kernels' leader design, the lane
+    kernels' group design) against the persist kernels' hits, t and
+    occlusion; or raise.  The two designs are timed in turns (first, new,
+    new, first) and each gets its share of the persist walk's bound
+    (``bounds``, by kind, from :func:`_bound`) and of the group walk's own
+    (its work counted).  ``walks`` picks "packet" and / or "lane".  Returns
     ``{(walk, kind): {...}}``: max |t diff| or the occlusion mismatches,
-    device ms (:func:`_device_ms`), one call in CUDA events (median of
-    REPS), one timed plain call, and for the packet kernels the A/B record
+    device ms (the mean of the A/B's new-design times), one call in CUDA
+    events (median of REPS), one timed plain call, and the A/B record
     (:func:`_group_ab`)."""
     import torch
-    from rtjax_torch.kernels import lane as L
     from rtjax_torch.kernels import persist as P
     from rtjax_torch.kernels import wide as WD
-    kernels = {"packet": (WD.PACKET, True, WD.wide_traverse_closest,
-                          WD.wide_traverse_anyhit),
-               "lane": (L.LANE, False, L.lane_traverse_closest,
-                        L.lane_traverse_anyhit)}
-    leader = {"closest": WD.wide_traverse_closest_leader,
-              "anyhit": WD.wide_traverse_anyhit_leader}
     cargs = (tab, cl["o"], cl["d"], cl["tmax"], cl["active"])
     aargs = (tab, ah["o"], ah["d"], ah["tmax"], ah["exclude"], ah["active"])
     ph, pt, pp, _ = P.persist_traverse_closest(*cargs)
@@ -566,9 +582,9 @@ def _check_group(label, tab, cl, ah, card, bounds, walks=("packet", "lane")):
     dead = ~cl["active"]
     out = {}
     for walk in walks:
-        group, first, closest, anyhit = kernels[walk]
-        work = {"closest": P.new_work(), "anyhit": P.new_work()} \
-            if walk == "packet" else {"closest": None, "anyhit": None}
+        group, closest, anyhit, old_closest, old_anyhit, names = \
+            _group_walks()[walk]
+        work = {"closest": P.new_work(), "anyhit": P.new_work()}
         hk, tk, pk, nk = closest(*cargs)
         (hp, tp, pp_, np_), plain_ms = _timed_ms(
             lambda: WD.group_traverse_closest_ref(*cargs, group,
@@ -585,35 +601,30 @@ def _check_group(label, tab, cl, ah, card, bounds, walks=("packet", "lane")):
                       "ties": int(((tk == pt) & (pk != pp))[both].sum())}
         err = float((tk[hk] - tp[hk]).abs().max()) if bool(hk.any()) \
             else 0.0
+        oh, ot, op_, _ = old_closest(*cargs)
+        old = {"hit": int((oh != ph).sum()),
+               "t": int((ot[both] != pt[both]).sum()),
+               "ties": int(((ot == pt) & (op_ != pp))[both].sum())}
         r = {"err": err, "plain_ms": plain_ms,
-             "ms": _device_ms(lambda: closest(*cargs)),
              "call_ms": _median_ms(lambda: closest(*cargs))}
-        text, old_bad = "", False
-        if walk == "packet":
-            lh, lt_, lp, _ = leader["closest"](*cargs)
-            lead = {"hit": int((lh != ph).sum()),
-                    "t": int((lt_[both] != pt[both]).sum()),
-                    "ties": int(((lt_ == pt) & (lp != pp))[both].sum())}
-            old_bad = bool(lead["hit"] or lead["t"])
-            r.update(_group_ab(lambda: closest(*cargs),
-                               lambda: leader["closest"](*cargs),
-                               bounds["closest"], work["closest"], cl, tab,
-                               CLOSEST_OUT, RAY_IN))
-            text = (f"; leader design vs the persist kernel {lead}; "
-                    + _group_ab_text(r) + "; group walk "
-                    + _work_text(work["closest"], r["group_bound"]))
+        r.update(_group_ab(lambda: closest(*cargs),
+                           lambda: old_closest(*cargs), bounds["closest"],
+                           work["closest"], cl, tab, CLOSEST_OUT, RAY_IN,
+                           names))
         print(f"[{label} {walk} closest] {card}: group {group}, "
               f"{cl['tmax'].numel()} rays ({int(cl['active'].sum())} active) "
               f"over {tab.width}-wide tables, {int(hk.sum())} hits, "
               f"mismatches vs plain {mis}, dead lanes ok {dead_ok}; vs the "
               f"persist kernel: hit mismatches {vs_persist['hit']}, t "
               f"mismatches {vs_persist['t']}, equal-t ties with another "
-              f"prim {vs_persist['ties']}; kernel {r['ms']:.4f} ms "
-              f"device time (mean of {REPS} queued launches), one call "
-              f"{r['call_ms']:.4f} ms (CUDA events, median of {REPS}), plain "
-              f"{plain_ms:.3f} ms (one call)" + text)
+              f"prim {vs_persist['ties']}; one call {r['call_ms']:.4f} ms "
+              f"(CUDA events, median of {REPS}), plain {plain_ms:.3f} ms "
+              f"(one call); {names[1]} design vs the persist kernel {old}; "
+              + _group_ab_text(r) + "; group walk "
+              + _work_text(work["closest"], r["group_bound"]))
         if any(mis.values()) or not dead_ok or vs_persist["hit"] \
-                or vs_persist["t"] or old_bad or int(hk.sum()) == 0:
+                or vs_persist["t"] or old["hit"] or old["t"] \
+                or int(hk.sum()) == 0:
             raise RuntimeError(f"{label}: {walk} closest-hit kernel "
                                "disagrees with its plain version or the "
                                "persist kernel's hits")
@@ -621,33 +632,27 @@ def _check_group(label, tab, cl, ah, card, bounds, walks=("packet", "lane")):
 
         ok_ = anyhit(*aargs)
         op, plain_ms = _timed_ms(lambda: WD.group_traverse_anyhit_ref(
-            *aargs, group, work=work["anyhit"], decide_first=first))
+            *aargs, group, work=work["anyhit"]))
         occ_mis = int((ok_ != op).sum())
         persist_mis = int((ok_ != pocc).sum())
         dead_ok = bool((~ok_[~ah["active"]]).all())
+        old = int((old_anyhit(*aargs) != pocc).sum())
         r = {"err": float(occ_mis), "plain_ms": plain_ms,
-             "ms": _device_ms(lambda: anyhit(*aargs)),
              "call_ms": _median_ms(lambda: anyhit(*aargs))}
-        text, old_bad = "", False
-        if walk == "packet":
-            lead = int((leader["anyhit"](*aargs) != pocc).sum())
-            old_bad = lead != 0
-            r.update(_group_ab(lambda: anyhit(*aargs),
-                               lambda: leader["anyhit"](*aargs),
-                               bounds["anyhit"], work["anyhit"], ah, tab, 1,
-                               RAY_IN + EXCLUDE))
-            text = (f"; leader design occlusion mismatches vs the persist "
-                    f"kernel {lead}; " + _group_ab_text(r) + "; group walk "
-                    + _work_text(work["anyhit"], r["group_bound"]))
+        r.update(_group_ab(lambda: anyhit(*aargs),
+                           lambda: old_anyhit(*aargs), bounds["anyhit"],
+                           work["anyhit"], ah, tab, 1, RAY_IN + EXCLUDE,
+                           names))
         print(f"[{label} {walk} anyhit] {card}: group {group}, "
               f"{ah['tmax'].numel()} rays ({int(ah['active'].sum())} active),"
               f" {int(ok_.sum())} occluded, occlusion mismatches {occ_mis} "
               f"vs plain and {persist_mis} vs the persist kernel, dead "
-              f"lanes ok {dead_ok}; kernel {r['ms']:.4f} ms device time"
-              f" (mean of {REPS} queued launches), one call "
-              f"{r['call_ms']:.4f} ms (CUDA events, median of {REPS}), plain "
-              f"{plain_ms:.3f} ms (one call)" + text)
-        if occ_mis or persist_mis or not dead_ok or old_bad \
+              f"lanes ok {dead_ok}; one call {r['call_ms']:.4f} ms (CUDA "
+              f"events, median of {REPS}), plain {plain_ms:.3f} ms (one "
+              f"call); {names[1]} design occlusion mismatches vs the persist "
+              f"kernel {old}; " + _group_ab_text(r) + "; group walk "
+              + _work_text(work["anyhit"], r["group_bound"]))
+        if occ_mis or persist_mis or not dead_ok or old \
                 or int(ok_.sum()) == 0:
             raise RuntimeError(f"{label}: {walk} any-hit kernel disagrees "
                                "with its plain version or the persist "
@@ -656,44 +661,50 @@ def _check_group(label, tab, cl, ah, card, bounds, walks=("packet", "lane")):
     return out
 
 
-def _group_ab(new, old, b, work, rays, tab, out_bytes, in_bytes):
-    """The packet design (``new``) against the leader design (``old``) in
+def _group_ab(new, old, b, work, rays, tab, out_bytes, in_bytes, names):
+    """The new design (``new``) against the first design (``old``) in
     turns (:func:`_ab_ms`), with the share of the persist walk's bound
-    ``b`` and of the group walk's own (from its ``work`` on ``rays``)."""
+    ``b`` and of the group walk's own (from its ``work`` on ``rays``);
+    ``names``: the two designs' names ("packet", "leader" or "lane",
+    "lane_group"), which key their times."""
     n_new, n_old = _ab_ms(new, old)
     n, n_act = rays["tmax"].numel(), int(rays["active"].sum())
     g = _bound(work, n, n_act, in_bytes, out_bytes, tab)
-    ms, leader_ms = statistics.mean(n_new), statistics.mean(n_old)
-    return dict(packet_device_ms=n_new, leader_device_ms=n_old, ms=ms,
-                leader_ms=leader_ms, speedup=leader_ms / ms,
-                bound_us=b["bound_us"], bound_by=b["bound_by"],
-                share=b["bound_ms"] / ms, leader_share=b["bound_ms"]
-                / leader_ms, group_bound_us=g["bound_us"],
-                group_share=g["bound_ms"] / ms, group_bound=g,
-                group_work={k: work[k] for k in ("node_visits", "slab_tests",
-                                                 "leaf_rows", "tri_slots")})
+    ms, old_ms = statistics.mean(n_new), statistics.mean(n_old)
+    new_name, old_name = names
+    return {"names": names, f"{new_name}_device_ms": n_new,
+            f"{old_name}_device_ms": n_old, "ms": ms, f"{old_name}_ms": old_ms,
+            "speedup": old_ms / ms, "bound_us": b["bound_us"],
+            "bound_by": b["bound_by"], "share": b["bound_ms"] / ms,
+            f"{old_name}_share": b["bound_ms"] / old_ms,
+            "group_bound_us": g["bound_us"], "group_bound_by": g["bound_by"],
+            "group_share": g["bound_ms"] / ms, "group_bound": g,
+            "group_work": {k: work[k] for k in ("node_visits", "slab_tests",
+                                                "leaf_rows", "tri_slots")}}
 
 
 def _group_ab_text(r):
-    return (f"device time (mean of {REPS} queued launches, in turns leader, "
-            f"packet, packet, leader): packet "
-            f"{r['packet_device_ms'][0]:.4f} / {r['packet_device_ms'][1]:.4f}"
-            f" ms, leader {r['leader_device_ms'][0]:.4f} / "
-            f"{r['leader_device_ms'][1]:.4f} ms, packet {r['speedup']:.2f}x "
+    new, old = r["names"]
+    return (f"device time (mean of {REPS} queued launches, in turns {old}, "
+            f"{new}, {new}, {old}): {new} "
+            f"{r[f'{new}_device_ms'][0]:.4f} / {r[f'{new}_device_ms'][1]:.4f}"
+            f" ms, {old} {r[f'{old}_device_ms'][0]:.4f} / "
+            f"{r[f'{old}_device_ms'][1]:.4f} ms, {new} {r['speedup']:.2f}x "
             f"faster; share of the persist walk's bound ({r['bound_us']:.3f}"
-            f" us): packet {100 * r['share']:.2f}%, leader "
-            f"{100 * r['leader_share']:.2f}%; of the group walk's "
-            f"({r['group_bound_us']:.3f} us): packet "
+            f" us): {new} {100 * r['share']:.2f}%, {old} "
+            f"{100 * r[f'{old}_share']:.2f}%; of the group walk's "
+            f"({r['group_bound_us']:.3f} us by {r['group_bound_by']}): {new} "
             f"{100 * r['group_share']:.2f}%")
 
 
 def _group_ab_record(r):
-    """The packet kernels' A/B and bounds of one ray set, for the kernels
+    """A group walk's A/B and bounds of one ray set, for the kernels
     line."""
-    return {k: r[k] for k in ("packet_device_ms", "leader_device_ms",
+    new, old = r["names"]
+    return {k: r[k] for k in (f"{new}_device_ms", f"{old}_device_ms",
                               "speedup", "call_ms", "bound_us", "bound_by",
-                              "share", "leader_share", "group_bound_us",
-                              "group_share", "group_work")}
+                              "share", f"{old}_share", "group_bound_us",
+                              "group_bound_by", "group_share", "group_work")}
 
 
 _BOUND_KEYS = ("bound_ms", "bound_us", "bound_by")
@@ -721,17 +732,16 @@ def phase3_kernels(scene, camera, card):
     for (walk, kind), r in _check_group("kernel", scene.tables, cl, ah, card,
                                         out).items():
         b = out[kind]
-        row = dict(GROUP_KERNELS[walk, kind], route="cuda",
-                   source=GROUP_SOURCE, max_abs_err=r["err"], ms=r["ms"],
-                   call_ms=r["call_ms"], plain_ms=r["plain_ms"],
-                   library_ms=None, **{k: b[k] for k in _BOUND_KEYS},
-                   share=b["bound_ms"] / r["ms"], timed_launches=REPS)
-        if walk == "packet":
-            row.update(leader_ms=r["leader_ms"], timed_launches=2 * REPS,
-                       group_bound_us=r["group_bound_us"],
-                       group_share=r["group_share"],
-                       ab={"phase3": _group_ab_record(r)})
-        group[walk, kind] = row
+        old = r["names"][1]
+        group[walk, kind] = dict(
+            GROUP_KERNELS[walk, kind], route="cuda", source=GROUP_SOURCES[walk],
+            max_abs_err=r["err"], ms=r["ms"], call_ms=r["call_ms"],
+            plain_ms=r["plain_ms"], library_ms=None,
+            **{k: b[k] for k in _BOUND_KEYS}, share=b["bound_ms"] / r["ms"],
+            timed_launches=2 * REPS, **{f"{old}_ms": r[f"{old}_ms"]},
+            group_bound_us=r["group_bound_us"],
+            group_bound_by=r["group_bound_by"], group_share=r["group_share"],
+            ab={"phase3": _group_ab_record(r)})
     return persist, group
 
 
@@ -820,6 +830,12 @@ PACKET_NAMES = {"closest": "wide_traverse_closest",
                 "anyhit": "wide_traverse_anyhit"}
 INST_NAMES = {"closest": "wide_traverse_closest_inst",
               "anyhit": "wide_traverse_anyhit_inst"}
+# a walker="lane" frame traces closest hit with the lane kernels and any
+# hit with the persist kernels (anyhit_walker takes persist or packet)
+LANE_NAMES = {"closest": "lane_traverse_closest",
+              "anyhit": "persist_traverse_anyhit"}
+WALKER_NAMES = {"persist": PERSIST_NAMES, "packet": PACKET_NAMES,
+                "lane": LANE_NAMES}
 
 
 def _capture_launch(at, names=PERSIST_NAMES):
@@ -871,8 +887,8 @@ def _persist_kind(key):
 
 def _packet_kind(key):
     """"closest" / "anyhit" for a profiler key of a packet kernel (either
-    design; the lane kernels run the leader design at 32 rays), else
-    None."""
+    design; the lane kernels' group design runs the leader design's walk at
+    32 rays), else None."""
     import re
     m = re.search(r"(packet|group)_(closest|anyhit)_kernel"
                   r"(?:<\d+(?:, (\d+))?>|ILi\d+E(?:Li(\d+)E)?)", key)
@@ -881,18 +897,32 @@ def _packet_kind(key):
     return m[2]
 
 
+def _lane_kind(key):
+    """"closest" for a profiler key of a lane closest-hit kernel (either
+    design), "anyhit" for the persist any-hit kernel that a ``walker="lane"``
+    frame runs beside it, else None."""
+    import re
+    if re.search(r"lane_kernel(?:<\d+, false>|ILi\d+ELb0E)", key) or \
+            re.search(r"group_closest_kernel(?:<\d+, 32>|ILi\d+ELi32E)", key):
+        return "closest"
+    return "anyhit" if _persist_kind(key) == "anyhit" else None
+
+
 def _group_label(mangled):
     """"packet closest, width 16" for a mangled name of the packet library
-    ("packet leader ..." for the leader design, "lane ..." for the lane
-    kernels)."""
+    ("packet leader ..." for the packet kernels' leader design, "lane ..."
+    for the lane kernels, "lane group ..." for their group design)."""
     import re
+    m = re.search(r"lane_kernelILi(\d+)ELb([01])E", mangled)
+    if m is not None:
+        return f"lane {'any-hit' if m[2] == '1' else 'closest'}, width {m[1]}"
     m = re.search(r"(packet|group)_(closest|anyhit)_kernelILi(\d+)E"
                   r"(?:Li(\d+)E)?", mangled)
     if m is None:
         return mangled
     kind = "closest" if m[2] == "closest" else "any-hit"
     design = "packet" if m[1] == "packet" else \
-        "packet leader" if m[4] == "256" else "lane"
+        "packet leader" if m[4] == "256" else "lane group"
     return f"{design} {kind}, width {m[3]}"
 
 
@@ -913,10 +943,13 @@ def _frame_kernel_ms(scene, camera, cfg, seed, rebind, kind_of):
     """Device time and launches of one frame's traversal kernels
     (torch.profiler, CUDA activity): ``{"closest": [ms, launches],
     "anyhit": [...], "iterations": n}``, the kernels picked by ``kind_of``
-    (a profiler key -> "closest", "anyhit" or None).  ``rebind`` maps
+    (a kernel name -> "closest", "anyhit" or None).  ``rebind`` maps
     render/trace.py names to the functions the engine calls for this frame
-    (the stride design's); they are put back after it."""
+    (the stride design's); they are put back after it.  The profile's raw
+    device events are summed: ``key_averages()`` first builds every
+    event's tree, which took most of the phase's time."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from rtjax_torch.render import trace
     from rtjax_torch.render.wavefront import render_frame
@@ -935,11 +968,12 @@ def _frame_kernel_ms(scene, camera, cfg, seed, rebind, kind_of):
             setattr(trace, k, fn)
     out = {"closest": [0.0, 0], "anyhit": [0.0, 0],
            "iterations": stats["iterations"]}
-    for e in prof.key_averages():
-        kind = kind_of(e.key)
+    for e in prof.profiler.kineto_results.events():
+        kind = kind_of(e.name()) if e.device_type() == DeviceType.CUDA \
+            else None
         if kind is not None:
-            out[kind][0] += e.self_device_time_total / 1e3
-            out[kind][1] += e.count
+            out[kind][0] += e.duration_ns() / 1e6
+            out[kind][1] += 1
     return out
 
 
@@ -956,16 +990,19 @@ def phase7_frames(scene, camera, card, c4_scene, c4_camera):
     """The traversal kernels' device time over whole frames under each
     design (first design, new, new, first; seeds 4 and 5): the two persist
     kernels over a headline frame (stride, fetch), the two packet kernels
-    over a ``walker="packet"`` headline frame (leader, packet), then the two
-    two-level kernels over a config-4 ``two_level="kernel"`` frame (stride,
-    fetch).  Returns ``{"persist": {kind: {design: [ms, ms]}}, "packet":
-    ..., "two_level": ...}``.  A frame whose profile holds fewer launches
+    over a ``walker="packet"`` headline frame (leader, packet), the lane
+    closest-hit kernel over a ``walker="lane"`` headline frame (group,
+    lane; its any hit is the persist kernel's, timed beside it), then the
+    two two-level kernels over a config-4 ``two_level="kernel"`` frame
+    (stride, fetch).  Returns ``{"persist": {kind: {design: [ms, ms]}},
+    "packet": ..., "lane": ..., "two_level": ...}``.  A frame whose profile holds fewer launches
     of either kernel than the frame's iterations is profiled again, once;
     then the phase fails.  Last, because torch.profiler recorded no kernel
     rows in later profiles once it had traced whole frames."""
     import dataclasses
 
     from rtjax_torch import RenderConfig
+    from rtjax_torch.kernels import lane as L
     from rtjax_torch.kernels import persist as P
     from rtjax_torch.kernels import wide as WD
     from rtjax_torch.kernels import wide_inst as WI
@@ -978,6 +1015,8 @@ def phase7_frames(scene, camera, card, c4_scene, c4_camera):
         "packet": ("leader", "packet", {
             "wide_traverse_closest": WD.wide_traverse_closest_leader,
             "wide_traverse_anyhit": WD.wide_traverse_anyhit_leader}),
+        "lane": ("group", "lane", {
+            "lane_traverse_closest": L.lane_traverse_closest_group}),
         "two_level": ("stride", "fetch", {
             "wide_traverse_closest_inst": WI.wide_traverse_closest_inst_stride,
             "wide_traverse_anyhit_inst": WI.wide_traverse_anyhit_inst_stride})}
@@ -985,6 +1024,9 @@ def phase7_frames(scene, camera, card, c4_scene, c4_camera):
             "packet": (scene, camera, dataclasses.replace(
                 headline, **WALKERS["packet"]), _packet_kind,
                 "walker=packet headline"),
+            "lane": (scene, camera, dataclasses.replace(
+                headline, **WALKERS["lane"]), _lane_kind,
+                "walker=lane headline (any hit: the persist kernel)"),
             "two_level": (c4_scene, c4_camera, dataclasses.replace(
                 RenderConfig(width=WIDTH, height=HEIGHT,
                              num_samples=C4_SPP, max_bounces=C4_BOUNCES),
@@ -1020,8 +1062,9 @@ def phase7_frames(scene, camera, card, c4_scene, c4_camera):
 
 def phase4_walkers(scene, camera, card, floor):
     """The headline frame under each walker, alternated; returns the
-    launch counts of the seed-2 packet and lane frames and the rays of
-    launch CAPTURE_AT of each packet kernel in the seed-2 packet frame."""
+    launch counts of the seed-2 packet and lane frames and, by walker, the
+    rays of launch CAPTURE_AT of each of its kernels in its seed-2 frame
+    (the lane frame's any hit is the persist kernel's)."""
     import dataclasses
 
     import numpy as np
@@ -1035,12 +1078,13 @@ def phase4_walkers(scene, camera, card, floor):
     want = {"persist": (("persist", "closest"), ("persist", "anyhit")),
             "packet": (("packet", "closest"), ("packet", "anyhit")),
             "lane": (("lane", "closest"), ("persist", "anyhit"))}
-    imgs, counts = {}, {}
+    imgs, counts, captured = {}, {}, {}
     for walker, seed in (("persist", 2), ("packet", 2), ("lane", 2),
                          ("lane", 3), ("packet", 3), ("persist", 3)):
-        capture = walker == "packet" and seed == 2
+        capture = walker in ("packet", "lane") and seed == 2
         if capture:
-            captured, restore = _capture_launch(CAPTURE_AT, PACKET_NAMES)
+            captured[walker], restore = _capture_launch(CAPTURE_AT,
+                                                        WALKER_NAMES[walker])
         try:
             runs, c = _drive(scene, camera,
                              dataclasses.replace(cfg, **WALKERS[walker]),
@@ -1082,9 +1126,10 @@ def phase4_walkers(scene, camera, card, floor):
             if ref_mse > floor["gate"] or tie_mse > 0.1 * floor["seed_mse"]:
                 raise RuntimeError(f"walker={walker!r} image differs beyond "
                                    "its gate")
-    if set(captured) != {"closest", "anyhit"}:
-        raise RuntimeError(f"launch {CAPTURE_AT} of each packet kernel was "
-                           "not captured")
+    for walker, got in captured.items():
+        if set(got) != {"closest", "anyhit"}:
+            raise RuntimeError(f"launch {CAPTURE_AT} of each kernel of the "
+                               f"walker={walker!r} frame was not captured")
     return counts, captured
 
 
@@ -1108,16 +1153,17 @@ def _persist_bounds(label, tab, cl, ah):
     return out
 
 
-def phase4_packet_in_frame(scene, card, captured):
-    """Both packet designs on launch CAPTURE_AT of the seed-2
-    ``walker="packet"`` frame's packet kernels."""
+def phase4_group_in_frame(scene, card, captured, walk):
+    """Both designs of the ``walk`` kernels ("packet" or "lane") on launch
+    CAPTURE_AT of the seed-2 ``walker=walk`` frame (for "lane", its lane
+    closest-hit launch and the persist any-hit launch of that iteration)."""
     tab, cl = captured["closest"]
     tab_a, ah = captured["anyhit"]
     if tab is not tab_a or tab is not scene.tables:
-        raise RuntimeError("the captured packet launches used other tables")
-    label = f"packet in-frame launch {CAPTURE_AT}"
+        raise RuntimeError(f"the captured {walk} launches used other tables")
+    label = f"{walk} in-frame launch {CAPTURE_AT}"
     return _check_group(label, tab, cl, ah, card,
-                        _persist_bounds(label, tab, cl, ah), ("packet",))
+                        _persist_bounds(label, tab, cl, ah), (walk,))
 
 
 def phase5_scene():
@@ -1304,13 +1350,12 @@ def phase5_inst_kernels(scene, camera, card):
 
 
 def _record_group(group, out, key):
-    """Add one ray set's group checks to the packet and lane rows: the
-    packet kernels' A/B, every row's largest error."""
+    """Add one ray set's group checks to the packet and lane rows: their
+    A/B, every row's largest error."""
     for (walk, kind), r in out.items():
         row = group[walk, kind]
         row["max_abs_err"] = max(row["max_abs_err"], r["err"])
-        if walk == "packet":
-            row["ab"][key] = _group_ab_record(r)
+        row["ab"][key] = _group_ab_record(r)
 
 
 def _record_ab(rows, out, key):
@@ -1373,7 +1418,7 @@ def phase5_persist(scene, baked, camera, card):
 
 
 _KERNEL_SETS = ("persist", "two_level", "packet", "lane", "stride",
-                "inst_stride", "packet_leader")
+                "inst_stride", "packet_leader", "lane_group")
 
 
 def _counters():
@@ -1388,7 +1433,8 @@ def _counters():
             "lane": (L.LAUNCHES, None),
             "stride": (P.STRIDE_LAUNCHES, None),
             "inst_stride": (WI.STRIDE_LAUNCHES, None),
-            "packet_leader": (WD.LEADER_LAUNCHES, None)}
+            "packet_leader": (WD.LEADER_LAUNCHES, None),
+            "lane_group": (L.GROUP_LAUNCHES, None)}
 
 
 def _drive(scene, camera, cfg, seeds):
@@ -1533,27 +1579,37 @@ def phase6_in_frame(scene, card, captured):
 
 
 def main():
+    t0 = time.perf_counter()
+
+    def stamp(what):
+        print(f"[time] {what} done at {time.perf_counter() - t0:.1f} s")
+
     card = phase0_device()
     import torch
     phase1_build()
+    stamp("phase 1 (build)")
     scene, camera = phase2_scene()
     persist, group = phase3_kernels(scene, camera, card)
+    stamp("phase 3 (kernels)")
     launches, floor, captured = phase4_main_path(scene, camera, card)
     for kind, k in persist.items():
         k["launches"] = launches[kind]
     for kind, r in phase4_in_frame(scene, card, captured).items():
         persist[kind]["ab"]["in_frame"] = _ab_record(r)
-    walker_counts, packet_captured = phase4_walkers(scene, camera, card,
+    walker_counts, walker_captured = phase4_walkers(scene, camera, card,
                                                     floor)
     for (walk, kind), k in group.items():
         k["launches"] = walker_counts[walk][walk][kind]
-    _record_group(group, phase4_packet_in_frame(scene, card,
-                                                packet_captured), "in_frame")
+    for walk in ("packet", "lane"):
+        _record_group(group, phase4_group_in_frame(
+            scene, card, walker_captured[walk], walk), "in_frame")
     group["lane", "anyhit"]["note"] = ("on no engine path: anyhit_walker "
                                        "takes persist or packet, as in rtjax")
+    stamp("phase 4 (main path, walkers, in-frame launches)")
     c4_scene, baked, c4_camera = phase5_scene()
     inst = phase5_inst_kernels(c4_scene, c4_camera, card)
     by_shape, group_shapes = phase5_persist(c4_scene, baked, c4_camera, card)
+    stamp("phase 5 (config 4 kernels)")
     for shape, out in by_shape.items():
         for kind, r in out.items():
             persist[kind]["ab"][shape] = _ab_record(r)
@@ -1567,12 +1623,15 @@ def main():
         k["launches"] = inst_launches[kind]
     _record_ab(inst, phase6_in_frame(c4_scene, card, inst_captured),
                "in_frame")
+    stamp("phase 6 (config 4 frames)")
     frames = phase7_frames(scene, camera, card, c4_scene, c4_camera)
+    stamp("phase 7 (frame kernels)")
     for rows_, kernels in ((persist, "persist"), (inst, "two_level")):
         for kind, ms in frames[kernels].items():
             rows_[kind]["frame_ms"] = ms
     for kind, ms in frames["packet"].items():
         group["packet", kind]["frame_ms"] = ms
+    group["lane", "closest"]["frame_ms"] = frames["lane"]["closest"]
     rows = [*persist.values(), *group.values(), *inst.values()]
     for k in rows:
         print(f"[bound] {k['name']}: {k['bound_us']:.3f} us by "

@@ -188,25 +188,26 @@ __device__ __forceinline__ void fetch_rays(const Tables& tb, Job& job, int n,
   }
 }
 
-// Blocks of ``Kernel`` (kFetchBlock threads, ``smem`` bytes of dynamic
-// shared memory) for ``n`` rays: as many as the card keeps resident,
-// capped by the rays; -1 on a device this cache does not hold.  Cached per
-// kernel (each instance of a template its own), device and byte count.
-// The kernel's dynamic shared-memory cap is raised above the default 48 KB
-// where ``smem`` needs it and never lowered, so a cached count is never
-// used under a cap that a smaller launch set.
+// Blocks of ``Kernel`` (``threads`` threads, ``smem`` bytes of dynamic
+// shared memory) for ``n`` rays, one a thread: as many as the card keeps
+// resident, capped by the rays; -1 on a device this cache does not hold.
+// Cached per kernel (each instance of a template its own), device, byte
+// count and block size.  The kernel's dynamic shared-memory cap is raised
+// above the default 48 KB where ``smem`` needs it and never lowered, so a
+// cached count is never used under a cap that a smaller launch set.
 template <auto Kernel>
-int fetch_grid(int n, int smem) {
+int fetch_grid(int n, int smem, int threads = kFetchBlock) {
   constexpr int kDevices = 16;
   constexpr int kSlots = 8;
-  static int bytes[kDevices][kSlots], blocks[kDevices][kSlots];
+  static int key[kDevices][kSlots], blocks[kDevices][kSlots];
   static int cap[kDevices], slot[kDevices];
   int dev = 0;
   cudaGetDevice(&dev);
   if (dev < 0 || dev >= kDevices) return -1;
+  const int k = smem * 64 + threads / 32;  // smem < 2^24, threads <= 1024
   int resident = 0;
   for (int j = 0; j < kSlots; ++j)
-    if (blocks[dev][j] > 0 && bytes[dev][j] == smem) resident = blocks[dev][j];
+    if (blocks[dev][j] > 0 && key[dev][j] == k) resident = blocks[dev][j];
   if (resident == 0) {
     if (smem > 48 * 1024 && smem > cap[dev]) {
       cudaFuncSetAttribute(Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -215,14 +216,14 @@ int fetch_grid(int n, int smem) {
     }
     int sms = 0, per_sm = 0;
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, Kernel,
-                                                  kFetchBlock, smem);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, Kernel, threads,
+                                                  smem);
     resident = sms * (per_sm > 0 ? per_sm : 1);
     const int j = slot[dev]++ % kSlots;
-    bytes[dev][j] = smem;
+    key[dev][j] = k;
     blocks[dev][j] = resident;
   }
-  const int needed = (n + kFetchBlock - 1) / kFetchBlock;
+  const int needed = (n + threads - 1) / threads;
   return needed < resident ? needed : resident;
 }
 

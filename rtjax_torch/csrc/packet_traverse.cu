@@ -10,13 +10,14 @@
 // walk.  Both compute one function in two schedules.  A packet is kPacket
 // rays (packet_walk.cuh; a CTA holds at most 1024 threads, so the TPU's
 // 2048-ray tile does not carry over), a lane group one warp
-// (group_walk.cuh).
+// (lane_walk.cuh).
 //
 // What bounds it on this card: the latency of each step's dependent loads
-// (the node, then its leaf rows, then the next node) and the packet's
-// barrier per step, plus the union of its rays' node sets: every ray of a
-// packet pays for every node any of them needs.  The tables of the headline
-// scene stay resident in the 50 MB L2; the tensor cores have nothing to do.
+// (the node, then its leaf rows, then the next node) and, for packets, the
+// packet's barrier per step, plus the union of its rays' node sets: every
+// ray of a group pays for every node any of them needs.  The tables of the
+// headline scene stay resident in the 50 MB L2; the tensor cores have
+// nothing to do.
 //
 // What the packet design does about it (packet_walk.cuh): the leader copies
 // the node's boxes and metas, and the leaf rows any ray accepted, into
@@ -27,11 +28,20 @@
 // rtjax's deferred leaf queue, interleaved cursors and work-stealing stack
 // hide the TPU's vector->scalar latency and have no counterpart here.
 //
+// What the lane design does about it (lane_walk.cuh): a group is one warp,
+// so every vote is a warp collective and no step waits at a barrier; each
+// lane loads one 16-byte word of the node's row and of each leaf row any
+// ray accepted into the warp's shared buffers; the next node is decided
+// before the leaf tests and loaded while they run; warps draw their groups
+// from the persist kernels' self-resetting work counter, so a warp that
+// finishes early takes the next group.
+//
 // The leader design (group_walk.cuh at kLeaderPacket rays, the
 // ``rtjax_packet_leader_*`` entries) is the packet kernels' first design,
-// kept to time both designs in one run; the lane kernels run it at one
-// warp.  Every thread loads the node row from global memory, one leader
-// thread decides and broadcasts the cursor (two barriers a step) and keeps
+// and the same walk at one warp (``rtjax_lane_group_*``) the lane kernels'
+// first design; both are kept to time each pair of designs in one run.
+// Every thread loads the node row from global memory, one leader thread
+// decides and broadcasts the cursor (two barriers a step) and keeps
 // (node, mask) stack entries.
 //
 // Exactness: the build uses --fmad=false, so each product and sum rounds
@@ -41,13 +51,22 @@
 #include <cuda_runtime.h>
 
 #include "group_walk.cuh"
+#include "lane_walk.cuh"
 #include "packet_walk.cuh"
 
 namespace {
 
 using rtjax::Closest;
+using rtjax::fetch_grid;
 using rtjax::GroupScratch;
+using rtjax::kLane;
+using rtjax::kLaneWarps;
+using rtjax::lane_kernel;
+using rtjax::lane_warp_bytes;
+using rtjax::LaneOuts;
 using rtjax::Ray;
+using rtjax::Rays;
+using rtjax::Tables;
 using rtjax::group_walk;
 using rtjax::load_ray;
 using rtjax::make_ray;
@@ -57,7 +76,6 @@ using rtjax::PacketShared;
 using rtjax::packet_walk;
 
 constexpr int kLeaderPacket = 256;  // rays per packet of the leader design
-constexpr int kLane = 32;           // rays per lane group (one warp)
 
 // Threads per block: one packet, or four lane groups.
 template <int G>
@@ -280,8 +298,8 @@ int launch_packet(int n, int stack_len, cudaStream_t stream, Args... args) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// One block per packet or per four lane groups; each group's stack is
-// 2 * stack_len ints of dynamic shared memory.
+// The leader design: one block per packet or per four lane groups; each
+// group's stack is 2 * stack_len ints of dynamic shared memory.
 template <typename K, typename... Args>
 int launch(K kernel, int block, int group, int n, int stack_len,
            cudaStream_t stream, Args... args) {
@@ -296,6 +314,47 @@ int launch(K kernel, int block, int group, int n, int stack_len,
   }
   kernel<<<blocks, block, smem, stream>>>(args...);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The lane design: kLaneWarps warps a block where their shared memory fits
+// the card's opt-in limit, fewer for deeper trees (``stack_len`` child ids
+// a warp), as many blocks as the card keeps resident, capped by the groups.
+template <int W, bool ANY>
+int launch_lane(const Tables& tb, const Rays& rays, int n,
+                const LaneOuts& out, unsigned* work, int stack_len,
+                cudaStream_t s) {
+  int dev = 0, optin = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                         dev);
+  if (stack_len <= 0 || stack_len > optin / 4 || work == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int per_warp = lane_warp_bytes<W>(stack_len);
+  const int warps = kLaneWarps < optin / per_warp ? kLaneWarps
+                                                  : optin / per_warp;
+  if (warps < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const int smem = warps * per_warp;
+  const int rc = raise_smem_cap<lane_kernel<W, ANY>>(smem);
+  if (rc != 0) return rc;
+  const int grid = fetch_grid<lane_kernel<W, ANY>>(n, smem, warps * kLane);
+  if (grid < 0) return static_cast<int>(cudaErrorInvalidDevice);
+  lane_kernel<W, ANY><<<grid, warps * kLane, smem, s>>>(tb, rays, n, out,
+                                                        work, stack_len);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool ANY>
+int lane_entry(int width, int group, int stack_len, const Tables& tb,
+               const Rays& rays, int n, const LaneOuts& out, unsigned* work,
+               void* stream) {
+  if (group != kLane) return static_cast<int>(cudaErrorInvalidValue);
+  if (n <= 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (width == 8)
+    return launch_lane<8, ANY>(tb, rays, n, out, work, stack_len, s);
+  if (width == 16)
+    return launch_lane<16, ANY>(tb, rays, n, out, work, stack_len, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 template <int G>
@@ -343,9 +402,9 @@ int anyhit(int width, int stack_len, const float* nb, const int* cm,
 
 }  // namespace
 
-// ``group`` is the caller's group size; it must be the one compiled here
-// (kernels/wide.py LEADER_PACKET, kernels/lane.py LANE), so that the plain
-// version walks the same groups.
+// The leader design.  ``group`` is the caller's group size; it must be the
+// one compiled here (kernels/wide.py LEADER_PACKET, kernels/lane.py LANE),
+// so that the plain version walks the same groups.
 #define RTJAX_GROUP_ENTRIES(NAME, G)                                          \
   extern "C" int rtjax_##NAME##_closest(                                      \
       int width, int group, int stack_len, const float* nb, const int* cm,    \
@@ -370,7 +429,35 @@ int anyhit(int width, int stack_len, const float* nb, const int* cm,
   }
 
 RTJAX_GROUP_ENTRIES(packet_leader, kLeaderPacket)
-RTJAX_GROUP_ENTRIES(lane, kLane)
+RTJAX_GROUP_ENTRIES(lane_group, kLane)
+
+// The lane design.  ``group`` must be kLane (kernels/lane.py LANE);
+// ``stack_len`` is each warp's child-id stack, (depth + 1) * (width - 1)
+// entries (kernels/lane.py lane_stack_len); ``work``: the persist kernels'
+// two zeroed unsigned words per device and stream, left zeroed.
+extern "C" int rtjax_lane_closest(
+    int width, int group, int stack_len, const float* nb, const int* cm,
+    const int* ni, const float* lt, const float* ox, const float* oy,
+    const float* oz, const float* dx, const float* dy, const float* dz,
+    const float* tmax, const unsigned char* active, int n, unsigned char* hit,
+    float* t, int* prim, float* nx, float* ny, float* nz, unsigned* work,
+    void* stream) {
+  return lane_entry<false>(width, group, stack_len, {nb, cm, ni, lt},
+                     {ox, oy, oz, dx, dy, dz, tmax, active, nullptr}, n,
+                     {hit, t, prim, nx, ny, nz}, work, stream);
+}
+
+extern "C" int rtjax_lane_anyhit(
+    int width, int group, int stack_len, const float* nb, const int* cm,
+    const int* ni, const float* lt, const float* ox, const float* oy,
+    const float* oz, const float* dx, const float* dy, const float* dz,
+    const float* tmax, const unsigned char* active, const int* exclude, int n,
+    unsigned char* occ, unsigned* work, void* stream) {
+  return lane_entry<true>(width, group, stack_len, {nb, cm, ni, lt},
+                    {ox, oy, oz, dx, dy, dz, tmax, active, exclude}, n,
+                    {occ, nullptr, nullptr, nullptr, nullptr, nullptr}, work,
+                    stream);
+}
 
 // The packet design.  ``group`` must be kPacket (kernels/wide.py PACKET);
 // ``stack_len`` is each packet's child-id stack, (depth + 1) * (width - 1)

@@ -8,8 +8,9 @@ under the repository root (a directory that .gitignore lists).
   ``rtjax_torch/csrc/*.cu`` source (the persistent walkers, the two-level
   kernels, the packet and lane group walks; all include ``wide_walk.cuh``,
   the first two also ``fetch_walk.cuh``, the packet and lane kernels
-  ``group_walk.cuh`` and ``packet_walk.cuh``), compiled by nvcc for
-  ``sm_90a`` and bound with ctypes.
+  ``group_walk.cuh``, ``packet_walk.cuh``, ``lane_walk.cuh`` and, through
+  it, ``fetch_walk.cuh``), compiled by nvcc for ``sm_90a`` and bound with
+  ctypes.
 
 Each library is rebuilt when a source or a header it includes is newer
 than it.  nvcc runs with ``-Xptxas -v``: each kernel's registers, stack
@@ -40,6 +41,7 @@ WALK_HEADER = CSRC_DIR / "wide_walk.cuh"
 FETCH_HEADER = CSRC_DIR / "fetch_walk.cuh"
 GROUP_HEADER = CSRC_DIR / "group_walk.cuh"
 PACKET_HEADER = CSRC_DIR / "packet_walk.cuh"
+LANE_HEADER = CSRC_DIR / "lane_walk.cuh"
 
 # the BVH builder keeps rtjax's flags: -ffp-contract=off keeps SAH costs
 # free of FMA contraction, so both packages build bit-identical trees
@@ -132,4 +134,5 @@ def packet_library() -> Path:
     stale)."""
     return _build(BUILD_DIR / "libpacket_traverse.so", [PACKET_SOURCE],
                   [nvcc_path()] + NVCC_FLAGS,
-                  (WALK_HEADER, GROUP_HEADER, PACKET_HEADER))
+                  (WALK_HEADER, FETCH_HEADER, GROUP_HEADER, PACKET_HEADER,
+                   LANE_HEADER))

@@ -5,39 +5,41 @@ version.
 ``wide_traverse_closest`` / ``wide_traverse_anyhit`` replace
 rtjax/kernels/pallas_wide.py's functions of the same names (the Pallas
 kernels ``_make_closest_kernel`` and ``_make_anyhit_kernel``); the lane
-wrappers (kernels/lane.py) run the leader design's walk with one-warp groups.
-A CUDA tensor goes to the kernel in ``csrc/packet_traverse.cu`` (built at
-first use, bound with ctypes); a CPU tensor goes to the plain version.
-There is no fallback between them.
+wrappers (kernels/lane.py) launch the same library's lane entries and run
+the same plain version with one-warp groups.  A CUDA tensor goes to the
+kernel in ``csrc/packet_traverse.cu`` (built at first use, bound with
+ctypes); a CPU tensor goes to the plain version.  There is no fallback
+between them.
 
 Contract: persist.py's (rtjax's), at any tree depth whose packet block fits
 the card's shared memory (:func:`packet_smem_bytes`; depth 840 at width 16,
 1,937 at width 8): the packet's stack is sized from ``tables.depth``
 (:func:`packet_stack_len`).
 
-The group walk (``csrc/packet_walk.cuh`` and, for the leader design and the
-lane kernels, ``csrc/group_walk.cuh`` walk the same order): rays go in
-groups of ``group`` consecutive rays, the last one partial, and one cursor
-walks the tree for the whole group.  At a node every live ray slab-tests
-every non-empty child against its own tmax and Moeller-Trumbore-tests the
-leaf children its own slab accepted, in ascending slot order (persist.py's
-per-ray rule, so the hits are the persistent walkers' hits; only the prim
-at an equal-t tie may differ).  The internal children that any live ray
-accepted form the group's mask; the cursor descends into the mask's first
-child in the node's build-time axis order, reversed when the group's octant
-points down that axis, and pushes the rest; it pops when the mask is empty.
-The octant is an integer vote: bit k is set when more than half of the
-group's active rays point down axis k.  A group without an active ray walks
-nothing.
+The group walk (``csrc/packet_walk.cuh``, ``csrc/lane_walk.cuh`` and, for
+the first designs of both, ``csrc/group_walk.cuh``, walk the same order):
+rays go in groups of ``group`` consecutive rays, the last one partial, and
+one cursor walks the tree for the whole group.  At a node every live ray
+slab-tests every non-empty child against its own tmax and
+Moeller-Trumbore-tests the leaf children its own slab accepted, in
+ascending slot order (persist.py's per-ray rule, so the hits are the
+persistent walkers' hits; only the prim at an equal-t tie may differ).  The
+internal children that any live ray accepted form the group's mask; the
+cursor descends into the mask's first child in the node's build-time axis
+order, reversed when the group's octant points down that axis, and pushes
+the rest; it pops when the mask is empty.  The octant is an integer vote:
+bit k is set when more than half of the group's active rays point down
+axis k.  A group without an active ray walks nothing.
 
-Any hit, by ``decide_first``: the packet kernels decide the next node
-before the leaf tests (True), so a ray occluded at a node's leaves still
-adds that node's internal children, and a group stops at the first step
-that finds none of its rays live; the leader design and the lane kernels
-decide after them (False), so an occluded ray adds nothing and a group stops
-as soon as its last live ray is occluded.  Occlusion is the same under both;
-the first visits at least as many nodes.  Closest hit walks one order under
-both.
+Any hit, by ``decide_first``: the packet and lane kernels decide the next
+node before the leaf tests (True), so a ray occluded at a node's leaves
+still adds that node's internal children, and a group stops at the first
+step that finds none of its rays live; the first designs of both (the
+leader design, the lane kernels' group design) decide after them (False,
+rtjax's lane rule), so an occluded ray adds nothing and a group stops as
+soon as its last live ray is occluded.  Occlusion is the same under both;
+the first visits at least as many nodes.  Closest hit walks one order
+under both.
 
 ``wide_traverse_*_leader`` launch the packet kernels' first design (the
 leader design, LEADER_PACKET rays a packet, counted in ``LEADER_LAUNCHES``);
@@ -84,15 +86,19 @@ _lib = None
 # ------------------------------------------------------------- CUDA path
 
 def bind(lib):
-    """Set the argument types of the six entry points of a packet kernel
-    library (``ctypes.CDLL``) and return it."""
+    """Set the argument types of the eight entry points of a packet kernel
+    library (``ctypes.CDLL``) and return it: the packet kernels (both
+    designs) and the lane kernels (both designs; the lane design also takes
+    the work counter before the stream)."""
     P, I = ctypes.c_void_p, ctypes.c_int
-    for name in ("packet", "packet_leader", "lane"):
+    for name, counter in (("packet", []), ("packet_leader", []),
+                          ("lane_group", []), ("lane", [P])):
         closest = getattr(lib, f"rtjax_{name}_closest")
-        closest.argtypes = [I, I, I] + [P] * 12 + [I] + [P] * 7
+        closest.argtypes = [I, I, I] + [P] * 12 + [I] + [P] * 6 + counter \
+            + [P]
         closest.restype = I
         anyhit = getattr(lib, f"rtjax_{name}_anyhit")
-        anyhit.argtypes = [I, I, I] + [P] * 13 + [I] + [P] * 2
+        anyhit.argtypes = [I, I, I] + [P] * 13 + [I] + [P] + counter + [P]
         anyhit.restype = I
     return lib
 
@@ -172,7 +178,7 @@ def _anyhit_cuda(name, group, tables, o, d, tmax, exclude, active):
 def group_closest(name, group, launches, tables: WideTables, origin,
                   direction, tmax, active):
     """Closest hit by ``group``-ray group walks: the kernels ``name``
-    ("packet", "packet_leader" or "lane") for CUDA tensors, counted in
+    ("packet", "packet_leader" or "lane_group") for CUDA tensors, counted in
     ``launches``, the plain version for CPU tensors."""
     as_v3 = isinstance(origin, (tuple, list))
     o, d = _columns(origin), _columns(direction)
@@ -394,7 +400,7 @@ def group_traverse_closest_ref(tables: WideTables, origin, direction, tmax,
                                active, group, work=None):
     """Plain PyTorch version of the group-walk closest hit (the packet
     kernel at ``group`` = PACKET, the leader design at LEADER_PACKET, the
-    lane kernel at lane.LANE): same contract, same visit order, any device;
+    lane kernels at lane.LANE): same contract, same visit order, any device;
     ``work`` as in :func:`_group_walk`."""
     REF_CALLS["closest"] += 1
     as_v3 = isinstance(origin, (tuple, list))
@@ -414,9 +420,8 @@ def group_traverse_closest_ref(tables: WideTables, origin, direction, tmax,
 def group_traverse_anyhit_ref(tables: WideTables, origin, direction, tmax,
                               exclude, active, group, work=None,
                               decide_first=True):
-    """Plain PyTorch version of the group-walk any hit: the packet kernel's
-    at ``decide_first`` True, the leader design's and the lane kernel's at
-    False."""
+    """Plain PyTorch version of the group-walk any hit: the packet and lane
+    kernels' at ``decide_first`` True, their first designs' at False."""
     REF_CALLS["anyhit"] += 1
     o, d = _columns(origin), _columns(direction)
     occ = torch.zeros(tmax.shape[0], dtype=torch.bool, device=tmax.device)

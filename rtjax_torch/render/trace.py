@@ -34,7 +34,7 @@ import torch
 
 from ..accel.instancing import apply_affine_point, apply_affine_vector
 from ..core import vec
-from ..kernels import persist
+from ..kernels import lane, persist
 from ..kernels.lane import lane_traverse_closest
 from ..kernels.persist import (persist_traverse_anyhit,
                                persist_traverse_closest, slab, slab_pre)
@@ -76,8 +76,11 @@ def _backend(tables, cfg):
     them.  The persistent walkers take trees whose stack fits
     ``persist.STACK``: "auto" takes them there and the packet kernels
     beyond, and "persist" on a deeper tree warns once and takes the packet
-    kernels.  "packet" and "lane" take their kernels at any depth.  The
-    any-hit kernel follows ``anyhit_walker`` alone ("auto" as "persist")."""
+    kernels.  "lane" takes its kernels where a warp's stack fits a block
+    (``lane.fits``) and beyond warns once and takes the packet kernels.
+    "packet" takes its kernels at any depth.  The any-hit kernel follows
+    ``anyhit_walker`` alone ("auto" as "persist").  A warning shows once per
+    call site under Python's default filter."""
     fits = tables.depth + 1 <= persist.STACK
     walker = cfg.walker
     if walker == "auto":
@@ -87,6 +90,12 @@ def _backend(tables, cfg):
                       f"{tables.depth}) exceeds the persistent walkers' "
                       f"{persist.STACK}-entry stack; using the packet walker",
                       stacklevel=3)
+        walker = "packet"
+    elif walker == "lane" and not lane.fits(tables):
+        warnings.warn(f"walker='lane' requested but the tree (depth "
+                      f"{tables.depth}) needs a lane-kernel warp's stack "
+                      f"beyond a block's shared memory; using the packet "
+                      f"walker", stacklevel=3)
         walker = "packet"
     closest = {"persist": persist_traverse_closest,
                "packet": wide_traverse_closest,

@@ -1,5 +1,5 @@
 """rtjax_torch on a CUDA device: the hand-written kernels (persistent
-walkers, two-level and packet kernels in both designs, lane group walks)
+walkers, two-level, packet and lane kernels, each in both designs)
 against their plain PyTorch versions, and the engine's main path through the
 kernels, single-level and instanced, under every walker.
 
@@ -27,6 +27,7 @@ from rtjax_torch.kernels import lane as L
 from rtjax_torch.kernels import persist as P
 from rtjax_torch.kernels import wide as WD
 from rtjax_torch.kernels import wide_inst as WI
+from rtjax_torch.render import trace
 from rtjax_torch.render.wavefront import render_frame
 from rtjax_torch.scene.camera import Camera
 from rtjax_torch.scene.scene import SceneBuilder
@@ -199,20 +200,24 @@ GROUP_WALKS = {
                True, WD.LAUNCHES),
     "leader": (WD.LEADER_PACKET, WD.wide_traverse_closest_leader,
                WD.wide_traverse_anyhit_leader, False, WD.LEADER_LAUNCHES),
-    "lane": (L.LANE, L.lane_traverse_closest, L.lane_traverse_anyhit, False,
+    "lane": (L.LANE, L.lane_traverse_closest, L.lane_traverse_anyhit, True,
              L.LAUNCHES),
+    "lane_group": (L.LANE, L.lane_traverse_closest_group,
+                   L.lane_traverse_anyhit_group, False, L.GROUP_LAUNCHES),
 }
 
 
 def _check_group(walk, tables, o, d, tmax, active, exclude):
     """One group-walk kernel pair against the plain group walk, bit for
     bit, dead lanes included, and against the persist plain versions' hits,
-    t and occlusion; each kernel launched once."""
+    t and occlusion; each kernel launched once; the work counter zero after
+    the lane design's launches."""
     group, closest, anyhit, first, launches = GROUP_WALKS[walk]
     before = dict(launches)
     k_out = closest(tables, o, d, tmax, active)
     p_out = WD.group_traverse_closest_ref(tables, o, d, tmax, active, group)
     torch.cuda.synchronize()
+    assert _counter_zeroed(tmax.device)
     for a, b in zip(k_out[:3] + k_out[3], p_out[:3] + p_out[3]):
         assert torch.equal(a, b)
     dead = ~active
@@ -229,15 +234,16 @@ def _check_group(walk, tables, o, d, tmax, active, exclude):
         *args, group, decide_first=first))
     assert torch.equal(occ, P.persist_traverse_anyhit_ref(*args))
     assert not bool(occ[dead].any())
+    assert _counter_zeroed(tmax.device)
     assert launches == {k: v + 1 for k, v in before.items()}
     return k_out, occ
 
 
-@pytest.mark.parametrize("walk", ["packet", "leader", "lane"])
+@pytest.mark.parametrize("walk", ["packet", "leader", "lane", "lane_group"])
 @pytest.mark.parametrize("width", [8, 16], ids=["w8", "w16"])
 @pytest.mark.parametrize("tmax_v", [float("inf"), 0.7], ids=["inf", "0.7"])
 def test_group_kernels_equal_plain_version(cuda, walk, width, tmax_v):
-    """The packet kernels (both designs) and the lane kernels against the
+    """The packet and lane kernels (both designs of each) against the
     plain group walk at their group size: 6,444 rays end in a partial group
     of either size, 10% of them dead, and a whole dead packet."""
     tables = _soup_tables(width, cuda)
@@ -306,6 +312,115 @@ def test_group_kernels_take_any_depth(cuda):
     _check_group("packet", base, o, d, tmax, active, exclude)
 
 
+@pytest.mark.parametrize("width", [8, 16], ids=["w8", "w16"])
+@pytest.mark.parametrize("n", [1, 31, 33, 700, 5 * 256 + 3])
+def test_lane_kernels_take_ragged_batches(cuda, width, n):
+    """Partial last groups, dead groups (rays 256-511 inactive: eight whole
+    warps), and at 700 rays every ray past 600; more groups than one
+    block's warps, so warps draw again."""
+    tables = _soup_tables(width, cuda)
+    o, d, active, exclude = _rays(n, cuda, seed=7)
+    active[256:512] = False
+    if n == 700:
+        active[600:] = False
+    for tmax_v in (float("inf"), 0.7):
+        tmax = torch.full((n,), tmax_v, device=cuda)
+        _check_group("lane", tables, o, d, tmax, active, exclude)
+
+
+@pytest.mark.parametrize("width", [8, 16], ids=["w8", "w16"])
+def test_lane_kernels_fill_the_stack(cuda, width):
+    """A chain of 80 wide nodes that fills each warp's child-id stack to
+    its (depth + 1) * (width - 1) entries before the first pop."""
+    tables = chain_tables(width, 80, cuda)
+    n = 3 * L.LANE + 5
+    o, d, act, ex = chain_rays(n, cuda)
+    work = P.new_work()
+    WD.group_traverse_closest_ref(tables, o, d, torch.full(
+        (n,), float("inf"), device=cuda), act, L.LANE, work=work)
+    assert work["stack_peak"] == L.lane_stack_len(tables)
+    for tmax_v in (float("inf"), 0.7):
+        tmax = torch.full((n,), tmax_v, device=cuda)
+        k_out, occ = _check_group("lane", tables, o, d, tmax, act, ex)
+        assert bool(k_out[0].all()) == bool(occ.all()) == (tmax_v > 1.5)
+        assert bool(k_out[0].any()) == (tmax_v > 1.5)
+
+
+def test_lane_kernels_take_any_depth_they_hold(cuda):
+    """Stacks that leave a block its LANE_WARPS warps (depth 440 at width
+    16), seven (441) and one (3,830, the deepest a block holds), small
+    again and deep again, so that a launch must find its shared-memory cap
+    raised for its own size; one level deeper is refused before launch, and
+    the next launch runs."""
+    base = _soup_tables(16, cuda)
+    n = 2048
+    o, d, active, exclude = _rays(n, cuda)
+    tmax = torch.full((n,), float("inf"), device=cuda)
+    for depth, warps in ((440, L.LANE_WARPS), (441, 7), (3830, 1),
+                         (base.depth, L.LANE_WARPS), (3830, 1)):
+        tables = dataclasses.replace(base, depth=depth)
+        assert L.launch_shape(tables)[1] == warps
+        _check_group("lane", tables, o, d, tmax, active, exclude)
+    deep = dataclasses.replace(base, depth=3831)
+    assert not L.fits(deep)
+    with pytest.raises(ValueError, match="shared memory"):
+        L.lane_traverse_closest(deep, o, d, tmax, active)
+    assert _counter_zeroed(cuda)
+    _check_group("lane", base, o, d, tmax, active, exclude)
+
+
+def test_lane_walker_past_its_depth_takes_the_packet_kernels(cuda,
+                                                             monkeypatch):
+    """Where a warp's stack does not fit a block (the limit lowered here),
+    ``walker="lane"`` warns and traces with the packet kernels, which find
+    the persist walk's hits."""
+    import types
+    tables = _soup_tables(16, cuda)
+    monkeypatch.setattr(L, "SMEM_OPTIN", L.warp_bytes(tables) - 16)
+    assert not L.fits(tables)
+    n = 3000
+    o, d, active, exclude = _rays(n, cuda)
+    tmax = torch.full((n,), float("inf"), device=cuda)
+    sc = types.SimpleNamespace(instances=None, tables=tables)
+    before = dict(L.LAUNCHES), dict(WD.LAUNCHES)
+    with pytest.warns(UserWarning, match="packet walker"):
+        hit, t, *_ = trace.trace_closest(sc, RenderConfig(walker="lane"), o,
+                                         d, tmax, active)
+    assert (dict(L.LAUNCHES), WD.LAUNCHES["closest"]) == \
+        (before[0], before[1]["closest"] + 1)
+    want = P.persist_traverse_closest_ref(tables, o, d, tmax, active)
+    assert torch.equal(hit, want[0]) and torch.equal(t[hit], want[1][hit])
+
+
+def test_lane_persist_and_two_level_share_the_counter(cuda):
+    """Lane, persist and two-level launches interleaved on one stream with
+    no synchronisation between them: each finds the shared work counter
+    zeroed by the one before."""
+    scene = _instanced(cuda)
+    it, base = scene.inst_tables, scene.tables
+    n = 3 * 2048 + 300
+    o, d, active, exclude = _inst_rays(n, cuda)
+    tmax = torch.full((n,), float("inf"), device=cuda)
+    lc = WD.group_traverse_closest_ref(base, o, d, tmax, active, L.LANE)
+    la = P.persist_traverse_anyhit_ref(base, o, d, tmax, exclude, active)
+    pc = P.persist_traverse_closest_ref(base, o, d, tmax, active)
+    ic = WI.wide_traverse_closest_inst_ref(it, o, d, tmax, active)
+    outs = []
+    for _ in range(3):
+        outs.append(L.lane_traverse_closest(base, o, d, tmax, active))
+        outs.append(P.persist_traverse_closest(base, o, d, tmax, active))
+        outs.append(L.lane_traverse_anyhit(base, o, d, tmax, exclude,
+                                           active))
+        outs.append(WI.wide_traverse_closest_inst(it, o, d, tmax, active))
+    torch.cuda.synchronize()
+    for k in range(3):
+        c, p, a, i = outs[4 * k:4 * k + 4]
+        assert torch.equal(c[1], lc[1]) and torch.equal(c[2], lc[2])
+        assert torch.equal(p[1], pc[1]) and torch.equal(a, la)
+        assert torch.equal(i[1], ic[1]) and torch.equal(i[3], ic[3])
+    assert _counter_zeroed(cuda)
+
+
 @pytest.mark.parametrize("walker, anyhit_walker", [
     ("packet", "packet"), ("lane", "auto")])
 def test_walkers_run_through_their_kernels(cuda, walker, anyhit_walker):
@@ -313,7 +428,8 @@ def test_walkers_run_through_their_kernels(cuda, walker, anyhit_walker):
     cfg = RenderConfig(width=32, height=32, num_samples=8, max_bounces=4,
                        num_working_paths=4096, walker=walker,
                        anyhit_walker=anyhit_walker)
-    counters = (P.LAUNCHES, WD.LAUNCHES, L.LAUNCHES, WD.LEADER_LAUNCHES)
+    counters = (P.LAUNCHES, WD.LAUNCHES, L.LAUNCHES, WD.LEADER_LAUNCHES,
+                L.GROUP_LAUNCHES)
     before = [dict(c) for c in counters]
     refs = dict(P.REF_CALLS), dict(WD.REF_CALLS)
     fb, stats = render_frame(scene, cam, cfg,
@@ -323,10 +439,11 @@ def test_walkers_run_through_their_kernels(cuda, walker, anyhit_walker):
     ran = [{k: c[k] - b[k] for k in c} for c, b in zip(counters, before)]
     none = {"closest": 0, "anyhit": 0}
     if walker == "packet":
-        assert ran == [none, {"closest": its, "anyhit": its}, none, none]
+        assert ran == [none, {"closest": its, "anyhit": its}, none, none,
+                       none]
     else:
         assert ran == [{"closest": 0, "anyhit": its}, none,
-                       {"closest": its, "anyhit": 0}, none]
+                       {"closest": its, "anyhit": 0}, none, none]
     assert bool(torch.isfinite(fb).all()) and bool((fb >= 0).all())
 
 

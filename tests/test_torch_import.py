@@ -105,7 +105,8 @@ def test_kernel_libraries_rebuild_when_the_shared_header_changes(
         tmp_path, monkeypatch):
     """Every kernel library includes wide_walk.cuh, the persist and
     two-level libraries also fetch_walk.cuh, the packet library
-    group_walk.cuh and packet_walk.cuh: a newer header makes them stale.  (A stand-in nvcc
+    group_walk.cuh, packet_walk.cuh, lane_walk.cuh and (through the last)
+    fetch_walk.cuh: a newer header makes them stale.  (A stand-in nvcc
     writes the -o file.)"""
     from rtjax_torch.kernels import _build
     fake = tmp_path / "bin" / "nvcc"
@@ -123,18 +124,23 @@ def test_kernel_libraries_rebuild_when_the_shared_header_changes(
     fetch.write_text("// header\n")
     packet = tmp_path / "packet_walk.cuh"
     packet.write_text("// header\n")
+    lane = tmp_path / "lane_walk.cuh"
+    lane.write_text("// header\n")
     monkeypatch.setattr(_build, "WALK_HEADER", header)
     monkeypatch.setattr(_build, "GROUP_HEADER", group)
     monkeypatch.setattr(_build, "FETCH_HEADER", fetch)
     monkeypatch.setattr(_build, "PACKET_HEADER", packet)
+    monkeypatch.setattr(_build, "LANE_HEADER", lane)
     for build, h in ((_build.persist_library, header),
                      (_build.persist_library, fetch),
                      (_build.wide_inst_library, header),
                      (_build.wide_inst_library, fetch),
                      (_build.packet_library, header),
                      (_build.packet_library, group),
-                     (_build.packet_library, packet)):
-        for f in (header, group, fetch, packet):
+                     (_build.packet_library, packet),
+                     (_build.packet_library, lane),
+                     (_build.packet_library, fetch)):
+        for f in (header, group, fetch, packet, lane):
             os.utime(f, (0, 0))
         lib = build()
         assert lib.read_text() == "built\n"

@@ -10,7 +10,8 @@ the Python side of the fetch kernels' launch.
 - the launch's rules: stack length from the depth, one zeroed work counter
   per device and stream, zeroed again after a failed launch,
   16-byte-aligned tables; the ptxas report read from a build log; and the
-  source patches of tools/persist_variants.py (persist and two-level).
+  source patches of tools/persist_variants.py (persist, two-level, packet
+  and lane).
 
 The kernels themselves run only on the card (``tests/test_torch_cuda.py``).
 """
@@ -399,7 +400,8 @@ def _variants_tool():
     return mod
 
 
-@pytest.mark.parametrize("kernels", ["persist", "two-level", "packet"])
+@pytest.mark.parametrize("kernels", ["persist", "two-level", "packet",
+                                     "lane"])
 def test_variant_patches_match_the_kernel_source(kernels):
     """Every variant of tools/persist_variants.py replaces text that occurs
     once in the kernel source and its walk header together, so a change of
@@ -410,9 +412,11 @@ def test_variant_patches_match_the_kernel_source(kernels):
     assert set(src) == {
         "persist": {"fetch_walk.cuh", "persist_traverse.cu"},
         "two-level": {"fetch_walk.cuh", "wide_inst_traverse.cu"},
-        "packet": {"packet_walk.cuh", "packet_traverse.cu"}}[kernels]
+        "packet": {"packet_walk.cuh", "packet_traverse.cu"},
+        "lane": {"lane_walk.cuh", "packet_traverse.cu"}}[kernels]
     table = {"persist": tool.VARIANTS, "two-level": tool.INST_VARIANTS,
-             "packet": tool.PACKET_VARIANTS}[kernels]
+             "packet": tool.PACKET_VARIANTS,
+             "lane": tool.LANE_VARIANTS}[kernels]
     for name, edits in tool.PACKET_VARIANTS.items():
         sizes = [new for old, new in edits
                  if old == f"kPacket = {WD.PACKET};"]

@@ -2,15 +2,16 @@
 """The redesigned kernels (persistent walkers, two-level or packet kernels)
 against each part of their design undone, on one CUDA card.
 
-    python3 tools/persist_variants.py [--kernels persist|two-level|packet]
-                                      [--only NAME,NAME] [--config4]
-                                      [--rounds R]
+    python3 tools/persist_variants.py
+        [--kernels persist|two-level|packet|lane] [--only NAME,NAME]
+        [--config4] [--rounds R]
 
 Each variant is a copy of the kernel source (``csrc/persist_traverse.cu``,
 ``csrc/wide_inst_traverse.cu`` or ``csrc/packet_traverse.cu``) and of its
 walk header (``csrc/fetch_walk.cuh``, or ``csrc/packet_walk.cuh`` for the
-packet kernels) with a few lines replaced (``VARIANTS``, ``INST_VARIANTS``,
-``PACKET_VARIANTS``: each replaced text must occur exactly once in the two
+packet kernels, ``csrc/lane_walk.cuh`` for the lane kernels) with a few
+lines replaced (``VARIANTS``, ``INST_VARIANTS``, ``PACKET_VARIANTS``,
+``LANE_VARIANTS``: each replaced text must occur exactly once in the two
 files, or the tool stops), built into
 ``build/rtjax_torch/variants/<kernels>_<variant>/``, all builds started
 together; ptxas's registers, stack frame and spills of its kernels are
@@ -22,13 +23,17 @@ phase-3 rays (2^18 closest-hit, 2^19 any-hit rays over the headline scene)
 tables and its BLAS -- holds every variant bit for bit against the plain
 versions and times it; the packet kernels the same, the frame rendered under
 ``walker="packet"`` and each variant held against the plain group walk at
-its own packet size (``PACKET_GROUPS``); for the two-level kernels the same
+its own packet size (``PACKET_GROUPS``); the lane kernels the same, the
+frame rendered under ``walker="lane"`` (its closest-hit launch and the
+persist any-hit launch of the same iteration) and held against the plain
+group walk at ``lane.LANE``; for the two-level kernels the same
 on ``chip_smoke.py``'s phase-5 field rays over config 4, over
 ``chip_smoke.MANY_INST`` instances, and on the rays of launch
 ``chip_smoke.C4_CAPTURE_AT`` of a config-4 ``two_level="kernel"`` frame.
 Times are device time per launch (``chip_smoke._launch_ms``: mean, least
 and most of ``chip_smoke.REPS`` launches), every variant and the first
-design (stride, or for the packet kernels the leader design) in turns,
+design (stride, the leader design for the packet kernels, the group design
+for the lane kernels) in turns,
 ``--rounds`` rounds.
 """
 
@@ -172,15 +177,166 @@ PACKET_VARIANTS = {
 PACKET_GROUPS = {"packet 64 x2 a block": 64, "packet 64 x4 a block": 64,
                  "packet 128": 128, "packet 256": 256}
 
+# the lane kernels: each part of their design undone
+_DECIDE = "    int next = advance();\n"
+_STOP = "    if (next < 0) return;"
+_LANE_DRAW = """  while (true) {
+    unsigned g = 0u;
+    if (lane == 0) g = atomicAdd(work, 1u);  // the warp's next group
+    g = __shfl_sync(kAllLanes, g, 0);
+"""
+_LANE_ROW = "tb.lt + (size_t)(meta[c] >> 4) * 128"
+# the node row staged by a 16-byte word per lane (the design)
+_REG_STAGE = """template <int W>
+struct NodeStage {
+  float4 word;
+
+  __device__ __forceinline__ void start(LaneShared<W>& sh, int buf,
+                                        const float* __restrict__ nb,
+                                        const int* __restrict__ cm,
+                                        int node, int lane) {
+    if (lane < 3 * W / 2) {
+      word = __ldg(reinterpret_cast<const float4*>(nb + (size_t)node * 128) +
+                   lane);
+    } else if (lane < 7 * W / 4) {
+      const int4 m = __ldg(reinterpret_cast<const int4*>(
+                               cm + (size_t)node * W) + lane - 3 * W / 2);
+      word = make_float4(__int_as_float(m.x), __int_as_float(m.y),
+                         __int_as_float(m.z), __int_as_float(m.w));
+    }
+  }
+
+  __device__ __forceinline__ void land(LaneShared<W>& sh, int buf,
+                                       int lane) {
+    if (lane < 7 * W / 4)
+      reinterpret_cast<float4*>(sh.node[buf])[lane] = word;
+    __syncwarp();
+  }
+};"""
+# the node row copied by one lane with cp.async.bulk on an mbarrier per
+# buffer (packet_walk.cuh's copies), in place of a 16-byte word per lane
+_BULK_STAGE = """template <int W>
+struct NodeStage {
+  unsigned phase = 0u;  // parity of each buffer's next phase
+  bool ready = false;   // the warp's mbarriers are initialised
+
+  __device__ __forceinline__ unsigned long long* bar(int buf) {
+    __shared__ unsigned long long bars[kLaneThreads / 32][2];
+    return &bars[threadIdx.x >> 5][buf];
+  }
+
+  __device__ __forceinline__ void start(LaneShared<W>& sh, int buf,
+                                        const float* __restrict__ nb,
+                                        const int* __restrict__ cm,
+                                        int node, int lane) {
+    __syncwarp();
+    if (!ready) {
+      if (lane == 0) {
+        mbar_init(bar(0));
+        mbar_init(bar(1));
+        asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+      }
+      __syncwarp();
+      ready = true;
+    }
+    if (lane == 0) {
+      fence_async_shared();
+      mbar_expect(bar(buf), 28 * W);
+      bulk_copy(sh.node[buf], nb + (size_t)node * 128, 24 * W, bar(buf));
+      bulk_copy(sh.node[buf] + 6 * W, cm + (size_t)node * W, 4 * W,
+                bar(buf));
+    }
+  }
+
+  __device__ __forceinline__ void land(LaneShared<W>& sh, int buf,
+                                       int lane) {
+    mbar_wait(bar(buf), (phase >> buf) & 1u);
+    phase ^= 1u << buf;
+  }
+};"""
+LANE_VARIANTS = {
+    "design": [],
+    "bulk copies": [(_REG_STAGE, _BULK_STAGE)],
+    # rtjax's lane rule: any hit decides after the leaf tests
+    "decide after (any hit)": [
+        (_DECIDE, "    int next = ANY ? -1 : advance();\n"),
+        (_STOP, "    if (ANY) next = advance();\n" + _STOP)],
+    "no next-node overlap (closest hit)": [
+        (_DECIDE, "    int next = ANY ? advance() : -1;\n"),
+        (_STOP, "    if (!ANY) next = advance();\n" + _STOP)],
+    "4 warps a block": [("kLaneWarps = 8;", "kLaneWarps = 4;")],
+    "16 warps a block": [("kLaneWarps = 8;", "kLaneWarps = 16;")],
+    "static grid": [
+        (_LANE_DRAW, "  for (int once = 0; once < 1; ++once) {\n"
+                     "    const unsigned g = blockIdx.x * (blockDim.x >> 5) "
+                     "+ warp;\n"),
+        ("  const int grid = fetch_grid<lane_kernel<W, ANY>>(n, smem, warps * "
+         "kLane);\n",
+         "  const int grid = ((n - 1) / kLane + warps) / warps;\n")],
+    "pop through the parent's meta": [
+        ("  int buf = 0, sp = 0;\n", "  int buf = 0, sp = 0, cur = 0;\n"),
+        ("          stack[sp + __popc(rest & after)] = meta[lane] >> 4;",
+         "          stack[sp + __popc(rest & after)] = (cur << 4) | lane;"),
+        ("        next = stack[--sp];  // every lane reads the same word",
+         "        const int e = stack[--sp];\n"
+         "        next = __ldg(tb.cm + (size_t)(e >> 4) * W + (e & 15)) >> 4;"),
+        ("    buf ^= 1;\n    stage.land(sh, buf, lane);",
+         "    cur = next;\n    buf ^= 1;\n    stage.land(sh, buf, lane);")],
+    # the plain walk's stack form: one (node, untaken children) entry a
+    # level, lane 0 writes it, a pop reads the child's id from the node's meta
+    "node-mask stack": [
+        ("  int buf = 0, sp = 0;\n", "  int buf = 0, sp = 0, cur = 0;\n"),
+        ("""        if (lane < W && ((rest >> lane) & 1u)) {
+          const unsigned after = rev ? (1u << lane) - 1u : ~0u << (lane + 1);
+          stack[sp + __popc(rest & after)] = meta[lane] >> 4;
+        }
+        sp += __popc(rest);
+        next = meta[first] >> 4;
+      } else if (sp > 0) {
+        next = stack[--sp];  // every lane reads the same word
+      }""", """        if (rest) {
+          if (lane == 0) {
+            stack[2 * sp] = cur;
+            stack[2 * sp + 1] = (int)(rest | rev << 16);
+          }
+          ++sp;
+        }
+        next = meta[first] >> 4;
+      } else if (sp > 0) {
+        const int parent = stack[2 * sp - 2];
+        const unsigned e = (unsigned)stack[2 * sp - 1];
+        const unsigned left = e & 0xffffu, rv = e >> 16;
+        const int c = pick(left, rv);
+        next = __ldg(tb.cm + (size_t)parent * W + c) >> 4;
+        __syncwarp();  // every lane has read the entry
+        if (left & (left - 1u)) {
+          if (lane == 0)
+            stack[2 * sp - 1] = (int)((left & ~(1u << c)) | rv << 16);
+        } else {
+          --sp;
+        }
+      }"""),
+        ("    buf ^= 1;\n    stage.land(sh, buf, lane);",
+         "    cur = next;\n    buf ^= 1;\n    stage.land(sh, buf, lane);")],
+    "unstaged leaves": [
+        ("      stage_rows<W>(sh, chunk, meta, tb.lt, lane);\n", ""),
+        ("leaf_any_s(sh.leaf[k], meta[c] & 15,",
+         f"leaf_any_v<4>({_LANE_ROW}, meta[c] & 15,"),
+        ("leaf_closest_s(sh.leaf[k], meta[c] & 15,",
+         f"leaf_closest_v<4>({_LANE_ROW}, meta[c] & 15,")],
+}
+
 
 def sources(kernels: str) -> dict:
     """``{file name: text}`` of the kernel source and the walk header a
-    variant of ``kernels`` ("persist", "two-level" or "packet") patches."""
+    variant of ``kernels`` ("persist", "two-level", "packet" or "lane")
+    patches."""
     from rtjax_torch.kernels import _build
     src, header = {
         "persist": (_build.PERSIST_SOURCE, _build.FETCH_HEADER),
         "two-level": (_build.WIDE_INST_SOURCE, _build.FETCH_HEADER),
-        "packet": (_build.PACKET_SOURCE, _build.PACKET_HEADER)}[kernels]
+        "packet": (_build.PACKET_SOURCE, _build.PACKET_HEADER),
+        "lane": (_build.PACKET_SOURCE, _build.LANE_HEADER)}[kernels]
     return {p.name: p.read_text() for p in (src, header)}
 
 
@@ -295,10 +451,10 @@ def _inst_calls(cs, torch, args):
         anyhit_stride=WI.wide_traverse_anyhit_inst_stride)
 
 
-def _packet_calls(cs, torch, args):
+def _packet_calls(cs, torch, args, walker="packet"):
     """The same for the packet kernels: phase 3's rays, the rays of launch
-    ``chip_smoke.CAPTURE_AT`` of a ``walker="packet"`` headline frame, and
-    with ``--config4`` config 4's baked tables and BLAS."""
+    ``chip_smoke.CAPTURE_AT`` of a ``walker`` headline frame, and with
+    ``--config4`` config 4's baked tables and BLAS."""
     import dataclasses
 
     from rtjax_torch import RenderConfig
@@ -307,11 +463,12 @@ def _packet_calls(cs, torch, args):
     scene, camera = cs.phase2_scene()
     gen = torch.Generator(device="cuda").manual_seed(1234)
     sets = {"phase 3": cs._test_rays(scene, camera, gen)}
-    captured, restore = cs._capture_launch(cs.CAPTURE_AT, cs.PACKET_NAMES)
+    captured, restore = cs._capture_launch(cs.CAPTURE_AT,
+                                           cs.WALKER_NAMES[walker])
     cfg = RenderConfig(width=cs.WIDTH, height=cs.HEIGHT,
                        num_samples=cs.SPP, max_bounces=cs.BOUNCES)
     render_frame(scene, camera, dataclasses.replace(cfg, **cs.WALKERS[
-        "packet"]), torch.Generator(device="cuda").manual_seed(2))
+        walker]), torch.Generator(device="cuda").manual_seed(2))
     restore()
     sets["in-frame"] = (captured["closest"][1], captured["anyhit"][1])
     tables = dict.fromkeys(sets, scene.tables)
@@ -345,6 +502,28 @@ def _packet_calls(cs, torch, args):
         anyhit_stride=WD.wide_traverse_anyhit_leader)
 
 
+def _lane_calls(cs, torch, args):
+    """The same for the lane kernels: phase 3's rays, the rays of launch
+    ``chip_smoke.CAPTURE_AT`` of a ``walker="lane"`` headline frame (its
+    lane closest-hit and persist any-hit launches), and with ``--config4``
+    config 4's baked tables and BLAS."""
+    from rtjax_torch.kernels import lane as L
+    from rtjax_torch.kernels import wide as WD
+    calls, _ = _packet_calls(cs, torch, args, "lane")
+
+    def closest_ref(*a):
+        return WD.group_traverse_closest_ref(*a, L.LANE)
+
+    def anyhit_ref(*a):
+        return WD.group_traverse_anyhit_ref(*a, L.LANE)
+
+    return calls, dict(
+        module=WD, closest=L.lane_traverse_closest,
+        anyhit=L.lane_traverse_anyhit, closest_ref=closest_ref,
+        anyhit_ref=anyhit_ref, closest_stride=L.lane_traverse_closest_group,
+        anyhit_stride=L.lane_traverse_anyhit_group)
+
+
 def _flat(out):
     """A closest-hit result as a flat tuple of tensors."""
     return tuple(c for o in out for c in (o if isinstance(o, tuple)
@@ -353,17 +532,18 @@ def _flat(out):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--kernels", choices=("persist", "two-level", "packet"),
+    ap.add_argument("--kernels",
+                    choices=("persist", "two-level", "packet", "lane"),
                     default="persist")
     ap.add_argument("--only", default="",
                     help="comma-separated variant names (default: all)")
     ap.add_argument("--config4", action="store_true",
-                    help="persist and packet: also time config 4's baked "
-                         "tables and BLAS")
+                    help="persist, packet and lane: also time config 4's "
+                         "baked tables and BLAS")
     ap.add_argument("--rounds", type=int, default=2)
     args = ap.parse_args()
     table = {"persist": VARIANTS, "two-level": INST_VARIANTS,
-             "packet": PACKET_VARIANTS}[args.kernels]
+             "packet": PACKET_VARIANTS, "lane": LANE_VARIANTS}[args.kernels]
     names = [v for v in args.only.split(",") if v] or list(table)
 
     import torch
@@ -378,13 +558,15 @@ def main():
             lambda n: build(args.kernels, n, table[n]), names)))
     for name, lib in libs.items():
         for kernel, res in _build.ptxas_report(lib):
-            label = cs._group_label(kernel) if args.kernels == "packet" \
+            label = cs._group_label(kernel) \
+                if args.kernels in ("packet", "lane") \
                 else cs._kernel_label(kernel)
-            if "fetch" in kernel or label.startswith("packet "):
+            if "fetch" in kernel or label.startswith(f"{args.kernels} "):
                 print(f"[ptxas {name}] {label}: {res}")
 
     calls, k = {"persist": _persist_calls, "two-level": _inst_calls,
-                "packet": _packet_calls}[args.kernels](cs, torch, args)
+                "packet": _packet_calls, "lane": _lane_calls}[args.kernels](
+        cs, torch, args)
     mod = k["module"]
     shipped = WD.PACKET
 
@@ -415,7 +597,8 @@ def main():
     print(f"[variants {args.kernels}] every variant bit-identical to the "
           f"plain versions on {', '.join(calls)}")
 
-    first = "leader design" if args.kernels == "packet" else "stride design"
+    first = {"packet": "leader design", "lane": "group design"}.get(
+        args.kernels, "stride design")
     rows = [*bound, first]
     times = {(n, label, kind): [] for n in rows for label in calls
              for kind in ("closest", "anyhit")}
