@@ -88,6 +88,29 @@ the script exits non-zero):
    Frames are finite and non-negative; MSE((a), (b)) and MSE((a), (d)) <=
    0.1x and MSE((a), (c)) <= 2x the seed-to-seed MSE of (a) (plus the
    quantisation term for (c)).  Images go to build/rtjax_torch/;
+8. the user's render path (run after phase 6, before phase 7's profiles;
+   every path's launch counts read from zero just before it and just
+   after): (a) ``python -m rtjax_torch render`` at its defaults (the
+   reference demo, cornell_bunny 600x600 @ 10 spp, 10 bounces, on cuda)
+   through ``cli.main``, seeds 1 and 2: the persist kernels once an
+   iteration, framebuffers finite and non-negative, the two means within
+   four standard errors of their difference; (b) a headline frame under
+   ``detailed_stats``: only the persist kernels' stats instances, once an
+   iteration, the bounce histogram summing to the path rays traced, the
+   image at the headline gate; the stats instances' node visits and leaf
+   rows equal to the plain walk's ``new_work()`` counts and their results
+   bit for bit the default instances', on phase 3's rays and on launch
+   CAPTURE_AT of that frame, timed in turns with the default instances;
+   the default instances' ptxas registers unchanged (DEFAULT_REGISTERS);
+   (c) cornell_bunny at MODE_SIZE^2 @ MODE_SPP under
+   ``reference_parity`` and the default estimator: the parity mean within
+   PARITY_MEAN_TOL of rtjax's parity artifact and the parity / default
+   ratio within PARITY_RATIO_TOL of BASELINE's 1.0158; a
+   ``one_sample_mis`` headline frame at the headline gate; (d) eval config
+   5 (1920x1080, 10 bounces) through ``render_checkpointed``: 8 spp as 2
+   batches of 4 saved under build/rtjax_torch/, resumed to 12 spp (one
+   batch rendered), the uninterrupted 12-spp image within C5_RTOL /
+   C5_ATOL, then the sustained rate of 64 spp as 4 batches of 16;
 7. the two persist kernels' device time over one whole headline frame,
    the two packet kernels' over one walker="packet" headline frame, the
    lane closest-hit kernel's over one walker="lane" headline frame (its
@@ -119,7 +142,9 @@ back to back (:func:`_launch_ms`), ``call_ms`` one call in CUDA events,
 host launch included, as earlier runs reported it.  ``launches`` is each
 kernel's count in its main-path run: phase 4's three frames for the
 persist kernels, its packet and lane frames (seed 2) for those kernels,
-6(b) for the two-level ones.  lane_traverse_anyhit is on no engine path
+6(b) for the two-level ones, phase 8(b)'s frame for the persist kernels'
+stats instances (rows of their own, ``(with_stats)``, with the default
+instances' time beside theirs).  lane_traverse_anyhit is on no engine path
 (rtjax's ``anyhit_walker`` takes "persist" or "packet" only), so its count
 is 0.  Every row also carries ``ab``: both designs on each ray set
 (persist, packet and lane: phase 3, the in-frame launch, config 4's baked
@@ -254,14 +279,17 @@ def _kernel_label(mangled):
     """"persist fetch closest, width 16" for a persist or two-level
     kernel's mangled name."""
     import re
-    m = re.search(r"(fetch_kernel|stride_closest_kernel|stride_anyhit_kernel"
-                  r"|inst_fetch|stride_closest|stride_anyhit)"
+    m = re.search(r"(fetch_kernel|fetch_stats_kernel|stride_closest_kernel"
+                  r"|stride_anyhit_kernel|inst_fetch|stride_closest"
+                  r"|stride_anyhit)"
                   r"ILi(\d+)E(?:Lb([01])E)?(?:Lb([01])E)?", mangled)
     if m is None:
         return mangled
     kernels = "two-level" if "Insts" in mangled else "persist"
     design = "fetch" if "fetch" in m[1] else "stride"
     anyhit = m[3] == "1" if design == "fetch" else "anyhit" in m[1]
+    if m[1] == "fetch_stats_kernel":
+        design = "fetch stats"
     label = (f"{kernels} {design} {'any-hit' if anyhit else 'closest'}, "
              f"width {m[2]}")
     if m[4] is not None:
@@ -773,6 +801,7 @@ def phase4_main_path(scene, camera, card):
         P.LAUNCHES[k] = 0
         P.REF_CALLS[k] = 0
         P.STRIDE_LAUNCHES[k] = 0
+        P.STATS_LAUNCHES[k] = 0
     runs = []
     for seed in (1, 2, 3):  # warm-up, then two timed runs
         gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -786,7 +815,8 @@ def phase4_main_path(scene, camera, card):
         if seed == 1:
             restore()
     launches = dict(P.LAUNCHES)
-    ref_calls = sum(P.REF_CALLS.values()) + sum(P.STRIDE_LAUNCHES.values())
+    ref_calls = sum(P.REF_CALLS.values()) + sum(P.STRIDE_LAUNCHES.values()) \
+        + sum(P.STATS_LAUNCHES.values())
 
     secs = [r[0] for r in runs[1:]]
     stats = runs[1][2]
@@ -795,8 +825,8 @@ def phase4_main_path(scene, camera, card):
           f"bounces, pool {cfg.pool_size}: {stats['iterations']} iterations,"
           f" {stats['rays_traced']:.0f} rays traced, {secs[0]:.3f} s and "
           f"{secs[1]:.3f} s (warm-up {runs[0][0]:.3f} s), "
-          f"{mrays:.3f} Mrays/s; launches {launches}, plain-version and "
-          f"stride-design calls {ref_calls}")
+          f"{mrays:.3f} Mrays/s; launches {launches}, plain-version, "
+          f"stride-design and stats-instance calls {ref_calls}")
     if min(launches.values()) == 0 or ref_calls != 0:
         raise RuntimeError("the main path did not run through both kernels")
     if set(captured) != {"closest", "anyhit"}:
@@ -856,13 +886,13 @@ def _capture_launch(at, names=PERSIST_NAMES):
         fn = saved[name] = getattr(trace, name)
         calls = [0]
 
-        def wrapper(tables, *args, _fn=fn, _kind=kind, _calls=calls):
+        def wrapper(tables, *args, _fn=fn, _kind=kind, _calls=calls, **kw):
             _calls[0] += 1
             if _calls[0] == at:
                 keys = ("o", "d", "tmax", "active") if _kind == "closest" \
                     else ("o", "d", "tmax", "exclude", "active")
                 captured[_kind] = (tables, dict(zip(keys, map(copy, args))))
-            return _fn(tables, *args)
+            return _fn(tables, *args, **kw)
 
         setattr(trace, name, wrapper)
 
@@ -1418,7 +1448,7 @@ def phase5_persist(scene, baked, camera, card):
 
 
 _KERNEL_SETS = ("persist", "two_level", "packet", "lane", "stride",
-                "inst_stride", "packet_leader", "lane_group")
+                "inst_stride", "packet_leader", "lane_group", "persist_stats")
 
 
 def _counters():
@@ -1434,7 +1464,24 @@ def _counters():
             "stride": (P.STRIDE_LAUNCHES, None),
             "inst_stride": (WI.STRIDE_LAUNCHES, None),
             "packet_leader": (WD.LEADER_LAUNCHES, None),
-            "lane_group": (L.GROUP_LAUNCHES, None)}
+            "lane_group": (L.GROUP_LAUNCHES, None),
+            "persist_stats": (P.STATS_LAUNCHES, None)}
+
+
+def _zero_counts():
+    """Set every launch and plain-call count to 0."""
+    for launches, refs in _counters().values():
+        for c in (launches, refs):
+            for k in c or ():
+                c[k] = 0
+
+
+def _read_counts():
+    counts = {name: dict(launches) for name, (launches, _) in
+              _counters().items()}
+    counts["plain"] = sum(sum(refs.values()) for _, refs in
+                          _counters().values() if refs is not None)
+    return counts
 
 
 def _drive(scene, camera, cfg, seeds):
@@ -1443,11 +1490,7 @@ def _drive(scene, camera, cfg, seeds):
     kernel set's launches and ``plain``, the plain-version calls."""
     import torch
     from rtjax_torch.render.wavefront import render_frame
-    counters = _counters()
-    for launches, refs in counters.values():
-        for c in (launches, refs):
-            for k in c or ():
-                c[k] = 0
+    _zero_counts()
     runs = []
     for seed in seeds:
         gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -1459,11 +1502,7 @@ def _drive(scene, camera, cfg, seeds):
         if not bool(torch.isfinite(fb).all()) or bool((fb < 0).any()):
             raise RuntimeError("framebuffer has non-finite or negative "
                                "values")
-    counts = {name: dict(launches) for name, (launches, _) in
-              counters.items()}
-    counts["plain"] = sum(sum(refs.values()) for _, refs in
-                          counters.values() if refs is not None)
-    return runs, counts
+    return runs, _read_counts()
 
 
 def _only(counts, kernel_set):
@@ -1578,6 +1617,473 @@ def phase6_in_frame(scene, card, captured):
                        ah, card)
 
 
+# ---------------------------------------------------------------- phase 8
+
+# (a) the reference demo through the command line, at its defaults
+DEMO_SEEDS = (1, 2)
+# (c) the estimator frames (BASELINE.md's parity protocol scene, cut to
+# 16 spp) and the rtjax artifact the parity frame is held to
+MODE_SIZE, MODE_SPP = 1024, 16
+PARITY_ARTIFACT = os.path.join(ROOT, "artifacts",
+                               "parity_reference_1024_1024spp.ppm")
+# BASELINE.md:84-85: the parity mean is the fixed estimator's + 1.58%
+PARITY_RATIO = 1.0158
+# the fixed estimator's 1,024-spp render of the same frame (its pair)
+FIXED_ARTIFACT = os.path.join(ROOT, "artifacts",
+                              "parity_fixed_1024_1024spp.ppm")
+# the gates of (c): |parity mean - the artifact's mean| and |parity /
+# default mean ratio - PARITY_RATIO|, each the largest offset of four
+# seeds plus four standard deviations (tools/mode_bands.py on an NVIDIA
+# H100 80GB HBM3, 700.00 W; PERF.md).  At 16 spp both offsets are
+# systematic, not noise: the 8-bit mean of sqrt(a 16-spp estimate) lies
+# below the 1,024-spp artifact's, and the ratio above BASELINE's.
+PARITY_MEAN_TOL = 0.00168
+PARITY_RATIO_TOL = 0.00275
+# (d) eval config 5 (benchmarks/run_configs.py:228-265): the headline
+# scene at 1920x1080, 10 bounces, default pool
+C5_WIDTH, C5_HEIGHT, C5_BOUNCES = 1920, 1080, 10
+C5_SUSTAINED_SPP, C5_BATCH_SPP = 64, 16
+# resumed vs uninterrupted 12 spp: index_add_'s float atomics order each
+# pixel's sums differently from run to run
+C5_RTOL, C5_ATOL = 1e-5, 1e-6
+# ptxas registers of the persist kernels' default instances (fetch design)
+# before the stats instances were added, on the card's toolkit
+# (PERF.md): they must not change
+DEFAULT_REGISTERS = {"persist fetch closest, width 8": 96,
+                     "persist fetch closest, width 16": 96,
+                     "persist fetch any-hit, width 8": 92,
+                     "persist fetch any-hit, width 16": 94}
+
+
+def _only_set(counts, kernel_set, iterations=None):
+    """True when ``kernel_set`` launched both kernels (``iterations``
+    times each when given), no other set launched and no plain version
+    ran."""
+    ok = _only(counts, kernel_set) and counts["plain"] == 0
+    if iterations is not None:
+        ok = ok and all(v == iterations
+                        for v in counts[kernel_set].values())
+    return ok
+
+
+def phase8_cli(card):
+    """(a) ``python -m rtjax_torch render`` at its defaults (the reference
+    demo: cornell_bunny 600x600 @ 10 spp, 10 bounces, on cuda) through
+    ``cli.main``, seeds 1 (the default) and 2, counts from zero around
+    each: the persist kernels once an iteration and nothing else; each
+    framebuffer finite and non-negative; the two images' means within four
+    standard errors of their difference (sqrt(MSE / pixels))."""
+    import numpy as np
+    import torch
+    import rtjax_torch.render as R
+    from rtjax_torch import cli
+    from rtjax_torch.kernels import _build
+    from rtjax_torch.render.film import read_ppm
+    frames = []
+    orig = R.render_frame
+
+    def keep(*args, **kw):
+        fb, st = orig(*args, **kw)
+        frames.append((fb, st))
+        return fb, st
+
+    imgs = []
+    R.render_frame = keep
+    try:
+        for seed in DEMO_SEEDS:
+            out = _build.BUILD_DIR / f"demo_seed{seed}.ppm"
+            argv = ["render", "-o", str(out)]
+            if seed != 1:
+                argv[1:1] = ["--seed", str(seed)]
+            _zero_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rc = cli.main(argv)
+            secs = time.perf_counter() - t0
+            counts = _read_counts()
+            fb, st = frames[-1]
+            print(f"[cli demo seed {seed}] {card}: python -m rtjax_torch "
+                  f"{' '.join(argv)}: rc {rc}, {st['iterations']} "
+                  f"iterations, {st['rays_traced']:.0f} rays, {secs:.3f} s "
+                  f"with the scene build and the PPM; launches "
+                  f"{ {k: v for k, v in counts.items() if k != 'plain'} }, "
+                  f"plain {counts['plain']}")
+            if rc != 0 or not _only_set(counts, "persist", st["iterations"]):
+                raise RuntimeError("the CLI demo did not run through the "
+                                   "persist kernels, once an iteration")
+            if fb.shape != (600 * 600, 3) or not bool(
+                    torch.isfinite(fb).all()) or bool((fb < 0).any()):
+                raise RuntimeError("the CLI demo's framebuffer is not finite"
+                                   " and non-negative at 600x600")
+            imgs.append(read_ppm(out).astype(np.float64) / 255.0)
+    finally:
+        R.render_frame = orig
+    a, b = imgs
+    diff = float(a.mean() - b.mean())
+    se = float(np.sqrt(np.mean((a - b) ** 2) / (a.shape[0] * a.shape[1])))
+    print(f"[cli demo image] means {a.mean():.5f} / {b.mean():.5f}, "
+          f"difference {diff:.2e}, gate 4 x {se:.2e}")
+    if abs(diff) > 4.0 * se or a.mean() <= 0.0:
+        raise RuntimeError("the CLI demo's two seeds differ beyond the "
+                           "noise floor")
+
+
+def _registers(text):
+    import re
+    m = re.search(r"(\d+) registers", text)
+    return int(m[1]) if m else None
+
+
+def _stats_ptxas():
+    """``({label: registers} of the default fetch instances, {label:
+    registers} of the stats instances)``, printed, and the default ones
+    held to DEFAULT_REGISTERS."""
+    from rtjax_torch.kernels import _build
+    default, stats = {}, {}
+    for name, res in _build.ptxas_report(_build.persist_library()):
+        label = _kernel_label(name)
+        if "fetch_stats_kernel" in name:
+            stats[label] = _registers(res)
+        elif label.startswith("persist fetch"):
+            default[label] = _registers(res)
+    print(f"[stats ptxas] default instances {default}; stats instances "
+          f"{stats}; before the stats instances {DEFAULT_REGISTERS}")
+    if len(default) != 4 or len(stats) != 4:
+        raise RuntimeError("ptxas did not report the four default and four "
+                           "stats instances")
+    if DEFAULT_REGISTERS is not None and default != DEFAULT_REGISTERS:
+        raise RuntimeError("the default instances' registers changed")
+    return default, stats
+
+
+def _check_stats(label, tab, cl, ah, card, plain=False):
+    """The stats instances on ``tab`` with the rays ``cl`` / ``ah``: their
+    node visits and leaf rows equal the plain walk's ``new_work()`` counts
+    exactly, their results equal the default instances' bit for bit, or
+    raise; both timed in turns (default, stats, stats, default; the stats
+    call's time includes the 16-byte zero fill of its buffer).  ``plain``:
+    also time one plain call that counts.  Returns ``{kind: {...}}``."""
+    import torch
+    from rtjax_torch.kernels import persist as P
+    out = {}
+    kinds = {"closest": ((tab, cl["o"], cl["d"], cl["tmax"], cl["active"]),
+                         P.persist_traverse_closest,
+                         P.persist_traverse_closest_ref, RAY_IN,
+                         CLOSEST_OUT, cl),
+             "anyhit": ((tab, ah["o"], ah["d"], ah["tmax"], ah["exclude"],
+                         ah["active"]), P.persist_traverse_anyhit,
+                        P.persist_traverse_anyhit_ref, RAY_IN + EXCLUDE, 1,
+                        ah)}
+    for kind, (args, fn, ref, in_b, out_b, rays) in kinds.items():
+        work = P.new_work()
+        want = ref(*args, work=work)
+        base = fn(*args)
+        got = fn(*args, with_stats=True)
+        torch.cuda.synchronize()
+        counts = tuple(int(c) for c in got[-1])
+        if kind == "closest":
+            pairs = list(zip(got[:3] + tuple(got[3]),
+                             base[:3] + tuple(base[3])))
+            wpairs = list(zip(base[:3] + tuple(base[3]),
+                              want[:3] + tuple(want[3])))
+        else:
+            pairs, wpairs = [(got[0], base)], [(base, want)]
+        mism = sum(int((a != b).sum()) for a, b in pairs)
+        mism_plain = sum(int((a != b).sum()) for a, b in wpairs)
+        want_counts = (work["node_visits"], work["leaf_rows"])
+        new, old = _ab_ms(lambda: fn(*args, with_stats=True),
+                          lambda: fn(*args))
+        plain_ms = _median_ms(lambda: ref(*args, with_stats=True)) \
+            if plain else None
+        n, n_act = rays["tmax"].numel(), int(rays["active"].sum())
+        b = _bound(work, n, n_act, in_b, out_b, tab)
+        r = dict(max_abs_err=float(mism), ms=statistics.mean(new),
+                 default_ms=statistics.mean(old), stats_device_ms=new,
+                 default_device_ms=old, plain_ms=plain_ms, counts=counts,
+                 **{k: b[k] for k in _BOUND_KEYS})
+        r["cost"] = r["ms"] / r["default_ms"]
+        r["share"] = b["bound_ms"] / r["ms"]
+        out[kind] = r
+        print(f"[{label} stats {kind}] {card}: {n} rays ({n_act} active): "
+              f"counts (node visits, leaf rows) {counts}, plain walk "
+              f"{want_counts}; result mismatches vs the default instance "
+              f"{mism} (default vs plain {mism_plain}); device time (mean "
+              f"of {REPS} queued launches, in turns default, stats, stats, "
+              f"default): stats {new[0]:.4f} / {new[1]:.4f} ms, default "
+              f"{old[0]:.4f} / {old[1]:.4f} ms, stats / default "
+              f"{r['cost']:.3f}; bound {b['bound_us']:.3f} us by "
+              f"{b['bound_by']}, stats {100 * r['share']:.2f}% of it"
+              + (f"; plain with counting {plain_ms:.3f} ms" if plain else ""))
+        if counts != want_counts or mism or mism_plain:
+            raise RuntimeError(f"{label}: the {kind} stats instance's counts "
+                               "or results disagree")
+    return out
+
+
+def phase8_stats(scene, camera, card, floor):
+    """(b) A headline frame under ``detailed_stats`` (seed 2), counts from
+    zero: only the stats instances, once an iteration; the histogram sums
+    to the path rays traced (the closest-hit launches' active rays) and
+    its depth 0 to the camera rays; the image at the headline's noise-floor
+    gate.  Then the stats instances against the plain walk and the
+    default instances on phase 3's rays and on launch CAPTURE_AT of this
+    frame, timed in turns with the default instances, and the ptxas
+    registers of both."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from rtjax_torch import RenderConfig
+    from rtjax_torch.render import trace
+    cfg = dataclasses.replace(RenderConfig(
+        width=WIDTH, height=HEIGHT, num_samples=SPP, max_bounces=BOUNCES),
+        detailed_stats=True)
+    captured, restore = _capture_launch(CAPTURE_AT)
+    path_rays = torch.zeros((), dtype=torch.int64, device="cuda")
+    inner = trace.persist_traverse_closest
+
+    def count(tables, o, d, tmax, active, **kw):
+        path_rays.add_(active.sum())
+        return inner(tables, o, d, tmax, active, **kw)
+
+    trace.persist_traverse_closest = count
+    try:
+        runs, c = _drive(scene, camera, cfg, (2,))
+    finally:
+        trace.persist_traverse_closest = inner
+        restore()
+    secs, fb, st = runs[0]
+    hist = st["bounce_histogram"]
+    ref_mse = float(np.mean((_u8_image(fb) - floor["ref"]) ** 2))
+    print(f"[stats frame] {card}: {WIDTH}x{HEIGHT} @ {SPP} spp, "
+          f"detailed_stats, seed 2: {st['iterations']} iterations, "
+          f"{st['rays_traced']:.0f} rays, {secs:.3f} s; histogram "
+          f"{hist.tolist()} (sum {int(hist.sum())}), path rays "
+          f"{int(path_rays)}; node steps {st['node_steps']}, leaf visits "
+          f"{st['leaf_visits']} (any hit {st['anyhit_steps']} / "
+          f"{st['anyhit_visits']}); MSE vs {os.path.relpath(ARTIFACT, ROOT)} "
+          f"{ref_mse:.3e} (gate {floor['gate']:.3e}); launches "
+          f"{ {k: v for k, v in c.items() if k != 'plain'} }")
+    if not _only_set(c, "persist_stats", st["iterations"]):
+        raise RuntimeError("the detailed_stats frame did not run the stats "
+                           "instances alone, once an iteration")
+    if int(hist.sum()) != int(path_rays) or \
+            int(hist[0]) != WIDTH * HEIGHT * SPP:
+        raise RuntimeError("the bounce histogram does not sum to the path "
+                           "rays traced")
+    if ref_mse > floor["gate"]:
+        raise RuntimeError("the detailed_stats frame differs from the rtjax "
+                           "render beyond the noise floor")
+    if set(captured) != {"closest", "anyhit"}:
+        raise RuntimeError(f"launch {CAPTURE_AT} of the stats frame was not "
+                           "captured")
+    gen = torch.Generator(device="cuda").manual_seed(1234)
+    cl, ah = _test_rays(scene, camera, gen)
+    out = {"phase3": _check_stats("kernel", scene.tables, cl, ah, card,
+                                  plain=True)}
+    tab, cl = captured["closest"]
+    _, ah = captured["anyhit"]
+    out["in_frame"] = _check_stats(f"in-frame launch {CAPTURE_AT}", tab, cl,
+                                   ah, card)
+    default, stats = _stats_ptxas()
+    return out, c["persist_stats"], dict(default=default, stats=stats)
+
+
+def _mean_u8(fb, width, height):
+    import numpy as np
+    from rtjax_torch.render.film import to_u8
+    return float(to_u8(fb.cpu().numpy(), width, height)
+                 .astype(np.float64).mean() / 255.0)
+
+
+def phase8_modes(scene, camera, card, floor):
+    """(c) cornell_bunny at MODE_SIZE^2 @ MODE_SPP under
+    ``reference_parity`` and under the default estimator, seed 1, counts
+    from zero around each (persist kernels alone, once an iteration): the
+    parity frame's mean within PARITY_MEAN_TOL of the parity artifact's,
+    and its ratio to the default frame's within PARITY_RATIO_TOL of
+    PARITY_RATIO; then a ``one_sample_mis`` headline frame at the
+    headline gate against the artifact, its any-hit launches N rays
+    each."""
+    import dataclasses
+
+    import numpy as np
+    from rtjax_torch import RenderConfig
+    from rtjax_torch.render.film import read_ppm
+    base = RenderConfig(width=MODE_SIZE, height=MODE_SIZE,
+                        num_samples=MODE_SPP, max_bounces=BOUNCES)
+    means = {}
+    for name, cfg in (("parity", dataclasses.replace(
+            base, reference_parity=True)), ("default", base)):
+        runs, c = _drive(scene, camera, cfg, (1,))
+        secs, fb, st = runs[0]
+        means[name] = _mean_u8(fb, MODE_SIZE, MODE_SIZE)
+        print(f"[modes {name}] {card}: {MODE_SIZE}x{MODE_SIZE} @ {MODE_SPP} "
+              f"spp, seed 1: {st['iterations']} iterations, "
+              f"{st['rays_traced']:.0f} rays, {secs:.3f} s, "
+              f"{st['rays_traced'] / secs / 1e6:.3f} Mrays/s; image mean "
+              f"{means[name]:.5f}; launches {c['persist']}")
+        if not _only_set(c, "persist", st["iterations"]):
+            raise RuntimeError(f"the {name} frame did not run the persist "
+                               "kernels alone, once an iteration")
+    art = float(read_ppm(PARITY_ARTIFACT).astype(np.float64).mean() / 255.0)
+    fixed = float(read_ppm(FIXED_ARTIFACT).astype(np.float64).mean() / 255.0)
+    ratio = means["parity"] / means["default"]
+    print(f"[modes parity] mean {means['parity']:.5f} vs "
+          f"{os.path.relpath(PARITY_ARTIFACT, ROOT)} {art:.5f} (difference "
+          f"{means['parity'] - art:+.5f}, gate {PARITY_MEAN_TOL}); parity / "
+          f"default {ratio:.5f} (BASELINE {PARITY_RATIO}, gate "
+          f"{PARITY_RATIO_TOL}); the default frame vs "
+          f"{os.path.relpath(FIXED_ARTIFACT, ROOT)} {fixed:.5f} (difference "
+          f"{means['default'] - fixed:+.5f})")
+    if abs(means["parity"] - art) > PARITY_MEAN_TOL \
+            or abs(ratio - PARITY_RATIO) > PARITY_RATIO_TOL:
+        raise RuntimeError("the parity frame is outside its band")
+
+    cfg = RenderConfig(width=WIDTH, height=HEIGHT, num_samples=SPP,
+                       max_bounces=BOUNCES, one_sample_mis=True)
+    runs, c = _drive(scene, camera, cfg, (2,))
+    secs, fb, st = runs[0]
+    ref_mse = float(np.mean((_u8_image(fb) - floor["ref"]) ** 2))
+    print(f"[modes one_sample_mis] {card}: {WIDTH}x{HEIGHT} @ {SPP} spp, "
+          f"seed 2: {st['iterations']} iterations, {st['rays_traced']:.0f} "
+          f"rays, {secs:.3f} s; MSE vs {os.path.relpath(ARTIFACT, ROOT)} "
+          f"{ref_mse:.3e} (gate {floor['gate']:.3e}); launches "
+          f"{c['persist']}")
+    if not _only_set(c, "persist", st["iterations"]) or \
+            ref_mse > floor["gate"]:
+        raise RuntimeError("the one_sample_mis frame failed its gate")
+    return dict(means, artifact=art, ratio=ratio, osm_mse=ref_mse)
+
+
+def phase8_config5(scene, camera, card):
+    """(d) Eval config 5 through ``render_checkpointed``: 8 spp as 2
+    batches of 4, saved after each under build/rtjax_torch/; 12 spp
+    resuming at batch 2 (one batch rendered); an uninterrupted 12-spp run
+    of the same seed within C5_RTOL / C5_ATOL of the resumed image; then
+    C5_SUSTAINED_SPP spp as batches of C5_BATCH_SPP, saved at the end,
+    with the rays per spp from a 4-spp probe frame
+    (benchmarks/run_configs.py:243-250).  Counts from zero around each
+    run: the persist kernels alone."""
+    import numpy as np
+    import torch
+    from rtjax_torch import RenderConfig
+    from rtjax_torch.kernels import _build
+    from rtjax_torch.render import wavefront
+    from rtjax_torch.render.checkpoint import render_checkpointed
+    from rtjax_torch.render.film import write_ppm
+
+    def cfg(spp):
+        return RenderConfig(width=C5_WIDTH, height=C5_HEIGHT,
+                            num_samples=spp, max_bounces=C5_BOUNCES)
+
+    batches = []
+    orig = wavefront.render_frame_linear
+
+    def count(*args, **kw):
+        batches.append(1)
+        return orig(*args, **kw)
+
+    def run(label, c, path, batch_spp, save_every):
+        batches.clear()
+        _zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        wavefront.render_frame_linear = count
+        try:
+            img = render_checkpointed(scene, camera, c, path,
+                                      batch_spp=batch_spp,
+                                      save_every=save_every, verbose=False)
+        finally:
+            wavefront.render_frame_linear = orig
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = _read_counts()
+        print(f"[config5 {label}] {card}: {C5_WIDTH}x{C5_HEIGHT} @ "
+              f"{c.num_samples} spp in batches of {batch_spp}: "
+              f"{len(batches)} batches rendered, {secs:.3f} s; launches "
+              f"{counts['persist']}")
+        if not _only_set(counts, "persist"):
+            raise RuntimeError(f"config 5 {label} did not run the persist "
+                               "kernels alone")
+        if not bool(torch.isfinite(img).all()) or bool((img < 0).any()):
+            raise RuntimeError("config 5's image is not finite and "
+                               "non-negative")
+        return img, secs, len(batches)
+
+    path = str(_build.BUILD_DIR / "config5.npz")
+    if os.path.exists(path):
+        os.remove(path)
+    run("8 spp", cfg(8), path, 4, 1)
+    with np.load(path) as ck:
+        done8 = int(ck["batches_done"])
+    resumed, _, n_resumed = run("12 spp resumed", cfg(12), path, 4, 1)
+    with np.load(path) as ck:
+        done12 = int(ck["batches_done"])
+    full, _, _ = run("12 spp uninterrupted", cfg(12), None, 4, 1)
+    close = bool(torch.allclose(resumed, full, rtol=C5_RTOL, atol=C5_ATOL))
+    rel = float(((resumed - full).abs() / full.abs().clamp(min=1e-30))
+                .max())
+    print(f"[config5 resume] batches done {done8} then {done12}, batches "
+          f"rendered on resume {n_resumed}; resumed vs uninterrupted: max "
+          f"|d| {float((resumed - full).abs().max()):.3e}, max relative "
+          f"{rel:.3e}, equal bit for bit {bool(torch.equal(resumed, full))},"
+          f" within rtol {C5_RTOL} / atol {C5_ATOL} {close}")
+    if (done8, done12, n_resumed) != (2, 3, 1) or not close:
+        raise RuntimeError("config 5 did not resume to the uninterrupted "
+                           "image")
+    write_ppm(_build.BUILD_DIR / "config5_12spp.ppm", resumed.cpu().numpy(),
+              C5_WIDTH, C5_HEIGHT, binary=True)
+
+    probe, c = _drive(scene, camera, cfg(4), (1,))
+    p_secs, _, p_st = probe[0]
+    rays_per_spp = p_st["rays_traced"] / 4
+    print(f"[config5 probe] {card}: 4 spp, {p_st['iterations']} iterations,"
+          f" {p_st['rays_traced']:.0f} rays, {p_secs:.3f} s, "
+          f"{p_st['rays_traced'] / p_secs / 1e6:.3f} Mrays/s, pool "
+          f"{cfg(4).pool_size}")
+    if not _only_set(c, "persist", p_st["iterations"]):
+        raise RuntimeError("config 5's probe did not run the persist "
+                           "kernels alone")
+    path = str(_build.BUILD_DIR / "config5_sustained.npz")
+    if os.path.exists(path):
+        os.remove(path)
+    _, secs, n = run(f"{C5_SUSTAINED_SPP} spp sustained",
+                     cfg(C5_SUSTAINED_SPP), path, C5_BATCH_SPP,
+                     C5_SUSTAINED_SPP // C5_BATCH_SPP)
+    rays = rays_per_spp * C5_SUSTAINED_SPP
+    mrays = rays / secs / 1e6
+    print(f"[config5 sustained] {card}: {C5_WIDTH}x{C5_HEIGHT} @ "
+          f"{C5_SUSTAINED_SPP} spp as {n} batches of {C5_BATCH_SPP} "
+          f"(batch pool {cfg(C5_BATCH_SPP).pool_size}): {secs:.3f} s, "
+          f"~{rays:.4g} rays (probe's rays per spp x spp), {mrays:.3f} "
+          f"Mrays/s sustained")
+    return dict(seconds=secs, mrays=mrays, rays=rays, resume_max_rel=rel)
+
+
+def _stats_rows(stats, launches):
+    """The kernels line's rows of the two stats instances."""
+    rows = {}
+    for kind in ("closest", "anyhit"):
+        r = stats["phase3"][kind]
+        rows[kind] = dict(
+            name=f"{KERNELS[kind]['name']} (with_stats)",
+            replaces=KERNELS[kind]["replaces"], route="cuda", source=SOURCE,
+            launches=launches[kind], max_abs_err=max(
+                stats[s][kind]["max_abs_err"] for s in stats),
+            ms=r["ms"], plain_ms=r["plain_ms"], library_ms=None,
+            **{k: r[k] for k in _BOUND_KEYS}, share=r["share"],
+            default_ms=r["default_ms"], cost=r["cost"],
+            timed_launches=2 * REPS,
+            ab={s: {k: stats[s][kind][k] for k in (
+                "stats_device_ms", "default_device_ms", "cost", "counts")}
+                for s in stats},
+            note="the persist kernel with its node visits and leaf rows "
+                 "counted (detailed_stats); bound as the default instance's;"
+                 " plain_ms the plain walk counting")
+    return rows
+
+
 def main():
     t0 = time.perf_counter()
 
@@ -1624,6 +2130,11 @@ def main():
     _record_ab(inst, phase6_in_frame(c4_scene, card, inst_captured),
                "in_frame")
     stamp("phase 6 (config 4 frames)")
+    phase8_cli(card)
+    stats, stats_launches, ptxas = phase8_stats(scene, camera, card, floor)
+    modes = phase8_modes(scene, camera, card, floor)
+    c5 = phase8_config5(scene, camera, card)
+    stamp("phase 8 (CLI, stats, estimator modes, config 5)")
     frames = phase7_frames(scene, camera, card, c4_scene, c4_camera)
     stamp("phase 7 (frame kernels)")
     for rows_, kernels in ((persist, "persist"), (inst, "two_level")):
@@ -1632,11 +2143,19 @@ def main():
     for kind, ms in frames["packet"].items():
         group["packet", kind]["frame_ms"] = ms
     group["lane", "closest"]["frame_ms"] = frames["lane"]["closest"]
-    rows = [*persist.values(), *group.values(), *inst.values()]
+    stats_rows = _stats_rows(stats, stats_launches)
+    rows = [*persist.values(), *stats_rows.values(), *group.values(),
+            *inst.values()]
     for k in rows:
         print(f"[bound] {k['name']}: {k['bound_us']:.3f} us by "
               f"{k['bound_by']}, kernel {k['ms']:.4f} ms device time, "
               f"{100 * k['share']:.2f}% of the bound; launches {k['launches']}")
+    print(f"[summary] {card}: config 5 sustained {c5['mrays']:.3f} Mrays/s "
+          f"({c5['seconds']:.3f} s for {C5_SUSTAINED_SPP} spp); stats / "
+          f"default device time closest "
+          f"{stats_rows['closest']['cost']:.3f}, any hit "
+          f"{stats_rows['anyhit']['cost']:.3f}; stats instances' registers "
+          f"{ptxas['stats']}; parity / default mean {modes['ratio']:.5f}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

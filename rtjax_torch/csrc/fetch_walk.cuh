@@ -13,6 +13,16 @@
 // the kernel resets itself: the last block to finish zeroes them, so a
 // launch costs no memset.
 //
+// A stats instance (fetch_rays<W, ANY, true>) also counts, per lane, the
+// node visits and leaf rows of every ray the lane walks -- the plain
+// walk's ``node_visits`` and ``leaf_rows`` (kernels/persist.py, new_work):
+// a node visit is one slab test of a node's children, a leaf row one row
+// tested, an any-hit walk stopping at the row that occludes.  A lane's
+// counts outlive its rays, so a refill neither drops nor doubles one.  At
+// the end each warp sums its lanes' counts and adds them, in 64 bits, to a
+// two-word buffer with one atomicAdd a word.  The default instances
+// (STATS false) compile as before.
+//
 // The stack lives in shared memory, stack_len entries per thread laid out
 // entry-major (a thread's entries kFetchBlock words apart), so that a
 // warp's lanes touch 32 banks.  One step is the pending leaf rows of the
@@ -46,6 +56,21 @@ struct Rays {
   const int* exclude;  // any hit only
 };
 
+// A stats instance's counts of one lane (32 bits a lane: a lane would
+// need 2^32 node visits in one launch to wrap).
+struct Counts {
+  unsigned nodes = 0u;
+  unsigned leaves = 0u;
+};
+
+// The sum over the warp of a 32-bit count, exact in 64 bits: the two
+// 16-bit halves are summed apart (each sum < 2^21).
+__device__ __forceinline__ unsigned long long warp_sum64(unsigned c) {
+  const unsigned lo = __reduce_add_sync(0xffffffffu, c & 0xffffu);
+  const unsigned hi = __reduce_add_sync(0xffffffffu, c >> 16);
+  return ((unsigned long long)hi << 16) + lo;
+}
+
 // One lane's walk: its ray and where it stands.
 struct Lane {
   Ray r;
@@ -75,15 +100,17 @@ __device__ __forceinline__ void enter(Lane& s, int root) {
 // nothing was visited yet) and its slab tests.  Returns true when the walk
 // is over: the stack is empty, or (any hit) a leaf occludes.  ``*hit`` is
 // set when a leaf row of this step occludes (any hit) or records a closer
-// hit in ``s.best`` (closest hit).
-template <int W, bool ANY>
+// hit in ``s.best`` (closest hit).  With STATS, ``*cnt`` counts the leaf
+// rows tested and the node visited.
+template <int W, bool ANY, bool STATS = false>
 __device__ __forceinline__ bool step(const Tables& tb, Lane& s,
                                      int* st_node, unsigned* st_mask,
-                                     bool* hit) {
+                                     bool* hit, Counts* cnt = nullptr) {
   constexpr unsigned kAll = (1u << W) - 1u;
   while (s.leaves) {
     const int c = __ffs(s.leaves) - 1;
     s.leaves &= s.leaves - 1u;
+    if constexpr (STATS) ++cnt->leaves;
     const int mc = __ldg(tb.cm + (size_t)s.cur * W + c);
     const float* row = tb.lt + (size_t)(mc >> 4) * 128;
     if constexpr (ANY) {
@@ -120,6 +147,7 @@ __device__ __forceinline__ bool step(const Tables& tb, Lane& s,
   } else {
     return true;
   }
+  if constexpr (STATS) ++cnt->nodes;
   const int info = __ldg(tb.ni + next);
   const unsigned lm = (unsigned)info & kAll;
   const float* row = tb.nb + (size_t)next * 128;
@@ -142,16 +170,19 @@ __device__ __forceinline__ bool step(const Tables& tb, Lane& s,
 //   bool after(Lane& s, int i, bool done, bool hit): after each step of
 //     ray i (``done`` and ``hit`` as step returns them); true when ray i is
 //     finished, its results then written.
+// STATS: count the lanes' walks (``Counts``) and add the warp's sums to
+// ``stats[0]`` (node visits) and ``stats[1]`` (leaf rows).
 // Every thread of the block must call it (it ends in __syncthreads).
-template <int W, bool ANY, class Job>
-__device__ __forceinline__ void fetch_rays(const Tables& tb, Job& job, int n,
-                                           unsigned* work, int* st_node,
-                                           unsigned* st_mask) {
+template <int W, bool ANY, bool STATS = false, class Job>
+__device__ __forceinline__ void fetch_rays(
+    const Tables& tb, Job& job, int n, unsigned* work, int* st_node,
+    unsigned* st_mask, unsigned long long* stats = nullptr) {
   const unsigned lane = threadIdx.x & 31u;
   const unsigned below = (1u << lane) - 1u;
   bool more = true;  // warp-uniform: the counter may still hold rays
   int ray = -1;      // this lane's ray; -1 when it has none
   Lane s;
+  Counts cnt;
   while (true) {
     // refill: the empty lanes draw consecutive rays with one atomicAdd; a
     // ray that needs no walk is written out at once and its lane draws
@@ -173,8 +204,18 @@ __device__ __forceinline__ void fetch_rays(const Tables& tb, Job& job, int n,
     if (__ballot_sync(kWarp, ray >= 0) == 0u) break;
     if (ray >= 0) {
       bool hit = false;
-      const bool done = step<W, ANY>(tb, s, st_node, st_mask, &hit);
+      const bool done =
+          step<W, ANY, STATS>(tb, s, st_node, st_mask, &hit, &cnt);
       if (job.after(s, ray, done, hit)) ray = -1;
+    }
+  }
+  if constexpr (STATS) {
+    // the loop ends on a warp vote, so every lane of the warp is here
+    const unsigned long long nodes = warp_sum64(cnt.nodes);
+    const unsigned long long leaves = warp_sum64(cnt.leaves);
+    if (lane == 0u) {
+      atomicAdd(stats, nodes);
+      atomicAdd(stats + 1, leaves);
     }
   }
   // the last block to finish resets the counter for the next launch

@@ -45,6 +45,17 @@
 // points, which only the chip check and the card tests call, to time both
 // designs in one run.
 //
+// The stats instances (``rtjax_persist_*_stats``, fetch_stats_kernel) are
+// the same walk with fetch_walk.cuh's counting on: per lane, the node
+// visits and leaf rows of the rays it walks, summed per warp into a
+// two-word 64-bit buffer that the wrapper zeroes (not the work counter,
+// which stays self-resetting).  The counts equal the plain walk's
+// ``node_visits`` and ``leaf_rows`` as integers, and the results equal
+// the default instances' bit for bit.  The default instances are
+// unchanged.  The port counts per-ray node visits and leaf rows; rtjax's
+// Pallas kernels count TPU walk rounds per sublane tile, a count of the
+// TPU's structure that is not carried over.
+//
 // Exactness: the build uses --fmad=false, so each product and sum rounds
 // like the separate torch ops of the plain versions (kernels/persist.py),
 // which walk each ray in the same order; results agree bit for bit.
@@ -137,12 +148,38 @@ fetch_kernel(const Tables tb, const Rays rays, const int n, const Outs out,
   fetch_rays<W, ANY>(tb, job, n, work, st_node, st_mask);
 }
 
+// The stats instance: the same walk, counting (fetch_walk.cuh) into
+// ``stats`` (two zeroed 64-bit words: node visits, leaf rows).
+template <int W, bool ANY>
+__global__ void __launch_bounds__(kFetchBlock)
+fetch_stats_kernel(const Tables tb, const Rays rays, const int n,
+                   const Outs out, unsigned* __restrict__ work,
+                   const int stack_len,
+                   unsigned long long* __restrict__ stats) {
+  extern __shared__ int stack[];
+  Walk<ANY> job{rays, out};
+  fetch_rays<W, ANY, true>(
+      tb, job, n, work, stack + threadIdx.x,
+      reinterpret_cast<unsigned*>(stack + stack_len * kFetchBlock) +
+          threadIdx.x,
+      stats);
+}
+
+// ``stats`` null: the default instance; else the stats instance.
 template <int W, bool ANY>
 int launch_fetch(const Tables& tb, const Rays& rays, int n, const Outs& out,
-                 unsigned* work, int stack_len, cudaStream_t s) {
+                 unsigned* work, int stack_len, unsigned long long* stats,
+                 cudaStream_t s) {
   if (stack_len < 1 || stack_len > kStack)
     return static_cast<int>(cudaErrorInvalidValue);
   const int smem = 2 * 4 * stack_len * kFetchBlock;
+  if (stats != nullptr) {
+    const int grid = fetch_grid<fetch_stats_kernel<W, ANY>>(n, smem);
+    if (grid < 0) return static_cast<int>(cudaErrorInvalidDevice);
+    fetch_stats_kernel<W, ANY><<<grid, kFetchBlock, smem, s>>>(
+        tb, rays, n, out, work, stack_len, stats);
+    return static_cast<int>(cudaGetLastError());
+  }
   const int grid = fetch_grid<fetch_kernel<W, ANY>>(n, smem);
   if (grid < 0) return static_cast<int>(cudaErrorInvalidDevice);
   fetch_kernel<W, ANY><<<grid, kFetchBlock, smem, s>>>(tb, rays, n, out, work,
@@ -204,17 +241,18 @@ int launch_stride(const Tables& tb, const Rays& rays, int n, const Outs& out,
 template <bool ANY>
 int dispatch(int width, bool stride, const Tables& tb, const Rays& rays,
              int n, const Outs& out, unsigned* work, int stack_len,
-             void* stream) {
+             void* stream, unsigned long long* stats = nullptr) {
   if (n <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (width == 8) {
     return stride ? launch_stride<8, ANY>(tb, rays, n, out, s)
-                  : launch_fetch<8, ANY>(tb, rays, n, out, work, stack_len, s);
+                  : launch_fetch<8, ANY>(tb, rays, n, out, work, stack_len,
+                                         stats, s);
   }
   if (width == 16) {
     return stride ? launch_stride<16, ANY>(tb, rays, n, out, s)
                   : launch_fetch<16, ANY>(tb, rays, n, out, work, stack_len,
-                                          s);
+                                          stats, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -245,6 +283,35 @@ extern "C" int rtjax_persist_anyhit(
                         {ox, oy, oz, dx, dy, dz, tmax, active, exclude}, n,
                         {occ, nullptr, nullptr, nullptr, nullptr, nullptr},
                         work, stack_len, stream);
+}
+
+// The stats instances: as above, plus ``stats``, two zeroed 64-bit words
+// to which the launch adds its node visits and leaf rows.
+extern "C" int rtjax_persist_closest_stats(
+    int width, const float* nb, const int* cm, const int* ni, const float* lt,
+    const float* ox, const float* oy, const float* oz, const float* dx,
+    const float* dy, const float* dz, const float* tmax,
+    const unsigned char* active, int n, unsigned char* hit, float* t,
+    int* prim, float* nx, float* ny, float* nz, unsigned* work, int stack_len,
+    unsigned long long* stats, void* stream) {
+  if (stats == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch<false>(width, false, {nb, cm, ni, lt},
+                         {ox, oy, oz, dx, dy, dz, tmax, active, nullptr}, n,
+                         {hit, t, prim, nx, ny, nz}, work, stack_len, stream,
+                         stats);
+}
+
+extern "C" int rtjax_persist_anyhit_stats(
+    int width, const float* nb, const int* cm, const int* ni, const float* lt,
+    const float* ox, const float* oy, const float* oz, const float* dx,
+    const float* dy, const float* dz, const float* tmax,
+    const unsigned char* active, const int* exclude, int n, unsigned char* occ,
+    unsigned* work, int stack_len, unsigned long long* stats, void* stream) {
+  if (stats == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch<true>(width, false, {nb, cm, ni, lt},
+                        {ox, oy, oz, dx, dy, dz, tmax, active, exclude}, n,
+                        {occ, nullptr, nullptr, nullptr, nullptr, nullptr},
+                        work, stack_len, stream, stats);
 }
 
 // The first design, for same-run A/B only (no engine path reaches these).

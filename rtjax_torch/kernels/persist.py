@@ -22,6 +22,15 @@ The plain walk counts its work when given a ``work`` dict
 triangle slots tested, and which node and leaf rows it read.  The count is
 what a kernel's bound is computed from; it leaves the results as they are.
 
+``with_stats=True`` appends ``(node_steps, leaf_visits)`` (int64 0-d
+tensors on the rays' device) to the results: the node visits and leaf rows
+of the walk, exactly the plain walk's ``node_visits`` and ``leaf_rows``.  A
+CUDA tensor then goes to the kernels' stats instances (the same walk,
+counting per lane and summing per warp in 64 bits; counted in
+``STATS_LAUNCHES``), a CPU tensor to the plain walk with a work count.
+These are per-ray counts of the port's walk; rtjax's Pallas kernels count
+TPU walk rounds per sublane tile, which the port does not carry over.
+
 Contract (rtjax's): rays are component triples (or ``[N, 3]``) of float32
 origin and direction, ``tmax [N] f32``, ``active [N] bool`` and, for any-hit,
 ``exclude [N] i32`` (a leaf-order prim id that never occludes).  Closest hit
@@ -60,6 +69,8 @@ LAUNCHES = {"closest": 0, "anyhit": 0}
 REF_CALLS = {"closest": 0, "anyhit": 0}
 # launches of the first design (the ``_stride`` wrappers), by kernel
 STRIDE_LAUNCHES = {"closest": 0, "anyhit": 0}
+# launches of the stats instances (``with_stats=True``), by kernel
+STATS_LAUNCHES = {"closest": 0, "anyhit": 0}
 WORK_WORDS = 2             # the work counter: next ray, blocks finished
 _work: dict = {}           # (device, stream) -> the counter
 
@@ -114,18 +125,23 @@ def _out_normal(nrm, as_v3):
 # ------------------------------------------------------------- CUDA path
 
 def bind(lib):
-    """Set the argument types of the four entry points of a persist
+    """Set the argument types of the six entry points of a persist
     kernel library (``ctypes.CDLL``) and return it."""
     P, I = ctypes.c_void_p, ctypes.c_int
     lib.rtjax_persist_closest.argtypes = \
         [I, P, P, P, P] + [P] * 8 + [I] + [P] * 6 + [P, I, P]
     lib.rtjax_persist_anyhit.argtypes = \
         [I, P, P, P, P] + [P] * 9 + [I] + [P] + [P, I, P]
+    lib.rtjax_persist_closest_stats.argtypes = \
+        [I, P, P, P, P] + [P] * 8 + [I] + [P] * 6 + [P, I, P, P]
+    lib.rtjax_persist_anyhit_stats.argtypes = \
+        [I, P, P, P, P] + [P] * 9 + [I] + [P] + [P, I, P, P]
     lib.rtjax_persist_closest_stride.argtypes = \
         [I, P, P, P, P] + [P] * 8 + [I] + [P] * 6 + [P]
     lib.rtjax_persist_anyhit_stride.argtypes = \
         [I, P, P, P, P] + [P] * 9 + [I] + [P] + [P]
-    for name in ("closest", "anyhit", "closest_stride", "anyhit_stride"):
+    for name in ("closest", "anyhit", "closest_stride", "anyhit_stride",
+                 "closest_stats", "anyhit_stats"):
         getattr(lib, f"rtjax_persist_{name}").restype = I
     return lib
 
@@ -193,18 +209,31 @@ def _launch(entry, args, name: str, work=None):
     _raise_on(rc, name)
 
 
-def _launch_args(tables, stream, stride):
+def _launch_args(tables, stream, stride, stats=None):
     """``(trailing arguments of an entry point, work counter or None)``:
-    the work counter and the stack length, then the stream (the stride
-    design takes the stream alone)."""
+    the work counter and the stack length, then the stats buffer of a
+    stats instance, then the stream (the stride design takes the stream
+    alone)."""
     if stride:
         return (stream,), None
     _check_aligned(tables)
     work = work_buffer(tables.node_bounds.device, stream)
-    return (work.data_ptr(), stack_len(tables), stream), work
+    tail = (work.data_ptr(), stack_len(tables))
+    if stats is not None:
+        tail += (stats.data_ptr(),)
+    return tail + (stream,), work
 
 
-def _closest_cuda(tables, o, d, tmax, active, stride):
+def _entry(kind, stride, stats):
+    """The entry point's name and the launch count it adds to."""
+    if stride:
+        return f"rtjax_persist_{kind}_stride", STRIDE_LAUNCHES
+    if stats is not None:
+        return f"rtjax_persist_{kind}_stats", STATS_LAUNCHES
+    return f"rtjax_persist_{kind}", LAUNCHES
+
+
+def _closest_cuda(tables, o, d, tmax, active, stride, stats=None):
     n = tmax.shape[0]
     dev = tmax.device
     hit = torch.empty(n, dtype=torch.bool, device=dev)
@@ -213,69 +242,87 @@ def _closest_cuda(tables, o, d, tmax, active, stride):
     nrm = tuple(torch.empty(n, dtype=torch.float32, device=dev)
                 for _ in range(3))
     stream = torch.cuda.current_stream(dev).cuda_stream
-    entry = "rtjax_persist_closest" + ("_stride" if stride else "")
-    tail, work = _launch_args(tables, stream, stride)
+    entry, counts = _entry("closest", stride, stats)
+    tail, work = _launch_args(tables, stream, stride, stats)
     _launch(getattr(_kernels(), entry), (
         tables.width, *_table_ptrs(tables),
         *(c.data_ptr() for c in o), *(c.data_ptr() for c in d),
         tmax.data_ptr(), active.data_ptr(), n,
         hit.data_ptr(), t.data_ptr(), prim.data_ptr(),
         *(c.data_ptr() for c in nrm), *tail), "persist closest-hit", work)
-    (STRIDE_LAUNCHES if stride else LAUNCHES)["closest"] += 1
+    counts["closest"] += 1
     return hit, t, prim, nrm
 
 
-def _anyhit_cuda(tables, o, d, tmax, exclude, active, stride):
+def _anyhit_cuda(tables, o, d, tmax, exclude, active, stride, stats=None):
     n = tmax.shape[0]
     occ = torch.empty(n, dtype=torch.bool, device=tmax.device)
     stream = torch.cuda.current_stream(tmax.device).cuda_stream
-    entry = "rtjax_persist_anyhit" + ("_stride" if stride else "")
-    tail, work = _launch_args(tables, stream, stride)
+    entry, counts = _entry("anyhit", stride, stats)
+    tail, work = _launch_args(tables, stream, stride, stats)
     _launch(getattr(_kernels(), entry), (
         tables.width, *_table_ptrs(tables),
         *(c.data_ptr() for c in o), *(c.data_ptr() for c in d),
         tmax.data_ptr(), active.data_ptr(), exclude.data_ptr(), n,
         occ.data_ptr(), *tail), "persist any-hit", work)
-    (STRIDE_LAUNCHES if stride else LAUNCHES)["anyhit"] += 1
+    counts["anyhit"] += 1
     return occ
 
 
-def _closest(tables: WideTables, origin, direction, tmax, active, stride):
+def _stats_buffer(device):
+    """Two zeroed 64-bit words for a stats instance to add to."""
+    return torch.zeros(2, dtype=torch.int64, device=device)
+
+
+def _closest(tables: WideTables, origin, direction, tmax, active, stride,
+             with_stats=False):
     as_v3 = isinstance(origin, (tuple, list))
     o, d = _columns(origin), _columns(direction)
     _check(tables, o, d, tmax, active)
     if tmax.device.type == "cuda":
-        hit, t, prim, nrm = _closest_cuda(tables, o, d, tmax, active, stride)
+        stats = _stats_buffer(tmax.device) if with_stats else None
+        hit, t, prim, nrm = _closest_cuda(tables, o, d, tmax, active, stride,
+                                          stats)
+        st = () if stats is None else ((stats[0], stats[1]),)
     elif tmax.device.type == "cpu":
-        hit, t, prim, nrm = persist_traverse_closest_ref(tables, o, d, tmax,
-                                                         active)
+        hit, t, prim, nrm, *st = persist_traverse_closest_ref(
+            tables, o, d, tmax, active, with_stats=with_stats)
     else:
         raise ValueError(f"unsupported device {tmax.device}")
-    return hit, t, prim, _out_normal(nrm, as_v3)
+    return (hit, t, prim, _out_normal(nrm, as_v3), *st)
 
 
 def _anyhit(tables: WideTables, origin, direction, tmax, exclude, active,
-            stride):
+            stride, with_stats=False):
     o, d = _columns(origin), _columns(direction)
     _check(tables, o, d, tmax, active, exclude)
     if tmax.device.type == "cuda":
-        return _anyhit_cuda(tables, o, d, tmax, exclude, active, stride)
+        if not with_stats:
+            return _anyhit_cuda(tables, o, d, tmax, exclude, active, stride)
+        stats = _stats_buffer(tmax.device)
+        occ = _anyhit_cuda(tables, o, d, tmax, exclude, active, stride,
+                           stats)
+        return occ, (stats[0], stats[1])
     if tmax.device.type == "cpu":
         return persist_traverse_anyhit_ref(tables, o, d, tmax, exclude,
-                                           active)
+                                           active, with_stats=with_stats)
     raise ValueError(f"unsupported device {tmax.device}")
 
 
 def persist_traverse_closest(tables: WideTables, origin, direction, tmax,
-                             active):
-    """Closest hit of every active ray: ``(hit, t, prim, normal)``."""
-    return _closest(tables, origin, direction, tmax, active, False)
+                             active, with_stats: bool = False):
+    """Closest hit of every active ray: ``(hit, t, prim, normal)``, and
+    with ``with_stats`` a trailing ``(node_steps, leaf_visits)``."""
+    return _closest(tables, origin, direction, tmax, active, False,
+                    with_stats)
 
 
 def persist_traverse_anyhit(tables: WideTables, origin, direction, tmax,
-                            exclude, active):
-    """Occlusion of every active ray, ignoring its ``exclude`` prim."""
-    return _anyhit(tables, origin, direction, tmax, exclude, active, False)
+                            exclude, active, with_stats: bool = False):
+    """Occlusion of every active ray, ignoring its ``exclude`` prim;
+    with ``with_stats``, ``(occluded, (node_steps, leaf_visits))``."""
+    return _anyhit(tables, origin, direction, tmax, exclude, active, False,
+                   with_stats)
 
 
 def persist_traverse_closest_stride(tables: WideTables, origin, direction,
@@ -563,11 +610,23 @@ def anyhit_leaf(occ):
     return on_leaf
 
 
+def _work_pair(work, device):
+    """``(node_steps, leaf_visits)`` of a counted walk, as int64 0-d
+    tensors on ``device``."""
+    return (torch.tensor(work["node_visits"], dtype=torch.int64,
+                         device=device),
+            torch.tensor(work["leaf_rows"], dtype=torch.int64,
+                         device=device))
+
+
 def persist_traverse_closest_ref(tables: WideTables, origin, direction, tmax,
-                                 active, work=None):
+                                 active, work=None, with_stats=False):
     """Plain PyTorch version of :func:`persist_traverse_closest` (same
-    contract, same visit order, any device); ``work`` as in :func:`_walk`."""
+    contract, same visit order, any device); ``work`` as in :func:`_walk`.
+    ``with_stats`` appends the walk's ``(node_steps, leaf_visits)``."""
     REF_CALLS["closest"] += 1
+    if with_stats and work is None:
+        work = new_work()
     as_v3 = isinstance(origin, (tuple, list))
     o, d = _columns(origin), _columns(direction)
     n = tmax.shape[0]
@@ -579,14 +638,20 @@ def persist_traverse_closest_ref(tables: WideTables, origin, direction, tmax,
           work=work)
     hit = best_p >= 0
     nrm = (best_n[:, 0], best_n[:, 1], best_n[:, 2])
-    return hit, best_t, best_p, _out_normal(nrm, as_v3)
+    out = (hit, best_t, best_p, _out_normal(nrm, as_v3))
+    return out + ((_work_pair(work, dev),) if with_stats else ())
 
 
 def persist_traverse_anyhit_ref(tables: WideTables, origin, direction, tmax,
-                                exclude, active, work=None):
-    """Plain PyTorch version of :func:`persist_traverse_anyhit`."""
+                                exclude, active, work=None, with_stats=False):
+    """Plain PyTorch version of :func:`persist_traverse_anyhit`;
+    ``with_stats`` as in :func:`persist_traverse_closest_ref`."""
     REF_CALLS["anyhit"] += 1
+    if with_stats and work is None:
+        work = new_work()
     o, d = _columns(origin), _columns(direction)
     occ = torch.zeros(tmax.shape[0], dtype=torch.bool, device=tmax.device)
     _walk(tables, o, d, tmax, active, anyhit_leaf(occ), exclude, work=work)
+    if with_stats:
+        return occ, _work_pair(work, tmax.device)
     return occ

@@ -18,6 +18,12 @@ scene takes one of rtjax's two strategies, chosen by
   reading one device value per pass;
 - "kernel": one launch of the two-level kernels (kernels/wide_inst.py).
 
+``with_stats=True`` (``RenderConfig.detailed_stats``) appends the walks'
+``(node_steps, leaf_visits)``, summed over every launch of the call
+(repass: the base launch and every pass).  Only the persist kernels count
+(their stats instances); a launch that would take the packet, lane or
+two-level kernels raises NotImplementedError naming ROADMAP Queue S 3.
+
 Every kernel wrapper launches its CUDA kernel for CUDA tensors and runs
 its plain version for CPU tensors.  rtjax's direct all-triangles loop for
 tiny scenes (``direct_max_tris``) computes the same hits and is not ported
@@ -49,6 +55,9 @@ WALKERS = ("auto", "persist", "packet", "lane")
 ANYHIT_WALKERS = ("auto", "persist", "packet")
 _BINARY = ("rtjax's binary-BVH traversal (kernels/traversal.py) is not "
            "ported yet (ROADMAP Queue A 18)")
+_NO_STATS = ("detailed_stats counts traversal work in the persist kernels "
+             "only; the {} kernels' counters are not ported yet (ROADMAP "
+             "Queue S 3)")
 
 
 def check_config(scene, cfg) -> None:
@@ -68,12 +77,21 @@ def check_config(scene, cfg) -> None:
         raise NotImplementedError(
             f"scenes built with max_leaf_size > 8 have no wide tables; "
             f"{_BINARY}")
+    if cfg.detailed_stats:
+        if cfg.walker in ("packet", "lane"):
+            raise NotImplementedError(_NO_STATS.format(cfg.walker))
+        if cfg.anyhit_walker == "packet":
+            raise NotImplementedError(_NO_STATS.format("packet"))
+        if scene.instances is not None and "kernel" in (
+                _resolve_two_level(cfg), _anyhit_two_level(cfg)):
+            raise NotImplementedError(_NO_STATS.format("two-level"))
 
 
-def _backend(tables, cfg):
+def _backend(tables, cfg, with_stats=False):
     """The ``(closest, anyhit)`` traversal functions for one set of wide
     tables, by walker, as rtjax's ``_backend`` (trace.py:172-234) picks
-    them.  The persistent walkers take trees whose stack fits
+    them; with ``with_stats`` they return the walk's counts too (persist
+    kernels only).  The persistent walkers take trees whose stack fits
     ``persist.STACK``: "auto" takes them there and the packet kernels
     beyond, and "persist" on a deeper tree warns once and takes the packet
     kernels.  "lane" takes its kernels where a warp's stack fits a block
@@ -102,7 +120,20 @@ def _backend(tables, cfg):
                "lane": lane_traverse_closest}[walker]
     anyhit = persist_traverse_anyhit \
         if cfg.anyhit_walker != "packet" and fits else wide_traverse_anyhit
+    if with_stats:
+        if closest is not persist_traverse_closest or \
+                anyhit is not persist_traverse_anyhit:
+            raise NotImplementedError(_NO_STATS.format(
+                f"packet and lane (a tree of depth {tables.depth})"))
+        return (partial(closest, tables, with_stats=True),
+                partial(anyhit, tables, with_stats=True))
     return partial(closest, tables), partial(anyhit, tables)
+
+
+def _anyhit_two_level(cfg) -> str:
+    """``two_level_anyhit``, "auto" following ``two_level``."""
+    tl = cfg.two_level_anyhit
+    return _resolve_two_level(cfg) if tl == "auto" else tl
 
 
 def _resolve_two_level(cfg) -> str:
@@ -169,36 +200,58 @@ def _repass_passes(scene, o, d, active, blocked):
                    tuple(c.contiguous() for c in d_l))
 
 
-def _repass_closest(scene, cfg, o, d, tmax, active):
+def _add(st, more):
+    """Sum two ``(node_steps, leaf_visits)`` pairs (None: no counts)."""
+    return None if st is None else (st[0] + more[0], st[1] + more[1])
+
+
+def _repass_closest(scene, cfg, o, d, tmax, active, with_stats=False):
     """Two-level closest hit by multi-pass re-dispatch; the normal is
     LOCAL.  Every launch takes the kernel ``cfg.walker`` picks for its
-    tables."""
-    hit, t, prim, n_l = _backend(scene.tables, cfg)[0](o, d, tmax, active)
+    tables.  Returns ``(hit, t, prim, src, n_l, counts)``, counts summed
+    over the launches (None without ``with_stats``)."""
+    hit, t, prim, n_l, *st = _backend(scene.tables, cfg, with_stats)[0](
+        o, d, tmax, active)
+    st = st[0] if with_stats else None
     t = torch.where(hit, t, tmax)
     src = torch.zeros_like(prim)
     for tables, pend, src_k, o_l, d_l in _repass_passes(
             scene, o, d, active, lambda ent: ~(ent < t[None])):
-        h2, t2, p2, nl2 = _backend(tables, cfg)[0](o_l, d_l, t, pend)
+        h2, t2, p2, nl2, *st2 = _backend(tables, cfg, with_stats)[0](
+            o_l, d_l, t, pend)
+        if with_stats:
+            st = _add(st, st2[0])
         closer = h2 & (t2 < t)
         t = torch.where(closer, t2, t)
         prim = torch.where(closer, p2, prim)
         src = torch.where(closer, src_k, src)
         n_l = vec.where(closer, nl2, n_l)
         hit = hit | closer
-    return hit, t, prim, src, n_l
+    return hit, t, prim, src, n_l, st
 
 
-def _repass_anyhit(scene, cfg, o, d, tmax, exclude, active):
+def _repass_anyhit(scene, cfg, o, d, tmax, exclude, active,
+                   with_stats=False):
     """Two-level occlusion by multi-pass re-dispatch; the exclusion applies
     in the base scene only, and occluded rays drop out of later passes.
-    Every launch takes the kernel ``cfg.anyhit_walker`` picks."""
-    occ = _backend(scene.tables, cfg)[1](o, d, tmax, exclude, active)
+    Every launch takes the kernel ``cfg.anyhit_walker`` picks.  Returns
+    ``(occluded, counts)``, counts as in :func:`_repass_closest`."""
+    occ = _backend(scene.tables, cfg, with_stats)[1](o, d, tmax, exclude,
+                                                     active)
+    st = None
+    if with_stats:
+        occ, st = occ
     no_excl = torch.full_like(exclude, -1)
     for tables, pend, _, o_l, d_l in _repass_passes(
             scene, o, d, active,
             lambda ent: ~(ent < tmax[None]) | occ[None]):
-        occ = occ | _backend(tables, cfg)[1](o_l, d_l, tmax, no_excl, pend)
-    return occ
+        occ_k = _backend(tables, cfg, with_stats)[1](o_l, d_l, tmax, no_excl,
+                                                     pend)
+        if with_stats:
+            occ_k, st2 = occ_k
+            st = _add(st, st2)
+        occ = occ | occ_k
+    return occ, st
 
 
 def _world_normal(inst, src, n_l):
@@ -209,35 +262,42 @@ def _world_normal(inst, src, n_l):
     return vec.where(src > 0, n_w, n_l)
 
 
-def trace_closest(scene, cfg, o, d, tmax, active):
+def trace_closest(scene, cfg, o, d, tmax, active, with_stats=False):
     """Closest hit over the base scene and every instance: ``(hit, t,
     prim, src, normal)``; t is ``tmax`` on a miss and ``normal`` the world
     unnormalised ``cross(e1, e2)`` of the hit triangle.  ``o`` / ``d`` are
-    component triples."""
+    component triples.  ``with_stats`` appends ``(node_steps,
+    leaf_visits)``, summed over the call's launches."""
     if scene.instances is None:
-        hit, t, prim, normal = _backend(scene.tables, cfg)[0](o, d, tmax,
-                                                              active)
+        hit, t, prim, normal, *st = _backend(scene.tables, cfg, with_stats)[
+            0](o, d, tmax, active)
         t = torch.where(hit, t, tmax)
-        return hit, t, prim, torch.zeros_like(prim), normal
+        return (hit, t, prim, torch.zeros_like(prim), normal, *st)
     if _strategy(scene, _resolve_two_level(cfg)) == "repass":
-        hit, t, prim, src, n_l = _repass_closest(scene, cfg, o, d, tmax,
-                                                 active)
+        hit, t, prim, src, n_l, st = _repass_closest(scene, cfg, o, d, tmax,
+                                                     active, with_stats)
     else:
+        if with_stats:
+            raise NotImplementedError(_NO_STATS.format("two-level"))
         hit, t, prim, src, n_l = wide_traverse_closest_inst(
             scene.inst_tables, o, d, tmax, active)
         t = torch.where(hit, t, tmax)
-    return hit, t, prim, src, _world_normal(scene.instances, src, n_l)
+    out = (hit, t, prim, src, _world_normal(scene.instances, src, n_l))
+    return out + ((st,) if with_stats else ())
 
 
-def trace_anyhit(scene, cfg, o, d, tmax, exclude, active):
-    """Occlusion with a per-lane excluded base-scene (leaf-order) prim."""
+def trace_anyhit(scene, cfg, o, d, tmax, exclude, active, with_stats=False):
+    """Occlusion with a per-lane excluded base-scene (leaf-order) prim;
+    ``with_stats`` returns ``(occluded, (node_steps, leaf_visits))``."""
     if scene.instances is None:
-        return _backend(scene.tables, cfg)[1](o, d, tmax, exclude, active)
-    tl = cfg.two_level_anyhit
-    if tl == "auto":
-        tl = _resolve_two_level(cfg)
-    if _strategy(scene, tl) == "repass":
-        return _repass_anyhit(scene, cfg, o, d, tmax, exclude, active)
+        return _backend(scene.tables, cfg, with_stats)[1](o, d, tmax,
+                                                          exclude, active)
+    if _strategy(scene, _anyhit_two_level(cfg)) == "repass":
+        occ, st = _repass_anyhit(scene, cfg, o, d, tmax, exclude, active,
+                                 with_stats)
+        return (occ, st) if with_stats else occ
+    if with_stats:
+        raise NotImplementedError(_NO_STATS.format("two-level"))
     return wide_traverse_anyhit_inst(scene.inst_tables, o, d, tmax, exclude,
                                      active)
 

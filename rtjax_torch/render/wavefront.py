@@ -8,6 +8,25 @@ last), NEE + MIS shading, camera-ray generation into the dead suffix, the
 framebuffer flush, then the closest-hit traversal of the path rays and one
 any-hit traversal of both shadow channels (2N rays).
 
+Estimator modes (``RenderConfig``), as in rtjax:
+
+- ``one_sample_mis``: the BSDF-sampling MIS channel reuses the path ray's
+  sample, and its "closest hit is the picked light's triangle" test reads
+  the path ray's own hit, so the any-hit launch traces N rays, not 2N, and
+  ``rays_traced`` counts only the traversals made;
+- ``reference_parity``: the reference's three estimator quirks (the
+  truncated second pdf of the power heuristic, the BSDF-MIS target on the
+  triangle the path stands on, and Russian-roulette "limbo": a killed path
+  keeps its hit and re-rolls on later iterations, neither shading, tracing
+  nor regenerating meanwhile); it sorts every iteration, carries the path
+  state unpacked through the sort and ranks regenerated slots by a prefix
+  sum, as rtjax does;
+- the constant environment light (``Scene.env_radiance``) adds
+  ``beta * env`` where a path misses (zero in every built-in scene);
+- ``detailed_stats``: the bounce histogram of traced path rays and the
+  traversal kernels' node visits and leaf rows (persist kernels only), all
+  accumulated on the device.
+
 Differences from rtjax, none of which changes a result:
 
 - ``lax.while_loop`` becomes a Python loop whose condition reads one
@@ -18,8 +37,6 @@ Differences from rtjax, none of which changes a result:
   values that every consumer masks off, so the results are bitwise the
   same; this port runs the three stages at full width.  Whether the windows
   pay on the H100 is an open A/B (ROADMAP Queue S 2).
-- The environment light (zero radiance in every ported scene) is not
-  ported; its term adds exact zeros.
 - The random words of an iteration come from the caller (``words``);
   ``render_frame`` draws them from a ``torch.Generator``.
 """
@@ -124,14 +141,13 @@ def resolve_sort_every(scene, cfg) -> int:
 
 
 def check_slice(scene: Scene, cfg: RenderConfig) -> None:
-    """Raise NotImplementedError for what this port does not run yet."""
+    """Raise ValueError for modes that exclude each other and
+    NotImplementedError for what this port does not run yet."""
+    if cfg.one_sample_mis and cfg.reference_parity:
+        raise ValueError("one_sample_mis replaces the reference's second "
+                         "BSDF draw; it cannot be combined with "
+                         "reference_parity")
     check_config(scene, cfg)
-    modes = {"reference_parity": "ROADMAP Queue A 13",
-             "one_sample_mis": "ROADMAP Queue A 13",
-             "detailed_stats": "ROADMAP Queue S 3"}
-    for field, item in modes.items():
-        if getattr(cfg, field):
-            raise NotImplementedError(f"{field} is not ported yet ({item})")
     if cfg.sort_key not in ("morton_pos", "morton"):
         raise NotImplementedError(
             f"sort_key={cfg.sort_key!r} is not ported yet (ROADMAP Queue "
@@ -149,10 +165,12 @@ def _accum(acc, value, mask):
     return tuple(a + torch.where(ok, c, 0.0) for a, c in zip(acc, value))
 
 
-def _shade(scene, src, prim, beta, p, wo, normal, mat_mask,
+def _shade(scene, cfg, src, prim, beta, p, wo, normal, mat_mask,
            u_bsdf1, u_pick, u_luv, u_bsdf2):
     """The mat stage: next path ray, NEE shadow ray (light-sampling MIS)
-    and the BSDF-sampling MIS ray toward the picked light."""
+    and the BSDF-sampling MIS ray toward the picked light (its target the
+    triangle the path stands on under ``reference_parity``; no ray of its
+    own under ``one_sample_mis``)."""
     num_lights = scene.num_lights
     mtype, albedo, ior = gather_hit_materials_v3(scene, src, prim)
     multiplier = vec.scale(float(num_lights), beta)
@@ -180,26 +198,53 @@ def _shade(scene, src, prim, beta, p, wo, normal, mat_mask,
     n_l = vec.where(vec.dot(n_g, wi_l) > 0.0, n_g, vec.neg(n_g))
     got_f, f_l, scat_pdf = get_f_v3(mtype, albedo, wo, wi_l, n_l)
     f_lc = vec.scale(vec.dot(wi_l, n_l), f_l)
-    w_l = torch.where(delta, 1.0, power_heuristic(light_pdf, scat_pdf))
+    # the reference's power heuristic truncates its second pdf to an int
+    g_l = torch.trunc(scat_pdf) if cfg.reference_parity else scat_pdf
+    w_l = torch.where(delta, 1.0, power_heuristic(light_pdf, g_l))
     ah_L = vec.mul(multiplier,
                    vec.scale(w_l / light_pdf, vec.mul(f_lc, li)))
     ah_o, ah_d, ah_tmax = spawn_offset_ray_v3(p, n_l, wi_l, light_t)
 
-    # BSDF-sampling MIS: a second BSDF sample that must reach the picked
-    # light's triangle unoccluded (direct MT test + any-hit excluding it)
-    f2, wi2, pdf2, n2 = sample_f_v3(mtype, albedo, ior, wo, n_g, *u_bsdf2)
+    # BSDF-sampling MIS: a second BSDF sample (one_sample_mis: the path
+    # ray's own) that must reach the target triangle unoccluded (direct MT
+    # test + any-hit excluding it)
+    if cfg.one_sample_mis:
+        f2, wi2, pdf2, n2 = f1, wi1, pdf1, n1
+    else:
+        f2, wi2, pdf2, n2 = sample_f_v3(mtype, albedo, ior, wo, n_g,
+                                        *u_bsdf2)
     f2c = vec.scale(vec.dot(wi2, n2), f2)
     spec = is_specular(mtype)
     lpdf2 = pdf_li_v3(scene.lights, pick, p, wi2, rec=lrec)
-    w2 = torch.where(spec, 1.0, power_heuristic(pdf2, lpdf2))
+    g_2 = torch.trunc(lpdf2) if cfg.reference_parity else lpdf2
+    w2 = torch.where(spec, 1.0, power_heuristic(pdf2, g_2))
+    chs_mask = mat_mask & ~delta & (spec | (lpdf2 > 0.0))
     chs_L = vec.mul(multiplier, vec.scale(w2 / pdf2, vec.mul(f2c, l_emit)))
-    chs_o, chs_d, _ = spawn_offset_ray_v3(p, n2, wi2)
-    chs_hit_l, chs_t, _, _ = intersect_triangle_v3(
-        chs_o, chs_d, float("inf"), ltp0, lte1, lte2, ltn)
-    chs_mask = mat_mask & ~delta & (spec | (lpdf2 > 0.0)) & chs_hit_l
     out.update(ah_o=ah_o, ah_d=ah_d, ah_tmax=ah_tmax, ah_L=ah_L,
-               ah_mask=mat_mask & got_f, ltri=ltri, chs_o=chs_o, chs_d=chs_d,
-               chs_L=chs_L, chs_mask=chs_mask, chs_tgt=ltri, chs_t=chs_t)
+               ah_mask=mat_mask & got_f, ltri=ltri, chs_L=chs_L,
+               chs_mask=chs_mask)
+    if cfg.one_sample_mis:
+        # the path ray's hit record answers "closest hit == the light"
+        return out
+    chs_o, chs_d, _ = spawn_offset_ray_v3(p, n2, wi2)
+    if cfg.reference_parity:
+        # the reference's target is the triangle the path stands on (an
+        # instanced hit has none: the channel is masked off there)
+        own = torch.clamp(prim, 0, scene.tris.num - 1).long()
+        own_tri = tuple(tuple(getattr(scene.tris, f)[:, k][own]
+                              for k in range(3))
+                        for f in ("p0", "e1", "e2", "n"))
+        chs_tgt = torch.where(src == 0, prim, INVALID_INDEX)
+        chs_hit_l, chs_t, _, _ = intersect_triangle_v3(
+            chs_o, chs_d, float("inf"), *own_tri)
+        chs_mask = chs_mask & chs_hit_l & (src == 0)
+    else:
+        chs_tgt = ltri
+        chs_hit_l, chs_t, _, _ = intersect_triangle_v3(
+            chs_o, chs_d, float("inf"), ltp0, lte1, lte2, ltn)
+        chs_mask = chs_mask & chs_hit_l
+    out.update(chs_o=chs_o, chs_d=chs_d, chs_mask=chs_mask, chs_tgt=chs_tgt,
+               chs_t=chs_t)
     return out
 
 
@@ -208,12 +253,16 @@ def wavefront_step(scene: Scene, camera: Camera, cfg: RenderConfig, words,
     """One wavefront iteration.  ``words`` is the iteration's ``[5, N]``
     block of 32-bit random words (int64); ``carry`` is ``(state, fb,
     cam_start, it, work_left, rays_traced, occ_sum)`` with ``it`` a Python
-    int and the rest tensors on the scene's device.  The framebuffer ``fb``
-    is accumulated in place (``index_add_``) rather than copied."""
-    state, fb, cam_start, it, _, rays_traced, occ_sum = carry
+    int and the rest tensors on the scene's device, and under
+    ``detailed_stats`` five more: the bounce histogram ``[max_bounces + 1]``
+    and the node-step, leaf-visit, any-hit step and any-hit visit sums
+    (int64).  The framebuffer ``fb`` is accumulated in place
+    (``index_add_``) rather than copied."""
+    state, fb, cam_start, it, _, rays_traced, occ_sum, *extra = carry
     n = state.pixel.shape[0]
     dev = state.pixel.device
     num_lights = scene.num_lights
+    parity = cfg.reference_parity
     cam_end = cfg.total_camera_rays
     draw_pair = lambda w: rng.u01_pair(words[w])
     u_rr, u_pick = draw_pair(_W_RR_PICK)
@@ -235,6 +284,12 @@ def wavefront_step(scene: Scene, camera: Camera, cfg: RenderConfig, words,
     emit_val = tuple(vec.take_rows(scene.lights.emit[:, k], emit_li)
                      for k in range(3))
     acc = _accum(state.acc, emit_val, emit0)
+    # the constant environment light on a miss (a BSDF-sampled channel
+    # that NEE never samples, so it takes no MIS weight)
+    env_mask = ~state.hit & (state.bounces <= cfg.max_bounces)
+    env = scene.env_radiance
+    acc = _accum(acc, vec.mul(state.beta, (env[0], env[1], env[2])),
+                 env_mask)
 
     alive = state.bounces < cfg.max_bounces
     beta = state.beta
@@ -251,60 +306,86 @@ def wavefront_step(scene: Scene, camera: Camera, cfg: RenderConfig, words,
     # ---- the sort: the iteration's one compaction step -------------------
     hp_t = torch.where(mat_mask, state.t, 0.0)
     hp = vec.add(state.ray_o, vec.scale(hp_t, state.ray_d))
-    k_req = resolve_sort_every(scene, cfg)
-    if k_req > 1:
-        # sort, gen and flush only every k-th iteration, or when the live
-        # part drops below 3/4 of the pool (one device read)
-        num_mat_pre = int(mat_mask.sum())
-        do_gen = (it % k_req) == 0 or num_mat_pre * 4 < n * 3
-    else:
+    root_lo, root_hi = scene.bvh.bmin[0], scene.bvh.bmax[0]
+    keyf = ray_sort_keys_pos_v3 if cfg.sort_key == "morton_pos" \
+        else ray_sort_keys_v3
+    if parity:
+        # the reference's RR "limbo": a killed path keeps its payload (and
+        # hit) for later re-rolls; it neither shades, traces nor
+        # regenerates.  Every iteration sorts, with the full state.
+        limbo = rr_kill
         do_gen = True
+        keys = keyf(hp, state.ray_d, root_lo, root_hi, mat_mask)
+        bundle = (state.pixel, state.ray_o, state.ray_d, state.t,
+                  state.normal, state.prim, state.src, bounces, beta, acc,
+                  mat_mask, limbo)
+        (pixel, ray_o_p, ray_d_p, t_p, normal, prim, src, bounces, beta, acc,
+         mat_mask, limbo) = sort_pytree_by_key(keys, bundle)
+        p = vec.add(ray_o_p, vec.scale(torch.where(mat_mask, t_p, 0.0),
+                                       ray_d_p))
+        gen_mask = ~mat_mask & ~limbo
+    else:
+        k_req = resolve_sort_every(scene, cfg)
+        if k_req > 1:
+            # sort, gen and flush only every k-th iteration, or when the
+            # live part drops below 3/4 of the pool (one device read)
+            num_mat_pre = int(mat_mask.sum())
+            do_gen = (it % k_req) == 0 or num_mat_pre * 4 < n * 3
+        else:
+            do_gen = True
 
-    dirty = ~mat_mask & ((acc[0] != 0.0) | (acc[1] != 0.0) | (acc[2] != 0.0))
-    # packed bundle: pixel | bounces (7 bits, 127 = dead) | mat bit;
-    # prim + 1 | src; octahedral normal and direction; RGB9E5 beta and acc
-    b7 = torch.clamp(bounces, max=127)
-    pbm = state.pixel | (b7 << 21) | (mat_mask.to(torch.int32) << 28)
-    sp = (state.prim + 1) | (state.src << 23)
-    bundle = (hp, rgb9e5_encode_v3(beta), rgb9e5_encode_v3(acc), pbm, sp,
-              oct_encode_v3(state.normal), oct_encode_v3(state.ray_d))
-    if do_gen:
-        root_lo, root_hi = scene.bvh.bmin[0], scene.bvh.bmax[0]
-        keyf = ray_sort_keys_pos_v3 if cfg.sort_key == "morton_pos" \
-            else ray_sort_keys_v3
-        keys = torch.where(dirty, _DIRTY_KEY,
-                           keyf(hp, state.ray_d, root_lo, root_hi, mat_mask))
-        bundle = sort_pytree_by_key(keys, bundle)
-    p, b9, a9, pbm, sp, onrm, od = bundle
-    ray_d_p = oct_decode_v3(od)
-    beta = rgb9e5_decode_v3(b9)
-    acc = rgb9e5_decode_v3(a9)
-    pixel = pbm & 0x1FFFFF
-    b_dec = (pbm >> 21) & 0x7F
-    bounces = torch.where(b_dec >= 127, DEAD_BOUNCES, b_dec)
-    mat_mask = ((pbm >> 28) & 1) != 0
-    prim = (sp & 0x7FFFFF) - 1
-    src = (sp >> 23) & 0xFF
-    normal = oct_decode_v3(onrm)
-    gen_mask = ~mat_mask
+        dirty = ~mat_mask & ((acc[0] != 0.0) | (acc[1] != 0.0)
+                             | (acc[2] != 0.0))
+        # packed bundle: pixel | bounces (7 bits, 127 = dead) | mat bit;
+        # prim + 1 | src; octahedral normal and direction; RGB9E5 beta and
+        # acc
+        b7 = torch.clamp(bounces, max=127)
+        pbm = state.pixel | (b7 << 21) | (mat_mask.to(torch.int32) << 28)
+        sp = (state.prim + 1) | (state.src << 23)
+        bundle = (hp, rgb9e5_encode_v3(beta), rgb9e5_encode_v3(acc), pbm, sp,
+                  oct_encode_v3(state.normal), oct_encode_v3(state.ray_d))
+        if do_gen:
+            keys = torch.where(dirty, _DIRTY_KEY,
+                               keyf(hp, state.ray_d, root_lo, root_hi,
+                                    mat_mask))
+            bundle = sort_pytree_by_key(keys, bundle)
+        p, b9, a9, pbm, sp, onrm, od = bundle
+        ray_d_p = oct_decode_v3(od)
+        beta = rgb9e5_decode_v3(b9)
+        acc = rgb9e5_decode_v3(a9)
+        pixel = pbm & 0x1FFFFF
+        b_dec = (pbm >> 21) & 0x7F
+        bounces = torch.where(b_dec >= 127, DEAD_BOUNCES, b_dec)
+        mat_mask = ((pbm >> 28) & 1) != 0
+        prim = (sp & 0x7FFFFF) - 1
+        src = (sp >> 23) & 0xFF
+        normal = oct_decode_v3(onrm)
+        ray_o_p = p  # a dead lane's ray is never read
+        gen_mask = ~mat_mask
 
     # ---- shading (full width; see the module docstring) -------------------
     b1u1, b1u2 = draw_pair(_W_BSDF1)
     b2u1, b2u2 = draw_pair(_W_BSDF2)
-    sh = _shade(scene, src, prim, beta, p, ray_d_p, normal, mat_mask,
+    sh = _shade(scene, cfg, src, prim, beta, p, ray_d_p, normal, mat_mask,
                 (b1u1, b1u2, b1u1), u_pick, draw_pair(_W_LIGHT_UV),
                 (b2u1, b2u2, b2u1))
 
     # ---- camera generation into the dead suffix ---------------------------
     gen_u, gen_v = draw_pair(_W_GEN)
     if do_gen:
-        # after the sort the continuing lanes are exactly the prefix
         num_gen = gen_mask.sum()
-        num_mat = n - num_gen
-        idx = torch.arange(n, dtype=torch.int32, device=dev)
-        gen_rank = torch.clamp(idx - num_mat, min=0)
-        cam_id = cam_start + gen_rank
-        got_ray = (idx >= num_mat) & (cam_id < cam_end)
+        if parity:
+            # limbo lanes sit among the dead ones: rank by a prefix sum
+            gen_rank = torch.cumsum(gen_mask, 0) - gen_mask.long()
+            cam_id = cam_start + gen_rank
+            got_ray = gen_mask & (cam_id < cam_end)
+        else:
+            # after the sort the continuing lanes are exactly the prefix
+            num_mat = n - num_gen
+            idx = torch.arange(n, dtype=torch.int32, device=dev)
+            gen_rank = torch.clamp(idx - num_mat, min=0)
+            cam_id = cam_start + gen_rank
+            got_ray = (idx >= num_mat) & (cam_id < cam_end)
         pix_rank = torch.clamp(torch.div(cam_id, cfg.num_samples,
                                          rounding_mode="floor"),
                                max=cfg.num_pixels - 1)
@@ -333,7 +414,8 @@ def wavefront_step(scene: Scene, camera: Camera, cfg: RenderConfig, words,
         cam_o = cam_d = (zf, zf, zf)
 
     # ---- merge continued and regenerated rays ------------------------------
-    ray_o = vec.where(mat_mask, sh["next_o"], vec.where(got_ray, cam_o, p))
+    ray_o = vec.where(mat_mask, sh["next_o"],
+                      vec.where(got_ray, cam_o, ray_o_p))
     ray_d = vec.where(mat_mask, sh["next_d"],
                       vec.where(got_ray, cam_d, ray_d_p))
     pixel = torch.where(got_ray, pix_new, pixel)
@@ -343,14 +425,29 @@ def wavefront_step(scene: Scene, camera: Camera, cfg: RenderConfig, words,
                           torch.where(gen_mask, DEAD_BOUNCES, bounces))
 
     # ---- traversal ---------------------------------------------------------
+    stats = cfg.detailed_stats
     trace_mask = mat_mask | got_ray
     ray_o = tuple(c.contiguous() for c in ray_o)
     ray_d = tuple(c.contiguous() for c in ray_d)
     inf = torch.full((n,), float("inf"), dtype=torch.float32, device=dev)
-    hit, ht, hprim, hsrc, hnrm = trace_closest(scene, cfg, ray_o, ray_d, inf,
-                                               trace_mask)
+    hit, ht, hprim, hsrc, hnrm, *cst = trace_closest(
+        scene, cfg, ray_o, ray_d, inf, trace_mask, with_stats=stats)
     traced = trace_mask.sum(dtype=torch.float64)
-    if num_lights > 0:
+    ast = None
+    if num_lights > 0 and cfg.one_sample_mis:
+        # the BSDF-MIS channel's "closest hit == the picked light's
+        # triangle" is read off the path ray's hit: one N-ray any-hit
+        # launch, and only its traversals are counted
+        occluded = trace_anyhit(scene, cfg, sh["ah_o"], sh["ah_d"],
+                                sh["ah_tmax"], sh["ltri"], sh["ah_mask"],
+                                with_stats=stats)
+        if stats:
+            occluded, ast = occluded
+        chs_ok = hit & (hsrc == 0) & (hprim == sh["ltri"])
+        acc = _accum(acc, sh["ah_L"], sh["ah_mask"] & ~occluded)
+        acc = _accum(acc, sh["chs_L"], sh["chs_mask"] & chs_ok)
+        traced = traced + sh["ah_mask"].sum(dtype=torch.float64)
+    elif num_lights > 0:
         # both shadow channels ride one 2N any-hit launch
         cat = lambda a, b: torch.cat([a, b])
         cat3 = lambda a, b: tuple(cat(x, y) for x, y in zip(a, b))
@@ -358,36 +455,76 @@ def wavefront_step(scene: Scene, camera: Camera, cfg: RenderConfig, words,
                             cat3(sh["ah_d"], sh["chs_d"]),
                             cat(sh["ah_tmax"], sh["chs_t"]),
                             cat(sh["ltri"], sh["chs_tgt"]),
-                            cat(sh["ah_mask"], sh["chs_mask"]))
+                            cat(sh["ah_mask"], sh["chs_mask"]),
+                            with_stats=stats)
+        if stats:
+            occ2, ast = occ2
         occluded, chs_occ = occ2[:n], occ2[n:]
         acc = _accum(acc, sh["ah_L"], sh["ah_mask"] & ~occluded)
         acc = _accum(acc, sh["chs_L"], sh["chs_mask"] & ~chs_occ)
         traced = traced + sh["ah_mask"].sum(dtype=torch.float64) + \
             sh["chs_mask"].sum(dtype=torch.float64)
 
+    work_left = trace_mask.any()
+    if parity:
+        # limbo slots did not trace: the payload the kernel cleared
+        # survives for the next re-roll, and the frame waits for them
+        hit = hit | limbo
+        ht = torch.where(limbo, t_p, ht)
+        hnrm = vec.where(limbo, normal, hnrm)
+        hprim = torch.where(limbo, prim, hprim)
+        hsrc = torch.where(limbo, src, hsrc)
+        work_left = work_left | limbo.any()
+
     new_state = PathState(pixel=pixel, ray_o=ray_o, ray_d=ray_d, hit=hit,
                           t=ht, normal=hnrm, prim=hprim, src=hsrc,
                           bounces=bounces, beta=beta, acc=acc)
     occupancy = trace_mask.sum(dtype=torch.float64) / n
-    return (new_state, fb, cam_start + num_gen, it + 1, trace_mask.any(),
-            rays_traced + traced, occ_sum + occupancy)
+    if stats:
+        # bounce-depth histogram of traced path rays (depth 0 = camera
+        # rays) and the traversal counts, summed on the device
+        hist, steps, leafs, ah_steps, ah_leafs = extra
+        depth = torch.clamp(bounces, 0, cfg.max_bounces).long()
+        hist = hist.index_add(0, depth, trace_mask.to(hist.dtype))
+        zero = torch.zeros((), dtype=torch.int64, device=dev)
+        ast = ast if ast is not None else (zero, zero)
+        extra = (hist, steps + cst[0][0], leafs + cst[0][1],
+                 ah_steps + ast[0], ah_leafs + ast[1])
+    return (new_state, fb, cam_start + num_gen, it + 1, work_left,
+            rays_traced + traced, occ_sum + occupancy) + tuple(extra)
+
+
+def initial_carry(cfg: RenderConfig, device):
+    """The carry of a fresh frame (see :func:`wavefront_step`)."""
+    n = cfg.pool_size
+    zero = lambda dt: torch.zeros((), dtype=dt, device=device)
+    carry = (make_initial_state(n, device),
+             torch.zeros(cfg.num_pixels, 3, dtype=torch.float32,
+                         device=device),
+             zero(torch.int64), 0, zero(torch.bool), zero(torch.float64),
+             zero(torch.float64))
+    if cfg.detailed_stats:
+        carry += (torch.zeros(cfg.max_bounces + 1, dtype=torch.int64,
+                              device=device),) + (zero(torch.int64),) * 4
+    return carry
 
 
 def render_frame_linear(scene: Scene, camera: Camera, cfg: RenderConfig,
                         generator: torch.Generator):
     """Render a frame; returns the LINEAR sample-sum framebuffer ``[H*W, 3]``
-    and stats ``{"iterations", "rays_traced", "avg_occupancy"}``."""
+    and stats ``{"iterations", "rays_traced", "avg_occupancy"}``; under
+    ``detailed_stats`` also ``"bounce_histogram"`` (``[max_bounces + 1]``
+    int64 on the CPU: path rays traced per bounce depth), ``"node_steps"``
+    and ``"leaf_visits"`` (the traversal kernels' node visits and leaf rows
+    over the frame, both channels) and ``"anyhit_steps"`` /
+    ``"anyhit_visits"`` (the any-hit launches' share of them)."""
     check_slice(scene, cfg)
     dev = scene.device
     if generator.device.type != dev.type:
         raise ValueError(f"generator is on {generator.device}, the scene on "
                          f"{dev}")
     n = cfg.pool_size
-    zero = lambda dt: torch.zeros((), dtype=dt, device=dev)
-    carry = (make_initial_state(n, dev),
-             torch.zeros(cfg.num_pixels, 3, dtype=torch.float32, device=dev),
-             zero(torch.int64), 0, zero(torch.bool), zero(torch.float64),
-             zero(torch.float64))
+    carry = initial_carry(cfg, dev)
     total = cfg.total_camera_rays
     while True:
         cam_start, it, work_left = carry[2], carry[3], carry[4]
@@ -398,9 +535,15 @@ def render_frame_linear(scene: Scene, camera: Camera, cfg: RenderConfig,
             break
         words = rng.bits_block(generator, NUM_RNG_WORDS, n)
         carry = wavefront_step(scene, camera, cfg, words, carry)
-    _, fb, _, it, _, rays, occ = carry
+    _, fb, _, it, _, rays, occ, *extra = carry
     stats = {"iterations": it, "rays_traced": float(rays),
              "avg_occupancy": float(occ) / max(it, 1)}
+    if cfg.detailed_stats:
+        hist, steps, leafs, ah_steps, ah_leafs = extra
+        stats.update(bounce_histogram=hist.cpu(),
+                     node_steps=int(steps + ah_steps),
+                     leaf_visits=int(leafs + ah_leafs),
+                     anyhit_steps=int(ah_steps), anyhit_visits=int(ah_leafs))
     return fb, stats
 
 

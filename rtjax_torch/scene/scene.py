@@ -50,6 +50,14 @@ class Scene:
     blas: tuple = ()                        # MeshBlas per registered mesh
     # base + BLAS tables for the two-level kernels, or None
     inst_tables: InstancedTables | None = None
+    # [3] float32 constant environment radiance added on a miss (zero:
+    # no environment light); None is taken as zero on the scene's device
+    env_radiance: torch.Tensor | None = None
+
+    def __post_init__(self):
+        if self.env_radiance is None:
+            object.__setattr__(self, "env_radiance", torch.zeros(
+                3, dtype=torch.float32, device=self.tris.p0.device))
 
     @property
     def device(self) -> torch.device:
@@ -84,6 +92,7 @@ class SceneBuilder:
         self._ltri: list[int] = []
         self._blas_meshes: list[tuple] = []   # (vertices, faces)
         self._instances: list[tuple] = []     # (mesh id, matrix, material)
+        self._env = (0.0, 0.0, 0.0)
 
     def make_matte(self, albedo) -> int:
         return self.materials.make_matte(albedo)
@@ -153,8 +162,8 @@ class SceneBuilder:
         return len(self._instances) - 1
 
     def set_environment(self, radiance) -> None:
-        raise NotImplementedError(
-            "the environment light is not ported yet (ROADMAP Queue A 13)")
+        """Constant environment radiance added where a path misses."""
+        self._env = tuple(float(c) for c in radiance)
 
     def build(self, device, max_depth: int = BVH_MAX_DEPTH,
               max_leaf_size: int | None = 8,
@@ -237,6 +246,8 @@ class SceneBuilder:
             instances=instances,
             blas=blas,
             inst_tables=inst_tables,
+            env_radiance=torch.tensor(self._env, dtype=torch.float32,
+                                      device=device),
         )
 
     def _build_blas(self, max_depth, max_leaf_size, min_leaf_size, device):
@@ -333,7 +344,9 @@ def scene_from_arrays(arrays: dict, device) -> Scene:
     ``"instances.mesh_id"``; per registered mesh k the same ``tris.*``,
     ``bvh.*`` and ``tables.*`` keys under ``"blas.<k>."``; and
     ``"inst_tables.root"``, ``"inst_tables.affine"`` and
-    ``"inst_tables.wide.*"`` when it has two-level tables."""
+    ``"inst_tables.wide.*"`` when it has two-level tables.  An optional
+    ``"env_radiance"`` (3 floats) sets the environment light (zero when
+    absent)."""
     t = lambda k: torch.tensor(np.asarray(arrays[k]), device=device)
     tris, bvh, tables = _geometry_from_arrays(arrays, device)
     runs = arrays.get("mat_runs")
@@ -368,4 +381,6 @@ def scene_from_arrays(arrays: dict, device) -> Scene:
         instances=instances,
         blas=blas,
         inst_tables=inst_tables,
+        env_radiance=(t("env_radiance").to(torch.float32)
+                      if "env_radiance" in arrays else None),
     )

@@ -194,6 +194,84 @@ def test_fetch_kernels_take_every_stack_length(cuda):
         _check_persist(tables, o, d, tmax, active, exclude)
 
 
+@pytest.mark.parametrize("width", [8, 16], ids=["w8", "w16"])
+@pytest.mark.parametrize("size", ["ragged", "refill"])
+def test_stats_kernels_count_the_plain_walk(cuda, width, size):
+    """The stats instances: node visits and leaf rows equal to the plain
+    walk's work count as integers, results bit for bit those of the
+    default instances, for closest and any hit, with rays drawn again and
+    again (refill) and inactive runs; launches counted in STATS_LAUNCHES
+    alone; the work counter zero after every launch."""
+    tables = _soup_tables(width, cuda)
+    n = {"ragged": 5 * 2048 + 17,
+         "refill": 4 * _resident_threads() + 4099}[size]
+    o, d, active, exclude = _rays(n, cuda)
+    active[n // 2:n // 2 + 3001] = False
+    for tmax_v in (float("inf"), 0.7):
+        tmax = torch.full((n,), tmax_v, device=cuda)
+        args = (tables, o, d, tmax, active)
+        work = P.new_work()
+        P.persist_traverse_closest_ref(*args, work=work)
+        base = P.persist_traverse_closest(*args)
+        before = dict(P.LAUNCHES), dict(P.STATS_LAUNCHES)
+        *got, (steps, leafs) = P.persist_traverse_closest(*args,
+                                                          with_stats=True)
+        assert _counter_zeroed(cuda)
+        assert P.LAUNCHES == before[0]
+        assert P.STATS_LAUNCHES["closest"] == before[1]["closest"] + 1
+        assert steps.dtype == torch.int64 and steps.device == tmax.device
+        assert (int(steps), int(leafs)) == (work["node_visits"],
+                                            work["leaf_rows"])
+        for a, b in zip(got[:3] + list(got[3]), base[:3] + base[3]):
+            assert torch.equal(a, b)
+        args = (tables, o, d, tmax, exclude, active)
+        work = P.new_work()
+        P.persist_traverse_anyhit_ref(*args, work=work)
+        occ = P.persist_traverse_anyhit(*args)
+        occ2, (steps, leafs) = P.persist_traverse_anyhit(*args,
+                                                         with_stats=True)
+        assert _counter_zeroed(cuda)
+        assert torch.equal(occ, occ2) and bool(occ.any())
+        assert (int(steps), int(leafs)) == (work["node_visits"],
+                                            work["leaf_rows"])
+
+
+def test_stats_kernels_count_nothing_for_no_rays(cuda):
+    """An all-inactive batch takes no step: zero counts, dead results."""
+    tables = _soup_tables(16, cuda)
+    o, d, active, exclude = _rays(700, cuda)
+    active[:] = False
+    tmax = torch.full((700,), float("inf"), device=cuda)
+    hit, t, prim, _, (steps, leafs) = P.persist_traverse_closest(
+        tables, o, d, tmax, active, with_stats=True)
+    assert int(steps) == int(leafs) == 0 and not bool(hit.any())
+    occ, (steps, leafs) = P.persist_traverse_anyhit(
+        tables, o, d, tmax, exclude, active, with_stats=True)
+    assert int(steps) == int(leafs) == 0 and not bool(occ.any())
+
+
+def test_detailed_stats_frame_runs_the_stats_kernels(cuda):
+    """A detailed_stats frame launches only the stats instances, renders
+    the default frame's image at the same seed within atomics' reordering
+    of the framebuffer sums, and its histogram sums to the path rays."""
+    scene, cam = cornell_planes(cuda)
+    cfg = RenderConfig(width=32, height=32, num_samples=8, max_bounces=4,
+                       num_working_paths=4096)
+    launches, stats_l = dict(P.LAUNCHES), dict(P.STATS_LAUNCHES)
+    fb, st = render_frame(scene, cam, dataclasses.replace(
+        cfg, detailed_stats=True), torch.Generator(device=cuda).manual_seed(1))
+    assert P.LAUNCHES == launches
+    for k in ("closest", "anyhit"):
+        assert P.STATS_LAUNCHES[k] - stats_l[k] == st["iterations"]
+    fb0, st0 = render_frame(scene, cam, cfg,
+                            torch.Generator(device=cuda).manual_seed(1))
+    torch.testing.assert_close(fb, fb0, rtol=1e-5, atol=1e-6)
+    assert st0["rays_traced"] == st["rays_traced"]
+    assert st["node_steps"] > st["anyhit_steps"] > 0
+    assert st["leaf_visits"] > st["anyhit_visits"] > 0
+    assert int(st["bounce_histogram"][0]) == 32 * 32 * 8
+
+
 # name -> (group, closest, any hit, any-hit rule of the plain walk, launches)
 GROUP_WALKS = {
     "packet": (WD.PACKET, WD.wide_traverse_closest, WD.wide_traverse_anyhit,

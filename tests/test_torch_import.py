@@ -22,7 +22,10 @@ MODULES = [
     "rtjax_torch.kernels.wide_inst", "rtjax_torch.kernels.wide",
     "rtjax_torch.kernels.lane", "rtjax_torch.render.trace",
     "rtjax_torch.render.sorting", "rtjax_torch.render.wavefront",
-    "rtjax_torch.render.film",
+    "rtjax_torch.render.film", "rtjax_torch.render.checkpoint",
+    "rtjax_torch.utils", "rtjax_torch.utils.log",
+    "rtjax_torch.utils.profiler", "rtjax_torch.utils.compare",
+    "rtjax_torch.cli", "rtjax_torch.__main__",
 ]
 
 

@@ -67,6 +67,7 @@ def scene_arrays(scene) -> dict:
         out["tables.width"] = scene.tables.width
     out["num_lights"] = scene.num_lights
     out["mat_runs"] = scene.mat_runs
+    out["env_radiance"] = np.asarray(scene.env_radiance)
     return out
 
 

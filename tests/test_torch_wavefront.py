@@ -201,10 +201,28 @@ def test_config_matches_rtjax_sizes_and_validates():
             .total_camera_rays
 
 
+def _instanced_scene():
+    """Two instances of one tetrahedron over a floor, with a light."""
+    from rtjax_torch.scene.scene import SceneBuilder
+    from rtjax_torch.scene.transform import Transform, translate
+    b = SceneBuilder()
+    white = b.make_matte((0.73, 0.73, 0.73))
+    b.add_triangles([0, 0, 0], [1, 0, 0], [1, 0, -1], white)
+    b.add_area_light([0.3, 0.9, -0.3], [0.7, 0.9, -0.3], [0.7, 0.9, -0.7],
+                     (10, 10, 10), white)
+    mid = b.register_mesh(np.array([[0, 0, 0], [0.2, 0, 0], [0.1, 0, -0.2],
+                                    [0.1, 0.25, -0.07]]),
+                          np.array([[0, 1, 3], [1, 2, 3], [2, 0, 3],
+                                    [0, 1, 2]]))
+    for x in (0.2, 0.6):
+        b.add_instance(mid, white, Transform(translate(x, 0, -0.4)))
+    return b.build("cpu")
+
+
 @pytest.mark.parametrize("change, item", [
-    (dict(reference_parity=True), "Queue A 13"),
-    (dict(one_sample_mis=True), "Queue A 13"),
-    (dict(detailed_stats=True), "Queue S 3"),
+    (dict(detailed_stats=True, walker="packet"), "Queue S 3"),
+    (dict(detailed_stats=True, walker="lane"), "Queue S 3"),
+    (dict(detailed_stats=True, two_level="kernel"), "Queue S 3"),
     (dict(sort_key="prim"), "Queue S 4"),
     (dict(traversal="xla"), "Queue A 18"),
     (dict(sort_key="adaptive"), "Queue S 4"),
@@ -212,6 +230,9 @@ def test_config_matches_rtjax_sizes_and_validates():
 ], ids=lambda v: str(v) if isinstance(v, dict) else v)
 def test_out_of_slice_configs_raise(pair, change, item):
     *_, scene, cam = pair
+    if change.get("two_level") == "kernel":
+        scene = _instanced_scene()
+        assert scene.instances is not None
     cfg = RenderConfig(width=8, height=8, num_samples=1, max_bounces=1,
                        num_working_paths=256, **change)
     with pytest.raises(NotImplementedError, match=item):
