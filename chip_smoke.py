@@ -11,12 +11,12 @@ the script exits non-zero):
 
 0. device: require CUDA; print the card's name and power limit, and the
    torch and CUDA versions;
-1. build: the BVH builder and the three kernel libraries from this
-   checkout's sources, into build/rtjax_torch/, all four compilers
+1. build: the BVH builder and the four kernel libraries from this
+   checkout's sources, into build/rtjax_torch/, all five compilers
    started together; ptxas's registers, stack frame and spills of the
    persist, two-level, packet and lane kernels (both designs, widths 8
    and 16, the two-level fetch kernels with the instance records staged
-   or global);
+   or global; the binary-walk kernels' in phase 9);
 2. scene: the bunny Cornell box (69,463 triangles) on the card;
 3. kernels: each persistent-walker kernel, in the fetch design that the
    engine runs and in the first (stride) design, against its plain PyTorch
@@ -111,6 +111,28 @@ the script exits non-zero):
    batches of 4 saved under build/rtjax_torch/, resumed to 12 spp (one
    batch rendered), the uninterrupted 12-spp image within C5_RTOL /
    C5_ATOL, then the sustained rate of 64 spp as 4 batches of 16;
+9. rtjax's other traversal and sort modes (run after phase 8, before
+   phase 7's profiles; launch counts from zero around every frame):
+   (a) the binary-BVH walk's two kernels (csrc/binary_traverse.cu) against
+   their plain versions on phase 3's rays over the headline scene's binary
+   BVH: zero mismatches in hit, t, u, v, prim, normal and occlusion,
+   correct dead lanes, hits, t and occlusion equal to the persist
+   kernels' (equal-t ties counted), the stats instances' counts equal to
+   the plain walk's and their results the default instances' bit for bit,
+   device time per launch, one call, one plain call, the plain walk's
+   counts and the bound, and the four instances' ptxas lines; (b) the
+   headline frame under traversal="xla", seeds 2 and 3, alternated with
+   persist frames (xla, persist, persist, xla): only the binary kernels,
+   once an iteration, each image at phase 4's gate, frame seconds; (c) the
+   headline frame under every other sort key and with sort_rays=False:
+   only the persist kernels, once an iteration, each at phase 4's gate;
+   (d) cornell_bunny at WIDE_SIZE^2 (above 2^21 pixels: the wide sort
+   bundle) against two compact frames at half the width, the wide frame's
+   linear radiance box-downsampled 2x2 within 2x their seed-to-seed MSE
+   of the first; (e) eval config 4 under traversal="xla" (rtjax's
+   per-instance loop): only the binary kernels, 1 + 16 launches of each an
+   iteration, the image within 2x phase 6(a)'s seed-to-seed MSE (plus
+   the 8-bit term) of its seed-2 frame;
 7. the two persist kernels' device time over one whole headline frame,
    the two packet kernels' over one walker="packet" headline frame, the
    lane closest-hit kernel's over one walker="lane" headline frame (its
@@ -144,7 +166,10 @@ kernel's count in its main-path run: phase 4's three frames for the
 persist kernels, its packet and lane frames (seed 2) for those kernels,
 6(b) for the two-level ones, phase 8(b)'s frame for the persist kernels'
 stats instances (rows of their own, ``(with_stats)``, with the default
-instances' time beside theirs).  lane_traverse_anyhit is on no engine path
+instances' time beside theirs), phase 9(b)'s two xla frames for the
+binary-walk kernels (rows 9-10: rtjax's XLA walk, ``replaces`` naming
+its functions, which reach no ``pallas_call``; their bound counts each
+node pair and triangle the plain walk read, once, ``_binary_bound``).  lane_traverse_anyhit is on no engine path
 (rtjax's ``anyhit_walker`` takes "persist" or "packet" only), so its count
 is 0.  Every row also carries ``ab``: both designs on each ray set
 (persist, packet and lane: phase 3, the in-frame launch, config 4's baked
@@ -255,7 +280,8 @@ def phase1_build():
     builds = {"bvh builder": _build.bvh_library,
               "persist kernels": _build.persist_library,
               "two-level kernels": _build.wide_inst_library,
-              "packet and lane kernels": _build.packet_library}
+              "packet and lane kernels": _build.packet_library,
+              "binary-walk kernels": _build.binary_library}
 
     def timed(fn):
         t0 = time.perf_counter()
@@ -1448,13 +1474,15 @@ def phase5_persist(scene, baked, camera, card):
 
 
 _KERNEL_SETS = ("persist", "two_level", "packet", "lane", "stride",
-                "inst_stride", "packet_leader", "lane_group", "persist_stats")
+                "inst_stride", "packet_leader", "lane_group", "persist_stats",
+                "binary", "binary_stats")
 
 
 def _counters():
     """``{set: (LAUNCHES, REF_CALLS or None)}`` of every kernel module."""
     from rtjax_torch.kernels import lane as L
     from rtjax_torch.kernels import persist as P
+    from rtjax_torch.kernels import traversal as T
     from rtjax_torch.kernels import wide as WD
     from rtjax_torch.kernels import wide_inst as WI
     return {"persist": (P.LAUNCHES, P.REF_CALLS),
@@ -1465,7 +1493,9 @@ def _counters():
             "inst_stride": (WI.STRIDE_LAUNCHES, None),
             "packet_leader": (WD.LEADER_LAUNCHES, None),
             "lane_group": (L.GROUP_LAUNCHES, None),
-            "persist_stats": (P.STATS_LAUNCHES, None)}
+            "persist_stats": (P.STATS_LAUNCHES, None),
+            "binary": (T.LAUNCHES, T.REF_CALLS),
+            "binary_stats": (T.STATS_LAUNCHES, None)}
 
 
 def _zero_counts():
@@ -1603,7 +1633,8 @@ def phase6_config4(scene, baked, camera, card):
     require(baked_mse <= 2.0 * seed_mse + quant,
             "the instanced image differs from the baked one beyond the "
             "noise floor")
-    return b["two_level"], captured
+    return b["two_level"], captured, dict(img_a2=img_a2, seed_mse=seed_mse,
+                                          quant=quant)
 
 
 def phase6_in_frame(scene, card, captured):
@@ -2084,6 +2115,359 @@ def _stats_rows(stats, launches):
     return rows
 
 
+# ---------------------------------------------------------------- phase 9
+# rtjax's binary-BVH walk (traversal="xla"), the sort keys, the unsorted
+# engine and the wide sort bundle
+BINARY_KERNELS = {
+    "closest": dict(name="binary_traverse_closest",
+                    replaces="rtjax/kernels/traversal.py:210"),
+    "anyhit": dict(name="binary_traverse_anyhit",
+                   replaces="rtjax/kernels/traversal.py:240"),
+}
+BINARY_SOURCE = "rtjax_torch/csrc/binary_traverse.cu"
+# a binary walk's bound, counted from csrc/binary_traverse.cu's loads and
+# arithmetic: a node-pair step reads two boxes (24 B each) and the two
+# children's left_first and num_prims words (64 B), a triangle test
+# p0, e1, e2 and n (48 B)
+PAIR_BYTES = 64
+TRI_BYTES = 48
+OPS_BSLAB = 23  # a slab test: 6 selects, 6 mul, 6 add, 4 min/max, 1 compare
+BIN_CLOSEST_OUT = 29   # hit, t, u, v, prim, normal
+RAY_FLAGS = 1          # the active flag, read for every ray
+
+
+def _binary_bound(work, n, n_active, in_bytes, out_bytes):
+    """The least time for a binary walk of ``n`` rays (``n_active``
+    active) whose plain walk counted ``work``: each ray's flag and results
+    and an active ray's inputs, and each node pair and triangle the walk
+    read, once; two slab tests a step and one Moeller-Trumbore test a
+    triangle tested.  ``loads`` is the bytes the kernel loads, re-reads
+    included."""
+    pairs = int(work["pair_seen"].sum())
+    tris = int(work["tri_seen"].sum())
+    nbytes = n * (RAY_FLAGS + out_bytes) + n_active * in_bytes \
+        + pairs * PAIR_BYTES + tris * TRI_BYTES
+    ops = 2 * OPS_BSLAB * work["steps"] + OPS_TRI * work["tri_tests"]
+    t_ops, t_bytes = ops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return dict(bound_ms=max(t_ops, t_bytes), bound_us=max(t_ops, t_bytes)
+                * 1e3, bound_by="bytes" if t_bytes >= t_ops else "operations",
+                ops=ops, bytes=nbytes, pairs=pairs, tris=tris,
+                loads=work["steps"] * PAIR_BYTES + work["tri_tests"]
+                * TRI_BYTES)
+
+
+def _binary_text(work, b):
+    return (f"work: {work['steps']} node-pair steps, {work['leafs']} leaf "
+            f"visits, {work['tri_tests']} triangles tested, {b['pairs']} "
+            f"node pairs and {b['tris']} triangles read ({b['loads']} B "
+            f"loaded, re-reads included); bound {b['bound_us']:.3f} us by "
+            f"{b['bound_by']} ({b['bytes']} B at {PEAK_BYTES / 1e12} TB/s, "
+            f"{b['ops']} float ops at {PEAK_FLOPS / 1e12} TFLOP/s)")
+
+
+def phase9_binary_kernels(scene, camera, card):
+    """(a) Both binary-walk kernels against their plain versions on phase
+    3's rays over the headline scene's binary BVH (2^18 closest-hit, 2^19
+    any-hit rays): zero mismatches in hit, t, u, v, prim, normal and
+    occlusion, correct dead lanes; hits, t and occlusion equal to the
+    persist kernels' on the same rays (equal-t ties, where the two walks
+    keep another prim, counted); device time per launch, one call, one
+    plain call; the plain walk's counts and the bound; the stats
+    instances' counts equal to the plain walk's and their results the
+    default instances' bit for bit; the four instances' ptxas lines."""
+    import torch
+    from rtjax_torch.kernels import _build
+    from rtjax_torch.kernels import persist as P
+    from rtjax_torch.kernels import traversal as T
+    for name, res in _build.ptxas_report(_build.binary_library()):
+        print(f"[binary ptxas] {name}: {res}")
+    gen = torch.Generator(device="cuda").manual_seed(1234)
+    cl, ah = _test_rays(scene, camera, gen)
+    bvh, tris = scene.bvh, scene.tris
+    print(f"[binary scene] {bvh.num_nodes} nodes, depth {bvh.max_depth}, "
+          f"stack {T.stack_len(bvh)} entries a ray")
+    out = {}
+
+    args = (bvh, tris, cl["o"], cl["d"], cl["tmax"], cl["active"])
+    work = T.new_work()
+    ref, plain_ms = _timed_ms(lambda: T.traverse_closest_ref(*args,
+                                                             work=work))
+    got = T.traverse_closest(*args)   # the first call loads the library
+    _, call_ms = _timed_ms(lambda: T.traverse_closest(*args))
+    hk, tk, uk, vk, pk, nk = got
+    dead = ~cl["active"]
+    names = ("hit", "t", "u", "v", "prim", "normal")
+    mis = {k: int((a != b).sum()) for k, a, b in zip(names[:5], got, ref)}
+    mis["normal"] = int(sum((a != b).sum() for a, b in zip(nk, ref[5])))
+    mis["dead"] = int(not (
+        (~hk[dead]).all() and torch.isinf(tk[dead]).all()
+        and (uk[dead] == 0).all() and (vk[dead] == 0).all()
+        and (pk[dead] == -1).all() and all((c[dead] == 0).all()
+                                           for c in nk)))
+    sk = T.traverse_closest(*args, with_stats=True)
+    torch.cuda.synchronize()
+    smis = sum(int((a != b).sum()) for a, b in zip(sk[:5], got[:5])) + \
+        int(sum((a != b).sum() for a, b in zip(sk[5], nk)))
+    counts = (int(sk[6][0]), int(sk[6][1]))
+    hp, tp, pp, _ = P.persist_traverse_closest(scene.tables, *args[2:])
+    both = hk & hp
+    vs = {"hit": int((hk != hp).sum()), "t": int((tk[both] != tp[both])
+                                                  .sum()),
+          "ties": int((pk[both] != pp[both]).sum())}
+    ms = _launch_ms(lambda: T.traverse_closest(*args))
+    n, n_act = cl["tmax"].numel(), int(cl["active"].sum())
+    b = _binary_bound(work, n, n_act, RAY_IN, BIN_CLOSEST_OUT)
+    out["closest"] = dict(max_abs_err=float((tk[both] - tp[both]).abs().max())
+                          if bool(both.any()) else 0.0, ms=ms[0],
+                          ms_range=ms[1:], call_ms=call_ms,
+                          plain_ms=plain_ms, share=b["bound_ms"] / ms[0],
+                          counts=counts, **b)
+    print(f"[binary closest] {card}: {n} rays ({n_act} active), "
+          f"{int(hk.sum())} hits; mismatches vs plain {mis}; stats instance:"
+          f" counts {counts} vs plain ({work['steps']}, {work['leafs']}), "
+          f"{smis} result mismatches; vs persist kernels {vs}; device "
+          f"{ms[0]:.4f} ms a launch ({ms[1]:.4f}-{ms[2]:.4f}), one call "
+          f"{call_ms:.4f} ms, plain {plain_ms:.1f} ms; {_binary_text(work, b)}"
+          f"; {100 * out['closest']['share']:.2f}% of the bound")
+    if any(mis.values()) or smis or vs["hit"] or vs["t"] or \
+            counts != (work["steps"], work["leafs"]) or not bool(hk.any()):
+        raise RuntimeError("binary closest-hit kernel disagrees with its "
+                           "plain version or the persist kernel")
+
+    args = (bvh, tris, ah["o"], ah["d"], ah["tmax"], ah["exclude"],
+            ah["active"])
+    work = T.new_work()
+    op, plain_ms = _timed_ms(lambda: T.traverse_anyhit_ref(*args, work=work))
+    ok_ = T.traverse_anyhit(*args)
+    _, call_ms = _timed_ms(lambda: T.traverse_anyhit(*args))
+    so, st = T.traverse_anyhit(*args, with_stats=True)
+    counts = (int(st[0]), int(st[1]))
+    opp = P.persist_traverse_anyhit(scene.tables, *args[2:])
+    torch.cuda.synchronize()
+    mis = {"occlusion": int((ok_ != op).sum()),
+           "dead": int(bool(ok_[~ah["active"]].any())),
+           "stats_results": int((so != ok_).sum()),
+           "vs_persist": int((ok_ != opp).sum())}
+    ms = _launch_ms(lambda: T.traverse_anyhit(*args))
+    n, n_act = ah["tmax"].numel(), int(ah["active"].sum())
+    b = _binary_bound(work, n, n_act, RAY_IN + EXCLUDE, 1)
+    out["anyhit"] = dict(max_abs_err=float(mis["occlusion"]), ms=ms[0],
+                         ms_range=ms[1:], call_ms=call_ms, plain_ms=plain_ms,
+                         share=b["bound_ms"] / ms[0], counts=counts, **b)
+    print(f"[binary anyhit] {card}: {n} rays ({n_act} active), "
+          f"{int(ok_.sum())} occluded; mismatches {mis}; stats instance "
+          f"counts {counts} vs plain ({work['steps']}, {work['leafs']}); "
+          f"device {ms[0]:.4f} ms a launch ({ms[1]:.4f}-{ms[2]:.4f}), one "
+          f"call {call_ms:.4f} ms, plain {plain_ms:.1f} ms; "
+          f"{_binary_text(work, b)}; {100 * out['anyhit']['share']:.2f}% of "
+          f"the bound")
+    if any(mis.values()) or counts != (work["steps"], work["leafs"]) or \
+            not bool(ok_.any()):
+        raise RuntimeError("binary any-hit kernel disagrees with its plain "
+                           "version or the persist kernel")
+    return out
+
+
+# (b) and (c): the headline frame under each mode, and the persist frame it
+# is timed beside
+SORT_KEYS = ("morton", "prim", "prim_pos", "normal_pos", "adaptive",
+             "morton_pos10")
+# (d) the wide bundle: one frame above 2^21 pixels, and the two compact
+# frames at half its width it is held to
+WIDE_SIZE, WIDE_SPP = 2048, 4
+HALF_SIZE, HALF_SPP = 1024, 16
+
+
+def _headline_cfg(**change):
+    from rtjax_torch import RenderConfig
+    return RenderConfig(width=WIDTH, height=HEIGHT, num_samples=SPP,
+                        max_bounces=BOUNCES, **change)
+
+
+def _gate(label, fb, floor):
+    """Phase 4's noise-floor gate of a headline frame: its MSE (8 bit) to
+    the rtjax artifact."""
+    import numpy as np
+    ref_mse = float(np.mean((_u8_image(fb) - floor["ref"]) ** 2))
+    if ref_mse > floor["gate"]:
+        raise RuntimeError(f"{label}: image differs from the rtjax render "
+                           f"beyond the noise floor ({ref_mse:.3e} > "
+                           f"{floor['gate']:.3e})")
+    return ref_mse
+
+
+def phase9_xla_frames(scene, camera, card, floor):
+    """(b) The headline frame under traversal="xla" (the binary walk, the
+    unsorted engine), seeds 2 and 3, alternated with persist frames of the
+    same seeds (xla, persist, persist, xla), counts from zero around each:
+    the xla frames launch the two binary kernels once an iteration and
+    nothing else; each image at phase 4's gate.  Returns the binary
+    kernels' launches over the two xla frames."""
+    from rtjax_torch.kernels import _build
+    from rtjax_torch.render.film import write_ppm
+    launches = {"closest": 0, "anyhit": 0}
+    secs = {"xla": [], "persist": []}
+    for mode, seed in (("xla", 2), ("persist", 2), ("persist", 3),
+                       ("xla", 3)):
+        cfg = _headline_cfg(traversal="xla") if mode == "xla" \
+            else _headline_cfg()
+        runs, c = _drive(scene, camera, cfg, (seed,))
+        sec, fb, st = runs[0]
+        ref_mse = _gate(f"traversal={mode} seed {seed}", fb, floor)
+        kset = "binary" if mode == "xla" else "persist"
+        print(f"[xla frame {mode} seed {seed}] {card}: {WIDTH}x{HEIGHT} @ "
+              f"{SPP} spp: {st['iterations']} iterations, "
+              f"{st['rays_traced']:.0f} rays, {sec:.3f} s, "
+              f"{st['rays_traced'] / sec / 1e6:.3f} Mrays/s; MSE vs the "
+              f"artifact {ref_mse:.3e} (gate {floor['gate']:.3e}); launches "
+              f"{c[kset]}")
+        if not _only_set(c, kset, st["iterations"]):
+            raise RuntimeError(f"the traversal={mode} frame did not run "
+                               f"the {kset} kernels alone, once an iteration")
+        secs[mode].append(sec)
+        if mode == "xla":
+            for k in launches:
+                launches[k] += c["binary"][k]
+            write_ppm(_build.BUILD_DIR / f"xla_seed{seed}.ppm",
+                      fb.cpu().numpy(), WIDTH, HEIGHT, binary=True)
+    print(f"[xla frames] {card}: frame seconds xla {secs['xla']}, persist "
+          f"{secs['persist']}")
+    return launches, secs
+
+
+def phase9_sort_keys(scene, camera, card, floor):
+    """(c) The headline frame (seed 2) under each sort key but the default
+    and once with sort_rays=False, counts from zero: the persist kernels
+    alone, once an iteration; each image at phase 4's gate."""
+    out = {}
+    for name, change in ([(k, dict(sort_key=k)) for k in SORT_KEYS]
+                         + [("no_sort", dict(sort_rays=False))]):
+        runs, c = _drive(scene, camera, _headline_cfg(**change), (2,))
+        sec, fb, st = runs[0]
+        ref_mse = _gate(name, fb, floor)
+        print(f"[sort mode {name}] {card}: {st['iterations']} iterations, "
+              f"{st['rays_traced']:.0f} rays, {sec:.3f} s, "
+              f"{st['rays_traced'] / sec / 1e6:.3f} Mrays/s; MSE vs the "
+              f"artifact {ref_mse:.3e} (gate {floor['gate']:.3e}); launches "
+              f"{c['persist']}")
+        if not _only_set(c, "persist", st["iterations"]):
+            raise RuntimeError(f"the {name} frame did not run the persist "
+                               "kernels alone, once an iteration")
+        out[name] = sec
+    return out
+
+
+def phase9_wide_bundle(scene, camera, card):
+    """(d) cornell_bunny at WIDE_SIZE^2 @ WIDE_SPP (above 2^21 pixels: the
+    wide sort bundle) and at HALF_SIZE^2 @ HALF_SPP (the compact bundle),
+    seeds 2 and 3, counts from zero (persist kernels alone, once an
+    iteration).  Gate: the wide frame's linear radiance box-downsampled
+    2x2 to HALF_SIZE^2 within 2x the seed-to-seed MSE of the two compact
+    frames of the seed-2 compact frame."""
+    import numpy as np
+    from rtjax_torch import RenderConfig
+    from rtjax_torch.render import wavefront as WF
+    import torch
+    frames = {}
+    for size, spp, seed in ((WIDE_SIZE, WIDE_SPP, 2), (HALF_SIZE, HALF_SPP, 2),
+                            (HALF_SIZE, HALF_SPP, 3)):
+        cfg = RenderConfig(width=size, height=size, num_samples=spp,
+                           max_bounces=BOUNCES)
+        compact = WF._compact_bundle_ok(scene, cfg)
+        if compact != (size == HALF_SIZE):
+            raise RuntimeError(f"{size}x{size}: _compact_bundle_ok is "
+                               f"{compact}")
+        _zero_counts()
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fb, st = WF.render_frame_linear(scene, camera, cfg, gen)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        c = _read_counts()
+        if not bool(torch.isfinite(fb).all()) or bool((fb < 0).any()):
+            raise RuntimeError("framebuffer has non-finite or negative "
+                               "values")
+        print(f"[wide bundle {size}x{size} @ {spp} spp seed {seed}] {card}:"
+              f" {'compact' if compact else 'wide'} bundle, pool "
+              f"{cfg.pool_size}, {st['iterations']} iterations, "
+              f"{st['rays_traced']:.0f} rays, {sec:.3f} s, "
+              f"{st['rays_traced'] / sec / 1e6:.3f} Mrays/s; launches "
+              f"{c['persist']}")
+        if not _only_set(c, "persist", st["iterations"]):
+            raise RuntimeError("the wide-bundle frames did not run the "
+                               "persist kernels alone, once an iteration")
+        frames[size, seed] = (fb / spp).cpu().numpy().astype(np.float64) \
+            .reshape(size, size, 3)
+    w = frames[WIDE_SIZE, 2]
+    down = w.reshape(HALF_SIZE, 2, HALF_SIZE, 2, 3).mean(axis=(1, 3))
+    c2, c3 = frames[HALF_SIZE, 2], frames[HALF_SIZE, 3]
+    seed_mse = float(np.mean((c2 - c3) ** 2))
+    wide_mse = float(np.mean((down - c2) ** 2))
+    print(f"[wide bundle image] linear radiance: wide {WIDE_SIZE}^2 "
+          f"downsampled 2x2 vs compact seed 2 MSE {wide_mse:.4e}, compact "
+          f"seed-to-seed MSE {seed_mse:.4e} (gate {2 * seed_mse:.4e}); means"
+          f" {down.mean():.5f} {c2.mean():.5f} {c3.mean():.5f}")
+    if not 0.0 < wide_mse <= 2.0 * seed_mse:
+        raise RuntimeError("the wide-bundle frame differs from the compact "
+                           "frames beyond the noise floor")
+    return dict(wide_mse=wide_mse, seed_mse=seed_mse)
+
+
+def phase9_config4_xla(scene, camera, card, c4_floor):
+    """(e) Eval config 4 under traversal="xla" (rtjax's per-instance loop
+    over the binary walk), seed 2, counts from zero: only the binary
+    kernels, 1 + instances launches of each an iteration; the image within
+    2x phase 6(a)'s seed-to-seed MSE (plus the 8-bit term) of its seed-2
+    frame."""
+    import numpy as np
+    from rtjax_torch import RenderConfig
+    from rtjax_torch.kernels import _build
+    from rtjax_torch.render.film import write_ppm
+    cfg = RenderConfig(width=WIDTH, height=HEIGHT, num_samples=C4_SPP,
+                       max_bounces=C4_BOUNCES, traversal="xla")
+    runs, c = _drive(scene, camera, cfg, (2,))
+    sec, fb, st = runs[0]
+    per = 1 + scene.instances.num
+    img = _u8_image(fb)
+    mse_ = float(np.mean((img - c4_floor["img_a2"]) ** 2))
+    gate = 2.0 * c4_floor["seed_mse"] + c4_floor["quant"]
+    write_ppm(_build.BUILD_DIR / "config4_xla.ppm", fb.cpu().numpy(), WIDTH,
+              HEIGHT, binary=True)
+    print(f"[config4 xla] {card}: {WIDTH}x{HEIGHT} @ {C4_SPP} spp, "
+          f"{C4_BOUNCES} bounces: {st['iterations']} iterations, "
+          f"{st['rays_traced']:.0f} rays, {sec:.3f} s, "
+          f"{st['rays_traced'] / sec / 1e6:.3f} Mrays/s; launches "
+          f"{c['binary']} ({per} a kernel an iteration expected); MSE vs "
+          f"repass seed 2 {mse_:.3e} (gate {gate:.3e})")
+    if not _only(c, "binary") or c["plain"] or any(
+            v != per * st["iterations"] for v in c["binary"].values()):
+        raise RuntimeError("config 4 under traversal='xla' did not run the "
+                           "binary kernels alone, 1 + instances times an "
+                           "iteration")
+    if mse_ > gate:
+        raise RuntimeError("config 4 under traversal='xla' differs from "
+                           "repass beyond the noise floor")
+    return dict(seconds=sec, mse=mse_)
+
+
+def _binary_rows(kernels, launches):
+    """The kernels line's rows of the two binary-walk kernels."""
+    rows = []
+    for kind in ("closest", "anyhit"):
+        r = kernels[kind]
+        rows.append(dict(
+            BINARY_KERNELS[kind], route="cuda", source=BINARY_SOURCE,
+            launches=launches[kind], max_abs_err=r["max_abs_err"],
+            ms=r["ms"], call_ms=r["call_ms"], plain_ms=r["plain_ms"],
+            library_ms=None, **{k: r[k] for k in _BOUND_KEYS},
+            share=r["share"], timed_launches=REPS,
+            note="rtjax's binary-BVH walk (an XLA while_loop, no "
+                 "pallas_call); launches over phase 9(b)'s two "
+                 "traversal='xla' headline frames"))
+    return rows
+
+
 def main():
     t0 = time.perf_counter()
 
@@ -2123,8 +2507,8 @@ def main():
                                                r["max_abs_err"])
     for shape, out in group_shapes.items():
         _record_group(group, out, shape)
-    inst_launches, inst_captured = phase6_config4(c4_scene, baked, c4_camera,
-                                                  card)
+    inst_launches, inst_captured, c4_floor = phase6_config4(
+        c4_scene, baked, c4_camera, card)
     for kind, k in inst.items():
         k["launches"] = inst_launches[kind]
     _record_ab(inst, phase6_in_frame(c4_scene, card, inst_captured),
@@ -2135,6 +2519,12 @@ def main():
     modes = phase8_modes(scene, camera, card, floor)
     c5 = phase8_config5(scene, camera, card)
     stamp("phase 8 (CLI, stats, estimator modes, config 5)")
+    binary = phase9_binary_kernels(scene, camera, card)
+    binary_launches, xla_secs = phase9_xla_frames(scene, camera, card, floor)
+    key_secs = phase9_sort_keys(scene, camera, card, floor)
+    wide = phase9_wide_bundle(scene, camera, card)
+    c4_xla = phase9_config4_xla(c4_scene, c4_camera, card, c4_floor)
+    stamp("phase 9 (binary walk, sort keys, unsorted engine, wide bundle)")
     frames = phase7_frames(scene, camera, card, c4_scene, c4_camera)
     stamp("phase 7 (frame kernels)")
     for rows_, kernels in ((persist, "persist"), (inst, "two_level")):
@@ -2145,7 +2535,7 @@ def main():
     group["lane", "closest"]["frame_ms"] = frames["lane"]["closest"]
     stats_rows = _stats_rows(stats, stats_launches)
     rows = [*persist.values(), *stats_rows.values(), *group.values(),
-            *inst.values()]
+            *inst.values(), *_binary_rows(binary, binary_launches)]
     for k in rows:
         print(f"[bound] {k['name']}: {k['bound_us']:.3f} us by "
               f"{k['bound_by']}, kernel {k['ms']:.4f} ms device time, "
@@ -2155,7 +2545,11 @@ def main():
           f"default device time closest "
           f"{stats_rows['closest']['cost']:.3f}, any hit "
           f"{stats_rows['anyhit']['cost']:.3f}; stats instances' registers "
-          f"{ptxas['stats']}; parity / default mean {modes['ratio']:.5f}")
+          f"{ptxas['stats']}; parity / default mean {modes['ratio']:.5f}; "
+          f"headline frame seconds traversal=xla {xla_secs['xla']} vs "
+          f"persist {xla_secs['persist']}; sort modes {key_secs}; wide "
+          f"bundle MSE {wide['wide_mse']:.4e} vs seed-to-seed "
+          f"{wide['seed_mse']:.4e}; config 4 xla {c4_xla['seconds']:.3f} s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -33,8 +33,9 @@ def _add_render_args(p):
     p.add_argument("--seed", type=int, default=1)
     p.add_argument("--traversal", default="auto",
                    choices=["auto", "pallas", "xla"],
-                   help="auto and pallas: the traversal kernels; xla: "
-                        "rtjax's binary-BVH walk (not ported)")
+                   help="pallas: the traversal kernels over the wide "
+                        "tables; xla: rtjax's binary-BVH walk (unsorted "
+                        "engine); auto: the kernels")
     p.add_argument("--no-sort", action="store_true",
                    help="disable ray sorting before traversal")
     p.add_argument("--sharded", action="store_true",
@@ -81,11 +82,10 @@ def _config(args, **extra):
         raise NotImplementedError(
             "--sharded: multi-device rendering is not ported yet (ROADMAP "
             "Queue A 15)")
-    # rtjax's "pallas" is its kernel path, which the port's "auto" takes
-    traversal = "auto" if args.traversal == "pallas" else args.traversal
     return RenderConfig(width=args.width, height=args.height,
                         num_samples=args.spp, max_bounces=args.bounces,
-                        num_working_paths=args.pool, traversal=traversal,
+                        num_working_paths=args.pool,
+                        traversal=args.traversal,
                         sort_rays=not args.no_sort, seed=args.seed, **extra)
 
 

@@ -4,7 +4,9 @@
 The fields that select TPU-specific or not-yet-ported behaviour are kept so
 that one configuration means the same workload in both packages; the engine
 (render/wavefront.py) raises NotImplementedError for values outside the
-ported slice instead of silently computing something else.
+ported slice instead of silently computing something else.  A value that
+names no mode of rtjax's (``traversal``, ``sort_key``, ``two_level``,
+``two_level_anyhit``) raises ValueError here.
 """
 
 from __future__ import annotations
@@ -12,6 +14,14 @@ from __future__ import annotations
 import dataclasses
 
 from . import constants
+
+
+# "pallas": the traversal kernels over the wide tables; "xla": rtjax's
+# binary-BVH walk; "auto": the kernels where the scene has wide tables
+TRAVERSALS = ("auto", "pallas", "xla")
+# rtjax's seven sort keys (render/sorting.py)
+SORT_KEYS = ("morton", "morton_pos", "morton_pos10", "prim", "prim_pos",
+             "normal_pos", "adaptive")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,6 +55,11 @@ class RenderConfig:
     reference_parity: bool = False
 
     def __post_init__(self):
+        for name, names in (("traversal", TRAVERSALS),
+                            ("sort_key", SORT_KEYS)):
+            if getattr(self, name) not in names:
+                raise ValueError(f"{name} must be one of {names}, got "
+                                 f"{getattr(self, name)!r}")
         if self.sort_every < 0:
             raise ValueError(
                 f"sort_every must be >= 0 (0 = auto), got {self.sort_every}")

@@ -6,11 +6,11 @@ under the repository root (a directory that .gitignore lists).
   rtjax's own flags;
 - the traversal kernels, one shared library with a plain C interface per
   ``rtjax_torch/csrc/*.cu`` source (the persistent walkers, the two-level
-  kernels, the packet and lane group walks; all include ``wide_walk.cuh``,
+  kernels, the packet and lane group walks, which include ``wide_walk.cuh``,
   the first two also ``fetch_walk.cuh``, the packet and lane kernels
   ``group_walk.cuh``, ``packet_walk.cuh``, ``lane_walk.cuh`` and, through
-  it, ``fetch_walk.cuh``), compiled by nvcc for ``sm_90a`` and bound with
-  ctypes.
+  it, ``fetch_walk.cuh``; the binary-BVH walk, ``binary_traverse.cu``,
+  includes none), compiled by nvcc for ``sm_90a`` and bound with ctypes.
 
 Each library is rebuilt when a source or a header it includes is newer
 than it.  nvcc runs with ``-Xptxas -v``: each kernel's registers, stack
@@ -37,6 +37,7 @@ BVH_SOURCE = REPO_ROOT / "rtjax" / "accel" / "cpp" / "bvh_builder.cpp"
 PERSIST_SOURCE = CSRC_DIR / "persist_traverse.cu"
 WIDE_INST_SOURCE = CSRC_DIR / "wide_inst_traverse.cu"
 PACKET_SOURCE = CSRC_DIR / "packet_traverse.cu"
+BINARY_SOURCE = CSRC_DIR / "binary_traverse.cu"
 WALK_HEADER = CSRC_DIR / "wide_walk.cuh"
 FETCH_HEADER = CSRC_DIR / "fetch_walk.cuh"
 GROUP_HEADER = CSRC_DIR / "group_walk.cuh"
@@ -136,3 +137,10 @@ def packet_library() -> Path:
                   [nvcc_path()] + NVCC_FLAGS,
                   (WALK_HEADER, FETCH_HEADER, GROUP_HEADER, PACKET_HEADER,
                    LANE_HEADER))
+
+
+def binary_library() -> Path:
+    """Path of the compiled binary-BVH walk kernels (built if missing or
+    stale)."""
+    return _build(BUILD_DIR / "libbinary_traverse.so", [BINARY_SOURCE],
+                  [nvcc_path()] + NVCC_FLAGS)

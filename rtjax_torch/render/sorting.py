@@ -2,6 +2,9 @@
 packed encodings (port of rtjax.render.sorting).
 
 Keys are int32; inactive lanes get 0x7FFFFFFF so they sort to the back.
+The engine keys its dead lanes that still hold radiance 0x7FFFFFFE
+(render/wavefront.py), so no live key may reach either value: every key
+function here keeps live keys at or below ``MAX_LIVE_KEY``.
 """
 
 from __future__ import annotations
@@ -9,6 +12,7 @@ from __future__ import annotations
 import torch
 
 INACTIVE_KEY = 0x7FFFFFFF
+MAX_LIVE_KEY = 0x7FFFFFFD
 
 
 def _part1by2(x):
@@ -20,33 +24,90 @@ def _part1by2(x):
     return x
 
 
-def _morton9(origin, lo, hi):
-    """27-bit Morton code of the origin's cell in a 512^3 grid over the
-    scene root box."""
+def _morton(origin, lo, hi, cells_max):
+    """Morton code of the origin's cell in a ``(cells_max + 1)^3`` grid
+    over the scene root box (10 bits an axis at most)."""
     cells = []
     for k in range(3):
         g = (origin[k] - lo[k]) / torch.clamp(hi[k] - lo[k], min=1e-30)
-        cells.append(torch.clamp(g * 511.0, 0.0, 511.0).to(torch.int32))
+        cells.append(torch.clamp(g * cells_max, 0.0, cells_max)
+                     .to(torch.int32))
     return (_part1by2(cells[0]) | (_part1by2(cells[1]) << 1)
             | (_part1by2(cells[2]) << 2))
 
 
-def _octant(direction):
+def _morton9(origin, lo, hi):
+    """27-bit Morton code of the origin's cell in a 512^3 grid."""
+    return _morton(origin, lo, hi, 511.0)
+
+
+def _octant3_v3(direction):
+    """3-bit octant of a component triple (bit k: component k < 0)."""
     return ((direction[0] < 0).to(torch.int32)
             | ((direction[1] < 0).to(torch.int32) << 1)
             | ((direction[2] < 0).to(torch.int32) << 2))
 
 
+
 def ray_sort_keys_v3(origin, direction, lo, hi, active):
     """Octant-major keys: 3-bit octant | 27-bit origin Morton code."""
-    key = (_octant(direction) << 27) | _morton9(origin, lo, hi)
+    key = (_octant3_v3(direction) << 27) | _morton9(origin, lo, hi)
     return torch.where(active, key, INACTIVE_KEY)
 
 
 def ray_sort_keys_pos_v3(origin, direction, lo, hi, active):
     """Position-major keys: 27-bit origin Morton code | 3-bit octant."""
-    key = (_morton9(origin, lo, hi) << 3) | _octant(direction)
+    key = (_morton9(origin, lo, hi) << 3) | _octant3_v3(direction)
     return torch.where(active, key, INACTIVE_KEY)
+
+
+def ray_sort_keys_pos10_v3(origin, direction, lo, hi, active):
+    """Finer position-major keys: the 30-bit origin Morton code of a
+    1024^3 grid, no octant."""
+    return torch.where(active, _morton(origin, lo, hi, 1023.0),
+                       INACTIVE_KEY)
+
+
+def _prim24(prim):
+    return torch.clamp(prim, 0, (1 << 24) - 1)
+
+
+def ray_sort_keys_prim_v3(prim, direction, active):
+    """Tree-locality keys: 3-bit octant | 24-bit origin prim (leaf order is
+    tree order; camera rays, prim -1, keep their slot order)."""
+    key = (_octant3_v3(direction) << 24) | _prim24(prim)
+    return torch.where(active, key, INACTIVE_KEY)
+
+
+def ray_sort_keys_prim_pos_v3(prim, direction, active):
+    """Prim-major keys: 24-bit origin prim | 3-bit octant."""
+    key = (_prim24(prim) << 3) | _octant3_v3(direction)
+    return torch.where(active, key, INACTIVE_KEY)
+
+
+def ray_sort_keys_normal_pos_v3(origin, normal, lo, hi, active):
+    """Position-major keys with the NORMAL's octant as the tie-break:
+    27-bit origin Morton code | 3-bit normal octant."""
+    key = (_morton9(origin, lo, hi) << 3) | _octant3_v3(normal)
+    return torch.where(active, key, INACTIVE_KEY)
+
+
+def ray_sort_keys_adaptive_v3(origin, normal, bounces, lo, hi, active,
+                              deep_from=2):
+    """Depth-adaptive keys: position-major (Morton | normal octant) below
+    ``deep_from`` bounces, normal-octant-major (a top bit | octant |
+    Morton) from there.
+
+    rtjax's deep key reaches 0x7FFFFFFF at the far Morton corner with
+    normal octant 7, the dead lanes' marker, and 0x7FFFFFFE one cell
+    before it, the dirty dead lanes' key; live keys here are clamped to
+    ``MAX_LIVE_KEY`` so that a live lane never sorts among the dead."""
+    m = _morton9(origin, lo, hi)
+    oc = _octant3_v3(normal)
+    key = torch.where(bounces >= deep_from, (1 << 30) | (oc << 27) | m,
+                      (m << 3) | oc)
+    return torch.where(active, torch.clamp(key, max=MAX_LIVE_KEY),
+                       INACTIVE_KEY)
 
 
 def sort_pytree_by_key(keys, tree):

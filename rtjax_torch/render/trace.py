@@ -2,13 +2,21 @@
 two-level (instanced) merge (port of rtjax.render.trace).
 
 A hit is identified by ``(src, prim)``: src 0 is the base scene, src k
-instance k - 1, and prim the leaf-order triangle within that mesh.  Every
-single-level launch (a single-level scene, and each launch of repass)
-picks its kernels by walker with :func:`_backend`, as rtjax's ``_backend``
-does: the persistent walkers (kernels/persist.py), the packet kernels
-(kernels/wide.py) or the lane kernels (kernels/lane.py).  An instanced
-scene takes one of rtjax's two strategies, chosen by
-``RenderConfig.two_level`` (``two_level_anyhit`` follows it on "auto"):
+instance k - 1, and prim the leaf-order triangle within that mesh.
+
+``RenderConfig.traversal`` picks the traversal (:func:`resolve_mode`):
+"pallas" the kernels over the wide tables, "xla" rtjax's binary-BVH walk
+(kernels/traversal.py), and "auto" the kernels where the scene has wide
+tables and the binary walk where it has none (rtjax's "auto" takes the
+binary walk on every backend but a TPU; the kernels are the port's fast
+path on the card, as Pallas is rtjax's on the TPU).  On the kernel path
+every single-level launch (a single-level scene, and each launch of
+repass) picks its kernels by walker with :func:`_backend`, as rtjax's
+``_backend`` does: the persistent walkers (kernels/persist.py), the packet
+kernels (kernels/wide.py) or the lane kernels (kernels/lane.py).  An
+instanced scene with two-level tables takes one of rtjax's two strategies,
+chosen by ``RenderConfig.two_level`` (``two_level_anyhit`` follows it on
+"auto"):
 
 - "repass" (what "auto" resolves to): one launch over the base scene,
   then, per mesh, passes in which every ray walks its nearest
@@ -18,17 +26,24 @@ scene takes one of rtjax's two strategies, chosen by
   reading one device value per pass;
 - "kernel": one launch of the two-level kernels (kernels/wide_inst.py).
 
+An instanced scene under "xla", or one without two-level tables (a mesh
+built with ``max_leaf_size > 8`` has no wide tables), takes rtjax's
+per-instance loop: the base scene, then every instance in turn over the
+rays that meet its world box, in its local frame; a mesh with wide tables
+keeps the kernels there, one without takes the binary walk.
+
 ``with_stats=True`` (``RenderConfig.detailed_stats``) appends the walks'
 ``(node_steps, leaf_visits)``, summed over every launch of the call
-(repass: the base launch and every pass).  Only the persist kernels count
-(their stats instances); a launch that would take the packet, lane or
-two-level kernels raises NotImplementedError naming ROADMAP Queue S 3.
+(repass and the per-instance loop: the base launch and every pass or
+instance).  The persist kernels (their stats instances) count node visits
+and leaf rows, the binary walk rtjax's node-pair steps and leaf visits; a
+launch that would take the packet, lane or two-level kernels raises
+NotImplementedError naming ROADMAP Queue S 3.
 
 Every kernel wrapper launches its CUDA kernel for CUDA tensors and runs
 its plain version for CPU tensors.  rtjax's direct all-triangles loop for
 tiny scenes (``direct_max_tris``) computes the same hits and is not ported
-yet (ROADMAP Queue S 1); nor is rtjax's binary-BVH traversal
-(``traversal="xla"`` and scenes without wide tables, Queue A 18).
+yet (ROADMAP Queue S 1).
 """
 
 from __future__ import annotations
@@ -40,10 +55,12 @@ import torch
 
 from ..accel.instancing import apply_affine_point, apply_affine_vector
 from ..core import vec
+from ..core.geometry import FLT_EPSILON
 from ..kernels import lane, persist
 from ..kernels.lane import lane_traverse_closest
 from ..kernels.persist import (persist_traverse_anyhit,
                                persist_traverse_closest, slab, slab_pre)
+from ..kernels.traversal import traverse_anyhit, traverse_closest
 from ..kernels.wide import wide_traverse_anyhit, wide_traverse_closest
 from ..kernels.wide_inst import (wide_traverse_anyhit_inst,
                                  wide_traverse_closest_inst)
@@ -53,8 +70,6 @@ _REPASS_BIG = 3.0e38   # rtjax's "no candidate" entry distance
 
 WALKERS = ("auto", "persist", "packet", "lane")
 ANYHIT_WALKERS = ("auto", "persist", "packet")
-_BINARY = ("rtjax's binary-BVH traversal (kernels/traversal.py) is not "
-           "ported yet (ROADMAP Queue A 18)")
 _NO_STATS = ("detailed_stats counts traversal work in the persist kernels "
              "only; the {} kernels' counters are not ported yet (ROADMAP "
              "Queue S 3)")
@@ -69,22 +84,29 @@ def check_config(scene, cfg) -> None:
     if cfg.anyhit_walker not in ANYHIT_WALKERS:
         raise ValueError(f"anyhit_walker must be one of {ANYHIT_WALKERS}, "
                          f"got {cfg.anyhit_walker!r}")
-    if cfg.traversal != "auto":
-        raise NotImplementedError(
-            f"traversal={cfg.traversal!r}: the port traverses with its "
-            f"kernels on \"auto\"; {_BINARY}")
-    if scene.tables is None:
-        raise NotImplementedError(
-            f"scenes built with max_leaf_size > 8 have no wide tables; "
-            f"{_BINARY}")
-    if cfg.detailed_stats:
+    mode = resolve_mode(scene, cfg)
+    if cfg.detailed_stats and mode == "pallas":
         if cfg.walker in ("packet", "lane"):
             raise NotImplementedError(_NO_STATS.format(cfg.walker))
         if cfg.anyhit_walker == "packet":
             raise NotImplementedError(_NO_STATS.format("packet"))
-        if scene.instances is not None and "kernel" in (
+        if scene.inst_tables is not None and "kernel" in (
                 _resolve_two_level(cfg), _anyhit_two_level(cfg)):
             raise NotImplementedError(_NO_STATS.format("two-level"))
+
+
+def resolve_mode(scene, cfg) -> str:
+    """"pallas" (the wide-table kernels) or "xla" (the binary walk):
+    ``cfg.traversal``, "auto" taking the kernels where the scene has wide
+    tables.  "pallas" on a scene without them raises ValueError, as
+    rtjax's assertion does."""
+    mode = cfg.traversal
+    if mode == "auto":
+        return "pallas" if scene.tables is not None else "xla"
+    if mode == "pallas" and scene.tables is None:
+        raise ValueError("traversal='pallas' needs wide tables: build the "
+                         "scene with max_leaf_size <= 8")
+    return mode
 
 
 def _backend(tables, cfg, with_stats=False):
@@ -130,6 +152,32 @@ def _backend(tables, cfg, with_stats=False):
     return partial(closest, tables), partial(anyhit, tables)
 
 
+def _binary(mesh, cfg, with_stats=False):
+    """The ``(closest, anyhit)`` functions of rtjax's binary walk over a
+    mesh's BVH (``mesh.bvh``, ``mesh.tris``: the scene or a BLAS), with
+    the kernel path's signatures: closest hit drops u and v, as rtjax's
+    ``_backend`` does.  The stack holds ``max(cfg.stack_size, depth +
+    1)`` entries."""
+    def closest(o, d, tmax, active):
+        hit, t, _, _, prim, normal, *st = traverse_closest(
+            mesh.bvh, mesh.tris, o, d, tmax, active, cfg.stack_size,
+            with_stats)
+        return (hit, t, prim, normal, *st)
+
+    return closest, partial(traverse_anyhit, mesh.bvh, mesh.tris,
+                            stack_size=cfg.stack_size, with_stats=with_stats)
+
+
+def _single(mesh, mode, cfg, with_stats=False):
+    """The single-level ``(closest, anyhit)`` functions of a mesh (the
+    scene or a BLAS) under ``mode``: the kernels where the mode is
+    "pallas" and the mesh has wide tables (rtjax's ``mode_k``), else the
+    binary walk."""
+    if mode == "pallas" and mesh.tables is not None:
+        return _backend(mesh.tables, cfg, with_stats)
+    return _binary(mesh, cfg, with_stats)
+
+
 def _anyhit_two_level(cfg) -> str:
     """``two_level_anyhit``, "auto" following ``two_level``."""
     tl = cfg.two_level_anyhit
@@ -142,17 +190,6 @@ def _resolve_two_level(cfg) -> str:
     holds repass as a removal candidate until a many-instance scene is
     measured."""
     return "repass" if cfg.two_level == "auto" else cfg.two_level
-
-
-def _strategy(scene, tl: str) -> str:
-    """``tl`` itself: the builder makes ``inst_tables`` exactly when the
-    base scene and every BLAS have wide tables, which both strategies
-    need."""
-    if scene.inst_tables is None:
-        raise NotImplementedError(
-            "instanced scenes whose meshes have no wide tables (max_leaf_size"
-            f" > 8) traverse their BLAS one instance at a time; {_BINARY}")
-    return tl
 
 
 def _mesh_groups(inst) -> dict:
@@ -262,18 +299,107 @@ def _world_normal(inst, src, n_l):
     return vec.where(src > 0, n_w, n_l)
 
 
+def _instance_mask(inst, k, o, d):
+    """Which rays meet instance ``k``'s world box: rtjax's slab test, in
+    its operation order (``(lo - o) * (1 / d)`` per axis)."""
+    lo, hi = inst.aabb_lo[k], inst.aabb_hi[k]
+    entry = exit_ = None
+    for c in range(3):
+        safe = torch.where(torch.abs(d[c]) < FLT_EPSILON,
+                           torch.copysign(torch.full_like(d[c],
+                                                          FLT_EPSILON), d[c]),
+                           d[c])
+        inv = 1.0 / safe
+        e0 = (lo[c] - o[c]) * inv
+        e1 = (hi[c] - o[c]) * inv
+        near, far = torch.minimum(e0, e1), torch.maximum(e0, e1)
+        entry = near if entry is None else torch.maximum(entry, near)
+        exit_ = far if exit_ is None else torch.minimum(exit_, far)
+    return entry <= exit_
+
+
+def _local_rays(inst, k, o, d):
+    """Rays in instance ``k``'s local frame (the direction not
+    renormalised, so t stays in world units)."""
+    rows = inst.inv[k]
+    return (tuple(c.contiguous() for c in apply_affine_point(rows, o)),
+            tuple(c.contiguous() for c in apply_affine_vector(rows, d)))
+
+
+def _loop_closest(scene, cfg, mode, o, d, tmax, active, with_stats):
+    """rtjax's per-instance loop, closest hit: the base scene, then each
+    instance over the rays that meet its world box, each launch pruned by
+    the best t so far.  Returns ``(hit, t, prim, src, world normal,
+    counts)``."""
+    inst = scene.instances
+    hit, t, prim, n_w, *st = _single(scene, mode, cfg, with_stats)[0](
+        o, d, tmax, active)
+    st = st[0] if with_stats else None
+    t = torch.where(hit, t, tmax)
+    src = torch.zeros_like(prim)
+    for k in range(inst.num):
+        closest = _single(scene.blas[inst.mesh_id[k]], mode, cfg,
+                          with_stats)[0]
+        m = active & _instance_mask(inst, k, o, d)
+        h2, t2, p2, n2, *st2 = closest(*_local_rays(inst, k, o, d), t, m)
+        if with_stats:
+            st = _add(st, st2[0])
+        closer = h2 & (t2 < t)
+        t = torch.where(closer, t2, t)
+        prim = torch.where(closer, p2, prim)
+        src = torch.where(closer, k + 1, src)
+        n_w = vec.where(closer, apply_affine_vector(inst.nrm[k], n2), n_w)
+        hit = hit | closer
+    return hit, t, prim, src, n_w, st
+
+
+def _loop_anyhit(scene, cfg, mode, o, d, tmax, exclude, active, with_stats):
+    """rtjax's per-instance loop, any hit: the base scene with the
+    exclusion, then each instance over the unoccluded rays that meet its
+    world box.  Returns ``(occluded, counts)``."""
+    inst = scene.instances
+    occ = _single(scene, mode, cfg, with_stats)[1](o, d, tmax, exclude,
+                                                   active)
+    st = None
+    if with_stats:
+        occ, st = occ
+    no_excl = torch.full_like(exclude, -1)
+    for k in range(inst.num):
+        anyhit = _single(scene.blas[inst.mesh_id[k]], mode, cfg,
+                         with_stats)[1]
+        m = active & ~occ & _instance_mask(inst, k, o, d)
+        occ_k = anyhit(*_local_rays(inst, k, o, d), tmax, no_excl, m)
+        if with_stats:
+            occ_k, st2 = occ_k
+            st = _add(st, st2)
+        occ = occ | occ_k
+    return occ, st
+
+
+def _two_level_tables(scene, mode) -> bool:
+    """Whether the instanced scene takes repass or the two-level kernels
+    (the kernel path and two-level tables) rather than the per-instance
+    loop."""
+    return mode == "pallas" and scene.inst_tables is not None
+
+
 def trace_closest(scene, cfg, o, d, tmax, active, with_stats=False):
     """Closest hit over the base scene and every instance: ``(hit, t,
     prim, src, normal)``; t is ``tmax`` on a miss and ``normal`` the world
     unnormalised ``cross(e1, e2)`` of the hit triangle.  ``o`` / ``d`` are
     component triples.  ``with_stats`` appends ``(node_steps,
     leaf_visits)``, summed over the call's launches."""
+    mode = resolve_mode(scene, cfg)
     if scene.instances is None:
-        hit, t, prim, normal, *st = _backend(scene.tables, cfg, with_stats)[
+        hit, t, prim, normal, *st = _single(scene, mode, cfg, with_stats)[
             0](o, d, tmax, active)
         t = torch.where(hit, t, tmax)
         return (hit, t, prim, torch.zeros_like(prim), normal, *st)
-    if _strategy(scene, _resolve_two_level(cfg)) == "repass":
+    if not _two_level_tables(scene, mode):
+        *out, st = _loop_closest(scene, cfg, mode, o, d, tmax, active,
+                                 with_stats)
+        return tuple(out) + ((st,) if with_stats else ())
+    if _resolve_two_level(cfg) == "repass":
         hit, t, prim, src, n_l, st = _repass_closest(scene, cfg, o, d, tmax,
                                                      active, with_stats)
     else:
@@ -289,10 +415,15 @@ def trace_closest(scene, cfg, o, d, tmax, active, with_stats=False):
 def trace_anyhit(scene, cfg, o, d, tmax, exclude, active, with_stats=False):
     """Occlusion with a per-lane excluded base-scene (leaf-order) prim;
     ``with_stats`` returns ``(occluded, (node_steps, leaf_visits))``."""
+    mode = resolve_mode(scene, cfg)
     if scene.instances is None:
-        return _backend(scene.tables, cfg, with_stats)[1](o, d, tmax,
-                                                          exclude, active)
-    if _strategy(scene, _anyhit_two_level(cfg)) == "repass":
+        return _single(scene, mode, cfg, with_stats)[1](o, d, tmax, exclude,
+                                                        active)
+    if not _two_level_tables(scene, mode):
+        occ, st = _loop_anyhit(scene, cfg, mode, o, d, tmax, exclude, active,
+                               with_stats)
+        return (occ, st) if with_stats else occ
+    if _anyhit_two_level(cfg) == "repass":
         occ, st = _repass_anyhit(scene, cfg, o, d, tmax, exclude, active,
                                  with_stats)
         return (occ, st) if with_stats else occ

@@ -2,11 +2,20 @@
 
 A persistent pool of path slots; each iteration is one bounce for every
 slot in flight: emission / Russian roulette / routing, ONE stable sort of
-the packed path state (continuing paths first, grouped by origin cell and
-direction; dead slots that still hold radiance next; clean dead slots
-last), NEE + MIS shading, camera-ray generation into the dead suffix, the
-framebuffer flush, then the closest-hit traversal of the path rays and one
-any-hit traversal of both shadow channels (2N rays).
+the packed path state (continuing paths first, grouped by the
+``sort_key``'s locality key; dead slots that still hold radiance next;
+clean dead slots last), NEE + MIS shading, camera-ray generation into the
+dead suffix, the framebuffer flush, then the closest-hit traversal of the
+path rays and one any-hit traversal of both shadow channels (2N rays).
+
+The sort carries the compact bundle (packed words, octahedral normals and
+directions, RGB9E5 throughput and radiance) where its ranges hold
+(``_compact_bundle_ok``: at most 2^21 pixels, 255 instances, 125
+bounces), and the wide bundle (every field at full precision) beyond.
+rtjax's unsorted engine runs where ``sort_rays`` is False or the
+traversal is "xla" (render/trace.py ``resolve_mode``), as rtjax runs it:
+every slot keeps its place, and regenerated slots are ranked by a prefix
+sum.
 
 Estimator modes (``RenderConfig``), as in rtjax:
 
@@ -58,11 +67,14 @@ from ..scene.camera import Camera
 from ..scene.light import gather_light_v3, is_delta, pdf_li_v3, sample_li_v3
 from ..scene.material import get_f_v3, is_specular, sample_f_v3
 from ..scene.scene import Scene
-from .sorting import (oct_decode_v3, oct_encode_v3, ray_sort_keys_pos_v3,
+from .sorting import (oct_decode_v3, oct_encode_v3,
+                      ray_sort_keys_adaptive_v3, ray_sort_keys_normal_pos_v3,
+                      ray_sort_keys_pos10_v3, ray_sort_keys_pos_v3,
+                      ray_sort_keys_prim_pos_v3, ray_sort_keys_prim_v3,
                       ray_sort_keys_v3, rgb9e5_decode_v3, rgb9e5_encode_v3,
                       sort_pytree_by_key)
-from .trace import (check_config, gather_hit_materials_v3, trace_anyhit,
-                    trace_closest)
+from .trace import (check_config, gather_hit_materials_v3, resolve_mode,
+                    trace_anyhit, trace_closest)
 
 # random word ids: each word splits into two 16-bit uniforms
 _W_RR_PICK = 0      # (RR uniform, light pick)
@@ -148,14 +160,29 @@ def check_slice(scene: Scene, cfg: RenderConfig) -> None:
                          "BSDF draw; it cannot be combined with "
                          "reference_parity")
     check_config(scene, cfg)
-    if cfg.sort_key not in ("morton_pos", "morton"):
-        raise NotImplementedError(
-            f"sort_key={cfg.sort_key!r} is not ported yet (ROADMAP Queue "
-            "S 4)")
-    if not cfg.sort_rays or not _compact_bundle_ok(scene, cfg):
-        raise NotImplementedError(
-            "the unsorted engine and the wide sort bundle are not ported "
-            "yet (ROADMAP Queue S 4)")
+
+
+def _sort_keys(scene, cfg, state, hp, bounces, mat_mask):
+    """The sort keys of ``cfg.sort_key`` (rtjax's dispatch): the origin
+    prim, the hit point ``hp`` with the incoming direction, or the hit
+    point with the normal (``adaptive`` by ``bounces`` too); the Morton
+    grids span the scene's root box."""
+    key = cfg.sort_key
+    if key in ("prim", "prim_pos"):
+        f = ray_sort_keys_prim_v3 if key == "prim" \
+            else ray_sort_keys_prim_pos_v3
+        return f(torch.where(mat_mask, state.prim, -1), state.ray_d,
+                 mat_mask)
+    lo, hi = scene.bvh.bmin[0], scene.bvh.bmax[0]
+    if key == "normal_pos":
+        return ray_sort_keys_normal_pos_v3(hp, state.normal, lo, hi,
+                                           mat_mask)
+    if key == "adaptive":
+        return ray_sort_keys_adaptive_v3(hp, state.normal, bounces, lo, hi,
+                                         mat_mask)
+    f = {"morton_pos": ray_sort_keys_pos_v3, "morton": ray_sort_keys_v3,
+         "morton_pos10": ray_sort_keys_pos10_v3}[key]
+    return f(hp, state.ray_d, lo, hi, mat_mask)
 
 
 def _accum(acc, value, mask):
@@ -306,62 +333,80 @@ def wavefront_step(scene: Scene, camera: Camera, cfg: RenderConfig, words,
     # ---- the sort: the iteration's one compaction step -------------------
     hp_t = torch.where(mat_mask, state.t, 0.0)
     hp = vec.add(state.ray_o, vec.scale(hp_t, state.ray_d))
-    root_lo, root_hi = scene.bvh.bmin[0], scene.bvh.bmax[0]
-    keyf = ray_sort_keys_pos_v3 if cfg.sort_key == "morton_pos" \
-        else ray_sort_keys_v3
-    if parity:
-        # the reference's RR "limbo": a killed path keeps its payload (and
-        # hit) for later re-rolls; it neither shades, traces nor
-        # regenerates.  Every iteration sorts, with the full state.
-        limbo = rr_kill
-        do_gen = True
-        keys = keyf(hp, state.ray_d, root_lo, root_hi, mat_mask)
+    state_sorted = cfg.sort_rays and resolve_mode(scene, cfg) != "xla"
+    # the reference's RR "limbo" (parity): a killed path keeps its payload
+    # (and hit) for later re-rolls; it neither shades, traces nor
+    # regenerates
+    limbo = rr_kill if parity else None
+    do_gen = True
+    if not state_sorted:
+        # the unsorted engine: every lane keeps its slot
+        pixel, ray_o_p, ray_d_p, t_p, normal, prim, src = (
+            state.pixel, state.ray_o, state.ray_d, state.t, state.normal,
+            state.prim, state.src)
+        p = hp
+    elif parity:
+        # every iteration sorts, with the full state
         bundle = (state.pixel, state.ray_o, state.ray_d, state.t,
                   state.normal, state.prim, state.src, bounces, beta, acc,
                   mat_mask, limbo)
         (pixel, ray_o_p, ray_d_p, t_p, normal, prim, src, bounces, beta, acc,
-         mat_mask, limbo) = sort_pytree_by_key(keys, bundle)
+         mat_mask, limbo) = sort_pytree_by_key(
+             _sort_keys(scene, cfg, state, hp, bounces, mat_mask), bundle)
         p = vec.add(ray_o_p, vec.scale(torch.where(mat_mask, t_p, 0.0),
                                        ray_d_p))
-        gen_mask = ~mat_mask & ~limbo
     else:
-        k_req = resolve_sort_every(scene, cfg)
+        compact = _compact_bundle_ok(scene, cfg)
+        k_req = resolve_sort_every(scene, cfg) if compact else 1
         if k_req > 1:
             # sort, gen and flush only every k-th iteration, or when the
             # live part drops below 3/4 of the pool (one device read)
             num_mat_pre = int(mat_mask.sum())
             do_gen = (it % k_req) == 0 or num_mat_pre * 4 < n * 3
-        else:
-            do_gen = True
-
-        dirty = ~mat_mask & ((acc[0] != 0.0) | (acc[1] != 0.0)
-                             | (acc[2] != 0.0))
-        # packed bundle: pixel | bounces (7 bits, 127 = dead) | mat bit;
-        # prim + 1 | src; octahedral normal and direction; RGB9E5 beta and
-        # acc
-        b7 = torch.clamp(bounces, max=127)
-        pbm = state.pixel | (b7 << 21) | (mat_mask.to(torch.int32) << 28)
-        sp = (state.prim + 1) | (state.src << 23)
-        bundle = (hp, rgb9e5_encode_v3(beta), rgb9e5_encode_v3(acc), pbm, sp,
-                  oct_encode_v3(state.normal), oct_encode_v3(state.ray_d))
         if do_gen:
-            keys = torch.where(dirty, _DIRTY_KEY,
-                               keyf(hp, state.ray_d, root_lo, root_hi,
-                                    mat_mask))
-            bundle = sort_pytree_by_key(keys, bundle)
-        p, b9, a9, pbm, sp, onrm, od = bundle
-        ray_d_p = oct_decode_v3(od)
-        beta = rgb9e5_decode_v3(b9)
-        acc = rgb9e5_decode_v3(a9)
-        pixel = pbm & 0x1FFFFF
-        b_dec = (pbm >> 21) & 0x7F
-        bounces = torch.where(b_dec >= 127, DEAD_BOUNCES, b_dec)
-        mat_mask = ((pbm >> 28) & 1) != 0
-        prim = (sp & 0x7FFFFF) - 1
-        src = (sp >> 23) & 0xFF
-        normal = oct_decode_v3(onrm)
+            dirty = ~mat_mask & ((acc[0] != 0.0) | (acc[1] != 0.0)
+                                 | (acc[2] != 0.0))
+            skeys = torch.where(dirty, _DIRTY_KEY, _sort_keys(
+                scene, cfg, state, hp, bounces, mat_mask))
+        sort = lambda bundle: sort_pytree_by_key(skeys, bundle) \
+            if do_gen else bundle
+        if compact:
+            # packed bundle: pixel | bounces (7 bits, 127 = dead) | mat
+            # bit; prim + 1 | src; octahedral normal and direction;
+            # RGB9E5 beta and acc
+            b7 = torch.clamp(bounces, max=127)
+            pbm = state.pixel | (b7 << 21) | (mat_mask.to(torch.int32) << 28)
+            sp = (state.prim + 1) | (state.src << 23)
+            p, b9, a9, pbm, sp, onrm, od = sort((
+                hp, rgb9e5_encode_v3(beta), rgb9e5_encode_v3(acc), pbm, sp,
+                oct_encode_v3(state.normal), oct_encode_v3(state.ray_d)))
+            ray_d_p = oct_decode_v3(od)
+            beta = rgb9e5_decode_v3(b9)
+            acc = rgb9e5_decode_v3(a9)
+            pixel = pbm & 0x1FFFFF
+            b_dec = (pbm >> 21) & 0x7F
+            bounces = torch.where(b_dec >= 127, DEAD_BOUNCES, b_dec)
+            mat_mask = ((pbm >> 28) & 1) != 0
+            prim = (sp & 0x7FFFFF) - 1
+            src = (sp >> 23) & 0xFF
+            normal = oct_decode_v3(onrm)
+        else:
+            # the wide bundle (frames above 2^21 pixels, more than 255
+            # instances, max_bounces >= 126): every field at full
+            # precision, bounces (15 bits, 0x7FFF = dead) and the mat bit
+            # in one word.  src rides in a column of its own: rtjax packs
+            # it in 12 bits, which an instance id above 4,095 overflows
+            # into the mat bit.
+            meta = torch.clamp(bounces, max=0x7FFF) | \
+                (mat_mask.to(torch.int32) << 15)
+            pixel, p, ray_d_p, normal, prim, src, beta, acc, meta = sort((
+                state.pixel, hp, state.ray_d, state.normal, state.prim,
+                state.src, beta, acc, meta))
+            mat_mask = ((meta >> 15) & 1) != 0
+            b_dec = meta & 0x7FFF
+            bounces = torch.where(b_dec >= 0x7FFF, DEAD_BOUNCES, b_dec)
         ray_o_p = p  # a dead lane's ray is never read
-        gen_mask = ~mat_mask
+    gen_mask = ~mat_mask & ~limbo if parity else ~mat_mask
 
     # ---- shading (full width; see the module docstring) -------------------
     b1u1, b1u2 = draw_pair(_W_BSDF1)
@@ -374,8 +419,9 @@ def wavefront_step(scene: Scene, camera: Camera, cfg: RenderConfig, words,
     gen_u, gen_v = draw_pair(_W_GEN)
     if do_gen:
         num_gen = gen_mask.sum()
-        if parity:
-            # limbo lanes sit among the dead ones: rank by a prefix sum
+        if parity or not state_sorted:
+            # the dead lanes are not a suffix (unsorted, or limbo lanes
+            # among them): rank by a prefix sum
             gen_rank = torch.cumsum(gen_mask, 0) - gen_mask.long()
             cam_id = cam_start + gen_rank
             got_ray = gen_mask & (cam_id < cam_end)

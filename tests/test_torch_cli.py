@@ -43,12 +43,20 @@ def test_cli_bench(capsys):
 
 
 @pytest.mark.parametrize("flag, err, item", [
-    (["--traversal", "xla"], NotImplementedError, "Queue A 18"),
     (["--sharded"], NotImplementedError, "Queue A 15"),
 ])
 def test_cli_unported_options_raise(tmp_path, flag, err, item):
     with pytest.raises(err, match=item):
         cli.main(["render", *SMALL, *flag, "-o", str(tmp_path / "x.ppm")])
+
+
+@pytest.mark.parametrize("flag", [["--traversal", "xla"], ["--no-sort"],
+                                  ["--traversal", "pallas"]], ids=str)
+def test_cli_traversal_and_sort_options_render(tmp_path, flag):
+    out = tmp_path / "x.ppm"
+    assert cli.main(["render", *SMALL, *flag, "-o", str(out)]) == 0
+    img = read_ppm(out)
+    assert img.shape == (16, 16, 3) and img.max() > 0
 
 
 def test_cli_cuda_without_a_card_raises(tmp_path, monkeypatch):

@@ -1,7 +1,8 @@
 """rtjax_torch on a CUDA device: the hand-written kernels (persistent
-walkers, two-level, packet and lane kernels, each in both designs)
-against their plain PyTorch versions, and the engine's main path through the
-kernels, single-level and instanced, under every walker.
+walkers, two-level, packet and lane kernels, each in both designs, and the
+binary-BVH walk) against their plain PyTorch versions, and the engine's
+main path through the kernels, single-level and instanced, under every
+walker and under ``traversal="xla"``.
 
 Every test here is marked ``cuda`` and skips where
 ``torch.cuda.is_available()`` is False.  The file imports no JAX, so on a
@@ -24,6 +25,7 @@ from rtjax_torch import RenderConfig
 from rtjax_torch.accel.builder_cpp import build_bvh
 from rtjax_torch.accel.wide import build_wide_tables
 from rtjax_torch.kernels import lane as L
+from rtjax_torch.kernels import traversal as T
 from rtjax_torch.kernels import persist as P
 from rtjax_torch.kernels import wide as WD
 from rtjax_torch.kernels import wide_inst as WI
@@ -34,6 +36,7 @@ from rtjax_torch.scene.scene import SceneBuilder
 from rtjax_torch.scene.transform import Transform, rotate, scale, translate
 from rtjax_torch.scenes import cornell_planes
 
+from test_torch_binary_launch import DEEP_T, deep_bvh, down_rays
 from test_torch_persist_work import chain_rays, chain_tables
 
 pytestmark = pytest.mark.cuda
@@ -760,3 +763,114 @@ def test_instanced_render_runs_through_the_kernels(cuda, strategy):
             assert p1[k] - p0[k] > its and w1[k] == w0[k]
     assert bool(torch.isfinite(fb).all()) and bool((fb >= 0).all())
     assert stats["rays_traced"] >= 32 * 32 * 8
+
+
+# ------------------------------------------------------ binary-BVH walk
+
+def _soup_bvh(device, max_leaf=4):
+    """The binary BVH and leaf-order triangles of _soup_tables' 300
+    triangles, built with ``max_leaf``."""
+    from rtjax_torch.core.geometry import Triangles
+    rng = np.random.default_rng(11)
+    p0 = rng.uniform(-1, 1, (300, 3)).astype(np.float32)
+    p1 = (p0 + rng.uniform(-0.4, 0.4, (300, 3))).astype(np.float32)
+    p2 = (p0 + rng.uniform(-0.4, 0.4, (300, 3))).astype(np.float32)
+    res = build_bvh(np.minimum(np.minimum(p0, p1), p2),
+                    np.maximum(np.maximum(p0, p1), p2), (p0 + p1 + p2) / 3.0,
+                    max_leaf_size=max_leaf)
+    p = res.perm
+    return res.to_device(device), Triangles.from_vertices(p0[p], p1[p],
+                                                          p2[p], device)
+
+
+def _binary_equal(bvh, tris, o, d, tmax, active, exclude):
+    """Both binary kernels and their stats instances against the plain
+    versions, bit for bit; the counts equal."""
+    work = T.new_work()
+    ref = T.traverse_closest_ref(bvh, tris, o, d, tmax, active, work=work)
+    got = T.traverse_closest(bvh, tris, o, d, tmax, active)
+    sgot = T.traverse_closest(bvh, tris, o, d, tmax, active, with_stats=True)
+    for a, b, c in zip(got[:5], ref[:5], sgot[:5]):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    for a, b, c in zip(got[5], ref[5], sgot[5]):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    assert (int(sgot[6][0]), int(sgot[6][1])) == (work["steps"],
+                                                  work["leafs"])
+    dead = ~active
+    assert not bool(got[0][dead].any()) and bool(torch.isinf(got[1][dead])
+                                                 .all())
+    assert bool((got[4][dead] == -1).all())
+    work = T.new_work()
+    occ_ref = T.traverse_anyhit_ref(bvh, tris, o, d, tmax, exclude, active,
+                                    work=work)
+    occ = T.traverse_anyhit(bvh, tris, o, d, tmax, exclude, active)
+    occ_s, st = T.traverse_anyhit(bvh, tris, o, d, tmax, exclude, active,
+                                  with_stats=True)
+    assert torch.equal(occ, occ_ref) and torch.equal(occ, occ_s)
+    assert (int(st[0]), int(st[1])) == (work["steps"], work["leafs"])
+    assert not bool(occ[dead].any())
+    return got, occ
+
+
+@pytest.mark.parametrize("max_leaf", [1, 4, None], ids=str)
+@pytest.mark.parametrize("tmax_v", [float("inf"), 0.7], ids=["inf", "0.7"])
+def test_binary_kernels_equal_plain_versions(cuda, max_leaf, tmax_v):
+    bvh, tris = _soup_bvh(cuda, max_leaf)
+    n = 5 * T.BLOCK + 77
+    o, d, active, exclude = _rays(n, cuda)
+    tmax = torch.full((n,), tmax_v, device=cuda)
+    calls = dict(T.LAUNCHES), dict(T.STATS_LAUNCHES)
+    got, occ = _binary_equal(bvh, tris, o, d, tmax, active, exclude)
+    assert bool(got[0].any()) and bool(occ.any())
+    assert T.LAUNCHES == {k: v + 1 for k, v in calls[0].items()}
+    assert T.STATS_LAUNCHES == {k: v + 1 for k, v in calls[1].items()}
+
+
+@pytest.mark.parametrize("n", [1, 31, 127, 129, 3000])
+def test_binary_kernels_take_ragged_batches(cuda, n):
+    bvh, tris = _soup_bvh(cuda)
+    o, d, active, exclude = _rays(n, cuda, seed=5)
+    _binary_equal(bvh, tris, o, d, torch.full((n,), 1.5, device=cuda),
+                  active, exclude)
+
+
+@pytest.mark.parametrize("levels", [40, 300])
+def test_binary_kernels_hold_every_push(cuda, levels):
+    """The deep tree pushes one entry a level: 42 and 302 entries of stack
+    (the second above 48 KB of shared memory a block)."""
+    bvh, tris = deep_bvh(cuda, levels=levels)
+    assert T.stack_len(bvh) == levels + 2
+    o, d = down_rays(200)
+    args = (torch.tensor(o, device=cuda), torch.tensor(d, device=cuda),
+            torch.full((200,), float("inf"), device=cuda))
+    active = torch.ones(200, dtype=torch.bool, device=cuda)
+    hit, t, *_ = T.traverse_closest(bvh, tris, *args, active)
+    torch.cuda.synchronize()
+    assert bool(hit.all()) and bool((t == DEEP_T).all())
+    _binary_equal(bvh, tris, *args, active,
+                  torch.full((200,), -1, dtype=torch.int32, device=cuda))
+
+
+def test_binary_kernels_refuse_deeper_trees(cuda):
+    bvh, tris = deep_bvh(cuda, max_depth=T.MAX_STACK)
+    o, d = down_rays()
+    with pytest.raises(ValueError, match=f"depth {T.MAX_STACK}"):
+        T.traverse_closest(bvh, tris, torch.tensor(o, device=cuda),
+                           torch.tensor(d, device=cuda),
+                           torch.full((4,), float("inf"), device=cuda),
+                           torch.ones(4, dtype=torch.bool, device=cuda))
+
+
+def test_xla_frame_runs_through_the_binary_kernels(cuda):
+    scene, cam = cornell_planes(cuda)
+    cfg = RenderConfig(width=32, height=32, num_samples=8, max_bounces=4,
+                       num_working_paths=4096, traversal="xla")
+    before = dict(T.LAUNCHES), dict(P.LAUNCHES)
+    refs = dict(T.REF_CALLS), dict(P.REF_CALLS)
+    fb, stats = render_frame(scene, cam, cfg,
+                             torch.Generator(device=cuda).manual_seed(1))
+    assert (dict(T.REF_CALLS), dict(P.REF_CALLS)) == refs
+    assert P.LAUNCHES == before[1]
+    for k in ("closest", "anyhit"):
+        assert T.LAUNCHES[k] - before[0][k] == stats["iterations"]
+    assert bool(torch.isfinite(fb).all()) and bool((fb >= 0).all())

@@ -359,11 +359,15 @@ def _hits_match(tr, hit, t, prim, src, nrm):
     return int((src[uniq] > 0).sum())
 
 
-@pytest.mark.parametrize("strategy", ["kernel", "repass"])
+@pytest.mark.parametrize("strategy", ["kernel", "repass", "xla"])
 def test_trace_matches_rtjax_loop(traced, strategy):
+    """"xla": rtjax's per-instance loop over the binary walk, as rtjax
+    runs it here."""
+    from rtjax_torch.kernels import traversal as T
     tr = traced
-    cfg = RenderConfig(two_level=strategy)
-    refs = dict(WI.REF_CALLS), dict(P.REF_CALLS)
+    cfg = RenderConfig(traversal="xla") if strategy == "xla" \
+        else RenderConfig(two_level=strategy)
+    refs = dict(WI.REF_CALLS), dict(P.REF_CALLS), dict(T.REF_CALLS)
     hit, t, prim, src, nrm = (
         a if isinstance(a, tuple) else a.numpy()
         for a in trace.trace_closest(
@@ -380,8 +384,10 @@ def test_trace_matches_rtjax_loop(traced, strategy):
     # the strategy ran the plain versions it names, and only those
     two_level = WI.REF_CALLS["closest"] - refs[0]["closest"]
     persist = P.REF_CALLS["closest"] - refs[1]["closest"]
-    assert (two_level, persist > 0) == ((1, False) if strategy == "kernel"
-                                       else (0, True))
+    binary = T.REF_CALLS["closest"] - refs[2]["closest"]
+    assert (two_level, persist > 0, binary) == {
+        "kernel": (1, False, 0), "repass": (0, True, 0),
+        "xla": (0, False, 1 + tr["scene"].instances.num)}[strategy]
 
 
 def test_plain_two_level_contract(traced):
@@ -628,13 +634,18 @@ def test_instanced_render_matches_baked():
     assert mse(a, b_) < 0.004
 
 
-def test_instanced_scene_without_wide_tables_raises():
+def test_instanced_scene_without_wide_tables_renders():
+    """A scene built with max_leaf_size > 8 has no wide tables: "auto"
+    takes the binary walk and rtjax's per-instance loop."""
+    from rtjax_torch.kernels import traversal as T
     b = SceneBuilder()
     RECIPES["pyramid3"](b, tf)
     scene = b.build("cpu", max_leaf_size=None)
     assert scene.inst_tables is None
-    cfg = RenderConfig(width=8, height=8, num_samples=1, max_bounces=1,
+    cfg = RenderConfig(width=8, height=8, num_samples=2, max_bounces=2,
                        num_working_paths=256)
     cam = Camera.make(*_RENDER_CAM, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue A 18"):
-        wf.render_frame(scene, cam, cfg, torch.Generator())
+    calls = T.REF_CALLS["closest"]
+    fb, _ = wf.render_frame(scene, cam, cfg, torch.Generator())
+    assert bool(torch.isfinite(fb).all()) and bool((fb >= 0).all())
+    assert float(fb.mean()) > 0 and T.REF_CALLS["closest"] > calls

@@ -223,10 +223,6 @@ def _instanced_scene():
     (dict(detailed_stats=True, walker="packet"), "Queue S 3"),
     (dict(detailed_stats=True, walker="lane"), "Queue S 3"),
     (dict(detailed_stats=True, two_level="kernel"), "Queue S 3"),
-    (dict(sort_key="prim"), "Queue S 4"),
-    (dict(traversal="xla"), "Queue A 18"),
-    (dict(sort_key="adaptive"), "Queue S 4"),
-    (dict(sort_rays=False), "Queue S 4"),
 ], ids=lambda v: str(v) if isinstance(v, dict) else v)
 def test_out_of_slice_configs_raise(pair, change, item):
     *_, scene, cam = pair
@@ -237,3 +233,25 @@ def test_out_of_slice_configs_raise(pair, change, item):
                        num_working_paths=256, **change)
     with pytest.raises(NotImplementedError, match=item):
         wf.render_frame(scene, cam, cfg, torch.Generator())
+
+
+@pytest.mark.parametrize("change", [
+    dict(sort_key="prim"), dict(traversal="xla"), dict(sort_key="adaptive"),
+    dict(sort_rays=False)], ids=str)
+def test_once_refused_configs_render(pair, change):
+    """The configurations that raised NotImplementedError before the
+    binary walk, the unsorted engine and the sort keys were ported."""
+    *_, scene, cam = pair
+    cfg = RenderConfig(width=8, height=8, num_samples=2, max_bounces=2,
+                       num_working_paths=256, **change)
+    fb, stats = wf.render_frame(scene, cam, cfg, torch.Generator())
+    assert bool(torch.isfinite(fb).all()) and bool((fb >= 0).all())
+    assert float(fb.mean()) > 0 and stats["iterations"] > 0
+
+
+@pytest.mark.parametrize("change", [
+    dict(traversal="cuda"), dict(traversal="Pallas"),
+    dict(sort_key="hilbert"), dict(sort_key="morton_pos9")], ids=str)
+def test_config_rejects_unknown_modes(change):
+    with pytest.raises(ValueError, match=next(iter(change))):
+        RenderConfig(**change)
