@@ -133,6 +133,33 @@ the script exits non-zero):
    per-instance loop): only the binary kernels, 1 + 16 launches of each an
    iteration, the image within 2x phase 6(a)'s seed-to-seed MSE (plus
    the 8-bit term) of its seed-2 frame;
+10. detailed_stats under every walker, and multi-GPU rendering (run after
+   phase 9, before phase 7's profiles; launch counts from zero around
+   every frame): (a) the stats instances of the packet and lane kernels
+   on phase 3's rays and of the two-level kernels on phase 5's field rays
+   over config 4 and over MANY_INST instances: node visits and leaf rows
+   equal to the plain walk's ``new_work()`` counts, results bit for bit
+   the default instances', device times in turns with them (default,
+   stats, stats, default), and the default instances' ptxas registers
+   held to DEFAULT_WALK_REGISTERS, the parent's; (b) detailed_stats
+   frames launching only stats instances, once an iteration: the
+   headline under walker="packet" (packet any hit) and under
+   walker="lane" with anyhit_walker="packet", each at phase 4's gate, and
+   config 4 under two_level="kernel" within 2x + the 8-bit term of repass;
+   (c) ``init_multihost`` at a world of one with the default backend
+   (NCCL) in a subprocess: the headline frame through
+   ``render_frame_sharded`` equal in iterations and rays to the unsharded
+   frame from ``rank_generator(2, 0)``, at phase 4's gate; (d) two
+   subprocesses on the one card over gloo with CUDA tensors, 32 spp a
+   rank: equal checksums of the reduced framebuffer on both, rays the sum
+   of the ranks' and iterations their maximum, at phase 4's gate, the
+   frame's seconds beside one process's; (e) the same two ranks render
+   eval config 5 for C5_SHARDED_SPP spp in batches of C5_SHARDED_BATCH
+   through ``render_checkpointed(mesh=)``, rank 0 saving, and a resume
+   from a file one batch short within C5_RTOL / C5_ATOL, with its
+   sustained Mrays/s; (f) ``python -m torch.distributed.run --standalone
+   --nproc_per_node=1 -m rtjax_torch render --sharded`` (NCCL over
+   ``env://``) writes its PPM;
 7. the two persist kernels' device time over one whole headline frame,
    the two packet kernels' over one walker="packet" headline frame, the
    lane closest-hit kernel's over one walker="lane" headline frame (its
@@ -169,7 +196,9 @@ stats instances (rows of their own, ``(with_stats)``, with the default
 instances' time beside theirs), phase 9(b)'s two xla frames for the
 binary-walk kernels (rows 9-10: rtjax's XLA walk, ``replaces`` naming
 its functions, which reach no ``pallas_call``; their bound counts each
-node pair and triangle the plain walk read, once, ``_binary_bound``).  lane_traverse_anyhit is on no engine path
+node pair and triangle the plain walk read, once, ``_binary_bound``),
+phase 10(b)'s frames for the packet, lane and two-level kernels' stats
+instances (rows of their own, ``(with_stats)``).  lane_traverse_anyhit is on no engine path
 (rtjax's ``anyhit_walker`` takes "persist" or "packet" only), so its count
 is 0.  Every row also carries ``ab``: both designs on each ray set
 (persist, packet and lane: phase 3, the in-frame launch, config 4's baked
@@ -308,13 +337,14 @@ def _kernel_label(mangled):
     m = re.search(r"(fetch_kernel|fetch_stats_kernel|stride_closest_kernel"
                   r"|stride_anyhit_kernel|inst_fetch|stride_closest"
                   r"|stride_anyhit)"
-                  r"ILi(\d+)E(?:Lb([01])E)?(?:Lb([01])E)?", mangled)
+                  r"ILi(\d+)E(?:Lb([01])E)?(?:Lb([01])E)?(?:Lb([01])E)?",
+                  mangled)
     if m is None:
         return mangled
     kernels = "two-level" if "Insts" in mangled else "persist"
     design = "fetch" if "fetch" in m[1] else "stride"
     anyhit = m[3] == "1" if design == "fetch" else "anyhit" in m[1]
-    if m[1] == "fetch_stats_kernel":
+    if m[1] == "fetch_stats_kernel" or m[5] == "1":
         design = "fetch stats"
     label = (f"{kernels} {design} {'any-hit' if anyhit else 'closest'}, "
              f"width {m[2]}")
@@ -947,7 +977,8 @@ def _packet_kind(key):
     32 rays), else None."""
     import re
     m = re.search(r"(packet|group)_(closest|anyhit)_kernel"
-                  r"(?:<\d+(?:, (\d+))?>|ILi\d+E(?:Li(\d+)E)?)", key)
+                  r"(?:<\d+(?:, (\d+|false))?>|ILi\d+E(?:Li(\d+)E|Lb0E)?)",
+                  key)
     if m is None or (m[1] == "group" and "256" not in (m[3], m[4])):
         return None
     return m[2]
@@ -958,7 +989,8 @@ def _lane_kind(key):
     design), "anyhit" for the persist any-hit kernel that a ``walker="lane"``
     frame runs beside it, else None."""
     import re
-    if re.search(r"lane_kernel(?:<\d+, false>|ILi\d+ELb0E)", key) or \
+    if re.search(r"lane_kernel(?:<\d+, false, false>|ILi\d+ELb0ELb0E)",
+                 key) or \
             re.search(r"group_closest_kernel(?:<\d+, 32>|ILi\d+ELi32E)", key):
         return "closest"
     return "anyhit" if _persist_kind(key) == "anyhit" else None
@@ -969,15 +1001,17 @@ def _group_label(mangled):
     ("packet leader ..." for the packet kernels' leader design, "lane ..."
     for the lane kernels, "lane group ..." for their group design)."""
     import re
-    m = re.search(r"lane_kernelILi(\d+)ELb([01])E", mangled)
+    m = re.search(r"lane_kernelILi(\d+)ELb([01])ELb([01])E", mangled)
     if m is not None:
-        return f"lane {'any-hit' if m[2] == '1' else 'closest'}, width {m[1]}"
+        return (f"lane{' stats' if m[3] == '1' else ''} "
+                f"{'any-hit' if m[2] == '1' else 'closest'}, width {m[1]}")
     m = re.search(r"(packet|group)_(closest|anyhit)_kernelILi(\d+)E"
-                  r"(?:Li(\d+)E)?", mangled)
+                  r"(?:Li(\d+)E)?(?:Lb([01])E)?", mangled)
     if m is None:
         return mangled
     kind = "closest" if m[2] == "closest" else "any-hit"
-    design = "packet" if m[1] == "packet" else \
+    design = ("packet stats" if m[5] == "1" else "packet") \
+        if m[1] == "packet" else \
         "packet leader" if m[4] == "256" else "lane group"
     return f"{design} {kind}, width {m[3]}"
 
@@ -1475,7 +1509,8 @@ def phase5_persist(scene, baked, camera, card):
 
 _KERNEL_SETS = ("persist", "two_level", "packet", "lane", "stride",
                 "inst_stride", "packet_leader", "lane_group", "persist_stats",
-                "binary", "binary_stats")
+                "binary", "binary_stats", "packet_stats", "lane_stats",
+                "two_level_stats")
 
 
 def _counters():
@@ -1495,7 +1530,10 @@ def _counters():
             "lane_group": (L.GROUP_LAUNCHES, None),
             "persist_stats": (P.STATS_LAUNCHES, None),
             "binary": (T.LAUNCHES, T.REF_CALLS),
-            "binary_stats": (T.STATS_LAUNCHES, None)}
+            "binary_stats": (T.STATS_LAUNCHES, None),
+            "packet_stats": (WD.STATS_LAUNCHES, None),
+            "lane_stats": (L.STATS_LAUNCHES, None),
+            "two_level_stats": (WI.STATS_LAUNCHES, None)}
 
 
 def _zero_counts():
@@ -1787,65 +1825,68 @@ def _stats_ptxas():
     return default, stats
 
 
-def _check_stats(label, tab, cl, ah, card, plain=False):
-    """The stats instances on ``tab`` with the rays ``cl`` / ``ah``: their
-    node visits and leaf rows equal the plain walk's ``new_work()`` counts
-    exactly, their results equal the default instances' bit for bit, or
-    raise; both timed in turns (default, stats, stats, default; the stats
-    call's time includes the 16-byte zero fill of its buffer).  ``plain``:
-    also time one plain call that counts.  Returns ``{kind: {...}}``."""
+def _flat(x):
+    """The tensors of a nest of tuples, in order."""
+    if isinstance(x, (tuple, list)):
+        return [t for v in x for t in _flat(v)]
+    return [x]
+
+
+def _check_counting(label, kinds, card):
+    """The stats instance of each kind of ``kinds`` (``{kind: (args,
+    wrapper, plain, in_bytes, out_bytes, tables, bound or None,
+    extra_bytes)}``; ``plain(*args, work=)`` the plain walk the wrapper's
+    kernel walks): its node visits and leaf rows equal the plain walk's
+    ``new_work()`` counts exactly and its results the default instance's
+    bit for bit, and the default instance's the plain walk's, or raise;
+    both instances timed in turns (default, stats, stats, default; the
+    stats call includes the zero fill of its buffer), and the plain walk's
+    one counting call.  ``bound`` None: from this plain walk's work.
+    Returns ``{kind: row}``."""
     import torch
     from rtjax_torch.kernels import persist as P
     out = {}
-    kinds = {"closest": ((tab, cl["o"], cl["d"], cl["tmax"], cl["active"]),
-                         P.persist_traverse_closest,
-                         P.persist_traverse_closest_ref, RAY_IN,
-                         CLOSEST_OUT, cl),
-             "anyhit": ((tab, ah["o"], ah["d"], ah["tmax"], ah["exclude"],
-                         ah["active"]), P.persist_traverse_anyhit,
-                        P.persist_traverse_anyhit_ref, RAY_IN + EXCLUDE, 1,
-                        ah)}
-    for kind, (args, fn, ref, in_b, out_b, rays) in kinds.items():
+    for kind, (args, fn, plain, in_b, out_b, tab, bound, extra) in \
+            kinds.items():
         work = P.new_work()
-        want = ref(*args, work=work)
+        ref, plain_ms = _timed_ms(lambda: plain(*args, work=work))
         base = fn(*args)
         got = fn(*args, with_stats=True)
         torch.cuda.synchronize()
         counts = tuple(int(c) for c in got[-1])
-        if kind == "closest":
-            pairs = list(zip(got[:3] + tuple(got[3]),
-                             base[:3] + tuple(base[3])))
-            wpairs = list(zip(base[:3] + tuple(base[3]),
-                              want[:3] + tuple(want[3])))
-        else:
-            pairs, wpairs = [(got[0], base)], [(base, want)]
-        mism = sum(int((a != b).sum()) for a, b in pairs)
-        mism_plain = sum(int((a != b).sum()) for a, b in wpairs)
-        want_counts = (work["node_visits"], work["leaf_rows"])
+        want = (work["node_visits"], work["leaf_rows"])
+
+        def mismatches(a, b):
+            a, b = _flat(a), _flat(b)
+            return sum(int((x != y).sum()) for x, y in zip(a, b)) \
+                + abs(len(a) - len(b))
+
+        mism = mismatches(got[:-1], base)
+        mism_plain = mismatches(base, ref)
         new, old = _ab_ms(lambda: fn(*args, with_stats=True),
                           lambda: fn(*args))
-        plain_ms = _median_ms(lambda: ref(*args, with_stats=True)) \
-            if plain else None
-        n, n_act = rays["tmax"].numel(), int(rays["active"].sum())
-        b = _bound(work, n, n_act, in_b, out_b, tab)
+        rays = args[3]
+        n, n_act = rays.numel(), int(args[-1].sum())
+        if bound is None:
+            bound = _bound(work, n, n_act, in_b, out_b, tab, extra)
         r = dict(max_abs_err=float(mism), ms=statistics.mean(new),
                  default_ms=statistics.mean(old), stats_device_ms=new,
                  default_device_ms=old, plain_ms=plain_ms, counts=counts,
-                 **{k: b[k] for k in _BOUND_KEYS})
+                 **{k: bound[k] for k in _BOUND_KEYS})
         r["cost"] = r["ms"] / r["default_ms"]
-        r["share"] = b["bound_ms"] / r["ms"]
+        r["share"] = bound["bound_ms"] / r["ms"]
         out[kind] = r
         print(f"[{label} stats {kind}] {card}: {n} rays ({n_act} active): "
-              f"counts (node visits, leaf rows) {counts}, plain walk "
-              f"{want_counts}; result mismatches vs the default instance "
-              f"{mism} (default vs plain {mism_plain}); device time (mean "
-              f"of {REPS} queued launches, in turns default, stats, stats, "
-              f"default): stats {new[0]:.4f} / {new[1]:.4f} ms, default "
-              f"{old[0]:.4f} / {old[1]:.4f} ms, stats / default "
-              f"{r['cost']:.3f}; bound {b['bound_us']:.3f} us by "
-              f"{b['bound_by']}, stats {100 * r['share']:.2f}% of it"
-              + (f"; plain with counting {plain_ms:.3f} ms" if plain else ""))
-        if counts != want_counts or mism or mism_plain:
+              f"counts (node visits, leaf rows) {counts}, plain walk {want}"
+              f"; result mismatches vs the default instance {mism} (default"
+              f" vs plain {mism_plain}); device "
+              f"time (mean of {REPS} queued launches, in turns default, "
+              f"stats, stats, default): stats {new[0]:.4f} / {new[1]:.4f} "
+              f"ms, default {old[0]:.4f} / {old[1]:.4f} ms, stats / default "
+              f"{r['cost']:.3f}; bound {bound['bound_us']:.3f} us by "
+              f"{bound['bound_by']}, stats {100 * r['share']:.2f}% of it; "
+              f"plain walk counting {plain_ms:.3f} ms (one call)")
+        if counts != want or mism or mism_plain or min(counts) <= 0:
             raise RuntimeError(f"{label}: the {kind} stats instance's counts "
                                "or results disagree")
     return out
@@ -1910,14 +1951,28 @@ def phase8_stats(scene, camera, card, floor):
                            "captured")
     gen = torch.Generator(device="cuda").manual_seed(1234)
     cl, ah = _test_rays(scene, camera, gen)
-    out = {"phase3": _check_stats("kernel", scene.tables, cl, ah, card,
-                                  plain=True)}
+    out = {"phase3": _check_counting("kernel", _persist_kinds(
+        scene.tables, cl, ah), card)}
     tab, cl = captured["closest"]
     _, ah = captured["anyhit"]
-    out["in_frame"] = _check_stats(f"in-frame launch {CAPTURE_AT}", tab, cl,
-                                   ah, card)
+    out["in_frame"] = _check_counting(f"in-frame launch {CAPTURE_AT}",
+                                      _persist_kinds(tab, cl, ah), card)
     default, stats = _stats_ptxas()
     return out, c["persist_stats"], dict(default=default, stats=stats)
+
+
+def _persist_kinds(tab, cl, ah):
+    """:func:`_check_counting`'s kinds of the persist kernels on ``tab``
+    with the rays ``cl`` / ``ah``."""
+    from rtjax_torch.kernels import persist as P
+    return {"closest": ((tab, cl["o"], cl["d"], cl["tmax"], cl["active"]),
+                        P.persist_traverse_closest,
+                        P.persist_traverse_closest_ref, RAY_IN, CLOSEST_OUT,
+                        tab, None, 0),
+            "anyhit": ((tab, ah["o"], ah["d"], ah["tmax"], ah["exclude"],
+                        ah["active"]), P.persist_traverse_anyhit,
+                       P.persist_traverse_anyhit_ref, RAY_IN + EXCLUDE, 1,
+                       tab, None, 0)}
 
 
 def _mean_u8(fb, width, height):
@@ -2468,6 +2523,466 @@ def _binary_rows(kernels, launches):
     return rows
 
 
+# --------------------------------------------------------------- phase 10
+# detailed_stats under every walker, and multi-GPU rendering
+# ptxas registers of the packet, lane and two-level kernels' default
+# instances before their stats instances were added (phase 1 of this
+# script on the card's toolkit, NVIDIA H100 80GB HBM3, 700.00 W; PERF.md):
+# they must not change
+DEFAULT_WALK_REGISTERS = {
+    "packet closest, width 8": 72, "packet closest, width 16": 72,
+    "packet any-hit, width 8": 60, "packet any-hit, width 16": 62,
+    "lane closest, width 8": 95, "lane closest, width 16": 95,
+    "lane any-hit, width 8": 79, "lane any-hit, width 16": 80,
+    "two-level fetch closest, width 8, records global": 121,
+    "two-level fetch closest, width 8, records staged": 123,
+    "two-level fetch closest, width 16, records global": 127,
+    "two-level fetch closest, width 16, records staged": 125,
+    "two-level fetch any-hit, width 8, records global": 114,
+    "two-level fetch any-hit, width 8, records staged": 116,
+    "two-level fetch any-hit, width 16, records global": 122,
+    "two-level fetch any-hit, width 16, records staged": 123}
+# (d) and (e): two ranks on the one card; (e) eval config 5 for 16 spp as
+# two batches
+SHARDED_SPP = SPP
+C5_SHARDED_SPP, C5_SHARDED_BATCH = 16, 8
+RANK_TIMEOUT = 600
+
+
+def _walk_stats_ptxas():
+    """``({label: registers} of the packet, lane and two-level default
+    instances, {label: registers} of their stats instances)``, printed, and
+    the default ones held to DEFAULT_WALK_REGISTERS."""
+    from rtjax_torch.kernels import _build
+    default, stats = {}, {}
+    reports = [(_group_label(name), res) for name, res in
+               _build.ptxas_report(_build.packet_library())] + \
+        [(_kernel_label(name), res) for name, res in
+         _build.ptxas_report(_build.wide_inst_library())]
+    for label, res in reports:
+        if label in DEFAULT_WALK_REGISTERS:
+            default[label] = _registers(res)
+        elif " stats " in f" {label} ":
+            stats[label] = _registers(res)
+    print(f"[walk stats ptxas] default instances {default}; stats instances "
+          f"{stats}; before the stats instances {DEFAULT_WALK_REGISTERS}")
+    if len(stats) != len(DEFAULT_WALK_REGISTERS):
+        raise RuntimeError("ptxas did not report a stats instance for every "
+                           "default instance")
+    if default != DEFAULT_WALK_REGISTERS:
+        raise RuntimeError("the packet, lane or two-level default instances'"
+                           " registers changed")
+    return default, stats
+
+
+def phase10_stats_kernels(scene, camera, c4_scene, c4_camera, group, card):
+    """(a) The packet and lane kernels' stats instances on phase 3's rays
+    (their bound the default rows', ``group``), the two-level kernels'
+    on phase 5's field rays over config 4 and over MANY_INST instances;
+    then the ptxas registers.  Returns ``({(walk, kind): row}, registers)``,
+    the rows from the first ray set of each."""
+    import torch
+    from rtjax_torch.kernels import lane as L
+    from rtjax_torch.kernels import wide as WD
+    from rtjax_torch.kernels import wide_inst as WI
+    from rtjax_torch.scenes import instanced_bunnies
+    gen = torch.Generator(device="cuda").manual_seed(1234)
+    cl, ah = _test_rays(scene, camera, gen)
+    tab = scene.tables
+    c_args = (tab, cl["o"], cl["d"], cl["tmax"], cl["active"])
+    a_args = (tab, ah["o"], ah["d"], ah["tmax"], ah["exclude"], ah["active"])
+    out = {}
+    for walk, size, closest, anyhit in (
+            ("packet", WD.PACKET, WD.wide_traverse_closest,
+             WD.wide_traverse_anyhit),
+            ("lane", L.LANE, L.lane_traverse_closest,
+             L.lane_traverse_anyhit)):
+        kinds = {
+            "closest": (c_args, closest, lambda *a, work, g=size:
+                        WD.group_traverse_closest_ref(*a, g, work=work),
+                        RAY_IN, CLOSEST_OUT, tab, group[walk, "closest"], 0),
+            "anyhit": (a_args, anyhit, lambda *a, work, g=size:
+                       WD.group_traverse_anyhit_ref(*a, g, work=work),
+                       RAY_IN + EXCLUDE, 1, tab, group[walk, "anyhit"], 0)}
+        for kind, r in _check_counting(f"{walk} kernel", kinds, card).items():
+            out[walk, kind] = r
+    gen = torch.Generator(device="cuda").manual_seed(4321)
+    many, many_camera = instanced_bunnies("cuda", n_inst=MANY_INST)
+    for label, sc, cam in (("two-level", c4_scene, c4_camera),
+                           (f"two-level {MANY_INST} instances", many,
+                            many_camera)):
+        cl, ah = _field_rays(sc, cam, gen)
+        it = sc.inst_tables
+        records = it.num_instances * AFF_RECORD
+        kinds = {
+            "closest": ((it, cl["o"], cl["d"], cl["tmax"], cl["active"]),
+                        WI.wide_traverse_closest_inst,
+                        WI.wide_traverse_closest_inst_ref, RAY_IN, INST_OUT,
+                        it.wide, None, records),
+            "anyhit": ((it, ah["o"], ah["d"], ah["tmax"], ah["exclude"],
+                        ah["active"]), WI.wide_traverse_anyhit_inst,
+                       WI.wide_traverse_anyhit_inst_ref, RAY_IN + EXCLUDE, 1,
+                       it.wide, None, records)}
+        for kind, r in _check_counting(label, kinds, card).items():
+            out.setdefault(("two_level", kind), r)
+            out["two_level", kind].setdefault("ab", {})[label] = {
+                k: r[k] for k in ("stats_device_ms", "default_device_ms",
+                                  "cost", "counts")}
+    return out, _walk_stats_ptxas()
+
+
+def _expect_only(counts, want):
+    """True when the launches in ``counts`` are exactly ``want`` (``{(set,
+    kind): n}``, every other count 0) and no plain version ran."""
+    got = {(k, kind): counts[k][kind] for k in _KERNEL_SETS
+           for kind in ("closest", "anyhit")}
+    expect = {key: want.get(key, 0) for key in got}
+    return got == expect and counts["plain"] == 0
+
+
+def phase10_stats_frames(scene, camera, c4_scene, c4_camera, card, floor,
+                         c4_floor):
+    """(b) detailed_stats frames, counts from zero around each: the
+    headline under walker="packet" (and the packet any hit) and under
+    walker="lane" with anyhit_walker="packet", each at phase 4's gate; config
+    4 under two_level="kernel", within 2x phase 6(a)'s seed-to-seed MSE
+    plus the 8-bit term of its repass frame.  Each frame launches its
+    kernels' stats instances alone, once an iteration, and its histogram
+    sums to the path rays.  Returns ``{(walk, kind): launches}``."""
+    import dataclasses
+
+    import numpy as np
+    from rtjax_torch import RenderConfig
+    from rtjax_torch.kernels import _build
+    from rtjax_torch.render.film import write_ppm
+    launches = {}
+    c4 = RenderConfig(width=WIDTH, height=HEIGHT, num_samples=C4_SPP,
+                      max_bounces=C4_BOUNCES)
+    for label, sc, cam, cfg, want in (
+            ("packet", scene, camera,
+             _headline_cfg(walker="packet", anyhit_walker="packet"),
+             {("packet_stats", "closest"), ("packet_stats", "anyhit")}),
+            ("lane", scene, camera,
+             _headline_cfg(walker="lane", anyhit_walker="packet"),
+             {("lane_stats", "closest"), ("packet_stats", "anyhit")}),
+            ("two-level", c4_scene, c4_camera,
+             dataclasses.replace(c4, two_level="kernel"),
+             {("two_level_stats", "closest"),
+              ("two_level_stats", "anyhit")})):
+        runs, c = _drive(sc, cam, dataclasses.replace(
+            cfg, detailed_stats=True), (2,))
+        secs, fb, st = runs[0]
+        its = st["iterations"]
+        hist = st["bounce_histogram"]
+        if label == "two-level":
+            img = _u8_image(fb)
+            err = float(np.mean((img - c4_floor["img_a2"]) ** 2))
+            gate = 2.0 * c4_floor["seed_mse"] + c4_floor["quant"]
+        else:
+            err, gate = _gate(f"{label} stats frame", fb, floor), \
+                floor["gate"]
+        write_ppm(_build.BUILD_DIR / f"stats_{label}.ppm", fb.cpu().numpy(),
+                  WIDTH, HEIGHT, binary=True)
+        print(f"[stats frame {label}] {card}: {WIDTH}x{HEIGHT} @ "
+              f"{cfg.num_samples} spp, detailed_stats, seed 2: {its} "
+              f"iterations, {st['rays_traced']:.0f} rays, {secs:.3f} s; "
+              f"histogram {hist.tolist()} (sum {int(hist.sum())}); node "
+              f"steps {st['node_steps']}, leaf visits {st['leaf_visits']} "
+              f"(any hit {st['anyhit_steps']} / {st['anyhit_visits']}); MSE "
+              f"{err:.3e} (gate {gate:.3e}); launches "
+              f"{ {k: v for k, v in c.items() if k != 'plain'} }")
+        if not _expect_only(c, {key: its for key in want}):
+            raise RuntimeError(f"the {label} detailed_stats frame did not "
+                               "run its stats instances alone, once an "
+                               "iteration")
+        if err > gate:
+            raise RuntimeError(f"the {label} detailed_stats frame differs "
+                               "beyond its gate")
+        if int(hist[0]) != cfg.num_pixels * cfg.num_samples or min(
+                st["node_steps"], st["leaf_visits"], st["anyhit_steps"]) <= 0:
+            raise RuntimeError(f"the {label} detailed_stats frame's counts "
+                               "are wrong")
+        for kset, kind in want:
+            walk = {"packet_stats": "packet", "lane_stats": "lane",
+                    "two_level_stats": "two_level"}[kset]
+            launches[walk, kind] = c[kset][kind]
+    launches.setdefault(("lane", "anyhit"), 0)
+    return launches
+
+
+def _free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _run_ranks(job, world):
+    """Run ``world`` processes of ``python3 chip_smoke.py --rank-job job``
+    (:func:`_rank_job`), all started together and all stopped before it
+    returns; their saved results, by rank."""
+    import torch
+    from rtjax_torch.kernels import _build
+    coord = f"127.0.0.1:{_free_port()}"
+    outs = [_build.BUILD_DIR / f"rank_{job}_{r}.pt" for r in range(world)]
+    for o in outs:
+        if o.exists():
+            o.unlink()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--rank-job", job,
+         str(r), str(world), coord, str(outs[r])], cwd=ROOT,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(world)]
+    try:
+        for r, p in enumerate(procs):
+            text, _ = p.communicate(timeout=RANK_TIMEOUT)
+            for line in text.splitlines():
+                if line.startswith("[") or "Error" in line:
+                    print(f"  rank {r}: {line}")
+            if p.returncode != 0:
+                raise RuntimeError(f"rank {r} of the {job} run exited with "
+                                   f"{p.returncode}:\n{text[-4000:]}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return [torch.load(o) for o in outs]
+
+
+def _rank_job(job, rank, world, coord, out):
+    """One process of phase 10's multi-process runs (``python3
+    chip_smoke.py --rank-job JOB RANK WORLD HOST:PORT OUT``), joined by
+    ``init_multihost``: "nccl", the default backend at a world of one;
+    "gloo", the gloo backend on the card.  Renders the headline frame
+    through ``render_frame_linear_sharded`` (seed 2, after a seed-1
+    warm-up frame; and, at a world of
+    one, the unsharded frame from ``rank_generator(2, 0)``; under gloo,
+    rank 0 an unsharded frame of the same spp, timed beside it) and, under
+    gloo, eval config 5 through ``render_checkpointed(mesh=)``
+    (uninterrupted, then a file one batch short resumed); each frame with
+    its launch counts from zero and the rank's own stats; saves them to
+    ``out``."""
+    import hashlib
+
+    import torch
+    import torch.distributed as dist
+    from rtjax_torch import RenderConfig
+    from rtjax_torch.kernels import _build
+    from rtjax_torch.parallel import (init_multihost, make_mesh,
+                                      rank_generator,
+                                      render_frame_linear_sharded)
+    from rtjax_torch.render import wavefront
+    from rtjax_torch.render.checkpoint import render_checkpointed
+    from rtjax_torch.scenes import cornell_bunny
+    dev = init_multihost(coord, world, rank,
+                         backend=None if job == "nccl" else "gloo")
+    mesh = make_mesh(dev)
+    scene, camera = cornell_bunny(device=dev)
+    local = []
+    orig = wavefront.render_frame_linear
+
+    def keep(*args, **kw):
+        fb, st = orig(*args, **kw)
+        local.append(st)
+        return fb, st
+
+    wavefront.render_frame_linear = keep
+
+    def timed(fn):
+        local.clear()
+        _zero_counts()
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0, list(local), _read_counts()
+
+    res = dict(backend=dist.get_backend(), device=str(dev), size=mesh.size,
+               rank=mesh.rank)
+    cfg = _headline_cfg()
+    # a warm-up frame (seed 1): the process's first launches of everything
+    timed(lambda: render_frame_linear_sharded(
+        scene, camera, cfg, torch.Generator(device=dev).manual_seed(1),
+        mesh))
+    (fb, st), secs, loc, counts = timed(
+        lambda: render_frame_linear_sharded(
+            scene, camera, cfg, torch.Generator(device=dev).manual_seed(2),
+            mesh))
+    res["frame"] = dict(
+        stats=st, secs=secs, local=loc, counts=counts,
+        sha=hashlib.sha256(fb.cpu().numpy().tobytes()).hexdigest(),
+        fb=torch.sqrt(fb / cfg.num_samples).cpu())
+    if job == "nccl":
+        (_, st1), secs1, _, counts1 = timed(lambda: orig(
+            scene, camera, cfg, rank_generator(2, 0, dev)))
+        res["unsharded"] = dict(stats=st1, secs=secs1, counts=counts1)
+    else:
+        def alone():
+            if rank == 0:
+                return orig(scene, camera, cfg,
+                            torch.Generator(device=dev).manual_seed(2))
+            return None, None
+        (_, st1), secs1, _, counts1 = timed(alone)
+        dist.barrier()
+        res["unsharded"] = dict(stats=st1, secs=secs1, counts=counts1)
+
+        def c5(spp):
+            return RenderConfig(width=C5_WIDTH, height=C5_HEIGHT,
+                                num_samples=spp, max_bounces=C5_BOUNCES)
+        full_path = str(_build.BUILD_DIR / "config5_sharded.npz")
+        short_path = str(_build.BUILD_DIR / "config5_sharded_short.npz")
+        if rank == 0:
+            for p in (full_path, short_path):
+                if os.path.exists(p):
+                    os.remove(p)
+        kw = dict(batch_spp=C5_SHARDED_BATCH, save_every=1, verbose=False,
+                  mesh=mesh)
+        full, secs, loc, counts = timed(lambda: render_checkpointed(
+            scene, camera, c5(C5_SHARDED_SPP), full_path, **kw))
+        res["c5_full"] = dict(secs=secs, local=loc, counts=counts)
+        timed(lambda: render_checkpointed(
+            scene, camera, c5(C5_SHARDED_SPP - C5_SHARDED_BATCH), short_path,
+            **kw))
+        resumed, secs, loc, counts = timed(lambda: render_checkpointed(
+            scene, camera, c5(C5_SHARDED_SPP), short_path, **kw))
+        res["c5_resumed"] = dict(secs=secs, local=loc, counts=counts)
+        if rank == 0:
+            res["c5_images"] = (full.cpu(), resumed.cpu())
+        res["c5_equal_ranks"] = hashlib.sha256(
+            resumed.cpu().numpy().tobytes()).hexdigest()
+    torch.save(res, out)
+    dist.destroy_process_group()
+
+
+def phase10_multi_gpu(card, floor):
+    """(c) NCCL at a world of one, (d) two ranks on the one card over gloo
+    with CUDA tensors, (e) a sharded checkpointed render of config 5 over
+    the same two ranks, (f) the CLI under ``torchrun``.  Each rank's frame
+    runs the persist kernels alone, once an iteration.  Returns the
+    numbers the summary prints."""
+    import numpy as np
+    import torch
+    from rtjax_torch.kernels import _build
+    from rtjax_torch.render.film import read_ppm
+
+    def persist_only(counts, its):
+        return _expect_only(counts, {("persist", "closest"): its,
+                                     ("persist", "anyhit"): its})
+
+    (r,) = _run_ranks("nccl", 1)
+    f, u = r["frame"], r["unsharded"]
+    err = _gate("nccl world of one", f["fb"], floor)
+    print(f"[nccl world of one] {card}: backend {r['backend']}, "
+          f"{r['device']}, mesh size {r['size']}; {WIDTH}x{HEIGHT} @ {SPP} "
+          f"spp: {f['stats']} in {f['secs']:.3f} s, the unsharded frame "
+          f"from rank_generator(2, 0) {u['stats']['iterations']} iterations,"
+          f" {u['stats']['rays_traced']:.0f} rays in {u['secs']:.3f} s; MSE "
+          f"{err:.3e} (gate {floor['gate']:.3e}); launches "
+          f"{f['counts']['persist']}")
+    if r["backend"] != "nccl" or r["size"] != 1 or \
+            f["stats"]["iterations"] != u["stats"]["iterations"] or \
+            f["stats"]["rays_traced"] != u["stats"]["rays_traced"] or \
+            not persist_only(f["counts"], f["stats"]["iterations"]):
+        raise RuntimeError("the NCCL world of one is not the unsharded "
+                           "frame")
+
+    ranks = _run_ranks("gloo", 2)
+    fr = [q["frame"] for q in ranks]
+    local_rays = [q["local"][0]["rays_traced"] for q in fr]
+    local_its = [q["local"][0]["iterations"] for q in fr]
+    st = fr[0]["stats"]
+    err = _gate("two-rank frame", fr[0]["fb"], floor)
+    alone = ranks[0]["unsharded"]
+    print(f"[gloo two ranks] {card}: backend {ranks[0]['backend']} on "
+          f"{ranks[0]['device']} / {ranks[1]['device']}; {WIDTH}x{HEIGHT} @ "
+          f"{SHARDED_SPP} spp, {SHARDED_SPP // 2} a rank: reduced {st}, "
+          f"ranks' local rays {local_rays}, iterations {local_its}; "
+          f"checksums {fr[0]['sha'][:16]} / {fr[1]['sha'][:16]}; MSE "
+          f"{err:.3e} (gate {floor['gate']:.3e}); frame seconds {fr[0]['secs']:.3f} "
+          f"/ {fr[1]['secs']:.3f} against {alone['secs']:.3f} for one "
+          f"process alone ({alone['stats']['rays_traced']:.0f} rays); "
+          f"launches {[q['counts']['persist'] for q in fr]}")
+    if ranks[0]["backend"] != "gloo" or fr[0]["sha"] != fr[1]["sha"] or \
+            fr[0]["stats"] != fr[1]["stats"] or \
+            st["rays_traced"] != sum(local_rays) or \
+            st["iterations"] != max(local_its) or not all(
+                persist_only(q["counts"], q["local"][0]["iterations"])
+                for q in fr):
+        raise RuntimeError("the two gloo ranks do not hold the reduced frame")
+
+    full, resumed = ranks[0]["c5_images"]
+    c5f = [q["c5_full"] for q in ranks]
+    rays = sum(st_["rays_traced"] for q in c5f for st_ in q["local"])
+    secs = c5f[0]["secs"]
+    n_resumed = [len(q["c5_resumed"]["local"]) for q in ranks]
+    close = bool(torch.allclose(resumed, full, rtol=C5_RTOL, atol=C5_ATOL))
+    rel = float(((resumed - full).abs() / full.abs().clamp(min=1e-30)).max())
+    mrays = rays / secs / 1e6
+    print(f"[config5 sharded] {card}: {C5_WIDTH}x{C5_HEIGHT} @ "
+          f"{C5_SHARDED_SPP} spp as {C5_SHARDED_SPP // C5_SHARDED_BATCH} "
+          f"batches of {C5_SHARDED_BATCH} over two gloo ranks: {secs:.3f} s, "
+          f"{rays:.4g} rays, {mrays:.3f} Mrays/s sustained; resumed from a "
+          f"file one batch short (batches rendered {n_resumed}): max |d| "
+          f"{float((resumed - full).abs().max()):.3e}, max relative "
+          f"{rel:.3e}, within rtol {C5_RTOL} / atol {C5_ATOL} {close}; "
+          f"ranks' images equal "
+          f"{ranks[0]['c5_equal_ranks'] == ranks[1]['c5_equal_ranks']}")
+    if not close or n_resumed != [1, 1] or \
+            ranks[0]["c5_equal_ranks"] != ranks[1]["c5_equal_ranks"] or \
+            not all(_only_set(q[k]["counts"], "persist") for q in ranks
+                    for k in ("c5_full", "c5_resumed")):
+        raise RuntimeError("the sharded config-5 render did not resume to "
+                           "the uninterrupted image")
+
+    out = _build.BUILD_DIR / "sharded.ppm"
+    if out.exists():
+        out.unlink()
+    t0 = time.perf_counter()
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node=1", "-m", "rtjax_torch", "render", "--sharded",
+           "--width", "256", "--height", "256", "--spp", "8", "-o", str(out)]
+    res = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                         timeout=RANK_TIMEOUT)
+    cli_secs = time.perf_counter() - t0
+    ok = res.returncode == 0 and out.exists() and \
+        read_ppm(out).shape == (256, 256, 3) and f"wrote {out}" in res.stdout
+    print(f"[torchrun cli] {' '.join(cmd[1:])}: rc {res.returncode}, "
+          f"{cli_secs:.3f} s; {res.stdout.strip().splitlines()[-2:]}")
+    if not ok:
+        raise RuntimeError(f"the CLI under torchrun failed:\n"
+                           f"{res.stdout[-3000:]}\n{res.stderr[-3000:]}")
+    return dict(two_rank_secs=[q["secs"] for q in fr],
+                alone_secs=alone["secs"], c5_mrays=mrays, c5_secs=secs,
+                nccl_secs=f["secs"], cli_secs=cli_secs,
+                img=float(np.mean(_u8_image(fr[0]["fb"]))))
+
+
+def _walk_stats_rows(stats, launches):
+    """The kernels line's rows of the six new stats instances."""
+    rows = []
+    names = {"packet": (GROUP_KERNELS, GROUP_SOURCES["packet"]),
+             "lane": (GROUP_KERNELS, GROUP_SOURCES["lane"]),
+             "two_level": (INST_KERNELS, INST_SOURCE)}
+    for (walk, kind), r in stats.items():
+        table, source = names[walk]
+        base = table[kind] if walk == "two_level" else table[walk, kind]
+        rows.append(dict(
+            name=f"{base['name']} (with_stats)", replaces=base["replaces"],
+            route="cuda", source=source, launches=launches[walk, kind],
+            max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
+            library_ms=None, **{k: r[k] for k in _BOUND_KEYS},
+            share=r["share"], default_ms=r["default_ms"], cost=r["cost"],
+            timed_launches=2 * REPS, counts=r["counts"],
+            **({"ab": r["ab"]} if "ab" in r else {}),
+            note="the default kernel with its node visits and leaf rows "
+                 "counted (detailed_stats); bound as the default row's; "
+                 "plain_ms one call of the plain walk counting; launches "
+                 "over phase 10(b)'s detailed_stats frame"))
+    return rows
+
+
 def main():
     t0 = time.perf_counter()
 
@@ -2525,6 +3040,12 @@ def main():
     wide = phase9_wide_bundle(scene, camera, card)
     c4_xla = phase9_config4_xla(c4_scene, c4_camera, card, c4_floor)
     stamp("phase 9 (binary walk, sort keys, unsorted engine, wide bundle)")
+    walk_stats, walk_ptxas = phase10_stats_kernels(
+        scene, camera, c4_scene, c4_camera, group, card)
+    walk_launches = phase10_stats_frames(scene, camera, c4_scene, c4_camera,
+                                         card, floor, c4_floor)
+    multi = phase10_multi_gpu(card, floor)
+    stamp("phase 10 (stats instances, detailed_stats frames, multi-GPU)")
     frames = phase7_frames(scene, camera, card, c4_scene, c4_camera)
     stamp("phase 7 (frame kernels)")
     for rows_, kernels in ((persist, "persist"), (inst, "two_level")):
@@ -2535,7 +3056,8 @@ def main():
     group["lane", "closest"]["frame_ms"] = frames["lane"]["closest"]
     stats_rows = _stats_rows(stats, stats_launches)
     rows = [*persist.values(), *stats_rows.values(), *group.values(),
-            *inst.values(), *_binary_rows(binary, binary_launches)]
+            *inst.values(), *_binary_rows(binary, binary_launches),
+            *_walk_stats_rows(walk_stats, walk_launches)]
     for k in rows:
         print(f"[bound] {k['name']}: {k['bound_us']:.3f} us by "
               f"{k['bound_by']}, kernel {k['ms']:.4f} ms device time, "
@@ -2549,7 +3071,15 @@ def main():
           f"headline frame seconds traversal=xla {xla_secs['xla']} vs "
           f"persist {xla_secs['persist']}; sort modes {key_secs}; wide "
           f"bundle MSE {wide['wide_mse']:.4e} vs seed-to-seed "
-          f"{wide['seed_mse']:.4e}; config 4 xla {c4_xla['seconds']:.3f} s")
+          f"{wide['seed_mse']:.4e}; config 4 xla {c4_xla['seconds']:.3f} s; "
+          f"stats / default device time "
+          + ", ".join(f"{w} {k} {r['cost']:.3f}"
+                      for (w, k), r in walk_stats.items())
+          + f"; their stats instances' registers {walk_ptxas[1]}; headline "
+          f"frame seconds two gloo ranks {multi['two_rank_secs']} vs one "
+          f"process {multi['alone_secs']:.3f}, NCCL world of one "
+          f"{multi['nccl_secs']:.3f}; config 5 over two ranks "
+          f"{multi['c5_mrays']:.3f} Mrays/s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2557,4 +3087,8 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--rank-job"]:
+        job, rank, world, coord, out = sys.argv[2:7]
+        _rank_job(job, int(rank), int(world), coord, out)
+    else:
+        main()

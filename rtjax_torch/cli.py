@@ -7,6 +7,13 @@ versions).
         --height 600 --spp 10 --bounces 10 -o image.ppm
     python -m rtjax_torch render --device cpu --width 32 --height 32 ...
     python -m rtjax_torch bench ...
+    torchrun --nproc_per_node=N -m rtjax_torch render --sharded ...
+
+``--sharded`` renders data-parallel over the sample space
+(rtjax_torch.parallel): under ``torchrun``'s variables every process joins
+one process group (NCCL on ``cuda:<LOCAL_RANK>``, gloo under ``--device
+cpu``) and renders its share of the spp; without them it renders as a
+world of one on ``--device``.  Rank 0 alone prints and writes the image.
 
 The port's kernels build at first use into ``build/rtjax_torch/``; there
 is no compile-cache step.
@@ -39,8 +46,9 @@ def _add_render_args(p):
     p.add_argument("--no-sort", action="store_true",
                    help="disable ray sorting before traversal")
     p.add_argument("--sharded", action="store_true",
-                   help="data-parallel over all visible devices (not "
-                        "ported)")
+                   help="data-parallel over the sample space: every process "
+                        "that torchrun starts renders spp / N (a world of "
+                        "one without torchrun)")
     p.add_argument("--reference-parity", action="store_true",
                    help="replicate the CUDA reference's estimator quirks "
                         "(see render/wavefront.py)")
@@ -76,12 +84,20 @@ def _build_scene(name, device):
     return scenes.cornell_bunny(device, bunny_material=mat)
 
 
+def _mesh(args):
+    """The mesh of ``--sharded``: the process group that ``torchrun``'s
+    variables describe (joined here), else a world of one on
+    ``--device``."""
+    import os
+
+    from .parallel import init_from_env, make_mesh
+    if "WORLD_SIZE" in os.environ and "RANK" in os.environ:
+        return make_mesh(init_from_env(_device(args.device)))
+    return make_mesh(_device(args.device))
+
+
 def _config(args, **extra):
     from .config import RenderConfig
-    if args.sharded:
-        raise NotImplementedError(
-            "--sharded: multi-device rendering is not ported yet (ROADMAP "
-            "Queue A 15)")
     return RenderConfig(width=args.width, height=args.height,
                         num_samples=args.spp, max_bounces=args.bounces,
                         num_working_paths=args.pool,
@@ -90,30 +106,50 @@ def _config(args, **extra):
 
 
 def cmd_render(args) -> int:
+    if not args.sharded:
+        return _render(args, None)
+    import torch.distributed as dist
+    mesh = _mesh(args)
+    try:
+        return _render(args, mesh)
+    finally:
+        if mesh.group is not None:
+            dist.destroy_process_group()
+
+
+def _render(args, mesh) -> int:
+    """``render`` on ``--device``, or over ``mesh`` (``--sharded``): rank 0
+    alone prints and writes the image."""
     import torch
 
+    from .parallel import render_frame_sharded
     from .render import render_frame, write_ppm
     from .utils.profiler import profiler
 
-    dev = _device(args.device)
+    dev = _device(args.device) if mesh is None else mesh.device
     cfg = _config(args, reference_parity=args.reference_parity,
                   detailed_stats=args.stats)
     with profiler.phase("Building scene"):
         scene, camera = _build_scene(args.scene, dev)
 
     with profiler.phase("Rendering"):
+        gen = torch.Generator(device=dev).manual_seed(args.seed)
         if args.checkpoint is not None:
             from .render.checkpoint import render_checkpointed
-            fb = render_checkpointed(scene, camera, cfg, args.checkpoint)
+            fb = render_checkpointed(scene, camera, cfg, args.checkpoint,
+                                     mesh=mesh)
             stats = None
+        elif mesh is not None:
+            fb, stats = render_frame_sharded(scene, camera, cfg, gen, mesh)
         else:
-            gen = torch.Generator(device=dev).manual_seed(args.seed)
             fb, stats = render_frame(scene, camera, cfg, gen)
         fb = fb.cpu().numpy()
+    if mesh is not None and mesh.rank != 0:
+        return 0
     if stats is not None:
         print(f"{stats['iterations']} wavefront iterations, "
               f"{stats['rays_traced']:.4g} rays traced")
-        if args.stats:
+        if args.stats and "bounce_histogram" in stats:
             print(f"bounce histogram: {stats['bounce_histogram'].tolist()}")
             print(f"traversal: {stats['node_steps']} node steps, "
                   f"{stats['leaf_visits']} leaf visits")

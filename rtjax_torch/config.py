@@ -1,12 +1,13 @@
 """Render configuration: the same fields, defaults and derived sizes as
 :class:`rtjax.config.RenderConfig`.
 
-The fields that select TPU-specific or not-yet-ported behaviour are kept so
-that one configuration means the same workload in both packages; the engine
-(render/wavefront.py) raises NotImplementedError for values outside the
-ported slice instead of silently computing something else.  A value that
-names no mode of rtjax's (``traversal``, ``sort_key``, ``two_level``,
-``two_level_anyhit``) raises ValueError here.
+The fields that select TPU-specific behaviour are kept so that one
+configuration means the same workload in both packages (``direct_max_tris``,
+rtjax's all-triangles path for tiny scenes, computes the same hits and is
+not ported: the port walks the tables).  A value that names no mode of
+rtjax's (``traversal``, ``sort_key``, ``two_level``, ``two_level_anyhit``)
+raises ValueError here; the engine (render/wavefront.py) raises ValueError
+for combinations that exclude each other.
 """
 
 from __future__ import annotations

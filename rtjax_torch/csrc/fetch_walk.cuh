@@ -71,6 +71,19 @@ __device__ __forceinline__ unsigned long long warp_sum64(unsigned c) {
   return ((unsigned long long)hi << 16) + lo;
 }
 
+// Add a warp's counts to ``stats`` (two 64-bit words: node visits, leaf
+// rows): the warp's sums, one atomicAdd a word from lane 0.  Every lane of
+// the warp must call it.
+__device__ __forceinline__ void add_counts(const Counts& cnt,
+                                           unsigned long long* stats) {
+  const unsigned long long nodes = warp_sum64(cnt.nodes);
+  const unsigned long long leaves = warp_sum64(cnt.leaves);
+  if ((threadIdx.x & 31u) == 0u) {
+    atomicAdd(stats, nodes);
+    atomicAdd(stats + 1, leaves);
+  }
+}
+
 // One lane's walk: its ray and where it stands.
 struct Lane {
   Ray r;
@@ -209,15 +222,8 @@ __device__ __forceinline__ void fetch_rays(
       if (job.after(s, ray, done, hit)) ray = -1;
     }
   }
-  if constexpr (STATS) {
-    // the loop ends on a warp vote, so every lane of the warp is here
-    const unsigned long long nodes = warp_sum64(cnt.nodes);
-    const unsigned long long leaves = warp_sum64(cnt.leaves);
-    if (lane == 0u) {
-      atomicAdd(stats, nodes);
-      atomicAdd(stats + 1, leaves);
-    }
-  }
+  // the loop ends on a warp vote, so every lane of the warp is here
+  if constexpr (STATS) add_counts(cnt, stats);
   // the last block to finish resets the counter for the next launch
   __syncthreads();
   if (threadIdx.x == 0) {

@@ -44,6 +44,11 @@
 // Shared memory per warp: LaneShared<W> and a child-id stack of
 // ``stack_len`` ints, (depth + 1) * (W - 1) (kernels/lane.py), rounded up
 // to 16 bytes; lane_warp_bytes() is the sum.
+//
+// A stats instance (lane_kernel<W, ANY, true>) counts as the packet walk's
+// does (packet_walk.cuh): a node visit for each step at which a ray is
+// live, a leaf row for each row it tests.  A lane's counts span the groups
+// its warp draws; each warp adds its sums once, at the end (add_counts).
 
 #pragma once
 
@@ -140,13 +145,15 @@ __device__ __forceinline__ void stage_rows(LaneShared<W>& sh, unsigned chunk,
 // active ray's best hit lands in ``best``.  Any hit: ``*occ`` is set for
 // each ray that an accepted hit other than its ``exclude`` prim occludes.
 // ``stage`` is the warp's, kept from one walk to the next.  Every lane of
-// the warp must call it.
-template <int W, bool ANY>
+// the warp must call it.  With STATS, ``*cnt`` counts the ray's node visits
+// and leaf rows.
+template <int W, bool ANY, bool STATS = false>
 __device__ __forceinline__ void lane_walk(const Tables& tb, const Ray& ray,
                                           bool act, float tmax, int exclude,
                                           Closest* best, bool* occ,
                                           LaneShared<W>& sh, int* stack,
-                                          NodeStage<W>& stage) {
+                                          NodeStage<W>& stage,
+                                          Counts* cnt = nullptr) {
   constexpr unsigned kAll = (1u << W) - 1u;
   const int lane = threadIdx.x & 31;
   // the octant: bit k set when more than half of the active rays point
@@ -169,6 +176,7 @@ __device__ __forceinline__ void lane_walk(const Tables& tb, const Ray& ray,
   while (true) {
     const int* meta = reinterpret_cast<const int*>(sh.node[buf] + 6 * W);
     const unsigned lm = (unsigned)info & kAll;
+    if constexpr (STATS) cnt->nodes += act && !*occ ? 1u : 0u;
     const unsigned hits =
         act && !*occ ? slab_hits_s<W>(sh.node[buf], meta, lm, ray, tmax) : 0u;
     const unsigned mine = hits & lm;  // this ray's leaf children
@@ -215,10 +223,12 @@ __device__ __forceinline__ void lane_walk(const Tables& tb, const Ray& ray,
         const int c = __ffs(c_left) - 1;
         if (!((mine >> c) & 1u)) continue;
         if constexpr (ANY) {
+          if constexpr (STATS) cnt->leaves += *occ ? 0u : 1u;
           if (!*occ && leaf_any_s(sh.leaf[k], meta[c] & 15, ray, tmax,
                                   exclude))
             *occ = true;
         } else {
+          if constexpr (STATS) ++cnt->leaves;
           leaf_closest_s(sh.leaf[k], meta[c] & 15, ray, &tmax, best);
         }
       }
@@ -241,11 +251,14 @@ struct LaneOuts {
 // One walk per lane group: each warp draws group indices from the work
 // counter ``work`` (one atomicAdd a group) until they pass the batch; the
 // last block to finish zeroes the counter for the next launch.  Lanes past
-// the end and inactive rays take part with an empty mask.
-template <int W, bool ANY>
+// the end and inactive rays take part with an empty mask.  A stats
+// instance adds its warps' counts to ``stats`` (two zeroed 64-bit words:
+// node visits, leaf rows); the default instance takes null.
+template <int W, bool ANY, bool STATS>
 __global__ void __launch_bounds__(kLaneThreads)
 lane_kernel(const Tables tb, const Rays rays, const int n, const LaneOuts out,
-            unsigned* __restrict__ work, const int stack_len) {
+            unsigned* __restrict__ work, const int stack_len,
+            unsigned long long* __restrict__ stats) {
   extern __shared__ float4 lane_smem[];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   char* base = reinterpret_cast<char*>(lane_smem) +
@@ -254,6 +267,7 @@ lane_kernel(const Tables tb, const Rays rays, const int n, const LaneOuts out,
   int* stack = reinterpret_cast<int*>(base + sizeof(LaneShared<W>));
   const unsigned groups = (unsigned)(n - 1) / kLane + 1u;
   NodeStage<W> stage;
+  Counts cnt;
   while (true) {
     unsigned g = 0u;
     if (lane == 0) g = atomicAdd(work, 1u);  // the warp's next group
@@ -267,13 +281,13 @@ lane_kernel(const Tables tb, const Rays rays, const int n, const LaneOuts out,
     const float tmax = act ? rays.tmax[i] : 0.0f;
     bool occ = false;
     if constexpr (ANY) {
-      lane_walk<W, true>(tb, r, act, tmax, act ? rays.exclude[i] : -1,
-                         nullptr, &occ, sh, stack, stage);
+      lane_walk<W, true, STATS>(tb, r, act, tmax, act ? rays.exclude[i] : -1,
+                                nullptr, &occ, sh, stack, stage, &cnt);
       if (i < n) out.hit[i] = occ ? 1 : 0;
     } else {
       Closest best;
-      lane_walk<W, false>(tb, r, act, tmax, -1, &best, &occ, sh, stack,
-                          stage);
+      lane_walk<W, false, STATS>(tb, r, act, tmax, -1, &best, &occ, sh,
+                                 stack, stage, &cnt);
       if (i < n) {
         out.hit[i] = best.prim >= 0 ? 1 : 0;
         out.t[i] = best.t;
@@ -284,6 +298,8 @@ lane_kernel(const Tables tb, const Rays rays, const int n, const LaneOuts out,
       }
     }
   }
+  // the loop ends on a warp-uniform group index: every lane is here
+  if constexpr (STATS) add_counts(cnt, stats);
   // the last block to finish resets the counter for the next launch
   __syncthreads();
   if (threadIdx.x == 0) {

@@ -47,6 +47,12 @@
 // Exactness: the build uses --fmad=false, so each product and sum rounds
 // like the separate torch ops of the plain version (kernels/wide.py), which
 // walks the same order; results agree bit for bit.
+//
+// The stats instances (the ``rtjax_packet_*_stats`` and ``rtjax_lane_*_stats``
+// entries) run the same walks with STATS true: each ray counts its node
+// visits and leaf rows (packet_walk.cuh, lane_walk.cuh) and each warp adds
+// its sums, in 64 bits, to a two-word buffer that the wrapper zeroes
+// (fetch_walk.cuh add_counts).  The first designs have none.
 
 #include <cuda_runtime.h>
 
@@ -56,7 +62,9 @@
 
 namespace {
 
+using rtjax::add_counts;
 using rtjax::Closest;
+using rtjax::Counts;
 using rtjax::fetch_grid;
 using rtjax::GroupScratch;
 using rtjax::kLane;
@@ -199,7 +207,8 @@ __device__ __forceinline__ PacketSlot packet_slot(
   return s;
 }
 
-template <int W>
+// STATS: count into ``stats`` (the default instance takes null).
+template <int W, bool STATS>
 __global__ void __launch_bounds__(kPacketBlock)
 packet_closest_kernel(const float* __restrict__ nb,
                       const int* __restrict__ cm, const int* __restrict__ ni,
@@ -215,16 +224,19 @@ packet_closest_kernel(const float* __restrict__ nb,
                       int stack_len, unsigned char* __restrict__ hit,
                       float* __restrict__ t_out, int* __restrict__ prim,
                       float* __restrict__ nx, float* __restrict__ ny,
-                      float* __restrict__ nz) {
+                      float* __restrict__ nz,
+                      unsigned long long* __restrict__ stats) {
   extern __shared__ int smem[];
   __shared__ PacketShared<W> sh[kPackets];
   PacketSlot s = packet_slot(ox, oy, oz, dx, dy, dz, active, n, stack_len,
                              smem);
   Closest best;
   bool occ = false;
-  packet_walk<W, false>(nb, cm, ni, lt, s.r, s.act,
-                        s.act ? tmax_in[s.i] : 0.0f, -1, &best, &occ,
-                        s.stack, sh[s.pk], s.pk);
+  Counts cnt;
+  packet_walk<W, false, STATS>(nb, cm, ni, lt, s.r, s.act,
+                               s.act ? tmax_in[s.i] : 0.0f, -1, &best, &occ,
+                               s.stack, sh[s.pk], s.pk, &cnt);
+  if constexpr (STATS) add_counts(cnt, stats);  // a packet is one warp
   if (s.i < n) {
     hit[s.i] = best.prim >= 0 ? 1 : 0;
     t_out[s.i] = best.t;
@@ -235,7 +247,7 @@ packet_closest_kernel(const float* __restrict__ nb,
   }
 }
 
-template <int W>
+template <int W, bool STATS>
 __global__ void __launch_bounds__(kPacketBlock)
 packet_anyhit_kernel(const float* __restrict__ nb,
                      const int* __restrict__ cm, const int* __restrict__ ni,
@@ -249,17 +261,20 @@ packet_anyhit_kernel(const float* __restrict__ nb,
                      const float* __restrict__ tmax_in,
                      const unsigned char* __restrict__ active,
                      const int* __restrict__ exclude, int n, int stack_len,
-                     unsigned char* __restrict__ occ_out) {
+                     unsigned char* __restrict__ occ_out,
+                     unsigned long long* __restrict__ stats) {
   extern __shared__ int smem[];
   __shared__ PacketShared<W> sh[kPackets];
   PacketSlot s = packet_slot(ox, oy, oz, dx, dy, dz, active, n, stack_len,
                              smem);
   bool occ = false;
-  packet_walk<W, true>(nb, cm, ni, lt, s.r, s.act,
-                       s.act ? tmax_in[s.i] : 0.0f,
-                       s.act ? exclude[s.i] : -1, nullptr, &occ, s.stack,
-                       sh[s.pk], s.pk);
+  Counts cnt;
+  packet_walk<W, true, STATS>(nb, cm, ni, lt, s.r, s.act,
+                              s.act ? tmax_in[s.i] : 0.0f,
+                              s.act ? exclude[s.i] : -1, nullptr, &occ,
+                              s.stack, sh[s.pk], s.pk, &cnt);
   if (s.i < n) occ_out[s.i] = occ ? 1 : 0;
+  if constexpr (STATS) add_counts(cnt, stats);
 }
 
 // Raise ``Kernel``'s dynamic shared-memory cap to ``smem`` bytes on the
@@ -319,10 +334,10 @@ int launch(K kernel, int block, int group, int n, int stack_len,
 // The lane design: kLaneWarps warps a block where their shared memory fits
 // the card's opt-in limit, fewer for deeper trees (``stack_len`` child ids
 // a warp), as many blocks as the card keeps resident, capped by the groups.
-template <int W, bool ANY>
+template <int W, bool ANY, bool STATS>
 int launch_lane(const Tables& tb, const Rays& rays, int n,
                 const LaneOuts& out, unsigned* work, int stack_len,
-                cudaStream_t s) {
+                unsigned long long* stats, cudaStream_t s) {
   int dev = 0, optin = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
@@ -334,26 +349,83 @@ int launch_lane(const Tables& tb, const Rays& rays, int n,
                                                   : optin / per_warp;
   if (warps < 1) return static_cast<int>(cudaErrorInvalidValue);
   const int smem = warps * per_warp;
-  const int rc = raise_smem_cap<lane_kernel<W, ANY>>(smem);
+  const int rc = raise_smem_cap<lane_kernel<W, ANY, STATS>>(smem);
   if (rc != 0) return rc;
-  const int grid = fetch_grid<lane_kernel<W, ANY>>(n, smem, warps * kLane);
+  const int grid =
+      fetch_grid<lane_kernel<W, ANY, STATS>>(n, smem, warps * kLane);
   if (grid < 0) return static_cast<int>(cudaErrorInvalidDevice);
-  lane_kernel<W, ANY><<<grid, warps * kLane, smem, s>>>(tb, rays, n, out,
-                                                        work, stack_len);
+  lane_kernel<W, ANY, STATS><<<grid, warps * kLane, smem, s>>>(
+      tb, rays, n, out, work, stack_len, stats);
   return static_cast<int>(cudaGetLastError());
 }
 
+// ``stats`` null: the default instance; else the stats instance.
 template <bool ANY>
 int lane_entry(int width, int group, int stack_len, const Tables& tb,
                const Rays& rays, int n, const LaneOuts& out, unsigned* work,
-               void* stream) {
+               unsigned long long* stats, void* stream) {
   if (group != kLane) return static_cast<int>(cudaErrorInvalidValue);
   if (n <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool counting = stats != nullptr;
   if (width == 8)
-    return launch_lane<8, ANY>(tb, rays, n, out, work, stack_len, s);
+    return counting ? launch_lane<8, ANY, true>(tb, rays, n, out, work,
+                                                stack_len, stats, s)
+                    : launch_lane<8, ANY, false>(tb, rays, n, out, work,
+                                                 stack_len, nullptr, s);
   if (width == 16)
-    return launch_lane<16, ANY>(tb, rays, n, out, work, stack_len, s);
+    return counting ? launch_lane<16, ANY, true>(tb, rays, n, out, work,
+                                                 stack_len, stats, s)
+                    : launch_lane<16, ANY, false>(tb, rays, n, out, work,
+                                                  stack_len, nullptr, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The packet design; ``stats`` null: the default instances.
+template <bool STATS>
+int packet_closest(int width, int group, int stack_len, const float* nb,
+                   const int* cm, const int* ni, const float* lt,
+                   const float* ox, const float* oy, const float* oz,
+                   const float* dx, const float* dy, const float* dz,
+                   const float* tmax, const unsigned char* active, int n,
+                   unsigned char* hit, float* t, int* prim, float* nx,
+                   float* ny, float* nz, unsigned long long* stats,
+                   void* stream) {
+  if (group != kPacket || stack_len <= 0 || (STATS && stats == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n <= 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (width == 8)
+    return launch_packet<packet_closest_kernel<8, STATS>>(
+        n, stack_len, s, nb, cm, ni, lt, ox, oy, oz, dx, dy, dz, tmax, active,
+        n, stack_len, hit, t, prim, nx, ny, nz, stats);
+  if (width == 16)
+    return launch_packet<packet_closest_kernel<16, STATS>>(
+        n, stack_len, s, nb, cm, ni, lt, ox, oy, oz, dx, dy, dz, tmax, active,
+        n, stack_len, hit, t, prim, nx, ny, nz, stats);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <bool STATS>
+int packet_anyhit(int width, int group, int stack_len, const float* nb,
+                  const int* cm, const int* ni, const float* lt,
+                  const float* ox, const float* oy, const float* oz,
+                  const float* dx, const float* dy, const float* dz,
+                  const float* tmax, const unsigned char* active,
+                  const int* exclude, int n, unsigned char* occ,
+                  unsigned long long* stats, void* stream) {
+  if (group != kPacket || stack_len <= 0 || (STATS && stats == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n <= 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (width == 8)
+    return launch_packet<packet_anyhit_kernel<8, STATS>>(
+        n, stack_len, s, nb, cm, ni, lt, ox, oy, oz, dx, dy, dz, tmax, active,
+        exclude, n, stack_len, occ, stats);
+  if (width == 16)
+    return launch_packet<packet_anyhit_kernel<16, STATS>>(
+        n, stack_len, s, nb, cm, ni, lt, ox, oy, oz, dx, dy, dz, tmax, active,
+        exclude, n, stack_len, occ, stats);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -444,7 +516,7 @@ extern "C" int rtjax_lane_closest(
     void* stream) {
   return lane_entry<false>(width, group, stack_len, {nb, cm, ni, lt},
                      {ox, oy, oz, dx, dy, dz, tmax, active, nullptr}, n,
-                     {hit, t, prim, nx, ny, nz}, work, stream);
+                     {hit, t, prim, nx, ny, nz}, work, nullptr, stream);
 }
 
 extern "C" int rtjax_lane_anyhit(
@@ -456,7 +528,36 @@ extern "C" int rtjax_lane_anyhit(
   return lane_entry<true>(width, group, stack_len, {nb, cm, ni, lt},
                     {ox, oy, oz, dx, dy, dz, tmax, active, exclude}, n,
                     {occ, nullptr, nullptr, nullptr, nullptr, nullptr}, work,
-                    stream);
+                    nullptr, stream);
+}
+
+// The lane stats instances: as above, plus ``stats``, two zeroed 64-bit
+// words to which the launch adds its node visits and leaf rows.
+extern "C" int rtjax_lane_closest_stats(
+    int width, int group, int stack_len, const float* nb, const int* cm,
+    const int* ni, const float* lt, const float* ox, const float* oy,
+    const float* oz, const float* dx, const float* dy, const float* dz,
+    const float* tmax, const unsigned char* active, int n, unsigned char* hit,
+    float* t, int* prim, float* nx, float* ny, float* nz, unsigned* work,
+    unsigned long long* stats, void* stream) {
+  if (stats == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return lane_entry<false>(width, group, stack_len, {nb, cm, ni, lt},
+                     {ox, oy, oz, dx, dy, dz, tmax, active, nullptr}, n,
+                     {hit, t, prim, nx, ny, nz}, work, stats, stream);
+}
+
+extern "C" int rtjax_lane_anyhit_stats(
+    int width, int group, int stack_len, const float* nb, const int* cm,
+    const int* ni, const float* lt, const float* ox, const float* oy,
+    const float* oz, const float* dx, const float* dy, const float* dz,
+    const float* tmax, const unsigned char* active, const int* exclude, int n,
+    unsigned char* occ, unsigned* work, unsigned long long* stats,
+    void* stream) {
+  if (stats == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return lane_entry<true>(width, group, stack_len, {nb, cm, ni, lt},
+                    {ox, oy, oz, dx, dy, dz, tmax, active, exclude}, n,
+                    {occ, nullptr, nullptr, nullptr, nullptr, nullptr}, work,
+                    stats, stream);
 }
 
 // The packet design.  ``group`` must be kPacket (kernels/wide.py PACKET);
@@ -468,19 +569,9 @@ extern "C" int rtjax_packet_closest(
     const float* oz, const float* dx, const float* dy, const float* dz,
     const float* tmax, const unsigned char* active, int n, unsigned char* hit,
     float* t, int* prim, float* nx, float* ny, float* nz, void* stream) {
-  if (group != kPacket || stack_len <= 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (n <= 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (width == 8)
-    return launch_packet<packet_closest_kernel<8>>(
-        n, stack_len, s, nb, cm, ni, lt, ox, oy, oz, dx, dy, dz, tmax, active,
-        n, stack_len, hit, t, prim, nx, ny, nz);
-  if (width == 16)
-    return launch_packet<packet_closest_kernel<16>>(
-        n, stack_len, s, nb, cm, ni, lt, ox, oy, oz, dx, dy, dz, tmax, active,
-        n, stack_len, hit, t, prim, nx, ny, nz);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return packet_closest<false>(width, group, stack_len, nb, cm, ni, lt, ox,
+                               oy, oz, dx, dy, dz, tmax, active, n, hit, t,
+                               prim, nx, ny, nz, nullptr, stream);
 }
 
 extern "C" int rtjax_packet_anyhit(
@@ -489,17 +580,31 @@ extern "C" int rtjax_packet_anyhit(
     const float* oz, const float* dx, const float* dy, const float* dz,
     const float* tmax, const unsigned char* active, const int* exclude, int n,
     unsigned char* occ, void* stream) {
-  if (group != kPacket || stack_len <= 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (n <= 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (width == 8)
-    return launch_packet<packet_anyhit_kernel<8>>(
-        n, stack_len, s, nb, cm, ni, lt, ox, oy, oz, dx, dy, dz, tmax, active,
-        exclude, n, stack_len, occ);
-  if (width == 16)
-    return launch_packet<packet_anyhit_kernel<16>>(
-        n, stack_len, s, nb, cm, ni, lt, ox, oy, oz, dx, dy, dz, tmax, active,
-        exclude, n, stack_len, occ);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return packet_anyhit<false>(width, group, stack_len, nb, cm, ni, lt, ox, oy,
+                              oz, dx, dy, dz, tmax, active, exclude, n, occ,
+                              nullptr, stream);
+}
+
+// The packet stats instances: as above, plus ``stats`` before the stream.
+extern "C" int rtjax_packet_closest_stats(
+    int width, int group, int stack_len, const float* nb, const int* cm,
+    const int* ni, const float* lt, const float* ox, const float* oy,
+    const float* oz, const float* dx, const float* dy, const float* dz,
+    const float* tmax, const unsigned char* active, int n, unsigned char* hit,
+    float* t, int* prim, float* nx, float* ny, float* nz,
+    unsigned long long* stats, void* stream) {
+  return packet_closest<true>(width, group, stack_len, nb, cm, ni, lt, ox, oy,
+                              oz, dx, dy, dz, tmax, active, n, hit, t, prim,
+                              nx, ny, nz, stats, stream);
+}
+
+extern "C" int rtjax_packet_anyhit_stats(
+    int width, int group, int stack_len, const float* nb, const int* cm,
+    const int* ni, const float* lt, const float* ox, const float* oy,
+    const float* oz, const float* dx, const float* dy, const float* dz,
+    const float* tmax, const unsigned char* active, const int* exclude, int n,
+    unsigned char* occ, unsigned long long* stats, void* stream) {
+  return packet_anyhit<true>(width, group, stack_len, nb, cm, ni, lt, ox, oy,
+                             oz, dx, dy, dz, tmax, active, exclude, n, occ,
+                             stats, stream);
 }

@@ -37,12 +37,19 @@
 // Shared memory: PacketShared per packet (static) and a child-id stack of
 // ``stack_len`` ints per packet (dynamic; (depth + 1) * (W - 1) entries,
 // sized by the caller).
+//
+// A stats instance (packet_walk<W, ANY, true>) also counts, per ray, the
+// plain group walk's ``node_visits`` and ``leaf_rows`` (kernels/wide.py,
+// persist.new_work): a node visit for each step at which the ray is live
+// (active and, for any hit, not occluded), a leaf row for each row the ray
+// tests.  The default instances (STATS false) compile as before.
 
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "fetch_walk.cuh"
 #include "wide_walk.cuh"
 
 namespace rtjax {
@@ -224,13 +231,14 @@ __device__ __forceinline__ bool leaf_any_s(const float* row, int count,
 // active ray's best hit lands in ``best``.  Any hit: ``*occ`` is set for
 // each ray that an accepted hit other than its ``exclude`` prim occludes.
 // ``pk`` is the packet's index in its block; every thread of the packet
-// must call it.
-template <int W, bool ANY>
+// must call it.  With STATS, ``*cnt`` counts the ray's node visits and leaf
+// rows.
+template <int W, bool ANY, bool STATS = false>
 __device__ __forceinline__ void packet_walk(
     const float* __restrict__ nb, const int* __restrict__ cm,
     const int* __restrict__ ni, const float* __restrict__ lt, const Ray& r,
     bool act, float tmax, int exclude, Closest* best, bool* occ, int* stack,
-    PacketShared<W>& sh, int pk) {
+    PacketShared<W>& sh, int pk, Counts* cnt = nullptr) {
   constexpr unsigned kAll = (1u << W) - 1u;
   const int t = threadIdx.x - pk * kPacket;
   const int warp = t >> 5, lane = t & 31;
@@ -273,6 +281,7 @@ __device__ __forceinline__ void packet_walk(
     phase ^= 1u << buf;
     const unsigned lm = (unsigned)info & kAll;
     const bool live = act && !*occ;
+    if constexpr (STATS) cnt->nodes += live ? 1u : 0u;
     const unsigned hits =
         live ? slab_hits_s<W>(sh.row[buf], sh.meta[buf], lm, r, tmax) : 0u;
     const unsigned mine = hits & lm;  // this ray's leaf children
@@ -326,9 +335,11 @@ __device__ __forceinline__ void packet_walk(
         if (!((mine >> c) & 1u)) continue;
         const int count_c = sh.meta[buf][c] & 15;
         if constexpr (ANY) {
+          if constexpr (STATS) cnt->leaves += *occ ? 0u : 1u;
           if (!*occ && leaf_any_s(sh.leaf[c], count_c, r, tmax, exclude))
             *occ = true;
         } else {
+          if constexpr (STATS) ++cnt->leaves;
           leaf_closest_s(sh.leaf[c], count_c, r, &tmax, best);
         }
       }

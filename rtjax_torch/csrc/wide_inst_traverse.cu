@@ -68,6 +68,13 @@
 // behind the ``_stride`` entry points, which only the chip check and the
 // card tests call, to time both designs in one run.
 //
+// The stats instances (the ``rtjax_inst_*_stats`` entries) run the same
+// walk with fetch_walk.cuh's STATS flag: each lane counts the node visits
+// and leaf rows of every BLAS walk it makes, the plain two-level walk's
+// ``node_visits`` and ``leaf_rows`` (kernels/wide_inst.py), and each warp
+// adds its sums to a two-word buffer that the wrapper zeroes.  The first
+// design has none.
+//
 // Exactness: the build uses --fmad=false and the plain versions
 // (kernels/wide_inst.py) visit instances and nodes in the same order with
 // the same operation order, so results agree bit for bit.  The normal is
@@ -328,11 +335,12 @@ struct InstWalk {
 
 // Dynamic shared memory: the stack (stack_len entries of node and mask per
 // thread), then, when STAGED, the n_inst x 18 record floats and the n_inst
-// roots.
-template <int W, bool ANY, bool STAGED>
+// roots.  STATS: count into ``stats`` (the default instances take null).
+template <int W, bool ANY, bool STAGED, bool STATS>
 __global__ void __launch_bounds__(kFetchBlock)
 inst_fetch(const Tables tb, const Insts in, const Rays rays, const int n,
-           const Outs out, unsigned* __restrict__ work, const int stack_len) {
+           const Outs out, unsigned* __restrict__ work, const int stack_len,
+           unsigned long long* __restrict__ stats) {
   extern __shared__ int smem[];
   int* st_node = smem + threadIdx.x;
   unsigned* st_mask =
@@ -353,21 +361,21 @@ inst_fetch(const Tables tb, const Insts in, const Rays rays, const int n,
     root = s_root;
   }
   InstWalk<ANY, STAGED> job{rays, out, aff, root, in.n, -1, -1.0f, 0, 0ull};
-  fetch_rays<W, ANY>(tb, job, n, work, st_node, st_mask);
+  fetch_rays<W, ANY, STATS>(tb, job, n, work, st_node, st_mask, stats);
 }
 
-template <int W, bool ANY, bool STAGED>
+template <int W, bool ANY, bool STAGED, bool STATS>
 int launch_fetch(const Tables& tb, const Insts& in, const Rays& rays, int n,
                  const Outs& out, unsigned* work, int stack_len,
-                 cudaStream_t s) {
+                 unsigned long long* stats, cudaStream_t s) {
   if (stack_len < 1 || stack_len > kStack)
     return static_cast<int>(cudaErrorInvalidValue);
   const int smem = 2 * 4 * stack_len * kFetchBlock + (STAGED ? kRecord * in.n
                                                              : 0);
-  const int grid = fetch_grid<inst_fetch<W, ANY, STAGED>>(n, smem);
+  const int grid = fetch_grid<inst_fetch<W, ANY, STAGED, STATS>>(n, smem);
   if (grid < 0) return static_cast<int>(cudaErrorInvalidDevice);
-  inst_fetch<W, ANY, STAGED><<<grid, kFetchBlock, smem, s>>>(
-      tb, in, rays, n, out, work, stack_len);
+  inst_fetch<W, ANY, STAGED, STATS><<<grid, kFetchBlock, smem, s>>>(
+      tb, in, rays, n, out, work, stack_len, stats);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -446,31 +454,44 @@ int launch_stride(const Tables& tb, const Insts& in, const Rays& rays, int n,
 
 // ------------------------------------------------- entry points
 
+template <int W, bool ANY, bool STATS>
+int fetch_staged(bool staged, const Tables& tb, const Insts& in,
+                 const Rays& rays, int n, const Outs& out, unsigned* work,
+                 int stack_len, unsigned long long* stats, cudaStream_t s) {
+  return staged ? launch_fetch<W, ANY, true, STATS>(tb, in, rays, n, out,
+                                                    work, stack_len, stats, s)
+                : launch_fetch<W, ANY, false, STATS>(tb, in, rays, n, out,
+                                                     work, stack_len, stats,
+                                                     s);
+}
+
+// ``stats`` null: the default instances; else the stats instances.
 template <int W, bool ANY>
 int launch(bool stride, bool staged, const Tables& tb, const Insts& in,
            const Rays& rays, int n, const Outs& out, unsigned* work,
-           int stack_len, cudaStream_t s) {
+           int stack_len, unsigned long long* stats, cudaStream_t s) {
   if (stride) return launch_stride<W, ANY>(tb, in, rays, n, out, s);
-  return staged
-             ? launch_fetch<W, ANY, true>(tb, in, rays, n, out, work,
-                                          stack_len, s)
-             : launch_fetch<W, ANY, false>(tb, in, rays, n, out, work,
-                                           stack_len, s);
+  return stats != nullptr
+             ? fetch_staged<W, ANY, true>(staged, tb, in, rays, n, out, work,
+                                          stack_len, stats, s)
+             : fetch_staged<W, ANY, false>(staged, tb, in, rays, n, out, work,
+                                           stack_len, nullptr, s);
 }
 
 template <bool ANY>
 int dispatch(int width, bool stride, bool staged, const Tables& tb,
              const Insts& in, const Rays& rays, int n, const Outs& out,
-             unsigned* work, int stack_len, void* stream) {
+             unsigned* work, int stack_len, void* stream,
+             unsigned long long* stats = nullptr) {
   if (n <= 0) return 0;
   if (in.n < 1) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (width == 8)
     return launch<8, ANY>(stride, staged, tb, in, rays, n, out, work,
-                          stack_len, s);
+                          stack_len, stats, s);
   if (width == 16)
     return launch<16, ANY>(stride, staged, tb, in, rays, n, out, work,
-                           stack_len, s);
+                           stack_len, stats, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -507,6 +528,40 @@ extern "C" int rtjax_inst_anyhit(
                         {occ, nullptr, nullptr, nullptr, nullptr, nullptr,
                          nullptr},
                         work, stack_len, stream);
+}
+
+// The stats instances: as above, plus ``stats``, two zeroed 64-bit words
+// to which the launch adds its node visits and leaf rows.
+extern "C" int rtjax_inst_closest_stats(
+    int width, const float* nb, const int* cm, const int* ni, const float* lt,
+    const int* root, const float* aff, int n_inst, const float* ox,
+    const float* oy, const float* oz, const float* dx, const float* dy,
+    const float* dz, const float* tmax, const unsigned char* active, int n,
+    unsigned char* hit, float* t, int* prim, int* inst, float* nx, float* ny,
+    float* nz, unsigned* work, int stack_len, int staged,
+    unsigned long long* stats, void* stream) {
+  if (stats == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch<false>(width, false, staged != 0, {nb, cm, ni, lt},
+                         {root, aff, n_inst},
+                         {ox, oy, oz, dx, dy, dz, tmax, active, nullptr}, n,
+                         {hit, t, prim, inst, nx, ny, nz}, work, stack_len,
+                         stream, stats);
+}
+
+extern "C" int rtjax_inst_anyhit_stats(
+    int width, const float* nb, const int* cm, const int* ni, const float* lt,
+    const int* root, const float* aff, int n_inst, const float* ox,
+    const float* oy, const float* oz, const float* dx, const float* dy,
+    const float* dz, const float* tmax, const unsigned char* active,
+    const int* exclude, int n, unsigned char* occ, unsigned* work,
+    int stack_len, int staged, unsigned long long* stats, void* stream) {
+  if (stats == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch<true>(width, false, staged != 0, {nb, cm, ni, lt},
+                        {root, aff, n_inst},
+                        {ox, oy, oz, dx, dy, dz, tmax, active, exclude}, n,
+                        {occ, nullptr, nullptr, nullptr, nullptr, nullptr,
+                         nullptr},
+                        work, stack_len, stream, stats);
 }
 
 // The first design, for same-run A/B only (no engine path reaches these).

@@ -27,6 +27,11 @@ next node's loads overlap them.  rtjax's lane rule (decide after them)
 visits ~1% fewer nodes and was slower on the H100; occlusion is the same
 under both.
 
+``with_stats=True`` appends ``(node_steps, leaf_visits)`` as the packet
+wrappers do (kernels/wide.py): a CUDA tensor goes to the lane kernels'
+stats instances (``rtjax_lane_*_stats``, counted in ``STATS_LAUNCHES``), a
+CPU tensor to the plain group walk at LANE with a work count.
+
 ``lane_traverse_*_group`` launch the lane kernels' first design (the
 leader design of kernels/wide.py at one warp, ``rtjax_lane_group_*``,
 counted in ``GROUP_LAUNCHES``); they exist only to time both designs in
@@ -40,7 +45,7 @@ import torch
 
 from ..accel.wide import PID_BASE, WideTables
 from .persist import (_check_aligned, _columns, _launch, _out_normal,
-                      _table_ptrs, check_rays, work_buffer)
+                      _stats_buffer, _table_ptrs, check_rays, work_buffer)
 from .wide import (_kernels, group_anyhit, group_closest,
                    group_traverse_anyhit_ref, group_traverse_closest_ref)
 from .wide_inst import SMEM_OPTIN
@@ -54,6 +59,8 @@ LANE_ROWS = 4  # leaf rows a warp stages at a time (kLaneRows)
 LAUNCHES = {"closest": 0, "anyhit": 0}
 # launches of the first design (the ``_group`` wrappers), by kernel
 GROUP_LAUNCHES = {"closest": 0, "anyhit": 0}
+# launches of the stats instances (``with_stats=True``), by kernel
+STATS_LAUNCHES = {"closest": 0, "anyhit": 0}
 
 
 def lane_stack_len(tables: WideTables) -> int:
@@ -92,68 +99,85 @@ def launch_shape(tables: WideTables) -> tuple[int, int, int]:
     return lane_stack_len(tables), warps, warps * per
 
 
-def _launch_args(tables, dev):
+def _launch_args(tables, dev, stats=None):
     """``(leading arguments, trailing arguments, work counter)`` of a lane
-    entry point on ``dev``: width, group and stack length; the counter and
-    the stream."""
+    entry point on ``dev``: width, group and stack length; the counter, a
+    stats instance's buffer and the stream."""
     _check_aligned(tables)
     stack, _, _ = launch_shape(tables)
     stream = torch.cuda.current_stream(dev).cuda_stream
     work = work_buffer(dev, stream)
-    return (tables.width, LANE, stack), (work.data_ptr(), stream), work
+    tail = (work.data_ptr(),)
+    if stats is not None:
+        tail += (stats.data_ptr(),)
+    return (tables.width, LANE, stack), tail + (stream,), work
+
+
+def _entry(kind, stats):
+    """The lane entry point of ``kind`` and the launch count it adds to."""
+    if stats is None:
+        return getattr(_kernels(), f"rtjax_lane_{kind}"), LAUNCHES
+    return getattr(_kernels(), f"rtjax_lane_{kind}_stats"), STATS_LAUNCHES
 
 
 def lane_traverse_closest(tables: WideTables, origin, direction, tmax,
-                          active):
+                          active, with_stats: bool = False):
     """Closest hit of every active ray by lane groups: ``(hit, t, prim,
-    normal)``."""
+    normal)``, and with ``with_stats`` a trailing ``(node_steps,
+    leaf_visits)``."""
     as_v3 = isinstance(origin, (tuple, list))
     o, d = _columns(origin), _columns(direction)
     check_rays(tables, o, d, tmax, active)
     n = tmax.shape[0]
     dev = tmax.device
     if dev.type == "cpu":
-        hit, t, prim, nrm = group_traverse_closest_ref(tables, o, d, tmax,
-                                                       active, LANE)
-        return hit, t, prim, _out_normal(nrm, as_v3)
+        hit, t, prim, nrm, *st = group_traverse_closest_ref(
+            tables, o, d, tmax, active, LANE, with_stats=with_stats)
+        return (hit, t, prim, _out_normal(nrm, as_v3), *st)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    lead, tail, work = _launch_args(tables, dev)
+    stats = _stats_buffer(dev) if with_stats else None
+    lead, tail, work = _launch_args(tables, dev, stats)
     hit = torch.empty(n, dtype=torch.bool, device=dev)
     t = torch.empty(n, dtype=torch.float32, device=dev)
     prim = torch.empty(n, dtype=torch.int32, device=dev)
     nrm = tuple(torch.empty(n, dtype=torch.float32, device=dev)
                 for _ in range(3))
-    _launch(_kernels().rtjax_lane_closest, (
+    entry, counts = _entry("closest", stats)
+    _launch(entry, (
         *lead, *_table_ptrs(tables), *(c.data_ptr() for c in o),
         *(c.data_ptr() for c in d), tmax.data_ptr(), active.data_ptr(), n,
         hit.data_ptr(), t.data_ptr(), prim.data_ptr(),
         *(c.data_ptr() for c in nrm), *tail), "lane closest-hit", work)
-    LAUNCHES["closest"] += 1
-    return hit, t, prim, _out_normal(nrm, as_v3)
+    counts["closest"] += 1
+    st = () if stats is None else ((stats[0], stats[1]),)
+    return (hit, t, prim, _out_normal(nrm, as_v3), *st)
 
 
 def lane_traverse_anyhit(tables: WideTables, origin, direction, tmax,
-                         exclude, active):
+                         exclude, active, with_stats: bool = False):
     """Occlusion of every active ray by lane groups, ignoring its
-    ``exclude`` prim."""
+    ``exclude`` prim; with ``with_stats``, ``(occluded, (node_steps,
+    leaf_visits))``."""
     o, d = _columns(origin), _columns(direction)
     check_rays(tables, o, d, tmax, active, exclude)
     dev = tmax.device
     if dev.type == "cpu":
         return group_traverse_anyhit_ref(tables, o, d, tmax, exclude, active,
-                                         LANE)
+                                         LANE, with_stats=with_stats)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    lead, tail, work = _launch_args(tables, dev)
+    stats = _stats_buffer(dev) if with_stats else None
+    lead, tail, work = _launch_args(tables, dev, stats)
     n = tmax.shape[0]
     occ = torch.empty(n, dtype=torch.bool, device=dev)
-    _launch(_kernels().rtjax_lane_anyhit, (
+    entry, counts = _entry("anyhit", stats)
+    _launch(entry, (
         *lead, *_table_ptrs(tables), *(c.data_ptr() for c in o),
         *(c.data_ptr() for c in d), tmax.data_ptr(), active.data_ptr(),
         exclude.data_ptr(), n, occ.data_ptr(), *tail), "lane any-hit", work)
-    LAUNCHES["anyhit"] += 1
-    return occ
+    counts["anyhit"] += 1
+    return occ if stats is None else (occ, (stats[0], stats[1]))
 
 
 def lane_traverse_closest_group(tables: WideTables, origin, direction, tmax,

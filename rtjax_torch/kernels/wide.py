@@ -41,6 +41,13 @@ soon as its last live ray is occluded.  Occlusion is the same under both;
 the first visits at least as many nodes.  Closest hit walks one order
 under both.
 
+``with_stats=True`` appends ``(node_steps, leaf_visits)`` (int64 0-d
+tensors on the rays' device): the group walk's ``node_visits`` and
+``leaf_rows`` (a node visit per live ray of a group and step, a leaf row
+per row a ray tests).  A CUDA tensor then goes to the kernels' stats
+instances (counted in ``STATS_LAUNCHES``), a CPU tensor to the plain walk
+with a work count, as persist.py's ``with_stats`` does.
+
 ``wide_traverse_*_leader`` launch the packet kernels' first design (the
 leader design, LEADER_PACKET rays a packet, counted in ``LEADER_LAUNCHES``);
 they exist only to time both designs in one run (``chip_smoke.py``, the
@@ -63,9 +70,9 @@ import torch
 from ..accel.wide import WideTables
 from . import _build
 from .persist import (BIG, _check_aligned, _columns, _out_normal, _pick,
-                      _raise_on, _table_ptrs, anyhit_leaf, check_rays,
-                      closest_leaf, count_leaves, count_visits, slab,
-                      slab_pre)
+                      _raise_on, _stats_buffer, _table_ptrs, _work_pair,
+                      anyhit_leaf, check_rays, closest_leaf, count_leaves,
+                      count_visits, new_work, slab, slab_pre)
 from .wide_inst import SMEM_OPTIN
 
 PACKET = 32  # rays per packet (csrc/packet_walk.cuh kPacket)
@@ -76,6 +83,8 @@ LEADER_PACKET = 256  # rays per packet of the leader design (kLeaderPacket)
 LAUNCHES = {"closest": 0, "anyhit": 0}
 # launches of the leader design (the ``_leader`` wrappers), by kernel
 LEADER_LAUNCHES = {"closest": 0, "anyhit": 0}
+# launches of the stats instances (``with_stats=True``), by kernel
+STATS_LAUNCHES = {"closest": 0, "anyhit": 0}
 # plain group-walk calls by kind, at any group size (the lane wrappers' too)
 REF_CALLS = {"closest": 0, "anyhit": 0}
 
@@ -86,19 +95,21 @@ _lib = None
 # ------------------------------------------------------------- CUDA path
 
 def bind(lib):
-    """Set the argument types of the eight entry points of a packet kernel
+    """Set the argument types of the twelve entry points of a packet kernel
     library (``ctypes.CDLL``) and return it: the packet kernels (both
-    designs) and the lane kernels (both designs; the lane design also takes
-    the work counter before the stream)."""
+    designs and the stats instances) and the lane kernels (both designs and
+    the stats instances; the lane design also takes the work counter before
+    the stream, a stats instance its stats buffer after it)."""
     P, I = ctypes.c_void_p, ctypes.c_int
-    for name, counter in (("packet", []), ("packet_leader", []),
-                          ("lane_group", []), ("lane", [P])):
-        closest = getattr(lib, f"rtjax_{name}_closest")
-        closest.argtypes = [I, I, I] + [P] * 12 + [I] + [P] * 6 + counter \
-            + [P]
+    for name, suffix, tail in (("packet", "", []), ("packet_leader", "", []),
+                               ("lane_group", "", []), ("lane", "", [P]),
+                               ("packet", "_stats", [P]),
+                               ("lane", "_stats", [P, P])):
+        closest = getattr(lib, f"rtjax_{name}_closest{suffix}")
+        closest.argtypes = [I, I, I] + [P] * 12 + [I] + [P] * 6 + tail + [P]
         closest.restype = I
-        anyhit = getattr(lib, f"rtjax_{name}_anyhit")
-        anyhit.argtypes = [I, I, I] + [P] * 13 + [I] + [P] + counter + [P]
+        anyhit = getattr(lib, f"rtjax_{name}_anyhit{suffix}")
+        anyhit.argtypes = [I, I, I] + [P] * 13 + [I] + [P] + tail + [P]
         anyhit.restype = I
     return lib
 
@@ -143,7 +154,7 @@ def _stack_len(name, tables):
     return tables.depth + 1
 
 
-def _closest_cuda(name, group, tables, o, d, tmax, active):
+def _closest_cuda(name, group, tables, o, d, tmax, active, stats=None):
     n = tmax.shape[0]
     dev = tmax.device
     hit = torch.empty(n, dtype=torch.bool, device=dev)
@@ -152,79 +163,94 @@ def _closest_cuda(name, group, tables, o, d, tmax, active):
     nrm = tuple(torch.empty(n, dtype=torch.float32, device=dev)
                 for _ in range(3))
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = getattr(_kernels(), f"rtjax_{name}_closest")(
+    entry = f"rtjax_{name}_closest" + ("" if stats is None else "_stats")
+    tail = () if stats is None else (stats.data_ptr(),)
+    rc = getattr(_kernels(), entry)(
         tables.width, group, _stack_len(name, tables), *_table_ptrs(tables),
         *(c.data_ptr() for c in o), *(c.data_ptr() for c in d),
         tmax.data_ptr(), active.data_ptr(), n,
         hit.data_ptr(), t.data_ptr(), prim.data_ptr(),
-        *(c.data_ptr() for c in nrm), stream)
+        *(c.data_ptr() for c in nrm), *tail, stream)
     _raise_on(rc, f"{name} closest-hit")
     return hit, t, prim, nrm
 
 
-def _anyhit_cuda(name, group, tables, o, d, tmax, exclude, active):
+def _anyhit_cuda(name, group, tables, o, d, tmax, exclude, active,
+                 stats=None):
     n = tmax.shape[0]
     occ = torch.empty(n, dtype=torch.bool, device=tmax.device)
     stream = torch.cuda.current_stream(tmax.device).cuda_stream
-    rc = getattr(_kernels(), f"rtjax_{name}_anyhit")(
+    entry = f"rtjax_{name}_anyhit" + ("" if stats is None else "_stats")
+    tail = () if stats is None else (stats.data_ptr(),)
+    rc = getattr(_kernels(), entry)(
         tables.width, group, _stack_len(name, tables), *_table_ptrs(tables),
         *(c.data_ptr() for c in o), *(c.data_ptr() for c in d),
         tmax.data_ptr(), active.data_ptr(), exclude.data_ptr(), n,
-        occ.data_ptr(), stream)
+        occ.data_ptr(), *tail, stream)
     _raise_on(rc, f"{name} any-hit")
     return occ
 
 
 def group_closest(name, group, launches, tables: WideTables, origin,
-                  direction, tmax, active):
+                  direction, tmax, active, with_stats=False):
     """Closest hit by ``group``-ray group walks: the kernels ``name``
-    ("packet", "packet_leader" or "lane_group") for CUDA tensors, counted in
+    ("packet", "packet_leader" or "lane_group"; with ``with_stats`` the
+    packet kernels' stats instances) for CUDA tensors, counted in
     ``launches``, the plain version for CPU tensors."""
     as_v3 = isinstance(origin, (tuple, list))
     o, d = _columns(origin), _columns(direction)
     check_rays(tables, o, d, tmax, active)
     if tmax.device.type == "cuda":
+        stats = _stats_buffer(tmax.device) if with_stats else None
         hit, t, prim, nrm = _closest_cuda(name, group, tables, o, d, tmax,
-                                          active)
+                                          active, stats)
         launches["closest"] += 1
+        st = () if stats is None else ((stats[0], stats[1]),)
     elif tmax.device.type == "cpu":
-        hit, t, prim, nrm = group_traverse_closest_ref(tables, o, d, tmax,
-                                                       active, group)
+        hit, t, prim, nrm, *st = group_traverse_closest_ref(
+            tables, o, d, tmax, active, group, with_stats=with_stats)
     else:
         raise ValueError(f"unsupported device {tmax.device}")
-    return hit, t, prim, _out_normal(nrm, as_v3)
+    return (hit, t, prim, _out_normal(nrm, as_v3), *st)
 
 
 def group_anyhit(name, group, launches, tables: WideTables, origin,
-                 direction, tmax, exclude, active):
+                 direction, tmax, exclude, active, with_stats=False):
     """Occlusion by ``group``-ray group walks (see :func:`group_closest`);
     the plain version decides first for the packet design alone."""
     o, d = _columns(origin), _columns(direction)
     check_rays(tables, o, d, tmax, active, exclude)
     if tmax.device.type == "cuda":
-        occ = _anyhit_cuda(name, group, tables, o, d, tmax, exclude, active)
+        stats = _stats_buffer(tmax.device) if with_stats else None
+        occ = _anyhit_cuda(name, group, tables, o, d, tmax, exclude, active,
+                           stats)
         launches["anyhit"] += 1
-        return occ
+        return occ if stats is None else (occ, (stats[0], stats[1]))
     if tmax.device.type == "cpu":
         return group_traverse_anyhit_ref(tables, o, d, tmax, exclude, active,
-                                         group, decide_first=name == "packet")
+                                         group, decide_first=name == "packet",
+                                         with_stats=with_stats)
     raise ValueError(f"unsupported device {tmax.device}")
 
 
 def wide_traverse_closest(tables: WideTables, origin, direction, tmax,
-                          active):
+                          active, with_stats: bool = False):
     """Closest hit of every active ray by packets: ``(hit, t, prim,
-    normal)``."""
-    return group_closest("packet", PACKET, LAUNCHES, tables, origin,
-                         direction, tmax, active)
+    normal)``, and with ``with_stats`` a trailing ``(node_steps,
+    leaf_visits)``."""
+    return group_closest("packet", PACKET,
+                         STATS_LAUNCHES if with_stats else LAUNCHES, tables,
+                         origin, direction, tmax, active, with_stats)
 
 
 def wide_traverse_anyhit(tables: WideTables, origin, direction, tmax,
-                         exclude, active):
+                         exclude, active, with_stats: bool = False):
     """Occlusion of every active ray by packets, ignoring its ``exclude``
-    prim."""
-    return group_anyhit("packet", PACKET, LAUNCHES, tables, origin,
-                        direction, tmax, exclude, active)
+    prim; with ``with_stats``, ``(occluded, (node_steps,
+    leaf_visits))``."""
+    return group_anyhit("packet", PACKET,
+                        STATS_LAUNCHES if with_stats else LAUNCHES, tables,
+                        origin, direction, tmax, exclude, active, with_stats)
 
 
 def wide_traverse_closest_leader(tables: WideTables, origin, direction, tmax,
@@ -397,12 +423,15 @@ def _count_stack(work, w, lane):
 
 
 def group_traverse_closest_ref(tables: WideTables, origin, direction, tmax,
-                               active, group, work=None):
+                               active, group, work=None, with_stats=False):
     """Plain PyTorch version of the group-walk closest hit (the packet
     kernel at ``group`` = PACKET, the leader design at LEADER_PACKET, the
     lane kernels at lane.LANE): same contract, same visit order, any device;
-    ``work`` as in :func:`_group_walk`."""
+    ``work`` as in :func:`_group_walk`.  ``with_stats`` appends the walk's
+    ``(node_steps, leaf_visits)``, as persist.py's plain versions do."""
     REF_CALLS["closest"] += 1
+    if with_stats and work is None:
+        work = new_work()
     as_v3 = isinstance(origin, (tuple, list))
     o, d = _columns(origin), _columns(direction)
     n = tmax.shape[0]
@@ -414,17 +443,23 @@ def group_traverse_closest_ref(tables: WideTables, origin, direction, tmax,
                 closest_leaf(best_t, best_p, best_n), work=work)
     hit = best_p >= 0
     nrm = (best_n[:, 0], best_n[:, 1], best_n[:, 2])
-    return hit, best_t, best_p, _out_normal(nrm, as_v3)
+    out = (hit, best_t, best_p, _out_normal(nrm, as_v3))
+    return out + ((_work_pair(work, dev),) if with_stats else ())
 
 
 def group_traverse_anyhit_ref(tables: WideTables, origin, direction, tmax,
                               exclude, active, group, work=None,
-                              decide_first=True):
+                              decide_first=True, with_stats=False):
     """Plain PyTorch version of the group-walk any hit: the packet and lane
-    kernels' at ``decide_first`` True, their first designs' at False."""
+    kernels' at ``decide_first`` True, their first designs' at False;
+    ``with_stats`` as in :func:`group_traverse_closest_ref`."""
     REF_CALLS["anyhit"] += 1
+    if with_stats and work is None:
+        work = new_work()
     o, d = _columns(origin), _columns(direction)
     occ = torch.zeros(tmax.shape[0], dtype=torch.bool, device=tmax.device)
     _group_walk(tables, o, d, tmax, active, group, anyhit_leaf(occ),
                 exclude, work, decide_first)
+    if with_stats:
+        return occ, _work_pair(work, tmax.device)
     return occ

@@ -22,6 +22,13 @@ stack in global and local memory); they exist only to time both designs in
 one run (``chip_smoke.py``, the card tests), are counted in
 ``STRIDE_LAUNCHES``, and no engine path calls them.
 
+``with_stats=True`` appends ``(node_steps, leaf_visits)`` (int64 0-d
+tensors on the rays' device): the node visits and leaf rows of every BLAS
+walk, the plain walk's ``node_visits`` and ``leaf_rows``.  A CUDA tensor
+then goes to the kernels' stats instances (counted in ``STATS_LAUNCHES``),
+a CPU tensor to the plain walk with a work count, as persist.py's
+``with_stats`` does.
+
 Contract (rtjax's): rays as component triples (or ``[N, 3]``) of float32
 world origin and direction, ``tmax [N] f32``, ``active [N] bool`` and, for
 any-hit, ``exclude [N] i32``: a base-scene (instance 0) leaf-order prim
@@ -54,8 +61,9 @@ from ..accel.instancing import apply_affine_point, apply_affine_vector
 from ..accel.wide import InstancedTables
 from . import _build
 from .persist import (BIG, _check, _check_aligned, _columns, _launch,
-                      _out_normal, _table_ptrs, _walk, anyhit_leaf,
-                      closest_leaf, slab, slab_pre, stack_len, work_buffer)
+                      _out_normal, _stats_buffer, _table_ptrs, _walk,
+                      _work_pair, anyhit_leaf, closest_leaf, new_work, slab,
+                      slab_pre, stack_len, work_buffer)
 
 AFF = 18  # per instance: 12 world->local affine floats, 6 world-AABB floats
 RECORD_BYTES = 4 * (AFF + 1)  # an instance's record staged: floats and root
@@ -68,6 +76,8 @@ LAUNCHES = {"closest": 0, "anyhit": 0}
 REF_CALLS = {"closest": 0, "anyhit": 0}
 # launches of the first design (the ``_stride`` wrappers), by kernel
 STRIDE_LAUNCHES = {"closest": 0, "anyhit": 0}
+# launches of the stats instances (``with_stats=True``), by kernel
+STATS_LAUNCHES = {"closest": 0, "anyhit": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -115,15 +125,19 @@ def launch_shape(tabs: InstancedTables) -> tuple[int, bool]:
 
 
 def bind(lib):
-    """Set the argument types of the four entry points of a two-level
+    """Set the argument types of the six entry points of a two-level
     kernel library (``ctypes.CDLL``) and return it."""
     P, I = ctypes.c_void_p, ctypes.c_int
     head = [I, P, P, P, P, P, P, I] + [P] * 8
     lib.rtjax_inst_closest.argtypes = head + [I] + [P] * 7 + [P, I, I, P]
     lib.rtjax_inst_anyhit.argtypes = head + [P, I, P] + [P, I, I, P]
+    lib.rtjax_inst_closest_stats.argtypes = \
+        head + [I] + [P] * 7 + [P, I, I, P, P]
+    lib.rtjax_inst_anyhit_stats.argtypes = head + [P, I, P] + [P, I, I, P, P]
     lib.rtjax_inst_closest_stride.argtypes = head + [I] + [P] * 7 + [P]
     lib.rtjax_inst_anyhit_stride.argtypes = head + [P, I, P] + [P]
-    for name in ("closest", "anyhit", "closest_stride", "anyhit_stride"):
+    for name in ("closest", "anyhit", "closest_stats", "anyhit_stats",
+                 "closest_stride", "anyhit_stride"):
         getattr(lib, f"rtjax_inst_{name}").restype = I
     return lib
 
@@ -141,18 +155,31 @@ def _inst_ptrs(tabs: InstancedTables):
             tabs.root.data_ptr(), tabs.affine.data_ptr(), tabs.num_instances)
 
 
-def _launch_args(tabs, stream, stride):
+def _launch_args(tabs, stream, stride, stats=None):
     """``(trailing arguments of an entry point, work counter or None)``:
     the work counter, the stack length and the staging flag, then the
-    stream (the stride design takes the stream alone)."""
+    stats buffer of a stats instance, then the stream (the stride design
+    takes the stream alone)."""
     if stride:
         return (stream,), None
     stack, stage = launch_shape(tabs)
     work = work_buffer(tabs.wide.node_bounds.device, stream)
-    return (work.data_ptr(), stack, int(stage), stream), work
+    tail = (work.data_ptr(), stack, int(stage))
+    if stats is not None:
+        tail += (stats.data_ptr(),)
+    return tail + (stream,), work
 
 
-def _closest_cuda(tabs, o, d, tmax, active, stride):
+def _entry(kind, stride, stats):
+    """The entry point's name and the launch count it adds to."""
+    if stride:
+        return f"rtjax_inst_{kind}_stride", STRIDE_LAUNCHES
+    if stats is not None:
+        return f"rtjax_inst_{kind}_stats", STATS_LAUNCHES
+    return f"rtjax_inst_{kind}", LAUNCHES
+
+
+def _closest_cuda(tabs, o, d, tmax, active, stride, stats=None):
     n = tmax.shape[0]
     dev = tmax.device
     hit = torch.empty(n, dtype=torch.bool, device=dev)
@@ -162,68 +189,79 @@ def _closest_cuda(tabs, o, d, tmax, active, stride):
     nrm = tuple(torch.empty(n, dtype=torch.float32, device=dev)
                 for _ in range(3))
     stream = torch.cuda.current_stream(dev).cuda_stream
-    entry = "rtjax_inst_closest" + ("_stride" if stride else "")
-    tail, work = _launch_args(tabs, stream, stride)
+    entry, counts = _entry("closest", stride, stats)
+    tail, work = _launch_args(tabs, stream, stride, stats)
     _launch(getattr(_kernels(), entry), (
         *_inst_ptrs(tabs), *(c.data_ptr() for c in o),
         *(c.data_ptr() for c in d), tmax.data_ptr(), active.data_ptr(), n,
         hit.data_ptr(), t.data_ptr(), prim.data_ptr(), inst.data_ptr(),
         *(c.data_ptr() for c in nrm), *tail), "two-level closest-hit", work)
-    (STRIDE_LAUNCHES if stride else LAUNCHES)["closest"] += 1
+    counts["closest"] += 1
     return hit, t, prim, inst, nrm
 
 
-def _anyhit_cuda(tabs, o, d, tmax, exclude, active, stride):
+def _anyhit_cuda(tabs, o, d, tmax, exclude, active, stride, stats=None):
     n = tmax.shape[0]
     occ = torch.empty(n, dtype=torch.bool, device=tmax.device)
     stream = torch.cuda.current_stream(tmax.device).cuda_stream
-    entry = "rtjax_inst_anyhit" + ("_stride" if stride else "")
-    tail, work = _launch_args(tabs, stream, stride)
+    entry, counts = _entry("anyhit", stride, stats)
+    tail, work = _launch_args(tabs, stream, stride, stats)
     _launch(getattr(_kernels(), entry), (
         *_inst_ptrs(tabs), *(c.data_ptr() for c in o),
         *(c.data_ptr() for c in d), tmax.data_ptr(), active.data_ptr(),
         exclude.data_ptr(), n, occ.data_ptr(), *tail), "two-level any-hit",
         work)
-    (STRIDE_LAUNCHES if stride else LAUNCHES)["anyhit"] += 1
+    counts["anyhit"] += 1
     return occ
 
 
-def _closest(tabs, origin, direction, tmax, active, stride):
+def _closest(tabs, origin, direction, tmax, active, stride,
+             with_stats=False):
     as_v3 = isinstance(origin, (tuple, list))
     o, d = _columns(origin), _columns(direction)
     _check_inst(tabs, o, d, tmax, active)
     if tmax.device.type == "cuda":
+        stats = _stats_buffer(tmax.device) if with_stats else None
         hit, t, prim, inst, nrm = _closest_cuda(tabs, o, d, tmax, active,
-                                                stride)
+                                                stride, stats)
+        st = () if stats is None else ((stats[0], stats[1]),)
     elif tmax.device.type == "cpu":
-        hit, t, prim, inst, nrm = wide_traverse_closest_inst_ref(
-            tabs, o, d, tmax, active)
+        hit, t, prim, inst, nrm, *st = wide_traverse_closest_inst_ref(
+            tabs, o, d, tmax, active, with_stats=with_stats)
     else:
         raise ValueError(f"unsupported device {tmax.device}")
-    return hit, t, prim, inst, _out_normal(nrm, as_v3)
+    return (hit, t, prim, inst, _out_normal(nrm, as_v3), *st)
 
 
-def _anyhit(tabs, origin, direction, tmax, exclude, active, stride):
+def _anyhit(tabs, origin, direction, tmax, exclude, active, stride,
+            with_stats=False):
     o, d = _columns(origin), _columns(direction)
     _check_inst(tabs, o, d, tmax, active, exclude)
     if tmax.device.type == "cuda":
-        return _anyhit_cuda(tabs, o, d, tmax, exclude, active, stride)
+        if not with_stats:
+            return _anyhit_cuda(tabs, o, d, tmax, exclude, active, stride)
+        stats = _stats_buffer(tmax.device)
+        occ = _anyhit_cuda(tabs, o, d, tmax, exclude, active, stride, stats)
+        return occ, (stats[0], stats[1])
     if tmax.device.type == "cpu":
         return wide_traverse_anyhit_inst_ref(tabs, o, d, tmax, exclude,
-                                             active)
+                                             active, with_stats=with_stats)
     raise ValueError(f"unsupported device {tmax.device}")
 
 
 def wide_traverse_closest_inst(tabs: InstancedTables, origin, direction,
-                               tmax, active):
-    """Two-level closest hit: ``(hit, t, prim, inst, normal_local)``."""
-    return _closest(tabs, origin, direction, tmax, active, False)
+                               tmax, active, with_stats: bool = False):
+    """Two-level closest hit: ``(hit, t, prim, inst, normal_local)``, and
+    with ``with_stats`` a trailing ``(node_steps, leaf_visits)``."""
+    return _closest(tabs, origin, direction, tmax, active, False, with_stats)
 
 
 def wide_traverse_anyhit_inst(tabs: InstancedTables, origin, direction,
-                              tmax, exclude, active):
-    """Two-level occlusion; ``exclude`` applies within instance 0 only."""
-    return _anyhit(tabs, origin, direction, tmax, exclude, active, False)
+                              tmax, exclude, active, with_stats: bool = False):
+    """Two-level occlusion; ``exclude`` applies within instance 0 only.
+    With ``with_stats``, ``(occluded, (node_steps, leaf_visits))``."""
+    return _anyhit(tabs, origin, direction, tmax, exclude, active, False,
+                   with_stats)
 
 
 def wide_traverse_closest_inst_stride(tabs: InstancedTables, origin,
@@ -286,11 +324,14 @@ def _visits(tabs, o, d, tmax, active, live, work=None):
 
 
 def wide_traverse_closest_inst_ref(tabs: InstancedTables, origin, direction,
-                                   tmax, active, work=None):
+                                   tmax, active, work=None, with_stats=False):
     """Plain PyTorch version of :func:`wide_traverse_closest_inst` (same
     contract, same visit order, any device); ``work``
-    (``persist.new_work``), when given, counts its work."""
+    (``persist.new_work``), when given, counts its work.  ``with_stats``
+    appends the walks' ``(node_steps, leaf_visits)``."""
     REF_CALLS["closest"] += 1
+    if with_stats and work is None:
+        work = new_work()
     as_v3 = isinstance(origin, (tuple, list))
     o, d = _columns(origin), _columns(direction)
     n = tmax.shape[0]
@@ -312,13 +353,18 @@ def wide_traverse_closest_inst_ref(tabs: InstancedTables, origin, direction,
         cur_t = torch.where(found, best_t, cur_t)
     hit = best_p >= 0
     nrm = (best_n[:, 0], best_n[:, 1], best_n[:, 2])
-    return hit, best_t, best_p, best_i, _out_normal(nrm, as_v3)
+    out = (hit, best_t, best_p, best_i, _out_normal(nrm, as_v3))
+    return out + ((_work_pair(work, dev),) if with_stats else ())
 
 
 def wide_traverse_anyhit_inst_ref(tabs: InstancedTables, origin, direction,
-                                  tmax, exclude, active, work=None):
-    """Plain PyTorch version of :func:`wide_traverse_anyhit_inst`."""
+                                  tmax, exclude, active, work=None,
+                                  with_stats=False):
+    """Plain PyTorch version of :func:`wide_traverse_anyhit_inst`;
+    ``with_stats`` as in :func:`wide_traverse_closest_inst_ref`."""
     REF_CALLS["anyhit"] += 1
+    if with_stats and work is None:
+        work = new_work()
     o, d = _columns(origin), _columns(direction)
     occ = torch.zeros(tmax.shape[0], dtype=torch.bool, device=tmax.device)
     for pending, k, o_l, d_l in _visits(tabs, o, d, tmax, active,
@@ -328,4 +374,6 @@ def wide_traverse_anyhit_inst_ref(tabs: InstancedTables, origin, direction,
             work["inst_visits"] += int((pending & ~occ).sum())
         _walk(tabs.wide, o_l, d_l, tmax, pending & ~occ, anyhit_leaf(occ),
               ex, root=tabs.root[k], work=work)
+    if with_stats:
+        return occ, _work_pair(work, tmax.device)
     return occ

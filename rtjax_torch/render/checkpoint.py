@@ -17,6 +17,11 @@ written on one resumes on the other.  Batch ``b`` draws its random words
 from a generator seeded by ``numpy.random.SeedSequence([seed, b])``: the
 batches are deterministic and independent, as rtjax's ``fold_in(key, b)``
 makes them; parity with rtjax is statistical.
+
+With ``mesh`` (parallel/sharding.py) each batch renders data-parallel over
+the mesh's ranks from batch ``b``'s seed, rank 0 alone writes the file, and
+every rank returns the same frame.  The file's format does not depend on
+the mesh, so a render resumes on another number of ranks.
 """
 
 from __future__ import annotations
@@ -25,8 +30,11 @@ import dataclasses
 import hashlib
 import os
 
+from functools import partial
+
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..config import RenderConfig
 from ..utils.log import logger
@@ -80,17 +88,32 @@ def render_checkpointed(scene, camera, cfg: RenderConfig, path,
     save writes ``path + ".tmp"`` and renames it.  Returns the finished
     gamma-corrected framebuffer ``[H*W, 3]`` on the scene's device.
 
+    With ``mesh`` (a ``parallel.Mesh``) each batch renders through
+    ``render_frame_linear_sharded`` (``batch_spp`` must divide by the mesh
+    size); rank 0 writes the file, and a barrier after each save holds the
+    other ranks until it is in place.
+
     Only the batch configuration's sizes are read, so a configuration whose
     full ray count overflows int32 renders when its batches fit."""
     from .wavefront import render_frame_linear
 
-    if mesh is not None:
-        raise NotImplementedError(
-            "multi-device rendering is not ported yet (ROADMAP Queue A 15)")
     batch_spp = batch_spp or max(1, min(cfg.num_samples, 64))
     if cfg.num_samples % batch_spp:
         raise ValueError(f"batch_spp {batch_spp} does not divide "
                          f"num_samples {cfg.num_samples}")
+    step = partial(render_frame_linear, scene, camera)
+    writer = True
+    if mesh is not None:
+        from ..parallel.sharding import Mesh, render_frame_linear_sharded
+        if not isinstance(mesh, Mesh):
+            raise TypeError(f"mesh must be a parallel.Mesh, got "
+                            f"{type(mesh).__name__}")
+        if batch_spp % mesh.size:
+            raise ValueError(f"batch_spp {batch_spp} does not divide by the "
+                             f"mesh size {mesh.size}")
+        step = partial(render_frame_linear_sharded, scene, camera,
+                       mesh=mesh)
+        writer = mesh.rank == 0
     n_batches = cfg.num_samples // batch_spp
     batch_cfg = dataclasses.replace(cfg, num_samples=batch_spp)
     fp = render_fingerprint(scene, camera, cfg)
@@ -115,15 +138,18 @@ def render_checkpointed(scene, camera, cfg: RenderConfig, path,
 
     fb_dev = torch.tensor(fb, device=dev)
     for b in range(start, n_batches):
-        fb_b, stats = render_frame_linear(scene, camera, batch_cfg,
-                                          batch_generator(cfg.seed, b, dev))
+        fb_b, stats = step(batch_cfg, batch_generator(cfg.seed, b, dev))
         fb_dev += fb_b
         if path and ((b + 1) % save_every == 0 or b + 1 == n_batches):
-            tmp = f"{path}.tmp"
-            with open(tmp, "wb") as f:
-                np.savez(f, fb=fb_dev.cpu().numpy(), batches_done=b + 1,
-                         seed=cfg.seed, batch_spp=batch_spp, fingerprint=fp)
-            os.replace(tmp, path)
+            if writer:
+                tmp = f"{path}.tmp"
+                with open(tmp, "wb") as f:
+                    np.savez(f, fb=fb_dev.cpu().numpy(), batches_done=b + 1,
+                             seed=cfg.seed, batch_spp=batch_spp,
+                             fingerprint=fp)
+                os.replace(tmp, path)
+            if mesh is not None and mesh.group is not None:
+                dist.barrier(group=mesh.group)
         if verbose:
             logger.info(f"batch {b + 1}/{n_batches} done "
                         f"({stats['rays_traced']:.3g} rays)")

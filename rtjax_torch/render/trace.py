@@ -35,10 +35,9 @@ keeps the kernels there, one without takes the binary walk.
 ``with_stats=True`` (``RenderConfig.detailed_stats``) appends the walks'
 ``(node_steps, leaf_visits)``, summed over every launch of the call
 (repass and the per-instance loop: the base launch and every pass or
-instance).  The persist kernels (their stats instances) count node visits
-and leaf rows, the binary walk rtjax's node-pair steps and leaf visits; a
-launch that would take the packet, lane or two-level kernels raises
-NotImplementedError naming ROADMAP Queue S 3.
+instance).  Every wide-table kernel (the persist, packet, lane and
+two-level kernels, through their stats instances) counts node visits and
+leaf rows, the binary walk rtjax's node-pair steps and leaf visits.
 
 Every kernel wrapper launches its CUDA kernel for CUDA tensors and runs
 its plain version for CPU tensors.  rtjax's direct all-triangles loop for
@@ -70,29 +69,18 @@ _REPASS_BIG = 3.0e38   # rtjax's "no candidate" entry distance
 
 WALKERS = ("auto", "persist", "packet", "lane")
 ANYHIT_WALKERS = ("auto", "persist", "packet")
-_NO_STATS = ("detailed_stats counts traversal work in the persist kernels "
-             "only; the {} kernels' counters are not ported yet (ROADMAP "
-             "Queue S 3)")
 
 
 def check_config(scene, cfg) -> None:
-    """Raise ValueError for walker values rtjax does not name and
-    NotImplementedError for configurations outside the port."""
+    """Raise ValueError for walker values rtjax does not name, and for a
+    traversal the scene cannot take (:func:`resolve_mode`)."""
     if cfg.walker not in WALKERS:
         raise ValueError(f"walker must be one of {WALKERS}, got "
                          f"{cfg.walker!r}")
     if cfg.anyhit_walker not in ANYHIT_WALKERS:
         raise ValueError(f"anyhit_walker must be one of {ANYHIT_WALKERS}, "
                          f"got {cfg.anyhit_walker!r}")
-    mode = resolve_mode(scene, cfg)
-    if cfg.detailed_stats and mode == "pallas":
-        if cfg.walker in ("packet", "lane"):
-            raise NotImplementedError(_NO_STATS.format(cfg.walker))
-        if cfg.anyhit_walker == "packet":
-            raise NotImplementedError(_NO_STATS.format("packet"))
-        if scene.inst_tables is not None and "kernel" in (
-                _resolve_two_level(cfg), _anyhit_two_level(cfg)):
-            raise NotImplementedError(_NO_STATS.format("two-level"))
+    resolve_mode(scene, cfg)
 
 
 def resolve_mode(scene, cfg) -> str:
@@ -112,8 +100,8 @@ def resolve_mode(scene, cfg) -> str:
 def _backend(tables, cfg, with_stats=False):
     """The ``(closest, anyhit)`` traversal functions for one set of wide
     tables, by walker, as rtjax's ``_backend`` (trace.py:172-234) picks
-    them; with ``with_stats`` they return the walk's counts too (persist
-    kernels only).  The persistent walkers take trees whose stack fits
+    them; with ``with_stats`` they return the walk's counts too.  The
+    persistent walkers take trees whose stack fits
     ``persist.STACK``: "auto" takes them there and the packet kernels
     beyond, and "persist" on a deeper tree warns once and takes the packet
     kernels.  "lane" takes its kernels where a warp's stack fits a block
@@ -142,14 +130,15 @@ def _backend(tables, cfg, with_stats=False):
                "lane": lane_traverse_closest}[walker]
     anyhit = persist_traverse_anyhit \
         if cfg.anyhit_walker != "packet" and fits else wide_traverse_anyhit
-    if with_stats:
-        if closest is not persist_traverse_closest or \
-                anyhit is not persist_traverse_anyhit:
-            raise NotImplementedError(_NO_STATS.format(
-                f"packet and lane (a tree of depth {tables.depth})"))
-        return (partial(closest, tables, with_stats=True),
-                partial(anyhit, tables, with_stats=True))
-    return partial(closest, tables), partial(anyhit, tables)
+    kw = _stats_kw(with_stats)
+    return partial(closest, tables, **kw), partial(anyhit, tables, **kw)
+
+
+def _stats_kw(with_stats):
+    """The wrappers' keyword for counting: none without ``with_stats``,
+    so that a wrapper without the argument (a first design rebound in
+    these names to time it) takes the default path."""
+    return {"with_stats": True} if with_stats else {}
 
 
 def _binary(mesh, cfg, with_stats=False):
@@ -403,10 +392,9 @@ def trace_closest(scene, cfg, o, d, tmax, active, with_stats=False):
         hit, t, prim, src, n_l, st = _repass_closest(scene, cfg, o, d, tmax,
                                                      active, with_stats)
     else:
-        if with_stats:
-            raise NotImplementedError(_NO_STATS.format("two-level"))
-        hit, t, prim, src, n_l = wide_traverse_closest_inst(
-            scene.inst_tables, o, d, tmax, active)
+        hit, t, prim, src, n_l, *st = wide_traverse_closest_inst(
+            scene.inst_tables, o, d, tmax, active, **_stats_kw(with_stats))
+        st = st[0] if with_stats else None
         t = torch.where(hit, t, tmax)
     out = (hit, t, prim, src, _world_normal(scene.instances, src, n_l))
     return out + ((st,) if with_stats else ())
@@ -427,10 +415,8 @@ def trace_anyhit(scene, cfg, o, d, tmax, exclude, active, with_stats=False):
         occ, st = _repass_anyhit(scene, cfg, o, d, tmax, exclude, active,
                                  with_stats)
         return (occ, st) if with_stats else occ
-    if with_stats:
-        raise NotImplementedError(_NO_STATS.format("two-level"))
     return wide_traverse_anyhit_inst(scene.inst_tables, o, d, tmax, exclude,
-                                     active)
+                                     active, **_stats_kw(with_stats))
 
 
 def _hit_material_index(scene, src, prim):

@@ -153,8 +153,8 @@ def resolve_sort_every(scene, cfg) -> int:
 
 
 def check_slice(scene: Scene, cfg: RenderConfig) -> None:
-    """Raise ValueError for modes that exclude each other and
-    NotImplementedError for what this port does not run yet."""
+    """Raise ValueError for modes that exclude each other, and for walker
+    and traversal values the scene cannot take (trace.check_config)."""
     if cfg.one_sample_mis and cfg.reference_parity:
         raise ValueError("one_sample_mis replaces the reference's second "
                          "BSDF draw; it cannot be combined with "

@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from rtjax_torch import RenderConfig
+from rtjax_torch.parallel import Mesh
 from rtjax_torch.render.checkpoint import (batch_generator,
                                            render_checkpointed,
                                            render_fingerprint)
@@ -162,6 +163,10 @@ def test_bad_batches_and_mesh_raise(scene):
     with pytest.raises(ValueError, match="divide"):
         render_checkpointed(scene, _cam(), CFG, None, batch_spp=5,
                             verbose=False)
-    with pytest.raises(NotImplementedError, match="Queue A 15"):
+    with pytest.raises(TypeError, match="Mesh"):
         render_checkpointed(scene, _cam(), CFG, None, mesh=object(),
+                            verbose=False)
+    with pytest.raises(ValueError, match="mesh size 3"):
+        render_checkpointed(scene, _cam(), CFG, None, batch_spp=4,
+                            mesh=Mesh(None, 3, 0, torch.device("cpu")),
                             verbose=False)

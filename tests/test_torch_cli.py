@@ -45,9 +45,17 @@ def test_cli_bench(capsys):
 @pytest.mark.parametrize("flag, err, item", [
     (["--sharded"], NotImplementedError, "Queue A 15"),
 ])
-def test_cli_unported_options_raise(tmp_path, flag, err, item):
-    with pytest.raises(err, match=item):
-        cli.main(["render", *SMALL, *flag, "-o", str(tmp_path / "x.ppm")])
+def test_cli_unported_options_raise(tmp_path, capsys, monkeypatch, flag, err,
+                                    item):
+    """``--sharded`` raised ``err`` naming ``item`` before multi-device
+    rendering was ported; without torchrun's variables it now renders as
+    a world of one (tests/test_torch_parallel.py runs two ranks)."""
+    for v in ("WORLD_SIZE", "RANK"):
+        monkeypatch.delenv(v, raising=False)
+    out = tmp_path / "x.ppm"
+    assert cli.main(["render", *SMALL, *flag, "-o", str(out)]) == 0
+    assert f"wrote {out}" in capsys.readouterr().out
+    assert read_ppm(out).shape == (16, 16, 3)
 
 
 @pytest.mark.parametrize("flag", [["--traversal", "xla"], ["--no-sort"],

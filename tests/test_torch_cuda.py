@@ -874,3 +874,155 @@ def test_xla_frame_runs_through_the_binary_kernels(cuda):
     for k in ("closest", "anyhit"):
         assert T.LAUNCHES[k] - before[0][k] == stats["iterations"]
     assert bool(torch.isfinite(fb).all()) and bool((fb >= 0).all())
+
+
+# ------------------------------------- stats instances of the group walks
+
+# walk -> (group, closest, any hit, stats launches)
+STATS_WALKS = {
+    "packet": (WD.PACKET, WD.wide_traverse_closest, WD.wide_traverse_anyhit,
+               WD.STATS_LAUNCHES),
+    "lane": (L.LANE, L.lane_traverse_closest, L.lane_traverse_anyhit,
+             L.STATS_LAUNCHES),
+}
+
+
+def _counts_equal(got, work):
+    steps, leafs = got
+    assert steps.dtype == torch.int64 and steps.device.type == "cuda"
+    assert (int(steps), int(leafs)) == (work["node_visits"],
+                                        work["leaf_rows"])
+
+
+@pytest.mark.parametrize("walk", ["packet", "lane"])
+@pytest.mark.parametrize("width", [8, 16], ids=["w8", "w16"])
+def test_group_stats_kernels_count_the_plain_walk(cuda, walk, width):
+    """The packet and lane kernels' stats instances: node visits and leaf
+    rows equal to the plain group walk's work count, results bit for bit
+    the default instances', a partial last group and a dead run included;
+    launches counted in STATS_LAUNCHES alone."""
+    group, closest, anyhit, stats_launches = STATS_WALKS[walk]
+    launches = GROUP_WALKS[walk][4]
+    tables = _soup_tables(width, cuda)
+    n = 3 * 2048 + 300
+    o, d, active, exclude = _rays(n, cuda)
+    active[256:512] = False
+    for tmax_v in (float("inf"), 0.7):
+        tmax = torch.full((n,), tmax_v, device=cuda)
+        args = (tables, o, d, tmax, active)
+        work = P.new_work()
+        WD.group_traverse_closest_ref(*args, group, work=work)
+        base = closest(*args)
+        before = dict(launches), dict(stats_launches)
+        *got, st = closest(*args, with_stats=True)
+        assert _counter_zeroed(cuda)
+        assert launches == before[0]
+        assert stats_launches["closest"] == before[1]["closest"] + 1
+        _counts_equal(st, work)
+        for a, b in zip(got[:3] + list(got[3]), base[:3] + base[3]):
+            assert torch.equal(a, b)
+        args = (tables, o, d, tmax, exclude, active)
+        work = P.new_work()
+        WD.group_traverse_anyhit_ref(*args, group, work=work)
+        occ, st = anyhit(*args, with_stats=True)
+        assert _counter_zeroed(cuda)
+        assert stats_launches["anyhit"] == before[1]["anyhit"] + 1
+        assert torch.equal(occ, anyhit(*args)) and bool(occ.any())
+        _counts_equal(st, work)
+
+
+@pytest.mark.parametrize("staged", [True, False], ids=["staged", "global"])
+def test_two_level_stats_kernels_count_the_plain_walk(cuda, monkeypatch,
+                                                      staged):
+    """The two-level kernels' stats instances, records staged and read from
+    global memory (the opt-in limit lowered below them): node visits and
+    leaf rows of every BLAS walk equal to the plain two-level walk's,
+    results bit for bit the default instances'."""
+    it = _instanced(cuda).inst_tables
+    if not staged:
+        monkeypatch.setattr(WI, "SMEM_OPTIN", WI.smem_bytes(it, False))
+    assert WI.launch_shape(it)[1] == staged
+    n = 3 * 2048 + 300
+    o, d, active, exclude = _inst_rays(n, cuda)
+    active[3000:3500] = False
+    tmax = torch.full((n,), float("inf"), device=cuda)
+    args = (it, o, d, tmax, active)
+    work = P.new_work()
+    WI.wide_traverse_closest_inst_ref(*args, work=work)
+    base = WI.wide_traverse_closest_inst(*args)
+    before = dict(WI.LAUNCHES), dict(WI.STATS_LAUNCHES)
+    *got, st = WI.wide_traverse_closest_inst(*args, with_stats=True)
+    assert _counter_zeroed(cuda)
+    assert WI.LAUNCHES == before[0]
+    assert WI.STATS_LAUNCHES["closest"] == before[1]["closest"] + 1
+    _counts_equal(st, work)
+    for a, b in zip(got[:4] + list(got[4]), base[:4] + base[4]):
+        assert torch.equal(a, b)
+    args = (it, o, d, tmax, exclude, active)
+    work = P.new_work()
+    WI.wide_traverse_anyhit_inst_ref(*args, work=work)
+    occ, st = WI.wide_traverse_anyhit_inst(*args, with_stats=True)
+    assert _counter_zeroed(cuda)
+    assert torch.equal(occ, WI.wide_traverse_anyhit_inst(*args))
+    _counts_equal(st, work)
+
+
+@pytest.mark.parametrize("change, runs", [
+    (dict(walker="packet", anyhit_walker="packet"),
+     {"packet_stats": ("closest", "anyhit")}),
+    (dict(walker="lane"), {"lane_stats": ("closest",),
+                           "persist_stats": ("anyhit",)}),
+    (dict(two_level="kernel"), {"two_level_stats": ("closest", "anyhit")}),
+], ids=["packet", "lane", "two_level"])
+def test_detailed_stats_frames_run_the_walkers_stats_kernels(cuda, change,
+                                                             runs):
+    """A detailed_stats frame under each walker (and under the two-level
+    kernels) launches only its kernels' stats instances, once an
+    iteration, and renders the default frame's image within atomics'
+    reordering of the framebuffer sums."""
+    counters = {"persist": P.LAUNCHES, "persist_stats": P.STATS_LAUNCHES,
+                "packet": WD.LAUNCHES, "packet_stats": WD.STATS_LAUNCHES,
+                "lane": L.LAUNCHES, "lane_stats": L.STATS_LAUNCHES,
+                "two_level": WI.LAUNCHES,
+                "two_level_stats": WI.STATS_LAUNCHES}
+    if "two_level" in change:
+        scene = _instanced(cuda)
+        cam = Camera.make((0, 2.5, 3.5), (0, 0.1, 0), (0, 1, 0), 45, 1.0,
+                          device=cuda)
+    else:
+        scene, cam = cornell_planes(cuda)
+    cfg = RenderConfig(width=32, height=32, num_samples=8, max_bounces=4,
+                       num_working_paths=4096, **change)
+    before = {k: dict(c) for k, c in counters.items()}
+    fb, st = render_frame(scene, cam, dataclasses.replace(
+        cfg, detailed_stats=True), torch.Generator(device=cuda).manual_seed(1))
+    its = st["iterations"]
+    for k, c in counters.items():
+        for kind in ("closest", "anyhit"):
+            want = its if kind in runs.get(k, ()) else 0
+            assert c[kind] - before[k][kind] == want, (k, kind)
+    fb0, st0 = render_frame(scene, cam, cfg,
+                            torch.Generator(device=cuda).manual_seed(1))
+    torch.testing.assert_close(fb, fb0, rtol=1e-5, atol=1e-6)
+    assert st0["rays_traced"] == st["rays_traced"]
+    assert st["node_steps"] > st["anyhit_steps"] > 0
+    assert st["leaf_visits"] > st["anyhit_visits"] > 0
+
+
+def test_sharded_world_of_one_on_the_card(cuda):
+    """rtjax_torch.parallel without a process group on the card: the
+    unsharded frame from the same seed, bit for bit in its counts."""
+    from rtjax_torch.parallel import make_mesh, render_frame_sharded
+    scene, cam = cornell_planes(cuda)
+    cfg = RenderConfig(width=32, height=32, num_samples=8, max_bounces=4,
+                       num_working_paths=4096)
+    mesh = make_mesh()
+    assert mesh.device == torch.device("cuda", torch.cuda.current_device())
+    fb, st = render_frame_sharded(scene, cam, cfg,
+                                  torch.Generator(device=cuda).manual_seed(3),
+                                  mesh)
+    fb0, st0 = render_frame(scene, cam, cfg,
+                            torch.Generator(device=cuda).manual_seed(3))
+    torch.testing.assert_close(fb, fb0, rtol=1e-5, atol=1e-6)
+    assert st == {"iterations": st0["iterations"],
+                  "rays_traced": st0["rays_traced"]}

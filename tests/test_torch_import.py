@@ -25,7 +25,8 @@ MODULES = [
     "rtjax_torch.render.film", "rtjax_torch.render.checkpoint",
     "rtjax_torch.utils", "rtjax_torch.utils.log",
     "rtjax_torch.utils.profiler", "rtjax_torch.utils.compare",
-    "rtjax_torch.cli", "rtjax_torch.__main__",
+    "rtjax_torch.cli", "rtjax_torch.__main__", "rtjax_torch.parallel",
+    "rtjax_torch.parallel.multihost", "rtjax_torch.parallel.sharding",
 ]
 
 

@@ -225,14 +225,19 @@ def _instanced_scene():
     (dict(detailed_stats=True, two_level="kernel"), "Queue S 3"),
 ], ids=lambda v: str(v) if isinstance(v, dict) else v)
 def test_out_of_slice_configs_raise(pair, change, item):
+    """The configurations that raised NotImplementedError (naming ``item``)
+    before the packet, lane and two-level kernels counted their work: each
+    renders a finite, non-negative frame with its histogram and counts."""
     *_, scene, cam = pair
     if change.get("two_level") == "kernel":
         scene = _instanced_scene()
         assert scene.instances is not None
     cfg = RenderConfig(width=8, height=8, num_samples=1, max_bounces=1,
                        num_working_paths=256, **change)
-    with pytest.raises(NotImplementedError, match=item):
-        wf.render_frame(scene, cam, cfg, torch.Generator())
+    fb, stats = wf.render_frame(scene, cam, cfg, torch.Generator())
+    assert bool(torch.isfinite(fb).all()) and bool((fb >= 0).all())
+    assert int(stats["bounce_histogram"].sum()) > 0
+    assert stats["node_steps"] > 0 and stats["leaf_visits"] > 0
 
 
 @pytest.mark.parametrize("change", [

@@ -270,8 +270,8 @@ LANE_VARIANTS = {
         (_LANE_DRAW, "  for (int once = 0; once < 1; ++once) {\n"
                      "    const unsigned g = blockIdx.x * (blockDim.x >> 5) "
                      "+ warp;\n"),
-        ("  const int grid = fetch_grid<lane_kernel<W, ANY>>(n, smem, warps * "
-         "kLane);\n",
+        ("  const int grid =\n      fetch_grid<lane_kernel<W, ANY, STATS>>"
+         "(n, smem, warps * kLane);\n",
          "  const int grid = ((n - 1) / kLane + warps) / warps;\n")],
     "pop through the parent's meta": [
         ("  int buf = 0, sp = 0;\n", "  int buf = 0, sp = 0, cur = 0;\n"),
