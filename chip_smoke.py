@@ -160,6 +160,29 @@ the script exits non-zero):
    sustained Mrays/s; (f) ``python -m torch.distributed.run --standalone
    --nproc_per_node=1 -m rtjax_torch render --sharded`` (NCCL over
    ``env://``) writes its PPM;
+11. the big-scene tier (run after phase 10, before phase 7's profiles):
+   benchmarks/bigscene_proof.py's heightfield at each of BIG_GRIDS
+   (3,998,792 and 7,597,202 triangles; the second past 2^20 leaf rows,
+   where the node rows' f32 meta mirror is NaN and no walk reads it):
+   (a) built on the card, its triangles, binary nodes, depth, node width,
+   wide nodes, leaf rows, table MiB (against the card's L2) and the
+   seconds of the native BVH build, the collapse and packing, the tables'
+   upload and the rest; it must have wide tables and resolve to the
+   kernels; (d) bigscene_proof.py's frame (BIG_SIZE^2 @ BIG_SPP, BIG_BOUNCES
+   bounces) on the kernels, seeds 1 and 2, counts from zero: the persist
+   kernels alone, once an iteration, frame seconds and Mrays/s, the image
+   finite, non-negative, mean > 0; then under traversal="xla" (seed 3,
+   the binary kernels alone) within 2x the seed-to-seed MSE (plus the
+   8-bit term) of the seed-2 kernel frame; (b) phase 3's persist, packet
+   and lane checks, timings and bounds on BIG_RAYS camera rays with twice
+   as many shadow rays from their hits (half toward the light, half
+   along shallow directions that the hills occlude), and again on launch
+   BIG_CAPTURE_AT of the seed-1 frame (its shadow rays may all reach the
+   light); (c) the persist, packet, lane and binary kernels against the
+   all-triangles oracle (kernels/brute.py) on BIG_BRUTE_RAYS camera and
+   shadow rays, hit, t and occlusion equal and prim equal but at ties of
+   equal t, and the binary kernels' hits, t and occlusion against the
+   persist kernels' on every ray of (b);
 7. the two persist kernels' device time over one whole headline frame,
    the two packet kernels' over one walker="packet" headline frame, the
    lane closest-hit kernel's over one walker="lane" headline frame (its
@@ -198,7 +221,11 @@ binary-walk kernels (rows 9-10: rtjax's XLA walk, ``replaces`` naming
 its functions, which reach no ``pallas_call``; their bound counts each
 node pair and triangle the plain walk read, once, ``_binary_bound``),
 phase 10(b)'s frames for the packet, lane and two-level kernels' stats
-instances (rows of their own, ``(with_stats)``).  lane_traverse_anyhit is on no engine path
+instances (rows of their own, ``(with_stats)``).  The persist, packet,
+lane and binary-walk rows carry ``bigscene``: phase 11's numbers by grid
+(the persist rows' device time, bound and share on (b)'s rays and
+in-frame launch, their launches over (d)'s two kernel frames; every
+row's mismatches against the oracle).  lane_traverse_anyhit is on no engine path
 (rtjax's ``anyhit_walker`` takes "persist" or "packet" only), so its count
 is 0.  Every row also carries ``ab``: both designs on each ray set
 (persist, packet and lane: phase 3, the in-frame launch, config 4's baked
@@ -519,7 +546,8 @@ def _test_rays(scene, camera, gen, n=1 << 18):
     return closest, anyhit
 
 
-def _check_persist(label, tab, cl, ah, card):
+def _check_persist(label, tab, cl, ah, card, need_occluded=True,
+                   plain_once=False):
     """Hold both persist kernels, in the fetch design and in the first
     (stride) design, against their plain versions on ``tab`` with the
     closest-hit rays ``cl`` and the any-hit rays ``ah``: zero hit/occlusion
@@ -528,7 +556,11 @@ def _check_persist(label, tab, cl, ah, card):
     (median of REPS), count the plain walk's work and give each kernel its
     bound.  Returns ``{"closest": {...}, "anyhit": {...}}``: max |t diff|,
     the fetch design's ms (mean of its two medians), the stride design's,
-    the plain ms, both designs' medians and the bound."""
+    the plain ms, both designs' medians and the bound.  With
+    ``need_occluded`` False, any-hit rays none of which is occluded pass
+    (a scene lit from above that nothing shadows).  With ``plain_once``
+    the plain versions are timed by one call each (CUDA events), where
+    they take seconds a call."""
     import torch
     from rtjax_torch.kernels import persist as P
     out = {}
@@ -560,7 +592,8 @@ def _check_persist(label, tab, cl, ah, card):
     new, old = _ab_ms(lambda: P.persist_traverse_closest(*args),
                       lambda: P.persist_traverse_closest_stride(*args))
     call_ms = _median_ms(lambda: P.persist_traverse_closest(*args))
-    plain_ms = _median_ms(lambda: P.persist_traverse_closest_ref(*args))
+    plain_ms = _plain_ms(lambda: P.persist_traverse_closest_ref(*args),
+                         plain_once)
     n, n_act = cl["tmax"].numel(), int(cl["active"].sum())
     b = _bound(work, n, n_act, RAY_IN, CLOSEST_OUT, tab)
     out["closest"] = _ab_result(err, new, old, call_ms, plain_ms, b)
@@ -588,7 +621,8 @@ def _check_persist(label, tab, cl, ah, card):
     new, old = _ab_ms(lambda: P.persist_traverse_anyhit(*args),
                       lambda: P.persist_traverse_anyhit_stride(*args))
     call_ms = _median_ms(lambda: P.persist_traverse_anyhit(*args))
-    plain_ms = _median_ms(lambda: P.persist_traverse_anyhit_ref(*args))
+    plain_ms = _plain_ms(lambda: P.persist_traverse_anyhit_ref(*args),
+                         plain_once)
     n, n_act = ah["tmax"].numel(), int(ah["active"].sum())
     b = _bound(work, n, n_act, RAY_IN + EXCLUDE, 1, tab)
     out["anyhit"] = _ab_result(float(mis["fetch"]["occlusion"]), new, old,
@@ -598,10 +632,17 @@ def _check_persist(label, tab, cl, ah, card):
           f"plain (occlusion, dead lanes): fetch {mis['fetch']}, stride "
           f"{mis['stride']}; " + _ab_text(out["anyhit"])
           + f"; {_work_text(work, b)}")
-    if any(v for m in mis.values() for v in m.values()) or occluded == 0:
+    if any(v for m in mis.values() for v in m.values()) or \
+            (need_occluded and occluded == 0):
         raise RuntimeError(f"{label}: any-hit kernel disagrees with its "
                            "plain version")
     return out
+
+
+def _plain_ms(fn, once):
+    """A plain version's time: one call's (CUDA events) when ``once``, else
+    the median of REPS (:func:`_median_ms`)."""
+    return _timed_ms(fn)[1] if once else _median_ms(fn)
 
 
 def _ab_result(err, new, old, call_ms, plain_ms, b):
@@ -639,7 +680,8 @@ def _group_walks():
                      L.lane_traverse_anyhit_group, ("lane", "lane_group"))}
 
 
-def _check_group(label, tab, cl, ah, card, bounds, walks=("packet", "lane")):
+def _check_group(label, tab, cl, ah, card, bounds, walks=("packet", "lane"),
+                 need_occluded=True):
     """Hold the packet and lane kernels, each in its new design and its
     first design, against the plain group walk at their group sizes on
     ``tab`` with the closest-hit rays ``cl`` and the any-hit rays ``ah``:
@@ -652,6 +694,7 @@ def _check_group(label, tab, cl, ah, card, bounds, walks=("packet", "lane")):
     new, first) and each gets its share of the persist walk's bound
     (``bounds``, by kind, from :func:`_bound`) and of the group walk's own
     (its work counted).  ``walks`` picks "packet" and / or "lane".  Returns
+    ``need_occluded`` as in :func:`_check_persist`.  Returns
     ``{(walk, kind): {...}}``: max |t diff| or the occlusion mismatches,
     device ms (the mean of the A/B's new-design times), one call in CUDA
     events (median of REPS), one timed plain call, and the A/B record
@@ -737,7 +780,7 @@ def _check_group(label, tab, cl, ah, card, bounds, walks=("packet", "lane")):
               f"kernel {old}; " + _group_ab_text(r) + "; group walk "
               + _work_text(work["anyhit"], r["group_bound"]))
         if occ_mis or persist_mis or not dead_ok or old \
-                or int(ok_.sum()) == 0:
+                or (need_occluded and int(ok_.sum()) == 0):
             raise RuntimeError(f"{label}: {walk} any-hit kernel disagrees "
                                "with its plain version or the persist "
                                "kernel")
@@ -1742,13 +1785,16 @@ def phase8_cli(card):
     each: the persist kernels once an iteration and nothing else; each
     framebuffer finite and non-negative; the two images' means within four
     standard errors of their difference (sqrt(MSE / pixels))."""
+    import importlib
+
     import numpy as np
     import torch
-    import rtjax_torch.render as R
     from rtjax_torch import cli
     from rtjax_torch.kernels import _build
     from rtjax_torch.render.film import read_ppm
     frames = []
+    # the module, not rtjax_torch.render (the package's render function)
+    R = importlib.import_module("rtjax_torch.render")
     orig = R.render_frame
 
     def keep(*args, **kw):
@@ -2983,6 +3029,423 @@ def _walk_stats_rows(stats, launches):
     return rows
 
 
+# --------------------------------------------------------------- phase 11
+# the big-scene tier: benchmarks/bigscene_proof.py's heightfield (a G x G
+# grid, Y = 0.25 sin 3X cos 3Z, two triangles a cell, one matte material,
+# its area light and camera) at 3,998,792 and 7,597,202 triangles; the
+# second has more than 2^20 leaf rows, past the f32 meta mirror's cap
+# (accel/wide.py META_CAP; ROADMAP [C 1])
+BIG_GRIDS = (1415, 1950)
+BIG_SIZE = 128         # bigscene_proof.py's frame: 128x128 @ 4 spp, 4
+BIG_SPP = 4            # bounces
+BIG_BOUNCES = 4
+BIG_RAYS = 1 << 16     # (b): camera rays, and twice as many shadow rays
+BIG_BRUTE_RAYS = 1024  # (c): rays held against every triangle
+# (b) keeps the rays of this launch of each persist kernel of the seed-1
+# frame: the first bounce's path rays, and the shadow rays of the camera
+# rays' hits
+BIG_CAPTURE_AT = 2
+# the light triangle of the heightfield scene
+BIG_LIGHT = ((-1.0, 3.0, -1.0), (1.0, 3.0, -1.0), (0.0, 3.0, 1.0))
+
+
+def _heightfield(g):
+    """bigscene_proof.py's scene at grid ``g``: ``(builder, camera)``."""
+    import numpy as np
+    from rtjax_torch import Camera, SceneBuilder
+    xs = np.linspace(-2, 2, g, dtype=np.float64)
+    x, z = np.meshgrid(xs, xs)
+    y = 0.25 * np.sin(3 * x) * np.cos(3 * z)
+    v = np.stack([x.ravel(), y.ravel(), z.ravel()], axis=1)
+    i = np.arange(g - 1)
+    ii, jj = np.meshgrid(i, i, indexing="ij")
+    a = (ii * g + jj).ravel()
+    c = a + g
+    f = np.concatenate([np.stack([a, a + 1, c], 1),
+                        np.stack([a + 1, c + 1, c], 1)])
+    b = SceneBuilder()
+    b.add_mesh(v, f, b.make_matte((0.6, 0.6, 0.6)))
+    b.add_area_light(*BIG_LIGHT, (12.0, 12.0, 12.0),
+                     b.make_matte((0.0, 0.0, 0.0)))
+    camera = Camera.make((0, 2.5, 4.5), (0, 0, 0), (0, 1, 0), 45, 1.0,
+                         "cuda")
+    return b, camera
+
+
+def _timed_build(builder):
+    """``builder.build("cuda")`` with its parts timed: ``(scene, {"total",
+    "bvh", "collapse", "upload", "rest"})`` in seconds, ``bvh`` the native
+    BVH build, ``collapse`` the wide tables' collapse and packing, and
+    ``upload`` their copy to the card (scene/scene.py's names rebound for
+    the build); ``rest`` is the leaf-order permutation, the light table
+    and the triangles' and binary BVH's copies."""
+    import torch
+    from rtjax_torch.accel import wide
+    from rtjax_torch.scene import scene as scene_mod
+    secs = {"bvh": 0.0, "wide": 0.0, "upload": 0.0}
+    saved = (scene_mod.build_bvh_best, scene_mod.build_wide_tables,
+             wide.WideTables.from_arrays)
+
+    def timing(key, fn):
+        def run(*args, **kw):
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            secs[key] += time.perf_counter() - t0
+            return out
+        return run
+
+    scene_mod.build_bvh_best = timing("bvh", saved[0])
+    scene_mod.build_wide_tables = timing("wide", saved[1])
+    wide.WideTables.from_arrays = staticmethod(timing("upload", saved[2]))
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        scene = builder.build("cuda")
+        torch.cuda.synchronize()
+        secs["total"] = time.perf_counter() - t0
+    finally:
+        scene_mod.build_bvh_best, scene_mod.build_wide_tables = saved[:2]
+        wide.WideTables.from_arrays = staticmethod(saved[2])
+    secs["collapse"] = secs.pop("wide") - secs["upload"]
+    secs["rest"] = secs["total"] - secs["bvh"] - secs["collapse"] \
+        - secs["upload"]
+    return scene, secs
+
+
+def _big_rays(scene, camera, gen):
+    """(b)'s ray sets: BIG_RAYS camera rays over the frame, 10% inactive,
+    and 2 BIG_RAYS shadow rays from the camera rays' hits (the persist
+    kernel's), excluding the hit prim, inactive where the camera ray is
+    inactive or missed: the first half toward random points of the light
+    (tmax just short of it), the second along random shallow directions
+    (elevation below ~17 degrees, tmax infinite), which the hills occlude
+    where light from above never is."""
+    import torch
+    from rtjax_torch.core import vec
+    from rtjax_torch.kernels import persist as P
+    dev = gen.device
+    n = BIG_RAYS
+    rnd = lambda m: torch.rand(m, generator=gen, device=dev)
+    o, d = camera.get_rays_v3(rnd(n), rnd(n))
+    cl = dict(o=tuple(c.contiguous() for c in o), d=d,
+              tmax=torch.full((n,), float("inf"), device=dev),
+              active=rnd(n) > 0.1)
+    hit, t, prim, _ = P.persist_traverse_closest(
+        scene.tables, cl["o"], cl["d"], cl["tmax"], cl["active"])
+    t = torch.where(hit, t, 0.0)
+    rep = lambda a: torch.cat([a, a])
+    p = tuple(rep(oc + t * dc) for oc, dc in zip(cl["o"], cl["d"]))
+    u, v = rnd(2 * n), rnd(2 * n)
+    flip = u + v > 1.0
+    u, v = torch.where(flip, 1.0 - u, u), torch.where(flip, 1.0 - v, v)
+    l0, l1, l2 = BIG_LIGHT
+    target = tuple(l0[k] + u * (l1[k] - l0[k]) + v * (l2[k] - l0[k])
+                   for k in range(3))
+    to = vec.sub(target, p)
+    dist = vec.length(to)
+    g = torch.randn(3, 2 * n, generator=gen, device=dev)
+    low = vec.normalize((g[0], 0.3 * g[1].abs(), g[2]))
+    first = torch.arange(2 * n, device=dev) < n
+    ah = dict(o=tuple(c.contiguous() for c in p),
+              d=tuple(torch.where(first, a / dist, b).contiguous()
+                      for a, b in zip(to, low)),
+              tmax=torch.where(first, dist * 0.999, float("inf")),
+              exclude=torch.where(rep(hit), rep(prim), -1), active=rep(hit))
+    return cl, ah
+
+
+def _stack3(v3, idx):
+    import torch
+    return torch.stack([c[idx] for c in v3], 1)
+
+
+def _ties_ok(tris, o, d, tmax, prim, t):
+    """Every ray's ``prim`` hits it at exactly ``t`` (the same test as the
+    kernels' and the oracle's): a prim other than the oracle's is then a
+    tie at equal t."""
+    from rtjax_torch.core.geometry import intersect_triangle_v3
+    p = prim.long()
+    g = lambda a: tuple(a[p, k] for k in range(3))
+    h, tt, _, _ = intersect_triangle_v3(
+        tuple(o[:, k] for k in range(3)), tuple(d[:, k] for k in range(3)),
+        tmax, g(tris.p0), g(tris.e1), g(tris.e2), g(tris.n))
+    return bool(h.all()) and bool((tt == t).all())
+
+
+def _against_brute(label, scene, cl, ah, card):
+    """(c) The persist, packet, lane and binary-walk kernels against the
+    all-triangles oracle (kernels/brute.py) on BIG_BRUTE_RAYS camera rays
+    and as many shadow rays (half of either kind of (b)'s): hit, t and
+    occlusion equal, prim equal but at
+    ties of equal t; and the binary walk's hits, t and occlusion against
+    the persist kernels' on every ray (prim ties counted).  Returns
+    ``{walk: {"closest": {...}, "anyhit": {...}}}``."""
+    import torch
+    from rtjax_torch.kernels import brute
+    from rtjax_torch.kernels import lane as L
+    from rtjax_torch.kernels import persist as P
+    from rtjax_torch.kernels import traversal as T
+    from rtjax_torch.kernels import wide as WD
+    m = BIG_BRUTE_RAYS
+    n = cl["tmax"].numel()
+    ci = torch.arange(m, device=cl["tmax"].device)
+    si = torch.cat([ci[:m // 2], n + ci[:m - m // 2]])
+    o, d = _stack3(cl["o"], ci), _stack3(cl["d"], ci)
+    tmax, act = cl["tmax"][ci], cl["active"][ci]
+    (bh, bt, _, _, bp, _), brute_ms = _timed_ms(
+        lambda: brute.closest_brute(scene.tris, o, d, tmax, act))
+    so, sd = _stack3(ah["o"], si), _stack3(ah["d"], si)
+    stmax, sex, sact = ah["tmax"][si], ah["exclude"][si], ah["active"][si]
+    bocc, brute_any_ms = _timed_ms(
+        lambda: brute.anyhit_brute(scene.tris, so, sd, stmax, sex, sact))
+    tab = scene.tables
+    cargs = (cl["o"], cl["d"], cl["tmax"], cl["active"])
+    aargs = (ah["o"], ah["d"], ah["tmax"], ah["exclude"], ah["active"])
+    runs = {
+        "persist": (P.persist_traverse_closest(tab, *cargs),
+                    P.persist_traverse_anyhit(tab, *aargs)),
+        "packet": (WD.wide_traverse_closest(tab, *cargs),
+                   WD.wide_traverse_anyhit(tab, *aargs)),
+        "lane": (L.lane_traverse_closest(tab, *cargs),
+                 L.lane_traverse_anyhit(tab, *aargs))}
+    bk = T.traverse_closest(scene.bvh, scene.tris, *cargs)
+    runs["binary"] = ((bk[0], bk[1], bk[4], bk[5]),
+                      T.traverse_anyhit(scene.bvh, scene.tris, *aargs))
+    torch.cuda.synchronize()
+    out, bad = {}, []
+    ph, pt, pp, _ = runs["persist"][0]
+    for walk, ((h, t, p, _), occ) in runs.items():
+        hm, tm, pm = h[:m], t[:m], p[:m]
+        both = hm & bh
+        diff = both & (pm != bp)
+        ties_ok = _ties_ok(scene.tris, o[diff], d[diff], tmax[diff],
+                           pm[diff], bt[diff]) if bool(diff.any()) else True
+        rec = {"closest": {"hit": int((hm != bh).sum()),
+                           "t": int((tm[both] != bt[both]).sum()),
+                           "prim_ties": int(diff.sum()),
+                           "max_abs_err": float((tm[both] - bt[both]).abs()
+                                                .max()) if bool(both.any())
+                           else 0.0},
+               "anyhit": {"occlusion": int((occ[si] != bocc).sum())}}
+        if walk != "persist":
+            all_both = h & ph
+            rec["vs_persist"] = {
+                "hit": int((h != ph).sum()),
+                "t": int((t[all_both] != pt[all_both]).sum()),
+                "ties": int((p[all_both] != pp[all_both]).sum()),
+                "occlusion": int((occ != runs["persist"][1]).sum())}
+        out[walk] = rec
+        if rec["closest"]["hit"] or rec["closest"]["t"] or not ties_ok \
+                or rec["anyhit"]["occlusion"] \
+                or any(v for k, v in rec.get("vs_persist", {}).items()
+                       if k != "ties"):
+            bad.append(walk)
+    print(f"[{label} brute] {card}: {m} camera rays ({int(act.sum())} "
+          f"active, {int(bh.sum())} hits) and {m} shadow rays "
+          f"({int(bocc.sum())} occluded) against all {scene.tris.num} "
+          f"triangles (closest {brute_ms:.1f} ms, any hit "
+          f"{brute_any_ms:.1f} ms); mismatches by kernel {out}")
+    if bad or not bool(bh.any()) or not bool(bocc.any()):
+        raise RuntimeError(f"{label}: the {bad} kernels disagree with the "
+                           "all-triangles oracle or the persist kernels")
+    return out
+
+
+def _big_u8(fb):
+    import numpy as np
+    from rtjax_torch.render.film import to_u8
+    return to_u8(fb.cpu().numpy(), BIG_SIZE, BIG_SIZE).astype(np.float64) \
+        / 255.0
+
+
+def _big_frames(label, scene, camera, card, xla):
+    """(d) bigscene_proof.py's frame on the kernels, seeds 1 and 2, counts
+    from zero: the persist kernels alone, once an iteration; the seed-1
+    frame keeps launch BIG_CAPTURE_AT of each persist kernel.  With
+    ``xla``, the frame again under traversal="xla" (seed 3: the binary
+    kernels alone, once an iteration), within 2x the kernel frames'
+    seed-to-seed MSE (8 bit, plus the quantisation term).  Returns
+    ``(captured, {"seconds", "mrays", "launches", ...})``."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from rtjax_torch import RenderConfig
+    from rtjax_torch.kernels import _build
+    from rtjax_torch.render.film import write_ppm
+    from rtjax_torch.render.wavefront import render_frame
+    cfg = RenderConfig(width=BIG_SIZE, height=BIG_SIZE, num_samples=BIG_SPP,
+                       max_bounces=BIG_BOUNCES)
+    _zero_counts()
+    captured, restore = _capture_launch(BIG_CAPTURE_AT)
+    runs = []
+    for seed in (1, 2):
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fb, st = render_frame(scene, camera, cfg, gen)
+        torch.cuda.synchronize()
+        runs.append((time.perf_counter() - t0, fb, st))
+        if seed == 1:
+            restore()
+    counts = _read_counts()
+    its = sum(r[2]["iterations"] for r in runs)
+    sec, _, st = runs[1]
+    out = {"seconds": [r[0] for r in runs], "iterations": its,
+           "rays": st["rays_traced"], "mrays": st["rays_traced"] / sec / 1e6,
+           "launches": dict(counts["persist"])}
+    imgs = [_big_u8(r[1]) for r in runs]
+    means = [float(r[1].mean()) for r in runs]
+    seed_mse = float(np.mean((imgs[0] - imgs[1]) ** 2))
+    quant = 2.0 * (1.0 / 255.0) ** 2 / 12.0
+    for (sec_, fb, _), seed in zip(runs, (1, 2)):
+        write_ppm(_build.BUILD_DIR / f"bigscene_{label}_seed{seed}.ppm",
+                  fb.cpu().numpy(), BIG_SIZE, BIG_SIZE, binary=True)
+    print(f"[{label} frames] {card}: {BIG_SIZE}x{BIG_SIZE} @ {BIG_SPP} spp, "
+          f"{BIG_BOUNCES} bounces: seeds 1 and 2 {out['seconds'][0]:.3f} / "
+          f"{out['seconds'][1]:.3f} s, {st['iterations']} iterations, "
+          f"{st['rays_traced']:.0f} rays, {out['mrays']:.3f} Mrays/s (seed "
+          f"2); framebuffer means {means[0]:.4f} / {means[1]:.4f}; "
+          f"seed-to-seed MSE {seed_mse:.3e}; launches {counts['persist']} "
+          f"over {its} iterations, plain calls {counts['plain']}")
+    if not _only_set(counts, "persist") or any(
+            v != its for v in counts["persist"].values()) \
+            or min(means) <= 0 or set(captured) != {"closest", "anyhit"}:
+        raise RuntimeError(f"{label}: the frames did not run the persist "
+                           "kernels alone, once an iteration, or are black")
+    if xla:
+        runs_x, cx = _drive(scene, camera,
+                            dataclasses.replace(cfg, traversal="xla"), (3,))
+        sec_x, fb_x, st_x = runs_x[0]
+        xla_mse = float(np.mean((_big_u8(fb_x) - imgs[1]) ** 2))
+        gate = 2.0 * seed_mse + quant
+        out.update(xla_seconds=sec_x, xla_mse=xla_mse, seed_mse=seed_mse,
+                   xla_mrays=st_x["rays_traced"] / sec_x / 1e6)
+        print(f"[{label} xla frame] {card}: seed 3, {sec_x:.3f} s, "
+              f"{st_x['iterations']} iterations, {out['xla_mrays']:.3f} "
+              f"Mrays/s; MSE vs the seed-2 kernel frame {xla_mse:.3e}, gate "
+              f"{gate:.3e}; launches {cx['binary']}")
+        if not _only_set(cx, "binary", st_x["iterations"]) \
+                or xla_mse > gate or float(fb_x.mean()) <= 0:
+            raise RuntimeError(f"{label}: the xla frame did not run the "
+                               "binary kernels alone or differs from the "
+                               "kernel frames beyond their noise")
+    return captured, out
+
+
+def phase11_bigscene(card):
+    """The big-scene tier at each of BIG_GRIDS: (a) the heightfield built
+    on the card, its parts timed, with wide tables that resolve to the
+    kernels ("pallas"); (d) bigscene_proof.py's frame on the kernels (and
+    under traversal="xla"); (b) the persist kernels (both designs) against
+    their plain versions bit for bit, timed, with their bound, and the
+    packet and lane kernels against the plain group walk and the persist
+    kernels, on BIG_RAYS camera rays with their shadow rays and on
+    launch BIG_CAPTURE_AT of the seed-1 frame; (c) the kernels against the
+    all-triangles oracle and the binary walk.  Returns ``{grid: {...}}``,
+    (e) being (b)'s persist numbers at the largest grid."""
+    import torch
+    from rtjax_torch import RenderConfig
+    from rtjax_torch.render import trace
+    l2 = getattr(torch.cuda.get_device_properties(0), "L2_cache_size", 0)
+    out = {}
+    for g in BIG_GRIDS:
+        label = f"bigscene {g}"
+        builder, camera = _heightfield(g)
+        scene, secs = _timed_build(builder)
+        del builder
+        tab = scene.tables
+        mode = trace.resolve_mode(scene, RenderConfig())
+        w = tab.width if tab is not None else 0
+        mirror = "NaN" if tab is not None and bool(
+            torch.isnan(tab.node_bounds[0, 6 * w])) else "exact"
+        print(f"[{label} build] {card}: {scene.tris.num} triangles, "
+              f"{scene.bvh.num_nodes} binary nodes, depth "
+              f"{scene.bvh.max_depth}; "
+              + (f"{w}-wide tables, {tab.num_wide_nodes} wide nodes, "
+                 f"{tab.num_leaf_rows} leaf rows, "
+                 f"{tab.nbytes / 2**20:.1f} MiB ({tab.nbytes / max(l2, 1):.1f}"
+                 f"x the card's {l2 / 2**20:.0f} MiB L2), meta mirror "
+                 f"{mirror}; " if tab is not None else "no wide tables; ")
+              + f"resolves to {mode!r}; built in {secs['total']:.1f} s: "
+              f"native BVH {secs['bvh']:.1f} s, collapse and packing "
+              f"{secs['collapse']:.1f} s, upload {secs['upload']:.2f} s, "
+              f"the rest {secs['rest']:.1f} s")
+        if tab is None or mode != "pallas":
+            raise RuntimeError(f"{label}: the scene has no wide tables or "
+                               "does not resolve to the kernels")
+        rec = dict(triangles=scene.tris.num, depth=scene.bvh.max_depth,
+                   width=w, wide_nodes=tab.num_wide_nodes,
+                   leaf_rows=tab.num_leaf_rows, table_mib=tab.nbytes / 2**20,
+                   mirror=mirror, build_s=secs)
+        captured, rec["frames"] = _big_frames(label, scene, camera, card,
+                                              xla=True)
+        gen = torch.Generator(device="cuda").manual_seed(1234)
+        cl, ah = _big_rays(scene, camera, gen)
+        rec["persist"] = _check_persist(label, tab, cl, ah, card,
+                                        plain_once=True)
+        rec["group"] = _check_group(label, tab, cl, ah, card,
+                                    rec["persist"])
+        tab_c, icl = captured["closest"]
+        tab_a, iah = captured["anyhit"]
+        if tab_c is not tab or tab_a is not tab:
+            raise RuntimeError(f"{label}: the captured launches used other "
+                               "tables")
+        in_frame = f"{label} in-frame launch {BIG_CAPTURE_AT}"
+        # the heightfield's hills shadow no light from above: the frame's
+        # shadow rays may all reach the light
+        rec["persist_in_frame"] = _check_persist(in_frame, tab, icl, iah,
+                                                 card, need_occluded=False,
+                                                 plain_once=True)
+        rec["group_in_frame"] = _check_group(in_frame, tab, icl, iah, card,
+                                             rec["persist_in_frame"],
+                                             need_occluded=False)
+        rec["brute"] = _against_brute(label, scene, cl, ah, card)
+        out[g] = rec
+        del scene, tab, captured, cl, ah, icl, iah
+        torch.cuda.empty_cache()
+    return out
+
+
+def _big_record(r, kind):
+    """A persist kernel's big-scene numbers at one grid, for its row."""
+    return {k: r[kind][k] for k in ("ms", "stride_ms", "call_ms", "plain_ms",
+                                    "bound_us", "bound_by", "share",
+                                    "max_abs_err")}
+
+
+def _big_rows(big):
+    """``{row name: {grid: record}}``: phase 11's numbers for the rows of
+    the persist, packet, lane and binary-walk kernels.  A persist row's
+    record holds (b)'s device time, bound and share on the camera and
+    shadow rays and on the in-frame launch ((e) at the largest grid), its
+    launches over (d)'s two kernel frames, and (c)'s mismatches against
+    the oracle."""
+    rows = {}
+    for g, rec in big.items():
+        for kind in ("closest", "anyhit"):
+            rows.setdefault(KERNELS[kind]["name"], {})[g] = dict(
+                _big_record(rec["persist"], kind),
+                in_frame=_big_record(rec["persist_in_frame"], kind),
+                launches=rec["frames"]["launches"][kind],
+                brute=rec["brute"]["persist"][kind])
+            for walk in ("packet", "lane"):
+                r, ri = rec["group"][walk, kind], rec["group_in_frame"][
+                    walk, kind]
+                pick = lambda x: {k: x[k] for k in (
+                    "ms", "call_ms", "plain_ms", "err", "share",
+                    "group_share")}
+                rows.setdefault(GROUP_KERNELS[walk, kind]["name"], {})[g] = \
+                    dict(pick(r), in_frame=pick(ri),
+                         brute=rec["brute"][walk][kind],
+                         vs_persist=rec["brute"][walk]["vs_persist"])
+            rows.setdefault(BINARY_KERNELS[kind]["name"], {})[g] = dict(
+                brute=rec["brute"]["binary"][kind],
+                vs_persist=rec["brute"]["binary"]["vs_persist"])
+    return rows
+
+
 def main():
     t0 = time.perf_counter()
 
@@ -3046,6 +3509,8 @@ def main():
                                          card, floor, c4_floor)
     multi = phase10_multi_gpu(card, floor)
     stamp("phase 10 (stats instances, detailed_stats frames, multi-GPU)")
+    big = phase11_bigscene(card)
+    stamp("phase 11 (big-scene tier)")
     frames = phase7_frames(scene, camera, card, c4_scene, c4_camera)
     stamp("phase 7 (frame kernels)")
     for rows_, kernels in ((persist, "persist"), (inst, "two_level")):
@@ -3058,6 +3523,8 @@ def main():
     rows = [*persist.values(), *stats_rows.values(), *group.values(),
             *inst.values(), *_binary_rows(binary, binary_launches),
             *_walk_stats_rows(walk_stats, walk_launches)]
+    for k, rec in _big_rows(big).items():
+        next(r for r in rows if r["name"] == k)["bigscene"] = rec
     for k in rows:
         print(f"[bound] {k['name']}: {k['bound_us']:.3f} us by "
               f"{k['bound_by']}, kernel {k['ms']:.4f} ms device time, "
@@ -3079,7 +3546,16 @@ def main():
           f"frame seconds two gloo ranks {multi['two_rank_secs']} vs one "
           f"process {multi['alone_secs']:.3f}, NCCL world of one "
           f"{multi['nccl_secs']:.3f}; config 5 over two ranks "
-          f"{multi['c5_mrays']:.3f} Mrays/s")
+          f"{multi['c5_mrays']:.3f} Mrays/s; big scenes "
+          + "; ".join(
+              f"{r['triangles']} triangles built in "
+              f"{r['build_s']['total']:.1f} s, frame "
+              f"{r['frames']['seconds'][1]:.3f} s at "
+              f"{r['frames']['mrays']:.3f} Mrays/s (xla "
+              f"{r['frames']['xla_seconds']:.3f} s), persist share of the "
+              f"bound closest {100 * r['persist']['closest']['share']:.2f}%,"
+              f" any hit {100 * r['persist']['anyhit']['share']:.2f}%"
+              for r in big.values()))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

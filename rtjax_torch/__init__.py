@@ -9,7 +9,7 @@ against.
 
 from . import constants  # noqa: F401
 from .config import RenderConfig  # noqa: F401
-from .render import render_frame, write_ppm  # noqa: F401
+from .render import render, render_frame, write_ppm  # noqa: F401
 from .scene import (Camera, Mesh, Scene, SceneBuilder, Transform,  # noqa: F401
                     load_ply, rotate, scale, translate)
 
@@ -17,6 +17,6 @@ __version__ = "0.1.0"
 
 __all__ = [
     "RenderConfig", "Camera", "Mesh", "Scene", "SceneBuilder", "Transform",
-    "load_ply", "rotate", "scale", "translate", "render_frame", "write_ppm",
-    "constants",
+    "load_ply", "rotate", "scale", "translate", "render", "render_frame",
+    "write_ppm", "constants",
 ]

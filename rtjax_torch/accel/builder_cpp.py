@@ -2,8 +2,9 @@
 
 The port compiles rtjax's own C++ source (``rtjax/accel/cpp/bvh_builder.cpp``)
 with the same flags into its build directory (kernels/_build.py), so both
-packages build identical trees.  There is no NumPy fallback: a failed build
-raises.
+packages build identical trees.  A failed build raises here;
+``accel.build_bvh_best`` falls back to the NumPy builder (same trees) where
+asked to.
 """
 
 from __future__ import annotations

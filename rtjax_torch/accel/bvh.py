@@ -58,3 +58,44 @@ class BuildResult:
         return BvhArrays(bmin=t(bmin, np.float32), bmax=t(bmax, np.float32),
                          left_first=t(left_first, np.int32),
                          num_prims=t(num_prims, np.int32), max_depth=depth)
+
+
+def _require(ok, what: str) -> None:
+    if not ok:
+        raise AssertionError(what)
+
+
+def validate(res: BuildResult, tri_bmin: np.ndarray,
+             tri_bmax: np.ndarray) -> None:
+    """Raise AssertionError unless the build keeps the structural
+    invariants of the reference's BVH (bvh.cuh:5-13,153-154): every
+    primitive in exactly one leaf, children adjacent (right = left + 1)
+    and in range, every node's box containing its children's and its
+    primitives' boxes (to 1e-6)."""
+    m = res.num_nodes
+    covered = np.zeros(len(res.perm), bool)
+    stack = [(0, 0)]
+    while stack:
+        node, depth = stack.pop()
+        _require(depth <= 64, "runaway depth")
+        count = res.num_prims[node]
+        if count > 0:
+            first = res.left_first[node]
+            _require(not covered[first:first + count].any(),
+                     "primitive covered twice")
+            covered[first:first + count] = True
+            lo = tri_bmin[res.perm[first:first + count]]
+            hi = tri_bmax[res.perm[first:first + count]]
+            _require((res.bmin[node] <= lo.min(0) + 1e-6).all()
+                     and (res.bmax[node] >= hi.max(0) - 1e-6).all(),
+                     f"node {node}'s box misses its primitives")
+        else:
+            left = res.left_first[node]
+            _require(0 < left and left + 1 < m, "child index out of range")
+            for c in (left, left + 1):
+                _require((res.bmin[node] <= res.bmin[c] + 1e-6).all()
+                         and (res.bmax[node] >= res.bmax[c] - 1e-6).all(),
+                         f"node {node}'s box misses child {c}'s")
+            stack.append((left + 1, depth + 1))
+            stack.append((left, depth + 1))
+    _require(covered.all(), "some primitive not covered by any leaf")

@@ -5,7 +5,12 @@ Layout, shared with rtjax so that both packages trace identical tables:
 
 - ``node_bounds [M, 128] f32``: child c's (bmin, bmax) at lanes 6c..6c+5;
   empty child slots are NaN boxes; child meta mirrored as exact f32 at
-  lanes 6W..7W-1 and the node info at lane 7W.
+  lanes 6W..7W-1 and the node info at lane 7W.  The mirror is kept only so
+  that the tables are array-equal to rtjax's: no walk of the port, kernel
+  or plain version, reads it (they read ``child_meta`` and ``node_info``).
+  Where a meta would not be exact as f32 (META_CAP wide nodes or leaf
+  rows and beyond), the mirror lanes hold NaN and the tables are built
+  all the same.
 - ``child_meta [M * W] i32``: ``(value << 4) | count``; count > 0 is a leaf
   (value = leaf row), count == 0 an internal child (value = wide node) or,
   with the child's leaf bit set, an empty slot.
@@ -13,7 +18,9 @@ Layout, shared with rtjax so that both packages trace identical tables:
   along ``axis`` at build time.
 - ``leaf_tris [L + 1, 128] f32``: 8 triangles (p0, e1, e2, n) at lanes
   12j..12j+11 and their 8 prim ids as exact f32 at lanes 96..103; the last
-  row is all zero (it rejects every ray).
+  row is all zero (it rejects every ray).  Prim ids are exact as f32 below
+  PRIM_CAP triangles; a mesh with more gets no wide tables
+  (:func:`prims_fit`) and renders on the binary walk, as in rtjax.
 """
 
 from __future__ import annotations
@@ -30,6 +37,11 @@ WIDTH16 = 16
 MAX_LEAF = 8          # triangles per leaf row
 PID_BASE = 12 * MAX_LEAF
 MAX_NODES16 = 1 << 14  # 16-wide node cap of rtjax's stack-entry packing
+# a meta ``(value << 4) | count`` is exact as f32 below 2^24, so its f32
+# mirror in the node rows is exact below this many wide nodes or leaf rows
+META_CAP = 1 << 20
+# prim ids ride the leaf rows as f32, exact below 2^24 triangles
+PRIM_CAP = 1 << 24
 # beyond this many binary nodes the O(M * W^2) DP collapse gets heavy on the
 # host; the greedy collapse takes over
 DP_COLLAPSE_CAP = 3_000_000
@@ -208,6 +220,24 @@ def collapse_wide_dp(bmin, bmax, left_first, num_prims, width=WIDTH):
     return children, axes
 
 
+def prims_fit(num_tris: int) -> bool:
+    """Whether a mesh of ``num_tris`` triangles can have wide tables: its
+    prim ids must be exact as f32 in the leaf rows (below PRIM_CAP)."""
+    return num_tris < PRIM_CAP
+
+
+def _meta_mirror(node_bounds, child_meta, node_info, width, leaf_rows):
+    """Write the f32 mirror of the metas and node info into the node rows:
+    exact below META_CAP wide nodes and ``leaf_rows``, NaN at and beyond
+    (no walk reads the mirror; it keeps the tables array-equal to rtjax's
+    where rtjax has them)."""
+    exact = len(node_bounds) < META_CAP and leaf_rows < META_CAP
+    node_bounds[:, 6 * width:7 * width] = (
+        child_meta.reshape(-1, width).astype(np.float32) if exact else np.nan)
+    node_bounds[:, 7 * width] = node_info.astype(np.float32) if exact \
+        else np.nan
+
+
 def pack_leaf_rows(leaves, left_first, num_prims, p0, e1, e2, n_vec,
                    prim_ids=None):
     """Binary-BVH leaves -> ``[L + 1, 128]`` rows: 8 x 12 triangle floats +
@@ -222,8 +252,9 @@ def pack_leaf_rows(leaves, left_first, num_prims, p0, e1, e2, n_vec,
     n_vec = np.asarray(n_vec, np.float32)
     if prim_ids is None:
         prim_ids = np.arange(len(p0), dtype=np.int32)
-    if len(p0) >= 1 << 24:
-        raise ValueError("prim ids must be exact as f32 (< 2^24 triangles)")
+    if not prims_fit(len(p0)):
+        raise ValueError(f"prim ids must be exact as f32 (< {PRIM_CAP} "
+                         "triangles)")
 
     first = np.asarray(left_first)[leaves]
     count = np.asarray(num_prims)[leaves]
@@ -296,11 +327,7 @@ def build_wide_tables(res: BuildResult, p0, e1, e2, n_vec, device,
     child_meta[fi, fc] = np.asarray(fm, np.int32)
     node_info[:] = (np.asarray(axes, np.int64) << width) | flm
 
-    if n_wide >= 1 << 20 or len(leaf_nodes) >= 1 << 20:
-        raise ValueError("meta refs must stay exact as f32 (< 2^24 after "
-                         "<< 4)")
-    node_bounds[:, 6 * width:7 * width] = child_meta.astype(np.float32)
-    node_bounds[:, 7 * width] = node_info.astype(np.float32)
+    _meta_mirror(node_bounds, child_meta, node_info, width, len(leaf_nodes))
     return WideTables.from_arrays(
         dict(node_bounds=node_bounds, child_meta=child_meta,
              node_info=node_info, leaf_tris=leaf_tris),
@@ -337,16 +364,12 @@ def concat_wide_tables(parts, device):
     """Concatenate WideTables, re-offsetting child refs: leaf entries
     (count > 0) get the leaf-row offset, internal entries (count 0, value >
     0) the node offset, empty slots (0) stay 0.  The bounds-row meta mirror
-    lanes follow the re-offset meta.  Returns ``(tables, node_offsets,
-    leaf_offsets)``."""
+    lanes follow the re-offset meta (NaN where the concatenation reaches
+    META_CAP, as in :func:`build_wide_tables`).  Returns ``(tables,
+    node_offsets, leaf_offsets)``."""
     width = parts[0].width
     if any(t.width != width for t in parts):
         raise ValueError("concat_wide_tables needs a uniform node width")
-    total_nodes = sum(t.num_wide_nodes for t in parts)
-    total_leaves = sum(t.num_leaf_rows for t in parts)
-    if total_nodes >= 1 << 20 or total_leaves >= 1 << 20:
-        raise ValueError("concatenated meta refs must stay exact as f32 "
-                         "(< 2^24 after << 4)")
     node_off, leaf_off = [], []
     nb, cm, ni, lt = [], [], [], []
     n_nodes = n_leaves = 0
@@ -360,17 +383,17 @@ def concat_wide_tables(parts, device):
                          np.where(value > 0, value + n_nodes, 0))
         cmk2 = ((value << 4) | count).astype(np.int32)
         cm.append(cmk2)
-        nbk = np.array(_host(t.node_bounds))
-        nbk[:, 6 * width:7 * width] = \
-            cmk2.reshape(-1, width).astype(np.float32)
-        nb.append(nbk)
+        nb.append(_host(t.node_bounds))
         ni.append(_host(t.node_info))
         lt.append(_host(t.leaf_tris))
         n_nodes += t.num_wide_nodes
         n_leaves += t.num_leaf_rows
+    node_bounds, child_meta = np.concatenate(nb), np.concatenate(cm)
+    node_info = np.concatenate(ni)
+    _meta_mirror(node_bounds, child_meta, node_info, width, n_leaves)
     tables = WideTables.from_arrays(
-        dict(node_bounds=np.concatenate(nb), child_meta=np.concatenate(cm),
-             node_info=np.concatenate(ni), leaf_tris=np.concatenate(lt)),
+        dict(node_bounds=node_bounds, child_meta=child_meta,
+             node_info=node_info, leaf_tris=np.concatenate(lt)),
         width=width, depth=max(t.depth for t in parts), device=device)
     return tables, node_off, leaf_off
 

@@ -1,4 +1,7 @@
-"""PLY mesh loading (ASCII and binary), port of rtjax.scene.mesh.load_ply."""
+"""PLY meshes, ASCII and binary (port of rtjax.scene.mesh): ``load_ply``
+and ``save_ply`` for triangle meshes, and ``PlyData`` with
+``load_ply_data`` / ``save_ply_data`` for every element and property of a
+file (the general surface of the reference's happly.h)."""
 
 from __future__ import annotations
 
@@ -42,17 +45,22 @@ class Mesh:
     faces: np.ndarray     # [F, 3] int64
 
 
-def _parse_header(f) -> tuple[str, list]:
+def _parse_header(f) -> tuple[str, list, list]:
     if f.readline().strip() not in (b"ply", b"ply\r"):
         raise ValueError("not a PLY file")
     fmt = None
     elements: list[_Element] = []
+    comments: list[str] = []
     while True:
         line = f.readline()
         if not line:
             raise ValueError("unexpected EOF in PLY header")
-        tokens = line.decode("ascii", "replace").split()
-        if not tokens or tokens[0] in ("comment", "obj_info"):
+        text = line.decode("ascii", "replace")
+        tokens = text.split()
+        if not tokens:
+            continue
+        if tokens[0] in ("comment", "obj_info"):
+            comments.append(text.strip())
             continue
         if tokens[0] == "format":
             fmt = tokens[1]
@@ -69,7 +77,7 @@ def _parse_header(f) -> tuple[str, list]:
             break
     if fmt not in ("ascii", "binary_little_endian", "binary_big_endian"):
         raise ValueError(f"unsupported PLY format: {fmt}")
-    return fmt, elements
+    return fmt, elements, comments
 
 
 def _read_ascii(f, elements):
@@ -164,15 +172,21 @@ def _triangulate(faces) -> np.ndarray:
     return np.array(tris, np.int64).reshape(-1, 3)
 
 
-def load_ply(path) -> Mesh:
-    """Vertex positions + triangulated face indices of a PLY file."""
+def _read_file(path):
+    """``(format, elements, header comments, data)`` of a PLY file."""
     with open(path, "rb") as f:
-        fmt, elements = _parse_header(f)
+        fmt, elements, comments = _parse_header(f)
         if fmt == "ascii":
             data = _read_ascii(io.TextIOWrapper(f, "ascii"), elements)
         else:
             endian = "<" if fmt == "binary_little_endian" else ">"
             data = _read_binary(f, elements, endian)
+    return fmt, elements, comments, data
+
+
+def load_ply(path) -> Mesh:
+    """Vertex positions + triangulated face indices of a PLY file."""
+    _, _, _, data = _read_file(path)
     vdata = data["vertex"]
     vertices = np.stack([np.asarray(vdata["x"]), np.asarray(vdata["y"]),
                          np.asarray(vdata["z"])], axis=1).astype(np.float64)
@@ -182,3 +196,166 @@ def load_ply(path) -> Mesh:
         key = "vertex_indices" if "vertex_indices" in fdata else "vertex_index"
         faces = _triangulate(fdata[key])
     return Mesh(vertices=vertices, faces=faces)
+
+
+def save_ply(path, mesh: Mesh, binary: bool = False,
+             big_endian: bool = False) -> None:
+    """Write a triangle mesh as PLY: ASCII, or with ``binary=True`` binary
+    1.0, little-endian unless ``big_endian`` (happly.h:1730's formats).
+    Vertices are declared float32: ASCII keeps the float64 values' full
+    digits, binary narrows them when packing, as rtjax's writer does."""
+    data = PlyData(comments=[])
+    data.add_element("vertex", {
+        "x": np.asarray(mesh.vertices[:, 0], np.float64),
+        "y": np.asarray(mesh.vertices[:, 1], np.float64),
+        "z": np.asarray(mesh.vertices[:, 2], np.float64)})
+    data.add_element("face", {
+        "vertex_indices": [np.asarray(fc, np.int64) for fc in mesh.faces]})
+    fmt = ("binary_big_endian" if big_endian else "binary_little_endian") \
+        if binary else "ascii"
+    save_ply_data(path, data, fmt=fmt)
+
+
+# generic PLY access: happly.h's general surface (happly.h:123-1232),
+# every element and property, not only vertex positions and faces
+
+
+@dataclasses.dataclass
+class PlyData:
+    """Generic PLY contents: ``elements[element][property]`` is a float64
+    ``[count]`` array for scalar properties or a list of int64 arrays for
+    list properties (happly's getElement/getProperty surface).
+    ``dtypes[element][property]`` records the declared on-disk type
+    (numpy char codes; ``(count_dtype, dtype)`` for lists) so writes
+    round-trip the original declarations.
+    """
+
+    comments: list = dataclasses.field(default_factory=list)
+    elements: dict = dataclasses.field(default_factory=dict)
+    dtypes: dict = dataclasses.field(default_factory=dict)
+
+    def add_element(self, name: str, props: dict, dtypes: dict | None = None):
+        """Register an element from {prop: array-or-list-of-arrays}.
+        Declared types default to float32 scalars / (uchar, int) lists."""
+        self.elements[name] = props
+        dts = dict(dtypes or {})
+        for pname, val in props.items():
+            if pname not in dts:
+                dts[pname] = ("u1", "i4") if _is_list_prop(val) else "f4"
+        self.dtypes[name] = dts
+        return self
+
+    def counts(self, name: str) -> int:
+        props = self.elements[name]
+        first = next(iter(props.values()))
+        return len(first)
+
+
+def _is_list_prop(val) -> bool:
+    return isinstance(val, list) or (
+        isinstance(val, np.ndarray) and val.dtype == object)
+
+
+def load_ply_data(path) -> PlyData:
+    """Read a PLY file's FULL contents: every element, every property
+    (scalars as float64 arrays, lists as lists of int64 arrays), plus
+    header comments — happly.h's general accessor surface."""
+    fmt, elements, comments, data = _read_file(path)
+    out = PlyData(comments=comments)
+    for elem in elements:
+        props = {}
+        dts = {}
+        for p in elem.properties:
+            val = data[elem.name][p.name]
+            if p.is_list:
+                dts[p.name] = (p.count_dtype, p.dtype)
+                props[p.name] = list(val)
+            else:
+                dts[p.name] = p.dtype
+                props[p.name] = np.asarray(val, np.float64)
+        out.elements[elem.name] = props
+        out.dtypes[elem.name] = dts
+    return out
+
+
+_DTYPE_NAMES = {
+    "i1": "char", "u1": "uchar", "i2": "short", "u2": "ushort",
+    "i4": "int", "u4": "uint", "f4": "float", "f8": "double",
+}
+
+
+def save_ply_data(path, data: PlyData, fmt: str = "ascii") -> None:
+    """Write a :class:`PlyData` in any of the three PLY formats
+    (``ascii``, ``binary_little_endian``, ``binary_big_endian``) —
+    happly.h's full write surface (happly.h:1724-1733)."""
+    if fmt not in ("ascii", "binary_little_endian", "binary_big_endian"):
+        raise ValueError(f"unsupported PLY format: {fmt}")
+    lines = ["ply", f"format {fmt} 1.0"]
+    lines += [c if c.startswith(("comment", "obj_info")) else f"comment {c}"
+              for c in data.comments]
+    for ename, props in data.elements.items():
+        lines.append(f"element {ename} {data.counts(ename)}")
+        for pname, val in props.items():
+            dt = data.dtypes[ename][pname]
+            if _is_list_prop(val):
+                cdt, idt = dt
+                lines.append(f"property list {_DTYPE_NAMES[cdt]} "
+                             f"{_DTYPE_NAMES[idt]} {pname}")
+            else:
+                lines.append(f"property {_DTYPE_NAMES[dt]} {pname}")
+    lines.append("end_header")
+    header = "\n".join(lines) + "\n"
+
+    if fmt == "ascii":
+        with open(path, "w") as f:
+            f.write(header)
+            for ename, props in data.elements.items():
+                names = list(props)
+                for i in range(data.counts(ename)):
+                    parts = []
+                    for pname in names:
+                        val = props[pname]
+                        if _is_list_prop(val):
+                            row = np.asarray(val[i])
+                            parts.append(" ".join(
+                                [str(len(row))] + [_fmt_ascii(x, data.dtypes[
+                                    ename][pname][1]) for x in row]))
+                        else:
+                            parts.append(_fmt_ascii(val[i],
+                                                    data.dtypes[ename][pname]))
+                    f.write(" ".join(parts) + "\n")
+        return
+
+    endian = "<" if fmt == "binary_little_endian" else ">"
+    with open(path, "wb") as f:
+        f.write(header.encode("ascii"))
+        for ename, props in data.elements.items():
+            names = list(props)
+            has_list = any(_is_list_prop(props[p]) for p in names)
+            if not has_list:
+                dt = np.dtype([(p, endian + data.dtypes[ename][p])
+                               for p in names])
+                arr = np.zeros(data.counts(ename), dt)
+                for p in names:
+                    arr[p] = props[p]
+                f.write(arr.tobytes())
+                continue
+            for i in range(data.counts(ename)):
+                for pname in names:
+                    val = props[pname]
+                    if _is_list_prop(val):
+                        cdt, idt = data.dtypes[ename][pname]
+                        row = np.asarray(val[i])
+                        f.write(np.asarray([len(row)],
+                                           endian + cdt).tobytes())
+                        f.write(np.asarray(row, endian + idt).tobytes())
+                    else:
+                        f.write(np.asarray(
+                            [val[i]],
+                            endian + data.dtypes[ename][pname]).tobytes())
+
+
+def _fmt_ascii(x, dtype_code: str) -> str:
+    if dtype_code.startswith(("i", "u")):
+        return str(int(x))
+    return repr(float(x))

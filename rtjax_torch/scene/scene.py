@@ -18,14 +18,16 @@ import types
 import numpy as np
 import torch
 
-from ..accel.builder_cpp import build_bvh
+from ..accel import build_bvh_best
 from ..accel.bvh import BvhArrays
 from ..accel.instancing import (InstanceTable, MeshBlas, affine_rows,
                                 instance_world_aabb)
 from ..accel.wide import (MAX_NODES16, InstancedTables, WideTables,
-                          build_instanced_tables, build_wide_tables)
+                          build_instanced_tables, build_wide_tables,
+                          prims_fit)
 from ..constants import BVH_MAX_DEPTH, INVALID_INDEX
 from ..core.geometry import Triangles
+from ..utils.log import logger
 from .light import AREA_LIGHT, POINT_LIGHT, LightTable, make_light_arrays
 from .material import MaterialBuilder, MaterialTable
 from .transform import Transform
@@ -167,9 +169,18 @@ class SceneBuilder:
 
     def build(self, device, max_depth: int = BVH_MAX_DEPTH,
               max_leaf_size: int | None = 8,
-              min_leaf_size: int | None = None) -> Scene:
+              min_leaf_size: int | None = None,
+              builder: str = "auto", verbose: bool = False) -> Scene:
         """Assemble the scene on ``device``; ``min_leaf_size`` defaults to
-        ``max_leaf_size`` (filled leaf rows)."""
+        ``max_leaf_size`` (filled leaf rows).  ``builder`` picks the BVH
+        builder of the scene and of every BLAS (``accel.build_bvh_best``:
+        "auto", "cpp" or "numpy"); ``verbose`` logs the global box and the
+        node count with the tree's depth, the reference's two lines.
+
+        Wide tables are built where ``max_leaf_size <= 8`` and the mesh's
+        prim ids fit the leaf rows (``accel.wide.prims_fit``, below 2^24
+        triangles); a scene or BLAS without them renders on the binary
+        walk, as in rtjax."""
         if min_leaf_size is None:
             min_leaf_size = max_leaf_size if max_leaf_size else 1
         if self._num_tris == 0:
@@ -182,9 +193,17 @@ class SceneBuilder:
         bmin = np.minimum(np.minimum(p0, p1), p2)
         bmax = np.maximum(np.maximum(p0, p1), p2)
         centers = (p0 + p1 + p2) / 3.0
-        res = build_bvh(bmin, bmax, centers, max_depth=max_depth,
-                        max_leaf_size=max_leaf_size,
-                        min_leaf_size=min_leaf_size)
+        res = build_bvh_best(bmin, bmax, centers, max_depth=max_depth,
+                             max_leaf_size=max_leaf_size,
+                             min_leaf_size=min_leaf_size, which=builder)
+        if verbose:
+            lo, hi = bmin.min(0), bmax.max(0)
+            logger.info(f"Global bounding box: ({lo[0]:.6g}, {lo[1]:.6g}, "
+                        f"{lo[2]:.6g}) ({hi[0]:.6g}, {hi[1]:.6g}, "
+                        f"{hi[2]:.6g})")
+            logger.info(f"BVH has {res.num_nodes} nodes and "
+                        f"{self._num_tris} primitives, with max_depth = "
+                        f"{res.max_depth}")
 
         perm = res.perm
         inv_perm = np.empty_like(perm)
@@ -208,7 +227,7 @@ class SceneBuilder:
                                                 np.cross(te1, te2), device,
                                                 width=w)
         tables = None
-        if wide:
+        if wide and prims_fit(self._num_tris):
             # 16-wide whenever the collapsed tree fits the 16-wide node cap
             # (rtjax's rule, so both packages trace the same tables)
             tables = base_wide(16 if res.num_nodes < 14 * MAX_NODES16 else 8)
@@ -216,13 +235,15 @@ class SceneBuilder:
         instances, blas, inst_tables = None, (), None
         if self._instances:
             meshes = self._build_blas(max_depth, max_leaf_size,
-                                      min_leaf_size, device)
+                                      min_leaf_size, builder, device)
             instances = self._instance_table(meshes, device)
             width = tables.width if tables is not None else 8
             blas = self._blas_tables(meshes, width if wide else None, device)
             if tables is not None:
-                if width != 8 and tables.num_wide_nodes + sum(
-                        b.tables.num_wide_nodes for b in blas) >= MAX_NODES16:
+                if width != 8 and all(b.tables is not None for b in blas) \
+                        and tables.num_wide_nodes + sum(
+                            b.tables.num_wide_nodes for b in blas) \
+                        >= MAX_NODES16:
                     # the concatenated 16-wide node table would reach the
                     # 16-wide node cap: base and BLAS go 8-wide together
                     tables = base_wide(8)
@@ -250,7 +271,8 @@ class SceneBuilder:
                                       device=device),
         )
 
-    def _build_blas(self, max_depth, max_leaf_size, min_leaf_size, device):
+    def _build_blas(self, max_depth, max_leaf_size, min_leaf_size, builder,
+                    device):
         """Binary BVH of every registered mesh in its local frame: per mesh
         ``(build, leaf-order p0, e1, e2, Triangles, (lo, hi))``."""
         out = []
@@ -260,9 +282,11 @@ class SceneBuilder:
             p2 = verts[faces[:, 2]].astype(np.float32)
             bmin = np.minimum(np.minimum(p0, p1), p2)
             bmax = np.maximum(np.maximum(p0, p1), p2)
-            res = build_bvh(bmin, bmax, (p0 + p1 + p2) / 3.0,
-                            max_depth=max_depth, max_leaf_size=max_leaf_size,
-                            min_leaf_size=min_leaf_size or 1)
+            res = build_bvh_best(bmin, bmax, (p0 + p1 + p2) / 3.0,
+                                 max_depth=max_depth,
+                                 max_leaf_size=max_leaf_size,
+                                 min_leaf_size=min_leaf_size or 1,
+                                 which=builder)
             perm = res.perm
             pp0, pp1, pp2 = p0[perm], p1[perm], p2[perm]
             out.append((res, pp0, pp0 - pp1, pp2 - pp0,
@@ -272,12 +296,14 @@ class SceneBuilder:
 
     @staticmethod
     def _blas_tables(meshes, width, device) -> tuple:
-        """MeshBlas per mesh, with ``width``-wide tables (None: none)."""
+        """MeshBlas per mesh, with ``width``-wide tables (None: none, and
+        none for a mesh whose prim ids do not fit the leaf rows)."""
         return tuple(
             MeshBlas(tris=tris, bvh=res.to_device(device),
-                     tables=None if width is None else build_wide_tables(
+                     tables=build_wide_tables(
                          res, pp0, te1, te2, np.cross(te1, te2), device,
-                         width=width))
+                         width=width)
+                     if width is not None and prims_fit(len(pp0)) else None)
             for res, pp0, te1, te2, tris, _ in meshes)
 
     def _instance_table(self, meshes, device) -> InstanceTable:

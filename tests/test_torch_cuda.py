@@ -1026,3 +1026,102 @@ def test_sharded_world_of_one_on_the_card(cuda):
     torch.testing.assert_close(fb, fb0, rtol=1e-5, atol=1e-6)
     assert st == {"iterations": st0["iterations"],
                   "rays_traced": st0["rays_traced"]}
+
+
+# ------------------------------------ the all-triangles oracle, big scenes
+
+def _brute_scene(device):
+    """Wide tables, binary BVH and leaf-order triangles of one 3,000-
+    triangle soup, built by the scene builder."""
+    b = SceneBuilder()
+    mat = b.make_matte((0.5, 0.5, 0.5))
+    rng = np.random.default_rng(11)
+    p0 = rng.uniform(-1, 1, (3000, 3))
+    b.add_triangles(p0, p0 + rng.uniform(-0.3, 0.3, (3000, 3)),
+                    p0 + rng.uniform(-0.3, 0.3, (3000, 3)), mat)
+    return b.build(device)
+
+
+def _ties_ok(tris, o, d, tmax, got_prim, want_prim, want_t):
+    """Where two prims differ, the one kept also hits at the oracle's t."""
+    from rtjax_torch.core.geometry import intersect_triangle_v3
+    diff = got_prim != want_prim
+    p = got_prim[diff].long()
+    g = lambda a: tuple(a[p, k] for k in range(3))
+    h, t, _, _ = intersect_triangle_v3(
+        tuple(o[diff, k] for k in range(3)),
+        tuple(d[diff, k] for k in range(3)), tmax[diff],
+        g(tris.p0), g(tris.e1), g(tris.e2), g(tris.n))
+    return bool(h.all()) and torch.equal(t, want_t[diff])
+
+
+@pytest.mark.parametrize("walk", ["persist", "packet", "lane", "binary"])
+def test_kernels_match_the_brute_oracle(cuda, walk):
+    """Every traversal kernel against rtjax_torch.kernels.brute over all
+    triangles: hit, t and occlusion equal, prim equal but at ties of
+    equal t."""
+    from rtjax_torch.kernels import brute
+    scene = _brute_scene(cuda)
+    n = 4096
+    o3, d3, active, _ = _rays(n, cuda)
+    o, d = torch.stack(o3, 1), torch.stack(d3, 1)
+    tmax = torch.where(torch.arange(n, device=cuda) % 3 == 0, 0.7,
+                       float("inf"))
+    bh, bt, _, _, bp, _ = brute.closest_brute(scene.tris, o, d, tmax,
+                                              active)
+    kernels = {"persist": (P.persist_traverse_closest,
+                           P.persist_traverse_anyhit, P.LAUNCHES),
+               "packet": (WD.wide_traverse_closest, WD.wide_traverse_anyhit,
+                          WD.LAUNCHES),
+               "lane": (L.lane_traverse_closest, L.lane_traverse_anyhit,
+                        L.LAUNCHES)}
+    calls = dict(P.REF_CALLS), dict(WD.REF_CALLS), dict(T.REF_CALLS)
+    if walk == "binary":
+        before = dict(T.LAUNCHES)
+        h, t, _, _, p, _ = T.traverse_closest(scene.bvh, scene.tris, o, d,
+                                              tmax, active)
+        partial_anyhit = lambda ex: T.traverse_anyhit(
+            scene.bvh, scene.tris, o, d, tmax, ex, active)
+        counter = T.LAUNCHES
+    else:
+        closest, anyhit_fn, counter = kernels[walk]
+        before = dict(counter)
+        h, t, p, _ = closest(scene.tables, o, d, tmax, active)
+        partial_anyhit = lambda ex: anyhit_fn(scene.tables, o, d, tmax, ex,
+                                              active)
+    assert torch.equal(h, bh) and int(h.sum()) > 500
+    assert torch.equal(t[h], bt[h])
+    assert _ties_ok(scene.tris, o[h], d[h], tmax[h], p[h], bp[h], bt[h])
+    exclude = torch.where(torch.arange(n, device=cuda) % 2 == 0, bp, -1)
+    occ = partial_anyhit(exclude)
+    assert torch.equal(occ, brute.anyhit_brute(scene.tris, o, d, tmax,
+                                               exclude, active))
+    assert counter == {k: v + 1 for k, v in before.items()}
+    assert (dict(P.REF_CALLS), dict(WD.REF_CALLS), dict(T.REF_CALLS)) \
+        == calls
+
+
+def test_scene_past_the_meta_cap_renders_on_the_kernels(cuda, monkeypatch):
+    """The meta cap patched below the Cornell planes' rows: the mirror
+    lanes are NaN and the frame runs through the persist kernels with the
+    unpatched scene's iterations and rays."""
+    from rtjax_torch.accel import wide
+    full, cam = cornell_planes(cuda)
+    monkeypatch.setattr(wide, "META_CAP", 1)
+    cut, _ = cornell_planes(cuda)
+    w = cut.tables.width
+    assert bool(torch.isnan(cut.tables.node_bounds[:, 6 * w:7 * w + 1]).all())
+    cfg = RenderConfig(width=32, height=32, num_samples=8, max_bounces=4,
+                       num_working_paths=4096)
+    runs = []
+    for scene in (full, cut):
+        launches, refs = dict(P.LAUNCHES), dict(P.REF_CALLS)
+        fb, stats = render_frame(scene, cam, cfg,
+                                 torch.Generator(device=cuda).manual_seed(1))
+        assert P.REF_CALLS == refs
+        for k in ("closest", "anyhit"):
+            assert P.LAUNCHES[k] - launches[k] == stats["iterations"]
+        assert bool(torch.isfinite(fb).all()) and bool((fb >= 0).all())
+        runs.append((fb, stats))
+    assert runs[0][1] == runs[1][1]
+    torch.testing.assert_close(runs[1][0], runs[0][0], rtol=1e-4, atol=1e-5)

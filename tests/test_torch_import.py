@@ -16,11 +16,14 @@ MODULES = [
     "rtjax_torch.scene.transform", "rtjax_torch.scene.mesh",
     "rtjax_torch.scene.camera", "rtjax_torch.scene.material",
     "rtjax_torch.scene.light", "rtjax_torch.scene.scene",
-    "rtjax_torch.accel.bvh", "rtjax_torch.accel.builder_cpp",
+    "rtjax_torch.accel", "rtjax_torch.accel.bvh",
+    "rtjax_torch.accel.builder_cpp", "rtjax_torch.accel.builder_np",
     "rtjax_torch.accel.wide", "rtjax_torch.accel.instancing",
     "rtjax_torch.kernels._build", "rtjax_torch.kernels.persist",
     "rtjax_torch.kernels.wide_inst", "rtjax_torch.kernels.wide",
-    "rtjax_torch.kernels.lane", "rtjax_torch.render.trace",
+    "rtjax_torch.kernels.lane", "rtjax_torch.kernels.brute",
+    "rtjax_torch.kernels.traversal", "rtjax_torch.render",
+    "rtjax_torch.render.trace",
     "rtjax_torch.render.sorting", "rtjax_torch.render.wavefront",
     "rtjax_torch.render.film", "rtjax_torch.render.checkpoint",
     "rtjax_torch.utils", "rtjax_torch.utils.log",
@@ -44,6 +47,21 @@ def test_port_never_imports_jax():
             "if k.startswith('jax'))\n"
             "assert not any(k == 'rtjax' or k.startswith('rtjax.') "
             "for k in sys.modules)\n"
+            "print('ok')\n")
+    res = _run(code)
+    assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr
+
+
+@pytest.mark.parametrize("module", ["rtjax_torch.kernels.brute",
+                                    "rtjax_torch.accel",
+                                    "rtjax_torch.render"])
+def test_host_surface_imports_no_jax(module):
+    """Each module of rtjax's host and user surface, imported alone in a
+    fresh interpreter, brings in neither JAX nor rtjax."""
+    code = (f"import sys, {module}\n"
+            "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
+            "('jax', 'jaxlib', 'rtjax'))\n"
+            "assert not bad, bad\n"
             "print('ok')\n")
     res = _run(code)
     assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr
