@@ -11,12 +11,13 @@ the script exits non-zero):
 
 0. device: require CUDA; print the card's name and power limit, and the
    torch and CUDA versions;
-1. build: the BVH builder and the four kernel libraries from this
-   checkout's sources, into build/rtjax_torch/, all five compilers
+1. build: the BVH builder and the five kernel libraries from this
+   checkout's sources, into build/rtjax_torch/, all six compilers
    started together; ptxas's registers, stack frame and spills of the
    persist, two-level, packet and lane kernels (both designs, widths 8
    and 16, the two-level fetch kernels with the instance records staged
-   or global; the binary-walk kernels' in phase 9);
+   or global; the binary-walk kernels' in phase 9, the direct pair's in
+   phase 12);
 2. scene: the bunny Cornell box (69,463 triangles) on the card;
 3. kernels: each persistent-walker kernel, in the fetch design that the
    engine runs and in the first (stride) design, against its plain PyTorch
@@ -84,7 +85,9 @@ the script exits non-zero):
    anyhit_walker="packet", seed 2.  Each run's launch counts are read from
    zero: (a) and (c) launch only the persist kernels, (b) only the
    two-level ones in the fetch design, (d) only the packet ones, and no
-   plain version or stride-design kernel runs.
+   plain version or stride-design kernel runs; (a) and (d) launch the
+   direct kernels once an iteration besides, for the 3-triangle base (as
+   rtjax's repass takes its direct loop there).
    Frames are finite and non-negative; MSE((a), (b)) and MSE((a), (d)) <=
    0.1x and MSE((a), (c)) <= 2x the seed-to-seed MSE of (a) (plus the
    quantisation term for (c)).  Images go to build/rtjax_torch/;
@@ -183,6 +186,36 @@ the script exits non-zero):
    shadow rays, hit, t and occlusion equal and prim equal but at ties of
    equal t, and the binary kernels' hits, t and occlusion against the
    persist kernels' on every ray of (b);
+12. rtjax's tiny-scene direct path and eval configs 2 and 3 (run after
+   phase 11, before phase 7's profiles; launch counts from zero around
+   every frame): (c) eval config 2 at full width (cornell_planes, 12
+   triangles, C2_SIZE^2 @ C2_SPP spp, C2_BOUNCES bounces, the default pool)
+   at the default config, on the direct kernels alone once an iteration,
+   and under ``direct_max_tris=0``, on the persist kernels alone,
+   alternated after a warm-up frame (direct, persist, persist, direct;
+   seeds 2, 2, 3, 3), each pair of one seed within 2x the direct frames'
+   seed-to-seed MSE plus the 8-bit term (the two walks keep other triangles
+   at ties of equal t, and the sorted pool decorrelates the frames from
+   there), frame seconds; the first frame keeps the first closest-hit
+   launch (the pool's camera rays) and the second any-hit launch (their 2N
+   shadow rays); (a) the direct kernels on those rays and over random soups
+   of DIRECT_SOUPS triangles (one tile, and several): bit for bit against
+   their plain versions, hit, t, prim and occlusion equal to the
+   all-triangles oracle's, device time a launch, one call, one plain call
+   and the bound (the soups on phase 3's kind of rays at the pool's width:
+   the first launch's camera rays see only the image's top rows); (b) the
+   persist kernels on config 2's rays: hits, t and occlusion equal (prim
+   ties counted) and their device time a launch beside the direct kernels';
+   (d) a detailed_stats config-2 frame: the default frame's rays traced, no
+   node steps and leaf visits equal to the triangles times the active lanes
+   of every launch, and every launch held against the persist kernel on its
+   own rays (hits, t and occlusion equal but where the occluder lies at the
+   ray's tmax, OCC_RTOL; ties counted); (e) eval config 3 (the glass bunny
+   on a mirror floor, 256^2 @ C3_SPP spp, C3_BOUNCES bounces) at seeds 2
+   and 3 on the persist kernels and under ``traversal="xla"`` at seed 4,
+   within 2x their seed-to-seed MSE plus the 8-bit term; the CLI's
+   cornell_bunny_glass at 256^2 @ 64 spp against
+   artifacts/cornell_bunny_glass_256_64spp.ppm, printed, not gated;
 7. the two persist kernels' device time over one whole headline frame,
    the two packet kernels' over one walker="packet" headline frame, the
    lane closest-hit kernel's over one walker="lane" headline frame (its
@@ -221,7 +254,11 @@ binary-walk kernels (rows 9-10: rtjax's XLA walk, ``replaces`` naming
 its functions, which reach no ``pallas_call``; their bound counts each
 node pair and triangle the plain walk read, once, ``_binary_bound``),
 phase 10(b)'s frames for the packet, lane and two-level kernels' stats
-instances (rows of their own, ``(with_stats)``).  The persist, packet,
+instances (rows of their own, ``(with_stats)``), phase 12(c)'s two
+default config-2 frames for the direct pair (rows 12-13; with
+``config4_launches``, phase 6(a)'s base launches, ``persist_ms``, the
+persist kernels' time on the same rays, and ``soups``, (a)'s numbers
+over the soups).  The persist, packet,
 lane and binary-walk rows carry ``bigscene``: phase 11's numbers by grid
 (the persist rows' device time, bound and share on (b)'s rays and
 in-frame launch, their launches over (d)'s two kernel frames; every
@@ -337,7 +374,8 @@ def phase1_build():
               "persist kernels": _build.persist_library,
               "two-level kernels": _build.wide_inst_library,
               "packet and lane kernels": _build.packet_library,
-              "binary-walk kernels": _build.binary_library}
+              "binary-walk kernels": _build.binary_library,
+              "direct-path kernels": _build.direct_library}
 
     def timed(fn):
         t0 = time.perf_counter()
@@ -1553,11 +1591,12 @@ def phase5_persist(scene, baked, camera, card):
 _KERNEL_SETS = ("persist", "two_level", "packet", "lane", "stride",
                 "inst_stride", "packet_leader", "lane_group", "persist_stats",
                 "binary", "binary_stats", "packet_stats", "lane_stats",
-                "two_level_stats")
+                "two_level_stats", "direct")
 
 
 def _counters():
     """``{set: (LAUNCHES, REF_CALLS or None)}`` of every kernel module."""
+    from rtjax_torch.kernels import direct as D
     from rtjax_torch.kernels import lane as L
     from rtjax_torch.kernels import persist as P
     from rtjax_torch.kernels import traversal as T
@@ -1576,7 +1615,8 @@ def _counters():
             "binary_stats": (T.STATS_LAUNCHES, None),
             "packet_stats": (WD.STATS_LAUNCHES, None),
             "lane_stats": (L.STATS_LAUNCHES, None),
-            "two_level_stats": (WI.STATS_LAUNCHES, None)}
+            "two_level_stats": (WI.STATS_LAUNCHES, None),
+            "direct": (D.LAUNCHES, None)}
 
 
 def _zero_counts():
@@ -1616,11 +1656,11 @@ def _drive(scene, camera, cfg, seeds):
     return runs, _read_counts()
 
 
-def _only(counts, kernel_set):
+def _only(counts, kernel_set, also=()):
     """True when ``kernel_set`` launched both its kernels and no other set
-    launched any."""
+    launched any (but the sets in ``also``)."""
     return min(counts[kernel_set].values()) > 0 and not any(
-        v for name in _KERNEL_SETS if name != kernel_set
+        v for name in _KERNEL_SETS if name != kernel_set and name not in also
         for v in counts[name].values())
 
 
@@ -1652,10 +1692,15 @@ def phase6_config4(scene, baked, camera, card):
     report("a: two_level=auto (repass), seeds 1 (warm-up), 2, 3", a_runs, a)
     its = sum(r[2]["iterations"] for r in a_runs)
     print(f"[config4 a] repass passes per iteration: closest "
-          f"{a['persist']['closest'] / its - 1:.2f}, any-hit "
-          f"{a['persist']['anyhit'] / its - 1:.2f} (beyond the base launch)")
-    require(_only(a, "persist") and a["plain"] == 0,
-            "repass did not run through the persist kernels alone")
+          f"{a['persist']['closest'] / its:.2f}, any-hit "
+          f"{a['persist']['anyhit'] / its:.2f} (beyond the base launch, "
+          f"which the direct kernels take: {a['direct']})")
+    # the 3-triangle base takes the direct kernels once an iteration, as
+    # rtjax's repass takes its direct loop there
+    require(_only(a, "persist", also=("direct",)) and a["plain"] == 0
+            and a["direct"] == {"closest": its, "anyhit": its},
+            "repass did not run through the persist kernels and, for its "
+            "base, the direct kernels alone")
 
     captured, restore = _capture_launch(C4_CAPTURE_AT, INST_NAMES)
     try:
@@ -1679,9 +1724,11 @@ def phase6_config4(scene, baked, camera, card):
     d_runs, d = _drive(scene, camera,
                        dataclasses.replace(cfg, **WALKERS["packet"]), (2,))
     report("d: repass, walker=packet, seed 2", d_runs, d)
-    require(_only(d, "packet") and d["plain"] == 0,
+    d_its = d_runs[0][2]["iterations"]
+    require(_only(d, "packet", also=("direct",)) and d["plain"] == 0
+            and d["direct"] == {"closest": d_its, "anyhit": d_its},
             "repass under walker='packet' did not run through the packet "
-            "kernels alone")
+            "kernels and, for its base, the direct kernels alone")
 
     img_a2, img_a3 = _u8_image(a_runs[1][1]), _u8_image(a_runs[2][1])
     img_b, img_c = _u8_image(b_runs[0][1]), _u8_image(c_runs[0][1])
@@ -1715,7 +1762,8 @@ def phase6_config4(scene, baked, camera, card):
             "the instanced image differs from the baked one beyond the "
             "noise floor")
     return b["two_level"], captured, dict(img_a2=img_a2, seed_mse=seed_mse,
-                                          quant=quant)
+                                          quant=quant,
+                                          direct_launches=a["direct"])
 
 
 def phase6_in_frame(scene, card, captured):
@@ -3252,11 +3300,11 @@ def _against_brute(label, scene, cl, ah, card):
     return out
 
 
-def _big_u8(fb):
+def _square_u8(fb, size):
+    """A square framebuffer of side ``size`` in 8-bit steps, as floats."""
     import numpy as np
     from rtjax_torch.render.film import to_u8
-    return to_u8(fb.cpu().numpy(), BIG_SIZE, BIG_SIZE).astype(np.float64) \
-        / 255.0
+    return to_u8(fb.cpu().numpy(), size, size).astype(np.float64) / 255.0
 
 
 def _big_frames(label, scene, camera, card, xla):
@@ -3295,7 +3343,7 @@ def _big_frames(label, scene, camera, card, xla):
     out = {"seconds": [r[0] for r in runs], "iterations": its,
            "rays": st["rays_traced"], "mrays": st["rays_traced"] / sec / 1e6,
            "launches": dict(counts["persist"])}
-    imgs = [_big_u8(r[1]) for r in runs]
+    imgs = [_square_u8(r[1], BIG_SIZE) for r in runs]
     means = [float(r[1].mean()) for r in runs]
     seed_mse = float(np.mean((imgs[0] - imgs[1]) ** 2))
     quant = 2.0 * (1.0 / 255.0) ** 2 / 12.0
@@ -3318,7 +3366,7 @@ def _big_frames(label, scene, camera, card, xla):
         runs_x, cx = _drive(scene, camera,
                             dataclasses.replace(cfg, traversal="xla"), (3,))
         sec_x, fb_x, st_x = runs_x[0]
-        xla_mse = float(np.mean((_big_u8(fb_x) - imgs[1]) ** 2))
+        xla_mse = float(np.mean((_square_u8(fb_x, BIG_SIZE) - imgs[1]) ** 2))
         gate = 2.0 * seed_mse + quant
         out.update(xla_seconds=sec_x, xla_mse=xla_mse, seed_mse=seed_mse,
                    xla_mrays=st_x["rays_traced"] / sec_x / 1e6)
@@ -3446,6 +3494,501 @@ def _big_rows(big):
     return rows
 
 
+# --------------------------------------------------------------- phase 12
+# rtjax's tiny-scene direct path, eval configs 2 and 3
+
+DIRECT_KERNELS = {
+    "closest": dict(name="direct_closest",
+                    replaces="rtjax/render/trace.py:98"),
+    "anyhit": dict(name="direct_anyhit",
+                   replaces="rtjax/render/trace.py:137"),
+}
+DIRECT_SOURCE = "rtjax_torch/csrc/direct_traverse.cu"
+DIRECT_NAMES = {"closest": "direct_closest", "anyhit": "direct_anyhit"}
+# config 2 (benchmarks/run_configs.py:182-187): Cornell planes, 512^2 @ 64
+# spp, 10 bounces, the default pool
+C2_SIZE, C2_SPP, C2_BOUNCES = 512, 64, 10
+# config 3 (benchmarks/run_configs.py:189-196): the glass bunny on a mirror
+# floor, 256^2 @ 16 spp, 8 bounces
+C3_SPP, C3_BOUNCES = 16, 8
+# the CLI scene cornell_bunny_glass at 256^2 @ 64 spp, against rtjax's
+# render in artifacts/ (its render settings are not recorded)
+C3_ARTIFACT = os.path.join(ROOT, "artifacts",
+                           "cornell_bunny_glass_256_64spp.ppm")
+# (a) the direct kernels also over soups of these many triangles (one
+# 64-triangle tile, and several) on config 2's rays
+DIRECT_SOUPS = (64, 300)
+
+
+def _direct_bound(n, n_active, n_tris, in_bytes, out_bytes, tests):
+    """The least time of a direct launch over ``n`` rays (``n_active``
+    active) and ``n_tris`` triangles that needs ``tests`` triangle tests:
+    each ray's flag and results and an active ray's inputs, and each
+    triangle (48 B) once, over 3.35 TB/s; one Moeller-Trumbore test
+    (OPS_TRI) a test over 67 TFLOP/s."""
+    nbytes = n * (RAY_FLAGS + out_bytes) + n_active * in_bytes \
+        + n_tris * TRI_BYTES
+    ops = OPS_TRI * tests
+    t_ops, t_bytes = ops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return dict(bound_ms=max(t_ops, t_bytes), bound_us=max(t_ops, t_bytes)
+                * 1e3, bound_by="bytes" if t_bytes >= t_ops else "operations",
+                ops=ops, bytes=nbytes, tests=tests)
+
+
+def _anyhit_tests(tris, ah):
+    """Triangle tests the any-hit rays ``ah`` need: every active ray tests
+    the triangles in order up to its first occluder (all of them when none
+    occludes it)."""
+    import torch
+    from rtjax_torch.core.geometry import intersect_triangle_v3
+    live = ah["active"].clone()
+    tests = torch.zeros((), dtype=torch.int64, device=live.device)
+    for k in range(tris.num):
+        tests += live.sum()
+        row = lambda a: (a[k, 0], a[k, 1], a[k, 2])
+        h, _, _, _ = intersect_triangle_v3(ah["o"], ah["d"], ah["tmax"],
+                                           row(tris.p0), row(tris.e1),
+                                           row(tris.e2), row(tris.n))
+        live &= ~(h & (ah["exclude"] != k))
+    return int(tests)
+
+
+def _check_direct(label, tris, cl, ah, card):
+    """Both direct kernels on the closest-hit rays ``cl`` and any-hit rays
+    ``ah`` over ``tris``: bit for bit against their plain versions (hit,
+    t, prim, normal and occlusion on every lane) and against the
+    all-triangles oracle (hit, t, prim and occlusion: both keep the first
+    triangle of least t); device time a launch, one call, one plain call,
+    and the bound.  Returns ``{"closest": {...}, "anyhit": {...}}``."""
+    import torch
+    from rtjax_torch.kernels import brute
+    from rtjax_torch.kernels import direct as D
+    out = {}
+    cargs = (tris, cl["o"], cl["d"], cl["tmax"], cl["active"])
+    ref, plain_ms = _timed_ms(lambda: D.direct_closest_ref(*cargs))
+    got = D.direct_closest(*cargs)
+    _, call_ms = _timed_ms(lambda: D.direct_closest(*cargs))
+    hk, tk, pk, nk = got
+    mis = {k: int((a != b).sum()) for k, a, b in
+           zip(("hit", "t", "prim"), got[:3], ref[:3])}
+    mis["normal"] = int(sum((a != b).sum() for a, b in zip(nk, ref[3])))
+    o3, d3 = (torch.stack(cl[k], 1) for k in ("o", "d"))
+    bh, bt, _, _, bp, _ = brute.closest_brute(tris, o3, d3, cl["tmax"],
+                                              cl["active"])
+    vs = {"hit": int((hk != bh).sum()), "t": int((tk[hk] != bt[hk]).sum()),
+          "prim": int((pk[hk] != bp[hk]).sum())}
+    ms = _launch_ms(lambda: D.direct_closest(*cargs))
+    n, n_act = cl["tmax"].numel(), int(cl["active"].sum())
+    b = _direct_bound(n, n_act, tris.num, RAY_IN, CLOSEST_OUT,
+                      n_act * tris.num)
+    out["closest"] = dict(max_abs_err=float((tk - ref[1]).abs().max()),
+                          ms=ms[0], ms_range=ms[1:], call_ms=call_ms,
+                          plain_ms=plain_ms, share=b["bound_ms"] / ms[0],
+                          hits=int(hk.sum()), **b)
+    print(f"[{label} direct closest] {card}: {n} rays ({n_act} active) x "
+          f"{tris.num} triangles, {int(hk.sum())} hits; mismatches vs plain "
+          f"{mis}, vs the oracle {vs}; device {ms[0]:.4f} ms a launch "
+          f"({ms[1]:.4f}-{ms[2]:.4f}), one call {call_ms:.4f} ms, plain "
+          f"{plain_ms:.3f} ms; bound {b['bound_us']:.3f} us by "
+          f"{b['bound_by']} ({b['bytes']} B, {b['ops']} float ops); "
+          f"{100 * out['closest']['share']:.2f}% of the bound")
+    if any(mis.values()) or any(vs.values()) or not bool(hk.any()):
+        raise RuntimeError(f"{label}: the direct closest-hit kernel "
+                           "disagrees with its plain version or the oracle")
+
+    aargs = (tris, ah["o"], ah["d"], ah["tmax"], ah["exclude"],
+             ah["active"])
+    occ_ref, plain_ms = _timed_ms(lambda: D.direct_anyhit_ref(*aargs))
+    occ = D.direct_anyhit(*aargs)
+    _, call_ms = _timed_ms(lambda: D.direct_anyhit(*aargs))
+    so3, sd3 = (torch.stack(ah[k], 1) for k in ("o", "d"))
+    bocc = brute.anyhit_brute(tris, so3, sd3, ah["tmax"], ah["exclude"],
+                              ah["active"])
+    mis = {"occlusion": int((occ != occ_ref).sum()),
+           "vs_oracle": int((occ != bocc).sum())}
+    ms = _launch_ms(lambda: D.direct_anyhit(*aargs))
+    n, n_act = ah["tmax"].numel(), int(ah["active"].sum())
+    b = _direct_bound(n, n_act, tris.num, RAY_IN + EXCLUDE, 1,
+                      _anyhit_tests(tris, ah))
+    out["anyhit"] = dict(max_abs_err=float(mis["occlusion"]), ms=ms[0],
+                         ms_range=ms[1:], call_ms=call_ms, plain_ms=plain_ms,
+                         share=b["bound_ms"] / ms[0],
+                         occluded=int(occ.sum()), **b)
+    print(f"[{label} direct anyhit] {card}: {n} rays ({n_act} active) x "
+          f"{tris.num} triangles, {int(occ.sum())} occluded; mismatches "
+          f"{mis}; device {ms[0]:.4f} ms a launch ({ms[1]:.4f}-"
+          f"{ms[2]:.4f}), one call {call_ms:.4f} ms, plain {plain_ms:.3f} "
+          f"ms; bound {b['bound_us']:.3f} us by {b['bound_by']} "
+          f"({b['bytes']} B, {b['tests']} tests, {b['ops']} float ops); "
+          f"{100 * out['anyhit']['share']:.2f}% of the bound")
+    if any(mis.values()):
+        raise RuntimeError(f"{label}: the direct any-hit kernel disagrees "
+                           "with its plain version or the oracle")
+    return out
+
+
+def _direct_vs_persist(scene, cl, ah, direct_out, card):
+    """(b) The persist kernels on config 2's own rays over its tables:
+    hits, t and occlusion equal to the direct kernels', prim equal but at
+    ties of equal t (counted); device time a launch beside the direct
+    kernels'."""
+    import torch
+    from rtjax_torch.kernels import direct as D
+    from rtjax_torch.kernels import persist as P
+    tables = scene.tables
+    cargs = (cl["o"], cl["d"], cl["tmax"], cl["active"])
+    aargs = (ah["o"], ah["d"], ah["tmax"], ah["exclude"], ah["active"])
+    hp, tp, pp, _ = P.persist_traverse_closest(tables, *cargs)
+    hd, td, pd, _ = D.direct_closest(scene.tris, *cargs)
+    occ_p = P.persist_traverse_anyhit(tables, *aargs)
+    occ_d = D.direct_anyhit(scene.tris, *aargs)
+    torch.cuda.synchronize()
+    both = hp & hd
+    vs = {"hit": int((hp != hd).sum()), "t": int((tp[both] != td[both])
+                                                  .sum()),
+          "ties": int((pp[both] != pd[both]).sum()),
+          "occlusion": int((occ_p != occ_d).sum())}
+    ms = {"closest": _launch_ms(lambda: P.persist_traverse_closest(
+        tables, *cargs))[0],
+          "anyhit": _launch_ms(lambda: P.persist_traverse_anyhit(
+              tables, *aargs))[0]}
+    print(f"[config2 persist vs direct] {card}: on config 2's rays, "
+          f"mismatches {vs}; device time a launch persist closest "
+          f"{ms['closest']:.4f} ms vs direct "
+          f"{direct_out['closest']['ms']:.4f} ms, persist any hit "
+          f"{ms['anyhit']:.4f} ms vs direct "
+          f"{direct_out['anyhit']['ms']:.4f} ms")
+    if vs["hit"] or vs["t"] or vs["occlusion"]:
+        raise RuntimeError("config 2: the persist and direct kernels find "
+                           "other hits")
+    return dict(persist_ms=ms, vs_persist=vs)
+
+
+# a shadow ray's occlusion may differ between the direct loop and a BVH
+# walk only where its occluder lies at its tmax: the walk culls a box
+# whose slab entry rounds above tmax (a wall's flat box, the light's other
+# triangle) where the triangle's own t does not; this is the relative gap
+# allowed between that t and tmax
+OCC_RTOL = 1e-5
+
+
+def _occluder_gap(tris, o, d, tmax, exclude, lanes):
+    """``|tmax - t| / tmax`` of the nearest occluding triangle (not the
+    lane's ``exclude``) of each ray of ``lanes`` (inf where none)."""
+    import torch
+    from rtjax_torch.core.geometry import intersect_triangle_v3
+    idx = lanes.nonzero().squeeze(1)
+    pick = lambda v: tuple(c[idx] for c in v)
+    best = torch.full((idx.numel(),), float("inf"), device=tmax.device)
+    for k in range(tris.num):
+        row = lambda a: (a[k, 0], a[k, 1], a[k, 2])
+        h, t, _, _ = intersect_triangle_v3(pick(o), pick(d), tmax[idx],
+                                           row(tris.p0), row(tris.e1),
+                                           row(tris.e2), row(tris.n))
+        h &= exclude[idx] != k
+        best = torch.where(h, torch.minimum(best, t), best)
+    return (tmax[idx] - best).abs() / tmax[idx].abs()
+
+
+def _direct_in_frame(tables):
+    """Rebind render/trace.py's direct wrappers so that every launch of a
+    frame also runs the persist kernel over ``tables`` on the same rays:
+    ``(tally, restore)``; ``tally`` gathers, by kind, each launch's active
+    lanes and its mismatches against the persist kernel (hit, t at hits,
+    and prim at hits: the ties of equal t; occlusion, those the persist
+    kernel found occluded and the direct one not, and those whose
+    occluder is not at the ray's tmax, OCC_RTOL), and ``gap`` the largest
+    gap of a mismatch's occluder, as device tensors."""
+    import torch
+    from rtjax_torch.kernels import persist as P
+    from rtjax_torch.render import trace
+    tally = {k: [] for k in (*DIRECT_NAMES, "gap")}
+    examples = tally["examples"] = []
+    saved = {name: getattr(trace, name) for name in DIRECT_NAMES.values()}
+
+    def closest(tris, o, d, tmax, active, **kw):
+        out = saved["direct_closest"](tris, o, d, tmax, active, **kw)
+        hp, tp, pp, _ = P.persist_traverse_closest(tables, o, d, tmax,
+                                                   active)
+        h, t, p = out[:3]
+        both = h & hp
+        tally["closest"].append(torch.stack([
+            active.sum(), (h != hp).sum(), (both & (t != tp)).sum(),
+            (both & (p != pp)).sum()]))
+        return out
+
+    def anyhit(tris, o, d, tmax, exclude, active, **kw):
+        out = saved["direct_anyhit"](tris, o, d, tmax, exclude, active, **kw)
+        occ = out[0] if isinstance(out, tuple) else out
+        occ_p = P.persist_traverse_anyhit(tables, o, d, tmax, exclude,
+                                          active)
+        diff = occ != occ_p
+        gap = _occluder_gap(tris, o, d, tmax, exclude, diff)
+        if len(examples) < 4 and bool(diff.any()):
+            i = int(diff.nonzero()[0])
+            examples.append(dict(
+                o=[float(c[i]) for c in o], d=[float(c[i]) for c in d],
+                tmax=float(tmax[i]), exclude=int(exclude[i]),
+                gap=float(gap[0]), direct=bool(occ[i])))
+        tally["anyhit"].append(torch.stack([
+            active.sum(), diff.sum(), (diff & occ_p).sum(),
+            (gap > OCC_RTOL).sum()]))
+        tally["gap"].append(gap.max() if gap.numel() else
+                            torch.zeros((), device=gap.device))
+        return out
+
+    trace.direct_closest, trace.direct_anyhit = closest, anyhit
+
+    def restore():
+        for name, fn in saved.items():
+            setattr(trace, name, fn)
+
+    return tally, restore
+
+
+def phase12_direct(card):
+    """rtjax's tiny-scene direct path and eval configs 2 and 3: (c) config
+    2 at full width (512^2 @ 64 spp, 10 bounces, the default pool) on the
+    direct kernels and under ``direct_max_tris=0`` on the persist kernels,
+    alternated (direct, persist, persist, direct; seeds 2, 2, 3, 3), the
+    first frame keeping the camera rays at pool width and their 2N shadow
+    rays; (a) the direct kernels on those
+    rays and over DIRECT_SOUPS soups, against their plain versions and the
+    oracle; (b) the persist kernels on config 2's rays; (d) a
+    detailed_stats config-2 frame; (e) config 3 and the CLI's
+    cornell_bunny_glass.  Returns the rows' numbers."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from rtjax_torch import RenderConfig
+    from rtjax_torch.core.geometry import Triangles
+    from rtjax_torch.kernels import _build
+    from rtjax_torch.render.film import read_ppm, write_ppm
+    from rtjax_torch.scenes import cornell_bunny, cornell_planes
+    for name, res in _build.ptxas_report(_build.direct_library()):
+        print(f"[direct ptxas] {name}: {res}")
+    scene, camera = cornell_planes("cuda")
+    cfg = RenderConfig(width=C2_SIZE, height=C2_SIZE, num_samples=C2_SPP,
+                       max_bounces=C2_BOUNCES)
+    off = dataclasses.replace(cfg, direct_max_tris=0)
+    quant = 2.0 * (1.0 / 255.0) ** 2 / 12.0
+
+    # (c) frames, alternated; the first keeps the first iteration's
+    # closest-hit launch (the pool's camera rays) and the second
+    # iteration's any-hit launch (their shadow rays; the first has none)
+    _drive(scene, camera, cfg, (1,))       # warm-up: the pool's buffers
+    frames, counts = [], []
+    for arm, seed in (("direct", 2), ("persist", 2), ("persist", 3),
+                      ("direct", 3)):
+        if not frames:
+            captured, restore_c = _capture_launch(
+                1, {"closest": DIRECT_NAMES["closest"]})
+            shadow, restore_a = _capture_launch(
+                2, {"anyhit": DIRECT_NAMES["anyhit"]})
+        try:
+            runs, c = _drive(scene, camera, cfg if arm == "direct" else off,
+                             (seed,))
+        finally:
+            if not frames:
+                restore_c()
+                restore_a()
+                captured.update(shadow)
+        secs, fb, st = runs[0]
+        frames.append((arm, seed, secs, fb, st))
+        counts.append(c)
+        if not _only_set(c, arm, st["iterations"]):
+            raise RuntimeError(f"config 2 ({arm} arm) did not launch the "
+                               f"{arm} kernels alone, once an iteration: "
+                               f"{c}")
+        print(f"[config2 frame {arm} seed {seed}] {card}: {C2_SIZE}x"
+              f"{C2_SIZE} @ {C2_SPP} spp, {C2_BOUNCES} bounces, pool "
+              f"{cfg.pool_size}, {scene.tris.num} triangles: "
+              f"{st['iterations']} iterations, {st['rays_traced']:.0f} rays, "
+              f"{secs:.3f} s, {st['rays_traced'] / secs / 1e6:.3f} Mrays/s; "
+              f"launches {c[arm]}")
+    if set(captured) != {"closest", "anyhit"}:
+        raise RuntimeError("config 2: the direct kernels' first launches "
+                           "were not captured")
+    img = {(a, s): _square_u8(fb, C2_SIZE) for a, s, _, fb, _ in frames}
+    seed_mse = float(np.mean((img["direct", 2] - img["direct", 3]) ** 2))
+    arm_mse = [float(np.mean((img["direct", s] - img["persist", s]) ** 2))
+               for s in (2, 3)]
+    for a, s, _, fb, _ in frames:
+        write_ppm(_build.BUILD_DIR / f"config2_{a}_seed{s}.ppm",
+                  fb.cpu().numpy(), C2_SIZE, C2_SIZE, binary=True)
+    secs = {arm: [f[2] for f in frames if f[0] == arm]
+            for arm in ("direct", "persist")}
+    # the two walks keep different triangles at ties of equal t (a wall's
+    # diagonal), and one path that differs reorders the sorted pool's
+    # random words for many others: the frames decorrelate, so they are
+    # held as independent frames (2x, plus the 8-bit term), and (d) holds
+    # every launch of a frame to the persist kernel's hits
+    gate = 2.0 * seed_mse + quant
+    print(f"[config2 image] seed-to-seed MSE {seed_mse:.3e}; direct vs "
+          f"persist at seeds 2 / 3 {arm_mse[0]:.3e} / {arm_mse[1]:.3e} "
+          f"(gate {gate:.3e}); frame seconds direct "
+          f"{secs['direct']}, persist {secs['persist']}; means "
+          f"{img['direct', 2].mean():.4f} {img['persist', 2].mean():.4f}")
+    if not 0 < seed_mse or max(arm_mse) > gate or \
+            min(float(f[3].mean()) for f in frames) <= 0:
+        raise RuntimeError("config 2: the direct and persist frames differ "
+                           "beyond ties, or an image is black")
+    direct_launches = dict(counts[0]["direct"])
+    for k, v in counts[3]["direct"].items():
+        direct_launches[k] += v
+
+    # (a) the kernels on the captured rays, and over the soups
+    tris_c, cl = captured["closest"]
+    tris_a, ah = captured["anyhit"]
+    if tris_c is not scene.tris or tris_a is not scene.tris:
+        raise RuntimeError("config 2: the captured launches used other "
+                           "triangles")
+    out = {"config2": _check_direct("config2", scene.tris, cl, ah, card)}
+    # the soups fill the box with triangles of about a tenth of it; the
+    # first launch's camera rays see only the image's top rows, so the
+    # soups take phase 3's kind of rays at the pool's width: camera rays
+    # over the whole image and random rays in the box, and twice as many
+    # shadow rays between random points of the box
+    tri = scene.tris
+    verts = torch.cat([tri.p0, tri.p0 - tri.e1, tri.p0 + tri.e2]).cpu()
+    lo, hi = verts.amin(0).numpy(), verts.amax(0).numpy()
+    scl, sah = _test_rays(scene, camera,
+                          torch.Generator(device="cuda").manual_seed(1234),
+                          n=cfg.pool_size)
+    for t_n in DIRECT_SOUPS:
+        g = np.random.default_rng(t_n)
+        p0 = lo + (hi - lo) * g.random((t_n, 3))
+        e = lambda: 0.2 * (hi - lo) * (g.random((t_n, 3)) - 0.5)
+        soup = Triangles.from_vertices(p0, p0 + e(), p0 + e(), "cuda")
+        out[t_n] = _check_direct(f"soup {t_n}", soup, scl, sah, card)
+
+    # (b) the persist kernels on the same rays: S 1 per launch
+    s1 = _direct_vs_persist(scene, cl, ah, out["config2"], card)
+
+    # (d) a detailed_stats frame, every launch also held against the
+    # persist kernel on its rays; counts exactly rtjax's direct loop's
+    tally, restore = _direct_in_frame(scene.tables)
+    try:
+        runs, c = _drive(scene, camera,
+                         dataclasses.replace(cfg, detailed_stats=True), (2,))
+    finally:
+        restore()
+    _, _, st = runs[0]
+    its = st["iterations"]
+    gap = float(torch.stack(tally.pop("gap")).max())
+    examples = tally.pop("examples")
+    sums = {k: [int(x) for x in torch.stack(v).sum(0)]
+            for k, v in tally.items()}
+    active = {k: v[0] for k, v in sums.items()}
+    t_n = scene.tris.num
+    want = dict(node_steps=0, anyhit_steps=0,
+                leaf_visits=t_n * (active["closest"] + active["anyhit"]),
+                anyhit_visits=t_n * active["anyhit"])
+    got = {k: st[k] for k in want}
+    in_frame = dict(hit=sums["closest"][1], t=sums["closest"][2],
+                    ties=sums["closest"][3],
+                    occlusion_at_tmax=sums["anyhit"][1],
+                    occluded_by_persist_only=sums["anyhit"][2],
+                    occlusion_off_tmax=sums["anyhit"][3],
+                    largest_gap=gap)
+    print(f"[config2 stats frame] {card}: rays traced {st['rays_traced']:.0f}"
+          f" vs {frames[0][4]['rays_traced']:.0f} (default seed 2); counts "
+          f"{got}, active lanes x {t_n} {want}; histogram sum "
+          f"{int(st['bounce_histogram'].sum())}; launches direct "
+          f"{c['direct']}, persist (the check's) {c['persist']}; every "
+          f"launch against the persist kernel on its rays: "
+          f"{active['closest']} + {active['anyhit']} active rays, "
+          f"mismatches {in_frame} (occlusion may differ only where the "
+          f"occluder lies at the ray's tmax, within {OCC_RTOL:g} of it); "
+          f"first occlusion mismatches {examples}")
+    if got != want or st["rays_traced"] != frames[0][4]["rays_traced"] \
+            or not _only(c, "direct", also=("persist",)) or c["plain"] \
+            or any(c[k] != {"closest": its, "anyhit": its}
+                   for k in ("direct", "persist")) \
+            or in_frame["hit"] or in_frame["t"] \
+            or in_frame["occluded_by_persist_only"] \
+            or in_frame["occlusion_off_tmax"]:
+        raise RuntimeError("config 2: the detailed_stats frame's counts or "
+                           "rays differ from the direct loop's, or a launch "
+                           "found other hits than the persist kernel")
+
+    # (e) config 3, and the CLI's glass bunny against rtjax's render
+    c3, c3_cam = cornell_bunny("cuda", bunny_material="glass", floor="mirror")
+    cfg3 = RenderConfig(width=WIDTH, height=HEIGHT, num_samples=C3_SPP,
+                        max_bounces=C3_BOUNCES)
+    runs3, c = _drive(c3, c3_cam, cfg3, (2, 3))
+    its = sum(r[2]["iterations"] for r in runs3)
+    if not _only_set(c, "persist", its):
+        raise RuntimeError(f"config 3 did not run the persist kernels "
+                           f"alone: {c}")
+    runs_x, cx = _drive(c3, c3_cam, dataclasses.replace(cfg3,
+                                                       traversal="xla"), (4,))
+    if not _only_set(cx, "binary", runs_x[0][2]["iterations"]):
+        raise RuntimeError(f"config 3 under traversal='xla' did not run the "
+                           f"binary kernels alone: {cx}")
+    i2, i3, ix = (_u8_image(r[1]) for r in (*runs3, *runs_x))
+    seed3 = float(np.mean((i2 - i3) ** 2))
+    xla3 = float(np.mean((i2 - ix) ** 2))
+    for name, r in (("seed2", runs3[0]), ("seed3", runs3[1]),
+                    ("xla_seed4", runs_x[0])):
+        write_ppm(_build.BUILD_DIR / f"config3_{name}.ppm",
+                  r[1].cpu().numpy(), WIDTH, HEIGHT, binary=True)
+    glass, glass_cam = cornell_bunny("cuda", bunny_material="glass")
+    runs_g, cg = _drive(glass, glass_cam, RenderConfig(
+        width=WIDTH, height=HEIGHT, num_samples=SPP, max_bounces=BOUNCES),
+        (1,))
+    art = read_ppm(C3_ARTIFACT).astype(np.float64) / 255.0
+    art_mse = float(np.mean((_u8_image(runs_g[0][1]) - art) ** 2))
+    print(f"[cornell_bunny_glass vs artifact] {card}: {WIDTH}x{HEIGHT} @ "
+          f"{SPP} spp, {BOUNCES} bounces, seed 1, {runs_g[0][0]:.3f} s: MSE "
+          f"{art_mse:.3e} vs {os.path.relpath(C3_ARTIFACT, ROOT)} (not a "
+          f"gate: the artifact's render settings are not recorded); means "
+          f"{_u8_image(runs_g[0][1]).mean():.4f} vs {art.mean():.4f}")
+    gate3 = 2.0 * seed3 + quant
+    print(f"[config3] {card}: glass bunny, mirror floor, {WIDTH}x{HEIGHT} @ "
+          f"{C3_SPP} spp, {C3_BOUNCES} bounces: seeds 2 / 3 "
+          f"{runs3[0][0]:.3f} / {runs3[1][0]:.3f} s, "
+          f"{runs3[0][2]['rays_traced'] / runs3[0][0] / 1e6:.3f} Mrays/s, "
+          f"xla seed 4 {runs_x[0][0]:.3f} s; seed-to-seed MSE {seed3:.3e}, "
+          f"xla vs seed 2 {xla3:.3e} (gate {gate3:.3e}); means "
+          f"{i2.mean():.4f} {i3.mean():.4f} {ix.mean():.4f}")
+    if not 0 < seed3 or xla3 > gate3 or min(i2.mean(), ix.mean()) <= 0:
+        raise RuntimeError("config 3: the kernel and xla frames differ "
+                           "beyond the noise floor, or an image is black")
+    s1["in_frame"] = in_frame
+    return dict(kernels=out, launches=direct_launches, s1=s1,
+                secs=secs, seed_mse=seed_mse, arm_mse=arm_mse,
+                c3=dict(secs=[r[0] for r in runs3], xla_secs=runs_x[0][0],
+                        seed_mse=seed3, xla_mse=xla3, artifact_mse=art_mse))
+
+
+def _direct_rows(d12, c4_launches):
+    """The kernels line's rows of the direct pair: config 2's rays, the
+    soups and config 4's base launches beside them."""
+    rows = []
+    for kind in ("closest", "anyhit"):
+        r = d12["kernels"]["config2"][kind]
+        rows.append(dict(
+            DIRECT_KERNELS[kind], route="cuda", source=DIRECT_SOURCE,
+            launches=d12["launches"][kind], max_abs_err=max(
+                d12["kernels"][k][kind]["max_abs_err"]
+                for k in d12["kernels"]), ms=r["ms"], call_ms=r["call_ms"],
+            plain_ms=r["plain_ms"], library_ms=None,
+            **{k: r[k] for k in _BOUND_KEYS}, share=r["share"],
+            timed_launches=REPS,
+            persist_ms=d12["s1"]["persist_ms"][kind],
+            soups={t: {k: d12["kernels"][t][kind][k] for k in (
+                "ms", "plain_ms", "bound_us", "bound_by", "share")}
+                for t in DIRECT_SOUPS},
+            config4_launches=c4_launches[kind],
+            note="rtjax's fused-XLA all-triangles loop, no pallas_call; "
+                 "launches over phase 12(c)'s two default config-2 frames; "
+                 "config4_launches: phase 6(a)'s three repass frames' base "
+                 "launches"))
+    return rows
+
+
 def main():
     t0 = time.perf_counter()
 
@@ -3511,6 +4054,8 @@ def main():
     stamp("phase 10 (stats instances, detailed_stats frames, multi-GPU)")
     big = phase11_bigscene(card)
     stamp("phase 11 (big-scene tier)")
+    d12 = phase12_direct(card)
+    stamp("phase 12 (direct path, configs 2 and 3)")
     frames = phase7_frames(scene, camera, card, c4_scene, c4_camera)
     stamp("phase 7 (frame kernels)")
     for rows_, kernels in ((persist, "persist"), (inst, "two_level")):
@@ -3522,7 +4067,8 @@ def main():
     stats_rows = _stats_rows(stats, stats_launches)
     rows = [*persist.values(), *stats_rows.values(), *group.values(),
             *inst.values(), *_binary_rows(binary, binary_launches),
-            *_walk_stats_rows(walk_stats, walk_launches)]
+            *_walk_stats_rows(walk_stats, walk_launches),
+            *_direct_rows(d12, c4_floor["direct_launches"])]
     for k, rec in _big_rows(big).items():
         next(r for r in rows if r["name"] == k)["bigscene"] = rec
     for k in rows:
@@ -3555,7 +4101,15 @@ def main():
               f"{r['frames']['xla_seconds']:.3f} s), persist share of the "
               f"bound closest {100 * r['persist']['closest']['share']:.2f}%,"
               f" any hit {100 * r['persist']['anyhit']['share']:.2f}%"
-              for r in big.values()))
+              for r in big.values())
+          + f"; config 2 frame seconds direct {d12['secs']['direct']} vs "
+          f"direct_max_tris=0 {d12['secs']['persist']}, device time a "
+          f"launch direct closest "
+          f"{d12['kernels']['config2']['closest']['ms']:.4f} ms vs persist "
+          f"{d12['s1']['persist_ms']['closest']:.4f} ms, any hit "
+          f"{d12['kernels']['config2']['anyhit']['ms']:.4f} ms vs "
+          f"{d12['s1']['persist_ms']['anyhit']:.4f} ms; config 3 "
+          f"{d12['c3']['secs']} s (xla {d12['c3']['xla_secs']:.3f} s)")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,9 +2,11 @@
 :class:`rtjax.config.RenderConfig`.
 
 The fields that select TPU-specific behaviour are kept so that one
-configuration means the same workload in both packages (``direct_max_tris``,
-rtjax's all-triangles path for tiny scenes, computes the same hits and is
-not ported: the port walks the tables).  A value that names no mode of
+configuration means the same workload in both packages.
+``direct_max_tris`` is rtjax's gate for tiny meshes: on the kernel path a
+single-level launch over a mesh of at most that many triangles takes the
+direct all-triangles kernels (kernels/direct.py) instead of a BVH walk; 0
+disables it (render/trace.py).  A value that names no mode of
 rtjax's (``traversal``, ``sort_key``, ``two_level``, ``two_level_anyhit``)
 raises ValueError here; the engine (render/wavefront.py) raises ValueError
 for combinations that exclude each other.

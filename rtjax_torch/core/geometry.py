@@ -8,7 +8,7 @@ import numpy as np
 import torch
 
 from . import vec
-from .sampling import offset_ray_origin_v3
+from .sampling import offset_ray_origin, offset_ray_origin_v3
 
 
 @dataclasses.dataclass(frozen=True)
@@ -36,6 +36,33 @@ class Triangles:
     def num(self) -> int:
         return self.p0.shape[0]
 
+    def p1(self):
+        return self.p0 - self.e1
+
+    def p2(self):
+        return self.p0 + self.e2
+
+    def center(self):
+        return (self.p0 + self.p1() + self.p2()) / 3.0
+
+    def point(self, u, v):
+        """Barycentric point ``p(u, v) = p0 - u*e1 + v*e2``."""
+        return self.p0 - u[..., None] * self.e1 + v[..., None] * self.e2
+
+    def area(self):
+        """``0.5 * |n|`` per triangle."""
+        return 0.5 * vec.length(vec.from_array(self.n))
+
+    def bounds(self):
+        """Per-triangle box ``(min [P, 3], max [P, 3])``."""
+        ps = torch.stack([self.p0, self.p1(), self.p2()])
+        return ps.amin(0), ps.amax(0)
+
+    def gather(self, idx) -> "Triangles":
+        """The triangles ``idx`` (a subset or a reordering)."""
+        return Triangles(p0=self.p0[idx], e1=self.e1[idx], e2=self.e2[idx],
+                         n=self.n[idx])
+
 
 def intersect_triangle_v3(origin, direction, tmax, p0, e1, e2, n):
     """Moeller-Trumbore variant with the reference's exact accept rule
@@ -49,6 +76,14 @@ def intersect_triangle_v3(origin, direction, tmax, p0, e1, e2, n):
     t = inv_det * vec.dot(c, n)
     hit = (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) & (t > 0.0) & (t <= tmax)
     return hit, t, u, v
+
+
+def intersect_triangle(origin, direction, tmax, p0, e1, e2, n):
+    """:func:`intersect_triangle_v3` of ``[..., 3]`` tensors (broadcast):
+    ``(hit, t, u, v)``."""
+    a = vec.from_array
+    return intersect_triangle_v3(a(origin), a(direction), tmax, a(p0), a(e1),
+                                 a(e2), a(n))
 
 
 FLT_EPSILON = float(np.finfo(np.float32).eps)
@@ -98,3 +133,11 @@ def spawn_offset_ray_v3(p, unit_n, unit_d, tmax=float("inf")):
     if not torch.is_tensor(tmax):
         tmax = torch.full_like(p[0], tmax)
     return offset_ray_origin_v3(p, unit_n), unit_d, tmax
+
+
+def spawn_offset_ray(p, unit_n, unit_d, tmax=float("inf")):
+    """:func:`spawn_offset_ray_v3` of ``[..., 3]`` tensors; ``tmax``
+    broadcast to ``p.shape[:-1]``."""
+    tmax = torch.as_tensor(tmax, dtype=torch.float32, device=p.device)
+    return (offset_ray_origin(p, unit_n), unit_d,
+            tmax.expand(p.shape[:-1]))

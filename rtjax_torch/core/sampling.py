@@ -28,6 +28,12 @@ def offset_ray_origin_v3(p, unit_n):
     return tuple(_offset_component(pk, nk) for pk, nk in zip(p, unit_n))
 
 
+def offset_ray_origin(p, unit_n):
+    """:func:`offset_ray_origin_v3` of ``[..., 3]`` tensors."""
+    return vec.to_array(offset_ray_origin_v3(vec.from_array(p),
+                                             vec.from_array(unit_n)))
+
+
 def power_heuristic(f_pdf, g_pdf):
     """Power heuristic (beta = 2) MIS weight, both pdfs float."""
     f2 = f_pdf * f_pdf
@@ -39,11 +45,39 @@ def same_hemisphere_v3(wo, wi, n):
     return vec.dot(wo, n) * vec.dot(wi, n) < 0.0
 
 
+def same_hemisphere(wo, wi, n):
+    """:func:`same_hemisphere_v3` of ``[..., 3]`` tensors."""
+    return same_hemisphere_v3(vec.from_array(wo), vec.from_array(wi),
+                              vec.from_array(n))
+
+
 def uniform_sample_sphere_v3(u1, u2):
     z = 1.0 - 2.0 * u1
     r = torch.sqrt(torch.clamp(1.0 - z * z, min=0.0))
     phi = TWO_PI * u2
     return (r * torch.cos(phi), r * torch.sin(phi), z)
+
+
+def uniform_sample_sphere(u1, u2):
+    """Uniform direction on the unit sphere, ``[..., 3]``."""
+    return vec.to_array(uniform_sample_sphere_v3(u1, u2))
+
+
+def random_in_unit_sphere(generator, shape, device):
+    """Uniform points inside the unit ball, ``shape + (3,)``: a uniform
+    direction scaled by a radius of CDF r^3 (the cube root of a uniform).
+    rtjax draws from a JAX key; this draws from ``generator`` on
+    ``device``, so the two agree in distribution only."""
+    u = torch.rand((3,) + tuple(shape), generator=generator, device=device)
+    d = uniform_sample_sphere(u[0], u[1])
+    return d * torch.pow(u[2], 1.0 / 3.0)[..., None]
+
+
+def uniform_sample_disk(u1, u2):
+    """Uniform point on the unit disk: ``(x, y)``."""
+    r = torch.sqrt(u1)
+    theta = TWO_PI * u2
+    return r * torch.cos(theta), r * torch.sin(theta)
 
 
 def sample_triangle_barycentric(u1, u2):

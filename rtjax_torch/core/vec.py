@@ -1,8 +1,10 @@
 """Vector math over component triples ``(x, y, z)`` of ``[N]`` tensors.
 
 The port of rtjax.core.v3 (plus the small-table row lookup of
-rtjax.core.tables).  Per-lane vector state stays a 3-tuple of ``[N]``
-tensors, as in rtjax, so that the two packages compare field for field.
+rtjax.core.tables, and rtjax.core.vec's ``vec3``, which builds the
+``[..., 3]`` layout of rtjax's array-form API).  Per-lane vector state
+stays a 3-tuple of ``[N]`` tensors, as in rtjax, so that the two packages
+compare field for field.
 Every expression keeps rtjax's operation order: float results then agree
 bitwise wherever both sides round the same IEEE operations.
 """
@@ -10,6 +12,24 @@ bitwise wherever both sides round the same IEEE operations.
 from __future__ import annotations
 
 import torch
+
+
+def vec3(x, y, z, dtype=torch.float32, device=None):
+    """A ``[..., 3]`` tensor from components (broadcast), on ``device``
+    (the tensors' own device when None)."""
+    return torch.stack(torch.broadcast_tensors(
+        *(torch.as_tensor(c, dtype=dtype, device=device) for c in (x, y, z))),
+        dim=-1)
+
+
+def from_array(a):
+    """``[..., 3]`` tensor -> component triple."""
+    return (a[..., 0], a[..., 1], a[..., 2])
+
+
+def to_array(v):
+    """Component triple -> ``[..., 3]`` tensor."""
+    return torch.stack(torch.broadcast_tensors(*v), dim=-1)
 
 
 def add(a, b):

@@ -10,7 +10,8 @@ under the repository root (a directory that .gitignore lists).
   the first two also ``fetch_walk.cuh``, the packet and lane kernels
   ``group_walk.cuh``, ``packet_walk.cuh``, ``lane_walk.cuh`` and, through
   it, ``fetch_walk.cuh``; the binary-BVH walk, ``binary_traverse.cu``,
-  includes none), compiled by nvcc for ``sm_90a`` and bound with ctypes.
+  and the tiny-scene direct path, ``direct_traverse.cu``, include none),
+  compiled by nvcc for ``sm_90a`` and bound with ctypes.
 
 Each library is rebuilt when a source or a header it includes is newer
 than it.  nvcc runs with ``-Xptxas -v``: each kernel's registers, stack
@@ -38,6 +39,7 @@ PERSIST_SOURCE = CSRC_DIR / "persist_traverse.cu"
 WIDE_INST_SOURCE = CSRC_DIR / "wide_inst_traverse.cu"
 PACKET_SOURCE = CSRC_DIR / "packet_traverse.cu"
 BINARY_SOURCE = CSRC_DIR / "binary_traverse.cu"
+DIRECT_SOURCE = CSRC_DIR / "direct_traverse.cu"
 WALK_HEADER = CSRC_DIR / "wide_walk.cuh"
 FETCH_HEADER = CSRC_DIR / "fetch_walk.cuh"
 GROUP_HEADER = CSRC_DIR / "group_walk.cuh"
@@ -143,4 +145,11 @@ def binary_library() -> Path:
     """Path of the compiled binary-BVH walk kernels (built if missing or
     stale)."""
     return _build(BUILD_DIR / "libbinary_traverse.so", [BINARY_SOURCE],
+                  [nvcc_path()] + NVCC_FLAGS)
+
+
+def direct_library() -> Path:
+    """Path of the compiled direct-path kernels (built if missing or
+    stale)."""
+    return _build(BUILD_DIR / "libdirect_traverse.so", [DIRECT_SOURCE],
                   [nvcc_path()] + NVCC_FLAGS)

@@ -11,6 +11,8 @@ from __future__ import annotations
 
 import torch
 
+from ..core import vec
+
 INACTIVE_KEY = 0x7FFFFFFF
 MAX_LIVE_KEY = 0x7FFFFFFD
 
@@ -108,6 +110,25 @@ def ray_sort_keys_adaptive_v3(origin, normal, bounces, lo, hi, active,
                       (m << 3) | oc)
     return torch.where(active, torch.clamp(key, max=MAX_LIVE_KEY),
                        INACTIVE_KEY)
+
+
+def ray_sort_keys(origin, direction, lo, hi, active):
+    """:func:`ray_sort_keys_v3` of ``[N, 3]`` origins and directions."""
+    return ray_sort_keys_v3(vec.from_array(origin), vec.from_array(direction),
+                            lo, hi, active)
+
+
+def ray_sort_keys_prim(prim, direction, active):
+    """:func:`ray_sort_keys_prim_v3` of ``[N, 3]`` directions."""
+    return ray_sort_keys_prim_v3(prim, vec.from_array(direction), active)
+
+
+def sort_permutation(keys):
+    """Stable argsort and its inverse (for scattering results back)."""
+    perm = torch.argsort(keys, stable=True)
+    inv = torch.empty_like(perm)
+    inv[perm] = torch.arange(perm.shape[0], device=perm.device)
+    return perm, inv
 
 
 def sort_pytree_by_key(keys, tree):

@@ -10,10 +10,15 @@ instance k - 1, and prim the leaf-order triangle within that mesh.
 tables and the binary walk where it has none (rtjax's "auto" takes the
 binary walk on every backend but a TPU; the kernels are the port's fast
 path on the card, as Pallas is rtjax's on the TPU).  On the kernel path
-every single-level launch (a single-level scene, and each launch of
-repass) picks its kernels by walker with :func:`_backend`, as rtjax's
-``_backend`` does: the persistent walkers (kernels/persist.py), the packet
-kernels (kernels/wide.py) or the lane kernels (kernels/lane.py).  An
+every single-level launch (a single-level scene, each launch of repass,
+and the base and every instance of the per-instance loop) picks its
+kernels with :func:`_backend`, as rtjax's ``_backend`` does: a mesh of at
+most ``RenderConfig.direct_max_tris`` triangles (default 64; 0 disables)
+takes the direct all-triangles kernels (kernels/direct.py), any other mesh
+its walker's: the persistent walkers (kernels/persist.py), the packet
+kernels (kernels/wide.py) or the lane kernels (kernels/lane.py).  The
+binary walk ("xla") and the two-level kernels never take the direct path,
+as in rtjax.  An
 instanced scene with two-level tables takes one of rtjax's two strategies,
 chosen by ``RenderConfig.two_level`` (``two_level_anyhit`` follows it on
 "auto"):
@@ -37,12 +42,11 @@ keeps the kernels there, one without takes the binary walk.
 (repass and the per-instance loop: the base launch and every pass or
 instance).  Every wide-table kernel (the persist, packet, lane and
 two-level kernels, through their stats instances) counts node visits and
-leaf rows, the binary walk rtjax's node-pair steps and leaf visits.
+leaf rows, the binary walk rtjax's node-pair steps and leaf visits, the
+direct path rtjax's ``(0, active rays x triangles)``.
 
 Every kernel wrapper launches its CUDA kernel for CUDA tensors and runs
-its plain version for CPU tensors.  rtjax's direct all-triangles loop for
-tiny scenes (``direct_max_tris``) computes the same hits and is not ported
-yet (ROADMAP Queue S 1).
+its plain version for CPU tensors.
 """
 
 from __future__ import annotations
@@ -56,6 +60,7 @@ from ..accel.instancing import apply_affine_point, apply_affine_vector
 from ..core import vec
 from ..core.geometry import FLT_EPSILON
 from ..kernels import lane, persist
+from ..kernels.direct import direct_anyhit, direct_closest
 from ..kernels.lane import lane_traverse_closest
 from ..kernels.persist import (persist_traverse_anyhit,
                                persist_traverse_closest, slab, slab_pre)
@@ -97,11 +102,13 @@ def resolve_mode(scene, cfg) -> str:
     return mode
 
 
-def _backend(tables, cfg, with_stats=False):
-    """The ``(closest, anyhit)`` traversal functions for one set of wide
-    tables, by walker, as rtjax's ``_backend`` (trace.py:172-234) picks
-    them; with ``with_stats`` they return the walk's counts too.  The
-    persistent walkers take trees whose stack fits
+def _backend(mesh, cfg, with_stats=False):
+    """The ``(closest, anyhit)`` traversal functions of one mesh (the
+    scene or a BLAS, with wide tables) on the kernel path, as rtjax's
+    ``_backend`` (trace.py:172-234) picks them; with ``with_stats`` they
+    return the walk's counts too.  A mesh of at most ``cfg.direct_max_tris``
+    triangles takes the direct kernels.  Otherwise the walker decides over
+    the mesh's tables.  The persistent walkers take trees whose stack fits
     ``persist.STACK``: "auto" takes them there and the packet kernels
     beyond, and "persist" on a deeper tree warns once and takes the packet
     kernels.  "lane" takes its kernels where a warp's stack fits a block
@@ -109,6 +116,11 @@ def _backend(tables, cfg, with_stats=False):
     "packet" takes its kernels at any depth.  The any-hit kernel follows
     ``anyhit_walker`` alone ("auto" as "persist").  A warning shows once per
     call site under Python's default filter."""
+    kw = _stats_kw(with_stats)
+    if mesh.tris.num <= cfg.direct_max_tris:
+        return (partial(direct_closest, mesh.tris, **kw),
+                partial(direct_anyhit, mesh.tris, **kw))
+    tables = mesh.tables
     fits = tables.depth + 1 <= persist.STACK
     walker = cfg.walker
     if walker == "auto":
@@ -130,7 +142,6 @@ def _backend(tables, cfg, with_stats=False):
                "lane": lane_traverse_closest}[walker]
     anyhit = persist_traverse_anyhit \
         if cfg.anyhit_walker != "packet" and fits else wide_traverse_anyhit
-    kw = _stats_kw(with_stats)
     return partial(closest, tables, **kw), partial(anyhit, tables, **kw)
 
 
@@ -159,11 +170,11 @@ def _binary(mesh, cfg, with_stats=False):
 
 def _single(mesh, mode, cfg, with_stats=False):
     """The single-level ``(closest, anyhit)`` functions of a mesh (the
-    scene or a BLAS) under ``mode``: the kernels where the mode is
-    "pallas" and the mesh has wide tables (rtjax's ``mode_k``), else the
-    binary walk."""
+    scene or a BLAS) under ``mode``: :func:`_backend` (the direct or the
+    walker kernels) where the mode is "pallas" and the mesh has wide tables
+    (rtjax's ``mode_k``), else the binary walk."""
     if mode == "pallas" and mesh.tables is not None:
-        return _backend(mesh.tables, cfg, with_stats)
+        return _backend(mesh, cfg, with_stats)
     return _binary(mesh, cfg, with_stats)
 
 
@@ -198,7 +209,7 @@ def _repass_setup(inst, ks, o, d):
 
 
 def _repass_passes(scene, o, d, active, blocked):
-    """Yield, per mesh and pass, ``(blas tables, pend, src_k, o_l, d_l)``:
+    """Yield, per mesh and pass, ``(blas, pend, src_k, o_l, d_l)``:
     the rays whose nearest unwalked candidate instance is still admitted by
     ``blocked() -> [G, N] bool`` (False = candidate), and their rays in that
     instance's frame.  One device read per pass decides whether another
@@ -221,7 +232,7 @@ def _repass_passes(scene, o, d, active, blocked):
             rows = inv[pick]
             o_l = apply_affine_point(rows, o)
             d_l = apply_affine_vector(rows, d)
-            yield (scene.blas[mesh_id].tables, pend, src_of[pick],
+            yield (scene.blas[mesh_id], pend, src_of[pick],
                    tuple(c.contiguous() for c in o_l),
                    tuple(c.contiguous() for c in d_l))
 
@@ -233,17 +244,17 @@ def _add(st, more):
 
 def _repass_closest(scene, cfg, o, d, tmax, active, with_stats=False):
     """Two-level closest hit by multi-pass re-dispatch; the normal is
-    LOCAL.  Every launch takes the kernel ``cfg.walker`` picks for its
-    tables.  Returns ``(hit, t, prim, src, n_l, counts)``, counts summed
+    LOCAL.  Every launch takes the kernel :func:`_backend` picks for its
+    mesh.  Returns ``(hit, t, prim, src, n_l, counts)``, counts summed
     over the launches (None without ``with_stats``)."""
-    hit, t, prim, n_l, *st = _backend(scene.tables, cfg, with_stats)[0](
+    hit, t, prim, n_l, *st = _backend(scene, cfg, with_stats)[0](
         o, d, tmax, active)
     st = st[0] if with_stats else None
     t = torch.where(hit, t, tmax)
     src = torch.zeros_like(prim)
-    for tables, pend, src_k, o_l, d_l in _repass_passes(
+    for blas, pend, src_k, o_l, d_l in _repass_passes(
             scene, o, d, active, lambda ent: ~(ent < t[None])):
-        h2, t2, p2, nl2, *st2 = _backend(tables, cfg, with_stats)[0](
+        h2, t2, p2, nl2, *st2 = _backend(blas, cfg, with_stats)[0](
             o_l, d_l, t, pend)
         if with_stats:
             st = _add(st, st2[0])
@@ -260,19 +271,18 @@ def _repass_anyhit(scene, cfg, o, d, tmax, exclude, active,
                    with_stats=False):
     """Two-level occlusion by multi-pass re-dispatch; the exclusion applies
     in the base scene only, and occluded rays drop out of later passes.
-    Every launch takes the kernel ``cfg.anyhit_walker`` picks.  Returns
-    ``(occluded, counts)``, counts as in :func:`_repass_closest`."""
-    occ = _backend(scene.tables, cfg, with_stats)[1](o, d, tmax, exclude,
-                                                     active)
+    Every launch takes the kernel :func:`_backend` picks for its mesh.
+    Returns ``(occluded, counts)``, counts as in :func:`_repass_closest`."""
+    occ = _backend(scene, cfg, with_stats)[1](o, d, tmax, exclude, active)
     st = None
     if with_stats:
         occ, st = occ
     no_excl = torch.full_like(exclude, -1)
-    for tables, pend, _, o_l, d_l in _repass_passes(
+    for blas, pend, _, o_l, d_l in _repass_passes(
             scene, o, d, active,
             lambda ent: ~(ent < tmax[None]) | occ[None]):
-        occ_k = _backend(tables, cfg, with_stats)[1](o_l, d_l, tmax, no_excl,
-                                                     pend)
+        occ_k = _backend(blas, cfg, with_stats)[1](o_l, d_l, tmax, no_excl,
+                                                   pend)
         if with_stats:
             occ_k, st2 = occ_k
             st = _add(st, st2)
@@ -436,6 +446,11 @@ def _hit_material_index(scene, src, prim):
             src > 0, inst.material[torch.clamp(src - 1, min=0).long()],
             mat_idx)
     return mat_idx
+
+
+def gather_hit_materials(scene, src, prim):
+    """Material parameters of hits, ``(mtype, albedo [..., 3], ior)``."""
+    return scene.materials.gather(_hit_material_index(scene, src, prim))
 
 
 def gather_hit_materials_v3(scene, src, prim):

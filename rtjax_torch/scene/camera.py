@@ -63,3 +63,8 @@ class Camera:
         d = vec.normalize(d)
         origin = tuple(self.lookfrom[k].expand(d[0].shape) for k in range(3))
         return origin, d
+
+    def get_rays(self, x, y):
+        """:meth:`get_rays_v3` as ``(origin [..., 3], unit_dir [..., 3])``."""
+        o, d = self.get_rays_v3(x, y)
+        return vec.to_array(o), vec.to_array(d)

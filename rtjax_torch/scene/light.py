@@ -5,6 +5,7 @@ gathers from the scene's triangle tables."""
 from __future__ import annotations
 
 import dataclasses
+import types
 
 import numpy as np
 import torch
@@ -45,7 +46,8 @@ class LightTable:
 
 def make_light_arrays(ltype, pos, emit, tri, tris) -> dict:
     """Host light table; ``tris`` (leaf-ordered host triangles with
-    p0/e1/e2/n) supplies the embedded emitter-triangle fields."""
+    p0/e1/e2/n, or None) supplies the embedded emitter-triangle fields,
+    which stay zero without it."""
     n = max(len(ltype), 1)
     out = dict(ltype=np.zeros(n, np.int32), pos=np.zeros((n, 3), np.float32),
                emit=np.zeros((n, 3), np.float32),
@@ -58,12 +60,23 @@ def make_light_arrays(ltype, pos, emit, tri, tris) -> dict:
         out["emit"][:len(ltype)] = emit
         out["tri"][:len(ltype)] = tri
         for li, ti in enumerate(out["tri"][:len(ltype)]):
-            if ti != INVALID_INDEX:
+            if ti != INVALID_INDEX and tris is not None:
                 out["tri_p0"][li] = tris.p0[ti]
                 out["tri_e1"][li] = tris.e1[ti]
                 out["tri_e2"][li] = tris.e2[ti]
                 out["tri_n"][li] = tris.n[ti]
     return out
+
+
+def make_light_table(ltype, pos, emit, tri, tris=None, *,
+                     device) -> LightTable:
+    """:func:`make_light_arrays` as a :class:`LightTable` on ``device``;
+    ``tris`` is the scene's leaf-order :class:`Triangles` (or None)."""
+    host = None if tris is None else types.SimpleNamespace(
+        **{f: getattr(tris, f).cpu().numpy() for f in ("p0", "e1", "e2",
+                                                        "n")})
+    return LightTable.from_arrays(make_light_arrays(ltype, pos, emit, tri,
+                                                    host), device)
 
 
 def is_delta(ltype):
@@ -79,6 +92,12 @@ def gather_light_v3(lights: LightTable, pick):
             rows3(lights.emit), vec.take_rows(lights.tri, pick),
             rows3(lights.tri_p0), rows3(lights.tri_e1),
             rows3(lights.tri_e2), rows3(lights.tri_n))
+
+
+def gather_light(lights: LightTable, pick):
+    """:func:`gather_light_v3` with vectors as ``[..., 3]`` tensors."""
+    rec = gather_light_v3(lights, pick)
+    return tuple(vec.to_array(f) if isinstance(f, tuple) else f for f in rec)
 
 
 def sample_li_v3(lights: LightTable, pick, isect_p, u1, u2, rec=None):
@@ -111,6 +130,14 @@ def sample_li_v3(lights: LightTable, pick, isect_p, u1, u2, rec=None):
     return unit_wi, li, t, pdf, ltri
 
 
+def sample_li(lights: LightTable, pick, isect_p, u1, u2):
+    """:func:`sample_li_v3` of ``[..., 3]`` shading points: ``(unit_wi,
+    Li, t, pdf, ltri)``, vectors ``[..., 3]``."""
+    unit_wi, li, t, pdf, ltri = sample_li_v3(lights, pick,
+                                             vec.from_array(isect_p), u1, u2)
+    return vec.to_array(unit_wi), vec.to_array(li), t, pdf, ltri
+
+
 def pdf_li_v3(lights: LightTable, pick, isect_p, unit_wi, rec=None):
     """Solid-angle pdf of reaching the picked area light along ``unit_wi``
     (0 for point lights and misses)."""
@@ -125,3 +152,9 @@ def pdf_li_v3(lights: LightTable, pick, isect_p, unit_wi, rec=None):
         area * vec.abs_dot(tn, unit_wi))
     valid = (ltype == AREA_LIGHT) & hit
     return torch.where(valid, pdf, 0.0)
+
+
+def pdf_li(lights: LightTable, pick, isect_p, unit_wi):
+    """:func:`pdf_li_v3` of ``[..., 3]`` tensors."""
+    return pdf_li_v3(lights, pick, vec.from_array(isect_p),
+                     vec.from_array(unit_wi))

@@ -23,6 +23,11 @@ class MaterialTable:
     albedo: torch.Tensor  # [M, 3] float32
     ior: torch.Tensor     # [M] float32
 
+    def gather(self, idx):
+        """Per-lane ``(mtype, albedo [..., 3], ior)``; indices clamp."""
+        mtype, albedo, ior = self.gather_v3(idx)
+        return mtype, vec.to_array(albedo), ior
+
     def gather_v3(self, idx):
         """Per-lane ``(mtype, albedo triple, ior)``; indices clamp."""
         albedo = tuple(vec.take_rows(self.albedo[:, k], idx) for k in range(3))
@@ -78,6 +83,15 @@ def get_f_v3(mtype, albedo, unit_wo, unit_wi, unit_n):
     return valid, f, pdf
 
 
+def get_f(mtype, albedo, unit_wo, unit_wi, unit_n):
+    """:func:`get_f_v3` of ``[..., 3]`` tensors: ``(valid, f [..., 3],
+    pdf)``."""
+    a = vec.from_array
+    valid, f, pdf = get_f_v3(mtype, a(albedo), a(unit_wo), a(unit_wi),
+                             a(unit_n))
+    return valid, vec.to_array(f), pdf
+
+
 def sample_f_v3(mtype, albedo, ior, unit_wo, unit_n, u1, u2, u3):
     """Branchless BSDF sampling: ``(f, wi, pdf, n_out)``, every material
     branch computed and selected per lane.  ``unit_wo`` points into the
@@ -131,3 +145,12 @@ def sample_f_v3(mtype, albedo, ior, unit_wo, unit_n, u1, u2, u3):
                       torch.where(is_mirror, pdf_mirror, pdf_glass))
     n_out = vec.where(mtype == GLASS, n_glass, n_opp)
     return f, wi, pdf, n_out
+
+
+def sample_f(mtype, albedo, ior, unit_wo, unit_n, u1, u2, u3):
+    """:func:`sample_f_v3` of ``[..., 3]`` tensors: ``(f, wi, pdf,
+    n_out)``, vectors ``[..., 3]``."""
+    a = vec.from_array
+    f, wi, pdf, n_out = sample_f_v3(mtype, a(albedo), ior, a(unit_wo),
+                                    a(unit_n), u1, u2, u3)
+    return vec.to_array(f), vec.to_array(wi), pdf, vec.to_array(n_out)

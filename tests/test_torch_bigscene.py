@@ -283,13 +283,13 @@ def _port_cornell(instanced):
     return b, osc
 
 
-def _frame_at_oracle_floor(scene, osc):
+def _frame_at_oracle_floor(scene, osc, **change):
     jcam = default_camera()
     cam = Camera.from_arrays(camera_arrays(jcam), "cpu")
     w = h = 16
     img_o = render_oracle_image(osc, jcam, w, h, 600, 4, seed=5)
-    img = render(w, h, 64, 4, cam, scene, seed=1,
-                 num_working_paths=4096).numpy().reshape(h, w, 3)
+    img = render(w, h, 64, 4, cam, scene, seed=1, num_working_paths=4096,
+                 **change).numpy().reshape(h, w, 3)
     assert np.isfinite(img).all() and (img >= 0).all()
     assert abs(img_o.mean() - img.mean()) < 0.01
     assert mse(img_o, img) < 0.004
@@ -321,7 +321,8 @@ def test_blas_past_the_prim_cap_takes_the_binary_walk(monkeypatch):
     assert trace.resolve_mode(scene, RenderConfig()) == "pallas"
     assert torch.equal(scene.tables.child_meta, full.tables.child_meta)
     calls = dict(T.REF_CALLS), dict(P.REF_CALLS), dict(WI.REF_CALLS)
-    _frame_at_oracle_floor(scene, osc)
+    # the 12-triangle base walks its tables (the direct path off)
+    _frame_at_oracle_floor(scene, osc, direct_max_tris=0)
     assert T.REF_CALLS["closest"] > calls[0]["closest"]
     assert P.REF_CALLS["closest"] > calls[1]["closest"]
     assert WI.REF_CALLS == calls[2]

@@ -1,8 +1,9 @@
 """rtjax_torch on a CUDA device: the hand-written kernels (persistent
-walkers, two-level, packet and lane kernels, each in both designs, and the
-binary-BVH walk) against their plain PyTorch versions, and the engine's
-main path through the kernels, single-level and instanced, under every
-walker and under ``traversal="xla"``.
+walkers, two-level, packet and lane kernels, each in both designs, the
+binary-BVH walk and the tiny-scene direct pair) against their plain
+PyTorch versions, and the engine's main path through the kernels,
+single-level and instanced, under every walker, under
+``traversal="xla"`` and on the direct path.
 
 Every test here is marked ``cuda`` and skips where
 ``torch.cuda.is_available()`` is False.  The file imports no JAX, so on a
@@ -24,6 +25,8 @@ import torch
 from rtjax_torch import RenderConfig
 from rtjax_torch.accel.builder_cpp import build_bvh
 from rtjax_torch.accel.wide import build_wide_tables
+from rtjax_torch.core.geometry import Triangles
+from rtjax_torch.kernels import direct as D
 from rtjax_torch.kernels import lane as L
 from rtjax_torch.kernels import traversal as T
 from rtjax_torch.kernels import persist as P
@@ -259,7 +262,7 @@ def test_detailed_stats_frame_runs_the_stats_kernels(cuda):
     of the framebuffer sums, and its histogram sums to the path rays."""
     scene, cam = cornell_planes(cuda)
     cfg = RenderConfig(width=32, height=32, num_samples=8, max_bounces=4,
-                       num_working_paths=4096)
+                       num_working_paths=4096, direct_max_tris=0)
     launches, stats_l = dict(P.LAUNCHES), dict(P.STATS_LAUNCHES)
     fb, st = render_frame(scene, cam, dataclasses.replace(
         cfg, detailed_stats=True), torch.Generator(device=cuda).manual_seed(1))
@@ -462,7 +465,9 @@ def test_lane_walker_past_its_depth_takes_the_packet_kernels(cuda,
     n = 3000
     o, d, active, exclude = _rays(n, cuda)
     tmax = torch.full((n,), float("inf"), device=cuda)
-    sc = types.SimpleNamespace(instances=None, tables=tables)
+    # the soup's 300 triangles, above direct_max_tris
+    sc = types.SimpleNamespace(instances=None, tables=tables,
+                               tris=types.SimpleNamespace(num=300))
     before = dict(L.LAUNCHES), dict(WD.LAUNCHES)
     with pytest.warns(UserWarning, match="packet walker"):
         hit, t, *_ = trace.trace_closest(sc, RenderConfig(walker="lane"), o,
@@ -508,7 +513,7 @@ def test_walkers_run_through_their_kernels(cuda, walker, anyhit_walker):
     scene, cam = cornell_planes(cuda)
     cfg = RenderConfig(width=32, height=32, num_samples=8, max_bounces=4,
                        num_working_paths=4096, walker=walker,
-                       anyhit_walker=anyhit_walker)
+                       anyhit_walker=anyhit_walker, direct_max_tris=0)
     counters = (P.LAUNCHES, WD.LAUNCHES, L.LAUNCHES, WD.LEADER_LAUNCHES,
                 L.GROUP_LAUNCHES)
     before = [dict(c) for c in counters]
@@ -538,7 +543,7 @@ def test_kernels_refuse_mixed_devices(cuda):
 def test_main_path_runs_through_the_kernels(cuda):
     scene, cam = cornell_planes(cuda)
     cfg = RenderConfig(width=32, height=32, num_samples=8, max_bounces=4,
-                       num_working_paths=4096)
+                       num_working_paths=4096, direct_max_tris=0)
     launches, refs = dict(P.LAUNCHES), dict(P.REF_CALLS)
     stride = dict(P.STRIDE_LAUNCHES)
     fb, stats = render_frame(scene, cam, cfg,
@@ -746,7 +751,8 @@ def test_instanced_render_runs_through_the_kernels(cuda, strategy):
     cam = Camera.make((0, 2.5, 3.5), (0, 0.1, 0), (0, 1, 0), 45, 1.0,
                       device=cuda)
     cfg = RenderConfig(width=32, height=32, num_samples=8, max_bounces=4,
-                       num_working_paths=4096, two_level=strategy)
+                       num_working_paths=4096, two_level=strategy,
+                       direct_max_tris=0)
     counts = lambda: (dict(P.LAUNCHES), dict(WI.LAUNCHES),
                       dict(P.REF_CALLS), dict(WI.REF_CALLS))
     p0, w0, pr0, wr0 = counts()
@@ -992,7 +998,7 @@ def test_detailed_stats_frames_run_the_walkers_stats_kernels(cuda, change,
     else:
         scene, cam = cornell_planes(cuda)
     cfg = RenderConfig(width=32, height=32, num_samples=8, max_bounces=4,
-                       num_working_paths=4096, **change)
+                       num_working_paths=4096, direct_max_tris=0, **change)
     before = {k: dict(c) for k, c in counters.items()}
     fb, st = render_frame(scene, cam, dataclasses.replace(
         cfg, detailed_stats=True), torch.Generator(device=cuda).manual_seed(1))
@@ -1112,7 +1118,7 @@ def test_scene_past_the_meta_cap_renders_on_the_kernels(cuda, monkeypatch):
     w = cut.tables.width
     assert bool(torch.isnan(cut.tables.node_bounds[:, 6 * w:7 * w + 1]).all())
     cfg = RenderConfig(width=32, height=32, num_samples=8, max_bounces=4,
-                       num_working_paths=4096)
+                       num_working_paths=4096, direct_max_tris=0)
     runs = []
     for scene in (full, cut):
         launches, refs = dict(P.LAUNCHES), dict(P.REF_CALLS)
@@ -1125,3 +1131,103 @@ def test_scene_past_the_meta_cap_renders_on_the_kernels(cuda, monkeypatch):
         runs.append((fb, stats))
     assert runs[0][1] == runs[1][1]
     torch.testing.assert_close(runs[1][0], runs[0][0], rtol=1e-4, atol=1e-5)
+
+
+# ------------------------------------------------- the direct pair
+
+def _direct_soup(n_tris, device):
+    """``n_tris`` random triangles in [-1, 1]^3, the last few copies of
+    the first (coincident: ties at equal t)."""
+    rng = np.random.default_rng(n_tris)
+    p0 = rng.uniform(-1, 1, (n_tris, 3))
+    p1 = p0 + rng.uniform(-0.6, 0.6, (n_tris, 3))
+    p2 = p0 + rng.uniform(-0.6, 0.6, (n_tris, 3))
+    k = n_tris // 8
+    for a in (p0, p1, p2):
+        a[n_tris - k:] = a[:k]
+    return Triangles.from_vertices(p0, p1, p2, device)
+
+
+@pytest.mark.parametrize("n_tris", [1, 14, 64, 300])
+def test_direct_kernels_equal_plain_versions(cuda, n_tris):
+    """The direct pair bit for bit against its plain versions on every
+    lane (hit, t, prim, normal, occlusion; dead lanes by the shared
+    contract), with one tile (T <= 64) and several (300); a ragged batch;
+    one launch counted a call; the counts ``(0, active x T)``."""
+    tris = _direct_soup(n_tris, cuda)
+    for n in (4096 + 77, 1):
+        o, d, active, _ = _rays(n, cuda)
+        g = torch.Generator(device=cuda).manual_seed(n_tris)
+        exclude = torch.randint(-1, n_tris, (n,), generator=g, device=cuda,
+                                dtype=torch.int32)
+        tmax = torch.where(torch.arange(n, device=cuda) % 3 == 0, 0.9,
+                           float("inf"))
+        before = dict(D.LAUNCHES)
+        hit, t, prim, nrm, (steps, leafs) = D.direct_closest(
+            tris, o, d, tmax, active, with_stats=True)
+        occ = D.direct_anyhit(tris, o, d, tmax, exclude, active)
+        torch.cuda.synchronize()
+        assert D.LAUNCHES == {k: v + 1 for k, v in before.items()}
+        want = D.direct_closest_ref(tris, o, d, tmax, active)
+        for a, b in zip((hit, t, prim) + nrm, want[:3] + want[3]):
+            assert torch.equal(a, b)
+        assert torch.equal(occ, D.direct_anyhit_ref(tris, o, d, tmax,
+                                                    exclude, active))
+        assert (int(steps), int(leafs)) == (0, int(active.sum()) * n_tris)
+        assert not hit[~active].any() and not occ[~active].any()
+        assert bool((t[~active] == 3.4e38).all())
+        assert bool((prim[~active] == -1).all())
+
+
+def test_direct_kernels_match_the_brute_oracle(cuda):
+    """The direct pair keeps the oracle's triangle, ties included (both
+    keep the first of least t), and its occlusion."""
+    from rtjax_torch.kernels import brute
+    tris = _direct_soup(64, cuda)
+    n = 8192
+    o3, d3, active, _ = _rays(n, cuda)
+    o, d = torch.stack(o3, 1), torch.stack(d3, 1)
+    tmax = torch.full((n,), float("inf"), device=cuda)
+    hit, t, prim, _ = D.direct_closest(tris, o3, d3, tmax, active)
+    bh, bt, _, _, bp, _ = brute.closest_brute(tris, o, d, tmax, active)
+    assert torch.equal(hit, bh) and int(hit.sum()) > 500
+    assert torch.equal(t[hit], bt[hit]) and torch.equal(prim[hit], bp[hit])
+    exclude = torch.where(torch.arange(n, device=cuda) % 2 == 0, bp, -1)
+    assert torch.equal(D.direct_anyhit(tris, o3, d3, tmax, exclude, active),
+                       brute.anyhit_brute(tris, o, d, tmax, exclude, active))
+
+
+def test_direct_kernels_refuse_mixed_devices(cuda):
+    tris = _direct_soup(14, cuda)
+    o, d, active, _ = _rays(64, torch.device("cpu"))
+    with pytest.raises(ValueError, match="triangles on cuda"):
+        D.direct_closest(tris, o, d, torch.ones(64), active)
+
+
+def test_cornell_planes_frame_runs_through_the_direct_kernels(cuda):
+    """Eval config 2's scene (12 triangles) at the default config: the
+    direct pair once an iteration and no walker; under
+    ``direct_max_tris=0`` the persist kernels, the rays traced and the
+    image equal but for ties."""
+    scene, cam = cornell_planes(cuda)
+    cfg = RenderConfig(width=32, height=32, num_samples=8, max_bounces=4,
+                       num_working_paths=4096)
+    runs = []
+    for change in ({}, dict(direct_max_tris=0)):
+        before = dict(D.LAUNCHES), dict(P.LAUNCHES), dict(P.REF_CALLS)
+        fb, st = render_frame(scene, cam, dataclasses.replace(cfg, **change),
+                              torch.Generator(device=cuda).manual_seed(1))
+        its = st["iterations"]
+        direct = {k: D.LAUNCHES[k] - before[0][k] for k in D.LAUNCHES}
+        persist = {k: P.LAUNCHES[k] - before[1][k] for k in P.LAUNCHES}
+        assert P.REF_CALLS == before[2]
+        on = not change
+        assert direct == {k: its if on else 0 for k in direct}
+        assert persist == {k: 0 if on else its for k in persist}
+        assert bool(torch.isfinite(fb).all()) and bool((fb >= 0).all())
+        runs.append((fb, st))
+    # the same hits but at ties of equal t (a quad's diagonal), where the
+    # walks may keep the other triangle of the quad
+    (fb0, st0), (fb1, st1) = runs
+    assert abs(st1["rays_traced"] / st0["rays_traced"] - 1) < 1e-3
+    assert float((fb1 - fb0).abs().mean()) < 1e-3 * float(fb0.mean())

@@ -22,7 +22,8 @@ MODULES = [
     "rtjax_torch.kernels._build", "rtjax_torch.kernels.persist",
     "rtjax_torch.kernels.wide_inst", "rtjax_torch.kernels.wide",
     "rtjax_torch.kernels.lane", "rtjax_torch.kernels.brute",
-    "rtjax_torch.kernels.traversal", "rtjax_torch.render",
+    "rtjax_torch.kernels.traversal", "rtjax_torch.kernels.direct",
+    "rtjax_torch.render",
     "rtjax_torch.render.trace",
     "rtjax_torch.render.sorting", "rtjax_torch.render.wavefront",
     "rtjax_torch.render.film", "rtjax_torch.render.checkpoint",
@@ -53,6 +54,7 @@ def test_port_never_imports_jax():
 
 
 @pytest.mark.parametrize("module", ["rtjax_torch.kernels.brute",
+                                    "rtjax_torch.kernels.direct",
                                     "rtjax_torch.accel",
                                     "rtjax_torch.render"])
 def test_host_surface_imports_no_jax(module):
@@ -171,3 +173,16 @@ def test_kernel_libraries_rebuild_when_the_shared_header_changes(
         assert build().stat().st_mtime == future   # fresh: not rebuilt
         os.utime(h, (future + 100, future + 100))
         assert build().stat().st_mtime != future   # header newer: rebuilt
+
+
+def test_direct_build_without_nvcc_raises(tmp_path):
+    env = dict(os.environ, CUDA_HOME=str(tmp_path),
+               PATH=os.pathsep.join(["/usr/bin", "/bin"]))
+    code = ("from rtjax_torch.kernels import _build\n"
+            "try:\n"
+            "    _build.direct_library()\n"
+            "except RuntimeError as e:\n"
+            "    print('raised:', e)\n")
+    res = _run(code, env)
+    assert res.returncode == 0 and "raised: nvcc not found" in res.stdout, \
+        res.stdout + res.stderr

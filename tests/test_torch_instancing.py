@@ -366,7 +366,7 @@ def test_trace_matches_rtjax_loop(traced, strategy):
     from rtjax_torch.kernels import traversal as T
     tr = traced
     cfg = RenderConfig(traversal="xla") if strategy == "xla" \
-        else RenderConfig(two_level=strategy)
+        else RenderConfig(two_level=strategy, direct_max_tris=0)
     refs = dict(WI.REF_CALLS), dict(P.REF_CALLS), dict(T.REF_CALLS)
     hit, t, prim, src, nrm = (
         a if isinstance(a, tuple) else a.numpy()

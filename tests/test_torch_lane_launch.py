@@ -98,7 +98,9 @@ class _Spy:
 
 def _trace(tables, cfg):
     o, d, tmax, act = _hand_rays(range(len(HAND_RAYS)))
-    sc = types.SimpleNamespace(instances=None, tables=tables)
+    # the hand-built scene's four triangles, above cfg.direct_max_tris
+    sc = types.SimpleNamespace(instances=None, tables=tables,
+                               tris=types.SimpleNamespace(num=4))
     return trace.trace_closest(sc, cfg, o, d, tmax, act)
 
 
@@ -112,7 +114,7 @@ def test_lane_walker_past_its_depth_warns_once_and_takes_packet(
     deep = dataclasses.replace(base, depth=8226)
     assert L.fits(base) and not L.fits(deep)
     spy = _Spy(monkeypatch)
-    cfg = RenderConfig(walker="lane")
+    cfg = RenderConfig(walker="lane", direct_max_tris=0)
     with warnings.catch_warnings(record=True) as seen:
         warnings.simplefilter("default")
         want = _trace(base, cfg)

@@ -110,7 +110,9 @@ def test_modes_match_rtjax_state_for_state(scenes, mode):
     kw = dict(width=W, height=H, num_samples=8, max_bounces=4,
               num_working_paths=POOL, **change)
     jcfg = JaxConfig(traversal="pallas", sort_every=0, **kw)
-    cfg = RenderConfig(**kw)
+    # detailed_stats holds the walk's counts: the port walks its tables
+    cfg = RenderConfig(**kw, **({"direct_max_tris": 0}
+                                if kw.get("detailed_stats") else {}))
     stats = cfg.detailed_stats
     key = jax.random.key(1)
     jc = (jax_wf.make_initial_state(POOL),
@@ -195,7 +197,8 @@ def test_one_sample_mis_traces_n_shadow_rays(scenes):
     for osm in (False, True):
         sizes.clear()
         cfg = RenderConfig(width=16, height=16, num_samples=2, max_bounces=2,
-                           num_working_paths=1024, one_sample_mis=osm)
+                           num_working_paths=1024, one_sample_mis=osm,
+                           direct_max_tris=0)
         trace.persist_traverse_anyhit = spy
         try:
             wf.render_frame(scene, cam, cfg, torch.Generator().manual_seed(1))
@@ -316,7 +319,8 @@ def test_detailed_stats_counters():
     without changing the image."""
     scene, cam = _plane_scene()
     cfg = RenderConfig(width=16, height=16, num_samples=8, max_bounces=4,
-                       num_working_paths=1024, detailed_stats=True)
+                       num_working_paths=1024, detailed_stats=True,
+                       direct_max_tris=0)
     fb, st = _frame(scene, cam, cfg, 1)
     hist = st["bounce_histogram"].numpy()
     assert hist.shape == (cfg.max_bounces + 1,)
@@ -489,7 +493,7 @@ def test_repass_stats_sum_every_pass():
     sum of the base launch's and every pass's."""
     from test_torch_wavefront import _instanced_scene
     scene = _instanced_scene()
-    cfg = RenderConfig(detailed_stats=True)
+    cfg = RenderConfig(detailed_stats=True, direct_max_tris=0)
     g = np.random.default_rng(5)
     n = 256
     o = (torch.tensor(g.uniform(0.1, 0.9, n).astype(np.float32)),
@@ -530,7 +534,8 @@ def test_repass_stats_sum_every_pass():
     assert int(st[1]) == sum(int(c[1]) for c in closest_calls)
     assert int(ast[0]) == sum(int(c[0]) for c in seen)
     assert int(ast[1]) == sum(int(c[1]) for c in seen)
-    plain = trace.trace_closest(scene, RenderConfig(), o, d, inf, active)
+    plain = trace.trace_closest(scene, RenderConfig(direct_max_tris=0), o, d,
+                                inf, active)
     for a, b in zip(plain, res):
         for x, y in zip(a if isinstance(a, tuple) else (a,),
                         b if isinstance(b, tuple) else (b,)):

@@ -264,7 +264,10 @@ class _Spy:
 
 
 def _single_level(ours):
-    return types.SimpleNamespace(instances=None, tables=ours)
+    """A single-level scene of the tables: the soup's 300 triangles, above
+    ``direct_max_tris``."""
+    return types.SimpleNamespace(instances=None, tables=ours,
+                                 tris=types.SimpleNamespace(num=300))
 
 
 def _trace_both(sc, cfg, n=300, seed=13):
@@ -351,7 +354,7 @@ def test_repass_follows_the_walker(monkeypatch):
     for walker in ("packet", "auto"):
         spy = _Spy(monkeypatch)
         cfg = RenderConfig(two_level="repass", walker=walker,
-                           anyhit_walker=walker)
+                           anyhit_walker=walker, direct_max_tris=0)
         hit, t, prim, src, _ = trace.trace_closest(
             scene, cfg, _v3(o), _v3(d), torch.full((n,), float("inf")),
             torch.tensor(active))
@@ -388,7 +391,7 @@ def test_step_matches_rtjax_state_for_state_packet():
               anyhit_walker="packet")
     jcfg = JaxConfig(traversal="pallas", sort_every=0, direct_max_tris=0,
                      **kw)
-    cfg = RenderConfig(**kw)
+    cfg = RenderConfig(direct_max_tris=0, **kw)
     key = jax.random.key(2)
     jc = (jax_wf.make_initial_state(pool),
           jnp.zeros((cfg.num_pixels, 3), jnp.float32), jnp.int32(0),

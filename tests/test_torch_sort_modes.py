@@ -254,9 +254,12 @@ def test_step_matches_rtjax_state_for_state(pair, monkeypatch, mode):
               num_working_paths=POOL, **change)
     jkw = dict(kw, traversal=change.get("traversal", "pallas"))
     refs = dict(T.REF_CALLS), dict(P.REF_CALLS)
+    # the port walks the tables (its direct path off), rtjax takes its
+    # direct loop: the persist walk is held to rtjax's hits
     cams, _ = _compare_steps(jscene, jcam, scene, cam,
                              JaxConfig(sort_every=0, **jkw),
-                             RenderConfig(**kw), jscene.tris)
+                             RenderConfig(direct_max_tris=0, **kw),
+                             jscene.tris)
     binary = T.REF_CALLS["closest"] - refs[0]["closest"]
     persist = P.REF_CALLS["closest"] - refs[1]["closest"]
     assert (binary, persist) == ((3, 0) if "xla" in mode else (0, 3))
@@ -377,7 +380,7 @@ def test_blas_without_wide_tables_takes_the_binary_walk():
     assert all(b.tables is None for b in scene.blas)
     tr = _loop_reference(jscene, scene, "grid64")
     calls = dict(T.REF_CALLS), dict(P.REF_CALLS)
-    _trace_both(tr, scene, RenderConfig())
+    _trace_both(tr, scene, RenderConfig(direct_max_tris=0))
     assert T.REF_CALLS["closest"] - calls[0]["closest"] == 64
     assert P.REF_CALLS["closest"] - calls[1]["closest"] == 1
 

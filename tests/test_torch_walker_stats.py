@@ -11,7 +11,8 @@ packet, lane and two-level walks reproduce (tests/test_torch_packet.py
 holds the packet walk to rtjax's interpret-mode packet kernels state for
 state; rtjax's packet, lane and two-level kernels in interpret mode take
 10-30 s a step here).  The port steps under ``walker="packet"``,
-``walker="lane"``, ``anyhit_walker="packet"`` and ``two_level="kernel"``.
+``walker="lane"``, ``anyhit_walker="packet"`` and ``two_level="kernel"``,
+its own direct path off (``direct_max_tris=0``), so that its walkers run.
 The bounce histogram, ``rays_traced``, ``hit`` and ``bounces`` equal
 rtjax's exactly; the node and leaf counts (rtjax's count TPU walk rounds)
 equal the ``new_work()`` counts of the plain walks of every launch,
@@ -188,7 +189,8 @@ def single():
 def test_walker_stats_match_rtjax(single, monkeypatch, walkers, used):
     scene, cam, kw, steps = single
     rec = _Recount(monkeypatch)
-    cfg = RenderConfig(detailed_stats=True, **walkers, **kw)
+    cfg = RenderConfig(detailed_stats=True, direct_max_tris=0, **walkers,
+                       **kw)
     _check_steps(scene, cam, cfg, steps, rec)
     assert rec.used == used
 
@@ -217,7 +219,8 @@ def test_repass_stats_sum_every_pass_under_the_packet_walker(monkeypatch):
     every pass's."""
     scene = _port_scene("field17")
     cfg = RenderConfig(detailed_stats=True, two_level="repass",
-                       walker="packet", anyhit_walker="packet")
+                       walker="packet", anyhit_walker="packet",
+                       direct_max_tris=0)
     g = np.random.default_rng(5)
     n = 512
     o = (torch.tensor(g.uniform(-1.5, 1.5, n).astype(np.float32)),
@@ -266,7 +269,7 @@ def test_default_path_passes_no_stats_keyword(single, monkeypatch):
     for name in ("wide_traverse_closest", "wide_traverse_anyhit"):
         monkeypatch.setattr(trace, name, plain_args(getattr(trace, name)))
     cfg = RenderConfig(walker="packet", anyhit_walker="packet",
-                       **dict(kw, num_samples=1))
+                       direct_max_tris=0, **dict(kw, num_samples=1))
     fb, _ = wf.render_frame(scene, cam, cfg, torch.Generator().manual_seed(1))
     assert bool(torch.isfinite(fb).all())
     assert set(seen) == {"wide_traverse_closest", "wide_traverse_anyhit"}

@@ -233,7 +233,7 @@ def test_out_of_slice_configs_raise(pair, change, item):
         scene = _instanced_scene()
         assert scene.instances is not None
     cfg = RenderConfig(width=8, height=8, num_samples=1, max_bounces=1,
-                       num_working_paths=256, **change)
+                       num_working_paths=256, direct_max_tris=0, **change)
     fb, stats = wf.render_frame(scene, cam, cfg, torch.Generator())
     assert bool(torch.isfinite(fb).all()) and bool((fb >= 0).all())
     assert int(stats["bounce_histogram"].sum()) > 0
