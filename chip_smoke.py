@@ -216,6 +216,20 @@ the script exits non-zero):
    within 2x their seed-to-seed MSE plus the 8-bit term; the CLI's
    cornell_bunny_glass at 256^2 @ 64 spp against
    artifacts/cornell_bunny_glass_256_64spp.ppm, printed, not gated;
+13. the device-resident frame loop (run after phase 12, before phase 7's
+   profiles): on the headline, eval configs 2 and 3 and config 4 under
+   two_level="kernel", with the graph cache cleared, a frame that
+   captures the step (its seconds and the graph pool's bytes) and an
+   eager one, then graph and eager frames alternated (seeds 2, 2, 3, 3,
+   4, 4), launch counts from zero around each and their synchronising
+   calls counted by torch.cuda's sync debug mode: each pair of one seed
+   equal in iterations, rays, occupancy and launches, the framebuffers
+   within FB_RTOL, a graph frame's reads at most ceil(iterations /
+   STEPS_PER_READ) + 2, each graph frame at its phase's image gate; config
+   4 under repass uncaptured; the STEPS_PER_READ A/B over SPR_CHOICES on
+   the headline and config 2; the device-busy share of a graph and an
+   eager frame of each cell, profiled in a process of its own
+   (``--busy-job``);
 7. the two persist kernels' device time over one whole headline frame,
    the two packet kernels' over one walker="packet" headline frame, the
    lane closest-hit kernel's over one walker="lane" headline frame (its
@@ -226,7 +240,14 @@ the script exits non-zero):
    new, first (render/trace.py's names rebound to the first design for its
    frames).
 
-A ``[time]`` line after each phase gives the seconds since the start.
+A ``[time]`` line after each phase gives the seconds since the start,
+and a ``[frame]`` line after every frame says whether it replayed the
+captured step (``stats["graphed"]``).  Frames replay the captured step
+where their mode allows it; the frames whose kernel names in
+render/trace.py are rebound to keep or check single launches (phases
+4, 6(b), 7, 8(b), 11(d) and 12(c)-(d)) run the eager loop through
+:func:`_drive_eager` / :func:`_render_eager`, since a replayed graph calls
+no Python per launch.
 
 A kernel's bound is the least time the card could take for its work:
 the larger of the bytes it must move (every ray's active flag and results,
@@ -946,7 +967,9 @@ def phase4_main_path(scene, camera, card):
             captured, restore = _capture_launch(CAPTURE_AT)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        fb, stats = render_frame(scene, camera, cfg, gen)
+        # the warm-up keeps launch CAPTURE_AT: the eager loop
+        fb, stats = _render_eager(scene, camera, cfg, gen) if seed == 1 \
+            else render_frame(scene, camera, cfg, gen)
         torch.cuda.synchronize()
         runs.append((time.perf_counter() - t0, fb, stats))
         if seed == 1:
@@ -1113,16 +1136,23 @@ def _inst_kind(key):
 def _frame_kernel_ms(scene, camera, cfg, seed, rebind, kind_of):
     """Device time and launches of one frame's traversal kernels
     (torch.profiler, CUDA activity): ``{"closest": [ms, launches],
-    "anyhit": [...], "iterations": n}``, the kernels picked by ``kind_of``
+    "anyhit": [...], "iterations": n, "steps": m}``, ``steps`` the frame
+    loop's steps (the iterations rounded up to whole chunks of
+    ``STEPS_PER_READ``: the steps past the end of the last chunk launch
+    on an empty pool, and LAUNCHES does not count them, the profiler
+    does), the kernels picked by ``kind_of``
     (a kernel name -> "closest", "anyhit" or None).  ``rebind`` maps
     render/trace.py names to the functions the engine calls for this frame
     (the stride design's); they are put back after it.  The profile's raw
     device events are summed: ``key_averages()`` first builds every
     event's tree, which took most of the phase's time."""
+    import math
+
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from rtjax_torch.render import trace
+    from rtjax_torch.render import wavefront as WF
     from rtjax_torch.render.wavefront import render_frame
     saved = {k: getattr(trace, k) for k in rebind}
     for k, fn in rebind.items():
@@ -1132,13 +1162,15 @@ def _frame_kernel_ms(scene, camera, cfg, seed, rebind, kind_of):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            _, stats = render_frame(scene, camera, cfg, gen)
+            # the eager loop: ``rebind`` is looked up at every launch
+            _, stats = render_frame(scene, camera, cfg, gen, graph=False)
             torch.cuda.synchronize()
     finally:
         for k, fn in saved.items():
             setattr(trace, k, fn)
-    out = {"closest": [0.0, 0], "anyhit": [0.0, 0],
-           "iterations": stats["iterations"]}
+    its, chunk = stats["iterations"], WF.STEPS_PER_READ
+    out = {"closest": [0.0, 0], "anyhit": [0.0, 0], "iterations": its,
+           "steps": math.ceil(its / chunk) * chunk}
     for e in prof.profiler.kineto_results.events():
         kind = kind_of(e.name()) if e.device_type() == DeviceType.CUDA \
             else None
@@ -1166,8 +1198,9 @@ def phase7_frames(scene, camera, card, c4_scene, c4_camera):
     lane; its any hit is the persist kernel's, timed beside it), then the
     two two-level kernels over a config-4 ``two_level="kernel"`` frame
     (stride, fetch).  Returns ``{"persist": {kind: {design: [ms, ms]}},
-    "packet": ..., "lane": ..., "two_level": ...}``.  A frame whose profile holds fewer launches
-    of either kernel than the frame's iterations is profiled again, once;
+    "packet": ..., "lane": ..., "two_level": ...}``.  A frame whose
+    profile holds another number of launches of either kernel than the
+    frame loop's steps (:func:`_frame_kernel_ms`) is profiled again, once;
     then the phase fails.  Last, because torch.profiler recorded no kernel
     rows in later profiles once it had traced whole frames."""
     import dataclasses
@@ -1217,8 +1250,9 @@ def phase7_frames(scene, camera, card, c4_scene, c4_camera):
                       f"{k['anyhit'][0]:.3f} ms in {k['anyhit'][1]} "
                       f"launches, together "
                       f"{k['closest'][0] + k['anyhit'][0]:.3f} ms; "
-                      f"{k['iterations']} iterations")
-                if k["closest"][1] == k["anyhit"][1] == k["iterations"]:
+                      f"{k['iterations']} iterations in {k['steps']} "
+                      f"steps")
+                if k["closest"][1] == k["anyhit"][1] == k["steps"]:
                     break
                 if attempt == 2:
                     raise RuntimeError(f"the profiler recorded fewer "
@@ -1257,9 +1291,9 @@ def phase4_walkers(scene, camera, card, floor):
             captured[walker], restore = _capture_launch(CAPTURE_AT,
                                                         WALKER_NAMES[walker])
         try:
-            runs, c = _drive(scene, camera,
-                             dataclasses.replace(cfg, **WALKERS[walker]),
-                             (seed,))
+            runs, c = (_drive_eager if capture else _drive)(
+                scene, camera, dataclasses.replace(cfg, **WALKERS[walker]),
+                (seed,))
         finally:
             if capture:
                 restore()
@@ -1635,10 +1669,12 @@ def _read_counts():
     return counts
 
 
-def _drive(scene, camera, cfg, seeds):
+def _drive(scene, camera, cfg, seeds, graph=True):
     """Render one frame per seed with every launch count read from zero:
     ``([(seconds, framebuffer, stats), ...], counts)``; counts hold each
-    kernel set's launches and ``plain``, the plain-version calls."""
+    kernel set's launches and ``plain``, the plain-version calls.  The
+    frames replay the captured step where the mode allows it
+    (``graph=False``: :func:`_drive_eager`)."""
     import torch
     from rtjax_torch.render.wavefront import render_frame
     _zero_counts()
@@ -1647,13 +1683,28 @@ def _drive(scene, camera, cfg, seeds):
         gen = torch.Generator(device="cuda").manual_seed(seed)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        fb, stats = render_frame(scene, camera, cfg, gen)
+        fb, stats = render_frame(scene, camera, cfg, gen, graph=graph)
         torch.cuda.synchronize()
         runs.append((time.perf_counter() - t0, fb, stats))
         if not bool(torch.isfinite(fb).all()) or bool((fb < 0).any()):
             raise RuntimeError("framebuffer has non-finite or negative "
                                "values")
     return runs, _read_counts()
+
+
+def _drive_eager(scene, camera, cfg, seeds):
+    """:func:`_drive` through the eager frame loop (``graph=False``): the
+    frames whose kernel names in render/trace.py are rebound to keep or
+    check single launches (``_capture_launch``, ``_direct_in_frame``,
+    phase 8(b)'s count), which a replayed CUDA graph never calls."""
+    return _drive(scene, camera, cfg, seeds, graph=False)
+
+
+def _render_eager(scene, camera, cfg, gen):
+    """``render_frame`` through the eager frame loop, for a frame whose
+    kernel names are rebound (see :func:`_drive_eager`)."""
+    from rtjax_torch.render.wavefront import render_frame
+    return render_frame(scene, camera, cfg, gen, graph=False)
 
 
 def _only(counts, kernel_set, also=()):
@@ -1704,8 +1755,8 @@ def phase6_config4(scene, baked, camera, card):
 
     captured, restore = _capture_launch(C4_CAPTURE_AT, INST_NAMES)
     try:
-        b_runs, b = _drive(scene, camera,
-                           dataclasses.replace(cfg, two_level="kernel"), (2,))
+        b_runs, b = _drive_eager(
+            scene, camera, dataclasses.replace(cfg, two_level="kernel"), (2,))
     finally:
         restore()
     report("b: two_level=kernel, seed 2", b_runs, b)
@@ -2014,7 +2065,7 @@ def phase8_stats(scene, camera, card, floor):
 
     trace.persist_traverse_closest = count
     try:
-        runs, c = _drive(scene, camera, cfg, (2,))
+        runs, c = _drive_eager(scene, camera, cfg, (2,))
     finally:
         trace.persist_traverse_closest = inner
         restore()
@@ -2874,7 +2925,8 @@ def _rank_job(job, rank, world, coord, out):
     mesh = make_mesh(dev)
     scene, camera = cornell_bunny(device=dev)
     local = []
-    orig = wavefront.render_frame_linear
+    orig = wavefront.render_frame_linear = _frame_log(
+        wavefront.render_frame_linear)
 
     def keep(*args, **kw):
         fb, st = orig(*args, **kw)
@@ -3332,7 +3384,9 @@ def _big_frames(label, scene, camera, card, xla):
         gen = torch.Generator(device="cuda").manual_seed(seed)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        fb, st = render_frame(scene, camera, cfg, gen)
+        # the seed-1 frame keeps launch BIG_CAPTURE_AT: the eager loop
+        fb, st = _render_eager(scene, camera, cfg, gen) if seed == 1 \
+            else render_frame(scene, camera, cfg, gen)
         torch.cuda.synchronize()
         runs.append((time.perf_counter() - t0, fb, st))
         if seed == 1:
@@ -3787,8 +3841,9 @@ def phase12_direct(card):
             shadow, restore_a = _capture_launch(
                 2, {"anyhit": DIRECT_NAMES["anyhit"]})
         try:
-            runs, c = _drive(scene, camera, cfg if arm == "direct" else off,
-                             (seed,))
+            # the first frame keeps two launches: the eager loop
+            runs, c = (_drive if frames else _drive_eager)(
+                scene, camera, cfg if arm == "direct" else off, (seed,))
         finally:
             if not frames:
                 restore_c()
@@ -3870,8 +3925,9 @@ def phase12_direct(card):
     # persist kernel on its rays; counts exactly rtjax's direct loop's
     tally, restore = _direct_in_frame(scene.tables)
     try:
-        runs, c = _drive(scene, camera,
-                         dataclasses.replace(cfg, detailed_stats=True), (2,))
+        runs, c = _drive_eager(scene, camera,
+                               dataclasses.replace(cfg, detailed_stats=True),
+                               (2,))
     finally:
         restore()
     _, _, st = runs[0]
@@ -3989,6 +4045,296 @@ def _direct_rows(d12, c4_launches):
     return rows
 
 
+# ---------------------------------------------------------------- phase 13
+
+# each cell's timed frames, alternated: (path, seed)
+GRAPH_ORDER = (("graph", 2), ("eager", 2), ("eager", 3), ("graph", 3),
+               ("graph", 4), ("eager", 4))
+SPR_CHOICES = (1, 4, 8, 16)      # the STEPS_PER_READ A/B
+FB_RTOL, FB_ATOL = 1e-5, 1e-7    # graph vs eager framebuffers, one seed
+BUSY_TIMEOUT = 600
+
+
+def _frame_log(render_frame_linear):
+    """Wrap ``wavefront.render_frame_linear`` so that every frame prints
+    one ``[frame]`` line: whether it replayed the captured graph, its
+    iterations, its blocking reads and the seconds it spent capturing."""
+    def logged(scene, camera, cfg, *args, **kw):
+        fb, st = render_frame_linear(scene, camera, cfg, *args, **kw)
+        print(f"[frame] {cfg.width}x{cfg.height} @ {cfg.num_samples} spp: "
+              f"graphed {st['graphed']}, {st['iterations']} iterations, "
+              f"{st['host_reads']} host reads"
+              + (f", capture {st['capture_s']:.3f} s" if st["graphed"]
+                 else ""))
+        return fb, st
+    return logged
+
+
+def _counted_reads(fn):
+    """``(fn(), reads)``: the synchronising device calls ``fn`` made (the
+    blocking device-to-host reads among them), counted by torch.cuda's
+    sync debug mode, which warns on each."""
+    import warnings
+
+    import torch
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, sum("synchroniz" in str(w.message).lower() for w in seen)
+
+
+def _graph_cells(scene, camera, c4_scene, c4_camera):
+    """Phase 13's cells: ``{name: (scene, camera, cfg, size)}``, the
+    headline, eval configs 2 and 3, and config 4 under
+    ``two_level="kernel"`` (arm (b))."""
+    from rtjax_torch import RenderConfig
+    from rtjax_torch.scenes import cornell_bunny, cornell_planes
+    planes, planes_cam = cornell_planes("cuda")
+    c3, c3_cam = cornell_bunny("cuda", bunny_material="glass",
+                               floor="mirror")
+    return {
+        "headline": (scene, camera, _headline_cfg(), WIDTH),
+        "config2": (planes, planes_cam, RenderConfig(
+            width=C2_SIZE, height=C2_SIZE, num_samples=C2_SPP,
+            max_bounces=C2_BOUNCES), C2_SIZE),
+        "config3": (c3, c3_cam, RenderConfig(
+            width=WIDTH, height=HEIGHT, num_samples=C3_SPP,
+            max_bounces=C3_BOUNCES), WIDTH),
+        "config4b": (c4_scene, c4_camera, RenderConfig(
+            width=WIDTH, height=HEIGHT, num_samples=C4_SPP,
+            max_bounces=C4_BOUNCES, two_level="kernel"), WIDTH)}
+
+
+def _graph_frame(sc, cam, cfg, seed, path):
+    """One frame through ``path`` ("graph" or "eager"), launch counts from
+    zero: ``(seconds, framebuffer, stats, reads, counts)``."""
+    import torch
+    from rtjax_torch.render.wavefront import render_frame
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    _zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    (fb, st), reads = _counted_reads(lambda: render_frame(
+        sc, cam, cfg, gen, graph=path == "graph"))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    if not bool(torch.isfinite(fb).all()) or bool((fb < 0).any()):
+        raise RuntimeError("framebuffer has non-finite or negative values")
+    return secs, fb, st, reads, _read_counts()
+
+
+def _busy_job(out):
+    """Phase 13's device-busy shares, in a process of its own (``python3
+    chip_smoke.py --busy-job OUT``; torch.profiler in a long process had
+    dropped kernel records, phase 7): for each cell, a warm-up frame
+    through each path (seed 1), then one graph and one eager frame (seed
+    5) under torch.profiler with CUDA activity alone, each with its wall
+    time and the summed duration of its device events (kernels, copies,
+    fills); saved to ``out``."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from rtjax_torch.render.wavefront import render_frame
+    from rtjax_torch.scenes import cornell_bunny, instanced_bunnies
+    scene, camera = cornell_bunny(device="cuda")
+    c4, c4_cam = instanced_bunnies("cuda")
+    res = {}
+    for name, (sc, cam, cfg, _) in _graph_cells(scene, camera, c4,
+                                                c4_cam).items():
+        res[name] = {}
+        for path in ("graph", "eager"):
+            render_frame(sc, cam, cfg, torch.Generator(
+                device="cuda").manual_seed(1), graph=path == "graph")
+        for path in ("graph", "eager"):
+            gen = torch.Generator(device="cuda").manual_seed(5)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                _, st = render_frame(sc, cam, cfg, gen,
+                                     graph=path == "graph")
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            ev = [e for e in prof.profiler.kineto_results.events()
+                  if e.device_type() == DeviceType.CUDA]
+            res[name][path] = dict(
+                wall=wall, device_ms=sum(e.duration_ns() for e in ev) / 1e6,
+                events=len(ev), iterations=st["iterations"],
+                graphed=st["graphed"])
+            print(f"[graph busy {name} {path}] {wall:.3f} s, device "
+                  f"{res[name][path]['device_ms']:.3f} ms in {len(ev)} "
+                  f"events, {st['iterations']} iterations")
+    torch.save(res, out)
+
+
+def _run_busy_job():
+    """Run :func:`_busy_job` in a subprocess and return its results."""
+    import torch
+    from rtjax_torch.kernels import _build
+    out = _build.BUILD_DIR / "graph_busy.pt"
+    if out.exists():
+        out.unlink()
+    p = subprocess.run([sys.executable, os.path.abspath(__file__),
+                        "--busy-job", str(out)], cwd=ROOT,
+                       stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                       text=True, timeout=BUSY_TIMEOUT)
+    for line in p.stdout.splitlines():
+        if line.startswith("[") or "Error" in line:
+            print(f"  busy job: {line}")
+    if p.returncode != 0:
+        raise RuntimeError(f"the busy job exited with {p.returncode}:\n"
+                           f"{p.stdout[-4000:]}")
+    return torch.load(out)
+
+
+def phase13_graph(scene, camera, card, floor, c4_scene, c4_camera,
+                  c4_floor):
+    """The device-resident frame loop: for each cell (:func:`_graph_cells`)
+    the graph cache is cleared, a graph frame (seed 1; the capture: its
+    seconds and the graph pool's bytes) and an eager one run, then graph
+    and eager frames alternate (GRAPH_ORDER), each with its launch counts
+    from zero and its synchronising calls counted (:func:`_counted_reads`).
+    Gates: every graph frame graphed, every eager one not; the pair of a
+    seed equal in iterations, rays and occupancy, its framebuffers within
+    FB_RTOL / FB_ATOL and its launch counts equal; a graph frame's reads
+    at most ceil(iterations / STEPS_PER_READ) + 2; each graph frame at its
+    phase's image gate (the headline phase 4's against the artifact,
+    configs 2 and 3 within 2x the eager frames' seed-to-seed MSE plus the
+    8-bit term, config 4 (b) phase 6's 0.1x of repass's seed-to-seed MSE
+    against the seed-2 repass frame).  Config 4 (a), repass, must render
+    uncaptured.  Then the STEPS_PER_READ A/B (SPR_CHOICES, forward and
+    back, seed 2) on the headline and config 2, and the device-busy
+    shares from :func:`_run_busy_job`."""
+    import math
+    import statistics
+
+    import numpy as np
+    import torch
+    from rtjax_torch import RenderConfig
+    from rtjax_torch.render import graph as G
+    from rtjax_torch.render import wavefront as WF
+    quant = 2.0 * (1.0 / 255.0) ** 2 / 12.0
+    out = {}
+    for name, (sc, cam, cfg, size) in _graph_cells(
+            scene, camera, c4_scene, c4_camera).items():
+        G.clear_graphs()
+        warm = {path: _graph_frame(sc, cam, cfg, 1, path)
+                for path in ("graph", "eager")}
+        st_c = warm["graph"][2]
+        if not st_c["graphed"] or st_c["capture_s"] <= 0:
+            raise RuntimeError(f"{name}: the first graph frame did not "
+                               "capture the step")
+        frames = {}
+        for path, seed in GRAPH_ORDER:
+            frames[path, seed] = _graph_frame(sc, cam, cfg, seed, path)
+        imgs = {k: _square_u8(f[1], size) for k, f in frames.items()}
+        seed_mse = float(np.mean((imgs["eager", 2] - imgs["eager", 3])
+                                 ** 2))
+        rec = dict(capture_s=st_c["capture_s"],
+                   pool_bytes=st_c["graph_pool_bytes"],
+                   secs={p: [f[0] for (q, _), f in frames.items() if q == p]
+                         for p in ("graph", "eager")},
+                   reads={p: [f[3] for (q, _), f in frames.items() if q == p]
+                          for p in ("graph", "eager")},
+                   iterations=frames["graph", 2][2]["iterations"],
+                   rays=frames["graph", 2][2]["rays_traced"],
+                   seed_mse=seed_mse)
+        for seed in (1, 2, 3, 4):
+            g, e = (warm[p] if seed == 1 else frames[p, seed]
+                    for p in ("graph", "eager"))
+            its = g[2]["iterations"]
+            bound = math.ceil(its / WF.STEPS_PER_READ) + 2
+            same = all(g[2][k] == e[2][k] for k in
+                       ("iterations", "rays_traced", "avg_occupancy"))
+            close = torch.allclose(g[1], e[1], rtol=FB_RTOL, atol=FB_ATOL)
+            max_rel = float(((g[1] - e[1]).abs()
+                             / e[1].abs().clamp(min=1e-30)).max())
+            if name == "headline":
+                gate, img_mse = floor["gate"], float(np.mean(
+                    (_square_u8(g[1], size) - floor["ref"]) ** 2))
+            elif name == "config4b":
+                gate, img_mse = 0.1 * c4_floor["seed_mse"], float(np.mean(
+                    (_square_u8(g[1], size) - c4_floor["img_a2"]) ** 2))
+            else:
+                gate, img_mse = 2.0 * seed_mse + quant, float(np.mean(
+                    (_square_u8(g[1], size) - _square_u8(e[1], size))
+                    ** 2))
+            print(f"[graph {name} seed {seed}] {card}: {its} iterations, "
+                  f"{g[2]['rays_traced']:.0f} rays; graph {g[0]:.3f} s "
+                  f"({g[3]} synchronising calls, bound {bound}), eager "
+                  f"{e[0]:.3f} s ({e[3]}); equal iterations, rays, "
+                  f"occupancy {same}; framebuffers within rtol {FB_RTOL} "
+                  f"{close} (largest relative gap {max_rel:.3e}); launches "
+                  f"equal {g[4] == e[4]}; image MSE {img_mse:.3e} (gate "
+                  f"{gate:.3e})")
+            if not g[2]["graphed"] or e[2]["graphed"]:
+                raise RuntimeError(f"{name} seed {seed}: a frame took the "
+                                   "other path")
+            if not same or not close or g[4] != e[4]:
+                raise RuntimeError(f"{name} seed {seed}: the graph and "
+                                   "eager frames differ")
+            if seed > 1 and g[3] > bound:
+                raise RuntimeError(f"{name} seed {seed}: {g[3]} blocking "
+                                   f"reads, more than {bound}")
+            if name == "config4b" and seed != 2:
+                continue
+            if img_mse > gate:
+                raise RuntimeError(f"{name} seed {seed}: the graph frame "
+                                   "differs beyond its gate")
+        print(f"[graph {name}] {card}: capture {rec['capture_s']:.3f} s, "
+              f"graph pool {rec['pool_bytes']} bytes; frame seconds graph "
+              f"{rec['secs']['graph']} vs eager {rec['secs']['eager']}; "
+              f"synchronising calls a frame graph {rec['reads']['graph']}, "
+              f"eager {rec['reads']['eager']}; median ratio eager / graph "
+              f"{statistics.median(rec['secs']['eager']) / statistics.median(rec['secs']['graph']):.3f}")
+        out[name] = rec
+        if name in ("headline", "config2"):
+            ab = {s: [] for s in SPR_CHOICES}
+            saved = WF.STEPS_PER_READ
+            try:
+                for s in (*SPR_CHOICES, *reversed(SPR_CHOICES)):
+                    WF.STEPS_PER_READ = s
+                    f = _graph_frame(sc, cam, cfg, 2, "graph")
+                    if f[2]["iterations"] != rec["iterations"]:
+                        raise RuntimeError(f"{name}: STEPS_PER_READ {s} "
+                                           "changed the iterations")
+                    ab[s].append((f[0], f[3]))
+            finally:
+                WF.STEPS_PER_READ = saved
+            rec["spr"] = {s: [v[0] for v in r] for s, r in ab.items()}
+            print(f"[graph {name} STEPS_PER_READ] {card}: "
+                  + "; ".join(f"{s}: {[round(v[0], 4) for v in r]} s, "
+                              f"{r[0][1]} synchronising calls"
+                              for s, r in ab.items()))
+    G.clear_graphs()
+    a_cfg = RenderConfig(width=WIDTH, height=HEIGHT, num_samples=C4_SPP,
+                         max_bounces=C4_BOUNCES)
+    a = _graph_frame(c4_scene, c4_camera, a_cfg, 2, "graph")
+    print(f"[graph config4a] {card}: repass asked for the graph: graphed "
+          f"{a[2]['graphed']}, {a[0]:.3f} s, {a[3]} synchronising calls")
+    if a[2]["graphed"]:
+        raise RuntimeError("repass rendered through a captured graph")
+    out["config4a"] = dict(secs=a[0], reads=a[3])
+    busy = _run_busy_job()
+    for name, r in busy.items():
+        for path in ("graph", "eager"):
+            b = r[path]
+            med = statistics.median(out[name]["secs"][path])
+            b["share_of_median"] = b["device_ms"] / 1e3 / med
+            print(f"[graph busy {name} {path}] {card}: device "
+                  f"{b['device_ms']:.3f} ms in {b['events']} events over a "
+                  f"profiled {b['wall']:.3f} s frame "
+                  f"({100 * b['device_ms'] / 1e3 / b['wall']:.1f}% busy), "
+                  f"{100 * b['share_of_median']:.1f}% of the unprofiled "
+                  f"median {med:.3f} s; graphed {b['graphed']}")
+        out[name]["busy"] = r
+    G.clear_graphs()
+    return out
+
+
 def main():
     t0 = time.perf_counter()
 
@@ -3997,6 +4343,8 @@ def main():
 
     card = phase0_device()
     import torch
+    from rtjax_torch.render import wavefront
+    wavefront.render_frame_linear = _frame_log(wavefront.render_frame_linear)
     phase1_build()
     stamp("phase 1 (build)")
     scene, camera = phase2_scene()
@@ -4056,6 +4404,9 @@ def main():
     stamp("phase 11 (big-scene tier)")
     d12 = phase12_direct(card)
     stamp("phase 12 (direct path, configs 2 and 3)")
+    g13 = phase13_graph(scene, camera, card, floor, c4_scene, c4_camera,
+                        c4_floor)
+    stamp("phase 13 (the captured frame loop)")
     frames = phase7_frames(scene, camera, card, c4_scene, c4_camera)
     stamp("phase 7 (frame kernels)")
     for rows_, kernels in ((persist, "persist"), (inst, "two_level")):
@@ -4109,7 +4460,15 @@ def main():
           f"{d12['s1']['persist_ms']['closest']:.4f} ms, any hit "
           f"{d12['kernels']['config2']['anyhit']['ms']:.4f} ms vs "
           f"{d12['s1']['persist_ms']['anyhit']:.4f} ms; config 3 "
-          f"{d12['c3']['secs']} s (xla {d12['c3']['xla_secs']:.3f} s)")
+          f"{d12['c3']['secs']} s (xla {d12['c3']['xla_secs']:.3f} s); "
+          "captured step vs eager loop, median frame seconds "
+          + ", ".join(
+              f"{name} {statistics.median(r['secs']['graph']):.3f} vs "
+              f"{statistics.median(r['secs']['eager']):.3f} (capture "
+              f"{r['capture_s']:.3f} s, busy "
+              f"{100 * r['busy']['graph']['share_of_median']:.1f}% vs "
+              f"{100 * r['busy']['eager']['share_of_median']:.1f}%)"
+              for name, r in g13.items() if name != "config4a"))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -4120,5 +4479,7 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--rank-job"]:
         job, rank, world, coord, out = sys.argv[2:7]
         _rank_job(job, int(rank), int(world), coord, out)
+    elif sys.argv[1:2] == ["--busy-job"]:
+        _busy_job(sys.argv[2])
     else:
         main()

@@ -16,9 +16,14 @@ from __future__ import annotations
 import torch
 
 
-def bits_block(generator: torch.Generator, num_words: int, n: int):
+def bits_block(generator: torch.Generator, num_words: int, n: int,
+               out=None):
     """``[num_words, n]`` int64 tensor of uniform 32-bit words, on the
-    generator's device."""
+    generator's device; drawn into ``out`` when given (a captured CUDA
+    graph's input buffer), the same words as without it."""
+    if out is not None:
+        return torch.randint(0, 1 << 32, (num_words, n), generator=generator,
+                             out=out)
     return torch.randint(0, 1 << 32, (num_words, n), generator=generator,
                          dtype=torch.int64, device=generator.device)
 

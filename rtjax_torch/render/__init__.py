@@ -6,6 +6,7 @@ import torch
 from ..config import RenderConfig
 from .checkpoint import render_checkpointed  # noqa: F401
 from .film import read_ppm, to_u8, write_ppm  # noqa: F401
+from .graph import clear_graphs  # noqa: F401
 from .wavefront import (PathState, render_frame, render_frame_linear,  # noqa: F401
                         wavefront_step)
 

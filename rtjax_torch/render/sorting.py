@@ -135,13 +135,14 @@ def sort_pytree_by_key(keys, tree):
     """Reorder every ``[N]`` tensor of a nested tuple by ascending ``keys``:
     one stable sort, then one gather per column.  Equal keys keep their
     slot order (deterministic images)."""
-    order = torch.sort(keys, stable=True).indices
+    return take_pytree(torch.sort(keys, stable=True).indices, tree)
 
-    def take(x):
-        if isinstance(x, tuple):
-            return tuple(take(c) for c in x)
-        return x[order]
-    return take(tree)
+
+def take_pytree(order, tree):
+    """Gather every ``[N]`` tensor of a nested tuple at ``order``."""
+    if isinstance(tree, tuple):
+        return tuple(take_pytree(order, c) for c in tree)
+    return tree[order]
 
 
 def oct_encode_v3(n):

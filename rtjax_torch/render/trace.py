@@ -192,6 +192,21 @@ def _resolve_two_level(cfg) -> str:
     return "repass" if cfg.two_level == "auto" else cfg.two_level
 
 
+def step_has_host_reads(scene, cfg) -> bool:
+    """Whether a wavefront step on ``scene`` under ``cfg`` reads the
+    device from the host, so that no CUDA graph can hold it: repass
+    (``two_level`` or ``two_level_anyhit`` resolving to "repass" on a
+    scene with two-level tables), whose passes each read ``pend.any()``
+    and copy the pass's instance ids to the device.  Every other mode's
+    step is device-only: the single-level walkers and the direct pair, the
+    binary walk, rtjax's per-instance loop (a static loop over the
+    instances), the two-level kernels, every sort mode and estimator."""
+    if scene.instances is None or not _two_level_tables(
+            scene, resolve_mode(scene, cfg)):
+        return False
+    return "repass" in (_resolve_two_level(cfg), _anyhit_two_level(cfg))
+
+
 def _mesh_groups(inst) -> dict:
     """Instance ids by mesh: ``{mesh_id: [k, ...]}``."""
     groups: dict[int, list[int]] = {}

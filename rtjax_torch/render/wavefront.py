@@ -36,10 +36,21 @@ Estimator modes (``RenderConfig``), as in rtjax:
   traversal kernels' node visits and leaf rows (persist kernels only), all
   accumulated on the device.
 
+rtjax runs the whole frame as one jitted ``lax.while_loop`` whose condition
+is computed on the device.  So does this port: the loop condition and the
+``sort_every`` cadence are device values, and ``render_frame_linear`` reads
+the condition back once every ``STEPS_PER_READ`` steps.  On the card each
+step replays one captured CUDA graph (render/graph.py), the counterpart of
+rtjax's ``jit``; on the CPU, and for the modes whose step still reads the
+device (repass's passes: ``trace.step_has_host_reads``), the same chunked
+loop runs op by op.
+
 Differences from rtjax, none of which changes a result:
 
-- ``lax.while_loop`` becomes a Python loop whose condition reads one
-  device value per iteration (``render_frame_linear``).
+- The loop runs in chunks of ``STEPS_PER_READ`` steps; a step after the
+  condition turned false inside a chunk holds ``it`` and ``cam_start`` and
+  adds zeros everywhere else, and its random words and launch counts are
+  taken back after the chunk's read.
 - rtjax windows three stages to the live part of the sorted pool: the
   prefix-windowed shading (``shade_chunks``), the 1/8-chunked camera
   generation and the chunked flush.  Lanes outside the windows compute
@@ -63,6 +74,7 @@ from ..constants import DEAD_BOUNCES, INVALID_INDEX
 from ..core import rng, vec
 from ..core.geometry import intersect_triangle_v3, spawn_offset_ray_v3
 from ..core.sampling import power_heuristic
+from ..kernels import counts
 from ..scene.camera import Camera
 from ..scene.light import gather_light_v3, is_delta, pdf_li_v3, sample_li_v3
 from ..scene.material import get_f_v3, is_specular, sample_f_v3
@@ -72,9 +84,9 @@ from .sorting import (oct_decode_v3, oct_encode_v3,
                       ray_sort_keys_pos10_v3, ray_sort_keys_pos_v3,
                       ray_sort_keys_prim_pos_v3, ray_sort_keys_prim_v3,
                       ray_sort_keys_v3, rgb9e5_decode_v3, rgb9e5_encode_v3,
-                      sort_pytree_by_key)
+                      sort_pytree_by_key, take_pytree)
 from .trace import (check_config, gather_hit_materials_v3, resolve_mode,
-                    trace_anyhit, trace_closest)
+                    step_has_host_reads, trace_anyhit, trace_closest)
 
 # random word ids: each word splits into two 16-bit uniforms
 _W_RR_PICK = 0      # (RR uniform, light pick)
@@ -119,14 +131,24 @@ def make_initial_state(n: int, device) -> PathState:
 
 
 @functools.lru_cache(maxsize=8)
-def _blocked_pixel_order(width: int, height: int, block: int = 16):
+def blocked_pixel_table(width: int, height: int, device,
+                        block: int = 16) -> torch.Tensor:
     """Rank -> pixel index visiting the screen in 16x16 blocks (row-major
-    blocks, row-major within)."""
+    blocks, row-major within), int32 on ``device``.  Made once per size
+    and device: a step reads it without a host-to-device copy, which a
+    captured graph cannot hold."""
     y, x = np.mgrid[0:height, 0:width]
     nbx = (width + block - 1) // block
     key = (((y // block) * nbx + (x // block)) * (block * block)
            + (y % block) * block + (x % block))
-    return np.argsort(key.ravel(), kind="stable").astype(np.int32)
+    return torch.from_numpy(np.argsort(key.ravel(), kind="stable")
+                            .astype(np.int32)).to(device)
+
+
+def _blocked_order(cfg) -> bool:
+    """Whether camera rays visit the screen in 16x16 blocks."""
+    return (cfg.camera_order == "blocked"
+            or (cfg.camera_order == "auto" and cfg.num_samples <= 8))
 
 
 def _compact_bundle_ok(scene, cfg) -> bool:
@@ -280,11 +302,14 @@ def wavefront_step(scene: Scene, camera: Camera, cfg: RenderConfig, words,
     """One wavefront iteration.  ``words`` is the iteration's ``[5, N]``
     block of 32-bit random words (int64); ``carry`` is ``(state, fb,
     cam_start, it, work_left, rays_traced, occ_sum)`` with ``it`` a Python
-    int and the rest tensors on the scene's device, and under
+    int or a 0-d int64 tensor (returned as the same type) and the rest
+    tensors on the scene's device, and under
     ``detailed_stats`` five more: the bounce histogram ``[max_bounces + 1]``
     and the node-step, leaf-visit, any-hit step and any-hit visit sums
     (int64).  The framebuffer ``fb`` is accumulated in place
-    (``index_add_``) rather than copied."""
+    (``index_add_``) rather than copied.  The step reads nothing back to
+    the host (but repass's passes, render/trace.py), so that a CUDA graph
+    can hold it."""
     state, fb, cam_start, it, _, rays_traced, occ_sum, *extra = carry
     n = state.pixel.shape[0]
     dev = state.pixel.device
@@ -338,7 +363,7 @@ def wavefront_step(scene: Scene, camera: Camera, cfg: RenderConfig, words,
     # (and hit) for later re-rolls; it neither shades, traces nor
     # regenerates
     limbo = rr_kill if parity else None
-    do_gen = True
+    do_gen = None   # None: every iteration sorts, generates and flushes
     if not state_sorted:
         # the unsorted engine: every lane keeps its slot
         pixel, ray_o_p, ray_d_p, t_p, normal, prim, src = (
@@ -358,18 +383,19 @@ def wavefront_step(scene: Scene, camera: Camera, cfg: RenderConfig, words,
     else:
         compact = _compact_bundle_ok(scene, cfg)
         k_req = resolve_sort_every(scene, cfg) if compact else 1
+        dirty = ~mat_mask & ((acc[0] != 0.0) | (acc[1] != 0.0)
+                             | (acc[2] != 0.0))
+        order = torch.sort(torch.where(dirty, _DIRTY_KEY, _sort_keys(
+            scene, cfg, state, hp, bounces, mat_mask)), stable=True).indices
         if k_req > 1:
             # sort, gen and flush only every k-th iteration, or when the
-            # live part drops below 3/4 of the pool (one device read)
-            num_mat_pre = int(mat_mask.sum())
-            do_gen = (it % k_req) == 0 or num_mat_pre * 4 < n * 3
-        if do_gen:
-            dirty = ~mat_mask & ((acc[0] != 0.0) | (acc[1] != 0.0)
-                                 | (acc[2] != 0.0))
-            skeys = torch.where(dirty, _DIRTY_KEY, _sort_keys(
-                scene, cfg, state, hp, bounces, mat_mask))
-        sort = lambda bundle: sort_pytree_by_key(skeys, bundle) \
-            if do_gen else bundle
+            # live part drops below 3/4 of the pool.  The decision is a
+            # device bool, as rtjax's lax.cond: both branches are computed
+            # and the sorted or the unsorted permutation is selected.
+            do_gen = (mat_mask.sum() * 4 < n * 3) | ((it % k_req) == 0)
+            order = torch.where(do_gen, order,
+                                torch.arange(n, device=dev))
+        sort = functools.partial(take_pytree, order)
         if compact:
             # packed bundle: pixel | bounces (7 bits, 127 = dead) | mat
             # bit; prim + 1 | src; octahedral normal and direction;
@@ -417,47 +443,44 @@ def wavefront_step(scene: Scene, camera: Camera, cfg: RenderConfig, words,
 
     # ---- camera generation into the dead suffix ---------------------------
     gen_u, gen_v = draw_pair(_W_GEN)
-    if do_gen:
-        num_gen = gen_mask.sum()
-        if parity or not state_sorted:
-            # the dead lanes are not a suffix (unsorted, or limbo lanes
-            # among them): rank by a prefix sum
-            gen_rank = torch.cumsum(gen_mask, 0) - gen_mask.long()
-            cam_id = cam_start + gen_rank
-            got_ray = gen_mask & (cam_id < cam_end)
-        else:
-            # after the sort the continuing lanes are exactly the prefix
-            num_mat = n - num_gen
-            idx = torch.arange(n, dtype=torch.int32, device=dev)
-            gen_rank = torch.clamp(idx - num_mat, min=0)
-            cam_id = cam_start + gen_rank
-            got_ray = (idx >= num_mat) & (cam_id < cam_end)
-        pix_rank = torch.clamp(torch.div(cam_id, cfg.num_samples,
-                                         rounding_mode="floor"),
-                               max=cfg.num_pixels - 1)
-        blocked = (cfg.camera_order == "blocked"
-                   or (cfg.camera_order == "auto" and cfg.num_samples <= 8))
-        if blocked:
-            order = torch.tensor(_blocked_pixel_order(cfg.width,
-                                                      cfg.height), device=dev)
-            pix_new = order[pix_rank.long()]
-        else:
-            pix_new = pix_rank.to(torch.int32)
-        ci = (pix_new % cfg.width).to(torch.float32)
-        cj = torch.div(pix_new, cfg.width, rounding_mode="floor") \
-            .to(torch.float32)
-        cam_o, cam_d = camera.get_rays_v3((ci + gen_u) / cfg.width,
-                                          (cj + gen_v) / cfg.height)
-        # flush the radiance of slots leaving their pixel
-        flush = torch.stack([torch.where(gen_mask, c, 0.0) for c in acc], 1)
-        fb.index_add_(0, pixel.long(), flush)
-        acc = tuple(torch.where(gen_mask, 0.0, c) for c in acc)
+    num_gen = gen_mask.sum()
+    if parity or not state_sorted:
+        # the dead lanes are not a suffix (unsorted, or limbo lanes among
+        # them): rank by a prefix sum
+        gen_rank = torch.cumsum(gen_mask, 0) - gen_mask.long()
+        cam_id = cam_start + gen_rank
+        got_ray = gen_mask & (cam_id < cam_end)
     else:
-        num_gen = torch.zeros((), dtype=torch.int64, device=dev)
-        got_ray = torch.zeros(n, dtype=torch.bool, device=dev)
-        pix_new = torch.zeros(n, dtype=torch.int32, device=dev)
-        zf = torch.zeros(n, dtype=torch.float32, device=dev)
-        cam_o = cam_d = (zf, zf, zf)
+        # after the sort the continuing lanes are exactly the prefix
+        num_mat = n - num_gen
+        idx = torch.arange(n, dtype=torch.int32, device=dev)
+        gen_rank = torch.clamp(idx - num_mat, min=0)
+        cam_id = cam_start + gen_rank
+        got_ray = (idx >= num_mat) & (cam_id < cam_end)
+    # the slots that flush (their radiance leaves with them) and take a
+    # camera ray: none on a sort_every skip iteration, whose dead lanes
+    # idle one iteration
+    flushing = gen_mask
+    if do_gen is not None:
+        got_ray = got_ray & do_gen
+        num_gen = num_gen * do_gen
+        flushing = gen_mask & do_gen
+    pix_rank = torch.clamp(torch.div(cam_id, cfg.num_samples,
+                                     rounding_mode="floor"),
+                           max=cfg.num_pixels - 1)
+    if _blocked_order(cfg):
+        pix_new = blocked_pixel_table(cfg.width, cfg.height,
+                                      dev)[pix_rank.long()]
+    else:
+        pix_new = pix_rank.to(torch.int32)
+    ci = (pix_new % cfg.width).to(torch.float32)
+    cj = torch.div(pix_new, cfg.width, rounding_mode="floor") \
+        .to(torch.float32)
+    cam_o, cam_d = camera.get_rays_v3((ci + gen_u) / cfg.width,
+                                      (cj + gen_v) / cfg.height)
+    flush = torch.stack([torch.where(flushing, c, 0.0) for c in acc], 1)
+    fb.index_add_(0, pixel.long(), flush)
+    acc = tuple(torch.where(flushing, 0.0, c) for c in acc)
 
     # ---- merge continued and regenerated rays ------------------------------
     ray_o = vec.where(mat_mask, sh["next_o"],
@@ -551,51 +574,144 @@ def initial_carry(cfg: RenderConfig, device):
              zero(torch.float64))
     if cfg.detailed_stats:
         carry += (torch.zeros(cfg.max_bounces + 1, dtype=torch.int64,
-                              device=device),) + (zero(torch.int64),) * 4
+                              device=device),) + tuple(
+            zero(torch.int64) for _ in range(4))
     return carry
 
 
+# steps of the frame loop between two blocking reads of its condition;
+# tests patch it (not a RenderConfig field)
+STEPS_PER_READ = 8
+
+
+def _more(carry, cfg):
+    """rtjax's loop condition, a device bool: paths still traced, or
+    camera rays still to generate (``max_iterations`` is the host's)."""
+    return carry[4] | (carry[2] < cfg.total_camera_rays)
+
+
+def frame_step(scene: Scene, camera: Camera, cfg: RenderConfig, words,
+               carry):
+    """One step of the frame loop: :func:`wavefront_step` with ``it`` (a
+    0-d device tensor here) and ``cam_start`` held where the loop condition
+    was already false.  Such a step finds every slot dead and no camera ray
+    left, so it traces nothing and adds zeros: the framebuffer, rays,
+    occupancy and ``detailed_stats`` sums stay bitwise as they were."""
+    more = _more(carry, cfg)
+    out = wavefront_step(scene, camera, cfg, words, carry)
+    return out[:2] + (torch.where(more, out[2], carry[2]),
+                      carry[3] + more) + out[4:]
+
+
+class _EagerSteps:
+    """Steps run op by op: the loop on the CPU, on the card under
+    ``graph=False``, and for the modes whose step reads the device
+    (``trace.step_has_host_reads``)."""
+
+    graphed = False
+
+    def __init__(self, scene, camera, cfg, carry):
+        self._step = functools.partial(frame_step, scene, camera, cfg)
+        self._n = cfg.pool_size
+        self.carry = carry
+
+    def step(self, generator):
+        self.carry = self._step(
+            rng.bits_block(generator, NUM_RNG_WORDS, self._n), self.carry)
+
+
+def _run_chunks(loop, cfg: RenderConfig, generator) -> tuple:
+    """rtjax's ``while_loop`` (wavefront.py:841-850) with the condition on
+    the device: chunks of ``STEPS_PER_READ`` steps, each ended by one
+    blocking read of ``(more, it)``; a chunk never runs past
+    ``cfg.max_iterations``.  Steps after the condition turned false
+    mid-chunk change nothing but the random words they drew and the
+    launches they counted; both are taken back, so the generator and the
+    kernels' counters end as a loop reading every step would leave them.
+    Returns ``(iterations, reads)``."""
+    if STEPS_PER_READ < 1:
+        raise ValueError(f"STEPS_PER_READ must be >= 1, got "
+                         f"{STEPS_PER_READ}")
+    cap = cfg.max_iterations
+    it = reads = 0
+    while cap is None or it < cap:
+        k = STEPS_PER_READ if cap is None else min(STEPS_PER_READ, cap - it)
+        marks = []
+        for _ in range(k):
+            marks.append((generator.get_state(), counts.snapshot()))
+            loop.step(generator)
+        carry = loop.carry
+        more, now = torch.stack((_more(carry, cfg).long(),
+                                 carry[3])).tolist()
+        reads += 1
+        if now - it < k:
+            state, snap = marks[now - it]
+            generator.set_state(state)
+            counts.restore(snap)
+        it = now
+        if not more:
+            break
+    return it, reads
+
+
 def render_frame_linear(scene: Scene, camera: Camera, cfg: RenderConfig,
-                        generator: torch.Generator):
+                        generator: torch.Generator, *, graph: bool = True):
     """Render a frame; returns the LINEAR sample-sum framebuffer ``[H*W, 3]``
-    and stats ``{"iterations", "rays_traced", "avg_occupancy"}``; under
-    ``detailed_stats`` also ``"bounce_histogram"`` (``[max_bounces + 1]``
-    int64 on the CPU: path rays traced per bounce depth), ``"node_steps"``
-    and ``"leaf_visits"`` (the traversal kernels' node visits and leaf rows
-    over the frame, both channels) and ``"anyhit_steps"`` /
-    ``"anyhit_visits"`` (the any-hit launches' share of them)."""
+    and stats ``{"iterations", "rays_traced", "avg_occupancy", "graphed",
+    "host_reads"}``; under ``detailed_stats`` also ``"bounce_histogram"``
+    (``[max_bounces + 1]`` int64 on the CPU: path rays traced per bounce
+    depth), ``"node_steps"`` and ``"leaf_visits"`` (the traversal kernels'
+    node visits and leaf rows over the frame, both channels) and
+    ``"anyhit_steps"`` / ``"anyhit_visits"`` (the any-hit launches' share
+    of them).
+
+    On the card the steps replay a captured CUDA graph (render/graph.py;
+    ``"graphed"`` True, with ``"capture_s"``, the seconds this frame spent
+    capturing, 0 when the graph was cached, and ``"graph_pool_bytes"``),
+    except for the modes whose step reads the device
+    (``trace.step_has_host_reads``) and under ``graph=False``, which run
+    the same loop op by op.  ``"host_reads"`` counts the loop's blocking
+    device reads."""
     check_slice(scene, cfg)
     dev = scene.device
     if generator.device.type != dev.type:
         raise ValueError(f"generator is on {generator.device}, the scene on "
                          f"{dev}")
-    n = cfg.pool_size
     carry = initial_carry(cfg, dev)
-    total = cfg.total_camera_rays
-    while True:
-        cam_start, it, work_left = carry[2], carry[3], carry[4]
-        if cfg.max_iterations is not None and it >= cfg.max_iterations:
-            break
-        # the loop condition: one device -> host read per iteration
-        if not bool(work_left | (cam_start < total)):
-            break
-        words = rng.bits_block(generator, NUM_RNG_WORDS, n)
-        carry = wavefront_step(scene, camera, cfg, words, carry)
-    _, fb, _, it, _, rays, occ, *extra = carry
-    stats = {"iterations": it, "rays_traced": float(rays),
-             "avg_occupancy": float(occ) / max(it, 1)}
+    carry = carry[:3] + (torch.zeros((), dtype=torch.int64,
+                                     device=dev),) + carry[4:]
+    if _blocked_order(cfg):
+        blocked_pixel_table(cfg.width, cfg.height, carry[0].pixel.device)
+    if graph and dev.type == "cuda" and not step_has_host_reads(scene, cfg):
+        from .graph import frame_steps
+        loop = frame_steps(scene, camera, cfg, carry)
+    else:
+        loop = _EagerSteps(scene, camera, cfg, carry)
+    it, reads = _run_chunks(loop, cfg, generator)
+    _, fb, _, _, _, rays, occ, *extra = loop.carry
+    rays, occ = torch.stack((rays, occ)).tolist()
+    stats = {"iterations": it, "rays_traced": rays,
+             "avg_occupancy": occ / max(it, 1), "graphed": loop.graphed,
+             "host_reads": reads + 1 + bool(extra)}
+    if loop.graphed:
+        fb = fb.clone()   # the graph's carry is reused by the next frame
+        stats.update(capture_s=loop.capture_s,
+                     graph_pool_bytes=loop.pool_bytes)
     if cfg.detailed_stats:
-        hist, steps, leafs, ah_steps, ah_leafs = extra
-        stats.update(bounce_histogram=hist.cpu(),
-                     node_steps=int(steps + ah_steps),
-                     leaf_visits=int(leafs + ah_leafs),
-                     anyhit_steps=int(ah_steps), anyhit_visits=int(ah_leafs))
+        hist, *sums = torch.cat((extra[0], torch.stack(extra[1:]))).cpu() \
+            .split((cfg.max_bounces + 1, 1, 1, 1, 1))
+        steps, leafs, ah_steps, ah_leafs = (int(v) for v in sums)
+        stats.update(bounce_histogram=hist, node_steps=steps + ah_steps,
+                     leaf_visits=leafs + ah_leafs, anyhit_steps=ah_steps,
+                     anyhit_visits=ah_leafs)
     return fb, stats
 
 
 def render_frame(scene: Scene, camera: Camera, cfg: RenderConfig,
-                 generator: torch.Generator):
+                 generator: torch.Generator, *, graph: bool = True):
     """Render a full frame: ``(framebuffer [H*W, 3], stats)`` after the
-    sqrt(mean) gamma-2 post-process."""
-    fb, stats = render_frame_linear(scene, camera, cfg, generator)
+    sqrt(mean) gamma-2 post-process; ``graph`` as in
+    :func:`render_frame_linear`."""
+    fb, stats = render_frame_linear(scene, camera, cfg, generator,
+                                    graph=graph)
     return torch.sqrt(fb / cfg.num_samples), stats

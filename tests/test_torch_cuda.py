@@ -3,7 +3,8 @@ walkers, two-level, packet and lane kernels, each in both designs, the
 binary-BVH walk and the tiny-scene direct pair) against their plain
 PyTorch versions, and the engine's main path through the kernels,
 single-level and instanced, under every walker, under
-``traversal="xla"`` and on the direct path.
+``traversal="xla"`` and on the direct path; and the frame loop's captured
+CUDA graph against the same loop run op by op.
 
 Every test here is marked ``cuda`` and skips where
 ``torch.cuda.is_available()`` is False.  The file imports no JAX, so on a
@@ -1129,7 +1130,9 @@ def test_scene_past_the_meta_cap_renders_on_the_kernels(cuda, monkeypatch):
             assert P.LAUNCHES[k] - launches[k] == stats["iterations"]
         assert bool(torch.isfinite(fb).all()) and bool((fb >= 0).all())
         runs.append((fb, stats))
-    assert runs[0][1] == runs[1][1]
+    same = ("iterations", "rays_traced", "avg_occupancy")
+    assert [{k: r[1][k] for k in same} for r in runs[1:]] == \
+        [{k: runs[0][1][k] for k in same}]
     torch.testing.assert_close(runs[1][0], runs[0][0], rtol=1e-4, atol=1e-5)
 
 
@@ -1231,3 +1234,160 @@ def test_cornell_planes_frame_runs_through_the_direct_kernels(cuda):
     (fb0, st0), (fb1, st1) = runs
     assert abs(st1["rays_traced"] / st0["rays_traced"] - 1) < 1e-3
     assert float((fb1 - fb0).abs().mean()) < 1e-3 * float(fb0.mean())
+
+
+# ------------------------------------------- the captured frame loop
+
+def _graph_vs_eager(scene, cam, cfg, seed=1):
+    """A frame through the captured graph and one through the eager loop,
+    same seed: both ``(fb, stats, launches, generator state)``."""
+    from rtjax_torch.kernels import counts
+    out = []
+    for graph in (True, False):
+        gen = torch.Generator(device=scene.device).manual_seed(seed)
+        before = counts.snapshot()
+        fb, st = render_frame(scene, cam, cfg, gen, graph=graph)
+        out.append((fb, st, counts.delta(before, counts.snapshot()),
+                    gen.get_state()))
+    return out
+
+
+def _graph_scene(kind, device):
+    if kind == "instanced":
+        return _instanced(device), Camera.make(
+            (0, 2.5, 3.5), (0, 0.1, 0), (0, 1, 0), 45, 1.0, device=device)
+    return cornell_planes(device)
+
+
+@pytest.mark.parametrize("kind, change", [
+    ("planes", dict(direct_max_tris=0)),
+    ("planes", {}),                                   # the direct pair
+    ("planes", dict(direct_max_tris=0, traversal="xla")),
+    ("planes", dict(direct_max_tris=0, sort_rays=False)),
+    ("planes", dict(direct_max_tris=0, sort_key="prim")),
+    ("planes", dict(direct_max_tris=0, walker="packet",
+                    anyhit_walker="packet")),
+    ("planes", dict(direct_max_tris=0, walker="lane")),
+    ("planes", dict(direct_max_tris=0, reference_parity=True)),
+    ("planes", dict(direct_max_tris=0, one_sample_mis=True)),
+    ("planes", dict(direct_max_tris=0, detailed_stats=True)),
+    ("planes", dict(direct_max_tris=0, sort_every=3, max_iterations=13)),
+    ("instanced", dict(direct_max_tris=0, two_level="kernel")),
+    ("instanced", dict(direct_max_tris=0, traversal="xla")),
+], ids=str)
+def test_graph_frame_equals_the_eager_loop(cuda, kind, change):
+    """The captured step replayed against the same loop run op by op, on
+    one seed: the same iterations, rays, occupancy, counts and launches,
+    the generator left in the same state, the framebuffers within the
+    atomic adds' reordering (rtol 1e-5)."""
+    scene, cam = _graph_scene(kind, cuda)
+    cfg = RenderConfig(width=32, height=32, num_samples=8, max_bounces=4,
+                       num_working_paths=4096, **change)
+    (fb, st, ran, gs), (fb0, st0, ran0, gs0) = _graph_vs_eager(scene, cam,
+                                                               cfg)
+    assert st["graphed"] and not st0["graphed"]
+    for k in st0:
+        if k not in ("graphed", "host_reads", "bounce_histogram"):
+            assert st[k] == st0[k], k
+    if cfg.detailed_stats:
+        assert torch.equal(st["bounce_histogram"], st0["bounce_histogram"])
+    assert ran == ran0 and ran
+    assert torch.equal(gs, gs0)
+    torch.testing.assert_close(fb, fb0, rtol=1e-5, atol=1e-7)
+    assert bool(torch.isfinite(fb).all()) and float(fb.sum()) > 0
+
+
+@pytest.mark.parametrize("change", [
+    dict(two_level="auto"), dict(two_level="repass"),
+    dict(two_level="kernel", two_level_anyhit="repass")], ids=str)
+def test_repass_renders_uncaptured(cuda, change):
+    """The mode whose step reads the device (repass) runs the chunked loop
+    op by op, and says so."""
+    scene, cam = _graph_scene("instanced", cuda)
+    cfg = RenderConfig(width=32, height=32, num_samples=8, max_bounces=4,
+                       num_working_paths=4096, direct_max_tris=0, **change)
+    assert trace.step_has_host_reads(scene, cfg)
+    fb, st = render_frame(scene, cam, cfg,
+                          torch.Generator(device=cuda).manual_seed(1))
+    assert st["graphed"] is False and "capture_s" not in st
+    assert bool(torch.isfinite(fb).all()) and float(fb.sum()) > 0
+
+
+def test_capture_refuses_a_host_read(cuda, monkeypatch):
+    """A step that reads the device from the host makes the capture raise;
+    the frame is not rendered another way, and the card stays usable."""
+    from rtjax_torch.render import graph
+    scene, cam = cornell_planes(cuda)
+    cfg = RenderConfig(width=32, height=32, num_samples=8, max_bounces=4,
+                       num_working_paths=4096, direct_max_tris=0)
+    inner = trace.persist_traverse_closest
+
+    def reads(tables, o, d, tmax, active, **kw):
+        if bool(active.any()):
+            pass
+        return inner(tables, o, d, tmax, active, **kw)
+
+    graph.clear_graphs()
+    monkeypatch.setattr(trace, "persist_traverse_closest", reads)
+    launches = dict(P.LAUNCHES)
+    with pytest.raises(RuntimeError):
+        render_frame(scene, cam, cfg,
+                     torch.Generator(device=cuda).manual_seed(1))
+    # the eager first step ran; no replay, no eager loop after it
+    assert P.LAUNCHES["closest"] - launches["closest"] == 1
+    assert graph.cached().graph is None
+    monkeypatch.undo()
+    graph.clear_graphs()
+    torch.cuda.synchronize()
+    fb, st = render_frame(scene, cam, cfg,
+                          torch.Generator(device=cuda).manual_seed(1))
+    assert st["graphed"] and bool(torch.isfinite(fb).all())
+
+
+def test_frames_after_clear_graphs_agree(cuda):
+    """A captured frame, a frame replaying the cached graph and a frame
+    after ``clear_graphs()`` (captured again) agree on one seed."""
+    from rtjax_torch.render import graph
+    scene, cam = cornell_planes(cuda)
+    cfg = RenderConfig(width=32, height=32, num_samples=8, max_bounces=4,
+                       num_working_paths=4096)
+    graph.clear_graphs()
+    frames = []
+    for clear in (False, False, True):
+        if clear:
+            graph.clear_graphs()
+        frames.append(render_frame(
+            scene, cam, cfg, torch.Generator(device=cuda).manual_seed(2)))
+    caps = [st["capture_s"] for _, st in frames]
+    assert caps[0] > 0 and caps[1] == 0 and caps[2] > 0
+    assert frames[0][1]["graph_pool_bytes"] > 0
+    fb0, st0 = frames[0]
+    for fb, st in frames[1:]:
+        for k in ("iterations", "rays_traced", "avg_occupancy"):
+            assert st[k] == st0[k], k
+        torch.testing.assert_close(fb, fb0, rtol=1e-5, atol=1e-7)
+    # the returned framebuffers are the caller's: a later frame leaves
+    # them as they were
+    assert not frames[0][0].data_ptr() == frames[1][0].data_ptr()
+
+
+@pytest.mark.parametrize("spr", [1, 3, 16])
+def test_graph_frame_at_any_chunk(cuda, monkeypatch, spr):
+    """The replayed loop at STEPS_PER_READ 1, 3 and 16, also under a
+    max_iterations that ends a chunk early: the eager loop's counts, and
+    at most one blocking read a chunk besides the stats'."""
+    import math
+    from rtjax_torch.render import wavefront
+    scene, cam = cornell_planes(cuda)
+    monkeypatch.setattr(wavefront, "STEPS_PER_READ", spr)
+    for cap in (None, 7):
+        cfg = RenderConfig(width=32, height=32, num_samples=8, max_bounces=4,
+                           num_working_paths=2048, max_iterations=cap)
+        (fb, st, ran, gs), (fb0, st0, ran0, gs0) = _graph_vs_eager(
+            scene, cam, cfg, seed=4)
+        assert st["graphed"] and st["iterations"] == st0["iterations"]
+        assert cap is None or st["iterations"] == cap
+        assert st["rays_traced"] == st0["rays_traced"] and ran == ran0
+        assert torch.equal(gs, gs0)
+        assert st["host_reads"] == math.ceil(st["iterations"] / spr) + 1
+        torch.testing.assert_close(fb, fb0, rtol=1e-5, atol=1e-7)
