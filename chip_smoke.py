@@ -123,7 +123,11 @@ the script exits non-zero):
    kernels' (equal-t ties counted), the stats instances' counts equal to
    the plain walk's and their results the default instances' bit for bit,
    device time per launch, one call, one plain call, the plain walk's
-   counts and the bound, and the four instances' ptxas lines; (b) the
+   counts and the bound, the ptxas lines of every instance (the default
+   instances' registers held to BINARY_REGISTERS), and the first design
+   (one thread a ray, ``traverse_*_thread``) bit for bit against the fetch
+   design the engine runs, both timed in turns (first, fetch, fetch,
+   first), the records' bytes beside the arrays'; (b) the
    headline frame under traversal="xla", seeds 2 and 3, alternated with
    persist frames (xla, persist, persist, xla): only the binary kernels,
    once an iteration, each image at phase 4's gate, frame seconds; (c) the
@@ -185,7 +189,8 @@ the script exits non-zero):
    all-triangles oracle (kernels/brute.py) on BIG_BRUTE_RAYS camera and
    shadow rays, hit, t and occlusion equal and prim equal but at ties of
    equal t, and the binary kernels' hits, t and occlusion against the
-   persist kernels' on every ray of (b);
+   persist kernels' on every ray of (b); then, at the largest grid, phase
+   9 (a)'s checks of the binary kernels, both designs, on (b)'s rays;
 12. rtjax's tiny-scene direct path and eval configs 2 and 3 (run after
    phase 11, before phase 7's profiles; launch counts from zero around
    every frame): (c) eval config 2 at full width (cornell_planes, 12
@@ -217,19 +222,25 @@ the script exits non-zero):
    cornell_bunny_glass at 256^2 @ 64 spp against
    artifacts/cornell_bunny_glass_256_64spp.ppm, printed, not gated;
 13. the device-resident frame loop (run after phase 12, before phase 7's
-   profiles): on the headline, eval configs 2 and 3 and config 4 under
-   two_level="kernel", with the graph cache cleared, a frame that
+   profiles): on the headline, eval configs 2 and 3, config 4 under
+   repass (two_level="auto", arm (a)) and under two_level="kernel" (arm
+   (b)), and both arms on the field of C4_MANY instances, with the graph
+   cache cleared, a frame that
    captures the step (its seconds and the graph pool's bytes) and an
    eager one, then graph and eager frames alternated (seeds 2, 2, 3, 3,
    4, 4), launch counts from zero around each and their synchronising
    calls counted by torch.cuda's sync debug mode: each pair of one seed
    equal in iterations, rays, occupancy and launches, the framebuffers
    within FB_RTOL, a graph frame's reads at most ceil(iterations /
-   STEPS_PER_READ) + 2, each graph frame at its phase's image gate; config
-   4 under repass uncaptured; the STEPS_PER_READ A/B over SPR_CHOICES on
-   the headline and config 2; the device-busy share of a graph and an
-   eager frame of each cell, profiled in a process of its own
-   (``--busy-job``);
+   STEPS_PER_READ) + 2, each graph frame at its phase's image gate; the
+   STEPS_PER_READ A/B over SPR_CHOICES on the headline and config 2;
+   repass's passes at 16 and C4_MANY instances, the while nodes the
+   engine captures against all G passes captured and masked, in turns
+   (tools/repass_designs.py: each frame equal to the eager loop's; busy
+   and idle passes a frame, an idle masked pass's device time); the
+   device-busy share of a
+   graph and an eager frame of each cell, profiled in a process of its
+   own (``--busy-job``);
 7. the two persist kernels' device time over one whole headline frame,
    the two packet kernels' over one walker="packet" headline frame, the
    lane closest-hit kernel's over one walker="lane" headline frame (its
@@ -386,6 +397,10 @@ def phase0_device():
     print(f"[device] {torch.cuda.get_device_name(0)}, "
           f"{torch.cuda.device_count()} device(s), torch {torch.__version__},"
           f" CUDA {torch.version.cuda}")
+    cuda = tuple(int(v) for v in (torch.version.cuda or "0.0").split(".")[:2])
+    if cuda < (12, 4):
+        raise RuntimeError(f"CUDA {torch.version.cuda}: the captured step's "
+                           "device loops need CUDA-graph while nodes (12.4)")
     return card
 
 
@@ -396,7 +411,8 @@ def phase1_build():
               "two-level kernels": _build.wide_inst_library,
               "packet and lane kernels": _build.packet_library,
               "binary-walk kernels": _build.binary_library,
-              "direct-path kernels": _build.direct_library}
+              "direct-path kernels": _build.direct_library,
+              "device loop": _build.loop_library}
 
     def timed(fn):
         t0 = time.perf_counter()
@@ -1582,8 +1598,8 @@ def _instance_frame(inst, rays):
     from rtjax_torch.accel.instancing import (apply_affine_point,
                                               apply_affine_vector)
     from rtjax_torch.render.trace import _repass_setup
-    ent, meets = _repass_setup(inst, list(range(inst.num)), rays["o"],
-                               rays["d"])
+    (grp,) = inst.groups   # config 4: one mesh, its instances in id order
+    ent, meets = _repass_setup(grp, rays["o"], rays["d"])
     pick = torch.argmin(torch.where(meets, ent, 3.0e38), dim=0)
     rows = inst.inv[pick]
     out = dict(rays, o=tuple(c.contiguous()
@@ -1624,8 +1640,8 @@ def phase5_persist(scene, baked, camera, card):
 
 _KERNEL_SETS = ("persist", "two_level", "packet", "lane", "stride",
                 "inst_stride", "packet_leader", "lane_group", "persist_stats",
-                "binary", "binary_stats", "packet_stats", "lane_stats",
-                "two_level_stats", "direct")
+                "binary", "binary_stats", "binary_thread", "packet_stats",
+                "lane_stats", "two_level_stats", "direct")
 
 
 def _counters():
@@ -1647,6 +1663,7 @@ def _counters():
             "persist_stats": (P.STATS_LAUNCHES, None),
             "binary": (T.LAUNCHES, T.REF_CALLS),
             "binary_stats": (T.STATS_LAUNCHES, None),
+            "binary_thread": (T.THREAD_LAUNCHES, None),
             "packet_stats": (WD.STATS_LAUNCHES, None),
             "lane_stats": (L.STATS_LAUNCHES, None),
             "two_level_stats": (WI.STATS_LAUNCHES, None),
@@ -2325,6 +2342,15 @@ BINARY_KERNELS = {
                    replaces="rtjax/kernels/traversal.py:240"),
 }
 BINARY_SOURCE = "rtjax_torch/csrc/binary_traverse.cu"
+# ptxas registers of the binary kernels' default instances (the fetch
+# design and the first), from this script's build on the card's toolkit
+# (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md): they must not change
+BINARY_DEFAULT_MANGLED = {"fetch closest": "fetch_kernelILb0ELb0E",
+                          "fetch any-hit": "fetch_kernelILb1ELb0E",
+                          "first closest": "closest_kernelILb0E",
+                          "first any-hit": "anyhit_kernelILb0E"}
+BINARY_REGISTERS = {"fetch closest": 58, "fetch any-hit": 55,
+                    "first closest": 56, "first any-hit": 48}
 # a binary walk's bound, counted from csrc/binary_traverse.cu's loads and
 # arithmetic: a node-pair step reads two boxes (24 B each) and the two
 # children's left_first and num_prims words (64 B), a triangle test
@@ -2357,12 +2383,55 @@ def _binary_bound(work, n, n_active, in_bytes, out_bytes):
 
 
 def _binary_text(work, b):
-    return (f"work: {work['steps']} node-pair steps, {work['leafs']} leaf "
+    return (f"work: {work['steps']} node-pair steps (the longest walk "
+            f"{work['rounds']}), {work['leafs']} leaf "
             f"visits, {work['tri_tests']} triangles tested, {b['pairs']} "
             f"node pairs and {b['tris']} triangles read ({b['loads']} B "
             f"loaded, re-reads included); bound {b['bound_us']:.3f} us by "
             f"{b['bound_by']} ({b['bytes']} B at {PEAK_BYTES / 1e12} TB/s, "
             f"{b['ops']} float ops at {PEAK_FLOPS / 1e12} TFLOP/s)")
+
+
+def _binary_ab(kind, args, got):
+    """The first design against the fetch design on the same arguments:
+    ``(mismatches, {"new": [ms, ms], "old": [ms, ms]})``, timed in turns
+    (:func:`_ab_ms`)."""
+    import torch
+    from rtjax_torch.kernels import traversal as T
+    fetch = getattr(T, f"traverse_{kind}")
+    thread = getattr(T, f"traverse_{kind}_thread")
+    old = thread(*args)
+    torch.cuda.synchronize()
+    flat = lambda r: [r] if isinstance(r, torch.Tensor) else \
+        [t for v in r for t in flat(v)]
+    mis = sum(int((a != b).sum()) for a, b in zip(flat(old), flat(got),
+                                                    strict=True))
+    new, old_ms = _ab_ms(lambda: fetch(*args), lambda: thread(*args))
+    return mis, {"new": new, "old": old_ms, "mismatches": mis}
+
+
+def _binary_ab_text(label, card, ab, b):
+    new, old = statistics.mean(ab["new"]), statistics.mean(ab["old"])
+    print(f"[{label} designs] {card}: {ab['mismatches']} "
+          f"mismatches; fetch {ab['new'][0]:.4f}, "
+          f"{ab['new'][1]:.4f} ms vs first design {ab['old'][0]:.4f}, "
+          f"{ab['old'][1]:.4f} ms in turns (old, new, new, old): "
+          f"{old / new:.2f}x; shares of the bound "
+          f"{100 * b['bound_ms'] / new:.2f}% vs "
+          f"{100 * b['bound_ms'] / old:.2f}%")
+
+
+def _records_text(bvh, tris):
+    """The fetch design's records (built here if not yet) beside the
+    arrays they are packed from."""
+    from rtjax_torch.kernels import traversal as T
+    rec = T.binary_records(bvh, tris)
+    arrays = sum(a.numel() * a.element_size() for a in (
+        bvh.bmin, bvh.bmax, bvh.left_first, bvh.num_prims, tris.p0, tris.e1,
+        tris.e2, tris.n))
+    return (f"records {rec.pairs.shape[0]} pairs + {rec.tris.shape[0]} "
+            f"triangles, {rec.nbytes / 2**20:.1f} MiB beside the arrays' "
+            f"{arrays / 2**20:.1f} MiB")
 
 
 def phase9_binary_kernels(scene, camera, card):
@@ -2374,18 +2443,41 @@ def phase9_binary_kernels(scene, camera, card):
     keep another prim, counted); device time per launch, one call, one
     plain call; the plain walk's counts and the bound; the stats
     instances' counts equal to the plain walk's and their results the
-    default instances' bit for bit; the four instances' ptxas lines."""
+    default instances' bit for bit; the ptxas lines of every instance.
+    The first design (one thread a ray, ``traverse_*_thread``)
+    bit for bit against the fetch design the engine runs, and both timed
+    in turns (:func:`_ab_ms`); the records' bytes beside the arrays'."""
     import torch
     from rtjax_torch.kernels import _build
     from rtjax_torch.kernels import persist as P
     from rtjax_torch.kernels import traversal as T
+    regs = {}
     for name, res in _build.ptxas_report(_build.binary_library()):
         print(f"[binary ptxas] {name}: {res}")
+        for label, mangled in BINARY_DEFAULT_MANGLED.items():
+            if mangled in name:
+                regs[label] = int(res.split("Used ")[1].split()[0])
+    print(f"[binary ptxas] default instances' registers {regs}; recorded "
+          f"{BINARY_REGISTERS}")
+    if regs != BINARY_REGISTERS:
+        raise RuntimeError("the binary kernels' registers differ from the "
+                           "recorded ones")
     gen = torch.Generator(device="cuda").manual_seed(1234)
     cl, ah = _test_rays(scene, camera, gen)
+    return _check_binary("binary", scene, cl, ah, card)
+
+
+def _check_binary(label, scene, cl, ah, card):
+    """Phase 9 (a)'s checks of the binary kernels over ``scene``'s binary
+    BVH on closest-hit rays ``cl`` and any-hit rays ``ah``, printed as
+    ``[<label> closest|anyhit ...]``; ``{kind: record}``."""
+    import torch
+    from rtjax_torch.kernels import persist as P
+    from rtjax_torch.kernels import traversal as T
     bvh, tris = scene.bvh, scene.tris
-    print(f"[binary scene] {bvh.num_nodes} nodes, depth {bvh.max_depth}, "
-          f"stack {T.stack_len(bvh)} entries a ray")
+    print(f"[{label} scene] {bvh.num_nodes} nodes, depth {bvh.max_depth}, "
+          f"stack {T.stack_len(bvh)} entries a ray; "
+          f"{_records_text(bvh, tris)}")
     out = {}
 
     args = (bvh, tris, cl["o"], cl["d"], cl["tmax"], cl["active"])
@@ -2415,24 +2507,26 @@ def phase9_binary_kernels(scene, camera, card):
                                                   .sum()),
           "ties": int((pk[both] != pp[both]).sum())}
     ms = _launch_ms(lambda: T.traverse_closest(*args))
+    first, ab = _binary_ab("closest", args, got)
     n, n_act = cl["tmax"].numel(), int(cl["active"].sum())
     b = _binary_bound(work, n, n_act, RAY_IN, BIN_CLOSEST_OUT)
     out["closest"] = dict(max_abs_err=float((tk[both] - tp[both]).abs().max())
                           if bool(both.any()) else 0.0, ms=ms[0],
                           ms_range=ms[1:], call_ms=call_ms,
                           plain_ms=plain_ms, share=b["bound_ms"] / ms[0],
-                          counts=counts, **b)
-    print(f"[binary closest] {card}: {n} rays ({n_act} active), "
+                          counts=counts, ab=ab, **b)
+    print(f"[{label} closest] {card}: {n} rays ({n_act} active), "
           f"{int(hk.sum())} hits; mismatches vs plain {mis}; stats instance:"
           f" counts {counts} vs plain ({work['steps']}, {work['leafs']}), "
           f"{smis} result mismatches; vs persist kernels {vs}; device "
           f"{ms[0]:.4f} ms a launch ({ms[1]:.4f}-{ms[2]:.4f}), one call "
           f"{call_ms:.4f} ms, plain {plain_ms:.1f} ms; {_binary_text(work, b)}"
           f"; {100 * out['closest']['share']:.2f}% of the bound")
-    if any(mis.values()) or smis or vs["hit"] or vs["t"] or \
+    _binary_ab_text(f"{label} closest", card, ab, b)
+    if any(mis.values()) or smis or vs["hit"] or vs["t"] or first or \
             counts != (work["steps"], work["leafs"]) or not bool(hk.any()):
-        raise RuntimeError("binary closest-hit kernel disagrees with its "
-                           "plain version or the persist kernel")
+        raise RuntimeError(f"{label}: binary closest-hit kernel disagrees "
+                           "with its plain version or the persist kernel")
 
     args = (bvh, tris, ah["o"], ah["d"], ah["tmax"], ah["exclude"],
             ah["active"])
@@ -2449,22 +2543,25 @@ def phase9_binary_kernels(scene, camera, card):
            "stats_results": int((so != ok_).sum()),
            "vs_persist": int((ok_ != opp).sum())}
     ms = _launch_ms(lambda: T.traverse_anyhit(*args))
+    mis["first_design"], ab = _binary_ab("anyhit", args, ok_)
     n, n_act = ah["tmax"].numel(), int(ah["active"].sum())
     b = _binary_bound(work, n, n_act, RAY_IN + EXCLUDE, 1)
     out["anyhit"] = dict(max_abs_err=float(mis["occlusion"]), ms=ms[0],
                          ms_range=ms[1:], call_ms=call_ms, plain_ms=plain_ms,
-                         share=b["bound_ms"] / ms[0], counts=counts, **b)
-    print(f"[binary anyhit] {card}: {n} rays ({n_act} active), "
+                         share=b["bound_ms"] / ms[0], counts=counts, ab=ab,
+                         **b)
+    print(f"[{label} anyhit] {card}: {n} rays ({n_act} active), "
           f"{int(ok_.sum())} occluded; mismatches {mis}; stats instance "
           f"counts {counts} vs plain ({work['steps']}, {work['leafs']}); "
           f"device {ms[0]:.4f} ms a launch ({ms[1]:.4f}-{ms[2]:.4f}), one "
           f"call {call_ms:.4f} ms, plain {plain_ms:.1f} ms; "
           f"{_binary_text(work, b)}; {100 * out['anyhit']['share']:.2f}% of "
           f"the bound")
+    _binary_ab_text(f"{label} anyhit", card, ab, b)
     if any(mis.values()) or counts != (work["steps"], work["leafs"]) or \
             not bool(ok_.any()):
-        raise RuntimeError("binary any-hit kernel disagrees with its plain "
-                           "version or the persist kernel")
+        raise RuntimeError(f"{label}: binary any-hit kernel disagrees with "
+                           "its plain version or the persist kernel")
     return out
 
 
@@ -2662,9 +2759,12 @@ def _binary_rows(kernels, launches):
             ms=r["ms"], call_ms=r["call_ms"], plain_ms=r["plain_ms"],
             library_ms=None, **{k: r[k] for k in _BOUND_KEYS},
             share=r["share"], timed_launches=REPS,
+            fetch_ab_ms=r["ab"]["new"], first_design_ms=r["ab"]["old"],
             note="rtjax's binary-BVH walk (an XLA while_loop, no "
-                 "pallas_call); launches over phase 9(b)'s two "
-                 "traversal='xla' headline frames"))
+                 "pallas_call), the fetch design; first_design_ms: the "
+                 "first design, one thread a ray, timed in turns with it; "
+                 "launches over phase 9(b)'s two traversal='xla' headline "
+                 "frames"))
     return rows
 
 
@@ -3445,8 +3545,10 @@ def phase11_bigscene(card):
     packet and lane kernels against the plain group walk and the persist
     kernels, on BIG_RAYS camera rays with their shadow rays and on
     launch BIG_CAPTURE_AT of the seed-1 frame; (c) the kernels against the
-    all-triangles oracle and the binary walk.  Returns ``{grid: {...}}``,
-    (e) being (b)'s persist numbers at the largest grid."""
+    all-triangles oracle and the binary walk, and the binary kernels (both
+    designs) against their plain versions on (b)'s rays, timed, with their
+    bound (:func:`_check_binary`, at the largest grid).  Returns ``{grid:
+    {...}}``, (e) being (b)'s persist numbers at the largest grid."""
     import torch
     from rtjax_torch import RenderConfig
     from rtjax_torch.render import trace
@@ -3504,6 +3606,9 @@ def phase11_bigscene(card):
                                              rec["persist_in_frame"],
                                              need_occluded=False)
         rec["brute"] = _against_brute(label, scene, cl, ah, card)
+        if g == BIG_GRIDS[-1]:
+            rec["binary"] = _check_binary(f"{label} binary", scene, cl, ah,
+                                          card)
         out[g] = rec
         del scene, tab, captured, cl, ah, icl, iah
         torch.cuda.empty_cache()
@@ -3542,9 +3647,12 @@ def _big_rows(big):
                     dict(pick(r), in_frame=pick(ri),
                          brute=rec["brute"][walk][kind],
                          vs_persist=rec["brute"][walk]["vs_persist"])
+            rb = rec.get("binary", {}).get(kind, {})
             rows.setdefault(BINARY_KERNELS[kind]["name"], {})[g] = dict(
                 brute=rec["brute"]["binary"][kind],
-                vs_persist=rec["brute"]["binary"]["vs_persist"])
+                vs_persist=rec["brute"]["binary"]["vs_persist"],
+                **{k: rb[k] for k in ("ms", "call_ms", "plain_ms", "bound_us",
+                                      "bound_by", "share", "ab") if k in rb})
     return rows
 
 
@@ -4051,6 +4159,7 @@ def _direct_rows(d12, c4_launches):
 GRAPH_ORDER = (("graph", 2), ("eager", 2), ("eager", 3), ("graph", 3),
                ("graph", 4), ("eager", 4))
 SPR_CHOICES = (1, 4, 8, 16)      # the STEPS_PER_READ A/B
+C4_MANY = 64                     # config 4's field at this many instances
 FB_RTOL, FB_ATOL = 1e-5, 1e-7    # graph vs eager framebuffers, one seed
 BUSY_TIMEOUT = 600
 
@@ -4089,13 +4198,19 @@ def _counted_reads(fn):
 
 def _graph_cells(scene, camera, c4_scene, c4_camera):
     """Phase 13's cells: ``{name: (scene, camera, cfg, size)}``, the
-    headline, eval configs 2 and 3, and config 4 under
-    ``two_level="kernel"`` (arm (b))."""
+    headline, eval configs 2 and 3, config 4 under repass (arm (a), the
+    default) and under ``two_level="kernel"`` (arm (b)), and both arms on
+    the same field of 64 instances (C4_MANY)."""
     from rtjax_torch import RenderConfig
-    from rtjax_torch.scenes import cornell_bunny, cornell_planes
+    from rtjax_torch.scenes import (cornell_bunny, cornell_planes,
+                                    instanced_bunnies)
     planes, planes_cam = cornell_planes("cuda")
     c3, c3_cam = cornell_bunny("cuda", bunny_material="glass",
                                floor="mirror")
+    many, many_cam = instanced_bunnies("cuda", n_inst=C4_MANY)
+    c4 = lambda **kw: RenderConfig(width=WIDTH, height=HEIGHT,
+                                   num_samples=C4_SPP,
+                                   max_bounces=C4_BOUNCES, **kw)
     return {
         "headline": (scene, camera, _headline_cfg(), WIDTH),
         "config2": (planes, planes_cam, RenderConfig(
@@ -4104,9 +4219,52 @@ def _graph_cells(scene, camera, c4_scene, c4_camera):
         "config3": (c3, c3_cam, RenderConfig(
             width=WIDTH, height=HEIGHT, num_samples=C3_SPP,
             max_bounces=C3_BOUNCES), WIDTH),
-        "config4b": (c4_scene, c4_camera, RenderConfig(
-            width=WIDTH, height=HEIGHT, num_samples=C4_SPP,
-            max_bounces=C4_BOUNCES, two_level="kernel"), WIDTH)}
+        "config4a": (c4_scene, c4_camera, c4(), WIDTH),
+        "config4b": (c4_scene, c4_camera, c4(two_level="kernel"), WIDTH),
+        f"config4a_{C4_MANY}": (many, many_cam, c4(), WIDTH),
+        f"config4b_{C4_MANY}": (many, many_cam, c4(two_level="kernel"),
+                                WIDTH)}
+
+
+def _launches_match(name, graph, eager):
+    """A graph frame's launch counts against the eager frame's of its
+    seed: equal, but under repass (the config4a cells), where the graph's
+    while nodes skip the passes with no pending ray that the eager loop
+    launches masked: there every count at most the eager one, the pass
+    walker's fewer, every other equal."""
+    if not name.startswith("config4a"):
+        return graph == eager
+    fewer = [k for k in graph if graph[k] != eager[k]]
+    return fewer == ["persist"] and all(
+        0 < graph["persist"][c] < eager["persist"][c]
+        for c in ("closest", "anyhit"))
+
+
+def _pass_text(graph, eager):
+    if graph == eager:
+        return ""
+    return (f" (persist kernels {graph['persist']} against the eager "
+            f"loop's {eager['persist']})")
+
+
+def _repass_designs(card):
+    """The A/B of repass's passes inside the captured step
+    (tools/repass_designs.py): the while nodes the engine runs against all
+    G passes captured and masked, in turns, on config 4's field at 16 and
+    C4_MANY instances, each frame equal to the eager loop's; the busy and
+    idle passes a frame and an idle masked pass's device time."""
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    import repass_designs
+    out = repass_designs.run((16, C4_MANY), reps=1,
+                             log=lambda line: print(
+                                 line.replace("] ", f"] {card}: ", 1)))
+    for n, rec in out.items():
+        med = rec["medians"]
+        if med["while"] > med["masked"]:
+            print(f"[repass designs {n} instances] {card}: the while nodes "
+                  f"were slower ({med['while']:.4f} s against "
+                  f"{med['masked']:.4f} s)")
+    return out
 
 
 def _graph_frame(sc, cam, cfg, seed, path):
@@ -4203,11 +4361,12 @@ def phase13_graph(scene, camera, card, floor, c4_scene, c4_camera,
     at most ceil(iterations / STEPS_PER_READ) + 2; each graph frame at its
     phase's image gate (the headline phase 4's against the artifact,
     configs 2 and 3 within 2x the eager frames' seed-to-seed MSE plus the
-    8-bit term, config 4 (b) phase 6's 0.1x of repass's seed-to-seed MSE
-    against the seed-2 repass frame).  Config 4 (a), repass, must render
-    uncaptured.  Then the STEPS_PER_READ A/B (SPR_CHOICES, forward and
-    back, seed 2) on the headline and config 2, and the device-busy
-    shares from :func:`_run_busy_job`."""
+    8-bit term, config 4 (a) and (b) phase 6's 0.1x of repass's
+    seed-to-seed MSE against the seed-2 repass frame).  Then the
+    STEPS_PER_READ A/B (SPR_CHOICES, forward and back, seed 2) on the
+    headline and config 2, repass's two designs
+    (:func:`_repass_designs`),
+    and the device-busy shares from :func:`_run_busy_job`."""
     import math
     import statistics
 
@@ -4255,7 +4414,7 @@ def phase13_graph(scene, camera, card, floor, c4_scene, c4_camera,
             if name == "headline":
                 gate, img_mse = floor["gate"], float(np.mean(
                     (_square_u8(g[1], size) - floor["ref"]) ** 2))
-            elif name == "config4b":
+            elif name in ("config4a", "config4b"):
                 gate, img_mse = 0.1 * c4_floor["seed_mse"], float(np.mean(
                     (_square_u8(g[1], size) - c4_floor["img_a2"]) ** 2))
             else:
@@ -4268,18 +4427,21 @@ def phase13_graph(scene, camera, card, floor, c4_scene, c4_camera,
                   f"{e[0]:.3f} s ({e[3]}); equal iterations, rays, "
                   f"occupancy {same}; framebuffers within rtol {FB_RTOL} "
                   f"{close} (largest relative gap {max_rel:.3e}); launches "
-                  f"equal {g[4] == e[4]}; image MSE {img_mse:.3e} (gate "
+                  f"{'equal' if g[4] == e[4] else 'as the loops ran'} "
+                  f"{_launches_match(name, g[4], e[4])}"
+                  f"{_pass_text(g[4], e[4])}; image MSE {img_mse:.3e} (gate "
                   f"{gate:.3e})")
             if not g[2]["graphed"] or e[2]["graphed"]:
                 raise RuntimeError(f"{name} seed {seed}: a frame took the "
                                    "other path")
-            if not same or not close or g[4] != e[4]:
+            if not same or not close or not _launches_match(name, g[4],
+                                                             e[4]):
                 raise RuntimeError(f"{name} seed {seed}: the graph and "
                                    "eager frames differ")
             if seed > 1 and g[3] > bound:
                 raise RuntimeError(f"{name} seed {seed}: {g[3]} blocking "
                                    f"reads, more than {bound}")
-            if name == "config4b" and seed != 2:
+            if name in ("config4a", "config4b") and seed != 2:
                 continue
             if img_mse > gate:
                 raise RuntimeError(f"{name} seed {seed}: the graph frame "
@@ -4310,14 +4472,7 @@ def phase13_graph(scene, camera, card, floor, c4_scene, c4_camera,
                               f"{r[0][1]} synchronising calls"
                               for s, r in ab.items()))
     G.clear_graphs()
-    a_cfg = RenderConfig(width=WIDTH, height=HEIGHT, num_samples=C4_SPP,
-                         max_bounces=C4_BOUNCES)
-    a = _graph_frame(c4_scene, c4_camera, a_cfg, 2, "graph")
-    print(f"[graph config4a] {card}: repass asked for the graph: graphed "
-          f"{a[2]['graphed']}, {a[0]:.3f} s, {a[3]} synchronising calls")
-    if a[2]["graphed"]:
-        raise RuntimeError("repass rendered through a captured graph")
-    out["config4a"] = dict(secs=a[0], reads=a[3])
+    out["repass_designs"] = _repass_designs(card)
     busy = _run_busy_job()
     for name, r in busy.items():
         for path in ("graph", "eager"):
@@ -4468,7 +4623,12 @@ def main():
               f"{r['capture_s']:.3f} s, busy "
               f"{100 * r['busy']['graph']['share_of_median']:.1f}% vs "
               f"{100 * r['busy']['eager']['share_of_median']:.1f}%)"
-              for name, r in g13.items() if name != "config4a"))
+              for name, r in g13.items() if name != "repass_designs")
+          + "; repass in the captured step, median frame seconds "
+          + ", ".join(
+              f"{n} instances while nodes {r['medians']['while']:.4f} vs "
+              f"all passes masked {r['medians']['masked']:.4f}"
+              for n, r in g13["repass_designs"].items()))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

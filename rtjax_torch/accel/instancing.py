@@ -51,10 +51,53 @@ class InstanceTable:
     aabb_hi: torch.Tensor   # [I, 3] float32
     material: torch.Tensor  # [I] int32
     mesh_id: tuple          # tuple[int], length I
+    # repass's per-mesh tables (:class:`RepassGroup`), made with the table
+    groups: tuple = dataclasses.field(init=False, repr=False, compare=False)
+
+    def __post_init__(self):
+        object.__setattr__(self, "groups", repass_groups(self))
 
     @property
     def num(self) -> int:
         return len(self.mesh_id)
+
+
+@dataclasses.dataclass(frozen=True)
+class RepassGroup:
+    """The instances of one mesh as repass walks them (render/trace.py),
+    made once with the instance table, on its device, so that a pass
+    copies nothing from the host: ``boxes`` their world bounds (lo, hi),
+    ``inv`` their world->local rows, ``src_of`` their hit sources (k + 1)
+    and ``g_iota`` their group positions."""
+
+    mesh_id: int
+    boxes: torch.Tensor    # [G, 1, 6] float32
+    inv: torch.Tensor      # [G, 3, 4] float32
+    src_of: torch.Tensor   # [G] int32
+    g_iota: torch.Tensor   # [G, 1] int64
+
+    @property
+    def size(self) -> int:
+        return self.inv.shape[0]
+
+
+def repass_groups(inst: InstanceTable) -> tuple:
+    """One :class:`RepassGroup` per mesh, in the order of each mesh's first
+    instance, each listing its instances in id order (rtjax's
+    ``_mesh_groups``)."""
+    ids: dict[int, list[int]] = {}
+    for k, m in enumerate(inst.mesh_id):
+        ids.setdefault(int(m), []).append(k)
+    dev = inst.inv.device
+    out = []
+    for mesh_id, ks in ids.items():
+        sel = torch.tensor(ks, dtype=torch.long, device=dev)
+        boxes = torch.cat([inst.aabb_lo[sel], inst.aabb_hi[sel]], 1)
+        out.append(RepassGroup(
+            mesh_id=mesh_id, boxes=boxes[:, None],
+            inv=inst.inv[sel].contiguous(), src_of=(sel + 1).to(torch.int32),
+            g_iota=torch.arange(len(ks), device=dev)[:, None]))
+    return tuple(out)
 
 
 def affine_rows(matrix) -> np.ndarray:

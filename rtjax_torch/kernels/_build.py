@@ -10,8 +10,11 @@ under the repository root (a directory that .gitignore lists).
   the first two also ``fetch_walk.cuh``, the packet and lane kernels
   ``group_walk.cuh``, ``packet_walk.cuh``, ``lane_walk.cuh`` and, through
   it, ``fetch_walk.cuh``; the binary-BVH walk, ``binary_traverse.cu``,
-  and the tiny-scene direct path, ``direct_traverse.cu``, include none),
-  compiled by nvcc for ``sm_90a`` and bound with ctypes.
+  includes ``fetch_walk.cuh`` for its resident grid, and the tiny-scene
+  direct path, ``direct_traverse.cu``, includes none), and the device
+  loop of a captured step (``graph_loop.cu``: a CUDA-graph while node and
+  its condition kernel, render/device_loop.py), compiled by nvcc for
+  ``sm_90a`` and bound with ctypes.
 
 Each library is rebuilt when a source or a header it includes is newer
 than it.  nvcc runs with ``-Xptxas -v``: each kernel's registers, stack
@@ -40,6 +43,7 @@ WIDE_INST_SOURCE = CSRC_DIR / "wide_inst_traverse.cu"
 PACKET_SOURCE = CSRC_DIR / "packet_traverse.cu"
 BINARY_SOURCE = CSRC_DIR / "binary_traverse.cu"
 DIRECT_SOURCE = CSRC_DIR / "direct_traverse.cu"
+LOOP_SOURCE = CSRC_DIR / "graph_loop.cu"
 WALK_HEADER = CSRC_DIR / "wide_walk.cuh"
 FETCH_HEADER = CSRC_DIR / "fetch_walk.cuh"
 GROUP_HEADER = CSRC_DIR / "group_walk.cuh"
@@ -145,11 +149,18 @@ def binary_library() -> Path:
     """Path of the compiled binary-BVH walk kernels (built if missing or
     stale)."""
     return _build(BUILD_DIR / "libbinary_traverse.so", [BINARY_SOURCE],
-                  [nvcc_path()] + NVCC_FLAGS)
+                  [nvcc_path()] + NVCC_FLAGS, (WALK_HEADER, FETCH_HEADER))
 
 
 def direct_library() -> Path:
     """Path of the compiled direct-path kernels (built if missing or
     stale)."""
     return _build(BUILD_DIR / "libdirect_traverse.so", [DIRECT_SOURCE],
+                  [nvcc_path()] + NVCC_FLAGS)
+
+
+def loop_library() -> Path:
+    """Path of the compiled device-loop helpers of captured graphs (built
+    if missing or stale)."""
+    return _build(BUILD_DIR / "libgraph_loop.so", [LOOP_SOURCE],
                   [nvcc_path()] + NVCC_FLAGS)

@@ -8,6 +8,17 @@ device loop (no ``pallas_call``).  A CUDA tensor goes to the kernels in
 ``csrc/binary_traverse.cu`` (built at first use, bound with ctypes); a CPU
 tensor goes to the plain version.  There is no fallback between them.
 
+The kernels (the fetch design) read the tree and the triangles as
+records (:class:`BinaryRecords`, :func:`binary_records`): one 64-byte
+record per node pair (both children's boxes and words, the word of an
+internal child being its own children's pair), one 48-byte record per
+triangle, built once per (BVH, triangles) on their device and kept while
+both live.  They draw rays from the persist kernels' per-stream work
+counter (``persist.work_buffer``) on a grid of the card's resident
+blocks.  ``traverse_*_thread`` launch the first design (one thread a ray,
+the arrays as they are); they exist only to time both designs in one run
+(``chip_smoke.py``, the card tests), and no engine path calls them.
+
 Both walk each ray in rtjax's visit order (the reference's,
 bvh.cuh:221-357), over the pair of children ``(cur, cur + 1)`` of the
 current node:
@@ -51,7 +62,9 @@ returns ``occluded [N] bool``.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import threading
+import weakref
 
 import torch
 
@@ -60,17 +73,22 @@ from ..constants import BVH_MAX_DEPTH
 from ..core.geometry import (Triangles, intersect_aabb, intersect_triangle_v3,
                              ray_slab_precompute)
 from . import _build
-from .persist import _columns, _out_normal, _stats_buffer
+from .persist import _columns, _out_normal, _stats_buffer, work_buffer
 
 BLOCK = 128                # threads a block of the kernels, one ray each
 SMEM_MAX = 232448          # dynamic shared memory a block may use (bytes)
 MAX_STACK = SMEM_MAX // (4 * BLOCK)   # the kernels' largest stack: 454
 
-# kernel launches (wrapper, CUDA path), plain-version calls, and launches
-# of the stats instances (``with_stats=True``), by kernel
+PAIR_WORDS = 16            # a node-pair record: 12 f32 box words, 4 i32
+TRI_WORDS = 12             # a triangle record: p0, e1, e2, n
+
+# kernel launches (wrapper, CUDA path), plain-version calls, launches of
+# the stats instances (``with_stats=True``) and of the first design (the
+# ``_thread`` wrappers), by kernel
 LAUNCHES = {"closest": 0, "anyhit": 0}
 REF_CALLS = {"closest": 0, "anyhit": 0}
 STATS_LAUNCHES = {"closest": 0, "anyhit": 0}
+THREAD_LAUNCHES = {"closest": 0, "anyhit": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -118,7 +136,7 @@ def _check(bvh: BvhArrays, tris: Triangles, o, d, tmax, active,
 def stack_len_checked(bvh: BvhArrays, stack_size: int) -> int:
     """:func:`stack_len`, refused with ValueError beyond ``MAX_STACK``."""
     n_stack = stack_len(bvh, stack_size)
-    if n_stack > MAX_STACK:
+    if smem_bytes(n_stack) > SMEM_MAX:
         raise ValueError(
             f"BVH depth {bvh.max_depth} (stack size {stack_size}) needs "
             f"{n_stack} stack entries a ray; the binary-walk kernels hold "
@@ -126,17 +144,95 @@ def stack_len_checked(bvh: BvhArrays, stack_size: int) -> int:
     return n_stack
 
 
+def smem_bytes(n_stack: int) -> int:
+    """Dynamic shared memory of a block of either design: ``n_stack``
+    stack entries (int32) for each of its ``BLOCK`` thread slots."""
+    return 4 * n_stack * BLOCK
+
+
+# ------------------------------------------------------------- records
+
+@dataclasses.dataclass(frozen=True)
+class BinaryRecords:
+    """The fetch kernels' view of a binary BVH and its triangles.
+
+    ``pairs [P, 16]`` f32: one record per node pair ``(L, L + 1)`` (the
+    children of an internal node), in the order of ``L``: the left box
+    (lo xyz, hi xyz), the right box, then four int32 words as bits, per
+    child ``(word, num_prims)``: a leaf's ``(left_first, num_prims)``, an
+    internal child's ``(its children's pair, 0)``.  ``pair_left [P]``
+    int64 is ``L`` of each pair (the map from pairs to node ids), ``root``
+    the pair of the root's children.  ``tris [T, 12]`` f32: ``p0, e1, e2,
+    n`` of each leaf-order triangle."""
+
+    pairs: torch.Tensor
+    pair_left: torch.Tensor
+    root: int
+    tris: torch.Tensor
+
+    @property
+    def nbytes(self) -> int:
+        return (self.pairs.numel() + self.tris.numel()) * 4
+
+
+def pack_records(bvh: BvhArrays, tris: Triangles) -> BinaryRecords:
+    """Build the records on the BVH's device (every index in int64)."""
+    lf = bvh.left_first.long()
+    npr = bvh.num_prims
+    inner = npr == 0
+    left = torch.sort(lf[inner]).values
+    pair_of = torch.full((bvh.num_nodes,), -1, dtype=torch.long,
+                         device=lf.device)
+    pair_of[left] = torch.arange(left.shape[0], device=lf.device)
+
+    def words(x):
+        leaf = npr[x] > 0
+        return torch.where(leaf, lf[x], pair_of[torch.where(leaf, 0, lf[x])])
+
+    right = left + 1
+    w = torch.stack([words(left), npr[left].long(), words(right),
+                     npr[right].long()], 1).to(torch.int32)
+    pairs = torch.cat([bvh.bmin[left], bvh.bmax[left], bvh.bmin[right],
+                       bvh.bmax[right], w.view(torch.float32)], 1)
+    return BinaryRecords(
+        pairs=pairs.contiguous(), pair_left=left,
+        root=int(pair_of[lf[0]]),
+        tris=torch.cat([tris.p0, tris.e1, tris.e2, tris.n], 1).contiguous())
+
+
+_records: dict = {}   # (id(bvh), id(tris)) -> BinaryRecords
+
+
+def binary_records(bvh: BvhArrays, tris: Triangles) -> BinaryRecords:
+    """The records of ``(bvh, tris)``: packed at the first call (the
+    frame's first, eager step on the card) and kept while both live."""
+    key = (id(bvh), id(tris))
+    with _lock:
+        rec = _records.get(key)
+    if rec is None:
+        rec = pack_records(bvh, tris)
+        with _lock:
+            _records[key] = rec
+        for owner in (bvh, tris):
+            weakref.finalize(owner, _records.pop, key, None)
+    return rec
+
+
 # ------------------------------------------------------------- CUDA path
 
 def bind(lib):
-    """Set the argument types of the two entry points of a binary-walk
+    """Set the argument types of the four entry points of a binary-walk
     kernel library (``ctypes.CDLL``) and return it."""
     P, I = ctypes.c_void_p, ctypes.c_int
     lib.rtjax_binary_closest.argtypes = \
-        [P] * 8 + [P] * 6 + [P, P, I] + [P] * 8 + [I, P, P]
+        [P, P, I] + [P] * 6 + [P, P, I] + [P] * 8 + [I, P, P, P]
     lib.rtjax_binary_anyhit.argtypes = \
+        [P, P, I] + [P] * 6 + [P, P, P, I, P, I, P, P, P]
+    lib.rtjax_binary_closest_thread.argtypes = \
+        [P] * 8 + [P] * 6 + [P, P, I] + [P] * 8 + [I, P, P]
+    lib.rtjax_binary_anyhit_thread.argtypes = \
         [P] * 8 + [P] * 6 + [P, P, P, I, P, I, P, P]
-    for name in ("closest", "anyhit"):
+    for name in ("closest", "anyhit", "closest_thread", "anyhit_thread"):
         getattr(lib, f"rtjax_binary_{name}").restype = I
     return lib
 
@@ -149,22 +245,45 @@ def _kernels():
         return _lib
 
 
-def _scene_ptrs(bvh: BvhArrays, tris: Triangles):
-    return (bvh.bmin.data_ptr(), bvh.bmax.data_ptr(),
-            bvh.left_first.data_ptr(), bvh.num_prims.data_ptr(),
-            tris.p0.data_ptr(), tris.e1.data_ptr(), tris.e2.data_ptr(),
-            tris.n.data_ptr())
+def _scene_args(bvh, tris, thread, stream):
+    """``(leading arguments, work counter or None)`` of an entry point:
+    the first design's eight arrays, or the fetch design's records (16-byte
+    aligned), root pair and the stream's work counter."""
+    if thread:
+        return (bvh.bmin.data_ptr(), bvh.bmax.data_ptr(),
+                bvh.left_first.data_ptr(), bvh.num_prims.data_ptr(),
+                tris.p0.data_ptr(), tris.e1.data_ptr(), tris.e2.data_ptr(),
+                tris.n.data_ptr()), None
+    rec = binary_records(bvh, tris)
+    for name in ("pairs", "tris"):
+        if getattr(rec, name).data_ptr() % 16:
+            raise ValueError(f"records.{name} must be 16-byte aligned")
+    return ((rec.pairs.data_ptr(), rec.tris.data_ptr(), rec.root),
+            work_buffer(bvh.bmin.device, stream))
 
 
-def _launch(name, args, kind, stats):
+def _launch(kind, args, thread, stats, work):
+    """Call the entry point; raise on a CUDA error code, first zeroing the
+    work counter (a refused launch may have left it drawn)."""
+    name = f"rtjax_binary_{kind}" + ("_thread" if thread else "")
     rc = getattr(_kernels(), name)(*args)
     if rc != 0:
+        if work is not None:
+            work.zero_()
         raise RuntimeError(f"binary {kind} kernel launch failed: CUDA error "
                            f"{rc}")
-    (LAUNCHES if stats is None else STATS_LAUNCHES)[kind] += 1
+    counts = THREAD_LAUNCHES if thread else (
+        LAUNCHES if stats is None else STATS_LAUNCHES)
+    counts[kind] += 1
 
 
-def _closest_cuda(bvh, tris, o, d, tmax, active, n_stack, stats):
+def _tail(n_stack, work, stats, stream):
+    return (n_stack,) + (() if work is None else (work.data_ptr(),)) + (
+        None if stats is None else stats.data_ptr(), stream)
+
+
+def _closest_cuda(bvh, tris, o, d, tmax, active, n_stack, stats,
+                  thread=False):
     n = tmax.shape[0]
     dev = tmax.device
     hit = torch.empty(n, dtype=torch.bool, device=dev)
@@ -174,26 +293,27 @@ def _closest_cuda(bvh, tris, o, d, tmax, active, n_stack, stats):
     nrm = tuple(torch.empty(n, dtype=torch.float32, device=dev)
                 for _ in range(3))
     stream = torch.cuda.current_stream(dev).cuda_stream
-    _launch("rtjax_binary_closest", (
-        *_scene_ptrs(bvh, tris), *(c.data_ptr() for c in o),
-        *(c.data_ptr() for c in d), tmax.data_ptr(), active.data_ptr(), n,
-        hit.data_ptr(), t.data_ptr(), u.data_ptr(), v.data_ptr(),
-        prim.data_ptr(), *(c.data_ptr() for c in nrm), n_stack,
-        None if stats is None else stats.data_ptr(), stream), "closest",
-        stats)
+    head, work = _scene_args(bvh, tris, thread, stream)
+    _launch("closest", (
+        *head, *(c.data_ptr() for c in o), *(c.data_ptr() for c in d),
+        tmax.data_ptr(), active.data_ptr(), n, hit.data_ptr(), t.data_ptr(),
+        u.data_ptr(), v.data_ptr(), prim.data_ptr(),
+        *(c.data_ptr() for c in nrm), *_tail(n_stack, work, stats, stream)),
+        thread, stats, work)
     return hit, t, u, v, prim, nrm
 
 
-def _anyhit_cuda(bvh, tris, o, d, tmax, exclude, active, n_stack, stats):
+def _anyhit_cuda(bvh, tris, o, d, tmax, exclude, active, n_stack, stats,
+                 thread=False):
     n = tmax.shape[0]
     occ = torch.empty(n, dtype=torch.bool, device=tmax.device)
     stream = torch.cuda.current_stream(tmax.device).cuda_stream
-    _launch("rtjax_binary_anyhit", (
-        *_scene_ptrs(bvh, tris), *(c.data_ptr() for c in o),
-        *(c.data_ptr() for c in d), tmax.data_ptr(), active.data_ptr(),
-        exclude.data_ptr(), n, occ.data_ptr(), n_stack,
-        None if stats is None else stats.data_ptr(), stream), "anyhit",
-        stats)
+    head, work = _scene_args(bvh, tris, thread, stream)
+    _launch("anyhit", (
+        *head, *(c.data_ptr() for c in o), *(c.data_ptr() for c in d),
+        tmax.data_ptr(), active.data_ptr(), exclude.data_ptr(), n,
+        occ.data_ptr(), *_tail(n_stack, work, stats, stream)),
+        thread, stats, work)
     return occ
 
 
@@ -203,6 +323,41 @@ def traverse_closest(bvh: BvhArrays, tris: Triangles, origin, direction,
     """Closest hit of every active ray: ``(hit, t, u, v, prim, normal)``,
     and with ``with_stats`` a trailing ``(node_pair_steps,
     leaf_visits)``."""
+    return _closest(bvh, tris, origin, direction, tmax, active, stack_size,
+                    with_stats, False)
+
+
+def traverse_anyhit(bvh: BvhArrays, tris: Triangles, origin, direction,
+                    tmax, exclude, active, stack_size: int = BVH_MAX_DEPTH,
+                    with_stats: bool = False):
+    """Occlusion of every active ray, ignoring its ``exclude`` prim; with
+    ``with_stats``, ``(occluded, (node_pair_steps, leaf_visits))``."""
+    return _anyhit(bvh, tris, origin, direction, tmax, exclude, active,
+                   stack_size, with_stats, False)
+
+
+def traverse_closest_thread(bvh: BvhArrays, tris: Triangles, origin,
+                            direction, tmax, active,
+                            stack_size: int = BVH_MAX_DEPTH,
+                            with_stats: bool = False):
+    """:func:`traverse_closest` through the first design's kernels (one
+    thread a ray, counted in ``THREAD_LAUNCHES``); the plain version on the
+    CPU."""
+    return _closest(bvh, tris, origin, direction, tmax, active, stack_size,
+                    with_stats, True)
+
+
+def traverse_anyhit_thread(bvh: BvhArrays, tris: Triangles, origin,
+                           direction, tmax, exclude, active,
+                           stack_size: int = BVH_MAX_DEPTH,
+                           with_stats: bool = False):
+    """:func:`traverse_anyhit` through the first design's kernels."""
+    return _anyhit(bvh, tris, origin, direction, tmax, exclude, active,
+                   stack_size, with_stats, True)
+
+
+def _closest(bvh, tris, origin, direction, tmax, active, stack_size,
+             with_stats, thread):
     as_v3 = isinstance(origin, (tuple, list))
     o, d = _columns(origin), _columns(direction)
     _check(bvh, tris, o, d, tmax, active)
@@ -210,7 +365,7 @@ def traverse_closest(bvh: BvhArrays, tris: Triangles, origin, direction,
     if tmax.device.type == "cuda":
         stats = _stats_buffer(tmax.device) if with_stats else None
         *res, nrm = _closest_cuda(bvh, tris, o, d, tmax, active, n_stack,
-                                  stats)
+                                  stats, thread)
         st = () if stats is None else ((stats[0], stats[1]),)
     elif tmax.device.type == "cpu":
         *res, nrm, st = _closest_ref(bvh, tris, o, d, tmax, active, n_stack,
@@ -221,18 +376,15 @@ def traverse_closest(bvh: BvhArrays, tris: Triangles, origin, direction,
     return (*res, _out_normal(nrm, as_v3), *st)
 
 
-def traverse_anyhit(bvh: BvhArrays, tris: Triangles, origin, direction,
-                    tmax, exclude, active, stack_size: int = BVH_MAX_DEPTH,
-                    with_stats: bool = False):
-    """Occlusion of every active ray, ignoring its ``exclude`` prim; with
-    ``with_stats``, ``(occluded, (node_pair_steps, leaf_visits))``."""
+def _anyhit(bvh, tris, origin, direction, tmax, exclude, active, stack_size,
+            with_stats, thread):
     o, d = _columns(origin), _columns(direction)
     _check(bvh, tris, o, d, tmax, active, exclude)
     n_stack = stack_len_checked(bvh, stack_size)
     if tmax.device.type == "cuda":
         stats = _stats_buffer(tmax.device) if with_stats else None
         occ = _anyhit_cuda(bvh, tris, o, d, tmax, exclude, active, n_stack,
-                           stats)
+                           stats, thread)
         return (occ, (stats[0], stats[1])) if with_stats else occ
     if tmax.device.type == "cpu":
         occ, st = _anyhit_ref(bvh, tris, o, d, tmax, exclude, active,
@@ -246,10 +398,11 @@ def traverse_anyhit(bvh: BvhArrays, tris: Triangles, origin, direction,
 def new_work() -> dict:
     """An empty work count for the plain walks' ``work`` argument:
     ``steps`` (node-pair steps), ``leafs`` (leaf visits), ``tri_tests``
-    (triangles tested) and the ``pair_seen`` / ``tri_seen`` masks of the
-    node pairs and triangles read (made at the first walk)."""
-    return {"steps": 0, "leafs": 0, "tri_tests": 0, "pair_seen": None,
-            "tri_seen": None}
+    (triangles tested), ``rounds`` (the longest walk's node-pair steps: the
+    batched walk's rounds) and the ``pair_seen`` / ``tri_seen`` masks of
+    the node pairs and triangles read (made at the first walk)."""
+    return {"steps": 0, "leafs": 0, "tri_tests": 0, "rounds": 0,
+            "pair_seen": None, "tri_seen": None}
 
 
 def _pair(work, device):
@@ -354,6 +507,7 @@ def _walk(bvh, tris, o, d, tmax, active, n_stack, exclude, work, finish):
         leaf_l, leaf_r = np_l > 0, np_r > 0
         if work is not None:
             work["steps"] += k
+            work["rounds"] += 1
             work["leafs"] += int((ok_l & leaf_l).sum()) + \
                 int((ok_r & leaf_r).sum())
             work["pair_seen"][left] = True

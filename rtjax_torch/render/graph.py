@@ -28,14 +28,20 @@ host issuing them one by one.
   that it was captured for, held strongly; a later frame of the same key
   resets the static carry and replays from its first step.
   :func:`clear_graphs` drops it.
+- **Device loops.**  Repass's passes (render/trace.py) are rtjax's
+  ``while_loop``: captured into CUDA-graph while nodes
+  (render/device_loop.py), which a replay runs while a ray is pending.
 - **Launch counts.**  The kernel wrappers count their launches in Python
   (``LAUNCHES`` of every kernel module), which a replay does not run;
   the launches counted while capturing are taken back, and each replay
-  adds them once (kernels/counts.py).
-- **No fallback.**  A step that reads the device from the host cannot be
-  captured: the capture raises, and the frame is not rendered another
-  way.  The modes whose step reads the device by design are known
-  before the frame (``trace.step_has_host_reads``) and never come here.
+  adds those outside the device loops once (kernels/counts.py).  A
+  loop's body adds its launches once for every run of the body, read
+  from the loop's device counter with the loop condition
+  (:meth:`StepGraph.account`).
+- **No fallback.**  Every mode's step is device-only, repass's passes
+  too, so every mode comes here.  A step that reads the device from the
+  host cannot be captured: the capture raises, and the frame is not
+  rendered another way.
 """
 
 from __future__ import annotations
@@ -48,6 +54,7 @@ import torch
 from ..core import rng
 from ..kernels import counts, persist
 from ..utils.log import logger
+from . import device_loop
 from . import wavefront as wf
 
 _cache: list = []     # the one cached StepGraph
@@ -55,8 +62,9 @@ _streams: dict = {}   # device -> the capture stream
 
 
 def clear_graphs() -> None:
-    """Drop the cached graph (and the memory of its pool)."""
-    _cache.clear()
+    """Drop the cached graph (and the memory of its pools)."""
+    while _cache:
+        _cache.pop().drop()
 
 
 def cached():
@@ -113,9 +121,11 @@ class StepGraph:
         self.carry = carry
         self.graph = None
         self.words = None
-        self.launches = {}    # the step's launches, by (counter, kernel)
+        self.launches = {}    # the step's launches outside device loops
+        self.loops = None     # the step's device loops (Recorder)
+        self._runs = []       # each loop's body runs as last read
         self.capture_s = 0.0  # this frame's seconds of capture
-        self.pool_bytes = 0   # the graph pool's segments, in bytes
+        self.pool_bytes = 0   # the graph pools' segments, in bytes
 
     def matches(self, scene, camera, cfg) -> bool:
         return (self.key[0] is scene and self.key[1] is camera
@@ -126,6 +136,33 @@ class StepGraph:
         for s, v in zip(flatten(self.carry), flatten(carry), strict=True):
             s.copy_(v)
         self.capture_s = 0.0
+
+    def drop(self) -> None:
+        """Free the graph, then the device loops' pool."""
+        self.graph = None
+        if self.loops is not None:
+            self.loops.release()
+            self.loops = None
+
+    def _loops(self) -> list:
+        return self.loops.loops if self.loops is not None else []
+
+    def totals(self) -> torch.Tensor:
+        """The device loops' body runs so far (int64 ``[loops]``), to be
+        read with the loop condition and handed to :meth:`account`."""
+        runs = [r for r, _ in self._loops()]
+        if not runs:
+            return torch.zeros(0, dtype=torch.int64,
+                               device=self.carry[1].device)
+        return torch.stack(runs)
+
+    def account(self, runs) -> None:
+        """Add each device loop's body launches once for every body run
+        since the last read (``runs`` as :meth:`totals` gave them)."""
+        for j, ((_, launches), now) in enumerate(zip(self._loops(), runs,
+                                                     strict=True)):
+            counts.add(launches, now - self._runs[j])
+            self._runs[j] = now
 
     def step(self, generator) -> None:
         """One step: the eager first step and the capture when there is no
@@ -156,21 +193,38 @@ class StepGraph:
         torch.cuda.empty_cache()   # as the capture does; then the pool's
         reserved = torch.cuda.memory_reserved(dev)   # segments are new
         graph = torch.cuda.CUDAGraph()
+        loops = device_loop.Recorder(dev)
         try:
-            with torch.cuda.graph(graph, stream=stream):
+            with loops.recording(), torch.cuda.graph(graph, stream=stream):
                 store(self.carry, wf.frame_step(scene, camera, cfg,
                                                 self.words, self.carry))
-            # counted once while capturing, launched by every replay
+            # counted once while capturing: those outside the device loops
+            # are launched by every replay, a loop's body by every run
             self.launches = counts.delta(before, counts.snapshot())
+            for _, body in loops.loops:
+                counts_sub(self.launches, body)
+        except BaseException:
+            loops.release()
+            raise
         finally:
             counts.restore(before)
         torch.cuda.current_stream(dev).wait_stream(stream)
-        self.graph = graph
+        loops.start()
+        self.graph, self.loops = graph, loops
+        self._runs = [0] * len(loops.loops)
         self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
         self.capture_s = time.perf_counter() - t0
         logger.info(f"captured the wavefront step as a CUDA graph in "
                     f"{self.capture_s:.3f} s; graph pool "
                     f"{self.pool_bytes} bytes")
+
+
+def counts_sub(launches: dict, body: dict) -> None:
+    """Take a loop body's launches out of a step's (in place)."""
+    for k, n in body.items():
+        launches[k] -= n
+        if launches[k] == 0:
+            del launches[k]
 
 
 def frame_steps(scene, camera, cfg, carry) -> StepGraph:

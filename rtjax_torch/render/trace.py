@@ -27,8 +27,11 @@ chosen by ``RenderConfig.two_level`` (``two_level_anyhit`` follows it on
   then, per mesh, passes in which every ray walks its nearest
   not-yet-walked candidate instance (world-box entry closer than its
   current t) in its local frame, all rays of a pass in one launch over the
-  shared BLAS.  rtjax's ``lax.while_loop`` over passes is a Python loop
-  reading one device value per pass;
+  shared BLAS.  rtjax's ``lax.while_loop`` over passes is a device loop
+  (render/device_loop.py): inside the captured step a CUDA-graph while
+  node on the device condition, op by op G passes for a mesh of G
+  instances (rtjax's bound), each masked on the device; the step reads
+  nothing from the host and is captured like every other mode's;
 - "kernel": one launch of the two-level kernels (kernels/wide_inst.py).
 
 An instanced scene under "xla", or one without two-level tables (a mesh
@@ -68,6 +71,7 @@ from ..kernels.traversal import traverse_anyhit, traverse_closest
 from ..kernels.wide import wide_traverse_anyhit, wide_traverse_closest
 from ..kernels.wide_inst import (wide_traverse_anyhit_inst,
                                  wide_traverse_closest_inst)
+from . import device_loop
 
 _REPASS_BIG = 3.0e38   # rtjax's "no candidate" entry distance
 
@@ -192,64 +196,42 @@ def _resolve_two_level(cfg) -> str:
     return "repass" if cfg.two_level == "auto" else cfg.two_level
 
 
-def step_has_host_reads(scene, cfg) -> bool:
-    """Whether a wavefront step on ``scene`` under ``cfg`` reads the
-    device from the host, so that no CUDA graph can hold it: repass
-    (``two_level`` or ``two_level_anyhit`` resolving to "repass" on a
-    scene with two-level tables), whose passes each read ``pend.any()``
-    and copy the pass's instance ids to the device.  Every other mode's
-    step is device-only: the single-level walkers and the direct pair, the
-    binary walk, rtjax's per-instance loop (a static loop over the
-    instances), the two-level kernels, every sort mode and estimator."""
-    if scene.instances is None or not _two_level_tables(
-            scene, resolve_mode(scene, cfg)):
-        return False
-    return "repass" in (_resolve_two_level(cfg), _anyhit_two_level(cfg))
-
-
-def _mesh_groups(inst) -> dict:
-    """Instance ids by mesh: ``{mesh_id: [k, ...]}``."""
-    groups: dict[int, list[int]] = {}
-    for k, m in enumerate(inst.mesh_id):
-        groups.setdefault(int(m), []).append(k)
-    return groups
-
-
-def _repass_setup(inst, ks, o, d):
+def _repass_setup(grp, o, d):
     """Entry distances ``ent [G, N]`` (0 for origins inside the box) and
     the hit-the-box mask ``ok [G, N]`` of one mesh group's world boxes."""
-    boxes = torch.cat([inst.aabb_lo[ks], inst.aabb_hi[ks]], 1)[:, None]
-    entry, exit_ = slab(boxes, *slab_pre(o, d))
+    entry, exit_ = slab(grp.boxes, *slab_pre(o, d))
     return torch.clamp(entry, min=0.0), (entry <= exit_) & (exit_ >= 0.0)
 
 
-def _repass_passes(scene, o, d, active, blocked):
-    """Yield, per mesh and pass, ``(blas, pend, src_k, o_l, d_l)``:
-    the rays whose nearest unwalked candidate instance is still admitted by
-    ``blocked() -> [G, N] bool`` (False = candidate), and their rays in that
-    instance's frame.  One device read per pass decides whether another
-    pass is needed."""
-    inst = scene.instances
-    for mesh_id, ks in _mesh_groups(inst).items():
-        ent, ok = _repass_setup(inst, ks, o, d)
-        inv = inst.inv[ks]
-        src_of = torch.tensor([k + 1 for k in ks], dtype=torch.int32,
-                              device=ent.device)
-        g_iota = torch.arange(len(ks), device=ent.device)[:, None]
+def _repass_passes(scene, o, d, active, blocked, body):
+    """rtjax's repass loop over every mesh group: passes while a ray is
+    pending, at most ``G`` for a group of ``G`` instances (rtjax's bound:
+    each pass walks one candidate of every pending ray), through
+    render/device_loop.py: ``G`` passes masked on the device outside a
+    capture, a while node inside one.  ``pend`` holds the rays whose
+    nearest unwalked candidate instance is still admitted by ``blocked()
+    -> [G, N] bool`` (False = candidate).  A pass calls ``body(blas,
+    pend, src_k, o_l, d_l)`` with the rays in their picked instance's
+    frame; the body updates its state in place, and a pass with no
+    pending ray leaves it bitwise as it was.  No pass reads the device
+    from the host."""
+    for grp in scene.instances.groups:
+        ent, ok = _repass_setup(grp, o, d)
         walked = torch.zeros_like(ok)
-        while True:
-            cand = ok & ~walked & active[None] & ~blocked(ent)
-            pend = cand.any(0)
-            if not bool(pend.any()):
-                break
+        cand = ok & active[None] & ~blocked(ent)
+        pend = cand.any(0)
+        blas = scene.blas[grp.mesh_id]
+        for _ in device_loop.passes(pend, grp.size):
             pick = torch.argmin(torch.where(cand, ent, _REPASS_BIG), dim=0)
-            walked |= (g_iota == pick[None]) & pend[None]
-            rows = inv[pick]
-            o_l = apply_affine_point(rows, o)
-            d_l = apply_affine_vector(rows, d)
-            yield (scene.blas[mesh_id], pend, src_of[pick],
-                   tuple(c.contiguous() for c in o_l),
-                   tuple(c.contiguous() for c in d_l))
+            # pick is 0 where no candidate is left: keep it masked
+            walked |= (grp.g_iota == pick[None]) & pend[None]
+            rows = grp.inv[pick]
+            body(blas, pend, grp.src_of[pick],
+                 tuple(c.contiguous() for c in apply_affine_point(rows, o)),
+                 tuple(c.contiguous() for c in apply_affine_vector(rows, d)))
+            torch.logical_and(ok & ~walked & active[None], ~blocked(ent),
+                              out=cand)
+            torch.any(cand, 0, out=pend)
 
 
 def _add(st, more):
@@ -261,24 +243,31 @@ def _repass_closest(scene, cfg, o, d, tmax, active, with_stats=False):
     """Two-level closest hit by multi-pass re-dispatch; the normal is
     LOCAL.  Every launch takes the kernel :func:`_backend` picks for its
     mesh.  Returns ``(hit, t, prim, src, n_l, counts)``, counts summed
-    over the launches (None without ``with_stats``)."""
+    over the launches (None without ``with_stats``).  The passes update
+    the base launch's results in place."""
     hit, t, prim, n_l, *st = _backend(scene, cfg, with_stats)[0](
         o, d, tmax, active)
-    st = st[0] if with_stats else None
+    st = tuple(c.clone() for c in st[0]) if with_stats else None
     t = torch.where(hit, t, tmax)
+    hit, prim = hit.clone(), prim.clone()
+    n_l = tuple(c.clone() for c in n_l)
     src = torch.zeros_like(prim)
-    for blas, pend, src_k, o_l, d_l in _repass_passes(
-            scene, o, d, active, lambda ent: ~(ent < t[None])):
+
+    def merge(blas, pend, src_k, o_l, d_l):
         h2, t2, p2, nl2, *st2 = _backend(blas, cfg, with_stats)[0](
             o_l, d_l, t, pend)
         if with_stats:
-            st = _add(st, st2[0])
+            for a, b in zip(st, st2[0]):
+                a += b
         closer = h2 & (t2 < t)
-        t = torch.where(closer, t2, t)
-        prim = torch.where(closer, p2, prim)
-        src = torch.where(closer, src_k, src)
-        n_l = vec.where(closer, nl2, n_l)
-        hit = hit | closer
+        torch.where(closer, t2, t, out=t)
+        torch.where(closer, p2, prim, out=prim)
+        torch.where(closer, src_k, src, out=src)
+        for a, b in zip(n_l, nl2):
+            torch.where(closer, b, a, out=a)
+        hit.logical_or_(closer)
+
+    _repass_passes(scene, o, d, active, lambda ent: ~(ent < t[None]), merge)
     return hit, t, prim, src, n_l, st
 
 
@@ -292,16 +281,21 @@ def _repass_anyhit(scene, cfg, o, d, tmax, exclude, active,
     st = None
     if with_stats:
         occ, st = occ
+        st = tuple(c.clone() for c in st)
+    occ = occ.clone()
     no_excl = torch.full_like(exclude, -1)
-    for blas, pend, _, o_l, d_l in _repass_passes(
-            scene, o, d, active,
-            lambda ent: ~(ent < tmax[None]) | occ[None]):
+
+    def merge(blas, pend, _, o_l, d_l):
         occ_k = _backend(blas, cfg, with_stats)[1](o_l, d_l, tmax, no_excl,
                                                    pend)
         if with_stats:
             occ_k, st2 = occ_k
-            st = _add(st, st2)
-        occ = occ | occ_k
+            for a, b in zip(st, st2):
+                a += b
+        occ.logical_or_(occ_k)
+
+    _repass_passes(scene, o, d, active,
+                   lambda ent: ~(ent < tmax[None]) | occ[None], merge)
     return occ, st
 
 

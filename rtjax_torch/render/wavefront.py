@@ -41,9 +41,8 @@ is computed on the device.  So does this port: the loop condition and the
 ``sort_every`` cadence are device values, and ``render_frame_linear`` reads
 the condition back once every ``STEPS_PER_READ`` steps.  On the card each
 step replays one captured CUDA graph (render/graph.py), the counterpart of
-rtjax's ``jit``; on the CPU, and for the modes whose step still reads the
-device (repass's passes: ``trace.step_has_host_reads``), the same chunked
-loop runs op by op.
+rtjax's ``jit``, in every mode; on the CPU, and under ``graph=False``, the
+same chunked loop runs op by op.
 
 Differences from rtjax, none of which changes a result:
 
@@ -86,7 +85,7 @@ from .sorting import (oct_decode_v3, oct_encode_v3,
                       ray_sort_keys_v3, rgb9e5_decode_v3, rgb9e5_encode_v3,
                       sort_pytree_by_key, take_pytree)
 from .trace import (check_config, gather_hit_materials_v3, resolve_mode,
-                    step_has_host_reads, trace_anyhit, trace_closest)
+                    trace_anyhit, trace_closest)
 
 # random word ids: each word splits into two 16-bit uniforms
 _W_RR_PICK = 0      # (RR uniform, light pick)
@@ -604,9 +603,8 @@ def frame_step(scene: Scene, camera: Camera, cfg: RenderConfig, words,
 
 
 class _EagerSteps:
-    """Steps run op by op: the loop on the CPU, on the card under
-    ``graph=False``, and for the modes whose step reads the device
-    (``trace.step_has_host_reads``)."""
+    """Steps run op by op: the loop on the CPU, and on the card under
+    ``graph=False``."""
 
     graphed = False
 
@@ -618,6 +616,13 @@ class _EagerSteps:
     def step(self, generator):
         self.carry = self._step(
             rng.bits_block(generator, NUM_RNG_WORDS, self._n), self.carry)
+
+    def totals(self):
+        """No device loops: every launch was counted as it ran."""
+        return torch.zeros(0, dtype=torch.int64, device=self.carry[1].device)
+
+    def account(self, runs):
+        pass
 
 
 def _run_chunks(loop, cfg: RenderConfig, generator) -> tuple:
@@ -641,13 +646,14 @@ def _run_chunks(loop, cfg: RenderConfig, generator) -> tuple:
             marks.append((generator.get_state(), counts.snapshot()))
             loop.step(generator)
         carry = loop.carry
-        more, now = torch.stack((_more(carry, cfg).long(),
-                                 carry[3])).tolist()
+        more, now, *runs = torch.cat((torch.stack((
+            _more(carry, cfg).long(), carry[3])), loop.totals())).tolist()
         reads += 1
         if now - it < k:
             state, snap = marks[now - it]
             generator.set_state(state)
             counts.restore(snap)
+        loop.account(runs)   # the device loops' bodies, as they ran
         it = now
         if not more:
             break
@@ -668,10 +674,8 @@ def render_frame_linear(scene: Scene, camera: Camera, cfg: RenderConfig,
     On the card the steps replay a captured CUDA graph (render/graph.py;
     ``"graphed"`` True, with ``"capture_s"``, the seconds this frame spent
     capturing, 0 when the graph was cached, and ``"graph_pool_bytes"``),
-    except for the modes whose step reads the device
-    (``trace.step_has_host_reads``) and under ``graph=False``, which run
-    the same loop op by op.  ``"host_reads"`` counts the loop's blocking
-    device reads."""
+    in every mode; ``graph=False`` runs the same loop op by op.
+    ``"host_reads"`` counts the loop's blocking device reads."""
     check_slice(scene, cfg)
     dev = scene.device
     if generator.device.type != dev.type:
@@ -682,7 +686,7 @@ def render_frame_linear(scene: Scene, camera: Camera, cfg: RenderConfig,
                                      device=dev),) + carry[4:]
     if _blocked_order(cfg):
         blocked_pixel_table(cfg.width, cfg.height, carry[0].pixel.device)
-    if graph and dev.type == "cuda" and not step_has_host_reads(scene, cfg):
+    if graph and dev.type == "cuda":
         from .graph import frame_steps
         loop = frame_steps(scene, camera, cfg, carry)
     else:

@@ -206,3 +206,174 @@ def test_pallas_without_wide_tables_raises():
     scene = _quad_scene(max_leaf_size=None)
     with pytest.raises(ValueError, match="max_leaf_size <= 8"):
         trace.resolve_mode(scene, RenderConfig(traversal="pallas"))
+
+
+# ------------------------------------------------- the fetch design (records)
+
+def shifted_bvh(bvh, tris):
+    """``bvh`` with one unused leaf inserted at node 1, so that every pair
+    starts at an even id: the walk is the same, the records need the map
+    from pairs to node ids."""
+    lf, npr = bvh.left_first.clone(), bvh.num_prims
+    lf[npr == 0] += 1
+    pad = lambda a, v: torch.cat([a[:1], v, a[1:]])
+    return BvhArrays(pad(bvh.bmin, torch.full((1, 3), 7.0)),
+                     pad(bvh.bmax, torch.full((1, 3), 8.0)),
+                     pad(lf, torch.zeros(1, dtype=torch.int32)),
+                     pad(npr, torch.ones(1, dtype=torch.int32)),
+                     max_depth=bvh.max_depth), tris
+
+
+def unpack(rec, num_nodes):
+    """The node arrays the records hold, back in node ids: ``(bmin, bmax,
+    left_first, num_prims)`` with the rows of nodes in no pair (the root,
+    unused nodes) NaN / -1, and ``(p0, e1, e2, n)``."""
+    bits = rec.pairs.view(torch.int32)
+    left = rec.pair_left
+    bmin = torch.full((num_nodes, 3), float("nan"))
+    bmax = torch.full((num_nodes, 3), float("nan"))
+    lf = torch.full((num_nodes,), -1, dtype=torch.int32)
+    npr = torch.full((num_nodes,), -1, dtype=torch.int32)
+    for side in (0, 1):
+        node = left + side
+        bmin[node] = rec.pairs[:, 6 * side:6 * side + 3]
+        bmax[node] = rec.pairs[:, 6 * side + 3:6 * side + 6]
+        word, count = bits[:, 12 + 2 * side], bits[:, 13 + 2 * side]
+        npr[node] = count
+        inner = left[torch.where(count > 0, 0, word).long()]
+        lf[node] = torch.where(count > 0, word, inner.to(torch.int32))
+    lf[0] = left[rec.root]
+    tri = rec.tris.view(-1, 4, 3)
+    return (bmin, bmax, lf, npr), tuple(tri[:, k] for k in range(4))
+
+
+def _same_bits(a, b):
+    return a.shape == b.shape and torch.equal(a.view(torch.int32),
+                                              b.view(torch.int32))
+
+
+def _trees():
+    return {"soup leaf 1": _soup(max_leaf=1), "soup leaf 4": _soup(),
+            "soup leaf 8": _soup(n=300, max_leaf=8),
+            "deep": deep_bvh(), "deep shifted": shifted_bvh(*deep_bvh()),
+            "soup shifted": shifted_bvh(*_soup(n=200))}
+
+
+@pytest.mark.parametrize("name", list(_trees()))
+def test_records_unpack_to_the_arrays(name):
+    """Every pair record holds its children's boxes and words bit for bit
+    (an internal child's word mapped back through ``pair_left``), the root
+    word its children's pair, every triangle record p0, e1, e2, n; every
+    index in int64."""
+    bvh, tris = _trees()[name]
+    rec = T.pack_records(bvh, tris)
+    inner = bvh.num_prims == 0
+    assert rec.pairs.shape == (int(inner.sum()), T.PAIR_WORDS)
+    assert rec.tris.shape == (tris.num, T.TRI_WORDS)
+    assert rec.pair_left.dtype == torch.int64
+    assert torch.equal(rec.pair_left,
+                       torch.sort(bvh.left_first[inner].long()).values)
+    (bmin, bmax, lf, npr), tri = unpack(rec, bvh.num_nodes)
+    in_pair = torch.zeros(bvh.num_nodes, dtype=torch.bool)
+    in_pair[rec.pair_left] = True
+    in_pair[rec.pair_left + 1] = True
+    assert _same_bits(bmin[in_pair], bvh.bmin[in_pair])
+    assert _same_bits(bmax[in_pair], bvh.bmax[in_pair])
+    assert torch.equal(npr[in_pair], bvh.num_prims[in_pair])
+    assert torch.equal(lf[in_pair], bvh.left_first[in_pair])
+    assert int(lf[0]) == int(bvh.left_first[0])
+    for got, want in zip(tri, (tris.p0, tris.e1, tris.e2, tris.n)):
+        assert _same_bits(got.contiguous(), want)
+    shifted = name.endswith("shifted")
+    assert bool((rec.pair_left % 2 == 0).all()) == shifted
+    assert bool((rec.pair_left % 2 == 1).all()) != shifted
+
+
+def test_shifted_tree_walks_the_same():
+    """The shifted tree is the same tree: the plain walks agree with the
+    original's, hits and counts."""
+    bvh, tris = _soup(n=200)
+    rng = np.random.default_rng(3)
+    o = torch.tensor(rng.uniform(-2, 2, (256, 3)).astype(np.float32))
+    d = torch.tensor(rng.normal(size=(256, 3)).astype(np.float32))
+    d = d / d.norm(dim=1, keepdim=True)
+    tmax, active = torch.full((256,), np.inf), torch.ones(256, dtype=bool)
+    want = T.traverse_closest(bvh, tris, o, d, tmax, active,
+                              with_stats=True)
+    got = T.traverse_closest(*shifted_bvh(bvh, tris), o, d, tmax, active,
+                             with_stats=True)
+    for a, b in zip(got[:5], want[:5]):
+        assert torch.equal(a, b)
+    assert [int(v) for v in got[6]] == [int(v) for v in want[6]]
+    assert bool(want[0].any())
+
+
+def test_records_are_packed_once_and_dropped_with_the_tree():
+    bvh, tris = _soup()
+    rec = T.binary_records(bvh, tris)
+    assert T.binary_records(bvh, tris) is rec
+    key = (id(bvh), id(tris))
+    assert T._records[key] is rec
+    del bvh
+    assert key not in T._records
+    assert rec.nbytes == (rec.pairs.numel() + rec.tris.numel()) * 4
+
+
+def test_records_of_a_scene_past_the_prim_cap(monkeypatch):
+    """A mesh past ``accel.wide.PRIM_CAP`` (patched small) has no wide
+    tables and takes the binary walk: its records, the scene's and the
+    BLAS's, unpack to their arrays."""
+    from rtjax_torch.accel import wide
+    from rtjax_torch.scene.transform import Transform, translate
+    monkeypatch.setattr(wide, "PRIM_CAP", 8)
+    b = SceneBuilder()
+    white = b.make_matte((0.7, 0.7, 0.7))
+    rng = np.random.default_rng(2)
+    for _ in range(12):
+        p = rng.uniform(-1, 1, (3, 3))
+        b.add_triangles(p[0], p[1], p[2], white)
+    v = rng.uniform(-0.2, 0.2, (30, 3))
+    mid = b.register_mesh(v, np.arange(30).reshape(10, 3))
+    b.add_instance(mid, white, Transform(translate(0.3, 0, 0)))
+    scene = b.build("cpu")
+    assert scene.tables is None and scene.blas[0].tables is None
+    assert trace.resolve_mode(scene, RenderConfig()) == "xla"
+    for bvh, tris in ((scene.bvh, scene.tris),
+                      (scene.blas[0].bvh, scene.blas[0].tris)):
+        rec = T.binary_records(bvh, tris)
+        (bmin, _, lf, npr), tri = unpack(rec, bvh.num_nodes)
+        kids = torch.cat([rec.pair_left, rec.pair_left + 1])
+        assert torch.equal(lf[kids], bvh.left_first[kids])
+        assert torch.equal(npr[kids], bvh.num_prims[kids])
+        assert _same_bits(bmin[kids], bvh.bmin[kids])
+        assert _same_bits(tri[3].contiguous(), tris.n)
+
+
+@pytest.mark.parametrize("n_stack", [1, 31, 96, T.MAX_STACK])
+def test_launch_shared_memory_holds_the_stack(n_stack):
+    """A block of either design holds ``n_stack`` int32 entries for each of
+    its 128 thread slots, within the card's 227 KB a block; ``MAX_STACK``
+    is the most that fit, and the wrappers refuse more."""
+    assert T.smem_bytes(n_stack) == 4 * n_stack * 128
+    assert T.smem_bytes(n_stack) <= T.SMEM_MAX
+    assert T.smem_bytes(T.MAX_STACK + 1) > T.SMEM_MAX
+    bvh, _ = deep_bvh(max_depth=n_stack - 1)
+    assert T.stack_len_checked(bvh, 1) == n_stack
+
+
+def test_thread_wrappers_take_the_plain_version_on_cpu():
+    bvh, tris = _soup()
+    o, d, tmax = _args(n=16)
+    active = torch.ones(16, dtype=torch.bool)
+    before = dict(T.REF_CALLS)
+    want = T.traverse_closest(bvh, tris, o, d, tmax, active)
+    got = T.traverse_closest_thread(bvh, tris, o, d, tmax, active)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    occ = T.traverse_anyhit_thread(bvh, tris, o, d, tmax,
+                                   torch.full((16,), -1, dtype=torch.int32),
+                                   active)
+    assert occ.dtype == torch.bool
+    assert T.REF_CALLS["closest"] == before["closest"] + 2
+    assert T.REF_CALLS["anyhit"] == before["anyhit"] + 1
+    assert T.THREAD_LAUNCHES == {"closest": 0, "anyhit": 0}

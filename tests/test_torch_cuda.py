@@ -791,16 +791,18 @@ def _soup_bvh(device, max_leaf=4):
 
 
 def _binary_equal(bvh, tris, o, d, tmax, active, exclude):
-    """Both binary kernels and their stats instances against the plain
-    versions, bit for bit; the counts equal."""
+    """Both binary kernels (the fetch design), their stats instances and
+    the first design's kernels against the plain versions, bit for bit;
+    the counts equal; the stream's work counter left zeroed."""
     work = T.new_work()
     ref = T.traverse_closest_ref(bvh, tris, o, d, tmax, active, work=work)
     got = T.traverse_closest(bvh, tris, o, d, tmax, active)
     sgot = T.traverse_closest(bvh, tris, o, d, tmax, active, with_stats=True)
-    for a, b, c in zip(got[:5], ref[:5], sgot[:5]):
-        assert torch.equal(a, b) and torch.equal(a, c)
-    for a, b, c in zip(got[5], ref[5], sgot[5]):
-        assert torch.equal(a, b) and torch.equal(a, c)
+    first = T.traverse_closest_thread(bvh, tris, o, d, tmax, active)
+    for a, b, c, e in zip(got[:5], ref[:5], sgot[:5], first[:5]):
+        assert torch.equal(a, b) and torch.equal(a, c) and torch.equal(a, e)
+    for a, b, c, e in zip(got[5], ref[5], sgot[5], first[5]):
+        assert torch.equal(a, b) and torch.equal(a, c) and torch.equal(a, e)
     assert (int(sgot[6][0]), int(sgot[6][1])) == (work["steps"],
                                                   work["leafs"])
     dead = ~active
@@ -813,9 +815,13 @@ def _binary_equal(bvh, tris, o, d, tmax, active, exclude):
     occ = T.traverse_anyhit(bvh, tris, o, d, tmax, exclude, active)
     occ_s, st = T.traverse_anyhit(bvh, tris, o, d, tmax, exclude, active,
                                   with_stats=True)
+    occ_t = T.traverse_anyhit_thread(bvh, tris, o, d, tmax, exclude, active)
     assert torch.equal(occ, occ_ref) and torch.equal(occ, occ_s)
+    assert torch.equal(occ, occ_t)
     assert (int(st[0]), int(st[1])) == (work["steps"], work["leafs"])
     assert not bool(occ[dead].any())
+    stream = torch.cuda.current_stream(tmax.device).cuda_stream
+    assert not bool(P.work_buffer(tmax.device, stream).any())
     return got, occ
 
 
@@ -856,6 +862,52 @@ def test_binary_kernels_hold_every_push(cuda, levels):
     assert bool(hit.all()) and bool((t == DEEP_T).all())
     _binary_equal(bvh, tris, *args, active,
                   torch.full((200,), -1, dtype=torch.int32, device=cuda))
+
+
+@pytest.mark.parametrize("tree", ["deep", "soup"])
+def test_binary_kernels_walk_a_tree_whose_pairs_need_the_map(cuda, tree):
+    """Pairs at even node ids (an unused node at 1): the records map them,
+    and both designs still equal the plain versions."""
+    from rtjax_torch.accel.bvh import BvhArrays
+    from rtjax_torch.core.geometry import Triangles
+    from test_torch_binary_launch import shifted_bvh
+    if tree == "deep":
+        bvh, tris = shifted_bvh(*deep_bvh())
+        o, d = (torch.tensor(a, device=cuda) for a in down_rays(300))
+        active = torch.ones(300, dtype=torch.bool, device=cuda)
+        exclude = torch.full((300,), -1, dtype=torch.int32, device=cuda)
+    else:
+        bvh, tris = shifted_bvh(*_soup_bvh("cpu"))
+        o, d, active, exclude = _rays(700, cuda, seed=9)
+    bvh = BvhArrays(*(a.to(cuda) for a in (bvh.bmin, bvh.bmax,
+                                           bvh.left_first, bvh.num_prims)),
+                    max_depth=bvh.max_depth)
+    tris = Triangles(*(a.to(cuda) for a in (tris.p0, tris.e1, tris.e2,
+                                            tris.n)))
+    assert bool((T.binary_records(bvh, tris).pair_left % 2 == 0).all())
+    n = active.shape[0]
+    got, _ = _binary_equal(bvh, tris, o, d,
+                           torch.full((n,), float("inf"), device=cuda),
+                           active, exclude)
+    assert bool(got[0].any())
+
+
+def test_binary_and_persist_launches_share_one_work_counter(cuda):
+    """Fetch-design binary launches between persist launches on one
+    stream: each draws from the stream's counter and leaves it zeroed."""
+    bvh, tris = _soup_bvh(cuda)
+    tables = _soup_tables(8, cuda)
+    n = 4000
+    o, d, active, exclude = _rays(n, cuda, seed=4)
+    tmax = torch.full((n,), float("inf"), device=cuda)
+    want = T.traverse_closest_ref(bvh, tris, o, d, tmax, active)
+    for _ in range(3):
+        P.persist_traverse_closest(tables, o, d, tmax, active)
+        got = T.traverse_closest(bvh, tris, o, d, tmax, active)
+        assert all(torch.equal(a, b) for a, b in zip(got[:5], want[:5]))
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    torch.cuda.synchronize()
+    assert not bool(P.work_buffer(cuda, stream).any())
 
 
 def test_binary_kernels_refuse_deeper_trees(cuda):
@@ -1300,17 +1352,67 @@ def test_graph_frame_equals_the_eager_loop(cuda, kind, change):
 @pytest.mark.parametrize("change", [
     dict(two_level="auto"), dict(two_level="repass"),
     dict(two_level="kernel", two_level_anyhit="repass")], ids=str)
-def test_repass_renders_uncaptured(cuda, change):
-    """The mode whose step reads the device (repass) runs the chunked loop
-    op by op, and says so."""
+def test_repass_renders_captured(cuda, change):
+    """Repass's step is captured like every other mode's, its passes as
+    CUDA-graph while nodes: the graph frame against the eager loop (G
+    masked passes a mesh group) on one seed, the same iterations, rays
+    and occupancy, the framebuffers within rtol 1e-5; the graph launched
+    fewer pass kernels (it skips the passes with no pending ray) and the
+    same of every other."""
     scene, cam = _graph_scene("instanced", cuda)
     cfg = RenderConfig(width=32, height=32, num_samples=8, max_bounces=4,
                        num_working_paths=4096, direct_max_tris=0, **change)
-    assert trace.step_has_host_reads(scene, cfg)
-    fb, st = render_frame(scene, cam, cfg,
-                          torch.Generator(device=cuda).manual_seed(1))
-    assert st["graphed"] is False and "capture_s" not in st
+    (fb, st, ran, gs), (fb0, st0, ran0, gs0) = _graph_vs_eager(scene, cam,
+                                                               cfg)
+    assert st["graphed"] is True and st["capture_s"] > 0
+    assert not st0["graphed"]
+    for k in ("iterations", "rays_traced", "avg_occupancy"):
+        assert st[k] == st0[k], k
+    assert ran and set(ran) == set(ran0)
+    assert all(0 < ran[k] <= ran0[k] for k in ran)
+    assert sum(ran.values()) < sum(ran0.values())
+    # beyond the first, eager step's G passes a channel, the replays'
+    # while nodes counted as they ran (their device counters)
+    assert any(n > scene.instances.num for (k, _), n in ran.items()
+               if k == ("persist", "LAUNCHES"))
+    assert torch.equal(gs, gs0)
+    torch.testing.assert_close(fb, fb0, rtol=1e-5, atol=1e-7)
     assert bool(torch.isfinite(fb).all()) and float(fb.sum()) > 0
+
+
+@pytest.mark.parametrize("cap", [100, 3])
+def test_device_loop_is_a_while_node(cuda, cap):
+    """A device loop captured into a graph runs its body while the
+    condition holds, at most ``n`` times a replay, and counts its runs;
+    the body's temporaries come from the recorder's pool."""
+    from rtjax_torch.render import device_loop
+    x = torch.zeros(4, device=cuda)
+    pend = torch.zeros(4, dtype=torch.bool, device=cuda)
+    rec = device_loop.Recorder(cuda)
+    stream = torch.cuda.Stream(cuda)
+    g = torch.cuda.CUDAGraph()
+    with rec.recording(), torch.cuda.graph(g, stream=stream):
+        torch.lt(x, 5.0, out=pend)
+        for _ in device_loop.passes(pend, cap):
+            x.copy_(x + 1.0)
+            torch.lt(x, 5.0, out=pend)
+        y = x * 2.0
+    rec.start()
+    (runs, body), = rec.loops
+    total = 0
+    for start in (0.0, 3.0, 10.0):
+        x.fill_(start)
+        g.replay()
+        torch.cuda.synchronize()
+        want = max(start, min(5.0, start + cap))
+        total += int(want - start)
+        assert x.tolist() == [want] * 4 and y.tolist() == [2 * want] * 4
+        assert int(runs) == total
+    assert body == {}
+    assert device_loop.body_stream(cuda) is rec.body_stream
+    assert rec.body_stream.cuda_stream != stream.cuda_stream
+    del g
+    rec.release()
 
 
 def test_capture_refuses_a_host_read(cuda, monkeypatch):

@@ -17,10 +17,12 @@ runs op by op and no graph is captured.
     words, over iterations where it sorts and where it skips.
 (d) ``wavefront_step`` takes ``it`` as a Python int and as a 0-d tensor,
     with the same results, and returns the type it was given.
-(e) ``trace.step_has_host_reads`` against the step itself: with the
-    kernels stubbed, a step that converts a tensor to a host value or
-    copies one to the device raises exactly where it says.
-(f) The graph module's carry plumbing (``flatten``, ``store``).
+(e) No mode's step reads the host: with the kernels stubbed, every
+    mode's step, repass's included, runs with every tensor-to-host
+    conversion and host-to-device copy trapped.
+(f) The graph module's carry plumbing (``flatten``, ``store``), a device
+    loop outside a capture, and a loop body's launches counted once a run
+    (``StepGraph.account``).
 (g) A frame against rtjax's ``render_frame_linear`` at the seed-to-seed
     noise floor.
 """
@@ -307,22 +309,25 @@ def _instanced():
     return b.build("cpu")
 
 
-@pytest.mark.parametrize("inst, change, reads", [
-    (False, {}, False),
-    (False, dict(traversal="xla"), False),
-    (False, dict(sort_rays=False), False),
-    (False, dict(reference_parity=True), False),
-    (False, dict(one_sample_mis=True), False),
-    (False, dict(detailed_stats=True, walker="packet"), False),
-    (False, dict(sort_every=2, num_samples=16), False),
-    (True, dict(two_level="kernel"), False),
-    (True, dict(traversal="xla"), False),
-    (True, dict(two_level="kernel", detailed_stats=True), False),
-    (True, {}, True),
-    (True, dict(two_level="kernel", two_level_anyhit="repass"), True),
+@pytest.mark.parametrize("inst, change", [
+    (False, {}),
+    (False, dict(traversal="xla")),
+    (False, dict(sort_rays=False)),
+    (False, dict(reference_parity=True)),
+    (False, dict(one_sample_mis=True)),
+    (False, dict(detailed_stats=True, walker="packet")),
+    (False, dict(sort_every=2, num_samples=16)),
+    (True, dict(two_level="kernel")),
+    (True, dict(traversal="xla")),
+    (True, dict(two_level="kernel", detailed_stats=True)),
+    (True, {}),
+    (True, dict(two_level="kernel", two_level_anyhit="repass")),
 ], ids=str)
-def test_host_reads_are_where_the_predicate_says(planes, inst, change,
-                                                  reads, monkeypatch):
+def test_no_mode_reads_the_host_in_a_step(planes, inst, change,
+                                          monkeypatch):
+    """Every mode's step, repass's passes included, runs with every
+    tensor-to-host conversion and host-to-device copy trapped: each can be
+    captured."""
     scene, cam = planes
     if inst:
         scene = _instanced()
@@ -330,21 +335,58 @@ def test_host_reads_are_where_the_predicate_says(planes, inst, change,
     cfg = RenderConfig(**{**dict(width=8, height=8, num_samples=4,
                                  max_bounces=2, num_working_paths=256,
                                  direct_max_tris=0), **change})
-    assert trace.step_has_host_reads(scene, cfg) is reads
     carry = _fresh(cfg)
     words = _words(0, 256)
     wf.blocked_pixel_table(8, 8, torch.device("cpu"))
     _stub_kernels(monkeypatch)
     carry = wf.frame_step(scene, cam, cfg, words, carry)
     _trap(monkeypatch)
-    if reads:
-        with pytest.raises(_HostRead):
-            wf.frame_step(scene, cam, cfg, words, carry)
-    else:
-        wf.frame_step(scene, cam, cfg, words, carry)
+    wf.frame_step(scene, cam, cfg, words, carry)
 
 
 # ------------------------------------------------- (f) the graph's carry
+
+def test_device_loop_runs_every_pass_outside_a_capture():
+    """Outside a captured graph (here: the CPU) a device loop runs its
+    body ``n`` times, whatever the condition; inside one it is a while
+    node (the card tests)."""
+    from rtjax_torch.render import device_loop
+    for pend in (torch.zeros(5, dtype=torch.bool),
+                 torch.ones(5, dtype=torch.bool)):
+        assert sum(1 for _ in device_loop.passes(pend, 7)) == 7
+
+
+def test_graph_counts_a_loop_body_once_a_run(planes):
+    """A captured step's launches outside its device loops are added once
+    a replay; a loop body's, once for every run its device counter read
+    since the last read (``StepGraph.account``)."""
+    from types import SimpleNamespace
+
+    from rtjax_torch.kernels import persist
+    scene, cam = planes
+    cfg = RenderConfig(width=W, height=H, num_samples=4, max_bounces=3,
+                       num_working_paths=512)
+    body = {(("persist", "LAUNCHES"), "closest"): 1}
+    step = {(("persist", "LAUNCHES"), "closest"): 3,
+            (("direct", "LAUNCHES"), "anyhit"): 2}
+    graph.counts_sub(step, body)
+    assert step == {(("persist", "LAUNCHES"), "closest"): 2,
+                    (("direct", "LAUNCHES"), "anyhit"): 2}
+    g = graph.StepGraph(scene, cam, cfg, _fresh(cfg))
+    assert g.totals().shape == (0,)
+    runs = torch.tensor(0, dtype=torch.int64)
+    g.loops = SimpleNamespace(loops=[(runs, body)])
+    g._runs = [0]
+    before = counts.snapshot()
+    try:
+        start = persist.LAUNCHES["closest"]
+        for now in (4, 4, 9):
+            runs.fill_(now)
+            g.account(g.totals().tolist())
+        assert persist.LAUNCHES["closest"] - start == 9
+    finally:
+        counts.restore(before)
+
 
 def test_store_copies_a_step_into_the_carry(planes):
     scene, cam = planes

@@ -188,3 +188,44 @@ def test_direct_build_without_nvcc_raises(tmp_path):
     res = _run(code, env)
     assert res.returncode == 0 and "raised: nvcc not found" in res.stdout, \
         res.stdout + res.stderr
+
+
+def test_loop_build_without_nvcc_raises(tmp_path):
+    env = dict(os.environ, CUDA_HOME=str(tmp_path),
+               PATH=os.pathsep.join(["/usr/bin", "/bin"]))
+    code = ("from rtjax_torch.kernels import _build\n"
+            "try:\n"
+            "    _build.loop_library()\n"
+            "except RuntimeError as e:\n"
+            "    print('raised:', e)\n")
+    res = _run(code, env)
+    assert res.returncode == 0 and "raised: nvcc not found" in res.stdout, \
+        res.stdout + res.stderr
+
+
+@pytest.mark.parametrize("name", ["wide_walk.cuh", "fetch_walk.cuh"])
+def test_binary_library_rebuilds_when_its_headers_change(tmp_path,
+                                                         monkeypatch, name):
+    """The binary walk's fetch design includes fetch_walk.cuh (and through
+    it wide_walk.cuh): a newer one makes its library stale."""
+    from rtjax_torch.kernels import _build
+    fake = tmp_path / "bin" / "nvcc"
+    fake.parent.mkdir()
+    fake.write_text('#!/bin/sh\nwhile [ "$1" != "-o" ]; do shift; done\n'
+                    'echo built > "$2"\n')
+    fake.chmod(0o755)
+    headers = {}
+    for h, attr in (("wide_walk.cuh", "WALK_HEADER"),
+                    ("fetch_walk.cuh", "FETCH_HEADER")):
+        headers[h] = tmp_path / h
+        headers[h].write_text("// header\n")
+        os.utime(headers[h], (0, 0))
+        monkeypatch.setattr(_build, attr, headers[h])
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "out")
+    lib = _build.binary_library()
+    future = lib.stat().st_mtime + 100
+    os.utime(lib, (future, future))
+    assert _build.binary_library().stat().st_mtime == future
+    os.utime(headers[name], (future + 100, future + 100))
+    assert _build.binary_library().stat().st_mtime != future
