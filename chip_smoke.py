@@ -11,12 +11,14 @@ the script exits non-zero):
 
 0. device: require CUDA; print the card's name and power limit, and the
    torch and CUDA versions;
-1. build: the BVH builder and the five kernel libraries from this
-   checkout's sources, into build/rtjax_torch/, all six compilers
-   started together; ptxas's registers, stack frame and spills of the
-   persist, two-level, packet and lane kernels (both designs, widths 8
-   and 16, the two-level fetch kernels with the instance records staged
-   or global; the binary-walk kernels' in phase 9, the direct pair's in
+1. build: the BVH builder and the seven kernel libraries (the persist,
+   two-level, packet and lane, binary-walk and direct-path kernels, the
+   device loop and the step kernels) from this checkout's sources, into
+   build/rtjax_torch/, all eight compilers started together; ptxas's
+   registers, stack frame and spills of the persist, two-level, packet
+   and lane kernels (both designs, widths 8 and 16, the two-level fetch
+   kernels with the instance records staged or global) and of the step
+   kernels (the binary-walk kernels' in phase 9, the direct pair's in
    phase 12);
 2. scene: the bunny Cornell box (69,463 triangles) on the card;
 3. kernels: each persistent-walker kernel, in the fetch design that the
@@ -40,8 +42,8 @@ the script exits non-zero):
    persist walk's;
 4. main path: render_frame of the headline frame (256x256 at 64 spp, 10
    bounces, default RenderConfig): one warm-up and two timed runs; both
-   kernels must have launched, and no plain version and no stride-design
-   kernel may have run; the image must be finite and non-negative and
+   persist kernels and the three step kernels must have launched, and no
+   plain version and no stride-design kernel may have run; the image must be finite and non-negative and
    agree with the rtjax render in artifacts/ at the noise floor (MSE <= 2x
    the port's own seed-to-seed MSE plus the 8-bit quantisation term).  The
    warm-up frame keeps the rays of launch 38 of each persist kernel
@@ -241,6 +243,25 @@ the script exits non-zero):
    device-busy share of a
    graph and an eager frame of each cell, profiled in a process of its
    own (``--busy-job``);
+14. the fused wavefront step (run after phase 13, before phase 7's
+   profiles; ~15 s): (a) route, shade and resolve (kernels/step.py,
+   csrc/step_kernels.cu) against their plain versions on the states of
+   STEP_CHECK_ITS of the headline, configs 2 (sorting and sort_every
+   skip iterations), 3 (specular) and 4 (instanced), stepped op by op,
+   and on a synthetic pool of every lane kind (every material, point and
+   area lights, the environment light, dead, dirty and non-finite-beta
+   lanes): every output bit for bit, the mismatching lanes printed and
+   all 0, the framebuffer within FB_RTOL (its atomic adds' order); (b)
+   captured frames through the kernels and under step_kernels=False in
+   turns (STEP_ORDER) on the headline, configs 2, 3, 4 (a) and (b) and
+   config 5's 4-spp probe: each seed's pair equal in iterations, rays,
+   occupancy and traversal launches, the step kernels once an iteration
+   in one arm and never in the other, framebuffers within FB_RTOL, each
+   kernel frame at its phase's image gate, frame seconds of both arms;
+   (c) phase 13's busy job's device events and device ms an iteration of
+   both arms (STEP_BUSY); (d) each kernel's device time a launch, the
+   sort's and each plain version's, with the bound (bytes a lane moves,
+   ROUTE_BYTES ...; operations, ROUTE_OPS ...);
 7. the two persist kernels' device time over one whole headline frame,
    the two packet kernels' over one walker="packet" headline frame, the
    lane closest-hit kernel's over one walker="lane" headline frame (its
@@ -290,7 +311,12 @@ instances (rows of their own, ``(with_stats)``), phase 12(c)'s two
 default config-2 frames for the direct pair (rows 12-13; with
 ``config4_launches``, phase 6(a)'s base launches, ``persist_ms``, the
 persist kernels' time on the same rays, and ``soups``, (a)'s numbers
-over the soups).  The persist, packet,
+over the soups), phase 4's three frames for the step kernels (rows of
+route, shade and resolve: rtjax's XLA fusions of ``wavefront_step``,
+which reach no ``pallas_call``; their times phase 14 (d)'s on the
+headline's state of iteration STEP_TIME_IT, ``sort_ms`` torch.sort's
+there on the route row, ``mismatching_lanes`` phase 14 (a)'s; no
+``ab``).  The persist, packet,
 lane and binary-walk rows carry ``bigscene``: phase 11's numbers by grid
 (the persist rows' device time, bound and share on (b)'s rays and
 in-frame launch, their launches over (d)'s two kernel frames; every
@@ -412,7 +438,8 @@ def phase1_build():
               "packet and lane kernels": _build.packet_library,
               "binary-walk kernels": _build.binary_library,
               "direct-path kernels": _build.direct_library,
-              "device loop": _build.loop_library}
+              "device loop": _build.loop_library,
+              "step kernels": _build.step_library}
 
     def timed(fn):
         t0 = time.perf_counter()
@@ -430,6 +457,16 @@ def phase1_build():
             print(f"[ptxas] {_kernel_label(name)}: {res}")
     for name, res in _build.ptxas_report(_build.packet_library()):
         print(f"[ptxas] {_group_label(name)}: {res}")
+    for name, res in _build.ptxas_report(_build.step_library()):
+        print(f"[ptxas] {_step_label(name)}: {res}")
+
+
+def _step_label(mangled):
+    """"step shade" for a step kernel's mangled name."""
+    for k in STEP_KERNELS:
+        if f"{k}_kernel" in mangled:
+            return f"step {k}"
+    return mangled
 
 
 def _kernel_label(mangled):
@@ -966,6 +1003,7 @@ def phase4_main_path(scene, camera, card):
     from rtjax_torch import RenderConfig
     from rtjax_torch.kernels import _build
     from rtjax_torch.kernels import persist as P
+    from rtjax_torch.kernels import step as S
     from rtjax_torch.render.film import read_ppm, write_ppm
     from rtjax_torch.render.wavefront import render_frame
 
@@ -976,6 +1014,8 @@ def phase4_main_path(scene, camera, card):
         P.REF_CALLS[k] = 0
         P.STRIDE_LAUNCHES[k] = 0
         P.STATS_LAUNCHES[k] = 0
+    for k in S.LAUNCHES:
+        S.LAUNCHES[k] = S.REF_CALLS[k] = 0
     runs = []
     for seed in (1, 2, 3):  # warm-up, then two timed runs
         gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -990,9 +1030,11 @@ def phase4_main_path(scene, camera, card):
         runs.append((time.perf_counter() - t0, fb, stats))
         if seed == 1:
             restore()
-    launches = dict(P.LAUNCHES)
+    # the step kernels' launches ride along as "step route", ...
+    launches = dict(P.LAUNCHES) | {f"step {k}": v
+                                   for k, v in S.LAUNCHES.items()}
     ref_calls = sum(P.REF_CALLS.values()) + sum(P.STRIDE_LAUNCHES.values()) \
-        + sum(P.STATS_LAUNCHES.values())
+        + sum(P.STATS_LAUNCHES.values()) + sum(S.REF_CALLS.values())
 
     secs = [r[0] for r in runs[1:]]
     stats = runs[1][2]
@@ -1004,7 +1046,8 @@ def phase4_main_path(scene, camera, card):
           f"{mrays:.3f} Mrays/s; launches {launches}, plain-version, "
           f"stride-design and stats-instance calls {ref_calls}")
     if min(launches.values()) == 0 or ref_calls != 0:
-        raise RuntimeError("the main path did not run through both kernels")
+        raise RuntimeError("the main path did not run through both "
+                           "traversal kernels and the three step kernels")
     if set(captured) != {"closest", "anyhit"}:
         raise RuntimeError(f"launch {CAPTURE_AT} of each persist kernel was "
                            "not captured")
@@ -1649,6 +1692,7 @@ def _counters():
     from rtjax_torch.kernels import direct as D
     from rtjax_torch.kernels import lane as L
     from rtjax_torch.kernels import persist as P
+    from rtjax_torch.kernels import step as S
     from rtjax_torch.kernels import traversal as T
     from rtjax_torch.kernels import wide as WD
     from rtjax_torch.kernels import wide_inst as WI
@@ -1667,7 +1711,10 @@ def _counters():
             "packet_stats": (WD.STATS_LAUNCHES, None),
             "lane_stats": (L.STATS_LAUNCHES, None),
             "two_level_stats": (WI.STATS_LAUNCHES, None),
-            "direct": (D.LAUNCHES, None)}
+            "direct": (D.LAUNCHES, None),
+            # outside _KERNEL_SETS: the covered modes launch them beside
+            # every traversal set
+            "step": (S.LAUNCHES, S.REF_CALLS)}
 
 
 def _zero_counts():
@@ -4292,7 +4339,8 @@ def _busy_job(out):
     through each path (seed 1), then one graph and one eager frame (seed
     5) under torch.profiler with CUDA activity alone, each with its wall
     time and the summed duration of its device events (kernels, copies,
-    fills); saved to ``out``."""
+    fills); for the cells of STEP_BUSY also a graph frame under
+    ``step_kernels=False`` ("graph_op", phase 14 (c)); saved to ``out``."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -4304,16 +4352,20 @@ def _busy_job(out):
     for name, (sc, cam, cfg, _) in _graph_cells(scene, camera, c4,
                                                 c4_cam).items():
         res[name] = {}
-        for path in ("graph", "eager"):
+        # "graph_op": the captured step with step_kernels=False (phase 14)
+        paths = ("graph", "eager") + (("graph_op",) if name in STEP_BUSY
+                                      else ())
+        kw = lambda path: dict(graph=path != "eager",
+                               step_kernels=path != "graph_op")
+        for path in paths:
             render_frame(sc, cam, cfg, torch.Generator(
-                device="cuda").manual_seed(1), graph=path == "graph")
-        for path in ("graph", "eager"):
+                device="cuda").manual_seed(1), **kw(path))
+        for path in paths:
             gen = torch.Generator(device="cuda").manual_seed(5)
             torch.cuda.synchronize()
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
                 t0 = time.perf_counter()
-                _, st = render_frame(sc, cam, cfg, gen,
-                                     graph=path == "graph")
+                _, st = render_frame(sc, cam, cfg, gen, **kw(path))
                 torch.cuda.synchronize()
                 wall = time.perf_counter() - t0
             ev = [e for e in prof.profiler.kineto_results.events()
@@ -4490,6 +4542,459 @@ def phase13_graph(scene, camera, card, floor, c4_scene, c4_camera,
     return out
 
 
+# ---------------------------------------------------------------- phase 14
+
+STEP_KERNELS = {
+    "route": dict(name="step_route",
+                  replaces="rtjax/render/wavefront.py:212"),
+    "shade": dict(name="step_shade",
+                  replaces="rtjax/render/wavefront.py:437"),
+    "resolve": dict(name="step_resolve",
+                    replaces="rtjax/render/wavefront.py:748"),
+}
+STEP_SOURCE = "rtjax_torch/csrc/step_kernels.cu"
+# the cells whose busy-job profile also takes step_kernels=False
+STEP_BUSY = ("headline", "config2", "config3", "config4a", "config4b")
+# (a): the iterations whose state each cell's kernels are checked on, and
+# the one whose headline state (d) times
+STEP_CHECK_ITS = (0, 1, 2, 5, 12)
+STEP_TIME_IT = 12
+# (b): each cell's frames, in turns: a frame of seed 1 captures its arm's
+# graph (the cache holds one), then the arm's timed frames
+STEP_ORDER = (("kernels", 1), ("kernels", 2), ("kernels", 3), ("op", 1),
+              ("op", 2), ("op", 3), ("op", 4), ("kernels", 1),
+              ("kernels", 4))
+# bytes a lane moves, each input read once and each output written once:
+# route reads the state (81 B) and its word (8 B) and writes its key and
+# bundle (40 B); shade reads the bundle (36 B), five words (40 B) and, on
+# a sorting iteration, its order (8 B), and writes the state (56 B) and
+# the traced flag (1 B), with lights two shadow rays (66 B) and their
+# radiance (24 B), and a flushing lane's pixel is read and written (24
+# B); resolve reads the radiance, both channels' radiance, masks and
+# occlusion (40 B) and writes the radiance (12 B); the sort reads a key
+# and writes a key and an index (16 B)
+ROUTE_BYTES = 81 + 8 + 40
+SHADE_BYTES, SHADE_ORDER, SHADE_LIGHTS, SHADE_FLUSH = 36 + 40 + 57, 8, 90, 24
+RESOLVE_BYTES, SORT_BYTES = 52, 16
+# float operations a lane does, counted from csrc/step_math.cuh (the two
+# BSDF samples, light sample, pdf and ray-triangle test, camera ray and
+# codecs of shade; the codecs, key and roulette of route)
+ROUTE_OPS, SHADE_OPS, RESOLVE_OPS = 140, 600, 14
+
+
+def _step_bound(nbytes, ops):
+    ms_b, ms_o = nbytes / PEAK_BYTES * 1e3, ops / PEAK_FLOPS * 1e3
+    return dict(bound_ms=max(ms_b, ms_o), bound_us=max(ms_b, ms_o) * 1e3,
+                bound_by="bytes" if ms_b >= ms_o else "operations",
+                bytes=nbytes, ops=ops)
+
+
+def _step_scene():
+    """A synthetic scene with matte, mirror and glass triangles, two point
+    lights, an area light and an environment light."""
+    import numpy as np
+    from rtjax_torch.scene.scene import SceneBuilder
+    b = SceneBuilder()
+    mats = (b.make_matte((0.7, 0.6, 0.5)), b.make_mirror((0.9, 0.8, 0.9)),
+            b.make_glass(1.5))
+    rng = np.random.default_rng(3)
+    for m in mats + mats:
+        p0 = rng.uniform(-1, 1, (8, 3))
+        b.add_triangles(p0, p0 + rng.uniform(-0.6, 0.6, (8, 3)),
+                        p0 + rng.uniform(-0.6, 0.6, (8, 3)), m)
+    for q in range(2):
+        b.add_point_light((0.3 * q, 1.5, 0.3), (5.0, 4.0, 3.0))
+    b.add_area_light([-0.3, 1.2, -0.3], [0.3, 1.2, -0.3], [0.0, 1.2, 0.3],
+                     (8, 8, 8), mats[0])
+    b.set_environment((0.2, 0.3, 0.4))
+    return b.build("cuda")
+
+
+def _synthetic_state(scene, cfg, gen):
+    """Random lanes of every kind: hits and misses, dead and dirty dead
+    lanes, camera-ray hits on the light, lanes past max_bounces, inf and
+    NaN throughput."""
+    import torch
+    from rtjax_torch.constants import DEAD_BOUNCES
+    from rtjax_torch.render.wavefront import PathState
+    n = cfg.pool_size
+    u = lambda: torch.rand(n, generator=gen, device="cuda")
+    ri = lambda lo, hi: torch.randint(lo, hi, (n,), generator=gen,
+                                      device="cuda", dtype=torch.int32)
+    d = torch.randn(3, n, generator=gen, device="cuda")
+    d = d / d.norm(dim=0)
+    beta = [u() * 1.5 for _ in range(3)]
+    beta[0] = torch.where(u() < 0.02, float("inf"), beta[0])
+    beta[1] = torch.where(u() < 0.02, float("nan"), beta[1])
+    return PathState(
+        pixel=ri(0, cfg.num_pixels),
+        ray_o=tuple(u() * 2 - 1 for _ in range(3)),
+        ray_d=tuple(d[k].contiguous() for k in range(3)),
+        hit=u() < 0.7, t=u() * 3,
+        normal=tuple(torch.randn(n, generator=gen, device="cuda")
+                     for _ in range(3)),
+        prim=ri(-1, scene.tris.num), src=ri(0, 1),
+        bounces=torch.where(u() < 0.15, DEAD_BOUNCES,
+                            ri(0, cfg.max_bounces + 2)),
+        beta=tuple(beta),
+        acc=tuple(torch.where(u() < 0.5, 0.0, u()) for _ in range(3)))
+
+
+def _lanes_differ(a, b):
+    """Lanes of two outputs that are not equal bit for bit (every NaN
+    equal to every NaN)."""
+    import torch
+    if a.dtype == torch.float32:
+        same = (a.view(torch.int32) == b.view(torch.int32)) | (
+            torch.isnan(a) & torch.isnan(b))
+    elif a.dtype == torch.float64:
+        same = (a.view(torch.int64) == b.view(torch.int64)) | (
+            torch.isnan(a) & torch.isnan(b))
+    else:
+        same = a == b
+    return int((~same).sum())
+
+
+def _flat_out(x):
+    if x is None:
+        return []
+    if isinstance(x, (tuple, list)):
+        return [c for v in x for c in _flat_out(v)]
+    return [x]
+
+
+def _check_step(scene, camera, cfg, state, words, fb, it, cam_start):
+    """Route, shade and resolve against their plain versions on one state
+    (the kernels on copies of what they write in place): ``{kernel:
+    {field: mismatching lanes}}``, the framebuffer's largest gap (its
+    atomic adds' order) and what (d) times."""
+    import dataclasses
+
+    import torch
+    from rtjax_torch.kernels import step as S
+    from rtjax_torch.render import wavefront as WF
+    k = WF.resolve_sort_every(scene, cfg)
+    n = cfg.pool_size
+    bad = {name: {} for name in STEP_KERNELS}
+
+    def tally(kernel, names, got, want):
+        for name, x, y in zip(names, got, want, strict=True):
+            bad[kernel][name] = bad[kernel].get(name, 0) + \
+                _lanes_differ(x, y)
+
+    want = S.route_ref(scene, cfg, state, words)
+    got = S.route(scene, cfg, state, words)
+    tally("route", ("keys", "bundle", "counts"), got, want)
+    order = torch.sort(want[0], stable=True).indices
+    fb0, fb1 = fb.clone(), fb.clone()
+    sh0 = S.shade_ref(scene, camera, cfg, state, fb0, words, order, want[1],
+                      want[2], it, cam_start, k)
+    mine = dataclasses.replace(state, **{
+        f: tuple(c.clone() for c in v) if isinstance(v, tuple) else v.clone()
+        for f, v in vars(state).items()})
+    sh1 = S.shade(scene, camera, cfg, mine, fb1, words, order, want[1],
+                  want[2].clone(), it, cam_start, k)
+    for f in ("pixel", "ray_o", "ray_d", "beta", "bounces", "acc",
+              "trace_mask", "counts", "shadow", "ah_L", "chs_L"):
+        a, b = _flat_out(getattr(sh1, f)), _flat_out(getattr(sh0, f))
+        if len(a) != len(b):
+            raise RuntimeError(f"shade's {f} has {len(a)} columns, its plain "
+                               f"version's {len(b)}")
+        tally("shade", [f"{f}[{j}]" for j in range(len(a))], a, b)
+    fb_err = float((fb1 - fb0).abs().max())
+    if not torch.allclose(fb1, fb0, rtol=FB_RTOL, atol=FB_ATOL):
+        bad["shade"]["fb beyond rtol"] = 1
+    g = torch.Generator(device="cuda").manual_seed(9)
+    occ = None if sh0.shadow is None else \
+        torch.rand(2 * n, generator=g, device="cuda") < 0.3
+    rays = torch.tensor(7.0, dtype=torch.float64, device="cuda")
+    occ_sum = torch.tensor(0.5, dtype=torch.float64, device="cuda")
+    r0 = S.resolve_ref(cfg, sh0, occ, it, k, cam_start, rays, occ_sum)
+    sh0.acc = tuple(c.clone() for c in sh0.acc)
+    r1 = S.resolve(cfg, sh0, occ, it, k, cam_start, rays, occ_sum)
+    tally("resolve", ("acc[0]", "acc[1]", "acc[2]", "cam_start",
+                      "work_left", "rays_traced", "occ_sum"),
+          _flat_out(r1), _flat_out(r0))
+    do_gen = S.cadence(want[2], n, it, k)
+    return bad, fb_err, dict(keys=want[0], order=order, bundle=want[1],
+                             counts=want[2], sh=sh0, do_gen=do_gen)
+
+
+def _step_timings(scene, camera, cfg, state, words, fb, it, cam_start,
+                  checked, card):
+    """(d): each kernel's device time a launch (:func:`_launch_ms`, the
+    entry point called with an argument block made once), torch.sort's
+    on the keys, one call of each plain version (CUDA events, median of
+    REPS) and each one's bound, on the headline's state of iteration
+    STEP_TIME_IT."""
+    import ctypes
+    import dataclasses
+
+    import torch
+    from rtjax_torch.kernels import step as S
+    from rtjax_torch.render.trace import trace_anyhit
+    from rtjax_torch.render import wavefront as WF
+    k = WF.resolve_sort_every(scene, cfg)
+    n = cfg.pool_size
+    lib = S._kernels()
+    stream = torch.cuda.current_stream().cuda_stream
+    copy = lambda st: dataclasses.replace(st, **{
+        f: tuple(c.clone() for c in v) if isinstance(v, tuple) else v.clone()
+        for f, v in vars(st).items()})
+    c = checked
+    num_mat = int(c["counts"][0])
+    do_gen = True if c["do_gen"] is None else bool(c["do_gen"])
+    sh = c["sh"]
+    occ = trace_anyhit(scene, cfg, *sh.shadow)
+    entry = lambda name, a: (lambda: getattr(lib, f"rtjax_step_{name}")(
+        ctypes.byref(a), stream))
+    a_route, _ = S.route_args(scene, cfg, state, words)
+    a_shade, _ = S.shade_args(scene, camera, cfg, copy(state), fb.clone(),
+                              words, c["order"], c["bundle"],
+                              c["counts"].clone(), it, cam_start, k)
+    rays = torch.zeros((), dtype=torch.float64, device="cuda")
+    a_resolve, _ = S.resolve_args(cfg, dataclasses.replace(
+        sh, acc=tuple(x.clone() for x in sh.acc)), occ, it, k, cam_start,
+        rays, rays.clone())
+    flushes = n - num_mat if do_gen else 0
+    shade_bytes = n * (SHADE_BYTES + SHADE_LIGHTS * (scene.num_lights > 0)
+                       + SHADE_ORDER * do_gen) + SHADE_FLUSH * flushes
+    out = {}
+    for name, a, plain, nbytes, ops in (
+            ("route", a_route,
+             lambda: S.route_ref(scene, cfg, state, words),
+             n * ROUTE_BYTES, n * ROUTE_OPS),
+            ("shade", a_shade,
+             lambda: S.shade_ref(scene, camera, cfg, state, fb.clone(),
+                                 words, c["order"], c["bundle"],
+                                 c["counts"], it, cam_start, k),
+             shade_bytes, n * SHADE_OPS),
+            ("resolve", a_resolve,
+             lambda: S.resolve_ref(cfg, sh, occ, it, k, cam_start, rays,
+                                   rays),
+             n * RESOLVE_BYTES, n * RESOLVE_OPS)):
+        mean, lo, hi = _launch_ms(entry(name, a))
+        b = _step_bound(nbytes, ops)
+        out[name] = dict(ms=mean, device_ms=[lo, hi],
+                         plain_ms=_median_ms(plain), share=b["bound_ms"] / mean,
+                         **b)
+    sort_ms = _launch_ms(lambda: torch.sort(c["keys"], stable=True))[0]
+    out["sort"] = dict(ms=sort_ms, **_step_bound(n * SORT_BYTES, 0))
+    for name, r in out.items():
+        print(f"[step time {name}] {card}: {r['ms']:.4f} ms a launch "
+              f"(mean of {REPS} queued; least / most "
+              f"{r.get('device_ms', [r['ms']] * 2)}), bound "
+              f"{r['bound_us']:.3f} us by {r['bound_by']} ({r['bytes']:.0f} "
+              f"bytes), {100 * r['bound_ms'] / r['ms']:.2f}% of the bound"
+              + (f"; plain version {r['plain_ms']:.3f} ms a call"
+                 if "plain_ms" in r else ""))
+    return out
+
+
+def _step_frame(sc, cam, cfg, seed, arm):
+    """One captured frame through ``arm`` ("kernels" or "op":
+    ``step_kernels=False``), launch counts from zero: ``(seconds,
+    framebuffer, stats, counts)``."""
+    import torch
+    from rtjax_torch.render.wavefront import render_frame
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    _zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fb, st = render_frame(sc, cam, cfg, gen, step_kernels=arm == "kernels")
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    if not bool(torch.isfinite(fb).all()) or bool((fb < 0).any()):
+        raise RuntimeError("framebuffer has non-finite or negative values")
+    return secs, fb, st, _read_counts()
+
+
+def phase14_step_kernels(scene, camera, card, floor, c4_scene, c4_camera,
+                         c4_floor, g13):
+    """The fused wavefront step (kernels/step.py, csrc/step_kernels.cu):
+    (a) route, shade and resolve against their plain versions on the
+    states of STEP_CHECK_ITS of the headline, eval configs 2 (sorting and
+    sort_every skip iterations), 3 (specular) and 4 (instanced), stepped
+    op by op, and on a synthetic pool of every lane kind: every output
+    bit for bit (mismatching lanes printed, all 0), the framebuffer
+    within FB_RTOL; (b) captured frames through the kernels and under
+    ``step_kernels=False`` in turns (STEP_ORDER) on the headline, configs
+    2, 3, 4 (a) and (b) and config 5's 4-spp probe: each seed's pair
+    equal in iterations, rays, occupancy and traversal launches, the step
+    kernels once an iteration in one arm and never in the other, the
+    framebuffers within FB_RTOL, each kernel frame at its phase's image
+    gate; (c) phase 13's busy job's device events and device ms an
+    iteration, both arms; (d) :func:`_step_timings`.  Returns the rows'
+    numbers."""
+    import numpy as np
+    import torch
+    from rtjax_torch import RenderConfig
+    from rtjax_torch.render import graph as G
+    from rtjax_torch.render import wavefront as WF
+    quant = 2.0 * (1.0 / 255.0) ** 2 / 12.0
+    cells = _graph_cells(scene, camera, c4_scene, c4_camera)
+    cells = {k: cells[k] for k in STEP_BUSY}
+    # (a)
+    worst = {name: 0 for name in STEP_KERNELS}
+    fb_err = 0.0
+    timed = None
+    for name, (sc, cam, cfg, _) in cells.items():
+        assert WF.step_kernels_cover(sc, cfg), name
+        n = cfg.pool_size
+        g = torch.Generator(device="cuda").manual_seed(7)
+        carry = WF.initial_carry(cfg, "cuda")
+        carry = carry[:3] + (torch.zeros((), dtype=torch.int64,
+                                         device="cuda"),) + carry[4:]
+        for it in range(max(STEP_CHECK_ITS) + 1):
+            words = torch.randint(0, 1 << 32, (5, n), generator=g,
+                                  device="cuda", dtype=torch.int64)
+            if it in STEP_CHECK_ITS:
+                bad, err, checked = _check_step(sc, cam, cfg, carry[0],
+                                                words, carry[1], carry[3],
+                                                carry[2])
+                fb_err = max(fb_err, err)
+                dg = checked["do_gen"]
+                print(f"[step kernels {name} it {it}] {card}: "
+                      f"{int(checked['counts'][0])} of {n} paths continue,"
+                      f" {'sorts' if dg is None or bool(dg) else 'skips'}; "
+                      "mismatching lanes " + ", ".join(
+                          f"{k} {sum(v.values())}" for k, v in bad.items())
+                      + f"; framebuffer largest gap {err:.3e}")
+                for k, v in bad.items():
+                    worst[k] += sum(v.values())
+                    if sum(v.values()):
+                        print(f"  {k} mismatches by field: "
+                              f"{ {f: m for f, m in v.items() if m} }")
+                if name == "headline" and it == STEP_TIME_IT:
+                    timed = (carry[0], words, carry[1], carry[3], carry[2],
+                             checked)
+            carry = WF.wavefront_step(sc, cam, cfg, words, carry,
+                                      step_kernels=False)
+    syn = _step_scene()
+    syn_cfg = RenderConfig(width=WIDTH, height=HEIGHT, num_samples=4,
+                           max_bounces=BOUNCES)
+    g = torch.Generator(device="cuda").manual_seed(11)
+    for it in (0, 1, 3):
+        words = torch.randint(0, 1 << 32, (5, syn_cfg.pool_size),
+                              generator=g, device="cuda", dtype=torch.int64)
+        fb = torch.rand(syn_cfg.num_pixels, 3, generator=g, device="cuda")
+        bad, err, _ = _check_step(syn, camera, syn_cfg, _synthetic_state(
+            syn, syn_cfg, g), words, fb, torch.tensor(it, device="cuda"),
+            torch.tensor(it * 99991, device="cuda"))
+        fb_err = max(fb_err, err)
+        print(f"[step kernels synthetic pool {it}] {card}: mismatching "
+              "lanes " + ", ".join(f"{k} {sum(v.values())}"
+                                   for k, v in bad.items()))
+        for k, v in bad.items():
+            worst[k] += sum(v.values())
+    if any(worst.values()):
+        raise RuntimeError(f"the step kernels differ from their plain "
+                           f"versions: {worst}")
+    # (b)
+    c5 = RenderConfig(width=C5_WIDTH, height=C5_HEIGHT, num_samples=4,
+                      max_bounces=C5_BOUNCES)
+    cells["config5"] = (scene, camera, c5, None)
+    secs = {}
+    for name, (sc, cam, cfg, size) in cells.items():
+        G.clear_graphs()
+        frames = {}
+        for arm, seed in STEP_ORDER:
+            f = _step_frame(sc, cam, cfg, seed, arm)
+            if seed != 1:
+                frames[arm, seed] = f
+        secs[name] = {arm: [f[0] for (a, _), f in frames.items() if a == arm]
+                      for arm in ("kernels", "op")}
+        if size is not None:
+            img = lambda f: _square_u8(f[1], size)
+            seed_mse = float(np.mean((img(frames["op", 2])
+                                      - img(frames["op", 3])) ** 2))
+        for seed in (2, 3, 4):
+            kf, of = frames["kernels", seed], frames["op", seed]
+            its = kf[2]["iterations"]
+            same = all(kf[2][k] == of[2][k] for k in
+                       ("iterations", "rays_traced", "avg_occupancy"))
+            close = torch.allclose(kf[1], of[1], rtol=FB_RTOL, atol=FB_ATOL)
+            walks = {k: v for k, v in kf[3].items() if k != "step"} == \
+                {k: v for k, v in of[3].items() if k != "step"}
+            steps = (set(kf[3]["step"].values()) == {its}
+                     and not any(of[3]["step"].values()))
+            if name == "headline":
+                gate, mse = floor["gate"], float(np.mean(
+                    (_square_u8(kf[1], size) - floor["ref"]) ** 2))
+            elif name in ("config4a", "config4b"):
+                gate, mse = 0.1 * c4_floor["seed_mse"], float(np.mean(
+                    (_square_u8(kf[1], size) - c4_floor["img_a2"]) ** 2))
+            elif size is not None:
+                gate, mse = 2.0 * seed_mse + quant, float(np.mean(
+                    (_square_u8(kf[1], size) - _square_u8(of[1], size))
+                    ** 2))
+            else:
+                gate = mse = 0.0   # config 5: finite and non-negative
+            print(f"[step frame {name} seed {seed}] {card}: {its} "
+                  f"iterations, {kf[2]['rays_traced']:.0f} rays; kernels "
+                  f"{kf[0]:.3f} s, step_kernels=False {of[0]:.3f} s; equal "
+                  f"iterations, rays, occupancy {same}; traversal launches "
+                  f"equal {walks}; step kernels once an iteration "
+                  f"{steps} ({kf[3]['step']}); framebuffers within rtol "
+                  f"{FB_RTOL} {close}; image MSE {mse:.3e} (gate "
+                  f"{gate:.3e})")
+            if not (same and close and walks and steps):
+                raise RuntimeError(f"{name} seed {seed}: the step kernels' "
+                                   "frame differs from the op-by-op step's")
+            if name in ("config4a", "config4b") and seed != 2:
+                continue
+            if mse > gate:
+                raise RuntimeError(f"{name} seed {seed}: the kernels' frame "
+                                   "differs beyond its gate")
+        print(f"[step frame {name}] {card}: frame seconds kernels "
+              f"{secs[name]['kernels']} vs step_kernels=False "
+              f"{secs[name]['op']}; median ratio "
+              f"{np.median(secs[name]['op']) / np.median(secs[name]['kernels']):.3f}")
+    G.clear_graphs()
+    # (c)
+    busy = {}
+    for name in STEP_BUSY:
+        r = g13[name]["busy"]
+        busy[name] = {}
+        for arm, path in (("kernels", "graph"), ("op", "graph_op")):
+            b = r[path]
+            its = max(b["iterations"], 1)
+            busy[name][arm] = dict(events_per_it=b["events"] / its,
+                                   device_ms_per_it=b["device_ms"] / its,
+                                   device_ms=b["device_ms"], wall=b["wall"])
+        k_, o_ = busy[name]["kernels"], busy[name]["op"]
+        print(f"[step busy {name}] {card}: device events an iteration "
+              f"kernels {k_['events_per_it']:.1f} vs step_kernels=False "
+              f"{o_['events_per_it']:.1f}; device ms an iteration "
+              f"{k_['device_ms_per_it']:.4f} vs {o_['device_ms_per_it']:.4f};"
+              f" profiled frames {k_['wall']:.3f} vs {o_['wall']:.3f} s")
+    # (d)
+    hsc, hcam, hcfg, _ = cells["headline"]
+    t = _step_timings(hsc, hcam, hcfg, *timed, card)
+    return dict(mismatches=worst, fb_err=fb_err, secs=secs, busy=busy,
+                times=t)
+
+
+def _step_rows(p14, launches):
+    """The kernels line's rows of the step kernels (launches: phase 4's
+    three headline frames)."""
+    rows = []
+    for name, meta in STEP_KERNELS.items():
+        t = p14["times"][name]
+        rows.append(dict(
+            name=meta["name"], route="cuda", source=STEP_SOURCE,
+            replaces=meta["replaces"], launches=launches[name],
+            max_abs_err=p14["fb_err"] if name == "shade" else 0.0,
+            ms=t["ms"], device_ms=t["device_ms"], timed_launches=REPS,
+            plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+            bound_us=t["bound_us"], bound_by=t["bound_by"], share=t["share"],
+            library_ms=None, mismatching_lanes=p14["mismatches"][name],
+            note="no pallas_call: rtjax's XLA fusions of wavefront_step"))
+    rows[0]["sort_ms"] = p14["times"]["sort"]["ms"]
+    rows[0]["sort_bound_ms"] = p14["times"]["sort"]["bound_ms"]
+    return rows
+
+
 def main():
     t0 = time.perf_counter()
 
@@ -4562,6 +5067,9 @@ def main():
     g13 = phase13_graph(scene, camera, card, floor, c4_scene, c4_camera,
                         c4_floor)
     stamp("phase 13 (the captured frame loop)")
+    p14 = phase14_step_kernels(scene, camera, card, floor, c4_scene,
+                               c4_camera, c4_floor, g13)
+    stamp("phase 14 (the step kernels)")
     frames = phase7_frames(scene, camera, card, c4_scene, c4_camera)
     stamp("phase 7 (frame kernels)")
     for rows_, kernels in ((persist, "persist"), (inst, "two_level")):
@@ -4574,7 +5082,9 @@ def main():
     rows = [*persist.values(), *stats_rows.values(), *group.values(),
             *inst.values(), *_binary_rows(binary, binary_launches),
             *_walk_stats_rows(walk_stats, walk_launches),
-            *_direct_rows(d12, c4_floor["direct_launches"])]
+            *_direct_rows(d12, c4_floor["direct_launches"]),
+            *_step_rows(p14, {k: launches[f"step {k}"]
+                              for k in STEP_KERNELS})]
     for k, rec in _big_rows(big).items():
         next(r for r in rows if r["name"] == k)["bigscene"] = rec
     for k in rows:

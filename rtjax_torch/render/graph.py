@@ -47,6 +47,7 @@ host issuing them one by one.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 
 import torch
@@ -84,8 +85,9 @@ def flatten(carry) -> list:
 
 def store(static, out) -> None:
     """Copy a step's outputs ``out`` into the carry ``static``, tensor by
-    tensor (an output that is its static tensor, the framebuffer, is
-    skipped).  Raises if an output differs in shape or dtype, or shares
+    tensor (an output that is its static tensor is skipped: the
+    framebuffer, and on the card the path state that the step kernels
+    write in place).  Raises if an output differs in shape or dtype, or shares
     memory with the static carry: copying it would read a tensor already
     overwritten."""
     dst, src = flatten(static), flatten(out)
@@ -116,8 +118,8 @@ class StepGraph:
 
     graphed = True
 
-    def __init__(self, scene, camera, cfg, carry):
-        self.key = (scene, camera, cfg)
+    def __init__(self, scene, camera, cfg, carry, step_kernels=True):
+        self.key = (scene, camera, cfg, step_kernels)
         self.carry = carry
         self.graph = None
         self.words = None
@@ -127,9 +129,9 @@ class StepGraph:
         self.capture_s = 0.0  # this frame's seconds of capture
         self.pool_bytes = 0   # the graph pools' segments, in bytes
 
-    def matches(self, scene, camera, cfg) -> bool:
+    def matches(self, scene, camera, cfg, step_kernels=True) -> bool:
         return (self.key[0] is scene and self.key[1] is camera
-                and self.key[2] == cfg)
+                and self.key[2] == cfg and self.key[3] == step_kernels)
 
     def reset(self, carry) -> None:
         """Start a frame from ``carry`` (a fresh frame's)."""
@@ -176,7 +178,9 @@ class StepGraph:
         counts.add(self.launches)
 
     def _capture(self, generator) -> None:
-        scene, camera, cfg = self.key
+        scene, camera, cfg, step_kernels = self.key
+        step = functools.partial(wf.frame_step, scene, camera, cfg,
+                                 step_kernels=step_kernels)
         dev = self.carry[1].device
         stream = _capture_stream(dev)
         t0 = time.perf_counter()
@@ -185,8 +189,7 @@ class StepGraph:
         with torch.cuda.stream(stream):
             words = rng.bits_block(generator, wf.NUM_RNG_WORDS,
                                    cfg.pool_size)
-            store(self.carry, wf.frame_step(scene, camera, cfg, words,
-                                            self.carry))
+            store(self.carry, step(words, self.carry))
             self.words = torch.empty_like(words)
         before = counts.snapshot()
         torch.cuda.synchronize(dev)
@@ -196,8 +199,7 @@ class StepGraph:
         loops = device_loop.Recorder(dev)
         try:
             with loops.recording(), torch.cuda.graph(graph, stream=stream):
-                store(self.carry, wf.frame_step(scene, camera, cfg,
-                                                self.words, self.carry))
+                store(self.carry, step(self.words, self.carry))
             # counted once while capturing: those outside the device loops
             # are launched by every replay, a loop's body by every run
             self.launches = counts.delta(before, counts.snapshot())
@@ -227,15 +229,16 @@ def counts_sub(launches: dict, body: dict) -> None:
             del launches[k]
 
 
-def frame_steps(scene, camera, cfg, carry) -> StepGraph:
+def frame_steps(scene, camera, cfg, carry, step_kernels=True) -> StepGraph:
     """The :class:`StepGraph` of a frame starting from ``carry``: the
-    cached one when it was captured for this (scene, camera, config), else
-    a new one (captured by its first step) that replaces it."""
+    cached one when it was captured for this (scene, camera, config,
+    ``step_kernels``), else a new one (captured by its first step) that
+    replaces it."""
     g = cached()
-    if g is not None and g.matches(scene, camera, cfg):
+    if g is not None and g.matches(scene, camera, cfg, step_kernels):
         g.reset(carry)
         return g
     clear_graphs()
-    g = StepGraph(scene, camera, cfg, carry)
+    g = StepGraph(scene, camera, cfg, carry, step_kernels)
     _cache.append(g)
     return g

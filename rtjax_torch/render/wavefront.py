@@ -36,6 +36,16 @@ Estimator modes (``RenderConfig``), as in rtjax:
   traversal kernels' node visits and leaf rows (persist kernels only), all
   accumulated on the device.
 
+rtjax's step is one jitted XLA program whose per-lane stages XLA fuses.
+The port's counterpart is the step kernels (kernels/step.py: route, one
+``torch.sort``, shade, the traversals, resolve), which run the default
+estimator of the sorted engine with the compact bundle
+(:func:`step_kernels_cover`); ``reference_parity``, ``one_sample_mis``,
+the unsorted engine, the wide bundle and ``detailed_stats`` keep the step
+op by op, as does ``step_kernels=False`` (the card's A/B and reference).
+On the card the kernels write the next path state into the carry's own
+tensors.
+
 rtjax runs the whole frame as one jitted ``lax.while_loop`` whose condition
 is computed on the device.  So does this port: the loop condition and the
 ``sort_every`` cadence are device values, and ``render_frame_linear`` reads
@@ -65,37 +75,30 @@ from __future__ import annotations
 import dataclasses
 import functools
 
-import numpy as np
 import torch
 
 from ..config import RenderConfig
 from ..constants import DEAD_BOUNCES, INVALID_INDEX
 from ..core import rng, vec
-from ..core.geometry import intersect_triangle_v3, spawn_offset_ray_v3
-from ..core.sampling import power_heuristic
 from ..kernels import counts
+from ..kernels import step as step_kernels_mod
+from ..kernels.step import (DIRTY_KEY as _DIRTY_KEY, NUM_RNG_WORDS,
+                            W_BSDF1 as _W_BSDF1, W_BSDF2 as _W_BSDF2,
+                            W_GEN as _W_GEN, W_LIGHT_UV as _W_LIGHT_UV,
+                            W_RR_PICK as _W_RR_PICK, accum as _accum,
+                            blocked_order as _blocked_order,
+                            blocked_pixel_table, camera_rays,
+                            emit_and_roulette, pack_bundle,
+                            shade_math as _shade, sort_keys as _sort_keys,
+                            unpack_bundle)
 from ..scene.camera import Camera
-from ..scene.light import gather_light_v3, is_delta, pdf_li_v3, sample_li_v3
-from ..scene.material import get_f_v3, is_specular, sample_f_v3
 from ..scene.scene import Scene
-from .sorting import (oct_decode_v3, oct_encode_v3,
-                      ray_sort_keys_adaptive_v3, ray_sort_keys_normal_pos_v3,
-                      ray_sort_keys_pos10_v3, ray_sort_keys_pos_v3,
-                      ray_sort_keys_prim_pos_v3, ray_sort_keys_prim_v3,
-                      ray_sort_keys_v3, rgb9e5_decode_v3, rgb9e5_encode_v3,
-                      sort_pytree_by_key, take_pytree)
-from .trace import (check_config, gather_hit_materials_v3, resolve_mode,
-                    trace_anyhit, trace_closest)
-
-# random word ids: each word splits into two 16-bit uniforms
-_W_RR_PICK = 0      # (RR uniform, light pick)
-_W_BSDF1 = 1        # (u1, u2); the glass uniform u3 aliases u1
-_W_LIGHT_UV = 2     # light-triangle barycentrics
-_W_BSDF2 = 3        # (u1, u2); u3 aliases u1
-_W_GEN = 4          # subpixel jitter
-NUM_RNG_WORDS = 5
-
-_DIRTY_KEY = 0x7FFFFFFE   # dead lanes that still hold radiance
+# the codecs stay importable here: tests/test_torch_frame_loop.py keeps a
+# copy of the earlier host-decision step that reads them from this module
+from .sorting import (oct_decode_v3, oct_encode_v3,  # noqa: F401
+                      rgb9e5_decode_v3, rgb9e5_encode_v3, sort_pytree_by_key,
+                      take_pytree)
+from .trace import check_config, resolve_mode, trace_anyhit, trace_closest
 
 
 @dataclasses.dataclass
@@ -127,27 +130,6 @@ def make_initial_state(n: int, device) -> PathState:
         t=f(float("inf")), normal=(f(0.0), f(0.0), f(0.0)),
         prim=i(INVALID_INDEX), src=i(0), bounces=i(DEAD_BOUNCES),
         beta=(f(1.0), f(1.0), f(1.0)), acc=(f(0.0), f(0.0), f(0.0)))
-
-
-@functools.lru_cache(maxsize=8)
-def blocked_pixel_table(width: int, height: int, device,
-                        block: int = 16) -> torch.Tensor:
-    """Rank -> pixel index visiting the screen in 16x16 blocks (row-major
-    blocks, row-major within), int32 on ``device``.  Made once per size
-    and device: a step reads it without a host-to-device copy, which a
-    captured graph cannot hold."""
-    y, x = np.mgrid[0:height, 0:width]
-    nbx = (width + block - 1) // block
-    key = (((y // block) * nbx + (x // block)) * (block * block)
-           + (y % block) * block + (x % block))
-    return torch.from_numpy(np.argsort(key.ravel(), kind="stable")
-                            .astype(np.int32)).to(device)
-
-
-def _blocked_order(cfg) -> bool:
-    """Whether camera rays visit the screen in 16x16 blocks."""
-    return (cfg.camera_order == "blocked"
-            or (cfg.camera_order == "auto" and cfg.num_samples <= 8))
 
 
 def _compact_bundle_ok(scene, cfg) -> bool:
@@ -183,121 +165,47 @@ def check_slice(scene: Scene, cfg: RenderConfig) -> None:
     check_config(scene, cfg)
 
 
-def _sort_keys(scene, cfg, state, hp, bounces, mat_mask):
-    """The sort keys of ``cfg.sort_key`` (rtjax's dispatch): the origin
-    prim, the hit point ``hp`` with the incoming direction, or the hit
-    point with the normal (``adaptive`` by ``bounces`` too); the Morton
-    grids span the scene's root box."""
-    key = cfg.sort_key
-    if key in ("prim", "prim_pos"):
-        f = ray_sort_keys_prim_v3 if key == "prim" \
-            else ray_sort_keys_prim_pos_v3
-        return f(torch.where(mat_mask, state.prim, -1), state.ray_d,
-                 mat_mask)
-    lo, hi = scene.bvh.bmin[0], scene.bvh.bmax[0]
-    if key == "normal_pos":
-        return ray_sort_keys_normal_pos_v3(hp, state.normal, lo, hi,
-                                           mat_mask)
-    if key == "adaptive":
-        return ray_sort_keys_adaptive_v3(hp, state.normal, bounces, lo, hi,
-                                         mat_mask)
-    f = {"morton_pos": ray_sort_keys_pos_v3, "morton": ray_sort_keys_v3,
-         "morton_pos10": ray_sort_keys_pos10_v3}[key]
-    return f(hp, state.ray_d, lo, hi, mat_mask)
+def step_kernels_cover(scene, cfg) -> bool:
+    """Whether the step kernels (kernels/step.py) run this mode's step:
+    the default estimator of the sorted engine with the compact bundle.
+    The other modes keep the op-by-op step: ``reference_parity``,
+    ``one_sample_mis``, the unsorted engine (``sort_rays=False`` or the
+    traversal "xla"), the wide bundle (beyond ``_compact_bundle_ok``) and
+    ``detailed_stats`` (its bounce histogram)."""
+    return (cfg.sort_rays and resolve_mode(scene, cfg) != "xla"
+            and not (cfg.reference_parity or cfg.one_sample_mis
+                     or cfg.detailed_stats)
+            and _compact_bundle_ok(scene, cfg))
 
 
-def _accum(acc, value, mask):
-    """Add ``value`` where ``mask`` and the contribution is finite
-    (degenerate samples produce the occasional inf/NaN; they are dropped)."""
-    ok = mask & vec.isfinite(value)
-    return tuple(a + torch.where(ok, c, 0.0) for a, c in zip(acc, value))
-
-
-def _shade(scene, cfg, src, prim, beta, p, wo, normal, mat_mask,
-           u_bsdf1, u_pick, u_luv, u_bsdf2):
-    """The mat stage: next path ray, NEE shadow ray (light-sampling MIS)
-    and the BSDF-sampling MIS ray toward the picked light (its target the
-    triangle the path stands on under ``reference_parity``; no ray of its
-    own under ``one_sample_mis``)."""
-    num_lights = scene.num_lights
-    mtype, albedo, ior = gather_hit_materials_v3(scene, src, prim)
-    multiplier = vec.scale(float(num_lights), beta)
-    n_g = vec.neg(vec.normalize(normal))
-
-    f1, wi1, pdf1, n1 = sample_f_v3(mtype, albedo, ior, wo, n_g, *u_bsdf1)
-    next_o, next_d, _ = spawn_offset_ray_v3(p, n1, wi1)
-    next_beta = vec.mul(beta, vec.scale(vec.dot(wi1, n1) / pdf1, f1))
-    nb_ok = vec.isfinite(next_beta)
-    next_beta = tuple(torch.where(nb_ok, c, 0.0) for c in next_beta)
-    out = dict(next_o=next_o, next_d=next_d, next_beta=next_beta)
-    if num_lights == 0:
-        return out
-
-    pick = torch.clamp((u_pick * num_lights).to(torch.int32),
-                       max=num_lights - 1)
-    lrec = gather_light_v3(scene.lights, pick)
-    l_type, l_emit = lrec[0], lrec[2]
-    ltp0, lte1, lte2, ltn = lrec[4], lrec[5], lrec[6], lrec[7]
-    delta = is_delta(l_type)
-
-    # light-sampling MIS -> any-hit shadow ray
-    wi_l, li, light_t, light_pdf, ltri = sample_li_v3(
-        scene.lights, pick, p, u_luv[0], u_luv[1], rec=lrec)
-    n_l = vec.where(vec.dot(n_g, wi_l) > 0.0, n_g, vec.neg(n_g))
-    got_f, f_l, scat_pdf = get_f_v3(mtype, albedo, wo, wi_l, n_l)
-    f_lc = vec.scale(vec.dot(wi_l, n_l), f_l)
-    # the reference's power heuristic truncates its second pdf to an int
-    g_l = torch.trunc(scat_pdf) if cfg.reference_parity else scat_pdf
-    w_l = torch.where(delta, 1.0, power_heuristic(light_pdf, g_l))
-    ah_L = vec.mul(multiplier,
-                   vec.scale(w_l / light_pdf, vec.mul(f_lc, li)))
-    ah_o, ah_d, ah_tmax = spawn_offset_ray_v3(p, n_l, wi_l, light_t)
-
-    # BSDF-sampling MIS: a second BSDF sample (one_sample_mis: the path
-    # ray's own) that must reach the target triangle unoccluded (direct MT
-    # test + any-hit excluding it)
-    if cfg.one_sample_mis:
-        f2, wi2, pdf2, n2 = f1, wi1, pdf1, n1
-    else:
-        f2, wi2, pdf2, n2 = sample_f_v3(mtype, albedo, ior, wo, n_g,
-                                        *u_bsdf2)
-    f2c = vec.scale(vec.dot(wi2, n2), f2)
-    spec = is_specular(mtype)
-    lpdf2 = pdf_li_v3(scene.lights, pick, p, wi2, rec=lrec)
-    g_2 = torch.trunc(lpdf2) if cfg.reference_parity else lpdf2
-    w2 = torch.where(spec, 1.0, power_heuristic(pdf2, g_2))
-    chs_mask = mat_mask & ~delta & (spec | (lpdf2 > 0.0))
-    chs_L = vec.mul(multiplier, vec.scale(w2 / pdf2, vec.mul(f2c, l_emit)))
-    out.update(ah_o=ah_o, ah_d=ah_d, ah_tmax=ah_tmax, ah_L=ah_L,
-               ah_mask=mat_mask & got_f, ltri=ltri, chs_L=chs_L,
-               chs_mask=chs_mask)
-    if cfg.one_sample_mis:
-        # the path ray's hit record answers "closest hit == the light"
-        return out
-    chs_o, chs_d, _ = spawn_offset_ray_v3(p, n2, wi2)
-    if cfg.reference_parity:
-        # the reference's target is the triangle the path stands on (an
-        # instanced hit has none: the channel is masked off there)
-        own = torch.clamp(prim, 0, scene.tris.num - 1).long()
-        own_tri = tuple(tuple(getattr(scene.tris, f)[:, k][own]
-                              for k in range(3))
-                        for f in ("p0", "e1", "e2", "n"))
-        chs_tgt = torch.where(src == 0, prim, INVALID_INDEX)
-        chs_hit_l, chs_t, _, _ = intersect_triangle_v3(
-            chs_o, chs_d, float("inf"), *own_tri)
-        chs_mask = chs_mask & chs_hit_l & (src == 0)
-    else:
-        chs_tgt = ltri
-        chs_hit_l, chs_t, _, _ = intersect_triangle_v3(
-            chs_o, chs_d, float("inf"), ltp0, lte1, lte2, ltn)
-        chs_mask = chs_mask & chs_hit_l
-    out.update(chs_o=chs_o, chs_d=chs_d, chs_mask=chs_mask, chs_tgt=chs_tgt,
-               chs_t=chs_t)
-    return out
+def _fused_step(scene, camera, cfg, words, carry):
+    """:func:`wavefront_step` through the step kernels: route, one stable
+    sort, shade, the two traversals, resolve.  On the card the kernels
+    write the next path state into ``carry``'s own tensors."""
+    state, fb, cam_start, it, _, rays_traced, occ_sum = carry
+    n = state.pixel.shape[0]
+    k = resolve_sort_every(scene, cfg)
+    keys, bundle, cnt = step_kernels_mod.route(scene, cfg, state, words)
+    order = torch.sort(keys, stable=True).indices
+    sh = step_kernels_mod.shade(scene, camera, cfg, state, fb, words, order,
+                                bundle, cnt, it, cam_start, k)
+    inf = torch.full((n,), float("inf"), dtype=torch.float32,
+                     device=fb.device)
+    hit, ht, hprim, hsrc, hnrm = trace_closest(
+        scene, cfg, sh.ray_o, sh.ray_d, inf, sh.trace_mask)
+    occluded = None if sh.shadow is None else trace_anyhit(
+        scene, cfg, *sh.shadow)
+    acc, cam_start, work_left, rays_traced, occ_sum = step_kernels_mod.resolve(
+        cfg, sh, occluded, it, k, cam_start, rays_traced, occ_sum)
+    new_state = PathState(pixel=sh.pixel, ray_o=sh.ray_o, ray_d=sh.ray_d,
+                          hit=hit, t=ht, normal=hnrm, prim=hprim, src=hsrc,
+                          bounces=sh.bounces, beta=sh.beta, acc=acc)
+    return (new_state, fb, cam_start, it + 1, work_left, rays_traced,
+            occ_sum)
 
 
 def wavefront_step(scene: Scene, camera: Camera, cfg: RenderConfig, words,
-                   carry):
+                   carry, *, step_kernels: bool = True):
     """One wavefront iteration.  ``words`` is the iteration's ``[5, N]``
     block of 32-bit random words (int64); ``carry`` is ``(state, fb,
     cam_start, it, work_left, rays_traced, occ_sum)`` with ``it`` a Python
@@ -308,7 +216,14 @@ def wavefront_step(scene: Scene, camera: Camera, cfg: RenderConfig, words,
     (int64).  The framebuffer ``fb`` is accumulated in place
     (``index_add_``) rather than copied.  The step reads nothing back to
     the host (but repass's passes, render/trace.py), so that a CUDA graph
-    can hold it."""
+    can hold it.
+
+    The modes :func:`step_kernels_cover` names run the step kernels
+    (kernels/step.py; on the CPU their plain versions), which on the card
+    write the next path state into ``carry``'s own tensors;
+    ``step_kernels=False`` runs them op by op, as every other mode runs."""
+    if step_kernels and step_kernels_cover(scene, cfg):
+        return _fused_step(scene, camera, cfg, words, carry)
     state, fb, cam_start, it, _, rays_traced, occ_sum, *extra = carry
     n = state.pixel.shape[0]
     dev = state.pixel.device
@@ -319,44 +234,10 @@ def wavefront_step(scene: Scene, camera: Camera, cfg: RenderConfig, words,
     u_rr, u_pick = draw_pair(_W_RR_PICK)
 
     # ---- emission, Russian roulette, routing ------------------------------
-    if 0 < num_lights <= 16:
-        # the light id by comparing the hit prim with the emitter triangles
-        light_idx = torch.full_like(state.prim, INVALID_INDEX)
-        for li in range(num_lights):
-            ltri_l = scene.lights.tri[li]
-            light_idx = torch.where((state.prim == ltri_l) & (ltri_l >= 0)
-                                    & (state.src == 0), li, light_idx)
-    else:
-        light_idx = torch.where(
-            state.src == 0, vec.take_rows(scene.prim_light, state.prim),
-            INVALID_INDEX)
-    emit0 = state.hit & (light_idx >= 0) & (state.bounces == 0)
-    emit_li = torch.clamp(light_idx, min=0)
-    emit_val = tuple(vec.take_rows(scene.lights.emit[:, k], emit_li)
-                     for k in range(3))
-    acc = _accum(state.acc, emit_val, emit0)
-    # the constant environment light on a miss (a BSDF-sampled channel
-    # that NEE never samples, so it takes no MIS weight)
-    env_mask = ~state.hit & (state.bounces <= cfg.max_bounces)
-    env = scene.env_radiance
-    acc = _accum(acc, vec.mul(state.beta, (env[0], env[1], env[2])),
-                 env_mask)
-
-    alive = state.bounces < cfg.max_bounces
-    beta = state.beta
-    beta_max = vec.vmax(beta)
-    rr_cand = alive & state.hit & (state.bounces > cfg.rr_start) & \
-        (beta_max < cfg.rr_threshold)
-    p_term = torch.clamp(1.0 - beta_max, min=0.05)
-    rr_kill = rr_cand & (u_rr < p_term)
-    rr_boost = torch.where(rr_cand & ~rr_kill, 1.0 / (1.0 - p_term), 1.0)
-    beta = vec.scale(rr_boost, beta)
-    bounces = state.bounces + 1
-    mat_mask = alive & state.hit & ~rr_kill
+    acc, beta, bounces, mat_mask, rr_kill, hp = emit_and_roulette(
+        scene, cfg, state, u_rr)
 
     # ---- the sort: the iteration's one compaction step -------------------
-    hp_t = torch.where(mat_mask, state.t, 0.0)
-    hp = vec.add(state.ray_o, vec.scale(hp_t, state.ray_d))
     state_sorted = cfg.sort_rays and resolve_mode(scene, cfg) != "xla"
     # the reference's RR "limbo" (parity): a killed path keeps its payload
     # (and hit) for later re-rolls; it neither shades, traces nor
@@ -394,27 +275,11 @@ def wavefront_step(scene: Scene, camera: Camera, cfg: RenderConfig, words,
             do_gen = (mat_mask.sum() * 4 < n * 3) | ((it % k_req) == 0)
             order = torch.where(do_gen, order,
                                 torch.arange(n, device=dev))
-        sort = functools.partial(take_pytree, order)
         if compact:
-            # packed bundle: pixel | bounces (7 bits, 127 = dead) | mat
-            # bit; prim + 1 | src; octahedral normal and direction;
-            # RGB9E5 beta and acc
-            b7 = torch.clamp(bounces, max=127)
-            pbm = state.pixel | (b7 << 21) | (mat_mask.to(torch.int32) << 28)
-            sp = (state.prim + 1) | (state.src << 23)
-            p, b9, a9, pbm, sp, onrm, od = sort((
-                hp, rgb9e5_encode_v3(beta), rgb9e5_encode_v3(acc), pbm, sp,
-                oct_encode_v3(state.normal), oct_encode_v3(state.ray_d)))
-            ray_d_p = oct_decode_v3(od)
-            beta = rgb9e5_decode_v3(b9)
-            acc = rgb9e5_decode_v3(a9)
-            pixel = pbm & 0x1FFFFF
-            b_dec = (pbm >> 21) & 0x7F
-            bounces = torch.where(b_dec >= 127, DEAD_BOUNCES, b_dec)
-            mat_mask = ((pbm >> 28) & 1) != 0
-            prim = (sp & 0x7FFFFF) - 1
-            src = (sp >> 23) & 0xFF
-            normal = oct_decode_v3(onrm)
+            (p, beta, acc, pixel, bounces, mat_mask, prim, src, normal,
+             ray_d_p) = unpack_bundle(pack_bundle(
+                 hp, beta, acc, state.pixel, bounces, mat_mask, state.prim,
+                 state.src, state.normal, state.ray_d)[:, order])
         else:
             # the wide bundle (frames above 2^21 pixels, more than 255
             # instances, max_bounces >= 126): every field at full
@@ -424,9 +289,10 @@ def wavefront_step(scene: Scene, camera: Camera, cfg: RenderConfig, words,
             # into the mat bit.
             meta = torch.clamp(bounces, max=0x7FFF) | \
                 (mat_mask.to(torch.int32) << 15)
-            pixel, p, ray_d_p, normal, prim, src, beta, acc, meta = sort((
-                state.pixel, hp, state.ray_d, state.normal, state.prim,
-                state.src, beta, acc, meta))
+            pixel, p, ray_d_p, normal, prim, src, beta, acc, meta = \
+                take_pytree(order, (state.pixel, hp, state.ray_d,
+                                    state.normal, state.prim, state.src,
+                                    beta, acc, meta))
             mat_mask = ((meta >> 15) & 1) != 0
             b_dec = meta & 0x7FFF
             bounces = torch.where(b_dec >= 0x7FFF, DEAD_BOUNCES, b_dec)
@@ -464,19 +330,7 @@ def wavefront_step(scene: Scene, camera: Camera, cfg: RenderConfig, words,
         got_ray = got_ray & do_gen
         num_gen = num_gen * do_gen
         flushing = gen_mask & do_gen
-    pix_rank = torch.clamp(torch.div(cam_id, cfg.num_samples,
-                                     rounding_mode="floor"),
-                           max=cfg.num_pixels - 1)
-    if _blocked_order(cfg):
-        pix_new = blocked_pixel_table(cfg.width, cfg.height,
-                                      dev)[pix_rank.long()]
-    else:
-        pix_new = pix_rank.to(torch.int32)
-    ci = (pix_new % cfg.width).to(torch.float32)
-    cj = torch.div(pix_new, cfg.width, rounding_mode="floor") \
-        .to(torch.float32)
-    cam_o, cam_d = camera.get_rays_v3((ci + gen_u) / cfg.width,
-                                      (cj + gen_v) / cfg.height)
+    pix_new, cam_o, cam_d = camera_rays(camera, cfg, cam_id, gen_u, gen_v)
     flush = torch.stack([torch.where(flushing, c, 0.0) for c in acc], 1)
     fb.index_add_(0, pixel.long(), flush)
     acc = tuple(torch.where(flushing, 0.0, c) for c in acc)
@@ -590,14 +444,15 @@ def _more(carry, cfg):
 
 
 def frame_step(scene: Scene, camera: Camera, cfg: RenderConfig, words,
-               carry):
+               carry, *, step_kernels: bool = True):
     """One step of the frame loop: :func:`wavefront_step` with ``it`` (a
     0-d device tensor here) and ``cam_start`` held where the loop condition
     was already false.  Such a step finds every slot dead and no camera ray
     left, so it traces nothing and adds zeros: the framebuffer, rays,
     occupancy and ``detailed_stats`` sums stay bitwise as they were."""
     more = _more(carry, cfg)
-    out = wavefront_step(scene, camera, cfg, words, carry)
+    out = wavefront_step(scene, camera, cfg, words, carry,
+                         step_kernels=step_kernels)
     return out[:2] + (torch.where(more, out[2], carry[2]),
                       carry[3] + more) + out[4:]
 
@@ -608,8 +463,9 @@ class _EagerSteps:
 
     graphed = False
 
-    def __init__(self, scene, camera, cfg, carry):
-        self._step = functools.partial(frame_step, scene, camera, cfg)
+    def __init__(self, scene, camera, cfg, carry, step_kernels=True):
+        self._step = functools.partial(frame_step, scene, camera, cfg,
+                                       step_kernels=step_kernels)
         self._n = cfg.pool_size
         self.carry = carry
 
@@ -661,7 +517,8 @@ def _run_chunks(loop, cfg: RenderConfig, generator) -> tuple:
 
 
 def render_frame_linear(scene: Scene, camera: Camera, cfg: RenderConfig,
-                        generator: torch.Generator, *, graph: bool = True):
+                        generator: torch.Generator, *, graph: bool = True,
+                        step_kernels: bool = True):
     """Render a frame; returns the LINEAR sample-sum framebuffer ``[H*W, 3]``
     and stats ``{"iterations", "rays_traced", "avg_occupancy", "graphed",
     "host_reads"}``; under ``detailed_stats`` also ``"bounce_histogram"``
@@ -675,6 +532,9 @@ def render_frame_linear(scene: Scene, camera: Camera, cfg: RenderConfig,
     ``"graphed"`` True, with ``"capture_s"``, the seconds this frame spent
     capturing, 0 when the graph was cached, and ``"graph_pool_bytes"``),
     in every mode; ``graph=False`` runs the same loop op by op.
+    ``step_kernels=False`` runs even the modes that
+    :func:`step_kernels_cover` names op by op inside the step, not through
+    the step kernels (the A/B and reference of the card's checks).
     ``"host_reads"`` counts the loop's blocking device reads."""
     check_slice(scene, cfg)
     dev = scene.device
@@ -688,9 +548,9 @@ def render_frame_linear(scene: Scene, camera: Camera, cfg: RenderConfig,
         blocked_pixel_table(cfg.width, cfg.height, carry[0].pixel.device)
     if graph and dev.type == "cuda":
         from .graph import frame_steps
-        loop = frame_steps(scene, camera, cfg, carry)
+        loop = frame_steps(scene, camera, cfg, carry, step_kernels)
     else:
-        loop = _EagerSteps(scene, camera, cfg, carry)
+        loop = _EagerSteps(scene, camera, cfg, carry, step_kernels)
     it, reads = _run_chunks(loop, cfg, generator)
     _, fb, _, _, _, rays, occ, *extra = loop.carry
     rays, occ = torch.stack((rays, occ)).tolist()
@@ -712,10 +572,11 @@ def render_frame_linear(scene: Scene, camera: Camera, cfg: RenderConfig,
 
 
 def render_frame(scene: Scene, camera: Camera, cfg: RenderConfig,
-                 generator: torch.Generator, *, graph: bool = True):
+                 generator: torch.Generator, *, graph: bool = True,
+                 step_kernels: bool = True):
     """Render a full frame: ``(framebuffer [H*W, 3], stats)`` after the
-    sqrt(mean) gamma-2 post-process; ``graph`` as in
+    sqrt(mean) gamma-2 post-process; ``graph`` and ``step_kernels`` as in
     :func:`render_frame_linear`."""
     fb, stats = render_frame_linear(scene, camera, cfg, generator,
-                                    graph=graph)
+                                    graph=graph, step_kernels=step_kernels)
     return torch.sqrt(fb / cfg.num_samples), stats

@@ -1493,3 +1493,211 @@ def test_graph_frame_at_any_chunk(cuda, monkeypatch, spr):
         assert torch.equal(gs, gs0)
         assert st["host_reads"] == math.ceil(st["iterations"] / spr) + 1
         torch.testing.assert_close(fb, fb0, rtol=1e-5, atol=1e-7)
+
+
+# ------------------------------------------------ the fused step kernels
+
+def _step_scene(device, env=(0.2, 0.3, 0.4), point_lights=2):
+    """Matte, mirror and glass triangles, point lights and an area light,
+    and an environment light: every branch of the step kernels."""
+    b = SceneBuilder()
+    mats = (b.make_matte((0.7, 0.6, 0.5)), b.make_mirror((0.9, 0.8, 0.9)),
+            b.make_glass(1.5))
+    rng = np.random.default_rng(3)
+    for m in mats + mats:
+        p0 = rng.uniform(-1, 1, (8, 3))
+        b.add_triangles(p0, p0 + rng.uniform(-0.6, 0.6, (8, 3)),
+                        p0 + rng.uniform(-0.6, 0.6, (8, 3)), m)
+    for q in range(point_lights):
+        b.add_point_light((0.3 * q, 1.5, 0.3), (5.0, 4.0, 3.0))
+    b.add_area_light([-0.3, 1.2, -0.3], [0.3, 1.2, -0.3], [0.0, 1.2, 0.3],
+                     (8, 8, 8), mats[0])
+    b.set_environment(env)
+    return b.build(device)
+
+
+def _synthetic_state(scene, cfg, gen, device):
+    """A pool of random lanes of every kind: hits and misses, dead lanes,
+    dirty dead lanes (radiance still held), camera-ray hits on the light,
+    lanes past max_bounces and lanes whose throughput is inf or NaN."""
+    from rtjax_torch.constants import DEAD_BOUNCES
+    from rtjax_torch.render.wavefront import PathState
+    n = cfg.pool_size
+    u = lambda: torch.rand(n, generator=gen, device=device)
+    ri = lambda lo, hi: torch.randint(lo, hi, (n,), generator=gen,
+                                      device=device, dtype=torch.int32)
+    d = torch.randn(3, n, generator=gen, device=device)
+    d = d / d.norm(dim=0)
+    bounces = torch.where(u() < 0.15, DEAD_BOUNCES,
+                          ri(0, cfg.max_bounces + 2))
+    beta = [u() * 1.5 for _ in range(3)]
+    beta[0] = torch.where(u() < 0.02, float("inf"), beta[0])
+    beta[1] = torch.where(u() < 0.02, float("nan"), beta[1])
+    num_src = 1 + (scene.instances.num if scene.instances is not None
+                   else 0)
+    return PathState(
+        pixel=ri(0, cfg.num_pixels),
+        ray_o=tuple(u() * 2 - 1 for _ in range(3)),
+        ray_d=tuple(d[k].contiguous() for k in range(3)),
+        hit=u() < 0.7, t=u() * 3,
+        normal=tuple(torch.randn(n, generator=gen, device=device)
+                     for _ in range(3)),
+        prim=ri(-1, scene.tris.num), src=ri(0, num_src), bounces=bounces,
+        beta=tuple(beta),
+        acc=tuple(torch.where(u() < 0.5, 0.0, u()) for _ in range(3)))
+
+
+def _bits_equal(a, b):
+    """Equal bit for bit, every NaN equal to every NaN."""
+    if a.dtype.is_floating_point:
+        same = a.view(torch.int32) == b.view(torch.int32) if \
+            a.dtype == torch.float32 else a.view(torch.int64) == \
+            b.view(torch.int64)
+        return bool((same | (torch.isnan(a) & torch.isnan(b))).all())
+    return torch.equal(a, b)
+
+
+def _flat(x):
+    if x is None:
+        return []
+    if isinstance(x, (tuple, list)):
+        return [c for v in x for c in _flat(v)]
+    return [x]
+
+
+def _check_step_stages(scene, cam, cfg, state, words, fb, it, cam_start):
+    """Route, shade and resolve against their plain versions on one
+    state: every output bit for bit, the framebuffer within the atomic
+    adds' reordering."""
+    from rtjax_torch.kernels import step as S
+    from rtjax_torch.render import wavefront as wf
+    k = wf.resolve_sort_every(scene, cfg)
+    want = S.route_ref(scene, cfg, state, words)
+    got = S.route(scene, cfg, state, words)
+    for name, x, y in zip(("keys", "bundle", "counts"), got, want):
+        assert _bits_equal(x, y), name
+    order = torch.sort(want[0], stable=True).indices
+    fb0, fb1 = fb.clone(), fb.clone()
+    sh0 = S.shade_ref(scene, cam, cfg, state, fb0, words, order, want[1],
+                      want[2], it, cam_start, k)
+    mine = dataclasses.replace(state, **{
+        f: tuple(c.clone() for c in v) if isinstance(v, tuple) else v.clone()
+        for f, v in vars(state).items()})
+    sh1 = S.shade(scene, cam, cfg, mine, fb1, words, order, want[1],
+                  want[2].clone(), it, cam_start, k)
+    for f in ("pixel", "ray_o", "ray_d", "beta", "bounces", "acc",
+              "trace_mask", "counts", "shadow", "ah_L", "chs_L"):
+        a, b = _flat(getattr(sh1, f)), _flat(getattr(sh0, f))
+        assert len(a) == len(b), f
+        for j, (x, y) in enumerate(zip(a, b)):
+            assert _bits_equal(x, y), (f, j)
+    torch.testing.assert_close(fb1, fb0, rtol=1e-5, atol=1e-7)
+    g = torch.Generator(device=fb.device).manual_seed(9)
+    n = state.pixel.shape[0]
+    occ = None if sh0.shadow is None else \
+        torch.rand(2 * n, generator=g, device=fb.device) < 0.3
+    rays = torch.tensor(7.0, dtype=torch.float64, device=fb.device)
+    occ_sum = torch.tensor(0.5, dtype=torch.float64, device=fb.device)
+    r0 = S.resolve_ref(cfg, sh0, occ, it, k, cam_start, rays, occ_sum)
+    sh0.acc = tuple(c.clone() for c in sh0.acc)
+    r1 = S.resolve(cfg, sh0, occ, it, k, cam_start, rays, occ_sum)
+    for j, (x, y) in enumerate(zip(_flat(r1), _flat(r0))):
+        assert _bits_equal(x, y), ("resolve", j)
+    return sh0
+
+
+@pytest.mark.parametrize("change", [
+    {}, dict(sort_key="adaptive"), dict(sort_key="prim"),
+    dict(sort_key="morton"), dict(sort_every=1), dict(num_samples=16),
+    dict(sort_every=3)], ids=str)
+def test_step_kernels_equal_plain_versions(cuda, change):
+    """The three step kernels bit for bit against their plain versions
+    on a synthetic pool of every lane kind (every material, point and
+    area lights, the environment light), and on the states of a frame's
+    first iterations (sorted and sort_every skip iterations)."""
+    from rtjax_torch.kernels import step as S
+    from rtjax_torch.render import wavefront as wf
+    scene = _step_scene(cuda)
+    cam = Camera.make((0, 0.5, 3), (0, 0, 0), (0, 1, 0), 45, 1.0,
+                      device=cuda)
+    cfg = RenderConfig(**{**dict(width=40, height=30, num_samples=4,
+                                 max_bounces=5, num_working_paths=3000,
+                                 direct_max_tris=0), **change})
+    assert wf.step_kernels_cover(scene, cfg)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    n = cfg.pool_size
+    fb = torch.rand(cfg.num_pixels, 3, generator=g, device=cuda)
+    words = lambda: torch.randint(0, 1 << 32, (5, n), generator=g,
+                                  device=cuda, dtype=torch.int64)
+    before = dict(S.LAUNCHES)
+    for it in (0, 1, 2, 5):
+        _check_step_stages(scene, cam, cfg, _synthetic_state(scene, cfg, g,
+                                                             cuda),
+                           words(), fb, torch.tensor(it, device=cuda),
+                           torch.tensor(it * 997, device=cuda))
+    carry = wf.initial_carry(cfg, cuda)
+    carry = carry[:3] + (torch.zeros((), dtype=torch.int64, device=cuda),) \
+        + carry[4:]
+    for it in range(6):
+        w = words()
+        _check_step_stages(scene, cam, cfg, carry[0], w, carry[1], carry[3],
+                           carry[2])
+        carry = wf.wavefront_step(scene, cam, cfg, w, carry,
+                                  step_kernels=False)
+    assert all(S.LAUNCHES[k] - before[k] == 10 for k in S.LAUNCHES)
+
+
+def test_step_kernels_on_an_instanced_scene(cuda):
+    """Instance materials (src > 0) and a light-less scene with only the
+    environment: route, shade and resolve bit for bit."""
+    scene = _instanced(cuda, n_inst=12)
+    cam = Camera.make((0, 2.5, 3.5), (0, 0.1, 0), (0, 1, 0), 45, 1.0,
+                      device=cuda)
+    dark = _step_scene(cuda, point_lights=0)
+    dark = dataclasses.replace(dark, num_lights=0)
+    for sc, change in ((scene, dict(two_level="kernel")), (scene, {}),
+                       (dark, {})):
+        cfg = RenderConfig(**{**dict(width=24, height=24, num_samples=4,
+                                     max_bounces=4, num_working_paths=2048,
+                                     direct_max_tris=0), **change})
+        g = torch.Generator(device=cuda).manual_seed(2)
+        words = torch.randint(0, 1 << 32, (5, 2048), generator=g,
+                              device=cuda, dtype=torch.int64)
+        fb = torch.zeros(cfg.num_pixels, 3, device=cuda)
+        sh = _check_step_stages(sc, cam, cfg,
+                                _synthetic_state(sc, cfg, g, cuda), words,
+                                fb, 3, torch.tensor(100, device=cuda))
+        assert (sh.shadow is None) == (sc.num_lights == 0)
+
+
+@pytest.mark.parametrize("kind, change", [
+    ("planes", {}), ("planes", dict(direct_max_tris=0, sort_every=1)),
+    ("planes", dict(direct_max_tris=0, sort_key="adaptive")),
+    ("instanced", dict(direct_max_tris=0, two_level="kernel")),
+    ("instanced", dict(direct_max_tris=0))], ids=str)
+def test_step_kernel_frame_equals_the_op_by_op_step(cuda, kind, change):
+    """A captured frame through the step kernels against one through the
+    op-by-op step (``step_kernels=False``), one seed: the same
+    iterations, rays, occupancy and traversal launches, the step kernels
+    launched once an iteration (none in the other), framebuffers within
+    the atomic adds' reordering."""
+    from rtjax_torch.kernels import counts
+    scene, cam = _graph_scene(kind, cuda)
+    cfg = RenderConfig(width=32, height=32, num_samples=8, max_bounces=4,
+                       num_working_paths=4096, **change)
+    out = []
+    for sk in (True, False):
+        before = counts.snapshot()
+        fb, st = render_frame(scene, cam, cfg, torch.Generator(
+            device=cuda).manual_seed(3), step_kernels=sk)
+        out.append((fb, st, counts.delta(before, counts.snapshot())))
+    (fb, st, ran), (fb0, st0, ran0) = out
+    assert st["graphed"] and st0["graphed"]
+    for k in ("iterations", "rays_traced", "avg_occupancy"):
+        assert st[k] == st0[k], k
+    steps = {k: v for k, v in ran.items() if k[0][0] == "step"}
+    assert steps == {(("step", "LAUNCHES"), name): st["iterations"]
+                     for name in ("route", "shade", "resolve")}
+    assert {k: v for k, v in ran.items() if k[0][0] != "step"} == ran0
+    torch.testing.assert_close(fb, fb0, rtol=1e-5, atol=1e-7)
+    assert bool(torch.isfinite(fb).all()) and float(fb.sum()) > 0

@@ -23,8 +23,8 @@ MODULES = [
     "rtjax_torch.kernels.wide_inst", "rtjax_torch.kernels.wide",
     "rtjax_torch.kernels.lane", "rtjax_torch.kernels.brute",
     "rtjax_torch.kernels.traversal", "rtjax_torch.kernels.direct",
-    "rtjax_torch.kernels.counts", "rtjax_torch.render",
-    "rtjax_torch.render.graph",
+    "rtjax_torch.kernels.step", "rtjax_torch.kernels.counts",
+    "rtjax_torch.render", "rtjax_torch.render.graph",
     "rtjax_torch.render.trace",
     "rtjax_torch.render.sorting", "rtjax_torch.render.wavefront",
     "rtjax_torch.render.film", "rtjax_torch.render.checkpoint",
@@ -56,6 +56,7 @@ def test_port_never_imports_jax():
 
 @pytest.mark.parametrize("module", ["rtjax_torch.kernels.brute",
                                     "rtjax_torch.kernels.direct",
+                                    "rtjax_torch.kernels.step",
                                     "rtjax_torch.accel",
                                     "rtjax_torch.render",
                                     "rtjax_torch.render.graph"])
