@@ -244,7 +244,7 @@ the script exits non-zero):
    graph and an eager frame of each cell, profiled in a process of its
    own (``--busy-job``);
 14. the fused wavefront step (run after phase 13, before phase 7's
-   profiles; ~15 s): (a) route, shade and resolve (kernels/step.py,
+   profiles; ~90 s): (a) route, shade and resolve (kernels/step.py,
    csrc/step_kernels.cu) against their plain versions on the states of
    STEP_CHECK_ITS of the headline, configs 2 (sorting and sort_every
    skip iterations), 3 (specular) and 4 (instanced), stepped op by op,
@@ -261,7 +261,14 @@ the script exits non-zero):
    (c) phase 13's busy job's device events and device ms an iteration of
    both arms (STEP_BUSY); (d) each kernel's device time a launch, the
    sort's and each plain version's, with the bound (bytes a lane moves,
-   ROUTE_BYTES ...; operations, ROUTE_OPS ...);
+   ROUTE_BYTES ...; operations, ROUTE_OPS ...).  Besides, the step
+   kernels' record design (a 40-byte bundle record a lane) against their
+   first design (route_v1 / shade_v1, the [9, N] column bundle): (a)
+   both designs on every state; (b) the first design's frames too, equal
+   to the record design's; (c) its busy profile; (d) in turns, route and
+   shade against the first design's (tools/step_designs.py), registers
+   and resident warps, one wrapper call of each kernel and index_add_ of
+   the flush;
 7. the two persist kernels' device time over one whole headline frame,
    the two packet kernels' over one walker="packet" headline frame, the
    lane closest-hit kernel's over one walker="lane" headline frame (its
@@ -462,11 +469,12 @@ def phase1_build():
 
 
 def _step_label(mangled):
-    """"step shade" for a step kernel's mangled name."""
-    for k in STEP_KERNELS:
-        if f"{k}_kernel" in mangled:
-            return f"step {k}"
-    return mangled
+    """"step shade" for a step kernel's mangled name: route, route_v1,
+    shade, shade_v1 and resolve."""
+    import re
+    m = re.search(r"(route_v1|route|shade_v1|shade|resolve)_kernel",
+                  mangled)
+    return mangled if m is None else f"step {m[1]}"
 
 
 def _kernel_label(mangled):
@@ -1713,8 +1721,9 @@ def _counters():
             "two_level_stats": (WI.STATS_LAUNCHES, None),
             "direct": (D.LAUNCHES, None),
             # outside _KERNEL_SETS: the covered modes launch them beside
-            # every traversal set
-            "step": (S.LAUNCHES, S.REF_CALLS)}
+            # every traversal set (the first design only when chosen)
+            "step": (S.LAUNCHES, S.REF_CALLS),
+            "step_v1": (S.V1_LAUNCHES, None)}
 
 
 def _zero_counts():
@@ -4332,6 +4341,13 @@ def _graph_frame(sc, cam, cfg, seed, path):
     return secs, fb, st, reads, _read_counts()
 
 
+def _set_design(design):
+    """Make the step kernels' ``design`` ("record" or "v1") the one frames
+    run (the graph cache is keyed on it)."""
+    from rtjax_torch.kernels import step as S
+    S.DESIGN = design
+
+
 def _busy_job(out):
     """Phase 13's device-busy shares, in a process of its own (``python3
     chip_smoke.py --busy-job OUT``; torch.profiler in a long process had
@@ -4340,7 +4356,8 @@ def _busy_job(out):
     5) under torch.profiler with CUDA activity alone, each with its wall
     time and the summed duration of its device events (kernels, copies,
     fills); for the cells of STEP_BUSY also a graph frame under
-    ``step_kernels=False`` ("graph_op", phase 14 (c)); saved to ``out``."""
+    ``step_kernels=False`` ("graph_op") and one through the step kernels'
+    first design ("graph_v1", phase 14 (c)); saved to ``out``."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -4353,14 +4370,16 @@ def _busy_job(out):
                                                 c4_cam).items():
         res[name] = {}
         # "graph_op": the captured step with step_kernels=False (phase 14)
-        paths = ("graph", "eager") + (("graph_op",) if name in STEP_BUSY
-                                      else ())
+        paths = ("graph", "eager") + (("graph_op", "graph_v1")
+                                      if name in STEP_BUSY else ())
         kw = lambda path: dict(graph=path != "eager",
                                step_kernels=path != "graph_op")
         for path in paths:
+            _set_design("v1" if path == "graph_v1" else "record")
             render_frame(sc, cam, cfg, torch.Generator(
                 device="cuda").manual_seed(1), **kw(path))
         for path in paths:
+            _set_design("v1" if path == "graph_v1" else "record")
             gen = torch.Generator(device="cuda").manual_seed(5)
             torch.cuda.synchronize()
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -4560,9 +4579,11 @@ STEP_BUSY = ("headline", "config2", "config3", "config4a", "config4b")
 STEP_CHECK_ITS = (0, 1, 2, 5, 12)
 STEP_TIME_IT = 12
 # (b): each cell's frames, in turns: a frame of seed 1 captures its arm's
-# graph (the cache holds one), then the arm's timed frames
-STEP_ORDER = (("kernels", 1), ("kernels", 2), ("kernels", 3), ("op", 1),
-              ("op", 2), ("op", 3), ("op", 4), ("kernels", 1),
+# graph (the cache holds one), then the arm's timed frames; "v1" the
+# step kernels' first design
+STEP_ORDER = (("kernels", 1), ("kernels", 2), ("kernels", 3), ("v1", 1),
+              ("v1", 2), ("v1", 3), ("op", 1), ("op", 2), ("op", 3),
+              ("op", 4), ("v1", 1), ("v1", 4), ("kernels", 1),
               ("kernels", 4))
 # bytes a lane moves, each input read once and each output written once:
 # route reads the state (81 B) and its word (8 B) and writes its key and
@@ -4667,43 +4688,57 @@ def _check_step(scene, camera, cfg, state, words, fb, it, cam_start):
     """Route, shade and resolve against their plain versions on one state
     (the kernels on copies of what they write in place): ``{kernel:
     {field: mismatching lanes}}``, the framebuffer's largest gap (its
-    atomic adds' order) and what (d) times."""
+    atomic adds' order) and what (d) times.  Also the first design
+    (route_v1, shade_v1) against the same plain versions and shade
+    against shade_v1 (next state and shadow columns)."""
     import dataclasses
 
     import torch
+    import step_designs as SD
     from rtjax_torch.kernels import step as S
     from rtjax_torch.render import wavefront as WF
     k = WF.resolve_sort_every(scene, cfg)
     n = cfg.pool_size
-    bad = {name: {} for name in STEP_KERNELS}
+    bad = {name: {} for name in (*STEP_KERNELS, "route_v1", "shade_v1")}
 
     def tally(kernel, names, got, want):
         for name, x, y in zip(names, got, want, strict=True):
             bad[kernel][name] = bad[kernel].get(name, 0) + \
                 _lanes_differ(x, y)
 
+    copy = lambda st: dataclasses.replace(st, **{
+        f: tuple(c.clone() for c in v) if isinstance(v, tuple) else v.clone()
+        for f, v in vars(st).items()})
     want = S.route_ref(scene, cfg, state, words)
     got = S.route(scene, cfg, state, words)
     tally("route", ("keys", "bundle", "counts"), got, want)
+    want_v1 = S.route_v1_ref(scene, cfg, state, words)
+    tally("route_v1", ("keys", "bundle", "counts"),
+          S.route_v1(scene, cfg, state, words), want_v1)
     order = torch.sort(want[0], stable=True).indices
-    fb0, fb1 = fb.clone(), fb.clone()
+    fb0, fb1, fb2 = fb.clone(), fb.clone(), fb.clone()
     sh0 = S.shade_ref(scene, camera, cfg, state, fb0, words, order, want[1],
                       want[2], it, cam_start, k)
-    mine = dataclasses.replace(state, **{
-        f: tuple(c.clone() for c in v) if isinstance(v, tuple) else v.clone()
-        for f, v in vars(state).items()})
-    sh1 = S.shade(scene, camera, cfg, mine, fb1, words, order, want[1],
-                  want[2].clone(), it, cam_start, k)
-    for f in ("pixel", "ray_o", "ray_d", "beta", "bounces", "acc",
-              "trace_mask", "counts", "shadow", "ah_L", "chs_L"):
+    sh1 = S.shade(scene, camera, cfg, copy(state), fb1, words, order,
+                  want[1], want[2].clone(), it, cam_start, k)
+    sh2 = S.shade_v1(scene, camera, cfg, copy(state), fb2, words, order,
+                     want_v1[1], want[2].clone(), it, cam_start, k)
+    for f in SD.SHADE_FIELDS:
         a, b = _flat_out(getattr(sh1, f)), _flat_out(getattr(sh0, f))
         if len(a) != len(b):
             raise RuntimeError(f"shade's {f} has {len(a)} columns, its plain "
                                f"version's {len(b)}")
-        tally("shade", [f"{f}[{j}]" for j in range(len(a))], a, b)
+        names = [f"{f}[{j}]" for j in range(len(a))]
+        tally("shade", names, a, b)
+        tally("shade_v1", names, _flat_out(getattr(sh2, f)), b)
+        tally("shade_v1", [f"= shade {x}" for x in names],
+              _flat_out(getattr(sh2, f)), a)
     fb_err = float((fb1 - fb0).abs().max())
     if not torch.allclose(fb1, fb0, rtol=FB_RTOL, atol=FB_ATOL):
         bad["shade"]["fb beyond rtol"] = 1
+    if not torch.allclose(fb2, fb0, rtol=FB_RTOL, atol=FB_ATOL):
+        bad["shade_v1"]["fb beyond rtol"] = 1
+    do_gen = S.cadence(want[2], n, it, k)
     g = torch.Generator(device="cuda").manual_seed(9)
     occ = None if sh0.shadow is None else \
         torch.rand(2 * n, generator=g, device="cuda") < 0.3
@@ -4715,93 +4750,77 @@ def _check_step(scene, camera, cfg, state, words, fb, it, cam_start):
     tally("resolve", ("acc[0]", "acc[1]", "acc[2]", "cam_start",
                       "work_left", "rays_traced", "occ_sum"),
           _flat_out(r1), _flat_out(r0))
-    do_gen = S.cadence(want[2], n, it, k)
     return bad, fb_err, dict(keys=want[0], order=order, bundle=want[1],
-                             counts=want[2], sh=sh0, do_gen=do_gen)
+                             bundle_v1=want_v1[1], counts=want[2],
+                             sh=sh0, do_gen=do_gen)
 
 
 def _step_timings(scene, camera, cfg, state, words, fb, it, cam_start,
                   checked, card):
-    """(d): each kernel's device time a launch (:func:`_launch_ms`, the
-    entry point called with an argument block made once), torch.sort's
-    on the keys, one call of each plain version (CUDA events, median of
-    REPS) and each one's bound, on the headline's state of iteration
-    STEP_TIME_IT."""
-    import ctypes
+    """(d): on the headline's state of iteration STEP_TIME_IT, in turns,
+    each kernel's device time a launch and its bound
+    (tools/step_designs.py ``time_state``: route against route_v1, shade
+    against shade_v1, resolve, one wrapper call each, torch.sort), each
+    kernel's registers and resident warps, one call of each plain version
+    (CUDA events, median of REPS) and ``index_add_`` of the flush."""
     import dataclasses
 
     import torch
+    import step_designs as SD
     from rtjax_torch.kernels import step as S
     from rtjax_torch.render.trace import trace_anyhit
     from rtjax_torch.render import wavefront as WF
     k = WF.resolve_sort_every(scene, cfg)
-    n = cfg.pool_size
-    lib = S._kernels()
-    stream = torch.cuda.current_stream().cuda_stream
-    copy = lambda st: dataclasses.replace(st, **{
-        f: tuple(c.clone() for c in v) if isinstance(v, tuple) else v.clone()
-        for f, v in vars(st).items()})
     c = checked
-    num_mat = int(c["counts"][0])
-    do_gen = True if c["do_gen"] is None else bool(c["do_gen"])
     sh = c["sh"]
+    t = SD.time_state(scene, camera, cfg, state, words, fb, it, cam_start,
+                      c)
     occ = trace_anyhit(scene, cfg, *sh.shadow)
-    entry = lambda name, a: (lambda: getattr(lib, f"rtjax_step_{name}")(
-        ctypes.byref(a), stream))
-    a_route, _ = S.route_args(scene, cfg, state, words)
-    a_shade, _ = S.shade_args(scene, camera, cfg, copy(state), fb.clone(),
-                              words, c["order"], c["bundle"],
-                              c["counts"].clone(), it, cam_start, k)
     rays = torch.zeros((), dtype=torch.float64, device="cuda")
-    a_resolve, _ = S.resolve_args(cfg, dataclasses.replace(
-        sh, acc=tuple(x.clone() for x in sh.acc)), occ, it, k, cam_start,
-        rays, rays.clone())
-    flushes = n - num_mat if do_gen else 0
-    shade_bytes = n * (SHADE_BYTES + SHADE_LIGHTS * (scene.num_lights > 0)
-                       + SHADE_ORDER * do_gen) + SHADE_FLUSH * flushes
-    out = {}
-    for name, a, plain, nbytes, ops in (
-            ("route", a_route,
-             lambda: S.route_ref(scene, cfg, state, words),
-             n * ROUTE_BYTES, n * ROUTE_OPS),
-            ("shade", a_shade,
-             lambda: S.shade_ref(scene, camera, cfg, state, fb.clone(),
-                                 words, c["order"], c["bundle"],
-                                 c["counts"], it, cam_start, k),
-             shade_bytes, n * SHADE_OPS),
-            ("resolve", a_resolve,
-             lambda: S.resolve_ref(cfg, sh, occ, it, k, cam_start, rays,
-                                   rays),
-             n * RESOLVE_BYTES, n * RESOLVE_OPS)):
-        mean, lo, hi = _launch_ms(entry(name, a))
-        b = _step_bound(nbytes, ops)
-        out[name] = dict(ms=mean, device_ms=[lo, hi],
-                         plain_ms=_median_ms(plain), share=b["bound_ms"] / mean,
-                         **b)
-    sort_ms = _launch_ms(lambda: torch.sort(c["keys"], stable=True))[0]
-    out["sort"] = dict(ms=sort_ms, **_step_bound(n * SORT_BYTES, 0))
-    for name, r in out.items():
-        print(f"[step time {name}] {card}: {r['ms']:.4f} ms a launch "
-              f"(mean of {REPS} queued; least / most "
-              f"{r.get('device_ms', [r['ms']] * 2)}), bound "
+    t["plain_ms"] = dict(
+        route=_median_ms(lambda: S.route_ref(scene, cfg, state, words)),
+        shade=_median_ms(lambda: S.shade_ref(
+            scene, camera, cfg, state, fb.clone(), words, c["order"],
+            c["bundle"], c["counts"], it, cam_start, k)),
+        resolve=_median_ms(lambda: S.resolve_ref(
+            cfg, sh, occ, it, k, cam_start, rays, rays)))
+    n = cfg.pool_size
+    order = c["order"] if c["do_gen"] is None else torch.where(
+        c["do_gen"], c["order"], torch.arange(n, device="cuda"))
+    _, _, acc, pixel, _, mat, *_ = S.unpack_bundle(c["bundle"][order])
+    flush = torch.stack([torch.where(~mat, x, 0.0) for x in acc], 1)
+    fbx, pix = fb.clone(), pixel.long()
+    t["index_add_ms"] = _launch_ms(lambda: fbx.index_add_(0, pix, flush))[0]
+    t["registers"] = SD.kernel_table()
+    t["card"] = card
+    for name, r in t["kernels"].items():
+        print(f"[step time {name}] {card}: {r['mean_ms']:.4f} ms a launch "
+              f"(mean of {REPS} queued, in turns: {r['ms']}), bound "
               f"{r['bound_us']:.3f} us by {r['bound_by']} ({r['bytes']:.0f} "
-              f"bytes), {100 * r['bound_ms'] / r['ms']:.2f}% of the bound"
-              + (f"; plain version {r['plain_ms']:.3f} ms a call"
-                 if "plain_ms" in r else ""))
-    return out
+              f"bytes), {100 * r['share']:.2f}% of the bound")
+    for name, r in t["registers"].items():
+        print(f"[step occupancy {name}] {card}: {r['registers']} registers, "
+              f"{r['local_bytes']} local bytes, {r['block']} threads a "
+              f"block, {r['warps_per_sm']} resident warps an SM")
+    print(f"[step time one call] {card}: {t['one_call']} ms (a wrapper "
+          f"call, host launch included); plain versions {t['plain_ms']} ms;"
+          f" flush atomics a shade launch {t['flush_atomics']}; index_add_ "
+          f"{t['index_add_ms']:.4f} ms; torch.sort {t['sort_ms']:.4f} ms")
+    return t
 
 
 def _step_frame(sc, cam, cfg, seed, arm):
-    """One captured frame through ``arm`` ("kernels" or "op":
-    ``step_kernels=False``), launch counts from zero: ``(seconds,
-    framebuffer, stats, counts)``."""
+    """One captured frame through ``arm`` ("kernels", "v1": the step
+    kernels' first design, or "op": ``step_kernels=False``), launch counts
+    from zero: ``(seconds, framebuffer, stats, counts)``."""
     import torch
     from rtjax_torch.render.wavefront import render_frame
+    _set_design("v1" if arm == "v1" else "record")
     gen = torch.Generator(device="cuda").manual_seed(seed)
     _zero_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    fb, st = render_frame(sc, cam, cfg, gen, step_kernels=arm == "kernels")
+    fb, st = render_frame(sc, cam, cfg, gen, step_kernels=arm != "op")
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     if not bool(torch.isfinite(fb).all()) or bool((fb < 0).any()):
@@ -4824,10 +4843,15 @@ def phase14_step_kernels(scene, camera, card, floor, c4_scene, c4_camera,
     kernels once an iteration in one arm and never in the other, the
     framebuffers within FB_RTOL, each kernel frame at its phase's image
     gate; (c) phase 13's busy job's device events and device ms an
-    iteration, both arms; (d) :func:`_step_timings`.  Returns the rows'
-    numbers."""
+    iteration, both arms, and the first design's; (d)
+    :func:`_step_timings`.  (a) also holds route_v1 / shade_v1 (the
+    first design) against the same plain versions and shade against
+    shade_v1; (b) also renders the first design's frames in turns, equal
+    to the kernels' in iterations, rays, occupancy and launches.  Returns the
+    rows' numbers."""
     import numpy as np
     import torch
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
     from rtjax_torch import RenderConfig
     from rtjax_torch.render import graph as G
     from rtjax_torch.render import wavefront as WF
@@ -4835,7 +4859,7 @@ def phase14_step_kernels(scene, camera, card, floor, c4_scene, c4_camera,
     cells = _graph_cells(scene, camera, c4_scene, c4_camera)
     cells = {k: cells[k] for k in STEP_BUSY}
     # (a)
-    worst = {name: 0 for name in STEP_KERNELS}
+    worst = {name: 0 for name in (*STEP_KERNELS, "route_v1", "shade_v1")}
     fb_err = 0.0
     timed = None
     for name, (sc, cam, cfg, _) in cells.items():
@@ -4887,6 +4911,9 @@ def phase14_step_kernels(scene, camera, card, floor, c4_scene, c4_camera,
                                    for k, v in bad.items()))
         for k, v in bad.items():
             worst[k] += sum(v.values())
+            if sum(v.values()):
+                print(f"  {k} mismatches by field: "
+                      f"{ {f: m for f, m in v.items() if m} }")
     if any(worst.values()):
         raise RuntimeError(f"the step kernels differ from their plain "
                            f"versions: {worst}")
@@ -4902,8 +4929,9 @@ def phase14_step_kernels(scene, camera, card, floor, c4_scene, c4_camera,
             f = _step_frame(sc, cam, cfg, seed, arm)
             if seed != 1:
                 frames[arm, seed] = f
+        _set_design("record")
         secs[name] = {arm: [f[0] for (a, _), f in frames.items() if a == arm]
-                      for arm in ("kernels", "op")}
+                      for arm in ("kernels", "v1", "op")}
         if size is not None:
             img = lambda f: _square_u8(f[1], size)
             seed_mse = float(np.mean((img(frames["op", 2])
@@ -4941,33 +4969,66 @@ def phase14_step_kernels(scene, camera, card, floor, c4_scene, c4_camera,
             if not (same and close and walks and steps):
                 raise RuntimeError(f"{name} seed {seed}: the step kernels' "
                                    "frame differs from the op-by-op step's")
+            # the first design's frame of the seed against the kernels'
+            vf = frames["v1", seed]
+            v_same = all(kf[2][k] == vf[2][k] for k in
+                         ("iterations", "rays_traced", "avg_occupancy"))
+            v_close = torch.allclose(kf[1], vf[1], rtol=FB_RTOL,
+                                     atol=FB_ATOL)
+            v_walks = {k: v for k, v in kf[3].items() if k not in
+                       ("step", "step_v1")} == \
+                {k: v for k, v in vf[3].items() if k not in
+                 ("step", "step_v1")}
+            v_steps = (vf[3]["step_v1"] == {"route": its, "shade": its}
+                       and vf[3]["step"]["resolve"] == its
+                       and vf[3]["step"]["route"] == 0
+                       and vf[3]["step"]["shade"] == 0
+                       and not any(kf[3]["step_v1"].values()))
+            v_mse = mse if size is None else float(np.mean(
+                (_square_u8(vf[1], size) - _square_u8(kf[1], size)) ** 2))
+            print(f"[step frame {name} seed {seed} v1] {card}: first design"
+                  f" {vf[0]:.3f} s against the record design's {kf[0]:.3f} "
+                  f"s; equal iterations, rays, occupancy {v_same}; traversal"
+                  f" launches equal {v_walks}; route_v1 / shade_v1 once an "
+                  f"iteration {v_steps} ({vf[3]['step_v1']}); framebuffers "
+                  f"within rtol {FB_RTOL} {v_close}; image MSE between the "
+                  f"designs {v_mse:.3e}")
+            if not (v_same and v_close and v_walks and v_steps):
+                raise RuntimeError(f"{name} seed {seed}: the first design's "
+                                   "frame differs from the record design's")
             if name in ("config4a", "config4b") and seed != 2:
                 continue
             if mse > gate:
                 raise RuntimeError(f"{name} seed {seed}: the kernels' frame "
                                    "differs beyond its gate")
         print(f"[step frame {name}] {card}: frame seconds kernels "
-              f"{secs[name]['kernels']} vs step_kernels=False "
-              f"{secs[name]['op']}; median ratio "
-              f"{np.median(secs[name]['op']) / np.median(secs[name]['kernels']):.3f}")
+              f"{secs[name]['kernels']} vs first design {secs[name]['v1']} "
+              f"vs step_kernels=False {secs[name]['op']}; median ratio "
+              f"op / kernels "
+              f"{np.median(secs[name]['op']) / np.median(secs[name]['kernels']):.3f},"
+              f" v1 / kernels "
+              f"{np.median(secs[name]['v1']) / np.median(secs[name]['kernels']):.4f}")
     G.clear_graphs()
     # (c)
     busy = {}
     for name in STEP_BUSY:
         r = g13[name]["busy"]
         busy[name] = {}
-        for arm, path in (("kernels", "graph"), ("op", "graph_op")):
+        for arm, path in (("kernels", "graph"), ("op", "graph_op"),
+                          ("v1", "graph_v1")):
             b = r[path]
             its = max(b["iterations"], 1)
             busy[name][arm] = dict(events_per_it=b["events"] / its,
                                    device_ms_per_it=b["device_ms"] / its,
                                    device_ms=b["device_ms"], wall=b["wall"])
-        k_, o_ = busy[name]["kernels"], busy[name]["op"]
+        k_, o_, v_ = (busy[name][a] for a in ("kernels", "op", "v1"))
         print(f"[step busy {name}] {card}: device events an iteration "
               f"kernels {k_['events_per_it']:.1f} vs step_kernels=False "
-              f"{o_['events_per_it']:.1f}; device ms an iteration "
-              f"{k_['device_ms_per_it']:.4f} vs {o_['device_ms_per_it']:.4f};"
-              f" profiled frames {k_['wall']:.3f} vs {o_['wall']:.3f} s")
+              f"{o_['events_per_it']:.1f} vs first design "
+              f"{v_['events_per_it']:.1f}; device ms an iteration "
+              f"{k_['device_ms_per_it']:.5f} vs {o_['device_ms_per_it']:.5f}"
+              f" vs {v_['device_ms_per_it']:.5f}; profiled frames "
+              f"{k_['wall']:.3f} vs {o_['wall']:.3f} vs {v_['wall']:.3f} s")
     # (d)
     hsc, hcam, hcfg, _ = cells["headline"]
     t = _step_timings(hsc, hcam, hcfg, *timed, card)
@@ -4978,20 +5039,29 @@ def phase14_step_kernels(scene, camera, card, floor, c4_scene, c4_camera,
 def _step_rows(p14, launches):
     """The kernels line's rows of the step kernels (launches: phase 4's
     three headline frames)."""
+    t = p14["times"]
+    k = t["kernels"]
     rows = []
     for name, meta in STEP_KERNELS.items():
-        t = p14["times"][name]
+        r = k[name]
+        reg = t["registers"][name]
         rows.append(dict(
             name=meta["name"], route="cuda", source=STEP_SOURCE,
             replaces=meta["replaces"], launches=launches[name],
             max_abs_err=p14["fb_err"] if name == "shade" else 0.0,
-            ms=t["ms"], device_ms=t["device_ms"], timed_launches=REPS,
-            plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
-            bound_us=t["bound_us"], bound_by=t["bound_by"], share=t["share"],
-            library_ms=None, mismatching_lanes=p14["mismatches"][name],
+            ms=r["mean_ms"], timed_ms=r["ms"], timed_launches=REPS,
+            one_call_ms=t["one_call"][name], plain_ms=t["plain_ms"][name],
+            bound_ms=r["bound_ms"], bound_us=r["bound_us"],
+            bound_by=r["bound_by"], share=r["share"], library_ms=None,
+            registers=reg["registers"], warps_per_sm=reg["warps_per_sm"],
+            mismatching_lanes=p14["mismatches"][name],
             note="no pallas_call: rtjax's XLA fusions of wavefront_step"))
-    rows[0]["sort_ms"] = p14["times"]["sort"]["ms"]
-    rows[0]["sort_bound_ms"] = p14["times"]["sort"]["bound_ms"]
+    rows[0]["first_design_ms"] = k["route_v1"]["mean_ms"]
+    rows[1]["first_design_ms"] = k["shade_v1"]["mean_ms"]
+    rows[1]["flush_atomics"] = t["flush_atomics"]
+    rows[0]["sort_ms"] = t["sort_ms"]
+    rows[0]["sort_bound_ms"] = _step_bound(t["lanes"] * SORT_BYTES,
+                                           0)["bound_ms"]
     return rows
 
 

@@ -15,6 +15,11 @@
 //   ``.to(torch.int32)`` truncates (cvt.rzi); ``.view`` reinterprets bits;
 // - sqrtf, sinf and cosf are the CUDA math library's, as torch's kernels
 //   call them.
+//
+// Two designs share this math (kernels/step.py): the record design (the
+// default) and the first design (kV1, kept for same-run A/B).
+// They differ in the bundle's layout and in where shade's material comes
+// from, not in any operation on a value.
 
 #pragma once
 
@@ -44,8 +49,9 @@ struct StepArgs {
   const long long* words;  // [5, n]
   // route -> sort -> shade -> resolve
   int* keys;               // [n]
-  int* bundle;             // [9, n]
-  long long* counts;       // [4]: continuing paths, path, NEE, MIS rays
+  int* bundle;             // [n, 10] records ([9, n] columns: kV1)
+  long long* counts;       // [5]: continuing paths, path, NEE, MIS rays,
+                           // dirty lanes
   const long long* order;  // [n], the sort's permutation
   const long long* it;     // null: it_value
   const long long* cam_start;
@@ -451,21 +457,42 @@ __device__ __forceinline__ Bsdf sample_f(int mtype, V3 albedo, float ior,
 
 // ------------------------------------------------------ scene/light.py
 
+// The scene's small tables a lane reads: the materials and the light rows,
+// in global memory or staged in the block's shared memory (the same values).
+struct Tables {
+  const int* mtype;     // [num_materials]
+  const float* albedo;  // [num_materials, 3]
+  const float* ior;
+  const int* ltype;     // [num_light_rows]
+  const int* ltri;
+  const float* lpos;    // [num_light_rows, 3]
+  const float* lemit;
+  const float* ltp0;
+  const float* lte1;
+  const float* lte2;
+  const float* ltn;
+};
+
+__device__ __forceinline__ Tables global_tables(const StepArgs& a) {
+  return {a.mtype, a.albedo, a.ior,  a.ltype, a.ltri, a.lpos,
+          a.lemit, a.ltp0,   a.lte1, a.lte2,  a.ltn};
+}
+
 struct Light {
   int type, tri;
   V3 pos, emit, p0, e1, e2, n;
 };
 
-__device__ __forceinline__ Light load_light(const StepArgs& a, int r) {
+__device__ __forceinline__ Light load_light(const Tables& T, int r) {
   Light L;
-  L.type = a.ltype[r];
-  L.tri = a.ltri[r];
-  L.pos = row3(a.lpos, r);
-  L.emit = row3(a.lemit, r);
-  L.p0 = row3(a.ltp0, r);
-  L.e1 = row3(a.lte1, r);
-  L.e2 = row3(a.lte2, r);
-  L.n = row3(a.ltn, r);
+  L.type = T.ltype[r];
+  L.tri = T.ltri[r];
+  L.pos = row3(T.lpos, r);
+  L.emit = row3(T.lemit, r);
+  L.p0 = row3(T.ltp0, r);
+  L.e1 = row3(T.lte1, r);
+  L.e2 = row3(T.lte2, r);
+  L.n = row3(T.ltn, r);
   return L;
 }
 
@@ -516,10 +543,32 @@ __device__ __forceinline__ float pdf_li(const Light& L, V3 p, V3 wi) {
 
 // ---------------------------------------------------------------- lanes
 
-// route (kernels/step.py route_ref) of slot i; returns the material mask
-__device__ __forceinline__ bool route_lane(const StepArgs& a, int i) {
+// the hit's material index (render/trace.py _hit_material_index: an
+// instanced hit takes its instance's material), clamped to the table as
+// the gather clamps it; prim -1 (a miss) reads row 0
+__device__ __forceinline__ int hit_material(const StepArgs& a, int prim,
+                                            int src) {
+  int mi = __ldg(a.prim_material + clampi(prim, 0, a.num_prims - 1));
+  if (a.inst_material != nullptr && src > 0)
+    mi = __ldg(a.inst_material + max(src - 1, 0));
+  return clampi(mi, 0, a.num_materials - 1);
+}
+
+struct RouteLane {
+  bool mat, dirty;
+};
+
+// route (kernels/step.py route_ref) of slot i: the key and the bundle; the
+// record design writes the lane's 40-byte record to ``rec`` (five 8-byte
+// stores; the kernel stages the block's records in shared memory), the
+// first design nine [n] columns
+template <bool kV1>
+__device__ __forceinline__ RouteLane route_lane(const StepArgs& a, int i,
+                                                int2* rec) {
   const long long n = a.n;
   const int prim = a.prim[i], src = a.src[i], bounces = a.bounces[i];
+  // the hit's material, looked up first: its loads overlap the state's
+  const int mi = kV1 ? 0 : hit_material(a, prim, src);
   const bool hit = a.hit[i] != 0;
   const V3 o = load3(a.ray_o, i), d = load3(a.ray_d, i);
   const V3 nrm = load3(a.normal, i), beta0 = load3(a.beta, i);
@@ -561,17 +610,25 @@ __device__ __forceinline__ bool route_lane(const StepArgs& a, int i) {
   a.keys[i] = dirty ? kDirtyKey
                     : (mat ? sort_key(a, hp, d, nrm, prim, b1)
                            : kInactiveKey);
-  int* b = a.bundle;
-  b[i] = __float_as_int(hp.x);
-  b[n + i] = __float_as_int(hp.y);
-  b[2 * n + i] = __float_as_int(hp.z);
-  b[3 * n + i] = rgb9e5_encode(beta);
-  b[4 * n + i] = rgb9e5_encode(acc);
-  b[5 * n + i] = a.pixel[i] | shl(min(b1, 127), 21) | shl(mat ? 1 : 0, 28);
-  b[6 * n + i] = (prim + 1) | shl(src, 23);
-  b[7 * n + i] = oct_encode(nrm);
-  b[8 * n + i] = oct_encode(d);
-  return mat;
+  const int w[9] = {__float_as_int(hp.x),
+                    __float_as_int(hp.y),
+                    __float_as_int(hp.z),
+                    rgb9e5_encode(beta),
+                    rgb9e5_encode(acc),
+                    a.pixel[i] | shl(min(b1, 127), 21) | shl(mat ? 1 : 0, 28),
+                    (prim + 1) | shl(src, 23),
+                    oct_encode(nrm),
+                    oct_encode(d)};
+  if constexpr (kV1) {
+    for (int k = 0; k < 9; ++k) a.bundle[k * n + i] = w[k];
+  } else {
+    rec[0] = make_int2(w[0], w[1]);
+    rec[1] = make_int2(w[2], w[3]);
+    rec[2] = make_int2(w[4], w[5]);
+    rec[3] = make_int2(w[6], w[7]);
+    rec[4] = make_int2(w[8], mi);
+  }
+  return {mat, dirty};
 }
 
 // whether the iteration sorts, generates and flushes (kernels/step.py
@@ -604,47 +661,66 @@ __device__ __forceinline__ V3 camera_dir(const StepArgs& a, float x,
   return normalize(d);
 }
 
-// shade (kernels/step.py shade_ref) of sorted position i
-__device__ __forceinline__ ShadeLane shade_lane(const StepArgs& a, int i) {
+// shade (kernels/step.py shade_ref) of sorted position i, its materials
+// and lights read from T; ``do_gen``: cadence(a)
+template <bool kV1>
+__device__ __forceinline__ ShadeLane shade_lane(const StepArgs& a, int i,
+                                                const Tables& T,
+                                                bool do_gen) {
   const long long n = a.n;
-  const bool do_gen = cadence(a);
   const long long j = do_gen ? a.order[i] : i;
-  const int* b = a.bundle;
-  const V3 p = {__int_as_float(b[j]), __int_as_float(b[n + j]),
-                __int_as_float(b[2 * n + j])};
-  const V3 beta = rgb9e5_decode(b[3 * n + j]);
-  V3 acc = rgb9e5_decode(b[4 * n + j]);
-  const int pbm = b[5 * n + j], sp = b[6 * n + j];
-  const V3 normal = oct_decode(b[7 * n + j]);
-  const V3 wo = oct_decode(b[8 * n + j]);
+  int w[9];
+  int mi;
+  if constexpr (kV1) {
+    for (int k = 0; k < 9; ++k) w[k] = a.bundle[k * n + j];
+  } else {
+    // five read-only 8-byte loads of the lane's record (two sectors)
+    const int2* r = reinterpret_cast<const int2*>(a.bundle) + 5 * j;
+    const int2 r0 = __ldg(r), r1 = __ldg(r + 1), r2 = __ldg(r + 2),
+               r3 = __ldg(r + 3), r4 = __ldg(r + 4);
+    w[0] = r0.x; w[1] = r0.y; w[2] = r1.x; w[3] = r1.y;
+    w[4] = r2.x; w[5] = r2.y; w[6] = r3.x; w[7] = r3.y;
+    w[8] = r4.x;
+    mi = r4.y;
+  }
+  const V3 p = {__int_as_float(w[0]), __int_as_float(w[1]),
+                __int_as_float(w[2])};
+  const V3 beta = rgb9e5_decode(w[3]);
+  V3 acc = rgb9e5_decode(w[4]);
+  const int pbm = w[5], sp = w[6];
+  const V3 normal = oct_decode(w[7]);
+  const V3 wo = oct_decode(w[8]);
   const int pixel = pbm & 0x1FFFFF;
   const int b_dec = (pbm >> 21) & 0x7F;
   const int bounces = b_dec >= 127 ? kDeadBounces : b_dec;
   const bool mat = ((pbm >> 28) & 1) != 0;
   const int prim = (sp & 0x7FFFFF) - 1;
   const int src = (sp >> 23) & 0xFF;
-  const long long* w = a.words;
-  const float u_pick = u01_lo(w[i]);
-  const float b1u1 = u01_hi(w[n + i]), b1u2 = u01_lo(w[n + i]);
-  const float luv1 = u01_hi(w[2 * n + i]), luv2 = u01_lo(w[2 * n + i]);
-  const float b2u1 = u01_hi(w[3 * n + i]), b2u2 = u01_lo(w[3 * n + i]);
-  const float gen_u = u01_hi(w[4 * n + i]), gen_v = u01_lo(w[4 * n + i]);
+  const long long* wd = a.words;
+  const float u_pick = u01_lo(wd[i]);
+  const float b1u1 = u01_hi(wd[n + i]), b1u2 = u01_lo(wd[n + i]);
+  const float luv1 = u01_hi(wd[2 * n + i]), luv2 = u01_lo(wd[2 * n + i]);
+  const float b2u1 = u01_hi(wd[3 * n + i]), b2u2 = u01_lo(wd[3 * n + i]);
+  const float gen_u = u01_hi(wd[4 * n + i]), gen_v = u01_lo(wd[4 * n + i]);
 
-  // the hit's material (render/trace.py _hit_material_index)
-  int mi = a.prim_material[clampi(prim, 0, a.num_prims - 1)];
-  if (a.inst_material != nullptr && src > 0)
-    mi = a.inst_material[max(src - 1, 0)];
-  mi = clampi(mi, 0, a.num_materials - 1);
-  const int mtype = a.mtype[mi];
-  const V3 albedo = row3(a.albedo, mi);
-  const float ior = a.ior[mi];
+  // the hit's material: looked up here in the first design, carried in
+  // the record (route's lookup) in the record design
+  if constexpr (kV1) mi = hit_material(a, prim, src);
+  const int mtype = T.mtype[mi];
+  const V3 albedo = row3(T.albedo, mi);
+  const float ior = T.ior[mi];
 
-  // the next path ray
+  // the next path ray (the record design computes it only for the lanes
+  // that take it, and a camera ray only for the lanes that get one)
   const V3 n_g = neg(normalize(normal));
-  const Bsdf s1 = sample_f(mtype, albedo, ior, wo, n_g, b1u1, b1u2, b1u1);
-  const V3 next_o = offset_origin(p, s1.n);
-  V3 next_beta = mul(beta, scale(dot(s1.wi, s1.n) / s1.pdf, s1.f));
-  if (!finite3(next_beta)) next_beta = {0.0f, 0.0f, 0.0f};
+  Bsdf s1 = {};
+  V3 next_o = {}, next_beta = {};
+  if (kV1 || mat) {
+    s1 = sample_f(mtype, albedo, ior, wo, n_g, b1u1, b1u2, b1u1);
+    next_o = offset_origin(p, s1.n);
+    next_beta = mul(beta, scale(dot(s1.wi, s1.n) / s1.pdf, s1.f));
+    if (!finite3(next_beta)) next_beta = {0.0f, 0.0f, 0.0f};
+  }
 
   ShadeLane r;
   r.nee = r.mis = false;
@@ -653,7 +729,7 @@ __device__ __forceinline__ ShadeLane shade_lane(const StepArgs& a, int i) {
     const V3 multiplier = scale(num_l, beta);
     const int pick = min(static_cast<int>(u_pick * num_l),
                          a.num_lights - 1);
-    const Light L = load_light(a, clampi(pick, 0, a.num_light_rows - 1));
+    const Light L = load_light(T, clampi(pick, 0, a.num_light_rows - 1));
     const bool delta = L.type == kPointLight;
     // light-sampling MIS -> the NEE shadow ray
     const LightSample ls = sample_li(L, p, luv1, luv2);
@@ -700,13 +776,16 @@ __device__ __forceinline__ ShadeLane shade_lane(const StepArgs& a, int i) {
                               max(i - num_mat, 0));
   const bool got_ray = i >= num_mat && cam_id < a.cam_end && do_gen;
   const bool flushing = !mat && do_gen;
-  const int pix_rank = min(floordiv(cam_id, a.spp), a.num_pixels - 1);
-  const int pix_new = a.pixel_table ? a.pixel_table[pix_rank] : pix_rank;
-  const float ci = static_cast<float>(remainder(pix_new, a.width));
-  const float cj = static_cast<float>(floordiv(pix_new, a.width));
-  const V3 cam_d = camera_dir(
-      a, div_host(ci + gen_u, static_cast<float>(a.width)),
-      div_host(cj + gen_v, static_cast<float>(a.height)));
+  int pix_new = 0;
+  V3 cam_d = {};
+  if (kV1 || got_ray) {
+    const int pix_rank = min(floordiv(cam_id, a.spp), a.num_pixels - 1);
+    pix_new = a.pixel_table ? a.pixel_table[pix_rank] : pix_rank;
+    const float ci = static_cast<float>(remainder(pix_new, a.width));
+    const float cj = static_cast<float>(floordiv(pix_new, a.width));
+    cam_d = camera_dir(a, div_host(ci + gen_u, static_cast<float>(a.width)),
+                       div_host(cj + gen_v, static_cast<float>(a.height)));
+  }
   const V3 cam_o = {a.lookfrom[0], a.lookfrom[1], a.lookfrom[2]};
 
   // the flush (added by the kernel) and the merge

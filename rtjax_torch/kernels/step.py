@@ -20,7 +20,9 @@ small torch ops an iteration.  Here it is three kernels
   and decoded; NEE and both MIS channels, camera generation into the dead
   suffix, the framebuffer flush and the merge.  It writes the next path
   rays and state, and both shadow channels into ``[2N]`` columns that the
-  one any-hit launch reads, and counts the path, NEE and BSDF-MIS rays;
+  one any-hit launch reads, and counts the path, NEE and BSDF-MIS rays.
+  Only the dirty window (sorted positions ``[counts[0], counts[0] +
+  counts[4])``) holds radiance to flush;
 - ``resolve`` (rtjax :748-818): the shadow results added to the radiance,
   and the step's counters.
 
@@ -32,13 +34,17 @@ plain versions.  There is no fallback between them.
 
 Contract (the kernels' and the plain versions'):
 
-- :func:`route` ``(scene, cfg, state, words) -> (keys [N] i32, bundle [9,
-  N] i32, counts [4] i64)``.  ``words`` is the iteration's ``[5, N]`` int64
-  block.  The bundle's rows: the hit point x, y, z (float32 bits), RGB9E5
-  throughput, RGB9E5 radiance, ``pixel | bounces << 21 | mat << 28``
-  (bounces clamped to 127, the dead sentinel), ``(prim + 1) | src << 23``,
-  the octahedral normal and direction.  ``counts`` holds the continuing
-  paths in [0] and zeros, which :func:`shade` fills.
+- :func:`route` ``(scene, cfg, state, words) -> (keys [N] i32, bundle [N,
+  10] i32, counts [5] i64)``.  ``words`` is the iteration's ``[5, N]`` int64
+  block.  The bundle holds one 40-byte record a lane (:func:`pack_bundle`):
+  the hit point x, y, z (float32 bits), RGB9E5 throughput, RGB9E5
+  radiance, ``pixel | bounces << 21 | mat << 28`` (bounces clamped to 127,
+  the dead sentinel), ``(prim + 1) | src << 23``, the octahedral normal
+  and direction, the hit's material index (render/trace.py
+  ``_hit_material_index``, clamped to the table).
+  ``counts`` holds the continuing paths in [0], the dead lanes that still
+  hold radiance (the dirty key class) in [4], and zeros, which
+  :func:`shade` fills.
 - :func:`shade` ``(scene, camera, cfg, state, fb, words, order, bundle,
   counts, it, cam_start, sort_every) -> Shaded``: the next path state
   (pixel, rays, throughput, bounces, the radiance after the flush), the
@@ -55,7 +61,12 @@ Contract (the kernels' and the plain versions'):
 
 The kernels mirror the plain versions op for op (the build uses
 ``--fmad=false``): every output agrees bit for bit but the framebuffer,
-whose float atomic adds take another order than ``index_add_``'s.
+whose float atomic adds take another order than ``index_add_``'s (an
+ordered flush cost more device time than it was allowed: PERF.md).
+
+The first design (kept for same-run A/B and on no default path:
+:func:`route_v1` / :func:`shade_v1`, ``V1_LAUNCHES``) writes the bundle as
+nine ``[N]`` columns, ``[9, N]``, and gathers it column by column.
 """
 
 from __future__ import annotations
@@ -80,7 +91,7 @@ from ..render.sorting import (oct_decode_v3, oct_encode_v3,
                               ray_sort_keys_prim_pos_v3,
                               ray_sort_keys_prim_v3, ray_sort_keys_v3,
                               rgb9e5_decode_v3, rgb9e5_encode_v3)
-from ..render.trace import gather_hit_materials_v3
+from ..render.trace import _hit_material_index, gather_hit_materials_v3
 from ..scene.light import gather_light_v3, is_delta, pdf_li_v3, sample_li_v3
 from ..scene.material import get_f_v3, is_specular, sample_f_v3
 from . import _build
@@ -94,11 +105,20 @@ W_GEN = 4          # subpixel jitter
 NUM_RNG_WORDS = 5
 
 DIRTY_KEY = 0x7FFFFFFE   # dead lanes that still hold radiance
-BUNDLE_ROWS = 9
-NUM_COUNTS = 4           # continuing paths, path rays, NEE rays, MIS rays
+BUNDLE_ROWS = 10         # int32 words of a lane's bundle record
+V1_BUNDLE_ROWS = 9       # the first design's [9, N] column bundle
+W_MATERIAL = 9           # the record's word of the hit's material index
+# continuing paths, path rays, NEE rays, MIS rays, dirty lanes
+NUM_COUNTS = 5
+
+# the kernels the fused step runs: "record" (the default) or "v1"; a
+# captured step belongs to the design it was captured under (render/graph.py
+# keys its cache on it)
+DESIGN = "record"
 
 # kernel launches (wrapper, CUDA path) and plain-version calls, by kernel
 LAUNCHES = {"route": 0, "shade": 0, "resolve": 0}
+V1_LAUNCHES = {"route": 0, "shade": 0}
 REF_CALLS = {"route": 0, "shade": 0, "resolve": 0}
 
 _lock = threading.Lock()
@@ -182,13 +202,16 @@ def emit_and_roulette(scene, cfg, state, u_rr):
 
 
 def shade_math(scene, cfg, src, prim, beta, p, wo, normal, mat_mask,
-               u_bsdf1, u_pick, u_luv, u_bsdf2):
+               u_bsdf1, u_pick, u_luv, u_bsdf2, mats=None):
     """The mat stage: next path ray, NEE shadow ray (light-sampling MIS)
     and the BSDF-sampling MIS ray toward the picked light (its target the
     triangle the path stands on under ``reference_parity``; no ray of its
-    own under ``one_sample_mis``)."""
+    own under ``one_sample_mis``).  ``mats``: the hits' ``(mtype, albedo,
+    ior)`` when the caller has them, else gathered from ``src`` and
+    ``prim``."""
     num_lights = scene.num_lights
-    mtype, albedo, ior = gather_hit_materials_v3(scene, src, prim)
+    mtype, albedo, ior = mats if mats is not None else \
+        gather_hit_materials_v3(scene, src, prim)
     multiplier = vec.scale(float(num_lights), beta)
     n_g = vec.neg(vec.normalize(normal))
 
@@ -305,28 +328,40 @@ def camera_rays(camera, cfg, cam_id, gen_u, gen_v):
 
 
 def pack_bundle(hp, beta, acc, pixel, bounces, mat_mask, prim, src,
-                normal, ray_d):
-    """The compact sort bundle ``[9, N]`` int32: the hit point's bits,
-    RGB9E5 throughput and radiance, pixel | bounces (7 bits, 127 = dead)
-    | mat bit, prim + 1 | src, the octahedral normal and direction."""
+                normal, ray_d, material=None):
+    """The compact sort bundle, one record a lane, ``[N, 10]`` int32: the
+    hit point's bits, RGB9E5 throughput and radiance, pixel | bounces (7
+    bits, 127 = dead) | mat bit, prim + 1 | src, the octahedral normal
+    and direction, and the material index (``material``, zero when None):
+    40-byte rows, 8-byte aligned."""
     b7 = torch.clamp(bounces, max=127)
     pbm = pixel | (b7 << 21) | (mat_mask.to(torch.int32) << 28)
+    zero = torch.zeros_like(pbm)
     return torch.stack((
         *(c.view(torch.int32) for c in hp), rgb9e5_encode_v3(beta),
         rgb9e5_encode_v3(acc), pbm, (prim + 1) | (src << 23),
-        oct_encode_v3(normal), oct_encode_v3(ray_d)))
+        oct_encode_v3(normal), oct_encode_v3(ray_d),
+        zero if material is None else material.to(torch.int32)), 1)
 
 
 def unpack_bundle(b):
-    """Inverse of :func:`pack_bundle` (the codecs' rounding aside):
-    ``(p, beta, acc, pixel, bounces, mat_mask, prim, src, normal,
-    ray_d)``, bounces 127 back to ``DEAD_BOUNCES``."""
-    b_dec = (b[5] >> 21) & 0x7F
-    return (tuple(b[k].view(torch.float32) for k in range(3)),
-            rgb9e5_decode_v3(b[3]), rgb9e5_decode_v3(b[4]), b[5] & 0x1FFFFF,
+    """Inverse of :func:`pack_bundle` (the codecs' rounding aside) for
+    ``b`` ``[N, >= 9]``: ``(p, beta, acc, pixel, bounces, mat_mask, prim,
+    src, normal, ray_d)``, bounces 127 back to ``DEAD_BOUNCES``."""
+    w = [b[:, k] for k in range(V1_BUNDLE_ROWS)]
+    b_dec = (w[5] >> 21) & 0x7F
+    return (tuple(w[k].view(torch.float32) for k in range(3)),
+            rgb9e5_decode_v3(w[3]), rgb9e5_decode_v3(w[4]), w[5] & 0x1FFFFF,
             torch.where(b_dec >= 127, DEAD_BOUNCES, b_dec),
-            ((b[5] >> 28) & 1) != 0, (b[6] & 0x7FFFFF) - 1,
-            (b[6] >> 23) & 0xFF, oct_decode_v3(b[7]), oct_decode_v3(b[8]))
+            ((w[5] >> 28) & 1) != 0, (w[6] & 0x7FFFFF) - 1,
+            (w[6] >> 23) & 0xFF, oct_decode_v3(w[7]), oct_decode_v3(w[8]))
+
+
+def hit_material(scene, src, prim):
+    """The hits' material index (render/trace.py ``_hit_material_index``)
+    clamped to the material table, as its gather clamps it."""
+    return torch.clamp(_hit_material_index(scene, src, prim), 0,
+                       scene.materials.mtype.shape[0] - 1)
 
 
 def cadence(counts, n, it, sort_every):
@@ -369,9 +404,11 @@ def route_ref(scene, cfg, state, words):
     keys = torch.where(dirty, DIRTY_KEY,
                        sort_keys(scene, cfg, state, hp, bounces, mat_mask))
     bundle = pack_bundle(hp, beta, acc, state.pixel, bounces, mat_mask,
-                         state.prim, state.src, state.normal, state.ray_d)
+                         state.prim, state.src, state.normal, state.ray_d,
+                         hit_material(scene, state.src, state.prim))
     counts = torch.zeros(NUM_COUNTS, dtype=torch.int64, device=keys.device)
     counts[0] = mat_mask.sum()
+    counts[4] = dirty.sum()
     return keys, bundle, counts
 
 
@@ -380,7 +417,7 @@ def shade_ref(scene, camera, cfg, state, fb, words, order, bundle, counts,
     """Plain PyTorch version of :func:`shade` (same contract, any device;
     ``state`` is not read)."""
     REF_CALLS["shade"] += 1
-    n = bundle.shape[1]
+    n = bundle.shape[0]
     dev = bundle.device
     draw_pair = lambda w: rng.u01_pair(words[w])
     num_mat = counts[0]
@@ -389,15 +426,17 @@ def shade_ref(scene, camera, cfg, state, fb, words, order, bundle, counts,
         # both branches are computed, as rtjax's lax.cond: the sorted or
         # the unsorted permutation is selected on the device
         order = torch.where(do_gen, order, torch.arange(n, device=dev))
+    rec = bundle[order]
     (p, beta, acc, pixel, bounces, mat_mask, prim, src, normal,
-     ray_d_p) = unpack_bundle(bundle[:, order])
+     ray_d_p) = unpack_bundle(rec)
     gen_mask = ~mat_mask
 
     b1u1, b1u2 = draw_pair(W_BSDF1)
     b2u1, b2u2 = draw_pair(W_BSDF2)
     sh = shade_math(scene, cfg, src, prim, beta, p, ray_d_p, normal,
                     mat_mask, (b1u1, b1u2, b1u1), draw_pair(W_RR_PICK)[1],
-                    draw_pair(W_LIGHT_UV), (b2u1, b2u2, b2u1))
+                    draw_pair(W_LIGHT_UV), (b2u1, b2u2, b2u1),
+                    mats=scene.materials.gather_v3(rec[:, W_MATERIAL]))
 
     # camera generation into the dead suffix: after the sort the
     # continuing lanes are exactly the prefix
@@ -432,7 +471,8 @@ def shade_ref(scene, camera, cfg, state, fb, words, order, bundle, counts,
         acc=acc, trace_mask=trace_mask, counts=counts)
     zero = torch.zeros((), dtype=torch.int64, device=dev)
     if scene.num_lights == 0:
-        out.counts = torch.stack((num_mat, trace_mask.sum(), zero, zero))
+        out.counts = torch.stack((num_mat, trace_mask.sum(), zero, zero,
+                                  counts[4]))
         return out
     # both shadow channels ride one 2N any-hit launch
     cat = lambda a, b: torch.cat([a, b])
@@ -444,7 +484,7 @@ def shade_ref(scene, camera, cfg, state, fb, words, order, bundle, counts,
                   cat(sh["ah_mask"], sh["chs_mask"]))
     out.ah_L, out.chs_L = sh["ah_L"], sh["chs_L"]
     out.counts = torch.stack((num_mat, trace_mask.sum(), sh["ah_mask"].sum(),
-                              sh["chs_mask"].sum()))
+                              sh["chs_mask"].sum(), counts[4]))
     return out
 
 
@@ -465,8 +505,28 @@ def resolve_ref(cfg, sh, occluded, it, sort_every, cam_start, rays_traced,
     if do_gen is not None:
         num_gen = num_gen * do_gen
     return (acc, cam_start + num_gen, c[1] > 0,
-            rays_traced + c[1:].sum().to(torch.float64),
+            rays_traced + c[1:4].sum().to(torch.float64),
             occ_sum + c[1].to(torch.float64) / n)
+
+
+def route_v1_ref(scene, cfg, state, words):
+    """Plain version of :func:`route_v1`: :func:`route_ref` with the
+    bundle as the first design's ``[9, N]`` columns."""
+    keys, rec, counts = route_ref(scene, cfg, state, words)
+    return keys, rec[:, :V1_BUNDLE_ROWS].T.contiguous(), counts
+
+
+def shade_v1_ref(scene, camera, cfg, state, fb, words, order, bundle,
+                 counts, it, cam_start, sort_every):
+    """Plain version of :func:`shade_v1`: :func:`shade_ref` of the
+    records the ``[9, N]`` columns hold (the material index from their
+    prim and src, as the first design's kernel finds it)."""
+    cols = bundle.T
+    mi = hit_material(scene, (cols[:, 6] >> 23) & 0xFF,
+                      (cols[:, 6] & 0x7FFFFF) - 1)
+    rec = torch.cat((cols, mi[:, None]), 1)
+    return shade_ref(scene, camera, cfg, state, fb, words, order, rec,
+                     counts, it, cam_start, sort_every)
 
 
 # ------------------------------------------------------------ CUDA path
@@ -514,14 +574,40 @@ class StepArgs(ctypes.Structure):
     _fields_ = ARG_FIELDS
 
 
+# entry point (``rtjax_step_<name>``) -> the counter its launch adds to
+_COUNTERS = {"route": (LAUNCHES, "route"), "shade": (LAUNCHES, "shade"),
+             "resolve": (LAUNCHES, "resolve"),
+             "route_v1": (V1_LAUNCHES, "route"),
+             "shade_v1": (V1_LAUNCHES, "shade")}
+# kernel ids of ``rtjax_step_kernel_info``
+KERNEL_IDS = {"route": 0, "shade": 1, "resolve": 2, "route_v1": 3,
+              "shade_v1": 4}
+
 def bind(lib):
-    """Set the argument types of a step-kernel library's three entry points
+    """Set the argument types of a step-kernel library's entry points
     (``ctypes.CDLL``) and return it."""
-    for name in LAUNCHES:
+    for name in _COUNTERS:
         fn = getattr(lib, f"rtjax_step_{name}")
         fn.argtypes = [ctypes.POINTER(StepArgs), _P]
         fn.restype = _I32
+    lib.rtjax_step_kernel_info.argtypes = [_I32] + [ctypes.POINTER(_I32)] * 4
+    lib.rtjax_step_kernel_info.restype = _I32
     return lib
+
+
+def kernel_info(name) -> dict:
+    """A step kernel's registers, local (spill) bytes a thread, threads a
+    block and resident blocks an SM at that block (the card's occupancy
+    calculator), by :data:`KERNEL_IDS` name."""
+    vals = [_I32() for _ in range(4)]
+    rc = _kernels().rtjax_step_kernel_info(KERNEL_IDS[name],
+                                           *map(ctypes.byref, vals))
+    if rc != 0:
+        raise RuntimeError(f"step kernel info of {name} failed: CUDA error "
+                           f"{rc}")
+    regs, local, block, blocks = (v.value for v in vals)
+    return dict(registers=regs, local_bytes=local, block=block,
+                blocks_per_sm=blocks, warps_per_sm=blocks * block // 32)
 
 
 def _kernels():
@@ -625,7 +711,8 @@ def _scene_args(a, scene, camera, cfg, dev):
 
 
 def launch(name, a, dev):
-    """Launch kernel ``name`` ("route", "shade" or "resolve") with the
+    """Launch kernel ``name`` (an entry of ``_COUNTERS``: "route",
+    "shade", "resolve", "route_v1" or "shade_v1") with the
     argument block ``a`` on ``dev``'s current stream; raise on a CUDA
     error code."""
     entry = getattr(_kernels(), f"rtjax_step_{name}")
@@ -633,7 +720,8 @@ def launch(name, a, dev):
     if rc != 0:
         raise RuntimeError(f"step {name} kernel launch failed: CUDA error "
                            f"{rc}")
-    LAUNCHES[name] += 1
+    counter, key = _COUNTERS[name]
+    counter[key] += 1
 
 
 def _scalar(name, t, dtype, dev):
@@ -650,9 +738,10 @@ def _step_scalars(a, it, cam_start, dev):
     a.cam_start = _scalar("cam_start", cam_start, torch.int64, dev)
 
 
-def route_args(scene, cfg, state, words):
-    """``(argument block, (keys, bundle, counts))`` of a route launch, its
-    outputs allocated (``counts`` zeroed)."""
+def route_args(scene, cfg, state, words, v1=False):
+    """``(argument block, (keys, bundle, counts))`` of a route launch (the
+    first design's with ``v1``), its outputs allocated (``counts``
+    zeroed)."""
     n, dev = state.pixel.shape[0], state.pixel.device
     # the fields route only reads may come from a walk as column views
     state = dataclasses.replace(state, **{
@@ -663,7 +752,8 @@ def route_args(scene, cfg, state, words):
     _state_args(a, state, words, _READ + _WRITTEN)
     _scene_args(a, scene, None, cfg, dev)
     keys = torch.empty(n, dtype=torch.int32, device=dev)
-    bundle = torch.empty(BUNDLE_ROWS, n, dtype=torch.int32, device=dev)
+    bundle = torch.empty((V1_BUNDLE_ROWS, n) if v1 else (n, BUNDLE_ROWS),
+                         dtype=torch.int32, device=dev)
     counts = torch.zeros(NUM_COUNTS, dtype=torch.int64, device=dev)
     a.keys, a.bundle, a.counts = (keys.data_ptr(), bundle.data_ptr(),
                                   counts.data_ptr())
@@ -672,16 +762,18 @@ def route_args(scene, cfg, state, words):
 
 
 def shade_args(scene, camera, cfg, state, fb, words, order, bundle, counts,
-               it, cam_start, sort_every):
-    """``(argument block, Shaded)`` of a shade launch: the outputs the
-    kernel writes beside the state allocated."""
+               it, cam_start, sort_every, v1=False):
+    """``(argument block, Shaded)`` of a shade launch (the first design's
+    with ``v1``): the outputs the kernel writes beside the state
+    allocated."""
     n, dev = state.pixel.shape[0], state.pixel.device
     a = StepArgs()
     _state_args(a, state, words, _WRITTEN)
     _scene_args(a, scene, camera, cfg, dev)
     _need("fb", fb, torch.float32, (cfg.num_pixels, 3), dev)
     _need("order", order, torch.int64, (n,), dev)
-    _need("bundle", bundle, torch.int32, (BUNDLE_ROWS, n), dev)
+    _need("bundle", bundle, torch.int32,
+          (V1_BUNDLE_ROWS, n) if v1 else (n, BUNDLE_ROWS), dev)
     _need("counts", counts, torch.int64, (NUM_COUNTS,), dev)
     _step_scalars(a, it, cam_start, dev)
     a.fb, a.order, a.bundle, a.counts = (fb.data_ptr(), order.data_ptr(),
@@ -745,7 +837,10 @@ def resolve_args(cfg, sh, occluded, it, sort_every, cam_start, rays_traced,
 
 def route(scene, cfg, state, words):
     """Emission, Russian roulette, the sort keys and the packed bundle of
-    one iteration: ``(keys, bundle, counts)`` (module docstring)."""
+    one iteration: ``(keys, bundle, counts)`` (module docstring); the
+    first design's under ``DESIGN = "v1"``."""
+    if DESIGN == "v1":
+        return route_v1(scene, cfg, state, words)
     if not _on_card(state.pixel):
         return route_ref(scene, cfg, state, words)
     a, out = route_args(scene, cfg, state, words)
@@ -756,13 +851,41 @@ def route(scene, cfg, state, words):
 def shade(scene, camera, cfg, state, fb, words, order, bundle, counts, it,
           cam_start, sort_every):
     """Shading, camera generation, the flush and the merge of one
-    iteration's sorted pool: a :class:`Shaded` (module docstring)."""
+    iteration's sorted pool: a :class:`Shaded` (module docstring); the
+    first design's under ``DESIGN = "v1"``."""
+    if DESIGN == "v1":
+        return shade_v1(scene, camera, cfg, state, fb, words, order, bundle,
+                        counts, it, cam_start, sort_every)
     if not _on_card(state.pixel):
         return shade_ref(scene, camera, cfg, state, fb, words, order,
                          bundle, counts, it, cam_start, sort_every)
     a, out = shade_args(scene, camera, cfg, state, fb, words, order, bundle,
                         counts, it, cam_start, sort_every)
     launch("shade", a, state.pixel.device)
+    return out
+
+
+def route_v1(scene, cfg, state, words):
+    """:func:`route` in the first design: the bundle as ``[9, N]``
+    columns."""
+    if not _on_card(state.pixel):
+        return route_v1_ref(scene, cfg, state, words)
+    a, out = route_args(scene, cfg, state, words, v1=True)
+    launch("route_v1", a, state.pixel.device)
+    return out
+
+
+def shade_v1(scene, camera, cfg, state, fb, words, order, bundle, counts,
+             it, cam_start, sort_every):
+    """:func:`shade` in the first design: the ``[9, N]`` columns gathered
+    one at a time, the material looked up from prim and src, every dead
+    lane's radiance added by float atomics."""
+    if not _on_card(state.pixel):
+        return shade_v1_ref(scene, camera, cfg, state, fb, words, order,
+                            bundle, counts, it, cam_start, sort_every)
+    a, out = shade_args(scene, camera, cfg, state, fb, words, order, bundle,
+                        counts, it, cam_start, sort_every, v1=True)
+    launch("shade_v1", a, state.pixel.device)
     return out
 
 

@@ -6,7 +6,10 @@ captured wavefront step (render/graph.py): the loop of repass's passes
 device bool ``pend.any()``; the caller's body updates its state, ``pend``
 included, in place.
 
-- **Outside a capture** (the CPU, ``graph=False``, the frame's first,
+- **On the CPU** it is rtjax's loop: ``pend.any()`` is read before each
+  pass and the loop stops when it is false, so it launches what rtjax
+  launches (a host read costs nothing there).
+- **On the card outside a capture** (``graph=False``, the frame's first,
   eager step) it runs the body ``n`` times.  A pass with no pending ray
   changes nothing, and ``n`` is rtjax's bound, so the results are those of
   rtjax's loop, with no host read.
@@ -165,12 +168,23 @@ class Recorder:
         self.loops.append((runs, counts.delta(before, counts.snapshot())))
 
 
+def _on_card(pend) -> bool:
+    """Whether ``pend`` lies on the card, where reading it from the host
+    would cost a synchronisation (tests stand in for the card here)."""
+    return pend.is_cuda
+
+
 def passes(pend, n: int):
     """Up to ``n`` passes while the device bool ``pend.any()`` holds: a
     generator over the passes (see the module docstring)."""
+    if not _on_card(pend):
+        for _ in range(n):
+            if not bool(pend.any()):
+                return
+            yield
+        return
     rec = _recorder
-    if rec is None or not pend.is_cuda or \
-            not torch.cuda.is_current_stream_capturing():
+    if rec is None or not torch.cuda.is_current_stream_capturing():
         for _ in range(n):
             yield
         return

@@ -24,8 +24,9 @@ host issuing them one by one.
   it makes the capture stream's work counter (``persist.work_buffer``)
   outside the graph's memory pool.  The step is then captured from its
   result; nothing runs twice.
-- **The cache** holds one graph, keyed by the (scene, camera, config)
-  that it was captured for, held strongly; a later frame of the same key
+- **The cache** holds one graph, keyed by the (scene, camera, config,
+  ``step_kernels``, step-kernel design ``kernels.step.DESIGN``) that it
+  was captured for, held strongly; a later frame of the same key
   resets the static carry and replays from its first step.
   :func:`clear_graphs` drops it.
 - **Device loops.**  Repass's passes (render/trace.py) are rtjax's
@@ -54,6 +55,7 @@ import torch
 
 from ..core import rng
 from ..kernels import counts, persist
+from ..kernels import step as step_kernels_mod
 from ..utils.log import logger
 from . import device_loop
 from . import wavefront as wf
@@ -119,7 +121,8 @@ class StepGraph:
     graphed = True
 
     def __init__(self, scene, camera, cfg, carry, step_kernels=True):
-        self.key = (scene, camera, cfg, step_kernels)
+        self.key = (scene, camera, cfg, step_kernels,
+                    step_kernels_mod.DESIGN)
         self.carry = carry
         self.graph = None
         self.words = None
@@ -130,8 +133,11 @@ class StepGraph:
         self.pool_bytes = 0   # the graph pools' segments, in bytes
 
     def matches(self, scene, camera, cfg, step_kernels=True) -> bool:
+        """Whether this graph was captured for these arguments under the
+        step kernels' current design."""
         return (self.key[0] is scene and self.key[1] is camera
-                and self.key[2] == cfg and self.key[3] == step_kernels)
+                and self.key[2] == cfg and self.key[3] == step_kernels
+                and self.key[4] == step_kernels_mod.DESIGN)
 
     def reset(self, carry) -> None:
         """Start a frame from ``carry`` (a fresh frame's)."""
@@ -178,7 +184,10 @@ class StepGraph:
         counts.add(self.launches)
 
     def _capture(self, generator) -> None:
-        scene, camera, cfg, step_kernels = self.key
+        scene, camera, cfg, step_kernels, design = self.key
+        if step_kernels_mod.DESIGN != design:
+            raise RuntimeError(f"the step is captured under the {design!r} "
+                               f"design, not {step_kernels_mod.DESIGN!r}")
         step = functools.partial(wf.frame_step, scene, camera, cfg,
                                  step_kernels=step_kernels)
         dev = self.carry[1].device
@@ -232,7 +241,8 @@ def counts_sub(launches: dict, body: dict) -> None:
 def frame_steps(scene, camera, cfg, carry, step_kernels=True) -> StepGraph:
     """The :class:`StepGraph` of a frame starting from ``carry``: the
     cached one when it was captured for this (scene, camera, config,
-    ``step_kernels``), else a new one (captured by its first step) that
+    ``step_kernels``) under the step kernels' current design, else a new
+    one (captured by its first step) that
     replaces it."""
     g = cached()
     if g is not None and g.matches(scene, camera, cfg, step_kernels):

@@ -207,8 +207,9 @@ def _repass_passes(scene, o, d, active, blocked, body):
     """rtjax's repass loop over every mesh group: passes while a ray is
     pending, at most ``G`` for a group of ``G`` instances (rtjax's bound:
     each pass walks one candidate of every pending ray), through
-    render/device_loop.py: ``G`` passes masked on the device outside a
-    capture, a while node inside one.  ``pend`` holds the rays whose
+    render/device_loop.py: on the CPU rtjax's loop (stop when no ray is
+    pending), on the card ``G`` passes masked outside a capture and a
+    while node inside one.  ``pend`` holds the rays whose
     nearest unwalked candidate instance is still admitted by ``blocked()
     -> [G, N] bool`` (False = candidate).  A pass calls ``body(blas,
     pend, src_k, o_l, d_l)`` with the rays in their picked instance's

@@ -279,7 +279,7 @@ def wavefront_step(scene: Scene, camera: Camera, cfg: RenderConfig, words,
             (p, beta, acc, pixel, bounces, mat_mask, prim, src, normal,
              ray_d_p) = unpack_bundle(pack_bundle(
                  hp, beta, acc, state.pixel, bounces, mat_mask, state.prim,
-                 state.src, state.normal, state.ray_d)[:, order])
+                 state.src, state.normal, state.ray_d)[order])
         else:
             # the wide bundle (frames above 2^21 pixels, more than 255
             # instances, max_bounces >= 126): every field at full

@@ -1568,7 +1568,8 @@ def _flat(x):
 def _check_step_stages(scene, cam, cfg, state, words, fb, it, cam_start):
     """Route, shade and resolve against their plain versions on one
     state: every output bit for bit, the framebuffer within the atomic
-    adds' reordering."""
+    adds' reordering.  The first design (route_v1, shade_v1) too, and
+    shade against shade_v1."""
     from rtjax_torch.kernels import step as S
     from rtjax_torch.render import wavefront as wf
     k = wf.resolve_sort_every(scene, cfg)
@@ -1576,22 +1577,30 @@ def _check_step_stages(scene, cam, cfg, state, words, fb, it, cam_start):
     got = S.route(scene, cfg, state, words)
     for name, x, y in zip(("keys", "bundle", "counts"), got, want):
         assert _bits_equal(x, y), name
+    got_v1 = S.route_v1(scene, cfg, state, words)
+    for name, x, y in zip(("keys", "bundle", "counts"), got_v1,
+                          S.route_v1_ref(scene, cfg, state, words)):
+        assert _bits_equal(x, y), ("v1", name)
     order = torch.sort(want[0], stable=True).indices
-    fb0, fb1 = fb.clone(), fb.clone()
+    fb0, fb1, fb2 = fb.clone(), fb.clone(), fb.clone()
     sh0 = S.shade_ref(scene, cam, cfg, state, fb0, words, order, want[1],
                       want[2], it, cam_start, k)
-    mine = dataclasses.replace(state, **{
+    copy = lambda st: dataclasses.replace(st, **{
         f: tuple(c.clone() for c in v) if isinstance(v, tuple) else v.clone()
-        for f, v in vars(state).items()})
-    sh1 = S.shade(scene, cam, cfg, mine, fb1, words, order, want[1],
+        for f, v in vars(st).items()})
+    sh1 = S.shade(scene, cam, cfg, copy(state), fb1, words, order, want[1],
                   want[2].clone(), it, cam_start, k)
+    sh2 = S.shade_v1(scene, cam, cfg, copy(state), fb2, words, order,
+                     got_v1[1], want[2].clone(), it, cam_start, k)
     for f in ("pixel", "ray_o", "ray_d", "beta", "bounces", "acc",
               "trace_mask", "counts", "shadow", "ah_L", "chs_L"):
         a, b = _flat(getattr(sh1, f)), _flat(getattr(sh0, f))
         assert len(a) == len(b), f
-        for j, (x, y) in enumerate(zip(a, b)):
+        for j, (x, y, z) in enumerate(zip(a, b, _flat(getattr(sh2, f)))):
             assert _bits_equal(x, y), (f, j)
+            assert _bits_equal(z, y), ("v1", f, j)
     torch.testing.assert_close(fb1, fb0, rtol=1e-5, atol=1e-7)
+    torch.testing.assert_close(fb2, fb0, rtol=1e-5, atol=1e-7)
     g = torch.Generator(device=fb.device).manual_seed(9)
     n = state.pixel.shape[0]
     occ = None if sh0.shadow is None else \
@@ -1629,7 +1638,7 @@ def test_step_kernels_equal_plain_versions(cuda, change):
     fb = torch.rand(cfg.num_pixels, 3, generator=g, device=cuda)
     words = lambda: torch.randint(0, 1 << 32, (5, n), generator=g,
                                   device=cuda, dtype=torch.int64)
-    before = dict(S.LAUNCHES)
+    before, before_v1 = dict(S.LAUNCHES), dict(S.V1_LAUNCHES)
     for it in (0, 1, 2, 5):
         _check_step_stages(scene, cam, cfg, _synthetic_state(scene, cfg, g,
                                                              cuda),
@@ -1644,7 +1653,10 @@ def test_step_kernels_equal_plain_versions(cuda, change):
                            carry[2])
         carry = wf.wavefront_step(scene, cam, cfg, w, carry,
                                   step_kernels=False)
-    assert all(S.LAUNCHES[k] - before[k] == 10 for k in S.LAUNCHES)
+    # ten states, each kernel once a state
+    assert {k: S.LAUNCHES[k] - before[k] for k in S.LAUNCHES} == dict(
+        route=10, shade=10, resolve=10)
+    assert all(S.V1_LAUNCHES[k] - before_v1[k] == 10 for k in S.V1_LAUNCHES)
 
 
 def test_step_kernels_on_an_instanced_scene(cuda):
@@ -1701,3 +1713,60 @@ def test_step_kernel_frame_equals_the_op_by_op_step(cuda, kind, change):
     assert {k: v for k, v in ran.items() if k[0][0] != "step"} == ran0
     torch.testing.assert_close(fb, fb0, rtol=1e-5, atol=1e-7)
     assert bool(torch.isfinite(fb).all()) and float(fb.sum()) > 0
+
+
+def test_graph_follows_the_step_design(cuda, monkeypatch):
+    """Frames of one seed under the record design, then the first design,
+    then the record design again, with no ``clear_graphs`` between them:
+    each frame launches its own design's kernels once an iteration (the
+    cached graph is captured anew when the design changes), and the
+    framebuffers agree within the atomic adds' reordering."""
+    from rtjax_torch.kernels import counts
+    from rtjax_torch.kernels import step as S
+    from rtjax_torch.render import graph
+    scene, cam = cornell_planes(cuda)
+    cfg = RenderConfig(width=48, height=48, num_samples=16, max_bounces=5,
+                       num_working_paths=8192, direct_max_tris=0)
+    graph.clear_graphs()
+    frames = []
+    for design in ("record", "v1", "record"):
+        monkeypatch.setattr(S, "DESIGN", design)
+        before = counts.snapshot()
+        fb, st = render_frame(scene, cam, cfg, torch.Generator(
+            device=cuda).manual_seed(6))
+        ran = counts.delta(before, counts.snapshot())
+        table = "V1_LAUNCHES" if design == "v1" else "LAUNCHES"
+        assert ran.get((("step", table), "shade"), 0) == st["iterations"]
+        assert graph.cached().key[4] == design
+        frames.append(fb)
+    graph.clear_graphs()
+    for fb in frames[1:]:
+        torch.testing.assert_close(fb, frames[0], rtol=1e-5, atol=1e-7)
+    assert float(frames[0].sum()) > 0
+
+
+def test_repass_runs_g_masked_passes_on_the_card(cuda):
+    """Outside a capture on the card (the eager loop) repass's passes are
+    all G of a mesh group, masked on the device with no host read; the
+    CPU stops where rtjax does (tests/test_torch_repass_device.py)."""
+    scene = _instanced(cuda, n_inst=12)
+    rng = np.random.default_rng(4)
+    n = 4096
+    o = tuple(torch.tensor(c, device=cuda) for c in np.stack([
+        rng.uniform(-2, 2, n), np.full(n, 2.5), rng.uniform(-2, 2, n)
+    ]).astype(np.float32))
+    d = np.stack([rng.uniform(-0.2, 0.2, n), -np.ones(n),
+                  rng.uniform(-0.2, 0.2, n)])
+    d = tuple(torch.tensor(c, device=cuda)
+              for c in (d / np.linalg.norm(d, axis=0)).astype(np.float32))
+    active = torch.ones(n, dtype=torch.bool, device=cuda)
+    runs = {}
+
+    def body(blas, pend, src, *_):
+        runs[id(blas)] = runs.get(id(blas), 0) + 1
+
+    trace._repass_passes(scene, o, d, active,
+                         lambda ent: torch.zeros_like(ent, dtype=torch.bool),
+                         body)
+    for grp in scene.instances.groups:
+        assert runs[id(scene.blas[grp.mesh_id])] == grp.size

@@ -395,24 +395,54 @@ def test_gate_follows_rtjax(gate_scenes, monkeypatch, case):
         jax_trace.trace_anyhit(jscene, jcfg, jmode, True, _v3j(o), _v3j(d),
                                jnp.full(n, 2.0), jnp.asarray(exclude),
                                jnp.asarray(active))
+    # on the CPU repass's passes stop where rtjax's while_loop stops
+    assert gate.port == gate.rtjax
     if case.startswith("repass"):
-        # rtjax's passes run while a ray has a candidate; the port's, op
-        # by op, run all G = 3, the passes past rtjax's last over an empty
-        # mask (tests/test_torch_repass_device.py)
         for kind in ("closest", "anyhit"):
-            port = [x for x in gate.port if kind in str(x)]
             ref = [x for x in gate.rtjax if kind in str(x)]
-            assert len(port) == 1 + scene.instances.num
-            assert port[:len(ref)] == ref and len(ref) > 1
-            assert all(x == port[-1] for x in port[len(ref):])
-    else:
-        assert gate.port == gate.rtjax
+            assert 1 < len(ref) <= 1 + scene.instances.num
     closest = [x for x in gate.port if "closest" in str(x)]
     # the base launch, then each pass or instance in turn
     assert closest[:len(first)] == first
     assert len({str(x) for x in closest}) == len({str(x) for x in first})
     anyhit = [x for x in gate.port if "anyhit" in str(x)]
     assert len(anyhit) > 0
+
+
+@pytest.mark.parametrize("case", [c for c in GATE_CASES
+                                  if c.startswith("repass")])
+def test_gate_on_the_card_runs_g_masked_passes(gate_scenes, monkeypatch,
+                                               case):
+    """With render/device_loop.py taking its card path (patched here), the
+    eager repass loop runs all G = 3 passes a mesh group with no host
+    read: rtjax's launches, then masked passes up to G."""
+    from rtjax_torch.render import device_loop
+    name, no_inst, kw, jkw, jmode, first = GATE_CASES[case]
+    jscene, scene = gate_scenes[name]
+    gate = _Gate(monkeypatch)
+    monkeypatch.setattr(device_loop, "_on_card", lambda pend: True)
+    o, d = _gate_rays()
+    n = o.shape[0]
+    active = np.ones(n, bool)
+    active[::7] = False
+    cfg, jcfg = RenderConfig(**kw), JaxConfig(**jkw)
+    trace.trace_closest(scene, cfg, _v3t(o), _v3t(d),
+                        torch.full((n,), float("inf")), torch.tensor(active))
+    trace.trace_anyhit(scene, cfg, _v3t(o), _v3t(d), torch.full((n,), 2.0),
+                       torch.full((n,), -1, dtype=torch.int32),
+                       torch.tensor(active))
+    with jax.disable_jit():
+        jax_trace.trace_closest(jscene, jcfg, jmode, True, _v3j(o), _v3j(d),
+                                jnp.full(n, jnp.inf), jnp.asarray(active))
+        jax_trace.trace_anyhit(jscene, jcfg, jmode, True, _v3j(o), _v3j(d),
+                               jnp.full(n, 2.0), jnp.full(n, -1, jnp.int32),
+                               jnp.asarray(active))
+    for kind in ("closest", "anyhit"):
+        port = [x for x in gate.port if kind in str(x)]
+        ref = [x for x in gate.rtjax if kind in str(x)]
+        assert len(port) == 1 + scene.instances.num
+        assert port[:len(ref)] == ref and len(ref) > 1
+        assert all(x == port[-1] for x in port[len(ref):])
 
 
 # ------------------------------------------------ the engine, config 2

@@ -340,17 +340,32 @@ def test_no_mode_reads_the_host_in_a_step(planes, inst, change,
     wf.blocked_pixel_table(8, 8, torch.device("cpu"))
     _stub_kernels(monkeypatch)
     carry = wf.frame_step(scene, cam, cfg, words, carry)
+    # repass's loop takes its card path, which reads nothing (on the CPU
+    # it reads the condition, as rtjax's while_loop does)
+    from rtjax_torch.render import device_loop
+    monkeypatch.setattr(device_loop, "_on_card", lambda pend: True)
     _trap(monkeypatch)
     wf.frame_step(scene, cam, cfg, words, carry)
 
 
 # ------------------------------------------------- (f) the graph's carry
 
-def test_device_loop_runs_every_pass_outside_a_capture():
-    """Outside a captured graph (here: the CPU) a device loop runs its
-    body ``n`` times, whatever the condition; inside one it is a while
-    node (the card tests)."""
+def test_device_loop_runs_every_pass_outside_a_capture(monkeypatch):
+    """Outside a captured graph on the card (its path patched in here) a
+    device loop runs its body ``n`` times, whatever the condition; inside
+    one it is a while node (the card tests).  On the CPU it runs while
+    the condition holds, as rtjax's ``while_loop`` does."""
     from rtjax_torch.render import device_loop
+    for pend, on_cpu in ((torch.zeros(5, dtype=torch.bool), 0),
+                         (torch.ones(5, dtype=torch.bool), 7)):
+        assert sum(1 for _ in device_loop.passes(pend, 7)) == on_cpu
+    flags = torch.ones(5, dtype=torch.bool)
+    runs = 0
+    for _ in device_loop.passes(flags, 7):
+        runs += 1
+        flags[runs - 1] = False
+    assert runs == 5
+    monkeypatch.setattr(device_loop, "_on_card", lambda pend: True)
     for pend in (torch.zeros(5, dtype=torch.bool),
                  torch.ones(5, dtype=torch.bool)):
         assert sum(1 for _ in device_loop.passes(pend, 7)) == 7

@@ -1,8 +1,9 @@
 """Repass as a device loop (render/trace.py ``_repass_passes``), on the
 CPU, against rtjax's repass (``jax.lax.while_loop`` over passes):
 
-- outside a captured graph (render/device_loop.py) every mesh group of G
-  instances runs exactly G passes; with nothing
+- outside a captured graph on the card (render/device_loop.py; its card
+  path patched in) every mesh group of G instances runs exactly G
+  passes, on the CPU as many as rtjax's ``while_loop``; with nothing
   blocking, a ray is pending in as many passes as it has candidate
   instances, so after G passes none is left, on a scene whose world boxes
   overlap (two meshes, groups of 6 and 3);
@@ -125,34 +126,38 @@ def test_groups_are_the_meshes_in_instance_order(scenes):
 
 
 @pytest.mark.parametrize("seed", [3, 4])
-def test_each_group_runs_exactly_g_passes(scenes, seed):
-    """Nothing blocking: G passes a group, a ray pending in as many passes
-    as it has candidates (so none is left after G), and the passes that
-    have a pending ray as many as rtjax's ``while_loop`` runs: the most
-    candidates of any ray."""
+def test_each_group_runs_exactly_g_passes(scenes, seed, monkeypatch):
+    """Nothing blocking: on the card's path (patched here) G passes a
+    group, a ray pending in as many passes as it has candidates (so none
+    is left after G), and the passes that have a pending ray as many as
+    rtjax's ``while_loop`` runs: the most candidates of any ray.  On the
+    CPU's path the loop runs just those, as rtjax's does."""
+    from rtjax_torch.render import device_loop
     _, scene = scenes
     o, d, active = _rays(seed)
     o, d, active = _t(o), _t(d), torch.tensor(active)
     none = lambda ent: torch.zeros_like(ent, dtype=torch.bool)
-    passes = {}
-
-    def body(blas, pend, src, *_):
-        mesh = next(k for k, b in enumerate(scene.blas) if b is blas)
-        passes.setdefault(mesh, []).append((pend.clone(), src))
-
-    trace._repass_passes(scene, o, d, active, none, body)
     cand = _candidates(scene, o, d, active)
-    for grp in scene.instances.groups:
-        got = passes[grp.mesh_id]
-        assert len(got) == grp.size
-        pending = sum(p.long() for p, _ in got)
-        assert torch.equal(pending, cand[grp.mesh_id])
-        busy = sum(bool(p.any()) for p, _ in got)
-        assert busy == int(cand[grp.mesh_id].max()) >= 2
-        # each pending ray walks each of its candidates once
-        for k in (grp.src_of).tolist():
-            walked = sum(((s == k) & p).long() for p, s in got)
-            assert int(walked.max()) <= 1
+    for card in (True, False):
+        passes = {}
+
+        def body(blas, pend, src, *_):
+            mesh = next(k for k, b in enumerate(scene.blas) if b is blas)
+            passes.setdefault(mesh, []).append((pend.clone(), src))
+
+        monkeypatch.setattr(device_loop, "_on_card", lambda pend: card)
+        trace._repass_passes(scene, o, d, active, none, body)
+        for grp in scene.instances.groups:
+            got = passes[grp.mesh_id]
+            busy = sum(bool(p.any()) for p, _ in got)
+            assert busy == int(cand[grp.mesh_id].max()) >= 2
+            assert len(got) == (grp.size if card else busy)
+            pending = sum(p.long() for p, _ in got)
+            assert torch.equal(pending, cand[grp.mesh_id])
+            # each pending ray walks each of its candidates once
+            for k in (grp.src_of).tolist():
+                walked = sum(((s == k) & p).long() for p, s in got)
+                assert int(walked.max()) <= 1
 
 
 def _both(scene, cfg, o, d, active, with_stats=True):
@@ -173,8 +178,11 @@ def _flat(x):
 
 @pytest.mark.parametrize("walker", list(WALKERS))
 def test_idle_passes_change_nothing(scenes, walker, monkeypatch):
-    """Every group's passes doubled: the added G passes find no candidate
-    and leave every output and the counts bit for bit."""
+    """Every group's passes doubled on the card's path (patched here, so
+    that every pass runs): the added G passes find no candidate and leave
+    every output and the counts bit for bit."""
+    from rtjax_torch.render import device_loop
+    monkeypatch.setattr(device_loop, "_on_card", lambda pend: True)
     _, scene = scenes
     cfg = RenderConfig(two_level="repass", **WALKERS[walker])
     o, d, active = _rays(5)

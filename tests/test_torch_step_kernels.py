@@ -21,6 +21,11 @@ card (tests/test_torch_cuda.py); here their plain versions.
     kernels or the plain versions (spies), a failing library load
     raising instead of falling back, the wrappers' input checks, and the
     kernels' argument block field for field csrc/step_math.cuh's.
+(e) The record design: the record against the first design's columns,
+    its material word against rtjax's hit-material rule, the dirty-window
+    flush, and the device code compiled as host C++ through the wrappers.
+(f) The library's entry points and kernel ids against its source, and
+    the step graph's cache keyed on the design.
 """
 
 import dataclasses
@@ -164,9 +169,11 @@ def test_route_matches_rtjax_keys_and_codecs(mixed, sort_key):
     state = _synthetic_state(scene, cfg, 1)
     words = _words(2)
     keys, bundle, counts = S.route_ref(scene, cfg, state, words)
+    assert bundle.shape == (POOL, S.BUNDLE_ROWS)
+    bundle = bundle.T    # the records' words as rows
     mat = ((bundle[5] >> 28) & 1).numpy() != 0
     assert 0 < mat.sum() < POOL and int(counts[0]) == mat.sum()
-    assert counts[1:].eq(0).all()
+    assert counts[1:4].eq(0).all()
     t = np.where(mat, state.t.numpy(), 0.0).astype(np.float32)
     hp = [(o.numpy() + t * d.numpy()).astype(np.float32)
           for o, d in zip(state.ray_o, state.ray_d)]
@@ -199,6 +206,7 @@ def test_route_matches_rtjax_keys_and_codecs(mixed, sort_key):
             sort_key == "adaptive" else np.asarray(want)
         a = np.stack([c.numpy() for c in acc])
         dirty = ~mat & (a != 0).any(0)
+        assert int(counts[4]) == dirty.sum() > 0
         _eq(keys.numpy(), np.where(dirty, S.DIRTY_KEY,
                                    np.where(mat, want, 0x7FFFFFFF)), "keys")
         _eq(bundle[3].numpy(), jax_sorting.rgb9e5_encode_v3(_j3(beta)),
@@ -228,7 +236,7 @@ def test_shade_matches_rtjax_sampling(mixed):
     it, cam_start = 2, torch.tensor(40, dtype=torch.int64)
     sh = S.shade_ref(scene, cam, cfg, state, fb, words, order, bundle,
                      counts, it, cam_start, 1)
-    b = bundle[:, order]
+    b = bundle[order].T
     mat = ((b[5] >> 28) & 1).numpy() != 0
     nm = int(counts[0])
     assert mat[:nm].all() and not mat[nm:].any()
@@ -543,3 +551,261 @@ def test_argument_block_matches_the_kernel_header():
     kinds = {S._P: "ptr", S._I64: "i64", S._I32: "i32", S._F32: "f32",
              S._P * 3: "ptrx3"}
     assert fields == [(n, kinds[t]) for n, t in S.ARG_FIELDS]
+
+
+# ---------------------------------- (e) the record design and the flush
+
+def test_record_round_trip_matches_the_column_layout(mixed):
+    """The ``[N, 10]`` record decodes to the values the first design's
+    ``[9, N]`` columns decode to, bit for bit: its first nine words are the
+    columns, word 9 the material index."""
+    _, _, scene, _ = mixed
+    cfg = _cfg()
+    state = _synthetic_state(scene, cfg, 12)
+    words = _words(13)
+    keys, rec, counts = S.route_ref(scene, cfg, state, words)
+    keys1, cols, counts1 = S.route_v1_ref(scene, cfg, state, words)
+    assert rec.shape == (POOL, S.BUNDLE_ROWS) and rec.dtype == torch.int32
+    assert cols.shape == (S.V1_BUNDLE_ROWS, POOL) and cols.is_contiguous()
+    assert torch.equal(keys, keys1) and torch.equal(counts, counts1)
+    assert torch.equal(rec[:, :S.V1_BUNDLE_ROWS], cols.T)
+    for a, b in zip(_flat(S.unpack_bundle(rec)),
+                    _flat(S.unpack_bundle(cols.T)), strict=True):
+        assert a.dtype == b.dtype and torch.equal(_bits(a), _bits(b))
+    # pack_bundle of route's state packs the same words again
+    acc, beta, bounces, mat, _, hp = S.emit_and_roulette(
+        scene, cfg, state, S.rng.u01_pair(words[S.W_RR_PICK])[0])
+    again = S.pack_bundle(hp, beta, acc, state.pixel, bounces, mat,
+                          state.prim, state.src, state.normal, state.ray_d,
+                          rec[:, S.W_MATERIAL])
+    assert torch.equal(again, rec)
+
+
+@pytest.mark.parametrize("kind", ["single", "instanced"])
+def test_bundle_material_is_rtjax_hit_material(mixed, kind):
+    """The record's material word against rtjax's hit-material rule
+    (``_hit_material_index``, clamped to the table as its gather clamps
+    it), with misses (prim -1) and, instanced, hits in instances (src >
+    0); shade's materials are the ones rtjax's ``gather_v3`` gives."""
+    if kind == "single":
+        jscene, _, scene, _ = mixed
+    else:
+        jscene = _jax_scene("pyramid3")
+        scene = scene_from_arrays(inst_scene_arrays(jscene), "cpu")
+    cfg = _cfg()
+    state = _synthetic_state(scene, cfg, 14)
+    src, prim = state.src.numpy(), state.prim.numpy()
+    assert (prim == -1).any()
+    assert (src > 0).any() == (kind == "instanced")
+    _, rec, _ = S.route_ref(scene, cfg, state, _words(15))
+    with jax.disable_jit():
+        mi = jax_trace._hit_material_index(jscene, _j(state.src),
+                                           _j(state.prim))
+        want = np.clip(np.asarray(mi), 0,
+                       jscene.materials.mtype.shape[0] - 1)
+        mt, alb, ior = jscene.materials.gather_v3(jnp.asarray(want))
+    _eq(rec[:, S.W_MATERIAL].numpy(), want, "material index")
+    mtype, albedo, ior_p = scene.materials.gather_v3(rec[:, S.W_MATERIAL])
+    _eq(mtype.numpy(), mt, "mtype")
+    for k in range(3):
+        _eq(albedo[k].numpy(), alb[k], f"albedo[{k}]")
+    _eq(ior_p.numpy(), ior, "ior")
+
+
+@pytest.mark.parametrize("sort_every, it", [(1, 2), (2, 1), (3, 3)])
+def test_dirty_window_flush_equals_the_full_flush(mixed, sort_every, it):
+    """Only the dirty window (sorted positions ``[counts[0], counts[0] +
+    counts[4])``) holds radiance to flush: the plain version's
+    ``index_add_`` of every dead lane gives the framebuffer bit for bit
+    that adding the window's lanes with radiance alone gives (the
+    kernels' rule), and every lane past the window holds none."""
+    _, _, scene, cam = mixed
+    cfg = _cfg(sort_every=sort_every, num_samples=16)
+    state = _synthetic_state(scene, cfg, 16 + it)
+    words = _words(17 + it)
+    keys, rec, counts = S.route_ref(scene, cfg, state, words)
+    order = torch.sort(keys, stable=True).indices
+    fb = torch.tensor(np.random.default_rng(3).uniform(
+        0, 2, (cfg.num_pixels, 3)).astype(np.float32))
+    got = fb.clone()
+    S.shade_ref(scene, cam, cfg, state, got, words, order, rec, counts, it,
+                torch.tensor(50), sort_every)
+    do_gen = S.cadence(counts, POOL, it, sort_every)
+    want = fb.clone()
+    lo, hi = int(counts[0]), int(counts[0]) + int(counts[4])
+    assert 0 < lo < hi < POOL
+    if do_gen is None or bool(do_gen):
+        _, _, acc, pixel, _, mat, *_ = S.unpack_bundle(rec[order])
+        a = torch.stack(acc, 1)
+        assert not bool(mat[lo:].any()) and bool(mat[:lo].all())
+        assert not bool(a[hi:].any())
+        some = (a[lo:hi] != 0).any(1)
+        assert bool(some.any())
+        want.index_add_(0, pixel[lo:hi][some].long(), a[lo:hi][some])
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def test_first_design_step_equals_the_record_step(mixed, monkeypatch):
+    """The composed plain step under ``DESIGN = "v1"`` (the first design's
+    plain versions: the column bundle, the material from prim and src)
+    equals the record design's bit for bit, three iterations from a fresh
+    pool."""
+    _, _, scene, cam = mixed
+    cfg = _cfg(sort_every=2)
+    new, old = wf.initial_carry(cfg, "cpu"), wf.initial_carry(cfg, "cpu")
+    for it in range(3):
+        words = _words(30 + it)
+        new = wf.wavefront_step(scene, cam, cfg, words, new)
+        monkeypatch.setattr(S, "DESIGN", "v1")
+        old = wf.wavefront_step(scene, cam, cfg, words, old)
+        monkeypatch.setattr(S, "DESIGN", "record")
+        for x, y in zip(graph.flatten(new), graph.flatten(old), strict=True):
+            assert not torch.is_tensor(y) or torch.equal(x, y)
+    assert float(new[1].sum()) > 0
+
+
+def _flat(x):
+    if isinstance(x, (tuple, list)):
+        return [c for v in x for c in _flat(v)]
+    return [] if x is None else [x]
+
+
+def _host_kernels():
+    """The step kernels' device code and launch logic compiled as host C++
+    (tests/step_kernels_host.cpp over csrc/step_math.cuh), bound as the
+    kernels' library."""
+    import ctypes
+    src = Path(__file__).with_name("step_kernels_host.cpp")
+    out = _build._build(
+        _build.BUILD_DIR / "libstep_kernels_host.so", [src],
+        ["g++", "-O2", "-ffp-contract=off", "-std=c++17", "-shared", "-fPIC",
+         "-Wno-unknown-pragmas", f"-I{_build.CSRC_DIR}"],
+        (Path(_build.CSRC_DIR) / "step_math.cuh",))
+    return S.bind(ctypes.CDLL(str(out)))
+
+
+def _bits(x):
+    return x.view(torch.int32) if x.dtype == torch.float32 else x
+
+
+@pytest.mark.parametrize("spp, sort_every, it", [
+    (4, 1, 2), (16, 2, 1), (16, 3, 3), (64, 1, 5), (8, 2, 4)], ids=str)
+def test_host_compiled_kernels_match_plain_and_first_design(
+        mixed, monkeypatch, spp, sort_every, it):
+    """csrc/step_math.cuh compiled as host C++ and run through the real
+    wrappers on CPU tensors: route bit for bit against its plain version;
+    shade of the record design bit for bit against the first design's
+    (the same math, another bundle layout and material source) and
+    against the plain version (floats at rtol 1e-4: the host's sqrt and
+    the card's division by a host scalar differ from torch's CPU ones);
+    the framebuffer, its dirty-window flush added lane by lane in order,
+    bit for bit against the plain version's ``index_add_``."""
+    _, _, scene, cam = mixed
+    monkeypatch.setattr(S, "_lib", _host_kernels())
+    monkeypatch.setattr(S, "_on_card", lambda t: True)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev=None: type("S", (), {"cuda_stream": 0}))
+    cfg = _cfg(num_samples=spp, sort_every=sort_every)
+    state = _synthetic_state(scene, cfg, 40 + it)
+    words = _words(41 + it)
+    want = S.route_ref(scene, cfg, state, words)
+    got = S.route(scene, cfg, state, words)
+    for x, y in zip(got, want, strict=True):
+        assert torch.equal(x, y)
+    got_v1 = S.route_v1(scene, cfg, state, words)
+    assert torch.equal(got_v1[1], want[1][:, :9].T)
+    order = torch.sort(want[0], stable=True).indices
+    fb = torch.tensor(np.random.default_rng(it).uniform(
+        0, 2, (cfg.num_pixels, 3)).astype(np.float32))
+    fb0, fb1, fb2 = fb.clone(), fb.clone(), fb.clone()
+    t_it, t_cam = torch.tensor(it), torch.tensor(97 * it)
+    sh0 = S.shade_ref(scene, cam, cfg, state, fb0, words, order, want[1],
+                      want[2], t_it, t_cam, sort_every)
+    copy = lambda st: dataclasses.replace(st, **{
+        f: tuple(c.clone() for c in v) if isinstance(v, tuple) else v.clone()
+        for f, v in vars(st).items()})
+    sh1 = S.shade(scene, cam, cfg, copy(state), fb1, words, order, want[1],
+                  want[2].clone(), t_it, t_cam, sort_every)
+    sh2 = S.shade_v1(scene, cam, cfg, copy(state), fb2, words, order,
+                     got_v1[1], want[2].clone(), t_it, t_cam, sort_every)
+    flat = lambda sh: _flat(tuple(getattr(sh, f) for f in (
+        "pixel", "ray_o", "ray_d", "beta", "bounces", "acc", "trace_mask",
+        "counts", "shadow", "ah_L", "chs_L")))
+    for x, y, z in zip(flat(sh1), flat(sh2), flat(sh0), strict=True):
+        assert torch.equal(_bits(x), _bits(y))
+        if x.dtype == torch.float32:
+            torch.testing.assert_close(x, z, rtol=1e-4, atol=1e-5,
+                                       equal_nan=True)
+        else:
+            assert torch.equal(x, z)
+    assert torch.equal(_bits(fb1), _bits(fb2))
+    assert torch.equal(_bits(fb1), _bits(fb0))
+    assert int(want[2][4]) > 0 and not torch.equal(fb1, fb)
+
+
+# ------------------------------- (f) the library's surface and the graph key
+
+_KERNEL_SOURCE = Path(_build.CSRC_DIR) / "step_kernels.cu"
+
+
+@pytest.mark.parametrize("name", sorted(S.KERNEL_IDS))
+def test_kernel_ids_match_the_kernel_source(name):
+    """``KERNEL_IDS`` names the kernel that ``rtjax_step_kernel_info``
+    reports under its id, at the block its entry point launches."""
+    src = _KERNEL_SOURCE.read_text()
+    body = src[src.index('"C" int rtjax_step_kernel_info'):]
+    m = re.search(rf"case {S.KERNEL_IDS[name]}: return info\((\w+), (\w+),",
+                  body)
+    assert m is not None and m.group(1) == f"{name}_kernel"
+    launch = re.search(rf'"C" int rtjax_step_{name}\(.*?\n\}}', src,
+                       re.S).group(0)
+    assert f"launch({name}_kernel, {m.group(2)}, a, stream)" in launch
+
+
+@pytest.mark.parametrize("source", [_KERNEL_SOURCE,
+                                    Path(__file__).with_name(
+                                        "step_kernels_host.cpp")],
+                         ids=["card", "host"])
+def test_library_exports_the_entry_points_bind_binds(source):
+    """The card's library and the host stand-in export one entry point a
+    counted kernel (``_COUNTERS``) and ``kernel_info``, and no other."""
+    names = re.findall(r'extern "C" int rtjax_step_(\w+)\(',
+                       source.read_text())
+    assert sorted(names) == sorted([*S._COUNTERS, "kernel_info"])
+
+
+def _graph_carry(cfg):
+    """A fresh frame's carry as the graph path holds it (``it`` a 0-d
+    tensor)."""
+    c = wf.initial_carry(cfg, "cpu")
+    return c[:3] + (torch.zeros((), dtype=torch.int64),) + c[4:]
+
+
+@pytest.mark.parametrize("captured, asked", [
+    ("record", "record"), ("record", "v1"), ("v1", "v1"), ("v1", "record")])
+def test_graph_cache_follows_the_step_design(mixed, monkeypatch, captured,
+                                             asked):
+    """A cached step graph serves a frame only under the step kernels'
+    design it was made under; under the other the cache takes a new one."""
+    _, _, scene, cam = mixed
+    cfg = _cfg()
+    monkeypatch.setattr(graph, "_cache", [])
+    monkeypatch.setattr(S, "DESIGN", captured)
+    g = graph.frame_steps(scene, cam, cfg, _graph_carry(cfg))
+    monkeypatch.setattr(S, "DESIGN", asked)
+    assert g.matches(scene, cam, cfg) == (captured == asked)
+    again = graph.frame_steps(scene, cam, cfg, _graph_carry(cfg))
+    assert (again is g) == (captured == asked)
+    assert graph.cached() is again and again.key[4] == asked
+
+
+def test_graph_refuses_to_capture_under_another_design(mixed, monkeypatch):
+    """A step graph made under one design and captured after the design
+    changed raises before it touches the card."""
+    _, _, scene, cam = mixed
+    cfg = _cfg()
+    monkeypatch.setattr(S, "DESIGN", "record")
+    g = graph.StepGraph(scene, cam, cfg, _graph_carry(cfg))
+    monkeypatch.setattr(S, "DESIGN", "v1")
+    with pytest.raises(RuntimeError, match="captured under the 'record'"):
+        g.step(torch.Generator())
