@@ -206,11 +206,17 @@ the script exits non-zero):
    there), frame seconds; the first frame keeps the first closest-hit
    launch (the pool's camera rays) and the second any-hit launch (their 2N
    shadow rays); (a) the direct kernels on those rays and over random soups
-   of DIRECT_SOUPS triangles (one tile, and several): bit for bit against
-   their plain versions, hit, t, prim and occlusion equal to the
-   all-triangles oracle's, device time a launch, one call, one plain call
-   and the bound (the soups on phase 3's kind of rays at the pool's width:
-   the first launch's camera rays see only the image's top rows); (b) the
+   of DIRECT_SOUPS triangles (one shared-memory tile, and several):
+   bit for bit against their plain versions, hit, t, prim and occlusion
+   equal to the all-triangles oracle's, device time a launch, one call,
+   one plain call and the bound (the soups on phase 3's kind of rays at
+   the pool's width: the first launch's camera rays see only the image's
+   top rows), and any hit's first design (``direct_anyhit_v1``) bit for
+   bit too and timed in turns with the engine's; on config 2's rays each
+   kernel's SASS counts, each design with every lane inactive and every
+   lane active, the SIMT efficiency of the lanes in order and compacted,
+   and every design bit for bit under each of DIRECT_MASKS
+   (tools/direct_designs.py); (b) the
    persist kernels on config 2's rays: hits, t and occlusion equal (prim
    ties counted) and their device time a launch beside the direct kernels';
    (d) a detailed_stats config-2 frame: the default frame's rays traced, no
@@ -222,7 +228,12 @@ the script exits non-zero):
    and 3 on the persist kernels and under ``traversal="xla"`` at seed 4,
    within 2x their seed-to-seed MSE plus the 8-bit term; the CLI's
    cornell_bunny_glass at 256^2 @ 64 spp against
-   artifacts/cornell_bunny_glass_256_64spp.ppm, printed, not gated;
+   artifacts/cornell_bunny_glass_256_64spp.ppm, printed, not gated; (f)
+   captured frames of config 2 and config 4 (a) on any hit's two designs
+   in turns, and one profiled frame of each (summed device time of the
+   pair, the sort and the step kernels), in a process of its own
+   (``tools/direct_designs.py --frames``): each arm launching only its
+   design, once an iteration, equal rays, each seed within (c)'s gate;
 13. the device-resident frame loop (run after phase 12, before phase 7's
    profiles): on the headline, eval configs 2 and 3, config 4 under
    repass (two_level="auto", arm (a)) and under two_level="kernel" (arm
@@ -1366,12 +1377,11 @@ def phase4_walkers(scene, camera, card, floor):
                 restore()
         secs, fb, st = runs[0]
         its = st["iterations"]
-        expect = {(kernel, kind): 0 for kernel in _KERNEL_SETS
-                  for kind in ("closest", "anyhit")}
+        got = {(kernel, kind): n for kernel in _KERNEL_SETS
+               for kind, n in c[kernel].items()}
+        expect = dict.fromkeys(got, 0)
         for key in want[walker]:
             expect[key] = its
-        got = {(kernel, kind): c[kernel][kind] for kernel in _KERNEL_SETS
-               for kind in ("closest", "anyhit")}
         print(f"[walkers {walker} seed {seed}] {card}: {WIDTH}x{HEIGHT} @ "
               f"{SPP} spp, {BOUNCES} bounces: {its} iterations, "
               f"{st['rays_traced']:.0f} rays traced, {secs:.3f} s, "
@@ -1692,7 +1702,7 @@ def phase5_persist(scene, baked, camera, card):
 _KERNEL_SETS = ("persist", "two_level", "packet", "lane", "stride",
                 "inst_stride", "packet_leader", "lane_group", "persist_stats",
                 "binary", "binary_stats", "binary_thread", "packet_stats",
-                "lane_stats", "two_level_stats", "direct")
+                "lane_stats", "two_level_stats", "direct", "direct_v1")
 
 
 def _counters():
@@ -1720,6 +1730,7 @@ def _counters():
             "lane_stats": (L.STATS_LAUNCHES, None),
             "two_level_stats": (WI.STATS_LAUNCHES, None),
             "direct": (D.LAUNCHES, None),
+            "direct_v1": (D.V1_LAUNCHES, None),
             # outside _KERNEL_SETS: the covered modes launch them beside
             # every traversal set (the first design only when chosen)
             "step": (S.LAUNCHES, S.REF_CALLS),
@@ -2935,8 +2946,8 @@ def phase10_stats_kernels(scene, camera, c4_scene, c4_camera, group, card):
 def _expect_only(counts, want):
     """True when the launches in ``counts`` are exactly ``want`` (``{(set,
     kind): n}``, every other count 0) and no plain version ran."""
-    got = {(k, kind): counts[k][kind] for k in _KERNEL_SETS
-           for kind in ("closest", "anyhit")}
+    got = {(k, kind): n for k in _KERNEL_SETS
+           for kind, n in counts[k].items()}
     expect = {key: want.get(key, 0) for key in got}
     return got == expect and counts["plain"] == 0
 
@@ -3777,7 +3788,9 @@ def _check_direct(label, tris, cl, ah, card):
     t, prim, normal and occlusion on every lane) and against the
     all-triangles oracle (hit, t, prim and occlusion: both keep the first
     triangle of least t); device time a launch, one call, one plain call,
-    and the bound.  Returns ``{"closest": {...}, "anyhit": {...}}``."""
+    and the bound; any hit's first design bit for bit too and timed in
+    turns with the engine's (``ab``, ``v1_ms``).  Returns ``{"closest":
+    {...}, "anyhit": {...}}``."""
     import torch
     from rtjax_torch.kernels import brute
     from rtjax_torch.kernels import direct as D
@@ -3823,26 +3836,153 @@ def _check_direct(label, tris, cl, ah, card):
     bocc = brute.anyhit_brute(tris, so3, sd3, ah["tmax"], ah["exclude"],
                               ah["active"])
     mis = {"occlusion": int((occ != occ_ref).sum()),
-           "vs_oracle": int((occ != bocc).sum())}
+           "vs_oracle": int((occ != bocc).sum()),
+           "v1": int((D.direct_anyhit_v1(*aargs) != occ_ref).sum())}
     ms = _launch_ms(lambda: D.direct_anyhit(*aargs))
+    ab = _ab_ms(lambda: D.direct_anyhit(*aargs),
+                lambda: D.direct_anyhit_v1(*aargs))
     n, n_act = ah["tmax"].numel(), int(ah["active"].sum())
     b = _direct_bound(n, n_act, tris.num, RAY_IN + EXCLUDE, 1,
                       _anyhit_tests(tris, ah))
     out["anyhit"] = dict(max_abs_err=float(mis["occlusion"]), ms=ms[0],
                          ms_range=ms[1:], call_ms=call_ms, plain_ms=plain_ms,
                          share=b["bound_ms"] / ms[0],
-                         occluded=int(occ.sum()), **b)
+                         occluded=int(occ.sum()), ab=ab,
+                         v1_ms=statistics.mean(ab[1]), **b)
     print(f"[{label} direct anyhit] {card}: {n} rays ({n_act} active) x "
           f"{tris.num} triangles, {int(occ.sum())} occluded; mismatches "
           f"{mis}; device {ms[0]:.4f} ms a launch ({ms[1]:.4f}-"
           f"{ms[2]:.4f}), one call {call_ms:.4f} ms, plain {plain_ms:.3f} "
           f"ms; bound {b['bound_us']:.3f} us by {b['bound_by']} "
           f"({b['bytes']} B, {b['tests']} tests, {b['ops']} float ops); "
-          f"{100 * out['anyhit']['share']:.2f}% of the bound")
+          f"{100 * out['anyhit']['share']:.2f}% of the bound; in turns "
+          f"v1, engine, engine, v1: engine {ab[0]} ms, first design "
+          f"{ab[1]} ms ({100 * b['bound_ms'] / out['anyhit']['v1_ms']:.2f}"
+          f"%)")
     if any(mis.values()):
-        raise RuntimeError(f"{label}: the direct any-hit kernel disagrees "
+        raise RuntimeError(f"{label}: a direct any-hit kernel disagrees "
                            "with its plain version or the oracle")
     return out
+
+
+# (a) the activity masks every design is held on, over config 2's rays
+DIRECT_MASKS = ("all", "none", "scattered", "one_a_warp", "prefix")
+# (f) captured frames of any hit's two designs, in a process of its own
+DIRECT_FRAMES_TIMEOUT = 300
+
+
+def _direct_mask(kind, n):
+    """``[n]`` bool on the card: every lane, none, 28% scattered, lane 5
+    of each warp of 32, or the first 40% of the lanes."""
+    import torch
+    i = torch.arange(n, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(28)
+    return {"all": i >= 0, "none": i < 0,
+            "scattered": torch.rand(n, generator=g, device="cuda") < 0.28,
+            "one_a_warp": i % 32 == 5, "prefix": i < (2 * n) // 5}[kind]
+
+
+def _direct_designs(tris, cl, ah, card):
+    """(a) on config 2's launches, the measurements the designs were
+    chosen by (tools/direct_designs.py): each kernel's SASS counts
+    (instructions, LDS and LDC a test), each design's device ms on the
+    rays as they are, with every lane inactive (the floor) and every lane
+    active (any hit's two designs in turns), the SIMT efficiency of the
+    lanes in order and compacted; and every design bit for bit against
+    the plain versions under DIRECT_MASKS."""
+    import torch
+    from rtjax_torch.kernels import _build
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    import direct_designs as DD
+    sass = DD.sass(_build.direct_library())
+    for name, r in sass.items():
+        print(f"[direct sass] {card}: {name}: {DD.sass_text(name, r)}")
+    out = dict(sass=sass, rays={
+        kind: DD.check_rays("config2", kind, tris, rays, card)
+        for kind, rays in (("closest", cl), ("anyhit", ah))})
+    bad = {k: r["mismatches"] for k, r in out["rays"].items()
+           if any(r["mismatches"].values())}
+    masks = {}
+    for kind in DIRECT_MASKS:
+        c = dict(cl, active=_direct_mask(kind, cl["active"].numel()))
+        a = dict(ah, active=_direct_mask(kind, ah["active"].numel()))
+        masks[kind] = {f"{k} {arm}": v
+                       for k, r in (("closest", c), ("anyhit", a))
+                       for arm, v in DD.equal_plain(k, tris, r).items()}
+    torch.cuda.synchronize()
+    print(f"[config2 direct masks] {card}: mismatching lanes against the "
+          f"plain versions under each activity mask {masks}")
+    if bad or any(v for m in masks.values() for v in m.values()):
+        raise RuntimeError(f"config 2: a direct design disagrees with its "
+                           f"plain version: {bad} {masks}")
+    out["masks"] = masks
+    return out
+
+
+def _direct_frames(card):
+    """(f) captured frames of config 2 and config 4 (a) on any hit's two
+    designs in turns, and one profiled frame of each
+    (tools/direct_designs.py ``--frames``, in a process of its own):
+    closest hit once an iteration in both arms, any hit's engine design
+    or its first design once an iteration and the other never, equal rays
+    traced, each seed's pair within phase (c)'s image gate.  Returns the
+    tool's numbers."""
+    import torch
+    from rtjax_torch.kernels import _build
+    out = _build.BUILD_DIR / "direct_frames.pt"
+    if out.exists():
+        out.unlink()
+    p = subprocess.run([sys.executable,
+                        os.path.join(ROOT, "tools", "direct_designs.py"),
+                        "--frames", "--out", str(out)], cwd=ROOT,
+                       stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                       text=True, timeout=DIRECT_FRAMES_TIMEOUT)
+    for line in p.stdout.splitlines():
+        if line.startswith("[direct") or "Error" in line:
+            print(f"  direct frames: {line}")
+    if p.returncode != 0:
+        raise RuntimeError(f"the direct frames job exited with "
+                           f"{p.returncode}:\n{p.stdout[-4000:]}")
+    res = torch.load(out)
+    quant = 2.0 * (1.0 / 255.0) ** 2 / 12.0
+    for name, r in res.items():
+        its = r["iterations"]
+        want = {"engine": ({"closest": its, "anyhit": its},
+                           {"anyhit": 0}),
+                "v1": ({"closest": its, "anyhit": 0}, {"anyhit": its})}
+        same_rays = all(r["rays"]["engine", s] == r["rays"]["v1", s]
+                        for s in (2, 3))
+        recorded = all(p["groups"][g][1] >= its for p in
+                       r["profile"].values()
+                       for g in ("direct closest", "direct anyhit"))
+        if r["launches"] != want or not same_rays or not recorded or \
+                max(r["arm_mse"]) > 2.0 * r["seed_mse"] + quant:
+            raise RuntimeError(f"{name}: the direct designs' frames differ "
+                               f"in launches, rays or image: {r}")
+    return res
+
+
+def _direct_soup(scene, t_n):
+    """(a) ``t_n`` random triangles, each about a tenth of the box of
+    ``scene``'s triangles in size, spread over that box."""
+    import numpy as np
+    import torch
+    from rtjax_torch.core.geometry import Triangles
+    tri = scene.tris
+    verts = torch.cat([tri.p0, tri.p0 - tri.e1, tri.p0 + tri.e2]).cpu()
+    lo, hi = verts.amin(0).numpy(), verts.amax(0).numpy()
+    g = np.random.default_rng(t_n)
+    p0 = lo + (hi - lo) * g.random((t_n, 3))
+    e = lambda: 0.2 * (hi - lo) * (g.random((t_n, 3)) - 0.5)
+    return Triangles.from_vertices(p0, p0 + e(), p0 + e(), "cuda")
+
+
+def _direct_soup_rays(scene, camera, n):
+    """(a) The soups' rays: phase 3's kind at ``n`` camera rays (over the
+    whole image and random in the box) and 2n shadow rays."""
+    import torch
+    return _test_rays(scene, camera,
+                      torch.Generator(device="cuda").manual_seed(1234), n=n)
 
 
 def _direct_vs_persist(scene, cl, ah, direct_out, card):
@@ -3980,7 +4120,6 @@ def phase12_direct(card):
     import numpy as np
     import torch
     from rtjax_torch import RenderConfig
-    from rtjax_torch.core.geometry import Triangles
     from rtjax_torch.kernels import _build
     from rtjax_torch.render.film import read_ppm, write_ppm
     from rtjax_torch.scenes import cornell_bunny, cornell_planes
@@ -4064,23 +4203,16 @@ def phase12_direct(card):
         raise RuntimeError("config 2: the captured launches used other "
                            "triangles")
     out = {"config2": _check_direct("config2", scene.tris, cl, ah, card)}
+    designs = _direct_designs(scene.tris, cl, ah, card)
     # the soups fill the box with triangles of about a tenth of it; the
     # first launch's camera rays see only the image's top rows, so the
     # soups take phase 3's kind of rays at the pool's width: camera rays
     # over the whole image and random rays in the box, and twice as many
     # shadow rays between random points of the box
-    tri = scene.tris
-    verts = torch.cat([tri.p0, tri.p0 - tri.e1, tri.p0 + tri.e2]).cpu()
-    lo, hi = verts.amin(0).numpy(), verts.amax(0).numpy()
-    scl, sah = _test_rays(scene, camera,
-                          torch.Generator(device="cuda").manual_seed(1234),
-                          n=cfg.pool_size)
+    scl, sah = _direct_soup_rays(scene, camera, cfg.pool_size)
     for t_n in DIRECT_SOUPS:
-        g = np.random.default_rng(t_n)
-        p0 = lo + (hi - lo) * g.random((t_n, 3))
-        e = lambda: 0.2 * (hi - lo) * (g.random((t_n, 3)) - 0.5)
-        soup = Triangles.from_vertices(p0, p0 + e(), p0 + e(), "cuda")
-        out[t_n] = _check_direct(f"soup {t_n}", soup, scl, sah, card)
+        out[t_n] = _check_direct(f"soup {t_n}", _direct_soup(scene, t_n),
+                                 scl, sah, card)
 
     # (b) the persist kernels on the same rays: S 1 per launch
     s1 = _direct_vs_persist(scene, cl, ah, out["config2"], card)
@@ -4177,7 +4309,10 @@ def phase12_direct(card):
         raise RuntimeError("config 3: the kernel and xla frames differ "
                            "beyond the noise floor, or an image is black")
     s1["in_frame"] = in_frame
+    # (f) the two designs' captured frames and profiles
+    designs["frames"] = _direct_frames(card)
     return dict(kernels=out, launches=direct_launches, s1=s1,
+                designs=designs,
                 secs=secs, seed_mse=seed_mse, arm_mse=arm_mse,
                 c3=dict(secs=[r[0] for r in runs3], xla_secs=runs_x[0][0],
                         seed_mse=seed3, xla_mse=xla3, artifact_mse=art_mse))
@@ -4187,8 +4322,14 @@ def _direct_rows(d12, c4_launches):
     """The kernels line's rows of the direct pair: config 2's rays, the
     soups and config 4's base launches beside them."""
     rows = []
+    frames = d12["designs"]["frames"]
     for kind in ("closest", "anyhit"):
         r = d12["kernels"]["config2"][kind]
+        rays = d12["designs"]["rays"][kind]
+        group = f"direct {kind}"
+        in_frame = {cell: {arm: f["profile"][arm]["groups"][group]
+                           for arm in f["profile"]}
+                    for cell, f in frames.items()}
         rows.append(dict(
             DIRECT_KERNELS[kind], route="cuda", source=DIRECT_SOURCE,
             launches=d12["launches"][kind], max_abs_err=max(
@@ -4197,6 +4338,13 @@ def _direct_rows(d12, c4_launches):
             plain_ms=r["plain_ms"], library_ms=None,
             **{k: r[k] for k in _BOUND_KEYS}, share=r["share"],
             timed_launches=REPS,
+            **({} if kind == "closest" else dict(
+                v1_ms=r["v1_ms"], ab_ms=dict(engine=r["ab"][0],
+                                             v1=r["ab"][1]),
+                v1_share=r["bound_ms"] / r["v1_ms"])),
+            floor_ms=rays["mean"]["floor"], all_active_ms=rays["mean"]["all"],
+            simt=rays["simt"],
+            in_frame_ms_launches=in_frame,
             persist_ms=d12["s1"]["persist_ms"][kind],
             soups={t: {k: d12["kernels"][t][kind][k] for k in (
                 "ms", "plain_ms", "bound_us", "bound_by", "share")}
@@ -4205,7 +4353,11 @@ def _direct_rows(d12, c4_launches):
             note="rtjax's fused-XLA all-triangles loop, no pallas_call; "
                  "launches over phase 12(c)'s two default config-2 frames; "
                  "config4_launches: phase 6(a)'s three repass frames' base "
-                 "launches"))
+                 "launches; closest hit runs its first design; any "
+                 "hit's v1_ms / ab_ms: its first design in turns on the "
+                 "same rays; in_frame_ms_launches: summed device ms and "
+                 "launches of a profiled captured frame per any-hit "
+                 "design (phase 12(f))"))
     return rows
 
 
@@ -5161,6 +5313,9 @@ def main():
         print(f"[bound] {k['name']}: {k['bound_us']:.3f} us by "
               f"{k['bound_by']}, kernel {k['ms']:.4f} ms device time, "
               f"{100 * k['share']:.2f}% of the bound; launches {k['launches']}")
+    c2_prof = d12["designs"]["frames"]["config2"]["profile"]
+    c2_its = " / ".join(f"{c2_prof[a]['ms_per_iteration']:.4f}"
+                        for a in ("engine", "v1"))
     print(f"[summary] {card}: config 5 sustained {c5['mrays']:.3f} Mrays/s "
           f"({c5['seconds']:.3f} s for {C5_SUSTAINED_SPP} spp); stats / "
           f"default device time closest "
@@ -5194,7 +5349,10 @@ def main():
           f"{d12['kernels']['config2']['closest']['ms']:.4f} ms vs persist "
           f"{d12['s1']['persist_ms']['closest']:.4f} ms, any hit "
           f"{d12['kernels']['config2']['anyhit']['ms']:.4f} ms vs "
-          f"{d12['s1']['persist_ms']['anyhit']:.4f} ms; config 3 "
+          f"{d12['s1']['persist_ms']['anyhit']:.4f} ms (any hit's first "
+          f"design {d12['kernels']['config2']['anyhit']['v1_ms']:.4f} ms); "
+          f"config 2 device ms an iteration, any hit's engine / first "
+          f"design {c2_its}; config 3 "
           f"{d12['c3']['secs']} s (xla {d12['c3']['xla_secs']:.3f} s); "
           "captured step vs eager loop, median frame seconds "
           + ", ".join(

@@ -11,12 +11,12 @@ under the repository root (a directory that .gitignore lists).
   ``group_walk.cuh``, ``packet_walk.cuh``, ``lane_walk.cuh`` and, through
   it, ``fetch_walk.cuh``; the binary-BVH walk, ``binary_traverse.cu``,
   includes ``fetch_walk.cuh`` for its resident grid, and the tiny-scene
-  direct path, ``direct_traverse.cu``, includes none), the device
-  loop of a captured step (``graph_loop.cu``: a CUDA-graph while node and
-  its condition kernel, render/device_loop.py), and the fused wavefront
-  step (``step_kernels.cu``: route, shade and resolve, which include
-  ``step_math.cuh``; kernels/step.py), compiled by nvcc for ``sm_90a`` and
-  bound with ctypes.
+  direct path, ``direct_traverse.cu``, includes ``direct_math.cuh``), the
+  device loop of a captured step (``graph_loop.cu``: a CUDA-graph while
+  node and its condition kernel, render/device_loop.py), and the fused
+  wavefront step (``step_kernels.cu``: route, shade and resolve, which
+  include ``step_math.cuh``; kernels/step.py), compiled by nvcc for
+  ``sm_90a`` and bound with ctypes.
 
 Each library is rebuilt when a source or a header it includes is newer
 than it.  nvcc runs with ``-Xptxas -v``: each kernel's registers, stack
@@ -45,6 +45,7 @@ WIDE_INST_SOURCE = CSRC_DIR / "wide_inst_traverse.cu"
 PACKET_SOURCE = CSRC_DIR / "packet_traverse.cu"
 BINARY_SOURCE = CSRC_DIR / "binary_traverse.cu"
 DIRECT_SOURCE = CSRC_DIR / "direct_traverse.cu"
+DIRECT_HEADER = CSRC_DIR / "direct_math.cuh"
 LOOP_SOURCE = CSRC_DIR / "graph_loop.cu"
 STEP_SOURCE = CSRC_DIR / "step_kernels.cu"
 STEP_HEADER = CSRC_DIR / "step_math.cuh"
@@ -160,7 +161,7 @@ def direct_library() -> Path:
     """Path of the compiled direct-path kernels (built if missing or
     stale)."""
     return _build(BUILD_DIR / "libdirect_traverse.so", [DIRECT_SOURCE],
-                  [nvcc_path()] + NVCC_FLAGS)
+                  [nvcc_path()] + NVCC_FLAGS, (DIRECT_HEADER,))
 
 
 def loop_library() -> Path:

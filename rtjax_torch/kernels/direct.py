@@ -31,6 +31,15 @@ bool``.  ``with_stats=True`` appends rtjax's counts, ``(0, active.sum() *
 T)`` as int64 0-d tensors on the rays' device: no node steps, every active
 ray visiting every triangle.  The wrappers compute them; the kernels do
 not count.
+
+Designs (csrc/direct_traverse.cu): closest hit runs the first design (one
+thread a ray, the triangles staged in shared memory), the fastest of those
+tried in a captured config-2 frame; any hit compacts each block's live
+lanes before the triangle loop, over triangle records staged in shared
+memory.  The first design of any hit stays behind
+:func:`direct_anyhit_v1`, which no render path calls, for same-run A/B
+(``tools/direct_designs.py`` rebinds :func:`_anyhit_cuda` to time frames
+on it).
 """
 
 from __future__ import annotations
@@ -46,6 +55,8 @@ from .persist import BIG, _columns, _out_normal
 
 # kernel launches (wrapper, CUDA path), by kernel
 LAUNCHES = {"closest": 0, "anyhit": 0}
+# launches of any hit's first design (the ``_v1`` entry point)
+V1_LAUNCHES = {"anyhit": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -89,14 +100,15 @@ def _counts(tris: Triangles, active):
 # ------------------------------------------------------------- CUDA path
 
 def bind(lib):
-    """Set the argument types of the two entry points of a direct-path
+    """Set the argument types of the three entry points of a direct-path
     kernel library (``ctypes.CDLL``) and return it."""
     P, I = ctypes.c_void_p, ctypes.c_int
     lib.rtjax_direct_closest.argtypes = \
         [P] * 4 + [I] + [P] * 8 + [I] + [P] * 6 + [P]
-    lib.rtjax_direct_anyhit.argtypes = \
-        [P] * 4 + [I] + [P] * 9 + [I, P, P]
-    for name in ("closest", "anyhit"):
+    for name in ("anyhit", "anyhit_v1"):
+        getattr(lib, f"rtjax_direct_{name}").argtypes = \
+            [P] * 4 + [I] + [P] * 9 + [I, P, P]
+    for name in ("closest", "anyhit", "anyhit_v1"):
         getattr(lib, f"rtjax_direct_{name}").restype = I
     return lib
 
@@ -109,17 +121,27 @@ def _kernels():
         return _lib
 
 
+def _on_card(t) -> bool:
+    """True for a CUDA tensor (the kernels), False for a CPU one (the plain
+    versions); other devices raise."""
+    if t.device.type == "cuda":
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"unsupported device {t.device}")
+
+
 def _tri_args(tris: Triangles):
     return (tris.p0.data_ptr(), tris.e1.data_ptr(), tris.e2.data_ptr(),
             tris.n.data_ptr(), tris.num)
 
 
-def _launch(kind, args):
+def _launch(kind, args, counter=LAUNCHES):
     rc = getattr(_kernels(), f"rtjax_direct_{kind}")(*args)
     if rc != 0:
         raise RuntimeError(f"direct {kind} kernel launch failed: CUDA error "
                            f"{rc}")
-    LAUNCHES[kind] += 1
+    counter[kind.removesuffix("_v1")] += 1
 
 
 def _closest_cuda(tris, o, d, tmax, active):
@@ -139,15 +161,37 @@ def _closest_cuda(tris, o, d, tmax, active):
     return hit, t, prim, nrm
 
 
-def _anyhit_cuda(tris, o, d, tmax, exclude, active):
+def _anyhit_launch(kind, counter, tris, o, d, tmax, exclude, active):
     n = tmax.shape[0]
     occ = torch.empty(n, dtype=torch.bool, device=tmax.device)
     stream = torch.cuda.current_stream(tmax.device).cuda_stream
-    _launch("anyhit", (
+    _launch(kind, (
         *_tri_args(tris), *(c.data_ptr() for c in o),
         *(c.data_ptr() for c in d), tmax.data_ptr(), active.data_ptr(),
-        exclude.data_ptr(), n, occ.data_ptr(), stream))
+        exclude.data_ptr(), n, occ.data_ptr(), stream), counter)
     return occ
+
+
+def _anyhit_cuda(tris, o, d, tmax, exclude, active):
+    return _anyhit_launch("anyhit", LAUNCHES, tris, o, d, tmax, exclude,
+                          active)
+
+
+def _anyhit_cuda_v1(tris, o, d, tmax, exclude, active):
+    """:func:`_anyhit_cuda` in the first design."""
+    return _anyhit_launch("anyhit_v1", V1_LAUNCHES, tris, o, d, tmax,
+                          exclude, active)
+
+
+def direct_anyhit_v1(tris: Triangles, origin, direction, tmax, exclude,
+                     active):
+    """Any hit's first design (CUDA tensors only): ``occluded`` as
+    :func:`direct_anyhit` gives it."""
+    o, d = _columns(origin), _columns(direction)
+    _check(tris, o, d, tmax, active, exclude)
+    if not _on_card(tmax):
+        raise ValueError("the first design's kernel takes CUDA tensors")
+    return _anyhit_cuda_v1(tris, o, d, tmax, exclude, active)
 
 
 def direct_closest(tris: Triangles, origin, direction, tmax, active,
@@ -158,12 +202,10 @@ def direct_closest(tris: Triangles, origin, direction, tmax, active,
     as_v3 = isinstance(origin, (tuple, list))
     o, d = _columns(origin), _columns(direction)
     _check(tris, o, d, tmax, active)
-    if tmax.device.type == "cuda":
+    if _on_card(tmax):
         hit, t, prim, nrm = _closest_cuda(tris, o, d, tmax, active)
-    elif tmax.device.type == "cpu":
-        hit, t, prim, nrm = direct_closest_ref(tris, o, d, tmax, active)
     else:
-        raise ValueError(f"unsupported device {tmax.device}")
+        hit, t, prim, nrm = direct_closest_ref(tris, o, d, tmax, active)
     out = (hit, t, prim, _out_normal(nrm, as_v3))
     return out + ((_counts(tris, active),) if with_stats else ())
 
@@ -174,12 +216,10 @@ def direct_anyhit(tris: Triangles, origin, direction, tmax, exclude, active,
     one; with ``with_stats``, ``(occluded, (node_steps, leaf_visits))``."""
     o, d = _columns(origin), _columns(direction)
     _check(tris, o, d, tmax, active, exclude)
-    if tmax.device.type == "cuda":
+    if _on_card(tmax):
         occ = _anyhit_cuda(tris, o, d, tmax, exclude, active)
-    elif tmax.device.type == "cpu":
-        occ = direct_anyhit_ref(tris, o, d, tmax, exclude, active)
     else:
-        raise ValueError(f"unsupported device {tmax.device}")
+        occ = direct_anyhit_ref(tris, o, d, tmax, exclude, active)
     return (occ, _counts(tris, active)) if with_stats else occ
 
 

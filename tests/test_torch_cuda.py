@@ -40,6 +40,7 @@ from rtjax_torch.scene.scene import SceneBuilder
 from rtjax_torch.scene.transform import Transform, rotate, scale, translate
 from rtjax_torch.scenes import cornell_planes
 
+import direct_cases
 from test_torch_binary_launch import DEEP_T, deep_bvh, down_rays
 from test_torch_persist_work import chain_rays, chain_tables
 
@@ -1250,6 +1251,58 @@ def test_direct_kernels_match_the_brute_oracle(cuda):
     exclude = torch.where(torch.arange(n, device=cuda) % 2 == 0, bp, -1)
     assert torch.equal(D.direct_anyhit(tris, o3, d3, tmax, exclude, active),
                        brute.anyhit_brute(tris, o, d, tmax, exclude, active))
+
+
+@pytest.mark.parametrize("kind", direct_cases.MASKS)
+@pytest.mark.parametrize("n_tris", direct_cases.TRI_COUNTS)
+def test_direct_designs_equal_plain_versions_on_masks(cuda, n_tris, kind):
+    """Closest hit, any hit and any hit's first design bit for bit against
+    the plain versions (run on the card) on every lane, on
+    tests/direct_cases.py's soups (ties, a shared edge, grazing rays,
+    ``tmax`` at a hit's t, ``exclude`` the own occluder) at 0 to 300
+    triangles (one shared-memory tile up to 64, several above) and under
+    each activity mask: all, none, 28% scattered, one lane a warp, a live
+    prefix."""
+    tris, o, d, tmax, active, exclude = direct_cases.case(n_tris, kind,
+                                                          cuda)
+    want = D.direct_closest_ref(tris, o, d, tmax, active)
+    want_occ = D.direct_anyhit_ref(tris, o, d, tmax, exclude, active)
+    before = dict(D.LAUNCHES), dict(D.V1_LAUNCHES)
+    got = D.direct_closest(tris, o, d, tmax, active)
+    occ = D.direct_anyhit(tris, o, d, tmax, exclude, active)
+    occ_v1 = D.direct_anyhit_v1(tris, o, d, tmax, exclude, active)
+    torch.cuda.synchronize()
+    bits = lambda x: x.view(torch.int32) if x.is_floating_point() else x
+    for a, b in zip(got[:3] + got[3], want[:3] + want[3], strict=True):
+        assert torch.equal(bits(a), bits(b))
+    assert torch.equal(occ, want_occ) and torch.equal(occ_v1, want_occ)
+    assert D.LAUNCHES == {k: v + 1 for k, v in before[0].items()}
+    assert D.V1_LAUNCHES == {k: v + 1 for k, v in before[1].items()}
+
+
+def test_direct_anyhit_in_a_captured_graph(cuda):
+    """The any-hit kernel (its window compaction and shared-memory tiles)
+    captured in a CUDA graph and replayed on other rays gives the plain
+    version's occlusion for them."""
+    tris, o, d, tmax, active, exclude = direct_cases.case(300, "scattered",
+                                                          cuda)
+    _, o2, d2, tmax2, active2, exclude2 = direct_cases.case(
+        300, "one_a_warp", cuda)
+    occ = D.direct_anyhit(tris, o, d, tmax, exclude, active)
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        got = D.direct_anyhit(tris, o, d, tmax, exclude, active)
+    g.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(got, occ)
+    for a, b in zip((*o, *d, tmax, active, exclude),
+                    (*o2, *d2, tmax2, active2, exclude2)):
+        a.copy_(b)
+    g.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(got, D.direct_anyhit_ref(tris, o2, d2, tmax2,
+                                                exclude2, active2))
 
 
 def test_direct_kernels_refuse_mixed_devices(cuda):

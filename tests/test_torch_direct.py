@@ -21,10 +21,18 @@ that sends a launch to it.
     Cornell planes with ``detailed_stats``: the histogram, ``rays_traced``
     and the node and leaf counts exactly, the state as
     tests/test_torch_wavefront.py holds it.
+(d) The kernels' device code (csrc/direct_math.cuh) and launch logic
+    compiled as host C++ (tests/direct_kernels_host.cpp) and run through
+    the real wrappers on CPU tensors: closest hit, any hit and any hit's
+    first design bit for bit against the plain versions on
+    tests/direct_cases.py's soups and activity masks; the wrappers'
+    refusals; the library's entry points and the stand-in's layout.
 """
 
 import dataclasses
+import re
 import types
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -41,12 +49,13 @@ from rtjax.scenes import cornell_planes as jax_cornell_planes
 
 from rtjax_torch import RenderConfig
 from rtjax_torch.core.geometry import Triangles
-from rtjax_torch.kernels import brute, direct
+from rtjax_torch.kernels import _build, brute, direct
 from rtjax_torch.render import trace
 from rtjax_torch.render import wavefront as wf
 from rtjax_torch.scene.camera import Camera
 from rtjax_torch.scene.scene import scene_from_arrays
 
+import direct_cases
 from test_torch_instancing import _jax_scene, inst_scene_arrays
 from test_torch_persist import _unique_t
 from test_torch_scene import camera_arrays, scene_arrays
@@ -504,3 +513,125 @@ def test_step_matches_rtjax_on_cornell_planes_with_stats():
     assert steps_c == steps_a == 0 and leafs_c > 0 and leafs_a > 0
     assert leafs_c % 12 == 0 and leafs_a % 12 == 0
     assert direct.LAUNCHES == launches      # the CPU runs no kernel
+
+
+# ------------------------------- (d) the kernels' device code on the host
+
+def _host_kernels():
+    """The direct pair's device code and launch logic compiled as host C++
+    (tests/direct_kernels_host.cpp over csrc/direct_math.cuh), bound as
+    the kernels' library."""
+    import ctypes
+    src = Path(__file__).with_name("direct_kernels_host.cpp")
+    out = _build._build(
+        _build.BUILD_DIR / "libdirect_kernels_host.so", [src],
+        ["g++", "-O2", "-ffp-contract=off", "-std=c++17", "-shared", "-fPIC",
+         "-Wno-unknown-pragmas", f"-I{_build.CSRC_DIR}"],
+        (_build.DIRECT_HEADER,))
+    return direct.bind(ctypes.CDLL(str(out)))
+
+
+@pytest.fixture(scope="module")
+def host_lib():
+    return _host_kernels()
+
+
+@pytest.fixture
+def host(host_lib, monkeypatch):
+    """The wrappers' CUDA path on CPU tensors, through the host build."""
+    monkeypatch.setattr(direct, "_lib", host_lib)
+    monkeypatch.setattr(direct, "_on_card", lambda t: True)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev=None: types.SimpleNamespace(cuda_stream=0))
+
+
+def _bits(x):
+    return x.view(torch.int32) if x.dtype == torch.float32 else x
+
+
+@pytest.mark.parametrize("kind", direct_cases.MASKS)
+@pytest.mark.parametrize("n_tris", direct_cases.TRI_COUNTS)
+def test_host_compiled_kernels_match_plain_versions(host, n_tris, kind):
+    """csrc/direct_math.cuh compiled as host C++ and run through the real
+    wrappers -- closest hit, any hit and any hit's first design -- bit for
+    bit against the plain versions on every lane (hit, t, prim, normal and
+    occlusion) on soups with ties of equal t and a shared edge, rays
+    grazing edges, ``tmax`` at a hit's t and just below it, ``exclude``
+    the lane's own occluder, at 0 to 300 triangles (one shared-memory tile
+    up to 64, several above) and under each activity mask; one launch
+    counted a call."""
+    tris, o, d, tmax, active, exclude = direct_cases.case(n_tris, kind,
+                                                          "cpu")
+    want = direct.direct_closest_ref(tris, o, d, tmax, active)
+    want_occ = direct.direct_anyhit_ref(tris, o, d, tmax, exclude, active)
+    before = dict(direct.LAUNCHES), dict(direct.V1_LAUNCHES)
+    got = direct.direct_closest(tris, o, d, tmax, active)
+    for x, y in zip(got[:3] + got[3], want[:3] + want[3], strict=True):
+        assert torch.equal(_bits(x), _bits(y))
+    for anyhit in (direct.direct_anyhit, direct.direct_anyhit_v1):
+        assert torch.equal(anyhit(tris, o, d, tmax, exclude, active),
+                           want_occ)
+    assert direct.LAUNCHES == {k: v + 1 for k, v in before[0].items()}
+    assert direct.V1_LAUNCHES == {k: v + 1 for k, v in before[1].items()}
+    hit, t = want[0], want[1]
+    if n_tris and kind != "none":
+        assert bool(hit.any()) and bool(want_occ.any())
+    if n_tris and kind == "all":
+        assert bool((hit & (t == tmax)).any())          # tmax at the hit
+        # excluding its own occluder leaves a lane unoccluded
+        assert bool((hit & (exclude == want[2]) & ~want_occ).any())
+
+
+def test_wrappers_refuse_before_a_launch(host):
+    """On the CUDA path the wrappers refuse inputs the kernels do not take
+    (dtype, shape, device) before any launch; any hit's first design takes
+    no CPU tensors off that path."""
+    tris, o, d, tmax, active, exclude = direct_cases.case(12, "all", "cpu")
+    before = dict(direct.LAUNCHES), dict(direct.V1_LAUNCHES)
+    with pytest.raises(TypeError):
+        direct.direct_closest(tris, o, d, tmax.double(), active)
+    with pytest.raises(ValueError):
+        direct.direct_anyhit(tris, o, d, tmax, exclude[:-1], active)
+    with pytest.raises(TypeError):
+        direct.direct_anyhit_v1(tris, o, d, tmax, exclude.long(), active)
+    with pytest.raises(ValueError, match="contiguous"):
+        direct.direct_closest(tris, o, d, tmax, torch.stack(
+            [active, active], 1)[:, 0])
+    assert (dict(direct.LAUNCHES), dict(direct.V1_LAUNCHES)) == before
+
+
+def test_first_design_takes_only_cuda_tensors():
+    tris, o, d, tmax, active, exclude = direct_cases.case(12, "all", "cpu")
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        direct.direct_anyhit_v1(tris, o, d, tmax, exclude, active)
+
+
+_KERNEL_SOURCE = Path(_build.CSRC_DIR) / "direct_traverse.cu"
+
+
+@pytest.mark.parametrize("source", [
+    _KERNEL_SOURCE, Path(__file__).with_name("direct_kernels_host.cpp")],
+    ids=["card", "host"])
+def test_library_exports_the_entry_points_bind_binds(source):
+    """The card's library and the host stand-in export closest hit, any
+    hit and any hit's first design, and no other entry point."""
+    names = re.findall(r'extern "C" int rtjax_direct_(\w+)\(',
+                       source.read_text())
+    assert sorted(names) == ["anyhit", "anyhit_v1", "closest"]
+
+
+def test_host_stand_in_follows_the_kernels_layout():
+    """The stand-in's window is the any-hit kernel's (kPerThread x
+    kBlock lanes), and the kernel stages each triangle's fields in the
+    record's order (p0, e1, e2, n: direct_math.cuh ``Tri``), as the
+    stand-in does."""
+    card = _KERNEL_SOURCE.read_text()
+    per, block = (int(re.search(rf"constexpr int {k} = (\d+);", card)
+                      .group(1)) for k in ("kPerThread", "kBlock"))
+    host = Path(__file__).with_name("direct_kernels_host.cpp").read_text()
+    assert f"constexpr int kWindow = {per} * {block};" in host
+    header = (Path(_build.CSRC_DIR) / "direct_math.cuh").read_text()
+    assert "float p0[3], e1[3], e2[3], n[3];" in header
+    order = re.search(r"field == 0 \? tr\.(\w+) : field == 1 \? tr\.(\w+)"
+                      r"\s*: field == 2 \? tr\.(\w+) : tr\.(\w+);", card)
+    assert order is not None and order.groups() == ("p0", "e1", "e2", "n")
