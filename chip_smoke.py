@@ -108,10 +108,11 @@ the script exits non-zero):
    CAPTURE_AT of that frame, timed in turns with the default instances;
    the default instances' ptxas registers unchanged (DEFAULT_REGISTERS);
    (c) cornell_bunny at MODE_SIZE^2 @ MODE_SPP under
-   ``reference_parity`` and the default estimator: the parity mean within
+   ``reference_parity`` and the default estimator, each on its mode's
+   step kernels once an iteration: the parity mean within
    PARITY_MEAN_TOL of rtjax's parity artifact and the parity / default
    ratio within PARITY_RATIO_TOL of BASELINE's 1.0158; a
-   ``one_sample_mis`` headline frame at the headline gate; (d) eval config
+   ``one_sample_mis`` headline frame (op by op) at the headline gate; (d) eval config
    5 (1920x1080, 10 bounces) through ``render_checkpointed``: 8 spp as 2
    batches of 4 saved under build/rtjax_torch/, resumed to 12 spp (one
    batch rendered), the uninterrupted 12-spp image within C5_RTOL /
@@ -132,9 +133,11 @@ the script exits non-zero):
    first), the records' bytes beside the arrays'; (b) the
    headline frame under traversal="xla", seeds 2 and 3, alternated with
    persist frames (xla, persist, persist, xla): only the binary kernels,
-   once an iteration, each image at phase 4's gate, frame seconds; (c) the
-   headline frame under every other sort key and with sort_rays=False:
-   only the persist kernels, once an iteration, each at phase 4's gate;
+   once an iteration, and the unsorted engine's step kernels, each image
+   at phase 4's gate, frame seconds; (c) the headline frame under every
+   other sort key and with sort_rays=False: only the persist kernels,
+   once an iteration, and the mode's step kernels, each at phase 4's
+   gate;
    (d) cornell_bunny at WIDE_SIZE^2 (above 2^21 pixels: the wide sort
    bundle) against two compact frames at half the width, the wide frame's
    linear radiance box-downsampled 2x2 within 2x their seed-to-seed MSE
@@ -279,7 +282,16 @@ the script exits non-zero):
    to the record design's; (c) its busy profile; (d) in turns, route and
    shade against the first design's (tools/step_designs.py), registers
    and resident warps, one wrapper call of each kernel and index_add_ of
-   the flush;
+   the flush.  Then the full-record modes (the unsorted engine and
+   reference_parity): the default instances' and the first design's
+   registers held to STEP_REGISTERS, the camera rank's scan against
+   torch.cumsum on five masks (tools/mode_steps.py), the modes' kernels
+   bit for bit against their plain versions (tools/step_designs.py) on
+   the op-by-op states of phase 8(c)'s parity frame, of the headline
+   under parity, "xla", sort_rays=False and parity with "xla", of
+   config 3 under parity, and on synthetic pools with limbo lanes, those
+   cells' frames against step_kernels=False in turns, and each kernel
+   timed;
 7. the two persist kernels' device time over one whole headline frame,
    the two packet kernels' over one walker="packet" headline frame, the
    lane closest-hit kernel's over one walker="lane" headline frame (its
@@ -334,7 +346,10 @@ route, shade and resolve: rtjax's XLA fusions of ``wavefront_step``,
 which reach no ``pallas_call``; their times phase 14 (d)'s on the
 headline's state of iteration STEP_TIME_IT, ``sort_ms`` torch.sort's
 there on the route row, ``mismatching_lanes`` phase 14 (a)'s; no
-``ab``).  The persist, packet,
+``ab``; the full-record modes' rows, ``step_route_shade_unsorted`` and
+the parity kernels: launches from phase 9(b)'s two xla frames, phase
+8(c)'s parity frame and phase 14's parity-with-xla frame, times phase
+14's on the headline's states).  The persist, packet,
 lane and binary-walk rows carry ``bigscene``: phase 11's numbers by grid
 (the persist rows' device time, bound and share on (b)'s rays and
 in-frame launch, their launches over (d)'s two kernel frames; every
@@ -481,10 +496,11 @@ def phase1_build():
 
 def _step_label(mangled):
     """"step shade" for a step kernel's mangled name: route, route_v1,
-    shade, shade_v1 and resolve."""
+    shade, shade_v1, resolve and the full-record modes' kernels
+    (route_parity, ...)."""
     import re
-    m = re.search(r"(route_v1|route|shade_v1|shade|resolve)_kernel",
-                  mangled)
+    m = re.search(r"((?:route|shade|resolve)(?:_parity)?(?:_unsorted)?"
+                  r"(?:_v1)?)_kernel", mangled)
     return mangled if m is None else f"step {m[1]}"
 
 
@@ -1050,8 +1066,12 @@ def phase4_main_path(scene, camera, card):
         if seed == 1:
             restore()
     # the step kernels' launches ride along as "step route", ...
-    launches = dict(P.LAUNCHES) | {f"step {k}": v
-                                   for k, v in S.LAUNCHES.items()}
+    launches = dict(P.LAUNCHES) | {f"step {k}": S.LAUNCHES[k]
+                                   for k in S.MODE_KERNELS["default"]}
+    if any(v for k, v in S.LAUNCHES.items()
+           if k not in S.MODE_KERNELS["default"]):
+        raise RuntimeError("the main path launched another mode's step "
+                           "kernels")
     ref_calls = sum(P.REF_CALLS.values()) + sum(P.STRIDE_LAUNCHES.values()) \
         + sum(P.STATS_LAUNCHES.values()) + sum(S.REF_CALLS.values())
 
@@ -1950,6 +1970,17 @@ DEFAULT_REGISTERS = {"persist fetch closest, width 8": 96,
                      "persist fetch any-hit, width 16": 94}
 
 
+def _step_once(counts, mode, iterations):
+    """True when each step kernel of ``mode`` (kernels/step.py
+    ``MODE_KERNELS``; None: the op-by-op step) launched ``iterations``
+    times and no other step kernel launched."""
+    from rtjax_torch.kernels import step as S
+    mine = () if mode is None else S.MODE_KERNELS[mode]
+    return all(v == (iterations if k in mine else 0)
+               for k, v in counts["step"].items()) \
+        and not any(counts["step_v1"].values())
+
+
 def _only_set(counts, kernel_set, iterations=None):
     """True when ``kernel_set`` launched both kernels (``iterations``
     times each when given), no other set launched and no plain version
@@ -2214,12 +2245,14 @@ def _mean_u8(fb, width, height):
 def phase8_modes(scene, camera, card, floor):
     """(c) cornell_bunny at MODE_SIZE^2 @ MODE_SPP under
     ``reference_parity`` and under the default estimator, seed 1, counts
-    from zero around each (persist kernels alone, once an iteration): the
+    from zero around each (persist kernels alone, once an iteration; the
+    mode's step kernels once an iteration, none of the others): the
     parity frame's mean within PARITY_MEAN_TOL of the parity artifact's,
     and its ratio to the default frame's within PARITY_RATIO_TOL of
-    PARITY_RATIO; then a ``one_sample_mis`` headline frame at the
-    headline gate against the artifact, its any-hit launches N rays
-    each."""
+    PARITY_RATIO; then a ``one_sample_mis`` headline frame (op by op: no
+    step kernel) at the headline gate against the artifact, its any-hit
+    launches N rays each.  Returns the parity frame's step launches too
+    (``launches``)."""
     import dataclasses
 
     import numpy as np
@@ -2227,20 +2260,26 @@ def phase8_modes(scene, camera, card, floor):
     from rtjax_torch.render.film import read_ppm
     base = RenderConfig(width=MODE_SIZE, height=MODE_SIZE,
                         num_samples=MODE_SPP, max_bounces=BOUNCES)
-    means = {}
+    means, launches = {}, {}
     for name, cfg in (("parity", dataclasses.replace(
             base, reference_parity=True)), ("default", base)):
         runs, c = _drive(scene, camera, cfg, (1,))
         secs, fb, st = runs[0]
         means[name] = _mean_u8(fb, MODE_SIZE, MODE_SIZE)
+        mode = "parity" if name == "parity" else "default"
         print(f"[modes {name}] {card}: {MODE_SIZE}x{MODE_SIZE} @ {MODE_SPP} "
               f"spp, seed 1: {st['iterations']} iterations, "
               f"{st['rays_traced']:.0f} rays, {secs:.3f} s, "
               f"{st['rays_traced'] / secs / 1e6:.3f} Mrays/s; image mean "
-              f"{means[name]:.5f}; launches {c['persist']}")
+              f"{means[name]:.5f}; launches {c['persist']}, step kernels "
+              f"{ {k: v for k, v in c['step'].items() if v} }")
         if not _only_set(c, "persist", st["iterations"]):
             raise RuntimeError(f"the {name} frame did not run the persist "
                                "kernels alone, once an iteration")
+        if not _step_once(c, mode, st["iterations"]):
+            raise RuntimeError(f"the {name} frame did not run the {mode} "
+                               "step kernels once an iteration")
+        launches[name] = c["step"]
     art = float(read_ppm(PARITY_ARTIFACT).astype(np.float64).mean() / 255.0)
     fixed = float(read_ppm(FIXED_ARTIFACT).astype(np.float64).mean() / 255.0)
     ratio = means["parity"] / means["default"]
@@ -2266,9 +2305,10 @@ def phase8_modes(scene, camera, card, floor):
           f"{ref_mse:.3e} (gate {floor['gate']:.3e}); launches "
           f"{c['persist']}")
     if not _only_set(c, "persist", st["iterations"]) or \
-            ref_mse > floor["gate"]:
+            ref_mse > floor["gate"] or not _step_once(c, None, 0):
         raise RuntimeError("the one_sample_mis frame failed its gate")
-    return dict(means, artifact=art, ratio=ratio, osm_mse=ref_mse)
+    return dict(means, artifact=art, ratio=ratio, osm_mse=ref_mse,
+                launches=launches["parity"])
 
 
 def phase8_config5(scene, camera, card):
@@ -2664,12 +2704,13 @@ def phase9_xla_frames(scene, camera, card, floor):
     """(b) The headline frame under traversal="xla" (the binary walk, the
     unsorted engine), seeds 2 and 3, alternated with persist frames of the
     same seeds (xla, persist, persist, xla), counts from zero around each:
-    the xla frames launch the two binary kernels once an iteration and
-    nothing else; each image at phase 4's gate.  Returns the binary
-    kernels' launches over the two xla frames."""
+    the xla frames launch the two binary kernels and the unsorted engine's
+    step kernels once an iteration and nothing else; each image at phase
+    4's gate.  Returns the binary kernels' launches over the two xla
+    frames, the frame seconds and the step kernels' launches there."""
     from rtjax_torch.kernels import _build
     from rtjax_torch.render.film import write_ppm
-    launches = {"closest": 0, "anyhit": 0}
+    launches, step_launches = {"closest": 0, "anyhit": 0}, {}
     secs = {"xla": [], "persist": []}
     for mode, seed in (("xla", 2), ("persist", 2), ("persist", 3),
                        ("xla", 3)):
@@ -2679,44 +2720,58 @@ def phase9_xla_frames(scene, camera, card, floor):
         sec, fb, st = runs[0]
         ref_mse = _gate(f"traversal={mode} seed {seed}", fb, floor)
         kset = "binary" if mode == "xla" else "persist"
+        step_mode = "unsorted" if mode == "xla" else "default"
         print(f"[xla frame {mode} seed {seed}] {card}: {WIDTH}x{HEIGHT} @ "
               f"{SPP} spp: {st['iterations']} iterations, "
               f"{st['rays_traced']:.0f} rays, {sec:.3f} s, "
               f"{st['rays_traced'] / sec / 1e6:.3f} Mrays/s; MSE vs the "
               f"artifact {ref_mse:.3e} (gate {floor['gate']:.3e}); launches "
-              f"{c[kset]}")
+              f"{c[kset]}, step kernels "
+              f"{ {k: v for k, v in c['step'].items() if v} }")
         if not _only_set(c, kset, st["iterations"]):
             raise RuntimeError(f"the traversal={mode} frame did not run "
                                f"the {kset} kernels alone, once an iteration")
+        if not _step_once(c, step_mode, st["iterations"]):
+            raise RuntimeError(f"the traversal={mode} frame did not run the "
+                               f"{step_mode} step kernels once an iteration")
         secs[mode].append(sec)
         if mode == "xla":
             for k in launches:
                 launches[k] += c["binary"][k]
+            for k, v in c["step"].items():
+                step_launches[k] = step_launches.get(k, 0) + v
             write_ppm(_build.BUILD_DIR / f"xla_seed{seed}.ppm",
                       fb.cpu().numpy(), WIDTH, HEIGHT, binary=True)
     print(f"[xla frames] {card}: frame seconds xla {secs['xla']}, persist "
           f"{secs['persist']}")
-    return launches, secs
+    return launches, secs, step_launches
 
 
 def phase9_sort_keys(scene, camera, card, floor):
     """(c) The headline frame (seed 2) under each sort key but the default
     and once with sort_rays=False, counts from zero: the persist kernels
-    alone, once an iteration; each image at phase 4's gate."""
+    alone, once an iteration, and the step kernels of the mode (the
+    unsorted engine's under sort_rays=False) once an iteration; each
+    image at phase 4's gate."""
     out = {}
     for name, change in ([(k, dict(sort_key=k)) for k in SORT_KEYS]
                          + [("no_sort", dict(sort_rays=False))]):
         runs, c = _drive(scene, camera, _headline_cfg(**change), (2,))
         sec, fb, st = runs[0]
         ref_mse = _gate(name, fb, floor)
+        step_mode = "unsorted" if name == "no_sort" else "default"
         print(f"[sort mode {name}] {card}: {st['iterations']} iterations, "
               f"{st['rays_traced']:.0f} rays, {sec:.3f} s, "
               f"{st['rays_traced'] / sec / 1e6:.3f} Mrays/s; MSE vs the "
               f"artifact {ref_mse:.3e} (gate {floor['gate']:.3e}); launches "
-              f"{c['persist']}")
+              f"{c['persist']}, step kernels "
+              f"{ {k: v for k, v in c['step'].items() if v} }")
         if not _only_set(c, "persist", st["iterations"]):
             raise RuntimeError(f"the {name} frame did not run the persist "
                                "kernels alone, once an iteration")
+        if not _step_once(c, step_mode, st["iterations"]):
+            raise RuntimeError(f"the {name} frame did not run the "
+                               f"{step_mode} step kernels once an iteration")
         out[name] = sec
     return out
 
@@ -4500,19 +4555,48 @@ def _set_design(design):
     S.DESIGN = design
 
 
+def _profiled_frame(sc, cam, cfg, seed, **kw):
+    """One frame (``render_frame(..., **kw)``, seed ``seed``) under
+    torch.profiler with CUDA activity alone: ``{wall, device_ms, events,
+    iterations, graphed, events_per_it, device_ms_per_it, kernels}``, the
+    device ms summed over its device events (kernels, copies, fills),
+    ``kernels`` ``{event name: [ms, events]}``."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from rtjax_torch.render.wavefront import render_frame
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _, st = render_frame(sc, cam, cfg, gen, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            k = kernels.setdefault(e.name(), [0.0, 0])
+            k[0] += e.duration_ns() / 1e6
+            k[1] += 1
+    events = sum(k[1] for k in kernels.values())
+    dev_ms = sum(k[0] for k in kernels.values())
+    its = max(st["iterations"], 1)
+    return dict(wall=wall, device_ms=dev_ms, events=events,
+                iterations=st["iterations"], graphed=st["graphed"],
+                events_per_it=events / its, device_ms_per_it=dev_ms / its,
+                kernels=kernels)
+
+
 def _busy_job(out):
     """Phase 13's device-busy shares, in a process of its own (``python3
     chip_smoke.py --busy-job OUT``; torch.profiler in a long process had
     dropped kernel records, phase 7): for each cell, a warm-up frame
     through each path (seed 1), then one graph and one eager frame (seed
-    5) under torch.profiler with CUDA activity alone, each with its wall
-    time and the summed duration of its device events (kernels, copies,
-    fills); for the cells of STEP_BUSY also a graph frame under
-    ``step_kernels=False`` ("graph_op") and one through the step kernels'
-    first design ("graph_v1", phase 14 (c)); saved to ``out``."""
+    5) profiled (:func:`_profiled_frame`); for the cells of STEP_BUSY also
+    a graph frame under ``step_kernels=False`` ("graph_op") and one
+    through the step kernels' first design ("graph_v1", phase 14 (c));
+    saved to ``out``."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     from rtjax_torch.render.wavefront import render_frame
     from rtjax_torch.scenes import cornell_bunny, instanced_bunnies
     scene, camera = cornell_bunny(device="cuda")
@@ -4532,22 +4616,10 @@ def _busy_job(out):
                 device="cuda").manual_seed(1), **kw(path))
         for path in paths:
             _set_design("v1" if path == "graph_v1" else "record")
-            gen = torch.Generator(device="cuda").manual_seed(5)
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                t0 = time.perf_counter()
-                _, st = render_frame(sc, cam, cfg, gen, **kw(path))
-                torch.cuda.synchronize()
-                wall = time.perf_counter() - t0
-            ev = [e for e in prof.profiler.kineto_results.events()
-                  if e.device_type() == DeviceType.CUDA]
-            res[name][path] = dict(
-                wall=wall, device_ms=sum(e.duration_ns() for e in ev) / 1e6,
-                events=len(ev), iterations=st["iterations"],
-                graphed=st["graphed"])
-            print(f"[graph busy {name} {path}] {wall:.3f} s, device "
-                  f"{res[name][path]['device_ms']:.3f} ms in {len(ev)} "
-                  f"events, {st['iterations']} iterations")
+            r = res[name][path] = _profiled_frame(sc, cam, cfg, 5, **kw(path))
+            print(f"[graph busy {name} {path}] {r['wall']:.3f} s, device "
+                  f"{r['device_ms']:.3f} ms in {r['events']} events, "
+                  f"{r['iterations']} iterations")
     torch.save(res, out)
 
 
@@ -4730,6 +4802,11 @@ STEP_BUSY = ("headline", "config2", "config3", "config4a", "config4b")
 # the one whose headline state (d) times
 STEP_CHECK_ITS = (0, 1, 2, 5, 12)
 STEP_TIME_IT = 12
+# the full-record modes' checked iterations and timed iteration (the
+# headline's unsorted pool runs in 16-row bands: its early states are all
+# hits or all misses)
+MODE_CHECK_ITS = (0, 1, 2, 5, 12, 30)
+MODE_TIME_IT = 30
 # (b): each cell's frames, in turns: a frame of seed 1 captures its arm's
 # graph (the cache holds one), then the arm's timed frames; "v1" the
 # step kernels' first design
@@ -4737,6 +4814,10 @@ STEP_ORDER = (("kernels", 1), ("kernels", 2), ("kernels", 3), ("v1", 1),
               ("v1", 2), ("v1", 3), ("op", 1), ("op", 2), ("op", 3),
               ("op", 4), ("v1", 1), ("v1", 4), ("kernels", 1),
               ("kernels", 4))
+# the full-record modes' frames, in turns, as STEP_ORDER's but with no
+# first design
+MODE_ORDER = (("kernels", 1), ("kernels", 2), ("op", 1), ("op", 2),
+              ("op", 3), ("kernels", 1), ("kernels", 3))
 # bytes a lane moves, each input read once and each output written once:
 # route reads the state (81 B) and its word (8 B) and writes its key and
 # bundle (40 B); shade reads the bundle (36 B), five words (40 B) and, on
@@ -4836,113 +4917,54 @@ def _flat_out(x):
     return [x]
 
 
-def _check_step(scene, camera, cfg, state, words, fb, it, cam_start):
-    """Route, shade and resolve against their plain versions on one state
-    (the kernels on copies of what they write in place): ``{kernel:
-    {field: mismatching lanes}}``, the framebuffer's largest gap (its
-    atomic adds' order) and what (d) times.  Also the first design
-    (route_v1, shade_v1) against the same plain versions and shade
-    against shade_v1 (next state and shadow columns)."""
-    import dataclasses
-
+def _synthetic_checks(camera, card, modes, its, seed):
+    """The step kernels of each mode of ``modes`` (``{label: change of
+    the RenderConfig}``) on synthetic pools of every lane kind
+    (:func:`_synthetic_state` over :func:`_step_scene`, a random
+    framebuffer), one pool an iteration of ``its``, against their plain
+    versions (tools/step_designs.py ``check_state``): ``({kernel:
+    mismatching lanes}, framebuffer gap)``."""
     import torch
     import step_designs as SD
-    from rtjax_torch.kernels import step as S
-    from rtjax_torch.render import wavefront as WF
-    k = WF.resolve_sort_every(scene, cfg)
-    n = cfg.pool_size
-    bad = {name: {} for name in (*STEP_KERNELS, "route_v1", "shade_v1")}
-
-    def tally(kernel, names, got, want):
-        for name, x, y in zip(names, got, want, strict=True):
-            bad[kernel][name] = bad[kernel].get(name, 0) + \
-                _lanes_differ(x, y)
-
-    copy = lambda st: dataclasses.replace(st, **{
-        f: tuple(c.clone() for c in v) if isinstance(v, tuple) else v.clone()
-        for f, v in vars(st).items()})
-    want = S.route_ref(scene, cfg, state, words)
-    got = S.route(scene, cfg, state, words)
-    tally("route", ("keys", "bundle", "counts"), got, want)
-    want_v1 = S.route_v1_ref(scene, cfg, state, words)
-    tally("route_v1", ("keys", "bundle", "counts"),
-          S.route_v1(scene, cfg, state, words), want_v1)
-    order = torch.sort(want[0], stable=True).indices
-    fb0, fb1, fb2 = fb.clone(), fb.clone(), fb.clone()
-    sh0 = S.shade_ref(scene, camera, cfg, state, fb0, words, order, want[1],
-                      want[2], it, cam_start, k)
-    sh1 = S.shade(scene, camera, cfg, copy(state), fb1, words, order,
-                  want[1], want[2].clone(), it, cam_start, k)
-    sh2 = S.shade_v1(scene, camera, cfg, copy(state), fb2, words, order,
-                     want_v1[1], want[2].clone(), it, cam_start, k)
-    for f in SD.SHADE_FIELDS:
-        a, b = _flat_out(getattr(sh1, f)), _flat_out(getattr(sh0, f))
-        if len(a) != len(b):
-            raise RuntimeError(f"shade's {f} has {len(a)} columns, its plain "
-                               f"version's {len(b)}")
-        names = [f"{f}[{j}]" for j in range(len(a))]
-        tally("shade", names, a, b)
-        tally("shade_v1", names, _flat_out(getattr(sh2, f)), b)
-        tally("shade_v1", [f"= shade {x}" for x in names],
-              _flat_out(getattr(sh2, f)), a)
-    fb_err = float((fb1 - fb0).abs().max())
-    if not torch.allclose(fb1, fb0, rtol=FB_RTOL, atol=FB_ATOL):
-        bad["shade"]["fb beyond rtol"] = 1
-    if not torch.allclose(fb2, fb0, rtol=FB_RTOL, atol=FB_ATOL):
-        bad["shade_v1"]["fb beyond rtol"] = 1
-    do_gen = S.cadence(want[2], n, it, k)
-    g = torch.Generator(device="cuda").manual_seed(9)
-    occ = None if sh0.shadow is None else \
-        torch.rand(2 * n, generator=g, device="cuda") < 0.3
-    rays = torch.tensor(7.0, dtype=torch.float64, device="cuda")
-    occ_sum = torch.tensor(0.5, dtype=torch.float64, device="cuda")
-    r0 = S.resolve_ref(cfg, sh0, occ, it, k, cam_start, rays, occ_sum)
-    sh0.acc = tuple(c.clone() for c in sh0.acc)
-    r1 = S.resolve(cfg, sh0, occ, it, k, cam_start, rays, occ_sum)
-    tally("resolve", ("acc[0]", "acc[1]", "acc[2]", "cam_start",
-                      "work_left", "rays_traced", "occ_sum"),
-          _flat_out(r1), _flat_out(r0))
-    return bad, fb_err, dict(keys=want[0], order=order, bundle=want[1],
-                             bundle_v1=want_v1[1], counts=want[2],
-                             sh=sh0, do_gen=do_gen)
+    from rtjax_torch import RenderConfig
+    syn = _step_scene()
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    worst, gap = {}, 0.0
+    for label, change in modes.items():
+        cfg = RenderConfig(width=WIDTH, height=HEIGHT, num_samples=4,
+                           max_bounces=BOUNCES, **change)
+        for it in its:
+            words = torch.randint(0, 1 << 32, (5, cfg.pool_size),
+                                  generator=g, device="cuda",
+                                  dtype=torch.int64)
+            fb = torch.rand(cfg.num_pixels, 3, generator=g, device="cuda")
+            bad, err, c = SD.check_state(
+                syn, camera, cfg, _synthetic_state(syn, cfg, g), words, fb,
+                torch.tensor(it, device="cuda"),
+                torch.tensor(it * 99991, device="cuda"))
+            gap = max(gap, err)
+            total = {k: sum(v.values()) for k, v in bad.items()}
+            kind = "dirty" if c["mode"] == "default" else "in limbo"
+            print(f"[step kernels synthetic {label} {it}] {card}: "
+                  f"{int(c['counts'][4])} lanes {kind}; mismatching lanes "
+                  + ", ".join(f"{k} {v}" for k, v in total.items()))
+            for k, v in bad.items():
+                worst[k] = worst.get(k, 0) + total[k]
+                if total[k]:
+                    print(f"  {k} mismatches by field: "
+                          f"{ {f: m for f, m in v.items() if m} }")
+    return worst, gap
 
 
-def _step_timings(scene, camera, cfg, state, words, fb, it, cam_start,
-                  checked, card):
-    """(d): on the headline's state of iteration STEP_TIME_IT, in turns,
-    each kernel's device time a launch and its bound
-    (tools/step_designs.py ``time_state``: route against route_v1, shade
-    against shade_v1, resolve, one wrapper call each, torch.sort), each
-    kernel's registers and resident warps, one call of each plain version
-    (CUDA events, median of REPS) and ``index_add_`` of the flush."""
-    import dataclasses
-
-    import torch
+def _step_timings(t, card):
+    """(d): prints the headline's timings (tools/step_designs.py
+    ``time_state`` on its state of STEP_TIME_IT: in turns, each kernel's
+    device time a launch and its bound, route against route_v1 and shade
+    against shade_v1; one wrapper call and one plain version call of each
+    (CUDA events, median of REPS); torch.sort and ``index_add_`` of the
+    flush) and every step kernel's registers and resident warps; returns
+    ``t`` with the latter."""
     import step_designs as SD
-    from rtjax_torch.kernels import step as S
-    from rtjax_torch.render.trace import trace_anyhit
-    from rtjax_torch.render import wavefront as WF
-    k = WF.resolve_sort_every(scene, cfg)
-    c = checked
-    sh = c["sh"]
-    t = SD.time_state(scene, camera, cfg, state, words, fb, it, cam_start,
-                      c)
-    occ = trace_anyhit(scene, cfg, *sh.shadow)
-    rays = torch.zeros((), dtype=torch.float64, device="cuda")
-    t["plain_ms"] = dict(
-        route=_median_ms(lambda: S.route_ref(scene, cfg, state, words)),
-        shade=_median_ms(lambda: S.shade_ref(
-            scene, camera, cfg, state, fb.clone(), words, c["order"],
-            c["bundle"], c["counts"], it, cam_start, k)),
-        resolve=_median_ms(lambda: S.resolve_ref(
-            cfg, sh, occ, it, k, cam_start, rays, rays)))
-    n = cfg.pool_size
-    order = c["order"] if c["do_gen"] is None else torch.where(
-        c["do_gen"], c["order"], torch.arange(n, device="cuda"))
-    _, _, acc, pixel, _, mat, *_ = S.unpack_bundle(c["bundle"][order])
-    flush = torch.stack([torch.where(~mat, x, 0.0) for x in acc], 1)
-    fbx, pix = fb.clone(), pixel.long()
-    t["index_add_ms"] = _launch_ms(lambda: fbx.index_add_(0, pix, flush))[0]
     t["registers"] = SD.kernel_table()
     t["card"] = card
     for name, r in t["kernels"].items():
@@ -4954,9 +4976,13 @@ def _step_timings(scene, camera, cfg, state, words, fb, it, cam_start,
         print(f"[step occupancy {name}] {card}: {r['registers']} registers, "
               f"{r['local_bytes']} local bytes, {r['block']} threads a "
               f"block, {r['warps_per_sm']} resident warps an SM")
-    print(f"[step time one call] {card}: {t['one_call']} ms (a wrapper "
-          f"call, host launch included); plain versions {t['plain_ms']} ms;"
-          f" flush atomics a shade launch {t['flush_atomics']}; index_add_ "
+    one = {k: r["one_call_ms"] for k, r in t["kernels"].items()
+           if "one_call_ms" in r}
+    plain = {k: r["plain_ms"] for k, r in t["kernels"].items()
+             if "plain_ms" in r}
+    print(f"[step time one call] {card}: {one} ms (a wrapper call, host "
+          f"launch included); plain versions {plain} ms; flush atomics a "
+          f"shade launch {t['flush_atomics']}; index_add_ "
           f"{t['index_add_ms']:.4f} ms; torch.sort {t['sort_ms']:.4f} ms")
     return t
 
@@ -4980,6 +5006,41 @@ def _step_frame(sc, cam, cfg, seed, arm):
     return secs, fb, st, _read_counts()
 
 
+def _frames_in_turns(sc, cam, cfg, order):
+    """Captured frames of ``order`` (``(arm, seed)`` pairs,
+    :func:`_step_frame`) from an empty graph cache: ``{(arm, seed):
+    (seconds, framebuffer, stats, counts)}`` of the seeds but 1 (a frame
+    of seed 1 captures its arm's graph; the cache holds one)."""
+    from rtjax_torch.render import graph as G
+    G.clear_graphs()
+    frames = {}
+    for arm, seed in order:
+        f = _step_frame(sc, cam, cfg, seed, arm)
+        if seed != 1:
+            frames[arm, seed] = f
+    _set_design("record")
+    return frames
+
+
+def _arms_agree(kf, of, mode):
+    """A kernels-arm frame against the ``step_kernels=False`` frame of its
+    seed (each from :func:`_step_frame`): ``{"same": equal iterations,
+    rays and occupancy, "walks": equal traversal launches, "steps":
+    ``mode``'s step kernels once an iteration and no plain version in
+    the one, no step kernel in the other, "close": framebuffers within
+    FB_RTOL}``."""
+    import torch
+    its = kf[2]["iterations"]
+    return dict(
+        same=all(kf[2][k] == of[2][k] for k in
+                 ("iterations", "rays_traced", "avg_occupancy")),
+        walks={k: v for k, v in kf[3].items() if k != "step"} ==
+        {k: v for k, v in of[3].items() if k != "step"},
+        steps=(_step_once(kf[3], mode, its) and not kf[3]["plain"]
+               and _step_once(of[3], None, 0)),
+        close=torch.allclose(kf[1], of[1], rtol=FB_RTOL, atol=FB_ATOL))
+
+
 def phase14_step_kernels(scene, camera, card, floor, c4_scene, c4_camera,
                          c4_floor, g13):
     """The fused wavefront step (kernels/step.py, csrc/step_kernels.cu):
@@ -4988,22 +5049,22 @@ def phase14_step_kernels(scene, camera, card, floor, c4_scene, c4_camera,
     sort_every skip iterations), 3 (specular) and 4 (instanced), stepped
     op by op, and on a synthetic pool of every lane kind: every output
     bit for bit (mismatching lanes printed, all 0), the framebuffer
-    within FB_RTOL; (b) captured frames through the kernels and under
-    ``step_kernels=False`` in turns (STEP_ORDER) on the headline, configs
-    2, 3, 4 (a) and (b) and config 5's 4-spp probe: each seed's pair
-    equal in iterations, rays, occupancy and traversal launches, the step
-    kernels once an iteration in one arm and never in the other, the
-    framebuffers within FB_RTOL, each kernel frame at its phase's image
-    gate; (c) phase 13's busy job's device events and device ms an
-    iteration, both arms, and the first design's; (d)
-    :func:`_step_timings`.  (a) also holds route_v1 / shade_v1 (the
-    first design) against the same plain versions and shade against
+    within FB_RTOL (tools/step_designs.py ``check_and_time``); (b)
+    captured frames through the kernels and under ``step_kernels=False``
+    in turns (STEP_ORDER) on the headline, configs 2, 3, 4 (a) and (b)
+    and config 5's 4-spp probe: each seed's pair agreeing
+    (:func:`_arms_agree`), each kernel frame at its phase's image gate;
+    (c) phase 13's busy job's device events and device ms an iteration,
+    both arms, and the first design's; (d) :func:`_step_timings` of the
+    headline's state of STEP_TIME_IT.  (a) also holds route_v1 / shade_v1
+    (the first design) against the same plain versions and shade against
     shade_v1; (b) also renders the first design's frames in turns, equal
-    to the kernels' in iterations, rays, occupancy and launches.  Returns the
-    rows' numbers."""
+    to the kernels' in iterations, rays, occupancy and launches.  Returns
+    the rows' numbers."""
     import numpy as np
     import torch
     sys.path.insert(0, os.path.join(ROOT, "tools"))
+    import step_designs as SD
     from rtjax_torch import RenderConfig
     from rtjax_torch.render import graph as G
     from rtjax_torch.render import wavefront as WF
@@ -5016,56 +5077,18 @@ def phase14_step_kernels(scene, camera, card, floor, c4_scene, c4_camera,
     timed = None
     for name, (sc, cam, cfg, _) in cells.items():
         assert WF.step_kernels_cover(sc, cfg), name
-        n = cfg.pool_size
-        g = torch.Generator(device="cuda").manual_seed(7)
-        carry = WF.initial_carry(cfg, "cuda")
-        carry = carry[:3] + (torch.zeros((), dtype=torch.int64,
-                                         device="cuda"),) + carry[4:]
-        for it in range(max(STEP_CHECK_ITS) + 1):
-            words = torch.randint(0, 1 << 32, (5, n), generator=g,
-                                  device="cuda", dtype=torch.int64)
-            if it in STEP_CHECK_ITS:
-                bad, err, checked = _check_step(sc, cam, cfg, carry[0],
-                                                words, carry[1], carry[3],
-                                                carry[2])
-                fb_err = max(fb_err, err)
-                dg = checked["do_gen"]
-                print(f"[step kernels {name} it {it}] {card}: "
-                      f"{int(checked['counts'][0])} of {n} paths continue,"
-                      f" {'sorts' if dg is None or bool(dg) else 'skips'}; "
-                      "mismatching lanes " + ", ".join(
-                          f"{k} {sum(v.values())}" for k, v in bad.items())
-                      + f"; framebuffer largest gap {err:.3e}")
-                for k, v in bad.items():
-                    worst[k] += sum(v.values())
-                    if sum(v.values()):
-                        print(f"  {k} mismatches by field: "
-                              f"{ {f: m for f, m in v.items() if m} }")
-                if name == "headline" and it == STEP_TIME_IT:
-                    timed = (carry[0], words, carry[1], carry[3], carry[2],
-                             checked)
-            carry = WF.wavefront_step(sc, cam, cfg, words, carry,
-                                      step_kernels=False)
-    syn = _step_scene()
-    syn_cfg = RenderConfig(width=WIDTH, height=HEIGHT, num_samples=4,
-                           max_bounces=BOUNCES)
-    g = torch.Generator(device="cuda").manual_seed(11)
-    for it in (0, 1, 3):
-        words = torch.randint(0, 1 << 32, (5, syn_cfg.pool_size),
-                              generator=g, device="cuda", dtype=torch.int64)
-        fb = torch.rand(syn_cfg.num_pixels, 3, generator=g, device="cuda")
-        bad, err, _ = _check_step(syn, camera, syn_cfg, _synthetic_state(
-            syn, syn_cfg, g), words, fb, torch.tensor(it, device="cuda"),
-            torch.tensor(it * 99991, device="cuda"))
+        bad, err, t = SD.check_and_time(
+            sc, cam, cfg, STEP_CHECK_ITS,
+            STEP_TIME_IT if name == "headline" else None, label=name,
+            card=card)
         fb_err = max(fb_err, err)
-        print(f"[step kernels synthetic pool {it}] {card}: mismatching "
-              "lanes " + ", ".join(f"{k} {sum(v.values())}"
-                                   for k, v in bad.items()))
+        timed = t or timed
         for k, v in bad.items():
-            worst[k] += sum(v.values())
-            if sum(v.values()):
-                print(f"  {k} mismatches by field: "
-                      f"{ {f: m for f, m in v.items() if m} }")
+            worst[k] += v
+    bad, err = _synthetic_checks(camera, card, {"pool": {}}, (0, 1, 3), 11)
+    fb_err = max(fb_err, err)
+    for k, v in bad.items():
+        worst[k] += v
     if any(worst.values()):
         raise RuntimeError(f"the step kernels differ from their plain "
                            f"versions: {worst}")
@@ -5075,13 +5098,7 @@ def phase14_step_kernels(scene, camera, card, floor, c4_scene, c4_camera,
     cells["config5"] = (scene, camera, c5, None)
     secs = {}
     for name, (sc, cam, cfg, size) in cells.items():
-        G.clear_graphs()
-        frames = {}
-        for arm, seed in STEP_ORDER:
-            f = _step_frame(sc, cam, cfg, seed, arm)
-            if seed != 1:
-                frames[arm, seed] = f
-        _set_design("record")
+        frames = _frames_in_turns(sc, cam, cfg, STEP_ORDER)
         secs[name] = {arm: [f[0] for (a, _), f in frames.items() if a == arm]
                       for arm in ("kernels", "v1", "op")}
         if size is not None:
@@ -5091,13 +5108,7 @@ def phase14_step_kernels(scene, camera, card, floor, c4_scene, c4_camera,
         for seed in (2, 3, 4):
             kf, of = frames["kernels", seed], frames["op", seed]
             its = kf[2]["iterations"]
-            same = all(kf[2][k] == of[2][k] for k in
-                       ("iterations", "rays_traced", "avg_occupancy"))
-            close = torch.allclose(kf[1], of[1], rtol=FB_RTOL, atol=FB_ATOL)
-            walks = {k: v for k, v in kf[3].items() if k != "step"} == \
-                {k: v for k, v in of[3].items() if k != "step"}
-            steps = (set(kf[3]["step"].values()) == {its}
-                     and not any(of[3]["step"].values()))
+            ok = _arms_agree(kf, of, "default")
             if name == "headline":
                 gate, mse = floor["gate"], float(np.mean(
                     (_square_u8(kf[1], size) - floor["ref"]) ** 2))
@@ -5113,12 +5124,12 @@ def phase14_step_kernels(scene, camera, card, floor, c4_scene, c4_camera,
             print(f"[step frame {name} seed {seed}] {card}: {its} "
                   f"iterations, {kf[2]['rays_traced']:.0f} rays; kernels "
                   f"{kf[0]:.3f} s, step_kernels=False {of[0]:.3f} s; equal "
-                  f"iterations, rays, occupancy {same}; traversal launches "
-                  f"equal {walks}; step kernels once an iteration "
-                  f"{steps} ({kf[3]['step']}); framebuffers within rtol "
-                  f"{FB_RTOL} {close}; image MSE {mse:.3e} (gate "
-                  f"{gate:.3e})")
-            if not (same and close and walks and steps):
+                  f"iterations, rays, occupancy {ok['same']}; traversal "
+                  f"launches equal {ok['walks']}; step kernels once an "
+                  f"iteration, no plain version {ok['steps']} "
+                  f"({kf[3]['step']}); framebuffers within rtol {FB_RTOL} "
+                  f"{ok['close']}; image MSE {mse:.3e} (gate {gate:.3e})")
+            if not all(ok.values()):
                 raise RuntimeError(f"{name} seed {seed}: the step kernels' "
                                    "frame differs from the op-by-op step's")
             # the first design's frame of the seed against the kernels'
@@ -5182,10 +5193,200 @@ def phase14_step_kernels(scene, camera, card, floor, c4_scene, c4_camera,
               f" vs {v_['device_ms_per_it']:.5f}; profiled frames "
               f"{k_['wall']:.3f} vs {o_['wall']:.3f} vs {v_['wall']:.3f} s")
     # (d)
-    hsc, hcam, hcfg, _ = cells["headline"]
-    t = _step_timings(hsc, hcam, hcfg, *timed, card)
+    t = _step_timings(timed, card)
     return dict(mismatches=worst, fb_err=fb_err, secs=secs, busy=busy,
                 times=t)
+
+
+# the full-record modes (the unsorted engine, reference_parity):
+# the kernels line's rows, each timed on its mode's cell of MODE_TIMED
+MODE_STEP_KERNELS = {
+    "route_shade_unsorted": ("unsorted", "rtjax/render/wavefront.py:212"),
+    "route_parity": ("parity", "rtjax/render/wavefront.py:212"),
+    "shade_parity": ("parity", "rtjax/render/wavefront.py:437"),
+    "resolve_parity": ("parity", "rtjax/render/wavefront.py:748"),
+    "route_parity_unsorted": ("parity_unsorted",
+                              "rtjax/render/wavefront.py:212"),
+    "shade_parity_unsorted": ("parity_unsorted",
+                              "rtjax/render/wavefront.py:437")}
+MODE_TIMED = {"unsorted": "headline xla", "parity": "parity frame",
+              "parity_unsorted": "headline parity xla"}
+# the ptxas registers of the default instances and of the first design:
+# they must not change (the first design's shade takes the shadow rays'
+# shared helper at 96, resident warps as at 95: 16)
+STEP_REGISTERS = {"route": 40, "shade": 85, "resolve": 26, "route_v1": 40,
+                  "shade_v1": 96}
+
+
+def _mode_cells(scene, camera):
+    """Phase 14's cells of the full-record modes: ``{name: (scene, camera,
+    cfg)}``: phase 8(c)'s parity frame (MODE_SIZE^2 @ MODE_SPP, a pool
+    of 2^19 lanes), the headline under parity, ``"xla"``,
+    ``sort_rays=False`` and parity with ``"xla"``, and eval config 3
+    under parity (the specular branches)."""
+    from rtjax_torch import RenderConfig
+    from rtjax_torch.scenes import cornell_bunny
+    c3, c3_cam = cornell_bunny("cuda", bunny_material="glass",
+                               floor="mirror")
+    return {
+        "parity frame": (scene, camera, RenderConfig(
+            width=MODE_SIZE, height=MODE_SIZE, num_samples=MODE_SPP,
+            max_bounces=BOUNCES, reference_parity=True)),
+        "headline parity": (scene, camera,
+                            _headline_cfg(reference_parity=True)),
+        "headline xla": (scene, camera, _headline_cfg(traversal="xla")),
+        "headline no_sort": (scene, camera, _headline_cfg(sort_rays=False)),
+        "headline parity xla": (scene, camera, _headline_cfg(
+            reference_parity=True, traversal="xla")),
+        "config3 parity": (c3, c3_cam, _c3_cfg(reference_parity=True))}
+
+
+def _c3_cfg(**change):
+    from rtjax_torch import RenderConfig
+    return RenderConfig(width=WIDTH, height=HEIGHT, num_samples=C3_SPP,
+                        max_bounces=C3_BOUNCES, **change)
+
+
+def _mode_frames(name, sc, cam, cfg, card, profile=False, log=print):
+    """Captured frames of a full-record mode's cell through the step
+    kernels and under ``step_kernels=False``, in turns (MODE_ORDER): each
+    seed's pair must agree (:func:`_arms_agree`).  With ``profile`` also
+    one profiled frame an arm (seed 5, after a seed-1 warm-up,
+    :func:`_profiled_frame`).  Returns ``{secs, busy, launches}``,
+    ``launches`` the step kernels' of the kernels arm's seed-2 frame."""
+    from rtjax_torch.kernels import step as S
+    from rtjax_torch.render import graph as G
+    from rtjax_torch.render import wavefront as WF
+    if not WF.step_kernels_cover(sc, cfg):
+        raise RuntimeError(f"{name}: the step kernels do not cover it")
+    mode = S.step_mode(sc, cfg)
+    got = _frames_in_turns(sc, cam, cfg, MODE_ORDER)
+    secs = {arm: [f[0] for (a, _), f in got.items() if a == arm]
+            for arm in ("kernels", "op")}
+    for seed in (2, 3):
+        kf, of = got["kernels", seed], got["op", seed]
+        ok = _arms_agree(kf, of, mode)
+        log(f"[mode frame {name} seed {seed}] {card}: {kf[2]['iterations']}"
+            f" iterations, {kf[2]['rays_traced']:.0f} rays; kernels "
+            f"{kf[0]:.4f} s, step_kernels=False {of[0]:.4f} s; equal "
+            f"iterations, rays, occupancy {ok['same']}; traversal launches "
+            f"equal {ok['walks']}; the mode's step kernels once an "
+            f"iteration, no plain version {ok['steps']} ({kf[3]['step']}); "
+            f"framebuffers within rtol {FB_RTOL} {ok['close']}")
+        if not all(ok.values()):
+            raise RuntimeError(f"{name} seed {seed}: the kernels' frame "
+                               "differs from the op-by-op step's")
+    busy = {}
+    for arm in ("kernels", "op") if profile else ():
+        G.clear_graphs()
+        _step_frame(sc, cam, cfg, 1, arm)
+        busy[arm] = _profiled_frame(sc, cam, cfg, 5,
+                                    step_kernels=arm == "kernels")
+    if profile:
+        k_, o_ = busy["kernels"], busy["op"]
+        log(f"[mode busy {name}] {card}: device events an iteration kernels"
+            f" {k_['events_per_it']:.1f} vs step_kernels=False "
+            f"{o_['events_per_it']:.1f}; device ms an iteration "
+            f"{k_['device_ms_per_it']:.5f} vs {o_['device_ms_per_it']:.5f};"
+            f" profiled frames {k_['wall']:.4f} vs {o_['wall']:.4f} s "
+            f"({k_['iterations']} iterations)")
+    log(f"[mode frames {name}] {card}: frame seconds kernels "
+        f"{secs['kernels']} vs step_kernels=False {secs['op']}; median "
+        f"ratio op / kernels "
+        f"{statistics.median(secs['op']) / statistics.median(secs['kernels']):.3f}")
+    G.clear_graphs()
+    return dict(secs=secs, busy=busy, launches=got["kernels", 2][3]["step"])
+
+
+def _mode_time_text(t, card):
+    """The ``[mode time ...]`` lines of one mode's timings
+    (tools/step_designs.py ``time_state``)."""
+    lines = [f"[mode time {k}] {card}: {r['mean_ms']:.4f} ms a launch (in "
+             f"turns {r['ms']}), bound {r['bound_us']:.3f} us by "
+             f"{r['bound_by']} ({r['bytes']:.0f} bytes), "
+             f"{100 * r['share']:.2f}% of the bound; one call "
+             f"{r['one_call_ms']:.4f} ms, plain version {r['plain_ms']:.4f} "
+             f"ms; {r['registers']} registers, {r['warps_per_sm']} resident "
+             "warps an SM" for k, r in t["kernels"].items()]
+    sort = "none" if t["sort_ms"] is None else f"{t['sort_ms']:.4f} ms"
+    return lines + [f"[mode time {'+'.join(t['kernels'])}] {card}: "
+                    f"{t['lanes']} lanes, torch.sort {sort}; {t['flushing']} "
+                    f"lanes flush, {t['limbo']} in limbo"]
+
+
+def phase14_mode_kernels(scene, camera, card):
+    """(a)-(d) for the full-record modes (kernels/step.py ``route_full`` /
+    ``shade_full`` / ``resolve_full``, the unsorted engine's
+    ``route_shade_unsorted``): the default instances' and the first
+    design's registers held to STEP_REGISTERS; the camera rank's scan
+    against ``torch.cumsum`` on five masks (tools/mode_steps.py
+    ``check_ranks``); each mode's kernels against their plain versions on
+    the op-by-op states of MODE_CHECK_ITS of each cell of
+    :func:`_mode_cells` and on synthetic pools of every lane kind with
+    limbo lanes (tools/step_designs.py): every output bit for bit, the
+    framebuffer within FB_RTOL; each cell's captured frames through the
+    kernels and under ``step_kernels=False`` in turns
+    (:func:`_mode_frames`); each kernel's timing on its MODE_TIMED cell's
+    state of MODE_TIME_IT.  Returns the rows' numbers."""
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    import mode_steps as M
+    import step_designs as SD
+    from rtjax_torch.kernels import step as S
+    regs = {k: S.kernel_info(k)["registers"] for k in STEP_REGISTERS}
+    print(f"[step registers] {card}: {regs} (held to {STEP_REGISTERS})")
+    if regs != STEP_REGISTERS:
+        raise RuntimeError("the step kernels' registers changed")
+    ranks = M.check_ranks(scene, camera, card)
+    worst = {f"rank {k}": v for k, v in ranks.items() if v}
+    fb_gap, times = 0.0, {}
+    timed = {v: k for k, v in MODE_TIMED.items()}
+    cells = _mode_cells(scene, camera)
+    for name, (sc, cam, cfg) in cells.items():
+        bad, gap, t = SD.check_and_time(
+            sc, cam, cfg, MODE_CHECK_ITS,
+            MODE_TIME_IT if name in timed else None, label=name, card=card)
+        worst.update({f"{name} {k}": v for k, v in bad.items() if v})
+        fb_gap = max(fb_gap, gap)
+        if name in timed:
+            times[timed[name]] = t
+    bad, gap = _synthetic_checks(camera, card, {
+        "unsorted": dict(sort_rays=False),
+        "parity": dict(reference_parity=True, rr_start=0),
+        "parity_unsorted": dict(reference_parity=True, rr_start=0,
+                                sort_rays=False)}, (0, 1), 13)
+    worst.update({f"synthetic {k}": v for k, v in bad.items() if v})
+    fb_gap = max(fb_gap, gap)
+    if worst:
+        raise RuntimeError(f"the full-record step kernels differ from their "
+                           f"plain versions: {worst}")
+    frames = {name: _mode_frames(name, sc, cam, cfg, card)
+              for name, (sc, cam, cfg) in cells.items()}
+    for t in times.values():
+        for line in _mode_time_text(t, card):
+            print(line)
+    return dict(fb_gap=fb_gap, times=times, frames=frames, ranks=ranks)
+
+
+def _mode_rows(p14m, launches):
+    """The kernels line's rows of the full-record modes' instances
+    (launches: phase 8(c)'s parity frame for the parity kernels, phase
+    9(b)'s two xla frames for the unsorted engine's, phase 14's seed-2
+    parity-with-xla kernel frame for parity on the unsorted engine)."""
+    rows = []
+    for name, (mode, replaces) in MODE_STEP_KERNELS.items():
+        r = p14m["times"][mode]["kernels"][name]
+        rows.append(dict(
+            name=f"step_{name}", route="cuda", source=STEP_SOURCE,
+            replaces=replaces, launches=launches[name],
+            max_abs_err=p14m["fb_gap"] if name.startswith("shade") else 0.0,
+            ms=r["mean_ms"], timed_ms=r["ms"], timed_launches=REPS,
+            one_call_ms=r["one_call_ms"], plain_ms=r["plain_ms"],
+            bound_ms=r["bound_ms"], bound_us=r["bound_us"],
+            bound_by=r["bound_by"], share=r["share"], library_ms=None,
+            registers=r["registers"], warps_per_sm=r["warps_per_sm"],
+            note=f"no pallas_call: rtjax's XLA fusions of wavefront_step, "
+                 f"mode {mode}, timed on {MODE_TIMED[mode]}'s state"))
+    return rows
 
 
 def _step_rows(p14, launches):
@@ -5196,16 +5397,15 @@ def _step_rows(p14, launches):
     rows = []
     for name, meta in STEP_KERNELS.items():
         r = k[name]
-        reg = t["registers"][name]
         rows.append(dict(
             name=meta["name"], route="cuda", source=STEP_SOURCE,
             replaces=meta["replaces"], launches=launches[name],
             max_abs_err=p14["fb_err"] if name == "shade" else 0.0,
             ms=r["mean_ms"], timed_ms=r["ms"], timed_launches=REPS,
-            one_call_ms=t["one_call"][name], plain_ms=t["plain_ms"][name],
+            one_call_ms=r["one_call_ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_us=r["bound_us"],
             bound_by=r["bound_by"], share=r["share"], library_ms=None,
-            registers=reg["registers"], warps_per_sm=reg["warps_per_sm"],
+            registers=r["registers"], warps_per_sm=r["warps_per_sm"],
             mismatching_lanes=p14["mismatches"][name],
             note="no pallas_call: rtjax's XLA fusions of wavefront_step"))
     rows[0]["first_design_ms"] = k["route_v1"]["mean_ms"]
@@ -5271,7 +5471,8 @@ def main():
     c5 = phase8_config5(scene, camera, card)
     stamp("phase 8 (CLI, stats, estimator modes, config 5)")
     binary = phase9_binary_kernels(scene, camera, card)
-    binary_launches, xla_secs = phase9_xla_frames(scene, camera, card, floor)
+    binary_launches, xla_secs, xla_steps = phase9_xla_frames(scene, camera,
+                                                             card, floor)
     key_secs = phase9_sort_keys(scene, camera, card, floor)
     wide = phase9_wide_bundle(scene, camera, card)
     c4_xla = phase9_config4_xla(c4_scene, c4_camera, card, c4_floor)
@@ -5291,6 +5492,7 @@ def main():
     stamp("phase 13 (the captured frame loop)")
     p14 = phase14_step_kernels(scene, camera, card, floor, c4_scene,
                                c4_camera, c4_floor, g13)
+    p14m = phase14_mode_kernels(scene, camera, card)
     stamp("phase 14 (the step kernels)")
     frames = phase7_frames(scene, camera, card, c4_scene, c4_camera)
     stamp("phase 7 (frame kernels)")
@@ -5306,7 +5508,12 @@ def main():
             *_walk_stats_rows(walk_stats, walk_launches),
             *_direct_rows(d12, c4_floor["direct_launches"]),
             *_step_rows(p14, {k: launches[f"step {k}"]
-                              for k in STEP_KERNELS})]
+                              for k in STEP_KERNELS}),
+            *_mode_rows(p14m, {
+                k: {"unsorted": xla_steps, "parity": modes["launches"],
+                    "parity_unsorted": p14m["frames"][
+                        "headline parity xla"]["launches"]}[m][k]
+                for k, (m, _) in MODE_STEP_KERNELS.items()})]
     for k, rec in _big_rows(big).items():
         next(r for r in rows if r["name"] == k)["bigscene"] = rec
     for k in rows:

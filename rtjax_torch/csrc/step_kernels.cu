@@ -47,6 +47,41 @@
 // material looked up in shade from global memory, three float atomics a
 // dead lane) stays for same-run A/B: rtjax_step_route_v1 /
 // rtjax_step_shade_v1.
+//
+// The full-record modes (kMode in step_math.cuh; kernels/step.py
+// MODE_KERNELS): rtjax's unsorted engine (wavefront.py:277 state_sorted
+// false, :305 k_sort 1, :630-640 the cumsum rank) and reference_parity
+// (:261 limbo, :355-363 the full-state sort, :435 gen_mask, :478 / :498
+// the truncated second pdfs, :514-530 the path's own triangle as the
+// BSDF-MIS target, :719 the flush over every lane, :791-807 the limbo
+// restore and work_left), each on both engines.  Bytes bound them too:
+// route reads a slot's state (81 B) and word (8 B) and writes its record
+// (88 B of payload; 4 B of key under parity's sort); shade reads the
+// record (88 B, through the sort's 8-byte order under parity) and five
+// words (40 B) and writes what the default shade writes (57 B, 90 B of
+// shadow rays) and the limbo flag (1 B); route and shade merged read the
+// state and five words (121 B) and write shade's outputs; resolve adds,
+// for a limbo lane, its order and 24 B of its record read and 21 B of hit
+// written.  The design: the record is the 12 fields rtjax's parity sort
+// carries (pixel, ray origin and direction, t, normal, prim, src,
+// bounces, throughput, radiance, the mat and limbo flags) and the
+// material index,
+// at full precision, laid out as six 16-byte words a lane (96 B, three
+// 32-byte sectors: ray_o|t, ray_d|pixel, normal|prim, beta|src,
+// acc|bounces, flags|material|0|0), staged by route in shared memory and
+// written out coalesced, read by shade with six 16-byte loads.  The lanes
+// that take a camera ray are not a suffix (unsorted, or limbo lanes among
+// the dead), so shade ranks them by a single-pass scan with decoupled
+// look-back over blocks that take their indices from a ticket; the block
+// that finishes last zeroes the scan for the next launch.  Every such
+// lane flushes its non-zero radiance by float atomics.  On the unsorted
+// engine without parity route and shade are one kernel
+// (route_shade_unsorted: route's lanes in registers, no record): on the
+// headline's state under "xla" it took 0.0706-0.0712 ms against
+// 0.0906-0.0907 ms for the two kernels in turns (NVIDIA H100 80GB HBM3,
+// 700.00 W; tools/mode_steps.py --split-ab, PERF.md), at 103
+// registers against shade's 104.  Parity on the unsorted engine keeps
+// two kernels: its resolve restores limbo lanes from the record.
 
 #include <cuda_runtime.h>
 
@@ -63,6 +98,15 @@ constexpr int kSmemMaterials = 256;
 constexpr int kSmemLights = 64;
 constexpr int kRecordWords = 10;  // kernels/step.py BUNDLE_ROWS
 constexpr int kRouteBlocks = 6;
+using rtjax_step::kFullWords;
+static_assert(kShadeBlock == rtjax_step::kScanBlock,
+              "a shade block ranks kScanBlock lanes");
+
+// a release and acquire fence at the card's scope: all that the scan's
+// reset needs (__threadfence is the sequentially consistent fence.sc.gpu)
+__device__ __forceinline__ void fence_acq_rel() {
+  asm volatile("fence.acq_rel.gpu;" ::: "memory");
+}
 
 __device__ __forceinline__ void count(long long* c, bool pred) {
   const int k = __syncthreads_count(pred);
@@ -97,6 +141,42 @@ __global__ void __launch_bounds__(kBlock, kRouteBlocks)
   }
   count(a.counts, r.mat);
   count(a.counts + 4, r.dirty);
+}
+
+// the full-record modes' route: the block's 96-byte records staged in
+// shared memory and written out 16 coalesced bytes a thread
+template <int kMode>
+__device__ __forceinline__ void route_full(const StepArgs& a) {
+  const int i = blockIdx.x * kBlock + threadIdx.x;
+  rtjax_step::RouteLane r = {false, false, false};
+  __shared__ int4 rec[kFullWords * kBlock / 4];
+  if (i < a.n)
+    r = rtjax_step::route_lane<false, kMode>(
+        a, i, reinterpret_cast<int2*>(rec) + kFullWords / 2 * threadIdx.x);
+  __syncthreads();
+  const long long first = static_cast<long long>(blockIdx.x) * kBlock;
+  const long long left = a.n - first;
+  if (left >= kBlock) {
+    int4* out = reinterpret_cast<int4*>(a.bundle + kFullWords * first);
+    for (int t = threadIdx.x; t < kFullWords * kBlock / 4; t += kBlock)
+      out[t] = rec[t];
+  } else {
+    const int* in = reinterpret_cast<const int*>(rec);
+    for (int t = threadIdx.x; t < kFullWords * left; t += kBlock)
+      a.bundle[kFullWords * first + t] = in[t];
+  }
+  count(a.counts, r.mat);
+  count(a.counts + 4, r.limbo);
+}
+
+__global__ void __launch_bounds__(kBlock)
+    route_parity_kernel(const StepArgs a) {
+  route_full<rtjax_step::kParity>(a);
+}
+
+__global__ void __launch_bounds__(kBlock)
+    route_parity_unsorted_kernel(const StepArgs a) {
+  route_full<rtjax_step::kParityUnsorted>(a);
 }
 
 __global__ void __launch_bounds__(kBlock) route_v1_kernel(const StepArgs a) {
@@ -189,6 +269,101 @@ __global__ void __launch_bounds__(kShadeBlock, 1)
   count(a.counts + 3, r.mis);
 }
 
+// the full-record modes' shade: the block's index from the scan's ticket,
+// each lane's record gathered (by the sort's order under kParity; on the
+// unsorted engine without parity, route's record made in registers and
+// the continuing paths counted here: route and shade in one kernel), the
+// block's lanes that take a camera ray counted by warp ballots and ranked
+// by the look-back scan (step_math.cuh), then the lanes shaded; every such
+// lane's non-zero radiance flushed by float atomics.  The block that
+// finishes its look-back last zeroes the scan buffer for the next launch
+// (kernels/step.py scan_buffer).
+template <int kMode>
+__device__ __forceinline__ void shade_full(const StepArgs& a) {
+  __shared__ SmemTables smem;
+  __shared__ int block;
+  __shared__ int warp_count[kShadeBlock / 32];
+  __shared__ long long prefix;
+  __shared__ bool last;
+  auto* scan = reinterpret_cast<unsigned long long*>(a.scan);
+  unsigned long long* status = scan + 2;
+  if (threadIdx.x == 0)
+    block = static_cast<int>(atomicAdd(scan, 1ULL));
+  const Tables T = stage_tables(a, smem);  // its barrier publishes block
+  const int b = block;
+  const int i = b * kShadeBlock + threadIdx.x;
+  rtjax_step::FullRec r = {};
+  bool gen = false;
+  if (i < a.n) {
+    if constexpr (kMode == rtjax_step::kUnsorted) {
+      int2 w[kFullWords / 2];
+      rtjax_step::route_lane<false, kMode>(a, i, w);
+      r = rtjax_step::full_from_words(w);
+    } else {
+      r = rtjax_step::load_full(
+          a, (kMode & rtjax_step::kUnsorted) != 0 ? i : a.order[i]);
+    }
+    gen = !r.mat && !r.limbo;
+  }
+  const unsigned ballot = __ballot_sync(0xFFFFFFFFu, gen);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (lane == 0) warp_count[warp] = __popc(ballot);
+  __syncthreads();
+  int before = __popc(ballot & ((1u << lane) - 1u)), total = 0;
+  for (int w = 0; w < kShadeBlock / 32; ++w) {
+    total += warp_count[w];
+    if (w < warp) before += warp_count[w];
+  }
+  if (threadIdx.x == 0) {
+    rtjax_step::scan_publish(status, b, total);
+    prefix = rtjax_step::scan_lookback(status, b, total);
+    // every block that counts itself here has read all it will read; the
+    // release fence orders its status words before its count
+    fence_acq_rel();
+    last = atomicAdd(scan + 1, 1ULL) == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (last) {
+    // and the acquire fence orders every block's status words before the
+    // reset
+    fence_acq_rel();
+    for (int w = threadIdx.x; w < static_cast<int>(gridDim.x);
+         w += kShadeBlock)
+      status[w] = 0;
+    if (threadIdx.x == 0) scan[0] = scan[1] = 0;
+  }
+  rtjax_step::ShadeLane s = {};
+  if (i < a.n) {
+    s = rtjax_step::shade_full_lane<kMode>(a, i, T, r, prefix + before);
+    if (s.flush) {
+      const rtjax_step::V3 v = s.flushed;
+      float* px = a.fb + 3 * static_cast<long long>(s.pixel);
+      if (v.x != 0.0f) atomicAdd(px, v.x);
+      if (v.y != 0.0f) atomicAdd(px + 1, v.y);
+      if (v.z != 0.0f) atomicAdd(px + 2, v.z);
+    }
+  }
+  if constexpr (kMode == rtjax_step::kUnsorted) count(a.counts, r.mat);
+  count(a.counts + 1, s.trace);
+  count(a.counts + 2, s.nee);
+  count(a.counts + 3, s.mis);
+}
+
+__global__ void __launch_bounds__(kShadeBlock, 1)
+    route_shade_unsorted_kernel(const StepArgs a) {
+  shade_full<rtjax_step::kUnsorted>(a);
+}
+
+__global__ void __launch_bounds__(kShadeBlock, 1)
+    shade_parity_kernel(const StepArgs a) {
+  shade_full<rtjax_step::kParity>(a);
+}
+
+__global__ void __launch_bounds__(kShadeBlock, 1)
+    shade_parity_unsorted_kernel(const StepArgs a) {
+  shade_full<rtjax_step::kParityUnsorted>(a);
+}
+
 __global__ void __launch_bounds__(kBlock) shade_v1_kernel(const StepArgs a) {
   const int i = blockIdx.x * kBlock + threadIdx.x;
   rtjax_step::ShadeLane r = {};
@@ -211,6 +386,18 @@ __global__ void __launch_bounds__(kBlock) resolve_kernel(const StepArgs a) {
   const int i = blockIdx.x * kBlock + threadIdx.x;
   if (i < a.n && a.num_lights > 0) rtjax_step::resolve_lane(a, i);
   if (i == 0) rtjax_step::resolve_counters(a);
+}
+
+// the parity modes' resolve: besides the default's work, each limbo
+// lane's payload restored into the closest hits
+__global__ void __launch_bounds__(kBlock)
+    resolve_parity_kernel(const StepArgs a) {
+  const int i = blockIdx.x * kBlock + threadIdx.x;
+  if (i < a.n) {
+    if (a.num_lights > 0) rtjax_step::resolve_lane(a, i);
+    rtjax_step::restore_limbo(a, i);
+  }
+  if (i == 0) rtjax_step::resolve_counters<rtjax_step::kParity>(a);
 }
 
 int grid_of(int n, int block) { return (n + block - 1) / block; }
@@ -262,9 +449,38 @@ extern "C" int rtjax_step_shade_v1(const StepArgs* a, void* stream) {
   return launch(shade_v1_kernel, kBlock, a, stream);
 }
 
+extern "C" int rtjax_step_route_shade_unsorted(const StepArgs* a,
+                                               void* stream) {
+  return launch(route_shade_unsorted_kernel, kShadeBlock, a, stream);
+}
+
+extern "C" int rtjax_step_route_parity(const StepArgs* a, void* stream) {
+  return launch(route_parity_kernel, kBlock, a, stream);
+}
+
+extern "C" int rtjax_step_shade_parity(const StepArgs* a, void* stream) {
+  return launch(shade_parity_kernel, kShadeBlock, a, stream);
+}
+
+extern "C" int rtjax_step_resolve_parity(const StepArgs* a, void* stream) {
+  return launch(resolve_parity_kernel, kBlock, a, stream);
+}
+
+extern "C" int rtjax_step_route_parity_unsorted(const StepArgs* a,
+                                                void* stream) {
+  return launch(route_parity_unsorted_kernel, kBlock, a, stream);
+}
+
+extern "C" int rtjax_step_shade_parity_unsorted(const StepArgs* a,
+                                                void* stream) {
+  return launch(shade_parity_unsorted_kernel, kShadeBlock, a, stream);
+}
+
 // A kernel's registers, local bytes a thread, threads a block and
 // resident blocks an SM (kernels/step.py KERNEL_IDS: 0 route, 1 shade, 2
-// resolve, 3 route_v1, 4 shade_v1).
+// resolve, 3 route_v1, 4 shade_v1, 5 route_shade_unsorted, 6
+// route_parity, 7 shade_parity, 8 resolve_parity, 9
+// route_parity_unsorted, 10 shade_parity_unsorted).
 extern "C" int rtjax_step_kernel_info(int which, int* regs, int* local,
                                       int* block, int* blocks) {
   switch (which) {
@@ -275,6 +491,18 @@ extern "C" int rtjax_step_kernel_info(int which, int* regs, int* local,
     case 3: return info(route_v1_kernel, kBlock, regs, local, block,
                         blocks);
     case 4: return info(shade_v1_kernel, kBlock, regs, local, block, blocks);
+    case 5: return info(route_shade_unsorted_kernel, kShadeBlock, regs,
+                        local, block, blocks);
+    case 6: return info(route_parity_kernel, kBlock, regs, local, block,
+                        blocks);
+    case 7: return info(shade_parity_kernel, kShadeBlock, regs, local, block,
+                        blocks);
+    case 8: return info(resolve_parity_kernel, kBlock, regs, local, block,
+                        blocks);
+    case 9: return info(route_parity_unsorted_kernel, kBlock, regs, local,
+                        block, blocks);
+    case 10: return info(shade_parity_unsorted_kernel, kShadeBlock, regs,
+                         local, block, blocks);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

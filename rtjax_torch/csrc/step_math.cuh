@@ -20,6 +20,12 @@
 // default) and the first design (kV1, kept for same-run A/B).
 // They differ in the bundle's layout and in where shade's material comes
 // from, not in any operation on a value.
+//
+// The full-record modes (kMode: the unsorted engine kUnsorted,
+// reference_parity kParity, both kParityUnsorted) carry a lane's state at
+// full precision (kFullWords words, kernels/step.py FULL_LAYOUT) and rank
+// the camera rays by an exclusive prefix sum; their code paths compile
+// out of the default instances under ``if constexpr``.
 
 #pragma once
 
@@ -71,6 +77,17 @@ struct StepArgs {
   unsigned char* work_out;
   double* rays_out;
   double* occ_out;
+  // the full-record modes: the camera rank's scan (the ticket, the
+  // finished blocks, then one status word a shade block; zero between
+  // launches), each position's limbo flag (shade -> resolve) and the
+  // closest hits resolve restores limbo lanes into
+  long long* scan;
+  unsigned char* limbo;
+  unsigned char* hit_out;
+  float* t_out;
+  float* normal_out[3];
+  int* prim_out;
+  int* src_out;
   // the scene and the camera
   const int* prim_light;     // [num_prims]
   const int* prim_material;  // [num_prims]
@@ -94,9 +111,14 @@ struct StepArgs {
   const float* horizontal;
   const float* vertical;
   const int* pixel_table;    // [num_pixels], null in scanline order
+  const float* tri_p0;       // [num_tris, 3] the base scene's triangles
+  const float* tri_e1;       // (parity's BSDF-MIS target), else null
+  const float* tri_e2;
+  const float* tri_n;
   long long it_value;
   int n;
   int num_prims;
+  int num_tris;
   int num_materials;
   int num_light_rows;
   int num_lights;
@@ -115,6 +137,12 @@ struct StepArgs {
 // ----------------------------------------------------------- constants
 
 constexpr int kDeadBounces = 1 << 30;
+// the step's modes (kernels/step.py step_mode): flags of the template
+// parameter kMode
+constexpr int kDefault = 0, kUnsorted = 1, kParity = 2,
+              kParityUnsorted = kParity | kUnsorted;
+constexpr int kFullWords = 24;   // kernels/step.py FULL_ROWS
+constexpr int kScanBlock = 128;  // lanes a shade block ranks
 constexpr int kInactiveKey = 0x7FFFFFFF;
 constexpr int kDirtyKey = 0x7FFFFFFE;
 constexpr int kMaxLiveKey = 0x7FFFFFFD;
@@ -555,14 +583,16 @@ __device__ __forceinline__ int hit_material(const StepArgs& a, int prim,
 }
 
 struct RouteLane {
-  bool mat, dirty;
+  bool mat, dirty, limbo;
 };
 
 // route (kernels/step.py route_ref) of slot i: the key and the bundle; the
 // record design writes the lane's 40-byte record to ``rec`` (five 8-byte
 // stores; the kernel stages the block's records in shared memory), the
-// first design nine [n] columns
-template <bool kV1>
+// first design nine [n] columns.  The full-record modes (route_full_ref)
+// write the 96-byte full record to ``rec`` (twelve 8-byte stores) and,
+// under kParity on the sorted engine, the keys without the dirty class.
+template <bool kV1, int kMode = kDefault>
 __device__ __forceinline__ RouteLane route_lane(const StepArgs& a, int i,
                                                 int2* rec) {
   const long long n = a.n;
@@ -604,6 +634,26 @@ __device__ __forceinline__ RouteLane route_lane(const StepArgs& a, int i,
   const bool mat = alive && hit && !rr_kill;
   const float hp_t = mat ? a.t[i] : 0.0f;
   const V3 hp = add(o, scale(hp_t, d));
+  if constexpr (kMode != kDefault) {
+    const bool limbo = (kMode & kParity) != 0 && rr_kill;
+    if constexpr ((kMode & kUnsorted) == 0)
+      a.keys[i] = mat ? sort_key(a, hp, d, nrm, prim, b1) : kInactiveKey;
+    const int flags = (mat ? 1 : 0) | (limbo ? 2 : 0);
+    const auto f = [](float x) { return __float_as_int(x); };
+    rec[0] = make_int2(f(o.x), f(o.y));
+    rec[1] = make_int2(f(o.z), f(a.t[i]));
+    rec[2] = make_int2(f(d.x), f(d.y));
+    rec[3] = make_int2(f(d.z), a.pixel[i]);
+    rec[4] = make_int2(f(nrm.x), f(nrm.y));
+    rec[5] = make_int2(f(nrm.z), prim);
+    rec[6] = make_int2(f(beta.x), f(beta.y));
+    rec[7] = make_int2(f(beta.z), src);
+    rec[8] = make_int2(f(acc.x), f(acc.y));
+    rec[9] = make_int2(f(acc.z), b1);
+    rec[10] = make_int2(flags, mi);
+    rec[11] = make_int2(0, 0);
+    return {mat, false, limbo};
+  }
 
   const bool dirty = !mat && (acc.x != 0.0f || acc.y != 0.0f ||
                               acc.z != 0.0f);
@@ -659,6 +709,83 @@ __device__ __forceinline__ V3 camera_dir(const StepArgs& a, float x,
                 ul[1] + x * h[1] + y * v[1] - lf[1],
                 ul[2] + x * h[2] + y * v[2] - lf[2]};
   return normalize(d);
+}
+
+// the NEE and BSDF-MIS shadow rays of position i (kernels/step.py
+// shade_math with lights) into the [2n] shadow columns, with their
+// radiance; under kParity the reference's two quirks (the truncated second
+// pdfs, the BSDF-MIS target on the path's own triangle)
+struct ShadowLane {
+  bool nee, mis;
+};
+
+template <bool kParity>
+__device__ __forceinline__ ShadowLane shadow_rays(
+    const StepArgs& a, int i, const Tables& T, bool mat, V3 p, V3 wo, V3 n_g,
+    V3 beta, int mtype, V3 albedo, float ior, float u_pick, float luv1,
+    float luv2, float b2u1, float b2u2, int prim, int src) {
+  const long long n = a.n;
+  ShadowLane r;
+  const float num_l = static_cast<float>(a.num_lights);
+  const V3 multiplier = scale(num_l, beta);
+  const int pick = min(static_cast<int>(u_pick * num_l),
+                       a.num_lights - 1);
+  const Light L = load_light(T, clampi(pick, 0, a.num_light_rows - 1));
+  const bool delta = L.type == kPointLight;
+  // light-sampling MIS -> the NEE shadow ray
+  const LightSample ls = sample_li(L, p, luv1, luv2);
+  const V3 n_l = dot(n_g, ls.wi) > 0.0f ? n_g : neg(n_g);
+  const bool got_f = mtype == kMatte &&
+                     dot(wo, n_l) * dot(ls.wi, n_l) < 0.0f;
+  const float inv_pi = RTJAX_F(1.0 / kPi);
+  const V3 f_l = scale(inv_pi, albedo);
+  const float scat_pdf = dot(ls.wi, n_l) * inv_pi;
+  const V3 f_lc = scale(dot(ls.wi, n_l), f_l);
+  // the reference truncates the power heuristic's second pdf
+  const float g_l = kParity ? truncf(scat_pdf) : scat_pdf;
+  const float w_l = delta ? 1.0f : power_heuristic(ls.pdf, g_l);
+  const V3 ah_L = mul(multiplier, scale(w_l / ls.pdf, mul(f_lc, ls.li)));
+  const V3 ah_o = offset_origin(p, n_l);
+  // BSDF-sampling MIS toward the picked light's triangle
+  const Bsdf s2 = sample_f(mtype, albedo, ior, wo, n_g, b2u1, b2u2, b2u1);
+  const V3 f2c = scale(dot(s2.wi, s2.n), s2.f);
+  const bool spec = mtype == kMirror || mtype == kGlass;
+  const float lpdf2 = pdf_li(L, p, s2.wi);
+  const float g_2 = kParity ? truncf(lpdf2) : lpdf2;
+  const float w2 = spec ? 1.0f : power_heuristic(s2.pdf, g_2);
+  const V3 chs_L = mul(multiplier, scale(w2 / s2.pdf, mul(f2c, L.emit)));
+  const V3 chs_o = offset_origin(p, s2.n);
+  float chs_t, u, v;
+  bool chs_hit;
+  int chs_tgt = L.tri;
+  if constexpr (kParity) {
+    // the reference's target is the triangle the path stands on (an
+    // instanced hit has none: the channel is masked off there)
+    const int own = clampi(prim, 0, a.num_tris - 1);
+    chs_hit = intersect_triangle(chs_o, s2.wi, INFINITY, row3(a.tri_p0, own),
+                                 row3(a.tri_e1, own), row3(a.tri_e2, own),
+                                 row3(a.tri_n, own), &chs_t, &u, &v) &&
+              src == 0;
+    chs_tgt = src == 0 ? prim : -1;
+  } else {
+    chs_hit = intersect_triangle(chs_o, s2.wi, INFINITY, L.p0, L.e1, L.e2,
+                                 L.n, &chs_t, &u, &v);
+  }
+  r.nee = mat && got_f;
+  r.mis = mat && !delta && (spec || lpdf2 > 0.0f) && chs_hit;
+  store3(a.sh_o, i, ah_o);
+  store3(a.sh_o, n + i, chs_o);
+  store3(a.sh_d, i, ls.wi);
+  store3(a.sh_d, n + i, s2.wi);
+  a.sh_tmax[i] = ls.t;
+  a.sh_tmax[n + i] = chs_t;
+  a.sh_exclude[i] = L.tri;
+  a.sh_exclude[n + i] = chs_tgt;
+  a.sh_mask[i] = r.nee ? 1 : 0;
+  a.sh_mask[n + i] = r.mis ? 1 : 0;
+  store3(a.ah_L, i, ah_L);
+  store3(a.chs_L, i, chs_L);
+  return r;
 }
 
 // shade (kernels/step.py shade_ref) of sorted position i, its materials
@@ -725,49 +852,11 @@ __device__ __forceinline__ ShadeLane shade_lane(const StepArgs& a, int i,
   ShadeLane r;
   r.nee = r.mis = false;
   if (a.num_lights > 0) {
-    const float num_l = static_cast<float>(a.num_lights);
-    const V3 multiplier = scale(num_l, beta);
-    const int pick = min(static_cast<int>(u_pick * num_l),
-                         a.num_lights - 1);
-    const Light L = load_light(T, clampi(pick, 0, a.num_light_rows - 1));
-    const bool delta = L.type == kPointLight;
-    // light-sampling MIS -> the NEE shadow ray
-    const LightSample ls = sample_li(L, p, luv1, luv2);
-    const V3 n_l = dot(n_g, ls.wi) > 0.0f ? n_g : neg(n_g);
-    const bool got_f = mtype == kMatte &&
-                       dot(wo, n_l) * dot(ls.wi, n_l) < 0.0f;
-    const float inv_pi = RTJAX_F(1.0 / kPi);
-    const V3 f_l = scale(inv_pi, albedo);
-    const float scat_pdf = dot(ls.wi, n_l) * inv_pi;
-    const V3 f_lc = scale(dot(ls.wi, n_l), f_l);
-    const float w_l = delta ? 1.0f : power_heuristic(ls.pdf, scat_pdf);
-    const V3 ah_L = mul(multiplier, scale(w_l / ls.pdf, mul(f_lc, ls.li)));
-    const V3 ah_o = offset_origin(p, n_l);
-    // BSDF-sampling MIS toward the picked light's triangle
-    const Bsdf s2 = sample_f(mtype, albedo, ior, wo, n_g, b2u1, b2u2, b2u1);
-    const V3 f2c = scale(dot(s2.wi, s2.n), s2.f);
-    const bool spec = mtype == kMirror || mtype == kGlass;
-    const float lpdf2 = pdf_li(L, p, s2.wi);
-    const float w2 = spec ? 1.0f : power_heuristic(s2.pdf, lpdf2);
-    const V3 chs_L = mul(multiplier, scale(w2 / s2.pdf, mul(f2c, L.emit)));
-    const V3 chs_o = offset_origin(p, s2.n);
-    float chs_t, u, v;
-    const bool chs_hit = intersect_triangle(chs_o, s2.wi, INFINITY, L.p0,
-                                            L.e1, L.e2, L.n, &chs_t, &u, &v);
-    r.nee = mat && got_f;
-    r.mis = mat && !delta && (spec || lpdf2 > 0.0f) && chs_hit;
-    store3(a.sh_o, i, ah_o);
-    store3(a.sh_o, n + i, chs_o);
-    store3(a.sh_d, i, ls.wi);
-    store3(a.sh_d, n + i, s2.wi);
-    a.sh_tmax[i] = ls.t;
-    a.sh_tmax[n + i] = chs_t;
-    a.sh_exclude[i] = L.tri;
-    a.sh_exclude[n + i] = L.tri;
-    a.sh_mask[i] = r.nee ? 1 : 0;
-    a.sh_mask[n + i] = r.mis ? 1 : 0;
-    store3(a.ah_L, i, ah_L);
-    store3(a.chs_L, i, chs_L);
+    const ShadowLane sl =
+        shadow_rays<false>(a, i, T, mat, p, wo, n_g, beta, mtype, albedo, ior,
+                           u_pick, luv1, luv2, b2u1, b2u2, prim, src);
+    r.nee = sl.nee;
+    r.mis = sl.mis;
   }
 
   // camera generation into the dead suffix
@@ -805,6 +894,177 @@ __device__ __forceinline__ ShadeLane shade_lane(const StepArgs& a, int i,
   return r;
 }
 
+// ---------------------------------------------- the full-record modes
+
+// a lane's full-precision record (kernels/step.py pack_full)
+struct FullRec {
+  V3 o, d, normal, beta, acc;
+  float t;
+  int pixel, prim, src, bounces, mi;
+  bool mat, limbo;
+};
+
+// a record from its twelve 8-byte words (route_lane's rec)
+__device__ __forceinline__ FullRec full_from_words(const int2* w) {
+  const auto f = [](int x) { return __int_as_float(x); };
+  FullRec r;
+  r.o = {f(w[0].x), f(w[0].y), f(w[1].x)};
+  r.t = f(w[1].y);
+  r.d = {f(w[2].x), f(w[2].y), f(w[3].x)};
+  r.pixel = w[3].y;
+  r.normal = {f(w[4].x), f(w[4].y), f(w[5].x)};
+  r.prim = w[5].y;
+  r.beta = {f(w[6].x), f(w[6].y), f(w[7].x)};
+  r.src = w[7].y;
+  r.acc = {f(w[8].x), f(w[8].y), f(w[9].x)};
+  r.bounces = w[9].y;
+  r.mat = (w[10].x & 1) != 0;
+  r.limbo = (w[10].x & 2) != 0;
+  r.mi = w[10].y;
+  return r;
+}
+
+// the record of slot j: six read-only 16-byte loads (three 32-byte sectors)
+__device__ __forceinline__ FullRec load_full(const StepArgs& a, long long j) {
+  const int4* q = reinterpret_cast<const int4*>(a.bundle) + 6 * j;
+  const int4 q0 = __ldg(q), q1 = __ldg(q + 1), q2 = __ldg(q + 2),
+             q3 = __ldg(q + 3), q4 = __ldg(q + 4), q5 = __ldg(q + 5);
+  const auto f = [](int w) { return __int_as_float(w); };
+  FullRec r;
+  r.o = {f(q0.x), f(q0.y), f(q0.z)};
+  r.t = f(q0.w);
+  r.d = {f(q1.x), f(q1.y), f(q1.z)};
+  r.pixel = q1.w;
+  r.normal = {f(q2.x), f(q2.y), f(q2.z)};
+  r.prim = q2.w;
+  r.beta = {f(q3.x), f(q3.y), f(q3.z)};
+  r.src = q3.w;
+  r.acc = {f(q4.x), f(q4.y), f(q4.z)};
+  r.bounces = q4.w;
+  r.mat = (q5.x & 1) != 0;
+  r.limbo = (q5.x & 2) != 0;
+  r.mi = q5.y;
+  return r;
+}
+
+// The camera rank's single-pass scan with decoupled look-back: a shade
+// block takes its index from the ticket (so a block waits only on blocks
+// that already run), publishes its count of lanes that take a camera ray
+// (kScanAggregate; block 0 its inclusive prefix, kScanPrefix), then sums
+// its predecessors' words back to the first inclusive prefix and
+// publishes its own.  A status word is one 64-bit store: the flag and the
+// value can not tear, and 0 is "not yet published".
+constexpr unsigned long long kScanAggregate = 1ULL << 62;
+constexpr unsigned long long kScanPrefix = 1ULL << 63;
+constexpr unsigned long long kScanValue = kScanAggregate - 1;
+
+__device__ __forceinline__ void scan_store(unsigned long long* p,
+                                           unsigned long long w) {
+  atomicExch(p, w);
+}
+__device__ __forceinline__ unsigned long long scan_load(
+    const unsigned long long* p) {
+  return *reinterpret_cast<const volatile unsigned long long*>(p);
+}
+// block b's count ``agg``, as its aggregate (block 0: its prefix)
+__device__ __forceinline__ void scan_publish(unsigned long long* status,
+                                             int b, long long agg) {
+  scan_store(status + b, static_cast<unsigned long long>(agg) |
+                             (b == 0 ? kScanPrefix : kScanAggregate));
+}
+// block b's exclusive prefix, after scan_publish; publishes its inclusive
+// prefix
+__device__ __forceinline__ long long scan_lookback(
+    unsigned long long* status, int b, long long agg) {
+  if (b == 0) return 0;
+  long long ex = 0;
+  for (int j = b - 1;;) {
+    const unsigned long long w = scan_load(status + j);
+    if (w == 0) continue;
+    ex += static_cast<long long>(w & kScanValue);
+    if (w & kScanPrefix) break;
+    --j;
+  }
+  scan_store(status + b,
+             static_cast<unsigned long long>(ex + agg) | kScanPrefix);
+  return ex;
+}
+
+// shade (kernels/step.py shade_full_ref) of position i under a
+// full-record mode: ``r`` its record (gathered by the sort's order under
+// kParity, slot i on the unsorted engine), ``rank`` its exclusive rank
+// among the lanes that take a camera ray
+template <int kMode>
+__device__ __forceinline__ ShadeLane shade_full_lane(const StepArgs& a,
+                                                     int i, const Tables& T,
+                                                     const FullRec& r,
+                                                     long long rank) {
+  const long long n = a.n;
+  const long long* wd = a.words;
+  const float u_pick = u01_lo(wd[i]);
+  const float b1u1 = u01_hi(wd[n + i]), b1u2 = u01_lo(wd[n + i]);
+  const float luv1 = u01_hi(wd[2 * n + i]), luv2 = u01_lo(wd[2 * n + i]);
+  const float b2u1 = u01_hi(wd[3 * n + i]), b2u2 = u01_lo(wd[3 * n + i]);
+  const float gen_u = u01_hi(wd[4 * n + i]), gen_v = u01_lo(wd[4 * n + i]);
+  const int mtype = T.mtype[r.mi];
+  const V3 albedo = row3(T.albedo, r.mi);
+  const float ior = T.ior[r.mi];
+  // the hit point after the permutation, in rtjax's operation order
+  const V3 p = add(r.o, scale(r.mat ? r.t : 0.0f, r.d));
+
+  const V3 n_g = neg(normalize(r.normal));
+  Bsdf s1 = {};
+  V3 next_o = {}, next_beta = {};
+  if (r.mat) {
+    s1 = sample_f(mtype, albedo, ior, r.d, n_g, b1u1, b1u2, b1u1);
+    next_o = offset_origin(p, s1.n);
+    next_beta = mul(r.beta, scale(dot(s1.wi, s1.n) / s1.pdf, s1.f));
+    if (!finite3(next_beta)) next_beta = {0.0f, 0.0f, 0.0f};
+  }
+  ShadeLane s;
+  s.nee = s.mis = false;
+  if (a.num_lights > 0) {
+    const ShadowLane sl = shadow_rays<(kMode & kParity) != 0>(
+        a, i, T, r.mat, p, r.d, n_g, r.beta, mtype, albedo, ior, u_pick,
+        luv1, luv2, b2u1, b2u2, r.prim, r.src);
+    s.nee = sl.nee;
+    s.mis = sl.mis;
+  }
+
+  // camera generation by the rank: every lane that takes a camera ray
+  // (neither continuing nor in limbo) flushes
+  const bool gen = !r.mat && !r.limbo;
+  const long long cam_id = *a.cam_start + rank;
+  const bool got_ray = gen && cam_id < a.cam_end;
+  int pix_new = 0;
+  V3 cam_d = {};
+  if (got_ray) {
+    const int pix_rank = static_cast<int>(
+        min(cam_id / a.spp, static_cast<long long>(a.num_pixels) - 1));
+    pix_new = a.pixel_table ? a.pixel_table[pix_rank] : pix_rank;
+    const float ci = static_cast<float>(remainder(pix_new, a.width));
+    const float cj = static_cast<float>(floordiv(pix_new, a.width));
+    cam_d = camera_dir(a, div_host(ci + gen_u, static_cast<float>(a.width)),
+                       div_host(cj + gen_v, static_cast<float>(a.height)));
+  }
+  const V3 cam_o = {a.lookfrom[0], a.lookfrom[1], a.lookfrom[2]};
+
+  s.flush = gen;
+  s.pixel = r.pixel;
+  s.flushed = r.acc;
+  store3(a.acc, i, gen ? V3{0.0f, 0.0f, 0.0f} : r.acc);
+  store3(a.ray_o, i, r.mat ? next_o : (got_ray ? cam_o : r.o));
+  store3(a.ray_d, i, r.mat ? s1.wi : (got_ray ? cam_d : r.d));
+  a.pixel[i] = got_ray ? pix_new : r.pixel;
+  store3(a.beta, i,
+         r.mat ? next_beta : (got_ray ? V3{1.0f, 1.0f, 1.0f} : r.beta));
+  a.bounces[i] = got_ray ? 0 : (gen ? kDeadBounces : r.bounces);
+  s.trace = r.mat || got_ray;
+  a.trace_mask[i] = s.trace ? 1 : 0;
+  if constexpr ((kMode & kParity) != 0) a.limbo[i] = r.limbo ? 1 : 0;
+  return s;
+}
+
 // resolve (kernels/step.py resolve_ref) of lane i: the shadow results
 __device__ __forceinline__ void resolve_lane(const StepArgs& a, int i) {
   const long long n = a.n;
@@ -815,12 +1075,33 @@ __device__ __forceinline__ void resolve_lane(const StepArgs& a, int i) {
   store3(a.acc, i, acc);
 }
 
-// resolve's counters, once a step
+// under the parity modes (kernels/step.py resolve_full_ref), a limbo
+// lane's hit, t, normal, prim and src restored from its record: it did not
+// trace, and keeps its payload for the next re-roll
+__device__ __forceinline__ void restore_limbo(const StepArgs& a, int i) {
+  if (!a.limbo[i]) return;
+  const long long j = a.order ? a.order[i] : i;
+  const int* w = a.bundle + static_cast<long long>(kFullWords) * j;
+  a.hit_out[i] = 1;
+  a.t_out[i] = __int_as_float(w[3]);
+  for (int k = 0; k < 3; ++k) a.normal_out[k][i] = __int_as_float(w[8 + k]);
+  a.prim_out[i] = w[11];
+  a.src_out[i] = w[15];
+}
+
+// resolve's counters, once a step; under the parity modes counts[4] holds
+// the limbo lanes, which take no camera ray and hold the frame open
+template <int kMode = kDefault>
 __device__ __forceinline__ void resolve_counters(const StepArgs& a) {
   const long long* c = a.counts;
-  const long long num_gen = cadence(a) ? a.n - c[0] : 0;
-  *a.cam_out = *a.cam_start + num_gen;
-  *a.work_out = c[1] > 0 ? 1 : 0;
+  if constexpr ((kMode & kParity) != 0) {
+    *a.cam_out = *a.cam_start + (a.n - c[0] - c[4]);
+    *a.work_out = (c[1] > 0 || c[4] > 0) ? 1 : 0;
+  } else {
+    const long long num_gen = cadence(a) ? a.n - c[0] : 0;
+    *a.cam_out = *a.cam_start + num_gen;
+    *a.work_out = c[1] > 0 ? 1 : 0;
+  }
   *a.rays_out = *a.rays_in + static_cast<double>(c[1] + c[2] + c[3]);
   // a tensor divided by a host scalar: the product with its reciprocal
   *a.occ_out = *a.occ_in + static_cast<double>(c[1]) *

@@ -27,10 +27,12 @@ small torch ops an iteration.  Here it is three kernels
   and the step's counters.
 
 They cover the default estimator of the sorted engine with the compact
-bundle (render/wavefront.py ``step_kernels_cover``).  A CUDA tensor goes to
-the kernels (built at first use, bound with ctypes, launched on torch's
-current stream so that a captured graph holds them); a CPU tensor to the
-plain versions.  There is no fallback between them.
+bundle and, as the full-record modes (:func:`step_mode`), rtjax's unsorted
+engine and ``reference_parity`` (render/wavefront.py
+``step_kernels_cover``).  A CUDA tensor goes to the kernels (built at first
+use, bound with ctypes, launched on torch's current stream so that a
+captured graph holds them); a CPU tensor to the plain versions.  There is
+no fallback between them.
 
 Contract (the kernels' and the plain versions'):
 
@@ -67,6 +69,20 @@ ordered flush cost more device time than it was allowed: PERF.md).
 The first design (kept for same-run A/B and on no default path:
 :func:`route_v1` / :func:`shade_v1`, ``V1_LAUNCHES``) writes the bundle as
 nine ``[N]`` columns, ``[9, N]``, and gathers it column by column.
+
+The full-record modes (:func:`route_full`, :func:`shade_full`,
+:func:`resolve_full`; their kernels by mode in :data:`MODE_KERNELS`)
+carry each lane's state at full precision in a 96-byte record
+(:func:`pack_full`; the compact bundle's RGB9E5 codecs would change the
+throughput and radiance), with no sort on the unsorted engine and, under
+``reference_parity``, a sort by the keys without the dirty class.  Their
+camera rays go by the exclusive prefix sum of the lanes that take one
+(neither continuing nor in roulette's limbo), which shade computes by a
+single-pass scan with decoupled look-back (:func:`scan_buffer`); every
+such lane flushes.  Under parity, resolve restores each limbo lane's hit
+from the record.  On the unsorted engine without parity route and shade
+are one kernel (:func:`route_shade_unsorted`), the record kept in
+registers.
 """
 
 from __future__ import annotations
@@ -91,7 +107,8 @@ from ..render.sorting import (oct_decode_v3, oct_encode_v3,
                               ray_sort_keys_prim_pos_v3,
                               ray_sort_keys_prim_v3, ray_sort_keys_v3,
                               rgb9e5_decode_v3, rgb9e5_encode_v3)
-from ..render.trace import _hit_material_index, gather_hit_materials_v3
+from ..render.trace import (_hit_material_index, gather_hit_materials_v3,
+                            resolve_mode)
 from ..scene.light import gather_light_v3, is_delta, pdf_li_v3, sample_li_v3
 from ..scene.material import get_f_v3, is_specular, sample_f_v3
 from . import _build
@@ -108,8 +125,27 @@ DIRTY_KEY = 0x7FFFFFFE   # dead lanes that still hold radiance
 BUNDLE_ROWS = 10         # int32 words of a lane's bundle record
 V1_BUNDLE_ROWS = 9       # the first design's [9, N] column bundle
 W_MATERIAL = 9           # the record's word of the hit's material index
-# continuing paths, path rays, NEE rays, MIS rays, dirty lanes
+# continuing paths, path rays, NEE rays, MIS rays, dirty lanes (limbo
+# lanes in the full-record modes)
 NUM_COUNTS = 5
+# the full-precision record of the unsorted engine and reference_parity:
+# 24 int32 words (96 B, six 16-byte loads) a lane, FULL_LAYOUT's fields
+FULL_ROWS = 24
+FULL_LAYOUT = (("ray_o", 0, 3), ("t", 3, 1), ("ray_d", 4, 3),
+               ("pixel", 7, 1), ("normal", 8, 3), ("prim", 11, 1),
+               ("beta", 12, 3), ("src", 15, 1), ("acc", 16, 3),
+               ("bounces", 19, 1), ("flags", 20, 1), ("material", 21, 1))
+# lanes a shade block ranks in the full-record modes (csrc kShadeBlock):
+# the camera rank's scan keeps a ticket, a count of finished blocks and one
+# status word a block (:func:`scan_buffer`)
+SCAN_BLOCK = 128
+# the step kernels' modes (:func:`step_mode`) and the kernels each launches
+MODE_KERNELS = {
+    "default": ("route", "shade", "resolve"),
+    "unsorted": ("route_shade_unsorted", "resolve"),
+    "parity": ("route_parity", "shade_parity", "resolve_parity"),
+    "parity_unsorted": ("route_parity_unsorted", "shade_parity_unsorted",
+                        "resolve_parity")}
 
 # the kernels the fused step runs: "record" (the default) or "v1"; a
 # captured step belongs to the design it was captured under (render/graph.py
@@ -117,9 +153,9 @@ NUM_COUNTS = 5
 DESIGN = "record"
 
 # kernel launches (wrapper, CUDA path) and plain-version calls, by kernel
-LAUNCHES = {"route": 0, "shade": 0, "resolve": 0}
+LAUNCHES = {k: 0 for ks in MODE_KERNELS.values() for k in ks}
 V1_LAUNCHES = {"route": 0, "shade": 0}
-REF_CALLS = {"route": 0, "shade": 0, "resolve": 0}
+REF_CALLS = dict(LAUNCHES)
 
 _lock = threading.Lock()
 _lib = None
@@ -373,6 +409,54 @@ def cadence(counts, n, it, sort_every):
     return (counts[0] * 4 < n * 3) | ((it % sort_every) == 0)
 
 
+def step_mode(scene, cfg) -> str:
+    """The step kernels' mode of ``cfg`` (a key of :data:`MODE_KERNELS`):
+    "default" for the sorted engine's default estimator, "unsorted" for
+    rtjax's unsorted engine (``sort_rays=False`` or the traversal "xla"),
+    "parity" for ``reference_parity`` on the sorted engine and
+    "parity_unsorted" on the unsorted one."""
+    sort = cfg.sort_rays and resolve_mode(scene, cfg) != "xla"
+    if cfg.reference_parity:
+        return "parity" if sort else "parity_unsorted"
+    return "default" if sort else "unsorted"
+
+
+def pack_full(state, bounces, beta, acc, mat, limbo, material):
+    """The full-precision record of the unsorted engine and
+    ``reference_parity``, ``[N, FULL_ROWS]`` int32 (:data:`FULL_LAYOUT`):
+    the fields rtjax carries through its parity sort (pixel, ray, t,
+    normal, prim, src, bounces, throughput, radiance, the mat and limbo
+    flags in one word) with the hit's material index, floats as their
+    bits, two zero words of padding."""
+    f = lambda v: [c.view(torch.int32) for c in v]
+    zero = torch.zeros_like(state.pixel)
+    flags = mat.to(torch.int32) | (limbo.to(torch.int32) << 1)
+    return torch.stack((
+        *f(state.ray_o), *f((state.t,)), *f(state.ray_d), state.pixel,
+        *f(state.normal), state.prim, *f(beta), state.src, *f(acc),
+        bounces, flags, material.to(torch.int32), zero, zero), 1)
+
+
+def unpack_full(r):
+    """Inverse of :func:`pack_full` for ``r`` ``[N, FULL_ROWS]``: ``{field:
+    value}`` with ``mat`` and ``limbo`` (bool) for ``flags``."""
+    out = {}
+    for name, w, k in FULL_LAYOUT:
+        cols = [r[:, w + j] for j in range(k)]
+        if name in ("ray_o", "t", "ray_d", "normal", "beta", "acc"):
+            cols = [c.view(torch.float32) for c in cols]
+        out[name] = tuple(cols) if k == 3 else cols[0]
+    flags = out.pop("flags")
+    out["mat"], out["limbo"] = (flags & 1) != 0, (flags & 2) != 0
+    return out
+
+
+def scan_words(n) -> int:
+    """int64 words of the full-record modes' scan buffer over ``n`` lanes:
+    the ticket, the finished blocks and one status word a shade block."""
+    return 2 + (n + SCAN_BLOCK - 1) // SCAN_BLOCK
+
+
 # ------------------------------------------------------ plain versions
 
 @dataclasses.dataclass
@@ -390,6 +474,11 @@ class Shaded:
     shadow: tuple | None = None   # (origin, direction, tmax, exclude, mask)
     ah_L: tuple | None = None
     chs_L: tuple | None = None
+    # the full-record modes: each position's limbo flag, and the record
+    # with the sort's order (None: slot order) that resolve restores from
+    limbo: torch.Tensor | None = None
+    record: torch.Tensor | None = None
+    order: torch.Tensor | None = None
 
 
 def route_ref(scene, cfg, state, words):
@@ -469,9 +558,16 @@ def shade_ref(scene, camera, cfg, state, fb, words, order, bundle, counts,
         bounces=torch.where(got_ray, 0,
                             torch.where(gen_mask, DEAD_BOUNCES, bounces)),
         acc=acc, trace_mask=trace_mask, counts=counts)
-    zero = torch.zeros((), dtype=torch.int64, device=dev)
+    return _with_shadows(scene, out, sh, counts)
+
+
+def _with_shadows(scene, out, sh, counts):
+    """``out`` (a :class:`Shaded`) with its counts and, with lights, both
+    shadow channels of ``shade_math``'s ``sh``; ``counts`` route's."""
+    n_traced = out.trace_mask.sum()
+    zero = torch.zeros((), dtype=torch.int64, device=counts.device)
     if scene.num_lights == 0:
-        out.counts = torch.stack((num_mat, trace_mask.sum(), zero, zero,
+        out.counts = torch.stack((counts[0], n_traced, zero, zero,
                                   counts[4]))
         return out
     # both shadow channels ride one 2N any-hit launch
@@ -483,9 +579,21 @@ def shade_ref(scene, camera, cfg, state, fb, words, order, bundle, counts,
                   cat(sh["ltri"], sh["chs_tgt"]),
                   cat(sh["ah_mask"], sh["chs_mask"]))
     out.ah_L, out.chs_L = sh["ah_L"], sh["chs_L"]
-    out.counts = torch.stack((num_mat, trace_mask.sum(), sh["ah_mask"].sum(),
+    out.counts = torch.stack((counts[0], n_traced, sh["ah_mask"].sum(),
                               sh["chs_mask"].sum(), counts[4]))
     return out
+
+
+def _add_shadows(sh, occluded):
+    """The radiance with the unoccluded shadow channels added (``occluded``
+    the ``[2N]`` any-hit result; None without lights)."""
+    n = sh.trace_mask.shape[0]
+    acc = sh.acc
+    if sh.shadow is not None:
+        mask = sh.shadow[4]
+        acc = accum(acc, sh.ah_L, mask[:n] & ~occluded[:n])
+        acc = accum(acc, sh.chs_L, mask[n:] & ~occluded[n:])
+    return acc
 
 
 def resolve_ref(cfg, sh, occluded, it, sort_every, cam_start, rays_traced,
@@ -494,17 +602,120 @@ def resolve_ref(cfg, sh, occluded, it, sort_every, cam_start, rays_traced,
     device)."""
     REF_CALLS["resolve"] += 1
     n = sh.trace_mask.shape[0]
-    acc = sh.acc
-    if sh.shadow is not None:
-        mask = sh.shadow[4]
-        acc = accum(acc, sh.ah_L, mask[:n] & ~occluded[:n])
-        acc = accum(acc, sh.chs_L, mask[n:] & ~occluded[n:])
+    acc = _add_shadows(sh, occluded)
     c = sh.counts
     num_gen = n - c[0]
     do_gen = cadence(c, n, it, sort_every)
     if do_gen is not None:
         num_gen = num_gen * do_gen
     return (acc, cam_start + num_gen, c[1] > 0,
+            rays_traced + c[1:4].sum().to(torch.float64),
+            occ_sum + c[1].to(torch.float64) / n)
+
+
+def route_full_ref(scene, cfg, state, words, mode):
+    """Plain PyTorch version of :func:`route_full` (same contract, any
+    device)."""
+    REF_CALLS[MODE_KERNELS[mode][0]] += 1
+    return _route_full(scene, cfg, state, words, mode)
+
+
+def _route_full(scene, cfg, state, words, mode):
+    u_rr, _ = rng.u01_pair(words[W_RR_PICK])
+    acc, beta, bounces, mat, rr_kill, hp = emit_and_roulette(scene, cfg,
+                                                             state, u_rr)
+    limbo = rr_kill if mode.startswith("parity") else \
+        torch.zeros_like(rr_kill)
+    keys = sort_keys(scene, cfg, state, hp, bounces, mat) \
+        if mode == "parity" else None
+    record = pack_full(state, bounces, beta, acc, mat, limbo,
+                       hit_material(scene, state.src, state.prim))
+    counts = torch.zeros(NUM_COUNTS, dtype=torch.int64, device=mat.device)
+    counts[0] = mat.sum()
+    counts[4] = limbo.sum()
+    return keys, record, counts
+
+
+def shade_full_ref(scene, camera, cfg, fb, words, order, record, counts,
+                   cam_start, mode):
+    """Plain PyTorch version of :func:`shade_full` (same contract, any
+    device)."""
+    REF_CALLS[MODE_KERNELS[mode][1]] += 1
+    return _shade_full(scene, camera, cfg, fb, words, order, record, counts,
+                       cam_start, mode)
+
+
+def route_shade_unsorted_ref(scene, camera, cfg, state, fb, words,
+                             cam_start):
+    """Plain PyTorch version of :func:`route_shade_unsorted` (same
+    contract, any device): route's record, then shade of it."""
+    REF_CALLS["route_shade_unsorted"] += 1
+    _, record, counts = _route_full(scene, cfg, state, words, "unsorted")
+    out = _shade_full(scene, camera, cfg, fb, words, None, record, counts,
+                      cam_start, "unsorted")
+    out.limbo = out.record = None
+    return out
+
+
+def _shade_full(scene, camera, cfg, fb, words, order, record, counts,
+                cam_start, mode):
+    draw_pair = lambda w: rng.u01_pair(words[w])
+    r = unpack_full(record if order is None else record[order])
+    mat, limbo, beta = r["mat"], r["limbo"], r["beta"]
+    ray_o, ray_d = r["ray_o"], r["ray_d"]
+    # the hit point after the permutation, in rtjax's operation order
+    p = vec.add(ray_o, vec.scale(torch.where(mat, r["t"], 0.0), ray_d))
+    gen_mask = ~mat & ~limbo
+    b1u1, b1u2 = draw_pair(W_BSDF1)
+    b2u1, b2u2 = draw_pair(W_BSDF2)
+    sh = shade_math(scene, cfg, r["src"], r["prim"], beta, p, ray_d,
+                    r["normal"], mat, (b1u1, b1u2, b1u1),
+                    draw_pair(W_RR_PICK)[1], draw_pair(W_LIGHT_UV),
+                    (b2u1, b2u2, b2u1),
+                    mats=scene.materials.gather_v3(r["material"]))
+
+    # the dead lanes are not a suffix (unsorted, or limbo lanes among them):
+    # camera rays go by the exclusive prefix sum of gen_mask
+    gen_u, gen_v = draw_pair(W_GEN)
+    cam_id = cam_start + (torch.cumsum(gen_mask, 0) - gen_mask.long())
+    got_ray = gen_mask & (cam_id < cfg.total_camera_rays)
+    pix_new, cam_o, cam_d = camera_rays(camera, cfg, cam_id, gen_u, gen_v)
+    flush = torch.stack([torch.where(gen_mask, c, 0.0) for c in r["acc"]], 1)
+    fb.index_add_(0, r["pixel"].long(), flush)
+    acc = tuple(torch.where(gen_mask, 0.0, c) for c in r["acc"])
+
+    trace_mask = mat | got_ray
+    out = Shaded(
+        pixel=torch.where(got_ray, pix_new, r["pixel"]),
+        ray_o=vec.where(mat, sh["next_o"], vec.where(got_ray, cam_o, ray_o)),
+        ray_d=vec.where(mat, sh["next_d"], vec.where(got_ray, cam_d, ray_d)),
+        beta=tuple(torch.where(mat, nb, torch.where(got_ray, 1.0, c))
+                   for nb, c in zip(sh["next_beta"], beta)),
+        bounces=torch.where(got_ray, 0, torch.where(gen_mask, DEAD_BOUNCES,
+                                                    r["bounces"])),
+        acc=acc, trace_mask=trace_mask, counts=counts, limbo=limbo,
+        record=record, order=order)
+    return _with_shadows(scene, out, sh, counts)
+
+
+def resolve_full_ref(cfg, sh, occluded, hits, cam_start, rays_traced,
+                     occ_sum, mode):
+    """Plain PyTorch version of :func:`resolve_full` under the parity
+    modes (same contract, any device)."""
+    REF_CALLS["resolve_parity"] += 1
+    n = sh.trace_mask.shape[0]
+    acc = _add_shadows(sh, occluded)
+    # limbo lanes did not trace: the payload the closest-hit kernel
+    # cleared survives for the next re-roll, and the frame waits for them
+    r = unpack_full(sh.record if sh.order is None else sh.record[sh.order])
+    lim = sh.limbo
+    hit, t, normal, prim, src = hits
+    hits = (hit | lim, torch.where(lim, r["t"], t),
+            vec.where(lim, r["normal"], normal),
+            torch.where(lim, r["prim"], prim),
+            torch.where(lim, r["src"], src))
+    c = sh.counts
+    return (acc, hits, cam_start + (n - c[0] - c[4]), (c[1] > 0) | (c[4] > 0),
             rays_traced + c[1:4].sum().to(torch.float64),
             occ_sum + c[1].to(torch.float64) / n)
 
@@ -549,6 +760,9 @@ ARG_FIELDS = (
     ("chs_L", _P * 3), ("occluded", _P),
     ("rays_in", _P), ("occ_in", _P), ("cam_out", _P), ("work_out", _P),
     ("rays_out", _P), ("occ_out", _P),
+    # the full-record modes: the scan, the limbo flags, resolve's hits
+    ("scan", _P), ("limbo", _P), ("hit_out", _P), ("t_out", _P),
+    ("normal_out", _P * 3), ("prim_out", _P), ("src_out", _P),
     # the scene and the camera
     ("prim_light", _P), ("prim_material", _P), ("inst_material", _P),
     ("mtype", _P), ("albedo", _P), ("ior", _P),
@@ -557,8 +771,10 @@ ARG_FIELDS = (
     ("env", _P), ("root_lo", _P), ("root_hi", _P),
     ("lookfrom", _P), ("upper_left", _P), ("horizontal", _P),
     ("vertical", _P), ("pixel_table", _P),
+    ("tri_p0", _P), ("tri_e1", _P), ("tri_e2", _P), ("tri_n", _P),
     ("it_value", _I64),
-    ("n", _I32), ("num_prims", _I32), ("num_materials", _I32),
+    ("n", _I32), ("num_prims", _I32), ("num_tris", _I32),
+    ("num_materials", _I32),
     ("num_light_rows", _I32), ("num_lights", _I32), ("max_bounces", _I32),
     ("rr_start", _I32), ("sort_key", _I32), ("sort_every", _I32),
     ("spp", _I32), ("num_pixels", _I32), ("width", _I32), ("height", _I32),
@@ -575,13 +791,14 @@ class StepArgs(ctypes.Structure):
 
 
 # entry point (``rtjax_step_<name>``) -> the counter its launch adds to
-_COUNTERS = {"route": (LAUNCHES, "route"), "shade": (LAUNCHES, "shade"),
-             "resolve": (LAUNCHES, "resolve"),
+_COUNTERS = {**{k: (LAUNCHES, k) for k in LAUNCHES},
              "route_v1": (V1_LAUNCHES, "route"),
              "shade_v1": (V1_LAUNCHES, "shade")}
 # kernel ids of ``rtjax_step_kernel_info``
 KERNEL_IDS = {"route": 0, "shade": 1, "resolve": 2, "route_v1": 3,
-              "shade_v1": 4}
+              "shade_v1": 4, "route_shade_unsorted": 5, "route_parity": 6,
+              "shade_parity": 7, "resolve_parity": 8,
+              "route_parity_unsorted": 9, "shade_parity_unsorted": 10}
 
 def bind(lib):
     """Set the argument types of a step-kernel library's entry points
@@ -618,6 +835,30 @@ def _kernels():
         return _lib
 
 
+_scans: dict = {}   # (device, stream, words) -> the scan buffer
+
+
+def scan_buffer(device, stream: int, n: int) -> torch.Tensor:
+    """The full-record modes' scan buffer for shade launches of ``n`` lanes
+    on ``stream``: ``scan_words(n)`` int64 zeros, made once and reused.
+
+    Invariant: the buffer is zero between launches.  A shade launch takes
+    its blocks' indices from the ticket and the block that finishes last
+    zeroes the ticket, the count and every status word; a launch that
+    fails on the card leaves the context in a sticky error, so no later
+    launch on it returns results (as ``persist.work_buffer``)."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    key = (str(device), stream, scan_words(n))
+    with _lock:
+        buf = _scans.get(key)
+        if buf is None:
+            buf = _scans[key] = torch.zeros(key[2], dtype=torch.int64,
+                                            device=device)
+    return buf
+
+
 def _on_card(t) -> bool:
     """True for a CUDA tensor (the kernels), False for a CPU one (the plain
     versions); other devices raise."""
@@ -648,6 +889,15 @@ _READ = ("hit", "t", "normal", "prim", "src")   # route reads these too
 _WRITTEN = ("pixel", "ray_o", "ray_d", "beta", "bounces", "acc")
 _DTYPES = {"pixel": torch.int32, "hit": torch.bool, "prim": torch.int32,
            "src": torch.int32, "bounces": torch.int32}
+
+
+def _read_contiguous(state):
+    """``state`` with the fields route only reads made contiguous (they
+    may come from a walk as column views)."""
+    return dataclasses.replace(state, **{
+        f: (tuple(c.contiguous() for c in v) if isinstance(v, tuple)
+            else v.contiguous()) for f, v in vars(state).items()
+        if f in _READ})
 
 
 def _state_args(a, state, words, names):
@@ -711,10 +961,9 @@ def _scene_args(a, scene, camera, cfg, dev):
 
 
 def launch(name, a, dev):
-    """Launch kernel ``name`` (an entry of ``_COUNTERS``: "route",
-    "shade", "resolve", "route_v1" or "shade_v1") with the
-    argument block ``a`` on ``dev``'s current stream; raise on a CUDA
-    error code."""
+    """Launch kernel ``name`` (an entry of ``_COUNTERS``: a kernel of
+    :data:`MODE_KERNELS`, "route_v1" or "shade_v1") with the argument
+    block ``a`` on ``dev``'s current stream; raise on a CUDA error code."""
     entry = getattr(_kernels(), f"rtjax_step_{name}")
     rc = entry(ctypes.byref(a), torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
@@ -738,23 +987,28 @@ def _step_scalars(a, it, cam_start, dev):
     a.cam_start = _scalar("cam_start", cam_start, torch.int64, dev)
 
 
-def route_args(scene, cfg, state, words, v1=False):
+def route_args(scene, cfg, state, words, v1=False, mode="default"):
     """``(argument block, (keys, bundle, counts))`` of a route launch (the
     first design's with ``v1``), its outputs allocated (``counts``
-    zeroed)."""
+    zeroed); under a full-record ``mode`` ``(keys or None, record,
+    counts)`` (:func:`route_full`)."""
     n, dev = state.pixel.shape[0], state.pixel.device
-    # the fields route only reads may come from a walk as column views
-    state = dataclasses.replace(state, **{
-        f: (tuple(c.contiguous() for c in v) if isinstance(v, tuple)
-            else v.contiguous()) for f, v in vars(state).items()
-        if f in _READ})
+    state = _read_contiguous(state)
     a = StepArgs()
     _state_args(a, state, words, _READ + _WRITTEN)
     _scene_args(a, scene, None, cfg, dev)
+    counts = torch.zeros(NUM_COUNTS, dtype=torch.int64, device=dev)
+    if mode != "default":
+        keys = torch.empty(n, dtype=torch.int32, device=dev) \
+            if mode == "parity" else None
+        record = torch.empty((n, FULL_ROWS), dtype=torch.int32, device=dev)
+        a.keys = None if keys is None else keys.data_ptr()
+        a.bundle, a.counts = record.data_ptr(), counts.data_ptr()
+        a.held = (state, words, keys, record, counts)
+        return a, (keys, record, counts)
     keys = torch.empty(n, dtype=torch.int32, device=dev)
     bundle = torch.empty((V1_BUNDLE_ROWS, n) if v1 else (n, BUNDLE_ROWS),
                          dtype=torch.int32, device=dev)
-    counts = torch.zeros(NUM_COUNTS, dtype=torch.int64, device=dev)
     a.keys, a.bundle, a.counts = (keys.data_ptr(), bundle.data_ptr(),
                                   counts.data_ptr())
     a.held = (state, words, keys, bundle, counts)
@@ -762,29 +1016,54 @@ def route_args(scene, cfg, state, words, v1=False):
 
 
 def shade_args(scene, camera, cfg, state, fb, words, order, bundle, counts,
-               it, cam_start, sort_every, v1=False):
+               it, cam_start, sort_every, v1=False, mode="default"):
     """``(argument block, Shaded)`` of a shade launch (the first design's
-    with ``v1``): the outputs the kernel writes beside the state
-    allocated."""
+    with ``v1``; under a full-record ``mode`` :func:`shade_full`'s, with
+    ``bundle`` the record, ``order`` None on the unsorted engine, and the
+    scan buffer of the current stream): the outputs the kernel writes
+    beside the state allocated."""
     n, dev = state.pixel.shape[0], state.pixel.device
+    full = mode != "default"
     a = StepArgs()
-    _state_args(a, state, words, _WRITTEN)
+    if mode == "unsorted":
+        # route and shade in one kernel: route's inputs too, no record
+        state = _read_contiguous(state)
+        _state_args(a, state, words, _READ + _WRITTEN)
+    else:
+        _state_args(a, state, words, _WRITTEN)
+        _need("bundle", bundle, torch.int32,
+              (n, FULL_ROWS) if full else (V1_BUNDLE_ROWS, n) if v1
+              else (n, BUNDLE_ROWS), dev)
+        a.bundle = bundle.data_ptr()
     _scene_args(a, scene, camera, cfg, dev)
     _need("fb", fb, torch.float32, (cfg.num_pixels, 3), dev)
-    _need("order", order, torch.int64, (n,), dev)
-    _need("bundle", bundle, torch.int32,
-          (V1_BUNDLE_ROWS, n) if v1 else (n, BUNDLE_ROWS), dev)
+    if order is not None or mode in ("default", "parity"):
+        _need("order", order, torch.int64, (n,), dev)
+        a.order = order.data_ptr()
     _need("counts", counts, torch.int64, (NUM_COUNTS,), dev)
     _step_scalars(a, it, cam_start, dev)
-    a.fb, a.order, a.bundle, a.counts = (fb.data_ptr(), order.data_ptr(),
-                                         bundle.data_ptr(),
-                                         counts.data_ptr())
+    a.fb, a.counts = fb.data_ptr(), counts.data_ptr()
     a.sort_every = sort_every
     trace_mask = torch.empty(n, dtype=torch.bool, device=dev)
     a.trace_mask = trace_mask.data_ptr()
     out = Shaded(pixel=state.pixel, ray_o=state.ray_o, ray_d=state.ray_d,
                  beta=state.beta, bounces=state.bounces, acc=state.acc,
                  trace_mask=trace_mask, counts=counts)
+    scan = None
+    if full:
+        scan = scan_buffer(dev, torch.cuda.current_stream(dev).cuda_stream,
+                           n)
+        a.scan = scan.data_ptr()
+        out.record, out.order = bundle, order
+        if mode.startswith("parity"):
+            out.limbo = torch.empty(n, dtype=torch.bool, device=dev)
+            a.limbo = out.limbo.data_ptr()
+            for name in ("p0", "e1", "e2", "n"):
+                t = getattr(scene.tris, name)
+                _need(f"tris.{name}", t, torch.float32, (scene.tris.num, 3),
+                      dev)
+                setattr(a, f"tri_{name}", t.data_ptr())
+            a.num_tris = scene.tris.num
     if scene.num_lights > 0:
         col = lambda dt, m=2 * n: torch.empty(m, dtype=dt, device=dev)
         f32 = torch.float32
@@ -797,14 +1076,16 @@ def shade_args(scene, camera, cfg, state, fb, words, order, bundle, counts,
         a.sh_tmax, a.sh_exclude, a.sh_mask = (t.data_ptr()
                                               for t in out.shadow[2:])
         a.ah_L, a.chs_L = _ptrs3(out.ah_L), _ptrs3(out.chs_L)
-    a.held = (state, words, fb, order, bundle, it, cam_start, out)
+    a.held = (state, words, fb, order, bundle, it, cam_start, scan, out)
     return a, out
 
 
 def resolve_args(cfg, sh, occluded, it, sort_every, cam_start, rays_traced,
-                 occ_sum):
+                 occ_sum, hits=None):
     """``(argument block, (acc, cam_start, work_left, rays_traced,
-    occ_sum))`` of a resolve launch, the new counters allocated."""
+    occ_sum))`` of a resolve launch, the new counters allocated; with the
+    closest ``hits`` (the parity modes' resolve) ``(acc, hits, cam_start,
+    ...)``, the hits made contiguous for the kernel to write."""
     n, dev = sh.trace_mask.shape[0], sh.trace_mask.device
     a = StepArgs()
     a.n = n
@@ -830,7 +1111,29 @@ def resolve_args(cfg, sh, occluded, it, sort_every, cam_start, rays_traced,
         cam.data_ptr(), work.data_ptr(), rays.data_ptr(), occ.data_ptr())
     a.held = (sh, occluded, it, cam_start, rays_traced, occ_sum, cam, work,
               rays, occ)
-    return a, (sh.acc, cam, work, rays, occ)
+    if hits is None:
+        return a, (sh.acc, cam, work, rays, occ)
+    hit, t, normal, prim, src = (
+        tuple(c.contiguous() for c in v) if isinstance(v, tuple)
+        else v.contiguous() for v in hits)
+    for name, v, dt in (("hit", hit, torch.bool), ("t", t, torch.float32),
+                        ("prim", prim, torch.int32),
+                        ("src", src, torch.int32), ("limbo", sh.limbo,
+                                                    torch.bool)):
+        _need(name, v, dt, (n,), dev)
+    for k, c in enumerate(normal):
+        _need(f"normal[{k}]", c, torch.float32, (n,), dev)
+    _need("record", sh.record, torch.int32, (n, FULL_ROWS), dev)
+    if sh.order is not None:
+        _need("order", sh.order, torch.int64, (n,), dev)
+        a.order = sh.order.data_ptr()
+    a.hit_out, a.t_out, a.prim_out, a.src_out = (
+        hit.data_ptr(), t.data_ptr(), prim.data_ptr(), src.data_ptr())
+    a.normal_out = _ptrs3(normal)
+    a.limbo, a.bundle = sh.limbo.data_ptr(), sh.record.data_ptr()
+    hits = (hit, t, normal, prim, src)
+    a.held += (hits,)
+    return a, (sh.acc, hits, cam, work, rays, occ)
 
 
 # ------------------------------------------------------------ wrappers
@@ -900,4 +1203,73 @@ def resolve(cfg, sh, occluded, it, sort_every, cam_start, rays_traced,
     a, out = resolve_args(cfg, sh, occluded, it, sort_every, cam_start,
                           rays_traced, occ_sum)
     launch("resolve", a, sh.trace_mask.device)
+    return out
+
+
+def route_full(scene, cfg, state, words, mode):
+    """Emission and Russian roulette of one iteration under a parity mode
+    ("parity" or "parity_unsorted" of :func:`step_mode`): ``(keys,
+    record, counts)``, ``keys`` the sort keys under "parity" (None on the
+    unsorted engine), ``record`` ``[N, FULL_ROWS]`` (:func:`pack_full`)
+    and ``counts`` the continuing paths in [0] and the limbo lanes in
+    [4]."""
+    if not _on_card(state.pixel):
+        return route_full_ref(scene, cfg, state, words, mode)
+    a, out = route_args(scene, cfg, state, words, mode=mode)
+    launch(MODE_KERNELS[mode][0], a, state.pixel.device)
+    return out
+
+
+def shade_full(scene, camera, cfg, state, fb, words, order, record, counts,
+               cam_start, mode):
+    """Shading, camera generation ranked by the exclusive prefix sum of
+    the lanes that take a camera ray, the flush of every such lane and the
+    merge, under a parity mode: a :class:`Shaded` (as :func:`shade`, with
+    ``limbo``, ``record`` and ``order`` for :func:`resolve_full`).
+    ``order`` is the sort's permutation under "parity", None on the
+    unsorted engine."""
+    if not _on_card(state.pixel):
+        return shade_full_ref(scene, camera, cfg, fb, words, order, record,
+                              counts, cam_start, mode)
+    a, out = shade_args(scene, camera, cfg, state, fb, words, order, record,
+                        counts, 0, cam_start, 1, mode=mode)
+    launch(MODE_KERNELS[mode][1], a, state.pixel.device)
+    return out
+
+
+def route_shade_unsorted(scene, camera, cfg, state, fb, words, cam_start):
+    """:func:`route_full` and :func:`shade_full` of the unsorted engine
+    (``step_mode`` "unsorted") as one kernel, route's record kept in
+    registers: a :class:`Shaded` without ``limbo`` and ``record``, its
+    ``counts`` the continuing paths in [0] (no lane is in limbo)."""
+    if not _on_card(state.pixel):
+        return route_shade_unsorted_ref(scene, camera, cfg, state, fb, words,
+                                        cam_start)
+    dev = state.pixel.device
+    a, out = shade_args(scene, camera, cfg, state, fb, words, None, None,
+                        torch.zeros(NUM_COUNTS, dtype=torch.int64,
+                                    device=dev), 0, cam_start, 1,
+                        mode="unsorted")
+    launch("route_shade_unsorted", a, dev)
+    return out
+
+
+def resolve_full(cfg, sh, occluded, hits, cam_start, rays_traced, occ_sum,
+                 mode):
+    """:func:`resolve` under a full-record mode: ``(acc, hits, cam_start,
+    work_left, rays_traced, occ_sum)``, ``hits`` the closest hits ``(hit, t,
+    normal, prim, src)``; under the parity modes each limbo lane's hit, t,
+    normal, prim and src restored from the record (the kernel writes them
+    into ``hits``' own tensors) and the frame held while a lane is in
+    limbo.  The unsorted engine has no limbo lanes: :func:`resolve`."""
+    if mode == "unsorted":
+        acc, *rest = resolve(cfg, sh, occluded, 0, 1, cam_start,
+                             rays_traced, occ_sum)
+        return (acc, hits, *rest)
+    if not _on_card(sh.trace_mask):
+        return resolve_full_ref(cfg, sh, occluded, hits, cam_start,
+                                rays_traced, occ_sum, mode)
+    a, out = resolve_args(cfg, sh, occluded, 0, 1, cam_start, rays_traced,
+                          occ_sum, hits=hits)
+    launch(MODE_KERNELS[mode][2], a, sh.trace_mask.device)
     return out

@@ -39,12 +39,12 @@ Estimator modes (``RenderConfig``), as in rtjax:
 rtjax's step is one jitted XLA program whose per-lane stages XLA fuses.
 The port's counterpart is the step kernels (kernels/step.py: route, one
 ``torch.sort``, shade, the traversals, resolve), which run the default
-estimator of the sorted engine with the compact bundle
-(:func:`step_kernels_cover`); ``reference_parity``, ``one_sample_mis``,
-the unsorted engine, the wide bundle and ``detailed_stats`` keep the step
-op by op, as does ``step_kernels=False`` (the card's A/B and reference).
-On the card the kernels write the next path state into the carry's own
-tensors.
+estimator of the sorted engine with the compact bundle, and the unsorted
+engine (no sort) and ``reference_parity`` through a full-precision record
+(:func:`step_kernels_cover`); ``one_sample_mis``, the sorted engine's wide
+bundle and ``detailed_stats`` keep the step op by op, as does
+``step_kernels=False`` (the card's A/B and reference).  On the card the
+kernels write the next path state into the carry's own tensors.
 
 rtjax runs the whole frame as one jitted ``lax.while_loop`` whose condition
 is computed on the device.  So does this port: the loop condition and the
@@ -167,36 +167,57 @@ def check_slice(scene: Scene, cfg: RenderConfig) -> None:
 
 def step_kernels_cover(scene, cfg) -> bool:
     """Whether the step kernels (kernels/step.py) run this mode's step:
-    the default estimator of the sorted engine with the compact bundle.
-    The other modes keep the op-by-op step: ``reference_parity``,
-    ``one_sample_mis``, the unsorted engine (``sort_rays=False`` or the
-    traversal "xla"), the wide bundle (beyond ``_compact_bundle_ok``) and
-    ``detailed_stats`` (its bounce histogram)."""
-    return (cfg.sort_rays and resolve_mode(scene, cfg) != "xla"
-            and not (cfg.reference_parity or cfg.one_sample_mis
-                     or cfg.detailed_stats)
-            and _compact_bundle_ok(scene, cfg))
+    the default estimator of the sorted engine with the compact bundle,
+    and, at any ranges, the unsorted engine (``sort_rays=False`` or the
+    traversal "xla") and ``reference_parity`` (their full-precision
+    record), in each case without ``one_sample_mis`` and
+    ``detailed_stats`` (its bounce histogram).  The other modes keep the
+    op-by-op step: the sorted engine's wide bundle (beyond
+    ``_compact_bundle_ok``), ``one_sample_mis`` and ``detailed_stats``."""
+    if cfg.one_sample_mis or cfg.detailed_stats:
+        return False
+    return (step_kernels_mod.step_mode(scene, cfg) != "default"
+            or _compact_bundle_ok(scene, cfg))
 
 
 def _fused_step(scene, camera, cfg, words, carry):
     """:func:`wavefront_step` through the step kernels: route, one stable
-    sort, shade, the two traversals, resolve.  On the card the kernels
-    write the next path state into ``carry``'s own tensors."""
+    sort, shade (on the unsorted engine route and shade in one kernel and
+    no sort), the two traversals, resolve.  On the card the kernels write
+    the next path state into ``carry``'s own tensors."""
+    S = step_kernels_mod
     state, fb, cam_start, it, _, rays_traced, occ_sum = carry
     n = state.pixel.shape[0]
-    k = resolve_sort_every(scene, cfg)
-    keys, bundle, cnt = step_kernels_mod.route(scene, cfg, state, words)
-    order = torch.sort(keys, stable=True).indices
-    sh = step_kernels_mod.shade(scene, camera, cfg, state, fb, words, order,
-                                bundle, cnt, it, cam_start, k)
+    mode = S.step_mode(scene, cfg)
+    if mode == "default":
+        k = resolve_sort_every(scene, cfg)
+        keys, bundle, cnt = S.route(scene, cfg, state, words)
+        order = torch.sort(keys, stable=True).indices
+        sh = S.shade(scene, camera, cfg, state, fb, words, order, bundle,
+                     cnt, it, cam_start, k)
+    elif mode == "unsorted":
+        sh = S.route_shade_unsorted(scene, camera, cfg, state, fb, words,
+                                    cam_start)
+    else:
+        keys, record, cnt = S.route_full(scene, cfg, state, words, mode)
+        order = None if keys is None else \
+            torch.sort(keys, stable=True).indices
+        sh = S.shade_full(scene, camera, cfg, state, fb, words, order,
+                          record, cnt, cam_start, mode)
     inf = torch.full((n,), float("inf"), dtype=torch.float32,
                      device=fb.device)
     hit, ht, hprim, hsrc, hnrm = trace_closest(
         scene, cfg, sh.ray_o, sh.ray_d, inf, sh.trace_mask)
     occluded = None if sh.shadow is None else trace_anyhit(
         scene, cfg, *sh.shadow)
-    acc, cam_start, work_left, rays_traced, occ_sum = step_kernels_mod.resolve(
-        cfg, sh, occluded, it, k, cam_start, rays_traced, occ_sum)
+    if mode == "default":
+        acc, cam_start, work_left, rays_traced, occ_sum = S.resolve(
+            cfg, sh, occluded, it, k, cam_start, rays_traced, occ_sum)
+    else:
+        acc, (hit, ht, hnrm, hprim, hsrc), cam_start, work_left, \
+            rays_traced, occ_sum = S.resolve_full(
+                cfg, sh, occluded, (hit, ht, hnrm, hprim, hsrc), cam_start,
+                rays_traced, occ_sum, mode)
     new_state = PathState(pixel=sh.pixel, ray_o=sh.ray_o, ray_d=sh.ray_d,
                           hit=hit, t=ht, normal=hnrm, prim=hprim, src=hsrc,
                           bounces=sh.bounces, beta=sh.beta, acc=acc)

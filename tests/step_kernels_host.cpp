@@ -4,7 +4,10 @@
 // kernels/step.py ``bind``, so that the real ctypes wrappers run it on CPU
 // tensors).  Each entry point of csrc/step_kernels.cu is a loop over the
 // lanes in order, the shared-memory tables as host copies, the atomics as
-// plain adds (so the flush adds in index_add_'s order).
+// plain adds (so the flush adds in index_add_'s order).  The full-record
+// modes' camera rank runs step_math.cuh's look-back scan with every block
+// publishing its count first and the blocks then looking back from the
+// last to the first, so that each walks its predecessors' aggregates.
 #include <cmath>
 #include <cstring>
 #include <algorithm>
@@ -13,8 +16,16 @@
 #define __forceinline__ inline
 using std::min; using std::max; using std::isnan; using std::isfinite;
 struct int2 { int x, y; };
+struct int4 { int x, y, z, w; };
 inline int2 make_int2(int x, int y) { return {x, y}; }
 inline int2 __ldg(const int2* p) { return *p; }
+inline int4 __ldg(const int4* p) { return *p; }
+inline unsigned long long atomicExch(unsigned long long* p,
+                                     unsigned long long v) {
+  const unsigned long long old = *p;
+  *p = v;
+  return old;
+}
 inline int __ldg(const int* p) { return *p; }
 inline int __float_as_int(float f) { int i; memcpy(&i, &f, 4); return i; }
 inline float __int_as_float(int i) { float f; memcpy(&f, &i, 4); return f; }
@@ -83,6 +94,65 @@ extern "C" int rtjax_step_shade_v1(const StepArgs* a, void*) {
     }
   }
   a->counts[1] += c1; a->counts[2] += c2; a->counts[3] += c3;
+  return 0;
+}
+template <int kMode> static int route_full(const StepArgs* a) {
+  for (int i = 0; i < a->n; ++i) {
+    RouteLane r = route_lane<false, kMode>(*a, i, reinterpret_cast<int2*>(a->bundle) + kFullWords / 2 * (long long)i);
+    a->counts[0] += r.mat;
+    a->counts[4] += r.limbo;
+  }
+  return 0;
+}
+template <int kMode> static int shade_full(const StepArgs* a) {
+  Staged st;
+  const Tables T = stage(*a, st);
+  const int n = a->n, blocks = (n + kScanBlock - 1) / kScanBlock;
+  auto* status = reinterpret_cast<unsigned long long*>(a->scan) + 2;
+  std::vector<FullRec> rec(n);
+  std::vector<long long> agg(blocks, 0), prefix(blocks, 0);
+  for (int i = 0; i < n; ++i) {
+    if (kMode == kUnsorted) {  // route and shade in one kernel
+      int2 w[kFullWords / 2];
+      route_lane<false, kMode>(*a, i, w);
+      rec[i] = full_from_words(w);
+      a->counts[0] += rec[i].mat;
+    } else {
+      rec[i] = load_full(*a, (kMode & kUnsorted) ? i : a->order[i]);
+    }
+    agg[i / kScanBlock] += !rec[i].mat && !rec[i].limbo;
+  }
+  for (int b = 0; b < blocks; ++b) scan_publish(status, b, agg[b]);
+  for (int b = blocks - 1; b >= 0; --b) prefix[b] = scan_lookback(status, b, agg[b]);
+  for (int b = 0; b < blocks + 2; ++b) a->scan[b] = 0;  // the last block's reset
+  long long c1 = 0, c2 = 0, c3 = 0, rank = 0;
+  for (int i = 0; i < n; ++i) {
+    if (i % kScanBlock == 0) rank = prefix[i / kScanBlock];
+    ShadeLane r = shade_full_lane<kMode>(*a, i, T, rec[i], rank);
+    rank += !rec[i].mat && !rec[i].limbo;
+    c1 += r.trace; c2 += r.nee; c3 += r.mis;
+    if (r.flush) {
+      const V3 v = r.flushed;
+      float* px = a->fb + 3 * (long long)r.pixel;
+      if (v.x != 0.0f) px[0] += v.x;
+      if (v.y != 0.0f) px[1] += v.y;
+      if (v.z != 0.0f) px[2] += v.z;
+    }
+  }
+  a->counts[1] += c1; a->counts[2] += c2; a->counts[3] += c3;
+  return 0;
+}
+extern "C" int rtjax_step_route_parity(const StepArgs* a, void*) { return route_full<kParity>(a); }
+extern "C" int rtjax_step_route_parity_unsorted(const StepArgs* a, void*) { return route_full<kParityUnsorted>(a); }
+extern "C" int rtjax_step_route_shade_unsorted(const StepArgs* a, void*) { return shade_full<kUnsorted>(a); }
+extern "C" int rtjax_step_shade_parity(const StepArgs* a, void*) { return shade_full<kParity>(a); }
+extern "C" int rtjax_step_shade_parity_unsorted(const StepArgs* a, void*) { return shade_full<kParityUnsorted>(a); }
+extern "C" int rtjax_step_resolve_parity(const StepArgs* a, void*) {
+  for (int i = 0; i < a->n; ++i) {
+    if (a->num_lights > 0) resolve_lane(*a, i);
+    restore_limbo(*a, i);
+  }
+  resolve_counters<kParity>(*a);
   return 0;
 }
 extern "C" int rtjax_step_resolve(const StepArgs* a, void*) {

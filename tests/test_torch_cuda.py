@@ -1707,9 +1707,99 @@ def test_step_kernels_equal_plain_versions(cuda, change):
         carry = wf.wavefront_step(scene, cam, cfg, w, carry,
                                   step_kernels=False)
     # ten states, each kernel once a state
-    assert {k: S.LAUNCHES[k] - before[k] for k in S.LAUNCHES} == dict(
-        route=10, shade=10, resolve=10)
+    assert {k: S.LAUNCHES[k] - before[k] for k in S.LAUNCHES
+            if S.LAUNCHES[k] != before[k]} == dict(route=10, shade=10,
+                                                   resolve=10)
     assert all(S.V1_LAUNCHES[k] - before_v1[k] == 10 for k in S.V1_LAUNCHES)
+
+
+@pytest.mark.parametrize("change", [
+    dict(sort_rays=False), dict(traversal="xla"),
+    dict(reference_parity=True, rr_start=0),
+    dict(reference_parity=True, rr_start=0, sort_rays=False)], ids=str)
+def test_full_mode_kernels_equal_plain_versions(cuda, change):
+    """The unsorted engine's and ``reference_parity``'s route, shade and
+    resolve (kernels/step.py ``route_full`` / ``shade_full`` /
+    ``resolve_full``; on the unsorted engine route and shade in one
+    kernel, ``route_shade_unsorted``) bit for bit against their plain
+    versions on synthetic pools of every lane kind, limbo lanes under
+    parity, the framebuffer within the atomic adds' reordering; the scan
+    buffer left zero for the next launch."""
+    from rtjax_torch.kernels import step as S
+    from rtjax_torch.render import wavefront as wf
+    scene = _step_scene(cuda)
+    cam = Camera.make((0, 0.5, 3), (0, 0, 0), (0, 1, 0), 45, 1.0,
+                      device=cuda)
+    cfg = RenderConfig(width=40, height=30, num_samples=4, max_bounces=5,
+                       num_working_paths=3000, direct_max_tris=0, **change)
+    assert wf.step_kernels_cover(scene, cfg)
+    mode = S.step_mode(scene, cfg)
+    n = cfg.pool_size
+    g = torch.Generator(device=cuda).manual_seed(4)
+    copy = lambda v: tuple(c.clone() for c in v) if isinstance(v, tuple) \
+        else v.clone()
+    limbo = 0
+    for it in range(3):
+        state = _synthetic_state(scene, cfg, g, cuda)
+        words = torch.randint(0, 1 << 32, (5, n), generator=g, device=cuda,
+                              dtype=torch.int64)
+        fb = torch.rand(cfg.num_pixels, 3, generator=g, device=cuda)
+        fb0, fb1 = fb.clone(), fb.clone()
+        cam_start = torch.tensor(it * 997, device=cuda)
+        state1 = dataclasses.replace(state, **{
+            f: copy(v) for f, v in vars(state).items()})
+        if mode == "unsorted":
+            sh0 = S.route_shade_unsorted_ref(scene, cam, cfg, state, fb0,
+                                             words, cam_start)
+            sh1 = S.route_shade_unsorted(scene, cam, cfg, state1, fb1, words,
+                                         cam_start)
+        else:
+            want = S.route_full_ref(scene, cfg, state, words, mode)
+            got = S.route_full(scene, cfg, state, words, mode)
+            for x, y in zip(got, want, strict=True):
+                assert (x is None and y is None) or _bits_equal(x, y)
+            keys, record, counts = want
+            limbo += int(counts[4])
+            order = None if keys is None else \
+                torch.sort(keys, stable=True).indices
+            sh0 = S.shade_full_ref(scene, cam, cfg, fb0, words, order,
+                                   record, counts, cam_start, mode)
+            sh1 = S.shade_full(scene, cam, cfg, state1, fb1, words, order,
+                               record, counts.clone(), cam_start, mode)
+        fields = ("pixel", "ray_o", "ray_d", "beta", "bounces", "acc",
+                  "trace_mask", "counts", "shadow", "ah_L", "chs_L") + \
+            ("limbo",) * mode.startswith("parity")
+        for f in fields:
+            a, b = _flat(getattr(sh1, f)), _flat(getattr(sh0, f))
+            assert len(a) == len(b), f
+            for j, (x, y) in enumerate(zip(a, b)):
+                assert _bits_equal(x, y), (f, j)
+        torch.testing.assert_close(fb1, fb0, rtol=1e-5, atol=1e-7)
+        assert not S.scan_buffer(cuda, torch.cuda.current_stream(
+            cuda).cuda_stream, n).any()
+        occ = torch.rand(2 * n, generator=g, device=cuda) < 0.3
+        hits = (torch.rand(n, generator=g, device=cuda) < 0.5,
+                torch.rand(n, generator=g, device=cuda),
+                tuple(torch.randn(n, generator=g, device=cuda)
+                      for _ in range(3)),
+                torch.randint(-1, 9, (n,), generator=g, device=cuda,
+                              dtype=torch.int32),
+                torch.zeros(n, dtype=torch.int32, device=cuda))
+        rays = torch.tensor(7.0, dtype=torch.float64, device=cuda)
+        occ_sum = torch.tensor(0.5, dtype=torch.float64, device=cuda)
+        if mode == "unsorted":
+            acc, *rest = S.resolve_ref(cfg, sh0, occ, 0, 1, cam_start, rays,
+                                       occ_sum)
+            r0 = (acc, hits, *rest)
+        else:
+            r0 = S.resolve_full_ref(cfg, sh0, occ, hits, cam_start, rays,
+                                    occ_sum, mode)
+        sh0.acc = copy(sh0.acc)
+        r1 = S.resolve_full(cfg, sh0, occ, tuple(copy(v) for v in hits),
+                            cam_start, rays, occ_sum, mode)
+        for j, (x, y) in enumerate(zip(_flat(r1), _flat(r0), strict=True)):
+            assert _bits_equal(x, y), ("resolve", j)
+    assert (limbo > 0) == mode.startswith("parity")
 
 
 def test_step_kernels_on_an_instanced_scene(cuda):
@@ -1739,14 +1829,22 @@ def test_step_kernels_on_an_instanced_scene(cuda):
     ("planes", {}), ("planes", dict(direct_max_tris=0, sort_every=1)),
     ("planes", dict(direct_max_tris=0, sort_key="adaptive")),
     ("instanced", dict(direct_max_tris=0, two_level="kernel")),
-    ("instanced", dict(direct_max_tris=0))], ids=str)
+    ("instanced", dict(direct_max_tris=0)),
+    ("planes", dict(direct_max_tris=0, sort_rays=False)),
+    ("planes", dict(direct_max_tris=0, traversal="xla")),
+    ("planes", dict(direct_max_tris=0, reference_parity=True, rr_start=0)),
+    ("planes", dict(direct_max_tris=0, reference_parity=True,
+                    traversal="xla")),
+    ("instanced", dict(direct_max_tris=0, reference_parity=True))],
+    ids=str)
 def test_step_kernel_frame_equals_the_op_by_op_step(cuda, kind, change):
     """A captured frame through the step kernels against one through the
     op-by-op step (``step_kernels=False``), one seed: the same
-    iterations, rays, occupancy and traversal launches, the step kernels
-    launched once an iteration (none in the other), framebuffers within
-    the atomic adds' reordering."""
+    iterations, rays, occupancy and traversal launches, the mode's step
+    kernels launched once an iteration (none in the other), framebuffers
+    within the atomic adds' reordering."""
     from rtjax_torch.kernels import counts
+    from rtjax_torch.kernels import step as S
     scene, cam = _graph_scene(kind, cuda)
     cfg = RenderConfig(width=32, height=32, num_samples=8, max_bounces=4,
                        num_working_paths=4096, **change)
@@ -1762,7 +1860,7 @@ def test_step_kernel_frame_equals_the_op_by_op_step(cuda, kind, change):
         assert st[k] == st0[k], k
     steps = {k: v for k, v in ran.items() if k[0][0] == "step"}
     assert steps == {(("step", "LAUNCHES"), name): st["iterations"]
-                     for name in ("route", "shade", "resolve")}
+                     for name in S.MODE_KERNELS[S.step_mode(scene, cfg)]}
     assert {k: v for k, v in ran.items() if k[0][0] != "step"} == ran0
     torch.testing.assert_close(fb, fb0, rtol=1e-5, atol=1e-7)
     assert bool(torch.isfinite(fb).all()) and float(fb.sum()) > 0

@@ -60,7 +60,8 @@ def test_port_never_imports_jax():
                                     "rtjax_torch.accel",
                                     "rtjax_torch.render",
                                     "rtjax_torch.render.graph",
-                                    "tools.step_designs"])
+                                    "tools.step_designs",
+                                    "tools.mode_steps"])
 def test_host_surface_imports_no_jax(module):
     """Each module of rtjax's host and user surface, imported alone in a
     fresh interpreter, brings in neither JAX nor rtjax."""

@@ -26,6 +26,11 @@ card (tests/test_torch_cuda.py); here their plain versions.
     flush, and the device code compiled as host C++ through the wrappers.
 (f) The library's entry points and kernel ids against its source, and
     the step graph's cache keyed on the design.
+(g) The full-record modes (the unsorted engine, ``reference_parity`` and
+    both): their plain versions through (b) and (c), Russian-roulette
+    limbo lanes included; their device code compiled as host C++ against
+    the plain versions; the camera rank's scan against ``torch.cumsum``;
+    their wrappers launching their own kernels.
 """
 
 import dataclasses
@@ -67,9 +72,11 @@ W = H = 16
 POOL = 512
 
 
-def _jax_mixed(env=(0.2, 0.3, 0.4), point_lights=2, area=True):
+def _jax_mixed(env=(0.2, 0.3, 0.4), point_lights=2, area=True,
+               max_leaf_size=8):
     """rtjax scene: matte, mirror and glass triangles (12 each), point
-    lights, an area light, an environment light."""
+    lights, an area light, an environment light; above 8 triangles a leaf
+    it has no wide tables (the binary walk)."""
     b = JaxSceneBuilder()
     mats = (b.make_matte((0.7, 0.6, 0.5)), b.make_mirror((0.9, 0.8, 0.9)),
             b.make_glass(1.5))
@@ -85,7 +92,7 @@ def _jax_mixed(env=(0.2, 0.3, 0.4), point_lights=2, area=True):
                          [0.0, 1.2, 0.3], (8, 8, 8), mats[0])
     if env is not None:
         b.set_environment(env)
-    return b.build()
+    return b.build(max_leaf_size=max_leaf_size)
 
 
 _JCAM = ((0, 0.5, 3), (0, 0, 0), (0, 1, 0), 45.0, 1.0)
@@ -309,17 +316,19 @@ def _jax_carry(c):
             jnp.bool_(False), jnp.float32(0), jnp.float32(0))
 
 
-@pytest.mark.parametrize("case", ["mixed", "cadence2", "instanced"])
+@pytest.mark.parametrize("case", ["mixed", "cadence2", "instanced", "parity",
+                                  "unsorted"])
 def test_step_matches_rtjax_state_for_state(mixed, case):
     """One iteration of the composed plain step against rtjax's
-    ``wavefront_step`` (its sorted engine, op by op) on rtjax's words,
-    from a synthetic pool of every lane kind: glass, mirror, point and
-    area lights and the environment light at cadence 1 (the headline's),
-    the Cornell box at cadence 2 on iteration 1 with nine in ten paths
-    continuing (a ``sort_every`` skip), and an instanced scene.  Integers
-    exact but the prim and src of equal-t ties, floats at rtol 1e-5 /
-    atol 1e-6."""
-    if case == "mixed":
+    ``wavefront_step`` (op by op) on rtjax's words, from a synthetic pool
+    of every lane kind: glass, mirror, point and area lights and the
+    environment light at cadence 1 (the headline's), the Cornell box at
+    cadence 2 on iteration 1 with nine in ten paths continuing (a
+    ``sort_every`` skip), an instanced scene, and the mixed scene under
+    ``reference_parity`` (roulette from bounce 0: limbo lanes) and on the
+    unsorted engine (``sort_rays=False``).  Integers exact but the prim
+    and src of equal-t ties, floats at rtol 1e-5 / atol 1e-6."""
+    if case in ("mixed", "parity", "unsorted"):
         jscene, jcam, scene, cam = mixed
     elif case == "instanced":
         jscene = _jax_scene("pyramid3")
@@ -334,7 +343,9 @@ def test_step_matches_rtjax_state_for_state(mixed, case):
         cam = Camera.from_arrays(camera_arrays(jcam), "cpu")
     kw = dict(width=W, height=H, num_samples=4, max_bounces=4,
               num_working_paths=POOL,
-              sort_every=1 if case == "mixed" else 0)
+              sort_every=1 if case == "mixed" else 0,
+              **{"parity": dict(reference_parity=True, rr_start=0),
+                 "unsorted": dict(sort_rays=False)}.get(case, {}))
     jcfg = JaxConfig(traversal="pallas", **kw)
     cfg = RenderConfig(**kw)
     assert wf.step_kernels_cover(scene, cfg)
@@ -349,8 +360,14 @@ def test_step_matches_rtjax_state_for_state(mixed, case):
         words = np.asarray(jax_rng.bits_block(key, jnp.int32(it), 5,
                                               POOL)).astype(np.int64)
         jc = jax_wf.wavefront_step(jscene, jcam, jcfg, key, _jax_carry(c))
+    if case == "parity":
+        limbo = S.route_full_ref(scene, cfg, state, torch.tensor(words),
+                                 "parity")[2][4]
+        assert int(limbo) > 0
+        refs = dict(S.REF_CALLS)
     c = wf.wavefront_step(scene, cam, cfg, torch.tensor(words), c)
-    assert all(S.REF_CALLS[k] - refs[k] == 1 for k in refs)
+    mine = S.MODE_KERNELS[S.step_mode(scene, cfg)]
+    assert all(S.REF_CALLS[k] - refs[k] == (k in mine) for k in refs)
     js, s = jc[0], c[0]
     hit = np.asarray(js.hit)
     uniq = np.ones(POOL, bool)
@@ -378,6 +395,9 @@ def test_step_matches_rtjax_state_for_state(mixed, case):
 
 # ---------------------------------- (c) the step against the op-by-op step
 
+_PARITY = dict(reference_parity=True, rr_start=0)
+
+
 @pytest.mark.parametrize("change, lights", [
     ({}, "mixed"), (dict(sort_key="adaptive"), "mixed"),
     (dict(sort_key="prim_pos"), "mixed"), (dict(sort_key="morton"), "mixed"),
@@ -385,15 +405,29 @@ def test_step_matches_rtjax_state_for_state(mixed, case):
     (dict(sort_key="normal_pos", sort_every=3), "mixed"),
     (dict(sort_key="prim", num_samples=16), "mixed"),
     ({}, "none"), ({}, "points"), (dict(two_level="kernel"), "instanced"),
-    ({}, "instanced")], ids=str)
+    ({}, "instanced"),
+    (dict(sort_rays=False), "mixed"), (dict(traversal="xla"), "mixed"),
+    (dict(traversal="xla"), "no_wide"),
+    (_PARITY, "mixed"), (dict(_PARITY, sort_key="prim_pos"), "mixed"),
+    (_PARITY, "none"), (_PARITY, "instanced"),
+    (dict(_PARITY, sort_rays=False), "mixed")], ids=str)
 def test_step_equals_the_op_by_op_step(mixed, change, lights):
     """Three iterations from a fresh pool, both steps on the same words:
-    every state field, the framebuffer and the counters bit for bit."""
+    every state field, the framebuffer and the counters bit for bit.
+    Beside the sorted engine's default estimator: the unsorted engine
+    (``sort_rays=False``, the traversal "xla", also on a scene without wide
+    tables), and ``reference_parity`` with roulette from bounce 0, so that
+    lanes fall into limbo within the three iterations."""
+    limbo = 0
     if lights == "instanced":
         scene = scene_from_arrays(inst_scene_arrays(_jax_scene("pyramid3")),
                                   "cpu")
     elif lights == "mixed":
         scene = mixed[2]
+    elif lights == "no_wide":
+        scene = scene_from_arrays(scene_arrays(_jax_mixed(max_leaf_size=12)),
+                                  "cpu")
+        assert scene.tables is None
     else:
         scene = scene_from_arrays(scene_arrays(_jax_mixed(
             env=None, area=lights == "none", point_lights=2 * (
@@ -404,8 +438,12 @@ def test_step_equals_the_op_by_op_step(mixed, change, lights):
     cfg = _cfg(direct_max_tris=64, **change)
     assert wf.step_kernels_cover(scene, cfg)
     new, old = wf.initial_carry(cfg, "cpu"), wf.initial_carry(cfg, "cpu")
+    mode = S.step_mode(scene, cfg)
     for it in range(3):
         words = _words(10 + it)
+        if mode.startswith("parity"):
+            limbo += int(S.route_full_ref(scene, cfg, new[0], words,
+                                          mode)[2][4])
         new = wf.wavefront_step(scene, cam, cfg, words, new)
         old = wf.wavefront_step(scene, cam, cfg, words, old,
                                 step_kernels=False)
@@ -416,19 +454,29 @@ def test_step_equals_the_op_by_op_step(mixed, change, lights):
             else:
                 assert x == y
     assert float(new[5]) > 0
+    assert (limbo > 0) == mode.startswith("parity")
 
 
 # --------------------------------------------------- (d) routing, checks
 
 @pytest.mark.parametrize("change, covered", [
     ({}, True), (dict(sort_key="prim", sort_every=3), True),
-    (dict(reference_parity=True), False), (dict(one_sample_mis=True), False),
-    (dict(sort_rays=False), False), (dict(traversal="xla"), False),
+    (dict(reference_parity=True), True), (dict(one_sample_mis=True), False),
+    (dict(sort_rays=False), True), (dict(traversal="xla"), True),
     (dict(detailed_stats=True), False), (dict(max_bounces=126), False),
-    (dict(width=2048, height=1025), False)], ids=str)
+    (dict(width=2048, height=1025), False),
+    (dict(reference_parity=True, max_bounces=126), True),
+    (dict(sort_rays=False, width=2048, height=1025), True),
+    (dict(reference_parity=True, sort_rays=False), True),
+    (dict(reference_parity=True, detailed_stats=True), False),
+    (dict(traversal="xla", detailed_stats=True), False),
+    (dict(sort_rays=False, one_sample_mis=True), False)], ids=str)
 def test_mode_predicate(mixed, change, covered):
     """``step_kernels_cover`` names the modes the kernels run: the default
-    estimator of the sorted engine with the compact bundle."""
+    estimator of the sorted engine with the compact bundle, and the
+    unsorted engine and ``reference_parity`` at any ranges (their
+    full-precision record), never with ``one_sample_mis`` or
+    ``detailed_stats``."""
     assert wf.step_kernels_cover(mixed[2], _cfg(**change)) == covered
 
 
@@ -453,13 +501,17 @@ class _Spy:
 
 @pytest.mark.parametrize("step_kernels, change, want", [
     (True, {}, ["route", "shade", "resolve"]),
-    (False, {}, []), (True, dict(reference_parity=True), []),
-    (True, dict(sort_rays=False), [])], ids=str)
+    (False, {}, []),
+    (True, dict(reference_parity=True),
+     ["route_parity", "shade_parity", "resolve_parity"]),
+    (True, dict(sort_rays=False), ["resolve", "route_shade_unsorted"]),
+    (False, dict(reference_parity=True), []),
+    (True, dict(one_sample_mis=True), [])], ids=str)
 def test_step_routes_by_mode_and_device(mixed, monkeypatch, step_kernels,
                                         change, want):
     """On a CUDA tensor the wrappers launch their kernels (spied), on a
-    CPU one they run the plain versions; the modes outside the predicate
-    and ``step_kernels=False`` call neither."""
+    CPU one they run the plain versions, each mode its own; the modes
+    outside the predicate and ``step_kernels=False`` call neither."""
     _, _, scene, cam = mixed
     cfg = _cfg(**change)
     refs, launches = dict(S.REF_CALLS), dict(S.LAUNCHES)
@@ -809,3 +861,244 @@ def test_graph_refuses_to_capture_under_another_design(mixed, monkeypatch):
     monkeypatch.setattr(S, "DESIGN", "v1")
     with pytest.raises(RuntimeError, match="captured under the 'record'"):
         g.step(torch.Generator())
+
+
+# ------------------------------------------------- (g) the full-record modes
+
+_FULL_MODES = {"unsorted": dict(sort_rays=False), "parity": _PARITY,
+               "parity_unsorted": dict(_PARITY, sort_rays=False)}
+
+
+def _on_host(monkeypatch):
+    """Bind the host-compiled kernels as the library and take the card's
+    path on CPU tensors."""
+    monkeypatch.setattr(S, "_lib", _host_kernels())
+    monkeypatch.setattr(S, "_on_card", lambda t: True)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev=None: type("S", (), {"cuda_stream": 0}))
+
+
+def _copy_state(st):
+    return dataclasses.replace(st, **{
+        f: tuple(c.clone() for c in v) if isinstance(v, tuple) else v.clone()
+        for f, v in vars(st).items()})
+
+
+@pytest.mark.parametrize("mode", sorted(_FULL_MODES))
+@pytest.mark.parametrize("lights", ["mixed", "none"])
+def test_host_compiled_full_modes_match_plain_versions(mixed, monkeypatch,
+                                                       mode, lights):
+    """csrc/step_math.cuh's full-record modes compiled as host C++ and run
+    through the real wrappers on CPU tensors, on a synthetic pool with
+    limbo lanes: route (keys, record, counts) and resolve (radiance, the
+    limbo lanes' restored hits, counters) bit for bit against their plain
+    versions; shade's (on the unsorted engine route and shade's one
+    kernel's) integers, masks and framebuffer (every flushing lane added
+    in order) bit for bit and its floats at rtol 1e-4, as the default
+    instances' host test (the host's sin, cos and the card's division by
+    a host scalar differ from torch's CPU ones)."""
+    _, _, scene, cam = mixed
+    if lights == "none":
+        scene = dataclasses.replace(scene, num_lights=0)
+    cfg = _cfg(**_FULL_MODES[mode])
+    assert S.step_mode(scene, cfg) == mode
+    state = _synthetic_state(scene, cfg, 50)
+    words = _words(51)
+    fb = torch.tensor(np.random.default_rng(5).uniform(
+        0, 2, (cfg.num_pixels, 3)).astype(np.float32))
+    fb0, fb1 = fb.clone(), fb.clone()
+    cam_start = torch.tensor(301)
+    scan = S.scan_buffer("cpu", 0, POOL)
+    if mode == "unsorted":
+        sh0 = S.route_shade_unsorted_ref(scene, cam, cfg, state, fb0, words,
+                                         cam_start)
+        _on_host(monkeypatch)
+        sh1 = S.route_shade_unsorted(scene, cam, cfg, _copy_state(state),
+                                     fb1, words, cam_start)
+    else:
+        want = S.route_full_ref(scene, cfg, state, words, mode)
+        _on_host(monkeypatch)
+        got = S.route_full(scene, cfg, state, words, mode)
+        for x, y in zip(got, want, strict=True):
+            assert (x is None and y is None) or torch.equal(x, y)
+        assert int(want[2][4]) > 0
+        keys, record, counts = want
+        order = None if keys is None else \
+            torch.sort(keys, stable=True).indices
+        sh0 = S.shade_full_ref(scene, cam, cfg, fb0, words, order, record,
+                               counts, cam_start, mode)
+        sh1 = S.shade_full(scene, cam, cfg, _copy_state(state), fb1, words,
+                           order, record, counts.clone(), cam_start, mode)
+    # the scan buffer is left zero for the next launch
+    assert scan.shape == (S.scan_words(POOL),) and not scan.any()
+    fields = ("pixel", "ray_o", "ray_d", "beta", "bounces", "acc",
+              "trace_mask", "counts", "shadow", "ah_L", "chs_L")
+    fields += ("limbo",) * mode.startswith("parity")
+    for f in fields:
+        for x, y in zip(_flat(getattr(sh1, f)), _flat(getattr(sh0, f)),
+                        strict=True):
+            if x.dtype == torch.float32:
+                torch.testing.assert_close(x, y, rtol=1e-4, atol=1e-5,
+                                           equal_nan=True)
+            else:
+                assert torch.equal(x, y), f
+    assert torch.equal(_bits(fb1), _bits(fb0)) and not torch.equal(fb1, fb)
+    # resolve on the plain version's shading, with drawn hits
+    rng = np.random.default_rng(52)
+    occ = None if sh0.shadow is None else \
+        torch.tensor(rng.uniform(size=2 * POOL) < 0.3)
+    hits = (torch.tensor(rng.uniform(size=POOL) < 0.5),
+            torch.tensor(rng.uniform(0, 3, POOL).astype(np.float32)),
+            tuple(torch.tensor(rng.normal(size=POOL).astype(np.float32))
+                  for _ in range(3)),
+            torch.tensor(rng.integers(-1, 20, POOL).astype(np.int32)),
+            torch.zeros(POOL, dtype=torch.int32))
+    rays, occ_sum = (torch.tensor(v, dtype=torch.float64) for v in (7, .5))
+    copy = lambda v: tuple(c.clone() for c in v)
+    monkeypatch.setattr(S, "_on_card", lambda t: False)
+    r0 = S.resolve_full(cfg, dataclasses.replace(sh0, acc=copy(sh0.acc)),
+                        occ, hits, cam_start, rays, occ_sum, mode)
+    monkeypatch.setattr(S, "_on_card", lambda t: True)
+    r1 = S.resolve_full(cfg, dataclasses.replace(sh0, acc=copy(sh0.acc)),
+                        occ, tuple(copy(v) if isinstance(v, tuple)
+                                   else v.clone() for v in hits),
+                        cam_start, rays, occ_sum, mode)
+    for x, y in zip(_flat(r1), _flat(r0), strict=True):
+        assert x.dtype == y.dtype and torch.equal(_bits(x), _bits(y))
+    if mode.startswith("parity"):
+        assert bool(r1[1][0][sh0.limbo].all())
+
+
+_RANK_MASKS = {
+    "all": lambda i: i >= 0, "none": lambda i: i < 0,
+    "alternating": lambda i: i % 2 == 0,
+    "one a block": lambda i: i % S.SCAN_BLOCK == 37,
+    "block edges": lambda i: (i % S.SCAN_BLOCK == 0)
+    | (i % S.SCAN_BLOCK == S.SCAN_BLOCK - 1)}
+
+
+@pytest.mark.parametrize("mask", list(_RANK_MASKS))
+def test_scan_rank_equals_cumsum(mixed, monkeypatch, mask):
+    """The camera rank of the unsorted engine is the exclusive prefix sum
+    of the lanes that take a camera ray, in slot order, across shade
+    blocks (7 of SCAN_BLOCK lanes and a ragged tail): with one sample a
+    pixel in scanline order, such a lane takes pixel ``cam_start`` + its
+    rank.  The plain version (``torch.cumsum``) and the host-compiled
+    kernels (step_math.cuh's look-back scan, each block walking back over
+    its predecessors' aggregates) both give ``torch.cumsum``'s ranks."""
+    _, _, scene, cam = mixed
+    n = 7 * S.SCAN_BLOCK + 5
+    cfg = RenderConfig(width=64, height=64, num_samples=1, max_bounces=5,
+                       num_working_paths=n, sort_rays=False,
+                       camera_order="scanline", rr_start=1 << 20,
+                       direct_max_tris=0)
+    gen = _RANK_MASKS[mask](torch.arange(n))
+    f = lambda v: torch.full((n,), v)
+    z = torch.zeros(n, dtype=torch.int32)
+    state = wf.PathState(
+        pixel=z.clone(), ray_o=(f(0.0), f(0.0), f(0.0)),
+        ray_d=(f(0.0), f(0.0), f(1.0)), hit=~gen, t=f(1.0),
+        normal=(f(0.0), f(1.0), f(0.0)), prim=z.clone(), src=z.clone(),
+        bounces=torch.where(gen, DEAD_BOUNCES, 0).to(torch.int32),
+        beta=(f(1.0), f(1.0), f(1.0)), acc=(f(0.0), f(0.0), f(0.0)))
+    want = torch.where(gen, 11 + torch.cumsum(gen, 0) - gen.long(), 0)
+    words = _words(60, n)
+
+    def pixels():
+        sh = S.route_shade_unsorted(scene, cam, cfg, _copy_state(state),
+                                    torch.zeros(cfg.num_pixels, 3), words,
+                                    torch.tensor(11))
+        assert bool(sh.trace_mask.all())
+        return torch.where(gen, sh.pixel.long(), 0)
+
+    assert torch.equal(pixels(), want)
+    _on_host(monkeypatch)
+    assert torch.equal(pixels(), want)
+
+
+@pytest.mark.parametrize("mode", sorted(_FULL_MODES))
+def test_full_wrappers_launch_their_kernels(mixed, monkeypatch, mode):
+    """On a CUDA tensor (spied) a full-record mode's wrappers launch its
+    own kernels (the unsorted engine's route and shade one, its resolve the
+    default one), and no plain version runs; ``shade_full`` leaves the
+    record, the order and the limbo flags to ``resolve_full``."""
+    _, _, scene, cam = mixed
+    cfg = _cfg(**_FULL_MODES[mode])
+    spy = _Spy()
+    monkeypatch.setattr(S, "_on_card", lambda t: True)
+    monkeypatch.setattr(S, "launch", spy)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev=None: type("S", (), {"cuda_stream": 0}))
+    refs = dict(S.REF_CALLS)
+    state = _synthetic_state(scene, cfg, 3)
+    fb = torch.zeros(cfg.num_pixels, 3)
+    if mode == "unsorted":
+        sh = S.route_shade_unsorted(scene, cam, cfg, state, fb, _words(1),
+                                    torch.tensor(0))
+        assert sh.record is None and sh.order is None and sh.limbo is None
+    else:
+        keys, rec, counts = S.route_full(scene, cfg, state, _words(1), mode)
+        assert (keys is None) == (mode != "parity")
+        order = None if keys is None else torch.arange(POOL)
+        sh = S.shade_full(scene, cam, cfg, state, fb, _words(1), order, rec,
+                          counts, torch.tensor(0), mode)
+        assert sh.record is rec and sh.order is order
+        assert sh.limbo is not None
+    hits = (torch.zeros(POOL, dtype=torch.bool), torch.zeros(POOL),
+            (torch.zeros(POOL),) * 3, torch.zeros(POOL, dtype=torch.int32),
+            torch.zeros(POOL, dtype=torch.int32))
+    out = S.resolve_full(cfg, sh, torch.zeros(2 * POOL, dtype=torch.bool),
+                         hits, torch.tensor(0),
+                         torch.tensor(0.0, dtype=torch.float64),
+                         torch.tensor(0.0, dtype=torch.float64), mode)
+    assert spy.names == list(S.MODE_KERNELS[mode]) and len(out) == 6
+    assert S.REF_CALLS == refs
+
+
+def _tool(name):
+    """A module of ``tools/`` (its functions import ``chip_smoke``)."""
+    import importlib
+    import sys
+    root = str(Path(__file__).resolve().parents[1])
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    return importlib.import_module(f"tools.{name}")
+
+
+@pytest.mark.parametrize("change", [{}, *_FULL_MODES.values(),
+                                    dict(traversal="xla")],
+                         ids=["default", *_FULL_MODES, "xla"])
+def test_step_designs_checks_every_mode(mixed, change):
+    """tools/step_designs.py's check, which chip_smoke.py's phase 14 and
+    tools/mode_steps.py run on the card, takes every mode on the CPU
+    (the wrappers' plain versions): it checks each of the mode's kernels
+    (under the default mode the first design's too) on three op-by-op
+    states, limbo lanes among them under parity, and finds no mismatching
+    lane and no framebuffer gap."""
+    SD = _tool("step_designs")
+    _, _, scene, cam = mixed
+    cfg = _cfg(**change)
+    mode = S.step_mode(scene, cfg)
+    lines = []
+    worst, gap, timed = SD.check_and_time(scene, cam, cfg, (0, 1, 2), None,
+                                          log=lines.append)
+    want = set(S.MODE_KERNELS[mode]) | (
+        {"route_v1", "shade_v1"} if mode == "default" else set())
+    assert set(worst) == want and not any(worst.values())
+    assert gap == 0.0 and timed is None and len(lines) == 3
+    if mode.startswith("parity"):
+        assert re.search(r"[1-9]\d* in limbo", lines[-1]), lines
+
+
+def test_split_patch_applies_to_the_kernel_source():
+    """tools/mode_steps.py --split-ab patches csrc/step_kernels.cu: the
+    unsorted engine's merged branch and its count each occur once, and the
+    patched source keeps the merged kernel and adds a route of its own."""
+    M = _tool("mode_steps")
+    src = _build.STEP_SOURCE.read_text()
+    out = M.split_source(src)
+    assert M.SPLIT_MERGED not in out and M.SPLIT_COUNT not in out
+    assert "route_shade_unsorted_kernel" in out
+    assert 'extern "C" int rtjax_step_route_unsorted(' in out
+    with pytest.raises(RuntimeError, match="no single"):
+        M.split_source(src.replace(M.SPLIT_COUNT, ""))

@@ -363,31 +363,17 @@ def _group(name):
 
 
 def _profiled(sc, cam, cfg):
-    """One captured frame (seed PROFILE_SEED) under torch.profiler:
-    ``{"wall", "device_ms", "events", "iterations", "groups": {label:
-    [ms, launches]}}``."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    from rtjax_torch.render.wavefront import render_frame
-    gen = torch.Generator(device="cuda").manual_seed(PROFILE_SEED)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        _, st = render_frame(sc, cam, cfg, gen)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    ev = [e for e in prof.profiler.kineto_results.events()
-          if e.device_type() == DeviceType.CUDA]
+    """One captured frame (seed PROFILE_SEED) under torch.profiler
+    (``chip_smoke._profiled_frame``): ``{"wall", "device_ms", "events",
+    "iterations", "groups": {label: [ms, launches]}}``."""
+    import chip_smoke as C
+    p = C._profiled_frame(sc, cam, cfg, PROFILE_SEED)
     groups = {label: [0.0, 0] for label, _ in GROUPS + (("other", ""),)}
-    for e in ev:
-        g = groups[_group(e.name())]
-        g[0] += e.duration_ns() / 1e6
-        g[1] += 1
-    dev = sum(e.duration_ns() for e in ev) / 1e6
-    return dict(wall=wall, device_ms=dev, events=len(ev),
-                iterations=st["iterations"], groups=groups,
-                ms_per_iteration=dev / st["iterations"])
+    for name, (ms, count) in p.pop("kernels").items():
+        g = groups[_group(name)]
+        g[0] += ms
+        g[1] += count
+    return dict(p, groups=groups, ms_per_iteration=p["device_ms_per_it"])
 
 
 def frames(cells, card=""):

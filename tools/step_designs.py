@@ -17,11 +17,10 @@ On the headline cell (``bench.py``'s frame: ``cornell_bunny``, 256x256 @
 
 1. prints each kernel's registers, spill bytes, threads a block and
    resident warps an SM (the card's occupancy calculator);
-2. steps a pool op by op and, on the states of ``--its``, holds route and
-   shade of both designs bit for bit against their plain versions (every
-   output; the framebuffer within rtol 1e-5 of the plain version's
-   ``index_add_`` run on the CPU), and the two designs' next state and
-   shadow columns equal;
+2. steps a pool op by op and, on the states of ``--its``, holds route,
+   shade and resolve of both designs bit for bit against their plain
+   versions (every output; the framebuffer within rtol 1e-5 of the plain
+   version's), and the two designs' next state and shadow columns equal;
 3. on the state of ``--time-it`` times, in turns (``_launch_ms``: CUDA
    events between launches queued behind a spin kernel), route against
    route_v1 and shade against shade_v1, and resolve, each with its byte
@@ -32,8 +31,12 @@ with ``__launch_bounds__(128, 1)`` (the library's) and with ``(128)``
 alone, prints ptxas's line for each shade, and times shade on the state
 of ``--time-it`` with each, in turns (steps 2-3 for each copy).
 
-Its timing (:func:`time_state`) is also called by ``chip_smoke.py``'s
-phase 14, which profiles both designs' captured frames in phase 13's busy
+Steps 2-3 (:func:`check_and_time`, :func:`check_state`,
+:func:`time_state`) take any mode of the step kernels (kernels/step.py
+``step_mode``; the full-record modes' route, shade and resolve, or the
+unsorted engine's route-and-shade and resolve) and are what
+``chip_smoke.py``'s phase 14 and ``tools/mode_steps.py`` check and time
+with; phase 14 profiles both designs' captured frames in phase 13's busy
 job.
 """
 
@@ -70,21 +73,10 @@ def _copy(st):
 
 SHADE_FIELDS = ("pixel", "ray_o", "ray_d", "beta", "bounces", "acc",
                 "trace_mask", "counts", "shadow", "ah_L", "chs_L")
-
-
-def plain_flush_cpu(fb, bundle, order, do_gen):
-    """The framebuffer after the plain version's flush, ``index_add_`` of
-    every lane's radiance in sorted position, run on the CPU (one add a
-    lane, in order)."""
-    import torch
-    from rtjax_torch.kernels import step as S
-    n = bundle.shape[0]
-    if do_gen is not None:
-        order = torch.where(do_gen, order, torch.arange(n, device=fb.device))
-    _, _, acc, pixel, _, mat, *_ = S.unpack_bundle(bundle[order])
-    flushing = ~mat if do_gen is None else ~mat & do_gen
-    flush = torch.stack([torch.where(flushing, c, 0.0) for c in acc], 1)
-    return fb.cpu().index_add_(0, pixel.long().cpu(), flush.cpu())
+RESOLVE_FIELDS = ("acc[0]", "acc[1]", "acc[2]")
+HIT_FIELDS = ("hit", "t", "normal[0]", "normal[1]", "normal[2]", "prim",
+              "src")
+COUNTER_FIELDS = ("cam_start", "work_left", "rays_traced", "occ_sum")
 
 
 def flush_atomics(bundle, order, counts, do_gen):
@@ -112,125 +104,323 @@ def flush_atomics(bundle, order, counts, do_gen):
 
 
 def check_state(scene, camera, cfg, state, words, fb, it, cam_start):
-    """Route and shade of both designs against their plain versions on
-    one state: ``({check: mismatching lanes}, framebuffer gap,
-    checked)``; ``checked`` holds what :func:`time_state` needs."""
+    """The step kernels of ``cfg``'s mode (kernels/step.py ``step_mode``,
+    ``MODE_KERNELS``) against their plain versions on one state, the
+    kernels on copies of what they write in place: ``({kernel: {field:
+    mismatching lanes}}, framebuffer gap, checked)``; ``checked`` holds
+    what :func:`time_state` needs.  Every output bit for bit; the
+    framebuffer within FB_RTOL of the plain version's (its atomic adds'
+    order).  Under the default mode also the first design (route_v1,
+    shade_v1) against the same plain versions and shade against shade_v1.
+    Resolve takes a random occlusion; under the parity modes the closest
+    hits it restores limbo lanes into are a traversal of the plain
+    version's rays."""
     import chip_smoke as C
     import torch
     from rtjax_torch.kernels import step as S
+    from rtjax_torch.render.trace import trace_closest
     from rtjax_torch.render import wavefront as WF
+    mode = S.step_mode(scene, cfg)
+    kernels = S.MODE_KERNELS[mode]
+    shade_k, resolve_k = kernels[-2:]
+    n, dev = cfg.pool_size, state.pixel.device
     k = WF.resolve_sort_every(scene, cfg)
-    n = cfg.pool_size
-    bad = {}
+    bad = {name: {} for name in kernels + (
+        ("route_v1", "shade_v1") if mode == "default" else ())}
 
-    def tally(what, got, want):
-        for x, y in zip(C._flat_out(got), C._flat_out(want), strict=True):
-            bad[what] = bad.get(what, 0) + C._lanes_differ(x, y)
+    def tally(kernel, names, got, want):
+        got, want = C._flat_out(got), C._flat_out(want)
+        if len(got) != len(want):
+            raise RuntimeError(f"{kernel}: {len(got)} outputs against the "
+                               f"plain version's {len(want)}")
+        for name, x, y in zip(names, got, want, strict=True):
+            bad[kernel][name] = bad[kernel].get(name, 0) + \
+                C._lanes_differ(x, y)
 
-    want = S.route_ref(scene, cfg, state, words)
-    tally("route", S.route(scene, cfg, state, words), want)
-    want_v1 = S.route_v1_ref(scene, cfg, state, words)
-    tally("route_v1", S.route_v1(scene, cfg, state, words), want_v1)
-    keys, bundle, counts = want
-    order = torch.sort(keys, stable=True).indices
-    do_gen = S.cadence(counts, n, it, k)
-    sh0 = S.shade_ref(scene, camera, cfg, state, fb.clone(), words, order,
-                      bundle, counts, it, cam_start, k)
-    fb1, fb2 = fb.clone(), fb.clone()
-    sh1 = S.shade(scene, camera, cfg, _copy(state), fb1, words, order,
-                  bundle, counts.clone(), it, cam_start, k)
-    sh2 = S.shade_v1(scene, camera, cfg, _copy(state), fb2, words, order,
-                     want_v1[1], counts.clone(), it, cam_start, k)
-    for f in SHADE_FIELDS:
-        tally("shade", getattr(sh1, f), getattr(sh0, f))
-        tally("shade_v1", getattr(sh2, f), getattr(sh0, f))
-        tally("shade = shade_v1", getattr(sh1, f), getattr(sh2, f))
-    want_fb = plain_flush_cpu(fb, bundle, order, do_gen)
-    gap = float((fb1.cpu() - want_fb).abs().max())
-    if not torch.allclose(fb1.cpu(), want_fb, rtol=FB_RTOL, atol=FB_ATOL):
-        bad["framebuffer beyond rtol"] = 1
-    if not torch.allclose(fb2.cpu(), want_fb, rtol=FB_RTOL, atol=FB_ATOL):
-        bad["framebuffer v1 beyond rtol"] = 1
-    return bad, gap, dict(keys=keys, order=order, bundle=bundle,
-                          bundle_v1=want_v1[1], counts=counts, sh=sh0,
-                          do_gen=do_gen)
+    fb0, fb1, fb2 = fb.clone(), fb.clone(), fb.clone()
+    c = dict(mode=mode, keys=None, order=None, do_gen=None)
+    if mode == "default":
+        want = S.route_ref(scene, cfg, state, words)
+        tally("route", ("keys", "bundle", "counts"),
+              S.route(scene, cfg, state, words), want)
+        want_v1 = S.route_v1_ref(scene, cfg, state, words)
+        tally("route_v1", ("keys", "bundle", "counts"),
+              S.route_v1(scene, cfg, state, words), want_v1)
+        keys, bundle, counts = want
+        order = torch.sort(keys, stable=True).indices
+        sh0 = S.shade_ref(scene, camera, cfg, state, fb0, words, order,
+                          bundle, counts, it, cam_start, k)
+        sh1 = S.shade(scene, camera, cfg, _copy(state), fb1, words, order,
+                      bundle, counts.clone(), it, cam_start, k)
+        sh2 = S.shade_v1(scene, camera, cfg, _copy(state), fb2, words,
+                         order, want_v1[1], counts.clone(), it, cam_start, k)
+        c.update(keys=keys, order=order, bundle=bundle, bundle_v1=want_v1[1],
+                 counts=counts, do_gen=S.cadence(counts, n, it, k))
+    elif mode == "unsorted":
+        sh0 = S.route_shade_unsorted_ref(scene, camera, cfg, state, fb0,
+                                         words, cam_start)
+        sh1 = S.route_shade_unsorted(scene, camera, cfg, _copy(state), fb1,
+                                     words, cam_start)
+        c.update(record=S._route_full(scene, cfg, state, words, mode)[1],
+                 counts=sh0.counts)
+    else:
+        want = S.route_full_ref(scene, cfg, state, words, mode)
+        tally(kernels[0], ("keys",) * (want[0] is not None)
+              + ("record", "counts"),
+              S.route_full(scene, cfg, state, words, mode), want)
+        keys, record, counts = want
+        order = None if keys is None else \
+            torch.sort(keys, stable=True).indices
+        sh0 = S.shade_full_ref(scene, camera, cfg, fb0, words, order, record,
+                               counts, cam_start, mode)
+        sh1 = S.shade_full(scene, camera, cfg, _copy(state), fb1, words,
+                           order, record, counts.clone(), cam_start, mode)
+        c.update(keys=keys, order=order, record=record, counts=counts)
+    fields = SHADE_FIELDS + (("limbo",) if mode.startswith("parity") else ())
+    for f in fields:
+        want_f = C._flat_out(getattr(sh0, f))
+        names = [f"{f}[{j}]" for j in range(len(want_f))]
+        tally(shade_k, names, getattr(sh1, f), want_f)
+        if mode == "default":
+            tally("shade_v1", names, getattr(sh2, f), want_f)
+            tally("shade_v1", [f"= shade {x}" for x in names],
+                  getattr(sh2, f), getattr(sh1, f))
+    gap = float((fb1 - fb0).abs().max())
+    for kernel, got in ((shade_k, fb1),) + (
+            (("shade_v1", fb2),) if mode == "default" else ()):
+        if not torch.allclose(got, fb0, rtol=FB_RTOL, atol=FB_ATOL):
+            bad[kernel]["fb beyond rtol"] = 1
+    g = torch.Generator(device=dev).manual_seed(9)
+    occ = None if sh0.shadow is None else \
+        torch.rand(2 * n, generator=g, device=dev) < 0.3
+    rays = torch.tensor(7.0, dtype=torch.float64, device=dev)
+    occ_sum = torch.tensor(0.5, dtype=torch.float64, device=dev)
+    acc_copy = dataclasses.replace(sh0, acc=tuple(x.clone() for x in sh0.acc))
+    hits = None
+    if resolve_k == "resolve":
+        # the unsorted engine: the default resolve at sort_every 1
+        r_it, r_k = (it, k) if mode == "default" else (0, 1)
+        r0 = S.resolve_ref(cfg, sh0, occ, r_it, r_k, cam_start, rays,
+                           occ_sum)
+        r1 = S.resolve(cfg, acc_copy, occ, r_it, r_k, cam_start, rays,
+                       occ_sum)
+        names = RESOLVE_FIELDS + COUNTER_FIELDS
+    else:
+        inf = torch.full((n,), float("inf"), device=dev)
+        hits = trace_closest(scene, cfg, sh0.ray_o, sh0.ray_d, inf,
+                             sh0.trace_mask)
+        hits = (hits[0], hits[1], hits[4], hits[2], hits[3])
+        r0 = S.resolve_full_ref(cfg, sh0, occ, hits, cam_start, rays,
+                                occ_sum, mode)
+        r1 = S.resolve_full(cfg, acc_copy, occ, _clone(hits), cam_start,
+                            rays, occ_sum, mode)
+        names = RESOLVE_FIELDS + HIT_FIELDS + COUNTER_FIELDS
+    tally(resolve_k, names, r1, r0)
+    c.update(sh=sh0, occ=occ, hits=hits)
+    return bad, gap, c
+
+
+def _clone(v):
+    return tuple(_clone(x) for x in v) if isinstance(v, tuple) else v.clone()
+
+
+# bytes a lane moves under the full-record modes, each input read once and
+# each output written once (the default mode's are chip_smoke.py's
+# ROUTE_BYTES ...): route reads the state (81 B) and its word (8 B) and
+# writes the record's 88 bytes of payload (and, under "parity", its key, 4
+# B); shade reads the record's payload (88 B; under "parity" through the
+# sort's order, 8 B) and five words (40 B), writes the next state (56 B),
+# the traced flag and under the parity modes the limbo flag (1 B each),
+# with lights two shadow rays (66 B) and their radiance (24 B), and a
+# flushing lane's pixel is read and written (24 B); route and shade in one
+# kernel (the unsorted engine) read the state and five words (121 B) and
+# write what shade writes; resolve under parity reads the default's 40 B
+# and the limbo flag and writes the radiance (12 B), and a limbo lane's
+# order (under "parity", 8 B) and record words (24 B) are read and its hit
+# written (21 B)
+ROUTE_FULL_BYTES, ROUTE_KEY = 81 + 8 + 88, 4
+SHADE_FULL_BYTES, SHADE_FLAG, SHADE_ORDER = 88 + 40 + 56 + 1, 1, 8
+MERGED_BYTES = 81 + 40 + 56 + 1
+SHADE_LIGHTS, SHADE_FLUSH = 90, 24
+RESOLVE_FULL_BYTES, RESOLVE_LIMBO, RESOLVE_ORDER = 53, 45, 8
+
+
+def _bounds(scene, cfg, c):
+    """``({kernel: bound}, work)``: each kernel of ``c``'s mode (from
+    :func:`check_state`) with its byte and operation bound on this
+    state's data, and the data-dependent work (flushing and limbo lanes;
+    under the default mode its flush atomics)."""
+    import chip_smoke as C
+    from rtjax_torch.kernels import step as S
+    mode, n = c["mode"], cfg.pool_size
+    lights = scene.num_lights > 0
+    kernels = S.MODE_KERNELS[mode]
+    if mode == "default":
+        do_gen = True if c["do_gen"] is None else bool(c["do_gen"])
+        atomics = flush_atomics(c["bundle"], c["order"], c["counts"],
+                                c["do_gen"])
+        shade_b = n * (C.SHADE_BYTES + C.SHADE_LIGHTS * lights
+                       + C.SHADE_ORDER * do_gen) + C.SHADE_FLUSH * atomics[
+                           "lanes"]
+        b = dict(route=C._step_bound(n * C.ROUTE_BYTES, n * C.ROUTE_OPS),
+                 shade=C._step_bound(shade_b, n * C.SHADE_OPS),
+                 resolve=C._step_bound(n * C.RESOLVE_BYTES,
+                                       n * C.RESOLVE_OPS))
+        b.update(route_v1=b["route"], shade_v1=b["shade"])
+        return b, dict(flush_atomics=atomics)
+    r = S.unpack_full(c["record"] if c["order"] is None
+                      else c["record"][c["order"]])
+    gen = ~r["mat"] & ~r["limbo"]
+    flushing = int((gen & ((r["acc"][0] != 0) | (r["acc"][1] != 0)
+                           | (r["acc"][2] != 0))).sum())
+    limbo = int(r["limbo"].sum())
+    shade = SHADE_LIGHTS * lights
+    if mode == "unsorted":
+        nbytes = (n * (MERGED_BYTES + shade) + SHADE_FLUSH * flushing,
+                  n * C.RESOLVE_BYTES)
+        ops = (C.ROUTE_OPS + C.SHADE_OPS, C.RESOLVE_OPS)
+    else:
+        parity, sort = mode.startswith("parity"), mode == "parity"
+        nbytes = (n * (ROUTE_FULL_BYTES + ROUTE_KEY * sort),
+                  n * (SHADE_FULL_BYTES + SHADE_FLAG * parity
+                       + SHADE_ORDER * sort + shade)
+                  + SHADE_FLUSH * flushing,
+                  n * RESOLVE_FULL_BYTES + limbo * (
+                      RESOLVE_LIMBO + RESOLVE_ORDER * sort))
+        ops = (C.ROUTE_OPS, C.SHADE_OPS, C.RESOLVE_OPS)
+    return ({k: C._step_bound(b, n * o)
+             for k, b, o in zip(kernels, nbytes, ops, strict=True)},
+            dict(flushing=flushing, limbo=limbo))
 
 
 def time_state(scene, camera, cfg, state, words, fb, it, cam_start, c,
                reps=5):
-    """Step 3 on one state (``c`` from :func:`check_state`): ``{kernel:
-    {ms, mean_ms, bound_ms, share, ...}}``, in turns."""
+    """The mode's kernels on one state (``c`` from :func:`check_state`):
+    each kernel's device ms a launch (``chip_smoke._launch_ms`` of its
+    entry point called with argument blocks made before), in turns:
+    first, ..., last, last, ..., first (under the default mode route_v1
+    before route and shade_v1 before shade); its byte bound and share,
+    registers and resident warps; one wrapper call and one plain call of
+    each of the mode's kernels (CUDA events, median); torch.sort of the
+    keys, and under the default mode ``index_add_`` of the flush.  A
+    launch that writes the next state over the one it reads (the unsorted
+    engine's route-and-shade) takes a copy of its own.  Returns
+    ``{"kernels": {kernel: {...}}, "sort_ms", ...}``."""
     import ctypes
 
     import chip_smoke as C
     import torch
     from rtjax_torch.kernels import step as S
-    from rtjax_torch.render.trace import trace_anyhit
     from rtjax_torch.render import wavefront as WF
+    mode = c["mode"]
+    kernels = S.MODE_KERNELS[mode]
     k = WF.resolve_sort_every(scene, cfg)
-    n = cfg.pool_size
+    n, dev = cfg.pool_size, state.pixel.device
     lib = S._kernels()
     stream = torch.cuda.current_stream().cuda_stream
-    entry = lambda name, a: (lambda: getattr(lib, f"rtjax_step_{name}")(
-        ctypes.byref(a), stream))
-    do_gen = True if c["do_gen"] is None else bool(c["do_gen"])
-    a_route, _ = S.route_args(scene, cfg, state, words)
-    a_route_v1, _ = S.route_args(scene, cfg, state, words, v1=True)
-    shade_in = lambda v1=False: (
-        scene, camera, cfg, _copy(state), fb.clone(), words, c["order"],
-        c["bundle_v1"] if v1 else c["bundle"], c["counts"].clone(), it,
-        cam_start, k)
-    a_shade, _ = S.shade_args(*shade_in())
-    a_v1, _ = S.shade_args(*shade_in(True), v1=True)
-    sh = c["sh"]
-    occ = trace_anyhit(scene, cfg, *sh.shadow)
-    rays = torch.zeros((), dtype=torch.float64, device="cuda")
-    a_res, _ = S.resolve_args(cfg, dataclasses.replace(
-        sh, acc=tuple(x.clone() for x in sh.acc)), occ, it, k, cam_start,
-        rays, rays.clone())
-    atomics = flush_atomics(c["bundle"], c["order"], c["counts"],
-                            c["do_gen"])
-    # bytes: the payload of a lane's record (36 B), not its padding
-    lights = scene.num_lights > 0
-    shade_b = n * (C.SHADE_BYTES + C.SHADE_LIGHTS * lights
-                   + C.SHADE_ORDER * do_gen) + C.SHADE_FLUSH * atomics[
-                       "lanes"]
-    bounds = dict(route=C._step_bound(n * C.ROUTE_BYTES, n * C.ROUTE_OPS),
-                  shade=C._step_bound(shade_b, n * C.SHADE_OPS),
-                  resolve=C._step_bound(n * C.RESOLVE_BYTES,
-                                        n * C.RESOLVE_OPS))
-    out = {}
-
-    def put(name, ms, kernel):
-        r = out.setdefault(name, dict(ms=[], **bounds[kernel]))
-        r["ms"].extend(ms)
-
-    # route against route_v1: v1, new, new, v1
-    for name, a in (("route_v1", a_route_v1), ("route", a_route),
-                    ("route", a_route), ("route_v1", a_route_v1)):
-        put(name, [C._launch_ms(entry(name, a), reps)[0]], "route")
-    # shade against shade_v1: v1, new, new, v1
-    for name, a in (("shade_v1", a_v1), ("shade", a_shade),
-                    ("shade", a_shade), ("shade_v1", a_v1)):
-        put(name, [C._launch_ms(entry(name, a), reps)[0]], "shade")
-    put("resolve", [C._launch_ms(entry("resolve", a_res), reps)[0]],
-        "resolve")
-    for r in out.values():
+    call = lambda name, blocks: (lambda: getattr(lib, f"rtjax_step_{name}")(
+        ctypes.byref(next(blocks)), stream))
+    sh, occ = c["sh"], c["occ"]
+    rays = torch.zeros((), dtype=torch.float64, device=dev)
+    sh_copy = lambda: dataclasses.replace(
+        sh, acc=tuple(x.clone() for x in sh.acc))
+    hits = lambda: None if c["hits"] is None else _clone(c["hits"])
+    r_it, r_k = (it, k) if mode == "default" else (0, 1)
+    blocks = 6 * (reps + 1)
+    a_res = S.resolve_args(cfg, sh_copy(), occ, r_it, r_k, cam_start, rays,
+                           rays.clone(), hits=hits())[0]
+    fns = {kernels[-1]: call(kernels[-1], iter([a_res] * blocks))}
+    if mode == "default":
+        for v1 in (False, True):
+            suffix = "_v1" if v1 else ""
+            a_r = S.route_args(scene, cfg, state, words, v1=v1)[0]
+            a_s = S.shade_args(scene, camera, cfg, _copy(state), fb.clone(),
+                               words, c["order"], c["bundle" + suffix],
+                               c["counts"].clone(), it, cam_start, k,
+                               v1=v1)[0]
+            fns["route" + suffix] = call("route" + suffix,
+                                         iter([a_r] * blocks))
+            fns["shade" + suffix] = call("shade" + suffix,
+                                         iter([a_s] * blocks))
+        turns = ("route_v1", "route", "shade_v1", "shade", "resolve")
+    elif mode == "unsorted":
+        zero = lambda: torch.zeros(S.NUM_COUNTS, dtype=torch.int64,
+                                   device=dev)
+        merged = [S.shade_args(scene, camera, cfg, _copy(state), fb.clone(),
+                               words, None, None, zero(), 0, cam_start, 1,
+                               mode=mode)[0] for _ in range(blocks)]
+        fns[kernels[0]] = call(kernels[0], iter(merged))
+        turns = kernels
+    else:
+        a_r = S.route_args(scene, cfg, state, words, mode=mode)[0]
+        a_s = S.shade_args(scene, camera, cfg, _copy(state), fb.clone(),
+                           words, c["order"], c["record"],
+                           c["counts"].clone(), 0, cam_start, 1,
+                           mode=mode)[0]
+        fns[kernels[0]] = call(kernels[0], iter([a_r] * blocks))
+        fns[kernels[1]] = call(kernels[1], iter([a_s] * blocks))
+        turns = kernels
+    bounds, work = _bounds(scene, cfg, c)
+    out = {name: dict(ms=[], **bounds[name]) for name in turns}
+    for name in turns + turns[::-1]:
+        out[name]["ms"].append(C._launch_ms(fns[name], reps)[0])
+    for name, r in out.items():
         r["mean_ms"] = statistics.mean(r["ms"])
         r["share"] = r["bound_ms"] / r["mean_ms"]
-    # one wrapper call each, the host's launch included (CUDA events)
+        r.update(S.kernel_info(name))
+    # one wrapper call (the host's launch included) and one plain call of
+    # each of the mode's kernels
     st = _copy(state)
-    one = {"route": lambda: S.route(scene, cfg, state, words),
-           "shade": lambda: S.shade(scene, camera, cfg, st, fb.clone(),
-                                    words, c["order"], c["bundle"],
-                                    c["counts"].clone(), it, cam_start, k),
-           "resolve": lambda: S.resolve(cfg, dataclasses.replace(
-               sh, acc=tuple(x.clone() for x in sh.acc)), occ, it, k,
-               cam_start, rays, rays.clone())}
-    calls = {name: C._median_ms(fn) for name, fn in one.items()}
-    return dict(kernels=out, one_call=calls, flush_atomics=atomics, lanes=n,
-                sort_ms=C._launch_ms(lambda: torch.sort(
-                    c["keys"], stable=True), reps)[0])
+    if mode == "default":
+        one = {"route": lambda: S.route(scene, cfg, state, words),
+               "shade": lambda: S.shade(
+                   scene, camera, cfg, st, fb.clone(), words, c["order"],
+                   c["bundle"], c["counts"].clone(), it, cam_start, k)}
+        plain = {"route": lambda: S.route_ref(scene, cfg, state, words),
+                 "shade": lambda: S.shade_ref(
+                     scene, camera, cfg, state, fb.clone(), words,
+                     c["order"], c["bundle"], c["counts"], it, cam_start, k)}
+    elif mode == "unsorted":
+        one = {kernels[0]: lambda: S.route_shade_unsorted(
+            scene, camera, cfg, st, fb.clone(), words, cam_start)}
+        plain = {kernels[0]: lambda: S.route_shade_unsorted_ref(
+            scene, camera, cfg, state, fb.clone(), words, cam_start)}
+    else:
+        one = {kernels[0]: lambda: S.route_full(scene, cfg, state, words,
+                                                mode),
+               kernels[1]: lambda: S.shade_full(
+                   scene, camera, cfg, st, fb.clone(), words, c["order"],
+                   c["record"], c["counts"].clone(), cam_start, mode)}
+        plain = {kernels[0]: lambda: S.route_full_ref(scene, cfg, state,
+                                                      words, mode),
+                 kernels[1]: lambda: S.shade_full_ref(
+                     scene, camera, cfg, fb.clone(), words, c["order"],
+                     c["record"], c["counts"], cam_start, mode)}
+    if c["hits"] is None:
+        one[kernels[-1]] = lambda: S.resolve(cfg, sh_copy(), occ, r_it, r_k,
+                                             cam_start, rays, rays.clone())
+        plain[kernels[-1]] = lambda: S.resolve_ref(cfg, sh, occ, r_it, r_k,
+                                                   cam_start, rays, rays)
+    else:
+        one[kernels[-1]] = lambda: S.resolve_full(
+            cfg, sh_copy(), occ, hits(), cam_start, rays, rays.clone(), mode)
+        plain[kernels[-1]] = lambda: S.resolve_full_ref(
+            cfg, sh, occ, c["hits"], cam_start, rays, rays, mode)
+    for name in kernels:
+        out[name]["one_call_ms"] = C._median_ms(one[name])
+        out[name]["plain_ms"] = C._median_ms(plain[name])
+    t = dict(kernels=out, lanes=n, **work)
+    t["sort_ms"] = None if c["keys"] is None else C._launch_ms(
+        lambda: torch.sort(c["keys"], stable=True), reps)[0]
+    if mode == "default":
+        order = c["order"] if c["do_gen"] is None else torch.where(
+            c["do_gen"], c["order"], torch.arange(n, device=dev))
+        _, _, acc, pixel, _, mat, *_ = S.unpack_bundle(c["bundle"][order])
+        flush = torch.stack([torch.where(~mat, x, 0.0) for x in acc], 1)
+        fbx, pix = fb.clone(), pixel.long()
+        t["index_add_ms"] = C._launch_ms(
+            lambda: fbx.index_add_(0, pix, flush), reps)[0]
+    return t
 
 
 def headline():
@@ -242,38 +432,45 @@ def headline():
 
 
 def check_and_time(scene, camera, cfg, its=(0, 1, 2, 5, 12), time_it=12,
-                   label="headline", seed=7):
-    """Steps 2-3 on one cell: the pool stepped op by op from a fresh
-    carry with seeded words; returns ``(mismatches, gap, timings)``."""
+                   label="headline", card="", seed=7, log=print):
+    """The step kernels of ``cfg``'s mode on one cell: the pool stepped op
+    by op from a fresh carry with seeded words, :func:`check_state` on the
+    states of ``its`` and :func:`time_state` on the state of ``time_it``
+    (None: none); returns ``(mismatching lanes by kernel, framebuffer gap,
+    timings)``."""
     import torch
     from rtjax_torch.render import wavefront as WF
-    n = cfg.pool_size
-    g = torch.Generator(device="cuda").manual_seed(seed)
-    carry = WF.initial_carry(cfg, "cuda")
+    n, dev = cfg.pool_size, scene.device
+    g = torch.Generator(device=dev).manual_seed(seed)
+    carry = WF.initial_carry(cfg, dev)
     carry = carry[:3] + (torch.zeros((), dtype=torch.int64,
-                                     device="cuda"),) + carry[4:]
+                                     device=dev),) + carry[4:]
     worst, gap, timed = {}, 0.0, None
     for it in range(max(its) + 1):
-        words = torch.randint(0, 1 << 32, (5, n), generator=g,
-                              device="cuda", dtype=torch.int64)
+        words = torch.randint(0, 1 << 32, (5, n), generator=g, device=dev,
+                              dtype=torch.int64)
         if it in its:
-            bad, err, checked = check_state(scene, camera, cfg, carry[0],
-                                            words, carry[1], carry[3],
-                                            carry[2])
+            bad, err, c = check_state(scene, camera, cfg, carry[0], words,
+                                      carry[1], carry[3], carry[2])
             gap = max(gap, err)
-            for k_, v in bad.items():
-                worst[k_] = worst.get(k_, 0) + v
-            dg = checked["do_gen"]
-            print(f"[step designs {label} it {it}] "
-                  f"{int(checked['counts'][0])} of {n} continue, "
-                  f"{int(checked['counts'][4])} dirty, "
-                  f"{'sorts' if dg is None or bool(dg) else 'skips'}; "
-                  "mismatching lanes " + ", ".join(
-                      f"{k_} {v}" for k_, v in bad.items())
-                  + f"; framebuffer gap {err:.3e}")
+            total = {k: sum(v.values()) for k, v in bad.items()}
+            for k, v in total.items():
+                worst[k] = worst.get(k, 0) + v
+            dg, cnt = c["do_gen"], c["counts"]
+            kind = "dirty" if c["mode"] == "default" else "in limbo"
+            sorts = "" if c["mode"] != "default" else (
+                ", sorts" if dg is None or bool(dg) else ", skips")
+            log(f"[step kernels {label} it {it}] {card}: {int(cnt[0])} of "
+                f"{n} continue, {int(cnt[4])} {kind}{sorts}; mismatching "
+                "lanes " + ", ".join(f"{k} {v}" for k, v in total.items())
+                + f"; framebuffer largest gap {err:.3e}")
+            for k, v in bad.items():
+                if sum(v.values()):
+                    log(f"  {k} mismatches by field: "
+                        f"{ {f: m for f, m in v.items() if m} }")
             if it == time_it:
                 timed = time_state(scene, camera, cfg, carry[0], words,
-                                   carry[1], carry[3], carry[2], checked)
+                                   carry[1], carry[3], carry[2], c)
         carry = WF.wavefront_step(scene, camera, cfg, words, carry,
                                   step_kernels=False)
     return worst, gap, timed
@@ -292,10 +489,11 @@ def run(its=(0, 1, 2, 5, 12), time_it=12):
     for name, r in timed["kernels"].items():
         print(f"[step time {name}] {r['mean_ms']:.4f} ms a launch "
               f"({r['ms']}), bound {r['bound_us']:.3f} us by "
-              f"{r['bound_by']}, {100 * r['share']:.2f}% of it")
-    print(f"[step one call] {timed['one_call']}; flush atomics a shade "
-          f"launch {timed['flush_atomics']}; torch.sort "
-          f"{timed['sort_ms']:.4f} ms")
+              f"{r['bound_by']}, {100 * r['share']:.2f}% of it"
+              + (f"; one call {r['one_call_ms']:.4f} ms" if "one_call_ms"
+                 in r else ""))
+    print(f"[step flush] flush atomics a shade launch "
+          f"{timed['flush_atomics']}; torch.sort {timed['sort_ms']:.4f} ms")
     if any(worst.values()):
         raise RuntimeError(f"the step kernels differ from their plain "
                            f"versions: {worst}")
