@@ -100,8 +100,9 @@ the script exits non-zero):
    through ``cli.main``, seeds 1 and 2: the persist kernels once an
    iteration, framebuffers finite and non-negative, the two means within
    four standard errors of their difference; (b) a headline frame under
-   ``detailed_stats``: only the persist kernels' stats instances, once an
-   iteration, the bounce histogram summing to the path rays traced, the
+   ``detailed_stats``: only the persist kernels' stats instances and the
+   mode's step kernels, once an iteration, the bounce histogram summing to
+   the path rays traced, the
    image at the headline gate; the stats instances' node visits and leaf
    rows equal to the plain walk's ``new_work()`` counts and their results
    bit for bit the default instances', on phase 3's rays and on launch
@@ -112,7 +113,8 @@ the script exits non-zero):
    step kernels once an iteration: the parity mean within
    PARITY_MEAN_TOL of rtjax's parity artifact and the parity / default
    ratio within PARITY_RATIO_TOL of BASELINE's 1.0158; a
-   ``one_sample_mis`` headline frame (op by op) at the headline gate; (d) eval config
+   ``one_sample_mis`` headline frame (on its step kernels) at the
+   headline gate; (d) eval config
    5 (1920x1080, 10 bounces) through ``render_checkpointed``: 8 spp as 2
    batches of 4 saved under build/rtjax_torch/, resumed to 12 spp (one
    batch rendered), the uninterrupted 12-spp image within C5_RTOL /
@@ -282,15 +284,21 @@ the script exits non-zero):
    to the record design's; (c) its busy profile; (d) in turns, route and
    shade against the first design's (tools/step_designs.py), registers
    and resident warps, one wrapper call of each kernel and index_add_ of
-   the flush.  Then the full-record modes (the unsorted engine and
-   reference_parity): the default instances' and the first design's
-   registers held to STEP_REGISTERS, the camera rank's scan against
-   torch.cumsum on five masks (tools/mode_steps.py), the modes' kernels
-   bit for bit against their plain versions (tools/step_designs.py) on
-   the op-by-op states of phase 8(c)'s parity frame, of the headline
-   under parity, "xla", sort_rays=False and parity with "xla", of
-   config 3 under parity, and on synthetic pools with limbo lanes, those
-   cells' frames against step_kernels=False in turns, and each kernel
+   the flush.  Then the other modes (the unsorted engine,
+   reference_parity, the wide bundle, one_sample_mis, detailed_stats):
+   the registers of the default instances, the first design and the
+   unsorted and parity instances held to STEP_REGISTERS, the camera
+   rank's scan against torch.cumsum on five masks (tools/mode_steps.py),
+   the modes' kernels bit for bit against their plain versions
+   (tools/step_designs.py; the bounce histogram too) on the op-by-op
+   states of phase 8(c)'s parity frame, of the headline under parity,
+   "xla", sort_rays=False and parity with "xla", of config 3 under
+   parity, of the headline under detailed_stats, one_sample_mis (also
+   unsorted) and parity with detailed_stats, of phase 9(d)'s wide frame
+   and of the headline at 126 bounces (alone and with one_sample_mis and
+   detailed_stats), and on synthetic pools with limbo or dirty lanes,
+   those cells' frames against step_kernels=False in turns (equal
+   iterations, rays, histograms and traversal sums), and each kernel
    timed;
 7. the two persist kernels' device time over one whole headline frame,
    the two packet kernels' over one walker="packet" headline frame, the
@@ -2154,7 +2162,8 @@ def _check_counting(label, kinds, card):
 
 def phase8_stats(scene, camera, card, floor):
     """(b) A headline frame under ``detailed_stats`` (seed 2), counts from
-    zero: only the stats instances, once an iteration; the histogram sums
+    zero: only the stats instances, once an iteration, and the mode's step
+    kernels (the histogram in resolve), once an iteration; the histogram sums
     to the path rays traced (the closest-hit launches' active rays) and
     its depth 0 to the camera rays; the image at the headline's noise-floor
     gate.  Then the stats instances against the plain walk and the
@@ -2199,6 +2208,9 @@ def phase8_stats(scene, camera, card, floor):
     if not _only_set(c, "persist_stats", st["iterations"]):
         raise RuntimeError("the detailed_stats frame did not run the stats "
                            "instances alone, once an iteration")
+    if not _step_once(c, "default_stats", st["iterations"]):
+        raise RuntimeError("the detailed_stats frame did not run its step "
+                           "kernels once an iteration")
     if int(hist.sum()) != int(path_rays) or \
             int(hist[0]) != WIDTH * HEIGHT * SPP:
         raise RuntimeError("the bounce histogram does not sum to the path "
@@ -2249,9 +2261,9 @@ def phase8_modes(scene, camera, card, floor):
     mode's step kernels once an iteration, none of the others): the
     parity frame's mean within PARITY_MEAN_TOL of the parity artifact's,
     and its ratio to the default frame's within PARITY_RATIO_TOL of
-    PARITY_RATIO; then a ``one_sample_mis`` headline frame (op by op: no
-    step kernel) at the headline gate against the artifact, its any-hit
-    launches N rays each.  Returns the parity frame's step launches too
+    PARITY_RATIO; then a ``one_sample_mis`` headline frame (its step
+    kernels once an iteration, no plain version) at the headline gate
+    against the artifact.  Returns the parity frame's step launches too
     (``launches``)."""
     import dataclasses
 
@@ -2303,9 +2315,11 @@ def phase8_modes(scene, camera, card, floor):
           f"seed 2: {st['iterations']} iterations, {st['rays_traced']:.0f} "
           f"rays, {secs:.3f} s; MSE vs {os.path.relpath(ARTIFACT, ROOT)} "
           f"{ref_mse:.3e} (gate {floor['gate']:.3e}); launches "
-          f"{c['persist']}")
+          f"{c['persist']}, step kernels "
+          f"{ {k: v for k, v in c['step'].items() if v} }")
     if not _only_set(c, "persist", st["iterations"]) or \
-            ref_mse > floor["gate"] or not _step_once(c, None, 0):
+            ref_mse > floor["gate"] or \
+            not _step_once(c, "default_1s", st["iterations"]):
         raise RuntimeError("the one_sample_mis frame failed its gate")
     return dict(means, artifact=art, ratio=ratio, osm_mse=ref_mse,
                 launches=launches["parity"])
@@ -2679,13 +2693,15 @@ SORT_KEYS = ("morton", "prim", "prim_pos", "normal_pos", "adaptive",
 # (d) the wide bundle: one frame above 2^21 pixels, and the two compact
 # frames at half its width it is held to
 WIDE_SIZE, WIDE_SPP = 2048, 4
+WIDE_BOUNCES = 126     # the least max_bounces beyond the compact bundle
 HALF_SIZE, HALF_SPP = 1024, 16
 
 
 def _headline_cfg(**change):
     from rtjax_torch import RenderConfig
-    return RenderConfig(width=WIDTH, height=HEIGHT, num_samples=SPP,
-                        max_bounces=BOUNCES, **change)
+    return RenderConfig(**{**dict(width=WIDTH, height=HEIGHT,
+                                  num_samples=SPP, max_bounces=BOUNCES),
+                           **change})
 
 
 def _gate(label, fb, floor):
@@ -2780,7 +2796,8 @@ def phase9_wide_bundle(scene, camera, card):
     """(d) cornell_bunny at WIDE_SIZE^2 @ WIDE_SPP (above 2^21 pixels: the
     wide sort bundle) and at HALF_SIZE^2 @ HALF_SPP (the compact bundle),
     seeds 2 and 3, counts from zero (persist kernels alone, once an
-    iteration).  Gate: the wide frame's linear radiance box-downsampled
+    iteration, and the bundle's step kernels, ``"wide"`` or ``"default"``,
+    once an iteration).  Gate: the wide frame's linear radiance box-downsampled
     2x2 to HALF_SIZE^2 within 2x the seed-to-seed MSE of the two compact
     frames of the seed-2 compact frame."""
     import numpy as np
@@ -2812,10 +2829,15 @@ def phase9_wide_bundle(scene, camera, card):
               f"{cfg.pool_size}, {st['iterations']} iterations, "
               f"{st['rays_traced']:.0f} rays, {sec:.3f} s, "
               f"{st['rays_traced'] / sec / 1e6:.3f} Mrays/s; launches "
-              f"{c['persist']}")
+              f"{c['persist']}, step kernels "
+              f"{ {k: v for k, v in c['step'].items() if v} }")
         if not _only_set(c, "persist", st["iterations"]):
             raise RuntimeError("the wide-bundle frames did not run the "
                                "persist kernels alone, once an iteration")
+        if not _step_once(c, "default" if compact else "wide",
+                          st["iterations"]):
+            raise RuntimeError("the wide-bundle frames did not run their "
+                               "step kernels once an iteration")
         frames[size, seed] = (fb / spp).cpu().numpy().astype(np.float64) \
             .reshape(size, size, 3)
     w = frames[WIDE_SIZE, 2]
@@ -3014,7 +3036,8 @@ def phase10_stats_frames(scene, camera, c4_scene, c4_camera, card, floor,
     walker="lane" with anyhit_walker="packet", each at phase 4's gate; config
     4 under two_level="kernel", within 2x phase 6(a)'s seed-to-seed MSE
     plus the 8-bit term of its repass frame.  Each frame launches its
-    kernels' stats instances alone, once an iteration, and its histogram
+    kernels' stats instances alone and the step kernels of
+    ``detailed_stats``, once an iteration, and its histogram
     sums to the path rays.  Returns ``{(walk, kind): launches}``."""
     import dataclasses
 
@@ -3058,10 +3081,11 @@ def phase10_stats_frames(scene, camera, c4_scene, c4_camera, card, floor,
               f"(any hit {st['anyhit_steps']} / {st['anyhit_visits']}); MSE "
               f"{err:.3e} (gate {gate:.3e}); launches "
               f"{ {k: v for k, v in c.items() if k != 'plain'} }")
-        if not _expect_only(c, {key: its for key in want}):
+        if not _expect_only(c, {key: its for key in want}) or \
+                not _step_once(c, "default_stats", its):
             raise RuntimeError(f"the {label} detailed_stats frame did not "
-                               "run its stats instances alone, once an "
-                               "iteration")
+                               "run its stats instances alone and its step "
+                               "kernels, once an iteration")
         if err > gate:
             raise RuntimeError(f"the {label} detailed_stats frame differs "
                                "beyond its gate")
@@ -4931,8 +4955,9 @@ def _synthetic_checks(camera, card, modes, its, seed):
     g = torch.Generator(device="cuda").manual_seed(seed)
     worst, gap = {}, 0.0
     for label, change in modes.items():
-        cfg = RenderConfig(width=WIDTH, height=HEIGHT, num_samples=4,
-                           max_bounces=BOUNCES, **change)
+        cfg = RenderConfig(**{**dict(width=WIDTH, height=HEIGHT,
+                                     num_samples=4, max_bounces=BOUNCES),
+                              **change})
         for it in its:
             words = torch.randint(0, 1 << 32, (5, cfg.pool_size),
                                   generator=g, device="cuda",
@@ -4944,7 +4969,8 @@ def _synthetic_checks(camera, card, modes, its, seed):
                 torch.tensor(it * 99991, device="cuda"))
             gap = max(gap, err)
             total = {k: sum(v.values()) for k, v in bad.items()}
-            kind = "dirty" if c["mode"] == "default" else "in limbo"
+            kind = "in limbo" if c["mode"].startswith("parity") \
+                else "dirty"
             print(f"[step kernels synthetic {label} {it}] {card}: "
                   f"{int(c['counts'][4])} lanes {kind}; mismatching lanes "
                   + ", ".join(f"{k} {v}" for k, v in total.items()))
@@ -5022,18 +5048,27 @@ def _frames_in_turns(sc, cam, cfg, order):
     return frames
 
 
+# detailed_stats' traversal sums (render/wavefront.py render_frame_linear)
+STATS_SUMS = ("node_steps", "leaf_visits", "anyhit_steps", "anyhit_visits")
+
+
 def _arms_agree(kf, of, mode):
     """A kernels-arm frame against the ``step_kernels=False`` frame of its
     seed (each from :func:`_step_frame`): ``{"same": equal iterations,
-    rays and occupancy, "walks": equal traversal launches, "steps":
+    rays and occupancy (under ``detailed_stats`` equal bounce histograms
+    and traversal sums too), "walks": equal traversal launches, "steps":
     ``mode``'s step kernels once an iteration and no plain version in
     the one, no step kernel in the other, "close": framebuffers within
     FB_RTOL}``."""
     import torch
     its = kf[2]["iterations"]
+    stats = "bounce_histogram" in kf[2]
     return dict(
         same=all(kf[2][k] == of[2][k] for k in
-                 ("iterations", "rays_traced", "avg_occupancy")),
+                 ("iterations", "rays_traced", "avg_occupancy")
+                 + STATS_SUMS * stats)
+        and (not stats or torch.equal(kf[2]["bounce_histogram"],
+                                      of[2]["bounce_histogram"])),
         walks={k: v for k, v in kf[3].items() if k != "step"} ==
         {k: v for k, v in of[3].items() if k != "step"},
         steps=(_step_once(kf[3], mode, its) and not kf[3]["plain"]
@@ -5198,8 +5233,9 @@ def phase14_step_kernels(scene, camera, card, floor, c4_scene, c4_camera,
                 times=t)
 
 
-# the full-record modes (the unsorted engine, reference_parity):
-# the kernels line's rows, each timed on its mode's cell of MODE_TIMED
+# the modes beside the default one (the unsorted engine, reference_parity,
+# the wide bundle, one-sample MIS, detailed_stats): the kernels line's
+# rows, each timed on its mode's cell of MODE_TIMED
 MODE_STEP_KERNELS = {
     "route_shade_unsorted": ("unsorted", "rtjax/render/wavefront.py:212"),
     "route_parity": ("parity", "rtjax/render/wavefront.py:212"),
@@ -5208,22 +5244,47 @@ MODE_STEP_KERNELS = {
     "route_parity_unsorted": ("parity_unsorted",
                               "rtjax/render/wavefront.py:212"),
     "shade_parity_unsorted": ("parity_unsorted",
-                              "rtjax/render/wavefront.py:437")}
+                              "rtjax/render/wavefront.py:437"),
+    "resolve_stats": ("default_stats", "rtjax/render/wavefront.py:809"),
+    "shade_1s": ("default_1s", "rtjax/render/wavefront.py:486"),
+    "resolve_1s": ("default_1s", "rtjax/render/wavefront.py:758"),
+    "route_shade_unsorted_1s": ("unsorted_1s",
+                                "rtjax/render/wavefront.py:486"),
+    "resolve_parity_stats": ("parity_stats",
+                             "rtjax/render/wavefront.py:809"),
+    "route_wide": ("wide", "rtjax/render/wavefront.py:418"),
+    "shade_wide": ("wide", "rtjax/render/wavefront.py:437"),
+    "shade_wide_1s": ("wide_1s_stats", "rtjax/render/wavefront.py:486"),
+    "resolve_1s_stats": ("wide_1s_stats", "rtjax/render/wavefront.py:758")}
 MODE_TIMED = {"unsorted": "headline xla", "parity": "parity frame",
-              "parity_unsorted": "headline parity xla"}
-# the ptxas registers of the default instances and of the first design:
-# they must not change (the first design's shade takes the shadow rays'
-# shared helper at 96, resident warps as at 95: 16)
+              "parity_unsorted": "headline parity xla",
+              "default_stats": "headline stats",
+              "default_1s": "headline one_sample",
+              "unsorted_1s": "headline one_sample no_sort",
+              "parity_stats": "headline parity stats",
+              "wide": "wide frame",
+              "wide_1s_stats": "headline 126 bounces one_sample stats"}
+# the ptxas registers of the default instances, of the first design and of
+# the unsorted engine's and parity's instances: they must not change (the
+# first design's shade takes the shadow rays' shared helper at 96,
+# resident warps as at 95: 16)
 STEP_REGISTERS = {"route": 40, "shade": 85, "resolve": 26, "route_v1": 40,
-                  "shade_v1": 96}
+                  "shade_v1": 96, "route_shade_unsorted": 103,
+                  "route_parity": 40, "shade_parity": 104,
+                  "resolve_parity": 28, "route_parity_unsorted": 40,
+                  "shade_parity_unsorted": 104}
 
 
 def _mode_cells(scene, camera):
-    """Phase 14's cells of the full-record modes: ``{name: (scene, camera,
-    cfg)}``: phase 8(c)'s parity frame (MODE_SIZE^2 @ MODE_SPP, a pool
-    of 2^19 lanes), the headline under parity, ``"xla"``,
-    ``sort_rays=False`` and parity with ``"xla"``, and eval config 3
-    under parity (the specular branches)."""
+    """Phase 14's cells of the modes beside the default one: ``{name:
+    (scene, camera, cfg)}``: phase 8(c)'s parity frame (MODE_SIZE^2 @
+    MODE_SPP, a pool of 2^19 lanes), the headline under parity, ``"xla"``,
+    ``sort_rays=False`` and parity with ``"xla"``, eval config 3 under
+    parity (the specular branches); the headline under
+    ``detailed_stats``, ``one_sample_mis`` (also with ``sort_rays=False``)
+    and parity with ``detailed_stats``; the wide bundle on phase 9(d)'s
+    WIDE_SIZE^2 @ WIDE_SPP frame and on the headline at 126 bounces, alone
+    and with ``one_sample_mis`` and ``detailed_stats``."""
     from rtjax_torch import RenderConfig
     from rtjax_torch.scenes import cornell_bunny
     c3, c3_cam = cornell_bunny("cuda", bunny_material="glass",
@@ -5238,7 +5299,23 @@ def _mode_cells(scene, camera):
         "headline no_sort": (scene, camera, _headline_cfg(sort_rays=False)),
         "headline parity xla": (scene, camera, _headline_cfg(
             reference_parity=True, traversal="xla")),
-        "config3 parity": (c3, c3_cam, _c3_cfg(reference_parity=True))}
+        "config3 parity": (c3, c3_cam, _c3_cfg(reference_parity=True)),
+        "headline stats": (scene, camera, _headline_cfg(detailed_stats=True)),
+        "headline one_sample": (scene, camera,
+                                _headline_cfg(one_sample_mis=True)),
+        "headline one_sample no_sort": (scene, camera, _headline_cfg(
+            one_sample_mis=True, sort_rays=False)),
+        "headline parity stats": (scene, camera, _headline_cfg(
+            reference_parity=True, detailed_stats=True)),
+        "wide frame": (scene, camera, RenderConfig(
+            width=WIDE_SIZE, height=WIDE_SIZE, num_samples=WIDE_SPP,
+            max_bounces=BOUNCES)),
+        "headline 126 bounces": (scene, camera,
+                                 _headline_cfg(max_bounces=WIDE_BOUNCES)),
+        "headline 126 bounces one_sample stats": (scene, camera,
+                                                  _headline_cfg(
+            max_bounces=WIDE_BOUNCES, one_sample_mis=True,
+            detailed_stats=True))}
 
 
 def _c3_cfg(**change):
@@ -5309,32 +5386,38 @@ def _mode_time_text(t, card):
              f"ms; {r['registers']} registers, {r['warps_per_sm']} resident "
              "warps an SM" for k, r in t["kernels"].items()]
     sort = "none" if t["sort_ms"] is None else f"{t['sort_ms']:.4f} ms"
+    work = (f"{t['flushing']} lanes flush, {t['limbo']} in limbo"
+            if "flushing" in t else
+            f"{t['flush_atomics']['lanes']} lanes flush by "
+            f"{t['flush_atomics']['record']} atomics")
     return lines + [f"[mode time {'+'.join(t['kernels'])}] {card}: "
-                    f"{t['lanes']} lanes, torch.sort {sort}; {t['flushing']} "
-                    f"lanes flush, {t['limbo']} in limbo"]
+                    f"{t['lanes']} lanes, torch.sort {sort}; {work}"]
 
 
 def phase14_mode_kernels(scene, camera, card):
-    """(a)-(d) for the full-record modes (kernels/step.py ``route_full`` /
-    ``shade_full`` / ``resolve_full``, the unsorted engine's
-    ``route_shade_unsorted``): the default instances' and the first
-    design's registers held to STEP_REGISTERS; the camera rank's scan
-    against ``torch.cumsum`` on five masks (tools/mode_steps.py
-    ``check_ranks``); each mode's kernels against their plain versions on
-    the op-by-op states of MODE_CHECK_ITS of each cell of
-    :func:`_mode_cells` and on synthetic pools of every lane kind with
-    limbo lanes (tools/step_designs.py): every output bit for bit, the
-    framebuffer within FB_RTOL; each cell's captured frames through the
-    kernels and under ``step_kernels=False`` in turns
+    """(a)-(d) for the modes beside the default one (kernels/step.py
+    ``route_full`` / ``shade_full`` / ``resolve_full``, the unsorted
+    engine's ``route_shade_unsorted``, the wide bundle, the one-sample and
+    ``detailed_stats`` instances): the registers of the default instances,
+    the first design and the unsorted and parity instances held to
+    STEP_REGISTERS, every other step kernel's printed; the camera rank's
+    scan against
+    ``torch.cumsum`` on five masks (tools/mode_steps.py ``check_ranks``);
+    each mode's kernels against their plain versions on the op-by-op
+    states of MODE_CHECK_ITS of each cell of :func:`_mode_cells` and on
+    synthetic pools of every lane kind with limbo or dirty lanes
+    (tools/step_designs.py): every output bit for bit (the bounce
+    histogram too), the framebuffer within FB_RTOL; each cell's captured
+    frames through the kernels and under ``step_kernels=False`` in turns
     (:func:`_mode_frames`); each kernel's timing on its MODE_TIMED cell's
     state of MODE_TIME_IT.  Returns the rows' numbers."""
     sys.path.insert(0, os.path.join(ROOT, "tools"))
     import mode_steps as M
     import step_designs as SD
     from rtjax_torch.kernels import step as S
-    regs = {k: S.kernel_info(k)["registers"] for k in STEP_REGISTERS}
+    regs = {k: S.kernel_info(k)["registers"] for k in S.KERNEL_IDS}
     print(f"[step registers] {card}: {regs} (held to {STEP_REGISTERS})")
-    if regs != STEP_REGISTERS:
+    if {k: regs[k] for k in STEP_REGISTERS} != STEP_REGISTERS:
         raise RuntimeError("the step kernels' registers changed")
     ranks = M.check_ranks(scene, camera, card)
     worst = {f"rank {k}": v for k, v in ranks.items() if v}
@@ -5349,11 +5432,18 @@ def phase14_mode_kernels(scene, camera, card):
         fb_gap = max(fb_gap, gap)
         if name in timed:
             times[timed[name]] = t
+    parity = dict(reference_parity=True, rr_start=0)
+    wide = dict(max_bounces=WIDE_BOUNCES)
     bad, gap = _synthetic_checks(camera, card, {
-        "unsorted": dict(sort_rays=False),
-        "parity": dict(reference_parity=True, rr_start=0),
-        "parity_unsorted": dict(reference_parity=True, rr_start=0,
-                                sort_rays=False)}, (0, 1), 13)
+        "unsorted": dict(sort_rays=False), "parity": parity,
+        "parity_unsorted": dict(parity, sort_rays=False),
+        "stats": dict(detailed_stats=True),
+        "parity stats": dict(parity, detailed_stats=True),
+        "one_sample": dict(one_sample_mis=True),
+        "one_sample no_sort": dict(one_sample_mis=True, sort_rays=False),
+        "wide": wide,
+        "wide one_sample stats": dict(wide, one_sample_mis=True,
+                                      detailed_stats=True)}, (0, 1), 13)
     worst.update({f"synthetic {k}": v for k, v in bad.items() if v})
     fb_gap = max(fb_gap, gap)
     if worst:
@@ -5368,10 +5458,11 @@ def phase14_mode_kernels(scene, camera, card):
 
 
 def _mode_rows(p14m, launches):
-    """The kernels line's rows of the full-record modes' instances
-    (launches: phase 8(c)'s parity frame for the parity kernels, phase
-    9(b)'s two xla frames for the unsorted engine's, phase 14's seed-2
-    parity-with-xla kernel frame for parity on the unsorted engine)."""
+    """The kernels line's rows of the instances of the modes beside the
+    default one (launches: phase 8(c)'s parity frame for the parity
+    kernels, phase 9(b)'s two xla frames for the unsorted engine's, and
+    for every other the seed-2 kernel frame of its MODE_TIMED cell in
+    phase 14)."""
     rows = []
     for name, (mode, replaces) in MODE_STEP_KERNELS.items():
         r = p14m["times"][mode]["kernels"][name]
@@ -5510,9 +5601,8 @@ def main():
             *_step_rows(p14, {k: launches[f"step {k}"]
                               for k in STEP_KERNELS}),
             *_mode_rows(p14m, {
-                k: {"unsorted": xla_steps, "parity": modes["launches"],
-                    "parity_unsorted": p14m["frames"][
-                        "headline parity xla"]["launches"]}[m][k]
+                k: {"unsorted": xla_steps, "parity": modes["launches"]}.get(
+                    m, p14m["frames"][MODE_TIMED[m]]["launches"])[k]
                 for k, (m, _) in MODE_STEP_KERNELS.items()})]
     for k, rec in _big_rows(big).items():
         next(r for r in rows if r["name"] == k)["bigscene"] = rec

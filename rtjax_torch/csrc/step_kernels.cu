@@ -82,6 +82,36 @@
 // 700.00 W; tools/mode_steps.py --split-ab, PERF.md), at 103
 // registers against shade's 104.  Parity on the unsorted engine keeps
 // two kernels: its resolve restores limbo lanes from the record.
+//
+// The sorted engine's wide bundle (kWide: wavefront.py:418-432, past the
+// compact bundle's ranges; :305 k_sort 1) is the default estimator over
+// the full record: route_wide keys with the dirty class, as route does,
+// and stores the hit point in the record's origin words (the
+// alternative, recomputing it from ray_o, t and the mat bit after the
+// gather, is bit for bit the same but reads t); bounces and the mat bit
+// go through the op-by-op step's one packed word (15 bits, 0x7FFF dead);
+// src keeps its int32 word.  shade_wide gathers the record by the sort's
+// order with shade's code: the camera rays go to the dead suffix, no
+// scan, and the flush comes from the dirty window.  Bytes: route_wide as
+// route_parity (181 B a lane); shade_wide reads 84 B of record (no t),
+// its order and five words and writes what shade writes.
+//
+// One-sample MIS (kOneSample: :486-508, :758-773): shade reuses the path
+// sample for the BSDF-MIS channel, reads no W_BSDF2 word and writes N
+// shadow rays (the NEE ones) with the channel's mask and radiance (zero
+// off the mask); resolve adds the channel where the path ray's closest
+// hit is the picked light's triangle, after the NEE channel, as
+// rtjax's _accum order.  Instances: shade_1s, route_shade_unsorted_1s,
+// shade_wide_1s, resolve_1s.  detailed_stats (kStats: :809-815): resolve
+// adds each traced lane to the bounce histogram at clamp(bounces, 0,
+// max_bounces), counted per block in shared memory (max_bounces + 1
+// ints, sized at launch; past kSmemBins bins in global memory) and added
+// with one 64-bit atomic a non-zero bin: resolve_stats,
+// resolve_1s_stats, resolve_parity_stats.  The four traversal sums stay
+// four adds in render/wavefront.py, as the op-by-op step makes them (not
+// folded into resolve).  The flags are template parameters beside kMode;
+// each compiles out of the other instances, whose ptxas registers are
+// unchanged (chip_smoke.py STEP_REGISTERS).
 
 #include <cuda_runtime.h>
 
@@ -98,6 +128,9 @@ constexpr int kSmemMaterials = 256;
 constexpr int kSmemLights = 64;
 constexpr int kRecordWords = 10;  // kernels/step.py BUNDLE_ROWS
 constexpr int kRouteBlocks = 6;
+// histogram bins a resolve block counts in shared memory (detailed_stats;
+// beyond them each traced lane adds to the histogram in global memory)
+constexpr int kSmemBins = 4096;
 using rtjax_step::kFullWords;
 static_assert(kShadeBlock == rtjax_step::kScanBlock,
               "a shade block ranks kScanBlock lanes");
@@ -166,7 +199,12 @@ __device__ __forceinline__ void route_full(const StepArgs& a) {
       a.bundle[kFullWords * first + t] = in[t];
   }
   count(a.counts, r.mat);
-  count(a.counts + 4, r.limbo);
+  count(a.counts + 4, kMode == rtjax_step::kWide ? r.dirty : r.limbo);
+}
+
+__global__ void __launch_bounds__(kBlock)
+    route_wide_kernel(const StepArgs a) {
+  route_full<rtjax_step::kWide>(a);
 }
 
 __global__ void __launch_bounds__(kBlock)
@@ -244,17 +282,18 @@ __device__ __forceinline__ Tables stage_tables(const StepArgs& a,
   return T;
 }
 
-// at least one block an SM: ptxas then takes 85 registers, not 84, and
-// the kernel runs 10% faster (PERF.md)
-__global__ void __launch_bounds__(kShadeBlock, 1)
-    shade_kernel(const StepArgs a) {
+// the sorted engine's shade: the record design's compact record (kMode
+// kDefault) or the wide bundle's full record (kWide, sort_every 1), both
+// flushed from the dirty window
+template <int kMode, bool kOneSample>
+__device__ __forceinline__ void shade_sorted(const StepArgs& a) {
   __shared__ SmemTables smem;
   const Tables T = stage_tables(a, smem);
   const int i = blockIdx.x * kShadeBlock + threadIdx.x;
   const bool do_gen = rtjax_step::cadence(a);
   rtjax_step::ShadeLane r = {};
   if (i < a.n) {
-    r = rtjax_step::shade_lane<false>(a, i, T, do_gen);
+    r = rtjax_step::shade_lane<false, kMode, kOneSample>(a, i, T, do_gen);
     const long long lo = a.counts[0];
     if (r.flush && i >= lo && i < lo + a.counts[4]) {
       const rtjax_step::V3 v = r.flushed;
@@ -269,6 +308,28 @@ __global__ void __launch_bounds__(kShadeBlock, 1)
   count(a.counts + 3, r.mis);
 }
 
+// at least one block an SM: ptxas then takes 85 registers, not 84, and
+// the kernel runs 10% faster (PERF.md)
+__global__ void __launch_bounds__(kShadeBlock, 1)
+    shade_kernel(const StepArgs a) {
+  shade_sorted<rtjax_step::kDefault, false>(a);
+}
+
+__global__ void __launch_bounds__(kShadeBlock, 1)
+    shade_1s_kernel(const StepArgs a) {
+  shade_sorted<rtjax_step::kDefault, true>(a);
+}
+
+__global__ void __launch_bounds__(kShadeBlock, 1)
+    shade_wide_kernel(const StepArgs a) {
+  shade_sorted<rtjax_step::kWide, false>(a);
+}
+
+__global__ void __launch_bounds__(kShadeBlock, 1)
+    shade_wide_1s_kernel(const StepArgs a) {
+  shade_sorted<rtjax_step::kWide, true>(a);
+}
+
 // the full-record modes' shade: the block's index from the scan's ticket,
 // each lane's record gathered (by the sort's order under kParity; on the
 // unsorted engine without parity, route's record made in registers and
@@ -278,7 +339,7 @@ __global__ void __launch_bounds__(kShadeBlock, 1)
 // lane's non-zero radiance flushed by float atomics.  The block that
 // finishes its look-back last zeroes the scan buffer for the next launch
 // (kernels/step.py scan_buffer).
-template <int kMode>
+template <int kMode, bool kOneSample = false>
 __device__ __forceinline__ void shade_full(const StepArgs& a) {
   __shared__ SmemTables smem;
   __shared__ int block;
@@ -334,7 +395,8 @@ __device__ __forceinline__ void shade_full(const StepArgs& a) {
   }
   rtjax_step::ShadeLane s = {};
   if (i < a.n) {
-    s = rtjax_step::shade_full_lane<kMode>(a, i, T, r, prefix + before);
+    s = rtjax_step::shade_full_lane<kMode, kOneSample>(a, i, T, r,
+                                                     prefix + before);
     if (s.flush) {
       const rtjax_step::V3 v = s.flushed;
       float* px = a.fb + 3 * static_cast<long long>(s.pixel);
@@ -352,6 +414,11 @@ __device__ __forceinline__ void shade_full(const StepArgs& a) {
 __global__ void __launch_bounds__(kShadeBlock, 1)
     route_shade_unsorted_kernel(const StepArgs a) {
   shade_full<rtjax_step::kUnsorted>(a);
+}
+
+__global__ void __launch_bounds__(kShadeBlock, 1)
+    route_shade_unsorted_1s_kernel(const StepArgs a) {
+  shade_full<rtjax_step::kUnsorted, true>(a);
 }
 
 __global__ void __launch_bounds__(kShadeBlock, 1)
@@ -382,30 +449,91 @@ __global__ void __launch_bounds__(kBlock) shade_v1_kernel(const StepArgs a) {
   count(a.counts + 3, r.mis);
 }
 
-__global__ void __launch_bounds__(kBlock) resolve_kernel(const StepArgs a) {
+// resolve: the shadow results, on the default resolve or, with
+// kRestore, the parity modes' (each limbo lane's payload restored into
+// the closest hits); under one-sample MIS (kOneSample) and detailed_stats
+// (kStats).  The bounce histogram: each block counts its traced lanes'
+// bins in shared memory (max_bounces + 1 ints, at most kSmemBins; sized
+// at launch) and adds each non-zero bin to the histogram with one 64-bit
+// atomic
+template <bool kRestore, bool kOneSample, bool kStats>
+__device__ __forceinline__ void resolve_flags(const StepArgs& a) {
   const int i = blockIdx.x * kBlock + threadIdx.x;
-  if (i < a.n && a.num_lights > 0) rtjax_step::resolve_lane(a, i);
-  if (i == 0) rtjax_step::resolve_counters(a);
+  if constexpr (kStats) {
+    extern __shared__ int bins[];
+    const int nb = a.max_bounces + 1;
+    const bool staged = nb <= kSmemBins;
+    auto* hist = reinterpret_cast<unsigned long long*>(a.hist);
+    if (staged)
+      for (int k = threadIdx.x; k < nb; k += kBlock) bins[k] = 0;
+    __syncthreads();
+    const int b = i < a.n ? rtjax_step::hist_bin(a, i) : -1;
+    if (b >= 0) {
+      if (staged)
+        atomicAdd(bins + b, 1);
+      else
+        atomicAdd(hist + b, 1ULL);
+    }
+    __syncthreads();
+    if (staged)
+      for (int k = threadIdx.x; k < nb; k += kBlock)
+        if (bins[k] != 0)
+          atomicAdd(hist + k, static_cast<unsigned long long>(bins[k]));
+  }
+  if (i < a.n) {
+    if (a.num_lights > 0) rtjax_step::resolve_lane<kOneSample>(a, i);
+    if constexpr (kRestore) rtjax_step::restore_limbo(a, i);
+  }
+  if (i == 0)
+    rtjax_step::resolve_counters<kRestore ? rtjax_step::kParity
+                                          : rtjax_step::kDefault>(a);
 }
 
-// the parity modes' resolve: besides the default's work, each limbo
-// lane's payload restored into the closest hits
+__global__ void __launch_bounds__(kBlock) resolve_kernel(const StepArgs a) {
+  resolve_flags<false, false, false>(a);
+}
+
 __global__ void __launch_bounds__(kBlock)
     resolve_parity_kernel(const StepArgs a) {
-  const int i = blockIdx.x * kBlock + threadIdx.x;
-  if (i < a.n) {
-    if (a.num_lights > 0) rtjax_step::resolve_lane(a, i);
-    rtjax_step::restore_limbo(a, i);
-  }
-  if (i == 0) rtjax_step::resolve_counters<rtjax_step::kParity>(a);
+  resolve_flags<true, false, false>(a);
+}
+
+__global__ void __launch_bounds__(kBlock)
+    resolve_1s_kernel(const StepArgs a) {
+  resolve_flags<false, true, false>(a);
+}
+
+__global__ void __launch_bounds__(kBlock)
+    resolve_stats_kernel(const StepArgs a) {
+  resolve_flags<false, false, true>(a);
+}
+
+__global__ void __launch_bounds__(kBlock)
+    resolve_1s_stats_kernel(const StepArgs a) {
+  resolve_flags<false, true, true>(a);
+}
+
+__global__ void __launch_bounds__(kBlock)
+    resolve_parity_stats_kernel(const StepArgs a) {
+  resolve_flags<true, false, true>(a);
 }
 
 int grid_of(int n, int block) { return (n + block - 1) / block; }
 
+// the dynamic shared memory of a launch: a resolve block's histogram
+// bins under detailed_stats (only resolve's stats instances take a
+// histogram), else none
+size_t bins_smem(const StepArgs* a) {
+  const int nb = a->max_bounces + 1;
+  return a->hist != nullptr && nb <= kSmemBins
+             ? static_cast<size_t>(nb) * sizeof(int)
+             : 0;
+}
+
 template <typename Kernel>
 int launch(Kernel kernel, int block, const StepArgs* a, void* stream) {
   if (a->n <= 0) return 0;
-  kernel<<<grid_of(a->n, block), block, 0,
+  kernel<<<grid_of(a->n, block), block, bins_smem(a),
            static_cast<cudaStream_t>(stream)>>>(*a);
   return static_cast<int>(cudaGetLastError());
 }
@@ -476,11 +604,52 @@ extern "C" int rtjax_step_shade_parity_unsorted(const StepArgs* a,
   return launch(shade_parity_unsorted_kernel, kShadeBlock, a, stream);
 }
 
+extern "C" int rtjax_step_shade_1s(const StepArgs* a, void* stream) {
+  return launch(shade_1s_kernel, kShadeBlock, a, stream);
+}
+
+extern "C" int rtjax_step_route_shade_unsorted_1s(const StepArgs* a,
+                                                  void* stream) {
+  return launch(route_shade_unsorted_1s_kernel, kShadeBlock, a, stream);
+}
+
+extern "C" int rtjax_step_route_wide(const StepArgs* a, void* stream) {
+  return launch(route_wide_kernel, kBlock, a, stream);
+}
+
+extern "C" int rtjax_step_shade_wide(const StepArgs* a, void* stream) {
+  return launch(shade_wide_kernel, kShadeBlock, a, stream);
+}
+
+extern "C" int rtjax_step_shade_wide_1s(const StepArgs* a, void* stream) {
+  return launch(shade_wide_1s_kernel, kShadeBlock, a, stream);
+}
+
+extern "C" int rtjax_step_resolve_1s(const StepArgs* a, void* stream) {
+  return launch(resolve_1s_kernel, kBlock, a, stream);
+}
+
+extern "C" int rtjax_step_resolve_stats(const StepArgs* a, void* stream) {
+  return launch(resolve_stats_kernel, kBlock, a, stream);
+}
+
+extern "C" int rtjax_step_resolve_1s_stats(const StepArgs* a, void* stream) {
+  return launch(resolve_1s_stats_kernel, kBlock, a, stream);
+}
+
+extern "C" int rtjax_step_resolve_parity_stats(const StepArgs* a,
+                                               void* stream) {
+  return launch(resolve_parity_stats_kernel, kBlock, a, stream);
+}
+
 // A kernel's registers, local bytes a thread, threads a block and
 // resident blocks an SM (kernels/step.py KERNEL_IDS: 0 route, 1 shade, 2
 // resolve, 3 route_v1, 4 shade_v1, 5 route_shade_unsorted, 6
 // route_parity, 7 shade_parity, 8 resolve_parity, 9
-// route_parity_unsorted, 10 shade_parity_unsorted).
+// route_parity_unsorted, 10 shade_parity_unsorted, 11 shade_1s, 12
+// route_shade_unsorted_1s, 13 route_wide, 14 shade_wide, 15
+// shade_wide_1s, 16 resolve_1s, 17 resolve_stats, 18 resolve_1s_stats,
+// 19 resolve_parity_stats).
 extern "C" int rtjax_step_kernel_info(int which, int* regs, int* local,
                                       int* block, int* blocks) {
   switch (which) {
@@ -503,6 +672,24 @@ extern "C" int rtjax_step_kernel_info(int which, int* regs, int* local,
                         block, blocks);
     case 10: return info(shade_parity_unsorted_kernel, kShadeBlock, regs,
                          local, block, blocks);
+    case 11: return info(shade_1s_kernel, kShadeBlock, regs, local, block,
+                         blocks);
+    case 12: return info(route_shade_unsorted_1s_kernel, kShadeBlock, regs,
+                         local, block, blocks);
+    case 13: return info(route_wide_kernel, kBlock, regs, local, block,
+                         blocks);
+    case 14: return info(shade_wide_kernel, kShadeBlock, regs, local, block,
+                         blocks);
+    case 15: return info(shade_wide_1s_kernel, kShadeBlock, regs, local,
+                         block, blocks);
+    case 16: return info(resolve_1s_kernel, kBlock, regs, local, block,
+                         blocks);
+    case 17: return info(resolve_stats_kernel, kBlock, regs, local, block,
+                         blocks);
+    case 18: return info(resolve_1s_stats_kernel, kBlock, regs, local, block,
+                         blocks);
+    case 19: return info(resolve_parity_stats_kernel, kBlock, regs, local,
+                         block, blocks);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -22,10 +22,13 @@
 // from, not in any operation on a value.
 //
 // The full-record modes (kMode: the unsorted engine kUnsorted,
-// reference_parity kParity, both kParityUnsorted) carry a lane's state at
-// full precision (kFullWords words, kernels/step.py FULL_LAYOUT) and rank
-// the camera rays by an exclusive prefix sum; their code paths compile
-// out of the default instances under ``if constexpr``.
+// reference_parity kParity, both kParityUnsorted, and the sorted engine's
+// wide bundle kWide) carry a lane's state at full precision (kFullWords
+// words, kernels/step.py FULL_LAYOUT); all but kWide rank the camera rays
+// by an exclusive prefix sum.  One-sample MIS (kOneSample, shade and
+// resolve) and detailed_stats' bounce histogram (kStats, resolve) are
+// template flags beside kMode.  Each mode's and flag's code paths compile
+// out of the other instances under ``if constexpr``.
 
 #pragma once
 
@@ -88,6 +91,11 @@ struct StepArgs {
   float* normal_out[3];
   int* prim_out;
   int* src_out;
+  // one-sample MIS: the BSDF-MIS channel's mask (shade -> resolve; resolve
+  // reads the path rays' closest hits through hit, prim and src);
+  // detailed_stats: the bounce histogram [max_bounces + 1] resolve adds to
+  unsigned char* chs_mask;
+  long long* hist;
   // the scene and the camera
   const int* prim_light;     // [num_prims]
   const int* prim_material;  // [num_prims]
@@ -140,7 +148,7 @@ constexpr int kDeadBounces = 1 << 30;
 // the step's modes (kernels/step.py step_mode): flags of the template
 // parameter kMode
 constexpr int kDefault = 0, kUnsorted = 1, kParity = 2,
-              kParityUnsorted = kParity | kUnsorted;
+              kParityUnsorted = kParity | kUnsorted, kWide = 4;
 constexpr int kFullWords = 24;   // kernels/step.py FULL_ROWS
 constexpr int kScanBlock = 128;  // lanes a shade block ranks
 constexpr int kInactiveKey = 0x7FFFFFFF;
@@ -582,6 +590,57 @@ __device__ __forceinline__ int hit_material(const StepArgs& a, int prim,
   return clampi(mi, 0, a.num_materials - 1);
 }
 
+// a lane's full-precision record (kernels/step.py pack_full)
+struct FullRec {
+  V3 o, d, normal, beta, acc;
+  float t;
+  int pixel, prim, src, bounces, mi;
+  bool mat, limbo;
+};
+
+// a record from its twelve 8-byte words (route_lane's rec)
+__device__ __forceinline__ FullRec full_from_words(const int2* w) {
+  const auto f = [](int x) { return __int_as_float(x); };
+  FullRec r;
+  r.o = {f(w[0].x), f(w[0].y), f(w[1].x)};
+  r.t = f(w[1].y);
+  r.d = {f(w[2].x), f(w[2].y), f(w[3].x)};
+  r.pixel = w[3].y;
+  r.normal = {f(w[4].x), f(w[4].y), f(w[5].x)};
+  r.prim = w[5].y;
+  r.beta = {f(w[6].x), f(w[6].y), f(w[7].x)};
+  r.src = w[7].y;
+  r.acc = {f(w[8].x), f(w[8].y), f(w[9].x)};
+  r.bounces = w[9].y;
+  r.mat = (w[10].x & 1) != 0;
+  r.limbo = (w[10].x & 2) != 0;
+  r.mi = w[10].y;
+  return r;
+}
+
+// the record of slot j: six read-only 16-byte loads (three 32-byte sectors)
+__device__ __forceinline__ FullRec load_full(const StepArgs& a, long long j) {
+  const int4* q = reinterpret_cast<const int4*>(a.bundle) + 6 * j;
+  const int4 q0 = __ldg(q), q1 = __ldg(q + 1), q2 = __ldg(q + 2),
+             q3 = __ldg(q + 3), q4 = __ldg(q + 4), q5 = __ldg(q + 5);
+  const auto f = [](int w) { return __int_as_float(w); };
+  FullRec r;
+  r.o = {f(q0.x), f(q0.y), f(q0.z)};
+  r.t = f(q0.w);
+  r.d = {f(q1.x), f(q1.y), f(q1.z)};
+  r.pixel = q1.w;
+  r.normal = {f(q2.x), f(q2.y), f(q2.z)};
+  r.prim = q2.w;
+  r.beta = {f(q3.x), f(q3.y), f(q3.z)};
+  r.src = q3.w;
+  r.acc = {f(q4.x), f(q4.y), f(q4.z)};
+  r.bounces = q4.w;
+  r.mat = (q5.x & 1) != 0;
+  r.limbo = (q5.x & 2) != 0;
+  r.mi = q5.y;
+  return r;
+}
+
 struct RouteLane {
   bool mat, dirty, limbo;
 };
@@ -591,7 +650,8 @@ struct RouteLane {
 // stores; the kernel stages the block's records in shared memory), the
 // first design nine [n] columns.  The full-record modes (route_full_ref)
 // write the 96-byte full record to ``rec`` (twelve 8-byte stores) and,
-// under kParity on the sorted engine, the keys without the dirty class.
+// under kParity on the sorted engine, the keys without the dirty class;
+// the wide bundle (kWide) the default route's keys, dirty class and all.
 template <bool kV1, int kMode = kDefault>
 __device__ __forceinline__ RouteLane route_lane(const StepArgs& a, int i,
                                                 int2* rec) {
@@ -636,12 +696,27 @@ __device__ __forceinline__ RouteLane route_lane(const StepArgs& a, int i,
   const V3 hp = add(o, scale(hp_t, d));
   if constexpr (kMode != kDefault) {
     const bool limbo = (kMode & kParity) != 0 && rr_kill;
-    if constexpr ((kMode & kUnsorted) == 0)
+    // the wide bundle carries the hit point in the origin words, and
+    // bounces (15 bits, 0x7FFF dead) and the mat bit as the op-by-op
+    // step's one packed word gives them back
+    const bool dirty = kMode == kWide && !mat &&
+                       (acc.x != 0.0f || acc.y != 0.0f || acc.z != 0.0f);
+    const int meta = min(b1, 0x7FFF) | shl(mat ? 1 : 0, 15);
+    const bool mat_r = kMode == kWide ? ((meta >> 15) & 1) != 0 : mat;
+    const int b_r = kMode != kWide ? b1
+                    : ((meta & 0x7FFF) >= 0x7FFF ? kDeadBounces
+                                                 : (meta & 0x7FFF));
+    const V3 o_r = kMode == kWide ? hp : o;
+    if constexpr (kMode == kWide)
+      a.keys[i] = dirty ? kDirtyKey
+                        : (mat ? sort_key(a, hp, d, nrm, prim, b1)
+                               : kInactiveKey);
+    else if constexpr ((kMode & kUnsorted) == 0)
       a.keys[i] = mat ? sort_key(a, hp, d, nrm, prim, b1) : kInactiveKey;
-    const int flags = (mat ? 1 : 0) | (limbo ? 2 : 0);
+    const int flags = (mat_r ? 1 : 0) | (limbo ? 2 : 0);
     const auto f = [](float x) { return __float_as_int(x); };
-    rec[0] = make_int2(f(o.x), f(o.y));
-    rec[1] = make_int2(f(o.z), f(a.t[i]));
+    rec[0] = make_int2(f(o_r.x), f(o_r.y));
+    rec[1] = make_int2(f(o_r.z), f(a.t[i]));
     rec[2] = make_int2(f(d.x), f(d.y));
     rec[3] = make_int2(f(d.z), a.pixel[i]);
     rec[4] = make_int2(f(nrm.x), f(nrm.y));
@@ -649,10 +724,10 @@ __device__ __forceinline__ RouteLane route_lane(const StepArgs& a, int i,
     rec[6] = make_int2(f(beta.x), f(beta.y));
     rec[7] = make_int2(f(beta.z), src);
     rec[8] = make_int2(f(acc.x), f(acc.y));
-    rec[9] = make_int2(f(acc.z), b1);
+    rec[9] = make_int2(f(acc.z), b_r);
     rec[10] = make_int2(flags, mi);
     rec[11] = make_int2(0, 0);
-    return {mat, false, limbo};
+    return {mat_r, dirty, limbo};
   }
 
   const bool dirty = !mat && (acc.x != 0.0f || acc.y != 0.0f ||
@@ -714,16 +789,20 @@ __device__ __forceinline__ V3 camera_dir(const StepArgs& a, float x,
 // the NEE and BSDF-MIS shadow rays of position i (kernels/step.py
 // shade_math with lights) into the [2n] shadow columns, with their
 // radiance; under kParity the reference's two quirks (the truncated second
-// pdfs, the BSDF-MIS target on the path's own triangle)
+// pdfs, the BSDF-MIS target on the path's own triangle).  Under
+// kOneSample the BSDF-MIS channel reuses the path sample ``s1`` and has
+// no ray of its own (resolve reads the path ray's closest hit): the NEE
+// ray into [n] columns, the channel's mask into chs_mask and its radiance
+// zero off the mask (shade_math's ``one_sample_mis`` branch)
 struct ShadowLane {
   bool nee, mis;
 };
 
-template <bool kParity>
+template <bool kParity, bool kOneSample = false>
 __device__ __forceinline__ ShadowLane shadow_rays(
     const StepArgs& a, int i, const Tables& T, bool mat, V3 p, V3 wo, V3 n_g,
     V3 beta, int mtype, V3 albedo, float ior, float u_pick, float luv1,
-    float luv2, float b2u1, float b2u2, int prim, int src) {
+    float luv2, float b2u1, float b2u2, int prim, int src, const Bsdf& s1) {
   const long long n = a.n;
   ShadowLane r;
   const float num_l = static_cast<float>(a.num_lights);
@@ -747,13 +826,29 @@ __device__ __forceinline__ ShadowLane shadow_rays(
   const V3 ah_L = mul(multiplier, scale(w_l / ls.pdf, mul(f_lc, ls.li)));
   const V3 ah_o = offset_origin(p, n_l);
   // BSDF-sampling MIS toward the picked light's triangle
-  const Bsdf s2 = sample_f(mtype, albedo, ior, wo, n_g, b2u1, b2u2, b2u1);
+  const Bsdf s2 = kOneSample ? s1
+                             : sample_f(mtype, albedo, ior, wo, n_g, b2u1,
+                                        b2u2, b2u1);
   const V3 f2c = scale(dot(s2.wi, s2.n), s2.f);
   const bool spec = mtype == kMirror || mtype == kGlass;
   const float lpdf2 = pdf_li(L, p, s2.wi);
   const float g_2 = kParity ? truncf(lpdf2) : lpdf2;
   const float w2 = spec ? 1.0f : power_heuristic(s2.pdf, g_2);
   const V3 chs_L = mul(multiplier, scale(w2 / s2.pdf, mul(f2c, L.emit)));
+  if constexpr (kOneSample) {
+    const bool chs = mat && !delta && (spec || lpdf2 > 0.0f);
+    r.nee = mat && got_f;
+    r.mis = false;  // no ray: counts[3] stays 0
+    store3(a.sh_o, i, ah_o);
+    store3(a.sh_d, i, ls.wi);
+    a.sh_tmax[i] = ls.t;
+    a.sh_exclude[i] = L.tri;
+    a.sh_mask[i] = r.nee ? 1 : 0;
+    a.chs_mask[i] = chs ? 1 : 0;
+    store3(a.ah_L, i, ah_L);
+    store3(a.chs_L, i, chs ? chs_L : V3{0.0f, 0.0f, 0.0f});
+    return r;
+  }
   const V3 chs_o = offset_origin(p, s2.n);
   float chs_t, u, v;
   bool chs_hit;
@@ -789,45 +884,66 @@ __device__ __forceinline__ ShadowLane shadow_rays(
 }
 
 // shade (kernels/step.py shade_ref) of sorted position i, its materials
-// and lights read from T; ``do_gen``: cadence(a)
-template <bool kV1>
+// and lights read from T; ``do_gen``: cadence(a).  kMode kWide: the
+// lane's full-precision record of the wide bundle (shade_full_ref of the
+// sorted engine) in place of the compact one; kOneSample: one-sample MIS
+template <bool kV1, int kMode = kDefault, bool kOneSample = false>
 __device__ __forceinline__ ShadeLane shade_lane(const StepArgs& a, int i,
                                                 const Tables& T,
                                                 bool do_gen) {
   const long long n = a.n;
   const long long j = do_gen ? a.order[i] : i;
-  int w[9];
-  int mi;
-  if constexpr (kV1) {
-    for (int k = 0; k < 9; ++k) w[k] = a.bundle[k * n + j];
+  V3 p, beta, acc, normal, wo;
+  int pixel, bounces, prim, src, mi;
+  bool mat;
+  if constexpr (kMode == kWide) {
+    // the hit point rides in the record's origin words
+    const FullRec r = load_full(a, j);
+    p = r.o;
+    beta = r.beta;
+    acc = r.acc;
+    normal = r.normal;
+    wo = r.d;
+    pixel = r.pixel;
+    bounces = r.bounces;
+    mat = r.mat;
+    prim = r.prim;
+    src = r.src;
+    mi = r.mi;
   } else {
-    // five read-only 8-byte loads of the lane's record (two sectors)
-    const int2* r = reinterpret_cast<const int2*>(a.bundle) + 5 * j;
-    const int2 r0 = __ldg(r), r1 = __ldg(r + 1), r2 = __ldg(r + 2),
-               r3 = __ldg(r + 3), r4 = __ldg(r + 4);
-    w[0] = r0.x; w[1] = r0.y; w[2] = r1.x; w[3] = r1.y;
-    w[4] = r2.x; w[5] = r2.y; w[6] = r3.x; w[7] = r3.y;
-    w[8] = r4.x;
-    mi = r4.y;
+    int w[9];
+    if constexpr (kV1) {
+      for (int k = 0; k < 9; ++k) w[k] = a.bundle[k * n + j];
+    } else {
+      // five read-only 8-byte loads of the lane's record (two sectors)
+      const int2* r = reinterpret_cast<const int2*>(a.bundle) + 5 * j;
+      const int2 r0 = __ldg(r), r1 = __ldg(r + 1), r2 = __ldg(r + 2),
+                 r3 = __ldg(r + 3), r4 = __ldg(r + 4);
+      w[0] = r0.x; w[1] = r0.y; w[2] = r1.x; w[3] = r1.y;
+      w[4] = r2.x; w[5] = r2.y; w[6] = r3.x; w[7] = r3.y;
+      w[8] = r4.x;
+      mi = r4.y;
+    }
+    p = {__int_as_float(w[0]), __int_as_float(w[1]), __int_as_float(w[2])};
+    beta = rgb9e5_decode(w[3]);
+    acc = rgb9e5_decode(w[4]);
+    const int pbm = w[5], sp = w[6];
+    normal = oct_decode(w[7]);
+    wo = oct_decode(w[8]);
+    pixel = pbm & 0x1FFFFF;
+    const int b_dec = (pbm >> 21) & 0x7F;
+    bounces = b_dec >= 127 ? kDeadBounces : b_dec;
+    mat = ((pbm >> 28) & 1) != 0;
+    prim = (sp & 0x7FFFFF) - 1;
+    src = (sp >> 23) & 0xFF;
   }
-  const V3 p = {__int_as_float(w[0]), __int_as_float(w[1]),
-                __int_as_float(w[2])};
-  const V3 beta = rgb9e5_decode(w[3]);
-  V3 acc = rgb9e5_decode(w[4]);
-  const int pbm = w[5], sp = w[6];
-  const V3 normal = oct_decode(w[7]);
-  const V3 wo = oct_decode(w[8]);
-  const int pixel = pbm & 0x1FFFFF;
-  const int b_dec = (pbm >> 21) & 0x7F;
-  const int bounces = b_dec >= 127 ? kDeadBounces : b_dec;
-  const bool mat = ((pbm >> 28) & 1) != 0;
-  const int prim = (sp & 0x7FFFFF) - 1;
-  const int src = (sp >> 23) & 0xFF;
   const long long* wd = a.words;
   const float u_pick = u01_lo(wd[i]);
   const float b1u1 = u01_hi(wd[n + i]), b1u2 = u01_lo(wd[n + i]);
   const float luv1 = u01_hi(wd[2 * n + i]), luv2 = u01_lo(wd[2 * n + i]);
-  const float b2u1 = u01_hi(wd[3 * n + i]), b2u2 = u01_lo(wd[3 * n + i]);
+  // one-sample MIS draws no second BSDF sample
+  const float b2u1 = kOneSample ? 0.0f : u01_hi(wd[3 * n + i]);
+  const float b2u2 = kOneSample ? 0.0f : u01_lo(wd[3 * n + i]);
   const float gen_u = u01_hi(wd[4 * n + i]), gen_v = u01_lo(wd[4 * n + i]);
 
   // the hit's material: looked up here in the first design, carried in
@@ -852,9 +968,9 @@ __device__ __forceinline__ ShadeLane shade_lane(const StepArgs& a, int i,
   ShadeLane r;
   r.nee = r.mis = false;
   if (a.num_lights > 0) {
-    const ShadowLane sl =
-        shadow_rays<false>(a, i, T, mat, p, wo, n_g, beta, mtype, albedo, ior,
-                           u_pick, luv1, luv2, b2u1, b2u2, prim, src);
+    const ShadowLane sl = shadow_rays<false, kOneSample>(
+        a, i, T, mat, p, wo, n_g, beta, mtype, albedo, ior, u_pick, luv1,
+        luv2, b2u1, b2u2, prim, src, s1);
     r.nee = sl.nee;
     r.mis = sl.mis;
   }
@@ -895,57 +1011,6 @@ __device__ __forceinline__ ShadeLane shade_lane(const StepArgs& a, int i,
 }
 
 // ---------------------------------------------- the full-record modes
-
-// a lane's full-precision record (kernels/step.py pack_full)
-struct FullRec {
-  V3 o, d, normal, beta, acc;
-  float t;
-  int pixel, prim, src, bounces, mi;
-  bool mat, limbo;
-};
-
-// a record from its twelve 8-byte words (route_lane's rec)
-__device__ __forceinline__ FullRec full_from_words(const int2* w) {
-  const auto f = [](int x) { return __int_as_float(x); };
-  FullRec r;
-  r.o = {f(w[0].x), f(w[0].y), f(w[1].x)};
-  r.t = f(w[1].y);
-  r.d = {f(w[2].x), f(w[2].y), f(w[3].x)};
-  r.pixel = w[3].y;
-  r.normal = {f(w[4].x), f(w[4].y), f(w[5].x)};
-  r.prim = w[5].y;
-  r.beta = {f(w[6].x), f(w[6].y), f(w[7].x)};
-  r.src = w[7].y;
-  r.acc = {f(w[8].x), f(w[8].y), f(w[9].x)};
-  r.bounces = w[9].y;
-  r.mat = (w[10].x & 1) != 0;
-  r.limbo = (w[10].x & 2) != 0;
-  r.mi = w[10].y;
-  return r;
-}
-
-// the record of slot j: six read-only 16-byte loads (three 32-byte sectors)
-__device__ __forceinline__ FullRec load_full(const StepArgs& a, long long j) {
-  const int4* q = reinterpret_cast<const int4*>(a.bundle) + 6 * j;
-  const int4 q0 = __ldg(q), q1 = __ldg(q + 1), q2 = __ldg(q + 2),
-             q3 = __ldg(q + 3), q4 = __ldg(q + 4), q5 = __ldg(q + 5);
-  const auto f = [](int w) { return __int_as_float(w); };
-  FullRec r;
-  r.o = {f(q0.x), f(q0.y), f(q0.z)};
-  r.t = f(q0.w);
-  r.d = {f(q1.x), f(q1.y), f(q1.z)};
-  r.pixel = q1.w;
-  r.normal = {f(q2.x), f(q2.y), f(q2.z)};
-  r.prim = q2.w;
-  r.beta = {f(q3.x), f(q3.y), f(q3.z)};
-  r.src = q3.w;
-  r.acc = {f(q4.x), f(q4.y), f(q4.z)};
-  r.bounces = q4.w;
-  r.mat = (q5.x & 1) != 0;
-  r.limbo = (q5.x & 2) != 0;
-  r.mi = q5.y;
-  return r;
-}
 
 // The camera rank's single-pass scan with decoupled look-back: a shade
 // block takes its index from the ticket (so a block waits only on blocks
@@ -994,7 +1059,7 @@ __device__ __forceinline__ long long scan_lookback(
 // full-record mode: ``r`` its record (gathered by the sort's order under
 // kParity, slot i on the unsorted engine), ``rank`` its exclusive rank
 // among the lanes that take a camera ray
-template <int kMode>
+template <int kMode, bool kOneSample = false>
 __device__ __forceinline__ ShadeLane shade_full_lane(const StepArgs& a,
                                                      int i, const Tables& T,
                                                      const FullRec& r,
@@ -1004,7 +1069,8 @@ __device__ __forceinline__ ShadeLane shade_full_lane(const StepArgs& a,
   const float u_pick = u01_lo(wd[i]);
   const float b1u1 = u01_hi(wd[n + i]), b1u2 = u01_lo(wd[n + i]);
   const float luv1 = u01_hi(wd[2 * n + i]), luv2 = u01_lo(wd[2 * n + i]);
-  const float b2u1 = u01_hi(wd[3 * n + i]), b2u2 = u01_lo(wd[3 * n + i]);
+  const float b2u1 = kOneSample ? 0.0f : u01_hi(wd[3 * n + i]);
+  const float b2u2 = kOneSample ? 0.0f : u01_lo(wd[3 * n + i]);
   const float gen_u = u01_hi(wd[4 * n + i]), gen_v = u01_lo(wd[4 * n + i]);
   const int mtype = T.mtype[r.mi];
   const V3 albedo = row3(T.albedo, r.mi);
@@ -1024,9 +1090,9 @@ __device__ __forceinline__ ShadeLane shade_full_lane(const StepArgs& a,
   ShadeLane s;
   s.nee = s.mis = false;
   if (a.num_lights > 0) {
-    const ShadowLane sl = shadow_rays<(kMode & kParity) != 0>(
+    const ShadowLane sl = shadow_rays<(kMode & kParity) != 0, kOneSample>(
         a, i, T, r.mat, p, r.d, n_g, r.beta, mtype, albedo, ior, u_pick,
-        luv1, luv2, b2u1, b2u2, r.prim, r.src);
+        luv1, luv2, b2u1, b2u2, r.prim, r.src, s1);
     s.nee = sl.nee;
     s.mis = sl.mis;
   }
@@ -1065,14 +1131,30 @@ __device__ __forceinline__ ShadeLane shade_full_lane(const StepArgs& a,
   return s;
 }
 
-// resolve (kernels/step.py resolve_ref) of lane i: the shadow results
+// resolve (kernels/step.py resolve_ref) of lane i: the shadow results;
+// under kOneSample the BSDF-MIS channel lands where the path ray's closest
+// hit (hit, src and prim, the traversal's outputs) is the picked light's
+// triangle (the NEE ray's exclude)
+template <bool kOneSample = false>
 __device__ __forceinline__ void resolve_lane(const StepArgs& a, int i) {
   const long long n = a.n;
   V3 acc = load3(a.acc, i);
   acc = accum(acc, load3(a.ah_L, i), a.sh_mask[i] && !a.occluded[i]);
-  acc = accum(acc, load3(a.chs_L, i),
-              a.sh_mask[n + i] && !a.occluded[n + i]);
+  if constexpr (kOneSample) {
+    const bool chs_ok =
+        a.hit[i] != 0 && a.src[i] == 0 && a.prim[i] == a.sh_exclude[i];
+    acc = accum(acc, load3(a.chs_L, i), a.chs_mask[i] && chs_ok);
+  } else {
+    acc = accum(acc, load3(a.chs_L, i),
+                a.sh_mask[n + i] && !a.occluded[n + i]);
+  }
   store3(a.acc, i, acc);
+}
+
+// detailed_stats' bounce histogram (render/wavefront.py): a traced lane's
+// bin, clamp(bounces, 0, max_bounces), after the merge; -1 for the others
+__device__ __forceinline__ int hist_bin(const StepArgs& a, int i) {
+  return a.trace_mask[i] ? clampi(a.bounces[i], 0, a.max_bounces) : -1;
 }
 
 // under the parity modes (kernels/step.py resolve_full_ref), a limbo

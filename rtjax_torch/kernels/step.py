@@ -26,13 +26,14 @@ small torch ops an iteration.  Here it is three kernels
 - ``resolve`` (rtjax :748-818): the shadow results added to the radiance,
   and the step's counters.
 
-They cover the default estimator of the sorted engine with the compact
-bundle and, as the full-record modes (:func:`step_mode`), rtjax's unsorted
-engine and ``reference_parity`` (render/wavefront.py
-``step_kernels_cover``).  A CUDA tensor goes to the kernels (built at first
-use, bound with ctypes, launched on torch's current stream so that a
-captured graph holds them); a CPU tensor to the plain versions.  There is
-no fallback between them.
+They cover every mode (:func:`step_mode`, render/wavefront.py
+``step_kernels_cover``): the sorted engine with the compact bundle and,
+as the full-record modes, its wide bundle, rtjax's unsorted engine and
+``reference_parity``; each with one-sample MIS (but parity, which
+refuses it) and ``detailed_stats`` (:data:`MODE_KERNELS`).  A CUDA tensor
+goes to the kernels (built at first use, bound with ctypes, launched on
+torch's current stream so that a captured graph holds them); a CPU tensor
+to the plain versions.  There is no fallback between them.
 
 Contract (the kernels' and the plain versions'):
 
@@ -57,9 +58,11 @@ Contract (the kernels' and the plain versions'):
   writes the next state into ``state``'s own tensors and ``counts`` in
   place; the plain version returns new tensors.
 - :func:`resolve` ``(cfg, sh, occluded, it, sort_every, cam_start,
-  rays_traced, occ_sum) -> (acc, cam_start, work_left, rays_traced,
-  occ_sum)``: ``occluded`` the ``[2N]`` any-hit result (None without
-  lights).  The kernel adds into ``sh.acc`` in place.
+  rays_traced, occ_sum, hits, hist) -> (acc, cam_start, work_left,
+  rays_traced, occ_sum[, hist])``: ``occluded`` the ``[2N]`` any-hit
+  result (None without lights), ``hits`` the path rays' closest hits,
+  ``hist`` the bounce histogram (``detailed_stats``).  The kernel adds
+  into ``sh.acc`` and ``hist`` in place.
 
 The kernels mirror the plain versions op for op (the build uses
 ``--fmad=false``): every output agrees bit for bit but the framebuffer,
@@ -82,7 +85,16 @@ single-pass scan with decoupled look-back (:func:`scan_buffer`); every
 such lane flushes.  Under parity, resolve restores each limbo lane's hit
 from the record.  On the unsorted engine without parity route and shade
 are one kernel (:func:`route_shade_unsorted`), the record kept in
-registers.
+registers.  The sorted engine's wide bundle ("wide", beyond
+:func:`compact_bundle_ok`) is the default estimator over the full record
+(the hit point in its origin words): keyed with the dirty class, the
+camera rays into the dead suffix, the flush from the dirty window.
+
+One-sample MIS (``*_1s``): shade emits the N NEE shadow rays alone (the
+BSDF-MIS channel reuses the path sample, its mask in
+``Shaded.chs_mask``) and resolve reads the path rays' closest hits for
+the channel.  ``detailed_stats`` (``*_stats``): resolve adds the traced
+lanes to the bounce histogram.
 """
 
 from __future__ import annotations
@@ -139,13 +151,34 @@ FULL_LAYOUT = (("ray_o", 0, 3), ("t", 3, 1), ("ray_d", 4, 3),
 # the camera rank's scan keeps a ticket, a count of finished blocks and one
 # status word a block (:func:`scan_buffer`)
 SCAN_BLOCK = 128
-# the step kernels' modes (:func:`step_mode`) and the kernels each launches
-MODE_KERNELS = {
+# the step's engines and the kernels each launches under the default
+# estimator without detailed_stats
+ENGINE_KERNELS = {
     "default": ("route", "shade", "resolve"),
     "unsorted": ("route_shade_unsorted", "resolve"),
+    "wide": ("route_wide", "shade_wide", "resolve"),
     "parity": ("route_parity", "shade_parity", "resolve_parity"),
     "parity_unsorted": ("route_parity_unsorted", "shade_parity_unsorted",
                         "resolve_parity")}
+ONE_SAMPLE, STATS = "_1s", "_stats"   # the modes' suffixes
+
+
+def _mode_kernels():
+    """``{mode: kernels}``: each engine alone, with one-sample MIS (its
+    shade and resolve instances ``*_1s``; not under parity, which refuses
+    it) and with ``detailed_stats`` (its resolve instance ``*_stats``)."""
+    out = {}
+    for engine, (*route, shade_k, resolve_k) in ENGINE_KERNELS.items():
+        for one in (False,) if engine.startswith("parity") else (False, True):
+            for stats in (False, True):
+                sfx = ONE_SAMPLE * one + STATS * stats
+                out[engine + sfx] = (*route, shade_k + ONE_SAMPLE * one,
+                                     resolve_k + sfx)
+    return out
+
+
+# the step kernels' modes (:func:`step_mode`) and the kernels each launches
+MODE_KERNELS = _mode_kernels()
 
 # the kernels the fused step runs: "record" (the default) or "v1"; a
 # captured step belongs to the design it was captured under (render/graph.py
@@ -409,16 +442,51 @@ def cadence(counts, n, it, sort_every):
     return (counts[0] * 4 < n * 3) | ((it % sort_every) == 0)
 
 
-def step_mode(scene, cfg) -> str:
-    """The step kernels' mode of ``cfg`` (a key of :data:`MODE_KERNELS`):
-    "default" for the sorted engine's default estimator, "unsorted" for
-    rtjax's unsorted engine (``sort_rays=False`` or the traversal "xla"),
-    "parity" for ``reference_parity`` on the sorted engine and
-    "parity_unsorted" on the unsorted one."""
+def compact_bundle_ok(scene, cfg) -> bool:
+    """Ranges of the sorted engine's compact bundle: pixel 21 bits, prim+1
+    23 bits (base scene and every BLAS), src 8 bits, bounces 7 bits with
+    127 as the dead sentinel (render/wavefront.py ``_compact_bundle_ok``
+    reads it)."""
+    max_prim = max([scene.tris.num] + [b.tris.num for b in scene.blas])
+    num_src = 1 + (scene.instances.num if scene.instances is not None else 0)
+    return (cfg.num_pixels <= 1 << 21 and max_prim < (1 << 23) - 1
+            and num_src <= 1 << 8 and cfg.max_bounces + 1 < 127)
+
+
+def step_mode(scene, cfg, compact=None) -> str:
+    """The step kernels' mode of ``cfg`` (a key of :data:`MODE_KERNELS`
+    but for ``one_sample_mis`` under ``reference_parity``, which
+    render/wavefront.py ``check_slice`` refuses): its engine, "default"
+    for the sorted engine with the compact bundle (``compact``, by default
+    :func:`compact_bundle_ok`), "wide" for the sorted engine beyond its
+    ranges, "unsorted" for rtjax's unsorted engine (``sort_rays=False`` or
+    the traversal "xla"), "parity" for ``reference_parity`` on the sorted
+    engine and "parity_unsorted" on the unsorted one; then "_1s" under
+    ``one_sample_mis`` and "_stats" under ``detailed_stats``."""
     sort = cfg.sort_rays and resolve_mode(scene, cfg) != "xla"
     if cfg.reference_parity:
-        return "parity" if sort else "parity_unsorted"
-    return "default" if sort else "unsorted"
+        engine = "parity" if sort else "parity_unsorted"
+    elif not sort:
+        engine = "unsorted"
+    else:
+        if compact is None:
+            compact = compact_bundle_ok(scene, cfg)
+        engine = "default" if compact else "wide"
+    return engine + ONE_SAMPLE * cfg.one_sample_mis + \
+        STATS * cfg.detailed_stats
+
+
+def engine_of(mode) -> str:
+    """The engine of a :func:`step_mode` mode (its suffixes dropped)."""
+    return mode.removesuffix(STATS).removesuffix(ONE_SAMPLE)
+
+
+def kernels_of(cfg, mode):
+    """The kernels of ``mode``'s engine under ``cfg``'s estimator and
+    ``detailed_stats`` (:data:`MODE_KERNELS`): route first (none on the
+    unsorted engine), then shade, then resolve."""
+    return MODE_KERNELS[engine_of(mode) + ONE_SAMPLE * cfg.one_sample_mis
+                        + STATS * cfg.detailed_stats]
 
 
 def pack_full(state, bounces, beta, acc, mat, limbo, material):
@@ -479,6 +547,9 @@ class Shaded:
     limbo: torch.Tensor | None = None
     record: torch.Tensor | None = None
     order: torch.Tensor | None = None
+    # one_sample_mis with lights: the BSDF-MIS channel's mask (its ray is
+    # the path ray; ``shadow`` holds the N NEE rays alone)
+    chs_mask: torch.Tensor | None = None
 
 
 def route_ref(scene, cfg, state, words):
@@ -505,7 +576,7 @@ def shade_ref(scene, camera, cfg, state, fb, words, order, bundle, counts,
               it, cam_start, sort_every):
     """Plain PyTorch version of :func:`shade` (same contract, any device;
     ``state`` is not read)."""
-    REF_CALLS["shade"] += 1
+    REF_CALLS[kernels_of(cfg, "default")[1]] += 1
     n = bundle.shape[0]
     dev = bundle.device
     draw_pair = lambda w: rng.u01_pair(words[w])
@@ -558,10 +629,10 @@ def shade_ref(scene, camera, cfg, state, fb, words, order, bundle, counts,
         bounces=torch.where(got_ray, 0,
                             torch.where(gen_mask, DEAD_BOUNCES, bounces)),
         acc=acc, trace_mask=trace_mask, counts=counts)
-    return _with_shadows(scene, out, sh, counts)
+    return _with_shadows(scene, cfg, out, sh, counts)
 
 
-def _with_shadows(scene, out, sh, counts):
+def _with_shadows(scene, cfg, out, sh, counts):
     """``out`` (a :class:`Shaded`) with its counts and, with lights, both
     shadow channels of ``shade_math``'s ``sh``; ``counts`` route's."""
     n_traced = out.trace_mask.sum()
@@ -569,6 +640,18 @@ def _with_shadows(scene, out, sh, counts):
     if scene.num_lights == 0:
         out.counts = torch.stack((counts[0], n_traced, zero, zero,
                                   counts[4]))
+        return out
+    if cfg.one_sample_mis:
+        # one N-ray any-hit launch, the NEE rays; the BSDF-MIS channel
+        # (its radiance zero off its mask) waits for the path ray's
+        # closest hit, in resolve, and traces no ray of its own
+        out.shadow = (sh["ah_o"], sh["ah_d"], sh["ah_tmax"], sh["ltri"],
+                      sh["ah_mask"])
+        out.ah_L, out.chs_mask = sh["ah_L"], sh["chs_mask"]
+        out.chs_L = tuple(torch.where(sh["chs_mask"], c, 0.0)
+                          for c in sh["chs_L"])
+        out.counts = torch.stack((counts[0], n_traced, sh["ah_mask"].sum(),
+                                  zero, counts[4]))
         return out
     # both shadow channels ride one 2N any-hit launch
     cat = lambda a, b: torch.cat([a, b])
@@ -584,25 +667,49 @@ def _with_shadows(scene, out, sh, counts):
     return out
 
 
-def _add_shadows(sh, occluded):
+def _add_shadows(sh, occluded, hits):
     """The radiance with the unoccluded shadow channels added (``occluded``
-    the ``[2N]`` any-hit result; None without lights)."""
+    the ``[2N]`` any-hit result, ``[N]`` under one-sample MIS, whose
+    BSDF-MIS channel counts where the path ray's closest hit ``hits`` is
+    the picked light's triangle; None without lights)."""
     n = sh.trace_mask.shape[0]
     acc = sh.acc
     if sh.shadow is not None:
         mask = sh.shadow[4]
         acc = accum(acc, sh.ah_L, mask[:n] & ~occluded[:n])
-        acc = accum(acc, sh.chs_L, mask[n:] & ~occluded[n:])
+        if sh.chs_mask is None:
+            acc = accum(acc, sh.chs_L, mask[n:] & ~occluded[n:])
+        else:
+            hit, _, _, prim, src = hits
+            chs_ok = hit & (src == 0) & (prim == sh.shadow[3])
+            acc = accum(acc, sh.chs_L, sh.chs_mask & chs_ok)
     return acc
 
 
+def _check_hist(cfg, hist):
+    if cfg.detailed_stats != (hist is not None):
+        raise ValueError("resolve takes the bounce histogram exactly under "
+                         "detailed_stats")
+
+
+def _hist_ref(cfg, sh, hist):
+    """``(hist,)`` with the step's traced lanes added at their depth,
+    ``clamp(bounces, 0, max_bounces)`` (rtjax :809-815), under
+    ``detailed_stats``; ``()`` without."""
+    if hist is None:
+        return ()
+    depth = torch.clamp(sh.bounces, 0, cfg.max_bounces).long()
+    return (hist.index_add(0, depth, sh.trace_mask.to(hist.dtype)),)
+
+
 def resolve_ref(cfg, sh, occluded, it, sort_every, cam_start, rays_traced,
-                occ_sum):
+                occ_sum, hits=None, hist=None):
     """Plain PyTorch version of :func:`resolve` (same contract, any
     device)."""
-    REF_CALLS["resolve"] += 1
+    _check_hist(cfg, hist)
+    REF_CALLS[kernels_of(cfg, "default")[-1]] += 1
     n = sh.trace_mask.shape[0]
-    acc = _add_shadows(sh, occluded)
+    acc = _add_shadows(sh, occluded, hits)
     c = sh.counts
     num_gen = n - c[0]
     do_gen = cadence(c, n, it, sort_every)
@@ -610,29 +717,45 @@ def resolve_ref(cfg, sh, occluded, it, sort_every, cam_start, rays_traced,
         num_gen = num_gen * do_gen
     return (acc, cam_start + num_gen, c[1] > 0,
             rays_traced + c[1:4].sum().to(torch.float64),
-            occ_sum + c[1].to(torch.float64) / n)
+            occ_sum + c[1].to(torch.float64) / n) + _hist_ref(cfg, sh, hist)
 
 
 def route_full_ref(scene, cfg, state, words, mode):
     """Plain PyTorch version of :func:`route_full` (same contract, any
     device)."""
-    REF_CALLS[MODE_KERNELS[mode][0]] += 1
+    REF_CALLS[kernels_of(cfg, mode)[0]] += 1
     return _route_full(scene, cfg, state, words, mode)
 
 
 def _route_full(scene, cfg, state, words, mode):
+    engine = engine_of(mode)
     u_rr, _ = rng.u01_pair(words[W_RR_PICK])
     acc, beta, bounces, mat, rr_kill, hp = emit_and_roulette(scene, cfg,
                                                              state, u_rr)
-    limbo = rr_kill if mode.startswith("parity") else \
+    limbo = rr_kill if engine.startswith("parity") else \
         torch.zeros_like(rr_kill)
-    keys = sort_keys(scene, cfg, state, hp, bounces, mat) \
-        if mode == "parity" else None
-    record = pack_full(state, bounces, beta, acc, mat, limbo,
-                       hit_material(scene, state.src, state.prim))
+    material = hit_material(scene, state.src, state.prim)
     counts = torch.zeros(NUM_COUNTS, dtype=torch.int64, device=mat.device)
+    if engine == "wide":
+        # the sorted engine's wide bundle: keyed as :func:`route_ref`, the
+        # hit point in the origin words, bounces (15 bits, 0x7FFF dead)
+        # and the mat bit as the op-by-op step's one packed word gives
+        # them back
+        dirty = ~mat & ((acc[0] != 0.0) | (acc[1] != 0.0) | (acc[2] != 0.0))
+        keys = torch.where(dirty, DIRTY_KEY,
+                           sort_keys(scene, cfg, state, hp, bounces, mat))
+        meta = torch.clamp(bounces, max=0x7FFF) | (mat.to(torch.int32) << 15)
+        mat = ((meta >> 15) & 1) != 0
+        b_dec = meta & 0x7FFF
+        bounces = torch.where(b_dec >= 0x7FFF, DEAD_BOUNCES, b_dec)
+        state = dataclasses.replace(state, ray_o=hp)
+        counts[4] = dirty.sum()
+    else:
+        keys = sort_keys(scene, cfg, state, hp, bounces, mat) \
+            if engine == "parity" else None
+        counts[4] = limbo.sum()
+    record = pack_full(state, bounces, beta, acc, mat, limbo, material)
     counts[0] = mat.sum()
-    counts[4] = limbo.sum()
     return keys, record, counts
 
 
@@ -640,7 +763,7 @@ def shade_full_ref(scene, camera, cfg, fb, words, order, record, counts,
                    cam_start, mode):
     """Plain PyTorch version of :func:`shade_full` (same contract, any
     device)."""
-    REF_CALLS[MODE_KERNELS[mode][1]] += 1
+    REF_CALLS[kernels_of(cfg, mode)[1]] += 1
     return _shade_full(scene, camera, cfg, fb, words, order, record, counts,
                        cam_start, mode)
 
@@ -649,7 +772,7 @@ def route_shade_unsorted_ref(scene, camera, cfg, state, fb, words,
                              cam_start):
     """Plain PyTorch version of :func:`route_shade_unsorted` (same
     contract, any device): route's record, then shade of it."""
-    REF_CALLS["route_shade_unsorted"] += 1
+    REF_CALLS[kernels_of(cfg, "unsorted")[0]] += 1
     _, record, counts = _route_full(scene, cfg, state, words, "unsorted")
     out = _shade_full(scene, camera, cfg, fb, words, None, record, counts,
                       cam_start, "unsorted")
@@ -659,12 +782,15 @@ def route_shade_unsorted_ref(scene, camera, cfg, state, fb, words,
 
 def _shade_full(scene, camera, cfg, fb, words, order, record, counts,
                 cam_start, mode):
+    wide = engine_of(mode) == "wide"
     draw_pair = lambda w: rng.u01_pair(words[w])
     r = unpack_full(record if order is None else record[order])
     mat, limbo, beta = r["mat"], r["limbo"], r["beta"]
     ray_o, ray_d = r["ray_o"], r["ray_d"]
-    # the hit point after the permutation, in rtjax's operation order
-    p = vec.add(ray_o, vec.scale(torch.where(mat, r["t"], 0.0), ray_d))
+    # the hit point after the permutation, in rtjax's operation order (the
+    # wide bundle carries it in the origin words)
+    p = ray_o if wide else \
+        vec.add(ray_o, vec.scale(torch.where(mat, r["t"], 0.0), ray_d))
     gen_mask = ~mat & ~limbo
     b1u1, b1u2 = draw_pair(W_BSDF1)
     b2u1, b2u2 = draw_pair(W_BSDF2)
@@ -674,11 +800,18 @@ def _shade_full(scene, camera, cfg, fb, words, order, record, counts,
                     (b2u1, b2u2, b2u1),
                     mats=scene.materials.gather_v3(r["material"]))
 
-    # the dead lanes are not a suffix (unsorted, or limbo lanes among them):
-    # camera rays go by the exclusive prefix sum of gen_mask
     gen_u, gen_v = draw_pair(W_GEN)
-    cam_id = cam_start + (torch.cumsum(gen_mask, 0) - gen_mask.long())
-    got_ray = gen_mask & (cam_id < cfg.total_camera_rays)
+    if wide:
+        # sorted with the dirty class: the continuing lanes are the prefix
+        idx = torch.arange(gen_mask.shape[0], dtype=torch.int32,
+                           device=gen_mask.device)
+        cam_id = cam_start + torch.clamp(idx - counts[0], min=0)
+        got_ray = (idx >= counts[0]) & (cam_id < cfg.total_camera_rays)
+    else:
+        # the dead lanes are not a suffix (unsorted, or limbo lanes among
+        # them): camera rays go by the exclusive prefix sum of gen_mask
+        cam_id = cam_start + (torch.cumsum(gen_mask, 0) - gen_mask.long())
+        got_ray = gen_mask & (cam_id < cfg.total_camera_rays)
     pix_new, cam_o, cam_d = camera_rays(camera, cfg, cam_id, gen_u, gen_v)
     flush = torch.stack([torch.where(gen_mask, c, 0.0) for c in r["acc"]], 1)
     fb.index_add_(0, r["pixel"].long(), flush)
@@ -695,16 +828,17 @@ def _shade_full(scene, camera, cfg, fb, words, order, record, counts,
                                                     r["bounces"])),
         acc=acc, trace_mask=trace_mask, counts=counts, limbo=limbo,
         record=record, order=order)
-    return _with_shadows(scene, out, sh, counts)
+    return _with_shadows(scene, cfg, out, sh, counts)
 
 
 def resolve_full_ref(cfg, sh, occluded, hits, cam_start, rays_traced,
-                     occ_sum, mode):
+                     occ_sum, mode, hist=None):
     """Plain PyTorch version of :func:`resolve_full` under the parity
     modes (same contract, any device)."""
-    REF_CALLS["resolve_parity"] += 1
+    _check_hist(cfg, hist)
+    REF_CALLS[kernels_of(cfg, mode)[-1]] += 1
     n = sh.trace_mask.shape[0]
-    acc = _add_shadows(sh, occluded)
+    acc = _add_shadows(sh, occluded, hits)
     # limbo lanes did not trace: the payload the closest-hit kernel
     # cleared survives for the next re-roll, and the frame waits for them
     r = unpack_full(sh.record if sh.order is None else sh.record[sh.order])
@@ -717,7 +851,7 @@ def resolve_full_ref(cfg, sh, occluded, hits, cam_start, rays_traced,
     c = sh.counts
     return (acc, hits, cam_start + (n - c[0] - c[4]), (c[1] > 0) | (c[4] > 0),
             rays_traced + c[1:4].sum().to(torch.float64),
-            occ_sum + c[1].to(torch.float64) / n)
+            occ_sum + c[1].to(torch.float64) / n) + _hist_ref(cfg, sh, hist)
 
 
 def route_v1_ref(scene, cfg, state, words):
@@ -763,6 +897,8 @@ ARG_FIELDS = (
     # the full-record modes: the scan, the limbo flags, resolve's hits
     ("scan", _P), ("limbo", _P), ("hit_out", _P), ("t_out", _P),
     ("normal_out", _P * 3), ("prim_out", _P), ("src_out", _P),
+    # one-sample MIS's channel mask, detailed_stats' histogram
+    ("chs_mask", _P), ("hist", _P),
     # the scene and the camera
     ("prim_light", _P), ("prim_material", _P), ("inst_material", _P),
     ("mtype", _P), ("albedo", _P), ("ior", _P),
@@ -798,7 +934,11 @@ _COUNTERS = {**{k: (LAUNCHES, k) for k in LAUNCHES},
 KERNEL_IDS = {"route": 0, "shade": 1, "resolve": 2, "route_v1": 3,
               "shade_v1": 4, "route_shade_unsorted": 5, "route_parity": 6,
               "shade_parity": 7, "resolve_parity": 8,
-              "route_parity_unsorted": 9, "shade_parity_unsorted": 10}
+              "route_parity_unsorted": 9, "shade_parity_unsorted": 10,
+              "shade_1s": 11, "route_shade_unsorted_1s": 12,
+              "route_wide": 13, "shade_wide": 14, "shade_wide_1s": 15,
+              "resolve_1s": 16, "resolve_stats": 17, "resolve_1s_stats": 18,
+              "resolve_parity_stats": 19}
 
 def bind(lib):
     """Set the argument types of a step-kernel library's entry points
@@ -993,6 +1133,7 @@ def route_args(scene, cfg, state, words, v1=False, mode="default"):
     zeroed); under a full-record ``mode`` ``(keys or None, record,
     counts)`` (:func:`route_full`)."""
     n, dev = state.pixel.shape[0], state.pixel.device
+    mode = engine_of(mode)
     state = _read_contiguous(state)
     a = StepArgs()
     _state_args(a, state, words, _READ + _WRITTEN)
@@ -1000,7 +1141,7 @@ def route_args(scene, cfg, state, words, v1=False, mode="default"):
     counts = torch.zeros(NUM_COUNTS, dtype=torch.int64, device=dev)
     if mode != "default":
         keys = torch.empty(n, dtype=torch.int32, device=dev) \
-            if mode == "parity" else None
+            if mode in ("parity", "wide") else None
         record = torch.empty((n, FULL_ROWS), dtype=torch.int32, device=dev)
         a.keys = None if keys is None else keys.data_ptr()
         a.bundle, a.counts = record.data_ptr(), counts.data_ptr()
@@ -1020,9 +1161,12 @@ def shade_args(scene, camera, cfg, state, fb, words, order, bundle, counts,
     """``(argument block, Shaded)`` of a shade launch (the first design's
     with ``v1``; under a full-record ``mode`` :func:`shade_full`'s, with
     ``bundle`` the record, ``order`` None on the unsorted engine, and the
-    scan buffer of the current stream): the outputs the kernel writes
-    beside the state allocated."""
+    scan buffer of the current stream where the camera rank needs it):
+    the outputs the kernel writes beside the state allocated, the shadow
+    columns ``[2N]`` (``[N]`` and the BSDF-MIS mask under
+    ``one_sample_mis``)."""
     n, dev = state.pixel.shape[0], state.pixel.device
+    mode = engine_of(mode)
     full = mode != "default"
     a = StepArgs()
     if mode == "unsorted":
@@ -1037,7 +1181,7 @@ def shade_args(scene, camera, cfg, state, fb, words, order, bundle, counts,
         a.bundle = bundle.data_ptr()
     _scene_args(a, scene, camera, cfg, dev)
     _need("fb", fb, torch.float32, (cfg.num_pixels, 3), dev)
-    if order is not None or mode in ("default", "parity"):
+    if order is not None or mode in ("default", "wide", "parity"):
         _need("order", order, torch.int64, (n,), dev)
         a.order = order.data_ptr()
     _need("counts", counts, torch.int64, (NUM_COUNTS,), dev)
@@ -1051,10 +1195,11 @@ def shade_args(scene, camera, cfg, state, fb, words, order, bundle, counts,
                  trace_mask=trace_mask, counts=counts)
     scan = None
     if full:
+        out.record, out.order = bundle, order
+    if full and mode != "wide":
         scan = scan_buffer(dev, torch.cuda.current_stream(dev).cuda_stream,
                            n)
         a.scan = scan.data_ptr()
-        out.record, out.order = bundle, order
         if mode.startswith("parity"):
             out.limbo = torch.empty(n, dtype=torch.bool, device=dev)
             a.limbo = out.limbo.data_ptr()
@@ -1065,7 +1210,8 @@ def shade_args(scene, camera, cfg, state, fb, words, order, bundle, counts,
                 setattr(a, f"tri_{name}", t.data_ptr())
             a.num_tris = scene.tris.num
     if scene.num_lights > 0:
-        col = lambda dt, m=2 * n: torch.empty(m, dtype=dt, device=dev)
+        rays = n if cfg.one_sample_mis else 2 * n
+        col = lambda dt, m=rays: torch.empty(m, dtype=dt, device=dev)
         f32 = torch.float32
         out.shadow = (tuple(col(f32) for _ in range(3)),
                       tuple(col(f32) for _ in range(3)), col(f32),
@@ -1076,16 +1222,28 @@ def shade_args(scene, camera, cfg, state, fb, words, order, bundle, counts,
         a.sh_tmax, a.sh_exclude, a.sh_mask = (t.data_ptr()
                                               for t in out.shadow[2:])
         a.ah_L, a.chs_L = _ptrs3(out.ah_L), _ptrs3(out.chs_L)
+        if cfg.one_sample_mis:
+            out.chs_mask = col(torch.bool)
+            a.chs_mask = out.chs_mask.data_ptr()
     a.held = (state, words, fb, order, bundle, it, cam_start, scan, out)
     return a, out
 
 
+def _contiguous_hits(hits):
+    return tuple(tuple(c.contiguous() for c in v) if isinstance(v, tuple)
+                 else v.contiguous() for v in hits)
+
+
 def resolve_args(cfg, sh, occluded, it, sort_every, cam_start, rays_traced,
-                 occ_sum, hits=None):
+                 occ_sum, hits=None, hist=None, restore=False):
     """``(argument block, (acc, cam_start, work_left, rays_traced,
-    occ_sum))`` of a resolve launch, the new counters allocated; with the
-    closest ``hits`` (the parity modes' resolve) ``(acc, hits, cam_start,
-    ...)``, the hits made contiguous for the kernel to write."""
+    occ_sum))`` of a resolve launch, the new counters allocated, and under
+    ``detailed_stats`` ``hist`` last (the kernel adds to it); with
+    ``restore`` (the parity modes' resolve) ``(acc, hits, cam_start,
+    ...)``, the closest ``hits`` made contiguous for the kernel to write.
+    Under ``one_sample_mis`` the kernel reads ``hits``' hit, prim and
+    src."""
+    _check_hist(cfg, hist)
     n, dev = sh.trace_mask.shape[0], sh.trace_mask.device
     a = StepArgs()
     a.n = n
@@ -1094,10 +1252,40 @@ def resolve_args(cfg, sh, occluded, it, sort_every, cam_start, rays_traced,
     for k, c in enumerate(sh.acc):
         _need(f"acc[{k}]", c, torch.float32, (n,), dev)
     a.acc = _ptrs3(sh.acc)
+    held = ()
+    if hits is not None:
+        hits = _contiguous_hits(hits)
     if sh.shadow is not None:
-        _need("occluded", occluded, torch.bool, (2 * n,), dev)
+        one = sh.chs_mask is not None
+        _need("occluded", occluded, torch.bool, ((1 if one else 2) * n,),
+              dev)
         a.occluded, a.sh_mask = occluded.data_ptr(), sh.shadow[4].data_ptr()
         a.ah_L, a.chs_L = _ptrs3(sh.ah_L), _ptrs3(sh.chs_L)
+        if one:
+            # the BSDF-MIS channel lands where the path ray's closest hit
+            # is the picked light's triangle (the NEE ray's exclude)
+            if hits is None:
+                raise ValueError("one_sample_mis's resolve takes the path "
+                                 "rays' closest hits")
+            hit, _, _, prim, src = hits
+            for name, v, dt in (("hit", hit, torch.bool),
+                                ("prim", prim, torch.int32),
+                                ("src", src, torch.int32),
+                                ("chs_mask", sh.chs_mask, torch.bool),
+                                ("exclude", sh.shadow[3], torch.int32)):
+                _need(name, v, dt, (n,), dev)
+            a.hit, a.prim, a.src = (hit.data_ptr(), prim.data_ptr(),
+                                    src.data_ptr())
+            a.chs_mask, a.sh_exclude = (sh.chs_mask.data_ptr(),
+                                        sh.shadow[3].data_ptr())
+            held = (hits,)
+    if hist is not None:
+        _need("hist", hist, torch.int64, (cfg.max_bounces + 1,), dev)
+        _need("bounces", sh.bounces, torch.int32, (n,), dev)
+        _need("trace_mask", sh.trace_mask, torch.bool, (n,), dev)
+        a.hist, a.bounces = hist.data_ptr(), sh.bounces.data_ptr()
+        a.trace_mask, a.max_bounces = sh.trace_mask.data_ptr(), \
+            cfg.max_bounces
     _step_scalars(a, it, cam_start, dev)
     _need("counts", sh.counts, torch.int64, (NUM_COUNTS,), dev)
     a.counts = sh.counts.data_ptr()
@@ -1110,12 +1298,11 @@ def resolve_args(cfg, sh, occluded, it, sort_every, cam_start, rays_traced,
     a.cam_out, a.work_out, a.rays_out, a.occ_out = (
         cam.data_ptr(), work.data_ptr(), rays.data_ptr(), occ.data_ptr())
     a.held = (sh, occluded, it, cam_start, rays_traced, occ_sum, cam, work,
-              rays, occ)
-    if hits is None:
-        return a, (sh.acc, cam, work, rays, occ)
-    hit, t, normal, prim, src = (
-        tuple(c.contiguous() for c in v) if isinstance(v, tuple)
-        else v.contiguous() for v in hits)
+              rays, occ, hist) + held
+    tail = () if hist is None else (hist,)
+    if not restore:
+        return a, (sh.acc, cam, work, rays, occ) + tail
+    hit, t, normal, prim, src = hits
     for name, v, dt in (("hit", hit, torch.bool), ("t", t, torch.float32),
                         ("prim", prim, torch.int32),
                         ("src", src, torch.int32), ("limbo", sh.limbo,
@@ -1131,9 +1318,8 @@ def resolve_args(cfg, sh, occluded, it, sort_every, cam_start, rays_traced,
         hit.data_ptr(), t.data_ptr(), prim.data_ptr(), src.data_ptr())
     a.normal_out = _ptrs3(normal)
     a.limbo, a.bundle = sh.limbo.data_ptr(), sh.record.data_ptr()
-    hits = (hit, t, normal, prim, src)
     a.held += (hits,)
-    return a, (sh.acc, hits, cam, work, rays, occ)
+    return a, (sh.acc, hits, cam, work, rays, occ) + tail
 
 
 # ------------------------------------------------------------ wrappers
@@ -1164,7 +1350,7 @@ def shade(scene, camera, cfg, state, fb, words, order, bundle, counts, it,
                          bundle, counts, it, cam_start, sort_every)
     a, out = shade_args(scene, camera, cfg, state, fb, words, order, bundle,
                         counts, it, cam_start, sort_every)
-    launch("shade", a, state.pixel.device)
+    launch(kernels_of(cfg, "default")[1], a, state.pixel.device)
     return out
 
 
@@ -1183,6 +1369,8 @@ def shade_v1(scene, camera, cfg, state, fb, words, order, bundle, counts,
     """:func:`shade` in the first design: the ``[9, N]`` columns gathered
     one at a time, the material looked up from prim and src, every dead
     lane's radiance added by float atomics."""
+    if cfg.one_sample_mis:
+        raise ValueError("the first design has no one_sample_mis instance")
     if not _on_card(state.pixel):
         return shade_v1_ref(scene, camera, cfg, state, fb, words, order,
                             bundle, counts, it, cam_start, sort_every)
@@ -1193,47 +1381,55 @@ def shade_v1(scene, camera, cfg, state, fb, words, order, bundle, counts,
 
 
 def resolve(cfg, sh, occluded, it, sort_every, cam_start, rays_traced,
-            occ_sum):
+            occ_sum, hits=None, hist=None):
     """The shadow results into the radiance, and the step's counters:
     ``(acc, cam_start, work_left, rays_traced, occ_sum)`` (module
-    docstring)."""
+    docstring); under ``one_sample_mis`` the BSDF-MIS channel where the
+    path rays' closest ``hits`` ``(hit, t, normal, prim, src)`` are the
+    picked light's triangle; under ``detailed_stats`` ``hist`` (the bounce
+    histogram, which the kernel adds to in place) with the step's traced
+    lanes added, last."""
     if not _on_card(sh.trace_mask):
         return resolve_ref(cfg, sh, occluded, it, sort_every, cam_start,
-                           rays_traced, occ_sum)
+                           rays_traced, occ_sum, hits, hist)
     a, out = resolve_args(cfg, sh, occluded, it, sort_every, cam_start,
-                          rays_traced, occ_sum)
-    launch("resolve", a, sh.trace_mask.device)
+                          rays_traced, occ_sum, hits, hist)
+    launch(kernels_of(cfg, "default")[-1], a, sh.trace_mask.device)
     return out
 
 
 def route_full(scene, cfg, state, words, mode):
-    """Emission and Russian roulette of one iteration under a parity mode
-    ("parity" or "parity_unsorted" of :func:`step_mode`): ``(keys,
-    record, counts)``, ``keys`` the sort keys under "parity" (None on the
-    unsorted engine), ``record`` ``[N, FULL_ROWS]`` (:func:`pack_full`)
-    and ``counts`` the continuing paths in [0] and the limbo lanes in
-    [4]."""
+    """Emission and Russian roulette of one iteration under a full-record
+    mode with a route of its own (the engines "wide", "parity" and
+    "parity_unsorted" of :func:`step_mode`): ``(keys, record, counts)``,
+    ``keys`` the sort keys (with the dirty class under "wide"; None on the
+    unsorted engine), ``record`` ``[N, FULL_ROWS]`` (:func:`pack_full`;
+    under "wide" the hit point in the origin words) and ``counts`` the
+    continuing paths in [0] and the limbo lanes in [4] (under "wide" the
+    dirty lanes)."""
     if not _on_card(state.pixel):
         return route_full_ref(scene, cfg, state, words, mode)
     a, out = route_args(scene, cfg, state, words, mode=mode)
-    launch(MODE_KERNELS[mode][0], a, state.pixel.device)
+    launch(kernels_of(cfg, mode)[0], a, state.pixel.device)
     return out
 
 
 def shade_full(scene, camera, cfg, state, fb, words, order, record, counts,
                cam_start, mode):
-    """Shading, camera generation ranked by the exclusive prefix sum of
-    the lanes that take a camera ray, the flush of every such lane and the
-    merge, under a parity mode: a :class:`Shaded` (as :func:`shade`, with
-    ``limbo``, ``record`` and ``order`` for :func:`resolve_full`).
-    ``order`` is the sort's permutation under "parity", None on the
-    unsorted engine."""
+    """Shading, camera generation, the flush and the merge under a
+    full-record mode of :func:`route_full`: a :class:`Shaded` (as
+    :func:`shade`, with ``limbo``, ``record`` and ``order`` for
+    :func:`resolve_full`).  ``order`` is the sort's permutation ("wide",
+    "parity"), None on the unsorted engine.  Under the parity modes the
+    camera rays go by the exclusive prefix sum of the lanes that take one
+    and every such lane flushes; under "wide" they go to the dead suffix
+    and the dirty window flushes, as :func:`shade`'s."""
     if not _on_card(state.pixel):
         return shade_full_ref(scene, camera, cfg, fb, words, order, record,
                               counts, cam_start, mode)
     a, out = shade_args(scene, camera, cfg, state, fb, words, order, record,
                         counts, 0, cam_start, 1, mode=mode)
-    launch(MODE_KERNELS[mode][1], a, state.pixel.device)
+    launch(kernels_of(cfg, mode)[1], a, state.pixel.device)
     return out
 
 
@@ -1250,26 +1446,28 @@ def route_shade_unsorted(scene, camera, cfg, state, fb, words, cam_start):
                         torch.zeros(NUM_COUNTS, dtype=torch.int64,
                                     device=dev), 0, cam_start, 1,
                         mode="unsorted")
-    launch("route_shade_unsorted", a, dev)
+    launch(kernels_of(cfg, "unsorted")[0], a, dev)
     return out
 
 
 def resolve_full(cfg, sh, occluded, hits, cam_start, rays_traced, occ_sum,
-                 mode):
+                 mode, hist=None):
     """:func:`resolve` under a full-record mode: ``(acc, hits, cam_start,
-    work_left, rays_traced, occ_sum)``, ``hits`` the closest hits ``(hit, t,
-    normal, prim, src)``; under the parity modes each limbo lane's hit, t,
-    normal, prim and src restored from the record (the kernel writes them
-    into ``hits``' own tensors) and the frame held while a lane is in
-    limbo.  The unsorted engine has no limbo lanes: :func:`resolve`."""
-    if mode == "unsorted":
+    work_left, rays_traced, occ_sum)`` (and ``hist`` under
+    ``detailed_stats``), ``hits`` the closest hits ``(hit, t, normal,
+    prim, src)``; under the parity modes each limbo lane's hit, t, normal,
+    prim and src restored from the record (the kernel writes them into
+    ``hits``' own tensors) and the frame held while a lane is in limbo.
+    The unsorted engine and the wide bundle have no limbo lanes:
+    :func:`resolve` at ``sort_every`` 1."""
+    if not engine_of(mode).startswith("parity"):
         acc, *rest = resolve(cfg, sh, occluded, 0, 1, cam_start,
-                             rays_traced, occ_sum)
+                             rays_traced, occ_sum, hits, hist)
         return (acc, hits, *rest)
     if not _on_card(sh.trace_mask):
         return resolve_full_ref(cfg, sh, occluded, hits, cam_start,
-                                rays_traced, occ_sum, mode)
+                                rays_traced, occ_sum, mode, hist)
     a, out = resolve_args(cfg, sh, occluded, 0, 1, cam_start, rays_traced,
-                          occ_sum, hits=hits)
-    launch(MODE_KERNELS[mode][2], a, sh.trace_mask.device)
+                          occ_sum, hits, hist, restore=True)
+    launch(kernels_of(cfg, mode)[-1], a, sh.trace_mask.device)
     return out

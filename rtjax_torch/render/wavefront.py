@@ -38,12 +38,12 @@ Estimator modes (``RenderConfig``), as in rtjax:
 
 rtjax's step is one jitted XLA program whose per-lane stages XLA fuses.
 The port's counterpart is the step kernels (kernels/step.py: route, one
-``torch.sort``, shade, the traversals, resolve), which run the default
-estimator of the sorted engine with the compact bundle, and the unsorted
-engine (no sort) and ``reference_parity`` through a full-precision record
-(:func:`step_kernels_cover`); ``one_sample_mis``, the sorted engine's wide
-bundle and ``detailed_stats`` keep the step op by op, as does
-``step_kernels=False`` (the card's A/B and reference).  On the card the
+``torch.sort``, shade, the traversals, resolve) in every mode
+(:func:`step_kernels_cover`): the sorted engine with the compact bundle,
+and through a full-precision record its wide bundle, the unsorted engine
+(no sort) and ``reference_parity``, each with instances for
+``one_sample_mis`` and ``detailed_stats``.  Only ``step_kernels=False``
+(the card's A/B and reference) runs the step op by op.  On the card the
 kernels write the next path state into the carry's own tensors.
 
 rtjax runs the whole frame as one jitted ``lax.while_loop`` whose condition
@@ -133,13 +133,10 @@ def make_initial_state(n: int, device) -> PathState:
 
 
 def _compact_bundle_ok(scene, cfg) -> bool:
-    """Ranges of the packed sort bundle: pixel 21 bits, prim+1 23 bits (base
-    scene and every BLAS), src 8 bits, bounces 7 bits with 127 as the dead
-    sentinel."""
-    max_prim = max([scene.tris.num] + [b.tris.num for b in scene.blas])
-    num_src = 1 + (scene.instances.num if scene.instances is not None else 0)
-    return (cfg.num_pixels <= 1 << 21 and max_prim < (1 << 23) - 1
-            and num_src <= 1 << 8 and cfg.max_bounces + 1 < 127)
+    """Ranges of the packed sort bundle (kernels/step.py
+    ``compact_bundle_ok``); both steps read them here, where tests patch
+    them."""
+    return step_kernels_mod.compact_bundle_ok(scene, cfg)
 
 
 def resolve_sort_every(scene, cfg) -> int:
@@ -167,35 +164,40 @@ def check_slice(scene: Scene, cfg: RenderConfig) -> None:
 
 def step_kernels_cover(scene, cfg) -> bool:
     """Whether the step kernels (kernels/step.py) run this mode's step:
-    the default estimator of the sorted engine with the compact bundle,
-    and, at any ranges, the unsorted engine (``sort_rays=False`` or the
-    traversal "xla") and ``reference_parity`` (their full-precision
-    record), in each case without ``one_sample_mis`` and
-    ``detailed_stats`` (its bounce histogram).  The other modes keep the
-    op-by-op step: the sorted engine's wide bundle (beyond
-    ``_compact_bundle_ok``), ``one_sample_mis`` and ``detailed_stats``."""
-    if cfg.one_sample_mis or cfg.detailed_stats:
-        return False
-    return (step_kernels_mod.step_mode(scene, cfg) != "default"
-            or _compact_bundle_ok(scene, cfg))
+    every mode :func:`check_slice` accepts (``step.MODE_KERNELS``), the
+    sorted engine with the compact bundle or the wide one (beyond
+    ``_compact_bundle_ok``), the unsorted engine (``sort_rays=False`` or
+    the traversal "xla") and ``reference_parity``, each under
+    ``one_sample_mis`` (but parity, which refuses it) and
+    ``detailed_stats``."""
+    return _step_mode(scene, cfg) in step_kernels_mod.MODE_KERNELS
+
+
+def _step_mode(scene, cfg) -> str:
+    return step_kernels_mod.step_mode(scene, cfg,
+                                      compact=_compact_bundle_ok(scene, cfg))
 
 
 def _fused_step(scene, camera, cfg, words, carry):
     """:func:`wavefront_step` through the step kernels: route, one stable
     sort, shade (on the unsorted engine route and shade in one kernel and
     no sort), the two traversals, resolve.  On the card the kernels write
-    the next path state into ``carry``'s own tensors."""
+    the next path state into ``carry``'s own tensors, and under
+    ``detailed_stats`` resolve adds to its bounce histogram."""
     S = step_kernels_mod
-    state, fb, cam_start, it, _, rays_traced, occ_sum = carry
+    state, fb, cam_start, it, _, rays_traced, occ_sum, *extra = carry
     n = state.pixel.shape[0]
-    mode = S.step_mode(scene, cfg)
-    if mode == "default":
+    mode = _step_mode(scene, cfg)
+    engine = S.engine_of(mode)
+    stats = cfg.detailed_stats
+    hist = extra[0] if stats else None
+    if engine == "default":
         k = resolve_sort_every(scene, cfg)
         keys, bundle, cnt = S.route(scene, cfg, state, words)
         order = torch.sort(keys, stable=True).indices
         sh = S.shade(scene, camera, cfg, state, fb, words, order, bundle,
                      cnt, it, cam_start, k)
-    elif mode == "unsorted":
+    elif engine == "unsorted":
         sh = S.route_shade_unsorted(scene, camera, cfg, state, fb, words,
                                     cam_start)
     else:
@@ -206,23 +208,37 @@ def _fused_step(scene, camera, cfg, words, carry):
                           record, cnt, cam_start, mode)
     inf = torch.full((n,), float("inf"), dtype=torch.float32,
                      device=fb.device)
-    hit, ht, hprim, hsrc, hnrm = trace_closest(
-        scene, cfg, sh.ray_o, sh.ray_d, inf, sh.trace_mask)
-    occluded = None if sh.shadow is None else trace_anyhit(
-        scene, cfg, *sh.shadow)
-    if mode == "default":
-        acc, cam_start, work_left, rays_traced, occ_sum = S.resolve(
-            cfg, sh, occluded, it, k, cam_start, rays_traced, occ_sum)
+    hit, ht, hprim, hsrc, hnrm, *cst = trace_closest(
+        scene, cfg, sh.ray_o, sh.ray_d, inf, sh.trace_mask, with_stats=stats)
+    hits = (hit, ht, hnrm, hprim, hsrc)
+    occluded = ast = None
+    if sh.shadow is not None:
+        # one any-hit launch: both channels' 2N rays, or the N NEE rays
+        # under one_sample_mis
+        occluded = trace_anyhit(scene, cfg, *sh.shadow, with_stats=stats)
+        if stats:
+            occluded, ast = occluded
+    if engine == "default":
+        acc, cam_start, work_left, rays_traced, occ_sum, *hist = S.resolve(
+            cfg, sh, occluded, it, k, cam_start, rays_traced, occ_sum, hits,
+            hist)
     else:
-        acc, (hit, ht, hnrm, hprim, hsrc), cam_start, work_left, \
-            rays_traced, occ_sum = S.resolve_full(
-                cfg, sh, occluded, (hit, ht, hnrm, hprim, hsrc), cam_start,
-                rays_traced, occ_sum, mode)
+        acc, hits, cam_start, work_left, rays_traced, occ_sum, *hist = \
+            S.resolve_full(cfg, sh, occluded, hits, cam_start, rays_traced,
+                           occ_sum, mode, hist)
+    hit, ht, hnrm, hprim, hsrc = hits
     new_state = PathState(pixel=sh.pixel, ray_o=sh.ray_o, ray_d=sh.ray_d,
                           hit=hit, t=ht, normal=hnrm, prim=hprim, src=hsrc,
                           bounces=sh.bounces, beta=sh.beta, acc=acc)
-    return (new_state, fb, cam_start, it + 1, work_left, rays_traced,
-            occ_sum)
+    out = (new_state, fb, cam_start, it + 1, work_left, rays_traced, occ_sum)
+    if stats:
+        # the traversal counts, summed as the op-by-op step sums them
+        _, steps, leafs, ah_steps, ah_leafs = extra
+        zero = torch.zeros((), dtype=torch.int64, device=fb.device)
+        ast = ast if ast is not None else (zero, zero)
+        out += (hist[0], steps + cst[0][0], leafs + cst[0][1],
+                ah_steps + ast[0], ah_leafs + ast[1])
+    return out
 
 
 def wavefront_step(scene: Scene, camera: Camera, cfg: RenderConfig, words,
@@ -239,10 +255,11 @@ def wavefront_step(scene: Scene, camera: Camera, cfg: RenderConfig, words,
     the host (but repass's passes, render/trace.py), so that a CUDA graph
     can hold it.
 
-    The modes :func:`step_kernels_cover` names run the step kernels
-    (kernels/step.py; on the CPU their plain versions), which on the card
-    write the next path state into ``carry``'s own tensors;
-    ``step_kernels=False`` runs them op by op, as every other mode runs."""
+    The modes :func:`step_kernels_cover` names, every mode
+    :func:`check_slice` accepts, run the step kernels (kernels/step.py; on
+    the CPU their plain versions), which on the card write the next path
+    state into ``carry``'s own tensors; ``step_kernels=False`` runs the
+    step op by op (the card's A/B and the kernels' reference)."""
     if step_kernels and step_kernels_cover(scene, cfg):
         return _fused_step(scene, camera, cfg, words, carry)
     state, fb, cam_start, it, _, rays_traced, occ_sum, *extra = carry
@@ -553,9 +570,8 @@ def render_frame_linear(scene: Scene, camera: Camera, cfg: RenderConfig,
     ``"graphed"`` True, with ``"capture_s"``, the seconds this frame spent
     capturing, 0 when the graph was cached, and ``"graph_pool_bytes"``),
     in every mode; ``graph=False`` runs the same loop op by op.
-    ``step_kernels=False`` runs even the modes that
-    :func:`step_kernels_cover` names op by op inside the step, not through
-    the step kernels (the A/B and reference of the card's checks).
+    ``step_kernels=False`` runs the step op by op, not through the step
+    kernels (the A/B and reference of the card's checks).
     ``"host_reads"`` counts the loop's blocking device reads."""
     check_slice(scene, cfg)
     dev = scene.device

@@ -62,13 +62,13 @@ static Tables stage(const StepArgs& a, Staged& s) {
 }
 extern "C" int rtjax_step_route(const StepArgs* a, void*) { route<false>(a); return 0; }
 extern "C" int rtjax_step_route_v1(const StepArgs* a, void*) { route<true>(a); return 0; }
-extern "C" int rtjax_step_shade(const StepArgs* a, void*) {
+template <int kMode, bool kOneSample> static int shade_sorted(const StepArgs* a) {
   Staged st;
   const Tables T = stage(*a, st);
   const bool do_gen = cadence(*a);
   long long c1 = 0, c2 = 0, c3 = 0;
   for (int i = 0; i < a->n; ++i) {
-    ShadeLane r = shade_lane<false>(*a, i, T, do_gen);
+    ShadeLane r = shade_lane<false, kMode, kOneSample>(*a, i, T, do_gen);
     c1 += r.trace; c2 += r.nee; c3 += r.mis;
     const long long lo = a->counts[0];
     if (r.flush && i >= lo && i < lo + a->counts[4]) {
@@ -82,6 +82,10 @@ extern "C" int rtjax_step_shade(const StepArgs* a, void*) {
   a->counts[1] += c1; a->counts[2] += c2; a->counts[3] += c3;
   return 0;
 }
+extern "C" int rtjax_step_shade(const StepArgs* a, void*) { return shade_sorted<kDefault, false>(a); }
+extern "C" int rtjax_step_shade_1s(const StepArgs* a, void*) { return shade_sorted<kDefault, true>(a); }
+extern "C" int rtjax_step_shade_wide(const StepArgs* a, void*) { return shade_sorted<kWide, false>(a); }
+extern "C" int rtjax_step_shade_wide_1s(const StepArgs* a, void*) { return shade_sorted<kWide, true>(a); }
 extern "C" int rtjax_step_shade_v1(const StepArgs* a, void*) {
   const bool do_gen = cadence(*a);
   long long c1 = 0, c2 = 0, c3 = 0;
@@ -100,11 +104,11 @@ template <int kMode> static int route_full(const StepArgs* a) {
   for (int i = 0; i < a->n; ++i) {
     RouteLane r = route_lane<false, kMode>(*a, i, reinterpret_cast<int2*>(a->bundle) + kFullWords / 2 * (long long)i);
     a->counts[0] += r.mat;
-    a->counts[4] += r.limbo;
+    a->counts[4] += kMode == kWide ? r.dirty : r.limbo;
   }
   return 0;
 }
-template <int kMode> static int shade_full(const StepArgs* a) {
+template <int kMode, bool kOneSample = false> static int shade_full(const StepArgs* a) {
   Staged st;
   const Tables T = stage(*a, st);
   const int n = a->n, blocks = (n + kScanBlock - 1) / kScanBlock;
@@ -128,7 +132,7 @@ template <int kMode> static int shade_full(const StepArgs* a) {
   long long c1 = 0, c2 = 0, c3 = 0, rank = 0;
   for (int i = 0; i < n; ++i) {
     if (i % kScanBlock == 0) rank = prefix[i / kScanBlock];
-    ShadeLane r = shade_full_lane<kMode>(*a, i, T, rec[i], rank);
+    ShadeLane r = shade_full_lane<kMode, kOneSample>(*a, i, T, rec[i], rank);
     rank += !rec[i].mat && !rec[i].limbo;
     c1 += r.trace; c2 += r.nee; c3 += r.mis;
     if (r.flush) {
@@ -145,21 +149,25 @@ template <int kMode> static int shade_full(const StepArgs* a) {
 extern "C" int rtjax_step_route_parity(const StepArgs* a, void*) { return route_full<kParity>(a); }
 extern "C" int rtjax_step_route_parity_unsorted(const StepArgs* a, void*) { return route_full<kParityUnsorted>(a); }
 extern "C" int rtjax_step_route_shade_unsorted(const StepArgs* a, void*) { return shade_full<kUnsorted>(a); }
+extern "C" int rtjax_step_route_shade_unsorted_1s(const StepArgs* a, void*) { return shade_full<kUnsorted, true>(a); }
+extern "C" int rtjax_step_route_wide(const StepArgs* a, void*) { return route_full<kWide>(a); }
 extern "C" int rtjax_step_shade_parity(const StepArgs* a, void*) { return shade_full<kParity>(a); }
 extern "C" int rtjax_step_shade_parity_unsorted(const StepArgs* a, void*) { return shade_full<kParityUnsorted>(a); }
-extern "C" int rtjax_step_resolve_parity(const StepArgs* a, void*) {
+template <bool kRestore, bool kOneSample, bool kStats> static int resolve(const StepArgs* a) {
   for (int i = 0; i < a->n; ++i) {
-    if (a->num_lights > 0) resolve_lane(*a, i);
-    restore_limbo(*a, i);
+    if (kStats && hist_bin(*a, i) >= 0) a->hist[hist_bin(*a, i)] += 1;
+    if (a->num_lights > 0) resolve_lane<kOneSample>(*a, i);
+    if (kRestore) restore_limbo(*a, i);
   }
-  resolve_counters<kParity>(*a);
+  resolve_counters<kRestore ? kParity : kDefault>(*a);
   return 0;
 }
-extern "C" int rtjax_step_resolve(const StepArgs* a, void*) {
-  for (int i = 0; i < a->n; ++i) if (a->num_lights > 0) resolve_lane(*a, i);
-  resolve_counters(*a);
-  return 0;
-}
+extern "C" int rtjax_step_resolve(const StepArgs* a, void*) { return resolve<false, false, false>(a); }
+extern "C" int rtjax_step_resolve_1s(const StepArgs* a, void*) { return resolve<false, true, false>(a); }
+extern "C" int rtjax_step_resolve_stats(const StepArgs* a, void*) { return resolve<false, false, true>(a); }
+extern "C" int rtjax_step_resolve_1s_stats(const StepArgs* a, void*) { return resolve<false, true, true>(a); }
+extern "C" int rtjax_step_resolve_parity(const StepArgs* a, void*) { return resolve<true, false, false>(a); }
+extern "C" int rtjax_step_resolve_parity_stats(const StepArgs* a, void*) { return resolve<true, false, true>(a); }
 extern "C" int rtjax_step_kernel_info(int, int* r, int* l, int* b, int* k) {
   *r = *l = *b = *k = 0; return 0;
 }

@@ -1802,6 +1802,125 @@ def test_full_mode_kernels_equal_plain_versions(cuda, change):
     assert (limbo > 0) == mode.startswith("parity")
 
 
+@pytest.mark.parametrize("change", [
+    dict(max_bounces=126), dict(one_sample_mis=True),
+    dict(one_sample_mis=True, sort_rays=False),
+    dict(one_sample_mis=True, max_bounces=126), dict(detailed_stats=True),
+    dict(detailed_stats=True, reference_parity=True, rr_start=0),
+    dict(detailed_stats=True, one_sample_mis=True),
+    dict(detailed_stats=True, one_sample_mis=True, max_bounces=126,
+         traversal="xla")], ids=str)
+def test_flag_mode_kernels_equal_plain_versions(cuda, change):
+    """The sorted engine's wide bundle (``route_wide`` / ``shade_wide``;
+    126 bounces are past the compact bundle's range), the one-sample MIS
+    instances (``shade_1s``, ``route_shade_unsorted_1s``,
+    ``shade_wide_1s``, ``resolve_1s``) and the ``detailed_stats`` ones
+    (``resolve_stats``, ``resolve_parity_stats``, ``resolve_1s_stats``)
+    bit for bit against their plain versions on synthetic pools of every
+    lane kind, dirty lanes on the sorted engine, limbo lanes under
+    parity, the framebuffer within the atomic adds' reordering; resolve's
+    one-sample channel on the plain version's closest hits, the bounce
+    histogram exact."""
+    from rtjax_torch.kernels import step as S
+    from rtjax_torch.render import wavefront as wf
+    scene = _step_scene(cuda)
+    cam = Camera.make((0, 0.5, 3), (0, 0, 0), (0, 1, 0), 45, 1.0,
+                      device=cuda)
+    cfg = RenderConfig(**{**dict(width=40, height=30, num_samples=4,
+                                 max_bounces=5, num_working_paths=3000,
+                                 direct_max_tris=0), **change})
+    assert wf.step_kernels_cover(scene, cfg)
+    mode = S.step_mode(scene, cfg)
+    engine = S.engine_of(mode)
+    n = cfg.pool_size
+    g = torch.Generator(device=cuda).manual_seed(5)
+    copy = lambda v: None if v is None else tuple(copy(c) for c in v) \
+        if isinstance(v, tuple) else v.clone()
+    before, marked = dict(S.LAUNCHES), 0
+    for it in range(3):
+        state = _synthetic_state(scene, cfg, g, cuda)
+        words = torch.randint(0, 1 << 32, (5, n), generator=g, device=cuda,
+                              dtype=torch.int64)
+        fb = torch.rand(cfg.num_pixels, 3, generator=g, device=cuda)
+        fb0, fb1 = fb.clone(), fb.clone()
+        cam_start = torch.tensor(it * 997, device=cuda)
+        state1 = dataclasses.replace(state, **{
+            f: copy(v) for f, v in vars(state).items()})
+        if engine == "unsorted":
+            sh0 = S.route_shade_unsorted_ref(scene, cam, cfg, state, fb0,
+                                             words, cam_start)
+            sh1 = S.route_shade_unsorted(scene, cam, cfg, state1, fb1, words,
+                                         cam_start)
+        else:
+            route, route_ref = (S.route, S.route_ref) \
+                if engine == "default" else (
+                    lambda *a: S.route_full(*a, mode),
+                    lambda *a: S.route_full_ref(*a, mode))
+            want = route_ref(scene, cfg, state, words)
+            for x, y in zip(route(scene, cfg, state, words), want,
+                            strict=True):
+                assert (x is None and y is None) or _bits_equal(x, y)
+            keys, record, counts = want
+            marked += int(counts[4])   # dirty or limbo lanes
+            order = torch.sort(keys, stable=True).indices
+            if engine == "default":
+                sh0 = S.shade_ref(scene, cam, cfg, state, fb0, words, order,
+                                  record, counts, it, cam_start, 1)
+                sh1 = S.shade(scene, cam, cfg, state1, fb1, words, order,
+                              record, counts.clone(), it, cam_start, 1)
+            else:
+                sh0 = S.shade_full_ref(scene, cam, cfg, fb0, words, order,
+                                       record, counts, cam_start, mode)
+                sh1 = S.shade_full(scene, cam, cfg, state1, fb1, words,
+                                   order, record, counts.clone(), cam_start,
+                                   mode)
+        fields = ("pixel", "ray_o", "ray_d", "beta", "bounces", "acc",
+                  "trace_mask", "counts", "shadow", "ah_L", "chs_L",
+                  "chs_mask") + ("limbo",) * engine.startswith("parity")
+        for f in fields:
+            a, b = _flat(getattr(sh1, f)), _flat(getattr(sh0, f))
+            assert len(a) == len(b), f
+            for j, (x, y) in enumerate(zip(a, b)):
+                assert _bits_equal(x, y), (f, j)
+        assert (sh0.chs_mask is not None) == cfg.one_sample_mis
+        torch.testing.assert_close(fb1, fb0, rtol=1e-5, atol=1e-7)
+        occ = torch.rand(sh0.shadow[4].shape[0], generator=g,
+                         device=cuda) < 0.3
+        inf = torch.full((n,), float("inf"), device=cuda)
+        hit, t, prim, src, nrm = trace.trace_closest(
+            scene, cfg, sh0.ray_o, sh0.ray_d, inf, sh0.trace_mask)
+        hits = (hit, t, nrm, prim, src)
+        hist = torch.randint(0, 99, (cfg.max_bounces + 1,), generator=g,
+                             device=cuda) if cfg.detailed_stats else None
+        rays = torch.tensor(7.0, dtype=torch.float64, device=cuda)
+        occ_sum = torch.tensor(0.5, dtype=torch.float64, device=cuda)
+        if engine.startswith("parity"):
+            r0 = S.resolve_full_ref(cfg, sh0, occ, hits, cam_start, rays,
+                                    occ_sum, mode, copy(hist))
+        else:
+            r_it = it if engine == "default" else 0
+            acc, *rest = S.resolve_ref(cfg, sh0, occ, r_it, 1, cam_start,
+                                       rays, occ_sum, hits, copy(hist))
+            r0 = (acc, hits, *rest)
+        sh0.acc = copy(sh0.acc)
+        if engine == "default":
+            acc, *rest = S.resolve(cfg, sh0, occ, it, 1, cam_start, rays,
+                                   occ_sum, copy(hits), copy(hist))
+            r1 = (acc, hits, *rest)
+        else:
+            r1 = S.resolve_full(cfg, sh0, occ, copy(hits), cam_start, rays,
+                                occ_sum, mode, copy(hist))
+        for j, (x, y) in enumerate(zip(_flat(r1), _flat(r0), strict=True)):
+            assert _bits_equal(x, y), ("resolve", j)
+        if hist is not None:
+            assert int(r1[-1].sum() - hist.sum()) == int(
+                sh0.trace_mask.sum())
+    assert (marked > 0) == (engine != "unsorted")
+    assert {k: S.LAUNCHES[k] - before[k] for k in S.LAUNCHES
+            if S.LAUNCHES[k] != before[k]} == {
+                k: 3 for k in S.MODE_KERNELS[mode]}
+
+
 def test_step_kernels_on_an_instanced_scene(cuda):
     """Instance materials (src > 0) and a light-less scene with only the
     environment: route, shade and resolve bit for bit."""
@@ -1835,19 +1954,31 @@ def test_step_kernels_on_an_instanced_scene(cuda):
     ("planes", dict(direct_max_tris=0, reference_parity=True, rr_start=0)),
     ("planes", dict(direct_max_tris=0, reference_parity=True,
                     traversal="xla")),
-    ("instanced", dict(direct_max_tris=0, reference_parity=True))],
+    ("instanced", dict(direct_max_tris=0, reference_parity=True)),
+    ("planes", dict(direct_max_tris=0, detailed_stats=True)),
+    ("planes", dict(detailed_stats=True, reference_parity=True)),
+    ("instanced", dict(direct_max_tris=0, detailed_stats=True,
+                       two_level="kernel")),
+    ("planes", dict(direct_max_tris=0, one_sample_mis=True)),
+    ("planes", dict(direct_max_tris=0, one_sample_mis=True,
+                    sort_rays=False)),
+    ("planes", dict(direct_max_tris=0, max_bounces=126)),
+    ("planes", dict(max_bounces=126, one_sample_mis=True,
+                    detailed_stats=True))],
     ids=str)
 def test_step_kernel_frame_equals_the_op_by_op_step(cuda, kind, change):
     """A captured frame through the step kernels against one through the
     op-by-op step (``step_kernels=False``), one seed: the same
-    iterations, rays, occupancy and traversal launches, the mode's step
-    kernels launched once an iteration (none in the other), framebuffers
-    within the atomic adds' reordering."""
+    iterations, rays, occupancy and traversal launches, under
+    ``detailed_stats`` the same bounce histogram and traversal sums, the
+    mode's step kernels launched once an iteration (none in the other),
+    framebuffers within the atomic adds' reordering."""
     from rtjax_torch.kernels import counts
     from rtjax_torch.kernels import step as S
     scene, cam = _graph_scene(kind, cuda)
-    cfg = RenderConfig(width=32, height=32, num_samples=8, max_bounces=4,
-                       num_working_paths=4096, **change)
+    cfg = RenderConfig(**{**dict(width=32, height=32, num_samples=8,
+                                 max_bounces=4, num_working_paths=4096),
+                          **change})
     out = []
     for sk in (True, False):
         before = counts.snapshot()
@@ -1856,8 +1987,13 @@ def test_step_kernel_frame_equals_the_op_by_op_step(cuda, kind, change):
         out.append((fb, st, counts.delta(before, counts.snapshot())))
     (fb, st, ran), (fb0, st0, ran0) = out
     assert st["graphed"] and st0["graphed"]
-    for k in ("iterations", "rays_traced", "avg_occupancy"):
+    for k in ("iterations", "rays_traced", "avg_occupancy") + (
+            "node_steps", "leaf_visits", "anyhit_steps",
+            "anyhit_visits") * cfg.detailed_stats:
         assert st[k] == st0[k], k
+    if cfg.detailed_stats:
+        assert torch.equal(st["bounce_histogram"], st0["bounce_histogram"])
+        assert int(st["bounce_histogram"].sum()) > 0
     steps = {k: v for k, v in ran.items() if k[0][0] == "step"}
     assert steps == {(("step", "LAUNCHES"), name): st["iterations"]
                      for name in S.MODE_KERNELS[S.step_mode(scene, cfg)]}

@@ -31,6 +31,10 @@ card (tests/test_torch_cuda.py); here their plain versions.
     limbo lanes included; their device code compiled as host C++ against
     the plain versions; the camera rank's scan against ``torch.cumsum``;
     their wrappers launching their own kernels.
+(h) The sorted engine's wide bundle (the compact bundle's range test
+    patched False), one-sample MIS and ``detailed_stats``, alone and
+    combined: through (b), (c) and (g) as the full-record modes, the
+    bounce histogram and ``rays_traced`` exact.
 """
 
 import dataclasses
@@ -317,18 +321,25 @@ def _jax_carry(c):
 
 
 @pytest.mark.parametrize("case", ["mixed", "cadence2", "instanced", "parity",
-                                  "unsorted"])
-def test_step_matches_rtjax_state_for_state(mixed, case):
+                                  "unsorted", "wide", "one_sample", "stats"])
+def test_step_matches_rtjax_state_for_state(mixed, monkeypatch, case):
     """One iteration of the composed plain step against rtjax's
     ``wavefront_step`` (op by op) on rtjax's words, from a synthetic pool
     of every lane kind: glass, mirror, point and area lights and the
     environment light at cadence 1 (the headline's), the Cornell box at
     cadence 2 on iteration 1 with nine in ten paths continuing (a
     ``sort_every`` skip), an instanced scene, and the mixed scene under
-    ``reference_parity`` (roulette from bounce 0: limbo lanes) and on the
-    unsorted engine (``sort_rays=False``).  Integers exact but the prim
-    and src of equal-t ties, floats at rtol 1e-5 / atol 1e-6."""
-    if case in ("mixed", "parity", "unsorted"):
+    ``reference_parity`` (roulette from bounce 0: limbo lanes), on the
+    unsorted engine (``sort_rays=False``), with the sorted engine's wide
+    bundle (``_compact_bundle_ok`` patched False in both packages), under
+    ``one_sample_mis`` and under ``detailed_stats`` (the bounce histogram
+    exact).  Integers exact but the prim and src of equal-t ties, floats
+    at rtol 1e-5 / atol 1e-6."""
+    if case == "wide":
+        for mod in (wf, jax_wf):
+            monkeypatch.setattr(mod, "_compact_bundle_ok", lambda s, c: False)
+    if case in ("mixed", "parity", "unsorted", "wide", "one_sample",
+                "stats"):
         jscene, jcam, scene, cam = mixed
     elif case == "instanced":
         jscene = _jax_scene("pyramid3")
@@ -345,29 +356,41 @@ def test_step_matches_rtjax_state_for_state(mixed, case):
               num_working_paths=POOL,
               sort_every=1 if case == "mixed" else 0,
               **{"parity": dict(reference_parity=True, rr_start=0),
-                 "unsorted": dict(sort_rays=False)}.get(case, {}))
+                 "unsorted": dict(sort_rays=False),
+                 "one_sample": dict(one_sample_mis=True),
+                 "stats": dict(detailed_stats=True)}.get(case, {}))
     jcfg = JaxConfig(traversal="pallas", **kw)
     cfg = RenderConfig(**kw)
     assert wf.step_kernels_cover(scene, cfg)
+    assert (S.engine_of(wf._step_mode(scene, cfg)) == "wide") == \
+        (case == "wide")
     it = 1 if case == "cadence2" else 2
     state = _synthetic_state(scene, cfg, 6, p_hit=0.97 if it == 1 else 0.7)
     c = (state, torch.zeros(cfg.num_pixels, 3), torch.tensor(300), it,
          torch.tensor(False), torch.tensor(0.0, dtype=torch.float64),
          torch.tensor(0.0, dtype=torch.float64))
+    jcarry = _jax_carry(c)
+    if cfg.detailed_stats:
+        hist = np.random.default_rng(7).integers(0, 50, cfg.max_bounces + 1)
+        c += (torch.tensor(hist),) + (torch.zeros((), dtype=torch.int64),) * 4
+        jcarry += (jnp.asarray(hist, jnp.int32),) + (jnp.int32(0),) * 4
     key = jax.random.key(5)
     refs = dict(S.REF_CALLS)
     with jax.disable_jit():
         words = np.asarray(jax_rng.bits_block(key, jnp.int32(it), 5,
                                               POOL)).astype(np.int64)
-        jc = jax_wf.wavefront_step(jscene, jcam, jcfg, key, _jax_carry(c))
+        jc = jax_wf.wavefront_step(jscene, jcam, jcfg, key, jcarry)
     if case == "parity":
         limbo = S.route_full_ref(scene, cfg, state, torch.tensor(words),
                                  "parity")[2][4]
         assert int(limbo) > 0
         refs = dict(S.REF_CALLS)
     c = wf.wavefront_step(scene, cam, cfg, torch.tensor(words), c)
-    mine = S.MODE_KERNELS[S.step_mode(scene, cfg)]
+    mine = S.MODE_KERNELS[wf._step_mode(scene, cfg)]
     assert all(S.REF_CALLS[k] - refs[k] == (k in mine) for k in refs)
+    if cfg.detailed_stats:
+        _eq(c[7].numpy(), np.asarray(jc[7]), "bounce histogram")
+        assert int(c[7].sum()) > hist.sum()
     js, s = jc[0], c[0]
     hit = np.asarray(js.hit)
     uniq = np.ones(POOL, bool)
@@ -396,6 +419,21 @@ def test_step_matches_rtjax_state_for_state(mixed, case):
 # ---------------------------------- (c) the step against the op-by-op step
 
 _PARITY = dict(reference_parity=True, rr_start=0)
+_ONE = dict(one_sample_mis=True)
+_STATS = dict(detailed_stats=True)
+# not a RenderConfig field: the sorted engine's wide bundle, forced by
+# patching the compact bundle's range test (:func:`_narrow`)
+_WIDE = dict(wide=True)
+
+
+def _narrow(monkeypatch, change):
+    """``change`` without ``_WIDE``'s key; under it the compact bundle's
+    range test patched False (both steps read it through kernels/step.py
+    ``compact_bundle_ok``)."""
+    change = dict(change)
+    if change.pop("wide", False):
+        monkeypatch.setattr(S, "compact_bundle_ok", lambda scene, cfg: False)
+    return change
 
 
 @pytest.mark.parametrize("change, lights", [
@@ -410,14 +448,24 @@ _PARITY = dict(reference_parity=True, rr_start=0)
     (dict(traversal="xla"), "no_wide"),
     (_PARITY, "mixed"), (dict(_PARITY, sort_key="prim_pos"), "mixed"),
     (_PARITY, "none"), (_PARITY, "instanced"),
-    (dict(_PARITY, sort_rays=False), "mixed")], ids=str)
-def test_step_equals_the_op_by_op_step(mixed, change, lights):
+    (dict(_PARITY, sort_rays=False), "mixed"),
+    (_WIDE, "mixed"), (dict(_WIDE, sort_key="adaptive"), "instanced"),
+    (_WIDE, "none"), (_ONE, "mixed"), (dict(_ONE, sort_every=2), "points"),
+    (dict(_ONE, sort_rays=False), "mixed"), (dict(_WIDE, **_ONE), "mixed"),
+    (_ONE, "none"), (_STATS, "mixed"), (dict(_PARITY, **_STATS), "mixed"),
+    (dict(_STATS, traversal="xla"), "mixed"),
+    (dict(_WIDE, **_STATS), "instanced"),
+    (dict(_ONE, **_STATS), "mixed")], ids=str)
+def test_step_equals_the_op_by_op_step(mixed, monkeypatch, change, lights):
     """Three iterations from a fresh pool, both steps on the same words:
     every state field, the framebuffer and the counters bit for bit.
     Beside the sorted engine's default estimator: the unsorted engine
     (``sort_rays=False``, the traversal "xla", also on a scene without wide
-    tables), and ``reference_parity`` with roulette from bounce 0, so that
-    lanes fall into limbo within the three iterations."""
+    tables), ``reference_parity`` with roulette from bounce 0, so that
+    lanes fall into limbo within the three iterations, the sorted engine's
+    wide bundle, ``one_sample_mis`` and ``detailed_stats`` (its histogram
+    and traversal sums)."""
+    change = _narrow(monkeypatch, change)
     limbo = 0
     if lights == "instanced":
         scene = scene_from_arrays(inst_scene_arrays(_jax_scene("pyramid3")),
@@ -439,11 +487,12 @@ def test_step_equals_the_op_by_op_step(mixed, change, lights):
     assert wf.step_kernels_cover(scene, cfg)
     new, old = wf.initial_carry(cfg, "cpu"), wf.initial_carry(cfg, "cpu")
     mode = S.step_mode(scene, cfg)
+    refs = dict(S.REF_CALLS)
     for it in range(3):
         words = _words(10 + it)
         if mode.startswith("parity"):
-            limbo += int(S.route_full_ref(scene, cfg, new[0], words,
-                                          mode)[2][4])
+            limbo += int(S._route_full(scene, cfg, new[0], words,
+                                       mode)[2][4])
         new = wf.wavefront_step(scene, cam, cfg, words, new)
         old = wf.wavefront_step(scene, cam, cfg, words, old,
                                 step_kernels=False)
@@ -455,38 +504,57 @@ def test_step_equals_the_op_by_op_step(mixed, change, lights):
                 assert x == y
     assert float(new[5]) > 0
     assert (limbo > 0) == mode.startswith("parity")
+    assert {k: v - refs[k] for k, v in S.REF_CALLS.items() if v != refs[k]} \
+        == {k: 3 for k in S.MODE_KERNELS[mode]}
+    if cfg.detailed_stats:
+        assert int(new[7].sum()) > 0 and int(new[9]) > 0
 
 
 # --------------------------------------------------- (d) routing, checks
 
-@pytest.mark.parametrize("change, covered", [
-    ({}, True), (dict(sort_key="prim", sort_every=3), True),
-    (dict(reference_parity=True), True), (dict(one_sample_mis=True), False),
-    (dict(sort_rays=False), True), (dict(traversal="xla"), True),
-    (dict(detailed_stats=True), False), (dict(max_bounces=126), False),
-    (dict(width=2048, height=1025), False),
-    (dict(reference_parity=True, max_bounces=126), True),
-    (dict(sort_rays=False, width=2048, height=1025), True),
-    (dict(reference_parity=True, sort_rays=False), True),
-    (dict(reference_parity=True, detailed_stats=True), False),
-    (dict(traversal="xla", detailed_stats=True), False),
-    (dict(sort_rays=False, one_sample_mis=True), False)], ids=str)
-def test_mode_predicate(mixed, change, covered):
-    """``step_kernels_cover`` names the modes the kernels run: the default
-    estimator of the sorted engine with the compact bundle, and the
-    unsorted engine and ``reference_parity`` at any ranges (their
-    full-precision record), never with ``one_sample_mis`` or
-    ``detailed_stats``."""
-    assert wf.step_kernels_cover(mixed[2], _cfg(**change)) == covered
+@pytest.mark.parametrize("change, covered, mode", [
+    ({}, True, "default"), (dict(sort_key="prim", sort_every=3), True,
+                            "default"),
+    (dict(reference_parity=True), True, "parity"),
+    (dict(one_sample_mis=True), True, "default_1s"),
+    (dict(sort_rays=False), True, "unsorted"),
+    (dict(traversal="xla"), True, "unsorted"),
+    (dict(detailed_stats=True), True, "default_stats"),
+    (dict(max_bounces=126), True, "wide"),
+    (dict(width=2048, height=1025), True, "wide"),
+    (dict(reference_parity=True, max_bounces=126), True, "parity"),
+    (dict(sort_rays=False, width=2048, height=1025), True, "unsorted"),
+    (dict(reference_parity=True, sort_rays=False), True, "parity_unsorted"),
+    (dict(reference_parity=True, detailed_stats=True), True, "parity_stats"),
+    (dict(traversal="xla", detailed_stats=True), True, "unsorted_stats"),
+    (dict(sort_rays=False, one_sample_mis=True), True, "unsorted_1s"),
+    (dict(max_bounces=126, one_sample_mis=True, detailed_stats=True), True,
+     "wide_1s_stats"),
+    (dict(reference_parity=True, one_sample_mis=True), False, "parity_1s")],
+    ids=str)
+def test_mode_predicate(mixed, change, covered, mode):
+    """``step_kernels_cover`` names the modes the kernels run: every mode
+    ``check_slice`` accepts, the sorted engine with the compact bundle and
+    beyond its ranges (the wide bundle), the unsorted engine and
+    ``reference_parity``, with ``one_sample_mis`` (but under parity, which
+    ``check_slice`` refuses) and ``detailed_stats``; ``step_mode`` names
+    each."""
+    cfg = _cfg(**change)
+    assert wf.step_kernels_cover(mixed[2], cfg) == covered
+    assert S.step_mode(mixed[2], cfg) == wf._step_mode(mixed[2], cfg) == mode
+    if not covered:
+        with pytest.raises(ValueError):
+            wf.check_slice(mixed[2], cfg)
 
 
 def test_predicate_takes_the_compact_bundle_ranges():
-    """Past 255 instances (src's 8 bits) the wide bundle runs, op by op."""
+    """Past 255 instances (src's 8 bits) the wide bundle's kernels run."""
     from types import SimpleNamespace as NS
-    for n_inst, covered in ((255, True), (256, False)):
+    for n_inst, mode in ((255, "default"), (256, "wide")):
         fake = NS(tables=object(), tris=NS(num=3), blas=(NS(tris=NS(num=4)),),
                   instances=NS(num=n_inst))
-        assert wf.step_kernels_cover(fake, _cfg()) == covered
+        assert wf.step_kernels_cover(fake, _cfg())
+        assert S.step_mode(fake, _cfg()) == mode
 
 
 class _Spy:
@@ -506,12 +574,14 @@ class _Spy:
      ["route_parity", "shade_parity", "resolve_parity"]),
     (True, dict(sort_rays=False), ["resolve", "route_shade_unsorted"]),
     (False, dict(reference_parity=True), []),
-    (True, dict(one_sample_mis=True), [])], ids=str)
+    (True, dict(one_sample_mis=True), ["route", "shade_1s", "resolve_1s"]),
+    (True, dict(detailed_stats=True), ["route", "shade", "resolve_stats"]),
+    (False, dict(one_sample_mis=True, detailed_stats=True), [])], ids=str)
 def test_step_routes_by_mode_and_device(mixed, monkeypatch, step_kernels,
                                         change, want):
     """On a CUDA tensor the wrappers launch their kernels (spied), on a
-    CPU one they run the plain versions, each mode its own; the modes
-    outside the predicate and ``step_kernels=False`` call neither."""
+    CPU one they run the plain versions, each mode its own;
+    ``step_kernels=False`` calls neither."""
     _, _, scene, cam = mixed
     cfg = _cfg(**change)
     refs, launches = dict(S.REF_CALLS), dict(S.LAUNCHES)
@@ -528,14 +598,30 @@ def test_step_routes_by_mode_and_device(mixed, monkeypatch, step_kernels,
     sh = S.shade(scene, cam, cfg, state, torch.zeros(cfg.num_pixels, 3),
                  _words(1), torch.arange(POOL), bundle, counts, 0,
                  torch.tensor(0), 1)
-    occ = torch.zeros(2 * POOL, dtype=torch.bool)
+    rays = POOL if cfg.one_sample_mis else 2 * POOL
+    occ = torch.zeros(rays, dtype=torch.bool)
     S.resolve(cfg, sh, occ, 0, 1, torch.tensor(0),
               torch.tensor(0.0, dtype=torch.float64),
-              torch.tensor(0.0, dtype=torch.float64))
-    assert spy.names == ["route", "shade", "resolve"]
+              torch.tensor(0.0, dtype=torch.float64), _hits(),
+              _hist(cfg))
+    assert spy.names == list(S.kernels_of(cfg, "default"))
     assert sh.pixel is state.pixel and sh.acc is state.acc
-    assert [c.shape for c in sh.shadow[0]] == [(2 * POOL,)] * 3
+    assert [c.shape for c in sh.shadow[0]] == [(rays,)] * 3
+    assert (sh.chs_mask is None) != cfg.one_sample_mis
     assert S.REF_CALLS == {k: v + (k in want) for k, v in refs.items()}
+
+
+def _hits(n=POOL):
+    """Closest hits ``(hit, t, normal, prim, src)`` of ``n`` misses."""
+    return (torch.zeros(n, dtype=torch.bool), torch.zeros(n),
+            (torch.zeros(n),) * 3, torch.zeros(n, dtype=torch.int32),
+            torch.zeros(n, dtype=torch.int32))
+
+
+def _hist(cfg):
+    """A zero bounce histogram under ``detailed_stats``, else None."""
+    return torch.zeros(cfg.max_bounces + 1, dtype=torch.int64) \
+        if cfg.detailed_stats else None
 
 
 def test_failing_library_load_raises(mixed, monkeypatch):
@@ -867,6 +953,15 @@ def test_graph_refuses_to_capture_under_another_design(mixed, monkeypatch):
 
 _FULL_MODES = {"unsorted": dict(sort_rays=False), "parity": _PARITY,
                "parity_unsorted": dict(_PARITY, sort_rays=False)}
+# the modes of the wide bundle, one-sample MIS and detailed_stats (their
+# step_mode names), which the host-compiled and wrapper tests take beside
+# _FULL_MODES
+_FLAG_MODES = {"wide": _WIDE, "default_1s": _ONE,
+               "unsorted_1s": dict(_ONE, sort_rays=False),
+               "wide_1s": dict(_WIDE, **_ONE), "default_stats": _STATS,
+               "parity_stats": dict(_PARITY, **_STATS),
+               "default_1s_stats": dict(_ONE, **_STATS)}
+_MODES = {**_FULL_MODES, **_FLAG_MODES}
 
 
 def _on_host(monkeypatch):
@@ -884,23 +979,64 @@ def _copy_state(st):
         for f, v in vars(st).items()})
 
 
-@pytest.mark.parametrize("mode", sorted(_FULL_MODES))
+def _shade_both(scene, cam, cfg, mode, state, words, fb0, fb1, cam_start,
+                monkeypatch):
+    """``mode``'s route (held bit for bit to its plain version) and
+    shade, plain (into ``fb0``) and on the host-compiled kernels (into
+    ``fb1``): ``(plain Shaded, kernels' Shaded, route's counts)``."""
+    engine = S.engine_of(mode)
+    if engine == "unsorted":
+        sh0 = S.route_shade_unsorted_ref(scene, cam, cfg, state, fb0, words,
+                                         cam_start)
+        _on_host(monkeypatch)
+        return sh0, S.route_shade_unsorted(
+            scene, cam, cfg, _copy_state(state), fb1, words, cam_start), None
+    if engine == "default":
+        want = S.route_ref(scene, cfg, state, words)
+        _on_host(monkeypatch)
+        got = S.route(scene, cfg, state, words)
+    else:
+        want = S.route_full_ref(scene, cfg, state, words, mode)
+        _on_host(monkeypatch)
+        got = S.route_full(scene, cfg, state, words, mode)
+    for x, y in zip(got, want, strict=True):
+        assert (x is None and y is None) or torch.equal(x, y)
+    keys, record, counts = want
+    order = None if keys is None else torch.sort(keys, stable=True).indices
+    if engine == "default":
+        sh0 = S.shade_ref(scene, cam, cfg, state, fb0, words, order, record,
+                          counts, 2, cam_start, 1)
+        sh1 = S.shade(scene, cam, cfg, _copy_state(state), fb1, words, order,
+                      record, counts.clone(), 2, cam_start, 1)
+    else:
+        sh0 = S.shade_full_ref(scene, cam, cfg, fb0, words, order, record,
+                               counts, cam_start, mode)
+        sh1 = S.shade_full(scene, cam, cfg, _copy_state(state), fb1, words,
+                           order, record, counts.clone(), cam_start, mode)
+    return sh0, sh1, counts
+
+
+@pytest.mark.parametrize("mode", sorted(_MODES))
 @pytest.mark.parametrize("lights", ["mixed", "none"])
 def test_host_compiled_full_modes_match_plain_versions(mixed, monkeypatch,
                                                        mode, lights):
-    """csrc/step_math.cuh's full-record modes compiled as host C++ and run
-    through the real wrappers on CPU tensors, on a synthetic pool with
-    limbo lanes: route (keys, record, counts) and resolve (radiance, the
-    limbo lanes' restored hits, counters) bit for bit against their plain
-    versions; shade's (on the unsorted engine route and shade's one
-    kernel's) integers, masks and framebuffer (every flushing lane added
-    in order) bit for bit and its floats at rtol 1e-4, as the default
-    instances' host test (the host's sin, cos and the card's division by
-    a host scalar differ from torch's CPU ones)."""
+    """csrc/step_math.cuh's full-record modes (the unsorted engine,
+    ``reference_parity``, the wide bundle) and the one-sample and
+    ``detailed_stats`` instances compiled as host C++ and run through the
+    real wrappers on CPU tensors, on a synthetic pool with limbo (parity)
+    or dirty (sorted engine) lanes: route (keys, record, counts) and
+    resolve (radiance, the limbo lanes' restored hits, the one-sample
+    channel on hits that reach the picked light, the bounce histogram,
+    counters) bit for bit against their plain versions; shade's (on the
+    unsorted engine route and shade's one kernel's) integers, masks and
+    framebuffer (every flushing lane added in order) bit for bit and its
+    floats at rtol 1e-4, as the default instances' host test (the host's
+    sin, cos and the card's division by a host scalar differ from torch's
+    CPU ones)."""
     _, _, scene, cam = mixed
     if lights == "none":
         scene = dataclasses.replace(scene, num_lights=0)
-    cfg = _cfg(**_FULL_MODES[mode])
+    cfg = _cfg(**_narrow(monkeypatch, _MODES[mode]))
     assert S.step_mode(scene, cfg) == mode
     state = _synthetic_state(scene, cfg, 50)
     words = _words(51)
@@ -909,30 +1045,15 @@ def test_host_compiled_full_modes_match_plain_versions(mixed, monkeypatch,
     fb0, fb1 = fb.clone(), fb.clone()
     cam_start = torch.tensor(301)
     scan = S.scan_buffer("cpu", 0, POOL)
-    if mode == "unsorted":
-        sh0 = S.route_shade_unsorted_ref(scene, cam, cfg, state, fb0, words,
-                                         cam_start)
-        _on_host(monkeypatch)
-        sh1 = S.route_shade_unsorted(scene, cam, cfg, _copy_state(state),
-                                     fb1, words, cam_start)
-    else:
-        want = S.route_full_ref(scene, cfg, state, words, mode)
-        _on_host(monkeypatch)
-        got = S.route_full(scene, cfg, state, words, mode)
-        for x, y in zip(got, want, strict=True):
-            assert (x is None and y is None) or torch.equal(x, y)
-        assert int(want[2][4]) > 0
-        keys, record, counts = want
-        order = None if keys is None else \
-            torch.sort(keys, stable=True).indices
-        sh0 = S.shade_full_ref(scene, cam, cfg, fb0, words, order, record,
-                               counts, cam_start, mode)
-        sh1 = S.shade_full(scene, cam, cfg, _copy_state(state), fb1, words,
-                           order, record, counts.clone(), cam_start, mode)
+    sh0, sh1, counts = _shade_both(scene, cam, cfg, mode, state, words, fb0,
+                                   fb1, cam_start, monkeypatch)
+    if counts is not None:
+        # limbo lanes (parity) or dirty ones (the sorted engine)
+        assert int(counts[4]) > 0
     # the scan buffer is left zero for the next launch
     assert scan.shape == (S.scan_words(POOL),) and not scan.any()
     fields = ("pixel", "ray_o", "ray_d", "beta", "bounces", "acc",
-              "trace_mask", "counts", "shadow", "ah_L", "chs_L")
+              "trace_mask", "counts", "shadow", "ah_L", "chs_L", "chs_mask")
     fields += ("limbo",) * mode.startswith("parity")
     for f in fields:
         for x, y in zip(_flat(getattr(sh1, f)), _flat(getattr(sh0, f)),
@@ -942,31 +1063,44 @@ def test_host_compiled_full_modes_match_plain_versions(mixed, monkeypatch,
                                            equal_nan=True)
             else:
                 assert torch.equal(x, y), f
+    assert (sh0.chs_mask is not None) == (cfg.one_sample_mis and
+                                          lights == "mixed")
     assert torch.equal(_bits(fb1), _bits(fb0)) and not torch.equal(fb1, fb)
-    # resolve on the plain version's shading, with drawn hits
+    # resolve on the plain version's shading, with drawn hits (under
+    # one-sample MIS half of them on each lane's picked light)
     rng = np.random.default_rng(52)
-    occ = None if sh0.shadow is None else \
-        torch.tensor(rng.uniform(size=2 * POOL) < 0.3)
+    occ = None if sh0.shadow is None else torch.tensor(
+        rng.uniform(size=sh0.shadow[4].shape[0]) < 0.3)
+    prim = torch.tensor(rng.integers(-1, 20, POOL).astype(np.int32))
+    if sh0.chs_mask is not None:
+        prim = torch.where(torch.tensor(rng.uniform(size=POOL) < 0.5),
+                           sh0.shadow[3], prim)
     hits = (torch.tensor(rng.uniform(size=POOL) < 0.5),
             torch.tensor(rng.uniform(0, 3, POOL).astype(np.float32)),
             tuple(torch.tensor(rng.normal(size=POOL).astype(np.float32))
-                  for _ in range(3)),
-            torch.tensor(rng.integers(-1, 20, POOL).astype(np.int32)),
+                  for _ in range(3)), prim,
             torch.zeros(POOL, dtype=torch.int32))
+    hist = None if not cfg.detailed_stats else torch.tensor(
+        rng.integers(0, 99, cfg.max_bounces + 1))
     rays, occ_sum = (torch.tensor(v, dtype=torch.float64) for v in (7, .5))
-    copy = lambda v: tuple(c.clone() for c in v)
+    copy = lambda v: None if v is None else tuple(c.clone() for c in v) \
+        if isinstance(v, tuple) else v.clone()
     monkeypatch.setattr(S, "_on_card", lambda t: False)
     r0 = S.resolve_full(cfg, dataclasses.replace(sh0, acc=copy(sh0.acc)),
-                        occ, hits, cam_start, rays, occ_sum, mode)
+                        occ, hits, cam_start, rays, occ_sum, mode, copy(hist))
     monkeypatch.setattr(S, "_on_card", lambda t: True)
     r1 = S.resolve_full(cfg, dataclasses.replace(sh0, acc=copy(sh0.acc)),
-                        occ, tuple(copy(v) if isinstance(v, tuple)
-                                   else v.clone() for v in hits),
-                        cam_start, rays, occ_sum, mode)
+                        occ, tuple(copy(v) for v in hits), cam_start, rays,
+                        occ_sum, mode, copy(hist))
     for x, y in zip(_flat(r1), _flat(r0), strict=True):
         assert x.dtype == y.dtype and torch.equal(_bits(x), _bits(y))
     if mode.startswith("parity"):
         assert bool(r1[1][0][sh0.limbo].all())
+    if hist is not None:
+        assert int(r1[-1].sum() - hist.sum()) == int(sh0.trace_mask.sum())
+    if sh0.chs_mask is not None:
+        # the one-sample channel landed on some lane
+        assert bool((sh0.chs_mask & hits[0] & (prim == sh0.shadow[3])).any())
 
 
 _RANK_MASKS = {
@@ -1016,14 +1150,17 @@ def test_scan_rank_equals_cumsum(mixed, monkeypatch, mask):
     assert torch.equal(pixels(), want)
 
 
-@pytest.mark.parametrize("mode", sorted(_FULL_MODES))
+@pytest.mark.parametrize("mode", sorted(_MODES))
 def test_full_wrappers_launch_their_kernels(mixed, monkeypatch, mode):
     """On a CUDA tensor (spied) a full-record mode's wrappers launch its
-    own kernels (the unsorted engine's route and shade one, its resolve the
-    default one), and no plain version runs; ``shade_full`` leaves the
-    record, the order and the limbo flags to ``resolve_full``."""
+    own kernels (the unsorted engine's route and shade one, its and the
+    wide bundle's resolve the default one), as do the one-sample and
+    ``detailed_stats`` instances, and no plain version runs;
+    ``shade_full`` leaves the record, the order and the limbo flags to
+    ``resolve_full``."""
     _, _, scene, cam = mixed
-    cfg = _cfg(**_FULL_MODES[mode])
+    cfg = _cfg(**_narrow(monkeypatch, _MODES[mode]))
+    engine = S.engine_of(mode)
     spy = _Spy()
     monkeypatch.setattr(S, "_on_card", lambda t: True)
     monkeypatch.setattr(S, "launch", spy)
@@ -1032,26 +1169,31 @@ def test_full_wrappers_launch_their_kernels(mixed, monkeypatch, mode):
     refs = dict(S.REF_CALLS)
     state = _synthetic_state(scene, cfg, 3)
     fb = torch.zeros(cfg.num_pixels, 3)
-    if mode == "unsorted":
+    if engine == "unsorted":
         sh = S.route_shade_unsorted(scene, cam, cfg, state, fb, _words(1),
                                     torch.tensor(0))
         assert sh.record is None and sh.order is None and sh.limbo is None
+    elif engine == "default":
+        _, bundle, counts = S.route(scene, cfg, state, _words(1))
+        sh = S.shade(scene, cam, cfg, state, fb, _words(1),
+                     torch.arange(POOL), bundle, counts, 0, torch.tensor(0),
+                     1)
     else:
         keys, rec, counts = S.route_full(scene, cfg, state, _words(1), mode)
-        assert (keys is None) == (mode != "parity")
+        assert (keys is None) == (engine == "parity_unsorted")
         order = None if keys is None else torch.arange(POOL)
         sh = S.shade_full(scene, cam, cfg, state, fb, _words(1), order, rec,
                           counts, torch.tensor(0), mode)
         assert sh.record is rec and sh.order is order
-        assert sh.limbo is not None
-    hits = (torch.zeros(POOL, dtype=torch.bool), torch.zeros(POOL),
-            (torch.zeros(POOL),) * 3, torch.zeros(POOL, dtype=torch.int32),
-            torch.zeros(POOL, dtype=torch.int32))
-    out = S.resolve_full(cfg, sh, torch.zeros(2 * POOL, dtype=torch.bool),
-                         hits, torch.tensor(0),
+        assert (sh.limbo is not None) == engine.startswith("parity")
+    rays = POOL if cfg.one_sample_mis else 2 * POOL
+    out = S.resolve_full(cfg, sh, torch.zeros(rays, dtype=torch.bool),
+                         _hits(), torch.tensor(0),
                          torch.tensor(0.0, dtype=torch.float64),
-                         torch.tensor(0.0, dtype=torch.float64), mode)
-    assert spy.names == list(S.MODE_KERNELS[mode]) and len(out) == 6
+                         torch.tensor(0.0, dtype=torch.float64), mode,
+                         _hist(cfg))
+    assert spy.names == list(S.MODE_KERNELS[mode])
+    assert len(out) == 6 + cfg.detailed_stats
     assert S.REF_CALLS == refs
 
 
@@ -1065,10 +1207,10 @@ def _tool(name):
     return importlib.import_module(f"tools.{name}")
 
 
-@pytest.mark.parametrize("change", [{}, *_FULL_MODES.values(),
+@pytest.mark.parametrize("change", [{}, *_MODES.values(),
                                     dict(traversal="xla")],
-                         ids=["default", *_FULL_MODES, "xla"])
-def test_step_designs_checks_every_mode(mixed, change):
+                         ids=["default", *_MODES, "xla"])
+def test_step_designs_checks_every_mode(mixed, monkeypatch, change):
     """tools/step_designs.py's check, which chip_smoke.py's phase 14 and
     tools/mode_steps.py run on the card, takes every mode on the CPU
     (the wrappers' plain versions): it checks each of the mode's kernels
@@ -1077,7 +1219,7 @@ def test_step_designs_checks_every_mode(mixed, change):
     lane and no framebuffer gap."""
     SD = _tool("step_designs")
     _, _, scene, cam = mixed
-    cfg = _cfg(**change)
+    cfg = _cfg(**_narrow(monkeypatch, change))
     mode = S.step_mode(scene, cfg)
     lines = []
     worst, gap, timed = SD.check_and_time(scene, cam, cfg, (0, 1, 2), None,

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""The wavefront step under the unsorted engine and ``reference_parity``
-on one CUDA card.
+"""The wavefront step under its modes beside the default one (the
+unsorted engine, ``reference_parity``, the wide bundle, ``one_sample_mis``,
+``detailed_stats``) on one CUDA card.
 
     python3 tools/mode_steps.py [--cells "parity frame,headline xla"]
                                 [--time-it 30] [--check] [--split-ab]
@@ -9,7 +10,9 @@ It prints every step kernel's registers and resident warps, checks the
 camera rank's scan against ``torch.cumsum`` (:func:`check_ranks`), and on
 each cell of ``chip_smoke.py``'s ``_mode_cells`` named in ``--cells``
 (default: phase 8(c)'s parity frame, the headline under
-``traversal="xla"`` and under ``sort_rays=False``):
+``traversal="xla"`` and under ``sort_rays=False``; the cells of the
+wide bundle, ``one_sample_mis`` and ``detailed_stats`` by name, e.g.
+``"headline stats,wide frame"``):
 
 1. steps a pool op by op and, on the states of ``MODE_CHECK_ITS``, holds
    the mode's kernels bit for bit against their plain versions, and on

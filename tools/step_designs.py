@@ -72,7 +72,8 @@ def _copy(st):
 
 
 SHADE_FIELDS = ("pixel", "ray_o", "ray_d", "beta", "bounces", "acc",
-                "trace_mask", "counts", "shadow", "ah_L", "chs_L")
+                "trace_mask", "counts", "shadow", "ah_L", "chs_L",
+                "chs_mask")
 RESOLVE_FIELDS = ("acc[0]", "acc[1]", "acc[2]")
 HIT_FIELDS = ("hit", "t", "normal[0]", "normal[1]", "normal[2]", "prim",
               "src")
@@ -112,21 +113,24 @@ def check_state(scene, camera, cfg, state, words, fb, it, cam_start):
     framebuffer within FB_RTOL of the plain version's (its atomic adds'
     order).  Under the default mode also the first design (route_v1,
     shade_v1) against the same plain versions and shade against shade_v1.
-    Resolve takes a random occlusion; under the parity modes the closest
-    hits it restores limbo lanes into are a traversal of the plain
-    version's rays."""
+    Resolve takes a random occlusion and, under ``detailed_stats``, a
+    random bounce histogram; under the parity modes and one-sample MIS the
+    closest hits it reads (parity: restores limbo lanes into) are a
+    traversal of the plain version's rays."""
     import chip_smoke as C
     import torch
     from rtjax_torch.kernels import step as S
     from rtjax_torch.render.trace import trace_closest
     from rtjax_torch.render import wavefront as WF
     mode = S.step_mode(scene, cfg)
+    engine = S.engine_of(mode)
     kernels = S.MODE_KERNELS[mode]
     shade_k, resolve_k = kernels[-2:]
     n, dev = cfg.pool_size, state.pixel.device
     k = WF.resolve_sort_every(scene, cfg)
+    v1 = mode == "default"
     bad = {name: {} for name in kernels + (
-        ("route_v1", "shade_v1") if mode == "default" else ())}
+        ("route_v1", "shade_v1") if v1 else ())}
 
     def tally(kernel, names, got, want):
         got, want = C._flat_out(got), C._flat_out(want)
@@ -139,24 +143,27 @@ def check_state(scene, camera, cfg, state, words, fb, it, cam_start):
 
     fb0, fb1, fb2 = fb.clone(), fb.clone(), fb.clone()
     c = dict(mode=mode, keys=None, order=None, do_gen=None)
-    if mode == "default":
+    if engine == "default":
         want = S.route_ref(scene, cfg, state, words)
         tally("route", ("keys", "bundle", "counts"),
               S.route(scene, cfg, state, words), want)
-        want_v1 = S.route_v1_ref(scene, cfg, state, words)
-        tally("route_v1", ("keys", "bundle", "counts"),
-              S.route_v1(scene, cfg, state, words), want_v1)
         keys, bundle, counts = want
         order = torch.sort(keys, stable=True).indices
         sh0 = S.shade_ref(scene, camera, cfg, state, fb0, words, order,
                           bundle, counts, it, cam_start, k)
         sh1 = S.shade(scene, camera, cfg, _copy(state), fb1, words, order,
                       bundle, counts.clone(), it, cam_start, k)
-        sh2 = S.shade_v1(scene, camera, cfg, _copy(state), fb2, words,
-                         order, want_v1[1], counts.clone(), it, cam_start, k)
-        c.update(keys=keys, order=order, bundle=bundle, bundle_v1=want_v1[1],
-                 counts=counts, do_gen=S.cadence(counts, n, it, k))
-    elif mode == "unsorted":
+        c.update(keys=keys, order=order, bundle=bundle, counts=counts,
+                 do_gen=S.cadence(counts, n, it, k))
+        if v1:
+            want_v1 = S.route_v1_ref(scene, cfg, state, words)
+            tally("route_v1", ("keys", "bundle", "counts"),
+                  S.route_v1(scene, cfg, state, words), want_v1)
+            sh2 = S.shade_v1(scene, camera, cfg, _copy(state), fb2, words,
+                             order, want_v1[1], counts.clone(), it,
+                             cam_start, k)
+            c.update(bundle_v1=want_v1[1])
+    elif engine == "unsorted":
         sh0 = S.route_shade_unsorted_ref(scene, camera, cfg, state, fb0,
                                          words, cam_start)
         sh1 = S.route_shade_unsorted(scene, camera, cfg, _copy(state), fb1,
@@ -181,68 +188,85 @@ def check_state(scene, camera, cfg, state, words, fb, it, cam_start):
         want_f = C._flat_out(getattr(sh0, f))
         names = [f"{f}[{j}]" for j in range(len(want_f))]
         tally(shade_k, names, getattr(sh1, f), want_f)
-        if mode == "default":
+        if v1:
             tally("shade_v1", names, getattr(sh2, f), want_f)
             tally("shade_v1", [f"= shade {x}" for x in names],
                   getattr(sh2, f), getattr(sh1, f))
     gap = float((fb1 - fb0).abs().max())
-    for kernel, got in ((shade_k, fb1),) + (
-            (("shade_v1", fb2),) if mode == "default" else ()):
+    for kernel, got in ((shade_k, fb1),) + ((("shade_v1", fb2),) if v1
+                                            else ()):
         if not torch.allclose(got, fb0, rtol=FB_RTOL, atol=FB_ATOL):
             bad[kernel]["fb beyond rtol"] = 1
     g = torch.Generator(device=dev).manual_seed(9)
     occ = None if sh0.shadow is None else \
-        torch.rand(2 * n, generator=g, device=dev) < 0.3
+        torch.rand(sh0.shadow[4].shape[0], generator=g, device=dev) < 0.3
+    hist = None if not cfg.detailed_stats else torch.randint(
+        0, 1 << 20, (cfg.max_bounces + 1,), generator=g, device=dev)
     rays = torch.tensor(7.0, dtype=torch.float64, device=dev)
     occ_sum = torch.tensor(0.5, dtype=torch.float64, device=dev)
     acc_copy = dataclasses.replace(sh0, acc=tuple(x.clone() for x in sh0.acc))
     hits = None
-    if resolve_k == "resolve":
-        # the unsorted engine: the default resolve at sort_every 1
-        r_it, r_k = (it, k) if mode == "default" else (0, 1)
-        r0 = S.resolve_ref(cfg, sh0, occ, r_it, r_k, cam_start, rays,
-                           occ_sum)
-        r1 = S.resolve(cfg, acc_copy, occ, r_it, r_k, cam_start, rays,
-                       occ_sum)
-        names = RESOLVE_FIELDS + COUNTER_FIELDS
-    else:
+    if mode.startswith("parity") or cfg.one_sample_mis:
         inf = torch.full((n,), float("inf"), device=dev)
         hits = trace_closest(scene, cfg, sh0.ray_o, sh0.ray_d, inf,
                              sh0.trace_mask)
         hits = (hits[0], hits[1], hits[4], hits[2], hits[3])
+    tail = ("hist",) * cfg.detailed_stats
+    if not mode.startswith("parity"):
+        # the unsorted engine and the wide bundle: the default resolve at
+        # sort_every 1
+        r_it, r_k = (it, k) if engine == "default" else (0, 1)
+        r0 = S.resolve_ref(cfg, sh0, occ, r_it, r_k, cam_start, rays,
+                           occ_sum, hits, _clone(hist))
+        r1 = S.resolve(cfg, acc_copy, occ, r_it, r_k, cam_start, rays,
+                       occ_sum, hits, _clone(hist))
+        names = RESOLVE_FIELDS + COUNTER_FIELDS + tail
+    else:
         r0 = S.resolve_full_ref(cfg, sh0, occ, hits, cam_start, rays,
-                                occ_sum, mode)
+                                occ_sum, mode, _clone(hist))
         r1 = S.resolve_full(cfg, acc_copy, occ, _clone(hits), cam_start,
-                            rays, occ_sum, mode)
-        names = RESOLVE_FIELDS + HIT_FIELDS + COUNTER_FIELDS
+                            rays, occ_sum, mode, _clone(hist))
+        names = RESOLVE_FIELDS + HIT_FIELDS + COUNTER_FIELDS + tail
     tally(resolve_k, names, r1, r0)
-    c.update(sh=sh0, occ=occ, hits=hits)
+    c.update(sh=sh0, occ=occ, hits=hits, hist=hist)
     return bad, gap, c
 
 
 def _clone(v):
+    if v is None:
+        return None
     return tuple(_clone(x) for x in v) if isinstance(v, tuple) else v.clone()
 
 
 # bytes a lane moves under the full-record modes, each input read once and
 # each output written once (the default mode's are chip_smoke.py's
 # ROUTE_BYTES ...): route reads the state (81 B) and its word (8 B) and
-# writes the record's 88 bytes of payload (and, under "parity", its key, 4
-# B); shade reads the record's payload (88 B; under "parity" through the
-# sort's order, 8 B) and five words (40 B), writes the next state (56 B),
-# the traced flag and under the parity modes the limbo flag (1 B each),
-# with lights two shadow rays (66 B) and their radiance (24 B), and a
-# flushing lane's pixel is read and written (24 B); route and shade in one
-# kernel (the unsorted engine) read the state and five words (121 B) and
-# write what shade writes; resolve under parity reads the default's 40 B
-# and the limbo flag and writes the radiance (12 B), and a limbo lane's
-# order (under "parity", 8 B) and record words (24 B) are read and its hit
-# written (21 B)
+# writes the record's 88 bytes of payload (and, under "parity" and
+# "wide", its key, 4 B); shade reads the record's payload (88 B; under
+# "wide" 84 B, no t; under "parity" and "wide" through the sort's order, 8
+# B) and five words (40 B), writes the next state (56 B), the traced flag
+# and under the parity modes the limbo flag (1 B each), with lights two
+# shadow rays (66 B) and their radiance (24 B), and a flushing lane's pixel
+# is read and written (24 B); route and shade in one kernel (the unsorted
+# engine) read the state and five words (121 B) and write what shade
+# writes; resolve under parity reads the default's 40 B and the limbo flag
+# and writes the radiance (12 B), and a limbo lane's order (under
+# "parity", 8 B) and record words (24 B) are read and its hit written (21
+# B).  Under one-sample MIS shade reads four words (32 B) and writes one
+# shadow ray (33 B), the channel's mask (1 B) and both channels' radiance
+# (24 B); resolve reads the radiance and both channels' (36 B), the NEE
+# mask and occlusion, the channel's mask and the hit flag (4 B), the hit's
+# prim and src and the picked triangle (12 B) and writes the radiance (12
+# B).  Under detailed_stats resolve also reads the traced flag and bounces
+# (5 B) and writes the histogram once (8 B a bin)
 ROUTE_FULL_BYTES, ROUTE_KEY = 81 + 8 + 88, 4
 SHADE_FULL_BYTES, SHADE_FLAG, SHADE_ORDER = 88 + 40 + 56 + 1, 1, 8
+WIDE_NO_T = 4
 MERGED_BYTES = 81 + 40 + 56 + 1
 SHADE_LIGHTS, SHADE_FLUSH = 90, 24
 RESOLVE_FULL_BYTES, RESOLVE_LIMBO, RESOLVE_ORDER = 53, 45, 8
+ONE_SAMPLE_WORD, SHADE_LIGHTS_1S, RESOLVE_1S_BYTES = 8, 58, 64
+RESOLVE_STATS, HIST_BIN = 5, 8
 
 
 def _bounds(scene, cfg, c):
@@ -253,20 +277,28 @@ def _bounds(scene, cfg, c):
     import chip_smoke as C
     from rtjax_torch.kernels import step as S
     mode, n = c["mode"], cfg.pool_size
+    engine = S.engine_of(mode)
+    one, stats = cfg.one_sample_mis, cfg.detailed_stats
     lights = scene.num_lights > 0
     kernels = S.MODE_KERNELS[mode]
-    if mode == "default":
+    shade_l = (SHADE_LIGHTS_1S if one else SHADE_LIGHTS) * lights
+    words = ONE_SAMPLE_WORD * one   # the word one-sample MIS does not read
+    resolve = (RESOLVE_1S_BYTES if one and lights else C.RESOLVE_BYTES) + \
+        RESOLVE_STATS * stats
+    hist = HIST_BIN * (cfg.max_bounces + 1) * stats
+    if engine == "default":
         do_gen = True if c["do_gen"] is None else bool(c["do_gen"])
         atomics = flush_atomics(c["bundle"], c["order"], c["counts"],
                                 c["do_gen"])
-        shade_b = n * (C.SHADE_BYTES + C.SHADE_LIGHTS * lights
+        shade_b = n * (C.SHADE_BYTES - words + shade_l
                        + C.SHADE_ORDER * do_gen) + C.SHADE_FLUSH * atomics[
                            "lanes"]
-        b = dict(route=C._step_bound(n * C.ROUTE_BYTES, n * C.ROUTE_OPS),
-                 shade=C._step_bound(shade_b, n * C.SHADE_OPS),
-                 resolve=C._step_bound(n * C.RESOLVE_BYTES,
-                                       n * C.RESOLVE_OPS))
-        b.update(route_v1=b["route"], shade_v1=b["shade"])
+        b = {kernels[0]: C._step_bound(n * C.ROUTE_BYTES, n * C.ROUTE_OPS),
+             kernels[1]: C._step_bound(shade_b, n * C.SHADE_OPS),
+             kernels[2]: C._step_bound(n * resolve + hist,
+                                       n * C.RESOLVE_OPS)}
+        if mode == "default":
+            b.update(route_v1=b["route"], shade_v1=b["shade"])
         return b, dict(flush_atomics=atomics)
     r = S.unpack_full(c["record"] if c["order"] is None
                       else c["record"][c["order"]])
@@ -274,19 +306,21 @@ def _bounds(scene, cfg, c):
     flushing = int((gen & ((r["acc"][0] != 0) | (r["acc"][1] != 0)
                            | (r["acc"][2] != 0))).sum())
     limbo = int(r["limbo"].sum())
-    shade = SHADE_LIGHTS * lights
-    if mode == "unsorted":
-        nbytes = (n * (MERGED_BYTES + shade) + SHADE_FLUSH * flushing,
-                  n * C.RESOLVE_BYTES)
+    if engine == "unsorted":
+        nbytes = (n * (MERGED_BYTES - words + shade_l)
+                  + SHADE_FLUSH * flushing, n * resolve + hist)
         ops = (C.ROUTE_OPS + C.SHADE_OPS, C.RESOLVE_OPS)
     else:
-        parity, sort = mode.startswith("parity"), mode == "parity"
+        parity = engine.startswith("parity")
+        sort = engine in ("parity", "wide")
+        wide = engine == "wide"
         nbytes = (n * (ROUTE_FULL_BYTES + ROUTE_KEY * sort),
-                  n * (SHADE_FULL_BYTES + SHADE_FLAG * parity
-                       + SHADE_ORDER * sort + shade)
+                  n * (SHADE_FULL_BYTES - WIDE_NO_T * wide - words
+                       + SHADE_FLAG * parity + SHADE_ORDER * sort + shade_l)
                   + SHADE_FLUSH * flushing,
-                  n * RESOLVE_FULL_BYTES + limbo * (
-                      RESOLVE_LIMBO + RESOLVE_ORDER * sort))
+                  (n * resolve + hist) if wide else
+                  n * (RESOLVE_FULL_BYTES + RESOLVE_STATS * stats) + hist
+                  + limbo * (RESOLVE_LIMBO + RESOLVE_ORDER * sort))
         ops = (C.ROUTE_OPS, C.SHADE_OPS, C.RESOLVE_OPS)
     return ({k: C._step_bound(b, n * o)
              for k, b, o in zip(kernels, nbytes, ops, strict=True)},
@@ -302,9 +336,9 @@ def time_state(scene, camera, cfg, state, words, fb, it, cam_start, c,
     before route and shade_v1 before shade); its byte bound and share,
     registers and resident warps; one wrapper call and one plain call of
     each of the mode's kernels (CUDA events, median); torch.sort of the
-    keys, and under the default mode ``index_add_`` of the flush.  A
-    launch that writes the next state over the one it reads (the unsorted
-    engine's route-and-shade) takes a copy of its own.  Returns
+    keys, and on the sorted engine's compact bundle ``index_add_`` of the
+    flush.  A launch that writes the next state over the one it reads (the
+    unsorted engine's route-and-shade) takes a copy of its own.  Returns
     ``{"kernels": {kernel: {...}}, "sort_ms", ...}``."""
     import ctypes
 
@@ -313,6 +347,7 @@ def time_state(scene, camera, cfg, state, words, fb, it, cam_start, c,
     from rtjax_torch.kernels import step as S
     from rtjax_torch.render import wavefront as WF
     mode = c["mode"]
+    engine = S.engine_of(mode)
     kernels = S.MODE_KERNELS[mode]
     k = WF.resolve_sort_every(scene, cfg)
     n, dev = cfg.pool_size, state.pixel.device
@@ -324,26 +359,29 @@ def time_state(scene, camera, cfg, state, words, fb, it, cam_start, c,
     rays = torch.zeros((), dtype=torch.float64, device=dev)
     sh_copy = lambda: dataclasses.replace(
         sh, acc=tuple(x.clone() for x in sh.acc))
-    hits = lambda: None if c["hits"] is None else _clone(c["hits"])
-    r_it, r_k = (it, k) if mode == "default" else (0, 1)
+    hits = lambda: _clone(c["hits"])
+    hist = lambda: _clone(c["hist"])
+    parity = engine.startswith("parity")
+    r_it, r_k = (it, k) if engine == "default" else (0, 1)
     blocks = 6 * (reps + 1)
     a_res = S.resolve_args(cfg, sh_copy(), occ, r_it, r_k, cam_start, rays,
-                           rays.clone(), hits=hits())[0]
+                           rays.clone(), hits(), hist(), restore=parity)[0]
     fns = {kernels[-1]: call(kernels[-1], iter([a_res] * blocks))}
-    if mode == "default":
-        for v1 in (False, True):
+    if engine == "default":
+        for v1 in (False, True)[:1 + (mode == "default")]:
             suffix = "_v1" if v1 else ""
+            route_k = "route" + suffix
+            shade_k = "shade_v1" if v1 else kernels[1]
             a_r = S.route_args(scene, cfg, state, words, v1=v1)[0]
             a_s = S.shade_args(scene, camera, cfg, _copy(state), fb.clone(),
                                words, c["order"], c["bundle" + suffix],
                                c["counts"].clone(), it, cam_start, k,
                                v1=v1)[0]
-            fns["route" + suffix] = call("route" + suffix,
-                                         iter([a_r] * blocks))
-            fns["shade" + suffix] = call("shade" + suffix,
-                                         iter([a_s] * blocks))
-        turns = ("route_v1", "route", "shade_v1", "shade", "resolve")
-    elif mode == "unsorted":
+            fns[route_k] = call(route_k, iter([a_r] * blocks))
+            fns[shade_k] = call(shade_k, iter([a_s] * blocks))
+        turns = ("route_v1", "route", "shade_v1", "shade", "resolve") \
+            if mode == "default" else kernels
+    elif engine == "unsorted":
         zero = lambda: torch.zeros(S.NUM_COUNTS, dtype=torch.int64,
                                    device=dev)
         merged = [S.shade_args(scene, camera, cfg, _copy(state), fb.clone(),
@@ -371,16 +409,16 @@ def time_state(scene, camera, cfg, state, words, fb, it, cam_start, c,
     # one wrapper call (the host's launch included) and one plain call of
     # each of the mode's kernels
     st = _copy(state)
-    if mode == "default":
-        one = {"route": lambda: S.route(scene, cfg, state, words),
-               "shade": lambda: S.shade(
+    if engine == "default":
+        one = {kernels[0]: lambda: S.route(scene, cfg, state, words),
+               kernels[1]: lambda: S.shade(
                    scene, camera, cfg, st, fb.clone(), words, c["order"],
                    c["bundle"], c["counts"].clone(), it, cam_start, k)}
-        plain = {"route": lambda: S.route_ref(scene, cfg, state, words),
-                 "shade": lambda: S.shade_ref(
+        plain = {kernels[0]: lambda: S.route_ref(scene, cfg, state, words),
+                 kernels[1]: lambda: S.shade_ref(
                      scene, camera, cfg, state, fb.clone(), words,
                      c["order"], c["bundle"], c["counts"], it, cam_start, k)}
-    elif mode == "unsorted":
+    elif engine == "unsorted":
         one = {kernels[0]: lambda: S.route_shade_unsorted(
             scene, camera, cfg, st, fb.clone(), words, cam_start)}
         plain = {kernels[0]: lambda: S.route_shade_unsorted_ref(
@@ -396,23 +434,26 @@ def time_state(scene, camera, cfg, state, words, fb, it, cam_start, c,
                  kernels[1]: lambda: S.shade_full_ref(
                      scene, camera, cfg, fb.clone(), words, c["order"],
                      c["record"], c["counts"], cam_start, mode)}
-    if c["hits"] is None:
-        one[kernels[-1]] = lambda: S.resolve(cfg, sh_copy(), occ, r_it, r_k,
-                                             cam_start, rays, rays.clone())
-        plain[kernels[-1]] = lambda: S.resolve_ref(cfg, sh, occ, r_it, r_k,
-                                                   cam_start, rays, rays)
+    if not parity:
+        one[kernels[-1]] = lambda: S.resolve(
+            cfg, sh_copy(), occ, r_it, r_k, cam_start, rays, rays.clone(),
+            hits(), hist())
+        plain[kernels[-1]] = lambda: S.resolve_ref(
+            cfg, sh, occ, r_it, r_k, cam_start, rays, rays, c["hits"],
+            c["hist"])
     else:
         one[kernels[-1]] = lambda: S.resolve_full(
-            cfg, sh_copy(), occ, hits(), cam_start, rays, rays.clone(), mode)
+            cfg, sh_copy(), occ, hits(), cam_start, rays, rays.clone(), mode,
+            hist())
         plain[kernels[-1]] = lambda: S.resolve_full_ref(
-            cfg, sh, occ, c["hits"], cam_start, rays, rays, mode)
+            cfg, sh, occ, c["hits"], cam_start, rays, rays, mode, c["hist"])
     for name in kernels:
         out[name]["one_call_ms"] = C._median_ms(one[name])
         out[name]["plain_ms"] = C._median_ms(plain[name])
     t = dict(kernels=out, lanes=n, **work)
     t["sort_ms"] = None if c["keys"] is None else C._launch_ms(
         lambda: torch.sort(c["keys"], stable=True), reps)[0]
-    if mode == "default":
+    if engine == "default":
         order = c["order"] if c["do_gen"] is None else torch.where(
             c["do_gen"], c["order"], torch.arange(n, device=dev))
         _, _, acc, pixel, _, mat, *_ = S.unpack_bundle(c["bundle"][order])
@@ -439,6 +480,7 @@ def check_and_time(scene, camera, cfg, its=(0, 1, 2, 5, 12), time_it=12,
     (None: none); returns ``(mismatching lanes by kernel, framebuffer gap,
     timings)``."""
     import torch
+    from rtjax_torch.kernels import step as S
     from rtjax_torch.render import wavefront as WF
     n, dev = cfg.pool_size, scene.device
     g = torch.Generator(device=dev).manual_seed(seed)
@@ -457,8 +499,9 @@ def check_and_time(scene, camera, cfg, its=(0, 1, 2, 5, 12), time_it=12,
             for k, v in total.items():
                 worst[k] = worst.get(k, 0) + v
             dg, cnt = c["do_gen"], c["counts"]
-            kind = "dirty" if c["mode"] == "default" else "in limbo"
-            sorts = "" if c["mode"] != "default" else (
+            engine = S.engine_of(c["mode"])
+            kind = "in limbo" if engine.startswith("parity") else "dirty"
+            sorts = "" if engine != "default" else (
                 ", sorts" if dg is None or bool(dg) else ", skips")
             log(f"[step kernels {label} it {it}] {card}: {int(cnt[0])} of "
                 f"{n} continue, {int(cnt[4])} {kind}{sorts}; mismatching "
