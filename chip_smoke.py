@@ -11,15 +11,15 @@ the script exits non-zero):
 
 0. device: require CUDA; print the card's name and power limit, and the
    torch and CUDA versions;
-1. build: the BVH builder and the seven kernel libraries (the persist,
+1. build: the BVH builder and the eight kernel libraries (the persist,
    two-level, packet and lane, binary-walk and direct-path kernels, the
-   device loop and the step kernels) from this checkout's sources, into
-   build/rtjax_torch/, all eight compilers started together; ptxas's
-   registers, stack frame and spills of the persist, two-level, packet
-   and lane kernels (both designs, widths 8 and 16, the two-level fetch
-   kernels with the instance records staged or global) and of the step
-   kernels (the binary-walk kernels' in phase 9, the direct pair's in
-   phase 12);
+   device loop, the step kernels and the step's key sort) from this
+   checkout's sources, into build/rtjax_torch/, all nine compilers
+   started together; ptxas's registers, stack frame and spills of the
+   persist, two-level, packet and lane kernels (both designs, widths 8
+   and 16, the two-level fetch kernels with the instance records staged
+   or global), of the step kernels and of the key sort (the binary-walk
+   kernels' in phase 9, the direct pair's in phase 12);
 2. scene: the bunny Cornell box (69,463 triangles) on the card;
 3. kernels: each persistent-walker kernel, in the fetch design that the
    engine runs and in the first (stride) design, against its plain PyTorch
@@ -42,8 +42,9 @@ the script exits non-zero):
    persist walk's;
 4. main path: render_frame of the headline frame (256x256 at 64 spp, 10
    bounces, default RenderConfig): one warm-up and two timed runs; both
-   persist kernels and the three step kernels must have launched, and no
-   plain version and no stride-design kernel may have run; the image must be finite and non-negative and
+   persist kernels and the three step kernels must have launched, the
+   key sort once an iteration, and no plain version and no stride-design
+   kernel may have run; the image must be finite and non-negative and
    agree with the rtjax render in artifacts/ at the noise floor (MSE <= 2x
    the port's own seed-to-seed MSE plus the 8-bit quantisation term).  The
    warm-up frame keeps the rays of launch 38 of each persist kernel
@@ -299,7 +300,22 @@ the script exits non-zero):
    detailed_stats), and on synthetic pools with limbo or dirty lanes,
    those cells' frames against step_kernels=False in turns (equal
    iterations, rays, histograms and traversal sums), and each kernel
-   timed;
+   timed.  (e) The step's key sort (kernels/sort.py, csrc/key_sort.cu;
+   in (a)-(d) too: bit for bit against torch.sort on every checked
+   state's route keys, once an iteration in every kernels frame on a
+   sorted engine, and timed in turns with torch.sort on each cell's
+   route keys of STEP_TIME_IT, and in the other modes on MODE_TIMED's):
+   its registers; bit for bit against ``torch.sort(keys,
+   stable=True).indices`` on tools/sort_designs.py's key sets at 2^17 -
+   2^20 keys, each timed in turns with torch.sort; a skip launch of the
+   ``sort_every`` cadence leaving its order untouched, timed; and, in a
+   process of its own (``tools/sort_designs.py --frames``), captured
+   frames of the headline, config 2, config 4 (b), the parity frame and
+   the wide frame with the sort on the kernels and on torch.sort in
+   turns, equal in iterations, rays and launches, one profiled frame an
+   arm (device ms and events an iteration, the sort's device ms a frame,
+   no torch sort kernel on the kernels' arm) and the device tally of the
+   launches that sorted and that returned at once;
 7. the two persist kernels' device time over one whole headline frame,
    the two packet kernels' over one walker="packet" headline frame, the
    lane closest-hit kernel's over one walker="lane" headline frame (its
@@ -349,15 +365,18 @@ instances (rows of their own, ``(with_stats)``), phase 12(c)'s two
 default config-2 frames for the direct pair (rows 12-13; with
 ``config4_launches``, phase 6(a)'s base launches, ``persist_ms``, the
 persist kernels' time on the same rays, and ``soups``, (a)'s numbers
-over the soups), phase 4's three frames for the step kernels (rows of
-route, shade and resolve: rtjax's XLA fusions of ``wavefront_step``,
-which reach no ``pallas_call``; their times phase 14 (d)'s on the
+over the soups), phase 4's three frames for the step kernels and the
+key sort (rows of route, shade and resolve: rtjax's XLA fusions of
+``wavefront_step``, which reach no ``pallas_call``; their times phase 14 (d)'s on the
 headline's state of iteration STEP_TIME_IT, ``sort_ms`` torch.sort's
 there on the route row, ``mismatching_lanes`` phase 14 (a)'s; no
 ``ab``; the full-record modes' rows, ``step_route_shade_unsorted`` and
 the parity kernels: launches from phase 9(b)'s two xla frames, phase
 8(c)'s parity frame and phase 14's parity-with-xla frame, times phase
-14's on the headline's states).  The persist, packet,
+14's on the headline's states; the key sort's row: rtjax's lax.sort,
+its time and torch.sort's (``library_ms``) in turns on the headline's
+route keys of STEP_TIME_IT, ``cells``, ``sets``, ``skip_ms`` and
+``frames`` phase 14 (e)'s).  The persist, packet,
 lane and binary-walk rows carry ``bigscene``: phase 11's numbers by grid
 (the persist rows' device time, bound and share on (b)'s rays and
 in-frame launch, their launches over (d)'s two kernel frames; every
@@ -480,7 +499,8 @@ def phase1_build():
               "binary-walk kernels": _build.binary_library,
               "direct-path kernels": _build.direct_library,
               "device loop": _build.loop_library,
-              "step kernels": _build.step_library}
+              "step kernels": _build.step_library,
+              "key sort": _build.key_sort_library}
 
     def timed(fn):
         t0 = time.perf_counter()
@@ -500,6 +520,9 @@ def phase1_build():
         print(f"[ptxas] {_group_label(name)}: {res}")
     for name, res in _build.ptxas_report(_build.step_library()):
         print(f"[ptxas] {_step_label(name)}: {res}")
+    for name, res in _build.ptxas_report(_build.key_sort_library()):
+        kind = "upsweep" if "upsweep_kernel" in name else "pass"
+        print(f"[ptxas] key sort {kind}: {res}")
 
 
 def _step_label(mangled):
@@ -1046,6 +1069,7 @@ def phase4_main_path(scene, camera, card):
     from rtjax_torch import RenderConfig
     from rtjax_torch.kernels import _build
     from rtjax_torch.kernels import persist as P
+    from rtjax_torch.kernels import sort as SO
     from rtjax_torch.kernels import step as S
     from rtjax_torch.render.film import read_ppm, write_ppm
     from rtjax_torch.render.wavefront import render_frame
@@ -1059,6 +1083,7 @@ def phase4_main_path(scene, camera, card):
         P.STATS_LAUNCHES[k] = 0
     for k in S.LAUNCHES:
         S.LAUNCHES[k] = S.REF_CALLS[k] = 0
+    SO.LAUNCHES["key_sort"] = SO.REF_CALLS["key_sort"] = 0
     runs = []
     for seed in (1, 2, 3):  # warm-up, then two timed runs
         gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -1076,12 +1101,14 @@ def phase4_main_path(scene, camera, card):
     # the step kernels' launches ride along as "step route", ...
     launches = dict(P.LAUNCHES) | {f"step {k}": S.LAUNCHES[k]
                                    for k in S.MODE_KERNELS["default"]}
+    launches["key_sort"] = SO.LAUNCHES["key_sort"]
     if any(v for k, v in S.LAUNCHES.items()
            if k not in S.MODE_KERNELS["default"]):
         raise RuntimeError("the main path launched another mode's step "
                            "kernels")
     ref_calls = sum(P.REF_CALLS.values()) + sum(P.STRIDE_LAUNCHES.values()) \
-        + sum(P.STATS_LAUNCHES.values()) + sum(S.REF_CALLS.values())
+        + sum(P.STATS_LAUNCHES.values()) + sum(S.REF_CALLS.values()) \
+        + SO.REF_CALLS["key_sort"]
 
     secs = [r[0] for r in runs[1:]]
     stats = runs[1][2]
@@ -1095,6 +1122,10 @@ def phase4_main_path(scene, camera, card):
     if min(launches.values()) == 0 or ref_calls != 0:
         raise RuntimeError("the main path did not run through both "
                            "traversal kernels and the three step kernels")
+    if launches["key_sort"] != launches["step route"]:
+        raise RuntimeError(f"the key sort launched {launches['key_sort']} "
+                           f"times against route's {launches['step route']}"
+                           ": not once a sorted iteration")
     if set(captured) != {"closest", "anyhit"}:
         raise RuntimeError(f"launch {CAPTURE_AT} of each persist kernel was "
                            "not captured")
@@ -1738,6 +1769,7 @@ def _counters():
     from rtjax_torch.kernels import direct as D
     from rtjax_torch.kernels import lane as L
     from rtjax_torch.kernels import persist as P
+    from rtjax_torch.kernels import sort as SO
     from rtjax_torch.kernels import step as S
     from rtjax_torch.kernels import traversal as T
     from rtjax_torch.kernels import wide as WD
@@ -1762,7 +1794,9 @@ def _counters():
             # outside _KERNEL_SETS: the covered modes launch them beside
             # every traversal set (the first design only when chosen)
             "step": (S.LAUNCHES, S.REF_CALLS),
-            "step_v1": (S.V1_LAUNCHES, None)}
+            "step_v1": (S.V1_LAUNCHES, None),
+            # the step's key sort: once a sorted iteration of the kernels
+            "sort": (SO.LAUNCHES, SO.REF_CALLS)}
 
 
 def _zero_counts():
@@ -4579,12 +4613,30 @@ def _set_design(design):
     S.DESIGN = design
 
 
+def _union_ms(spans):
+    """The time (ms) covered by at least one of ``spans`` (``(start, end,
+    ...)`` ns)."""
+    total, end = 0, None
+    for a, b, *_ in sorted(spans):
+        if end is None or a > end:
+            total += b - a
+            end = b
+        elif b > end:
+            total += b - end
+            end = b
+    return total / 1e6
+
+
 def _profiled_frame(sc, cam, cfg, seed, **kw):
     """One frame (``render_frame(..., **kw)``, seed ``seed``) under
-    torch.profiler with CUDA activity alone: ``{wall, device_ms, events,
-    iterations, graphed, events_per_it, device_ms_per_it, kernels}``, the
-    device ms summed over its device events (kernels, copies, fills),
-    ``kernels`` ``{event name: [ms, events]}``."""
+    torch.profiler with CUDA activity alone: ``{wall, device_ms,
+    summed_ms, events, iterations, graphed, events_per_it,
+    device_ms_per_it, kernels, spans}``: ``device_ms`` the time at least
+    one device event (kernels, copies, fills) ran, ``summed_ms`` their
+    durations summed (more than ``device_ms`` where events overlap: the
+    key sort's passes launch as programmatic dependents and wait inside
+    the kernel), ``kernels`` ``{event name: [ms, events]}``, ``spans``
+    each event's ``(start, end, name)`` (ns)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -4596,19 +4648,22 @@ def _profiled_frame(sc, cam, cfg, seed, **kw):
         _, st = render_frame(sc, cam, cfg, gen, **kw)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    kernels = {}
+    kernels, spans = {}, []
     for e in prof.profiler.kineto_results.events():
         if e.device_type() == DeviceType.CUDA:
             k = kernels.setdefault(e.name(), [0.0, 0])
             k[0] += e.duration_ns() / 1e6
             k[1] += 1
-    events = sum(k[1] for k in kernels.values())
-    dev_ms = sum(k[0] for k in kernels.values())
+            spans.append((e.start_ns(), e.start_ns() + e.duration_ns(),
+                          e.name()))
+    events = len(spans)
+    dev_ms = _union_ms(spans)
     its = max(st["iterations"], 1)
-    return dict(wall=wall, device_ms=dev_ms, events=events,
-                iterations=st["iterations"], graphed=st["graphed"],
-                events_per_it=events / its, device_ms_per_it=dev_ms / its,
-                kernels=kernels)
+    return dict(wall=wall, device_ms=dev_ms,
+                summed_ms=sum(k[0] for k in kernels.values()),
+                events=events, iterations=st["iterations"],
+                graphed=st["graphed"], events_per_it=events / its,
+                device_ms_per_it=dev_ms / its, kernels=kernels, spans=spans)
 
 
 def _busy_job(out):
@@ -4641,6 +4696,7 @@ def _busy_job(out):
         for path in paths:
             _set_design("v1" if path == "graph_v1" else "record")
             r = res[name][path] = _profiled_frame(sc, cam, cfg, 5, **kw(path))
+            del r["spans"]
             print(f"[graph busy {name} {path}] {r['wall']:.3f} s, device "
                   f"{r['device_ms']:.3f} ms in {r['events']} events, "
                   f"{r['iterations']} iterations")
@@ -5010,6 +5066,7 @@ def _step_timings(t, card):
           f"launch included); plain versions {plain} ms; flush atomics a "
           f"shade launch {t['flush_atomics']}; index_add_ "
           f"{t['index_add_ms']:.4f} ms; torch.sort {t['sort_ms']:.4f} ms")
+    print(_sort_time_text(f"headline it {STEP_TIME_IT}", t["key_sort"], card))
     return t
 
 
@@ -5057,23 +5114,94 @@ def _arms_agree(kf, of, mode):
     seed (each from :func:`_step_frame`): ``{"same": equal iterations,
     rays and occupancy (under ``detailed_stats`` equal bounce histograms
     and traversal sums too), "walks": equal traversal launches, "steps":
-    ``mode``'s step kernels once an iteration and no plain version in
-    the one, no step kernel in the other, "close": framebuffers within
-    FB_RTOL}``."""
+    ``mode``'s step kernels once an iteration, on a sorted engine the key
+    sort too, and no plain version in the one, no step kernel and no key
+    sort in the other, "close": framebuffers within FB_RTOL}``."""
     import torch
+    from rtjax_torch.kernels import step as S
     its = kf[2]["iterations"]
     stats = "bounce_histogram" in kf[2]
+    sorts = S.engine_of(mode) in ("default", "wide", "parity")
     return dict(
         same=all(kf[2][k] == of[2][k] for k in
                  ("iterations", "rays_traced", "avg_occupancy")
                  + STATS_SUMS * stats)
         and (not stats or torch.equal(kf[2]["bounce_histogram"],
                                       of[2]["bounce_histogram"])),
-        walks={k: v for k, v in kf[3].items() if k != "step"} ==
-        {k: v for k, v in of[3].items() if k != "step"},
+        walks={k: v for k, v in kf[3].items() if k not in ("step", "sort")}
+        == {k: v for k, v in of[3].items() if k not in ("step", "sort")},
         steps=(_step_once(kf[3], mode, its) and not kf[3]["plain"]
-               and _step_once(of[3], None, 0)),
+               and kf[3]["sort"]["key_sort"] == its * sorts
+               and _step_once(of[3], None, 0)
+               and of[3]["sort"]["key_sort"] == 0),
         close=torch.allclose(kf[1], of[1], rtol=FB_RTOL, atol=FB_ATOL))
+
+
+def _sort_time_text(label, t, card):
+    """A ``[sort time ...]`` line of tools/sort_designs.py ``time_sort``'s
+    numbers (``t``), with the route keys' lanes and a skip launch's
+    time where there is one."""
+    import sort_designs as SDs
+    line = SDs.time_text(label, t, card)
+    if "skip_ms" in t:
+        line += f"; a skip launch {t['skip_ms']:.4f} ms"
+    return line + f" ({t['lanes']} route keys)" if "lanes" in t else line
+
+
+# (e) the key sort's set sizes, its frames' process's time limit, and the
+# profiler's names of torch's sort kernels (tools/sort_designs.py THEIRS)
+SORT_LOG2 = (17, 18, 19, 20)
+SORT_FRAMES_TIMEOUT = 400
+SORT_SOURCE = "rtjax_torch/csrc/key_sort.cu"
+
+
+def phase14_key_sort(card):
+    """(e) the step's key sort (kernels/sort.py, csrc/key_sort.cu): its
+    kernels' registers; bit for bit against ``torch.sort(keys,
+    stable=True).indices`` on tools/sort_designs.py's key sets at
+    SORT_LOG2 sizes, each timed in turns with torch.sort; a skip launch
+    leaving its order untouched; then, in a process of its own
+    (``tools/sort_designs.py --frames``), captured frames of the
+    headline, config 2, config 4 (b), the parity frame and the wide frame
+    with the sort on the kernels and on torch.sort in turns, equal in
+    iterations, rays, occupancy and launches, and a profiled frame an arm:
+    no torch sort kernel on the kernels' arm.  Returns the numbers."""
+    import torch
+    import sort_designs as SDs
+    from rtjax_torch.kernels import _build
+    registers = SDs.kernel_table()
+    print(f"[sort registers] {card}: " + ", ".join(
+        f"{k} {r['registers']} registers, {r['local_bytes']} local bytes, "
+        f"{r['warps_per_sm']} resident warps an SM"
+        for k, r in registers.items()))
+    sets, skips = SDs.check_sets(SORT_LOG2, card)
+    bad = {f"{k[0]} 2^{k[1]}": v["bad"] for k, v in sets.items()
+           if v["bad"]}
+    if bad or not SDs.skips_ok(skips):
+        raise RuntimeError(f"the key sort differs from torch.sort: {bad}; "
+                           f"skip launches {skips}")
+    out = _build.BUILD_DIR / "sort_frames.pt"
+    if out.exists():
+        out.unlink()
+    p = subprocess.run([sys.executable,
+                        os.path.join(ROOT, "tools", "sort_designs.py"),
+                        "--frames", "--log2", "", "--out", str(out)],
+                       cwd=ROOT, stdout=subprocess.PIPE,
+                       stderr=subprocess.STDOUT, text=True,
+                       timeout=SORT_FRAMES_TIMEOUT)
+    for line in p.stdout.splitlines():
+        if line.startswith("[sort frame") or "Error" in line:
+            print(line)
+    if p.returncode != 0:
+        raise RuntimeError(f"the sort's frames exited with {p.returncode}:\n"
+                           f"{p.stdout[-4000:]}")
+    frames = torch.load(out)
+    if any(f["theirs"] or f["launches"] != f["iterations"]
+           for f in frames.values()):
+        raise RuntimeError("a profiled kernels' frame ran a torch sort "
+                           "kernel, or the key sort did not run once an "
+                           "iteration")
+    return dict(registers=registers, sets=sets, skips=skips, frames=frames)
 
 
 def phase14_step_kernels(scene, camera, card, floor, c4_scene, c4_camera,
@@ -5107,19 +5235,24 @@ def phase14_step_kernels(scene, camera, card, floor, c4_scene, c4_camera,
     cells = _graph_cells(scene, camera, c4_scene, c4_camera)
     cells = {k: cells[k] for k in STEP_BUSY}
     # (a)
-    worst = {name: 0 for name in (*STEP_KERNELS, "route_v1", "shade_v1")}
+    worst = {name: 0 for name in (*STEP_KERNELS, "route_v1", "shade_v1",
+                                  "key_sort")}
     fb_err = 0.0
     timed = None
+    sort_cells = {}
     for name, (sc, cam, cfg, _) in cells.items():
         assert WF.step_kernels_cover(sc, cfg), name
+        sort_cells[name] = {}
         bad, err, t = SD.check_and_time(
             sc, cam, cfg, STEP_CHECK_ITS,
             STEP_TIME_IT if name == "headline" else None, label=name,
-            card=card)
+            card=card, sort_it=STEP_TIME_IT, sort_out=sort_cells[name])
         fb_err = max(fb_err, err)
         timed = t or timed
         for k, v in bad.items():
             worst[k] += v
+        print(_sort_time_text(f"{name} it {STEP_TIME_IT}", sort_cells[name],
+                              card))
     bad, err = _synthetic_checks(camera, card, {"pool": {}}, (0, 1, 3), 11)
     fb_err = max(fb_err, err)
     for k, v in bad.items():
@@ -5229,8 +5362,11 @@ def phase14_step_kernels(scene, camera, card, floor, c4_scene, c4_camera,
               f"{k_['wall']:.3f} vs {o_['wall']:.3f} vs {v_['wall']:.3f} s")
     # (d)
     t = _step_timings(timed, card)
+    # (e)
+    sort = phase14_key_sort(card)
+    sort["cells"] = sort_cells
     return dict(mismatches=worst, fb_err=fb_err, secs=secs, busy=busy,
-                times=t)
+                times=t, sort=sort)
 
 
 # the modes beside the default one (the unsorted engine, reference_parity,
@@ -5359,6 +5495,7 @@ def _mode_frames(name, sc, cam, cfg, card, profile=False, log=print):
         _step_frame(sc, cam, cfg, 1, arm)
         busy[arm] = _profiled_frame(sc, cam, cfg, 5,
                                     step_kernels=arm == "kernels")
+        del busy[arm]["spans"]
     if profile:
         k_, o_ = busy["kernels"], busy["op"]
         log(f"[mode busy {name}] {card}: device events an iteration kernels"
@@ -5390,6 +5527,9 @@ def _mode_time_text(t, card):
             if "flushing" in t else
             f"{t['flush_atomics']['lanes']} lanes flush by "
             f"{t['flush_atomics']['record']} atomics")
+    if t["key_sort"] is not None:
+        lines.append(_sort_time_text(f"{'+'.join(t['kernels'])}",
+                                     t["key_sort"], card))
     return lines + [f"[mode time {'+'.join(t['kernels'])}] {card}: "
                     f"{t['lanes']} lanes, torch.sort {sort}; {work}"]
 
@@ -5508,6 +5648,51 @@ def _step_rows(p14, launches):
     return rows
 
 
+def _sort_row(p14, p14m, launches):
+    """The kernels line's row of the step's key sort (launches: phase 4's
+    three headline frames; its time phase 14 (d)'s on the headline's
+    route keys of iteration STEP_TIME_IT, in turns with torch.sort, the
+    library call; ``cells`` the same on the other cells' route keys,
+    ``sets`` on the synthetic key sets, ``frames`` (e)'s frames)."""
+    t = p14["times"]["key_sort"]
+    sort = p14["sort"]
+    cells = {k: v for k, v in sort["cells"].items() if k != "headline"}
+    for mode, name in (("parity", "parity frame"), ("wide", "wide frame")):
+        cells[name] = p14m["times"][mode]["key_sort"]
+    brief = lambda r: dict(lanes=r.get("lanes"), ms=r["mean"]["kernels"],
+                           library_ms=r["mean"]["torch"],
+                           bound_ms=r["bound"]["bound_ms"],
+                           **({"skip_ms": r["skip_ms"]} if "skip_ms" in r
+                              else {}))
+    return dict(
+        name="key_sort", route="cuda", source=SORT_SOURCE,
+        replaces="rtjax/render/sorting.py:126", launches=launches,
+        max_abs_err=0.0, mismatching_lanes=p14["mismatches"]["key_sort"],
+        ms=t["mean"]["kernels"], timed_ms=t["kernels"], timed_launches=REPS,
+        one_call_ms=t["one_call_ms"], plain_ms=t["plain_ms"],
+        bound_ms=t["bound"]["bound_ms"], bound_us=t["bound"]["bound_us"],
+        bound_by=t["bound"]["bound_by"],
+        share=t["bound"]["bound_ms"] / t["mean"]["kernels"],
+        library_ms=t["mean"]["torch"], library_timed_ms=t["torch"],
+        registers={k: r["registers"] for k, r in sort["registers"].items()},
+        kernels="a memset node, upsweep_kernel, pass_kernel x 4",
+        cells={k: brief(r) for k, r in cells.items()},
+        sets={f"{k[0]} 2^{k[1]}": dict(ms=v["time"]["mean"]["kernels"],
+                                       library_ms=v["time"]["mean"]["torch"],
+                                       bad=v["bad"])
+              for k, v in sort["sets"].items()},
+        skip_ms={f"2^{k}": v["skip_ms"] for k, v in sort["skips"].items()},
+        frames={k: dict(secs=f["secs"], sort_ms=f["sort_ms"],
+                        tally=f["tally"], iterations=f["iterations"],
+                        device_ms_per_it={a: b["device_ms_per_it"]
+                                          for a, b in f["busy"].items()},
+                        events_per_it={a: b["events_per_it"]
+                                       for a, b in f["busy"].items()})
+                for k, f in sort["frames"].items()},
+        note="no pallas_call: XLA's lax.sort; library_ms is torch.sort("
+             "keys, stable=True), the plain version, timed in turns")
+
+
 def main():
     t0 = time.perf_counter()
 
@@ -5600,6 +5785,7 @@ def main():
             *_direct_rows(d12, c4_floor["direct_launches"]),
             *_step_rows(p14, {k: launches[f"step {k}"]
                               for k in STEP_KERNELS}),
+            _sort_row(p14, p14m, launches["key_sort"]),
             *_mode_rows(p14m, {
                 k: {"unsorted": xla_steps, "parity": modes["launches"]}.get(
                     m, p14m["frames"][MODE_TIMED[m]]["launches"])[k]

@@ -1,5 +1,5 @@
 // The fused wavefront step for Hopper (sm_90a): route, shade and resolve,
-// the kernels of one iteration around one torch.sort
+// the kernels of one iteration around one stable key sort (key_sort.cu)
 // (kernels/step.py; the lanes' math in step_math.cuh).
 //
 // Replaces: rtjax/render/wavefront.py wavefront_step (:187-818) -- no

@@ -15,7 +15,9 @@ under the repository root (a directory that .gitignore lists).
   device loop of a captured step (``graph_loop.cu``: a CUDA-graph while
   node and its condition kernel, render/device_loop.py), and the fused
   wavefront step (``step_kernels.cu``: route, shade and resolve, which
-  include ``step_math.cuh``; kernels/step.py), compiled by nvcc for
+  include ``step_math.cuh``; kernels/step.py) and the step's stable key
+  sort (``key_sort.cu``, which includes ``key_sort.cuh``;
+  kernels/sort.py), compiled by nvcc for
   ``sm_90a`` and bound with ctypes.
 
 Each library is rebuilt when a source or a header it includes is newer
@@ -49,6 +51,8 @@ DIRECT_HEADER = CSRC_DIR / "direct_math.cuh"
 LOOP_SOURCE = CSRC_DIR / "graph_loop.cu"
 STEP_SOURCE = CSRC_DIR / "step_kernels.cu"
 STEP_HEADER = CSRC_DIR / "step_math.cuh"
+SORT_SOURCE = CSRC_DIR / "key_sort.cu"
+SORT_HEADER = CSRC_DIR / "key_sort.cuh"
 WALK_HEADER = CSRC_DIR / "wide_walk.cuh"
 FETCH_HEADER = CSRC_DIR / "fetch_walk.cuh"
 GROUP_HEADER = CSRC_DIR / "group_walk.cuh"
@@ -175,3 +179,9 @@ def step_library() -> Path:
     """Path of the compiled step kernels (built if missing or stale)."""
     return _build(BUILD_DIR / "libstep_kernels.so", [STEP_SOURCE],
                   [nvcc_path()] + NVCC_FLAGS, (STEP_HEADER,))
+
+
+def key_sort_library() -> Path:
+    """Path of the compiled key sort (built if missing or stale)."""
+    return _build(BUILD_DIR / "libkey_sort.so", [SORT_SOURCE],
+                  [nvcc_path()] + NVCC_FLAGS, (SORT_HEADER,))

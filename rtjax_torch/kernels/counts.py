@@ -11,9 +11,10 @@ steps that run past the end of a frame's last chunk are taken back out.
 
 from __future__ import annotations
 
-from . import direct, lane, persist, step, traversal, wide, wide_inst
+from . import (direct, lane, persist, sort, step, traversal, wide,
+               wide_inst)
 
-_MODULES = (persist, wide, lane, wide_inst, traversal, direct, step)
+_MODULES = (persist, wide, lane, wide_inst, traversal, direct, step, sort)
 
 
 def counters() -> dict:

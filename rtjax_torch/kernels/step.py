@@ -1,5 +1,5 @@
 """The fused wavefront step: one iteration's per-lane stages as three
-hand-written CUDA kernels around one ``torch.sort``, their wrappers, and
+hand-written CUDA kernels around one stable key sort, their wrappers, and
 their plain PyTorch versions.
 
 rtjax runs an iteration (rtjax/render/wavefront.py:187-818) as one jitted
@@ -14,7 +14,9 @@ small torch ops an iteration.  Here it is three kernels
   the hit point, the ``sort_key`` key (``DIRTY_KEY`` for a dead slot that
   still holds radiance) and the compact sort bundle, encoded; it counts
   the continuing paths;
-- ``torch.sort(keys, stable=True)`` between them, rtjax's ``lax.sort``;
+- the stable key sort between them (kernels/sort.py ``stable_order``,
+  a hand-written radix sort; its plain version ``torch.sort(keys,
+  stable=True)``), rtjax's ``lax.sort``;
 - ``shade`` (rtjax :437-747): the bundle gathered by the sort's order (by
   the identity on a ``sort_every`` skip iteration, decided on the device)
   and decoded; NEE and both MIS channels, camera generation into the dead

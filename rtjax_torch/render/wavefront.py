@@ -81,6 +81,7 @@ from ..config import RenderConfig
 from ..constants import DEAD_BOUNCES, INVALID_INDEX
 from ..core import rng, vec
 from ..kernels import counts
+from ..kernels import sort as sort_mod
 from ..kernels import step as step_kernels_mod
 from ..kernels.step import (DIRTY_KEY as _DIRTY_KEY, NUM_RNG_WORDS,
                             W_BSDF1 as _W_BSDF1, W_BSDF2 as _W_BSDF2,
@@ -180,10 +181,10 @@ def _step_mode(scene, cfg) -> str:
 
 def _fused_step(scene, camera, cfg, words, carry):
     """:func:`wavefront_step` through the step kernels: route, one stable
-    sort, shade (on the unsorted engine route and shade in one kernel and
-    no sort), the two traversals, resolve.  On the card the kernels write
-    the next path state into ``carry``'s own tensors, and under
-    ``detailed_stats`` resolve adds to its bounce histogram."""
+    sort (kernels/sort.py), shade (on the unsorted engine route and shade
+    in one kernel and no sort), the two traversals, resolve.  On the card
+    the kernels write the next path state into ``carry``'s own tensors,
+    and under ``detailed_stats`` resolve adds to its bounce histogram."""
     S = step_kernels_mod
     state, fb, cam_start, it, _, rays_traced, occ_sum, *extra = carry
     n = state.pixel.shape[0]
@@ -194,7 +195,9 @@ def _fused_step(scene, camera, cfg, words, carry):
     if engine == "default":
         k = resolve_sort_every(scene, cfg)
         keys, bundle, cnt = S.route(scene, cfg, state, words)
-        order = torch.sort(keys, stable=True).indices
+        # on a sort_every skip iteration the kernels return at once and
+        # shade reads the identity
+        order = sort_mod.stable_order(keys, (cnt, it, k) if k > 1 else None)
         sh = S.shade(scene, camera, cfg, state, fb, words, order, bundle,
                      cnt, it, cam_start, k)
     elif engine == "unsorted":
@@ -202,8 +205,7 @@ def _fused_step(scene, camera, cfg, words, carry):
                                     cam_start)
     else:
         keys, record, cnt = S.route_full(scene, cfg, state, words, mode)
-        order = None if keys is None else \
-            torch.sort(keys, stable=True).indices
+        order = None if keys is None else sort_mod.stable_order(keys)
         sh = S.shade_full(scene, camera, cfg, state, fb, words, order,
                           record, cnt, cam_start, mode)
     inf = torch.full((n,), float("inf"), dtype=torch.float32,

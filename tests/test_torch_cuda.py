@@ -1,7 +1,7 @@
 """rtjax_torch on a CUDA device: the hand-written kernels (persistent
 walkers, two-level, packet and lane kernels, each in both designs, the
-binary-BVH walk and the tiny-scene direct pair) against their plain
-PyTorch versions, and the engine's main path through the kernels,
+binary-BVH walk, the tiny-scene direct pair and the step's stable key
+sort) against their plain PyTorch versions, and the engine's main path through the kernels,
 single-level and instanced, under every walker, under
 ``traversal="xla"`` and on the direct path; and the frame loop's captured
 CUDA graph against the same loop run op by op.
@@ -18,6 +18,8 @@ for bit, ties included.
 """
 
 import dataclasses
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -31,6 +33,7 @@ from rtjax_torch.kernels import direct as D
 from rtjax_torch.kernels import lane as L
 from rtjax_torch.kernels import traversal as T
 from rtjax_torch.kernels import persist as P
+from rtjax_torch.kernels import sort as SO
 from rtjax_torch.kernels import wide as WD
 from rtjax_torch.kernels import wide_inst as WI
 from rtjax_torch.render import trace
@@ -43,6 +46,9 @@ from rtjax_torch.scenes import cornell_planes
 import direct_cases
 from test_torch_binary_launch import DEEP_T, deep_bvh, down_rays
 from test_torch_persist_work import chain_rays, chain_tables
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "tools"))
+import sort_designs  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -2057,3 +2063,56 @@ def test_repass_runs_g_masked_passes_on_the_card(cuda):
                          body)
     for grp in scene.instances.groups:
         assert runs[id(scene.blas[grp.mesh_id])] == grp.size
+
+
+# ------------------------- the step's stable key sort (csrc/key_sort.cu)
+
+@pytest.mark.parametrize("log2", [17, 18, 19, 20])
+@pytest.mark.parametrize("keyset", sort_designs.SETS)
+def test_key_sort_equals_torch_sort(cuda, keyset, log2):
+    """The radix sort's order is ``torch.sort(keys, stable=True).indices``
+    bit for bit on tools/sort_designs.py's key sets at 2^17-2^20 keys."""
+    keys = torch.from_numpy(sort_designs.synthetic_keys(
+        keyset, 1 << log2, log2)).to(cuda)
+    got = SO.stable_order(keys)
+    assert torch.equal(got, torch.sort(keys, stable=True).indices)
+
+
+@pytest.mark.parametrize("n", [1, 2, 1000, 2047, 2049, 4095, 4097,
+                               (1 << 17) - 3])
+def test_key_sort_odd_sizes(cuda, n):
+    """Partial tiles and sizes below one tile."""
+    for keyset in ("random_int32", "dead_pair", "two_keys"):
+        keys = torch.from_numpy(sort_designs.synthetic_keys(
+            keyset, n, n)).to(cuda)
+        assert torch.equal(SO.stable_order(keys),
+                           torch.sort(keys, stable=True).indices)
+
+
+@pytest.mark.parametrize("log2", [17, 18, 19, 20])
+def test_key_sort_skip_launch_leaves_the_order(cuda, log2):
+    """On a ``sort_every`` skip iteration every kernel returns at once:
+    the order as it was, the device tally counting both launches as
+    returned at once and the sorting one as sorted."""
+    r = sort_designs.check_skip(1 << log2)
+    assert r["untouched"] and r["sorts"] and r["tally"] == [1, 2]
+
+
+def test_key_sort_replays_in_a_captured_graph(cuda):
+    """Captured in a CUDA graph (the scratch in its pool, the counters
+    zeroed by the launch's own memset node) the sort orders new keys on
+    every replay."""
+    n = 1 << 18
+    keys = torch.zeros(n, dtype=torch.int32, device=cuda)
+    SO.stable_order(keys)   # the library and the tally made outside
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g, stream=stream):
+        order = SO.stable_order(keys)
+    for seed, keyset in enumerate(("random31", "mostly_dead", "all_equal")):
+        keys.copy_(torch.from_numpy(sort_designs.synthetic_keys(
+            keyset, n, seed)).to(cuda))
+        g.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(order, torch.sort(keys, stable=True).indices)

@@ -1214,9 +1214,9 @@ def test_step_designs_checks_every_mode(mixed, monkeypatch, change):
     """tools/step_designs.py's check, which chip_smoke.py's phase 14 and
     tools/mode_steps.py run on the card, takes every mode on the CPU
     (the wrappers' plain versions): it checks each of the mode's kernels
-    (under the default mode the first design's too) on three op-by-op
-    states, limbo lanes among them under parity, and finds no mismatching
-    lane and no framebuffer gap."""
+    (under the default mode the first design's too, on every sorted engine
+    the key sort) on three op-by-op states, limbo lanes among them under
+    parity, and finds no mismatching lane and no framebuffer gap."""
     SD = _tool("step_designs")
     _, _, scene, cam = mixed
     cfg = _cfg(**_narrow(monkeypatch, change))
@@ -1225,7 +1225,9 @@ def test_step_designs_checks_every_mode(mixed, monkeypatch, change):
     worst, gap, timed = SD.check_and_time(scene, cam, cfg, (0, 1, 2), None,
                                           log=lines.append)
     want = set(S.MODE_KERNELS[mode]) | (
-        {"route_v1", "shade_v1"} if mode == "default" else set())
+        {"route_v1", "shade_v1"} if mode == "default" else set()) | (
+        {"key_sort"} if S.engine_of(mode) in ("default", "wide", "parity")
+        else set())
     assert set(worst) == want and not any(worst.values())
     assert gap == 0.0 and timed is None and len(lines) == 3
     if mode.startswith("parity"):

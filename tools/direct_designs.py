@@ -368,6 +368,7 @@ def _profiled(sc, cam, cfg):
     "iterations", "groups": {label: [ms, launches]}}``."""
     import chip_smoke as C
     p = C._profiled_frame(sc, cam, cfg, PROFILE_SEED)
+    del p["spans"]
     groups = {label: [0.0, 0] for label, _ in GROUPS + (("other", ""),)}
     for name, (ms, count) in p.pop("kernels").items():
         g = groups[_group(name)]

@@ -119,6 +119,7 @@ def check_state(scene, camera, cfg, state, words, fb, it, cam_start):
     traversal of the plain version's rays."""
     import chip_smoke as C
     import torch
+    from rtjax_torch.kernels import sort as SO
     from rtjax_torch.kernels import step as S
     from rtjax_torch.render.trace import trace_closest
     from rtjax_torch.render import wavefront as WF
@@ -129,8 +130,9 @@ def check_state(scene, camera, cfg, state, words, fb, it, cam_start):
     n, dev = cfg.pool_size, state.pixel.device
     k = WF.resolve_sort_every(scene, cfg)
     v1 = mode == "default"
+    sorts = engine in ("default", "wide", "parity")
     bad = {name: {} for name in kernels + (
-        ("route_v1", "shade_v1") if v1 else ())}
+        ("route_v1", "shade_v1") if v1 else ()) + ("key_sort",) * sorts}
 
     def tally(kernel, names, got, want):
         got, want = C._flat_out(got), C._flat_out(want)
@@ -149,12 +151,18 @@ def check_state(scene, camera, cfg, state, words, fb, it, cam_start):
               S.route(scene, cfg, state, words), want)
         keys, bundle, counts = want
         order = torch.sort(keys, stable=True).indices
+        do_gen = S.cadence(counts, n, it, k)
+        # the kernels' sort returns at once on a skip iteration, its order
+        # as it was: shade reads the identity then
+        k_order = SO.stable_order(keys, (counts, it, k) if k > 1 else None)
+        if do_gen is None or bool(do_gen):
+            tally("key_sort", ("order",), k_order, order)
         sh0 = S.shade_ref(scene, camera, cfg, state, fb0, words, order,
                           bundle, counts, it, cam_start, k)
-        sh1 = S.shade(scene, camera, cfg, _copy(state), fb1, words, order,
+        sh1 = S.shade(scene, camera, cfg, _copy(state), fb1, words, k_order,
                       bundle, counts.clone(), it, cam_start, k)
         c.update(keys=keys, order=order, bundle=bundle, counts=counts,
-                 do_gen=S.cadence(counts, n, it, k))
+                 do_gen=do_gen)
         if v1:
             want_v1 = S.route_v1_ref(scene, cfg, state, words)
             tally("route_v1", ("keys", "bundle", "counts"),
@@ -176,12 +184,15 @@ def check_state(scene, camera, cfg, state, words, fb, it, cam_start):
               + ("record", "counts"),
               S.route_full(scene, cfg, state, words, mode), want)
         keys, record, counts = want
-        order = None if keys is None else \
-            torch.sort(keys, stable=True).indices
+        order = k_order = None
+        if keys is not None:
+            order = torch.sort(keys, stable=True).indices
+            k_order = SO.stable_order(keys)
+            tally("key_sort", ("order",), k_order, order)
         sh0 = S.shade_full_ref(scene, camera, cfg, fb0, words, order, record,
                                counts, cam_start, mode)
         sh1 = S.shade_full(scene, camera, cfg, _copy(state), fb1, words,
-                           order, record, counts.clone(), cam_start, mode)
+                           k_order, record, counts.clone(), cam_start, mode)
         c.update(keys=keys, order=order, record=record, counts=counts)
     fields = SHADE_FIELDS + (("limbo",) if mode.startswith("parity") else ())
     for f in fields:
@@ -335,8 +346,10 @@ def time_state(scene, camera, cfg, state, words, fb, it, cam_start, c,
     first, ..., last, last, ..., first (under the default mode route_v1
     before route and shade_v1 before shade); its byte bound and share,
     registers and resident warps; one wrapper call and one plain call of
-    each of the mode's kernels (CUDA events, median); torch.sort of the
-    keys, and on the sorted engine's compact bundle ``index_add_`` of the
+    each of the mode's kernels (CUDA events, median); the key sort of
+    the keys in turns with torch.sort (:func:`sort_timing`, ``key_sort``;
+    ``sort_ms`` torch.sort's), and on the sorted engine's compact bundle
+    ``index_add_`` of the
     flush.  A launch that writes the next state over the one it reads (the
     unsorted engine's route-and-shade) takes a copy of its own.  Returns
     ``{"kernels": {kernel: {...}}, "sort_ms", ...}``."""
@@ -451,8 +464,9 @@ def time_state(scene, camera, cfg, state, words, fb, it, cam_start, c,
         out[name]["one_call_ms"] = C._median_ms(one[name])
         out[name]["plain_ms"] = C._median_ms(plain[name])
     t = dict(kernels=out, lanes=n, **work)
-    t["sort_ms"] = None if c["keys"] is None else C._launch_ms(
-        lambda: torch.sort(c["keys"], stable=True), reps)[0]
+    t["key_sort"] = sort_timing(scene, cfg, c, it, reps)
+    t["sort_ms"] = None if c["keys"] is None else \
+        t["key_sort"]["mean"]["torch"]
     if engine == "default":
         order = c["order"] if c["do_gen"] is None else torch.where(
             c["do_gen"], c["order"], torch.arange(n, device=dev))
@@ -461,6 +475,31 @@ def time_state(scene, camera, cfg, state, words, fb, it, cam_start, c,
         fbx, pix = fb.clone(), pixel.long()
         t["index_add_ms"] = C._launch_ms(
             lambda: fbx.index_add_(0, pix, flush), reps)[0]
+    return t
+
+
+def sort_timing(scene, cfg, c, it, reps=5):
+    """The step's sort on one state's route keys (``c`` from
+    :func:`check_state`; None on the unsorted engine):
+    tools/sort_designs.py ``time_sort`` in turns with torch.sort, and on a
+    ``sort_every`` skip iteration ``skip_ms``, the device ms of a launch
+    that returns at once."""
+    import chip_smoke as C
+    import sort_designs as SDs
+    from rtjax_torch.kernels import sort as SO
+    from rtjax_torch.kernels import step as S
+    from rtjax_torch.render import wavefront as WF
+    keys = c["keys"]
+    if keys is None:
+        return None
+    t = SDs.time_sort(keys, reps=reps)
+    t["lanes"] = keys.shape[0]
+    k = WF.resolve_sort_every(scene, cfg)
+    if S.engine_of(c["mode"]) == "default" and k > 1 and \
+            not bool(c["do_gen"]):
+        cadence = (c["counts"], it, k)
+        t["skip_ms"] = C._launch_ms(lambda: SO.stable_order(keys, cadence),
+                                    reps)[0]
     return t
 
 
@@ -473,12 +512,15 @@ def headline():
 
 
 def check_and_time(scene, camera, cfg, its=(0, 1, 2, 5, 12), time_it=12,
-                   label="headline", card="", seed=7, log=print):
+                   label="headline", card="", seed=7, log=print,
+                   sort_it=None, sort_out=None):
     """The step kernels of ``cfg``'s mode on one cell: the pool stepped op
     by op from a fresh carry with seeded words, :func:`check_state` on the
     states of ``its`` and :func:`time_state` on the state of ``time_it``
     (None: none); returns ``(mismatching lanes by kernel, framebuffer gap,
-    timings)``."""
+    timings)``.  With ``sort_it`` (one of ``its``) the sort alone is timed
+    on that state's keys (:func:`sort_timing`) into the dict
+    ``sort_out``."""
     import torch
     from rtjax_torch.kernels import step as S
     from rtjax_torch.render import wavefront as WF
@@ -514,6 +556,8 @@ def check_and_time(scene, camera, cfg, its=(0, 1, 2, 5, 12), time_it=12,
             if it == time_it:
                 timed = time_state(scene, camera, cfg, carry[0], words,
                                    carry[1], carry[3], carry[2], c)
+            if it == sort_it:
+                sort_out.update(sort_timing(scene, cfg, c, carry[3]) or {})
         carry = WF.wavefront_step(scene, camera, cfg, words, carry,
                                   step_kernels=False)
     return worst, gap, timed
@@ -536,7 +580,8 @@ def run(its=(0, 1, 2, 5, 12), time_it=12):
               + (f"; one call {r['one_call_ms']:.4f} ms" if "one_call_ms"
                  in r else ""))
     print(f"[step flush] flush atomics a shade launch "
-          f"{timed['flush_atomics']}; torch.sort {timed['sort_ms']:.4f} ms")
+          f"{timed['flush_atomics']}; torch.sort {timed['sort_ms']:.4f} ms; "
+          f"the key sort {timed['key_sort']['mean']['kernels']:.4f} ms")
     if any(worst.values()):
         raise RuntimeError(f"the step kernels differ from their plain "
                            f"versions: {worst}")
