@@ -303,19 +303,24 @@ the script exits non-zero):
    timed.  (e) The step's key sort (kernels/sort.py, csrc/key_sort.cu;
    in (a)-(d) too: bit for bit against torch.sort on every checked
    state's route keys, once an iteration in every kernels frame on a
-   sorted engine, and timed in turns with torch.sort on each cell's
-   route keys of STEP_TIME_IT, and in the other modes on MODE_TIMED's):
-   its registers; bit for bit against ``torch.sort(keys,
+   sorted engine, and timed in turns with torch.sort and the first design
+   on each cell's route keys of STEP_TIME_IT, and in the other modes on
+   MODE_TIMED's): its kernels' registers; the engine's design and PR
+   20's (``stable_order_v1``) bit for bit against ``torch.sort(keys,
    stable=True).indices`` on tools/sort_designs.py's key sets at 2^17 -
-   2^20 keys, each timed in turns with torch.sort; a skip launch of the
-   ``sort_every`` cadence leaving its order untouched, timed; and, in a
-   process of its own (``tools/sort_designs.py --frames``), captured
-   frames of the headline, config 2, config 4 (b), the parity frame and
-   the wide frame with the sort on the kernels and on torch.sort in
-   turns, equal in iterations, rays and launches, one profiled frame an
-   arm (device ms and events an iteration, the sort's device ms a frame,
-   no torch sort kernel on the kernels' arm) and the device tally of the
-   launches that sorted and that returned at once;
+   2^20 keys, each timed in turns with torch.sort, and two sizes in turns
+   on their persistent scratches; a skip launch of the ``sort_every``
+   cadence leaving its order untouched, timed; and, in a process of its
+   own (``tools/sort_designs.py --frames``), captured frames of the
+   headline, config 2, config 4 (b), the parity frame and the wide frame
+   with the sort on the engine's kernels, the first design's and torch.sort in
+   turns, equal in iterations, rays and launches, each seed's device
+   tally of sorting and skipping launches equal in both kernel arms
+   (config 2's skips under the if node the cadence's that the first design's
+   kernels evaluate), one profiled frame an arm (device ms and events an
+   iteration, the sort's device ms a frame, no torch sort kernel on the
+   kernel arms, five sort kernels a sorting launch and none and no
+   memset node on a skip);
 7. the two persist kernels' device time over one whole headline frame,
    the two packet kernels' over one walker="packet" headline frame, the
    lane closest-hit kernel's over one walker="lane" headline frame (its
@@ -5157,15 +5162,19 @@ SORT_SOURCE = "rtjax_torch/csrc/key_sort.cu"
 
 def phase14_key_sort(card):
     """(e) the step's key sort (kernels/sort.py, csrc/key_sort.cu): its
-    kernels' registers; bit for bit against ``torch.sort(keys,
-    stable=True).indices`` on tools/sort_designs.py's key sets at
-    SORT_LOG2 sizes, each timed in turns with torch.sort; a skip launch
-    leaving its order untouched; then, in a process of its own
+    kernels' registers; the engine's design and the first design's bit for bit
+    against ``torch.sort(keys, stable=True).indices`` on
+    tools/sort_designs.py's key sets at SORT_LOG2 sizes, each timed in
+    turns with torch.sort, and two sizes in turns; a skip launch leaving
+    its order untouched; then, in a process of its own
     (``tools/sort_designs.py --frames``), captured frames of the
     headline, config 2, config 4 (b), the parity frame and the wide frame
-    with the sort on the kernels and on torch.sort in turns, equal in
-    iterations, rays, occupancy and launches, and a profiled frame an arm:
-    no torch sort kernel on the kernels' arm.  Returns the numbers."""
+    with the sort on the engine's kernels, the first design's and torch.sort in
+    turns, equal in iterations, rays, occupancy and launches and in the
+    kernel arms' tallies, and a profiled frame an arm: no torch sort
+    kernel on the kernel arms, the engine's sort kernels and condition
+    kernels as its tally says, no memset node of its own.  Returns the
+    numbers."""
     import torch
     import sort_designs as SDs
     from rtjax_torch.kernels import _build
@@ -5175,8 +5184,7 @@ def phase14_key_sort(card):
         f"{r['warps_per_sm']} resident warps an SM"
         for k, r in registers.items()))
     sets, skips = SDs.check_sets(SORT_LOG2, card)
-    bad = {f"{k[0]} 2^{k[1]}": v["bad"] for k, v in sets.items()
-           if v["bad"]}
+    bad = SDs.sets_bad(sets)
     if bad or not SDs.skips_ok(skips):
         raise RuntimeError(f"the key sort differs from torch.sort: {bad}; "
                            f"skip launches {skips}")
@@ -5196,11 +5204,22 @@ def phase14_key_sort(card):
         raise RuntimeError(f"the sort's frames exited with {p.returncode}:\n"
                            f"{p.stdout[-4000:]}")
     frames = torch.load(out)
-    if any(f["theirs"] or f["launches"] != f["iterations"]
+    if any(not all(f["checks"].values()) or f["launches"] != f["iterations"]
            for f in frames.values()):
         raise RuntimeError("a profiled kernels' frame ran a torch sort "
-                           "kernel, or the key sort did not run once an "
+                           "kernel or a sort kernel its tally does not "
+                           "count, or the key sort did not run once an "
                            "iteration")
+    c2 = frames["config2"]
+    c2_skips = {k: t[1] for k, t in c2["tallies"].items()
+                if not k.startswith("torch")}
+    print(f"[sort if node] {card}: config 2's skipped launches a frame "
+          f"{c2_skips} (the engine's under the if node, the first design's "
+          f"in its kernels); profiled engine frame {c2['busy']['kernels']}")
+    if not c2["cadence"] or len(set(c2_skips.values())) != 1 or \
+            not min(c2_skips.values()):
+        raise RuntimeError("config 2's skip count under the if node is not "
+                           "the cadence's")
     return dict(registers=registers, sets=sets, skips=skips, frames=frames)
 
 
@@ -5660,6 +5679,7 @@ def _sort_row(p14, p14m, launches):
     for mode, name in (("parity", "parity frame"), ("wide", "wide frame")):
         cells[name] = p14m["times"][mode]["key_sort"]
     brief = lambda r: dict(lanes=r.get("lanes"), ms=r["mean"]["kernels"],
+                           first_design_ms=r["mean"]["v1"],
                            library_ms=r["mean"]["torch"],
                            bound_ms=r["bound"]["bound_ms"],
                            **({"skip_ms": r["skip_ms"]} if "skip_ms" in r
@@ -5675,15 +5695,21 @@ def _sort_row(p14, p14m, launches):
         share=t["bound"]["bound_ms"] / t["mean"]["kernels"],
         library_ms=t["mean"]["torch"], library_timed_ms=t["torch"],
         registers={k: r["registers"] for k, r in sort["registers"].items()},
-        kernels="a memset node, upsweep_kernel, pass_kernel x 4",
+        kernels="sort_upsweep, sort_pass x 4 on a persistent scratch (no "
+                "memset node); under a cadence in a captured step "
+                "cadence_condition and a CUDA-graph if node",
+        first_design_ms=t["mean"]["v1"], first_design_timed_ms=t["v1"],
         cells={k: brief(r) for k, r in cells.items()},
         sets={f"{k[0]} 2^{k[1]}": dict(ms=v["time"]["mean"]["kernels"],
+                                       first_design_ms=v["time"]["mean"][
+                                           "v1"],
                                        library_ms=v["time"]["mean"]["torch"],
                                        bad=v["bad"])
-              for k, v in sort["sets"].items()},
+              for k, v in sort["sets"].items() if "time" in v},
         skip_ms={f"2^{k}": v["skip_ms"] for k, v in sort["skips"].items()},
         frames={k: dict(secs=f["secs"], sort_ms=f["sort_ms"],
-                        tally=f["tally"], iterations=f["iterations"],
+                        tallies=f["tallies"], checks=f["checks"],
+                        iterations=f["iterations"],
                         device_ms_per_it={a: b["device_ms_per_it"]
                                           for a, b in f["busy"].items()},
                         events_per_it={a: b["events_per_it"]

@@ -1,6 +1,8 @@
-"""rtjax's ``jax.lax.while_loop`` with a device condition, inside the
-captured wavefront step (render/graph.py): the loop of repass's passes
-(render/trace.py), rtjax/render/trace.py:403-434 and 473-496.
+"""rtjax's ``jax.lax.while_loop`` and ``lax.cond`` with a device
+condition, inside the captured wavefront step (render/graph.py): the loop
+of repass's passes (render/trace.py), rtjax/render/trace.py:403-434 and
+473-496, and the branch around the key sort on the ``sort_every`` cadence
+(kernels/sort.py), rtjax/render/wavefront.py:396-401.
 
 :func:`passes` drives up to ``n`` passes of a loop whose condition is the
 device bool ``pend.any()``; the caller's body updates its state, ``pend``
@@ -21,6 +23,13 @@ included, in place.
   as rtjax's ``while_loop`` does, and skips the passes that would find no
   pending ray.  The bodies' temporaries come from a memory pool of the
   recorder's own, which lives as long as the graph.
+- **Branches.**  :func:`branch` runs a body once.  Inside a capture with a
+  :class:`Recorder` the caller's kernel sets the condition of a
+  CUDA-graph if node (the key sort's ``cadence_condition``) and the body
+  is captured on the body stream into the node's body, which a replay
+  runs where the condition is set; elsewhere the body runs as it is and
+  decides on its own.  The body's launches count once a replay, as the
+  step's do: which replays ran it, the caller counts on the device.
 - **Launch counts.**  A body's kernels are counted once while it is
   captured; the recorder keeps each loop's count apart, with a device
   counter of the body's runs over every replay (``Recorder.loops``), and
@@ -55,8 +64,12 @@ def _kernels():
                                              ctypes.POINTER(U)]
             lib.rtjax_loop_end.argtypes = [P, U, P, P, P, I]
             lib.rtjax_loop_stream.argtypes = [ctypes.POINTER(P)]
+            lib.rtjax_cond_handle.argtypes = [P, ctypes.POINTER(U)]
+            lib.rtjax_if_begin.argtypes = [P, P, U]
+            lib.rtjax_if_end.argtypes = [P]
             for f in (lib.rtjax_loop_begin, lib.rtjax_loop_end,
-                      lib.rtjax_loop_stream):
+                      lib.rtjax_loop_stream, lib.rtjax_cond_handle,
+                      lib.rtjax_if_begin, lib.rtjax_if_end):
                 f.restype = I
             _lib = lib
         return _lib
@@ -167,6 +180,23 @@ class Recorder:
                 self.k.data_ptr(), runs.data_ptr(), n), "capture")
         self.loops.append((runs, counts.delta(before, counts.snapshot())))
 
+    def branch(self, set_condition):
+        """Capture one if node: ``set_condition(handle)`` launches the
+        kernel that sets its condition; yields True once, the caller
+        capturing the body on the body stream."""
+        lib = _kernels()
+        stream = torch.cuda.current_stream(self.device).cuda_stream
+        body = self.body_stream
+        handle = ctypes.c_ulonglong()
+        _raise_on(lib.rtjax_cond_handle(stream, ctypes.byref(handle)),
+                  "capture")
+        set_condition(handle.value)
+        _raise_on(lib.rtjax_if_begin(stream, body.cuda_stream, handle.value),
+                  "capture")
+        with torch.cuda.stream(body):
+            yield True
+            _raise_on(lib.rtjax_if_end(body.cuda_stream), "capture")
+
 
 def _on_card(pend) -> bool:
     """Whether ``pend`` lies on the card, where reading it from the host
@@ -189,3 +219,15 @@ def passes(pend, n: int):
             yield
         return
     yield from rec.loop(pend, n)
+
+
+def branch(set_condition):
+    """A body run once (see the module docstring): a generator that yields
+    once, True where the body is captured into an if node whose condition
+    ``set_condition(handle)`` sets on the device, False where the body runs
+    as it is and must decide on its own."""
+    rec = _recorder
+    if rec is None or not torch.cuda.is_current_stream_capturing():
+        yield False
+        return
+    yield from rec.branch(set_condition)

@@ -29,9 +29,12 @@ host issuing them one by one.
   was captured for, held strongly; a later frame of the same key
   resets the static carry and replays from its first step.
   :func:`clear_graphs` drops it.
-- **Device loops.**  Repass's passes (render/trace.py) are rtjax's
-  ``while_loop``: captured into CUDA-graph while nodes
+- **Device loops and branches.**  Repass's passes (render/trace.py) are
+  rtjax's ``while_loop``: captured into CUDA-graph while nodes
   (render/device_loop.py), which a replay runs while a ray is pending.
+  The key sort on the ``sort_every`` cadence (kernels/sort.py) is
+  captured into the body of an if node, which a replay runs on the
+  iterations that sort.
 - **Launch counts.**  The kernel wrappers count their launches in Python
   (``LAUNCHES`` of every kernel module), which a replay does not run;
   the launches counted while capturing are taken back, and each replay

@@ -1977,8 +1977,9 @@ def test_step_kernel_frame_equals_the_op_by_op_step(cuda, kind, change):
     op-by-op step (``step_kernels=False``), one seed: the same
     iterations, rays, occupancy and traversal launches, under
     ``detailed_stats`` the same bounce histogram and traversal sums, the
-    mode's step kernels launched once an iteration (none in the other),
-    framebuffers within the atomic adds' reordering."""
+    mode's step kernels, and on a sorted engine the key sort, launched
+    once an iteration (none in the other), framebuffers within the
+    atomic adds' reordering."""
     from rtjax_torch.kernels import counts
     from rtjax_torch.kernels import step as S
     scene, cam = _graph_scene(kind, cuda)
@@ -2000,10 +2001,15 @@ def test_step_kernel_frame_equals_the_op_by_op_step(cuda, kind, change):
     if cfg.detailed_stats:
         assert torch.equal(st["bounce_histogram"], st0["bounce_histogram"])
         assert int(st["bounce_histogram"].sum()) > 0
-    steps = {k: v for k, v in ran.items() if k[0][0] == "step"}
+    mode = S.step_mode(scene, cfg)
+    steps = {k: v for k, v in ran.items() if k[0][0] in ("step", "sort")}
+    sorts = S.engine_of(mode) in ("default", "wide", "parity")
     assert steps == {(("step", "LAUNCHES"), name): st["iterations"]
-                     for name in S.MODE_KERNELS[S.step_mode(scene, cfg)]}
-    assert {k: v for k, v in ran.items() if k[0][0] != "step"} == ran0
+                     for name in S.MODE_KERNELS[mode]} | (
+        {(("sort", "LAUNCHES"), "key_sort"): st["iterations"]} if sorts
+        else {})
+    assert {k: v for k, v in ran.items()
+            if k[0][0] not in ("step", "sort")} == ran0
     torch.testing.assert_close(fb, fb0, rtol=1e-5, atol=1e-7)
     assert bool(torch.isfinite(fb).all()) and float(fb.sum()) > 0
 
@@ -2098,10 +2104,90 @@ def test_key_sort_skip_launch_leaves_the_order(cuda, log2):
     assert r["untouched"] and r["sorts"] and r["tally"] == [1, 2]
 
 
+@pytest.mark.parametrize("log2", [17, 18, 19, 20])
+@pytest.mark.parametrize("keyset", sort_designs.SETS)
+def test_key_sort_v1_equals_torch_sort(cuda, keyset, log2):
+    """the first design (``stable_order_v1``, kept for timing in turns) is
+    ``torch.sort(keys, stable=True).indices`` bit for bit too."""
+    keys = torch.from_numpy(sort_designs.synthetic_keys(
+        keyset, 1 << log2, log2)).to(cuda)
+    got = SO.stable_order_v1(keys)
+    assert torch.equal(got, torch.sort(keys, stable=True).indices)
+
+
+def test_key_sort_sizes_interleaved_on_their_scratches(cuda):
+    """Launches at two sizes in turns, queued back to back with no
+    synchronisation between them, each on its size's persistent scratch
+    (never zeroed again): every order is torch.sort's."""
+    got = []
+    for r in range(4):
+        for n in (1 << 17, (1 << 19) + 3):
+            keys = torch.from_numpy(sort_designs.synthetic_keys(
+                sort_designs.SETS[(r * 3 + n) % len(sort_designs.SETS)], n,
+                r)).to(cuda)
+            got.append((keys, SO.stable_order(keys)))
+    torch.cuda.synchronize()
+    for keys, order in got:
+        assert torch.equal(order, torch.sort(keys, stable=True).indices)
+
+
+def test_key_sort_if_node_in_a_captured_step(cuda):
+    """A captured launch with a cadence (render/device_loop.py's
+    recorder, as the captured step records it) goes under a CUDA-graph if
+    node: replayed with new keys and alternating iterations, a skip
+    leaves the order untouched and counts as skipped in the tally, a sort
+    orders the new keys; under the profiler a skip replay runs the
+    condition kernel and no sort kernel and no memset, a sorting one the
+    upsweep and four passes and no memset."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from rtjax_torch.render import device_loop
+    n = 1 << 18
+    keys = torch.zeros(n, dtype=torch.int32, device=cuda)
+    counts = torch.tensor([n, 0, 0, 0, 0], device=cuda)
+    it = torch.zeros((), dtype=torch.int64, device=cuda)
+    order = torch.full((n,), -7, dtype=torch.int64, device=cuda)
+    SO.sort_into(keys, order, (counts, it, 2))   # made outside: the tally,
+    stream = torch.cuda.Stream()                 # the scratch, the library
+    stream.wait_stream(torch.cuda.current_stream())
+    g = torch.cuda.CUDAGraph()
+    rec = device_loop.Recorder(cuda)
+    try:
+        with rec.recording(), torch.cuda.graph(g, stream=stream):
+            SO.sort_into(keys, order, (counts, it, 2))
+        for i, keyset in enumerate(("random31", "mostly_dead", "two_keys",
+                                    "random_int32", "all_equal")):
+            keys.copy_(torch.from_numpy(sort_designs.synthetic_keys(
+                keyset, n, i)).to(cuda))
+            it.fill_(i)
+            order.fill_(-7)
+            before = SO.tally(cuda).clone()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                g.replay()
+                torch.cuda.synchronize()
+            names = [e.name() for e in prof.profiler.kineto_results.events()
+                     if "emset" in e.name() or sort_designs.OURS.search(
+                         e.name())]
+            sorts = i % 2 == 0
+            assert (SO.tally(cuda) - before).tolist() == ([1, 0] if sorts
+                                                          else [0, 1])
+            passes = [m for m in names if sort_designs.PASSES.search(m)]
+            assert len(passes) == (5 if sorts else 0), names
+            assert not [m for m in names if "emset" in m], names
+            assert len([m for m in names
+                        if sort_designs.CONDITION.search(m)]) == 1, names
+            want = torch.sort(keys, stable=True).indices if sorts else \
+                torch.full((n,), -7, dtype=torch.int64, device=cuda)
+            assert torch.equal(order, want)
+    finally:
+        del g
+        rec.release()
+
+
 def test_key_sort_replays_in_a_captured_graph(cuda):
-    """Captured in a CUDA graph (the scratch in its pool, the counters
-    zeroed by the launch's own memset node) the sort orders new keys on
-    every replay."""
+    """Captured in a CUDA graph (no cadence: no if node; the persistent
+    scratch made outside, never zeroed by the launch) the sort orders new
+    keys on every replay."""
     n = 1 << 18
     keys = torch.zeros(n, dtype=torch.int32, device=cuda)
     SO.stable_order(keys)   # the library and the tally made outside
