@@ -300,7 +300,14 @@ the script exits non-zero):
    detailed_stats), and on synthetic pools with limbo or dirty lanes,
    those cells' frames against step_kernels=False in turns (equal
    iterations, rays, histograms and traversal sums), and each kernel
-   timed.  (e) The step's key sort (kernels/sort.py, csrc/key_sort.cu;
+   timed; the parity modes' route and shade (the camera rank taken by
+   route in slot order and carried in the record) against their first
+   design (route_parity_v1 / shade_parity_v1: the rank by shade's
+   look-back scan) bit for bit on every parity state, timed in turns,
+   and in captured frames in turns on the parity frame and the headline
+   parity frame under "xla" (_parity_designs: equal iterations, rays and
+   framebuffers, one profiled frame an arm: busy ms and events an
+   iteration, route's and shade's ms a frame).  (e) The step's key sort (kernels/sort.py, csrc/key_sort.cu;
    in (a)-(d) too: bit for bit against torch.sort on every checked
    state's route keys, once an iteration in every kernels frame on a
    sorted engine, and timed in turns with torch.sort and the first design
@@ -1800,6 +1807,7 @@ def _counters():
             # every traversal set (the first design only when chosen)
             "step": (S.LAUNCHES, S.REF_CALLS),
             "step_v1": (S.V1_LAUNCHES, None),
+            "step_parity_v1": (S.PARITY_V1_LAUNCHES, None),
             # the step's key sort: once a sorted iteration of the kernels
             "sort": (SO.LAUNCHES, SO.REF_CALLS)}
 
@@ -2025,7 +2033,8 @@ def _step_once(counts, mode, iterations):
     mine = () if mode is None else S.MODE_KERNELS[mode]
     return all(v == (iterations if k in mine else 0)
                for k, v in counts["step"].items()) \
-        and not any(counts["step_v1"].values())
+        and not any(counts["step_v1"].values()) \
+        and not any(counts["step_parity_v1"].values())
 
 
 def _only_set(counts, kernel_set, iterations=None):
@@ -5008,13 +5017,13 @@ def _synthetic_checks(camera, card, modes, its, seed):
     (:func:`_synthetic_state` over :func:`_step_scene`, a random
     framebuffer), one pool an iteration of ``its``, against their plain
     versions (tools/step_designs.py ``check_state``): ``({kernel:
-    mismatching lanes}, framebuffer gap)``."""
+    mismatching lanes}, {kernel: framebuffer gap})``."""
     import torch
     import step_designs as SD
     from rtjax_torch import RenderConfig
     syn = _step_scene()
     g = torch.Generator(device="cuda").manual_seed(seed)
-    worst, gap = {}, 0.0
+    worst, gap = {}, {}
     for label, change in modes.items():
         cfg = RenderConfig(**{**dict(width=WIDTH, height=HEIGHT,
                                      num_samples=4, max_bounces=BOUNCES),
@@ -5028,7 +5037,7 @@ def _synthetic_checks(camera, card, modes, its, seed):
                 syn, camera, cfg, _synthetic_state(syn, cfg, g), words, fb,
                 torch.tensor(it, device="cuda"),
                 torch.tensor(it * 99991, device="cuda"))
-            gap = max(gap, err)
+            SD.merge_gaps(gap, err)
             total = {k: sum(v.values()) for k, v in bad.items()}
             kind = "in limbo" if c["mode"].startswith("parity") \
                 else "dirty"
@@ -5266,14 +5275,14 @@ def phase14_step_kernels(scene, camera, card, floor, c4_scene, c4_camera,
             sc, cam, cfg, STEP_CHECK_ITS,
             STEP_TIME_IT if name == "headline" else None, label=name,
             card=card, sort_it=STEP_TIME_IT, sort_out=sort_cells[name])
-        fb_err = max(fb_err, err)
+        fb_err = max(fb_err, err["shade"])
         timed = t or timed
         for k, v in bad.items():
             worst[k] += v
         print(_sort_time_text(f"{name} it {STEP_TIME_IT}", sort_cells[name],
                               card))
     bad, err = _synthetic_checks(camera, card, {"pool": {}}, (0, 1, 3), 11)
-    fb_err = max(fb_err, err)
+    fb_err = max(fb_err, err["shade"])
     for k, v in bad.items():
         worst[k] += v
     if any(worst.values()):
@@ -5419,15 +5428,32 @@ MODE_TIMED = {"unsorted": "headline xla", "parity": "parity frame",
               "parity_stats": "headline parity stats",
               "wide": "wide frame",
               "wide_1s_stats": "headline 126 bounces one_sample stats"}
-# the ptxas registers of the default instances, of the first design and of
-# the unsorted engine's and parity's instances: they must not change (the
-# first design's shade takes the shadow rays' shared helper at 96,
+# the parity modes' first design (route and shade with the camera rank
+# taken by a look-back scan in shade), the kernels line's rows beside the
+# record design's, timed in turns with them on the same cells
+PARITY_V1_KERNELS = {
+    "route_parity_v1": ("parity", "rtjax/render/wavefront.py:212"),
+    "shade_parity_v1": ("parity", "rtjax/render/wavefront.py:437"),
+    "route_parity_unsorted_v1": ("parity_unsorted",
+                                 "rtjax/render/wavefront.py:212"),
+    "shade_parity_unsorted_v1": ("parity_unsorted",
+                                 "rtjax/render/wavefront.py:437")}
+# the ptxas registers of the default instances, of the first designs and
+# of the unsorted engine's and parity's instances: they must not change
+# (the first design's shade takes the shadow rays' shared helper at 96,
 # resident warps as at 95: 16)
 STEP_REGISTERS = {"route": 40, "shade": 85, "resolve": 26, "route_v1": 40,
                   "shade_v1": 96, "route_shade_unsorted": 103,
-                  "route_parity": 40, "shade_parity": 104,
+                  "route_parity": 40, "shade_parity": 94,
                   "resolve_parity": 28, "route_parity_unsorted": 40,
-                  "shade_parity_unsorted": 104}
+                  "shade_parity_unsorted": 94, "route_parity_v1": 40,
+                  "shade_parity_v1": 104, "route_parity_unsorted_v1": 40,
+                  "shade_parity_unsorted_v1": 104}
+# the cells whose captured frames run the parity modes' record design
+# against their first design in turns (_parity_designs), and the order
+PARITY_DESIGN_CELLS = ("parity frame", "headline parity xla")
+PARITY_DESIGN_ORDER = (("kernels", 1), ("kernels", 2), ("v1", 1), ("v1", 2),
+                       ("v1", 3), ("kernels", 1), ("kernels", 3))
 
 
 def _mode_cells(scene, camera):
@@ -5531,13 +5557,90 @@ def _mode_frames(name, sc, cam, cfg, card, profile=False, log=print):
     return dict(secs=secs, busy=busy, launches=got["kernels", 2][3]["step"])
 
 
+def _parity_designs(name, sc, cam, cfg, card, profile=True, log=print):
+    """The parity modes' kernels (route carrying the camera rank in the
+    record, shade reading it) against their first design
+    (``route_parity_v1`` / ``shade_parity_v1``: the rank by shade's
+    look-back scan) on one cell: captured frames in turns
+    (PARITY_DESIGN_ORDER), each seed's pair with equal iterations, rays
+    and occupancy and framebuffers within FB_RTOL, each arm's route and
+    shade once an iteration and the other arm's never; with ``profile``
+    one profiled frame an arm (seed 5 after a seed-1 warm-up): device
+    events and busy ms an iteration, route's and shade's device ms a
+    frame.  Returns ``{secs, busy, launches}``, ``launches`` the first
+    design's route and shade in its seed-2 frame."""
+    import torch
+    from rtjax_torch.kernels import step as S
+    from rtjax_torch.render import graph as G
+    mode = S.step_mode(sc, cfg)
+    kernels = S.MODE_KERNELS[mode]
+    v1 = tuple(S.PARITY_V1[k] for k in kernels[:2])
+    got = _frames_in_turns(sc, cam, cfg, PARITY_DESIGN_ORDER)
+    secs = {arm: [f[0] for (a, _), f in got.items() if a == arm]
+            for arm in ("kernels", "v1")}
+    for seed in (2, 3):
+        kf, vf = got["kernels", seed], got["v1", seed]
+        its = kf[2]["iterations"]
+        same = all(kf[2][k] == vf[2][k] for k in
+                   ("iterations", "rays_traced", "avg_occupancy"))
+        close = torch.allclose(kf[1], vf[1], rtol=FB_RTOL, atol=FB_ATOL)
+        steps = (_step_once(kf[3], mode, its) and not kf[3]["plain"]
+                 and not vf[3]["plain"]
+                 and vf[3]["step_parity_v1"] == {
+                     k: its * (k in v1) for k in S.PARITY_V1_LAUNCHES}
+                 and all(v == its * (k == kernels[2])
+                         for k, v in vf[3]["step"].items()))
+        log(f"[parity designs {name} seed {seed}] {card}: {its} iterations;"
+            f" kernels {kf[0]:.4f} s, first design {vf[0]:.4f} s; equal "
+            f"iterations, rays, occupancy {same}; each arm's route and shade"
+            f" once an iteration {steps} ({vf[3]['step_parity_v1']}); "
+            f"framebuffers within rtol {FB_RTOL} {close}")
+        if not (same and close and steps):
+            raise RuntimeError(f"{name} seed {seed}: the parity kernels' "
+                               "frame differs from the first design's")
+    busy = {}
+    for arm in ("kernels", "v1") if profile else ():
+        G.clear_graphs()
+        _step_frame(sc, cam, cfg, 1, arm)
+        _set_design("v1" if arm == "v1" else "record")
+        try:
+            b = _profiled_frame(sc, cam, cfg, 5, step_kernels=True)
+        finally:
+            _set_design("record")
+        del b["spans"]
+        for part, k in zip(("route_ms", "shade_ms"),
+                           kernels[:2] if arm == "kernels" else v1):
+            b[part] = sum(v[0] for e, v in b["kernels"].items()
+                          if f"{k}_kernel" in e)
+        busy[arm] = b
+    if profile:
+        k_, v_ = busy["kernels"], busy["v1"]
+        log(f"[parity designs busy {name}] {card}: device events an "
+            f"iteration kernels {k_['events_per_it']:.1f} vs first design "
+            f"{v_['events_per_it']:.1f}; busy ms an iteration "
+            f"{k_['device_ms_per_it']:.5f} vs {v_['device_ms_per_it']:.5f};"
+            f" route ms a frame {k_['route_ms']:.3f} vs "
+            f"{v_['route_ms']:.3f}, shade {k_['shade_ms']:.3f} vs "
+            f"{v_['shade_ms']:.3f}; profiled frames {k_['wall']:.4f} vs "
+            f"{v_['wall']:.4f} s ({k_['iterations']} iterations)")
+    log(f"[parity designs frames {name}] {card}: frame seconds kernels "
+        f"{secs['kernels']} vs first design {secs['v1']}")
+    G.clear_graphs()
+    return dict(secs=secs, busy=busy,
+                launches=got["v1", 2][3]["step_parity_v1"])
+
+
 def _mode_time_text(t, card):
     """The ``[mode time ...]`` lines of one mode's timings
     (tools/step_designs.py ``time_state``)."""
     lines = [f"[mode time {k}] {card}: {r['mean_ms']:.4f} ms a launch (in "
              f"turns {r['ms']}), bound {r['bound_us']:.3f} us by "
              f"{r['bound_by']} ({r['bytes']:.0f} bytes), "
-             f"{100 * r['share']:.2f}% of the bound; one call "
+             f"{100 * r['share']:.2f}% of the bound"
+             + (f" ({100 * r['function_share']:.2f}% of the function's, "
+                f"{r['function_bound_us']:.3f} us without the rank word)"
+                if "function_share" in r else "")
+             + "; one call "
              f"{r['one_call_ms']:.4f} ms, plain version {r['plain_ms']:.4f} "
              f"ms; {r['registers']} registers, {r['warps_per_sm']} resident "
              "warps an SM" for k, r in t["kernels"].items()]
@@ -5580,7 +5683,7 @@ def phase14_mode_kernels(scene, camera, card):
         raise RuntimeError("the step kernels' registers changed")
     ranks = M.check_ranks(scene, camera, card)
     worst = {f"rank {k}": v for k, v in ranks.items() if v}
-    fb_gap, times = 0.0, {}
+    fb_gaps, times = {}, {}
     timed = {v: k for k, v in MODE_TIMED.items()}
     cells = _mode_cells(scene, camera)
     for name, (sc, cam, cfg) in cells.items():
@@ -5588,7 +5691,7 @@ def phase14_mode_kernels(scene, camera, card):
             sc, cam, cfg, MODE_CHECK_ITS,
             MODE_TIME_IT if name in timed else None, label=name, card=card)
         worst.update({f"{name} {k}": v for k, v in bad.items() if v})
-        fb_gap = max(fb_gap, gap)
+        SD.merge_gaps(fb_gaps, gap)
         if name in timed:
             times[timed[name]] = t
     parity = dict(reference_parity=True, rr_start=0)
@@ -5604,16 +5707,19 @@ def phase14_mode_kernels(scene, camera, card):
         "wide one_sample stats": dict(wide, one_sample_mis=True,
                                       detailed_stats=True)}, (0, 1), 13)
     worst.update({f"synthetic {k}": v for k, v in bad.items() if v})
-    fb_gap = max(fb_gap, gap)
+    SD.merge_gaps(fb_gaps, gap)
     if worst:
         raise RuntimeError(f"the full-record step kernels differ from their "
                            f"plain versions: {worst}")
     frames = {name: _mode_frames(name, sc, cam, cfg, card)
               for name, (sc, cam, cfg) in cells.items()}
+    designs = {name: _parity_designs(name, *cells[name], card)
+               for name in PARITY_DESIGN_CELLS}
     for t in times.values():
         for line in _mode_time_text(t, card):
             print(line)
-    return dict(fb_gap=fb_gap, times=times, frames=frames, ranks=ranks)
+    return dict(fb_gaps=fb_gaps, times=times, frames=frames, ranks=ranks,
+                designs=designs)
 
 
 def _mode_rows(p14m, launches):
@@ -5621,21 +5727,55 @@ def _mode_rows(p14m, launches):
     default one (launches: phase 8(c)'s parity frame for the parity
     kernels, phase 9(b)'s two xla frames for the unsorted engine's, and
     for every other the seed-2 kernel frame of its MODE_TIMED cell in
-    phase 14)."""
+    phase 14; ``max_abs_err`` the kernel's own largest framebuffer gap
+    over phase 14's checks, 0 for a kernel that writes no framebuffer)."""
     rows = []
     for name, (mode, replaces) in MODE_STEP_KERNELS.items():
         r = p14m["times"][mode]["kernels"][name]
         rows.append(dict(
             name=f"step_{name}", route="cuda", source=STEP_SOURCE,
             replaces=replaces, launches=launches[name],
-            max_abs_err=p14m["fb_gap"] if name.startswith("shade") else 0.0,
+            max_abs_err=p14m["fb_gaps"].get(name, 0.0),
             ms=r["mean_ms"], timed_ms=r["ms"], timed_launches=REPS,
             one_call_ms=r["one_call_ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_us=r["bound_us"],
             bound_by=r["bound_by"], share=r["share"], library_ms=None,
             registers=r["registers"], warps_per_sm=r["warps_per_sm"],
+            **{k: r[k] for k in ("function_bound_ms", "function_share")
+               if k in r},
             note=f"no pallas_call: rtjax's XLA fusions of wavefront_step, "
                  f"mode {mode}, timed on {MODE_TIMED[mode]}'s state"))
+    return rows
+
+
+def _parity_v1_rows(p14m):
+    """The kernels line's rows of the parity modes' first design: on no
+    path of the engine (``launches`` 0), timed in turns with the record
+    design on its MODE_TIMED cell's state; ``in_turns_launches`` its
+    seed-2 frame's in :func:`_parity_designs`; a shade's ``max_abs_err``
+    its own framebuffer gap, as in :func:`_mode_rows`."""
+    rows = []
+    for name, (mode, replaces) in PARITY_V1_KERNELS.items():
+        r = p14m["times"][mode]["kernels"][name]
+        cell = {"parity": "parity frame",
+                "parity_unsorted": "headline parity xla"}[mode]
+        rows.append(dict(
+            name=f"step_{name}", route="cuda", source=STEP_SOURCE,
+            replaces=replaces, launches=0,
+            in_turns_launches=p14m["designs"][cell]["launches"][name],
+            max_abs_err=p14m["fb_gaps"].get(name, 0.0),
+            ms=r["mean_ms"], timed_ms=r["ms"], timed_launches=REPS,
+            one_call_ms=r["one_call_ms"], plain_ms=r["plain_ms"],
+            bound_ms=r["bound_ms"], bound_us=r["bound_us"],
+            bound_by=r["bound_by"], share=r["share"], library_ms=None,
+            registers=r["registers"], warps_per_sm=r["warps_per_sm"],
+            busy={arm: dict(device_ms_per_it=b["device_ms_per_it"],
+                            events_per_it=b["events_per_it"],
+                            route_ms=b["route_ms"], shade_ms=b["shade_ms"])
+                  for arm, b in p14m["designs"][cell]["busy"].items()},
+            note=f"the parity modes' first design, on no path of "
+                 f"the engine; mode {mode}, timed in turns with the record "
+                 f"design on {MODE_TIMED[mode]}'s state"))
     return rows
 
 
@@ -5815,7 +5955,8 @@ def main():
             *_mode_rows(p14m, {
                 k: {"unsorted": xla_steps, "parity": modes["launches"]}.get(
                     m, p14m["frames"][MODE_TIMED[m]]["launches"])[k]
-                for k, (m, _) in MODE_STEP_KERNELS.items()})]
+                for k, (m, _) in MODE_STEP_KERNELS.items()}),
+            *_parity_v1_rows(p14m)]
     for k, rec in _big_rows(big).items():
         next(r for r in rows if r["name"] == k)["bigscene"] = rec
     for k in rows:

@@ -56,10 +56,11 @@
 // BSDF-MIS target, :719 the flush over every lane, :791-807 the limbo
 // restore and work_left), each on both engines.  Bytes bound them too:
 // route reads a slot's state (81 B) and word (8 B) and writes its record
-// (88 B of payload; 4 B of key under parity's sort); shade reads the
-// record (88 B, through the sort's 8-byte order under parity) and five
-// words (40 B) and writes what the default shade writes (57 B, 90 B of
-// shadow rays) and the limbo flag (1 B); route and shade merged read the
+// (88 B of payload, 92 B with parity's camera rank; 4 B of key under
+// parity's sort); shade reads the record (the same, through the sort's
+// 8-byte order under parity) and five words (40 B) and writes what the
+// default shade writes (57 B, 90 B of shadow rays) and the limbo flag
+// (1 B); route and shade merged read the
 // state and five words (121 B) and write shade's outputs; resolve adds,
 // for a limbo lane, its order and 24 B of its record read and 21 B of hit
 // written.  The design: the record is the 12 fields rtjax's parity sort
@@ -71,11 +72,25 @@
 // acc|bounces, flags|material|0|0), staged by route in shared memory and
 // written out coalesced, read by shade with six 16-byte loads.  The lanes
 // that take a camera ray are not a suffix (unsorted, or limbo lanes among
-// the dead), so shade ranks them by a single-pass scan with decoupled
-// look-back over blocks that take their indices from a ticket; the block
-// that finishes last zeroes the scan for the next launch.  Every such
-// lane flushes its non-zero radiance by float atomics.  On the unsorted
-// engine without parity route and shade are one kernel
+// the dead), so they go by their exclusive rank among such lanes.  Under
+// parity route takes it in slot order (the parity sort keeps these lanes
+// in slot order: step_math.cuh rank_*) by a look-back over its blocks,
+// which take their indices from a ticket on a persistent scratch that no
+// launch zeroes, and carries it in the record's word 22; shade reads it
+// with the record and has no scan, no barrier between the record's load
+// and the shading and no reset (route_ranked, shade_ranked): on the
+// parity frame's state at 2^19 lanes shade took 0.0729-0.0740 ms against
+// the first design's 0.1141-0.1151 ms in turns, at 94 registers and 20
+// resident warps an SM against 104 and 16, and route 0.0492 against
+// 0.0435-0.0438 ms (NVIDIA H100 80GB HBM3, 700.00 W; tools/step_designs.py
+// --variants, PERF.md).  Every such lane flushes its non-zero radiance by
+// float atomics.  The first design
+// of parity's route and shade (route_parity_v1, shade_parity_v1 and their
+// unsorted instances, kept for timing in turns) ranked in shade by a
+// single-pass scan with decoupled look-back, the block that finished last
+// zeroing it for the next launch, as the unsorted engine's shade still
+// does.  On the unsorted engine without parity route and shade are one
+// kernel
 // (route_shade_unsorted: route's lanes in registers, no record): on the
 // headline's state under "xla" it took 0.0706-0.0712 ms against
 // 0.0906-0.0907 ms for the two kernels in turns (NVIDIA H100 80GB HBM3,
@@ -134,6 +149,8 @@ constexpr int kSmemBins = 4096;
 using rtjax_step::kFullWords;
 static_assert(kShadeBlock == rtjax_step::kScanBlock,
               "a shade block ranks kScanBlock lanes");
+static_assert(kBlock == rtjax_step::kRankBlock,
+              "a route block ranks kRankBlock slots");
 
 // a release and acquire fence at the card's scope: all that the scan's
 // reset needs (__threadfence is the sequentially consistent fence.sc.gpu)
@@ -208,13 +225,133 @@ __global__ void __launch_bounds__(kBlock)
 }
 
 __global__ void __launch_bounds__(kBlock)
-    route_parity_kernel(const StepArgs a) {
+    route_parity_v1_kernel(const StepArgs a) {
   route_full<rtjax_step::kParity>(a);
 }
 
 __global__ void __launch_bounds__(kBlock)
-    route_parity_unsorted_kernel(const StepArgs a) {
+    route_parity_unsorted_v1_kernel(const StepArgs a) {
   route_full<rtjax_step::kParityUnsorted>(a);
+}
+
+__device__ __forceinline__ unsigned rank_load(const unsigned* p) {
+  return *reinterpret_cast<const volatile unsigned*>(p);
+}
+
+// block b's exclusive camera rank over the slots before it, by one warp
+// (``lane`` its lane): the block's count ``total`` published, then the
+// status words walked back kRankLook at a time, a lane a word (a block
+// before the first reads as a published prefix of 0), and the inclusive
+// prefix published (step_math.cuh rank_*)
+__device__ __forceinline__ unsigned rank_lookback(unsigned* status, int b,
+                                                  unsigned total,
+                                                  unsigned parity, int lane) {
+  using namespace rtjax_step;
+  if (lane == 0) atomicExch(status + b, rank_word(parity, b == 0, total));
+  if (b == 0) return 0;
+  unsigned before = 0;
+  for (int j = b - 1;;) {
+    const unsigned w = j - lane >= 0 ? rank_load(status + j - lane)
+                                     : rank_word(parity, true, 0);
+    const bool pub = rank_published(w, parity);
+    const RankStep s = rank_step(__ballot_sync(0xFFFFFFFFu, !pub),
+                                 __ballot_sync(0xFFFFFFFFu,
+                                               pub && (w & kRankPrefix)));
+    before += __reduce_add_sync(
+        0xFFFFFFFFu, ((s.take >> lane) & 1u) ? (w & kRankValue) : 0u);
+    if (s.back < 0) break;
+    j -= s.back;
+  }
+  if (lane == 0)
+    atomicExch(status + b, rank_word(parity, true, before + total));
+  return before;
+}
+
+// the parity modes' route: route_full's records with each lane's camera
+// rank in word 22.  The block takes its slots from its ticket (so it waits
+// only on blocks that already run) and counts by warp ballots the lanes
+// that take a camera ray, the continuing and the limbo lanes, each lane's
+// rank within its warp staged in its record; warp 0 takes the block's
+// prefix by the look-back (a scratch a size: a.scan, kernels/step.py
+// rank_scratch) and adds the counts; the records go out with each warp's
+// start added to their rank words: three barriers
+template <int kMode>
+__device__ __forceinline__ void route_ranked(const StepArgs& a) {
+  using namespace rtjax_step;
+  constexpr int kWarps = kBlock / 32;
+  __shared__ unsigned ticket;
+  // the warps' lanes that take a camera ray, continue, are in limbo
+  __shared__ int warp_count[3][kWarps];
+  __shared__ int warp_start[kWarps];
+  __shared__ int4 rec[kFullWords * kBlock / 4];
+  auto* scratch = reinterpret_cast<unsigned*>(a.scan);
+  const int blocks = static_cast<int>(gridDim.x);
+  if (threadIdx.x == 0) ticket = atomicInc(scratch, rank_ticket_limit(blocks));
+  __syncthreads();
+  const unsigned parity = rank_parity(ticket, blocks);
+  const int b = rank_block(ticket, blocks);
+  const int i = b * kBlock + threadIdx.x;
+  int* words = reinterpret_cast<int*>(rec) + kFullWords * threadIdx.x;
+  RouteLane r = {false, false, false};
+  if (i < a.n)
+    r = route_lane<false, kMode>(a, i, reinterpret_cast<int2*>(words));
+  const unsigned gen =
+      __ballot_sync(0xFFFFFFFFu, i < a.n && !r.mat && !r.limbo);
+  const unsigned mat = __ballot_sync(0xFFFFFFFFu, r.mat);
+  const unsigned limbo = __ballot_sync(0xFFFFFFFFu, r.limbo);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (lane == 0) {
+    warp_count[0][warp] = __popc(gen);
+    warp_count[1][warp] = __popc(mat);
+    warp_count[2][warp] = __popc(limbo);
+  }
+  words[22] = __popc(gen & ((1u << lane) - 1u));
+  __syncthreads();
+  if (warp == 0) {
+    int start = 0, total = 0;
+    for (int w = 0; w < kWarps; ++w) {
+      const int c = warp_count[0][w];
+      if (w < lane) start += c;
+      total += c;
+    }
+    const unsigned p = rank_lookback(scratch + 1, b, total, parity, lane);
+    if (lane < kWarps) warp_start[lane] = static_cast<int>(p) + start;
+    if (lane < 2) {
+      int k = 0;
+      for (int w = 0; w < kWarps; ++w) k += warp_count[1 + lane][w];
+      if (k != 0)
+        atomicAdd(reinterpret_cast<unsigned long long*>(a.counts + 4 * lane),
+                  static_cast<unsigned long long>(k));
+    }
+  }
+  __syncthreads();
+  const long long first = static_cast<long long>(b) * kBlock;
+  const long long left = a.n - first;
+  if (left >= kBlock) {
+    int4* out = reinterpret_cast<int4*>(a.bundle + kFullWords * first);
+    for (int t = threadIdx.x; t < kFullWords * kBlock / 4; t += kBlock) {
+      int4 v = rec[t];
+      if (t % (kFullWords / 4) == 22 / 4)
+        v.z += warp_start[t / (kFullWords / 4) / 32];
+      out[t] = v;
+    }
+  } else {
+    const int* in = reinterpret_cast<const int*>(rec);
+    for (int t = threadIdx.x; t < kFullWords * left; t += kBlock)
+      a.bundle[kFullWords * first + t] =
+          in[t] + (t % kFullWords == 22 ? warp_start[t / kFullWords / 32]
+                                        : 0);
+  }
+}
+
+__global__ void __launch_bounds__(kBlock)
+    route_parity_kernel(const StepArgs a) {
+  route_ranked<rtjax_step::kParity>(a);
+}
+
+__global__ void __launch_bounds__(kBlock)
+    route_parity_unsorted_kernel(const StepArgs a) {
+  route_ranked<rtjax_step::kParityUnsorted>(a);
 }
 
 __global__ void __launch_bounds__(kBlock) route_v1_kernel(const StepArgs a) {
@@ -282,6 +419,17 @@ __device__ __forceinline__ Tables stage_tables(const StepArgs& a,
   return T;
 }
 
+// a lane's non-zero radiance added to its pixel, one float atomic a
+// component
+__device__ __forceinline__ void flush(const StepArgs& a,
+                                      const rtjax_step::ShadeLane& s) {
+  const rtjax_step::V3 v = s.flushed;
+  float* px = a.fb + 3 * static_cast<long long>(s.pixel);
+  if (v.x != 0.0f) atomicAdd(px, v.x);
+  if (v.y != 0.0f) atomicAdd(px + 1, v.y);
+  if (v.z != 0.0f) atomicAdd(px + 2, v.z);
+}
+
 // the sorted engine's shade: the record design's compact record (kMode
 // kDefault) or the wide bundle's full record (kWide, sort_every 1), both
 // flushed from the dirty window
@@ -295,13 +443,7 @@ __device__ __forceinline__ void shade_sorted(const StepArgs& a) {
   if (i < a.n) {
     r = rtjax_step::shade_lane<false, kMode, kOneSample>(a, i, T, do_gen);
     const long long lo = a.counts[0];
-    if (r.flush && i >= lo && i < lo + a.counts[4]) {
-      const rtjax_step::V3 v = r.flushed;
-      float* px = a.fb + 3 * static_cast<long long>(r.pixel);
-      if (v.x != 0.0f) atomicAdd(px, v.x);
-      if (v.y != 0.0f) atomicAdd(px + 1, v.y);
-      if (v.z != 0.0f) atomicAdd(px + 2, v.z);
-    }
+    if (r.flush && i >= lo && i < lo + a.counts[4]) flush(a, r);
   }
   count(a.counts + 1, r.trace);
   count(a.counts + 2, r.nee);
@@ -330,7 +472,9 @@ __global__ void __launch_bounds__(kShadeBlock, 1)
   shade_sorted<rtjax_step::kWide, true>(a);
 }
 
-// the full-record modes' shade: the block's index from the scan's ticket,
+// the full-record modes' shade that ranks the camera rays itself (the
+// unsorted engine's, and the parity modes' first design): the block's
+// index from the scan's ticket,
 // each lane's record gathered (by the sort's order under kParity; on the
 // unsorted engine without parity, route's record made in registers and
 // the continuing paths counted here: route and shade in one kernel), the
@@ -397,13 +541,7 @@ __device__ __forceinline__ void shade_full(const StepArgs& a) {
   if (i < a.n) {
     s = rtjax_step::shade_full_lane<kMode, kOneSample>(a, i, T, r,
                                                      prefix + before);
-    if (s.flush) {
-      const rtjax_step::V3 v = s.flushed;
-      float* px = a.fb + 3 * static_cast<long long>(s.pixel);
-      if (v.x != 0.0f) atomicAdd(px, v.x);
-      if (v.y != 0.0f) atomicAdd(px + 1, v.y);
-      if (v.z != 0.0f) atomicAdd(px + 2, v.z);
-    }
+    if (s.flush) flush(a, s);
   }
   if constexpr (kMode == rtjax_step::kUnsorted) count(a.counts, r.mat);
   count(a.counts + 1, s.trace);
@@ -422,13 +560,44 @@ __global__ void __launch_bounds__(kShadeBlock, 1)
 }
 
 __global__ void __launch_bounds__(kShadeBlock, 1)
-    shade_parity_kernel(const StepArgs a) {
+    shade_parity_v1_kernel(const StepArgs a) {
   shade_full<rtjax_step::kParity>(a);
 }
 
 __global__ void __launch_bounds__(kShadeBlock, 1)
-    shade_parity_unsorted_kernel(const StepArgs a) {
+    shade_parity_unsorted_v1_kernel(const StepArgs a) {
   shade_full<rtjax_step::kParityUnsorted>(a);
+}
+
+// the parity modes' shade: each lane's record (by the sort's order under
+// kParity) with the camera rank route put in it, so that no block waits
+// on another and nothing stands between the record's load and the
+// shading; every lane that takes a camera ray flushes
+template <int kMode>
+__device__ __forceinline__ void shade_ranked(const StepArgs& a) {
+  __shared__ SmemTables smem;
+  const Tables T = stage_tables(a, smem);
+  const int i = blockIdx.x * kShadeBlock + threadIdx.x;
+  rtjax_step::ShadeLane s = {};
+  if (i < a.n) {
+    const rtjax_step::FullRec r = rtjax_step::load_full(
+        a, (kMode & rtjax_step::kUnsorted) != 0 ? i : a.order[i]);
+    s = rtjax_step::shade_full_lane<kMode>(a, i, T, r, r.rank);
+    if (s.flush) flush(a, s);
+  }
+  count(a.counts + 1, s.trace);
+  count(a.counts + 2, s.nee);
+  count(a.counts + 3, s.mis);
+}
+
+__global__ void __launch_bounds__(kShadeBlock, 1)
+    shade_parity_kernel(const StepArgs a) {
+  shade_ranked<rtjax_step::kParity>(a);
+}
+
+__global__ void __launch_bounds__(kShadeBlock, 1)
+    shade_parity_unsorted_kernel(const StepArgs a) {
+  shade_ranked<rtjax_step::kParityUnsorted>(a);
 }
 
 __global__ void __launch_bounds__(kBlock) shade_v1_kernel(const StepArgs a) {
@@ -642,6 +811,24 @@ extern "C" int rtjax_step_resolve_parity_stats(const StepArgs* a,
   return launch(resolve_parity_stats_kernel, kBlock, a, stream);
 }
 
+extern "C" int rtjax_step_route_parity_v1(const StepArgs* a, void* stream) {
+  return launch(route_parity_v1_kernel, kBlock, a, stream);
+}
+
+extern "C" int rtjax_step_shade_parity_v1(const StepArgs* a, void* stream) {
+  return launch(shade_parity_v1_kernel, kShadeBlock, a, stream);
+}
+
+extern "C" int rtjax_step_route_parity_unsorted_v1(const StepArgs* a,
+                                                   void* stream) {
+  return launch(route_parity_unsorted_v1_kernel, kBlock, a, stream);
+}
+
+extern "C" int rtjax_step_shade_parity_unsorted_v1(const StepArgs* a,
+                                                   void* stream) {
+  return launch(shade_parity_unsorted_v1_kernel, kShadeBlock, a, stream);
+}
+
 // A kernel's registers, local bytes a thread, threads a block and
 // resident blocks an SM (kernels/step.py KERNEL_IDS: 0 route, 1 shade, 2
 // resolve, 3 route_v1, 4 shade_v1, 5 route_shade_unsorted, 6
@@ -649,7 +836,8 @@ extern "C" int rtjax_step_resolve_parity_stats(const StepArgs* a,
 // route_parity_unsorted, 10 shade_parity_unsorted, 11 shade_1s, 12
 // route_shade_unsorted_1s, 13 route_wide, 14 shade_wide, 15
 // shade_wide_1s, 16 resolve_1s, 17 resolve_stats, 18 resolve_1s_stats,
-// 19 resolve_parity_stats).
+// 19 resolve_parity_stats, 20 route_parity_v1, 21 shade_parity_v1, 22
+// route_parity_unsorted_v1, 23 shade_parity_unsorted_v1).
 extern "C" int rtjax_step_kernel_info(int which, int* regs, int* local,
                                       int* block, int* blocks) {
   switch (which) {
@@ -690,6 +878,14 @@ extern "C" int rtjax_step_kernel_info(int which, int* regs, int* local,
                          blocks);
     case 19: return info(resolve_parity_stats_kernel, kBlock, regs, local,
                          block, blocks);
+    case 20: return info(route_parity_v1_kernel, kBlock, regs, local, block,
+                         blocks);
+    case 21: return info(shade_parity_v1_kernel, kShadeBlock, regs, local,
+                         block, blocks);
+    case 22: return info(route_parity_unsorted_v1_kernel, kBlock, regs,
+                         local, block, blocks);
+    case 23: return info(shade_parity_unsorted_v1_kernel, kShadeBlock, regs,
+                         local, block, blocks);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -25,7 +25,9 @@
 // reference_parity kParity, both kParityUnsorted, and the sorted engine's
 // wide bundle kWide) carry a lane's state at full precision (kFullWords
 // words, kernels/step.py FULL_LAYOUT); all but kWide rank the camera rays
-// by an exclusive prefix sum.  One-sample MIS (kOneSample, shade and
+// by an exclusive prefix sum (the parity modes' route in slot order, into
+// the record; the unsorted engine's shade, and the parity modes' first
+// design's, by a look-back scan).  One-sample MIS (kOneSample, shade and
 // resolve) and detailed_stats' bounce histogram (kStats, resolve) are
 // template flags beside kMode.  Each mode's and flag's code paths compile
 // out of the other instances under ``if constexpr``.
@@ -80,10 +82,11 @@ struct StepArgs {
   unsigned char* work_out;
   double* rays_out;
   double* occ_out;
-  // the full-record modes: the camera rank's scan (the ticket, the
-  // finished blocks, then one status word a shade block; zero between
-  // launches), each position's limbo flag (shade -> resolve) and the
-  // closest hits resolve restores limbo lanes into
+  // the full-record modes: the camera rank's scan (shade's: the ticket,
+  // the finished blocks, then one status word a shade block, zero between
+  // launches; the parity modes' route: the rank's persistent scratch as
+  // 32-bit words, rank_*), each position's limbo flag (shade -> resolve)
+  // and the closest hits resolve restores limbo lanes into
   long long* scan;
   unsigned char* limbo;
   unsigned char* hit_out;
@@ -590,11 +593,12 @@ __device__ __forceinline__ int hit_material(const StepArgs& a, int prim,
   return clampi(mi, 0, a.num_materials - 1);
 }
 
-// a lane's full-precision record (kernels/step.py pack_full)
+// a lane's full-precision record (kernels/step.py pack_full); ``rank``
+// the camera rank route carries under the parity modes (word 22)
 struct FullRec {
   V3 o, d, normal, beta, acc;
   float t;
-  int pixel, prim, src, bounces, mi;
+  int pixel, prim, src, bounces, mi, rank;
   bool mat, limbo;
 };
 
@@ -615,6 +619,7 @@ __device__ __forceinline__ FullRec full_from_words(const int2* w) {
   r.mat = (w[10].x & 1) != 0;
   r.limbo = (w[10].x & 2) != 0;
   r.mi = w[10].y;
+  r.rank = w[11].x;
   return r;
 }
 
@@ -638,6 +643,7 @@ __device__ __forceinline__ FullRec load_full(const StepArgs& a, long long j) {
   r.mat = (q5.x & 1) != 0;
   r.limbo = (q5.x & 2) != 0;
   r.mi = q5.y;
+  r.rank = q5.z;
   return r;
 }
 
@@ -1053,6 +1059,76 @@ __device__ __forceinline__ long long scan_lookback(
   scan_store(status + b,
              static_cast<unsigned long long>(ex + agg) | kScanPrefix);
   return ex;
+}
+
+// The parity modes' camera rank, taken by route in slot order and carried
+// in the record (word 22): a lane's exclusive count among the slots'
+// lanes that take a camera ray.  The parity sort's keys have no dirty
+// class, so every such lane (and every limbo lane) takes the inactive key
+// and the stable sort keeps them in slot order: the count over slots is
+// the count over sorted positions that shade reads.  A route block of
+// kRankBlock slots takes its index from a ticket on a persistent scratch
+// (kernels/step.py rank_scratch, zeroed once): word 0 the ticket, which
+// atomicInc runs over [0, 2 * blocks), so that a launch takes [0, blocks)
+// or [blocks, 2 * blocks) and the ticket gives the block's index and the
+// launch's parity (two consecutive launches differ); then one status word
+// a block, never zeroed: bit 31 the tag of the launch that wrote it (a
+// launch of parity q writes tag q ^ 1, so a fresh scratch's zeros and
+// every word of the launch before read as not published), bit 30 set on
+// an inclusive prefix, else the block's own count, bits 0-29 the count.
+// One 32-bit word: tag, flag and count cannot tear.  A block publishes its
+// count, then one warp walks back kRankLook words a step (a lane a word)
+// to the first prefix, and publishes its own.
+constexpr int kRankBlock = 256;   // slots a route block ranks
+constexpr int kRankLook = 32;     // status words a look-back step reads
+constexpr unsigned kRankTag = 1u << 31;
+constexpr unsigned kRankPrefix = 1u << 30;
+constexpr unsigned kRankValue = kRankPrefix - 1;
+
+__device__ __forceinline__ unsigned rank_ticket_limit(int blocks) {
+  return 2u * static_cast<unsigned>(blocks) - 1u;
+}
+__device__ __forceinline__ unsigned rank_parity(unsigned ticket, int blocks) {
+  return ticket >= static_cast<unsigned>(blocks) ? 1u : 0u;
+}
+__device__ __forceinline__ int rank_block(unsigned ticket, int blocks) {
+  return static_cast<int>(ticket) -
+         (ticket >= static_cast<unsigned>(blocks) ? blocks : 0);
+}
+__device__ __forceinline__ unsigned rank_word(unsigned parity, bool prefix,
+                                              unsigned value) {
+  return (parity ? 0u : kRankTag) | (prefix ? kRankPrefix : 0u) | value;
+}
+__device__ __forceinline__ bool rank_published(unsigned w, unsigned parity) {
+  return (w & kRankTag) == (parity ? 0u : kRankTag);
+}
+
+// One look-back step over kRankLook status words, the nearest first, given
+// by the lanes that read them: ``unpublished`` and ``prefix`` (a bit a
+// word).  ``take`` the words whose counts add to the block's prefix:
+// those before the first prefix or the first unpublished word, and that
+// prefix; ``back`` -1 when a prefix ended the walk, else how many words to
+// step back (kRankLook past aggregates only; fewer to read an unpublished
+// word again, where the walk waits)
+struct RankStep {
+  unsigned take;
+  int back;
+};
+__device__ __forceinline__ int lowest_bit(unsigned x) {
+#ifdef __CUDA_ARCH__
+  return __ffs(static_cast<int>(x)) - 1;
+#else
+  return __builtin_ctz(x);
+#endif
+}
+__device__ __forceinline__ RankStep rank_step(unsigned unpublished,
+                                              unsigned prefix) {
+  const unsigned stop = unpublished | prefix;
+  if (stop == 0) return {0xFFFFFFFFu, kRankLook};
+  const int first = lowest_bit(stop);
+  const unsigned below = first == 0 ? 0u : 0xFFFFFFFFu >> (32 - first);
+  if ((prefix >> first) & 1u) return {below | (1u << first), -1};
+  return {below, first};
 }
 
 // shade (kernels/step.py shade_full_ref) of position i under a

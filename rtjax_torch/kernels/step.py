@@ -82,10 +82,17 @@ carry each lane's state at full precision in a 96-byte record
 throughput and radiance), with no sort on the unsorted engine and, under
 ``reference_parity``, a sort by the keys without the dirty class.  Their
 camera rays go by the exclusive prefix sum of the lanes that take one
-(neither continuing nor in roulette's limbo), which shade computes by a
-single-pass scan with decoupled look-back (:func:`scan_buffer`); every
-such lane flushes.  Under parity, resolve restores each limbo lane's hit
-from the record.  On the unsorted engine without parity route and shade
+(neither continuing nor in roulette's limbo); every such lane flushes.
+Under parity route takes it in slot order, by a decoupled look-back over
+its blocks on a persistent scratch (:func:`rank_scratch`), and carries it
+in the record's ``rank`` word: the parity sort gives every such lane the
+inactive key and is stable, so they keep their slot order and the count
+over slots is the count over sorted positions.  Shade reads it with the
+record.  The unsorted engine's shade ranks them itself by a single-pass
+scan with decoupled look-back (:func:`scan_buffer`), as parity's first
+design did (:func:`route_full_v1` / :func:`shade_full_v1`, kept for
+timing in turns: ``DESIGN = "v1"`` routes the parity modes there too).
+Under parity, resolve restores each limbo lane's hit from the record.  On the unsorted engine without parity route and shade
 are one kernel (:func:`route_shade_unsorted`), the record kept in
 registers.  The sorted engine's wide bundle ("wide", beyond
 :func:`compact_bundle_ok`) is the default estimator over the full record
@@ -144,15 +151,27 @@ W_MATERIAL = 9           # the record's word of the hit's material index
 NUM_COUNTS = 5
 # the full-precision record of the unsorted engine and reference_parity:
 # 24 int32 words (96 B, six 16-byte loads) a lane, FULL_LAYOUT's fields
+# (``rank`` the parity modes' camera rank, 0 elsewhere; word 23 is zero)
 FULL_ROWS = 24
 FULL_LAYOUT = (("ray_o", 0, 3), ("t", 3, 1), ("ray_d", 4, 3),
                ("pixel", 7, 1), ("normal", 8, 3), ("prim", 11, 1),
                ("beta", 12, 3), ("src", 15, 1), ("acc", 16, 3),
-               ("bounces", 19, 1), ("flags", 20, 1), ("material", 21, 1))
+               ("bounces", 19, 1), ("flags", 20, 1), ("material", 21, 1),
+               ("rank", 22, 1))
 # lanes a shade block ranks in the full-record modes (csrc kShadeBlock):
 # the camera rank's scan keeps a ticket, a count of finished blocks and one
 # status word a block (:func:`scan_buffer`)
 SCAN_BLOCK = 128
+# slots a parity route block ranks (csrc kRankBlock): the rank's scratch
+# keeps a ticket and one status word a block (:func:`rank_scratch`); its
+# counts have 30 bits
+RANK_BLOCK = 256
+MAX_RANK_LANES = (1 << 30) - 1
+# the parity modes' first design (route and shade ranking in shade), by the
+# kernel it stands in for
+PARITY_V1 = {k: k + "_v1" for k in ("route_parity", "shade_parity",
+                                     "route_parity_unsorted",
+                                     "shade_parity_unsorted")}
 # the step's engines and the kernels each launches under the default
 # estimator without detailed_stats
 ENGINE_KERNELS = {
@@ -190,6 +209,7 @@ DESIGN = "record"
 # kernel launches (wrapper, CUDA path) and plain-version calls, by kernel
 LAUNCHES = {k: 0 for ks in MODE_KERNELS.values() for k in ks}
 V1_LAUNCHES = {"route": 0, "shade": 0}
+PARITY_V1_LAUNCHES = {k: 0 for k in PARITY_V1.values()}
 REF_CALLS = dict(LAUNCHES)
 
 _lock = threading.Lock()
@@ -491,20 +511,21 @@ def kernels_of(cfg, mode):
                         + STATS * cfg.detailed_stats]
 
 
-def pack_full(state, bounces, beta, acc, mat, limbo, material):
+def pack_full(state, bounces, beta, acc, mat, limbo, material, rank=None):
     """The full-precision record of the unsorted engine and
     ``reference_parity``, ``[N, FULL_ROWS]`` int32 (:data:`FULL_LAYOUT`):
     the fields rtjax carries through its parity sort (pixel, ray, t,
     normal, prim, src, bounces, throughput, radiance, the mat and limbo
     flags in one word) with the hit's material index, floats as their
-    bits, two zero words of padding."""
+    bits, the camera ``rank`` (None: 0) and a zero word of padding."""
     f = lambda v: [c.view(torch.int32) for c in v]
     zero = torch.zeros_like(state.pixel)
     flags = mat.to(torch.int32) | (limbo.to(torch.int32) << 1)
     return torch.stack((
         *f(state.ray_o), *f((state.t,)), *f(state.ray_d), state.pixel,
         *f(state.normal), state.prim, *f(beta), state.src, *f(acc),
-        bounces, flags, material.to(torch.int32), zero, zero), 1)
+        bounces, flags, material.to(torch.int32),
+        zero if rank is None else rank.to(torch.int32), zero), 1)
 
 
 def unpack_full(r):
@@ -522,9 +543,23 @@ def unpack_full(r):
 
 
 def scan_words(n) -> int:
-    """int64 words of the full-record modes' scan buffer over ``n`` lanes:
-    the ticket, the finished blocks and one status word a shade block."""
+    """int64 words of the unsorted engine's scan buffer over ``n`` lanes
+    (and the parity modes' first design's): the ticket, the finished blocks
+    and one status word a shade block."""
     return 2 + (n + SCAN_BLOCK - 1) // SCAN_BLOCK
+
+
+def rank_blocks(n) -> int:
+    """Route blocks of the parity modes' camera rank over ``n`` lanes."""
+    return (n + RANK_BLOCK - 1) // RANK_BLOCK
+
+
+def camera_rank(mat, limbo):
+    """The parity modes' camera rank in slot order: each lane's exclusive
+    count among the lanes that take a camera ray (neither continuing nor
+    in limbo), int32."""
+    gen = ~mat & ~limbo
+    return (torch.cumsum(gen, 0) - gen.long()).to(torch.int32)
 
 
 # ------------------------------------------------------ plain versions
@@ -729,7 +764,14 @@ def route_full_ref(scene, cfg, state, words, mode):
     return _route_full(scene, cfg, state, words, mode)
 
 
-def _route_full(scene, cfg, state, words, mode):
+def route_full_v1_ref(scene, cfg, state, words, mode):
+    """Plain version of :func:`route_full_v1`: :func:`route_full_ref` with
+    no rank in the record."""
+    REF_CALLS[kernels_of(cfg, mode)[0]] += 1
+    return _route_full(scene, cfg, state, words, mode, ranked=False)
+
+
+def _route_full(scene, cfg, state, words, mode, ranked=True):
     engine = engine_of(mode)
     u_rr, _ = rng.u01_pair(words[W_RR_PICK])
     acc, beta, bounces, mat, rr_kill, hp = emit_and_roulette(scene, cfg,
@@ -756,7 +798,9 @@ def _route_full(scene, cfg, state, words, mode):
         keys = sort_keys(scene, cfg, state, hp, bounces, mat) \
             if engine == "parity" else None
         counts[4] = limbo.sum()
-    record = pack_full(state, bounces, beta, acc, mat, limbo, material)
+    rank = camera_rank(mat, limbo) \
+        if ranked and engine.startswith("parity") else None
+    record = pack_full(state, bounces, beta, acc, mat, limbo, material, rank)
     counts[0] = mat.sum()
     return keys, record, counts
 
@@ -768,6 +812,16 @@ def shade_full_ref(scene, camera, cfg, fb, words, order, record, counts,
     REF_CALLS[kernels_of(cfg, mode)[1]] += 1
     return _shade_full(scene, camera, cfg, fb, words, order, record, counts,
                        cam_start, mode)
+
+
+def shade_full_v1_ref(scene, camera, cfg, fb, words, order, record, counts,
+                      cam_start, mode):
+    """Plain version of :func:`shade_full_v1`: the camera rank as the
+    exclusive prefix sum of the gathered records' lanes that take a
+    camera ray, the record's rank word unread."""
+    REF_CALLS[kernels_of(cfg, mode)[1]] += 1
+    return _shade_full(scene, camera, cfg, fb, words, order, record, counts,
+                       cam_start, mode, ranked=False)
 
 
 def route_shade_unsorted_ref(scene, camera, cfg, state, fb, words,
@@ -783,7 +837,7 @@ def route_shade_unsorted_ref(scene, camera, cfg, state, fb, words,
 
 
 def _shade_full(scene, camera, cfg, fb, words, order, record, counts,
-                cam_start, mode):
+                cam_start, mode, ranked=True):
     wide = engine_of(mode) == "wide"
     draw_pair = lambda w: rng.u01_pair(words[w])
     r = unpack_full(record if order is None else record[order])
@@ -811,8 +865,13 @@ def _shade_full(scene, camera, cfg, fb, words, order, record, counts,
         got_ray = (idx >= counts[0]) & (cam_id < cfg.total_camera_rays)
     else:
         # the dead lanes are not a suffix (unsorted, or limbo lanes among
-        # them): camera rays go by the exclusive prefix sum of gen_mask
-        cam_id = cam_start + (torch.cumsum(gen_mask, 0) - gen_mask.long())
+        # them): camera rays go by the exclusive prefix sum of gen_mask,
+        # which under parity route took in slot order (the sort keeps
+        # these lanes in slot order)
+        rank = r["rank"].long() if ranked and \
+            engine_of(mode).startswith("parity") else \
+            torch.cumsum(gen_mask, 0) - gen_mask.long()
+        cam_id = cam_start + rank
         got_ray = gen_mask & (cam_id < cfg.total_camera_rays)
     pix_new, cam_o, cam_d = camera_rays(camera, cfg, cam_id, gen_u, gen_v)
     flush = torch.stack([torch.where(gen_mask, c, 0.0) for c in r["acc"]], 1)
@@ -931,7 +990,8 @@ class StepArgs(ctypes.Structure):
 # entry point (``rtjax_step_<name>``) -> the counter its launch adds to
 _COUNTERS = {**{k: (LAUNCHES, k) for k in LAUNCHES},
              "route_v1": (V1_LAUNCHES, "route"),
-             "shade_v1": (V1_LAUNCHES, "shade")}
+             "shade_v1": (V1_LAUNCHES, "shade"),
+             **{k: (PARITY_V1_LAUNCHES, k) for k in PARITY_V1_LAUNCHES}}
 # kernel ids of ``rtjax_step_kernel_info``
 KERNEL_IDS = {"route": 0, "shade": 1, "resolve": 2, "route_v1": 3,
               "shade_v1": 4, "route_shade_unsorted": 5, "route_parity": 6,
@@ -940,7 +1000,10 @@ KERNEL_IDS = {"route": 0, "shade": 1, "resolve": 2, "route_v1": 3,
               "shade_1s": 11, "route_shade_unsorted_1s": 12,
               "route_wide": 13, "shade_wide": 14, "shade_wide_1s": 15,
               "resolve_1s": 16, "resolve_stats": 17, "resolve_1s_stats": 18,
-              "resolve_parity_stats": 19}
+              "resolve_parity_stats": 19, "route_parity_v1": 20,
+              "shade_parity_v1": 21, "route_parity_unsorted_v1": 22,
+              "shade_parity_unsorted_v1": 23}
+
 
 def bind(lib):
     """Set the argument types of a step-kernel library's entry points
@@ -954,13 +1017,14 @@ def bind(lib):
     return lib
 
 
-def kernel_info(name) -> dict:
+def kernel_info(name, lib=None) -> dict:
     """A step kernel's registers, local (spill) bytes a thread, threads a
     block and resident blocks an SM at that block (the card's occupancy
-    calculator), by :data:`KERNEL_IDS` name."""
+    calculator), by :data:`KERNEL_IDS` name, in the library ``lib`` (a
+    :func:`bind`-ed copy; None: the engine's)."""
     vals = [_I32() for _ in range(4)]
-    rc = _kernels().rtjax_step_kernel_info(KERNEL_IDS[name],
-                                           *map(ctypes.byref, vals))
+    rc = (lib or _kernels()).rtjax_step_kernel_info(KERNEL_IDS[name],
+                                                    *map(ctypes.byref, vals))
     if rc != 0:
         raise RuntimeError(f"step kernel info of {name} failed: CUDA error "
                            f"{rc}")
@@ -978,20 +1042,49 @@ def _kernels():
 
 
 _scans: dict = {}   # (device, stream, words) -> the scan buffer
+_ranks: dict = {}   # (device, route blocks) -> the rank's scratch
+
+
+def _card_device(device) -> torch.device:
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def rank_scratch(device, n: int) -> torch.Tensor:
+    """The persistent scratch of the parity modes' route over ``n`` lanes
+    on ``device``: int32 zeros, the ticket and one status word a route
+    block (:func:`rank_blocks`), made once outside any CUDA-graph capture
+    (a frame's eager first step makes it) and shared by every size with as
+    many blocks.  No launch zeroes it: the ticket gives each launch its
+    parity and the status words carry it (csrc/step_math.cuh rank_*).
+    Launches that share it run in stream order, as the port's do."""
+    device = _card_device(device)
+    key = (str(device), rank_blocks(n))
+    with _lock:
+        buf = _ranks.get(key)
+    if buf is None:
+        if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("the camera rank's scratch is made outside a "
+                               "CUDA-graph capture")
+        buf = torch.zeros(1 + key[1], dtype=torch.int32, device=device)
+        with _lock:
+            buf = _ranks.setdefault(key, buf)
+    return buf
 
 
 def scan_buffer(device, stream: int, n: int) -> torch.Tensor:
-    """The full-record modes' scan buffer for shade launches of ``n`` lanes
-    on ``stream``: ``scan_words(n)`` int64 zeros, made once and reused.
+    """The unsorted engine's scan buffer (and the parity modes' first
+    design's) for shade launches of ``n`` lanes on ``stream``:
+    ``scan_words(n)`` int64 zeros, made once and reused.
 
     Invariant: the buffer is zero between launches.  A shade launch takes
     its blocks' indices from the ticket and the block that finishes last
     zeroes the ticket, the count and every status word; a launch that
     fails on the card leaves the context in a sticky error, so no later
     launch on it returns results (as ``persist.work_buffer``)."""
-    device = torch.device(device)
-    if device.type == "cuda" and device.index is None:
-        device = torch.device("cuda", torch.cuda.current_device())
+    device = _card_device(device)
     key = (str(device), stream, scan_words(n))
     with _lock:
         buf = _scans.get(key)
@@ -1133,7 +1226,8 @@ def route_args(scene, cfg, state, words, v1=False, mode="default"):
     """``(argument block, (keys, bundle, counts))`` of a route launch (the
     first design's with ``v1``), its outputs allocated (``counts``
     zeroed); under a full-record ``mode`` ``(keys or None, record,
-    counts)`` (:func:`route_full`)."""
+    counts)`` (:func:`route_full`; under the parity modes the rank's
+    scratch in ``scan`` but with ``v1``)."""
     n, dev = state.pixel.shape[0], state.pixel.device
     mode = engine_of(mode)
     state = _read_contiguous(state)
@@ -1147,7 +1241,14 @@ def route_args(scene, cfg, state, words, v1=False, mode="default"):
         record = torch.empty((n, FULL_ROWS), dtype=torch.int32, device=dev)
         a.keys = None if keys is None else keys.data_ptr()
         a.bundle, a.counts = record.data_ptr(), counts.data_ptr()
-        a.held = (state, words, keys, record, counts)
+        scratch = None
+        if mode.startswith("parity") and not v1:
+            if n > MAX_RANK_LANES:
+                raise ValueError(f"the camera rank counts at most "
+                                 f"{MAX_RANK_LANES} lanes, not {n}")
+            scratch = rank_scratch(dev, n)
+            a.scan = scratch.data_ptr()
+        a.held = (state, words, keys, record, counts, scratch)
         return a, (keys, record, counts)
     keys = torch.empty(n, dtype=torch.int32, device=dev)
     bundle = torch.empty((V1_BUNDLE_ROWS, n) if v1 else (n, BUNDLE_ROWS),
@@ -1163,7 +1264,8 @@ def shade_args(scene, camera, cfg, state, fb, words, order, bundle, counts,
     """``(argument block, Shaded)`` of a shade launch (the first design's
     with ``v1``; under a full-record ``mode`` :func:`shade_full`'s, with
     ``bundle`` the record, ``order`` None on the unsorted engine, and the
-    scan buffer of the current stream where the camera rank needs it):
+    scan buffer of the current stream where shade ranks the camera rays:
+    the unsorted engine, the parity modes' first design with ``v1``):
     the outputs the kernel writes beside the state allocated, the shadow
     columns ``[2N]`` (``[N]`` and the BSDF-MIS mask under
     ``one_sample_mis``)."""
@@ -1198,10 +1300,11 @@ def shade_args(scene, camera, cfg, state, fb, words, order, bundle, counts,
     scan = None
     if full:
         out.record, out.order = bundle, order
-    if full and mode != "wide":
+    if mode == "unsorted" or (mode.startswith("parity") and v1):
         scan = scan_buffer(dev, torch.cuda.current_stream(dev).cuda_stream,
                            n)
         a.scan = scan.data_ptr()
+    if full:
         if mode.startswith("parity"):
             out.limbo = torch.empty(n, dtype=torch.bool, device=dev)
             a.limbo = out.limbo.data_ptr()
@@ -1408,11 +1511,32 @@ def route_full(scene, cfg, state, words, mode):
     unsorted engine), ``record`` ``[N, FULL_ROWS]`` (:func:`pack_full`;
     under "wide" the hit point in the origin words) and ``counts`` the
     continuing paths in [0] and the limbo lanes in [4] (under "wide" the
-    dirty lanes)."""
+    dirty lanes).  Under the parity modes the record carries each lane's
+    camera rank; under ``DESIGN = "v1"`` :func:`route_full_v1` runs
+    instead."""
+    if DESIGN == "v1" and engine_of(mode).startswith("parity"):
+        return route_full_v1(scene, cfg, state, words, mode)
     if not _on_card(state.pixel):
         return route_full_ref(scene, cfg, state, words, mode)
     a, out = route_args(scene, cfg, state, words, mode=mode)
     launch(kernels_of(cfg, mode)[0], a, state.pixel.device)
+    return out
+
+
+def _parity_only(mode):
+    if not engine_of(mode).startswith("parity"):
+        raise ValueError(f"the first design's full-record kernels take the "
+                         f"parity modes, not {mode}")
+
+
+def route_full_v1(scene, cfg, state, words, mode):
+    """:func:`route_full` in the parity modes' first design: no camera rank
+    in the record (:func:`shade_full_v1` ranks)."""
+    _parity_only(mode)
+    if not _on_card(state.pixel):
+        return route_full_v1_ref(scene, cfg, state, words, mode)
+    a, out = route_args(scene, cfg, state, words, v1=True, mode=mode)
+    launch(PARITY_V1[kernels_of(cfg, mode)[0]], a, state.pixel.device)
     return out
 
 
@@ -1425,13 +1549,33 @@ def shade_full(scene, camera, cfg, state, fb, words, order, record, counts,
     "parity"), None on the unsorted engine.  Under the parity modes the
     camera rays go by the exclusive prefix sum of the lanes that take one
     and every such lane flushes; under "wide" they go to the dead suffix
-    and the dirty window flushes, as :func:`shade`'s."""
+    and the dirty window flushes, as :func:`shade`'s.  Under the parity
+    modes the rank is the record's (:func:`route_full`); under ``DESIGN =
+    "v1"`` :func:`shade_full_v1` runs instead."""
+    if DESIGN == "v1" and engine_of(mode).startswith("parity"):
+        return shade_full_v1(scene, camera, cfg, state, fb, words, order,
+                             record, counts, cam_start, mode)
     if not _on_card(state.pixel):
         return shade_full_ref(scene, camera, cfg, fb, words, order, record,
                               counts, cam_start, mode)
     a, out = shade_args(scene, camera, cfg, state, fb, words, order, record,
                         counts, 0, cam_start, 1, mode=mode)
     launch(kernels_of(cfg, mode)[1], a, state.pixel.device)
+    return out
+
+
+def shade_full_v1(scene, camera, cfg, state, fb, words, order, record,
+                  counts, cam_start, mode):
+    """:func:`shade_full` in the parity modes' first design: the camera
+    rank taken by a look-back scan in shade (:func:`scan_buffer`), the
+    record's rank word unread."""
+    _parity_only(mode)
+    if not _on_card(state.pixel):
+        return shade_full_v1_ref(scene, camera, cfg, fb, words, order,
+                                 record, counts, cam_start, mode)
+    a, out = shade_args(scene, camera, cfg, state, fb, words, order, record,
+                        counts, 0, cam_start, 1, v1=True, mode=mode)
+    launch(PARITY_V1[kernels_of(cfg, mode)[1]], a, state.pixel.device)
     return out
 
 

@@ -4,10 +4,18 @@
 // kernels/step.py ``bind``, so that the real ctypes wrappers run it on CPU
 // tensors).  Each entry point of csrc/step_kernels.cu is a loop over the
 // lanes in order, the shared-memory tables as host copies, the atomics as
-// plain adds (so the flush adds in index_add_'s order).  The full-record
-// modes' camera rank runs step_math.cuh's look-back scan with every block
-// publishing its count first and the blocks then looking back from the
-// last to the first, so that each walks its predecessors' aggregates.
+// plain adds (so the flush adds in index_add_'s order).  The unsorted
+// engine's camera rank (and the parity modes' first design's) runs
+// step_math.cuh's look-back scan with every block publishing its count
+// first and the blocks then looking back from the last to the first, so
+// that each walks its predecessors' aggregates.  The parity modes' route
+// runs its blocks interleaved in a shuffled order on the persistent
+// scratch (a.scan): a block takes its ticket when it arrives, routes its
+// slots and publishes its count, then steps back kRankLook status words
+// at a time (rank_step over the words a warp's lanes would read), the
+// scheduler picking at random among the blocks yet to arrive and those
+// still looking back, so that a block meets unpublished words and words
+// of the launch before.
 #include <cmath>
 #include <cstring>
 #include <algorithm>
@@ -146,13 +154,96 @@ template <int kMode, bool kOneSample = false> static int shade_full(const StepAr
   a->counts[1] += c1; a->counts[2] += c2; a->counts[3] += c3;
   return 0;
 }
-extern "C" int rtjax_step_route_parity(const StepArgs* a, void*) { return route_full<kParity>(a); }
-extern "C" int rtjax_step_route_parity_unsorted(const StepArgs* a, void*) { return route_full<kParityUnsorted>(a); }
+static unsigned long long shuffle_state = 0x9E3779B97F4A7C15ULL;
+static unsigned shuffled(unsigned k) {  // a draw in [0, k)
+  shuffle_state = shuffle_state * 6364136223846793005ULL + 1442695040888963407ULL;
+  return static_cast<unsigned>(shuffle_state >> 33) % k;
+}
+template <int kMode> static int route_ranked(const StepArgs* a) {
+  const int n = a->n, blocks = (n + kRankBlock - 1) / kRankBlock;
+  unsigned* scratch = reinterpret_cast<unsigned*>(a->scan);
+  unsigned* status = scratch + 1;
+  struct Block { int b, j; unsigned parity, total, before; bool done; };
+  std::vector<Block> run;  // the blocks that arrived, in ticket order
+  int live = 0;
+  while (static_cast<int>(run.size()) < blocks || live > 0) {
+    const int waiting = blocks - static_cast<int>(run.size());
+    const unsigned pick = shuffled(static_cast<unsigned>(waiting + live));
+    if (static_cast<int>(pick) < waiting) {  // a block arrives
+      const unsigned t = scratch[0];
+      scratch[0] = t >= rank_ticket_limit(blocks) ? 0u : t + 1u;
+      Block k = {rank_block(t, blocks), 0, rank_parity(t, blocks), 0, 0, false};
+      for (int i = k.b * kRankBlock; i < min(n, (k.b + 1) * kRankBlock); ++i) {
+        RouteLane r = route_lane<false, kMode>(*a, i, reinterpret_cast<int2*>(a->bundle) + kFullWords / 2 * (long long)i);
+        a->counts[0] += r.mat;
+        a->counts[4] += r.limbo;
+        k.total += !r.mat && !r.limbo;
+      }
+      status[k.b] = rank_word(k.parity, k.b == 0, k.total);
+      k.j = k.b - 1;
+      k.done = k.b == 0;
+      run.push_back(k);
+      live += !k.done;
+    } else {  // one look-back step of a block still looking back
+      int m = static_cast<int>(pick) - waiting;
+      Block* k = nullptr;
+      for (Block& x : run) if (!x.done && m-- == 0) { k = &x; break; }
+      unsigned w[kRankLook], unpub = 0, pre = 0;
+      for (int l = 0; l < kRankLook; ++l) {
+        w[l] = k->j - l >= 0 ? status[k->j - l] : rank_word(k->parity, true, 0);
+        const bool pub = rank_published(w[l], k->parity);
+        unpub |= (!pub ? 1u : 0u) << l;
+        pre |= (pub && (w[l] & kRankPrefix) ? 1u : 0u) << l;
+      }
+      const RankStep st = rank_step(unpub, pre);
+      for (int l = 0; l < kRankLook; ++l)
+        if ((st.take >> l) & 1u) k->before += w[l] & kRankValue;
+      if (st.back >= 0) { k->j -= st.back; continue; }
+      status[k->b] = rank_word(k->parity, true, k->before + k->total);
+      k->done = true;
+      --live;
+    }
+  }
+  for (const Block& k : run) {  // the ranks into the records' word 22
+    int rank = static_cast<int>(k.before);
+    for (int i = k.b * kRankBlock; i < min(n, (k.b + 1) * kRankBlock); ++i) {
+      int* w = a->bundle + kFullWords * (long long)i;
+      w[22] = rank;
+      rank += !(w[20] & 1) && !(w[20] & 2);
+    }
+  }
+  return 0;
+}
+extern "C" int rtjax_step_route_parity(const StepArgs* a, void*) { return route_ranked<kParity>(a); }
+extern "C" int rtjax_step_route_parity_unsorted(const StepArgs* a, void*) { return route_ranked<kParityUnsorted>(a); }
+extern "C" int rtjax_step_route_parity_v1(const StepArgs* a, void*) { return route_full<kParity>(a); }
+extern "C" int rtjax_step_route_parity_unsorted_v1(const StepArgs* a, void*) { return route_full<kParityUnsorted>(a); }
 extern "C" int rtjax_step_route_shade_unsorted(const StepArgs* a, void*) { return shade_full<kUnsorted>(a); }
 extern "C" int rtjax_step_route_shade_unsorted_1s(const StepArgs* a, void*) { return shade_full<kUnsorted, true>(a); }
 extern "C" int rtjax_step_route_wide(const StepArgs* a, void*) { return route_full<kWide>(a); }
-extern "C" int rtjax_step_shade_parity(const StepArgs* a, void*) { return shade_full<kParity>(a); }
-extern "C" int rtjax_step_shade_parity_unsorted(const StepArgs* a, void*) { return shade_full<kParityUnsorted>(a); }
+template <int kMode> static int shade_ranked(const StepArgs* a) {
+  Staged st;
+  const Tables T = stage(*a, st);
+  long long c1 = 0, c2 = 0, c3 = 0;
+  for (int i = 0; i < a->n; ++i) {
+    const FullRec r = load_full(*a, (kMode & kUnsorted) ? i : a->order[i]);
+    ShadeLane s = shade_full_lane<kMode>(*a, i, T, r, r.rank);
+    c1 += s.trace; c2 += s.nee; c3 += s.mis;
+    if (s.flush) {
+      const V3 v = s.flushed;
+      float* px = a->fb + 3 * (long long)s.pixel;
+      if (v.x != 0.0f) px[0] += v.x;
+      if (v.y != 0.0f) px[1] += v.y;
+      if (v.z != 0.0f) px[2] += v.z;
+    }
+  }
+  a->counts[1] += c1; a->counts[2] += c2; a->counts[3] += c3;
+  return 0;
+}
+extern "C" int rtjax_step_shade_parity(const StepArgs* a, void*) { return shade_ranked<kParity>(a); }
+extern "C" int rtjax_step_shade_parity_unsorted(const StepArgs* a, void*) { return shade_ranked<kParityUnsorted>(a); }
+extern "C" int rtjax_step_shade_parity_v1(const StepArgs* a, void*) { return shade_full<kParity>(a); }
+extern "C" int rtjax_step_shade_parity_unsorted_v1(const StepArgs* a, void*) { return shade_full<kParityUnsorted>(a); }
 template <bool kRestore, bool kOneSample, bool kStats> static int resolve(const StepArgs* a) {
   for (int i = 0; i < a->n; ++i) {
     if (kStats && hist_bin(*a, i) >= 0) a->hist[hist_bin(*a, i)] += 1;

@@ -1808,6 +1808,178 @@ def test_full_mode_kernels_equal_plain_versions(cuda, change):
     assert (limbo > 0) == mode.startswith("parity")
 
 
+def _parity_cfg(n, sort_rays=True):
+    return RenderConfig(width=256, height=256, num_samples=16,
+                        max_bounces=5, num_working_paths=n,
+                        direct_max_tris=0, reference_parity=True, rr_start=0,
+                        sort_rays=sort_rays)
+
+
+def _copy_state(st):
+    return dataclasses.replace(st, **{
+        f: tuple(c.clone() for c in v) if isinstance(v, tuple) else v.clone()
+        for f, v in vars(st).items()})
+
+
+_SHADE_FIELDS = ("pixel", "ray_o", "ray_d", "beta", "bounces", "acc",
+                 "trace_mask", "counts", "shadow", "ah_L", "chs_L", "limbo")
+
+
+@pytest.mark.parametrize("log2", [17, 18, 19])
+@pytest.mark.parametrize("engine", ["parity", "parity_unsorted"])
+def test_parity_designs_equal_plain_versions(cuda, engine, log2):
+    """``reference_parity``'s route (the camera rank in the record) and
+    shade (the rank read from it), and their first design
+    (``route_parity_v1``: no rank; ``shade_parity_v1``: the rank by
+    shade's look-back scan), each bit for bit against its plain version on
+    synthetic pools of 2^17-2^19 lanes with limbo lanes, the framebuffer
+    within the atomic adds' reordering, both designs' shade outputs equal;
+    the record's rank ``torch.cumsum``'s in slot order."""
+    from rtjax_torch.kernels import step as S
+    scene = _step_scene(cuda)
+    cam = Camera.make((0, 0.5, 3), (0, 0, 0), (0, 1, 0), 45, 1.0,
+                      device=cuda)
+    cfg = _parity_cfg(1 << log2, engine == "parity")
+    assert S.step_mode(scene, cfg) == engine
+    n = cfg.pool_size
+    g = torch.Generator(device=cuda).manual_seed(log2)
+    state = _synthetic_state(scene, cfg, g, cuda)
+    words = torch.randint(0, 1 << 32, (5, n), generator=g, device=cuda,
+                          dtype=torch.int64)
+    fb = torch.rand(cfg.num_pixels, 3, generator=g, device=cuda)
+    cam_start = torch.tensor(12345, device=cuda)
+    before = dict(S.PARITY_V1_LAUNCHES)
+    outs = {}
+    for design in ("record", "v1"):
+        ref = S.route_full_ref if design == "record" else S.route_full_v1_ref
+        route = S.route_full if design == "record" else S.route_full_v1
+        want, got = ref(scene, cfg, state, words, engine), \
+            route(scene, cfg, state, words, engine)
+        for x, y in zip(got, want, strict=True):
+            assert (x is None and y is None) or _bits_equal(x, y), design
+        keys, record, counts = want
+        r = S.unpack_full(record)
+        rank = S.camera_rank(r["mat"], r["limbo"]) if design == "record" \
+            else torch.zeros_like(r["rank"])
+        assert torch.equal(r["rank"], rank) and int(counts[4]) > 0
+        order = None if keys is None else SO.stable_order(keys)
+        fb0, fb1 = fb.clone(), fb.clone()
+        plain = S.shade_full_ref if design == "record" else \
+            S.shade_full_v1_ref
+        sh0 = plain(scene, cam, cfg, fb0, words, order, record, counts,
+                    cam_start, engine)
+        shade = S.shade_full if design == "record" else S.shade_full_v1
+        sh1 = shade(scene, cam, cfg, _copy_state(state), fb1, words, order,
+                    record, counts.clone(), cam_start, engine)
+        for f in _SHADE_FIELDS:
+            for j, (x, y) in enumerate(zip(_flat(getattr(sh1, f)),
+                                           _flat(getattr(sh0, f)),
+                                           strict=True)):
+                assert _bits_equal(x, y), (design, f, j)
+        torch.testing.assert_close(fb1, fb0, rtol=1e-5, atol=1e-7)
+        outs[design] = sh1
+    for f in _SHADE_FIELDS:
+        for x, y in zip(_flat(getattr(outs["record"], f)),
+                        _flat(getattr(outs["v1"], f)), strict=True):
+            assert _bits_equal(x, y), f
+    kernels = S.MODE_KERNELS[engine]
+    assert {k: S.PARITY_V1_LAUNCHES[k] - before[k]
+            for k in S.PARITY_V1_LAUNCHES} == {
+        v: int(k in kernels) for k, v in S.PARITY_V1.items()}
+
+
+def test_parity_rank_scratch_over_interleaved_sizes(cuda):
+    """Twelve consecutive parity route launches at two interleaved sizes,
+    each size on its persistent rank scratch, never zeroed: every record
+    bit for bit the plain version's, and after each launch the ticket is 0
+    or the block count (wrapping every second launch on a scratch) and
+    every status word a published inclusive prefix of the launch's
+    parity."""
+    from rtjax_torch.kernels import step as S
+    scene = _step_scene(cuda)
+    g = torch.Generator(device=cuda).manual_seed(5)
+    seen = {}
+    for k in range(12):
+        n = ((1 << 17) + 5, (1 << 18) - 3)[k % 2]
+        cfg = _parity_cfg(n, k % 3 != 0)
+        engine = S.step_mode(scene, cfg)
+        state = _synthetic_state(scene, cfg, g, cuda)
+        words = torch.randint(0, 1 << 32, (5, n), generator=g, device=cuda,
+                              dtype=torch.int64)
+        got = S.route_full(scene, cfg, state, words, engine)
+        want = S.route_full_ref(scene, cfg, state, words, engine)
+        for x, y in zip(got, want, strict=True):
+            assert (x is None and y is None) or _bits_equal(x, y), k
+        r = S.unpack_full(got[1])
+        gen = ~r["mat"] & ~r["limbo"]
+        blocks = S.rank_blocks(n)
+        parity = seen.get(blocks, 0) % 2
+        seen[blocks] = seen.get(blocks, 0) + 1
+        scratch = S.rank_scratch(cuda, n)
+        assert int(scratch[0]) == (0 if parity else blocks)
+        status = scratch[1:].to(torch.int64) & 0xFFFFFFFF
+        ends = torch.cumsum(gen, 0)[torch.clamp(
+            torch.arange(1, blocks + 1, device=cuda) * S.RANK_BLOCK,
+            max=n) - 1]
+        assert torch.equal(status & ((1 << 30) - 1), ends)
+        assert bool((status >> 30).eq(3 - 2 * parity).all())
+    assert sorted(seen.values()) == [6, 6]
+
+
+def test_parity_kernels_replay_in_a_captured_graph(cuda):
+    """Parity's route, the key sort and shade captured in a CUDA graph
+    (the rank's and the sort's scratches made by an eager launch first,
+    never zeroed): four replays on new pools, each bit for bit the eager
+    launches' outputs on the same pool."""
+    from rtjax_torch.kernels import step as S
+    scene = _step_scene(cuda)
+    cam = Camera.make((0, 0.5, 3), (0, 0, 0), (0, 1, 0), 45, 1.0,
+                      device=cuda)
+    cfg = _parity_cfg(1 << 18)
+    n = cfg.pool_size
+    g = torch.Generator(device=cuda).manual_seed(8)
+    draw = lambda: (_synthetic_state(scene, cfg, g, cuda),
+                    torch.randint(0, 1 << 32, (5, n), generator=g,
+                                  device=cuda, dtype=torch.int64))
+
+    def step(st_in, st_out, words, fb, cam_start):
+        keys, record, counts = S.route_full(scene, cfg, st_in, words,
+                                            "parity")
+        order = SO.stable_order(keys)
+        return S.shade_full(scene, cam, cfg, st_out, fb, words, order,
+                            record, counts, cam_start, "parity")
+
+    st_in, words = draw()
+    st_out = _copy_state(st_in)
+    fb = torch.zeros(cfg.num_pixels, 3, device=cuda)
+    cam_start = torch.tensor(7, device=cuda)
+    step(st_in, _copy_state(st_in), words, fb.clone(), cam_start)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        sh = step(st_in, st_out, words, fb, cam_start)
+    for _ in range(4):
+        new, w = draw()
+        for f, v in vars(new).items():
+            for x, y in zip(_flat(getattr(st_in, f)), _flat(v)):
+                x.copy_(y)
+            for x, y in zip(_flat(getattr(st_out, f)), _flat(v)):
+                x.copy_(y)
+        words.copy_(w)
+        fb.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        fb1 = torch.zeros_like(fb)
+        eager = step(new, _copy_state(new), w, fb1, cam_start)
+        for f in _SHADE_FIELDS:
+            for j, (x, y) in enumerate(zip(_flat(getattr(sh, f)),
+                                           _flat(getattr(eager, f)),
+                                           strict=True)):
+                assert _bits_equal(x, y), (f, j)
+        torch.testing.assert_close(fb, fb1, rtol=1e-5, atol=1e-7)
+
+
 @pytest.mark.parametrize("change", [
     dict(max_bounces=126), dict(one_sample_mis=True),
     dict(one_sample_mis=True, sort_rays=False),

@@ -58,6 +58,7 @@ from rtjax.scene import light as jax_light
 from rtjax.scene import material as jax_material
 
 from rtjax_torch import RenderConfig
+from rtjax_torch.config import SORT_KEYS
 from rtjax_torch.constants import DEAD_BOUNCES
 from rtjax_torch.kernels import _build
 from rtjax_torch.kernels import step as S
@@ -194,27 +195,8 @@ def test_route_matches_rtjax_keys_and_codecs(mixed, sort_key):
     acc, beta, _, mat_p, _, _ = S.emit_and_roulette(scene, cfg, state, u_rr)
     _eq(mat_p.numpy(), mat, "material mask")
     with jax.disable_jit():
-        lo, hi = jscene.bvh.bmin[0], jscene.bvh.bmax[0]
-        hpj, dj, nj = tuple(jnp.asarray(c) for c in hp), _j3(
-            state.ray_d), _j3(state.normal)
-        prim = jnp.where(jnp.asarray(mat), _j(state.prim), -1)
-        want = {
-            "morton": lambda: jax_sorting.ray_sort_keys_v3(hpj, dj, lo, hi,
-                                                           mat),
-            "morton_pos": lambda: jax_sorting.ray_sort_keys_pos_v3(
-                hpj, dj, lo, hi, mat),
-            "morton_pos10": lambda: jax_sorting.ray_sort_keys_pos10_v3(
-                hpj, dj, lo, hi, mat),
-            "prim": lambda: jax_sorting.ray_sort_keys_prim_v3(prim, dj,
-                                                              mat),
-            "prim_pos": lambda: jax_sorting.ray_sort_keys_prim_pos_v3(
-                prim, dj, mat),
-            "normal_pos": lambda: jax_sorting.ray_sort_keys_normal_pos_v3(
-                hpj, nj, lo, hi, mat),
-            "adaptive": lambda: jax_sorting.ray_sort_keys_adaptive_v3(
-                hpj, nj, _j(state.bounces + 1), lo, hi, mat)}[sort_key]()
-        want = np.minimum(np.asarray(want), 0x7FFFFFFD) if \
-            sort_key == "adaptive" else np.asarray(want)
+        want = _rtjax_keys(jscene, state, hp, mat, sort_key)
+        nj, dj = _j3(state.normal), _j3(state.ray_d)
         a = np.stack([c.numpy() for c in acc])
         dirty = ~mat & (a != 0).any(0)
         assert int(counts[4]) == dirty.sum() > 0
@@ -230,6 +212,31 @@ def test_route_matches_rtjax_keys_and_codecs(mixed, sort_key):
         | (mat.astype(np.int32) << 28), "pixel | bounces | mat")
     _eq(bundle[6].numpy(), (state.prim.numpy() + 1)
         | (state.src.numpy() << 23), "prim | src")
+
+
+def _rtjax_keys(jscene, state, hp, mat, sort_key):
+    """rtjax's ``sort_key`` keys of the continuing paths' hit points ``hp``
+    (numpy ``[3]`` columns; ``mat`` the numpy mask; 0x7FFFFFFF elsewhere),
+    as numpy (call under ``jax.disable_jit()``)."""
+    lo, hi = jscene.bvh.bmin[0], jscene.bvh.bmax[0]
+    hpj, dj, nj = tuple(jnp.asarray(c) for c in hp), _j3(
+        state.ray_d), _j3(state.normal)
+    prim = jnp.where(jnp.asarray(mat), _j(state.prim), -1)
+    want = {
+        "morton": lambda: jax_sorting.ray_sort_keys_v3(hpj, dj, lo, hi, mat),
+        "morton_pos": lambda: jax_sorting.ray_sort_keys_pos_v3(
+            hpj, dj, lo, hi, mat),
+        "morton_pos10": lambda: jax_sorting.ray_sort_keys_pos10_v3(
+            hpj, dj, lo, hi, mat),
+        "prim": lambda: jax_sorting.ray_sort_keys_prim_v3(prim, dj, mat),
+        "prim_pos": lambda: jax_sorting.ray_sort_keys_prim_pos_v3(
+            prim, dj, mat),
+        "normal_pos": lambda: jax_sorting.ray_sort_keys_normal_pos_v3(
+            hpj, nj, lo, hi, mat),
+        "adaptive": lambda: jax_sorting.ray_sort_keys_adaptive_v3(
+            hpj, nj, _j(state.bounces + 1), lo, hi, mat)}[sort_key]()
+    return np.minimum(np.asarray(want), 0x7FFFFFFD) if \
+        sort_key == "adaptive" else np.asarray(want)
 
 
 def test_shade_matches_rtjax_sampling(mixed):
@@ -1103,6 +1110,61 @@ def test_host_compiled_full_modes_match_plain_versions(mixed, monkeypatch,
         assert bool((sh0.chs_mask & hits[0] & (prim == sh0.shadow[3])).any())
 
 
+@pytest.mark.parametrize("mode", ["parity", "parity_unsorted",
+                                  "parity_stats"])
+def test_host_compiled_parity_first_design_matches(mixed, monkeypatch, mode):
+    """The parity modes' first design (route_parity_v1, shade_parity_v1
+    and the unsorted instances: no rank in the record, shade's look-back
+    scan) compiled as host C++: route bit for bit against its plain
+    version, shade's every output and the framebuffer bit for bit the
+    record design's host-compiled shade's (the same math, the rank taken
+    elsewhere), and shade's integers and masks the plain version's.
+    Under ``DESIGN = "v1"`` the wrappers launch these kernels."""
+    _, _, scene, cam = mixed
+    cfg = _cfg(**_MODES[mode])
+    engine = S.engine_of(mode)
+    state = _synthetic_state(scene, cfg, 54)
+    words = _words(55)
+    fb = torch.tensor(np.random.default_rng(6).uniform(
+        0, 2, (cfg.num_pixels, 3)).astype(np.float32))
+    cam_start = torch.tensor(211)
+    want = S.route_full_v1_ref(scene, cfg, state, words, mode)
+    new = S.route_full_ref(scene, cfg, state, words, mode)
+    sh0 = S.shade_full_ref(scene, cam, cfg, fb.clone(), words, None if
+                           new[0] is None else torch.sort(
+                               new[0], stable=True).indices, new[1],
+                           new[2], cam_start, mode)
+    _on_host(monkeypatch)
+    names, real = [], S.launch
+    monkeypatch.setattr(S, "launch", lambda name, a, dev: (
+        names.append(name), real(name, a, dev)))
+    monkeypatch.setattr(S, "DESIGN", "v1")
+    got = S.route_full(scene, cfg, state, words, mode)
+    for x, y in zip(got, want, strict=True):
+        assert (x is None and y is None) or torch.equal(x, y)
+    assert not got[1][:, 22].any() and int(want[2][4]) > 0
+    order = None if got[0] is None else torch.sort(got[0],
+                                                   stable=True).indices
+    fb1, fb2 = fb.clone(), fb.clone()
+    sh1 = S.shade_full(scene, cam, cfg, _copy_state(state), fb1, words,
+                       order, got[1], got[2].clone(), cam_start, mode)
+    monkeypatch.setattr(S, "DESIGN", "record")
+    sh2 = S.shade_full(scene, cam, cfg, _copy_state(state), fb2, words,
+                       order, new[1], new[2].clone(), cam_start, mode)
+    kernels = S.MODE_KERNELS[mode]
+    assert names == [S.PARITY_V1[kernels[0]], S.PARITY_V1[kernels[1]],
+                     kernels[1]]
+    for f in ("pixel", "ray_o", "ray_d", "beta", "bounces", "acc",
+              "trace_mask", "counts", "shadow", "ah_L", "chs_L", "limbo"):
+        for x, y, z in zip(_flat(getattr(sh1, f)), _flat(getattr(sh2, f)),
+                           _flat(getattr(sh0, f)), strict=True):
+            assert torch.equal(_bits(x), _bits(y)), f
+            if x.dtype != torch.float32:
+                assert torch.equal(x, z), f
+    assert torch.equal(_bits(fb1), _bits(fb2)) and not torch.equal(fb1, fb)
+    assert engine != "parity" or sh1.order is order
+
+
 _RANK_MASKS = {
     "all": lambda i: i >= 0, "none": lambda i: i < 0,
     "alternating": lambda i: i % 2 == 0,
@@ -1120,12 +1182,38 @@ def test_scan_rank_equals_cumsum(mixed, monkeypatch, mask):
     rank.  The plain version (``torch.cumsum``) and the host-compiled
     kernels (step_math.cuh's look-back scan, each block walking back over
     its predecessors' aggregates) both give ``torch.cumsum``'s ranks."""
+    _rank_pixels(mixed, monkeypatch, mask, "unsorted")
+
+
+@pytest.mark.parametrize("mask", list(_RANK_MASKS))
+@pytest.mark.parametrize("engine, design", [
+    ("parity", "record"), ("parity_unsorted", "record"), ("parity", "v1"),
+    ("parity_unsorted", "v1")])
+def test_parity_rank_equals_cumsum(mixed, monkeypatch, engine, design,
+                                   mask):
+    """:func:`test_scan_rank_equals_cumsum` under ``reference_parity`` on
+    both engines: the camera rank route takes in slot order and carries
+    in the record (route blocks of RANK_BLOCK slots, walked back by the
+    host-compiled route with its blocks interleaved), and the first
+    design's, taken by shade's look-back scan over sorted positions, both
+    give ``torch.cumsum``'s ranks over the sorted positions."""
+    _rank_pixels(mixed, monkeypatch, mask, engine, design)
+
+
+def _rank_pixels(mixed, monkeypatch, mask, engine, design="record"):
+    """The pixels the camera rays of a pool whose lanes of ``mask`` take
+    one (the others continue) get, plain and host-compiled, against
+    ``cam_start`` + ``torch.cumsum``'s ranks over the positions shade
+    takes (the sort's order on the sorted parity engine)."""
     _, _, scene, cam = mixed
     n = 7 * S.SCAN_BLOCK + 5
     cfg = RenderConfig(width=64, height=64, num_samples=1, max_bounces=5,
-                       num_working_paths=n, sort_rays=False,
+                       num_working_paths=n, sort_rays=engine == "parity",
                        camera_order="scanline", rr_start=1 << 20,
-                       direct_max_tris=0)
+                       direct_max_tris=0,
+                       reference_parity=engine != "unsorted")
+    assert S.step_mode(scene, cfg) == engine
+    monkeypatch.setattr(S, "DESIGN", design)
     gen = _RANK_MASKS[mask](torch.arange(n))
     f = lambda v: torch.full((n,), v)
     z = torch.zeros(n, dtype=torch.int32)
@@ -1135,19 +1223,164 @@ def test_scan_rank_equals_cumsum(mixed, monkeypatch, mask):
         normal=(f(0.0), f(1.0), f(0.0)), prim=z.clone(), src=z.clone(),
         bounces=torch.where(gen, DEAD_BOUNCES, 0).to(torch.int32),
         beta=(f(1.0), f(1.0), f(1.0)), acc=(f(0.0), f(0.0), f(0.0)))
-    want = torch.where(gen, 11 + torch.cumsum(gen, 0) - gen.long(), 0)
     words = _words(60, n)
+    fb = lambda: torch.zeros(cfg.num_pixels, 3)
+    if engine != "parity":
+        order = torch.arange(n)
+    else:
+        # the mask's lanes take the inactive key: the sort puts them last,
+        # in slot order
+        order = torch.sort(S.route_full_ref(scene, cfg, state, words,
+                                            engine)[0], stable=True).indices
+        assert torch.equal(order[n - int(gen.sum()):],
+                           torch.arange(n)[gen])
+    gen_s = gen[order]
+    want = torch.where(gen_s, 11 + torch.cumsum(gen_s, 0) - gen_s.long(), 0)
 
     def pixels():
-        sh = S.route_shade_unsorted(scene, cam, cfg, _copy_state(state),
-                                    torch.zeros(cfg.num_pixels, 3), words,
-                                    torch.tensor(11))
+        if engine == "unsorted":
+            sh = S.route_shade_unsorted(scene, cam, cfg, _copy_state(state),
+                                        fb(), words, torch.tensor(11))
+        else:
+            _, rec, counts = S.route_full(scene, cfg, state, words, engine)
+            sh = S.shade_full(scene, cam, cfg, _copy_state(state), fb(),
+                              words, order if engine == "parity" else None,
+                              rec, counts, torch.tensor(11), engine)
+            assert torch.equal(S.unpack_full(rec)["rank"].long(),
+                               (torch.cumsum(gen, 0) - gen.long())
+                               * (design == "record"))
         assert bool(sh.trace_mask.all())
-        return torch.where(gen, sh.pixel.long(), 0)
+        return torch.where(gen_s, sh.pixel.long(), 0)
 
     assert torch.equal(pixels(), want)
     _on_host(monkeypatch)
     assert torch.equal(pixels(), want)
+
+
+@pytest.mark.parametrize("sort_key", SORT_KEYS)
+def test_parity_sort_keeps_camera_lanes_in_slot_order(mixed, sort_key):
+    """Under ``reference_parity`` the sort's keys have no dirty class: the
+    lanes that take a camera ray (neither continuing nor in roulette's
+    limbo) and the limbo lanes all take the inactive key, so rtjax's
+    stable sort (``sort_pytree_by_key`` of its keys of the same pool)
+    keeps them in slot order.  Their sorted positions rise with their
+    slots, and rtjax's rank (``cumsum`` over ``gen_mask`` after its sort)
+    is route's, taken in slot order and carried in the record."""
+    jscene, _, scene, _ = mixed
+    cfg = _cfg(sort_key=sort_key, **_PARITY)
+    state = _synthetic_state(scene, cfg, 70)
+    keys, record, _ = S.route_full_ref(scene, cfg, state, _words(71),
+                                       "parity")
+    r = S.unpack_full(record)
+    mat, limbo = r["mat"].numpy(), r["limbo"].numpy()
+    gen = ~mat & ~limbo
+    assert limbo.sum() > 0 and gen.sum() > 0 and mat.sum() > 0
+    t = np.where(mat, state.t.numpy(), 0.0).astype(np.float32)
+    hp = [(o.numpy() + t * d.numpy()).astype(np.float32)
+          for o, d in zip(state.ray_o, state.ray_d)]
+    with jax.disable_jit():
+        want = _rtjax_keys(jscene, state, hp, mat, sort_key)
+        _eq(keys.numpy(), np.where(mat, want, 0x7FFFFFFF), "keys")
+        slot, gen_s = jax_sorting.sort_pytree_by_key(
+            jnp.asarray(keys.numpy()), (jnp.arange(POOL), jnp.asarray(gen)))
+    slot, gen_s = np.asarray(slot), np.asarray(gen_s)
+    assert (np.diff(slot[gen_s]) > 0).all()
+    assert (np.diff(slot[~mat[slot]]) > 0).all()
+    rank = np.cumsum(gen_s) - gen_s
+    _eq(r["rank"].numpy()[slot][gen_s], rank[gen_s], "rank")
+    _eq(r["rank"].numpy(), S.camera_rank(r["mat"], r["limbo"]).numpy(),
+        "rank in slot order")
+
+
+def test_full_record_round_trip_carries_the_rank(mixed):
+    """The full record (:func:`pack_full`, ``FULL_LAYOUT``) unpacks to the
+    state route read and the values it made (the material index, the
+    flags, under parity the camera rank in word 22, elsewhere 0), packs to
+    the same words again, and its last word is zero."""
+    _, _, scene, _ = mixed
+    names = [f for f, *_ in S.FULL_LAYOUT]
+    assert names[-1] == "rank" and S.FULL_LAYOUT[-1][1:] == (22, 1)
+    widths = sum(k for *_, k in S.FULL_LAYOUT)
+    assert widths == S.FULL_ROWS - 1
+    for mode, change in (("parity", _PARITY),
+                         ("parity_unsorted", dict(_PARITY, sort_rays=False)),
+                         ("unsorted", dict(sort_rays=False))):
+        cfg = _cfg(**change)
+        state = _synthetic_state(scene, cfg, 72)
+        words = _words(73)
+        rec = (S._route_full(scene, cfg, state, words, mode)[1]
+               if mode == "unsorted"
+               else S.route_full_ref(scene, cfg, state, words, mode)[1])
+        r = S.unpack_full(rec)
+        for f in ("pixel", "prim", "src", "t"):
+            assert torch.equal(_bits(r[f]), _bits(getattr(state, f))), f
+        for f in ("ray_o", "ray_d", "normal"):
+            for x, y in zip(r[f], getattr(state, f), strict=True):
+                assert torch.equal(_bits(x), _bits(y)), f
+        assert torch.equal(r["material"],
+                           S.hit_material(scene, state.src, state.prim))
+        want = S.camera_rank(r["mat"], r["limbo"]) \
+            if mode.startswith("parity") else torch.zeros(POOL,
+                                                          dtype=torch.int32)
+        assert torch.equal(r["rank"], want) and not rec[:, 23].any()
+        again = S.pack_full(state, r["bounces"], r["beta"], r["acc"],
+                            r["mat"], r["limbo"], r["material"],
+                            r["rank"] if mode.startswith("parity") else None)
+        assert torch.equal(again, rec)
+    assert bool(r["limbo"].eq(False).all())
+
+
+# route launches on one rank scratch: sizes of three route blocks (517 and
+# 768 share a scratch) and of five, interleaved
+_RANK_LAUNCHES = (517, 1124, 768, 1124, 517, 768, 768, 1124, 517, 1124)
+
+
+@pytest.mark.parametrize("engine", ["parity", "parity_unsorted"])
+def test_rank_scratch_across_launches(mixed, monkeypatch, engine):
+    """The parity route's camera rank on the host-compiled kernels, its
+    blocks interleaved in a shuffled order (tests/step_kernels_host.cpp),
+    over consecutive launches at mixed sizes on the persistent scratches
+    (:func:`rank_scratch`, one a route-block count, never zeroed): every
+    record bit for bit the plain version's, its rank ``torch.cumsum``'s;
+    after each launch the ticket is 0 or the block count (so it wraps
+    every second launch on a scratch) and every status word is a
+    published inclusive prefix tagged with the launch's parity."""
+    _, _, scene, _ = mixed
+    monkeypatch.setattr(S, "_ranks", {})
+    _on_host(monkeypatch)
+    launches = {}
+    for k, n in enumerate(_RANK_LAUNCHES):
+        change = dict(_PARITY, num_working_paths=n,
+                      sort_rays=engine == "parity")
+        cfg = _cfg(**change)
+        state = _synthetic_state(scene, cfg, 80 + k)
+        words = _words(90 + k, n)
+        monkeypatch.setattr(S, "_on_card", lambda t: False)
+        want = S.route_full_ref(scene, cfg, state, words, engine)
+        monkeypatch.setattr(S, "_on_card", lambda t: True)
+        got = S.route_full(scene, cfg, state, words, engine)
+        for x, y in zip(got, want, strict=True):
+            assert (x is None and y is None) or torch.equal(x, y)
+        r = S.unpack_full(got[1])
+        gen = ~r["mat"] & ~r["limbo"]
+        assert 0 < int(gen.sum()) < n and int(r["limbo"].sum()) > 0
+        assert torch.equal(r["rank"].long(),
+                           torch.cumsum(gen, 0) - gen.long())
+        blocks = S.rank_blocks(n)
+        scratch = S.rank_scratch("cpu", n)
+        assert scratch.shape == (1 + blocks,)
+        seen = launches.get(blocks, 0)
+        launches[blocks] = seen + 1
+        parity = seen % 2
+        assert int(scratch[0]) == (0 if parity else blocks)
+        ends = torch.cumsum(gen, 0)[torch.clamp(
+            torch.arange(1, blocks + 1) * S.RANK_BLOCK, max=n) - 1]
+        status = scratch[1:].to(torch.int64) & 0xFFFFFFFF
+        assert torch.equal(status & ((1 << 30) - 1), ends)
+        assert bool((status & (1 << 30)).bool().all())
+        assert bool(((status >> 31) == (1 - parity)).all())
+    assert launches == {3: 6, 5: 4}
+    assert S.rank_scratch("cpu", 517) is S.rank_scratch("cpu", 768)
 
 
 @pytest.mark.parametrize("mode", sorted(_MODES))
@@ -1214,8 +1447,8 @@ def test_step_designs_checks_every_mode(mixed, monkeypatch, change):
     """tools/step_designs.py's check, which chip_smoke.py's phase 14 and
     tools/mode_steps.py run on the card, takes every mode on the CPU
     (the wrappers' plain versions): it checks each of the mode's kernels
-    (under the default mode the first design's too, on every sorted engine
-    the key sort) on three op-by-op states, limbo lanes among them under
+    (under the default and parity modes the first design's too, on every
+    sorted engine the key sort) on three op-by-op states, limbo lanes among them under
     parity, and finds no mismatching lane and no framebuffer gap."""
     SD = _tool("step_designs")
     _, _, scene, cam = mixed
@@ -1226,10 +1459,18 @@ def test_step_designs_checks_every_mode(mixed, monkeypatch, change):
                                           log=lines.append)
     want = set(S.MODE_KERNELS[mode]) | (
         {"route_v1", "shade_v1"} if mode == "default" else set()) | (
+        {S.PARITY_V1[k] for k in S.MODE_KERNELS[mode][:2]}
+        if mode.startswith("parity") else set()) | (
         {"key_sort"} if S.engine_of(mode) in ("default", "wide", "parity")
         else set())
     assert set(worst) == want and not any(worst.values())
-    assert gap == 0.0 and timed is None and len(lines) == 3
+    # a framebuffer gap for each kernel that writes the framebuffer
+    shades = {S.MODE_KERNELS[mode][-2]} | (
+        {"shade_v1"} if mode == "default" else set()) | (
+        {S.PARITY_V1[S.MODE_KERNELS[mode][1]]} if mode.startswith("parity")
+        else set())
+    assert gap == dict.fromkeys(shades, 0.0)
+    assert timed is None and len(lines) == 3
     if mode.startswith("parity"):
         assert re.search(r"[1-9]\d* in limbo", lines[-1]), lines
 
@@ -1246,3 +1487,39 @@ def test_split_patch_applies_to_the_kernel_source():
     assert 'extern "C" int rtjax_step_route_unsorted(' in out
     with pytest.raises(RuntimeError, match="no single"):
         M.split_source(src.replace(M.SPLIT_COUNT, ""))
+
+
+@pytest.mark.parametrize("name", ["shade_128", "no_own_triangle",
+                                  "20_warps", "24_warps", "route_48_warps"])
+def test_step_variants_patch_the_kernel_source(name):
+    """tools/step_designs.py --variants patches csrc/step_kernels.cu and
+    step_math.cuh: every patch of the variant applies, and each changes
+    what it names and nothing else (default shade's launch bounds at
+    (128) alone, the own-triangle test gone, the four parity shades'
+    launch bounds at 5 or 6 blocks of 128 threads, the parity routes' at
+    kRouteBlocks of 256)."""
+    SD = _tool("step_designs")
+    assert tuple(SD.STEP_VARIANTS) == ("shade_128", "no_own_triangle",
+                                       "20_warps", "24_warps",
+                                       "route_48_warps")
+    text = SD.variant_source(name)
+    src, hdr = text["step_kernels.cu"], text["step_math.cuh"]
+    src0, hdr0 = _build.STEP_SOURCE.read_text(), \
+        _build.STEP_HEADER.read_text()
+    if name == "no_own_triangle":
+        assert "row3(a.tri_p0, own)" not in hdr and src == src0
+        return
+    assert hdr == hdr0
+    kernels, old, new = {
+        "shade_128": (("shade_kernel",), "kShadeBlock, 1", "kShadeBlock"),
+        "route_48_warps": (("route_parity_kernel",
+                            "route_parity_unsorted_kernel"), "kBlock",
+                           "kBlock, kRouteBlocks"),
+        "20_warps": (SD.PARITY_SHADES, "kShadeBlock, 1", "kShadeBlock, 5"),
+        "24_warps": (SD.PARITY_SHADES, "kShadeBlock, 1",
+                     "kShadeBlock, 6")}[name]
+    for k in kernels:
+        assert f"__launch_bounds__({new})\n    {k}(" in src
+        src = src.replace(f"__launch_bounds__({new})\n    {k}(",
+                          f"__launch_bounds__({old})\n    {k}(")
+    assert src == src0

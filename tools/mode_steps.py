@@ -22,7 +22,11 @@ wide bundle, ``one_sample_mis`` and ``detailed_stats`` by name, e.g.
 2. renders frames through the step kernels and under
    ``step_kernels=False`` in turns, captured, each seed's pair agreeing,
    and profiles one captured frame of each arm: device events and device
-   ms an iteration (``chip_smoke._mode_frames``).
+   ms an iteration (``chip_smoke._mode_frames``); on the parity cells of
+   ``chip_smoke.PARITY_DESIGN_CELLS`` also the parity kernels against
+   their first design in turns, each arm profiled: busy ms and events an
+   iteration, route's and shade's ms a frame
+   (``chip_smoke._parity_designs``).
 
 ``--check`` stops after step 1.  ``--split-ab`` instead times the
 unsorted engine's route-and-shade kernel against route and shade as two
@@ -141,15 +145,11 @@ def split_library():
     runs route and shade as two kernels (``rtjax_step_route_unsorted``
     writes the record, ``rtjax_step_route_shade_unsorted`` gathers it):
     ``(path, ptxas's lines of the two)``."""
+    import step_designs as SD
     from rtjax_torch.kernels import _build
-    src = split_source(_build.STEP_SOURCE.read_text())
-    d = _build.BUILD_DIR / "variants" / "step_split"
-    d.mkdir(parents=True, exist_ok=True)
-    (d / "step_kernels.cu").write_text(src)
-    (d / "step_math.cuh").write_text(_build.STEP_HEADER.read_text())
-    lib = _build._build(d / "libstep_split.so", [d / "step_kernels.cu"],
-                        [_build.nvcc_path()] + _build.NVCC_FLAGS,
-                        (d / "step_math.cuh",))
+    lib = SD.patched_library("split", {
+        "step_kernels.cu": split_source(_build.STEP_SOURCE.read_text()),
+        "step_math.cuh": _build.STEP_HEADER.read_text()})
     lines = [res for name, res in _build.ptxas_report(lib)
              if "route_unsorted_kernel" in name
              or "route_shade_unsorted_kernel" in name]
@@ -285,6 +285,9 @@ def run(names, time_it, card, check_only=False, log=print):
         if not check_only:
             out[name].update(C._mode_frames(name, sc, cam, cfg, card,
                                             profile=True, log=log))
+            if name in C.PARITY_DESIGN_CELLS:
+                out[name]["designs"] = C._parity_designs(name, sc, cam, cfg,
+                                                         card, log=log)
     if bad:
         raise RuntimeError(f"the step kernels differ from their plain "
                            f"versions: {bad}")

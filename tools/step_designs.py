@@ -2,7 +2,8 @@
 """The fused step's two designs on one CUDA card.
 
     python3 tools/step_designs.py [--its 0,1,2,5,12] [--time-it 12]
-    python3 tools/step_designs.py --bounds-ab
+    python3 tools/step_designs.py --variants [--cells "parity frame"]
+    python3 tools/step_designs.py --variants --names shade_128 --cells headline
 
 The step kernels (kernels/step.py, csrc/step_kernels.cu) in two arms:
 
@@ -26,10 +27,21 @@ On the headline cell (``bench.py``'s frame: ``cornell_bunny``, 256x256 @
    route_v1 and shade against shade_v1, and resolve, each with its byte
    bound, and one wrapper call of each (host launch included).
 
-``--bounds-ab`` instead builds two patched copies of the library, shade
-with ``__launch_bounds__(128, 1)`` (the library's) and with ``(128)``
-alone, prints ptxas's line for each shade, and times shade on the state
-of ``--time-it`` with each, in turns (steps 2-3 for each copy).
+``--variants`` times the mode's route and shade and the first design's
+(``first_designs``) in copies of the library patched for timing
+(``STEP_VARIANTS``, built under ``build/rtjax_torch/variants/``):
+default shade's launch bounds at ``(128)`` alone against the library's
+``(128, 1)`` (``shade_128``, on the headline), and on the parity modes'
+shades (``shade_parity`` and ``shade_parity_v1``, and their unsorted
+instances) the BSDF-MIS channel's own-triangle test taken out (wrong
+results, timing only), launch bounds for 20 and 24 resident warps an SM
+and the parity routes' for 48; by default every variant but
+``shade_128`` on the states of iteration 30 of ``chip_smoke.py``'s
+parity frame (2^19 lanes) and the headline's parity frame under
+``traversal="xla"`` (2^18), each library in turns (engine, variants...,
+variants reversed, engine), with each copy's registers, spill bytes and
+resident warps.  Beside them, the mode's route and shade against the
+first design's in turns (step 3).
 
 Steps 2-3 (:func:`check_and_time`, :func:`check_state`,
 :func:`time_state`) take any mode of the step kernels (kernels/step.py
@@ -46,7 +58,6 @@ import argparse
 import dataclasses
 import json
 import os
-import shutil
 import statistics
 import sys
 
@@ -54,9 +65,6 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 FB_RTOL, FB_ATOL = 1e-5, 1e-7
-# --bounds-ab: shade's launch bounds in the library, and the other arm
-SHADE_BOUNDS = {"128x1": "__launch_bounds__(kShadeBlock, 1)",
-                "128": "__launch_bounds__(kShadeBlock)"}
 
 
 def kernel_table():
@@ -108,11 +116,16 @@ def check_state(scene, camera, cfg, state, words, fb, it, cam_start):
     """The step kernels of ``cfg``'s mode (kernels/step.py ``step_mode``,
     ``MODE_KERNELS``) against their plain versions on one state, the
     kernels on copies of what they write in place: ``({kernel: {field:
-    mismatching lanes}}, framebuffer gap, checked)``; ``checked`` holds
-    what :func:`time_state` needs.  Every output bit for bit; the
+    mismatching lanes}}, {kernel: framebuffer gap}, checked)``, the gap
+    the largest absolute one to the plain version's framebuffer of each
+    kernel that writes it; ``checked`` holds what :func:`time_state`
+    needs.  Every output bit for bit; the
     framebuffer within FB_RTOL of the plain version's (its atomic adds'
     order).  Under the default mode also the first design (route_v1,
-    shade_v1) against the same plain versions and shade against shade_v1.
+    shade_v1) against the same plain versions and shade against shade_v1;
+    under the parity modes their first design (``FIRST_DESIGNS``: route's
+    against its plain version, which carries no rank, shade's against
+    shade's plain version and kernel).
     Resolve takes a random occlusion and, under ``detailed_stats``, a
     random bounce histogram; under the parity modes and one-sample MIS the
     closest hits it reads (parity: restores limbo lanes into) are a
@@ -129,10 +142,9 @@ def check_state(scene, camera, cfg, state, words, fb, it, cam_start):
     shade_k, resolve_k = kernels[-2:]
     n, dev = cfg.pool_size, state.pixel.device
     k = WF.resolve_sort_every(scene, cfg)
-    v1 = mode == "default"
+    v1 = first_designs(mode)
     sorts = engine in ("default", "wide", "parity")
-    bad = {name: {} for name in kernels + (
-        ("route_v1", "shade_v1") if v1 else ()) + ("key_sort",) * sorts}
+    bad = {name: {} for name in kernels + v1 + ("key_sort",) * sorts}
 
     def tally(kernel, names, got, want):
         got, want = C._flat_out(got), C._flat_out(want)
@@ -194,18 +206,28 @@ def check_state(scene, camera, cfg, state, words, fb, it, cam_start):
         sh1 = S.shade_full(scene, camera, cfg, _copy(state), fb1, words,
                            k_order, record, counts.clone(), cam_start, mode)
         c.update(keys=keys, order=order, record=record, counts=counts)
+        if v1:
+            want_v1 = S.route_full_v1_ref(scene, cfg, state, words, mode)
+            tally(v1[0], ("keys",) * (want_v1[0] is not None)
+                  + ("record", "counts"),
+                  S.route_full_v1(scene, cfg, state, words, mode), want_v1)
+            sh2 = S.shade_full_v1(scene, camera, cfg, _copy(state), fb2,
+                                  words, k_order, want_v1[1], counts.clone(),
+                                  cam_start, mode)
+            c.update(record_v1=want_v1[1])
     fields = SHADE_FIELDS + (("limbo",) if mode.startswith("parity") else ())
     for f in fields:
         want_f = C._flat_out(getattr(sh0, f))
         names = [f"{f}[{j}]" for j in range(len(want_f))]
         tally(shade_k, names, getattr(sh1, f), want_f)
         if v1:
-            tally("shade_v1", names, getattr(sh2, f), want_f)
-            tally("shade_v1", [f"= shade {x}" for x in names],
+            tally(v1[1], names, getattr(sh2, f), want_f)
+            tally(v1[1], [f"= shade {x}" for x in names],
                   getattr(sh2, f), getattr(sh1, f))
-    gap = float((fb1 - fb0).abs().max())
-    for kernel, got in ((shade_k, fb1),) + ((("shade_v1", fb2),) if v1
+    gaps = {}
+    for kernel, got in ((shade_k, fb1),) + (((v1[1], fb2),) if v1
                                             else ()):
+        gaps[kernel] = float((got - fb0).abs().max())
         if not torch.allclose(got, fb0, rtol=FB_RTOL, atol=FB_ATOL):
             bad[kernel]["fb beyond rtol"] = 1
     g = torch.Generator(device=dev).manual_seed(9)
@@ -240,7 +262,28 @@ def check_state(scene, camera, cfg, state, words, fb, it, cam_start):
         names = RESOLVE_FIELDS + HIT_FIELDS + COUNTER_FIELDS + tail
     tally(resolve_k, names, r1, r0)
     c.update(sh=sh0, occ=occ, hits=hits, hist=hist)
-    return bad, gap, c
+    return bad, gaps, c
+
+
+def merge_gaps(into, gaps):
+    """``into`` (``{kernel: framebuffer gap}``) updated to the larger of
+    its gap and ``gaps``' for each kernel."""
+    for k, v in gaps.items():
+        into[k] = max(into.get(k, 0.0), v)
+    return into
+
+
+def first_designs(mode):
+    """The first design's route and shade that ``mode``'s kernels are
+    checked and timed against in turns: ``("route_v1", "shade_v1")``
+    under the default mode, the parity modes' (kernels/step.py
+    ``PARITY_V1``) under parity, else ()."""
+    from rtjax_torch.kernels import step as S
+    if mode == "default":
+        return ("route_v1", "shade_v1")
+    if S.engine_of(mode).startswith("parity"):
+        return tuple(S.PARITY_V1[k] for k in S.MODE_KERNELS[mode][:2])
+    return ()
 
 
 def _clone(v):
@@ -263,7 +306,9 @@ def _clone(v):
 # writes; resolve under parity reads the default's 40 B and the limbo flag
 # and writes the radiance (12 B), and a limbo lane's order (under
 # "parity", 8 B) and record words (24 B) are read and its hit written (21
-# B).  Under one-sample MIS shade reads four words (32 B) and writes one
+# B).  Under the parity modes route writes and shade reads the camera
+# rank too (4 B; not in the first design's record words).  Under
+# one-sample MIS shade reads four words (32 B) and writes one
 # shadow ray (33 B), the channel's mask (1 B) and both channels' radiance
 # (24 B); resolve reads the radiance and both channels' (36 B), the NEE
 # mask and occlusion, the channel's mask and the hit flag (4 B), the hit's
@@ -278,6 +323,7 @@ SHADE_LIGHTS, SHADE_FLUSH = 90, 24
 RESOLVE_FULL_BYTES, RESOLVE_LIMBO, RESOLVE_ORDER = 53, 45, 8
 ONE_SAMPLE_WORD, SHADE_LIGHTS_1S, RESOLVE_1S_BYTES = 8, 58, 64
 RESOLVE_STATS, HIST_BIN = 5, 8
+RANK_WORD = 4
 
 
 def _bounds(scene, cfg, c):
@@ -317,6 +363,7 @@ def _bounds(scene, cfg, c):
     flushing = int((gen & ((r["acc"][0] != 0) | (r["acc"][1] != 0)
                            | (r["acc"][2] != 0))).sum())
     limbo = int(r["limbo"].sum())
+    v1 = first_designs(mode)
     if engine == "unsorted":
         nbytes = (n * (MERGED_BYTES - words + shade_l)
                   + SHADE_FLUSH * flushing, n * resolve + hist)
@@ -325,17 +372,51 @@ def _bounds(scene, cfg, c):
         parity = engine.startswith("parity")
         sort = engine in ("parity", "wide")
         wide = engine == "wide"
-        nbytes = (n * (ROUTE_FULL_BYTES + ROUTE_KEY * sort),
+        nbytes = (n * (ROUTE_FULL_BYTES + ROUTE_KEY * sort
+                       + RANK_WORD * parity),
                   n * (SHADE_FULL_BYTES - WIDE_NO_T * wide - words
-                       + SHADE_FLAG * parity + SHADE_ORDER * sort + shade_l)
+                       + SHADE_FLAG * parity + SHADE_ORDER * sort + shade_l
+                       + RANK_WORD * parity)
                   + SHADE_FLUSH * flushing,
                   (n * resolve + hist) if wide else
                   n * (RESOLVE_FULL_BYTES + RESOLVE_STATS * stats) + hist
                   + limbo * (RESOLVE_LIMBO + RESOLVE_ORDER * sort))
         ops = (C.ROUTE_OPS, C.SHADE_OPS, C.RESOLVE_OPS)
-    return ({k: C._step_bound(b, n * o)
-             for k, b, o in zip(kernels, nbytes, ops, strict=True)},
-            dict(flushing=flushing, limbo=limbo))
+    b = {k: C._step_bound(x, n * o)
+         for k, x, o in zip(kernels, nbytes, ops, strict=True)}
+    # the first design's record carries no rank: its bounds are the
+    # function's, which the parity modes' route and shade are held to
+    # beside their own (the rank word is the design's cost)
+    for k, first, x, o in zip(kernels, v1, nbytes, ops):
+        b[first] = C._step_bound(x - n * RANK_WORD, n * o)
+        b[k].update(function_bound_ms=b[first]["bound_ms"],
+                    function_bound_us=b[first]["bound_us"])
+    return b, dict(flushing=flushing, limbo=limbo)
+
+
+def design_blocks(scene, camera, cfg, state, words, fb, it, cam_start, c):
+    """``{kernel: argument block}`` of the route and shade launches of the
+    mode of ``c`` (from :func:`check_state`; not the unsorted engine) and
+    of its first design's (:func:`first_designs`), each made once on
+    copies of what it writes, for timing."""
+    from rtjax_torch.kernels import step as S
+    from rtjax_torch.render import wavefront as WF
+    mode = c["mode"]
+    default = S.engine_of(mode) == "default"
+    rec = "bundle" if default else "record"
+    # the full-record modes' shade takes no cadence
+    it, k = (it, WF.resolve_sort_every(scene, cfg)) if default else (0, 1)
+    out = {}
+    v1 = first_designs(mode)
+    for first, (route_k, shade_k) in ((False, S.MODE_KERNELS[mode][:2]),
+                                      *((True, v1),) * bool(v1)):
+        out[route_k] = S.route_args(scene, cfg, state, words, v1=first,
+                                    mode=mode)[0]
+        out[shade_k] = S.shade_args(
+            scene, camera, cfg, _copy(state), fb.clone(), words, c["order"],
+            c[rec + "_v1" * first], c["counts"].clone(), it, cam_start, k,
+            v1=first, mode=mode)[0]
+    return out
 
 
 def time_state(scene, camera, cfg, state, words, fb, it, cam_start, c,
@@ -380,21 +461,7 @@ def time_state(scene, camera, cfg, state, words, fb, it, cam_start, c,
     a_res = S.resolve_args(cfg, sh_copy(), occ, r_it, r_k, cam_start, rays,
                            rays.clone(), hits(), hist(), restore=parity)[0]
     fns = {kernels[-1]: call(kernels[-1], iter([a_res] * blocks))}
-    if engine == "default":
-        for v1 in (False, True)[:1 + (mode == "default")]:
-            suffix = "_v1" if v1 else ""
-            route_k = "route" + suffix
-            shade_k = "shade_v1" if v1 else kernels[1]
-            a_r = S.route_args(scene, cfg, state, words, v1=v1)[0]
-            a_s = S.shade_args(scene, camera, cfg, _copy(state), fb.clone(),
-                               words, c["order"], c["bundle" + suffix],
-                               c["counts"].clone(), it, cam_start, k,
-                               v1=v1)[0]
-            fns[route_k] = call(route_k, iter([a_r] * blocks))
-            fns[shade_k] = call(shade_k, iter([a_s] * blocks))
-        turns = ("route_v1", "route", "shade_v1", "shade", "resolve") \
-            if mode == "default" else kernels
-    elif engine == "unsorted":
+    if engine == "unsorted":
         zero = lambda: torch.zeros(S.NUM_COUNTS, dtype=torch.int64,
                                    device=dev)
         merged = [S.shade_args(scene, camera, cfg, _copy(state), fb.clone(),
@@ -403,14 +470,12 @@ def time_state(scene, camera, cfg, state, words, fb, it, cam_start, c,
         fns[kernels[0]] = call(kernels[0], iter(merged))
         turns = kernels
     else:
-        a_r = S.route_args(scene, cfg, state, words, mode=mode)[0]
-        a_s = S.shade_args(scene, camera, cfg, _copy(state), fb.clone(),
-                           words, c["order"], c["record"],
-                           c["counts"].clone(), 0, cam_start, 1,
-                           mode=mode)[0]
-        fns[kernels[0]] = call(kernels[0], iter([a_r] * blocks))
-        fns[kernels[1]] = call(kernels[1], iter([a_s] * blocks))
-        turns = kernels
+        for name, a in design_blocks(scene, camera, cfg, state, words, fb,
+                                     it, cam_start, c).items():
+            fns[name] = call(name, iter([a] * blocks))
+        v1 = first_designs(mode)
+        turns = (v1[0], kernels[0], v1[1], kernels[1], kernels[2]) \
+            if v1 else kernels
     bounds, work = _bounds(scene, cfg, c)
     out = {name: dict(ms=[], **bounds[name]) for name in turns}
     for name in turns + turns[::-1]:
@@ -418,6 +483,8 @@ def time_state(scene, camera, cfg, state, words, fb, it, cam_start, c,
     for name, r in out.items():
         r["mean_ms"] = statistics.mean(r["ms"])
         r["share"] = r["bound_ms"] / r["mean_ms"]
+        if "function_bound_ms" in r:
+            r["function_share"] = r["function_bound_ms"] / r["mean_ms"]
         r.update(S.kernel_info(name))
     # one wrapper call (the host's launch included) and one plain call of
     # each of the mode's kernels
@@ -460,7 +527,18 @@ def time_state(scene, camera, cfg, state, words, fb, it, cam_start, c,
             hist())
         plain[kernels[-1]] = lambda: S.resolve_full_ref(
             cfg, sh, occ, c["hits"], cam_start, rays, rays, mode, c["hist"])
-    for name in kernels:
+    if parity:
+        v1 = first_designs(mode)
+        one[v1[0]] = lambda: S.route_full_v1(scene, cfg, state, words, mode)
+        one[v1[1]] = lambda: S.shade_full_v1(
+            scene, camera, cfg, _copy(state), fb.clone(), words, c["order"],
+            c["record_v1"], c["counts"].clone(), cam_start, mode)
+        plain[v1[0]] = lambda: S.route_full_v1_ref(scene, cfg, state, words,
+                                                   mode)
+        plain[v1[1]] = lambda: S.shade_full_v1_ref(
+            scene, camera, cfg, fb.clone(), words, c["order"],
+            c["record_v1"], c["counts"], cam_start, mode)
+    for name in one:
         out[name]["one_call_ms"] = C._median_ms(one[name])
         out[name]["plain_ms"] = C._median_ms(plain[name])
     t = dict(kernels=out, lanes=n, **work)
@@ -513,14 +591,16 @@ def headline():
 
 def check_and_time(scene, camera, cfg, its=(0, 1, 2, 5, 12), time_it=12,
                    label="headline", card="", seed=7, log=print,
-                   sort_it=None, sort_out=None):
+                   sort_it=None, sort_out=None, variants=None):
     """The step kernels of ``cfg``'s mode on one cell: the pool stepped op
     by op from a fresh carry with seeded words, :func:`check_state` on the
     states of ``its`` and :func:`time_state` on the state of ``time_it``
-    (None: none); returns ``(mismatching lanes by kernel, framebuffer gap,
-    timings)``.  With ``sort_it`` (one of ``its``) the sort alone is timed
+    (None: none); returns ``(mismatching lanes by kernel, framebuffer gap
+    by kernel, timings)``.  With ``sort_it`` (one of ``its``) the sort alone is timed
     on that state's keys (:func:`sort_timing`) into the dict
-    ``sort_out``."""
+    ``sort_out``.  With ``variants`` (``(names, libraries)``) the
+    state of ``time_it`` also times them (:func:`time_variants`, under
+    ``timed["variants"]``)."""
     import torch
     from rtjax_torch.kernels import step as S
     from rtjax_torch.render import wavefront as WF
@@ -529,14 +609,14 @@ def check_and_time(scene, camera, cfg, its=(0, 1, 2, 5, 12), time_it=12,
     carry = WF.initial_carry(cfg, dev)
     carry = carry[:3] + (torch.zeros((), dtype=torch.int64,
                                      device=dev),) + carry[4:]
-    worst, gap, timed = {}, 0.0, None
+    worst, gap, timed = {}, {}, None
     for it in range(max(its) + 1):
         words = torch.randint(0, 1 << 32, (5, n), generator=g, device=dev,
                               dtype=torch.int64)
         if it in its:
             bad, err, c = check_state(scene, camera, cfg, carry[0], words,
                                       carry[1], carry[3], carry[2])
-            gap = max(gap, err)
+            merge_gaps(gap, err)
             total = {k: sum(v.values()) for k, v in bad.items()}
             for k, v in total.items():
                 worst[k] = worst.get(k, 0) + v
@@ -548,7 +628,8 @@ def check_and_time(scene, camera, cfg, its=(0, 1, 2, 5, 12), time_it=12,
             log(f"[step kernels {label} it {it}] {card}: {int(cnt[0])} of "
                 f"{n} continue, {int(cnt[4])} {kind}{sorts}; mismatching "
                 "lanes " + ", ".join(f"{k} {v}" for k, v in total.items())
-                + f"; framebuffer largest gap {err:.3e}")
+                + "; framebuffer largest gap " + ", ".join(
+                    f"{k} {v:.3e}" for k, v in err.items()))
             for k, v in bad.items():
                 if sum(v.values()):
                     log(f"  {k} mismatches by field: "
@@ -556,11 +637,153 @@ def check_and_time(scene, camera, cfg, its=(0, 1, 2, 5, 12), time_it=12,
             if it == time_it:
                 timed = time_state(scene, camera, cfg, carry[0], words,
                                    carry[1], carry[3], carry[2], c)
+                if variants is not None:
+                    timed["variants"] = time_variants(
+                        scene, camera, cfg, carry[0], words, carry[1],
+                        carry[3], carry[2], c, *variants)
             if it == sort_it:
                 sort_out.update(sort_timing(scene, cfg, c, carry[3]) or {})
         carry = WF.wavefront_step(scene, camera, cfg, words, carry,
                                   step_kernels=False)
     return worst, gap, timed
+
+
+# --variants: copies of the step library patched for timing, ``{name:
+# (cells, [(file, old, new), ...])}`` each patch applied to every
+# occurrence: default shade's launch bounds at (128) alone; on the parity
+# modes the own-triangle test out (the BSDF-MIS channel's target rows
+# unread and no ray-triangle test: its mask and tmax are wrong), the
+# parity shades' launch bounds at 5 and 6 blocks of 128 threads an SM,
+# and the parity routes' at 6 blocks of 256 threads (48 warps, as
+# route_parity_v1's)
+_OWN_TRI = ("step_math.cuh",
+            "    chs_hit = intersect_triangle(chs_o, s2.wi, INFINITY, "
+            "row3(a.tri_p0, own),\n"
+            "                                 row3(a.tri_e1, own), "
+            "row3(a.tri_e2, own),\n"
+            "                                 row3(a.tri_n, own), &chs_t, "
+            "&u, &v) &&\n"
+            "              src == 0;",
+            "    chs_t = 1.0f;\n    u = v = 0.0f;\n"
+            "    chs_hit = src == 0 && own >= 0;")
+PARITY_SHADES = ("shade_parity_kernel", "shade_parity_unsorted_kernel",
+                 "shade_parity_v1_kernel", "shade_parity_unsorted_v1_kernel")
+
+
+def _bounds_patch(kernels, old, new):
+    return [("step_kernels.cu", f"__launch_bounds__({old})\n    {k}(",
+             f"__launch_bounds__({new})\n    {k}(") for k in kernels]
+
+
+# the cells --variants times on by default (chip_smoke.py _mode_cells)
+VARIANT_CELLS = ("parity frame", "headline parity xla")
+STEP_VARIANTS = {
+    "shade_128": _bounds_patch(("shade_kernel",), "kShadeBlock, 1",
+                               "kShadeBlock"),
+    "no_own_triangle": [_OWN_TRI],
+    "20_warps": _bounds_patch(PARITY_SHADES, "kShadeBlock, 1",
+                              "kShadeBlock, 5"),
+    "24_warps": _bounds_patch(PARITY_SHADES, "kShadeBlock, 1",
+                              "kShadeBlock, 6"),
+    "route_48_warps": _bounds_patch(
+        ("route_parity_kernel", "route_parity_unsorted_kernel"), "kBlock",
+        "kBlock, kRouteBlocks")}
+
+
+def variant_source(name):
+    """``{file name: text}`` of csrc/step_kernels.cu and step_math.cuh
+    patched by ``STEP_VARIANTS[name]``."""
+    from rtjax_torch.kernels import _build
+    text = {f.name: f.read_text() for f in (_build.STEP_SOURCE,
+                                            _build.STEP_HEADER)}
+    for file, old, new in STEP_VARIANTS[name]:
+        if old not in text[file]:
+            raise RuntimeError(f"step variant {name}: a patch does not "
+                               f"apply to csrc/{file}")
+        text[file] = text[file].replace(old, new)
+    return text
+
+
+def patched_library(name, text):
+    """The step library built from ``text`` (``{file name: text}`` of
+    csrc/step_kernels.cu and step_math.cuh) under
+    ``build/rtjax_torch/variants/step_<name>/``: its path."""
+    from rtjax_torch.kernels import _build
+    d = _build.BUILD_DIR / "variants" / f"step_{name}"
+    d.mkdir(parents=True, exist_ok=True)
+    for file, t in text.items():
+        if not (d / file).exists() or (d / file).read_text() != t:
+            (d / file).write_text(t)
+    return _build._build(d / f"libstep_{name}.so", [d / "step_kernels.cu"],
+                         [_build.nvcc_path()] + _build.NVCC_FLAGS,
+                         (d / "step_math.cuh",))
+
+
+def time_variants(scene, camera, cfg, state, words, fb, it, cam_start, c,
+                  names, libs, reps=5):
+    """The mode's route and shade and its first design's (``c`` from
+    :func:`check_state`) in the engine's library and in each of ``libs``
+    (``{name: library}``), in turns: ``{lib: {kernel: {"ms": [...],
+    "mean_ms", registers...}}}``."""
+    import ctypes
+    import chip_smoke as C
+    import torch
+    from rtjax_torch.kernels import step as S
+    stream = torch.cuda.current_stream().cuda_stream
+    blocks = design_blocks(scene, camera, cfg, state, words, fb, it,
+                           cam_start, c)
+    every = {"engine": S._kernels(), **libs}
+    out = {lib: {k: dict(ms=[], **S.kernel_info(k, every[lib]))
+                 for k in blocks} for lib in every}
+    for lib in ("engine", *names, *names[::-1], "engine"):
+        for k, a in blocks.items():
+            entry = getattr(every[lib], f"rtjax_step_{k}")
+            out[lib][k]["ms"].append(C._launch_ms(
+                lambda: entry(ctypes.byref(a), stream), reps)[0])
+    for r in out.values():
+        for t in r.values():
+            t["mean_ms"] = statistics.mean(t["ms"])
+    return out
+
+
+def variants(names=None, cells=VARIANT_CELLS, time_it=30, card="",
+             log=print):
+    """``--variants``: the libraries of ``names`` (default: every variant
+    but ``shade_128``) built, then on each cell's state of ``time_it``
+    (``"headline"``, or a cell of chip_smoke.py ``_mode_cells``) the
+    kernels checked (:func:`check_and_time`: the mode's and the first
+    design's route and shade in turns) and the variants timed
+    (:func:`time_variants`)."""
+    import ctypes
+    import chip_smoke as C
+    from rtjax_torch.kernels import step as S
+    scene, camera = C.phase2_scene()
+    names = tuple(names or (k for k in STEP_VARIANTS if k != "shade_128"))
+    libs = {k: S.bind(ctypes.CDLL(str(patched_library(k, variant_source(k)))))
+            for k in names}
+    all_cells = {"headline": (scene, camera, C._headline_cfg()),
+                 **C._mode_cells(scene, camera)}
+    out = {}
+    for name in cells:
+        sc, cam, cfg = all_cells[name]
+        worst, _, timed = check_and_time(
+            sc, cam, cfg, (time_it,), time_it, label=name, card=card,
+            log=log, variants=(names, libs))
+        if any(worst.values()):
+            raise RuntimeError(f"{name}: the step kernels differ from their "
+                               f"plain versions: {worst}")
+        for k, r in timed["kernels"].items():
+            log(f"[step time {name} {k}] {card}: {r['mean_ms']:.4f} ms a "
+                f"launch (in turns {r['ms']}), {100 * r['share']:.2f}% of "
+                f"its bound ({r['bound_us']:.3f} us)")
+        for lib, r in timed["variants"].items():
+            log(f"[step variants {name} {lib}] {card}: " + "; ".join(
+                f"{k} {t['mean_ms']:.4f} ms (in turns {t['ms']}), "
+                f"{t['registers']} registers, {t['local_bytes']} local "
+                f"bytes, {t['warps_per_sm']} warps an SM"
+                for k, t in r.items()))
+        out[name] = timed
+    return out
 
 
 def run(its=(0, 1, 2, 5, 12), time_it=12):
@@ -588,70 +811,23 @@ def run(its=(0, 1, 2, 5, 12), time_it=12):
     return dict(kernels=table, mismatches=worst, fb_gap=gap, times=timed)
 
 
-def bounds_library(bounds):
-    """A copy of the step library built under ``build/`` with shade's
-    launch bounds ``SHADE_BOUNDS[bounds]``: ``(path, ptxas's line of
-    shade)``."""
-    from rtjax_torch.kernels import _build
-    src = _build.STEP_SOURCE.read_text()
-    tail = "\n    shade_kernel(const StepArgs a)"
-    if SHADE_BOUNDS["128x1"] + tail not in src:
-        raise RuntimeError("shade's launch bounds in csrc/step_kernels.cu "
-                           "are not SHADE_BOUNDS['128x1']")
-    d = _build.BUILD_DIR / f"step_bounds_{bounds}"
-    d.mkdir(parents=True, exist_ok=True)
-    (d / "step_kernels.cu").write_text(src.replace(
-        SHADE_BOUNDS["128x1"] + tail, SHADE_BOUNDS[bounds] + tail))
-    shutil.copy(_build.STEP_HEADER, d / "step_math.cuh")
-    lib = _build._build(d / f"libstep_bounds_{bounds}.so",
-                        [d / "step_kernels.cu"],
-                        [_build.nvcc_path()] + _build.NVCC_FLAGS,
-                        (d / "step_math.cuh",))
-    line = [res for name, res in _build.ptxas_report(lib)
-            if "shade_kernel" in name and "v1" not in name]
-    return lib, line[0]
-
-
-def bounds_ab(time_it=12):
-    """``--bounds-ab``: ``{bounds: [shade ms, ...]}``, each copy's steps
-    2-3 in turns (128x1, 128, 128, 128x1)."""
-    import ctypes
-    from rtjax_torch.kernels import step as S
-    scene, camera, cfg = headline()
-    libs = {b: bounds_library(b) for b in SHADE_BOUNDS}
-    for b, (_, line) in libs.items():
-        print(f"[step shade bounds {b}] {line}")
-    old, ms = S._lib, {}
-    try:
-        for b in ("128x1", "128", "128", "128x1"):
-            S._lib = S.bind(ctypes.CDLL(str(libs[b][0])))
-            worst, _, timed = check_and_time(scene, camera, cfg, (time_it,),
-                                             time_it, label=f"bounds {b}")
-            if any(worst.values()):
-                raise RuntimeError(f"shade with bounds {b} differs from its "
-                                   f"plain version: {worst}")
-            ms.setdefault(b, []).append(timed["kernels"]["shade"]["mean_ms"])
-    finally:
-        S._lib = old
-    for b, v in ms.items():
-        print(f"[step shade bounds {b}] shade {statistics.mean(v):.5f} ms a "
-              f"launch, in turns {v}")
-    return ms
-
-
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--its", default="0,1,2,5,12")
     ap.add_argument("--time-it", type=int, default=12)
-    ap.add_argument("--bounds-ab", action="store_true")
+    ap.add_argument("--variants", action="store_true")
+    ap.add_argument("--names", help="the variants to time (--variants; "
+                    "default every one but shade_128)")
+    ap.add_argument("--cells", default=",".join(VARIANT_CELLS))
     ap.add_argument("--out")
     args = ap.parse_args()
     import chip_smoke as C
     card = C.phase0_device()
     print(f"[card] {card}")
     C.phase1_build()
-    if args.bounds_ab:
-        out = bounds_ab(args.time_it)
+    if args.variants:
+        out = variants(args.names and args.names.split(","),
+                       args.cells.split(","), card=card)
     else:
         out = run(tuple(int(x) for x in args.its.split(",")), args.time_it)
     if args.out:
