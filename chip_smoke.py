@@ -303,9 +303,13 @@ the script exits non-zero):
    timed; the parity modes' route and shade (the camera rank taken by
    route in slot order and carried in the record) against their first
    design (route_parity_v1 / shade_parity_v1: the rank by shade's
-   look-back scan) bit for bit on every parity state, timed in turns,
-   and in captured frames in turns on the parity frame and the headline
-   parity frame under "xla" (_parity_designs: equal iterations, rays and
+   look-back scan), and the unsorted engine's route-and-shade (the rank
+   taken after the shading) against its first design
+   (route_shade_unsorted_v1 and _1s_v1: the scan before the shading),
+   bit for bit on every state of their modes, timed in turns, and in
+   captured frames in turns on the parity frame, the headline parity
+   frame under "xla", the headline under "xla" and under one_sample_mis
+   and sort_rays=False (_designs: equal iterations, rays and
    framebuffers, one profiled frame an arm: busy ms and events an
    iteration, route's and shade's ms a frame).  (e) The step's key sort (kernels/sort.py, csrc/key_sort.cu;
    in (a)-(d) too: bit for bit against torch.sort on every checked
@@ -1808,6 +1812,7 @@ def _counters():
             "step": (S.LAUNCHES, S.REF_CALLS),
             "step_v1": (S.V1_LAUNCHES, None),
             "step_parity_v1": (S.PARITY_V1_LAUNCHES, None),
+            "step_unsorted_v1": (S.UNSORTED_V1_LAUNCHES, None),
             # the step's key sort: once a sorted iteration of the kernels
             "sort": (SO.LAUNCHES, SO.REF_CALLS)}
 
@@ -2034,7 +2039,8 @@ def _step_once(counts, mode, iterations):
     return all(v == (iterations if k in mine else 0)
                for k, v in counts["step"].items()) \
         and not any(counts["step_v1"].values()) \
-        and not any(counts["step_parity_v1"].values())
+        and not any(counts["step_parity_v1"].values()) \
+        and not any(counts["step_unsorted_v1"].values())
 
 
 def _only_set(counts, kernel_set, iterations=None):
@@ -5428,32 +5434,40 @@ MODE_TIMED = {"unsorted": "headline xla", "parity": "parity frame",
               "parity_stats": "headline parity stats",
               "wide": "wide frame",
               "wide_1s_stats": "headline 126 bounces one_sample stats"}
-# the parity modes' first design (route and shade with the camera rank
-# taken by a look-back scan in shade), the kernels line's rows beside the
-# record design's, timed in turns with them on the same cells
-PARITY_V1_KERNELS = {
+# the first designs of the parity modes (route and shade with the camera
+# rank taken by a look-back scan in shade) and of the unsorted engine's
+# route and shade (the scan before the shading), the kernels line's rows
+# beside the engine's, timed in turns with them on the same cells
+V1_KERNELS = {
     "route_parity_v1": ("parity", "rtjax/render/wavefront.py:212"),
     "shade_parity_v1": ("parity", "rtjax/render/wavefront.py:437"),
     "route_parity_unsorted_v1": ("parity_unsorted",
                                  "rtjax/render/wavefront.py:212"),
     "shade_parity_unsorted_v1": ("parity_unsorted",
-                                 "rtjax/render/wavefront.py:437")}
+                                 "rtjax/render/wavefront.py:437"),
+    "route_shade_unsorted_v1": ("unsorted", "rtjax/render/wavefront.py:212"),
+    "route_shade_unsorted_1s_v1": ("unsorted_1s",
+                                   "rtjax/render/wavefront.py:486")}
 # the ptxas registers of the default instances, of the first designs and
 # of the unsorted engine's and parity's instances: they must not change
 # (the first design's shade takes the shadow rays' shared helper at 96,
 # resident warps as at 95: 16)
 STEP_REGISTERS = {"route": 40, "shade": 85, "resolve": 26, "route_v1": 40,
-                  "shade_v1": 96, "route_shade_unsorted": 103,
-                  "route_parity": 40, "shade_parity": 94,
+                  "shade_v1": 96, "route_shade_unsorted": 93,
+                  "route_shade_unsorted_1s": 96,
+                  "route_shade_unsorted_v1": 100,
+                  "route_shade_unsorted_1s_v1": 94,
+                  "route_parity": 40, "shade_parity": 95,
                   "resolve_parity": 28, "route_parity_unsorted": 40,
-                  "shade_parity_unsorted": 94, "route_parity_v1": 40,
-                  "shade_parity_v1": 104, "route_parity_unsorted_v1": 40,
-                  "shade_parity_unsorted_v1": 104}
-# the cells whose captured frames run the parity modes' record design
-# against their first design in turns (_parity_designs), and the order
-PARITY_DESIGN_CELLS = ("parity frame", "headline parity xla")
-PARITY_DESIGN_ORDER = (("kernels", 1), ("kernels", 2), ("v1", 1), ("v1", 2),
-                       ("v1", 3), ("kernels", 1), ("kernels", 3))
+                  "shade_parity_unsorted": 95, "route_parity_v1": 40,
+                  "shade_parity_v1": 99, "route_parity_unsorted_v1": 40,
+                  "shade_parity_unsorted_v1": 99}
+# the cells whose captured frames run the engine's design against the
+# first design in turns (_designs), and the order: a seed-1 frame
+# captures its arm's graph
+DESIGN_CELLS = ("parity frame", "headline parity xla", "headline xla",
+                "headline one_sample no_sort")
+DESIGN_ORDER = (("kernels", 1), ("kernels", 2), ("v1", 1), ("v1", 2))
 
 
 def _mode_cells(scene, camera):
@@ -5557,47 +5571,51 @@ def _mode_frames(name, sc, cam, cfg, card, profile=False, log=print):
     return dict(secs=secs, busy=busy, launches=got["kernels", 2][3]["step"])
 
 
-def _parity_designs(name, sc, cam, cfg, card, profile=True, log=print):
-    """The parity modes' kernels (route carrying the camera rank in the
-    record, shade reading it) against their first design
-    (``route_parity_v1`` / ``shade_parity_v1``: the rank by shade's
-    look-back scan) on one cell: captured frames in turns
-    (PARITY_DESIGN_ORDER), each seed's pair with equal iterations, rays
-    and occupancy and framebuffers within FB_RTOL, each arm's route and
-    shade once an iteration and the other arm's never; with ``profile``
-    one profiled frame an arm (seed 5 after a seed-1 warm-up): device
-    events and busy ms an iteration, route's and shade's device ms a
-    frame.  Returns ``{secs, busy, launches}``, ``launches`` the first
-    design's route and shade in its seed-2 frame."""
+def _designs(name, sc, cam, cfg, card, profile=True, log=print):
+    """The engine's kernels against their first design on one cell of
+    the parity modes (route carrying the camera rank in the record, shade
+    reading it, against ``route_parity_v1`` / ``shade_parity_v1``: the
+    rank by shade's look-back scan) or of the unsorted engine (its
+    route-and-shade taking the rank after the shading, against
+    ``route_shade_unsorted_v1``: the scan before it): captured frames in
+    turns (DESIGN_ORDER), the seed-2 pair with equal iterations, rays and
+    occupancy and framebuffers within FB_RTOL, each arm's kernels once an
+    iteration and the other arm's never; with ``profile`` one profiled
+    frame an arm (seed 5 after a seed-1 warm-up): device events and busy
+    ms an iteration, route's and shade's device ms a frame (the unsorted
+    engine's one kernel under both).  Returns ``{secs, busy,
+    launches}``, ``launches`` the first design's in its seed-2 frame."""
     import torch
     from rtjax_torch.kernels import step as S
     from rtjax_torch.render import graph as G
     mode = S.step_mode(sc, cfg)
     kernels = S.MODE_KERNELS[mode]
-    v1 = tuple(S.PARITY_V1[k] for k in kernels[:2])
-    got = _frames_in_turns(sc, cam, cfg, PARITY_DESIGN_ORDER)
+    parity = S.engine_of(mode).startswith("parity")
+    firsts, tally = (S.PARITY_V1, "step_parity_v1") if parity else \
+        (S.UNSORTED_V1, "step_unsorted_v1")
+    mine = kernels[:2] if parity else kernels[:1]
+    v1 = tuple(firsts[k] for k in mine)
+    got = _frames_in_turns(sc, cam, cfg, DESIGN_ORDER)
     secs = {arm: [f[0] for (a, _), f in got.items() if a == arm]
             for arm in ("kernels", "v1")}
-    for seed in (2, 3):
-        kf, vf = got["kernels", seed], got["v1", seed]
-        its = kf[2]["iterations"]
-        same = all(kf[2][k] == vf[2][k] for k in
-                   ("iterations", "rays_traced", "avg_occupancy"))
-        close = torch.allclose(kf[1], vf[1], rtol=FB_RTOL, atol=FB_ATOL)
-        steps = (_step_once(kf[3], mode, its) and not kf[3]["plain"]
-                 and not vf[3]["plain"]
-                 and vf[3]["step_parity_v1"] == {
-                     k: its * (k in v1) for k in S.PARITY_V1_LAUNCHES}
-                 and all(v == its * (k == kernels[2])
-                         for k, v in vf[3]["step"].items()))
-        log(f"[parity designs {name} seed {seed}] {card}: {its} iterations;"
-            f" kernels {kf[0]:.4f} s, first design {vf[0]:.4f} s; equal "
-            f"iterations, rays, occupancy {same}; each arm's route and shade"
-            f" once an iteration {steps} ({vf[3]['step_parity_v1']}); "
-            f"framebuffers within rtol {FB_RTOL} {close}")
-        if not (same and close and steps):
-            raise RuntimeError(f"{name} seed {seed}: the parity kernels' "
-                               "frame differs from the first design's")
+    kf, vf = got["kernels", 2], got["v1", 2]
+    its = kf[2]["iterations"]
+    same = all(kf[2][k] == vf[2][k] for k in
+               ("iterations", "rays_traced", "avg_occupancy"))
+    close = torch.allclose(kf[1], vf[1], rtol=FB_RTOL, atol=FB_ATOL)
+    steps = (_step_once(kf[3], mode, its) and not kf[3]["plain"]
+             and not vf[3]["plain"]
+             and vf[3][tally] == {k: its * (k in v1) for k in vf[3][tally]}
+             and all(v == its * (k in kernels and k not in mine)
+                     for k, v in vf[3]["step"].items()))
+    log(f"[designs {name} seed 2] {card}: {its} iterations; kernels "
+        f"{kf[0]:.4f} s, first design {vf[0]:.4f} s; equal iterations, "
+        f"rays, occupancy {same}; each arm's kernels once an iteration "
+        f"{steps} ({vf[3][tally]}); framebuffers within rtol {FB_RTOL} "
+        f"{close}")
+    if not (same and close and steps):
+        raise RuntimeError(f"{name}: the kernels' frame differs from the "
+                           "first design's")
     busy = {}
     for arm in ("kernels", "v1") if profile else ():
         G.clear_graphs()
@@ -5609,25 +5627,25 @@ def _parity_designs(name, sc, cam, cfg, card, profile=True, log=print):
             _set_design("record")
         del b["spans"]
         for part, k in zip(("route_ms", "shade_ms"),
-                           kernels[:2] if arm == "kernels" else v1):
+                           mine if arm == "kernels" else v1):
             b[part] = sum(v[0] for e, v in b["kernels"].items()
                           if f"{k}_kernel" in e)
+        b.setdefault("shade_ms", b["route_ms"])
         busy[arm] = b
     if profile:
         k_, v_ = busy["kernels"], busy["v1"]
-        log(f"[parity designs busy {name}] {card}: device events an "
-            f"iteration kernels {k_['events_per_it']:.1f} vs first design "
+        log(f"[designs busy {name}] {card}: device events an iteration "
+            f"kernels {k_['events_per_it']:.1f} vs first design "
             f"{v_['events_per_it']:.1f}; busy ms an iteration "
             f"{k_['device_ms_per_it']:.5f} vs {v_['device_ms_per_it']:.5f};"
             f" route ms a frame {k_['route_ms']:.3f} vs "
             f"{v_['route_ms']:.3f}, shade {k_['shade_ms']:.3f} vs "
             f"{v_['shade_ms']:.3f}; profiled frames {k_['wall']:.4f} vs "
             f"{v_['wall']:.4f} s ({k_['iterations']} iterations)")
-    log(f"[parity designs frames {name}] {card}: frame seconds kernels "
+    log(f"[designs frames {name}] {card}: frame seconds kernels "
         f"{secs['kernels']} vs first design {secs['v1']}")
     G.clear_graphs()
-    return dict(secs=secs, busy=busy,
-                launches=got["v1", 2][3]["step_parity_v1"])
+    return dict(secs=secs, busy=busy, launches=vf[3][tally])
 
 
 def _mode_time_text(t, card):
@@ -5713,8 +5731,8 @@ def phase14_mode_kernels(scene, camera, card):
                            f"plain versions: {worst}")
     frames = {name: _mode_frames(name, sc, cam, cfg, card)
               for name, (sc, cam, cfg) in cells.items()}
-    designs = {name: _parity_designs(name, *cells[name], card)
-               for name in PARITY_DESIGN_CELLS}
+    designs = {name: _designs(name, *cells[name], card)
+               for name in DESIGN_CELLS}
     for t in times.values():
         for line in _mode_time_text(t, card):
             print(line)
@@ -5748,17 +5766,17 @@ def _mode_rows(p14m, launches):
     return rows
 
 
-def _parity_v1_rows(p14m):
-    """The kernels line's rows of the parity modes' first design: on no
-    path of the engine (``launches`` 0), timed in turns with the record
-    design on its MODE_TIMED cell's state; ``in_turns_launches`` its
-    seed-2 frame's in :func:`_parity_designs`; a shade's ``max_abs_err``
-    its own framebuffer gap, as in :func:`_mode_rows`."""
+def _v1_rows(p14m):
+    """The kernels line's rows of the first designs of the parity modes
+    and of the unsorted engine's route and shade: on no path of the
+    engine (``launches`` 0), timed in turns with the engine's design on
+    its MODE_TIMED cell's state; ``in_turns_launches`` its seed-2 frame's
+    in :func:`_designs`; a shade's ``max_abs_err`` its own framebuffer
+    gap, as in :func:`_mode_rows`."""
     rows = []
-    for name, (mode, replaces) in PARITY_V1_KERNELS.items():
+    for name, (mode, replaces) in V1_KERNELS.items():
         r = p14m["times"][mode]["kernels"][name]
-        cell = {"parity": "parity frame",
-                "parity_unsorted": "headline parity xla"}[mode]
+        cell = MODE_TIMED[mode]
         rows.append(dict(
             name=f"step_{name}", route="cuda", source=STEP_SOURCE,
             replaces=replaces, launches=0,
@@ -5773,9 +5791,9 @@ def _parity_v1_rows(p14m):
                             events_per_it=b["events_per_it"],
                             route_ms=b["route_ms"], shade_ms=b["shade_ms"])
                   for arm, b in p14m["designs"][cell]["busy"].items()},
-            note=f"the parity modes' first design, on no path of "
-                 f"the engine; mode {mode}, timed in turns with the record "
-                 f"design on {MODE_TIMED[mode]}'s state"))
+            note=f"the first design of mode {mode}, on no path of the "
+                 f"engine; timed in turns with the engine's design on "
+                 f"{cell}'s state"))
     return rows
 
 
@@ -5956,7 +5974,7 @@ def main():
                 k: {"unsorted": xla_steps, "parity": modes["launches"]}.get(
                     m, p14m["frames"][MODE_TIMED[m]]["launches"])[k]
                 for k, (m, _) in MODE_STEP_KERNELS.items()}),
-            *_parity_v1_rows(p14m)]
+            *_v1_rows(p14m)]
     for k, rec in _big_rows(big).items():
         next(r for r in rows if r["name"] == k)["bigscene"] = rec
     for k in rows:

@@ -84,19 +84,23 @@
 // resident warps an SM against 104 and 16, and route 0.0492 against
 // 0.0435-0.0438 ms (NVIDIA H100 80GB HBM3, 700.00 W; tools/step_designs.py
 // --variants, PERF.md).  Every such lane flushes its non-zero radiance by
-// float atomics.  The first design
-// of parity's route and shade (route_parity_v1, shade_parity_v1 and their
-// unsorted instances, kept for timing in turns) ranked in shade by a
-// single-pass scan with decoupled look-back, the block that finished last
-// zeroing it for the next launch, as the unsorted engine's shade still
-// does.  On the unsorted engine without parity route and shade are one
-// kernel
-// (route_shade_unsorted: route's lanes in registers, no record): on the
-// headline's state under "xla" it took 0.0706-0.0712 ms against
-// 0.0906-0.0907 ms for the two kernels in turns (NVIDIA H100 80GB HBM3,
-// 700.00 W; tools/mode_steps.py --split-ab, PERF.md), at 103
-// registers against shade's 104.  Parity on the unsorted engine keeps
-// two kernels: its resolve restores limbo lanes from the record.
+// float atomics.  On the unsorted engine without parity route and shade
+// are one kernel (route_shade_unsorted: route's lanes in registers, no
+// record): on the headline's state under "xla" PR 18's merged kernel took
+// 0.0706-0.0712 ms against 0.0906-0.0907 ms for the two kernels in turns
+// (NVIDIA H100 80GB HBM3, 700.00 W; tools/mode_steps.py --split-ab,
+// PERF.md).  There the lanes that take a camera ray are the ones that do
+// not continue, which shade no path ray and read their rank only to make
+// their camera ray, so the kernel publishes each block's count of them
+// as soon as it has routed, shades, and only then takes the block's prefix
+// by the warp's look-back on a scratch of its own block count (route_shade
+// below): no block waits before it shades.  The first designs of both
+// (route_parity_v1, shade_parity_v1 and their unsorted instances;
+// route_shade_unsorted_v1 and _1s_v1; kept for timing in turns) ranked in
+// shade by a single-pass scan with decoupled look-back before the
+// shading, thread 0 walking back, the block that finished last zeroing
+// it for the next launch (shade_full).  Parity on the unsorted engine
+// keeps two kernels: its resolve restores limbo lanes from the record.
 //
 // The sorted engine's wide bundle (kWide: wavefront.py:418-432, past the
 // compact bundle's ranges; :305 k_sort 1) is the default estimator over
@@ -150,7 +154,7 @@ using rtjax_step::kFullWords;
 static_assert(kShadeBlock == rtjax_step::kScanBlock,
               "a shade block ranks kScanBlock lanes");
 static_assert(kBlock == rtjax_step::kRankBlock,
-              "a route block ranks kRankBlock slots");
+              "a parity route block ranks kRankBlock slots");
 
 // a release and acquire fence at the card's scope: all that the scan's
 // reset needs (__threadfence is the sequentially consistent fence.sc.gpu)
@@ -238,16 +242,23 @@ __device__ __forceinline__ unsigned rank_load(const unsigned* p) {
   return *reinterpret_cast<const volatile unsigned*>(p);
 }
 
-// block b's exclusive camera rank over the slots before it, by one warp
-// (``lane`` its lane): the block's count ``total`` published, then the
-// status words walked back kRankLook at a time, a lane a word (a block
-// before the first reads as a published prefix of 0), and the inclusive
-// prefix published (step_math.cuh rank_*)
+// block b's count ``total`` of lanes that take a camera ray published (block
+// 0: as its inclusive prefix), by one thread
+__device__ __forceinline__ void rank_publish(unsigned* status, int b,
+                                             unsigned total,
+                                             unsigned parity) {
+  atomicExch(status + b, rtjax_step::rank_word(parity, b == 0, total));
+}
+
+// block b's exclusive camera rank over the blocks before it, by one warp
+// (``lane`` its lane), after rank_publish: the status words walked back
+// kRankLook at a time, a lane a word (a block before the first reads as a
+// published prefix of 0), and the inclusive prefix published
+// (step_math.cuh rank_*)
 __device__ __forceinline__ unsigned rank_lookback(unsigned* status, int b,
                                                   unsigned total,
                                                   unsigned parity, int lane) {
   using namespace rtjax_step;
-  if (lane == 0) atomicExch(status + b, rank_word(parity, b == 0, total));
   if (b == 0) return 0;
   unsigned before = 0;
   for (int j = b - 1;;) {
@@ -314,6 +325,7 @@ __device__ __forceinline__ void route_ranked(const StepArgs& a) {
       if (w < lane) start += c;
       total += c;
     }
+    if (lane == 0) rank_publish(scratch + 1, b, total, parity);
     const unsigned p = rank_lookback(scratch + 1, b, total, parity, lane);
     if (lane < kWarps) warp_start[lane] = static_cast<int>(p) + start;
     if (lane < 2) {
@@ -472,16 +484,17 @@ __global__ void __launch_bounds__(kShadeBlock, 1)
   shade_sorted<rtjax_step::kWide, true>(a);
 }
 
-// the full-record modes' shade that ranks the camera rays itself (the
-// unsorted engine's, and the parity modes' first design): the block's
-// index from the scan's ticket,
-// each lane's record gathered (by the sort's order under kParity; on the
-// unsorted engine without parity, route's record made in registers and
-// the continuing paths counted here: route and shade in one kernel), the
-// block's lanes that take a camera ray counted by warp ballots and ranked
-// by the look-back scan (step_math.cuh), then the lanes shaded; every such
-// lane's non-zero radiance flushed by float atomics.  The block that
-// finishes its look-back last zeroes the scan buffer for the next launch
+// the first designs' shade, which ranks the camera rays itself before it
+// shades (the unsorted engine's route_shade_unsorted_v1 and _1s_v1, the
+// parity modes' shade_parity_v1 and its unsorted instance): the block's
+// index from the scan's ticket, each lane's record gathered (by the sort's
+// order under kParity; on the unsorted engine without parity, route's
+// record made in registers and the continuing paths counted here: route
+// and shade in one kernel), the block's lanes that take a camera ray
+// counted by warp ballots and ranked by the look-back scan
+// (step_math.cuh scan_*), then the lanes shaded; every such lane's
+// non-zero radiance flushed by float atomics.  The block that finishes
+// its look-back last zeroes the scan buffer for the next launch
 // (kernels/step.py scan_buffer).
 template <int kMode, bool kOneSample = false>
 __device__ __forceinline__ void shade_full(const StepArgs& a) {
@@ -550,13 +563,113 @@ __device__ __forceinline__ void shade_full(const StepArgs& a) {
 }
 
 __global__ void __launch_bounds__(kShadeBlock, 1)
-    route_shade_unsorted_kernel(const StepArgs a) {
+    route_shade_unsorted_v1_kernel(const StepArgs a) {
   shade_full<rtjax_step::kUnsorted>(a);
 }
 
 __global__ void __launch_bounds__(kShadeBlock, 1)
-    route_shade_unsorted_1s_kernel(const StepArgs a) {
+    route_shade_unsorted_1s_v1_kernel(const StepArgs a) {
   shade_full<rtjax_step::kUnsorted, true>(a);
+}
+
+// the unsorted engine's route and shade in one kernel, its camera rank
+// taken after the shading.  A lane that takes a camera ray (one that does
+// not continue: the engine has no limbo) needs only its rank, which no
+// other lane reads; the others never read it.  So a block takes its index
+// from a ticket on the rank's persistent scratch (a.scan, kernels/step.py
+// rank_scratch, a scratch a block count, never zeroed: step_math.cuh
+// rank_*), routes its lanes into registers, counts those that take a
+// camera ray (a barrier) and publishes the count at once; then it shades:
+// every lane's shadow rays and flush and the continuing lanes' next path
+// rays and state.  Only then does warp 0 take the block's prefix by the
+// look-back (rank_lookback) and publish its own; after one barrier the
+// camera lanes make their rays by rank, their records' ray, throughput
+// and pixel the only state held across it.  Forward progress: a block
+// publishes its count before it waits on anything, and it waits only on
+// blocks with lower tickets, which already run.  The look-back's latency
+// overlaps the block's own shading and that of every other block on the
+// SM.  The counts go out as one 64-bit atomic each a block (the traced
+// lanes: the continuing ones and the camera rays the block's prefix
+// leaves before the frame's end).  Three barriers
+template <bool kOneSample>
+__device__ __forceinline__ void route_shade(const StepArgs& a) {
+  using namespace rtjax_step;
+  constexpr int kWarps = kShadeBlock / 32;
+  __shared__ SmemTables smem;
+  __shared__ unsigned ticket, prefix;
+  // each warp's lanes that take a camera ray, send a NEE ray, an MIS ray
+  __shared__ int warp_count[3][kWarps];
+  auto* scratch = reinterpret_cast<unsigned*>(a.scan);
+  const int blocks = static_cast<int>(gridDim.x);
+  if (threadIdx.x == 0) ticket = atomicInc(scratch, rank_ticket_limit(blocks));
+  const Tables T = stage_tables(a, smem);  // its barrier publishes ticket
+  const unsigned parity = rank_parity(ticket, blocks);
+  const int b = rank_block(ticket, blocks);
+  const int i = b * kShadeBlock + threadIdx.x;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  FullRec r = {};
+  if (i < a.n) {
+    int2 w[kFullWords / 2];
+    route_lane<false, kUnsorted>(a, i, w);
+    r = full_from_words(w);
+  }
+  const bool gen = i < a.n && !r.mat;
+  const unsigned cams = __ballot_sync(0xFFFFFFFFu, gen);
+  if (lane == 0) warp_count[0][warp] = __popc(cams);
+  const int total = __syncthreads_count(gen);
+  if (threadIdx.x == 0) rank_publish(scratch + 1, b, total, parity);
+  FullShade f = {};
+  if (i < a.n) {
+    f = shade_full_math<kUnsorted, kOneSample>(a, i, T, r);
+    if (gen)
+      flush(a, f.s);
+    else
+      store_full<kUnsorted>(a, i, r, f, CameraRay{});
+  }
+  const unsigned nee = __ballot_sync(0xFFFFFFFFu, f.s.nee);
+  const unsigned mis = __ballot_sync(0xFFFFFFFFu, f.s.mis);
+  if (lane == 0) {
+    warp_count[1][warp] = __popc(nee);
+    warp_count[2][warp] = __popc(mis);
+  }
+  if (warp == 0) {
+    const unsigned p = rank_lookback(scratch + 1, b, total, parity, lane);
+    if (lane == 0) prefix = p;
+  }
+  __syncthreads();
+  if (threadIdx.x < 4) {
+    const int valid = min(kShadeBlock, a.n - b * kShadeBlock);
+    long long k = 0;
+    if (threadIdx.x == 0) {
+      k = valid - total;
+    } else if (threadIdx.x == 1) {
+      k = traced_lanes(a, valid, total, prefix);
+    } else {
+      for (int w = 0; w < kWarps; ++w) k += warp_count[threadIdx.x - 1][w];
+    }
+    if (k != 0)
+      atomicAdd(reinterpret_cast<unsigned long long*>(a.counts + threadIdx.x),
+                static_cast<unsigned long long>(k));
+  }
+  if (gen) {
+    int before = __popc(cams & ((1u << lane) - 1u));
+    for (int w = 0; w < warp; ++w) before += warp_count[0][w];
+    store_full<kUnsorted>(a, i, r, FullShade{},
+                          camera_full(a, i, prefix + before));
+  }
+}
+
+// at least five blocks an SM (20 warps): ptxas then takes 93 registers,
+// not 101, and a launch ran 2-7% faster in turns (the one-sample instance
+// takes 96 either way; tools/step_designs.py --variants, PERF.md)
+__global__ void __launch_bounds__(kShadeBlock, 5)
+    route_shade_unsorted_kernel(const StepArgs a) {
+  route_shade<false>(a);
+}
+
+__global__ void __launch_bounds__(kShadeBlock, 5)
+    route_shade_unsorted_1s_kernel(const StepArgs a) {
+  route_shade<true>(a);
 }
 
 __global__ void __launch_bounds__(kShadeBlock, 1)
@@ -806,6 +919,16 @@ extern "C" int rtjax_step_resolve_1s_stats(const StepArgs* a, void* stream) {
   return launch(resolve_1s_stats_kernel, kBlock, a, stream);
 }
 
+extern "C" int rtjax_step_route_shade_unsorted_v1(const StepArgs* a,
+                                                  void* stream) {
+  return launch(route_shade_unsorted_v1_kernel, kShadeBlock, a, stream);
+}
+
+extern "C" int rtjax_step_route_shade_unsorted_1s_v1(const StepArgs* a,
+                                                     void* stream) {
+  return launch(route_shade_unsorted_1s_v1_kernel, kShadeBlock, a, stream);
+}
+
 extern "C" int rtjax_step_resolve_parity_stats(const StepArgs* a,
                                                void* stream) {
   return launch(resolve_parity_stats_kernel, kBlock, a, stream);
@@ -837,7 +960,8 @@ extern "C" int rtjax_step_shade_parity_unsorted_v1(const StepArgs* a,
 // route_shade_unsorted_1s, 13 route_wide, 14 shade_wide, 15
 // shade_wide_1s, 16 resolve_1s, 17 resolve_stats, 18 resolve_1s_stats,
 // 19 resolve_parity_stats, 20 route_parity_v1, 21 shade_parity_v1, 22
-// route_parity_unsorted_v1, 23 shade_parity_unsorted_v1).
+// route_parity_unsorted_v1, 23 shade_parity_unsorted_v1, 24
+// route_shade_unsorted_v1, 25 route_shade_unsorted_1s_v1).
 extern "C" int rtjax_step_kernel_info(int which, int* regs, int* local,
                                       int* block, int* blocks) {
   switch (which) {
@@ -886,6 +1010,10 @@ extern "C" int rtjax_step_kernel_info(int which, int* regs, int* local,
                          local, block, blocks);
     case 23: return info(shade_parity_unsorted_v1_kernel, kShadeBlock, regs,
                          local, block, blocks);
+    case 24: return info(route_shade_unsorted_v1_kernel, kShadeBlock, regs,
+                         local, block, blocks);
+    case 25: return info(route_shade_unsorted_1s_v1_kernel, kShadeBlock,
+                         regs, local, block, blocks);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

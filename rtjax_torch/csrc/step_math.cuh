@@ -25,9 +25,11 @@
 // reference_parity kParity, both kParityUnsorted, and the sorted engine's
 // wide bundle kWide) carry a lane's state at full precision (kFullWords
 // words, kernels/step.py FULL_LAYOUT); all but kWide rank the camera rays
-// by an exclusive prefix sum (the parity modes' route in slot order, into
-// the record; the unsorted engine's shade, and the parity modes' first
-// design's, by a look-back scan).  One-sample MIS (kOneSample, shade and
+// by an exclusive prefix sum over blocks, by a warp's look-back on a
+// persistent scratch (rank_*): the parity modes' route in slot order,
+// into the record, and the unsorted engine's route and shade after its
+// shading (the first designs' shade by a look-back scan before it,
+// scan_*).  One-sample MIS (kOneSample, shade and
 // resolve) and detailed_stats' bounce histogram (kStats, resolve) are
 // template flags beside kMode.  Each mode's and flag's code paths compile
 // out of the other instances under ``if constexpr``.
@@ -1018,9 +1020,10 @@ __device__ __forceinline__ ShadeLane shade_lane(const StepArgs& a, int i,
 
 // ---------------------------------------------- the full-record modes
 
-// The camera rank's single-pass scan with decoupled look-back: a shade
-// block takes its index from the ticket (so a block waits only on blocks
-// that already run), publishes its count of lanes that take a camera ray
+// The first designs' camera rank, a single-pass scan with decoupled
+// look-back: a shade block takes its index from the ticket (so a block
+// waits only on blocks that already run), publishes its count of lanes
+// that take a camera ray
 // (kScanAggregate; block 0 its inclusive prefix, kScanPrefix), then sums
 // its predecessors' words back to the first inclusive prefix and
 // publishes its own.  A status word is one 64-bit store: the flag and the
@@ -1061,17 +1064,21 @@ __device__ __forceinline__ long long scan_lookback(
   return ex;
 }
 
-// The parity modes' camera rank, taken by route in slot order and carried
-// in the record (word 22): a lane's exclusive count among the slots'
-// lanes that take a camera ray.  The parity sort's keys have no dirty
-// class, so every such lane (and every limbo lane) takes the inactive key
-// and the stable sort keeps them in slot order: the count over slots is
-// the count over sorted positions that shade reads.  A route block of
-// kRankBlock slots takes its index from a ticket on a persistent scratch
-// (kernels/step.py rank_scratch, zeroed once): word 0 the ticket, which
-// atomicInc runs over [0, 2 * blocks), so that a launch takes [0, blocks)
-// or [blocks, 2 * blocks) and the ticket gives the block's index and the
-// launch's parity (two consecutive launches differ); then one status word
+// The camera rank by blocks on a persistent scratch: a lane's exclusive
+// count among the slots' lanes that take a camera ray.  The parity modes'
+// route takes it in slot order and carries it in the record (word 22):
+// the parity sort's keys have no dirty class, so every such lane (and
+// every limbo lane) takes the inactive key and the stable sort keeps them
+// in slot order, and the count over slots is the count over sorted
+// positions that shade reads.  The unsorted engine's route and shade
+// takes it over its own blocks after the shading.  A block (kRankBlock
+// slots of a parity route, kScanBlock lanes of the unsorted engine's
+// route and shade) takes its index from a ticket on a persistent scratch
+// (kernels/step.py rank_scratch, zeroed once, one a block count): word 0
+// the ticket, which atomicInc runs over [0, 2 * blocks), so that a launch
+// takes [0, blocks) or [blocks, 2 * blocks) and the ticket gives the
+// block's index and the launch's parity (two consecutive launches on a
+// scratch differ, whichever kernel made them); then one status word
 // a block, never zeroed: bit 31 the tag of the launch that wrote it (a
 // launch of parity q writes tag q ^ 1, so a fresh scratch's zeros and
 // every word of the launch before read as not published), bit 30 set on
@@ -1079,7 +1086,7 @@ __device__ __forceinline__ long long scan_lookback(
 // One 32-bit word: tag, flag and count cannot tear.  A block publishes its
 // count, then one warp walks back kRankLook words a step (a lane a word)
 // to the first prefix, and publishes its own.
-constexpr int kRankBlock = 256;   // slots a route block ranks
+constexpr int kRankBlock = 256;   // slots a parity route block ranks
 constexpr int kRankLook = 32;     // status words a look-back step reads
 constexpr unsigned kRankTag = 1u << 31;
 constexpr unsigned kRankPrefix = 1u << 30;
@@ -1132,14 +1139,23 @@ __device__ __forceinline__ RankStep rank_step(unsigned unpublished,
 }
 
 // shade (kernels/step.py shade_full_ref) of position i under a
-// full-record mode: ``r`` its record (gathered by the sort's order under
-// kParity, slot i on the unsorted engine), ``rank`` its exclusive rank
-// among the lanes that take a camera ray
+// full-record mode, in two parts: the shading (shade_full_math: a
+// continuing lane's BSDF sample and next path ray, every lane's shadow
+// rays and flush) and the camera ray of a lane that takes one
+// (camera_full, by its rank), then the merge (store_full).  ``r`` is the
+// lane's record (gathered by the sort's order under kParity, slot i on the
+// unsorted engine).  The camera part reads only the rank, the lane's
+// subpixel words and the camera, so a kernel may shade first and rank
+// after (step_kernels.cu route_shade)
+struct FullShade {
+  ShadeLane s;  // trace: r.mat; the camera ray's lanes add theirs
+  V3 next_o, next_d, next_beta;
+};
+
 template <int kMode, bool kOneSample = false>
-__device__ __forceinline__ ShadeLane shade_full_lane(const StepArgs& a,
+__device__ __forceinline__ FullShade shade_full_math(const StepArgs& a,
                                                      int i, const Tables& T,
-                                                     const FullRec& r,
-                                                     long long rank) {
+                                                     const FullRec& r) {
   const long long n = a.n;
   const long long* wd = a.words;
   const float u_pick = u01_lo(wd[i]);
@@ -1147,7 +1163,6 @@ __device__ __forceinline__ ShadeLane shade_full_lane(const StepArgs& a,
   const float luv1 = u01_hi(wd[2 * n + i]), luv2 = u01_lo(wd[2 * n + i]);
   const float b2u1 = kOneSample ? 0.0f : u01_hi(wd[3 * n + i]);
   const float b2u2 = kOneSample ? 0.0f : u01_lo(wd[3 * n + i]);
-  const float gen_u = u01_hi(wd[4 * n + i]), gen_v = u01_lo(wd[4 * n + i]);
   const int mtype = T.mtype[r.mi];
   const V3 albedo = row3(T.albedo, r.mi);
   const float ior = T.ior[r.mi];
@@ -1156,55 +1171,104 @@ __device__ __forceinline__ ShadeLane shade_full_lane(const StepArgs& a,
 
   const V3 n_g = neg(normalize(r.normal));
   Bsdf s1 = {};
-  V3 next_o = {}, next_beta = {};
+  FullShade f = {};
   if (r.mat) {
     s1 = sample_f(mtype, albedo, ior, r.d, n_g, b1u1, b1u2, b1u1);
-    next_o = offset_origin(p, s1.n);
-    next_beta = mul(r.beta, scale(dot(s1.wi, s1.n) / s1.pdf, s1.f));
-    if (!finite3(next_beta)) next_beta = {0.0f, 0.0f, 0.0f};
+    f.next_o = offset_origin(p, s1.n);
+    f.next_d = s1.wi;
+    f.next_beta = mul(r.beta, scale(dot(s1.wi, s1.n) / s1.pdf, s1.f));
+    if (!finite3(f.next_beta)) f.next_beta = {0.0f, 0.0f, 0.0f};
   }
-  ShadeLane s;
-  s.nee = s.mis = false;
+  f.s.nee = f.s.mis = false;
   if (a.num_lights > 0) {
     const ShadowLane sl = shadow_rays<(kMode & kParity) != 0, kOneSample>(
         a, i, T, r.mat, p, r.d, n_g, r.beta, mtype, albedo, ior, u_pick,
         luv1, luv2, b2u1, b2u2, r.prim, r.src, s1);
-    s.nee = sl.nee;
-    s.mis = sl.mis;
+    f.s.nee = sl.nee;
+    f.s.mis = sl.mis;
   }
+  // every lane that takes a camera ray (neither continuing nor in limbo)
+  // flushes
+  f.s.flush = !r.mat && !r.limbo;
+  f.s.pixel = r.pixel;
+  f.s.flushed = r.acc;
+  f.s.trace = r.mat;
+  return f;
+}
 
-  // camera generation by the rank: every lane that takes a camera ray
-  // (neither continuing nor in limbo) flushes
-  const bool gen = !r.mat && !r.limbo;
+// the camera ray of position i, a lane that takes one, by its exclusive
+// ``rank`` among such lanes; ``got`` false past the frame's last camera ray
+struct CameraRay {
+  bool got;
+  int pixel;
+  V3 d;
+};
+
+__device__ __forceinline__ CameraRay camera_full(const StepArgs& a, int i,
+                                                 long long rank) {
+  const long long n = a.n;
   const long long cam_id = *a.cam_start + rank;
-  const bool got_ray = gen && cam_id < a.cam_end;
-  int pix_new = 0;
-  V3 cam_d = {};
-  if (got_ray) {
+  CameraRay c = {cam_id < a.cam_end, 0, {}};
+  if (c.got) {
+    const long long w = a.words[4 * n + i];
+    const float gen_u = u01_hi(w), gen_v = u01_lo(w);
     const int pix_rank = static_cast<int>(
         min(cam_id / a.spp, static_cast<long long>(a.num_pixels) - 1));
-    pix_new = a.pixel_table ? a.pixel_table[pix_rank] : pix_rank;
-    const float ci = static_cast<float>(remainder(pix_new, a.width));
-    const float cj = static_cast<float>(floordiv(pix_new, a.width));
-    cam_d = camera_dir(a, div_host(ci + gen_u, static_cast<float>(a.width)),
-                       div_host(cj + gen_v, static_cast<float>(a.height)));
+    c.pixel = a.pixel_table ? a.pixel_table[pix_rank] : pix_rank;
+    const float ci = static_cast<float>(remainder(c.pixel, a.width));
+    const float cj = static_cast<float>(floordiv(c.pixel, a.width));
+    c.d = camera_dir(a, div_host(ci + gen_u, static_cast<float>(a.width)),
+                     div_host(cj + gen_v, static_cast<float>(a.height)));
   }
-  const V3 cam_o = {a.lookfrom[0], a.lookfrom[1], a.lookfrom[2]};
+  return c;
+}
 
-  s.flush = gen;
-  s.pixel = r.pixel;
-  s.flushed = r.acc;
+// the traced lanes of a block of ``valid`` lanes, ``total`` of them
+// taking camera rays with ranks from ``prefix`` on (consecutive): the
+// continuing lanes and the camera rays before the frame's end
+__device__ __forceinline__ long long traced_lanes(const StepArgs& a,
+                                                  int valid, unsigned total,
+                                                  unsigned prefix) {
+  const long long left = a.cam_end - (*a.cam_start + prefix);
+  return valid - static_cast<long long>(total) +
+         max(0LL, min(static_cast<long long>(total), left));
+}
+
+// the merge of position i: its next state from the shading ``f`` (a
+// continuing lane) or the camera ray ``c`` (a lane that takes one; a lane
+// past the frame's last camera ray keeps its ray, throughput and pixel
+// and is dead), a limbo lane's state kept
+template <int kMode>
+__device__ __forceinline__ void store_full(const StepArgs& a, int i,
+                                           const FullRec& r,
+                                           const FullShade& f,
+                                           const CameraRay& c) {
+  const bool gen = !r.mat && !r.limbo;
+  const bool got_ray = gen && c.got;
+  const V3 cam_o = {a.lookfrom[0], a.lookfrom[1], a.lookfrom[2]};
   store3(a.acc, i, gen ? V3{0.0f, 0.0f, 0.0f} : r.acc);
-  store3(a.ray_o, i, r.mat ? next_o : (got_ray ? cam_o : r.o));
-  store3(a.ray_d, i, r.mat ? s1.wi : (got_ray ? cam_d : r.d));
-  a.pixel[i] = got_ray ? pix_new : r.pixel;
+  store3(a.ray_o, i, r.mat ? f.next_o : (got_ray ? cam_o : r.o));
+  store3(a.ray_d, i, r.mat ? f.next_d : (got_ray ? c.d : r.d));
+  a.pixel[i] = got_ray ? c.pixel : r.pixel;
   store3(a.beta, i,
-         r.mat ? next_beta : (got_ray ? V3{1.0f, 1.0f, 1.0f} : r.beta));
+         r.mat ? f.next_beta : (got_ray ? V3{1.0f, 1.0f, 1.0f} : r.beta));
   a.bounces[i] = got_ray ? 0 : (gen ? kDeadBounces : r.bounces);
-  s.trace = r.mat || got_ray;
-  a.trace_mask[i] = s.trace ? 1 : 0;
+  a.trace_mask[i] = r.mat || got_ray ? 1 : 0;
   if constexpr ((kMode & kParity) != 0) a.limbo[i] = r.limbo ? 1 : 0;
-  return s;
+}
+
+// the three in one: shade of position i with its camera rank ``rank``
+template <int kMode, bool kOneSample = false>
+__device__ __forceinline__ ShadeLane shade_full_lane(const StepArgs& a,
+                                                     int i, const Tables& T,
+                                                     const FullRec& r,
+                                                     long long rank) {
+  FullShade f = shade_full_math<kMode, kOneSample>(a, i, T, r);
+  CameraRay c = {};
+  if (f.s.flush) c = camera_full(a, i, rank);
+  store_full<kMode>(a, i, r, f, c);
+  f.s.trace = r.mat || (f.s.flush && c.got);
+  return f.s;
 }
 
 // resolve (kernels/step.py resolve_ref) of lane i: the shadow results;

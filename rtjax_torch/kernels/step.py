@@ -88,13 +88,17 @@ its blocks on a persistent scratch (:func:`rank_scratch`), and carries it
 in the record's ``rank`` word: the parity sort gives every such lane the
 inactive key and is stable, so they keep their slot order and the count
 over slots is the count over sorted positions.  Shade reads it with the
-record.  The unsorted engine's shade ranks them itself by a single-pass
-scan with decoupled look-back (:func:`scan_buffer`), as parity's first
-design did (:func:`route_full_v1` / :func:`shade_full_v1`, kept for
-timing in turns: ``DESIGN = "v1"`` routes the parity modes there too).
-Under parity, resolve restores each limbo lane's hit from the record.  On the unsorted engine without parity route and shade
-are one kernel (:func:`route_shade_unsorted`), the record kept in
-registers.  The sorted engine's wide bundle ("wide", beyond
+record.  Under parity, resolve restores each limbo lane's hit from the
+record.  On the unsorted engine without parity route and shade are one
+kernel (:func:`route_shade_unsorted`), the record kept in registers: a
+block publishes its count of such lanes as soon as it has routed, shades,
+and only then takes its prefix by the same look-back on a scratch of its
+own block count, before its camera lanes make their rays.  The first
+designs (kept for timing in turns: ``DESIGN = "v1"`` routes the parity
+modes and the unsorted engine there, :func:`route_full_v1` /
+:func:`shade_full_v1`, :func:`route_shade_unsorted_v1`) rank in shade by
+a single-pass scan with decoupled look-back before the shading
+(:func:`scan_buffer`).  The sorted engine's wide bundle ("wide", beyond
 :func:`compact_bundle_ok`) is the default estimator over the full record
 (the hit point in its origin words): keyed with the dirty class, the
 camera rays into the dead suffix, the flush from the dirty window.
@@ -159,8 +163,10 @@ FULL_LAYOUT = (("ray_o", 0, 3), ("t", 3, 1), ("ray_d", 4, 3),
                ("bounces", 19, 1), ("flags", 20, 1), ("material", 21, 1),
                ("rank", 22, 1))
 # lanes a shade block ranks in the full-record modes (csrc kShadeBlock):
-# the camera rank's scan keeps a ticket, a count of finished blocks and one
-# status word a block (:func:`scan_buffer`)
+# the first designs' scan keeps a ticket, a count of finished blocks and
+# one status word a block (:func:`scan_buffer`); the unsorted engine's
+# route-and-shade blocks rank on a scratch of their own count
+# (:func:`rank_scratch`)
 SCAN_BLOCK = 128
 # slots a parity route block ranks (csrc kRankBlock): the rank's scratch
 # keeps a ticket and one status word a block (:func:`rank_scratch`); its
@@ -172,6 +178,10 @@ MAX_RANK_LANES = (1 << 30) - 1
 PARITY_V1 = {k: k + "_v1" for k in ("route_parity", "shade_parity",
                                      "route_parity_unsorted",
                                      "shade_parity_unsorted")}
+# the unsorted engine's first design (the rank taken by the look-back scan
+# before the shading), by the kernel it stands in for
+UNSORTED_V1 = {k: k + "_v1" for k in ("route_shade_unsorted",
+                                       "route_shade_unsorted_1s")}
 # the step's engines and the kernels each launches under the default
 # estimator without detailed_stats
 ENGINE_KERNELS = {
@@ -210,6 +220,7 @@ DESIGN = "record"
 LAUNCHES = {k: 0 for ks in MODE_KERNELS.values() for k in ks}
 V1_LAUNCHES = {"route": 0, "shade": 0}
 PARITY_V1_LAUNCHES = {k: 0 for k in PARITY_V1.values()}
+UNSORTED_V1_LAUNCHES = {k: 0 for k in UNSORTED_V1.values()}
 REF_CALLS = dict(LAUNCHES)
 
 _lock = threading.Lock()
@@ -549,9 +560,11 @@ def scan_words(n) -> int:
     return 2 + (n + SCAN_BLOCK - 1) // SCAN_BLOCK
 
 
-def rank_blocks(n) -> int:
-    """Route blocks of the parity modes' camera rank over ``n`` lanes."""
-    return (n + RANK_BLOCK - 1) // RANK_BLOCK
+def rank_blocks(n, block=RANK_BLOCK) -> int:
+    """Blocks of a camera rank over ``n`` lanes: the parity modes' route
+    blocks (``RANK_BLOCK`` slots), or with ``block`` SCAN_BLOCK the unsorted
+    engine's route-and-shade blocks."""
+    return (n + block - 1) // block
 
 
 def camera_rank(mat, limbo):
@@ -991,7 +1004,8 @@ class StepArgs(ctypes.Structure):
 _COUNTERS = {**{k: (LAUNCHES, k) for k in LAUNCHES},
              "route_v1": (V1_LAUNCHES, "route"),
              "shade_v1": (V1_LAUNCHES, "shade"),
-             **{k: (PARITY_V1_LAUNCHES, k) for k in PARITY_V1_LAUNCHES}}
+             **{k: (PARITY_V1_LAUNCHES, k) for k in PARITY_V1_LAUNCHES},
+             **{k: (UNSORTED_V1_LAUNCHES, k) for k in UNSORTED_V1_LAUNCHES}}
 # kernel ids of ``rtjax_step_kernel_info``
 KERNEL_IDS = {"route": 0, "shade": 1, "resolve": 2, "route_v1": 3,
               "shade_v1": 4, "route_shade_unsorted": 5, "route_parity": 6,
@@ -1002,7 +1016,8 @@ KERNEL_IDS = {"route": 0, "shade": 1, "resolve": 2, "route_v1": 3,
               "resolve_1s": 16, "resolve_stats": 17, "resolve_1s_stats": 18,
               "resolve_parity_stats": 19, "route_parity_v1": 20,
               "shade_parity_v1": 21, "route_parity_unsorted_v1": 22,
-              "shade_parity_unsorted_v1": 23}
+              "shade_parity_unsorted_v1": 23, "route_shade_unsorted_v1": 24,
+              "route_shade_unsorted_1s_v1": 25}
 
 
 def bind(lib):
@@ -1042,7 +1057,7 @@ def _kernels():
 
 
 _scans: dict = {}   # (device, stream, words) -> the scan buffer
-_ranks: dict = {}   # (device, route blocks) -> the rank's scratch
+_ranks: dict = {}   # (device, blocks) -> the rank's scratch
 
 
 def _card_device(device) -> torch.device:
@@ -1052,16 +1067,19 @@ def _card_device(device) -> torch.device:
     return device
 
 
-def rank_scratch(device, n: int) -> torch.Tensor:
-    """The persistent scratch of the parity modes' route over ``n`` lanes
-    on ``device``: int32 zeros, the ticket and one status word a route
-    block (:func:`rank_blocks`), made once outside any CUDA-graph capture
-    (a frame's eager first step makes it) and shared by every size with as
-    many blocks.  No launch zeroes it: the ticket gives each launch its
-    parity and the status words carry it (csrc/step_math.cuh rank_*).
-    Launches that share it run in stream order, as the port's do."""
+def rank_scratch(device, n: int, block=RANK_BLOCK) -> torch.Tensor:
+    """The persistent scratch of a camera rank over ``n`` lanes in blocks
+    of ``block`` on ``device`` (the parity modes' route; with SCAN_BLOCK
+    the unsorted engine's route and shade): int32 zeros, the ticket and one
+    status word a block (:func:`rank_blocks`), made once outside any
+    CUDA-graph capture (a frame's eager first step makes it) and shared by
+    every launch with as many blocks, of either kernel: each launch takes
+    exactly one ticket a block.  No launch zeroes it: the ticket gives each
+    launch its parity and the status words carry it (csrc/step_math.cuh
+    rank_*).  Launches that share it run in stream order, as the port's
+    do."""
     device = _card_device(device)
-    key = (str(device), rank_blocks(n))
+    key = (str(device), rank_blocks(n, block))
     with _lock:
         buf = _ranks.get(key)
     if buf is None:
@@ -1075,8 +1093,8 @@ def rank_scratch(device, n: int) -> torch.Tensor:
 
 
 def scan_buffer(device, stream: int, n: int) -> torch.Tensor:
-    """The unsorted engine's scan buffer (and the parity modes' first
-    design's) for shade launches of ``n`` lanes on ``stream``:
+    """The first designs' scan buffer (the unsorted engine's and the
+    parity modes') for shade launches of ``n`` lanes on ``stream``:
     ``scan_words(n)`` int64 zeros, made once and reused.
 
     Invariant: the buffer is zero between launches.  A shade launch takes
@@ -1222,6 +1240,15 @@ def _step_scalars(a, it, cam_start, dev):
     a.cam_start = _scalar("cam_start", cam_start, torch.int64, dev)
 
 
+def _rank_scratch(dev, n, block):
+    """:func:`rank_scratch` of a launch over ``n`` lanes; raises past the
+    rank's 30-bit counts."""
+    if n > MAX_RANK_LANES:
+        raise ValueError(f"the camera rank counts at most {MAX_RANK_LANES} "
+                         f"lanes, not {n}")
+    return rank_scratch(dev, n, block)
+
+
 def route_args(scene, cfg, state, words, v1=False, mode="default"):
     """``(argument block, (keys, bundle, counts))`` of a route launch (the
     first design's with ``v1``), its outputs allocated (``counts``
@@ -1243,10 +1270,7 @@ def route_args(scene, cfg, state, words, v1=False, mode="default"):
         a.bundle, a.counts = record.data_ptr(), counts.data_ptr()
         scratch = None
         if mode.startswith("parity") and not v1:
-            if n > MAX_RANK_LANES:
-                raise ValueError(f"the camera rank counts at most "
-                                 f"{MAX_RANK_LANES} lanes, not {n}")
-            scratch = rank_scratch(dev, n)
+            scratch = _rank_scratch(dev, n, RANK_BLOCK)
             a.scan = scratch.data_ptr()
         a.held = (state, words, keys, record, counts, scratch)
         return a, (keys, record, counts)
@@ -1263,9 +1287,10 @@ def shade_args(scene, camera, cfg, state, fb, words, order, bundle, counts,
                it, cam_start, sort_every, v1=False, mode="default"):
     """``(argument block, Shaded)`` of a shade launch (the first design's
     with ``v1``; under a full-record ``mode`` :func:`shade_full`'s, with
-    ``bundle`` the record, ``order`` None on the unsorted engine, and the
-    scan buffer of the current stream where shade ranks the camera rays:
-    the unsorted engine, the parity modes' first design with ``v1``):
+    ``bundle`` the record, ``order`` None on the unsorted engine, the
+    rank's scratch on the unsorted engine, and with ``v1`` there and under
+    the parity modes the first design's scan buffer of the current
+    stream):
     the outputs the kernel writes beside the state allocated, the shadow
     columns ``[2N]`` (``[N]`` and the BSDF-MIS mask under
     ``one_sample_mis``)."""
@@ -1300,9 +1325,12 @@ def shade_args(scene, camera, cfg, state, fb, words, order, bundle, counts,
     scan = None
     if full:
         out.record, out.order = bundle, order
-    if mode == "unsorted" or (mode.startswith("parity") and v1):
+    if v1 and (mode == "unsorted" or mode.startswith("parity")):
         scan = scan_buffer(dev, torch.cuda.current_stream(dev).cuda_stream,
                            n)
+    elif mode == "unsorted":
+        scan = _rank_scratch(dev, n, SCAN_BLOCK)
+    if scan is not None:
         a.scan = scan.data_ptr()
     if full:
         if mode.startswith("parity"):
@@ -1582,17 +1610,38 @@ def shade_full_v1(scene, camera, cfg, state, fb, words, order, record,
 def route_shade_unsorted(scene, camera, cfg, state, fb, words, cam_start):
     """:func:`route_full` and :func:`shade_full` of the unsorted engine
     (``step_mode`` "unsorted") as one kernel, route's record kept in
-    registers: a :class:`Shaded` without ``limbo`` and ``record``, its
-    ``counts`` the continuing paths in [0] (no lane is in limbo)."""
+    registers, the camera rank taken after the shading: a :class:`Shaded`
+    without ``limbo`` and ``record``, its ``counts`` the continuing paths
+    in [0] (no lane is in limbo).  Under ``DESIGN = "v1"``
+    :func:`route_shade_unsorted_v1` runs instead."""
+    if DESIGN == "v1":
+        return route_shade_unsorted_v1(scene, camera, cfg, state, fb, words,
+                                       cam_start)
+    return _route_shade(scene, camera, cfg, state, fb, words, cam_start,
+                        False)
+
+
+def route_shade_unsorted_v1(scene, camera, cfg, state, fb, words,
+                            cam_start):
+    """:func:`route_shade_unsorted` in its first design: the camera rank
+    taken before the shading by a look-back scan on :func:`scan_buffer`,
+    which the block that finishes last zeroes.  Its plain version is
+    :func:`route_shade_unsorted_ref`."""
+    return _route_shade(scene, camera, cfg, state, fb, words, cam_start,
+                        True)
+
+
+def _route_shade(scene, camera, cfg, state, fb, words, cam_start, v1):
     if not _on_card(state.pixel):
         return route_shade_unsorted_ref(scene, camera, cfg, state, fb, words,
                                         cam_start)
     dev = state.pixel.device
     a, out = shade_args(scene, camera, cfg, state, fb, words, None, None,
                         torch.zeros(NUM_COUNTS, dtype=torch.int64,
-                                    device=dev), 0, cam_start, 1,
+                                    device=dev), 0, cam_start, 1, v1=v1,
                         mode="unsorted")
-    launch(kernels_of(cfg, "unsorted")[0], a, dev)
+    name = kernels_of(cfg, "unsorted")[0]
+    launch(UNSORTED_V1[name] if v1 else name, a, dev)
     return out
 
 

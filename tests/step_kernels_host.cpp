@@ -4,21 +4,25 @@
 // kernels/step.py ``bind``, so that the real ctypes wrappers run it on CPU
 // tensors).  Each entry point of csrc/step_kernels.cu is a loop over the
 // lanes in order, the shared-memory tables as host copies, the atomics as
-// plain adds (so the flush adds in index_add_'s order).  The unsorted
-// engine's camera rank (and the parity modes' first design's) runs
+// plain adds (so the flush adds in index_add_'s order).  The first
+// designs' camera rank (the unsorted engine's and the parity modes') runs
 // step_math.cuh's look-back scan with every block publishing its count
 // first and the blocks then looking back from the last to the first, so
 // that each walks its predecessors' aggregates.  The parity modes' route
-// runs its blocks interleaved in a shuffled order on the persistent
-// scratch (a.scan): a block takes its ticket when it arrives, routes its
-// slots and publishes its count, then steps back kRankLook status words
-// at a time (rank_step over the words a warp's lanes would read), the
-// scheduler picking at random among the blocks yet to arrive and those
-// still looking back, so that a block meets unpublished words and words
-// of the launch before.
+// and the unsorted engine's route and shade run their blocks interleaved
+// in a shuffled order on the persistent scratch (a.scan, interleaved): a
+// block takes its ticket, later routes its lanes and publishes its count
+// (route and shade: then shades every lane but its camera rays), then
+// steps back kRankLook status words at a time (rank_step over the words a
+// warp's lanes would read), the scheduler picking at random among the
+// blocks yet to take a ticket and those that hold one, so that a block
+// meets unpublished words and words of the launch before and is set
+// aside at its look-back and resumed; when its walk ends the block takes
+// its ranks (route and shade: its camera lanes make their rays).
 #include <cmath>
 #include <cstring>
 #include <algorithm>
+#include <utility>
 #include <vector>
 #define __device__
 #define __forceinline__ inline
@@ -159,58 +163,134 @@ static unsigned shuffled(unsigned k) {  // a draw in [0, k)
   shuffle_state = shuffle_state * 6364136223846793005ULL + 1442695040888963407ULL;
   return static_cast<unsigned>(shuffle_state >> 33) % k;
 }
-template <int kMode> static int route_ranked(const StepArgs* a) {
-  const int n = a->n, blocks = (n + kRankBlock - 1) / kRankBlock;
-  unsigned* scratch = reinterpret_cast<unsigned*>(a->scan);
+// a ranked launch's ``blocks`` blocks interleaved on the persistent
+// ``scratch`` (the ticket, then one status word a block): ``arrive(b)`` a
+// block's work before it publishes, returning its count; ``shade(b)`` its
+// work between publishing and the look-back; ``done(b, before)`` its work
+// after, with its exclusive prefix.  A block takes its ticket, later
+// publishes, then looks back a step at a time: the scheduler picks at
+// random among the blocks yet to take a ticket and those that hold one,
+// so that a walk meets words its predecessors have not published yet
+// (theirs from the launch before, or a fresh scratch's zeros) and waits
+template <class Arrive, class Shade, class Done>
+static void interleaved(unsigned* scratch, int blocks, Arrive arrive,
+                        Shade shade, Done done) {
   unsigned* status = scratch + 1;
-  struct Block { int b, j; unsigned parity, total, before; bool done; };
-  std::vector<Block> run;  // the blocks that arrived, in ticket order
+  struct Block { int b, j; unsigned parity, total, before; bool published, done; };
+  std::vector<Block> run;  // the blocks that hold a ticket, in ticket order
   int live = 0;
   while (static_cast<int>(run.size()) < blocks || live > 0) {
     const int waiting = blocks - static_cast<int>(run.size());
     const unsigned pick = shuffled(static_cast<unsigned>(waiting + live));
-    if (static_cast<int>(pick) < waiting) {  // a block arrives
+    if (static_cast<int>(pick) < waiting) {  // a block takes its ticket
       const unsigned t = scratch[0];
       scratch[0] = t >= rank_ticket_limit(blocks) ? 0u : t + 1u;
-      Block k = {rank_block(t, blocks), 0, rank_parity(t, blocks), 0, 0, false};
-      for (int i = k.b * kRankBlock; i < min(n, (k.b + 1) * kRankBlock); ++i) {
-        RouteLane r = route_lane<false, kMode>(*a, i, reinterpret_cast<int2*>(a->bundle) + kFullWords / 2 * (long long)i);
-        a->counts[0] += r.mat;
-        a->counts[4] += r.limbo;
-        k.total += !r.mat && !r.limbo;
-      }
-      status[k.b] = rank_word(k.parity, k.b == 0, k.total);
-      k.j = k.b - 1;
-      k.done = k.b == 0;
-      run.push_back(k);
-      live += !k.done;
-    } else {  // one look-back step of a block still looking back
-      int m = static_cast<int>(pick) - waiting;
-      Block* k = nullptr;
-      for (Block& x : run) if (!x.done && m-- == 0) { k = &x; break; }
-      unsigned w[kRankLook], unpub = 0, pre = 0;
-      for (int l = 0; l < kRankLook; ++l) {
-        w[l] = k->j - l >= 0 ? status[k->j - l] : rank_word(k->parity, true, 0);
-        const bool pub = rank_published(w[l], k->parity);
-        unpub |= (!pub ? 1u : 0u) << l;
-        pre |= (pub && (w[l] & kRankPrefix) ? 1u : 0u) << l;
-      }
-      const RankStep st = rank_step(unpub, pre);
-      for (int l = 0; l < kRankLook; ++l)
-        if ((st.take >> l) & 1u) k->before += w[l] & kRankValue;
-      if (st.back >= 0) { k->j -= st.back; continue; }
-      status[k->b] = rank_word(k->parity, true, k->before + k->total);
-      k->done = true;
-      --live;
+      run.push_back({rank_block(t, blocks), 0, rank_parity(t, blocks), 0, 0,
+                     false, false});
+      ++live;
+      continue;
     }
+    int m = static_cast<int>(pick) - waiting;
+    Block* k = nullptr;
+    for (Block& x : run) if (!x.done && m-- == 0) { k = &x; break; }
+    if (!k->published) {  // it routes, publishes its count and shades
+      k->total = arrive(k->b);
+      status[k->b] = rank_word(k->parity, k->b == 0, k->total);
+      shade(k->b);
+      k->published = true;
+      k->j = k->b - 1;
+      if (k->b == 0) {
+        k->done = true;
+        --live;
+        done(k->b, 0u);
+      }
+      continue;
+    }
+    // one look-back step
+    unsigned w[kRankLook], unpub = 0, pre = 0;
+    for (int l = 0; l < kRankLook; ++l) {
+      w[l] = k->j - l >= 0 ? status[k->j - l] : rank_word(k->parity, true, 0);
+      const bool pub = rank_published(w[l], k->parity);
+      unpub |= (!pub ? 1u : 0u) << l;
+      pre |= (pub && (w[l] & kRankPrefix) ? 1u : 0u) << l;
+    }
+    const RankStep st = rank_step(unpub, pre);
+    for (int l = 0; l < kRankLook; ++l)
+      if ((st.take >> l) & 1u) k->before += w[l] & kRankValue;
+    if (st.back >= 0) { k->j -= st.back; continue; }
+    status[k->b] = rank_word(k->parity, true, k->before + k->total);
+    k->done = true;
+    --live;
+    done(k->b, k->before);
   }
-  for (const Block& k : run) {  // the ranks into the records' word 22
-    int rank = static_cast<int>(k.before);
-    for (int i = k.b * kRankBlock; i < min(n, (k.b + 1) * kRankBlock); ++i) {
-      int* w = a->bundle + kFullWords * (long long)i;
-      w[22] = rank;
-      rank += !(w[20] & 1) && !(w[20] & 2);
+}
+template <int kMode> static int route_ranked(const StepArgs* a) {
+  const int n = a->n, blocks = (n + kRankBlock - 1) / kRankBlock;
+  auto rec = [&](int i) { return a->bundle + kFullWords * (long long)i; };
+  interleaved(reinterpret_cast<unsigned*>(a->scan), blocks, [&](int b) {
+    unsigned total = 0;
+    for (int i = b * kRankBlock; i < min(n, (b + 1) * kRankBlock); ++i) {
+      RouteLane r = route_lane<false, kMode>(*a, i, reinterpret_cast<int2*>(rec(i)));
+      a->counts[0] += r.mat;
+      a->counts[4] += r.limbo;
+      total += !r.mat && !r.limbo;
     }
+    return total;
+  }, [](int) {}, [&](int b, unsigned before) {  // the ranks into word 22
+    int rank = static_cast<int>(before);
+    for (int i = b * kRankBlock; i < min(n, (b + 1) * kRankBlock); ++i) {
+      rec(i)[22] = rank;
+      rank += !(rec(i)[20] & 1) && !(rec(i)[20] & 2);
+    }
+  });
+  return 0;
+}
+// the unsorted engine's route and shade (step_kernels.cu route_shade): a
+// block routes and counts its camera lanes, publishes, shades every lane
+// but the camera rays (shade_full_math; the continuing lanes' state
+// stored, the flush kept for index_add_'s lane order), looks back, then
+// its camera lanes make their rays by rank (camera_full); the counts as
+// the kernel's (traced_lanes)
+template <bool kOneSample> static int route_shade(const StepArgs* a) {
+  Staged st;
+  const Tables T = stage(*a, st);
+  const int n = a->n, blocks = (n + kScanBlock - 1) / kScanBlock;
+  std::vector<FullRec> rec(n);
+  std::vector<ShadeLane> shaded(n);
+  std::vector<unsigned> total(blocks);
+  auto lanes = [&](int b) { return std::make_pair(b * kScanBlock, min(n, (b + 1) * kScanBlock)); };
+  interleaved(reinterpret_cast<unsigned*>(a->scan), blocks, [&](int b) {
+    for (int i = lanes(b).first; i < lanes(b).second; ++i) {
+      int2 w[kFullWords / 2];
+      route_lane<false, kUnsorted>(*a, i, w);
+      rec[i] = full_from_words(w);
+      total[b] += !rec[i].mat;
+    }
+    return total[b];
+  }, [&](int b) {
+    for (int i = lanes(b).first; i < lanes(b).second; ++i) {
+      const FullShade f = shade_full_math<kUnsorted, kOneSample>(*a, i, T, rec[i]);
+      shaded[i] = f.s;
+      if (rec[i].mat) store_full<kUnsorted>(*a, i, rec[i], f, CameraRay{});
+      a->counts[2] += f.s.nee;
+      a->counts[3] += f.s.mis;
+    }
+  }, [&](int b, unsigned before) {
+    const int valid = lanes(b).second - lanes(b).first;
+    a->counts[0] += valid - total[b];
+    a->counts[1] += traced_lanes(*a, valid, total[b], before);
+    long long rank = before;
+    for (int i = lanes(b).first; i < lanes(b).second; ++i)
+      if (!rec[i].mat)
+        store_full<kUnsorted>(*a, i, rec[i], FullShade{}, camera_full(*a, i, rank++));
+  });
+  for (int i = 0; i < n; ++i) {
+    const V3 v = shaded[i].flushed;
+    float* px = a->fb + 3 * (long long)shaded[i].pixel;
+    if (!shaded[i].flush) continue;
+    if (v.x != 0.0f) px[0] += v.x;
+    if (v.y != 0.0f) px[1] += v.y;
+    if (v.z != 0.0f) px[2] += v.z;
   }
   return 0;
 }
@@ -218,8 +298,10 @@ extern "C" int rtjax_step_route_parity(const StepArgs* a, void*) { return route_
 extern "C" int rtjax_step_route_parity_unsorted(const StepArgs* a, void*) { return route_ranked<kParityUnsorted>(a); }
 extern "C" int rtjax_step_route_parity_v1(const StepArgs* a, void*) { return route_full<kParity>(a); }
 extern "C" int rtjax_step_route_parity_unsorted_v1(const StepArgs* a, void*) { return route_full<kParityUnsorted>(a); }
-extern "C" int rtjax_step_route_shade_unsorted(const StepArgs* a, void*) { return shade_full<kUnsorted>(a); }
-extern "C" int rtjax_step_route_shade_unsorted_1s(const StepArgs* a, void*) { return shade_full<kUnsorted, true>(a); }
+extern "C" int rtjax_step_route_shade_unsorted(const StepArgs* a, void*) { return route_shade<false>(a); }
+extern "C" int rtjax_step_route_shade_unsorted_1s(const StepArgs* a, void*) { return route_shade<true>(a); }
+extern "C" int rtjax_step_route_shade_unsorted_v1(const StepArgs* a, void*) { return shade_full<kUnsorted>(a); }
+extern "C" int rtjax_step_route_shade_unsorted_1s_v1(const StepArgs* a, void*) { return shade_full<kUnsorted, true>(a); }
 extern "C" int rtjax_step_route_wide(const StepArgs* a, void*) { return route_full<kWide>(a); }
 template <int kMode> static int shade_ranked(const StepArgs* a) {
   Staged st;

@@ -1926,6 +1926,177 @@ def test_parity_rank_scratch_over_interleaved_sizes(cuda):
     assert sorted(seen.values()) == [6, 6]
 
 
+_UNSORTED_FIELDS = ("pixel", "ray_o", "ray_d", "beta", "bounces", "acc",
+                    "trace_mask", "counts", "shadow", "ah_L", "chs_L",
+                    "chs_mask")
+
+
+def _unsorted_cfg(n, one):
+    return RenderConfig(width=256, height=256, num_samples=16,
+                        max_bounces=5, num_working_paths=n,
+                        direct_max_tris=0, sort_rays=False,
+                        one_sample_mis=one)
+
+
+@pytest.mark.parametrize("n", [3000, (1 << 17) + 5, 1 << 18])
+@pytest.mark.parametrize("one", [False, True], ids=["mis", "one_sample"])
+def test_unsorted_designs_equal_plain_versions(cuda, one, n):
+    """The unsorted engine's route and shade (``route_shade_unsorted`` and
+    ``_1s``: the camera rank taken after the shading on the rank's
+    persistent scratch) and its first design (``_v1``: the look-back scan
+    before the shading) each bit for bit against the plain version on
+    synthetic pools at sizes that are and are not multiples of SCAN_BLOCK,
+    the frame's last camera rays among them on a second pool; the
+    framebuffer within the atomic adds' reordering; the two designs'
+    outputs equal; each wrapper launched its own kernel."""
+    from rtjax_torch.kernels import step as S
+    scene = _step_scene(cuda)
+    cam = Camera.make((0, 0.5, 3), (0, 0, 0), (0, 1, 0), 45, 1.0,
+                      device=cuda)
+    cfg = _unsorted_cfg(n, one)
+    kernel = S.MODE_KERNELS[S.step_mode(scene, cfg)][0]
+    g = torch.Generator(device=cuda).manual_seed(n % 1000 + one)
+    before, before_v1 = dict(S.LAUNCHES), dict(S.UNSORTED_V1_LAUNCHES)
+    for first in (12345, cfg.total_camera_rays - n // 4):
+        state = _synthetic_state(scene, cfg, g, cuda)
+        words = torch.randint(0, 1 << 32, (5, n), generator=g, device=cuda,
+                              dtype=torch.int64)
+        fb = torch.rand(cfg.num_pixels, 3, generator=g, device=cuda)
+        cam_start = torch.tensor(first, device=cuda)
+        fb0 = fb.clone()
+        sh0 = S.route_shade_unsorted_ref(scene, cam, cfg, state, fb0, words,
+                                         cam_start)
+        outs = {}
+        for design, step in (("record", S.route_shade_unsorted),
+                             ("v1", S.route_shade_unsorted_v1)):
+            fb1 = fb.clone()
+            sh1 = step(scene, cam, cfg, _copy_state(state), fb1, words,
+                       cam_start)
+            for f in _UNSORTED_FIELDS:
+                for j, (x, y) in enumerate(zip(_flat(getattr(sh1, f)),
+                                               _flat(getattr(sh0, f)),
+                                               strict=True)):
+                    assert _bits_equal(x, y), (design, f, j)
+            torch.testing.assert_close(fb1, fb0, rtol=1e-5, atol=1e-7)
+            outs[design] = sh1
+        for f in _UNSORTED_FIELDS:
+            for x, y in zip(_flat(getattr(outs["record"], f)),
+                            _flat(getattr(outs["v1"], f)), strict=True):
+                assert _bits_equal(x, y), f
+    # the second pool's camera lanes past the frame's end took no ray
+    assert int(sh0.counts[1]) < n
+    assert S.LAUNCHES[kernel] - before[kernel] == 2
+    assert {k: v - before_v1[k] for k, v in S.UNSORTED_V1_LAUNCHES.items()} \
+        == {v: 2 * (k == kernel) for k, v in S.UNSORTED_V1.items()}
+
+
+def test_unsorted_rank_scratch_over_interleaved_sizes(cuda, monkeypatch):
+    """Twelve consecutive route-and-shade launches of the unsorted engine
+    at two interleaved sizes, each on its persistent rank scratch of
+    SCAN_BLOCK-lane blocks (made fresh for the test), never zeroed, one
+    of them shared with parity route launches of as many blocks between
+    them: every output bit for bit the plain version's, and after each
+    launch the ticket 0 or the block count and every status word a
+    published inclusive prefix of the launch's parity."""
+    from rtjax_torch.kernels import step as S
+    monkeypatch.setattr(S, "_ranks", {})
+    scene = _step_scene(cuda)
+    cam = Camera.make((0, 0.5, 3), (0, 0, 0), (0, 1, 0), 45, 1.0,
+                      device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(9)
+    small, large = (1 << 17) + 5, (1 << 18) - 3
+    # the parity route's blocks of RANK_BLOCK slots at 2x the lanes
+    assert S.rank_blocks(2 * small) == S.rank_blocks(small, S.SCAN_BLOCK)
+    assert S.rank_scratch(cuda, 2 * small) is \
+        S.rank_scratch(cuda, small, S.SCAN_BLOCK)
+    seen = {}
+    for k in range(12):
+        n = (small, large)[k % 2]
+        blocks = S.rank_blocks(n, S.SCAN_BLOCK)
+        scratch = S.rank_scratch(cuda, n, S.SCAN_BLOCK)
+        if k % 4 == 0:
+            # a parity route on the shared scratch
+            cfg = _parity_cfg(2 * small, False)
+            st = _synthetic_state(scene, cfg, g, cuda)
+            w = torch.randint(0, 1 << 32, (5, cfg.pool_size), generator=g,
+                              device=cuda, dtype=torch.int64)
+            got = S.route_full(scene, cfg, st, w, "parity_unsorted")
+            want = S.route_full_ref(scene, cfg, st, w, "parity_unsorted")
+            for x, y in zip(got, want, strict=True):
+                assert (x is None and y is None) or _bits_equal(x, y), k
+            key = S.rank_blocks(small, S.SCAN_BLOCK)
+            seen[key] = seen.get(key, 0) + 1
+        cfg = _unsorted_cfg(n, k % 3 == 1)
+        state = _synthetic_state(scene, cfg, g, cuda)
+        words = torch.randint(0, 1 << 32, (5, n), generator=g, device=cuda,
+                              dtype=torch.int64)
+        fb = torch.rand(cfg.num_pixels, 3, generator=g, device=cuda)
+        cam_start = torch.tensor(100 * k, device=cuda)
+        fb0, fb1 = fb.clone(), fb.clone()
+        sh0 = S.route_shade_unsorted_ref(scene, cam, cfg, state, fb0, words,
+                                         cam_start)
+        sh1 = S.route_shade_unsorted(scene, cam, cfg, _copy_state(state),
+                                     fb1, words, cam_start)
+        for f in _UNSORTED_FIELDS:
+            for j, (x, y) in enumerate(zip(_flat(getattr(sh1, f)),
+                                           _flat(getattr(sh0, f)),
+                                           strict=True)):
+                assert _bits_equal(x, y), (k, f, j)
+        torch.testing.assert_close(fb1, fb0, rtol=1e-5, atol=1e-7)
+        parity = seen.get(blocks, 0) % 2
+        seen[blocks] = seen.get(blocks, 0) + 1
+        gen = ~S.unpack_full(S._route_full(scene, cfg, state, words,
+                                           "unsorted")[1])["mat"]
+        assert int(scratch[0]) == (0 if parity else blocks)
+        status = scratch[1:].to(torch.int64) & 0xFFFFFFFF
+        cams = torch.cumsum(gen, 0)[torch.clamp(
+            torch.arange(1, blocks + 1, device=cuda) * S.SCAN_BLOCK,
+            max=n) - 1]
+        assert torch.equal(status & ((1 << 30) - 1), cams), k
+        assert bool((status >> 30).eq(3 - 2 * parity).all())
+    assert sorted(seen.values()) == [6, 9]
+
+
+@pytest.mark.parametrize("design", ["record", "v1"])
+@pytest.mark.parametrize("change", [dict(sort_rays=False),
+                                    dict(traversal="xla"),
+                                    dict(sort_rays=False,
+                                         one_sample_mis=True)], ids=str)
+def test_unsorted_frame_captured_equals_the_eager_loop(cuda, monkeypatch,
+                                                       change, design):
+    """A captured frame of the unsorted engine (the rank's scratch made by
+    the frame's eager first step, outside the capture) against the same
+    loop run eagerly, under each design: the same iterations, rays,
+    occupancy, counts and launches (the design's route-and-shade once an
+    iteration, the other never), the framebuffers within the atomic adds'
+    reordering."""
+    from rtjax_torch.kernels import step as S
+    from rtjax_torch.render import graph as G
+    monkeypatch.setattr(S, "DESIGN", design)
+    monkeypatch.setattr(S, "_ranks", {})
+    G.clear_graphs()
+    scene, cam = _graph_scene("planes", cuda)
+    cfg = RenderConfig(width=32, height=32, num_samples=8, max_bounces=4,
+                       num_working_paths=4096, direct_max_tris=0, **change)
+    assert S.engine_of(S.step_mode(scene, cfg)) == "unsorted"
+    kernel = S.MODE_KERNELS[S.step_mode(scene, cfg)][0]
+    launches, firsts = dict(S.LAUNCHES), dict(S.UNSORTED_V1_LAUNCHES)
+    (fb, st, ran, gs), (fb0, st0, ran0, gs0) = _graph_vs_eager(scene, cam,
+                                                               cfg)
+    G.clear_graphs()
+    assert st["graphed"] and not st0["graphed"]
+    for k in st0:
+        if k not in ("graphed", "host_reads", "bounce_histogram"):
+            assert st[k] == st0[k], k
+    assert ran == ran0 and ran and torch.equal(gs, gs0)
+    torch.testing.assert_close(fb, fb0, rtol=1e-5, atol=1e-7)
+    assert bool(torch.isfinite(fb).all()) and float(fb.sum()) > 0
+    ours = S.LAUNCHES[kernel] - launches[kernel]
+    theirs = S.UNSORTED_V1_LAUNCHES[S.UNSORTED_V1[kernel]] - \
+        firsts[S.UNSORTED_V1[kernel]]
+    assert (ours > 0, theirs > 0) == (design == "record", design == "v1")
+
+
 def test_parity_kernels_replay_in_a_captured_graph(cuda):
     """Parity's route, the key sort and shade captured in a CUDA graph
     (the rank's and the sort's scratches made by an eager launch first,

@@ -1383,6 +1383,224 @@ def test_rank_scratch_across_launches(mixed, monkeypatch, engine):
     assert S.rank_scratch("cpu", 517) is S.rank_scratch("cpu", 768)
 
 
+def _unsorted_outputs(sh):
+    """A route-and-shade's outputs, flattened (the unsorted engine)."""
+    return _flat(tuple(getattr(sh, f) for f in (
+        "pixel", "ray_o", "ray_d", "beta", "bounces", "acc", "trace_mask",
+        "counts", "shadow", "ah_L", "chs_L", "chs_mask")))
+
+
+def _held_to_plain(got, want):
+    """Integers and masks bit for bit, floats at rtol 1e-4 (the host's sin,
+    cos and the card's division by a host scalar differ from torch's CPU
+    ones, as the other host-compiled tests)."""
+    for x, y in zip(_unsorted_outputs(got), _unsorted_outputs(want),
+                    strict=True):
+        if x.dtype == torch.float32:
+            torch.testing.assert_close(x, y, rtol=1e-4, atol=1e-5,
+                                       equal_nan=True)
+        else:
+            assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("n", [4 * S.SCAN_BLOCK, 4 * S.SCAN_BLOCK + 5,
+                               8 * S.SCAN_BLOCK - 24])
+@pytest.mark.parametrize("one", [False, True], ids=["mis", "one_sample"])
+@pytest.mark.parametrize("tail", [False, True], ids=["mid", "tail"])
+def test_host_route_shade_unsorted_designs_match(mixed, monkeypatch, n, one,
+                                                 tail):
+    """The unsorted engine's route and shade compiled as host C++ in both
+    designs: the new one (its blocks interleaved in a shuffled order, each
+    publishing its count, shading, then set aside at its look-back and
+    resumed before its camera lanes take their rays; a fresh scratch) and
+    the first design (the look-back scan before the shading) give the same
+    outputs and framebuffer bit for bit, and the plain version's
+    (integers, masks and counts bit for bit; floats as the other host
+    tests).  At sizes that are and are not multiples of SCAN_BLOCK, both
+    estimators, and with ``tail`` the frame's last camera rays among the
+    block's lanes (some camera lanes past the end keep their rays and die)."""
+    _, _, scene, cam = mixed
+    cfg = _cfg(num_working_paths=n, sort_rays=False, **(_ONE if one else {}))
+    assert S.step_mode(scene, cfg) == "unsorted" + "_1s" * one
+    state = _synthetic_state(scene, cfg, 110 + n)
+    words = _words(111 + n, n)
+    fb = torch.tensor(np.random.default_rng(n).uniform(
+        0, 2, (cfg.num_pixels, 3)).astype(np.float32))
+    gen = ~S.unpack_full(S._route_full(scene, cfg, state, words,
+                                       "unsorted")[1])["mat"]
+    assert 0 < int(gen.sum()) < n
+    first = cfg.total_camera_rays - int(gen.sum()) // 2 if tail else 301
+    cam_start = torch.tensor(first)
+    fb0, fb1, fb2 = fb.clone(), fb.clone(), fb.clone()
+    sh0 = S.route_shade_unsorted_ref(scene, cam, cfg, state, fb0, words,
+                                     cam_start)
+    monkeypatch.setattr(S, "_ranks", {})
+    _on_host(monkeypatch)
+    names, real = [], S.launch
+    monkeypatch.setattr(S, "launch", lambda name, a, dev: (
+        names.append(name), real(name, a, dev)))
+    sh1 = S.route_shade_unsorted(scene, cam, cfg, _copy_state(state), fb1,
+                                 words, cam_start)
+    sh2 = S.route_shade_unsorted_v1(scene, cam, cfg, _copy_state(state), fb2,
+                                    words, cam_start)
+    kernel = S.MODE_KERNELS[S.step_mode(scene, cfg)][0]
+    assert names == [kernel, S.UNSORTED_V1[kernel]]
+    for x, y in zip(_unsorted_outputs(sh1), _unsorted_outputs(sh2),
+                    strict=True):
+        assert torch.equal(_bits(x), _bits(y))
+    _held_to_plain(sh1, sh0)
+    assert torch.equal(_bits(fb1), _bits(fb2))
+    assert torch.equal(_bits(fb1), _bits(fb0)) and not torch.equal(fb1, fb)
+    dead = gen & ~sh0.trace_mask
+    assert bool(dead.any()) == tail
+    assert int(sh1.counts[1]) == int(sh0.trace_mask.sum())
+
+
+# route-and-shade launches on its rank scratches: sizes of five shade
+# blocks (517 and 640 share a scratch) and of nine, interleaved
+_SHADE_LAUNCHES = (517, 1124, 640, 1124, 517, 640, 640, 1124, 517, 1124)
+
+
+def _status_after(scratch, gen, block, launches):
+    """Whether ``scratch`` holds what the ``launches``-th launch on it (of
+    blocks of ``block`` lanes over the camera lanes ``gen``) leaves: the
+    ticket at 0 or the block count, every status word that launch's
+    inclusive prefix, tagged with its parity."""
+    n = gen.shape[0]
+    blocks = S.rank_blocks(n, block)
+    parity = (launches - 1) % 2
+    ends = torch.cumsum(gen, 0)[torch.clamp(
+        torch.arange(1, blocks + 1) * block, max=n) - 1]
+    status = scratch[1:].to(torch.int64) & 0xFFFFFFFF
+    return (scratch.shape == (1 + blocks,)
+            and int(scratch[0]) == (0 if parity else blocks)
+            and torch.equal(status & ((1 << 30) - 1), ends)
+            and bool((status & (1 << 30)).bool().all())
+            and bool(((status >> 31) == (1 - parity)).all()))
+
+
+def test_route_shade_scratch_across_launches(mixed, monkeypatch):
+    """The unsorted engine's route and shade on the host-compiled kernels,
+    its blocks interleaved in a shuffled order, over consecutive launches
+    at mixed sizes on its persistent scratches (:func:`rank_scratch` of
+    SCAN_BLOCK-lane blocks, one a block count, never zeroed: six launches
+    on one, four on the other): every output the plain version's, and
+    after each launch the ticket 0 or the block count and every status
+    word a published inclusive prefix tagged with the launch's parity."""
+    _, _, scene, cam = mixed
+    monkeypatch.setattr(S, "_ranks", {})
+    _on_host(monkeypatch)
+    launches = {}
+    for k, n in enumerate(_SHADE_LAUNCHES):
+        cfg = _cfg(num_working_paths=n, sort_rays=False)
+        state = _synthetic_state(scene, cfg, 120 + k)
+        words = _words(130 + k, n)
+        fb = torch.zeros(cfg.num_pixels, 3)
+        cam_start = torch.tensor(17 * k)
+        monkeypatch.setattr(S, "_on_card", lambda t: False)
+        want = S.route_shade_unsorted(scene, cam, cfg, state, fb.clone(),
+                                      words, cam_start)
+        monkeypatch.setattr(S, "_on_card", lambda t: True)
+        got = S.route_shade_unsorted(scene, cam, cfg, _copy_state(state),
+                                     fb.clone(), words, cam_start)
+        _held_to_plain(got, want)
+        gen = ~S.unpack_full(S._route_full(scene, cfg, state, words,
+                                           "unsorted")[1])["mat"]
+        blocks = S.rank_blocks(n, S.SCAN_BLOCK)
+        launches[blocks] = launches.get(blocks, 0) + 1
+        assert _status_after(S.rank_scratch("cpu", n, S.SCAN_BLOCK), gen,
+                             S.SCAN_BLOCK, launches[blocks])
+    assert launches == {5: 6, 9: 4}
+    assert S.rank_scratch("cpu", 517, S.SCAN_BLOCK) is \
+        S.rank_scratch("cpu", 640, S.SCAN_BLOCK)
+
+
+def test_route_shade_shares_the_parity_route_scratch(mixed, monkeypatch):
+    """A route-and-shade launch of the unsorted engine (SCAN_BLOCK lanes a
+    block) and a parity route launch (RANK_BLOCK slots a block) with as
+    many blocks share one scratch, since each launch takes exactly one
+    ticket a block: launched in turns on the host-compiled kernels, each
+    gives its plain version's outputs and leaves the ticket and the status
+    words of the launch it is in the sequence."""
+    _, _, scene, cam = mixed
+    monkeypatch.setattr(S, "_ranks", {})
+    _on_host(monkeypatch)
+    n_u, n_p = 8 * S.SCAN_BLOCK - 3, 8 * S.RANK_BLOCK - 11
+    assert S.rank_blocks(n_u, S.SCAN_BLOCK) == S.rank_blocks(n_p) == 8
+    scratch = S.rank_scratch("cpu", n_u, S.SCAN_BLOCK)
+    assert S.rank_scratch("cpu", n_p) is scratch
+    for k, engine in enumerate(("unsorted", "parity", "unsorted",
+                                "parity_unsorted", "parity", "unsorted")):
+        n = n_u if engine == "unsorted" else n_p
+        cfg = _cfg(num_working_paths=n, sort_rays=engine == "parity",
+                   **({} if engine == "unsorted" else _PARITY))
+        state = _synthetic_state(scene, cfg, 140 + k)
+        words = _words(150 + k, n)
+        monkeypatch.setattr(S, "_on_card", lambda t: False)
+        if engine == "unsorted":
+            fb = torch.zeros(cfg.num_pixels, 3)
+            want = S.route_shade_unsorted(scene, cam, cfg, state, fb.clone(),
+                                          words, torch.tensor(5))
+            monkeypatch.setattr(S, "_on_card", lambda t: True)
+            got = S.route_shade_unsorted(scene, cam, cfg, _copy_state(state),
+                                         fb.clone(), words, torch.tensor(5))
+            _held_to_plain(got, want)
+            gen = ~S.unpack_full(S._route_full(scene, cfg, state, words,
+                                               "unsorted")[1])["mat"]
+            block = S.SCAN_BLOCK
+        else:
+            want = S.route_full(scene, cfg, state, words, engine)
+            monkeypatch.setattr(S, "_on_card", lambda t: True)
+            got = S.route_full(scene, cfg, state, words, engine)
+            for x, y in zip(got, want, strict=True):
+                assert (x is None and y is None) or torch.equal(x, y)
+            r = S.unpack_full(got[1])
+            gen = ~r["mat"] & ~r["limbo"]
+            block = S.RANK_BLOCK
+        assert _status_after(scratch, gen, block, k + 1), engine
+
+
+@pytest.mark.parametrize("mask", list(_RANK_MASKS))
+def test_scan_rank_first_design_equals_cumsum(mixed, monkeypatch, mask):
+    """:func:`test_scan_rank_equals_cumsum` in the unsorted engine's first
+    design (``DESIGN = "v1"``: the look-back scan before the shading)."""
+    _rank_pixels(mixed, monkeypatch, mask, "unsorted", "v1")
+
+
+@pytest.mark.parametrize("design", ["record", "v1"])
+@pytest.mark.parametrize("one", [False, True], ids=["mis", "one_sample"])
+def test_unsorted_wrapper_takes_its_design_and_scratch(mixed, monkeypatch,
+                                                       design, one):
+    """On a CUDA tensor (spied) the unsorted engine's wrapper launches the
+    route-and-shade of ``DESIGN`` (the first design's under "v1", also
+    through ``route_shade_unsorted_v1``) with its scratch: the rank's
+    persistent scratch of SCAN_BLOCK-lane blocks, or the first design's
+    scan buffer, which no other launch shares."""
+    _, _, scene, cam = mixed
+    cfg = _cfg(sort_rays=False, **(_ONE if one else {}))
+    kernel = S.MODE_KERNELS[S.step_mode(scene, cfg)][0]
+    seen = []
+    monkeypatch.setattr(S, "_ranks", {})
+    monkeypatch.setattr(S, "_on_card", lambda t: True)
+    monkeypatch.setattr(S, "launch",
+                        lambda name, a, dev: seen.append((name, a.scan)))
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev=None: type("S", (), {"cuda_stream": 0}))
+    monkeypatch.setattr(S, "DESIGN", design)
+    state = _synthetic_state(scene, cfg, 4)
+    fb = torch.zeros(cfg.num_pixels, 3)
+    S.route_shade_unsorted(scene, cam, cfg, state, fb, _words(2),
+                           torch.tensor(0))
+    S.route_shade_unsorted_v1(scene, cam, cfg, state, fb, _words(2),
+                              torch.tensor(0))
+    rank = S.rank_scratch("cpu", POOL, S.SCAN_BLOCK)
+    scan = S.scan_buffer("cpu", 0, POOL)
+    first = [(S.UNSORTED_V1[kernel], scan.data_ptr())]
+    assert seen == ([(kernel, rank.data_ptr())] if design == "record"
+                    else first) + first
+    assert rank.shape == (1 + POOL // S.SCAN_BLOCK,) and not rank.any()
+
+
 @pytest.mark.parametrize("mode", sorted(_MODES))
 def test_full_wrappers_launch_their_kernels(mixed, monkeypatch, mode):
     """On a CUDA tensor (spied) a full-record mode's wrappers launch its
@@ -1447,9 +1665,10 @@ def test_step_designs_checks_every_mode(mixed, monkeypatch, change):
     """tools/step_designs.py's check, which chip_smoke.py's phase 14 and
     tools/mode_steps.py run on the card, takes every mode on the CPU
     (the wrappers' plain versions): it checks each of the mode's kernels
-    (under the default and parity modes the first design's too, on every
-    sorted engine the key sort) on three op-by-op states, limbo lanes among them under
-    parity, and finds no mismatching lane and no framebuffer gap."""
+    (under the default, parity and unsorted modes the first design's too,
+    on every sorted engine the key sort) on three op-by-op states, limbo
+    lanes among them under parity, and finds no mismatching lane and no
+    framebuffer gap."""
     SD = _tool("step_designs")
     _, _, scene, cam = mixed
     cfg = _cfg(**_narrow(monkeypatch, change))
@@ -1457,10 +1676,12 @@ def test_step_designs_checks_every_mode(mixed, monkeypatch, change):
     lines = []
     worst, gap, timed = SD.check_and_time(scene, cam, cfg, (0, 1, 2), None,
                                           log=lines.append)
+    unsorted = S.engine_of(mode) == "unsorted"
     want = set(S.MODE_KERNELS[mode]) | (
         {"route_v1", "shade_v1"} if mode == "default" else set()) | (
         {S.PARITY_V1[k] for k in S.MODE_KERNELS[mode][:2]}
         if mode.startswith("parity") else set()) | (
+        {S.UNSORTED_V1[S.MODE_KERNELS[mode][0]]} if unsorted else set()) | (
         {"key_sort"} if S.engine_of(mode) in ("default", "wide", "parity")
         else set())
     assert set(worst) == want and not any(worst.values())
@@ -1468,7 +1689,8 @@ def test_step_designs_checks_every_mode(mixed, monkeypatch, change):
     shades = {S.MODE_KERNELS[mode][-2]} | (
         {"shade_v1"} if mode == "default" else set()) | (
         {S.PARITY_V1[S.MODE_KERNELS[mode][1]]} if mode.startswith("parity")
-        else set())
+        else set()) | (
+        {S.UNSORTED_V1[S.MODE_KERNELS[mode][0]]} if unsorted else set())
     assert gap == dict.fromkeys(shades, 0.0)
     assert timed is None and len(lines) == 3
     if mode.startswith("parity"):
@@ -1490,18 +1712,24 @@ def test_split_patch_applies_to_the_kernel_source():
 
 
 @pytest.mark.parametrize("name", ["shade_128", "no_own_triangle",
-                                  "20_warps", "24_warps", "route_48_warps"])
+                                  "20_warps", "24_warps", "route_48_warps",
+                                  "unsorted_rank_first",
+                                  "unsorted_16_warps"])
 def test_step_variants_patch_the_kernel_source(name):
     """tools/step_designs.py --variants patches csrc/step_kernels.cu and
     step_math.cuh: every patch of the variant applies, and each changes
     what it names and nothing else (default shade's launch bounds at
     (128) alone, the own-triangle test gone, the four parity shades'
     launch bounds at 5 or 6 blocks of 128 threads, the parity routes' at
-    kRouteBlocks of 256)."""
+    kRouteBlocks of 256, the unsorted engine's route-and-shade's look-back
+    moved before its shading with a barrier after it, and its launch
+    bounds at one block of 128 threads, not five)."""
     SD = _tool("step_designs")
     assert tuple(SD.STEP_VARIANTS) == ("shade_128", "no_own_triangle",
                                        "20_warps", "24_warps",
-                                       "route_48_warps")
+                                       "route_48_warps",
+                                       "unsorted_rank_first",
+                                       "unsorted_16_warps")
     text = SD.variant_source(name)
     src, hdr = text["step_kernels.cu"], text["step_math.cuh"]
     src0, hdr0 = _build.STEP_SOURCE.read_text(), \
@@ -1510,6 +1738,18 @@ def test_step_variants_patch_the_kernel_source(name):
         assert "row3(a.tri_p0, own)" not in hdr and src == src0
         return
     assert hdr == hdr0
+    if name == "unsorted_rank_first":
+        body = lambda t: t[t.index("void route_shade(const StepArgs"):
+                           t.index("route_shade_unsorted_kernel(")]
+        new, old = body(src), body(src0)
+        look = "rank_lookback(scratch + 1, b, total, parity, lane)"
+        shade = "f = shade_full_math<kUnsorted, kOneSample>"
+        assert old.index(shade) < old.index(look)
+        assert new.index(look) < new.index(shade)
+        assert sorted(new.splitlines()) == sorted(
+            old.splitlines() + ["  __syncthreads();"])
+        assert src.replace(new, old) == src0
+        return
     kernels, old, new = {
         "shade_128": (("shade_kernel",), "kShadeBlock, 1", "kShadeBlock"),
         "route_48_warps": (("route_parity_kernel",
@@ -1517,7 +1757,10 @@ def test_step_variants_patch_the_kernel_source(name):
                            "kBlock, kRouteBlocks"),
         "20_warps": (SD.PARITY_SHADES, "kShadeBlock, 1", "kShadeBlock, 5"),
         "24_warps": (SD.PARITY_SHADES, "kShadeBlock, 1",
-                     "kShadeBlock, 6")}[name]
+                     "kShadeBlock, 6"),
+        "unsorted_16_warps": (("route_shade_unsorted_kernel",
+                               "route_shade_unsorted_1s_kernel"),
+                              "kShadeBlock, 5", "kShadeBlock, 1")}[name]
     for k in kernels:
         assert f"__launch_bounds__({new})\n    {k}(" in src
         src = src.replace(f"__launch_bounds__({new})\n    {k}(",

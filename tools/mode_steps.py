@@ -22,16 +22,18 @@ wide bundle, ``one_sample_mis`` and ``detailed_stats`` by name, e.g.
 2. renders frames through the step kernels and under
    ``step_kernels=False`` in turns, captured, each seed's pair agreeing,
    and profiles one captured frame of each arm: device events and device
-   ms an iteration (``chip_smoke._mode_frames``); on the parity cells of
-   ``chip_smoke.PARITY_DESIGN_CELLS`` also the parity kernels against
-   their first design in turns, each arm profiled: busy ms and events an
-   iteration, route's and shade's ms a frame
-   (``chip_smoke._parity_designs``).
+   ms an iteration (``chip_smoke._mode_frames``); on the cells of
+   ``chip_smoke.DESIGN_CELLS`` (the parity frames, the headline under
+   ``"xla"`` and under ``one_sample_mis`` without the sort) also the
+   mode's kernels against their first design in turns, each arm
+   profiled: busy ms and events an iteration, route's and shade's ms a
+   frame (``chip_smoke._designs``).
 
 ``--check`` stops after step 1.  ``--split-ab`` instead times the
 unsorted engine's route-and-shade kernel against route and shade as two
-kernels (a patched copy of the library, :func:`split_library`) on the
-headline's state under ``traversal="xla"``, in turns.  ``chip_smoke.py``'s
+kernels (a patched copy of the library's first design,
+:func:`split_library`) on the headline's state under ``traversal="xla"``,
+in turns.  ``chip_smoke.py``'s
 phase 14 runs :func:`check_ranks` and steps 1-2 without the profile on
 every cell.
 """
@@ -54,13 +56,14 @@ CELLS = ("parity frame", "headline xla", "headline no_sort")
 
 
 def check_ranks(scene, camera, card, log=print, dev="cuda"):
-    """The camera rank's scan against ``torch.cumsum`` on the masks of
-    lanes that take a camera ray: all, none, alternating, one a shade
-    block, and the first and last lane of every block, over RANK_BLOCKS
-    blocks and a ragged tail.  The unsorted engine's route and shade (one
-    kernel) run on a pool whose continuing lanes are the mask's
-    complement (every slot at bounce 0, roulette off, one sample a pixel
-    in scanline order): each lane with a camera ray takes pixel
+    """The camera rank against ``torch.cumsum`` on the masks of lanes that
+    take a camera ray: all, none, alternating, one a shade block, and the
+    first and last lane of every block, over RANK_BLOCKS blocks and a
+    ragged tail.  The unsorted engine's route and shade (one kernel; its
+    look-back after the shading, and the first design's scan before it,
+    key ``"<mask> v1"``) run on a pool whose continuing lanes are the
+    mask's complement (every slot at bounce 0, roulette off, one sample a
+    pixel in scanline order): each lane with a camera ray takes pixel
     ``cam_start`` + its rank.  Returns the mismatching lanes by mask (all
     0)."""
     import torch
@@ -82,7 +85,8 @@ def check_ranks(scene, camera, card, log=print, dev="cuda"):
              "block edges": (idx % blk == 0) | (idx % blk == blk - 1)}
     g = torch.Generator(device=dev).manual_seed(3)
     out = {}
-    for name, gen in masks.items():
+    for (name, gen), v1 in ((m, v1) for v1 in (False, True)
+                            for m in masks.items()):
         f = lambda v: torch.full((n,), v, device=dev)
         state = PathState(
             pixel=torch.zeros(n, dtype=torch.int32, device=dev),
@@ -95,13 +99,14 @@ def check_ranks(scene, camera, card, log=print, dev="cuda"):
         words = torch.randint(0, 1 << 32, (5, n), generator=g,
                               device=dev, dtype=torch.int64)
         cam_start = torch.tensor(11, device=dev)
-        sh = S.route_shade_unsorted(scene, camera, cfg, _copy(state),
-                                    torch.zeros(cfg.num_pixels, 3,
-                                                device=dev),
-                                    words, cam_start)
+        step = S.route_shade_unsorted_v1 if v1 else S.route_shade_unsorted
+        sh = step(scene, camera, cfg, _copy(state),
+                  torch.zeros(cfg.num_pixels, 3, device=dev), words,
+                  cam_start)
         rank = torch.cumsum(gen, 0) - gen.long()
         want = torch.where(gen, (11 + rank).to(torch.int32), 0)
         got = torch.where(gen, sh.pixel, 0)
+        name += " v1" * v1
         out[name] = int((got != want).sum()) + int((~sh.trace_mask).sum())
         log(f"[mode rank {name}] {card}: {int(gen.sum())} of {n} lanes take"
             f" a camera ray; mismatching ranks {out[name]}")
@@ -110,7 +115,8 @@ def check_ranks(scene, camera, card, log=print, dev="cuda"):
 
 # --split-ab: the unsorted engine's route and shade as two kernels again,
 # in a patched copy of the library: route writes the record (a route
-# instance of the unsorted engine added), shade gathers it
+# instance of the unsorted engine added), the first design's shade
+# (route_shade_unsorted_v1) gathers it
 SPLIT_MERGED = ("    if constexpr (kMode == rtjax_step::kUnsorted) {\n"
                 "      int2 w")
 SPLIT_COUNT = ("  if constexpr (kMode == rtjax_step::kUnsorted) "
@@ -141,10 +147,11 @@ def split_source(src):
 
 
 def split_library():
-    """A copy of the step library under ``build/`` whose unsorted engine
-    runs route and shade as two kernels (``rtjax_step_route_unsorted``
-    writes the record, ``rtjax_step_route_shade_unsorted`` gathers it):
-    ``(path, ptxas's lines of the two)``."""
+    """A copy of the step library under ``build/`` whose unsorted engine's
+    first design runs route and shade as two kernels
+    (``rtjax_step_route_unsorted`` writes the record,
+    ``rtjax_step_route_shade_unsorted_v1`` gathers it): ``(path, ptxas's
+    lines of the two)``."""
     import step_designs as SD
     from rtjax_torch.kernels import _build
     lib = SD.patched_library("split", {
@@ -152,7 +159,7 @@ def split_library():
         "step_math.cuh": _build.STEP_HEADER.read_text()})
     lines = [res for name, res in _build.ptxas_report(lib)
              if "route_unsorted_kernel" in name
-             or "route_shade_unsorted_kernel" in name]
+             or "route_shade_unsorted_v1_kernel" in name]
     return lib, lines
 
 
@@ -161,7 +168,8 @@ def split_ab(scene, camera, cfg, time_it, card, reps=5, log=print):
     op by op): the split copy bit for bit against the plain version, then
     in turns (merged, two kernels, two kernels, merged) the library's
     route-and-shade kernel against route + shade of the split copy, each
-    launch that writes the next state on its own copy of the state."""
+    launch that writes the next state on its own copy of the state.  The
+    split's shade is the first design's, which ranks by its scan."""
     import ctypes
 
     import chip_smoke as C
@@ -203,7 +211,8 @@ def split_ab(scene, camera, cfg, time_it, card, reps=5, log=print):
 
     def shade_block(st, record, counts):
         a = S.shade_args(scene, camera, cfg, st, fb.clone(), words, None,
-                         None, counts, 0, cam_start, 1, mode=mode)[0]
+                         None, counts, 0, cam_start, 1, v1=True,
+                         mode=mode)[0]
         a.bundle = record.data_ptr()
         a.held += (record,)
         return a
@@ -215,7 +224,7 @@ def split_ab(scene, camera, cfg, time_it, card, reps=5, log=print):
     split.rtjax_step_route_unsorted(ctypes.byref(a_r), stream)
     st1 = _copy(state)
     a_s = shade_block(st1, record, counts)
-    split.rtjax_step_route_shade_unsorted(ctypes.byref(a_s), stream)
+    split.rtjax_step_route_shade_unsorted_v1(ctypes.byref(a_s), stream)
     torch.cuda.synchronize()
     bad = {}
     got = dict(pixel=st1.pixel, ray_o=st1.ray_o, ray_d=st1.ray_d,
@@ -246,8 +255,9 @@ def split_ab(scene, camera, cfg, time_it, card, reps=5, log=print):
             ms[arm].append(
                 C._launch_ms(call(split.rtjax_step_route_unsorted, routes),
                              reps)[0]
-                + C._launch_ms(call(split.rtjax_step_route_shade_unsorted,
-                                    shades), reps)[0])
+                + C._launch_ms(call(
+                    split.rtjax_step_route_shade_unsorted_v1, shades),
+                    reps)[0])
     log(f"[mode split] {card}: mismatching lanes {bad or 0}; route and "
         f"shade merged {ms['merged']} ms against two kernels "
         f"{ms['two kernels']} ms a step (in turns)")
@@ -285,9 +295,9 @@ def run(names, time_it, card, check_only=False, log=print):
         if not check_only:
             out[name].update(C._mode_frames(name, sc, cam, cfg, card,
                                             profile=True, log=log))
-            if name in C.PARITY_DESIGN_CELLS:
-                out[name]["designs"] = C._parity_designs(name, sc, cam, cfg,
-                                                         card, log=log)
+            if name in C.DESIGN_CELLS:
+                out[name]["designs"] = C._designs(name, sc, cam, cfg, card,
+                                                  log=log)
     if bad:
         raise RuntimeError(f"the step kernels differ from their plain "
                            f"versions: {bad}")

@@ -35,13 +35,20 @@ default shade's launch bounds at ``(128)`` alone against the library's
 shades (``shade_parity`` and ``shade_parity_v1``, and their unsorted
 instances) the BSDF-MIS channel's own-triangle test taken out (wrong
 results, timing only), launch bounds for 20 and 24 resident warps an SM
-and the parity routes' for 48; by default every variant but
-``shade_128`` on the states of iteration 30 of ``chip_smoke.py``'s
-parity frame (2^19 lanes) and the headline's parity frame under
-``traversal="xla"`` (2^18), each library in turns (engine, variants...,
-variants reversed, engine), with each copy's registers, spill bytes and
-resident warps.  Beside them, the mode's route and shade against the
-first design's in turns (step 3).
+and the parity routes' for 48; on the unsorted engine's route and shade
+(``route_shade_unsorted``, ``_1s``) the look-back taken before the
+shading (``unsorted_rank_first``, arm B) and launch bounds of one block
+an SM at least (``unsorted_16_warps``; the library's are five); by
+default every parity variant on the states of iteration 30 of
+``chip_smoke.py``'s parity frame (2^19 lanes) and the headline's parity
+frame under ``traversal="xla"`` (2^18), each library in turns (engine,
+variants..., variants reversed, engine), with each copy's registers,
+spill bytes and resident warps.  Beside them, the mode's route and
+shade against the first design's in turns (step 3).
+
+    python3 tools/step_designs.py --variants --names \
+        unsorted_rank_first,unsorted_16_warps \
+        --cells "headline xla,headline one_sample no_sort"
 
 Steps 2-3 (:func:`check_and_time`, :func:`check_state`,
 :func:`time_state`) take any mode of the step kernels (kernels/step.py
@@ -188,6 +195,8 @@ def check_state(scene, camera, cfg, state, words, fb, it, cam_start):
                                          words, cam_start)
         sh1 = S.route_shade_unsorted(scene, camera, cfg, _copy(state), fb1,
                                      words, cam_start)
+        sh2 = S.route_shade_unsorted_v1(scene, camera, cfg, _copy(state),
+                                        fb2, words, cam_start)
         c.update(record=S._route_full(scene, cfg, state, words, mode)[1],
                  counts=sh0.counts)
     else:
@@ -221,11 +230,11 @@ def check_state(scene, camera, cfg, state, words, fb, it, cam_start):
         names = [f"{f}[{j}]" for j in range(len(want_f))]
         tally(shade_k, names, getattr(sh1, f), want_f)
         if v1:
-            tally(v1[1], names, getattr(sh2, f), want_f)
-            tally(v1[1], [f"= shade {x}" for x in names],
+            tally(v1[-1], names, getattr(sh2, f), want_f)
+            tally(v1[-1], [f"= shade {x}" for x in names],
                   getattr(sh2, f), getattr(sh1, f))
     gaps = {}
-    for kernel, got in ((shade_k, fb1),) + (((v1[1], fb2),) if v1
+    for kernel, got in ((shade_k, fb1),) + (((v1[-1], fb2),) if v1
                                             else ()):
         gaps[kernel] = float((got - fb0).abs().max())
         if not torch.allclose(got, fb0, rtol=FB_RTOL, atol=FB_ATOL):
@@ -277,12 +286,16 @@ def first_designs(mode):
     """The first design's route and shade that ``mode``'s kernels are
     checked and timed against in turns: ``("route_v1", "shade_v1")``
     under the default mode, the parity modes' (kernels/step.py
-    ``PARITY_V1``) under parity, else ()."""
+    ``PARITY_V1``) under parity, the unsorted engine's route-and-shade
+    (``UNSORTED_V1``) on it, else ()."""
     from rtjax_torch.kernels import step as S
+    engine = S.engine_of(mode)
     if mode == "default":
         return ("route_v1", "shade_v1")
-    if S.engine_of(mode).startswith("parity"):
+    if engine.startswith("parity"):
         return tuple(S.PARITY_V1[k] for k in S.MODE_KERNELS[mode][:2])
+    if engine == "unsorted":
+        return (S.UNSORTED_V1[S.MODE_KERNELS[mode][0]],)
     return ()
 
 
@@ -368,6 +381,10 @@ def _bounds(scene, cfg, c):
         nbytes = (n * (MERGED_BYTES - words + shade_l)
                   + SHADE_FLUSH * flushing, n * resolve + hist)
         ops = (C.ROUTE_OPS + C.SHADE_OPS, C.RESOLVE_OPS)
+        b = {k: C._step_bound(x, n * o)
+             for k, x, o in zip(kernels, nbytes, ops, strict=True)}
+        b[v1[0]] = b[kernels[0]]
+        return b, dict(flushing=flushing, limbo=limbo)
     else:
         parity = engine.startswith("parity")
         sort = engine in ("parity", "wide")
@@ -395,28 +412,49 @@ def _bounds(scene, cfg, c):
 
 
 def design_blocks(scene, camera, cfg, state, words, fb, it, cam_start, c):
-    """``{kernel: argument block}`` of the route and shade launches of the
-    mode of ``c`` (from :func:`check_state`; not the unsorted engine) and
-    of its first design's (:func:`first_designs`), each made once on
-    copies of what it writes, for timing."""
+    """``{kernel: make}`` of the route and shade launches of the mode of
+    ``c`` (from :func:`check_state`) and of its first design's
+    (:func:`first_designs`), for timing: ``make()`` gives an argument
+    block, made once on copies of what it writes; on the unsorted engine,
+    whose route-and-shade writes the next state over the one it reads, a
+    new one on its own copies at each call (:func:`blocks_of`)."""
+    import torch
     from rtjax_torch.kernels import step as S
     from rtjax_torch.render import wavefront as WF
     mode = c["mode"]
-    default = S.engine_of(mode) == "default"
+    engine = S.engine_of(mode)
+    v1 = first_designs(mode)
+    if engine == "unsorted":
+        def make(first):
+            return lambda: S.shade_args(
+                scene, camera, cfg, _copy(state), fb.clone(), words, None,
+                None, torch.zeros(S.NUM_COUNTS, dtype=torch.int64,
+                                  device=state.pixel.device), 0, cam_start,
+                1, v1=first, mode=mode)[0]
+        return {S.MODE_KERNELS[mode][0]: make(False), v1[0]: make(True)}
+    default = engine == "default"
     rec = "bundle" if default else "record"
     # the full-record modes' shade takes no cadence
     it, k = (it, WF.resolve_sort_every(scene, cfg)) if default else (0, 1)
     out = {}
-    v1 = first_designs(mode)
     for first, (route_k, shade_k) in ((False, S.MODE_KERNELS[mode][:2]),
                                       *((True, v1),) * bool(v1)):
-        out[route_k] = S.route_args(scene, cfg, state, words, v1=first,
-                                    mode=mode)[0]
-        out[shade_k] = S.shade_args(
+        a_r = S.route_args(scene, cfg, state, words, v1=first, mode=mode)[0]
+        a_s = S.shade_args(
             scene, camera, cfg, _copy(state), fb.clone(), words, c["order"],
             c[rec + "_v1" * first], c["counts"].clone(), it, cam_start, k,
             v1=first, mode=mode)[0]
+        out[route_k], out[shade_k] = (lambda a=a_r: a), (lambda a=a_s: a)
     return out
+
+
+def blocks_of(make, count):
+    """An iterator of ``count`` argument blocks from ``make`` (one of
+    :func:`design_blocks`), then the same again: a timing that runs past
+    ``count`` launches (a retried ``_launch_ms``) reads blocks a launch
+    has written."""
+    import itertools
+    return itertools.cycle([make() for _ in range(count)])
 
 
 def time_state(scene, camera, cfg, state, words, fb, it, cam_start, c,
@@ -457,23 +495,18 @@ def time_state(scene, camera, cfg, state, words, fb, it, cam_start, c,
     hist = lambda: _clone(c["hist"])
     parity = engine.startswith("parity")
     r_it, r_k = (it, k) if engine == "default" else (0, 1)
+    # two turns of a warm-up and ``reps`` launches, with room for retries
     blocks = 6 * (reps + 1)
     a_res = S.resolve_args(cfg, sh_copy(), occ, r_it, r_k, cam_start, rays,
                            rays.clone(), hits(), hist(), restore=parity)[0]
     fns = {kernels[-1]: call(kernels[-1], iter([a_res] * blocks))}
+    for name, make in design_blocks(scene, camera, cfg, state, words, fb,
+                                    it, cam_start, c).items():
+        fns[name] = call(name, blocks_of(make, blocks))
+    v1 = first_designs(mode)
     if engine == "unsorted":
-        zero = lambda: torch.zeros(S.NUM_COUNTS, dtype=torch.int64,
-                                   device=dev)
-        merged = [S.shade_args(scene, camera, cfg, _copy(state), fb.clone(),
-                               words, None, None, zero(), 0, cam_start, 1,
-                               mode=mode)[0] for _ in range(blocks)]
-        fns[kernels[0]] = call(kernels[0], iter(merged))
-        turns = kernels
+        turns = (v1[0], kernels[0], kernels[1])
     else:
-        for name, a in design_blocks(scene, camera, cfg, state, words, fb,
-                                     it, cam_start, c).items():
-            fns[name] = call(name, iter([a] * blocks))
-        v1 = first_designs(mode)
         turns = (v1[0], kernels[0], v1[1], kernels[1], kernels[2]) \
             if v1 else kernels
     bounds, work = _bounds(scene, cfg, c)
@@ -499,10 +532,14 @@ def time_state(scene, camera, cfg, state, words, fb, it, cam_start, c,
                      scene, camera, cfg, state, fb.clone(), words,
                      c["order"], c["bundle"], c["counts"], it, cam_start, k)}
     elif engine == "unsorted":
+        st1 = _copy(state)
         one = {kernels[0]: lambda: S.route_shade_unsorted(
-            scene, camera, cfg, st, fb.clone(), words, cam_start)}
-        plain = {kernels[0]: lambda: S.route_shade_unsorted_ref(
-            scene, camera, cfg, state, fb.clone(), words, cam_start)}
+            scene, camera, cfg, st, fb.clone(), words, cam_start),
+            v1[0]: lambda: S.route_shade_unsorted_v1(
+                scene, camera, cfg, st1, fb.clone(), words, cam_start)}
+        plain = {k: lambda: S.route_shade_unsorted_ref(
+            scene, camera, cfg, state, fb.clone(), words, cam_start)
+            for k in (kernels[0], v1[0])}
     else:
         one = {kernels[0]: lambda: S.route_full(scene, cfg, state, words,
                                                 mode),
@@ -649,13 +686,15 @@ def check_and_time(scene, camera, cfg, its=(0, 1, 2, 5, 12), time_it=12,
 
 
 # --variants: copies of the step library patched for timing, ``{name:
-# (cells, [(file, old, new), ...])}`` each patch applied to every
-# occurrence: default shade's launch bounds at (128) alone; on the parity
+# [(file, old, new), ...]}``, the patches in order, each on a text that
+# occurs once: default shade's launch bounds at (128) alone; on the parity
 # modes the own-triangle test out (the BSDF-MIS channel's target rows
 # unread and no ray-triangle test: its mask and tmax are wrong), the
 # parity shades' launch bounds at 5 and 6 blocks of 128 threads an SM,
 # and the parity routes' at 6 blocks of 256 threads (48 warps, as
-# route_parity_v1's)
+# route_parity_v1's); on the unsorted engine its route and shade with the
+# look-back before the shading (arm B) and at one block of 128 threads an
+# SM at least (the library's first bounds: 16 warps at 101 registers)
 _OWN_TRI = ("step_math.cuh",
             "    chs_hit = intersect_triangle(chs_o, s2.wi, INFINITY, "
             "row3(a.tri_p0, own),\n"
@@ -668,6 +707,23 @@ _OWN_TRI = ("step_math.cuh",
             "    chs_hit = src == 0 && own >= 0;")
 PARITY_SHADES = ("shade_parity_kernel", "shade_parity_unsorted_kernel",
                  "shade_parity_v1_kernel", "shade_parity_unsorted_v1_kernel")
+UNSORTED_SHADES = ("route_shade_unsorted_kernel",
+                   "route_shade_unsorted_1s_kernel")
+# the unsorted engine's route and shade with the look-back taken before
+# the shading (arm B: the persistent scratch and the warp's look-back, in
+# the first design's order; one barrier more), the text moved in
+# csrc/step_kernels.cu route_shade
+_LOOKBACK = ("  if (warp == 0) {\n"
+             "    const unsigned p = rank_lookback(scratch + 1, b, total, "
+             "parity, lane);\n"
+             "    if (lane == 0) prefix = p;\n"
+             "  }\n")
+_PUBLISH = ("  if (threadIdx.x == 0) rank_publish(scratch + 1, b, total, "
+            "parity);\n")
+_RANK_FIRST = [("step_kernels.cu", _LOOKBACK + "  __syncthreads();\n",
+                "  __syncthreads();\n"),
+               ("step_kernels.cu", _PUBLISH,
+                _PUBLISH + _LOOKBACK + "  __syncthreads();\n")]
 
 
 def _bounds_patch(kernels, old, new):
@@ -677,6 +733,8 @@ def _bounds_patch(kernels, old, new):
 
 # the cells --variants times on by default (chip_smoke.py _mode_cells)
 VARIANT_CELLS = ("parity frame", "headline parity xla")
+PARITY_VARIANTS = ("no_own_triangle", "20_warps", "24_warps",
+                   "route_48_warps")
 STEP_VARIANTS = {
     "shade_128": _bounds_patch(("shade_kernel",), "kShadeBlock, 1",
                                "kShadeBlock"),
@@ -687,17 +745,21 @@ STEP_VARIANTS = {
                               "kShadeBlock, 6"),
     "route_48_warps": _bounds_patch(
         ("route_parity_kernel", "route_parity_unsorted_kernel"), "kBlock",
-        "kBlock, kRouteBlocks")}
+        "kBlock, kRouteBlocks"),
+    "unsorted_rank_first": _RANK_FIRST,
+    "unsorted_16_warps": _bounds_patch(UNSORTED_SHADES, "kShadeBlock, 5",
+                                       "kShadeBlock, 1")}
 
 
 def variant_source(name):
     """``{file name: text}`` of csrc/step_kernels.cu and step_math.cuh
-    patched by ``STEP_VARIANTS[name]``."""
+    patched by ``STEP_VARIANTS[name]``, its patches in order, each on a
+    text that occurs once."""
     from rtjax_torch.kernels import _build
     text = {f.name: f.read_text() for f in (_build.STEP_SOURCE,
                                             _build.STEP_HEADER)}
     for file, old, new in STEP_VARIANTS[name]:
-        if old not in text[file]:
+        if text[file].count(old) != 1:
             raise RuntimeError(f"step variant {name}: a patch does not "
                                f"apply to csrc/{file}")
         text[file] = text[file].replace(old, new)
@@ -730,27 +792,42 @@ def time_variants(scene, camera, cfg, state, words, fb, it, cam_start, c,
     import torch
     from rtjax_torch.kernels import step as S
     stream = torch.cuda.current_stream().cuda_stream
-    blocks = design_blocks(scene, camera, cfg, state, words, fb, it,
-                           cam_start, c)
+    makes = design_blocks(scene, camera, cfg, state, words, fb, it,
+                          cam_start, c)
     every = {"engine": S._kernels(), **libs}
+    rounds = ("engine", *names, *names[::-1], "engine")
+    blocks = {k: blocks_of(make, len(rounds) * (reps + 1) + 2 * reps)
+              for k, make in makes.items()}
     out = {lib: {k: dict(ms=[], **S.kernel_info(k, every[lib]))
                  for k in blocks} for lib in every}
-    for lib in ("engine", *names, *names[::-1], "engine"):
-        for k, a in blocks.items():
+    for lib in rounds:
+        for k, pool in blocks.items():
             entry = getattr(every[lib], f"rtjax_step_{k}")
             out[lib][k]["ms"].append(C._launch_ms(
-                lambda: entry(ctypes.byref(a), stream), reps)[0])
+                lambda: entry(ctypes.byref(next(pool)), stream), reps)[0])
     for r in out.values():
         for t in r.values():
             t["mean_ms"] = statistics.mean(t["ms"])
     return out
 
 
+def _no_sort_frame():
+    """chip_smoke.py's parity frame (MODE_SIZE^2 @ MODE_SPP, a pool of
+    2^19 lanes) on the unsorted engine without parity: the
+    route-and-shade's look-back over 4,096 blocks."""
+    import chip_smoke as C
+    from rtjax_torch import RenderConfig
+    return RenderConfig(width=C.MODE_SIZE, height=C.MODE_SIZE,
+                        num_samples=C.MODE_SPP, max_bounces=C.BOUNCES,
+                        sort_rays=False)
+
+
 def variants(names=None, cells=VARIANT_CELLS, time_it=30, card="",
              log=print):
-    """``--variants``: the libraries of ``names`` (default: every variant
-    but ``shade_128``) built, then on each cell's state of ``time_it``
-    (``"headline"``, or a cell of chip_smoke.py ``_mode_cells``) the
+    """``--variants``: the libraries of ``names`` (default: every parity
+    variant, ``PARITY_VARIANTS``) built, then on each cell's state of
+    ``time_it`` (``"headline"``, ``"no_sort frame"``, or a cell of
+    chip_smoke.py ``_mode_cells``) the
     kernels checked (:func:`check_and_time`: the mode's and the first
     design's route and shade in turns) and the variants timed
     (:func:`time_variants`)."""
@@ -758,11 +835,12 @@ def variants(names=None, cells=VARIANT_CELLS, time_it=30, card="",
     import chip_smoke as C
     from rtjax_torch.kernels import step as S
     scene, camera = C.phase2_scene()
-    names = tuple(names or (k for k in STEP_VARIANTS if k != "shade_128"))
+    names = tuple(names or PARITY_VARIANTS)
     libs = {k: S.bind(ctypes.CDLL(str(patched_library(k, variant_source(k)))))
             for k in names}
     all_cells = {"headline": (scene, camera, C._headline_cfg()),
-                 **C._mode_cells(scene, camera)}
+                 **C._mode_cells(scene, camera),
+                 "no_sort frame": (scene, camera, _no_sort_frame())}
     out = {}
     for name in cells:
         sc, cam, cfg = all_cells[name]
@@ -817,7 +895,7 @@ def main():
     ap.add_argument("--time-it", type=int, default=12)
     ap.add_argument("--variants", action="store_true")
     ap.add_argument("--names", help="the variants to time (--variants; "
-                    "default every one but shade_128)")
+                    "default the parity ones)")
     ap.add_argument("--cells", default=",".join(VARIANT_CELLS))
     ap.add_argument("--out")
     args = ap.parse_args()
