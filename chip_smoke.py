@@ -14,8 +14,9 @@ the script exits non-zero):
 1. build: the BVH builder and the eight kernel libraries (the persist,
    two-level, packet and lane, binary-walk and direct-path kernels, the
    device loop, the step kernels and the step's key sort) from this
-   checkout's sources, into build/rtjax_torch/, all nine compilers
-   started together; ptxas's registers, stack frame and spills of the
+   checkout's sources, into build/rtjax_torch/, and the step library's
+   patched copies that phase 14 times (VARIANTS), all compilers started
+   together; ptxas's registers, stack frame and spills of the
    persist, two-level, packet and lane kernels (both designs, widths 8
    and 16, the two-level fetch kernels with the instance records staged
    or global), of the step kernels and of the key sort (the binary-walk
@@ -306,12 +307,18 @@ the script exits non-zero):
    look-back scan), and the unsorted engine's route-and-shade (the rank
    taken after the shading) against its first design
    (route_shade_unsorted_v1 and _1s_v1: the scan before the shading),
-   bit for bit on every state of their modes, timed in turns, and in
-   captured frames in turns on the parity frame, the headline parity
-   frame under "xla", the headline under "xla" and under one_sample_mis
-   and sort_rays=False (_designs: equal iterations, rays and
-   framebuffers, one profiled frame an arm: busy ms and events an
-   iteration, route's and shade's ms a frame).  (e) The step's key sort (kernels/sort.py, csrc/key_sort.cu;
+   the sorted engine's one-sample shade (a resident grid whose threads
+   pipeline their tiles' loads) against its first design (shade_1s_v1),
+   and the stats resolves (the histogram around the lane's work) against
+   the parity one's first design (resolve_parity_stats_v1), bit for bit
+   on every state of their modes, timed in turns, with the step library's
+   patched copy (VARIANTS: the one-sample shade with no prefetch) in
+   turns on its cell, and in captured frames in
+   turns on the parity frame, the headline parity frame under "xla" and
+   under detailed_stats, the headline under "xla", under one_sample_mis
+   and under one_sample_mis and sort_rays=False (_designs: equal
+   iterations, rays and framebuffers, one profiled frame an arm: busy ms
+   and events an iteration, each redesigned kernel's ms a frame).  (e) The step's key sort (kernels/sort.py, csrc/key_sort.cu;
    in (a)-(d) too: bit for bit against torch.sort on every checked
    state's route keys, once an iteration in every kernels frame on a
    sorted engine, and timed in turns with torch.sort and the first design
@@ -506,7 +513,10 @@ def phase0_device():
     return card
 
 
-def phase1_build():
+def phase1_build(variants=()):
+    """Build every library in parallel, with ``variants`` (names of
+    tools/step_designs.py ``STEP_VARIANTS``) the step library's patched
+    copies beside them."""
     from rtjax_torch.kernels import _build
     builds = {"bvh builder": _build.bvh_library,
               "persist kernels": _build.persist_library,
@@ -517,6 +527,12 @@ def phase1_build():
               "device loop": _build.loop_library,
               "step kernels": _build.step_library,
               "key sort": _build.key_sort_library}
+    if variants:
+        sys.path.insert(0, os.path.join(ROOT, "tools"))
+        import step_designs as SD
+        for name in variants:
+            builds[f"step variant {name}"] = (
+                lambda k=name: SD.patched_library(k, SD.variant_source(k)))
 
     def timed(fn):
         t0 = time.perf_counter()
@@ -546,8 +562,7 @@ def _step_label(mangled):
     shade, shade_v1, resolve and the full-record modes' kernels
     (route_parity, ...)."""
     import re
-    m = re.search(r"((?:route|shade|resolve)(?:_parity)?(?:_unsorted)?"
-                  r"(?:_v1)?)_kernel", mangled)
+    m = re.search(r"((?:route|shade|resolve)[a-z0-9_]*?)_kernel", mangled)
     return mangled if m is None else f"step {m[1]}"
 
 
@@ -1813,6 +1828,7 @@ def _counters():
             "step_v1": (S.V1_LAUNCHES, None),
             "step_parity_v1": (S.PARITY_V1_LAUNCHES, None),
             "step_unsorted_v1": (S.UNSORTED_V1_LAUNCHES, None),
+            "step_mode_v1": (S.MODE_V1_LAUNCHES, None),
             # the step's key sort: once a sorted iteration of the kernels
             "sort": (SO.LAUNCHES, SO.REF_CALLS)}
 
@@ -2040,7 +2056,8 @@ def _step_once(counts, mode, iterations):
                for k, v in counts["step"].items()) \
         and not any(counts["step_v1"].values()) \
         and not any(counts["step_parity_v1"].values()) \
-        and not any(counts["step_unsorted_v1"].values())
+        and not any(counts["step_unsorted_v1"].values()) \
+        and not any(counts["step_mode_v1"].values())
 
 
 def _only_set(counts, kernel_set, iterations=None):
@@ -5447,7 +5464,10 @@ V1_KERNELS = {
                                  "rtjax/render/wavefront.py:437"),
     "route_shade_unsorted_v1": ("unsorted", "rtjax/render/wavefront.py:212"),
     "route_shade_unsorted_1s_v1": ("unsorted_1s",
-                                   "rtjax/render/wavefront.py:486")}
+                                   "rtjax/render/wavefront.py:486"),
+    "shade_1s_v1": ("default_1s", "rtjax/render/wavefront.py:486"),
+    "resolve_parity_stats_v1": ("parity_stats",
+                                "rtjax/render/wavefront.py:809")}
 # the ptxas registers of the default instances, of the first designs and
 # of the unsorted engine's and parity's instances: they must not change
 # (the first design's shade takes the shadow rays' shared helper at 96,
@@ -5461,12 +5481,20 @@ STEP_REGISTERS = {"route": 40, "shade": 85, "resolve": 26, "route_v1": 40,
                   "resolve_parity": 28, "route_parity_unsorted": 40,
                   "shade_parity_unsorted": 95, "route_parity_v1": 40,
                   "shade_parity_v1": 99, "route_parity_unsorted_v1": 40,
-                  "shade_parity_unsorted_v1": 99}
+                  "shade_parity_unsorted_v1": 99, "shade_1s_v1": 80,
+                  "shade_wide": 93, "shade_wide_1s": 85, "resolve_1s": 26,
+                  "resolve_parity_stats_v1": 28}
 # the cells whose captured frames run the engine's design against the
 # first design in turns (_designs), and the order: a seed-1 frame
 # captures its arm's graph
 DESIGN_CELLS = ("parity frame", "headline parity xla", "headline xla",
-                "headline one_sample no_sort")
+                "headline one_sample no_sort", "headline one_sample",
+                "headline parity stats")
+# the step library's patched copies phase 14 times beside the engine's
+# (tools/step_designs.py STEP_VARIANTS), and the cells it times them on:
+# the one-sample shade's arm B (its tile walk with no prefetch)
+VARIANTS = ("shade_1s_no_prefetch",)
+VARIANT_CELLS = {"headline one_sample": VARIANTS}
 DESIGN_ORDER = (("kernels", 1), ("kernels", 2), ("v1", 1), ("v1", 2))
 
 
@@ -5572,47 +5600,50 @@ def _mode_frames(name, sc, cam, cfg, card, profile=False, log=print):
 
 
 def _designs(name, sc, cam, cfg, card, profile=True, log=print):
-    """The engine's kernels against their first design on one cell of
-    the parity modes (route carrying the camera rank in the record, shade
+    """The engine's kernels against their first design on one cell: the
+    parity modes' (route carrying the camera rank in the record, shade
     reading it, against ``route_parity_v1`` / ``shade_parity_v1``: the
-    rank by shade's look-back scan) or of the unsorted engine (its
-    route-and-shade taking the rank after the shading, against
-    ``route_shade_unsorted_v1``: the scan before it): captured frames in
-    turns (DESIGN_ORDER), the seed-2 pair with equal iterations, rays and
-    occupancy and framebuffers within FB_RTOL, each arm's kernels once an
-    iteration and the other arm's never; with ``profile`` one profiled
-    frame an arm (seed 5 after a seed-1 warm-up): device events and busy
-    ms an iteration, route's and shade's device ms a frame (the unsorted
-    engine's one kernel under both).  Returns ``{secs, busy,
-    launches}``, ``launches`` the first design's in its seed-2 frame."""
+    rank by shade's look-back scan; under ``detailed_stats`` also the stats
+    resolve against ``resolve_parity_stats_v1``), the unsorted engine's
+    (its route-and-shade taking the rank after the shading, against
+    ``route_shade_unsorted_v1``: the scan before it) or the sorted
+    engine's one-sample shade (the resident grid's pipelined walk, against
+    ``shade_1s_v1``): captured frames in turns (DESIGN_ORDER), the seed-2
+    pair with equal iterations, rays and occupancy and framebuffers within
+    FB_RTOL, each arm's kernels once an iteration and the other arm's
+    never; with ``profile`` one profiled frame an arm (seed 5 after a
+    seed-1 warm-up): device events and busy ms an iteration, each
+    redesigned kernel's device ms a frame against its first design's.
+    Returns ``{secs, busy, launches}``, ``launches`` the first designs'
+    in the first design's seed-2 frame."""
     import torch
     from rtjax_torch.kernels import step as S
     from rtjax_torch.render import graph as G
     mode = S.step_mode(sc, cfg)
     kernels = S.MODE_KERNELS[mode]
-    parity = S.engine_of(mode).startswith("parity")
-    firsts, tally = (S.PARITY_V1, "step_parity_v1") if parity else \
-        (S.UNSORTED_V1, "step_unsorted_v1")
-    mine = kernels[:2] if parity else kernels[:1]
-    v1 = tuple(firsts[k] for k in mine)
+    firsts = {**S.PARITY_V1, **S.UNSORTED_V1, **S.MODE_V1}
+    pairs = {k: firsts[k] for k in kernels if k in firsts}
+    tallies = ("step_parity_v1", "step_unsorted_v1", "step_mode_v1")
     got = _frames_in_turns(sc, cam, cfg, DESIGN_ORDER)
     secs = {arm: [f[0] for (a, _), f in got.items() if a == arm]
             for arm in ("kernels", "v1")}
     kf, vf = got["kernels", 2], got["v1", 2]
     its = kf[2]["iterations"]
+    firsts_ran = {k: v for t in tallies for k, v in vf[3][t].items()}
     same = all(kf[2][k] == vf[2][k] for k in
                ("iterations", "rays_traced", "avg_occupancy"))
     close = torch.allclose(kf[1], vf[1], rtol=FB_RTOL, atol=FB_ATOL)
     steps = (_step_once(kf[3], mode, its) and not kf[3]["plain"]
-             and not vf[3]["plain"]
-             and vf[3][tally] == {k: its * (k in v1) for k in vf[3][tally]}
-             and all(v == its * (k in kernels and k not in mine)
+             and not vf[3]["plain"] and not any(vf[3]["step_v1"].values())
+             and firsts_ran == {k: its * (k in pairs.values())
+                                for k in firsts_ran}
+             and all(v == its * (k in kernels and k not in pairs)
                      for k, v in vf[3]["step"].items()))
+    ran = {k: v for k, v in firsts_ran.items() if v}
     log(f"[designs {name} seed 2] {card}: {its} iterations; kernels "
         f"{kf[0]:.4f} s, first design {vf[0]:.4f} s; equal iterations, "
         f"rays, occupancy {same}; each arm's kernels once an iteration "
-        f"{steps} ({vf[3][tally]}); framebuffers within rtol {FB_RTOL} "
-        f"{close}")
+        f"{steps} ({ran}); framebuffers within rtol {FB_RTOL} {close}")
     if not (same and close and steps):
         raise RuntimeError(f"{name}: the kernels' frame differs from the "
                            "first design's")
@@ -5626,11 +5657,10 @@ def _designs(name, sc, cam, cfg, card, profile=True, log=print):
         finally:
             _set_design("record")
         del b["spans"]
-        for part, k in zip(("route_ms", "shade_ms"),
-                           mine if arm == "kernels" else v1):
-            b[part] = sum(v[0] for e, v in b["kernels"].items()
-                          if f"{k}_kernel" in e)
-        b.setdefault("shade_ms", b["route_ms"])
+        b["kernel_ms"] = {
+            k: sum(v[0] for e, v in b["kernels"].items()
+                   if f"{k if arm == 'kernels' else v1}_kernel" in e)
+            for k, v1 in pairs.items()}
         busy[arm] = b
     if profile:
         k_, v_ = busy["kernels"], busy["v1"]
@@ -5638,14 +5668,15 @@ def _designs(name, sc, cam, cfg, card, profile=True, log=print):
             f"kernels {k_['events_per_it']:.1f} vs first design "
             f"{v_['events_per_it']:.1f}; busy ms an iteration "
             f"{k_['device_ms_per_it']:.5f} vs {v_['device_ms_per_it']:.5f};"
-            f" route ms a frame {k_['route_ms']:.3f} vs "
-            f"{v_['route_ms']:.3f}, shade {k_['shade_ms']:.3f} vs "
-            f"{v_['shade_ms']:.3f}; profiled frames {k_['wall']:.4f} vs "
+            " device ms a frame " + ", ".join(
+                f"{k} {k_['kernel_ms'][k]:.3f} vs {pairs[k]} "
+                f"{v_['kernel_ms'][k]:.3f}" for k in pairs)
+            + f"; profiled frames {k_['wall']:.4f} vs "
             f"{v_['wall']:.4f} s ({k_['iterations']} iterations)")
     log(f"[designs frames {name}] {card}: frame seconds kernels "
         f"{secs['kernels']} vs first design {secs['v1']}")
     G.clear_graphs()
-    return dict(secs=secs, busy=busy, launches=vf[3][tally])
+    return dict(secs=secs, busy=busy, launches=firsts_ran)
 
 
 def _mode_time_text(t, card):
@@ -5690,7 +5721,12 @@ def phase14_mode_kernels(scene, camera, card):
     histogram too), the framebuffer within FB_RTOL; each cell's captured
     frames through the kernels and under ``step_kernels=False`` in turns
     (:func:`_mode_frames`); each kernel's timing on its MODE_TIMED cell's
-    state of MODE_TIME_IT.  Returns the rows' numbers."""
+    state of MODE_TIME_IT, with the step library's VARIANTS in turns on
+    the cells of VARIANT_CELLS (the one-sample shade's arm B); the first
+    designs' captured frames in turns on DESIGN_CELLS
+    (:func:`_designs`).  Returns the rows'
+    numbers."""
+    import ctypes
     sys.path.insert(0, os.path.join(ROOT, "tools"))
     import mode_steps as M
     import step_designs as SD
@@ -5704,10 +5740,21 @@ def phase14_mode_kernels(scene, camera, card):
     fb_gaps, times = {}, {}
     timed = {v: k for k, v in MODE_TIMED.items()}
     cells = _mode_cells(scene, camera)
+    libs = {k: S.bind(ctypes.CDLL(str(p)))
+            for k, p in SD.build_variants(VARIANTS).items()}
     for name, (sc, cam, cfg) in cells.items():
+        names = VARIANT_CELLS.get(name)
         bad, gap, t = SD.check_and_time(
             sc, cam, cfg, MODE_CHECK_ITS,
-            MODE_TIME_IT if name in timed else None, label=name, card=card)
+            MODE_TIME_IT if name in timed else None, label=name, card=card,
+            variants=(names, {k: libs[k] for k in names}) if names
+            else None)
+        for lib, r in (t or {}).get("variants", {}).items():
+            print(f"[step variants {name} {lib}] {card}: " + "; ".join(
+                f"{k} {v['mean_ms']:.4f} ms (in turns {v['ms']}), "
+                f"{v['registers']} registers, {v['local_bytes']} local "
+                f"bytes, {v['warps_per_sm']} warps an SM"
+                for k, v in r.items()))
         worst.update({f"{name} {k}": v for k, v in bad.items() if v})
         SD.merge_gaps(fb_gaps, gap)
         if name in timed:
@@ -5761,6 +5808,10 @@ def _mode_rows(p14m, launches):
             registers=r["registers"], warps_per_sm=r["warps_per_sm"],
             **{k: r[k] for k in ("function_bound_ms", "function_share")
                if k in r},
+            **({"variants_ms": {
+                lib: v[name]["mean_ms"]
+                for lib, v in p14m["times"][mode]["variants"].items()}}
+               if "variants" in p14m["times"][mode] else {}),
             note=f"no pallas_call: rtjax's XLA fusions of wavefront_step, "
                  f"mode {mode}, timed on {MODE_TIMED[mode]}'s state"))
     return rows
@@ -5789,7 +5840,7 @@ def _v1_rows(p14m):
             registers=r["registers"], warps_per_sm=r["warps_per_sm"],
             busy={arm: dict(device_ms_per_it=b["device_ms_per_it"],
                             events_per_it=b["events_per_it"],
-                            route_ms=b["route_ms"], shade_ms=b["shade_ms"])
+                            kernel_ms=b["kernel_ms"])
                   for arm, b in p14m["designs"][cell]["busy"].items()},
             note=f"the first design of mode {mode}, on no path of the "
                  f"engine; timed in turns with the engine's design on "
@@ -5887,7 +5938,7 @@ def main():
     import torch
     from rtjax_torch.render import wavefront
     wavefront.render_frame_linear = _frame_log(wavefront.render_frame_linear)
-    phase1_build()
+    phase1_build(VARIANTS)
     stamp("phase 1 (build)")
     scene, camera = phase2_scene()
     persist, group = phase3_kernels(scene, camera, card)

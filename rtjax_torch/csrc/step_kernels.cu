@@ -121,17 +121,42 @@
 // off the mask); resolve adds the channel where the path ray's closest
 // hit is the picked light's triangle, after the NEE channel, as
 // rtjax's _accum order.  Instances: shade_1s, route_shade_unsorted_1s,
-// shade_wide_1s, resolve_1s.  detailed_stats (kStats: :809-815): resolve
-// adds each traced lane to the bounce histogram at clamp(bounces, 0,
-// max_bounces), counted per block in shared memory (max_bounces + 1
-// ints, sized at launch; past kSmemBins bins in global memory) and added
-// with one 64-bit atomic a non-zero bin: resolve_stats,
-// resolve_1s_stats, resolve_parity_stats.  The four traversal sums stay
-// four adds in render/wavefront.py, as the op-by-op step makes them (not
-// folded into resolve).  The flags are template parameters beside kMode;
-// each compiles out of the other instances, whose ptxas registers are
-// unchanged (chip_smoke.py STEP_REGISTERS).
+// shade_wide_1s, resolve_1s.  The sorted engine's shade_1s moves 15-16
+// us of bytes at 2^18 lanes but ran at half of that bound in the default
+// shade's design (one thread a position, 2,048 blocks of 128), which
+// waits out each position's chain alone: its order word, then its record
+// through it, then a few hundred instructions of math, then its stores;
+// 24 warps an SM do not cover two dependent reads of device memory.  So
+// shade_1s is a resident grid whose threads pipeline their chains
+// (step_math.cuh shade_1s_walk: while a thread shades tile k, its record
+// and words of tile k + 1 and its order word of tile k + 2 are in flight,
+// cp.async into shared memory), with the tables staged once a block and
+// the counts added once a block.  The lane math is shade_lane's
+// (shade_math), so the outputs are the plain version's bit for bit as
+// before; the first design stays as shade_1s_v1.
+//
+// detailed_stats (kStats: :809-815): resolve adds each traced lane to the
+// bounce histogram at clamp(bounces, 0, max_bounces): resolve_stats,
+// resolve_1s_stats, resolve_parity_stats.  The first design (hist_block,
+// kept as resolve_parity_stats_v1) counted a block's lanes with a shared
+// atomic a lane between two barriers and added the block's bins to the
+// histogram before the lane's own work, so that each block waited out
+// the bins' loads, then the histogram's atomics, then its lane loads.
+// Now the histogram goes around the lane's work (hist_begin / hist_end):
+// the bins' loads fly beside the lane's, and each traced lane adds to the
+// block's shared-memory bins and the block adds its non-zero bins to the
+// histogram after the lane's work.  Warp votes on the bins and meeting the
+// bins of a thread-block cluster in its leader's shared memory were built
+// and measured no faster (PERF.md §6, rows 16s-16ps).  The four traversal
+// sums stay four adds in render/wavefront.py, as the op-by-op step makes
+// them (not folded into resolve).  The flags are
+// template parameters beside kMode; each compiles out of the other
+// instances, whose ptxas registers are unchanged (chip_smoke.py
+// STEP_REGISTERS).
 
+#include <algorithm>
+
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
 #include "step_math.cuh"
@@ -150,6 +175,10 @@ constexpr int kRouteBlocks = 6;
 // histogram bins a resolve block counts in shared memory (detailed_stats;
 // beyond them each traced lane adds to the histogram in global memory)
 constexpr int kSmemBins = 4096;
+// resolve's bounce histogram (detailed_stats): none, around the lane's
+// work (hist_begin / hist_end), or before it as the first design
+// (hist_block)
+constexpr int kNoHist = 0, kHistAround = 1, kHistBlock = 2;
 using rtjax_step::kFullWords;
 static_assert(kShadeBlock == rtjax_step::kScanBlock,
               "a shade block ranks kScanBlock lanes");
@@ -469,9 +498,51 @@ __global__ void __launch_bounds__(kShadeBlock, 1)
   shade_sorted<rtjax_step::kDefault, false>(a);
 }
 
+// the first design of the one-sample shade (kept for timing in turns):
+// one thread a sorted position, its chain of loads waited out alone
+__global__ void __launch_bounds__(kShadeBlock, 1)
+    shade_1s_v1_kernel(const StepArgs a) {
+  shade_sorted<rtjax_step::kDefault, true>(a);
+}
+
+// the sorted engine's one-sample shade: a resident grid (launch_resident), the
+// scene's tables staged once a block, each thread walking its positions of
+// the block's tiles with its loads pipelined (step_math.cuh
+// shade_1s_walk), the flush from the dirty window, and the block's counts
+// of traced, NEE and MIS lanes added with one 64-bit atomic each at the end
 __global__ void __launch_bounds__(kShadeBlock, 1)
     shade_1s_kernel(const StepArgs a) {
-  shade_sorted<rtjax_step::kDefault, true>(a);
+  using namespace rtjax_step;
+  static_assert(kShadeTile == kShadeBlock, "a tile is a block's threads");
+  __shared__ SmemTables smem;
+  __shared__ ShadeStages stages;
+  __shared__ int warp_count[3][kShadeBlock / 32];
+  const Tables T = stage_tables(a, smem);
+  const bool do_gen = cadence(a);
+  const long long lo = a.counts[0], hi = lo + a.counts[4];
+  const WalkCounts c = shade_1s_walk(
+      a, T, stages, threadIdx.x, blockIdx.x, gridDim.x, do_gen,
+      [&](long long i, const ShadeLane& r) {
+        if (r.flush && i >= lo && i < hi) flush(a, r);
+      });
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const unsigned trace = __reduce_add_sync(0xFFFFFFFFu, c.trace);
+  const unsigned nee = __reduce_add_sync(0xFFFFFFFFu, c.nee);
+  const unsigned mis = __reduce_add_sync(0xFFFFFFFFu, c.mis);
+  if (lane == 0) {
+    warp_count[0][warp] = static_cast<int>(trace);
+    warp_count[1][warp] = static_cast<int>(nee);
+    warp_count[2][warp] = static_cast<int>(mis);
+  }
+  __syncthreads();
+  if (threadIdx.x < 3) {
+    long long k = 0;
+    for (int w = 0; w < kShadeBlock / 32; ++w) k += warp_count[threadIdx.x][w];
+    if (k != 0)
+      atomicAdd(reinterpret_cast<unsigned long long*>(a.counts + 1 +
+                                                      threadIdx.x),
+                static_cast<unsigned long long>(k));
+  }
 }
 
 __global__ void __launch_bounds__(kShadeBlock, 1)
@@ -731,73 +802,121 @@ __global__ void __launch_bounds__(kBlock) shade_v1_kernel(const StepArgs a) {
   count(a.counts + 3, r.mis);
 }
 
+// detailed_stats' bounce histogram, the first design: each block counts
+// its traced lanes' bins in shared memory (max_bounces + 1 ints, at most
+// kSmemBins; sized at launch) with one shared atomic a lane and adds each
+// non-zero bin to the histogram with one 64-bit atomic
+__device__ __forceinline__ void hist_block(const StepArgs& a, int i) {
+  extern __shared__ int bins[];
+  const int nb = a.max_bounces + 1;
+  const bool staged = nb <= kSmemBins;
+  auto* hist = reinterpret_cast<unsigned long long*>(a.hist);
+  if (staged)
+    for (int k = threadIdx.x; k < nb; k += kBlock) bins[k] = 0;
+  __syncthreads();
+  const int b = i < a.n ? rtjax_step::hist_bin(a, i) : -1;
+  if (b >= 0) {
+    if (staged)
+      atomicAdd(bins + b, 1);
+    else
+      atomicAdd(hist + b, 1ULL);
+  }
+  __syncthreads();
+  if (staged)
+    for (int k = threadIdx.x; k < nb; k += kBlock)
+      if (bins[k] != 0)
+        atomicAdd(hist + k, static_cast<unsigned long long>(bins[k]));
+}
+
+// detailed_stats' bounce histogram, in two parts around the lane's own
+// work, so that its barriers stand behind no load: hist_begin takes the
+// lane's bin (its loads in flight beside the lane's) and zeroes the
+// block's shared-memory bins (max_bounces + 1 ints, at most kSmemBins;
+// sized at launch) behind one barrier; hist_end adds each traced lane to
+// its bin with one shared atomic, then after the block's barrier adds the
+// non-zero bins to the histogram with one 64-bit atomic each.  Past
+// kSmemBins bins each traced lane adds to the histogram in global memory,
+// as the first design does
+__device__ __forceinline__ int hist_begin(const StepArgs& a, int i) {
+  extern __shared__ int bins[];
+  const int nb = a.max_bounces + 1;
+  const int b = i < a.n ? rtjax_step::hist_bin(a, i) : -1;
+  if (nb <= kSmemBins) {
+    for (int k = threadIdx.x; k < nb; k += kBlock) bins[k] = 0;
+    __syncthreads();
+  }
+  return b;
+}
+
+__device__ __forceinline__ void hist_end(const StepArgs& a, int b) {
+  extern __shared__ int bins[];
+  const int nb = a.max_bounces + 1;
+  auto* hist = reinterpret_cast<unsigned long long*>(a.hist);
+  if (nb > kSmemBins) {
+    if (b >= 0) atomicAdd(hist + b, 1ULL);
+    return;
+  }
+  if (b >= 0) atomicAdd(bins + b, 1);
+  __syncthreads();
+  for (int k = threadIdx.x; k < nb; k += kBlock)
+    if (bins[k] != 0)
+      atomicAdd(hist + k, static_cast<unsigned long long>(bins[k]));
+}
+
 // resolve: the shadow results, on the default resolve or, with
 // kRestore, the parity modes' (each limbo lane's payload restored into
 // the closest hits); under one-sample MIS (kOneSample) and detailed_stats
-// (kStats).  The bounce histogram: each block counts its traced lanes'
-// bins in shared memory (max_bounces + 1 ints, at most kSmemBins; sized
-// at launch) and adds each non-zero bin to the histogram with one 64-bit
-// atomic
-template <bool kRestore, bool kOneSample, bool kStats>
+// (kStats: the bounce histogram, hist_begin / hist_end around the lane's
+// work, or before it the first design's hist_block)
+template <bool kRestore, bool kOneSample, int kStats>
 __device__ __forceinline__ void resolve_flags(const StepArgs& a) {
   const int i = blockIdx.x * kBlock + threadIdx.x;
-  if constexpr (kStats) {
-    extern __shared__ int bins[];
-    const int nb = a.max_bounces + 1;
-    const bool staged = nb <= kSmemBins;
-    auto* hist = reinterpret_cast<unsigned long long*>(a.hist);
-    if (staged)
-      for (int k = threadIdx.x; k < nb; k += kBlock) bins[k] = 0;
-    __syncthreads();
-    const int b = i < a.n ? rtjax_step::hist_bin(a, i) : -1;
-    if (b >= 0) {
-      if (staged)
-        atomicAdd(bins + b, 1);
-      else
-        atomicAdd(hist + b, 1ULL);
-    }
-    __syncthreads();
-    if (staged)
-      for (int k = threadIdx.x; k < nb; k += kBlock)
-        if (bins[k] != 0)
-          atomicAdd(hist + k, static_cast<unsigned long long>(bins[k]));
-  }
+  if constexpr (kStats == kHistBlock) hist_block(a, i);
+  int b = -1;
+  if constexpr (kStats == kHistAround) b = hist_begin(a, i);
   if (i < a.n) {
     if (a.num_lights > 0) rtjax_step::resolve_lane<kOneSample>(a, i);
     if constexpr (kRestore) rtjax_step::restore_limbo(a, i);
   }
+  if constexpr (kStats == kHistAround) hist_end(a, b);
   if (i == 0)
     rtjax_step::resolve_counters<kRestore ? rtjax_step::kParity
                                           : rtjax_step::kDefault>(a);
 }
 
 __global__ void __launch_bounds__(kBlock) resolve_kernel(const StepArgs a) {
-  resolve_flags<false, false, false>(a);
+  resolve_flags<false, false, kNoHist>(a);
 }
 
 __global__ void __launch_bounds__(kBlock)
     resolve_parity_kernel(const StepArgs a) {
-  resolve_flags<true, false, false>(a);
+  resolve_flags<true, false, kNoHist>(a);
 }
 
 __global__ void __launch_bounds__(kBlock)
     resolve_1s_kernel(const StepArgs a) {
-  resolve_flags<false, true, false>(a);
+  resolve_flags<false, true, kNoHist>(a);
 }
 
 __global__ void __launch_bounds__(kBlock)
     resolve_stats_kernel(const StepArgs a) {
-  resolve_flags<false, false, true>(a);
+  resolve_flags<false, false, kHistAround>(a);
 }
 
 __global__ void __launch_bounds__(kBlock)
     resolve_1s_stats_kernel(const StepArgs a) {
-  resolve_flags<false, true, true>(a);
+  resolve_flags<false, true, kHistAround>(a);
 }
 
 __global__ void __launch_bounds__(kBlock)
     resolve_parity_stats_kernel(const StepArgs a) {
-  resolve_flags<true, false, true>(a);
+  resolve_flags<true, false, kHistAround>(a);
+}
+
+// the first design of the stats resolve (kept for timing in turns)
+__global__ void __launch_bounds__(kBlock)
+    resolve_parity_stats_v1_kernel(const StepArgs a) {
+  resolve_flags<true, false, kHistBlock>(a);
 }
 
 int grid_of(int n, int block) { return (n + block - 1) / block; }
@@ -817,6 +936,31 @@ int launch(Kernel kernel, int block, const StepArgs* a, void* stream) {
   if (a->n <= 0) return 0;
   kernel<<<grid_of(a->n, block), block, bins_smem(a),
            static_cast<cudaStream_t>(stream)>>>(*a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// a resident grid of ``Kernel`` (the one-sample shade): SMs x its
+// resident blocks an SM at ``block`` threads (the occupancy calculator),
+// found once a device, and at most one block a tile of ``block`` lanes
+template <void (*Kernel)(StepArgs)>
+int launch_resident(int block, const StepArgs* a, void* stream) {
+  static int slots[64] = {};
+  if (a->n <= 0) return 0;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (dev < 0 || dev >= 64) return static_cast<int>(cudaErrorInvalidDevice);
+  if (slots[dev] == 0) {
+    int sms = 0, blocks = 0;
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, Kernel,
+                                                        block, 0);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    slots[dev] = sms * blocks;
+  }
+  const int grid = std::min(grid_of(a->n, block), slots[dev]);
+  Kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(*a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -887,7 +1031,11 @@ extern "C" int rtjax_step_shade_parity_unsorted(const StepArgs* a,
 }
 
 extern "C" int rtjax_step_shade_1s(const StepArgs* a, void* stream) {
-  return launch(shade_1s_kernel, kShadeBlock, a, stream);
+  return launch_resident<shade_1s_kernel>(kShadeBlock, a, stream);
+}
+
+extern "C" int rtjax_step_shade_1s_v1(const StepArgs* a, void* stream) {
+  return launch(shade_1s_v1_kernel, kShadeBlock, a, stream);
 }
 
 extern "C" int rtjax_step_route_shade_unsorted_1s(const StepArgs* a,
@@ -934,6 +1082,11 @@ extern "C" int rtjax_step_resolve_parity_stats(const StepArgs* a,
   return launch(resolve_parity_stats_kernel, kBlock, a, stream);
 }
 
+extern "C" int rtjax_step_resolve_parity_stats_v1(const StepArgs* a,
+                                                  void* stream) {
+  return launch(resolve_parity_stats_v1_kernel, kBlock, a, stream);
+}
+
 extern "C" int rtjax_step_route_parity_v1(const StepArgs* a, void* stream) {
   return launch(route_parity_v1_kernel, kBlock, a, stream);
 }
@@ -961,7 +1114,8 @@ extern "C" int rtjax_step_shade_parity_unsorted_v1(const StepArgs* a,
 // shade_wide_1s, 16 resolve_1s, 17 resolve_stats, 18 resolve_1s_stats,
 // 19 resolve_parity_stats, 20 route_parity_v1, 21 shade_parity_v1, 22
 // route_parity_unsorted_v1, 23 shade_parity_unsorted_v1, 24
-// route_shade_unsorted_v1, 25 route_shade_unsorted_1s_v1).
+// route_shade_unsorted_v1, 25 route_shade_unsorted_1s_v1, 26 shade_1s_v1,
+// 27 resolve_parity_stats_v1).
 extern "C" int rtjax_step_kernel_info(int which, int* regs, int* local,
                                       int* block, int* blocks) {
   switch (which) {
@@ -1014,6 +1168,10 @@ extern "C" int rtjax_step_kernel_info(int which, int* regs, int* local,
                          local, block, blocks);
     case 25: return info(route_shade_unsorted_1s_v1_kernel, kShadeBlock,
                          regs, local, block, blocks);
+    case 26: return info(shade_1s_v1_kernel, kShadeBlock, regs, local, block,
+                         blocks);
+    case 27: return info(resolve_parity_stats_v1_kernel, kBlock, regs, local,
+                         block, blocks);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

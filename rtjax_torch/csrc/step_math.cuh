@@ -891,68 +891,64 @@ __device__ __forceinline__ ShadowLane shadow_rays(
   return r;
 }
 
-// shade (kernels/step.py shade_ref) of sorted position i, its materials
-// and lights read from T; ``do_gen``: cadence(a).  kMode kWide: the
-// lane's full-precision record of the wide bundle (shade_full_ref of the
-// sorted engine) in place of the compact one; kOneSample: one-sample MIS
-template <bool kV1, int kMode = kDefault, bool kOneSample = false>
-__device__ __forceinline__ ShadeLane shade_lane(const StepArgs& a, int i,
-                                                const Tables& T,
-                                                bool do_gen) {
-  const long long n = a.n;
-  const long long j = do_gen ? a.order[i] : i;
+// a sorted position's lane as the gather gives it: the decoded compact
+// record (or the wide bundle's full one) and the material index it carries
+// (the first design looks it up in shade_math)
+struct SortedLane {
   V3 p, beta, acc, normal, wo;
   int pixel, bounces, prim, src, mi;
   bool mat;
-  if constexpr (kMode == kWide) {
-    // the hit point rides in the record's origin words
-    const FullRec r = load_full(a, j);
-    p = r.o;
-    beta = r.beta;
-    acc = r.acc;
-    normal = r.normal;
-    wo = r.d;
-    pixel = r.pixel;
-    bounces = r.bounces;
-    mat = r.mat;
-    prim = r.prim;
-    src = r.src;
-    mi = r.mi;
-  } else {
-    int w[9];
-    if constexpr (kV1) {
-      for (int k = 0; k < 9; ++k) w[k] = a.bundle[k * n + j];
-    } else {
-      // five read-only 8-byte loads of the lane's record (two sectors)
-      const int2* r = reinterpret_cast<const int2*>(a.bundle) + 5 * j;
-      const int2 r0 = __ldg(r), r1 = __ldg(r + 1), r2 = __ldg(r + 2),
-                 r3 = __ldg(r + 3), r4 = __ldg(r + 4);
-      w[0] = r0.x; w[1] = r0.y; w[2] = r1.x; w[3] = r1.y;
-      w[4] = r2.x; w[5] = r2.y; w[6] = r3.x; w[7] = r3.y;
-      w[8] = r4.x;
-      mi = r4.y;
-    }
-    p = {__int_as_float(w[0]), __int_as_float(w[1]), __int_as_float(w[2])};
-    beta = rgb9e5_decode(w[3]);
-    acc = rgb9e5_decode(w[4]);
-    const int pbm = w[5], sp = w[6];
-    normal = oct_decode(w[7]);
-    wo = oct_decode(w[8]);
-    pixel = pbm & 0x1FFFFF;
-    const int b_dec = (pbm >> 21) & 0x7F;
-    bounces = b_dec >= 127 ? kDeadBounces : b_dec;
-    mat = ((pbm >> 28) & 1) != 0;
-    prim = (sp & 0x7FFFFF) - 1;
-    src = (sp >> 23) & 0xFF;
-  }
-  const long long* wd = a.words;
-  const float u_pick = u01_lo(wd[i]);
-  const float b1u1 = u01_hi(wd[n + i]), b1u2 = u01_lo(wd[n + i]);
-  const float luv1 = u01_hi(wd[2 * n + i]), luv2 = u01_lo(wd[2 * n + i]);
+};
+
+// the random words of a sorted position (kernels/step.py W_*): the light
+// pick, the first BSDF sample, the light's barycentrics, the second BSDF
+// sample (not read under one-sample MIS) and the subpixel jitter
+struct ShadeWords {
+  long long pick, bsdf1, light, bsdf2, gen;
+};
+
+// the compact record's nine codec words decoded (``mi`` its material word)
+__device__ __forceinline__ SortedLane decode_compact(const int w[9], int mi) {
+  SortedLane s;
+  s.p = {__int_as_float(w[0]), __int_as_float(w[1]), __int_as_float(w[2])};
+  s.beta = rgb9e5_decode(w[3]);
+  s.acc = rgb9e5_decode(w[4]);
+  const int pbm = w[5], sp = w[6];
+  s.normal = oct_decode(w[7]);
+  s.wo = oct_decode(w[8]);
+  s.pixel = pbm & 0x1FFFFF;
+  const int b_dec = (pbm >> 21) & 0x7F;
+  s.bounces = b_dec >= 127 ? kDeadBounces : b_dec;
+  s.mat = ((pbm >> 28) & 1) != 0;
+  s.prim = (sp & 0x7FFFFF) - 1;
+  s.src = (sp >> 23) & 0xFF;
+  s.mi = mi;
+  return s;
+}
+
+// shade (kernels/step.py shade_ref) of sorted position i given its lane
+// ``s`` and words ``u``, its materials and lights read from T; ``do_gen``:
+// cadence(a).  The one copy of the sorted engine's lane math: shade_lane
+// gathers the lane and calls it, the one-sample shade's tile walk
+// (shade_1s_walk) calls it on the lane its pipeline staged
+template <bool kV1, int kMode = kDefault, bool kOneSample = false>
+__device__ __forceinline__ ShadeLane shade_math(const StepArgs& a, int i,
+                                                const Tables& T, bool do_gen,
+                                                const SortedLane& s,
+                                                const ShadeWords& u) {
+  const V3 p = s.p, beta = s.beta, normal = s.normal, wo = s.wo;
+  V3 acc = s.acc;
+  const int pixel = s.pixel, bounces = s.bounces, prim = s.prim,
+            src = s.src;
+  int mi = s.mi;
+  const bool mat = s.mat;
+  const float u_pick = u01_lo(u.pick);
+  const float b1u1 = u01_hi(u.bsdf1), b1u2 = u01_lo(u.bsdf1);
+  const float luv1 = u01_hi(u.light), luv2 = u01_lo(u.light);
   // one-sample MIS draws no second BSDF sample
-  const float b2u1 = kOneSample ? 0.0f : u01_hi(wd[3 * n + i]);
-  const float b2u2 = kOneSample ? 0.0f : u01_lo(wd[3 * n + i]);
-  const float gen_u = u01_hi(wd[4 * n + i]), gen_v = u01_lo(wd[4 * n + i]);
+  const float b2u1 = kOneSample ? 0.0f : u01_hi(u.bsdf2);
+  const float b2u2 = kOneSample ? 0.0f : u01_lo(u.bsdf2);
+  const float gen_u = u01_hi(u.gen), gen_v = u01_lo(u.gen);
 
   // the hit's material: looked up here in the first design, carried in
   // the record (route's lookup) in the record design
@@ -1016,6 +1012,152 @@ __device__ __forceinline__ ShadeLane shade_lane(const StepArgs& a, int i,
   r.trace = mat || got_ray;
   a.trace_mask[i] = r.trace ? 1 : 0;
   return r;
+}
+
+// shade of sorted position i: its lane gathered through the sort's order
+// (the identity on a skip iteration) and its words loaded, then
+// shade_math.  kMode kWide: the lane's full-precision record of the wide
+// bundle (shade_full_ref of the sorted engine) in place of the compact
+// one; kOneSample: one-sample MIS
+template <bool kV1, int kMode = kDefault, bool kOneSample = false>
+__device__ __forceinline__ ShadeLane shade_lane(const StepArgs& a, int i,
+                                                const Tables& T,
+                                                bool do_gen) {
+  const long long n = a.n;
+  const long long j = do_gen ? a.order[i] : i;
+  SortedLane s;
+  if constexpr (kMode == kWide) {
+    // the hit point rides in the record's origin words
+    const FullRec r = load_full(a, j);
+    s.p = r.o;
+    s.beta = r.beta;
+    s.acc = r.acc;
+    s.normal = r.normal;
+    s.wo = r.d;
+    s.pixel = r.pixel;
+    s.bounces = r.bounces;
+    s.mat = r.mat;
+    s.prim = r.prim;
+    s.src = r.src;
+    s.mi = r.mi;
+  } else {
+    int w[9];
+    int mi = 0;
+    if constexpr (kV1) {
+      for (int k = 0; k < 9; ++k) w[k] = a.bundle[k * n + j];
+    } else {
+      // five read-only 8-byte loads of the lane's record (two sectors)
+      const int2* r = reinterpret_cast<const int2*>(a.bundle) + 5 * j;
+      const int2 r0 = __ldg(r), r1 = __ldg(r + 1), r2 = __ldg(r + 2),
+                 r3 = __ldg(r + 3), r4 = __ldg(r + 4);
+      w[0] = r0.x; w[1] = r0.y; w[2] = r1.x; w[3] = r1.y;
+      w[4] = r2.x; w[5] = r2.y; w[6] = r3.x; w[7] = r3.y;
+      w[8] = r4.x;
+      mi = r4.y;
+    }
+    s = decode_compact(w, mi);
+  }
+  const long long* wd = a.words;
+  const ShadeWords u = {wd[i], wd[n + i], wd[2 * n + i],
+                        kOneSample ? 0LL : wd[3 * n + i], wd[4 * n + i]};
+  return shade_math<kV1, kMode, kOneSample>(a, i, T, do_gen, s, u);
+}
+
+// ------------------------------- the sorted engine's one-sample shade walk
+
+// The redesigned one-sample shade (step_kernels.cu shade_1s_kernel): a
+// resident grid of blocks, each walking tiles of kShadeTile sorted
+// positions (block b the tiles b, b + grid, ...), each thread one position
+// of a tile.  A position's chain is three dependent reads: its order word,
+// then its record through it (five 8-byte words) beside its four random
+// words, then the shading.  Each thread pipelines its own chain in shared
+// memory with asynchronous copies (cp.async, __pipeline_*): while it shades
+// tile k, its record and words of tile k + 1 and its order word of tile
+// k + 2 are in flight.  Two stages of each: tile k + 2's order goes where
+// tile k's was, tile k + 1's lane where tile k - 1's was.  A thread reads
+// only what its own copies wrote, so the walk needs no barrier (a copy is
+// visible to the thread that made it once it waits for it).  On a cadence
+// skip iteration the order is the identity: no order is read and the
+// record is the position's own.
+constexpr int kShadeTile = 128;
+
+struct ShadeStages {
+  long long order[2][kShadeTile];
+  int2 rec[2][5][kShadeTile];
+  long long words[2][4][kShadeTile];   // pick, bsdf1, light, gen
+};
+
+struct WalkCounts {
+  int trace, nee, mis;
+};
+
+// thread ``t``'s walk over the tiles ``first``, ``first + stride``, ...:
+// every position shaded by shade_math (one-sample MIS), ``flush(i, lane)``
+// called for each; returns the thread's counts of traced, NEE and MIS lanes
+template <class Flush>
+__device__ __forceinline__ WalkCounts shade_1s_walk(const StepArgs& a,
+                                                    const Tables& T,
+                                                    ShadeStages& s, int t,
+                                                    int first, int stride,
+                                                    bool do_gen, Flush flush) {
+  const long long n = a.n;
+  const long long tiles = (n + kShadeTile - 1) / kShadeTile;
+  const auto tile = [&](int k) {
+    return first + static_cast<long long>(k) * stride;
+  };
+  // the thread's position in its k-th tile; -1 past the pool
+  const auto pos = [&](int k) {
+    const long long i = tile(k) * kShadeTile + t;
+    return tile(k) < tiles && i < n ? i : -1LL;
+  };
+  const auto fetch_order = [&](int k) {
+    const long long i = pos(k);
+    if (do_gen && i >= 0)
+      __pipeline_memcpy_async(&s.order[k & 1][t], a.order + i, 8);
+  };
+  const auto fetch_lane = [&](int k) {
+    const long long i = pos(k);
+    if (i < 0) return;
+    const long long j = do_gen ? s.order[k & 1][t] : i;
+    const int2* r = reinterpret_cast<const int2*>(a.bundle) + 5 * j;
+    for (int w = 0; w < 5; ++w)
+      __pipeline_memcpy_async(&s.rec[k & 1][w][t], r + w, 8);
+    // the words but the second BSDF sample's (rows 0, 1, 2 and 4)
+    for (int w = 0; w < 4; ++w)
+      __pipeline_memcpy_async(&s.words[k & 1][w][t],
+                              a.words + (w + w / 3) * n + i, 8);
+  };
+  WalkCounts c = {0, 0, 0};
+  fetch_order(0);
+  __pipeline_commit();
+  fetch_order(1);
+  __pipeline_commit();
+  __pipeline_wait_prior(1);
+  fetch_lane(0);
+  __pipeline_commit();
+  for (int k = 0; tile(k) < tiles; ++k) {
+    __pipeline_wait_prior(0);  // tile k's lane and tile k + 1's order in
+    fetch_lane(k + 1);
+    fetch_order(k + 2);
+    __pipeline_commit();
+    const long long i = pos(k);
+    if (i < 0) continue;
+    const int b = k & 1;
+    const int w[9] = {s.rec[b][0][t].x, s.rec[b][0][t].y, s.rec[b][1][t].x,
+                      s.rec[b][1][t].y, s.rec[b][2][t].x, s.rec[b][2][t].y,
+                      s.rec[b][3][t].x, s.rec[b][3][t].y, s.rec[b][4][t].x};
+    const ShadeWords u = {s.words[b][0][t], s.words[b][1][t],
+                          s.words[b][2][t], 0LL, s.words[b][3][t]};
+    const ShadeLane r = shade_math<false, kDefault, true>(
+        a, static_cast<int>(i), T, do_gen,
+        decode_compact(w, s.rec[b][4][t].y), u);
+    c.trace += r.trace;
+    c.nee += r.nee;
+    c.mis += r.mis;
+    flush(i, r);
+  }
+  __pipeline_wait_prior(0);
+  return c;
 }
 
 // ---------------------------------------------- the full-record modes

@@ -106,8 +106,15 @@ camera rays into the dead suffix, the flush from the dirty window.
 One-sample MIS (``*_1s``): shade emits the N NEE shadow rays alone (the
 BSDF-MIS channel reuses the path sample, its mask in
 ``Shaded.chs_mask``) and resolve reads the path rays' closest hits for
-the channel.  ``detailed_stats`` (``*_stats``): resolve adds the traced
-lanes to the bounce histogram.
+the channel.  On the sorted engine its kernel is a resident grid whose
+threads walk tiles of sorted positions with their loads pipelined
+(csrc/step_math.cuh ``shade_1s_walk``).  ``detailed_stats``
+(``*_stats``): resolve adds the traced lanes to the bounce histogram
+through their block's bins, which the block adds to the histogram after
+the lanes' own work.  The first designs of these two
+(:data:`MODE_V1`: the one-sample shade one thread a position, the stats
+resolve a histogram a block) stay for timing in turns; ``DESIGN = "v1"``
+routes the step there too (:func:`shade_1s_v1`, :func:`resolve_full_v1`).
 """
 
 from __future__ import annotations
@@ -182,6 +189,10 @@ PARITY_V1 = {k: k + "_v1" for k in ("route_parity", "shade_parity",
 # before the shading), by the kernel it stands in for
 UNSORTED_V1 = {k: k + "_v1" for k in ("route_shade_unsorted",
                                        "route_shade_unsorted_1s")}
+# the first designs of the sorted engine's one-sample shade and of the
+# parity modes' stats resolve, by the kernel each stands in for
+MODE_V1 = {"shade_1s": "shade_1s_v1",
+           "resolve_parity_stats": "resolve_parity_stats_v1"}
 # the step's engines and the kernels each launches under the default
 # estimator without detailed_stats
 ENGINE_KERNELS = {
@@ -221,6 +232,7 @@ LAUNCHES = {k: 0 for ks in MODE_KERNELS.values() for k in ks}
 V1_LAUNCHES = {"route": 0, "shade": 0}
 PARITY_V1_LAUNCHES = {k: 0 for k in PARITY_V1.values()}
 UNSORTED_V1_LAUNCHES = {k: 0 for k in UNSORTED_V1.values()}
+MODE_V1_LAUNCHES = {k: 0 for k in MODE_V1.values()}
 REF_CALLS = dict(LAUNCHES)
 
 _lock = threading.Lock()
@@ -1005,7 +1017,8 @@ _COUNTERS = {**{k: (LAUNCHES, k) for k in LAUNCHES},
              "route_v1": (V1_LAUNCHES, "route"),
              "shade_v1": (V1_LAUNCHES, "shade"),
              **{k: (PARITY_V1_LAUNCHES, k) for k in PARITY_V1_LAUNCHES},
-             **{k: (UNSORTED_V1_LAUNCHES, k) for k in UNSORTED_V1_LAUNCHES}}
+             **{k: (UNSORTED_V1_LAUNCHES, k) for k in UNSORTED_V1_LAUNCHES},
+             **{k: (MODE_V1_LAUNCHES, k) for k in MODE_V1_LAUNCHES}}
 # kernel ids of ``rtjax_step_kernel_info``
 KERNEL_IDS = {"route": 0, "shade": 1, "resolve": 2, "route_v1": 3,
               "shade_v1": 4, "route_shade_unsorted": 5, "route_parity": 6,
@@ -1017,7 +1030,8 @@ KERNEL_IDS = {"route": 0, "shade": 1, "resolve": 2, "route_v1": 3,
               "resolve_parity_stats": 19, "route_parity_v1": 20,
               "shade_parity_v1": 21, "route_parity_unsorted_v1": 22,
               "shade_parity_unsorted_v1": 23, "route_shade_unsorted_v1": 24,
-              "route_shade_unsorted_1s_v1": 25}
+              "route_shade_unsorted_1s_v1": 25, "shade_1s_v1": 26,
+              "resolve_parity_stats_v1": 27}
 
 
 def bind(lib):
@@ -1460,8 +1474,9 @@ def resolve_args(cfg, sh, occluded, it, sort_every, cam_start, rays_traced,
 def route(scene, cfg, state, words):
     """Emission, Russian roulette, the sort keys and the packed bundle of
     one iteration: ``(keys, bundle, counts)`` (module docstring); the
-    first design's under ``DESIGN = "v1"``."""
-    if DESIGN == "v1":
+    first design's under ``DESIGN = "v1"`` (but under ``one_sample_mis``,
+    whose shade's first design reads this route's record)."""
+    if DESIGN == "v1" and not cfg.one_sample_mis:
         return route_v1(scene, cfg, state, words)
     if not _on_card(state.pixel):
         return route_ref(scene, cfg, state, words)
@@ -1474,10 +1489,12 @@ def shade(scene, camera, cfg, state, fb, words, order, bundle, counts, it,
           cam_start, sort_every):
     """Shading, camera generation, the flush and the merge of one
     iteration's sorted pool: a :class:`Shaded` (module docstring); the
-    first design's under ``DESIGN = "v1"``."""
+    first design's under ``DESIGN = "v1"`` (:func:`shade_v1`, or under
+    ``one_sample_mis`` :func:`shade_1s_v1`)."""
     if DESIGN == "v1":
-        return shade_v1(scene, camera, cfg, state, fb, words, order, bundle,
-                        counts, it, cam_start, sort_every)
+        return (shade_1s_v1 if cfg.one_sample_mis else shade_v1)(
+            scene, camera, cfg, state, fb, words, order, bundle, counts, it,
+            cam_start, sort_every)
     if not _on_card(state.pixel):
         return shade_ref(scene, camera, cfg, state, fb, words, order,
                          bundle, counts, it, cam_start, sort_every)
@@ -1510,6 +1527,22 @@ def shade_v1(scene, camera, cfg, state, fb, words, order, bundle, counts,
     a, out = shade_args(scene, camera, cfg, state, fb, words, order, bundle,
                         counts, it, cam_start, sort_every, v1=True)
     launch("shade_v1", a, state.pixel.device)
+    return out
+
+
+def shade_1s_v1(scene, camera, cfg, state, fb, words, order, bundle, counts,
+                it, cam_start, sort_every):
+    """:func:`shade` under ``one_sample_mis`` in its first design (one
+    thread a sorted position, its gather waited out alone), on the same
+    record; its plain version is :func:`shade_ref`."""
+    if not cfg.one_sample_mis:
+        raise ValueError("shade_1s_v1 is the one_sample_mis shade")
+    if not _on_card(state.pixel):
+        return shade_ref(scene, camera, cfg, state, fb, words, order, bundle,
+                         counts, it, cam_start, sort_every)
+    a, out = shade_args(scene, camera, cfg, state, fb, words, order, bundle,
+                        counts, it, cam_start, sort_every)
+    launch(MODE_V1["shade_1s"], a, state.pixel.device)
     return out
 
 
@@ -1654,7 +1687,12 @@ def resolve_full(cfg, sh, occluded, hits, cam_start, rays_traced, occ_sum,
     prim and src restored from the record (the kernel writes them into
     ``hits``' own tensors) and the frame held while a lane is in limbo.
     The unsorted engine and the wide bundle have no limbo lanes:
-    :func:`resolve` at ``sort_every`` 1."""
+    :func:`resolve` at ``sort_every`` 1.  Under ``DESIGN = "v1"`` a mode
+    whose resolve has a first design (:data:`MODE_V1`) runs
+    :func:`resolve_full_v1`."""
+    if DESIGN == "v1" and kernels_of(cfg, mode)[-1] in MODE_V1:
+        return resolve_full_v1(cfg, sh, occluded, hits, cam_start,
+                               rays_traced, occ_sum, mode, hist)
     if not engine_of(mode).startswith("parity"):
         acc, *rest = resolve(cfg, sh, occluded, 0, 1, cam_start,
                              rays_traced, occ_sum, hits, hist)
@@ -1665,4 +1703,23 @@ def resolve_full(cfg, sh, occluded, hits, cam_start, rays_traced, occ_sum,
     a, out = resolve_args(cfg, sh, occluded, 0, 1, cam_start, rays_traced,
                           occ_sum, hits, hist, restore=True)
     launch(kernels_of(cfg, mode)[-1], a, sh.trace_mask.device)
+    return out
+
+
+def resolve_full_v1(cfg, sh, occluded, hits, cam_start, rays_traced,
+                    occ_sum, mode, hist=None):
+    """:func:`resolve_full` in the first design of the stats resolve (a
+    histogram a block, one shared atomic a traced lane): the parity modes
+    under ``detailed_stats``; its plain version is
+    :func:`resolve_full_ref`."""
+    name = MODE_V1.get(kernels_of(cfg, mode)[-1])
+    if name is None or not engine_of(mode).startswith("parity"):
+        raise ValueError(f"the stats resolve's first design takes the parity "
+                         f"modes under detailed_stats, not {mode}")
+    if not _on_card(sh.trace_mask):
+        return resolve_full_ref(cfg, sh, occluded, hits, cam_start,
+                                rays_traced, occ_sum, mode, hist)
+    a, out = resolve_args(cfg, sh, occluded, 0, 1, cam_start, rays_traced,
+                          occ_sum, hits, hist, restore=True)
+    launch(name, a, sh.trace_mask.device)
     return out

@@ -18,7 +18,16 @@
 // blocks yet to take a ticket and those that hold one, so that a block
 // meets unpublished words and words of the launch before and is set
 // aside at its look-back and resumed; when its walk ends the block takes
-// its ranks (route and shade: its camera lanes make their rays).
+// its ranks (route and shade: its camera lanes make their rays).  The
+// one-sample shade's resident grid is host_shade_slots blocks, taken in a
+// shuffled order, each thread's tile walk (step_math.cuh shade_1s_walk)
+// run over the block's stages, filled with a pattern first and kept
+// across its tiles; the pipeline's copies land when issued or, with
+// host_copies_at_wait, only when a wait completes their group (so that a
+// stage overwritten too early, or read before its wait, shows); the flush
+// is added in lane order.  The stats resolve's histogram adds each traced
+// lane into its 256-lane block's bins, then each block's non-zero bins
+// into the histogram.
 #include <cmath>
 #include <cstring>
 #include <algorithm>
@@ -41,6 +50,23 @@ inline unsigned long long atomicExch(unsigned long long* p,
 inline int __ldg(const int* p) { return *p; }
 inline int __float_as_int(float f) { int i; memcpy(&i, &f, 4); return i; }
 inline float __int_as_float(int i) { float f; memcpy(&f, &i, 4); return f; }
+// the pipeline's copies (cp.async): at issue, or held in their commit group
+// until a wait completes it
+extern "C" { int host_copies_at_wait = 0; }
+struct HostCopy { void* dst; const void* src; size_t bytes; };
+static std::vector<HostCopy> open_group;
+static std::vector<std::vector<HostCopy>> pending;
+inline void __pipeline_memcpy_async(void* dst, const void* src, size_t bytes) {
+  if (host_copies_at_wait) open_group.push_back({dst, src, bytes});
+  else memcpy(dst, src, bytes);
+}
+inline void __pipeline_commit() { pending.push_back(open_group); open_group.clear(); }
+inline void __pipeline_wait_prior(size_t prior) {
+  while (pending.size() > prior) {
+    for (const HostCopy& c : pending.front()) memcpy(c.dst, c.src, c.bytes);
+    pending.erase(pending.begin());
+  }
+}
 #include "step_math.cuh"
 using namespace rtjax_step;
 
@@ -95,7 +121,7 @@ template <int kMode, bool kOneSample> static int shade_sorted(const StepArgs* a)
   return 0;
 }
 extern "C" int rtjax_step_shade(const StepArgs* a, void*) { return shade_sorted<kDefault, false>(a); }
-extern "C" int rtjax_step_shade_1s(const StepArgs* a, void*) { return shade_sorted<kDefault, true>(a); }
+extern "C" int rtjax_step_shade_1s_v1(const StepArgs* a, void*) { return shade_sorted<kDefault, true>(a); }
 extern "C" int rtjax_step_shade_wide(const StepArgs* a, void*) { return shade_sorted<kWide, false>(a); }
 extern "C" int rtjax_step_shade_wide_1s(const StepArgs* a, void*) { return shade_sorted<kWide, true>(a); }
 extern "C" int rtjax_step_shade_v1(const StepArgs* a, void*) {
@@ -108,6 +134,51 @@ extern "C" int rtjax_step_shade_v1(const StepArgs* a, void*) {
       float* px = a->fb + 3 * (long long)r.pixel;
       px[0] += r.flushed.x; px[1] += r.flushed.y; px[2] += r.flushed.z;
     }
+  }
+  a->counts[1] += c1; a->counts[2] += c2; a->counts[3] += c3;
+  return 0;
+}
+static unsigned long long shuffle_state = 0x9E3779B97F4A7C15ULL;
+static unsigned shuffled(unsigned k) {  // a draw in [0, k)
+  shuffle_state = shuffle_state * 6364136223846793005ULL + 1442695040888963407ULL;
+  return static_cast<unsigned>(shuffle_state >> 33) % k;
+}
+// the one-sample shade (step_kernels.cu shade_1s_kernel): a grid of
+// min(tiles, host_shade_slots) blocks in a shuffled order, each thread's
+// walk over the block's tiles on the block's stages
+extern "C" { int host_shade_slots = 3; }
+extern "C" int rtjax_step_shade_1s(const StepArgs* a, void*) {
+  Staged st;
+  const Tables T = stage(*a, st);
+  const bool do_gen = cadence(*a);
+  const long long lo = a->counts[0], hi = lo + a->counts[4];
+  const int tiles = (a->n + kShadeTile - 1) / kShadeTile;
+  const int grid = min(tiles, host_shade_slots);
+  std::vector<int> order(grid);
+  for (int b = 0; b < grid; ++b) order[b] = b;
+  for (int b = grid - 1; b > 0; --b) std::swap(order[b], order[shuffled(b + 1)]);
+  std::vector<ShadeLane> shaded(a->n);
+  std::vector<char> flushes(a->n, 0);
+  long long c1 = 0, c2 = 0, c3 = 0;
+  for (int b : order) {
+    ShadeStages s;
+    memset(&s, 0xA5, sizeof s);
+    for (int t = 0; t < kShadeTile; ++t) {
+      const WalkCounts c = shade_1s_walk(*a, T, s, t, b, grid, do_gen,
+          [&](long long i, const ShadeLane& r) {
+            shaded[i] = r;
+            flushes[i] = r.flush && i >= lo && i < hi;
+          });
+      c1 += c.trace; c2 += c.nee; c3 += c.mis;
+    }
+  }
+  for (int i = 0; i < a->n; ++i) {
+    if (!flushes[i]) continue;
+    const V3 v = shaded[i].flushed;
+    float* px = a->fb + 3 * (long long)shaded[i].pixel;
+    if (v.x != 0.0f) px[0] += v.x;
+    if (v.y != 0.0f) px[1] += v.y;
+    if (v.z != 0.0f) px[2] += v.z;
   }
   a->counts[1] += c1; a->counts[2] += c2; a->counts[3] += c3;
   return 0;
@@ -157,11 +228,6 @@ template <int kMode, bool kOneSample = false> static int shade_full(const StepAr
   }
   a->counts[1] += c1; a->counts[2] += c2; a->counts[3] += c3;
   return 0;
-}
-static unsigned long long shuffle_state = 0x9E3779B97F4A7C15ULL;
-static unsigned shuffled(unsigned k) {  // a draw in [0, k)
-  shuffle_state = shuffle_state * 6364136223846793005ULL + 1442695040888963407ULL;
-  return static_cast<unsigned>(shuffle_state >> 33) % k;
 }
 // a ranked launch's ``blocks`` blocks interleaved on the persistent
 // ``scratch`` (the ticket, then one status word a block): ``arrive(b)`` a
@@ -326,21 +392,42 @@ extern "C" int rtjax_step_shade_parity(const StepArgs* a, void*) { return shade_
 extern "C" int rtjax_step_shade_parity_unsorted(const StepArgs* a, void*) { return shade_ranked<kParityUnsorted>(a); }
 extern "C" int rtjax_step_shade_parity_v1(const StepArgs* a, void*) { return shade_full<kParity>(a); }
 extern "C" int rtjax_step_shade_parity_unsorted_v1(const StepArgs* a, void*) { return shade_full<kParityUnsorted>(a); }
-template <bool kRestore, bool kOneSample, bool kStats> static int resolve(const StepArgs* a) {
+// the stats resolve's histogram (step_kernels.cu hist_begin / hist_end):
+// each traced lane into its 256-lane block's bins, each block's non-zero
+// bins into the histogram; past kSmemBins bins each traced lane adds to
+// the histogram
+static void hist_around(const StepArgs* a) {
+  constexpr int kBlock = 256, kSmemBins = 4096;
+  const int nb = a->max_bounces + 1, n = a->n;
+  if (nb > kSmemBins) {
+    for (int i = 0; i < n; ++i) if (hist_bin(*a, i) >= 0) a->hist[hist_bin(*a, i)] += 1;
+    return;
+  }
+  for (int lo = 0; lo < n; lo += kBlock) {
+    std::vector<int> bins(nb, 0);
+    for (int i = lo; i < min(n, lo + kBlock); ++i)
+      if (hist_bin(*a, i) >= 0) bins[hist_bin(*a, i)] += 1;
+    for (int k = 0; k < nb; ++k) if (bins[k] != 0) a->hist[k] += bins[k];
+  }
+}
+// kStats 1: hist_around; 2: the first design's (each traced lane added)
+template <bool kRestore, bool kOneSample, int kStats> static int resolve(const StepArgs* a) {
+  if (kStats == 1) hist_around(a);
   for (int i = 0; i < a->n; ++i) {
-    if (kStats && hist_bin(*a, i) >= 0) a->hist[hist_bin(*a, i)] += 1;
+    if (kStats == 2 && hist_bin(*a, i) >= 0) a->hist[hist_bin(*a, i)] += 1;
     if (a->num_lights > 0) resolve_lane<kOneSample>(*a, i);
     if (kRestore) restore_limbo(*a, i);
   }
   resolve_counters<kRestore ? kParity : kDefault>(*a);
   return 0;
 }
-extern "C" int rtjax_step_resolve(const StepArgs* a, void*) { return resolve<false, false, false>(a); }
-extern "C" int rtjax_step_resolve_1s(const StepArgs* a, void*) { return resolve<false, true, false>(a); }
-extern "C" int rtjax_step_resolve_stats(const StepArgs* a, void*) { return resolve<false, false, true>(a); }
-extern "C" int rtjax_step_resolve_1s_stats(const StepArgs* a, void*) { return resolve<false, true, true>(a); }
-extern "C" int rtjax_step_resolve_parity(const StepArgs* a, void*) { return resolve<true, false, false>(a); }
-extern "C" int rtjax_step_resolve_parity_stats(const StepArgs* a, void*) { return resolve<true, false, true>(a); }
+extern "C" int rtjax_step_resolve(const StepArgs* a, void*) { return resolve<false, false, 0>(a); }
+extern "C" int rtjax_step_resolve_1s(const StepArgs* a, void*) { return resolve<false, true, 0>(a); }
+extern "C" int rtjax_step_resolve_stats(const StepArgs* a, void*) { return resolve<false, false, 1>(a); }
+extern "C" int rtjax_step_resolve_1s_stats(const StepArgs* a, void*) { return resolve<false, true, 1>(a); }
+extern "C" int rtjax_step_resolve_parity(const StepArgs* a, void*) { return resolve<true, false, 0>(a); }
+extern "C" int rtjax_step_resolve_parity_stats(const StepArgs* a, void*) { return resolve<true, false, 1>(a); }
+extern "C" int rtjax_step_resolve_parity_stats_v1(const StepArgs* a, void*) { return resolve<true, false, 2>(a); }
 extern "C" int rtjax_step_kernel_info(int, int* r, int* l, int* b, int* k) {
   *r = *l = *b = *k = 0; return 0;
 }

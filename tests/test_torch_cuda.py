@@ -2545,3 +2545,184 @@ def test_key_sort_replays_in_a_captured_graph(cuda):
         g.replay()
         torch.cuda.synchronize()
         assert torch.equal(order, torch.sort(keys, stable=True).indices)
+
+
+def _one_sample_cfg(n, k):
+    return RenderConfig(width=256, height=256, num_samples=16,
+                        max_bounces=5, num_working_paths=n,
+                        direct_max_tris=0, one_sample_mis=True, sort_every=k)
+
+
+@pytest.mark.parametrize("n", [3000, (1 << 17) + 5, 1 << 18])
+@pytest.mark.parametrize("skip", [False, True], ids=["sorts", "skips"])
+def test_one_sample_shade_designs_equal_plain_versions(cuda, n, skip):
+    """The sorted engine's one-sample shade (``shade_1s``: a resident grid
+    whose threads pipeline their tiles' loads) and its first design
+    (``shade_1s_v1``: one thread a position) each bit for bit against the
+    plain version on synthetic pools at sizes that are and are not
+    multiples of the 128-lane tile, on a sorting iteration and on a
+    ``sort_every`` skip iteration (the identity order), the frame's last
+    camera rays among the lanes of a second pool; the framebuffer within
+    the atomic adds' reordering; the two designs' outputs equal; each
+    wrapper launched its own kernel."""
+    from rtjax_torch.kernels import step as S
+    scene = _step_scene(cuda)
+    cam = Camera.make((0, 0.5, 3), (0, 0, 0), (0, 1, 0), 45, 1.0,
+                      device=cuda)
+    k = 2 if skip else 1
+    cfg = _one_sample_cfg(n, k)
+    assert S.step_mode(scene, cfg) == "default_1s"
+    g = torch.Generator(device=cuda).manual_seed(n % 1000 + skip)
+    before, before_v1 = dict(S.LAUNCHES), dict(S.MODE_V1_LAUNCHES)
+    it = torch.tensor(1 if skip else 2, device=cuda)
+    for first in (12345, cfg.total_camera_rays - n // 4):
+        state = _synthetic_state(scene, cfg, g, cuda)
+        if skip:
+            # most lanes continue: the cadence skips this iteration
+            state = dataclasses.replace(
+                state, hit=torch.ones_like(state.hit),
+                bounces=torch.where(state.bounces >= cfg.max_bounces, 0,
+                                    state.bounces))
+        words = torch.randint(0, 1 << 32, (5, n), generator=g, device=cuda,
+                              dtype=torch.int64)
+        keys, bundle, counts = S.route_ref(scene, cfg, state, words)
+        do_gen = S.cadence(counts, n, it, k)
+        assert (do_gen is not None and not bool(do_gen)) == skip
+        order = torch.sort(keys, stable=True).indices
+        fb = torch.rand(cfg.num_pixels, 3, generator=g, device=cuda)
+        cam_start = torch.tensor(first, device=cuda)
+        fb0 = fb.clone()
+        sh0 = S.shade_ref(scene, cam, cfg, state, fb0, words, order, bundle,
+                          counts, it, cam_start, k)
+        outs = {}
+        for design, shade in (("record", S.shade), ("v1", S.shade_1s_v1)):
+            fb1 = fb.clone()
+            sh1 = shade(scene, cam, cfg, _copy_state(state), fb1, words,
+                        order, bundle, counts.clone(), it, cam_start, k)
+            for f in _UNSORTED_FIELDS:
+                for j, (x, y) in enumerate(zip(_flat(getattr(sh1, f)),
+                                               _flat(getattr(sh0, f)),
+                                               strict=True)):
+                    assert _bits_equal(x, y), (design, f, j)
+            torch.testing.assert_close(fb1, fb0, rtol=1e-5, atol=1e-7)
+            outs[design] = sh1
+        for f in _UNSORTED_FIELDS:
+            for x, y in zip(_flat(getattr(outs["record"], f)),
+                            _flat(getattr(outs["v1"], f)), strict=True):
+                assert _bits_equal(x, y), f
+    assert S.LAUNCHES["shade_1s"] - before["shade_1s"] == 2
+    assert {k_: v - before_v1[k_] for k_, v in S.MODE_V1_LAUNCHES.items()} \
+        == {"shade_1s_v1": 2, "resolve_parity_stats_v1": 0}
+
+
+@pytest.mark.parametrize("nb", [1, 11, 32, 33, 127])
+@pytest.mark.parametrize("kind", ["stats", "1s_stats", "parity_stats"])
+def test_stats_resolves_equal_plain_versions(cuda, kind, nb):
+    """The stats resolves (``resolve_stats``, ``resolve_1s_stats``,
+    ``resolve_parity_stats``: the histogram around the lane's work) and
+    the parity one's first design
+    (``resolve_parity_stats_v1``) against their plain versions at 1, 11,
+    32, 33 and 127 bins, on synthetic pools of 3,000 and 2^18 - 3 lanes
+    (neither a multiple of the 256-lane block): every bin exactly, every
+    other output bit for bit."""
+    from rtjax_torch.kernels import step as S
+    scene = _step_scene(cuda)
+    cam = Camera.make((0, 0.5, 3), (0, 0, 0), (0, 1, 0), 45, 1.0,
+                      device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(nb)
+    copy = lambda v: None if v is None else tuple(copy(c) for c in v) \
+        if isinstance(v, tuple) else v.clone()
+    for n in (3000, (1 << 18) - 3):
+        parity = dict(reference_parity=True, rr_start=0) \
+            if kind == "parity_stats" else {}
+        cfg = RenderConfig(width=256, height=256, num_samples=16,
+                           max_bounces=nb - 1, num_working_paths=n,
+                           direct_max_tris=0, detailed_stats=True,
+                           one_sample_mis=kind == "1s_stats", **parity)
+        mode = S.step_mode(scene, cfg)
+        state = _synthetic_state(scene, cfg, g, cuda)
+        words = torch.randint(0, 1 << 32, (5, n), generator=g, device=cuda,
+                              dtype=torch.int64)
+        fb = torch.zeros(cfg.num_pixels, 3, device=cuda)
+        cam_start = torch.tensor(77, device=cuda)
+        if parity:
+            keys, record, counts = S.route_full_ref(scene, cfg, state, words,
+                                                    mode)
+            order = torch.sort(keys, stable=True).indices
+            sh = S.shade_full_ref(scene, cam, cfg, fb, words, order, record,
+                                  counts, cam_start, mode)
+        else:
+            keys, bundle, counts = S.route_ref(scene, cfg, state, words)
+            order = torch.sort(keys, stable=True).indices
+            sh = S.shade_ref(scene, cam, cfg, state, fb, words, order, bundle,
+                             counts, 0, cam_start, 1)
+        occ = torch.rand(sh.shadow[4].shape[0], generator=g,
+                         device=cuda) < 0.3
+        inf = torch.full((n,), float("inf"), device=cuda)
+        hit, t, prim, src, nrm = trace.trace_closest(
+            scene, cfg, sh.ray_o, sh.ray_d, inf, sh.trace_mask)
+        hits = (hit, t, nrm, prim, src)
+        hist = torch.randint(0, 99, (nb,), generator=g, device=cuda)
+        rays = torch.tensor(7.0, dtype=torch.float64, device=cuda)
+        occ_sum = torch.tensor(0.5, dtype=torch.float64, device=cuda)
+        acc = lambda: dataclasses.replace(sh, acc=copy(sh.acc))
+        if parity:
+            want = S.resolve_full_ref(cfg, acc(), occ, hits, cam_start, rays,
+                                      occ_sum, mode, hist.clone())
+            got = [S.resolve_full(cfg, acc(), occ, copy(hits), cam_start,
+                                  rays, occ_sum, mode, hist.clone()),
+                   S.resolve_full_v1(cfg, acc(), occ, copy(hits), cam_start,
+                                     rays, occ_sum, mode, hist.clone())]
+        else:
+            want = S.resolve_ref(cfg, acc(), occ, 0, 1, cam_start, rays,
+                                 occ_sum, hits, hist.clone())
+            got = [S.resolve(cfg, acc(), occ, 0, 1, cam_start, rays, occ_sum,
+                             copy(hits), hist.clone())]
+        for out in got:
+            for j, (x, y) in enumerate(zip(_flat(out), _flat(want),
+                                           strict=True)):
+                assert _bits_equal(x, y), (n, j)
+            assert int(out[-1].sum() - hist.sum()) == int(
+                sh.trace_mask.sum())
+
+
+@pytest.mark.parametrize("design", ["record", "v1"])
+@pytest.mark.parametrize("change", [
+    dict(one_sample_mis=True), dict(one_sample_mis=True, detailed_stats=True,
+                                    sort_every=2),
+    dict(reference_parity=True, rr_start=0, detailed_stats=True)], ids=str)
+def test_first_design_frame_captured_equals_the_eager_loop(
+        cuda, monkeypatch, change, design):
+    """A captured frame of the sorted engine under ``one_sample_mis`` (the
+    one-sample shade's designs) and of ``reference_parity`` under
+    ``detailed_stats`` (the stats resolve's designs) against the same loop
+    run eagerly, under each design: the same iterations, rays, occupancy,
+    bounce histogram, counts and launches (the design's kernels once an
+    iteration, the other design's never), the framebuffers within the
+    atomic adds' reordering."""
+    from rtjax_torch.kernels import step as S
+    from rtjax_torch.render import graph as G
+    monkeypatch.setattr(S, "DESIGN", design)
+    G.clear_graphs()
+    scene, cam = _graph_scene("planes", cuda)
+    cfg = RenderConfig(width=32, height=32, num_samples=8, max_bounces=4,
+                       num_working_paths=4096, direct_max_tris=0, **change)
+    mode = S.step_mode(scene, cfg)
+    mine = [k for k in S.MODE_KERNELS[mode] if k in S.MODE_V1]
+    launches, firsts = dict(S.LAUNCHES), dict(S.MODE_V1_LAUNCHES)
+    (fb, st, ran, gs), (fb0, st0, ran0, gs0) = _graph_vs_eager(scene, cam,
+                                                               cfg)
+    G.clear_graphs()
+    assert st["graphed"] and not st0["graphed"] and mine
+    for k in st0:
+        if k not in ("graphed", "host_reads", "bounce_histogram"):
+            assert st[k] == st0[k], k
+    if cfg.detailed_stats:
+        assert torch.equal(st["bounce_histogram"], st0["bounce_histogram"])
+    assert ran == ran0 and ran and torch.equal(gs, gs0)
+    torch.testing.assert_close(fb, fb0, rtol=1e-5, atol=1e-7)
+    assert bool(torch.isfinite(fb).all()) and float(fb.sum()) > 0
+    for k in mine:
+        ours = S.LAUNCHES[k] - launches[k]
+        theirs = S.MODE_V1_LAUNCHES[S.MODE_V1[k]] - firsts[S.MODE_V1[k]]
+        assert (ours > 0, theirs > 0) == (design == "record", design == "v1")

@@ -896,7 +896,8 @@ _KERNEL_SOURCE = Path(_build.CSRC_DIR) / "step_kernels.cu"
 @pytest.mark.parametrize("name", sorted(S.KERNEL_IDS))
 def test_kernel_ids_match_the_kernel_source(name):
     """``KERNEL_IDS`` names the kernel that ``rtjax_step_kernel_info``
-    reports under its id, at the block its entry point launches."""
+    reports under its id, at the block its entry point launches (as a
+    grid over the lanes or a resident grid)."""
     src = _KERNEL_SOURCE.read_text()
     body = src[src.index('"C" int rtjax_step_kernel_info'):]
     m = re.search(rf"case {S.KERNEL_IDS[name]}: return info\((\w+), (\w+),",
@@ -904,7 +905,9 @@ def test_kernel_ids_match_the_kernel_source(name):
     assert m is not None and m.group(1) == f"{name}_kernel"
     launch = re.search(rf'"C" int rtjax_step_{name}\(.*?\n\}}', src,
                        re.S).group(0)
-    assert f"launch({name}_kernel, {m.group(2)}, a, stream)" in launch
+    forms = [f"launch({name}_kernel, {m.group(2)}, a, stream)",
+             f"launch_resident<{name}_kernel>({m.group(2)}, a, stream)"]
+    assert sum(f in launch for f in forms) == 1
 
 
 @pytest.mark.parametrize("source", [_KERNEL_SOURCE,
@@ -1666,6 +1669,7 @@ def test_step_designs_checks_every_mode(mixed, monkeypatch, change):
     tools/mode_steps.py run on the card, takes every mode on the CPU
     (the wrappers' plain versions): it checks each of the mode's kernels
     (under the default, parity and unsorted modes the first design's too,
+    the one-sample shade's and the parity stats resolve's first designs,
     on every sorted engine the key sort) on three op-by-op states, limbo
     lanes among them under parity, and finds no mismatching lane and no
     framebuffer gap."""
@@ -1677,20 +1681,23 @@ def test_step_designs_checks_every_mode(mixed, monkeypatch, change):
     worst, gap, timed = SD.check_and_time(scene, cam, cfg, (0, 1, 2), None,
                                           log=lines.append)
     unsorted = S.engine_of(mode) == "unsorted"
+    # the one-sample shade's and the stats resolve's first designs
+    mode_v1 = {S.MODE_V1[k] for k in S.MODE_KERNELS[mode] if k in S.MODE_V1}
     want = set(S.MODE_KERNELS[mode]) | (
         {"route_v1", "shade_v1"} if mode == "default" else set()) | (
         {S.PARITY_V1[k] for k in S.MODE_KERNELS[mode][:2]}
         if mode.startswith("parity") else set()) | (
         {S.UNSORTED_V1[S.MODE_KERNELS[mode][0]]} if unsorted else set()) | (
         {"key_sort"} if S.engine_of(mode) in ("default", "wide", "parity")
-        else set())
+        else set()) | mode_v1
     assert set(worst) == want and not any(worst.values())
     # a framebuffer gap for each kernel that writes the framebuffer
     shades = {S.MODE_KERNELS[mode][-2]} | (
         {"shade_v1"} if mode == "default" else set()) | (
         {S.PARITY_V1[S.MODE_KERNELS[mode][1]]} if mode.startswith("parity")
         else set()) | (
-        {S.UNSORTED_V1[S.MODE_KERNELS[mode][0]]} if unsorted else set())
+        {S.UNSORTED_V1[S.MODE_KERNELS[mode][0]]} if unsorted else set()) | (
+        mode_v1 & {"shade_1s_v1"})
     assert gap == dict.fromkeys(shades, 0.0)
     assert timed is None and len(lines) == 3
     if mode.startswith("parity"):
@@ -1714,7 +1721,8 @@ def test_split_patch_applies_to_the_kernel_source():
 @pytest.mark.parametrize("name", ["shade_128", "no_own_triangle",
                                   "20_warps", "24_warps", "route_48_warps",
                                   "unsorted_rank_first",
-                                  "unsorted_16_warps"])
+                                  "unsorted_16_warps", "shade_1s_no_prefetch",
+                                  "shade_1s_20_warps", "shade_1s_24_warps"])
 def test_step_variants_patch_the_kernel_source(name):
     """tools/step_designs.py --variants patches csrc/step_kernels.cu and
     step_math.cuh: every patch of the variant applies, and each changes
@@ -1723,19 +1731,34 @@ def test_step_variants_patch_the_kernel_source(name):
     launch bounds at 5 or 6 blocks of 128 threads, the parity routes' at
     kRouteBlocks of 256, the unsorted engine's route-and-shade's look-back
     moved before its shading with a barrier after it, and its launch
-    bounds at one block of 128 threads, not five)."""
+    bounds at one block of 128 threads, not five; the one-sample shade's
+    tile walk with each tile's loads waited for when it is shaded, and
+    its launch bounds at 5 or 6 blocks)."""
     SD = _tool("step_designs")
     assert tuple(SD.STEP_VARIANTS) == ("shade_128", "no_own_triangle",
                                        "20_warps", "24_warps",
                                        "route_48_warps",
                                        "unsorted_rank_first",
-                                       "unsorted_16_warps")
+                                       "unsorted_16_warps",
+                                       "shade_1s_no_prefetch",
+                                       "shade_1s_20_warps",
+                                       "shade_1s_24_warps")
     text = SD.variant_source(name)
     src, hdr = text["step_kernels.cu"], text["step_math.cuh"]
     src0, hdr0 = _build.STEP_SOURCE.read_text(), \
         _build.STEP_HEADER.read_text()
     if name == "no_own_triangle":
         assert "row3(a.tri_p0, own)" not in hdr and src == src0
+        return
+    if name == "shade_1s_no_prefetch":
+        walk = lambda t: t[t.index("WalkCounts shade_1s_walk("):
+                           t.index("// ------", t.index(
+                               "WalkCounts shade_1s_walk("))]
+        new, old = walk(hdr), walk(hdr0)
+        assert "fetch_order(k + 2)" in old and "fetch_lane(k + 1)" in old
+        assert "fetch_order(k + 2)" not in new and "k + 1" not in new
+        assert new.count("__pipeline_wait_prior(0);") == 3
+        assert hdr.replace(new, old) == hdr0 and src == src0
         return
     assert hdr == hdr0
     if name == "unsorted_rank_first":
@@ -1760,9 +1783,175 @@ def test_step_variants_patch_the_kernel_source(name):
                      "kShadeBlock, 6"),
         "unsorted_16_warps": (("route_shade_unsorted_kernel",
                                "route_shade_unsorted_1s_kernel"),
-                              "kShadeBlock, 5", "kShadeBlock, 1")}[name]
+                              "kShadeBlock, 5", "kShadeBlock, 1"),
+        "shade_1s_20_warps": (("shade_1s_kernel",), "kShadeBlock, 1",
+                              "kShadeBlock, 5"),
+        "shade_1s_24_warps": (("shade_1s_kernel",), "kShadeBlock, 1",
+                              "kShadeBlock, 6")}[name]
     for k in kernels:
         assert f"__launch_bounds__({new})\n    {k}(" in src
         src = src.replace(f"__launch_bounds__({new})\n    {k}(",
                           f"__launch_bounds__({old})\n    {k}(")
     assert src == src0
+
+
+# ------------------- (h) the one-sample shade's walk and the stats histogram
+
+def _host_globals(lib, **values):
+    """Set the host stand-in's globals ``values`` (host_shade_slots,
+    host_copies_at_wait); returns their old values."""
+    import ctypes
+    old = {}
+    for name, v in values.items():
+        c = ctypes.c_int.in_dll(lib, name)
+        old[name], c.value = c.value, v
+    return old
+
+
+# (pool size, resident slots, the copies landing at their wait, a cadence
+# skip iteration): sizes that are not a multiple of the 128-lane tile,
+# blocks that walk three tiles or more (a stage reused), one block walking
+# every tile, and a grid with more blocks than tiles
+_WALKS = [(517, 3, False, False), (517, 3, True, False),
+          (1000, 2, True, False), (1000, 1, False, False),
+          (200, 3, False, False), (200, 5, True, False),
+          (1000, 3, True, True), (517, 1, False, True)]
+
+
+@pytest.mark.parametrize("n, slots, at_wait, skip", _WALKS, ids=str)
+def test_host_shade_1s_walk_matches_plain_and_first_design(
+        mixed, monkeypatch, n, slots, at_wait, skip):
+    """The sorted engine's one-sample shade compiled as host C++ (its
+    resident grid of ``slots`` blocks in a shuffled order, each thread's
+    tile walk over its block's stages, step_math.cuh ``shade_1s_walk``;
+    the pipeline's copies landing when issued or only when a wait
+    completes their group) through the real wrapper: every output and the
+    framebuffer bit for bit the first design's (``shade_1s_v1``, one thread
+    a position) and the plain version's (floats at rtol 1e-4, as the other
+    host tests), on a sorting iteration and on a ``sort_every`` skip
+    iteration (the identity order, no flush, no camera ray)."""
+    _, _, scene, cam = mixed
+    k = 2 if skip else 1
+    cfg = _cfg(num_working_paths=n, one_sample_mis=True, sort_every=k)
+    assert S.step_mode(scene, cfg) == "default_1s"
+    state = _synthetic_state(scene, cfg, 160 + n, p_hit=0.99 if skip
+                             else 0.7)
+    words = _words(161 + n, n)
+    keys, bundle, counts = S.route_ref(scene, cfg, state, words)
+    order = torch.sort(keys, stable=True).indices
+    it = 1 if skip else 2
+    do_gen = S.cadence(counts, n, it, k)
+    assert (do_gen is not None and not bool(do_gen)) == skip
+    assert int(counts[4]) > 0 and 0 < int(counts[0]) < n
+    fb = torch.tensor(np.random.default_rng(n).uniform(
+        0, 2, (cfg.num_pixels, 3)).astype(np.float32))
+    fb0, fb1, fb2 = fb.clone(), fb.clone(), fb.clone()
+    t_it, t_cam = torch.tensor(it), torch.tensor(41)
+    sh0 = S.shade_ref(scene, cam, cfg, state, fb0, words, order, bundle,
+                      counts, t_it, t_cam, k)
+    _on_host(monkeypatch)
+    names, real = [], S.launch
+    monkeypatch.setattr(S, "launch", lambda name, a, dev: (
+        names.append(name), real(name, a, dev)))
+    old = _host_globals(S._lib, host_shade_slots=slots,
+                        host_copies_at_wait=int(at_wait))
+    try:
+        sh1 = S.shade(scene, cam, cfg, _copy_state(state), fb1, words, order,
+                      bundle, counts.clone(), t_it, t_cam, k)
+        sh2 = S.shade_1s_v1(scene, cam, cfg, _copy_state(state), fb2, words,
+                            order, bundle, counts.clone(), t_it, t_cam, k)
+    finally:
+        _host_globals(S._lib, **old)
+    assert names == ["shade_1s", "shade_1s_v1"]
+    for x, y in zip(_unsorted_outputs(sh1), _unsorted_outputs(sh2),
+                    strict=True):
+        assert torch.equal(_bits(x), _bits(y))
+    _held_to_plain(sh1, sh0)
+    assert torch.equal(_bits(fb1), _bits(fb2))
+    assert torch.equal(_bits(fb1), _bits(fb0))
+    assert torch.equal(fb1, fb) == skip
+
+
+def _stats_pool(n, nb, seed):
+    """A resolve input of ``n`` lanes without lights under detailed_stats:
+    bounces over and past ``nb`` bins (dead lanes among them), warps
+    whose lanes share one bin, warps that trace nothing."""
+    rng = np.random.default_rng(seed)
+    bounces = rng.integers(-2, nb + 3, n)
+    bounces[rng.uniform(size=n) < 0.05] = DEAD_BOUNCES
+    traced = rng.uniform(size=n) < 0.8
+    for w in range(0, n // 32, 3):
+        bounces[32 * w:32 * w + 32] = rng.integers(0, nb)
+    traced[64:96] = False
+    acc = tuple(torch.tensor(rng.uniform(size=n).astype(np.float32))
+                for _ in range(3))
+    zero3 = tuple(torch.zeros(n) for _ in range(3))
+    # no path rays: the occupancy's quotient by n (a reciprocal's product
+    # on the card, a quotient in torch on the CPU) stays exact
+    counts = torch.tensor([n // 3, 0, 0, 0, 0])
+    return S.Shaded(pixel=torch.zeros(n, dtype=torch.int32), ray_o=zero3,
+                    ray_d=zero3, beta=zero3,
+                    bounces=torch.tensor(bounces.astype(np.int32)), acc=acc,
+                    trace_mask=torch.tensor(traced), counts=counts)
+
+
+@pytest.mark.parametrize("n", [3000, 200])
+@pytest.mark.parametrize("one", [False, True], ids=["mis", "one_sample"])
+@pytest.mark.parametrize("nb", [1, 11, 32, 33, 127])
+def test_host_stats_histogram_matches_plain(mixed, monkeypatch, nb, one, n):
+    """The stats resolves' bounce histogram compiled as host C++
+    (``resolve_stats``, ``resolve_1s_stats``: each traced lane into its
+    256-lane block's bins, each block's non-zero bins into the histogram)
+    at 3,000 and 200 lanes (not a multiple of a block; 200 fewer than
+    one): every bin exactly the plain version's, every other output bit
+    for bit."""
+    cfg = _cfg(num_working_paths=n, max_bounces=nb - 1, detailed_stats=True,
+               one_sample_mis=one)
+    sh = _stats_pool(n, nb, 170 + nb)
+    hist = torch.tensor(np.random.default_rng(nb).integers(0, 99, nb))
+    rays, occ = (torch.tensor(v, dtype=torch.float64) for v in (7.0, 0.5))
+    copy = lambda: dataclasses.replace(sh, acc=tuple(c.clone()
+                                                     for c in sh.acc))
+    want = S.resolve_ref(cfg, copy(), None, 3, 1, torch.tensor(11), rays,
+                         occ, None, hist.clone())
+    _on_host(monkeypatch)
+    got = S.resolve(cfg, copy(), None, 3, 1, torch.tensor(11), rays, occ,
+                    None, hist.clone())
+    for x, y in zip(_flat(got), _flat(want), strict=True):
+        assert x.dtype == y.dtype and torch.equal(_bits(x), _bits(y))
+    assert int(got[-1].sum() - hist.sum()) == int(sh.trace_mask.sum())
+    assert int((got[-1] != hist).sum()) > (nb > 1)
+
+
+@pytest.mark.parametrize("mode", ["default_1s", "default_1s_stats",
+                                  "parity_stats"])
+def test_first_designs_run_under_design_v1(mixed, monkeypatch, mode):
+    """Under ``DESIGN = "v1"`` the step of the sorted engine's one-sample
+    modes launches the record design's route and ``shade_1s_v1``, and the
+    parity stats step the parity first designs and
+    ``resolve_parity_stats_v1``; three steps on the host-compiled kernels
+    give the record design's states bit for bit (framebuffer and bounce
+    histogram too), each design's kernels launched once a step."""
+    _, _, scene, cam = mixed
+    cfg = _cfg(**_MODES[mode])
+    assert S.step_mode(scene, cfg) == mode
+    _on_host(monkeypatch)
+    names, real = [], S.launch
+    monkeypatch.setattr(S, "launch", lambda name, a, dev: (
+        names.append(name), real(name, a, dev)))
+    new, old = wf.initial_carry(cfg, "cpu"), wf.initial_carry(cfg, "cpu")
+    kernels = S.MODE_KERNELS[mode]
+    firsts = {**S.PARITY_V1, **S.MODE_V1}
+    for it in range(3):
+        words = _words(180 + it)
+        names.clear()
+        new = wf.wavefront_step(scene, cam, cfg, words, new)
+        assert names == list(kernels)
+        names.clear()
+        monkeypatch.setattr(S, "DESIGN", "v1")
+        old = wf.wavefront_step(scene, cam, cfg, words, old)
+        monkeypatch.setattr(S, "DESIGN", "record")
+        assert names == [firsts.get(k, k) for k in kernels]
+        for x, y in zip(graph.flatten(new), graph.flatten(old), strict=True):
+            assert not torch.is_tensor(y) or torch.equal(_bits(x), _bits(y))
+    assert float(new[1].sum()) > 0

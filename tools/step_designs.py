@@ -27,8 +27,9 @@ On the headline cell (``bench.py``'s frame: ``cornell_bunny``, 256x256 @
    route_v1 and shade against shade_v1, and resolve, each with its byte
    bound, and one wrapper call of each (host launch included).
 
-``--variants`` times the mode's route and shade and the first design's
-(``first_designs``) in copies of the library patched for timing
+``--variants`` times the mode's route, shade and resolve and the first
+designs' (``first_designs``, ``resolve_first_design``) in copies of the
+library patched for timing
 (``STEP_VARIANTS``, built under ``build/rtjax_torch/variants/``):
 default shade's launch bounds at ``(128)`` alone against the library's
 ``(128, 1)`` (``shade_128``, on the headline), and on the parity modes'
@@ -38,7 +39,11 @@ results, timing only), launch bounds for 20 and 24 resident warps an SM
 and the parity routes' for 48; on the unsorted engine's route and shade
 (``route_shade_unsorted``, ``_1s``) the look-back taken before the
 shading (``unsorted_rank_first``, arm B) and launch bounds of one block
-an SM at least (``unsorted_16_warps``; the library's are five); by
+an SM at least (``unsorted_16_warps``; the library's are five); on the
+sorted engine's one-sample shade its tile walk with no prefetch
+(``shade_1s_no_prefetch``, arm B: each tile's loads issued when it is
+shaded) and launch bounds for 20 and 24 resident warps
+(``shade_1s_20_warps``, ``shade_1s_24_warps``); by
 default every parity variant on the states of iteration 30 of
 ``chip_smoke.py``'s parity frame (2^19 lanes) and the headline's parity
 frame under ``traversal="xla"`` (2^18), each library in turns (engine,
@@ -49,6 +54,9 @@ shade against the first design's in turns (step 3).
     python3 tools/step_designs.py --variants --names \
         unsorted_rank_first,unsorted_16_warps \
         --cells "headline xla,headline one_sample no_sort"
+    python3 tools/step_designs.py --variants --names \
+        shade_1s_no_prefetch,shade_1s_20_warps,shade_1s_24_warps \
+        --cells "headline one_sample,headline parity stats"
 
 Steps 2-3 (:func:`check_and_time`, :func:`check_state`,
 :func:`time_state`) take any mode of the step kernels (kernels/step.py
@@ -150,8 +158,10 @@ def check_state(scene, camera, cfg, state, words, fb, it, cam_start):
     n, dev = cfg.pool_size, state.pixel.device
     k = WF.resolve_sort_every(scene, cfg)
     v1 = first_designs(mode)
+    r_v1 = resolve_first_design(mode)
     sorts = engine in ("default", "wide", "parity")
-    bad = {name: {} for name in kernels + v1 + ("key_sort",) * sorts}
+    bad = {name: {} for name in kernels + v1 + ((r_v1,) if r_v1 else ())
+           + ("key_sort",) * sorts}
 
     def tally(kernel, names, got, want):
         got, want = C._flat_out(got), C._flat_out(want)
@@ -182,7 +192,12 @@ def check_state(scene, camera, cfg, state, words, fb, it, cam_start):
                       bundle, counts.clone(), it, cam_start, k)
         c.update(keys=keys, order=order, bundle=bundle, counts=counts,
                  do_gen=do_gen)
-        if v1:
+        if v1 and mode != "default":
+            # the one-sample shade's first design, on the same record
+            sh2 = S.shade_1s_v1(scene, camera, cfg, _copy(state), fb2, words,
+                                k_order, bundle, counts.clone(), it,
+                                cam_start, k)
+        elif v1:
             want_v1 = S.route_v1_ref(scene, cfg, state, words)
             tally("route_v1", ("keys", "bundle", "counts"),
                   S.route_v1(scene, cfg, state, words), want_v1)
@@ -269,6 +284,11 @@ def check_state(scene, camera, cfg, state, words, fb, it, cam_start):
         r1 = S.resolve_full(cfg, acc_copy, occ, _clone(hits), cam_start,
                             rays, occ_sum, mode, _clone(hist))
         names = RESOLVE_FIELDS + HIT_FIELDS + COUNTER_FIELDS + tail
+        if r_v1:
+            tally(r_v1, names, S.resolve_full_v1(
+                cfg, dataclasses.replace(sh0, acc=tuple(
+                    x.clone() for x in sh0.acc)), occ, _clone(hits),
+                cam_start, rays, occ_sum, mode, _clone(hist)), r0)
     tally(resolve_k, names, r1, r0)
     c.update(sh=sh0, occ=occ, hits=hits, hist=hist)
     return bad, gaps, c
@@ -287,7 +307,9 @@ def first_designs(mode):
     checked and timed against in turns: ``("route_v1", "shade_v1")``
     under the default mode, the parity modes' (kernels/step.py
     ``PARITY_V1``) under parity, the unsorted engine's route-and-shade
-    (``UNSORTED_V1``) on it, else ()."""
+    (``UNSORTED_V1``) on it, the sorted engine's one-sample shade's
+    (``MODE_V1``: ``shade_1s_v1``, beside the same route) under
+    ``one_sample_mis``, else ()."""
     from rtjax_torch.kernels import step as S
     engine = S.engine_of(mode)
     if mode == "default":
@@ -296,7 +318,33 @@ def first_designs(mode):
         return tuple(S.PARITY_V1[k] for k in S.MODE_KERNELS[mode][:2])
     if engine == "unsorted":
         return (S.UNSORTED_V1[S.MODE_KERNELS[mode][0]],)
-    return ()
+    shade = S.MODE_KERNELS[mode][1]
+    return (S.MODE_V1[shade],) if shade in S.MODE_V1 else ()
+
+
+def resolve_first_design(mode):
+    """The first design of ``mode``'s resolve (kernels/step.py
+    ``MODE_V1``: the stats resolve's under parity), or None."""
+    from rtjax_torch.kernels import step as S
+    return S.MODE_V1.get(S.MODE_KERNELS[mode][-1])
+
+
+def turns_of(mode):
+    """``mode``'s kernels in the order they are timed, each after its first
+    design (:func:`first_designs`, :func:`resolve_first_design`)."""
+    from rtjax_torch.kernels import step as S
+    kernels = S.MODE_KERNELS[mode]
+    v1 = first_designs(mode)
+    engine = S.engine_of(mode)
+    if mode == "default" or engine.startswith("parity"):
+        firsts = dict(zip(kernels[:2], v1))
+    elif engine == "unsorted":
+        firsts = {kernels[0]: v1[0]}
+    else:   # the sorted engine's shade
+        firsts = dict(zip(kernels[1:2], v1))
+    if resolve_first_design(mode):
+        firsts[kernels[-1]] = resolve_first_design(mode)
+    return tuple(x for k in kernels for x in (firsts.get(k), k) if x)
 
 
 def _clone(v):
@@ -369,6 +417,9 @@ def _bounds(scene, cfg, c):
                                        n * C.RESOLVE_OPS)}
         if mode == "default":
             b.update(route_v1=b["route"], shade_v1=b["shade"])
+        for first in first_designs(mode) if mode != "default" else ():
+            b[first] = b[kernels[1]]
+        _without_hist(b, kernels[2], n, hist, stats)
         return b, dict(flush_atomics=atomics)
     r = S.unpack_full(c["record"] if c["order"] is None
                       else c["record"][c["order"]])
@@ -384,6 +435,7 @@ def _bounds(scene, cfg, c):
         b = {k: C._step_bound(x, n * o)
              for k, x, o in zip(kernels, nbytes, ops, strict=True)}
         b[v1[0]] = b[kernels[0]]
+        _without_hist(b, kernels[-1], n, hist, stats)
         return b, dict(flushing=flushing, limbo=limbo)
     else:
         parity = engine.startswith("parity")
@@ -408,22 +460,60 @@ def _bounds(scene, cfg, c):
         b[first] = C._step_bound(x - n * RANK_WORD, n * o)
         b[k].update(function_bound_ms=b[first]["bound_ms"],
                     function_bound_us=b[first]["bound_us"])
+    if resolve_first_design(mode):
+        b[resolve_first_design(mode)] = b[kernels[-1]]
+    _without_hist(b, kernels[-1], n, hist, stats)
     return b, dict(flushing=flushing, limbo=limbo)
 
 
-def design_blocks(scene, camera, cfg, state, words, fb, it, cam_start, c):
+def _without_hist(b, resolve, n, hist, stats):
+    """Under ``detailed_stats`` the bound of ``resolve`` without its
+    histogram (:func:`plain_resolve`'s kernel: the same lanes, neither the
+    traced flags and bounces read nor the bins written) into ``b``."""
+    import chip_smoke as C
+    if stats:
+        b[plain_resolve(resolve)] = C._step_bound(
+            b[resolve]["bytes"] - n * RESOLVE_STATS - hist,
+            n * C.RESOLVE_OPS)
+
+
+def plain_resolve(resolve):
+    """The resolve kernel ``resolve`` is without ``detailed_stats`` (its
+    histogram's cost is their difference, timed in turns)."""
+    return resolve[:-len("_stats")] if resolve.endswith("_stats") else None
+
+
+def design_blocks(scene, camera, cfg, state, words, fb, it, cam_start, c,
+                  resolve=False):
     """``{kernel: make}`` of the route and shade launches of the mode of
     ``c`` (from :func:`check_state`) and of its first design's
     (:func:`first_designs`), for timing: ``make()`` gives an argument
     block, made once on copies of what it writes; on the unsorted engine,
     whose route-and-shade writes the next state over the one it reads, a
-    new one on its own copies at each call (:func:`blocks_of`)."""
+    new one on its own copies at each call (:func:`blocks_of`).  With
+    ``resolve`` the mode's resolve and its first design's too (one block
+    on copies of what it writes, which each launch adds to again)."""
     import torch
     from rtjax_torch.kernels import step as S
     from rtjax_torch.render import wavefront as WF
     mode = c["mode"]
     engine = S.engine_of(mode)
     v1 = first_designs(mode)
+    out = {}
+    if resolve:
+        kernel = S.MODE_KERNELS[mode][-1]
+        parity = engine.startswith("parity")
+        r_it, r_k = (it, WF.resolve_sort_every(scene, cfg)) \
+            if engine == "default" else (0, 1)
+        rays = torch.zeros((), dtype=torch.float64, device=fb.device)
+        a_res = S.resolve_args(
+            cfg, dataclasses.replace(c["sh"], acc=tuple(
+                x.clone() for x in c["sh"].acc)), c["occ"], r_it, r_k,
+            cam_start, rays, rays.clone(), _clone(c["hits"]),
+            _clone(c["hist"]), restore=parity)[0]
+        for name in (kernel, resolve_first_design(mode)):
+            if name:
+                out[name] = lambda a=a_res: a
     if engine == "unsorted":
         def make(first):
             return lambda: S.shade_args(
@@ -431,20 +521,28 @@ def design_blocks(scene, camera, cfg, state, words, fb, it, cam_start, c):
                 None, torch.zeros(S.NUM_COUNTS, dtype=torch.int64,
                                   device=state.pixel.device), 0, cam_start,
                 1, v1=first, mode=mode)[0]
-        return {S.MODE_KERNELS[mode][0]: make(False), v1[0]: make(True)}
+        return {S.MODE_KERNELS[mode][0]: make(False), v1[0]: make(True),
+                **out}
     default = engine == "default"
     rec = "bundle" if default else "record"
     # the full-record modes' shade takes no cadence
     it, k = (it, WF.resolve_sort_every(scene, cfg)) if default else (0, 1)
-    out = {}
-    for first, (route_k, shade_k) in ((False, S.MODE_KERNELS[mode][:2]),
-                                      *((True, v1),) * bool(v1)):
+    # the one-sample shade's first design reads the same record
+    pairs = ((False, S.MODE_KERNELS[mode][:2]),
+             *((True, v1),) * (mode == "default" or not default and
+                               bool(v1)))
+    for first, (route_k, shade_k) in pairs:
         a_r = S.route_args(scene, cfg, state, words, v1=first, mode=mode)[0]
         a_s = S.shade_args(
             scene, camera, cfg, _copy(state), fb.clone(), words, c["order"],
             c[rec + "_v1" * first], c["counts"].clone(), it, cam_start, k,
             v1=first, mode=mode)[0]
         out[route_k], out[shade_k] = (lambda a=a_r: a), (lambda a=a_s: a)
+    if default and v1 and mode != "default":
+        a_s = S.shade_args(
+            scene, camera, cfg, _copy(state), fb.clone(), words, c["order"],
+            c["bundle"], c["counts"].clone(), it, cam_start, k)[0]
+        out[v1[0]] = lambda a=a_s: a
     return out
 
 
@@ -470,7 +568,10 @@ def time_state(scene, camera, cfg, state, words, fb, it, cam_start, c,
     ``sort_ms`` torch.sort's), and on the sorted engine's compact bundle
     ``index_add_`` of the
     flush.  A launch that writes the next state over the one it reads (the
-    unsorted engine's route-and-shade) takes a copy of its own.  Returns
+    unsorted engine's route-and-shade) takes a copy of its own.  Under
+    ``detailed_stats`` the mode's resolve without the histogram is timed
+    in turns too (:func:`plain_resolve`: the histogram's own cost is the
+    difference).  Returns
     ``{"kernels": {kernel: {...}}, "sort_ms", ...}``."""
     import ctypes
 
@@ -504,11 +605,19 @@ def time_state(scene, camera, cfg, state, words, fb, it, cam_start, c,
                                     it, cam_start, c).items():
         fns[name] = call(name, blocks_of(make, blocks))
     v1 = first_designs(mode)
-    if engine == "unsorted":
-        turns = (v1[0], kernels[0], kernels[1])
-    else:
-        turns = (v1[0], kernels[0], v1[1], kernels[1], kernels[2]) \
-            if v1 else kernels
+    r_v1 = resolve_first_design(mode)
+    if r_v1:
+        fns[r_v1] = call(r_v1, iter([a_res] * blocks))
+    turns = turns_of(mode)
+    base = plain_resolve(kernels[-1])
+    if base:
+        # the same resolve without the histogram, on the same lanes
+        a_base = S.resolve_args(
+            dataclasses.replace(cfg, detailed_stats=False), sh_copy(), occ,
+            r_it, r_k, cam_start, rays, rays.clone(), hits(), None,
+            restore=parity)[0]
+        fns[base] = call(base, iter([a_base] * blocks))
+        turns += (base,)
     bounds, work = _bounds(scene, cfg, c)
     out = {name: dict(ms=[], **bounds[name]) for name in turns}
     for name in turns + turns[::-1]:
@@ -564,6 +673,16 @@ def time_state(scene, camera, cfg, state, words, fb, it, cam_start, c,
             hist())
         plain[kernels[-1]] = lambda: S.resolve_full_ref(
             cfg, sh, occ, c["hits"], cam_start, rays, rays, mode, c["hist"])
+    if engine == "default" and v1 and mode != "default":
+        one[v1[0]] = lambda: S.shade_1s_v1(
+            scene, camera, cfg, _copy(state), fb.clone(), words, c["order"],
+            c["bundle"], c["counts"].clone(), it, cam_start, k)
+        plain[v1[0]] = plain[kernels[1]]
+    if r_v1:
+        one[r_v1] = lambda: S.resolve_full_v1(
+            cfg, sh_copy(), occ, hits(), cam_start, rays, rays.clone(), mode,
+            hist())
+        plain[r_v1] = plain[kernels[-1]]
     if parity:
         v1 = first_designs(mode)
         one[v1[0]] = lambda: S.route_full_v1(scene, cfg, state, words, mode)
@@ -575,6 +694,20 @@ def time_state(scene, camera, cfg, state, words, fb, it, cam_start, c,
         plain[v1[1]] = lambda: S.shade_full_v1_ref(
             scene, camera, cfg, fb.clone(), words, c["order"],
             c["record_v1"], c["counts"], cam_start, mode)
+    if base:
+        cfg0 = dataclasses.replace(cfg, detailed_stats=False)
+        if parity:
+            one[base] = lambda: S.resolve_full(
+                cfg0, sh_copy(), occ, hits(), cam_start, rays, rays.clone(),
+                mode)
+            plain[base] = lambda: S.resolve_full_ref(
+                cfg0, sh, occ, c["hits"], cam_start, rays, rays, mode)
+        else:
+            one[base] = lambda: S.resolve(
+                cfg0, sh_copy(), occ, r_it, r_k, cam_start, rays,
+                rays.clone(), hits())
+            plain[base] = lambda: S.resolve_ref(
+                cfg0, sh, occ, r_it, r_k, cam_start, rays, rays, c["hits"])
     for name in one:
         out[name]["one_call_ms"] = C._median_ms(one[name])
         out[name]["plain_ms"] = C._median_ms(plain[name])
@@ -726,6 +859,32 @@ _RANK_FIRST = [("step_kernels.cu", _LOOKBACK + "  __syncthreads();\n",
                 _PUBLISH + _LOOKBACK + "  __syncthreads();\n")]
 
 
+# the sorted engine's one-sample shade with no prefetch (arm B: the same
+# resident grid and tile walk, each tile's order, then its record and
+# words, fetched and waited for when it is shaded), the text replaced in
+# step_math.cuh shade_1s_walk
+_PIPELINE = ("  fetch_order(0);\n"
+             "  __pipeline_commit();\n"
+             "  fetch_order(1);\n"
+             "  __pipeline_commit();\n"
+             "  __pipeline_wait_prior(1);\n"
+             "  fetch_lane(0);\n"
+             "  __pipeline_commit();\n"
+             "  for (int k = 0; tile(k) < tiles; ++k) {\n"
+             "    __pipeline_wait_prior(0);  // tile k's lane and tile k + 1's "
+             "order in\n"
+             "    fetch_lane(k + 1);\n"
+             "    fetch_order(k + 2);\n"
+             "    __pipeline_commit();\n")
+_NO_PREFETCH = ("  for (int k = 0; tile(k) < tiles; ++k) {\n"
+                "    fetch_order(k);\n"
+                "    __pipeline_commit();\n"
+                "    __pipeline_wait_prior(0);\n"
+                "    fetch_lane(k);\n"
+                "    __pipeline_commit();\n"
+                "    __pipeline_wait_prior(0);\n")
+
+
 def _bounds_patch(kernels, old, new):
     return [("step_kernels.cu", f"__launch_bounds__({old})\n    {k}(",
              f"__launch_bounds__({new})\n    {k}(") for k in kernels]
@@ -748,7 +907,12 @@ STEP_VARIANTS = {
         "kBlock, kRouteBlocks"),
     "unsorted_rank_first": _RANK_FIRST,
     "unsorted_16_warps": _bounds_patch(UNSORTED_SHADES, "kShadeBlock, 5",
-                                       "kShadeBlock, 1")}
+                                       "kShadeBlock, 1"),
+    "shade_1s_no_prefetch": [("step_math.cuh", _PIPELINE, _NO_PREFETCH)],
+    "shade_1s_20_warps": _bounds_patch(("shade_1s_kernel",),
+                                       "kShadeBlock, 1", "kShadeBlock, 5"),
+    "shade_1s_24_warps": _bounds_patch(("shade_1s_kernel",),
+                                       "kShadeBlock, 1", "kShadeBlock, 6")}
 
 
 def variant_source(name):
@@ -781,10 +945,20 @@ def patched_library(name, text):
                          (d / "step_math.cuh",))
 
 
+def build_variants(names):
+    """``{name: library path}`` of the variants ``names``, built at once
+    (one nvcc each, in parallel)."""
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(max(1, len(names))) as pool:
+        paths = pool.map(lambda k: patched_library(k, variant_source(k)),
+                         names)
+        return dict(zip(names, paths))
+
+
 def time_variants(scene, camera, cfg, state, words, fb, it, cam_start, c,
                   names, libs, reps=5):
-    """The mode's route and shade and its first design's (``c`` from
-    :func:`check_state`) in the engine's library and in each of ``libs``
+    """The mode's route, shade and resolve and its first designs' (``c``
+    from :func:`check_state`) in the engine's library and in each of ``libs``
     (``{name: library}``), in turns: ``{lib: {kernel: {"ms": [...],
     "mean_ms", registers...}}}``."""
     import ctypes
@@ -793,7 +967,7 @@ def time_variants(scene, camera, cfg, state, words, fb, it, cam_start, c,
     from rtjax_torch.kernels import step as S
     stream = torch.cuda.current_stream().cuda_stream
     makes = design_blocks(scene, camera, cfg, state, words, fb, it,
-                          cam_start, c)
+                          cam_start, c, resolve=True)
     every = {"engine": S._kernels(), **libs}
     rounds = ("engine", *names, *names[::-1], "engine")
     blocks = {k: blocks_of(make, len(rounds) * (reps + 1) + 2 * reps)
@@ -836,8 +1010,8 @@ def variants(names=None, cells=VARIANT_CELLS, time_it=30, card="",
     from rtjax_torch.kernels import step as S
     scene, camera = C.phase2_scene()
     names = tuple(names or PARITY_VARIANTS)
-    libs = {k: S.bind(ctypes.CDLL(str(patched_library(k, variant_source(k)))))
-            for k in names}
+    libs = {k: S.bind(ctypes.CDLL(str(p)))
+            for k, p in build_variants(names).items()}
     all_cells = {"headline": (scene, camera, C._headline_cfg()),
                  **C._mode_cells(scene, camera),
                  "no_sort frame": (scene, camera, _no_sort_frame())}
