@@ -11,9 +11,10 @@ the script exits non-zero):
 
 0. device: require CUDA; print the card's name and power limit, and the
    torch and CUDA versions;
-1. build: the BVH builder and the eight kernel libraries (the persist,
+1. build: the BVH builder and the nine kernel libraries (the persist,
    two-level, packet and lane, binary-walk and direct-path kernels, the
-   device loop, the step kernels and the step's key sort) from this
+   device loop, the step kernels, the step's key sort and the TPU probes'
+   counterparts) from this
    checkout's sources, into build/rtjax_torch/, and the step library's
    patched copies that phase 14 times (VARIANTS), all compilers started
    together; ptxas's registers, stack frame and spills of the
@@ -339,6 +340,27 @@ the script exits non-zero):
    iteration, the sort's device ms a frame, no torch sort kernel on the
    kernel arms, five sort kernels a sorting launch and none and no
    memset node on a skip);
+15. the TPU probes' counterparts (run after phase 14, before phase 7's
+   profiles; ~20 s; kernels/probes.py, csrc/probes.cu): (a) their main
+   path, the entry points ``rtjax_torch.probes.micro_kernel`` (every ported
+   name of rtjax's benchmarks/micro_kernel.py at PROBE_SCALE x its
+   iteration counts: ns and cycles an iteration at one tile and at the
+   full card, the SASS loop body's instructions and issue bound) and
+   ``rtjax_torch.probes.stage_bench`` (a launch's device time in a
+   chain, programmatic, as a graph node, one host-visible call,
+   ``torch.Tensor.copy_``, one launch between events), every probe
+   kernel launched between the counts set to 0 and read; (b) every probe
+   kernel bit for bit its plain version at two iteration counts, on
+   rtjax's kind of operands and on mixed ones, at one tile and at the
+   full card, every tile equal, and one slab and one leaf probe past the
+   table's 1,024 rows (PROBE_WRAP_N); the copy bit for bit its input and
+   the sum its plain version's; (c) the plain versions' ms an iteration;
+   the kernels line's ``probe *`` rows (PERF.md rows 11a-11d: ``ms`` an
+   iteration of one tile by the slope, ``bound_ms`` its issue bound, the
+   scalar walk's share None: a latency; the copy's and the sum's ``ms``
+   a launch in a chain of 64, ``library_ms`` ``torch.Tensor.copy_`` and
+   ``torch.sum`` chained alike, ``events_floor_ms`` one launch between
+   events);
 7. the two persist kernels' device time over one whole headline frame,
    the two packet kernels' over one walker="packet" headline frame, the
    lane closest-hit kernel's over one walker="lane" headline frame (its
@@ -526,7 +548,8 @@ def phase1_build(variants=()):
               "direct-path kernels": _build.direct_library,
               "device loop": _build.loop_library,
               "step kernels": _build.step_library,
-              "key sort": _build.key_sort_library}
+              "key sort": _build.key_sort_library,
+              "probe kernels": _build.probes_library}
     if variants:
         sys.path.insert(0, os.path.join(ROOT, "tools"))
         import step_designs as SD
@@ -555,6 +578,8 @@ def phase1_build(variants=()):
     for name, res in _build.ptxas_report(_build.key_sort_library()):
         kind = "upsweep" if "upsweep_kernel" in name else "pass"
         print(f"[ptxas] key sort {kind}: {res}")
+    for name, res in _build.ptxas_report(_build.probes_library()):
+        print(f"[ptxas] probe {name}: {res}")
 
 
 def _step_label(mangled):
@@ -602,57 +627,25 @@ def phase2_scene():
 
 
 def _median_ms(fn):
-    """Median device time of ``fn`` over REPS runs (CUDA events), after
-    one warm-up run."""
-    import torch
-    fn()
-    times = []
-    for _ in range(REPS):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
-# the spin that holds the stream while the host queues the timed calls
-# (torch.cuda._sleep cycles: ~34 ms at the H100's 1.98 GHz)
-SPIN_CYCLES = 1 << 26
+    """Median device time of ``fn`` over REPS runs (CUDA events around
+    each synchronised call, host launch included), after one warm-up run
+    (``rtjax_torch.probes.call_ms``)."""
+    from rtjax_torch.probes import call_ms
+    return call_ms(fn, REPS)
 
 
 def _launch_ms(fn, reps=REPS):
     """``(mean, least, most)`` device time (ms) of one call of ``fn``, over
-    ``reps`` calls after one warm-up.  The calls are queued behind a spin
-    kernel (``torch.cuda._sleep``) with a CUDA event before and after each,
-    so the events time the card's work back to back, each call's own
-    launch, and not the host's launch, which is most of a short kernel's
-    time in CUDA events around one synchronised call (:func:`_median_ms`).
-    The stream must still be busy with the spin when the last event is
-    queued; if it is not, the spin is lengthened and the timing made again,
-    and after three tries the check fails.  Every call of ``fn`` must
-    launch one kernel and nothing else."""
-    import torch
-    fn()
-    torch.cuda.synchronize()
-    cycles = SPIN_CYCLES
-    for _ in range(3):
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(reps + 1)]
-        torch.cuda._sleep(cycles)
-        ev[0].record()
-        for e in ev[1:]:
-            fn()
-            e.record()
-        held = not torch.cuda.current_stream().query()
-        torch.cuda.synchronize()
-        if held:
-            ms = [a.elapsed_time(b) for a, b in zip(ev, ev[1:])]
-            return statistics.mean(ms), min(ms), max(ms)
-        cycles *= 4
-    raise RuntimeError("the host queued the timed calls for longer than "
-                       "the spin held the stream, three times")
+    ``reps`` calls after one warm-up (``rtjax_torch.probes.launch_ms``).
+    The calls are queued behind a spin kernel (``torch.cuda._sleep``) with
+    a CUDA event before and after each, so the events time the card's
+    work back to back, each call's own launch, and not the host's launch,
+    which is most of a short kernel's time in CUDA events around one
+    synchronised call (:func:`_median_ms`); the events' own floor is ~5
+    us a call (PERF.md row 11a).  Every call of ``fn`` must launch one
+    kernel and nothing else."""
+    from rtjax_torch.probes import launch_ms
+    return launch_ms(fn, reps)
 
 
 def _device_ms(fn, reps=REPS):
@@ -1800,6 +1793,7 @@ def _counters():
     from rtjax_torch.kernels import direct as D
     from rtjax_torch.kernels import lane as L
     from rtjax_torch.kernels import persist as P
+    from rtjax_torch.kernels import probes as PR
     from rtjax_torch.kernels import sort as SO
     from rtjax_torch.kernels import step as S
     from rtjax_torch.kernels import traversal as T
@@ -1830,7 +1824,9 @@ def _counters():
             "step_unsorted_v1": (S.UNSORTED_V1_LAUNCHES, None),
             "step_mode_v1": (S.MODE_V1_LAUNCHES, None),
             # the step's key sort: once a sorted iteration of the kernels
-            "sort": (SO.LAUNCHES, SO.REF_CALLS)}
+            "sort": (SO.LAUNCHES, SO.REF_CALLS),
+            # the TPU probes' counterparts: on no frame (phase 15)
+            "probes": (PR.LAUNCHES, PR.REF_CALLS)}
 
 
 def _zero_counts():
@@ -5927,6 +5923,178 @@ def _sort_row(p14, p14m, launches):
         note="no pallas_call: XLA's lax.sort; library_ms is torch.sort("
              "keys, stable=True), the plain version, timed in turns")
 
+# --------------------------------------------------------------- phase 15
+PROBES_SOURCE = "rtjax_torch/csrc/probes.cu"
+PROBE_SCALE = 0.1        # the probes' iterations: rtjax's counts x 0.1
+# iterations of the checks against the plain versions, and of the plain
+# versions' timed slope (the plain walks launch ~10-400 ops an iteration)
+PROBE_CHECK_N = {"scalar_walk": (7, 300), "clz": (5, 100_000)}
+PROBE_TILE_CHECK_N = (3, 70)
+# past the table's 1,024 rows, one slab probe and one leaf probe (the two
+# row readers: csrc/probes.cu UniformRow and ShflRow)
+PROBE_WRAP_N = {"slab_pair": 1030, "leaf_mt_vpu_row1": 1030}
+# (clz's plain version takes its iterations at once: millions, or the
+# slope is lost in its ~90 launches' time)
+PROBE_PLAIN_N = {"scalar_walk": (8, 32), "clz": (1_000_000, 4_000_000)}
+PROBE_TILE_PLAIN_N = (2, 8)
+NOP_BYTES = 2 * 16 * 128 * 4       # the copy: a tile in and out
+SUM_BYTES = 16 * 128 * 4 + 4       # the sum: a tile in, a float out
+
+
+def _probe_row(name):
+    """(PERF.md row, TPU kernel) of a probe kernel."""
+    if name in ("nop_copy", "tile_sum"):
+        return "11a", "benchmarks/stage_bench.py:123"
+    if name == "scalar_walk":
+        return "11b", "benchmarks/micro_kernel.py:106"
+    if name == "clz":
+        return "11d", "benchmarks/micro_kernel.py:777"
+    return "11c", "benchmarks/micro_kernel.py:59"
+
+
+def _probe_checks(names):
+    """Each probe kernel against its plain version (kernels/probes.py) at
+    two iteration counts, on rtjax's kind of operands and on mixed ones
+    (micro_kernel.mixed_operands; the scalar walk also on deep_meta), at
+    one tile and at the full card, every tile's checksum equal to the
+    plain version's, and the probes of PROBE_WRAP_N on mixed operands
+    past the table's rows: ``{name: [checksums]}``."""
+    import numpy as np
+    import torch
+    from rtjax_torch.kernels import probes as PK
+    from rtjax_torch.probes import micro_kernel as MK
+    out = {}
+    for name in names:
+        rng = np.random.default_rng(15)
+        sets = [[]] if name == "clz" else [
+            [t.contiguous() for t in MK.ALL[name][0](1, 1, "cuda")[1]],
+            [torch.from_numpy(a).cuda() for a in MK.mixed_operands(name,
+                                                                   rng)]]
+        if name == "scalar_walk":
+            sets.append([torch.from_numpy(MK.deep_meta()).cuda()])
+        full = PK.full_card(name)
+        got = []
+        runs = [(n, ops) for n in PROBE_CHECK_N.get(name, PROBE_TILE_CHECK_N)
+                for ops in sets]
+        if name in PROBE_WRAP_N:
+            runs.append((PROBE_WRAP_N[name], sets[1]))
+        for n, ops in runs:
+            want = int(MK.plain(name, n, ops)[0])
+            for tiles in (1, full):
+                c = PK.checksum(MK.launch(name, n, ops, tiles))
+                if c != want:
+                    raise RuntimeError(f"probe {name} at n = {n}, {tiles} "
+                                       f"tiles: {c} against the plain "
+                                       f"version's {want}")
+            got.append(want)
+        out[name] = got
+    return out
+
+
+def _plain_probe_ms(name):
+    """ms an iteration of a probe's plain version on the card: the slope
+    of one call's device time (CUDA events around it, host launches
+    included: the plain versions launch op by op) at two counts."""
+    from rtjax_torch.probes import call_ms, micro_kernel as MK
+    ops = list(MK.ALL[name][0](1, 1, "cuda")[1])
+    a, b = PROBE_PLAIN_N.get(name, PROBE_TILE_PLAIN_N)
+    ta, tb = (call_ms(lambda k=k: MK.plain(name, k, ops)) for k in (a, b))
+    return (tb - ta) / (b - a)
+
+
+def _nop_check():
+    """The copy bit for bit its input and the sum the plain version's, on
+    integer-valued tiles (exact in any order), at one tile and at the full
+    card."""
+    import torch
+    from rtjax_torch.kernels import probes as PK
+    for tiles in (1, PK.full_card("nop_copy")):
+        shape = (16, 128) if tiles == 1 else (tiles, 16, 128)
+        g = torch.Generator(device="cuda").manual_seed(tiles)
+        x = torch.randint(-100, 100, shape, generator=g, device="cuda").float()
+        for pdl in (False, True):
+            if not torch.equal(PK.nop_copy(x, pdl=pdl), x):
+                raise RuntimeError(f"probe copy (pdl {pdl}, {tiles} tiles) "
+                                   "differs from its input")
+        if not torch.equal(PK.tile_sum(x), PK.tile_sum_ref(x)):
+            raise RuntimeError(f"probe tile sum ({tiles} tiles) differs "
+                               "from its plain version")
+
+
+def phase15_probes(card):
+    """(a) The probes' main path: ``python -m rtjax_torch.probes.
+    micro_kernel`` (every ported name at PROBE_SCALE x rtjax's iteration
+    counts) and ``python -m rtjax_torch.probes.stage_bench``, through
+    their ``main``, every probe kernel launched at least once between
+    the counts set to 0 and read; (b) each kernel bit for bit its plain
+    version at two iteration counts, at one tile and at the full card
+    (:func:`_probe_checks`, :func:`_nop_check`); (c) the plain versions'
+    ms an iteration on the card.  Returns the kernels line's rows."""
+    from rtjax_torch.kernels import probes as PK
+    from rtjax_torch.probes import micro_kernel as MK
+    from rtjax_torch.probes import stage_bench as SB
+    from rtjax_torch.probes import card as probe_card
+    info = probe_card()
+    print(f"[probes] {info['line']}, {info['clock']} max SM clock")
+    _zero_counts()
+    micro = MK.main([*MK.ALL, "--scale", str(PROBE_SCALE)])
+    nop = SB.main([])
+    launches = _read_counts()["probes"]
+    missing = [k for k, v in launches.items() if not v]
+    if missing:
+        raise RuntimeError(f"probe kernels not launched by the probe "
+                           f"entry points: {missing}")
+    checks = _probe_checks(MK.ALL)
+    _nop_check()
+    plain = {name: _plain_probe_ms(name) for name in MK.ALL}
+    print(f"[probes] every probe kernel bit for bit its plain version at "
+          f"one tile and the full card: "
+          + ", ".join(f"{k} {v}" for k, v in checks.items()))
+    rows = []
+    for name, rec in micro.items():
+        one, full = rec["one_tile"], rec["full_card"]
+        row, tpu = _probe_row(name)
+        ms, bound_ms = one["ns"] * 1e-6, one["bound_ns"] * 1e-6
+        latency = name == "scalar_walk"
+        rows.append(dict(
+            name=f"probe {name}", row=row, route="cuda", source=PROBES_SOURCE,
+            replaces=tpu, launches=launches[name], max_abs_err=0.0, ms=ms,
+            plain_ms=plain[name], bound_ms=bound_ms, bound_us=bound_ms * 1e3,
+            bound_by="operations", share=None if latency else bound_ms / ms,
+            library_ms=None, ns_per_iter=one["ns"],
+            cycles_per_iter=one["cycles"], clock_mhz=info["clock_mhz"],
+            instructions=rec["instructions"], n=rec["n"], full_card=full,
+            checksums=checks[name], registers=PK.kernel_info(name),
+            unit="one in-kernel iteration of one tile (a chain's step for "
+                 "scalar_walk and clz): the two-point slope at n and 4n; "
+                 "bound: the SASS loop body's instructions a warp over 4 "
+                 "warp-instructions a clock" + (
+                     "; a latency, no share claimed" if latency else "")))
+    for name, key, nbytes, plain_key, lib_key, floor_key in (
+            ("nop_copy", "chain_ms", NOP_BYTES, "plain_copy_chain_ms",
+             "copy__chain_ms", "eager_ms"),
+            ("tile_sum", "sum_chain_ms", SUM_BYTES, "plain_sum_chain_ms",
+             "plain_sum_chain_ms", None)):
+        one = nop["one_tile"]
+        bound_ms = nbytes / PEAK_BYTES * 1e3
+        rows.append(dict(
+            name=f"probe {name}", row="11a", route="cuda",
+            source=PROBES_SOURCE, replaces=_probe_row(name)[1],
+            launches=launches[name], max_abs_err=0.0, ms=one[key],
+            plain_ms=one[plain_key], bound_ms=bound_ms,
+            bound_us=bound_ms * 1e3, bound_by="bytes",
+            share=bound_ms / one[key], library_ms=one[lib_key],
+            events_floor_ms=one[floor_key] if floor_key else None,
+            registers=PK.kernel_info(name),
+            **({"timings": nop} if name == "nop_copy" else {}),
+            unit=f"one launch in a chain of {SB.CHAIN} between two events "
+                 "(device time; launches queued behind a spin)",
+            note=("library_ms: torch.Tensor.copy_ of the tile, chained; "
+                  "events_floor_ms: one launch between two events" if
+                  name == "nop_copy" else "library_ms: torch.sum over the "
+                  "tile, the plain version's one call, chained")))
+    return rows
+
 
 def main():
     t0 = time.perf_counter()
@@ -6005,6 +6173,8 @@ def main():
                                c4_camera, c4_floor, g13)
     p14m = phase14_mode_kernels(scene, camera, card)
     stamp("phase 14 (the step kernels)")
+    probe_rows = phase15_probes(card)
+    stamp("phase 15 (the TPU probes' counterparts)")
     frames = phase7_frames(scene, camera, card, c4_scene, c4_camera)
     stamp("phase 7 (frame kernels)")
     for rows_, kernels in ((persist, "persist"), (inst, "two_level")):
@@ -6025,13 +6195,15 @@ def main():
                 k: {"unsorted": xla_steps, "parity": modes["launches"]}.get(
                     m, p14m["frames"][MODE_TIMED[m]]["launches"])[k]
                 for k, (m, _) in MODE_STEP_KERNELS.items()}),
-            *_v1_rows(p14m)]
+            *_v1_rows(p14m), *probe_rows]
     for k, rec in _big_rows(big).items():
         next(r for r in rows if r["name"] == k)["bigscene"] = rec
     for k in rows:
+        share = ("a latency, no share" if k["share"] is None else
+                 f"{100 * k['share']:.2f}% of the bound")
         print(f"[bound] {k['name']}: {k['bound_us']:.3f} us by "
               f"{k['bound_by']}, kernel {k['ms']:.4f} ms device time, "
-              f"{100 * k['share']:.2f}% of the bound; launches {k['launches']}")
+              f"{share}; launches {k['launches']}")
     c2_prof = d12["designs"]["frames"]["config2"]["profile"]
     c2_its = " / ".join(f"{c2_prof[a]['ms_per_iteration']:.4f}"
                         for a in ("engine", "v1"))

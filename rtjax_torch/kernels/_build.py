@@ -17,7 +17,8 @@ under the repository root (a directory that .gitignore lists).
   wavefront step (``step_kernels.cu``: route, shade and resolve, which
   include ``step_math.cuh``; kernels/step.py) and the step's stable key
   sort (``key_sort.cu``, which includes ``key_sort.cuh``;
-  kernels/sort.py), compiled by nvcc for
+  kernels/sort.py), and the TPU probes' counterparts (``probes.cu``, which
+  includes ``probes.cuh``; kernels/probes.py), compiled by nvcc for
   ``sm_90a`` and bound with ctypes.
 
 Each library is rebuilt when a source or a header it includes is newer
@@ -53,6 +54,8 @@ STEP_SOURCE = CSRC_DIR / "step_kernels.cu"
 STEP_HEADER = CSRC_DIR / "step_math.cuh"
 SORT_SOURCE = CSRC_DIR / "key_sort.cu"
 SORT_HEADER = CSRC_DIR / "key_sort.cuh"
+PROBES_SOURCE = CSRC_DIR / "probes.cu"
+PROBES_HEADER = CSRC_DIR / "probes.cuh"
 WALK_HEADER = CSRC_DIR / "wide_walk.cuh"
 FETCH_HEADER = CSRC_DIR / "fetch_walk.cuh"
 GROUP_HEADER = CSRC_DIR / "group_walk.cuh"
@@ -185,3 +188,9 @@ def key_sort_library() -> Path:
     """Path of the compiled key sort (built if missing or stale)."""
     return _build(BUILD_DIR / "libkey_sort.so", [SORT_SOURCE],
                   [nvcc_path()] + NVCC_FLAGS, (SORT_HEADER,))
+
+
+def probes_library() -> Path:
+    """Path of the compiled probe kernels (built if missing or stale)."""
+    return _build(BUILD_DIR / "libprobes.so", [PROBES_SOURCE],
+                  [nvcc_path()] + NVCC_FLAGS, (PROBES_HEADER,))

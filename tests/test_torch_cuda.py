@@ -1,7 +1,8 @@
 """rtjax_torch on a CUDA device: the hand-written kernels (persistent
 walkers, two-level, packet and lane kernels, each in both designs, the
-binary-BVH walk, the tiny-scene direct pair and the step's stable key
-sort) against their plain PyTorch versions, and the engine's main path through the kernels,
+binary-BVH walk, the tiny-scene direct pair, the step's stable key sort
+and the TPU probes' counterparts) against their plain PyTorch versions,
+and the engine's main path through the kernels,
 single-level and instanced, under every walker, under
 ``traversal="xla"`` and on the direct path; and the frame loop's captured
 CUDA graph against the same loop run op by op.
@@ -29,13 +30,17 @@ from rtjax_torch import RenderConfig
 from rtjax_torch.accel.builder_cpp import build_bvh
 from rtjax_torch.accel.wide import build_wide_tables
 from rtjax_torch.core.geometry import Triangles
+from rtjax_torch.kernels import _build
 from rtjax_torch.kernels import direct as D
+from rtjax_torch.kernels import probes as PR
 from rtjax_torch.kernels import lane as L
 from rtjax_torch.kernels import traversal as T
 from rtjax_torch.kernels import persist as P
 from rtjax_torch.kernels import sort as SO
 from rtjax_torch.kernels import wide as WD
 from rtjax_torch.kernels import wide_inst as WI
+from rtjax_torch.probes import micro_kernel as PMK
+from rtjax_torch.probes import stage_bench as PSB
 from rtjax_torch.render import trace
 from rtjax_torch.render.wavefront import render_frame
 from rtjax_torch.scene.camera import Camera
@@ -2726,3 +2731,107 @@ def test_first_design_frame_captured_equals_the_eager_loop(
         ours = S.LAUNCHES[k] - launches[k]
         theirs = S.MODE_V1_LAUNCHES[S.MODE_V1[k]] - firsts[S.MODE_V1[k]]
         assert (ours > 0, theirs > 0) == (design == "record", design == "v1")
+
+
+# ------------------------------------------------- the TPU probes (row 11)
+def _probe_sets(name):
+    """rtjax's kind of operands and mixed ones (the scalar walk also its
+    deep chain), on the card."""
+    if name == "clz":
+        return [[]]
+    sets = [list(PMK.ALL[name][0](1, 1, "cuda")[1]),
+            [torch.from_numpy(a).cuda() for a in PMK.mixed_operands(
+                name, np.random.default_rng(21))]]
+    if name == "scalar_walk":
+        sets.append([torch.from_numpy(PMK.deep_meta()).cuda()])
+    return sets
+
+
+@pytest.mark.parametrize("name", list(PMK.ALL))
+def test_probe_kernels_equal_plain_versions(cuda, name):
+    """Each probe kernel's checksum equals its plain version's bit for bit
+    at two iteration counts, at one tile and at the full card, every tile
+    equal."""
+    counts = {"scalar_walk": (7, 200), "clz": (5, 5_000)}.get(name, (3, 30))
+    full = PR.full_card(name)
+    assert full >= torch.cuda.get_device_properties(0).multi_processor_count
+    for n in counts:
+        for ops in _probe_sets(name):
+            want = PMK.plain(name, n, ops)
+            for tiles in (1, full):
+                got = PMK.launch(name, n, ops, tiles)
+                assert got.shape == (tiles,) and got.is_cuda
+                assert PR.checksum(got) == int(want[0])
+
+
+@pytest.mark.parametrize("name", ["slab_pair", "leaf_mt_vpu_row1"])
+def test_probe_kernels_wrap_the_table(cuda, name):
+    """Past the table's 1,024 rows a probe reads them again from row 0,
+    on the card as in the plain version: a slab probe (rows read by every
+    thread) and a leaf probe (rows spread by shuffles), at one tile and
+    at the full card."""
+    ops = _probe_sets(name)[1]
+    want = PMK.plain(name, 1030, ops)
+    for tiles in (1, PR.full_card(name)):
+        assert PR.checksum(PMK.launch(name, 1030, ops, tiles)) == \
+            int(want[0])
+
+
+def test_probe_nop_launch_equals_plain_version(cuda):
+    """The copy bit for bit its input, eagerly, as a programmatic
+    dependent and replayed in a captured graph; the sum the plain
+    version's on integer-valued tiles; at one tile and at the full
+    card."""
+    for tiles in (1, PR.full_card("nop_copy")):
+        shape = (16, 128) if tiles == 1 else (tiles, 16, 128)
+        x = torch.randint(-100, 100, shape, device="cuda").float()
+        y = torch.empty_like(x)
+        for pdl in (False, True):
+            assert torch.equal(PR.nop_copy(x, pdl=pdl), x)
+        assert torch.equal(PR.tile_sum(x), PR.tile_sum_ref(x))
+        assert torch.equal(PR.nop_launch(x), x.reshape(tiles, -1).sum(1))
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            PR.nop_copy(x, y, pdl=True)
+        y.zero_()
+        g.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(y, x)
+
+
+def test_probe_wrappers_raise_without_their_library(cuda, monkeypatch,
+                                                    tmp_path):
+    """A CUDA tensor goes to the kernels or the wrapper raises: with no
+    library and no compiler, every wrapper raises and none falls back to
+    its plain version."""
+    def no_nvcc():
+        raise RuntimeError("nvcc not found")
+    monkeypatch.setattr(PR, "_lib", None)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build, "nvcc_path", no_nvcc)
+    x = torch.zeros(16, 128, device="cuda")
+    table = torch.zeros(1024, 128, device="cuda")
+    rays = torch.zeros(7, 16, 128, device="cuda")
+    meta = torch.zeros(1024, dtype=torch.int32, device="cuda")
+    for call in (lambda: PR.nop_copy(x), lambda: PR.tile_sum(x),
+                 lambda: PR.scalar_walk(meta, 3),
+                 lambda: PR.tile_probe("slab_pair", table, rays, 3),
+                 lambda: PR.clz(3, 1, "cuda")):
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            call()
+
+
+def test_probe_entry_points_print_their_lines(cuda, capsys):
+    """The probe entry points' ``main``: a ``name: X ns/iter`` line a probe
+    (rtjax's format first), positive slopes, and the no-op launch's
+    timings."""
+    out = PMK.main(["clz", "slab_pair", "--scale", "0.05"])
+    lines = capsys.readouterr().out.splitlines()
+    for name in ("clz", "slab_pair"):
+        line = next(x for x in lines if x.startswith(f"{name}: "))
+        assert "ns/iter" in line and out[name]["one_tile"]["ns"] > 0
+        assert out[name]["instructions"] > 0
+    nop = PSB.main([])
+    assert capsys.readouterr().out.count(" ms ") >= 2 * 10
+    assert 0 < nop["one_tile"]["chain_ms"] < nop["one_tile"]["eager_ms"] < 1
+    assert nop["full_card"]["tiles"] > nop["one_tile"]["tiles"]

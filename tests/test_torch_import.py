@@ -32,6 +32,10 @@ MODULES = [
     "rtjax_torch.utils.profiler", "rtjax_torch.utils.compare",
     "rtjax_torch.cli", "rtjax_torch.__main__", "rtjax_torch.parallel",
     "rtjax_torch.parallel.multihost", "rtjax_torch.parallel.sharding",
+    "rtjax_torch.kernels.sort", "rtjax_torch.render.device_loop",
+    "rtjax_torch.core", "rtjax_torch.kernels", "rtjax_torch.scene",
+    "rtjax_torch.kernels.probes", "rtjax_torch.probes",
+    "rtjax_torch.probes.micro_kernel", "rtjax_torch.probes.stage_bench",
 ]
 
 
@@ -60,6 +64,9 @@ def test_port_never_imports_jax():
                                     "rtjax_torch.accel",
                                     "rtjax_torch.render",
                                     "rtjax_torch.render.graph",
+                                    "rtjax_torch.kernels.probes",
+                                    "rtjax_torch.probes.micro_kernel",
+                                    "rtjax_torch.probes.stage_bench",
                                     "tools.step_designs",
                                     "tools.mode_steps"])
 def test_host_surface_imports_no_jax(module):
