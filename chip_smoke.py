@@ -450,6 +450,9 @@ SPP = 64
 BOUNCES = 10
 ARTIFACT = os.path.join(ROOT, "artifacts", "cornell_bunny_256_64spp.ppm")
 REPS = 5
+# launches a timed chain between two events ([C 5]: one launch alone
+# between events carries the events' ~5 us floor, PERF.md row 11a)
+CHAIN_CALLS = 32
 # phase 4 keeps the rays of this launch of each persist kernel (of the
 # warm-up frame's 77)
 CAPTURE_AT = 38
@@ -646,6 +649,18 @@ def _launch_ms(fn, reps=REPS):
     kernel and nothing else."""
     from rtjax_torch.probes import launch_ms
     return launch_ms(fn, reps)
+
+
+def _chain_ms(call, calls=None):
+    """Device time (ms) of one launch in a chain of CHAIN_CALLS between two
+    events, mean of REPS chains queued behind a spin
+    (``rtjax_torch.probes.chain_ms``; [C 5]): ``call()`` launches one
+    kernel whose inputs it leaves as they are, or ``calls()`` gives the
+    chain's CHAIN_CALLS prepared calls (each on its own copies of what it
+    writes, made before the chain's first event)."""
+    from rtjax_torch.probes import chain_ms
+    make = calls if calls is not None else (lambda: [call] * CHAIN_CALLS)
+    return chain_ms(make, REPS)[0]
 
 
 def _device_ms(fn, reps=REPS):
@@ -3955,20 +3970,24 @@ def _check_direct(label, tris, cl, ah, card):
     vs = {"hit": int((hk != bh).sum()), "t": int((tk[hk] != bt[hk]).sum()),
           "prim": int((pk[hk] != bp[hk]).sum())}
     ms = _launch_ms(lambda: D.direct_closest(*cargs))
+    chain = _chain_ms(lambda: D.direct_closest(*cargs))
     n, n_act = cl["tmax"].numel(), int(cl["active"].sum())
     b = _direct_bound(n, n_act, tris.num, RAY_IN, CLOSEST_OUT,
                       n_act * tris.num)
     out["closest"] = dict(max_abs_err=float((tk - ref[1]).abs().max()),
                           ms=ms[0], ms_range=ms[1:], call_ms=call_ms,
                           plain_ms=plain_ms, share=b["bound_ms"] / ms[0],
+                          chain_ms=chain, chain_share=b["bound_ms"] / chain,
                           hits=int(hk.sum()), **b)
     print(f"[{label} direct closest] {card}: {n} rays ({n_act} active) x "
           f"{tris.num} triangles, {int(hk.sum())} hits; mismatches vs plain "
-          f"{mis}, vs the oracle {vs}; device {ms[0]:.4f} ms a launch "
-          f"({ms[1]:.4f}-{ms[2]:.4f}), one call {call_ms:.4f} ms, plain "
+          f"{mis}, vs the oracle {vs}; device {chain:.4f} ms a launch in a "
+          f"chain of {CHAIN_CALLS} ({ms[0]:.4f} alone between events, "
+          f"{ms[1]:.4f}-{ms[2]:.4f}), one call {call_ms:.4f} ms, plain "
           f"{plain_ms:.3f} ms; bound {b['bound_us']:.3f} us by "
           f"{b['bound_by']} ({b['bytes']} B, {b['ops']} float ops); "
-          f"{100 * out['closest']['share']:.2f}% of the bound")
+          f"{100 * out['closest']['chain_share']:.2f}% of the bound in the "
+          f"chain ({100 * out['closest']['share']:.2f}% alone)")
     if any(mis.values()) or any(vs.values()) or not bool(hk.any()):
         raise RuntimeError(f"{label}: the direct closest-hit kernel "
                            "disagrees with its plain version or the oracle")
@@ -3985,6 +4004,7 @@ def _check_direct(label, tris, cl, ah, card):
            "vs_oracle": int((occ != bocc).sum()),
            "v1": int((D.direct_anyhit_v1(*aargs) != occ_ref).sum())}
     ms = _launch_ms(lambda: D.direct_anyhit(*aargs))
+    chain = _chain_ms(lambda: D.direct_anyhit(*aargs))
     ab = _ab_ms(lambda: D.direct_anyhit(*aargs),
                 lambda: D.direct_anyhit_v1(*aargs))
     n, n_act = ah["tmax"].numel(), int(ah["active"].sum())
@@ -3992,16 +4012,19 @@ def _check_direct(label, tris, cl, ah, card):
                       _anyhit_tests(tris, ah))
     out["anyhit"] = dict(max_abs_err=float(mis["occlusion"]), ms=ms[0],
                          ms_range=ms[1:], call_ms=call_ms, plain_ms=plain_ms,
-                         share=b["bound_ms"] / ms[0],
+                         share=b["bound_ms"] / ms[0], chain_ms=chain,
+                         chain_share=b["bound_ms"] / chain,
                          occluded=int(occ.sum()), ab=ab,
                          v1_ms=statistics.mean(ab[1]), **b)
     print(f"[{label} direct anyhit] {card}: {n} rays ({n_act} active) x "
           f"{tris.num} triangles, {int(occ.sum())} occluded; mismatches "
-          f"{mis}; device {ms[0]:.4f} ms a launch ({ms[1]:.4f}-"
+          f"{mis}; device {chain:.4f} ms a launch in a chain of "
+          f"{CHAIN_CALLS} ({ms[0]:.4f} alone between events, {ms[1]:.4f}-"
           f"{ms[2]:.4f}), one call {call_ms:.4f} ms, plain {plain_ms:.3f} "
           f"ms; bound {b['bound_us']:.3f} us by {b['bound_by']} "
           f"({b['bytes']} B, {b['tests']} tests, {b['ops']} float ops); "
-          f"{100 * out['anyhit']['share']:.2f}% of the bound; in turns "
+          f"{100 * out['anyhit']['chain_share']:.2f}% of the bound in the chain "
+          f"({100 * out['anyhit']['share']:.2f}% alone); in turns "
           f"v1, engine, engine, v1: engine {ab[0]} ms, first design "
           f"{ab[1]} ms ({100 * b['bound_ms'] / out['anyhit']['v1_ms']:.2f}"
           f"%)")
@@ -4480,9 +4503,11 @@ def _direct_rows(d12, c4_launches):
             DIRECT_KERNELS[kind], route="cuda", source=DIRECT_SOURCE,
             launches=d12["launches"][kind], max_abs_err=max(
                 d12["kernels"][k][kind]["max_abs_err"]
-                for k in d12["kernels"]), ms=r["ms"], call_ms=r["call_ms"],
+                for k in d12["kernels"]), ms=r["chain_ms"],
+            events_floor_ms=r["ms"], call_ms=r["call_ms"],
             plain_ms=r["plain_ms"], library_ms=None,
-            **{k: r[k] for k in _BOUND_KEYS}, share=r["share"],
+            **{k: r[k] for k in _BOUND_KEYS}, share=r["chain_share"],
+            events_floor_share=r["share"], chain_launches=CHAIN_CALLS,
             timed_launches=REPS,
             **({} if kind == "closest" else dict(
                 v1_ms=r["v1_ms"], ab_ms=dict(engine=r["ab"][0],
@@ -5086,7 +5111,9 @@ def _step_timings(t, card):
         print(f"[step time {name}] {card}: {r['mean_ms']:.4f} ms a launch "
               f"(mean of {REPS} queued, in turns: {r['ms']}), bound "
               f"{r['bound_us']:.3f} us by {r['bound_by']} ({r['bytes']:.0f} "
-              f"bytes), {100 * r['share']:.2f}% of the bound")
+              f"bytes), {100 * r['share']:.2f}% of the bound; "
+              f"{r['chain_ms']:.4f} ms a launch in a chain of {CHAIN_CALLS}, "
+              f"{100 * r['chain_share']:.2f}% of the bound")
     for name, r in t["registers"].items():
         print(f"[step occupancy {name}] {card}: {r['registers']} registers, "
               f"{r['local_bytes']} local bytes, {r['block']} threads a "
@@ -5178,6 +5205,9 @@ def _sort_time_text(label, t, card):
     line = SDs.time_text(label, t, card)
     if "skip_ms" in t:
         line += f"; a skip launch {t['skip_ms']:.4f} ms"
+    if "chain_ms" in t:
+        line += (f"; a sort in a chain of {CHAIN_CALLS} {t['chain_ms']:.4f} "
+                 "ms")
     return line + f" ({t['lanes']} route keys)" if "lanes" in t else line
 
 
@@ -5685,7 +5715,8 @@ def _mode_time_text(t, card):
              + (f" ({100 * r['function_share']:.2f}% of the function's, "
                 f"{r['function_bound_us']:.3f} us without the rank word)"
                 if "function_share" in r else "")
-             + "; one call "
+             + f"; {r['chain_ms']:.4f} ms a launch in a chain of "
+             f"{CHAIN_CALLS} ({100 * r['chain_share']:.2f}%); one call "
              f"{r['one_call_ms']:.4f} ms, plain version {r['plain_ms']:.4f} "
              f"ms; {r['registers']} registers, {r['warps_per_sm']} resident "
              "warps an SM" for k, r in t["kernels"].items()]
@@ -5797,10 +5828,13 @@ def _mode_rows(p14m, launches):
             name=f"step_{name}", route="cuda", source=STEP_SOURCE,
             replaces=replaces, launches=launches[name],
             max_abs_err=p14m["fb_gaps"].get(name, 0.0),
-            ms=r["mean_ms"], timed_ms=r["ms"], timed_launches=REPS,
-            one_call_ms=r["one_call_ms"], plain_ms=r["plain_ms"],
-            bound_ms=r["bound_ms"], bound_us=r["bound_us"],
-            bound_by=r["bound_by"], share=r["share"], library_ms=None,
+            ms=r["chain_ms"], events_floor_ms=r["mean_ms"],
+            chain_launches=CHAIN_CALLS, timed_ms=r["ms"],
+            timed_launches=REPS, one_call_ms=r["one_call_ms"],
+            plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+            bound_us=r["bound_us"], bound_by=r["bound_by"],
+            share=r["chain_share"], events_floor_share=r["share"],
+            library_ms=None,
             registers=r["registers"], warps_per_sm=r["warps_per_sm"],
             **{k: r[k] for k in ("function_bound_ms", "function_share")
                if k in r},
@@ -5829,10 +5863,13 @@ def _v1_rows(p14m):
             replaces=replaces, launches=0,
             in_turns_launches=p14m["designs"][cell]["launches"][name],
             max_abs_err=p14m["fb_gaps"].get(name, 0.0),
-            ms=r["mean_ms"], timed_ms=r["ms"], timed_launches=REPS,
-            one_call_ms=r["one_call_ms"], plain_ms=r["plain_ms"],
-            bound_ms=r["bound_ms"], bound_us=r["bound_us"],
-            bound_by=r["bound_by"], share=r["share"], library_ms=None,
+            ms=r["chain_ms"], events_floor_ms=r["mean_ms"],
+            chain_launches=CHAIN_CALLS, timed_ms=r["ms"],
+            timed_launches=REPS, one_call_ms=r["one_call_ms"],
+            plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+            bound_us=r["bound_us"], bound_by=r["bound_by"],
+            share=r["chain_share"], events_floor_share=r["share"],
+            library_ms=None,
             registers=r["registers"], warps_per_sm=r["warps_per_sm"],
             busy={arm: dict(device_ms_per_it=b["device_ms_per_it"],
                             events_per_it=b["events_per_it"],
@@ -5856,10 +5893,13 @@ def _step_rows(p14, launches):
             name=meta["name"], route="cuda", source=STEP_SOURCE,
             replaces=meta["replaces"], launches=launches[name],
             max_abs_err=p14["fb_err"] if name == "shade" else 0.0,
-            ms=r["mean_ms"], timed_ms=r["ms"], timed_launches=REPS,
-            one_call_ms=r["one_call_ms"], plain_ms=r["plain_ms"],
-            bound_ms=r["bound_ms"], bound_us=r["bound_us"],
-            bound_by=r["bound_by"], share=r["share"], library_ms=None,
+            ms=r["chain_ms"], events_floor_ms=r["mean_ms"],
+            chain_launches=CHAIN_CALLS, timed_ms=r["ms"],
+            timed_launches=REPS, one_call_ms=r["one_call_ms"],
+            plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+            bound_us=r["bound_us"], bound_by=r["bound_by"],
+            share=r["chain_share"], events_floor_share=r["share"],
+            library_ms=None,
             registers=r["registers"], warps_per_sm=r["warps_per_sm"],
             mismatching_lanes=p14["mismatches"][name],
             note="no pallas_call: rtjax's XLA fusions of wavefront_step"))
@@ -5893,11 +5933,13 @@ def _sort_row(p14, p14m, launches):
         name="key_sort", route="cuda", source=SORT_SOURCE,
         replaces="rtjax/render/sorting.py:126", launches=launches,
         max_abs_err=0.0, mismatching_lanes=p14["mismatches"]["key_sort"],
-        ms=t["mean"]["kernels"], timed_ms=t["kernels"], timed_launches=REPS,
-        one_call_ms=t["one_call_ms"], plain_ms=t["plain_ms"],
-        bound_ms=t["bound"]["bound_ms"], bound_us=t["bound"]["bound_us"],
-        bound_by=t["bound"]["bound_by"],
-        share=t["bound"]["bound_ms"] / t["mean"]["kernels"],
+        ms=t["chain_ms"], events_floor_ms=t["mean"]["kernels"],
+        chain_launches=CHAIN_CALLS, timed_ms=t["kernels"],
+        timed_launches=REPS, one_call_ms=t["one_call_ms"],
+        plain_ms=t["plain_ms"], bound_ms=t["bound"]["bound_ms"],
+        bound_us=t["bound"]["bound_us"], bound_by=t["bound"]["bound_by"],
+        share=t["bound"]["bound_ms"] / t["chain_ms"],
+        events_floor_share=t["bound"]["bound_ms"] / t["mean"]["kernels"],
         library_ms=t["mean"]["torch"], library_timed_ms=t["torch"],
         registers={k: r["registers"] for k, r in sort["registers"].items()},
         kernels="sort_upsweep, sort_pass x 4 on a persistent scratch (no "
@@ -5926,6 +5968,9 @@ def _sort_row(p14, p14m, launches):
 # --------------------------------------------------------------- phase 15
 PROBES_SOURCE = "rtjax_torch/csrc/probes.cu"
 PROBE_SCALE = 0.1        # the probes' iterations: rtjax's counts x 0.1
+# the tensor-core probes' (a tile iteration takes 9-170 us: x 0.02 keeps
+# each slope's calls at 30-670 ms, phase 15 under a minute)
+MXU_PROBE_SCALE = 0.02
 # iterations of the checks against the plain versions, and of the plain
 # versions' timed slope (the plain walks launch ~10-400 ops an iteration)
 PROBE_CHECK_N = {"scalar_walk": (7, 300), "clz": (5, 100_000)}
@@ -5939,10 +5984,30 @@ PROBE_PLAIN_N = {"scalar_walk": (8, 32), "clz": (1_000_000, 4_000_000)}
 PROBE_TILE_PLAIN_N = (2, 8)
 NOP_BYTES = 2 * 16 * 128 * 4       # the copy: a tile in and out
 SUM_BYTES = 16 * 128 * 4 + 4       # the sum: a tile in, a float out
+MXU_SOURCE = "rtjax_torch/csrc/mxu_probes.cuh"
+# the tensor-core probes' checks: two counts, the second past the group
+# probes' 128 blocks; on rtjax's kind of operands the kernels and plain
+# versions sum each mma's products in different orders (K <= 96 roundings
+# of 2^-24 in det and each numerator)
+MXU_CHECK_N = (3, 133)
+MXU_RTOL = 1e-5
+MXU_ROWS = {"leaf_mt_mxu_f32": ("11e", 387), "leaf_mt_mxu_bf16": ("11e", 387),
+            "leaf_mt_mxu_full": ("11f", 457),
+            "leaf_mt_mxu_full_hi": ("11f", 457),
+            "leaf_mt_mxu_pair": ("11g", 529),
+            "leaf_mt_mxu_pair_hi": ("11g", 529),
+            "leaf_mt_mxu_pair_unpacked": ("11g", 529),
+            "leaf_mt_mxu_g8_splitk": ("11h", 602),
+            "leaf_mt_mxu_g4_splitk": ("11h", 602),
+            "leaf_mt_mxu_g2_splitk": ("11h", 602),
+            "leaf_mt_mxu_g8_f32": ("11h", 602)}
 
 
 def _probe_row(name):
     """(PERF.md row, TPU kernel) of a probe kernel."""
+    if name in MXU_ROWS:
+        row, line = MXU_ROWS[name]
+        return row, f"benchmarks/micro_kernel.py:{line}"
     if name in ("nop_copy", "tile_sum"):
         return "11a", "benchmarks/stage_bench.py:123"
     if name == "scalar_walk":
@@ -5991,6 +6056,53 @@ def _probe_checks(names):
     return out
 
 
+def _mxu_checks(names):
+    """Each tensor-core probe kernel against its plain version at
+    MXU_CHECK_N, at one tile and at the full card, every tile equal: out
+    and fields bit for bit on ``micro_kernel.exact_operands``, and on
+    rtjax's kind of operands the same lanes hit and every field within
+    MXU_RTOL.  ``{name: {hits, max_rel}}``: the exact cases' hit lanes at
+    each count, the largest relative difference on rtjax's kind."""
+    import numpy as np
+    import torch
+    from rtjax_torch.kernels import probes as PK
+    from rtjax_torch.probes import micro_kernel as MK
+    out = {}
+    for name in names:
+        exact = [MK._mxu_tensor(a, name) for a in MK.exact_operands(
+            name, np.random.default_rng(26))]
+        own = list(MK.ALL[name][0](1, 1, "cuda")[1])
+        full = PK.full_card(name)
+        rec = dict(hits=[], max_rel=0.0)
+        for n in MXU_CHECK_N:
+            for kind, ops in (("exact", exact), ("rtjax", own)):
+                want_out, want = PK.mxu_probe_ref(name, *ops, n)
+                want = want[0]
+                if kind == "exact":
+                    rec["hits"].append(int((want_out[0] < PK.BIG).sum()))
+                for tiles in (1, full):
+                    o, f = PK.mxu_probe(name, *ops, n, tiles, fields=True)
+                    o, f = PK.same_tiles(o), PK.same_tiles(f)
+                    what = f"probe {name} at n = {n}, {tiles} tiles, {kind}"
+                    if kind == "exact":
+                        if not (torch.equal(o, want_out[0])
+                                and torch.equal(f, want)):
+                            raise RuntimeError(f"{what}: differs from the "
+                                               "plain version")
+                        continue
+                    if not torch.equal(f[0] >= PK.BIG, want[0] >= PK.BIG):
+                        raise RuntimeError(f"{what}: other lanes hit than "
+                                           "in the plain version")
+                    rel = ((f - want).abs() / want.abs().clamp_min(
+                        1e-30)).max().item()
+                    if not rel <= MXU_RTOL:
+                        raise RuntimeError(f"{what}: {rel} from the plain "
+                                           f"version, over {MXU_RTOL}")
+                    rec["max_rel"] = max(rec["max_rel"], rel)
+        out[name] = rec
+    return out
+
+
 def _plain_probe_ms(name):
     """ms an iteration of a probe's plain version on the card: the slope
     of one call's device time (CUDA events around it, host launches
@@ -6021,6 +6133,37 @@ def _nop_check():
                                "from its plain version")
 
 
+def _mxu_row(name, rec, launches, plain_ms, check, info):
+    """The kernels line's row of a tensor-core probe: ms a tile iteration
+    (one tile), its bound (the larger of the tensor cores' share and the
+    loop body's issue) and the full card's."""
+    from rtjax_torch.kernels import probes as PK
+    one, full = rec["one_tile"], rec["full_card"]
+    row, tpu = _probe_row(name)
+    ms, bound_ms = one["ns"] * 1e-6, one["bound_ns"] * 1e-6
+    return dict(
+        name=f"probe {name}", row=row, route="cuda", source=MXU_SOURCE,
+        replaces=tpu, launches=launches, max_abs_err=0.0, ms=ms,
+        plain_ms=plain_ms, bound_ms=bound_ms, bound_us=bound_ms * 1e3,
+        bound_by="operations", share=bound_ms / ms, library_ms=None,
+        ns_per_iter=one["ns"], cycles_per_iter=one["cycles"],
+        clock_mhz=info["clock_mhz"], tensor_ns=one["tensor_ns"],
+        issue_ns=one["issue_ns"], set_by=one["bound_by"], hmma=rec["hmma"],
+        loop_instructions=rec["loop_instructions"],
+        instructions=rec["instructions"], leaf_ns=one["leaf_ns"],
+        card_leaf_ns=full["card_leaf_ns"], n=rec["n"],
+        full_card=full, precision=PK.MXU[name].prec,
+        exact_hits=check["hits"], max_rel_rtjax_kind=check["max_rel"],
+        registers=PK.kernel_info(name),
+        unit="one in-kernel iteration of one tile (2,048 rays against 1, 2 "
+             "or G leaves): the two-point slope at n and 4n; bound: the "
+             "larger of the product's multiply-adds over one SM's share of "
+             "the dense tensor-core peak (mma.sync reaches less of it than "
+             "wgmma) and the issue of the SASS loop body's instructions",
+        note="max_abs_err 0: bit for bit on exact operands; library_ms: no "
+             "PyTorch call computes the accept")
+
+
 def phase15_probes(card):
     """(a) The probes' main path: ``python -m rtjax_torch.probes.
     micro_kernel`` (every ported name at PROBE_SCALE x rtjax's iteration
@@ -6037,21 +6180,44 @@ def phase15_probes(card):
     info = probe_card()
     print(f"[probes] {info['line']}, {info['clock']} max SM clock")
     _zero_counts()
-    micro = MK.main([*MK.ALL, "--scale", str(PROBE_SCALE)])
+    micro = MK.main([*(k for k in MK.ALL if k not in PK.MXU), "--scale",
+                     str(PROBE_SCALE)])
+    micro.update(MK.main([*PK.MXU, "--scale", str(MXU_PROBE_SCALE)]))
     nop = SB.main([])
     launches = _read_counts()["probes"]
     missing = [k for k, v in launches.items() if not v]
     if missing:
         raise RuntimeError(f"probe kernels not launched by the probe "
                            f"entry points: {missing}")
-    checks = _probe_checks(MK.ALL)
+    checks = _probe_checks([k for k in MK.ALL if k not in PK.MXU])
+    mxu = _mxu_checks([k for k in MK.ALL if k in PK.MXU])
     _nop_check()
     plain = {name: _plain_probe_ms(name) for name in MK.ALL}
     print(f"[probes] every probe kernel bit for bit its plain version at "
           f"one tile and the full card: "
           + ", ".join(f"{k} {v}" for k, v in checks.items()))
+    print("[probes] every tensor-core probe bit for bit its plain version "
+          "on exact operands (hit lanes at n = "
+          f"{MXU_CHECK_N}), within {MXU_RTOL} on rtjax's kind: "
+          + ", ".join(f"{k} {v['hits']} {v['max_rel']:.3g}"
+                      for k, v in mxu.items()))
+    for name, rec in micro.items():
+        if name in PK.MXU:
+            info_k = PK.kernel_info(name)
+            print(f"[probes mxu {name}] {rec['hmma']} HMMA, "
+                  f"{rec['loop_instructions']} instructions in the loop "
+                  f"body, {info_k['registers']} registers, "
+                  f"{info_k['local_bytes']} local bytes, "
+                  f"{info_k['blocks_per_sm']} blocks an SM")
+            if rec["hmma"] <= 0:
+                raise RuntimeError(f"probe {name}: no HMMA in its kernel's "
+                                   "loop body")
     rows = []
     for name, rec in micro.items():
+        if name in PK.MXU:
+            rows.append(_mxu_row(name, rec, launches[name], plain[name],
+                                 mxu[name], info))
+            continue
         one, full = rec["one_tile"], rec["full_card"]
         row, tpu = _probe_row(name)
         ms, bound_ms = one["ns"] * 1e-6, one["bound_ns"] * 1e-6

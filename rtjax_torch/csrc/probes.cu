@@ -17,7 +17,12 @@
 //   make_leaf_mt_vpu_nodiv (:298): tile_kernel<V>, one instance a probe
 //   (the division-free one as tile_kernel_1block<V>, one block an SM);
 // - benchmarks/micro_kernel.py:777, make_clz: clz_kernel, one thread's
-//   loop on __clz.
+//   loop on __clz;
+// - benchmarks/micro_kernel.py:387, :457, :529, :602, the tensor-core leaf
+//   tests make_leaf_mt_mxu (:359), _full (:397), _pair (:466) and _group
+//   (:538): mxu_kernel<V>, one instance a probe (mxu_probes.cuh, on
+//   mma.sync: bf16, one TF32 pass or 3xTF32; bound by the tensor cores'
+//   share of the product or the issue of the accept).
 //
 // What bounds them on this card: the issue of each iteration's
 // instructions (the tile probes: 4 warp-instructions a clock on one SM),
@@ -52,6 +57,7 @@
 #include <type_traits>
 #include <utility>
 
+#include "mxu_probes.cuh"
 #include "probes.cuh"
 
 using namespace rtjax_probes;
@@ -244,6 +250,83 @@ const void* tile_function(int v, std::integer_sequence<int, Vs...>) {
 
 using AllVariants = std::make_integer_sequence<int, kVariants>;
 
+// ---------------------------------------------------- tensor-core probes
+// the card's warp for mxu_probes.cuh: its lane, shuffles and mma.sync
+struct CardWarp {
+  __device__ __forceinline__ int lane() const { return threadIdx.x & 31; }
+  __device__ __forceinline__ float shfl_xor(float v, int m) const {
+    return __shfl_xor_sync(0xffffffffu, v, m);
+  }
+  __device__ __forceinline__ int shfl_xor(int v, int m) const {
+    return __shfl_xor_sync(0xffffffffu, v, m);
+  }
+  __device__ __forceinline__ float shfl(float v, int src) const {
+    return __shfl_sync(0xffffffffu, v, src);
+  }
+  // d += a · b, m16n8k16, bf16 operands, f32 accumulator
+  __device__ __forceinline__ void mma_bf16(float (&d)[4],
+                                           const uint32_t (&a)[4],
+                                           const uint32_t (&b)[2]) const {
+    asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]),
+          "r"(b[1]));
+  }
+  // d += a · b, m16n8k8, TF32 operands, f32 accumulator
+  __device__ __forceinline__ void mma_tf32(float (&d)[4],
+                                           const uint32_t (&a)[4],
+                                           const uint32_t (&b)[2]) const {
+    asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]),
+          "r"(b[1]));
+  }
+};
+
+// A tensor-core probe: one block a tile, 8 warps of 256 rays each, n
+// iterations (mxu_probes.cuh mxu_warp); block b writes out[b] (2,048
+// floats) and, when ``fields`` is not null, fields[b] (Mxu<V>::kOut rows
+// of 2,048).
+template <int V>
+__global__ void __launch_bounds__(kTileThreads)
+    mxu_kernel(const void* __restrict__ table,
+               const void* __restrict__ feats, float* __restrict__ out,
+               float* __restrict__ fields, int n) {
+  CardWarp w;
+  const long long b = blockIdx.x;
+  mxu_warp<V>(table, feats, out + b * kTileLanes,
+              fields == nullptr ? nullptr
+                                : fields + b * Mxu<V>::kOut * kTileLanes,
+              n, threadIdx.x >> 5, w);
+}
+
+template <int V>
+cudaError_t launch_mxu(const void* table, const void* feats, float* out,
+                       float* fields, int n, int tiles, cudaStream_t s) {
+  mxu_kernel<V><<<tiles, kTileThreads, 0, s>>>(table, feats, out, fields,
+                                              n);
+  return cudaGetLastError();
+}
+
+using MxuLaunch = cudaError_t (*)(const void*, const void*, float*, float*,
+                                  int, int, cudaStream_t);
+
+template <int... Vs>
+MxuLaunch mxu_launch(int v, std::integer_sequence<int, Vs...>) {
+  MxuLaunch table[] = {launch_mxu<Vs>...};
+  return table[v];
+}
+
+template <int... Vs>
+const void* mxu_function(int v, std::integer_sequence<int, Vs...>) {
+  const void* table[] = {reinterpret_cast<const void*>(mxu_kernel<Vs>)...};
+  return table[v];
+}
+
+using AllMxu = std::make_integer_sequence<int, kMxuVariants>;
+
 int info(const void* kernel, int threads, int smem, int* regs, int* local,
          int* blk, int* blocks) {
   cudaFuncAttributes at;
@@ -337,10 +420,24 @@ extern "C" int rtjax_probe_tile(int variant, const float* table,
       table, rays, out, n, tiles, static_cast<cudaStream_t>(stream)));
 }
 
+// Tensor-core probe ``variant`` (mxu_probes.cuh MxuVariant) over table (a
+// probe's A blocks, 16-byte aligned) and feats (F, [K, 2048]): ``tiles``
+// blocks of n iterations, tile b's best t into out[b] ([2048] f32) and,
+// unless ``fields`` is null, its fields into fields[b].
+extern "C" int rtjax_probe_mxu(int variant, const void* table,
+                               const void* feats, float* out, float* fields,
+                               int n, int tiles, void* stream) {
+  if (variant < 0 || variant >= kMxuVariants || tiles <= 0 || n < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(mxu_launch(variant, AllMxu{})(
+      table, feats, out, fields, n, tiles,
+      static_cast<cudaStream_t>(stream)));
+}
+
 // A kernel's registers, local bytes a thread, threads a block and resident
 // blocks an SM (kernels/probes.py KERNEL_IDS: 0 the copy, 1 the copy as a
 // programmatic dependent, 2 the sum, 3 the scalar walk, 4 clz, 16 + v
-// tile probe v).
+// tile probe v, 32 + v tensor-core probe v).
 extern "C" int rtjax_probe_kernel_info(int which, int* regs, int* local,
                                        int* block, int* blocks) {
   switch (which) {
@@ -361,6 +458,9 @@ extern "C" int rtjax_probe_kernel_info(int which, int* regs, int* local,
       return info(reinterpret_cast<const void*>(clz_kernel), kChainBlock, 0,
                   regs, local, block, blocks);
     default:
+      if (which >= 32 && which < 32 + kMxuVariants)
+        return info(mxu_function(which - 32, AllMxu{}), kTileThreads, 0,
+                    regs, local, block, blocks);
       if (which < 16 || which >= 16 + kVariants)
         return static_cast<int>(cudaErrorInvalidValue);
       return info(tile_function(which - 16, AllVariants{}), kTileThreads, 0,

@@ -18,7 +18,7 @@ under the repository root (a directory that .gitignore lists).
   include ``step_math.cuh``; kernels/step.py) and the step's stable key
   sort (``key_sort.cu``, which includes ``key_sort.cuh``;
   kernels/sort.py), and the TPU probes' counterparts (``probes.cu``, which
-  includes ``probes.cuh``; kernels/probes.py), compiled by nvcc for
+  includes ``probes.cuh`` and ``mxu_probes.cuh``; kernels/probes.py), compiled by nvcc for
   ``sm_90a`` and bound with ctypes.
 
 Each library is rebuilt when a source or a header it includes is newer
@@ -56,6 +56,7 @@ SORT_SOURCE = CSRC_DIR / "key_sort.cu"
 SORT_HEADER = CSRC_DIR / "key_sort.cuh"
 PROBES_SOURCE = CSRC_DIR / "probes.cu"
 PROBES_HEADER = CSRC_DIR / "probes.cuh"
+MXU_HEADER = CSRC_DIR / "mxu_probes.cuh"
 WALK_HEADER = CSRC_DIR / "wide_walk.cuh"
 FETCH_HEADER = CSRC_DIR / "fetch_walk.cuh"
 GROUP_HEADER = CSRC_DIR / "group_walk.cuh"
@@ -193,4 +194,4 @@ def key_sort_library() -> Path:
 def probes_library() -> Path:
     """Path of the compiled probe kernels (built if missing or stale)."""
     return _build(BUILD_DIR / "libprobes.so", [PROBES_SOURCE],
-                  [nvcc_path()] + NVCC_FLAGS, (PROBES_HEADER,))
+                  [nvcc_path()] + NVCC_FLAGS, (PROBES_HEADER, MXU_HEADER))

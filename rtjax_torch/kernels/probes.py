@@ -17,13 +17,20 @@ The port's probes compute the same checksums:
   the slab steps ``_make_slab_step`` / ``_row1`` / ``_fused`` and the leaf
   Möller–Trumbore steps ``make_leaf_mt_vpu`` / ``_nodiv``; by the names of
   :data:`TILE_VARIANTS`, micro_kernel.py's ``ALL``);
-- :func:`clz` (micro_kernel.py:777 ``make_clz``).
+- :func:`clz` (micro_kernel.py:777 ``make_clz``);
+- :func:`mxu_probe` (the tensor-core leaf tests, micro_kernel.py:387
+  ``make_leaf_mt_mxu``, :457 ``_full``, :529 ``_pair``, :602 ``_group``;
+  by the names of :data:`MXU_VARIANTS`; csrc/mxu_probes.cuh on
+  ``mma.sync``).
 
 Each takes the JAX probe's operands in its layout (the table ``[1024,
 128]`` f32, the rays ``[7 or 6, 16, 128]`` f32, the meta ``[1024]``
 int32) and returns ``[tiles]`` int32, one checksum a tile (a chain for the
 two scalar probes); every tile computes the same one, which
-:func:`checksum` checks.  ``tiles=1`` is the TPU probe's one core (one
+:func:`checksum` checks.  The tensor-core probes take their A table and F
+as rtjax builds them (:data:`MXU`) and return ``[tiles, 2048]`` f32, each
+ray's best t (11h: t + f32(prim) * 1e-9), every tile the same
+(:func:`same_tiles`).  ``tiles=1`` is the TPU probe's one core (one
 block, or one thread for a chain); :func:`full_card` gives the tiles that
 fill the card (every SM times its resident blocks, times the block's
 threads for a chain).
@@ -32,7 +39,11 @@ A CUDA tensor goes to the kernels (built at first use, bound with
 ctypes, launched on torch's current stream); a CPU tensor to the plain
 versions (``*_ref``), which compute one tile and repeat it.  There is no
 fallback between them.  Integer sums wrap modulo 2^32, as JAX's int32
-sums do.
+sums do.  The tensor-core probes' plain versions round as their kernels
+do (one TF32 pass, 3xTF32 or bf16: :func:`mxu_products`) and sum each
+mma's products in k order from zero, mma after mma; the tensor cores sum
+in their own order, so on the card the two agree bit for bit where every
+sum is exact (small integers, ``probes.micro_kernel.exact_operands``).
 
 Counts: ``LAUNCHES[name]`` one a kernel launch, ``REF_CALLS[name]`` one a
 plain call.
@@ -42,6 +53,7 @@ from __future__ import annotations
 
 import ctypes
 import threading
+from dataclasses import dataclass
 
 import torch
 
@@ -68,12 +80,93 @@ SLAB = {"slab_pair": (2, False), "slab_wide4": (4, False),
 LEAF = {"leaf_mt_vpu": "serial", "leaf_mt_vpu_nodiv": "nodiv",
         "leaf_mt_vpu_row1": "serial", "leaf_mt_vpu_par": "parallel"}
 
+
+@dataclass(frozen=True)
+class MxuSpec:
+    """A tensor-core probe (csrc/mxu_probes.cuh ``Mxu<V>``): rows of a
+    field (slots), fields, the product's depth K, A blocks in the table,
+    the precision ("bf16", "tf32" or "tf32x3"), the accept ("recip" 11e,
+    "winner" 11f, "pair" 11g, "group" 11h) and rtjax's table shape."""
+    slots: int
+    fields: int
+    k: int
+    blocks: int
+    prec: str
+    accept: str
+    table: tuple
+
+    @property
+    def rows(self) -> int:
+        return self.slots * self.fields
+
+    @property
+    def dtype(self):
+        return torch.bfloat16 if self.prec == "bf16" else torch.float32
+
+    @property
+    def out_fields(self) -> int:
+        """Rows of a tile's fields: t; t, prim; or t, u, v, prim, nx, ny,
+        nz."""
+        return {"recip": 1, "group": 2}.get(self.accept, 7)
+
+    @property
+    def leaves(self) -> int:
+        """Leaves of 8 triangles an iteration visits."""
+        return self.slots // 8 if self.accept == "group" else \
+            2 if self.accept == "pair" else 1
+
+    @property
+    def macs(self) -> int:
+        """The tensor cores' multiply-adds a tile iteration (3xTF32: three
+        products)."""
+        return self.rows * self.k * TILE_LANES * (
+            3 if self.prec == "tf32x3" else 1)
+
+
+MXU_PASSES = 16   # chunk passes a warp makes a tile iteration (kMxuPasses)
+
+# micro_kernel.py's tensor-core names -> csrc/mxu_probes.cuh MxuVariant;
+# _pair_unpacked's [112, 16] blocks are the packed [14, 128] blocks'
+# bytes, so one kernel serves _pair and _pair_unpacked
+MXU_VARIANTS = {"leaf_mt_mxu_f32": 0, "leaf_mt_mxu_bf16": 1,
+                "leaf_mt_mxu_full": 2, "leaf_mt_mxu_full_hi": 3,
+                "leaf_mt_mxu_pair": 4, "leaf_mt_mxu_pair_hi": 5,
+                "leaf_mt_mxu_pair_unpacked": 4, "leaf_mt_mxu_g8_splitk": 6,
+                "leaf_mt_mxu_g4_splitk": 7, "leaf_mt_mxu_g2_splitk": 8,
+                "leaf_mt_mxu_g8_f32": 9}
+MXU = {
+    "leaf_mt_mxu_f32": MxuSpec(8, 4, 16, 512, "tf32", "recip",
+                               (512 * 32, 16)),
+    "leaf_mt_mxu_bf16": MxuSpec(8, 4, 16, 512, "bf16", "recip",
+                                (512 * 32, 16)),
+    "leaf_mt_mxu_full": MxuSpec(8, 8, 16, 512, "tf32", "winner",
+                                (512 * 64, 16)),
+    "leaf_mt_mxu_full_hi": MxuSpec(8, 8, 16, 512, "tf32x3", "winner",
+                                   (512 * 64, 16)),
+    "leaf_mt_mxu_pair": MxuSpec(16, 7, 16, 512, "tf32", "pair",
+                                (512 * 14, 128)),
+    "leaf_mt_mxu_pair_hi": MxuSpec(16, 7, 16, 512, "tf32x3", "pair",
+                                   (512 * 14, 128)),
+    "leaf_mt_mxu_pair_unpacked": MxuSpec(16, 7, 16, 512, "tf32", "pair",
+                                         (512 * 112, 16)),
+    "leaf_mt_mxu_g8_splitk": MxuSpec(64, 4, 96, 128, "bf16", "group",
+                                     (128 * 256, 96)),
+    "leaf_mt_mxu_g4_splitk": MxuSpec(32, 4, 96, 128, "bf16", "group",
+                                     (128 * 128, 96)),
+    "leaf_mt_mxu_g2_splitk": MxuSpec(16, 4, 96, 128, "bf16", "group",
+                                     (128 * 64, 96)),
+    "leaf_mt_mxu_g8_f32": MxuSpec(64, 4, 16, 128, "tf32", "group",
+                                  (128 * 256, 16)),
+}
+
 # kernel ids of ``rtjax_probe_kernel_info``
 KERNEL_IDS = {"nop_copy": 0, "nop_copy_pdl": 1, "tile_sum": 2,
               "scalar_walk": 3, "clz": 4,
-              **{k: 16 + v for k, v in TILE_VARIANTS.items()}}
+              **{k: 16 + v for k, v in TILE_VARIANTS.items()},
+              **{k: 32 + v for k, v in MXU_VARIANTS.items()}}
 
-NAMES = ("nop_copy", "tile_sum", "scalar_walk", *TILE_VARIANTS, "clz")
+NAMES = ("nop_copy", "tile_sum", "scalar_walk", *TILE_VARIANTS, "clz",
+         *MXU_VARIANTS)
 LAUNCHES = {k: 0 for k in NAMES}
 REF_CALLS = {k: 0 for k in NAMES}
 
@@ -90,11 +183,13 @@ def bind(lib):
     lib.rtjax_probe_scalar_walk.argtypes = [_P, _P, _I32, _I32, _P]
     lib.rtjax_probe_clz.argtypes = [_P, _I32, _I32, _P]
     lib.rtjax_probe_tile.argtypes = [_I32, _P, _P, _P, _I32, _I32, _P]
+    lib.rtjax_probe_mxu.argtypes = [_I32, _P, _P, _P, _P, _I32, _I32, _P]
     lib.rtjax_probe_kernel_info.argtypes = ([_I32]
                                             + [ctypes.POINTER(_I32)] * 4)
     for f in (lib.rtjax_probe_copy, lib.rtjax_probe_sum,
               lib.rtjax_probe_scalar_walk, lib.rtjax_probe_clz,
-              lib.rtjax_probe_tile, lib.rtjax_probe_kernel_info):
+              lib.rtjax_probe_tile, lib.rtjax_probe_mxu,
+              lib.rtjax_probe_kernel_info):
         f.restype = _I32
     return lib
 
@@ -439,6 +534,162 @@ def tile_probe(name: str, table: torch.Tensor, rays: torch.Tensor, n: int,
         TILE_VARIANTS[name], table.data_ptr(), rays.data_ptr(),
         out.data_ptr(), n, tiles, _stream(table.device)))
     return out
+
+
+# ------------------------------------------------------ tensor-core probes
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """``cvt.rna.tf32.f32`` of an f32 tensor: 10 mantissa bits, nearest,
+    ties away from zero (the bit pattern plus half of its 13 dropped bits,
+    then the 13 cleared), NaN as the canonical NaN."""
+    bits = x.contiguous().view(torch.int32)
+    r = torch.bitwise_and(bits + 0x1000, -0x2000).view(torch.float32)
+    return torch.where(torch.isnan(x), torch.full_like(x, float("nan")), r)
+
+
+def mxu_products(spec: MxuSpec, a: torch.Tensor):
+    """The operand parts of one A (``[rows, K]`` or F ``[K, 2048]``) as its
+    kernel rounds them: ``[x]`` in f32 (bf16 operands, exact), ``[rna(x)]``
+    (TF32) or ``[big, small]`` (3xTF32)."""
+    x = a.float()
+    if spec.prec == "bf16":
+        return [x]
+    big = _tf32(x)
+    return [big] if spec.prec == "tf32" else [big, _tf32(x - big)]
+
+
+def _mxu_product(spec, a_parts, f_parts):
+    """A · F as the kernel issues it: each k-step (16 deep in bf16, 8 in
+    TF32) one mma, three for 3xTF32 (big·small, small·big, big·big), each
+    mma's products added to the sum in k order, from zero."""
+    step = 16 if spec.prec == "bf16" else 8
+    order = [(0, 1), (1, 0), (0, 0)] if spec.prec == "tf32x3" else [(0, 0)]
+    out = a_parts[0].new_zeros(spec.rows, TILE_LANES)
+    for k0 in range(0, spec.k, step):
+        for ia, ib in order:
+            a, f = a_parts[ia], f_parts[ib]
+            for k in range(k0, k0 + step):
+                out += a[:, k, None] * f[k]
+    return out
+
+
+def _mxu_lanes(name, table, feats, n):
+    """Each ray's fields after n iterations of probe ``name``'s plain
+    version: ``[out_fields, 2048]`` f32 (t first)."""
+    spec = MXU[name]
+    dev, f32 = feats.device, torch.float32
+    blocks = table.reshape(spec.blocks, spec.rows, spec.k)
+    f_parts = mxu_products(spec, feats)
+    S = spec.slots
+    best_t = torch.full((TILE_LANES,), BIG, dtype=f32, device=dev)
+    rest = [torch.full_like(best_t, BIG), torch.full_like(best_t, BIG),
+            torch.full_like(best_t, -1.0), torch.zeros_like(best_t),
+            torch.zeros_like(best_t), torch.zeros_like(best_t)]
+    best_p = torch.full((TILE_LANES,), -1, dtype=torch.int32, device=dev)
+    for i in range(n):
+        b = i % spec.blocks
+        out = _mxu_product(spec, mxu_products(spec, blocks[b]), f_parts)
+        if spec.accept == "recip":   # micro_kernel.py:371-383
+            det, un, vn, tn = out[0:8], out[8:16], out[16:24], out[24:32]
+            inv_det = torch.reciprocal(det)
+            u, v, t = un * inv_det, vn * inv_det, tn * inv_det
+            h = (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) & (t > 0.0) & \
+                (t < best_t)
+            best_t = torch.minimum(best_t, torch.where(h, t, BIG).amin(0))
+            continue
+        det, tn, un, vn = (out[f * S:(f + 1) * S] for f in range(4))
+        s = torch.where(det < 0.0, -1.0, 1.0)
+        adet, at_, au, av = det * s, tn * s, un * s, vn * s
+        h = (au >= 0.0) & (av >= 0.0) & (au + av <= adet) & (at_ > 0.0) & \
+            (at_ <= best_t * adet)
+        t_rows = torch.where(h, at_ / adet, BIG)
+        visit_t = t_rows.amin(0)
+        improved = visit_t < best_t
+        if spec.accept == "group":   # :578-590, the first row at the min
+            rows = torch.arange(S, dtype=torch.int32, device=dev)[:, None]
+            slot = torch.where(t_rows <= visit_t, rows, S).amin(0)
+            best_p = torch.where(improved, b * S + slot, best_p)
+            best_t = torch.where(improved, visit_t, best_t)
+            continue
+        slot = torch.argmin(t_rows, 0)   # :434-446, :506-516
+        take = lambda r: r.gather(0, slot[None])[0]   # noqa: E731
+        wdet = take(det)
+        if spec.accept == "pair":
+            pid = torch.tensor(float(b) * 8.0, dtype=f32, device=dev) + \
+                slot.to(f32)
+            normals = out[4 * S:7 * S]
+        else:
+            pid = take(out[4 * S:5 * S])
+            normals = out[5 * S:8 * S]
+        new = [take(un) / wdet, take(vn) / wdet, pid,
+               *(take(normals[f * S:(f + 1) * S]) for f in range(3))]
+        rest = [torch.where(improved, x, r) for x, r in zip(new, rest)]
+        best_t = torch.where(improved, visit_t, best_t)
+    if spec.accept == "recip":
+        return best_t[None]
+    if spec.accept == "group":
+        return torch.stack([best_t, best_p.to(f32)])
+    return torch.stack([best_t, *rest])
+
+
+def mxu_out(name: str, fields: torch.Tensor) -> torch.Tensor:
+    """A tile's out from its fields (``[..., out_fields, 2048]``): the best
+    t, for 11h t + f32(prim) * 1e-9 (micro_kernel.py:601)."""
+    t = fields[..., 0, :]
+    if MXU[name].accept != "group":
+        return t.clone()
+    nano = torch.tensor(1e-9, dtype=torch.float32, device=fields.device)
+    return t + fields[..., 1, :] * nano
+
+
+def mxu_probe_ref(name: str, table: torch.Tensor, feats: torch.Tensor,
+                  n: int):
+    """Plain version of :func:`mxu_probe`, one tile: ``(out [1, 2048],
+    fields [1, out_fields, 2048])``."""
+    REF_CALLS[name] += 1
+    fields = _mxu_lanes(name, table, feats, n)[None]
+    return mxu_out(name, fields), fields
+
+
+def mxu_probe(name: str, table: torch.Tensor, feats: torch.Tensor, n: int,
+              tiles: int = 1, fields: bool = False):
+    """Tensor-core probe ``name`` (:data:`MXU_VARIANTS`) of ``n``
+    iterations over ``table`` (rtjax's A blocks, :data:`MXU` ``table``,
+    block ``i % blocks`` at iteration i) and ``feats`` (F, ``[K, 2048]``),
+    bf16 or f32 as rtjax's probe: ``[tiles, 2048]`` f32, every tile the
+    same; with ``fields`` also each tile's ``[out_fields, 2048]``."""
+    if name not in MXU:
+        raise ValueError(f"unknown tensor-core probe {name!r}")
+    spec = MXU[name]
+    _check(table, "table", spec.dtype, spec.table)
+    _check(feats, "feats", spec.dtype, (spec.k, TILE_LANES))
+    if feats.device != table.device:
+        raise ValueError("feats must be on the table's device")
+    n, tiles = _iterations(n), _positive(tiles, "tiles")
+    if not _on_card(table):
+        out, fl = mxu_probe_ref(name, table, feats, n)
+        out = out.expand(tiles, -1).contiguous()
+        fl = fl.expand(tiles, -1, -1).contiguous()
+        return (out, fl) if fields else out
+    dev = table.device
+    out = torch.empty(tiles, TILE_LANES, dtype=torch.float32, device=dev)
+    fl = torch.empty(tiles, spec.out_fields, TILE_LANES, dtype=torch.float32,
+                     device=dev) if fields else None
+    _launched(name, _kernels().rtjax_probe_mxu(
+        MXU_VARIANTS[name], table.data_ptr(), feats.data_ptr(),
+        out.data_ptr(), None if fl is None else fl.data_ptr(), n, tiles,
+        _stream(dev)))
+    return (out, fl) if fields else out
+
+
+def same_tiles(out: torch.Tensor) -> torch.Tensor:
+    """Tile 0 of a tensor-core probe's ``[tiles, ...]`` f32 output, every
+    tile equal to it bit for bit (a tile that differs raises)."""
+    bits = out.contiguous().view(torch.int32).cpu()
+    bad = (bits != bits[0]).reshape(bits.shape[0], -1).any(1)
+    if bool(bad.any()):
+        raise AssertionError(f"{int(bad.sum())} of {bits.shape[0]} tiles "
+                             "differ from tile 0")
+    return out[0]
 
 
 # ------------------------------------------------------------ launch shape

@@ -63,7 +63,7 @@ def launch_ms(fn, reps: int = 3) -> tuple[float, float, float]:
     event is queued; if it is not, the spin is lengthened and the timing
     made again, three times at most.  Events between calls cost ~5 us a
     call of their own (PERF.md row 11a): time a short kernel in a chain
-    of calls between two events."""
+    of calls between two events (:func:`chain_ms`)."""
     import torch
     fn()
     torch.cuda.synchronize()
@@ -82,6 +82,42 @@ def launch_ms(fn, reps: int = 3) -> tuple[float, float, float]:
             return statistics.mean(ms), min(ms), max(ms)
         cycles *= 4
     raise RuntimeError("the host queued the timed calls for longer than "
+                       "the spin held the stream, three times")
+
+
+def chain_ms(make_calls, reps: int = 3) -> tuple[float, float, float]:
+    """``(mean, least, most)`` device time (ms) of one call in a chain:
+    ``make_calls()`` returns k prepared calls (each launching one kernel);
+    each of ``reps`` chains (after one warm-up chain) is queued behind a
+    spin kernel with one CUDA event before its first call and one after
+    its last, and timed per call.  ``make_calls`` runs before the chain's
+    first event, so a kernel that writes its own inputs gets a state copy
+    a call made there, outside the timed span.  As :func:`launch_ms`, the
+    spin is lengthened and the chains timed again if the host queued them
+    for longer than it held the stream."""
+    import torch
+    for call in make_calls():
+        call()
+    torch.cuda.synchronize()
+    cycles = SPIN_CYCLES
+    for _ in range(3):
+        chains = [make_calls() for _ in range(reps)]
+        torch.cuda.synchronize()
+        ev = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in chains]
+        torch.cuda._sleep(cycles)
+        for (start, end), calls in zip(ev, chains):
+            start.record()
+            for call in calls:
+                call()
+            end.record()
+        held = not torch.cuda.current_stream().query()
+        torch.cuda.synchronize()
+        if held:
+            ms = [a.elapsed_time(b) / len(c) for (a, b), c in zip(ev, chains)]
+            return statistics.mean(ms), min(ms), max(ms)
+        cycles *= 4
+    raise RuntimeError("the host queued the timed chains for longer than "
                        "the spin held the stream, three times")
 
 
@@ -112,6 +148,7 @@ def slope_ns(t_n: float, t_4n: float, n: int, factor: int = 4) -> float:
 _FUNCTION = re.compile(r"Function\s*:\s*(\S+)")
 _INSTR = re.compile(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);")
 _LABEL = re.compile(r"^\s*(\.L_x_\d+):")
+_HMMA = re.compile(r"\bHMMA\.")
 _TARGET = re.compile(
     r"\b(?:BRA|JMP)\b[^;]*?(?:0x([0-9a-f]+)|`\((\.L_x_\d+)\))")
 
@@ -176,11 +213,37 @@ def loop_body(instrs: list, labels: dict) -> list:
     return [s for b in blocks if not any("CALL" in s for s in b) for s in b]
 
 
+def mma_loop(instrs: list, labels: dict) -> list:
+    """The instructions of the innermost loop that issues an HMMA: the
+    narrowest backward branch whose span holds one (a tensor-core probe's
+    iteration loop; its chunk loop around it is wider), without the
+    out-of-line blocks, as :func:`loop_body`."""
+    spans = sorted((addr - t, t, addr) for addr, text in instrs
+                   if (t := _target(text, labels)) is not None and t <= addr)
+    for _, start, end in spans:
+        if any(start <= a <= end and _HMMA.search(s) for a, s in instrs):
+            inner = [(a, s) for a, s in instrs if start <= a <= end]
+            return loop_body(inner, labels)
+    return []
+
+
 def loop_instructions(sass: str) -> dict:
     """``{function: instructions}``: a warp's instructions in one
     iteration of each function's main loop (:func:`loop_body`), from
     cuobjdump's SASS of a library."""
     return {name: len(loop_body(*f)) for name, f in _functions(sass).items()}
+
+
+def mma_loop_instructions(sass: str) -> dict:
+    """``{function: (instructions, hmma)}``: a warp's instructions, and its
+    HMMA instructions, in one iteration of each function's innermost loop
+    that issues one (:func:`mma_loop`); (0, 0) for a function with
+    none."""
+    out = {}
+    for name, f in _functions(sass).items():
+        body = mma_loop(*f)
+        out[name] = (len(body), sum(bool(_HMMA.search(s)) for s in body))
+    return out
 
 
 def library_sass(lib: Path) -> str:

@@ -2747,7 +2747,7 @@ def _probe_sets(name):
     return sets
 
 
-@pytest.mark.parametrize("name", list(PMK.ALL))
+@pytest.mark.parametrize("name", [k for k in PMK.ALL if k not in PR.MXU])
 def test_probe_kernels_equal_plain_versions(cuda, name):
     """Each probe kernel's checksum equals its plain version's bit for bit
     at two iteration counts, at one tile and at the full card, every tile
@@ -2819,6 +2819,104 @@ def test_probe_wrappers_raise_without_their_library(cuda, monkeypatch,
                  lambda: PR.clz(3, 1, "cuda")):
         with pytest.raises(RuntimeError, match="nvcc not found"):
             call()
+
+
+# ---------------------------------- the tensor-core probes (rows 11e-11h)
+MXU_NAMES = list(PR.MXU)
+# the kernels against their plain versions on rtjax's kind of operands
+# (uniform [0, 1)): the tensor cores sum each mma's products in their own
+# order, the plain version in k order; at most K <= 96 roundings of 2^-24
+# in det and each numerator
+MXU_RTOL = 1e-5
+
+
+def _mxu_exact(name):
+    return [PMK._mxu_tensor(a, name) for a in PMK.exact_operands(
+        name, np.random.default_rng(26))]
+
+
+@pytest.mark.parametrize("name", MXU_NAMES)
+def test_mxu_kernels_equal_plain_versions_on_exact_operands(cuda, name):
+    """Each tensor-core kernel's out and fields equal its plain version's
+    bit for bit where every product is exact, at two counts (past the
+    group tables' 128 blocks), at one tile and at the full card."""
+    ops = _mxu_exact(name)
+    full = PR.full_card(name)
+    assert full >= torch.cuda.get_device_properties(0).multi_processor_count
+    for n in (3, 133):
+        want_out, want_fields = PR.mxu_probe_ref(name, *ops, n)
+        assert (want_out[0] < PR.BIG).any() and (want_out[0] >= PR.BIG).any()
+        for tiles in (1, full):
+            out, fields = PR.mxu_probe(name, *ops, n, tiles, fields=True)
+            assert out.shape == (tiles, PR.TILE_LANES) and out.is_cuda
+            assert torch.equal(PR.same_tiles(out), want_out[0])
+            assert torch.equal(PR.same_tiles(fields), want_fields[0])
+
+
+@pytest.mark.parametrize("name", MXU_NAMES)
+def test_mxu_kernels_match_plain_versions_on_rtjax_operands(cuda, name):
+    """On rtjax's kind of operands each tensor-core kernel matches its
+    plain version within MXU_RTOL (summation order), the same lanes hit,
+    at one tile and at the full card."""
+    ops = list(PMK.ALL[name][0](1, 1, "cuda")[1])
+    for n in (3, 133):
+        want = PR.mxu_probe_ref(name, *ops, n)[1][0]
+        for tiles in (1, PR.full_card(name)):
+            got = PR.same_tiles(PR.mxu_probe(name, *ops, n, tiles,
+                                             fields=True)[1])
+            assert torch.equal(got[0] >= PR.BIG, want[0] >= PR.BIG)
+            torch.testing.assert_close(got, want, rtol=MXU_RTOL, atol=0)
+
+
+def test_mxu_wrapper_raises_on_bad_inputs(cuda):
+    """A bad shape, dtype or device raises before any launch."""
+    table, feats = PMK.ALL["leaf_mt_mxu_bf16"][0](1, 1, "cuda")[1]
+    before = dict(PR.LAUNCHES)
+    for args, err in (((table[:-1], feats), ValueError),
+                      ((table.float(), feats), TypeError),
+                      ((table, feats.cpu()), ValueError),
+                      ((table, feats[:8]), ValueError)):
+        with pytest.raises(err):
+            PR.mxu_probe("leaf_mt_mxu_bf16", *args, 2)
+    with pytest.raises(ValueError, match="unknown"):
+        PR.mxu_probe("leaf_mt_vpu", table, feats, 2)
+    assert PR.LAUNCHES == before
+
+
+def test_mxu_entry_point_prints_its_lines(cuda, capsys):
+    """``python -m rtjax_torch.probes.micro_kernel leaf_mt_mxu_*``: the
+    line of a tensor-core probe has its bound, its HMMA instructions and
+    ns a leaf visit."""
+    names = ["leaf_mt_mxu_bf16", "leaf_mt_mxu_g2_splitk"]
+    out = PMK.main([*names, "--scale", "0.02"])
+    lines = capsys.readouterr().out.splitlines()
+    for name in names:
+        line = next(x for x in lines if x.startswith(f"{name}: "))
+        assert "HMMA" in line and "leaf visit" in line
+        rec = out[name]
+        assert rec["hmma"] > 0 and rec["one_tile"]["ns"] > 0
+        assert rec["one_tile"]["bound_ns"] >= rec["one_tile"]["tensor_ns"]
+
+
+# --------------------------------------------- the chained timer ([C 5])
+def test_chain_ms_times_a_chain_of_prepared_calls(cuda):
+    """``probes.chain_ms``: each chain's calls are made before its first
+    event (a copy an output here), a warm-up chain and ``reps`` chains;
+    a launch in a chain costs less than one alone between two events."""
+    import rtjax_torch.probes as PROBES
+    x = torch.zeros(16, 128, device="cuda")
+    made = []
+
+    def make():
+        ys = [torch.empty_like(x) for _ in range(32)]
+        made.append(ys)
+        return [lambda y=y: PR.nop_copy(x, y) for y in ys]
+
+    mean, least, most = PROBES.chain_ms(make, reps=3)
+    assert len(made) == 4 and 0 < least <= mean <= most
+    assert all(torch.equal(y, x) for ys in made for y in ys)
+    alone = PROBES.launch_ms(lambda: PR.nop_copy(x, made[0][0]), 3)[0]
+    assert mean < alone
 
 
 def test_probe_entry_points_print_their_lines(cuda, capsys):

@@ -41,7 +41,9 @@ from rtjax_torch.probes import micro_kernel as PMK
 from rtjax_torch.probes import stage_bench as PSB
 
 BENCH = _build.REPO_ROOT / "benchmarks"
-PORTED = list(PMK.ALL)
+# the probes of this file (the tensor-core ones are
+# tests/test_torch_mxu_probes.py's)
+PORTED = [k for k in PMK.ALL if k not in PK.MXU]
 N = {"scalar_walk": 8, "clz": 8}   # iterations a JAX case (tile probes 4)
 
 
@@ -101,17 +103,22 @@ def test_ported_names_are_rtjax_names():
     iteration counts, and every other name of rtjax's ``ALL`` is listed
     as not ported, with the ROADMAP item that holds it."""
     jmk = _import_probe("micro_kernel")
-    assert PORTED == ["scalar_walk", "slab_pair", "slab_wide4", "slab_wide8",
-                      "slab_wide8_row1", "slab_wide8_fused",
-                      "slab_wide16_fused", "leaf_mt_vpu",
-                      "leaf_mt_vpu_nodiv", "leaf_mt_vpu_row1",
-                      "leaf_mt_vpu_par", "clz"]
+    assert list(PMK.ALL) == [
+        "scalar_walk", "slab_pair", "slab_wide4", "slab_wide8",
+        "slab_wide8_row1", "slab_wide8_fused", "slab_wide16_fused",
+        "leaf_mt_vpu", "leaf_mt_vpu_nodiv", "leaf_mt_vpu_row1",
+        "leaf_mt_vpu_par", "leaf_mt_mxu_f32", "leaf_mt_mxu_bf16",
+        "leaf_mt_mxu_full", "leaf_mt_mxu_full_hi", "leaf_mt_mxu_pair",
+        "leaf_mt_mxu_pair_hi", "leaf_mt_mxu_pair_unpacked",
+        "leaf_mt_mxu_g8_splitk", "leaf_mt_mxu_g4_splitk",
+        "leaf_mt_mxu_g2_splitk", "leaf_mt_mxu_g8_f32", "clz"]
     assert {k: v[1] for k, v in PMK.ALL.items()} == \
-        {k: jmk.ALL[k][1] for k in PORTED}
+        {k: jmk.ALL[k][1] for k in PMK.ALL}
     assert set(PMK.ALL) | set(PMK.NOT_PORTED) == set(jmk.ALL)
     assert not set(PMK.ALL) & set(PMK.NOT_PORTED)
     assert all("ROADMAP" in v for v in PMK.NOT_PORTED.values())
     assert set(PK.TILE_VARIANTS) == set(PORTED) - {"scalar_walk", "clz"}
+    assert set(PK.MXU_VARIANTS) == set(PK.MXU) == set(PMK.ALL) - set(PORTED)
 
 
 @pytest.mark.parametrize("data", ["probe", "seeded"])
@@ -198,8 +205,8 @@ def _host_probes():
     src = Path(__file__).with_name("probes_host.cpp")
     out = _build._build(
         _build.BUILD_DIR / "libprobes_host.so", [src],
-        ["g++", "-O2", "-std=c++17", "-shared", "-fPIC",
-         f"-I{_build.CSRC_DIR}"], (_build.PROBES_HEADER,))
+        ["g++", "-O2", "-std=c++17", "-ffp-contract=off", "-shared", "-fPIC",
+         f"-I{_build.CSRC_DIR}"], (_build.PROBES_HEADER, _build.MXU_HEADER))
     return PK.bind(ctypes.CDLL(str(out)))
 
 
@@ -278,7 +285,7 @@ def test_library_exports_the_entry_points_bind_binds():
     card = _exports(_build.PROBES_SOURCE)
     host = _exports(Path(__file__).with_name("probes_host.cpp"))
     assert card == host == ["rtjax_probe_clz", "rtjax_probe_copy",
-                            "rtjax_probe_kernel_info",
+                            "rtjax_probe_kernel_info", "rtjax_probe_mxu",
                             "rtjax_probe_scalar_walk", "rtjax_probe_sum",
                             "rtjax_probe_tile"]
     assert _host_probes().rtjax_probe_tile.restype is ctypes.c_int
@@ -339,7 +346,7 @@ def test_entry_points_refuse_unported_names_and_a_missing_card(monkeypatch):
     """A name rtjax has but the port not yet exits with its ROADMAP item;
     an unknown name exits; with no card the entry points exit."""
     with pytest.raises(SystemExit, match="ROADMAP.md Queue B"):
-        PMK.main(["clz", "leaf_mt_mxu_f32"])
+        PMK.main(["clz", "mxu_hbm_full"])
     with pytest.raises(SystemExit, match="no such probe"):
         PMK.main(["traverse_coherent"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -561,7 +561,8 @@ def time_state(scene, camera, cfg, state, words, fb, it, cam_start, c,
     each kernel's device ms a launch (``chip_smoke._launch_ms`` of its
     entry point called with argument blocks made before), in turns:
     first, ..., last, last, ..., first (under the default mode route_v1
-    before route and shade_v1 before shade); its byte bound and share,
+    before route and shade_v1 before shade), and a launch in a chain
+    (``chain_ms``, ``chip_smoke._chain_ms``); its byte bound and share,
     registers and resident warps; one wrapper call and one plain call of
     each of the mode's kernels (CUDA events, median); the key sort of
     the keys in turns with torch.sort (:func:`sort_timing`, ``key_sort``;
@@ -600,14 +601,13 @@ def time_state(scene, camera, cfg, state, words, fb, it, cam_start, c,
     blocks = 6 * (reps + 1)
     a_res = S.resolve_args(cfg, sh_copy(), occ, r_it, r_k, cam_start, rays,
                            rays.clone(), hits(), hist(), restore=parity)[0]
-    fns = {kernels[-1]: call(kernels[-1], iter([a_res] * blocks))}
-    for name, make in design_blocks(scene, camera, cfg, state, words, fb,
-                                    it, cam_start, c).items():
-        fns[name] = call(name, blocks_of(make, blocks))
+    makes = design_blocks(scene, camera, cfg, state, words, fb, it,
+                          cam_start, c)
+    makes[kernels[-1]] = lambda: a_res
     v1 = first_designs(mode)
     r_v1 = resolve_first_design(mode)
     if r_v1:
-        fns[r_v1] = call(r_v1, iter([a_res] * blocks))
+        makes[r_v1] = lambda: a_res
     turns = turns_of(mode)
     base = plain_resolve(kernels[-1])
     if base:
@@ -616,8 +616,10 @@ def time_state(scene, camera, cfg, state, words, fb, it, cam_start, c,
             dataclasses.replace(cfg, detailed_stats=False), sh_copy(), occ,
             r_it, r_k, cam_start, rays, rays.clone(), hits(), None,
             restore=parity)[0]
-        fns[base] = call(base, iter([a_base] * blocks))
+        makes[base] = lambda: a_base
         turns += (base,)
+    fns = {name: call(name, blocks_of(make, blocks))
+           for name, make in makes.items()}
     bounds, work = _bounds(scene, cfg, c)
     out = {name: dict(ms=[], **bounds[name]) for name in turns}
     for name in turns + turns[::-1]:
@@ -628,6 +630,27 @@ def time_state(scene, camera, cfg, state, words, fb, it, cam_start, c,
         if "function_bound_ms" in r:
             r["function_share"] = r["function_bound_ms"] / r["mean_ms"]
         r.update(S.kernel_info(name))
+    # [C 5]: each timed kernel in a chain of C.CHAIN_CALLS between two
+    # events (one launch alone between events carries their ~5 us floor),
+    # the chain's argument blocks made before it: under the default mode
+    # each launch on its own (shade and resolve on copies of what they
+    # write); elsewhere the blocks the events' timing launches on (the
+    # unsorted engine's route-and-shade a new one on its own copies each
+    # launch, :func:`design_blocks`)
+    if mode == "default":
+        makes |= {
+            kernels[0]: lambda: S.route_args(scene, cfg, state, words)[0],
+            kernels[1]: lambda: S.shade_args(
+                scene, camera, cfg, _copy(state), fb.clone(), words,
+                c["order"], c["bundle"], c["counts"].clone(), it, cam_start,
+                k)[0],
+            kernels[2]: lambda: S.resolve_args(
+                cfg, sh_copy(), occ, r_it, r_k, cam_start, rays,
+                rays.clone(), hits(), hist(), restore=parity)[0]}
+    for name, r in out.items():
+        r["chain_ms"] = C._chain_ms(None, lambda make=makes[name], name=name: [
+            call(name, iter([make()])) for _ in range(C.CHAIN_CALLS)])
+        r["chain_share"] = r["bound_ms"] / r["chain_ms"]
     # one wrapper call (the host's launch included) and one plain call of
     # each of the mode's kernels
     st = _copy(state)
@@ -742,6 +765,8 @@ def sort_timing(scene, cfg, c, it, reps=5):
         return None
     t = SDs.time_sort(keys, reps=reps)
     t["lanes"] = keys.shape[0]
+    # [C 5]: a sort (its five kernels) in a chain between two events
+    t["chain_ms"] = C._chain_ms(lambda: SO.stable_order(keys))
     k = WF.resolve_sort_every(scene, cfg)
     if S.engine_of(c["mode"]) == "default" and k > 1 and \
             not bool(c["do_gen"]):
